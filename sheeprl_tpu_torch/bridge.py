@@ -1,0 +1,180 @@
+"""Carry DreamerV3 weights from the JAX package's param trees into the port.
+
+Input: the ``world_model`` and ``actor`` trees of the JAX train state as
+nested dicts of numpy arrays (with or without the top ``params`` level).
+Output: state dicts for the port's ``WorldModel`` and ``Actor``.
+
+- A Dense ``[in, out]`` kernel becomes a Linear ``[out, in]`` weight.
+- A conv HWIO kernel becomes OIHW.
+- ``LayerNorm_i/LayerNorm_0/{scale, bias}`` becomes ``norms.i.{weight, bias}``.
+- The GRU's ``linear/kernel`` [D, 3H] is kept as it is: its rows are in
+  ``[h, x]`` order and the port's cell and kernel read that layout.
+- The CNN embedding stays flattened in HWC order: the port flattens NHWC,
+  so the next Dense's rows need no permutation.
+- World-model subtrees that acting does not use (decoders, reward and
+  continue heads) are skipped by name after a check that they are well
+  formed; any other key, missing or left over, raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+StateDict = Dict[str, torch.Tensor]
+_UNUSED_WORLD_MODEL_KEYS = ("cnn_decoder", "mlp_decoder", "reward_model", "continue_model")
+
+
+def _tensor(x: Any) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype.kind != "f":
+        raise ValueError(f"expected a float array, got dtype {arr.dtype}")
+    return torch.from_numpy(np.array(arr, dtype=np.float32))
+
+
+def _take(tree: Mapping[str, Any], path: str) -> Dict[str, Any]:
+    if not isinstance(tree, Mapping):
+        raise ValueError(f"{path}: expected a mapping, got {type(tree).__name__}")
+    return dict(tree)
+
+
+def _done(rest: Dict[str, Any], path: str) -> None:
+    if rest:
+        raise ValueError(f"{path}: unexpected keys {sorted(rest)}")
+
+
+def _check_well_formed(tree: Any, path: str) -> None:
+    """A skipped subtree must still be nested mappings of float arrays."""
+    if isinstance(tree, Mapping):
+        if not tree:
+            raise ValueError(f"{path}: empty subtree")
+        for key, sub in tree.items():
+            _check_well_formed(sub, f"{path}/{key}")
+        return
+    try:
+        _tensor(tree)
+    except (TypeError, ValueError) as err:
+        raise ValueError(f"{path}: malformed leaf ({err})") from None
+
+
+def _dense(tree: Any, path: str, prefix: str, out: StateDict) -> None:
+    rest = _take(tree, path)
+    kernel = _tensor(rest.pop("kernel"))
+    if kernel.dim() != 2:
+        raise ValueError(f"{path}/kernel: expected [in, out], got {tuple(kernel.shape)}")
+    out[f"{prefix}weight"] = kernel.t().contiguous()
+    if "bias" in rest:
+        out[f"{prefix}bias"] = _tensor(rest.pop("bias"))
+    _done(rest, path)
+
+
+def _conv(tree: Any, path: str, prefix: str, out: StateDict) -> None:
+    rest = _take(tree, path)
+    kernel = _tensor(rest.pop("kernel"))
+    if kernel.dim() != 4:
+        raise ValueError(f"{path}/kernel: expected HWIO, got {tuple(kernel.shape)}")
+    out[f"{prefix}weight"] = kernel.permute(3, 2, 0, 1).contiguous()
+    if "bias" in rest:
+        out[f"{prefix}bias"] = _tensor(rest.pop("bias"))
+    _done(rest, path)
+
+
+def _layer_norm(tree: Any, path: str, prefix: str, out: StateDict) -> None:
+    rest = _take(tree, path)
+    inner = _take(rest.pop("LayerNorm_0"), f"{path}/LayerNorm_0")
+    out[f"{prefix}weight"] = _tensor(inner.pop("scale"))
+    out[f"{prefix}bias"] = _tensor(inner.pop("bias"))
+    _done(inner, f"{path}/LayerNorm_0")
+    _done(rest, path)
+
+
+def _stack(tree: Any, path: str, prefix: str, out: StateDict, layer: str, port_layer: str, convert) -> None:
+    """An MLP (``layer="dense"``) or CNN (``layer="conv"``): ``{layer}_i``,
+    ``LayerNorm_i`` and, for an MLP, ``output``."""
+    rest = _take(tree, path)
+    for key in sorted(rest):
+        name, _, idx = key.rpartition("_")
+        if name == layer and idx.isdigit():
+            convert(rest.pop(key), f"{path}/{key}", f"{prefix}{port_layer}.{idx}.", out)
+        elif name == "LayerNorm" and idx.isdigit():
+            _layer_norm(rest.pop(key), f"{path}/{key}", f"{prefix}norms.{idx}.", out)
+    if layer == "dense" and "output" in rest:
+        _dense(rest.pop("output"), f"{path}/output", f"{prefix}output.", out)
+    _done(rest, path)
+
+
+def _mlp(tree: Any, path: str, prefix: str, out: StateDict) -> None:
+    _stack(tree, path, prefix, out, "dense", "dense", _dense)
+
+
+def _gru(tree: Any, path: str, prefix: str, out: StateDict) -> None:
+    rest = _take(tree, path)
+    linear = _take(rest.pop("linear"), f"{path}/linear")
+    out[f"{prefix}weight"] = _tensor(linear.pop("kernel"))  # [D, 3H], rows [h, x]
+    if "bias" in linear:
+        out[f"{prefix}bias"] = _tensor(linear.pop("bias"))
+    _done(linear, f"{path}/linear")
+    _layer_norm(rest.pop("norm"), f"{path}/norm", f"{prefix}norm.", out)
+    _done(rest, path)
+
+
+def _params(tree: Mapping[str, Any]) -> Dict[str, Any]:
+    tree = _take(tree, "<root>")
+    if set(tree) == {"params"}:
+        tree = _take(tree["params"], "params")
+    return tree
+
+
+def mlp_state_dict(tree: Mapping[str, Any]) -> StateDict:
+    """A port ``MLP``'s state dict from a flax ``MLP``'s params."""
+    out: StateDict = {}
+    _mlp(_params(tree), "mlp", "", out)
+    return out
+
+
+def cnn_state_dict(tree: Mapping[str, Any]) -> StateDict:
+    """A port ``CNN``'s state dict from a flax ``CNN``'s params."""
+    out: StateDict = {}
+    _stack(_params(tree), "cnn", "", out, "conv", "convs", _conv)
+    return out
+
+
+def world_model_state_dict(tree: Mapping[str, Any]) -> StateDict:
+    """The port's ``WorldModel`` state dict from the JAX world-model params."""
+    rest = _params(tree)
+    out: StateDict = {}
+    for key in _UNUSED_WORLD_MODEL_KEYS:
+        if key in rest:
+            _check_well_formed(rest.pop(key), key)
+    if "cnn_encoder" in rest:
+        enc = _take(rest.pop("cnn_encoder"), "cnn_encoder")
+        _stack(enc.pop("model"), "cnn_encoder/model", "cnn_encoder.model.", out, "conv", "convs", _conv)
+        _done(enc, "cnn_encoder")
+    if "mlp_encoder" in rest:
+        enc = _take(rest.pop("mlp_encoder"), "mlp_encoder")
+        _mlp(enc.pop("model"), "mlp_encoder/model", "mlp_encoder.model.", out)
+        _done(enc, "mlp_encoder")
+    rec = _take(rest.pop("recurrent_model"), "recurrent_model")
+    _mlp(rec.pop("mlp"), "recurrent_model/mlp", "recurrent_model.mlp.", out)
+    _gru(rec.pop("rnn"), "recurrent_model/rnn", "recurrent_model.rnn.", out)
+    _done(rec, "recurrent_model")
+    _mlp(rest.pop("representation_model"), "representation_model", "representation_model.", out)
+    _mlp(rest.pop("transition_model"), "transition_model", "transition_model.", out)
+    out["initial_recurrent_state"] = _tensor(rest.pop("initial_recurrent_state"))
+    _done(rest, "world_model")
+    return out
+
+
+def actor_state_dict(tree: Mapping[str, Any]) -> StateDict:
+    """The port's ``Actor`` state dict from the JAX actor params."""
+    rest = _params(tree)
+    out: StateDict = {}
+    _mlp(rest.pop("model"), "model", "model.", out)
+    for key in sorted(rest):
+        name, _, idx = key.rpartition("_")
+        if name == "head" and idx.isdigit():
+            _dense(rest.pop(key), key, f"heads.{idx}.", out)
+    _done(rest, "actor")
+    return out

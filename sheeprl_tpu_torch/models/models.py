@@ -1,0 +1,173 @@
+"""NN building blocks (counterpart of sheeprl_tpu/models/models.py).
+
+- Parameters are f32 and each block runs in its ``dtype`` (the precision
+  policy's compute dtype), casting weights at use, as flax's
+  ``dtype``/``param_dtype`` pair does.
+- :class:`LayerNorm` takes its statistics in f32 and returns the input dtype.
+- :class:`CNN` keeps the JAX package's NHWC layout at its interface. Inside,
+  each convolution sees an NCHW view of channels-last memory, so no copy is
+  made to change layout.
+- :class:`LayerNormGRUCell` keeps its projection weight as [D, 3H] (the
+  flax kernel's layout, rows in ``[h, x]`` order) because that is how the
+  CUDA kernel reads it; the step is one :func:`ln_gru_forward` call.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sheeprl_tpu_torch.models.ln_gru import ln_gru_forward
+
+_ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
+    "relu": F.relu,
+    "tanh": torch.tanh,
+    "silu": F.silu,
+    "swish": F.silu,
+    "gelu": F.gelu,
+    "elu": F.elu,
+    "sigmoid": torch.sigmoid,
+    "identity": lambda x: x,
+    "none": lambda x: x,
+}
+
+
+def get_activation(act: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
+    if act is None:
+        return _ACTIVATIONS["identity"]
+    try:
+        return _ACTIVATIONS[str(act).lower()]
+    except KeyError:
+        raise ValueError(f"Unknown activation '{act}'. Valid: {sorted(_ACTIVATIONS)}") from None
+
+
+def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
+    """``layer`` applied in ``x``'s dtype."""
+    bias = layer.bias.to(x.dtype) if layer.bias is not None else None
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis with f32 statistics, returning the input dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.dim = int(dim)
+        self.eps = float(eps)
+        self.weight = nn.Parameter(torch.ones(self.dim))
+        self.bias = nn.Parameter(torch.zeros(self.dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), (self.dim,), self.weight, self.bias, self.eps).to(x.dtype)
+
+
+class MLP(nn.Module):
+    """``hidden_sizes`` blocks of Linear -> [LayerNorm] -> activation, then an
+    optional bare Linear head of ``output_dim``."""
+
+    def __init__(
+        self,
+        input_dim: int,
+        hidden_sizes: Sequence[int] = (),
+        output_dim: Optional[int] = None,
+        activation: Optional[str] = "relu",
+        norm_eps: Optional[float] = None,
+        bias: bool = True,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if len(hidden_sizes) < 1 and output_dim is None:
+            raise ValueError("The number of layers should be at least 1.")
+        self.dtype = dtype
+        self.act = get_activation(activation)
+        sizes = [int(input_dim), *[int(s) for s in hidden_sizes]]
+        self.dense = nn.ModuleList(nn.Linear(i, o, bias=bias) for i, o in zip(sizes[:-1], sizes[1:]))
+        self.norms = nn.ModuleList(LayerNorm(o, norm_eps) for o in sizes[1:]) if norm_eps is not None else None
+        self.output = nn.Linear(sizes[-1], int(output_dim)) if output_dim is not None else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.dtype)
+        for i, layer in enumerate(self.dense):
+            x = linear(x, layer)
+            if self.norms is not None:
+                x = self.norms[i](x)
+            x = self.act(x)
+        if self.output is not None:
+            x = linear(x, self.output)
+        return x
+
+
+class CNN(nn.Module):
+    """Conv -> [LayerNorm over channels] -> activation stages; NHWC in, NHWC out."""
+
+    def __init__(
+        self,
+        input_channels: int,
+        hidden_channels: Sequence[int],
+        kernel_size: int = 3,
+        stride: int = 1,
+        padding: int = 0,
+        activation: Optional[str] = "relu",
+        norm_eps: Optional[float] = None,
+        bias: bool = True,
+        dtype: torch.dtype = torch.float32,
+    ):
+        super().__init__()
+        if len(hidden_channels) < 1:
+            raise ValueError("The number of layers should be at least 1.")
+        self.dtype = dtype
+        self.act = get_activation(activation)
+        self.stride = int(stride)
+        self.padding = int(padding)
+        chans = [int(input_channels), *[int(c) for c in hidden_channels]]
+        self.convs = nn.ModuleList(
+            nn.Conv2d(i, o, int(kernel_size), stride=self.stride, padding=self.padding, bias=bias)
+            for i, o in zip(chans[:-1], chans[1:])
+        )
+        self.norms = nn.ModuleList(LayerNorm(o, norm_eps) for o in chans[1:]) if norm_eps is not None else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        batch_shape = x.shape[:-3]
+        x = x.reshape(-1, *x.shape[-3:]).to(self.dtype)
+        for i, conv in enumerate(self.convs):
+            bias = conv.bias.to(x.dtype) if conv.bias is not None else None
+            # NCHW view of channels-last memory in, channels-last NCHW out.
+            y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), bias, self.stride, self.padding)
+            x = y.permute(0, 2, 3, 1)
+            if self.norms is not None:
+                x = self.norms[i](x)
+            x = self.act(x)
+        return x.reshape(*batch_shape, *x.shape[1:])
+
+
+class LayerNormGRUCell(nn.Module):
+    """Hafner GRU cell, LayerNorm after the fused input projection:
+
+        z = LN(W [h, x] (+ b))
+        h' = sigmoid(z_u - 1) * tanh(sigmoid(z_r) * z_c) + (1 - sigmoid(z_u - 1)) * h
+
+    The whole step is :func:`ln_gru_forward`: the CUDA kernel for CUDA
+    tensors, its plain version for CPU tensors. The cell's LayerNorm uses eps
+    1e-5 whatever the model's other norms use, as in the JAX cell."""
+
+    def __init__(self, input_size: int, hidden_size: int, bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.hidden_size = int(hidden_size)
+        self.dtype = dtype
+        width = 3 * self.hidden_size
+        self.weight = nn.Parameter(torch.empty(self.hidden_size + int(input_size), width))
+        self.bias = nn.Parameter(torch.zeros(width)) if bias else None
+        self.norm = LayerNorm(width)
+        self.register_buffer("zero_bias", torch.zeros(width), persistent=False)
+
+    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        batch_shape = h.shape[:-1]
+        h2 = h.reshape(-1, self.hidden_size).to(self.dtype).contiguous()
+        inp = torch.cat([h2, x.reshape(h2.shape[0], -1).to(self.dtype)], dim=-1)
+        # The bias is rounded to the compute dtype first, as the JAX cell does.
+        bias = self.bias.to(self.dtype).float() if self.bias is not None else self.zero_bias
+        h_new, _ = ln_gru_forward(inp, self.weight.to(self.dtype), bias, self.norm.weight, self.norm.bias, h2)
+        return h_new.reshape(*batch_shape, self.hidden_size)

@@ -1,0 +1,57 @@
+"""The port stands alone: importing every module of sheeprl_tpu_torch loads
+no JAX, no module of sheeprl_tpu, and none of gymnasium, yaml, flax or orbax
+(which the machine with the card does not have). Checked in a subprocess,
+since tests/conftest.py imports JAX into this one. Its entry points run on
+CUDA unless asked for the CPU, so on this CUDA-less host they raise."""
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gymnasium", "yaml", "sheeprl_tpu")
+
+_IMPORT_ALL = """
+import importlib, json, pkgutil, sys
+import sheeprl_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(sheeprl_tpu_torch.__path__, "sheeprl_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+print(json.dumps({"modules": names, "loaded": sorted({m.split(".")[0] for m in sys.modules})}))
+"""
+
+
+def test_import_every_module_without_jax_or_the_jax_package():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "sheeprl_tpu_torch.serve.engine" in report["modules"] and "sheeprl_tpu_torch.bridge" in report["modules"]
+    assert not [m for m in report["loaded"] if m in FORBIDDEN]
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.serve import dreamer_v3_s_ms_pacman_config
+    from sheeprl_tpu_torch.serve.engine import InferenceEngine
+    from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceEngine(autostart=False)
+    obs_space = DictSpace({"rgb": Box((64, 64, 3), "uint8", 0.0, 255.0)})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_agent((9,), False, dotdict(dreamer_v3_s_ms_pacman_config()), obs_space)
+
+
+def test_chip_smoke_refuses_to_run_without_a_card():
+    out = subprocess.run([sys.executable, str(REPO / "chip_smoke.py")], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout
