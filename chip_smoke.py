@@ -8,27 +8,42 @@ Run from the root of a checkout, on a machine with an H100:
 Phases (any failure exits non-zero before the result line):
 
 1. Device: a CUDA card must be present; print its name and power limit.
-2. Build: compile every CUDA kernel of the port from csrc/ with nvcc.
-3. Kernels against their plain versions on the card: the LN-GRU step at
-   DreamerV3-S shapes (D=1024, H=512, B in 1, 2, 4, 8, 64), an unaligned shape
-   (B=3, D=200, H=100) and the XL shape (D=5120, H=4096, B=8), in f32 with
-   TF32 off and in bf16. Tolerances: z within rtol 1e-4 / atol 1e-4 and h'
-   within atol 1e-4 in f32; h' within one bf16 ulp (+1e-5 near 0) in bf16. Median times
-   from CUDA events over back-to-back launches (queued behind a device sleep
-   so host overhead does not show, W rotated through copies larger than the
-   50 MB L2), beside the bound from bytes and operations.
-4. Serving, the main path: write a DreamerV3-S / MsPacman artifact from the
-   port's seeded initialiser (bf16-mixed), load it with InferenceEngine,
-   serve it with PolicyServer on 127.0.0.1, check /healthz and /v1/models,
-   send 4 sessions x 5 steps of POST /v1/act concurrently in greedy and in
-   sample mode, check every action is in [0, 9), replay a session with its
-   seed and observations and get the same actions, and check the kernel ran
-   at least once per served batch. Then close with drain.
-5. Step profile: host wall and device-busy time of one served batch of 4
-   (torch.profiler), the device's idle share and the heaviest kernels.
-6. Reference: the same weights at 32-true on the card (kernel) and on the
-   CPU (plain version) step 5 times from the same generators; recurrent
-   states must agree within 1e-3 and the actions must be equal.
+2. Build: compile every CUDA kernel of the port from csrc/ with nvcc, one
+   nvcc per source, all at once.
+3. The LN-GRU forward against its plain version on the card: DreamerV3-S
+   shapes (D=1024, H=512) at the serving buckets B = 1, 2, 4, 8, at the
+   training path's B = 16 (dynamic scan) and B = 1024 (imagination) and at
+   B = 64, an unaligned shape (B=3, D=200, H=100) and the XL shape (D=5120,
+   H=4096, B=8), in f32 with TF32 off and in bf16. Tolerances: z within rtol
+   1e-4 / atol 1e-4 and h' within atol 1e-4 in f32; h' within one bf16 ulp
+   (+1e-5 near 0) in bf16. Median times from CUDA events over back-to-back
+   launches (queued behind a device sleep so host overhead does not show,
+   inputs rotated through copies larger than the 50 MB L2), beside the bound
+   from bytes and operations.
+4. The LN-GRU backward against its plain version, at B = 16 and 1024
+   (H = 512) and B = 3, H = 100, f32 and bf16 (tolerances in
+   ``phase_backward``), timed the same way.
+5. The cell's gradients on the card: LayerNormGRUCell (the autograd Function
+   over both kernels) against torch autograd through the plain version.
+6. Serving: write a DreamerV3-S / MsPacman artifact from the port's seeded
+   initialiser (bf16-mixed), load it with InferenceEngine, serve it with
+   PolicyServer on 127.0.0.1, check /healthz and /v1/models, send 4 sessions
+   x 5 steps of POST /v1/act concurrently in greedy and in sample mode, check
+   every action is in [0, 9), replay a session with its seed and
+   observations and get the same actions, and check the kernel ran at least
+   once per served batch (counts zeroed just before, read just after). Then
+   close with drain. Then the served batch's step profile and a 32-true
+   card-versus-CPU reference of 5 player steps.
+7. Training, the main path: ``python -m sheeprl_tpu_torch
+   exp=dreamer_v3_100k_ms_pacman env=dummy`` in process, DV3-S at full
+   width, bf16-mixed, batch 16 x 64, horizon 15, with learning_starts,
+   total_steps and buffer.size cut (listed in the output) so it takes 8
+   gradient steps. Counts zeroed just before, read just after: at least 79
+   forward and 64 backward launches per gradient step. Finite losses; the
+   world model, actor and critic moved; the target critic followed its EMA
+   cadence. Then the gradient step's profile (host wall, device busy, idle
+   share, device operations, peak memory) and a 32-true gradient step on the
+   card against the CPU with the card's categorical draws replayed.
 
 Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Details go to
@@ -157,6 +172,21 @@ def gru_bound(batch, depth, hidden, dtype) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def rotated(args, fn):
+    """A call of ``fn`` on one of several copies of ``args`` that together
+    exceed L2, so each call finds its inputs in HBM."""
+    nbytes = sum(a.numel() * a.element_size() for a in args)
+    copies = max(1, math.ceil(2 * L2_BYTES / nbytes))
+    sets = [args] + [tuple(a.clone() for a in args) for _ in range(min(copies, 32) - 1)]
+    cursor = [0]
+
+    def call():
+        cursor[0] = (cursor[0] + 1) % len(sets)
+        fn(*sets[cursor[0]])
+
+    return call
+
+
 def phase_kernels():
     import torch
 
@@ -165,7 +195,9 @@ def phase_kernels():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # DV3-S at every serving bucket of the default max_batch (1, 2, 4, 8) and at 64, unaligned, XL.
-    shapes = [(1, 1024, 512), (2, 1024, 512), (4, 1024, 512), (8, 1024, 512), (64, 1024, 512), (3, 200, 100), (8, 5120, 4096)]
+    # ... and at the training path's B = 16 (dynamic scan) and B = 1024 (imagination).
+    shapes = [(1, 1024, 512), (2, 1024, 512), (4, 1024, 512), (8, 1024, 512), (16, 1024, 512), (64, 1024, 512),
+              (1024, 1024, 512), (3, 200, 100), (8, 5120, 4096)]  # fmt: skip
     rows = []
     for batch, depth, hidden in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -191,22 +223,11 @@ def phase_kernels():
                 ok = bool((err_z <= 1e-4 + 1e-4 * z_p.abs()).all() and (err_h <= ulp + 1e-5).all())
             if not ok:
                 fail(f"ln_gru disagrees with ln_gru_plain at B={batch} D={depth} H={hidden} {dname}: max |dh| {err_h.max().item()}, max |dz| {err_z.max().item()}")
-            # Rotate W (and its inputs) through copies that exceed L2, as a
+            # W and its inputs rotate through copies that exceed L2, as a
             # serving step finds W after the rest of the model has run.
-            copies = max(1, math.ceil(2 * L2_BYTES / (args[1].numel() * args[1].element_size())))
-            sets = [args] + [tuple(a.clone() for a in args) for _ in range(min(copies, 32) - 1)]
-            cursor = [0]
-
-            def run(fn):
-                def call():
-                    cursor[0] = (cursor[0] + 1) % len(sets)
-                    fn(*sets[cursor[0]])
-
-                return call
-
-            kernel_ms = device_ms(run(ln_gru_forward))
-            plain_ms = device_ms(run(ln_gru_plain))
-            split = kernel_split_ms(run(ln_gru_forward)) if (batch, depth, hidden, dname) == MAIN_SHAPE else None
+            kernel_ms = device_ms(rotated(args, ln_gru_forward))
+            plain_ms = device_ms(rotated(args, ln_gru_plain))
+            split = kernel_split_ms(rotated(args, ln_gru_forward)) if (batch, depth, hidden, dname) == MAIN_SHAPE else None
             bound_ms, bound_by = gru_bound(batch, depth, hidden, dname)
             row = {
                 "shape": f"B={batch} D={depth} H={hidden}",
@@ -224,9 +245,129 @@ def phase_kernels():
             rows.append(row)
             log(f"ln_gru {row['shape']} {dname}: ok, max|dh| {row['max_abs_err_h']:.3g}, max|dz| {row['max_abs_err_z']:.3g}, "
                 f"kernel {kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({bound_by})")  # fmt: skip
-            del sets, args
+            del args
             torch.cuda.empty_cache()
     return rows
+
+
+def gru_bwd_bound(batch, hidden, dtype) -> tuple:
+    """(least ms, "bytes" or "operations") of the LN-GRU tail's backward:
+    g, h and dh_tail in the compute dtype, z and dz in f32, scale, ln_bias,
+    dscale and dln_bias in f32 read or written once; 40 f32 operations per z
+    element (statistics, gates, their derivatives, the two row means)."""
+    e = 4 if dtype == "float32" else 2
+    width = 3 * hidden
+    nbytes = 3 * batch * hidden * e + 2 * batch * width * 4 + 4 * width * 4
+    ops = 40 * batch * width
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS_PER_S["float32"]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_backward():
+    """ln_gru_backward against ln_gru_backward_plain on the card, at the
+    training path's shapes: the dynamic scan's B = 16 and imagination's
+    B = 1024 (D = 1024, H = 512), and an unaligned B = 3, H = 100; f32 with
+    TF32 off and bf16. z is the forward kernel's own output. Tolerances: dz,
+    dscale and dln_bias within atol 1e-4 + rtol 1e-4 (f32 sums over 3H and
+    over B in another order); dh_tail within 1e-6 in f32 and one bf16 ulp
+    (+1e-5) in bf16, the rounding of its final cast."""
+    import torch
+
+    from sheeprl_tpu_torch.models.ln_gru import ln_gru_backward, ln_gru_backward_plain, ln_gru_forward
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for batch, depth, hidden in [(16, 1024, 512), (1024, 1024, 512), (3, 200, 100)]:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            inp, w, b, scale, ln_bias, h = gru_inputs(batch, depth, hidden, dtype, seed=3)
+            _, z = ln_gru_forward(inp, w, b, scale, ln_bias, h)
+            g = gru_inputs(batch, 1, hidden, dtype, seed=4)[5]
+            args = (g, z, scale, ln_bias, h)
+            before = ln_gru_backward.launches
+            got = ln_gru_backward(*args)
+            torch.cuda.synchronize()
+            if ln_gru_backward.launches != before + 1:
+                fail("ln_gru_backward did not count its launch")
+            want = ln_gru_backward_plain(*args)
+            errs = {}
+            for name, x, y in zip(("dz", "dscale", "dln_bias"), got[:3], want[:3]):
+                if not torch.isfinite(x).all():
+                    fail(f"ln_gru_backward non-finite {name} at B={batch} H={hidden} {dname}")
+                errs[name] = (x - y).abs().max().item()
+                if not bool(((x - y).abs() <= 1e-4 + 1e-4 * y.abs()).all()):
+                    fail(f"ln_gru_backward {name} disagrees with the plain version at B={batch} H={hidden} {dname}: max |d| {errs[name]}")
+            dh_k, dh_p = got[3].float(), want[3].float()
+            errs["dh_tail"] = (dh_k - dh_p).abs().max().item()
+            allowed = 1e-6 if dtype == torch.float32 else bf16_ulp(torch.maximum(dh_k.abs(), dh_p.abs())) + 1e-5
+            if not bool(((dh_k - dh_p).abs() <= allowed).all()):
+                fail(f"ln_gru_backward dh_tail disagrees at B={batch} H={hidden} {dname}: max |d| {errs['dh_tail']}")
+            kernel_ms = device_ms(rotated(args, ln_gru_backward))
+            plain_ms = device_ms(rotated(args, ln_gru_backward_plain))
+            bound_ms, bound_by = gru_bwd_bound(batch, hidden, dname)
+            row = {"shape": f"B={batch} H={hidden}", "dtype": dname, "max_abs_err": errs, "ms": kernel_ms,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}  # fmt: skip
+            rows.append(row)
+            log(f"ln_gru_backward {row['shape']} {dname}: ok, max|d| {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}, "
+                f"kernel {kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({bound_by})")  # fmt: skip
+            torch.cuda.empty_cache()
+    return rows
+
+
+def phase_cell_grad():
+    """The cell gets its gradients on the card: LayerNormGRUCell (the
+    autograd Function over both kernels) against torch autograd through
+    ln_gru_plain on the same CUDA tensors, f32 with TF32 off, at the dynamic
+    scan's DV3-S shape (B = 16, D = 1024, H = 512). Every gradient (the
+    cell's weight and LayerNorm, its input x and its state h) within atol
+    1e-4 + rtol 1e-4: f32 products over B or 3H in another order."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.models.ln_gru import ln_gru_backward, ln_gru_forward, ln_gru_plain
+    from sheeprl_tpu_torch.models.models import LayerNormGRUCell
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch, in_dim, hidden = 16, 512, 512
+    rng = np.random.default_rng(5)
+    dev = torch.device("cuda")
+    cell = LayerNormGRUCell(in_dim, hidden, bias=False).to(dev)
+    with torch.no_grad():
+        cell.weight.copy_(torch.from_numpy(rng.standard_normal(tuple(cell.weight.shape)).astype(np.float32) / 32.0))
+        cell.norm.weight.copy_(torch.from_numpy(1.0 + 0.1 * rng.standard_normal(3 * hidden).astype(np.float32)))
+        cell.norm.bias.copy_(torch.from_numpy(0.1 * rng.standard_normal(3 * hidden).astype(np.float32)))
+    h0 = torch.from_numpy(rng.standard_normal((batch, hidden)).astype(np.float32)).to(dev)
+    x0 = torch.from_numpy(rng.standard_normal((batch, in_dim)).astype(np.float32)).to(dev)
+    target = torch.from_numpy(rng.standard_normal((batch, hidden)).astype(np.float32)).to(dev)
+
+    h, x = h0.clone().requires_grad_(), x0.clone().requires_grad_()
+    fwd, bwd = ln_gru_forward.launches, ln_gru_backward.launches
+    ((cell(h, x) - target) ** 2).sum().backward()
+    torch.cuda.synchronize()
+    if ln_gru_forward.launches != fwd + 1 or ln_gru_backward.launches != bwd + 1:
+        fail("the cell's step did not launch the forward and backward kernels once each")
+    got = {"weight": cell.weight.grad, "norm.weight": cell.norm.weight.grad, "norm.bias": cell.norm.bias.grad,
+           "x": x.grad, "h": h.grad}  # fmt: skip
+    missing = [k for k, v in got.items() if v is None]
+    if missing:
+        fail(f"the cell got no gradient on the card for {missing}")
+
+    w = cell.weight.detach().clone().requires_grad_()
+    scale = cell.norm.weight.detach().clone().requires_grad_()
+    ln_b = cell.norm.bias.detach().clone().requires_grad_()
+    hp, xp = h0.clone().requires_grad_(), x0.clone().requires_grad_()
+    out, _ = ln_gru_plain(torch.cat([hp, xp], -1), w, torch.zeros(3 * hidden, device=dev), scale, ln_b, hp)
+    ((out - target) ** 2).sum().backward()
+    want = {"weight": w.grad, "norm.weight": scale.grad, "norm.bias": ln_b.grad, "x": xp.grad, "h": hp.grad}
+    errs = {}
+    for name in want:
+        d = (got[name] - want[name]).abs()
+        errs[name] = d.max().item()
+        if not bool((d <= 1e-4 + 1e-4 * want[name].abs()).all()):
+            fail(f"cell gradient {name} on the card disagrees with autograd through ln_gru_plain: max |d| {errs[name]}")
+    log(f"cell gradients on the card (B={batch} D={in_dim + hidden} H={hidden} f32) match autograd through ln_gru_plain: "
+        f"max|d| {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}")  # fmt: skip
+    return errs
 
 
 def http(address, path, body=None):
@@ -408,6 +549,262 @@ def phase_reference(path):
     return worst
 
 
+# The training path's run: DreamerV3-S at full width on the dummy env at
+# MsPacman's shapes, bf16-mixed, batch 16 x 64, horizon 15. Only these are
+# cut from exp=dreamer_v3_100k_ms_pacman, so the run ends after 8 gradient
+# steps.
+TRAIN_CUTS = {"algo.learning_starts": "128 (from 1024)", "algo.total_steps": "135 (from 100000; 8 gradient steps)",
+              "buffer.size": "4096 (from 100000)"}  # fmt: skip
+TRAIN_ARGS = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "algo.learning_starts=128", "algo.total_steps=135",
+              "buffer.size=4096", "metric.log_every=64"]  # fmt: skip
+FWD_PER_STEP = 64 + 15  # the dynamic scan over T = 64, then the 15-step imagination
+BWD_PER_STEP = 64  # the world-model loss differentiates the dynamic scan only
+
+
+def _params(module):
+    return {k: v.detach().clone() for k, v in module.state_dict().items()}
+
+
+def phase_training():
+    """The port's trainer through its CLI entry point, in process, on the
+    card: DV3-S, bf16-mixed. Checks finite losses, the kernels' launches per
+    gradient step, that the world model, actor and critic moved, and that
+    the target critic followed the EMA cadence (a hard copy at the first
+    step, then tau * critic + (1 - tau) * target at every step, within 1e-6
+    of that formula recomputed here)."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.models.ln_gru import ln_gru_backward, ln_gru_forward
+    from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
+
+    cfg = compose(TRAIN_ARGS)
+    log(f"training: exp=dreamer_v3_100k_ms_pacman env=dummy (rgb 64x64x3, 9 actions), full DV3-S width, "
+        f"{cfg.fabric.precision}, batch {cfg.algo.per_rank_batch_size} x {cfg.algo.per_rank_sequence_length}, "
+        f"horizon {cfg.algo.horizon}; cut: {json.dumps(TRAIN_CUTS)}")  # fmt: skip
+    init = build_agent((9,), False, cfg, DictSpace({"rgb": Box((64, 64, 3), "uint8", 0.0, 255.0)}), device="cpu", seed=cfg.seed, training=True)
+    before = {name: _params(getattr(init, name)) for name in ("world_model", "actor", "critic")}
+    del init
+    steps = []
+    prev_target = {}
+    worst_ema = [0.0]
+
+    def on_step(agent, step, tau, metrics):
+        now = time.perf_counter()
+        finite = all(bool(torch.isfinite(v).all()) for v in metrics.values())
+        if not finite:
+            fail(f"training: non-finite metrics at gradient step {step}: {[k for k, v in metrics.items() if not torch.isfinite(v).all()]}")
+        critic, target = agent.critic.state_dict(), agent.target_critic.state_dict()
+        for k, t in target.items():
+            want = critic[k] if step == 1 else tau * critic[k] + (1 - tau) * prev_target[k]
+            worst_ema[0] = max(worst_ema[0], (t - want).abs().max().item())
+        prev_target.update({k: v.clone() for k, v in target.items()})
+        steps.append((now, tau, {k: v.item() for k, v in metrics.items()}))
+
+    torch.cuda.synchronize()
+    ln_gru_forward.launches = 0
+    ln_gru_backward.launches = 0
+    t0 = time.perf_counter()
+    out = run(TRAIN_ARGS, callback=on_step)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    fwd, bwd = ln_gru_forward.launches, ln_gru_backward.launches
+
+    n = out["gradient_steps"]
+    if n != 8 or len(steps) != 8:
+        fail(f"training: {n} gradient steps, expected 8")
+    if fwd < FWD_PER_STEP * n or bwd < BWD_PER_STEP * n:
+        fail(f"training: ln_gru_forward launched {fwd} and ln_gru_backward {bwd} times for {n} gradient steps "
+             f"(at least {FWD_PER_STEP} and {BWD_PER_STEP} per step)")  # fmt: skip
+    taus = [tau for _, tau, _ in steps]
+    if taus[0] != 1.0 or any(abs(t - float(cfg.algo.critic.tau)) > 1e-7 for t in taus[1:]):
+        fail(f"training: target-critic taus {taus}")
+    if worst_ema[0] > 1e-6:
+        fail(f"training: the target critic left its EMA by {worst_ema[0]}")
+    agent = out["agent"]
+    for name, state in before.items():
+        now = _params(getattr(agent, name))
+        moved = sum(int(not torch.equal(v.cpu(), state[k])) for k, v in now.items())
+        if moved == 0:
+            fail(f"training: no parameter of the {name} moved")
+        log(f"training: {moved}/{len(now)} {name} tensors moved")
+    last = out["log"][-1]
+    if not all(np.isfinite(v) for v in last.values()):
+        fail(f"training: non-finite logged metrics {last}")
+    step_wall = [b[0] - a[0] for a, b in zip(steps, steps[1:])]
+    result = {
+        "cuts": TRAIN_CUTS,
+        "gradient_steps": n,
+        "policy_steps": out["policy_steps"],
+        "wall_s": wall_s,
+        "ln_gru_forward_launches": fwd,
+        "ln_gru_backward_launches": bwd,
+        "taus": taus,
+        "target_ema_max_abs_err": worst_ema[0],
+        "trainer_wall_ms_between_gradient_steps": statistics.median(step_wall) * 1e3,
+        "metrics_last_step": steps[-1][2],
+    }
+    log(f"training: {n} gradient steps in {out['policy_steps']} policy steps, {wall_s:.1f} s; ln_gru_forward {fwd} launches "
+        f"({fwd / n:.1f}/step incl. the player), ln_gru_backward {bwd} ({bwd / n:.1f}/step); target EMA max |d| {worst_ema[0]:.3g}; "
+        f"median {result['trainer_wall_ms_between_gradient_steps']:.1f} ms between gradient steps")  # fmt: skip
+    log(f"training: last step {json.dumps({k: float(f'{v:.5g}') for k, v in steps[-1][2].items()})}")
+    return result, agent, cfg
+
+
+def _train_batch(T, B, seed, device):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    actions = np.zeros((T, B, 9), np.float32)
+    actions[np.arange(T)[:, None], np.arange(B)[None, :], rng.integers(0, 9, (T, B))] = 1.0
+    data = {
+        "rgb": rng.integers(0, 256, (T, B, 64, 64, 3)).astype(np.uint8),
+        "actions": actions,
+        "rewards": rng.normal(size=(T, B, 1)).astype(np.float32),
+        "terminated": (rng.random((T, B, 1)) < 0.05).astype(np.float32),
+        "truncated": np.zeros((T, B, 1), np.float32),
+        "is_first": (rng.random((T, B, 1)) < 0.05).astype(np.float32),
+    }
+    return {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+
+
+def phase_train_profile(agent, cfg, steps: int = 3):
+    """Where one DV3-S gradient step's time goes (bf16-mixed, B = 16,
+    T = 64, horizon 15, on the trained agent): host wall per step (ending in a
+    synchronize), the device's busy time per step and its idle share from
+    torch.profiler, device operations per step, the kernels' launches per
+    step, and peak device memory."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
+    from sheeprl_tpu_torch.models.ln_gru import ln_gru_backward, ln_gru_forward
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+    from sheeprl_tpu_torch.utils.ops import init_moments
+
+    dev = torch.device("cuda")
+    step = make_train_step(agent, make_optimizers(agent, cfg), cfg)
+    data = _train_batch(int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size), 7, dev)
+    rng = BatchGenerator.from_seed(0, dev)
+    moments = init_moments(dev)
+    moments, _ = step(moments, data, rng, 0.02)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ln_gru_forward.launches = ln_gru_backward.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        moments, _ = step(moments, data, rng, 0.02)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    fwd, bwd = ln_gru_forward.launches / steps, ln_gru_backward.launches / steps
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            moments, _ = step(moments, data, rng, 0.02)
+        torch.cuda.synchronize()
+    kernels_ms, ops, stages = {}, 0, {}
+    for evt in prof.key_averages():
+        total_us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
+        if evt.key.startswith("dv3/"):  # the train step's stage spans, host side and their device annotation
+            side = "device_span_ms" if evt.device_type == torch.autograd.DeviceType.CUDA else "host_ms"
+            stages.setdefault(evt.key, {})[side] = (total_us if side == "device_span_ms" else evt.cpu_time_total) / steps / 1e3
+        elif evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels_ms[evt.key[:60]] = kernels_ms.get(evt.key[:60], 0.0) + total_us / steps / 1e3
+            ops += evt.count
+    busy_ms = sum(kernels_ms.values())
+    if busy_ms <= 0.0:
+        fail("train profile: torch.profiler saw no device time")
+    top = dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8])
+    gru_ms = {k: v for k, v in kernels_ms.items() if "ln_gru" in k}
+    result = {"host_wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+              "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms), "device_ops_per_step": ops / steps,
+              "ln_gru_forward_per_step": fwd, "ln_gru_backward_per_step": bwd, "peak_memory_gib": peak_gib,
+              "stages_per_step": stages, "ln_gru_device_ms_per_step": gru_ms,
+              "top_device_ms_per_step": top}  # fmt: skip
+    if fwd != FWD_PER_STEP or bwd != BWD_PER_STEP:
+        fail(f"train profile: {fwd} forward and {bwd} backward launches per gradient step, expected {FWD_PER_STEP} and {BWD_PER_STEP}")
+    log(f"train step profile (DV3-S, bf16-mixed, B=16 T=64 H=15): host wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step, "
+        f"idle share {result['device_idle_share']:.3f}, {result['device_ops_per_step']:.0f} device ops/step, "
+        f"ln_gru {fwd:.0f} fwd + {bwd:.0f} bwd launches/step, peak memory {peak_gib:.2f} GiB")  # fmt: skip
+    log(f"train step profile: stages {json.dumps({k: {s: round(v, 3) for s, v in d.items()} for k, d in stages.items()})}")
+    log(f"train step profile: LN-GRU kernels' device ms/step {json.dumps({k: round(v, 4) for k, v in gru_ms.items()})}")
+    log(f"train step profile: top device ms/step {json.dumps({k: round(v, 4) for k, v in top.items()})}")
+    return result
+
+
+class RecordedDraws:
+    """A noise source that records every categorical draw of another."""
+
+    def __init__(self, source):
+        self.source, self.draws = source, []
+
+    def categorical(self, logits):
+        idx = self.source.categorical(logits)
+        self.draws.append(idx.cpu())
+        return idx
+
+
+class ReplayedDraws:
+    """A noise source that hands back recorded draws in order."""
+
+    def __init__(self, draws):
+        self.draws = list(draws)
+        self.used = 0
+
+    def categorical(self, logits):
+        idx = self.draws[self.used]
+        self.used += 1
+        if tuple(idx.shape) != tuple(logits.shape[:-1]):
+            fail(f"replayed draw {self.used} has shape {tuple(idx.shape)} for logits {tuple(logits.shape)}")
+        return idx.to(logits.device)
+
+
+def phase_train_reference():
+    """One gradient step at 32-true on the card (the kernels) against the
+    CPU (the plain versions): full DV3-S width, the same seeded weights, the
+    same batch at B = 4, T = 16; the card's categorical draws are recorded
+    and replayed on the CPU. Losses and metrics within rtol 2e-3 + atol
+    1e-4, the three pre-clip gradient norms within rtol 2e-3: f32 products
+    and convolutions in another order on two devices, through 16 GRU steps,
+    a 64x64 decoder and 15 imagined steps."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+    from sheeprl_tpu_torch.utils.ops import init_moments
+
+    cfg = compose(["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "fabric.precision=32-true"])
+    space = DictSpace({"rgb": Box((64, 64, 3), "uint8", 0.0, 255.0)})
+    out = {}
+    draws = None
+    for dev in ("cuda", "cpu"):
+        agent = build_agent((9,), False, cfg, space, precision="32-true", device=dev, seed=0, training=True)
+        step = make_train_step(agent, make_optimizers(agent, cfg), cfg)
+        rng = RecordedDraws(BatchGenerator.from_seed(0, torch.device(dev))) if draws is None else ReplayedDraws(draws)
+        moments, metrics = step(init_moments(torch.device(dev)), _train_batch(16, 4, 11, torch.device(dev)), rng, 1.0)
+        if draws is None:
+            draws = rng.draws
+        elif rng.used != len(draws):
+            fail(f"train reference: the CPU step drew {rng.used} times, the card {len(draws)}")
+        out[dev] = {k: v.item() for k, v in metrics.items()} | {f"moments/{k}": v.item() for k, v in moments.items()}
+    worst = {}
+    for k, ref in out["cpu"].items():
+        got = out["cuda"][k]
+        worst[k] = abs(got - ref)
+        if not (math.isfinite(got) and abs(got - ref) <= 1e-4 + 2e-3 * abs(ref)):
+            fail(f"train reference: {k} on the card {got} vs the CPU {ref}")
+    log(f"train reference: one 32-true gradient step, card (kernels) vs CPU (plain), {len(draws)} replayed draws: "
+        f"max rel |d| {max(worst[k] / max(abs(out['cpu'][k]), 1e-12) for k in worst):.3g}; "
+        f"world model loss {out['cuda']['Loss/world_model_loss']:.6g} vs {out['cpu']['Loss/world_model_loss']:.6g}")  # fmt: skip
+    return {"card": out["cuda"], "cpu": out["cpu"]}
+
+
 def main() -> None:
     import warnings
 
@@ -428,11 +825,14 @@ def main() -> None:
     t0 = time.perf_counter()
     built = kernels.build()
     log(f"build: {built} in {time.perf_counter() - t0:.2f} s")
-    for line in kernels.build_log("ln_gru").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    for name in kernels.SOURCES:
+        for line in kernels.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas ({name}): {line.strip()}")
 
     rows = phase_kernels()
+    bwd_rows = phase_backward()
+    cell_grad = phase_cell_grad()
     workdir = os.path.join(str(kernels.BUILD_DIR), f"smoke-{os.getpid()}")
     os.makedirs(workdir, exist_ok=True)
     try:
@@ -441,8 +841,16 @@ def main() -> None:
         worst = phase_reference(path)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    training, agent, cfg = phase_training()
+    train_profile = phase_train_profile(agent, cfg)
+    del agent
+    torch.cuda.empty_cache()
+    train_reference = phase_train_reference()
 
-    main_row = next(r for r in rows if "per_cuda_kernel_ms" in r)
+    # The training path's shapes: the dynamic scan's B = 16 in bf16-mixed.
+    fwd_row = next(r for r in rows if r["shape"] == "B=16 D=1024 H=512" and r["dtype"] == "bfloat16")
+    serve_row = next(r for r in rows if "per_cuda_kernel_ms" in r)
+    bwd_row = next(r for r in bwd_rows if r["shape"] == "B=16 H=512" and r["dtype"] == "bfloat16")
     kernels_line = {
         "kernels": [
             {
@@ -450,24 +858,45 @@ def main() -> None:
                 "route": "cuda",
                 "source": "sheeprl_tpu_torch/csrc/ln_gru.cu",
                 "replaces": "sheeprl_tpu/models/pallas_gru.py:118",
-                "shapes": f"{main_row['shape']} {main_row['dtype']} (DreamerV3-S serving bucket 8)",
-                "launches": serving["ln_gru_launches"],
-                "max_abs_err": max(main_row["max_abs_err_h"], main_row["max_abs_err_z"]),
-                "ms": main_row["ms"],
-                "plain_ms": main_row["plain_ms"],
-                "bound_ms": main_row["bound_ms"],
-                "bound_by": main_row["bound_by"],
+                "shapes": f"{fwd_row['shape']} {fwd_row['dtype']} (DreamerV3-S dynamic scan; 79 launches per gradient step)",
+                "launches": training["ln_gru_forward_launches"],
+                "launches_serving": serving["ln_gru_launches"],
+                "max_abs_err": max(fwd_row["max_abs_err_h"], fwd_row["max_abs_err_z"]),
+                "ms": fwd_row["ms"],
+                "plain_ms": fwd_row["plain_ms"],
+                "bound_ms": fwd_row["bound_ms"],
+                "bound_by": fwd_row["bound_by"],
                 "library_ms": None,
-            }
+                "serving_b8": {k: serve_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            },
+            {
+                "name": "ln_gru_backward",
+                "route": "cuda",
+                "source": "sheeprl_tpu_torch/csrc/ln_gru_bwd.cu",
+                "replaces": "sheeprl_tpu/models/pallas_gru.py:172",
+                "shapes": f"{bwd_row['shape']} {bwd_row['dtype']} (DreamerV3-S dynamic scan; 64 launches per gradient step)",
+                "launches": training["ln_gru_backward_launches"],
+                "max_abs_err": max(bwd_row["max_abs_err"].values()),
+                "ms": bwd_row["ms"],
+                "plain_ms": bwd_row["plain_ms"],
+                "bound_ms": bwd_row["bound_ms"],
+                "bound_by": bwd_row["bound_by"],
+                "library_ms": None,
+            },
         ]
     }
     report = {
         "card": card,
         "build_s": built,
         "ln_gru": rows,
+        "ln_gru_backward": bwd_rows,
+        "cell_grad_max_abs_err": cell_grad,
         "serving": serving,
         "step_profile": step_profile,
         "reference_max_abs_dh": worst,
+        "training": training,
+        "train_step_profile": train_profile,
+        "train_reference": train_reference,
         "kernels": kernels_line["kernels"],
     }
     out_dir = os.path.join(REPO, "chiprun_out")

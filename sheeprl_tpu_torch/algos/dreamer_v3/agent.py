@@ -1,22 +1,26 @@
-"""DreamerV3 agent, the player subset (counterpart of
-sheeprl_tpu/algos/dreamer_v3/agent.py).
+"""DreamerV3 agent (counterpart of sheeprl_tpu/algos/dreamer_v3/agent.py).
 
 What acting needs: the CNN/MLP encoders, the recurrent model (dense + LN +
-SiLU into the LN-GRU cell, whose step is the CUDA kernel), the
+SiLU into the LN-GRU cell, whose step is the CUDA kernels), the
 representation and transition heads with 1% unimix, the actor with its
 discrete, continuous and MineDojo-masked variants, and the functional
 player (``init_player_state`` / ``reset_player_state`` / ``player_step``).
-Decoders, the reward and continue heads and the critic belong to the
-training slice and are not here.
 
-Sampling takes a :class:`RowGenerators` (one generator per batch row) in
-place of a JAX key. Initialisers follow the JAX package in distribution, not
-in values: fan-avg truncated normal for the trunks, fan-avg uniform for the
-heads, LeCun normal for the GRU projection.
+What training adds (``build_agent(..., training=True)``): the CNN and MLP
+decoders, the reward and continue heads, the critic and its target copy, and
+the RSSM's ``dynamic`` and ``imagination`` steps. The decoupled RSSM
+(``posterior_obs_only`` / ``dynamic_decoupled``) is not ported yet.
+
+Sampling takes a noise source in place of a JAX key: a :class:`RowGenerators`
+(one generator per batch row) when serving, a :class:`BatchGenerator` when
+training. Initialisers follow the JAX package in distribution, not in values:
+fan-avg truncated normal for the trunks, fan-avg uniform for the heads, zeros
+for the reward and critic outputs, LeCun normal for the GRU projection.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 import warnings
 from dataclasses import dataclass
@@ -29,7 +33,7 @@ from torch import nn
 
 from sheeprl_tpu_torch.core.device import DeviceLike, resolve_device
 from sheeprl_tpu_torch.core.precision import disable_tf32, resolve_precision
-from sheeprl_tpu_torch.models.models import CNN, MLP, LayerNormGRUCell, linear
+from sheeprl_tpu_torch.models.models import CNN, MLP, DeCNN, LayerNormGRUCell, linear
 from sheeprl_tpu_torch.utils.distribution import (
     Independent,
     Normal,
@@ -96,6 +100,44 @@ class MLPEncoder(nn.Module):
         return self.model(x)
 
 
+class CNNDecoder(nn.Module):
+    """Latent -> Linear -> [4, 4, C] -> transposed-conv stages (LN + SiLU,
+    the last bare) -> per-key HWC reconstructions."""
+
+    def __init__(self, keys, output_channels, channels_multiplier, latent_size, cnn_encoder_output_dim, image_size, stages=4, activation="silu", norm_eps=1e-3, dtype=torch.float32):
+        super().__init__()
+        self.keys = tuple(keys)
+        self.output_channels = [int(c) for c in output_channels]
+        self.image_size = tuple(int(s) for s in image_size)
+        self.dtype = dtype
+        self.fc = nn.Linear(int(latent_size), int(cnn_encoder_output_dim))
+        out_ch = int(sum(self.output_channels))
+        hidden = [(2**i) * int(channels_multiplier) for i in reversed(range(stages - 1))]
+        layers = [(c, 4, 2, 1, norm_eps is None, norm_eps, activation) for c in hidden] + [(out_ch, 4, 2, 1, True, None, None)]
+        self.model = DeCNN(int(cnn_encoder_output_dim) // 16, layers, dtype=dtype)
+
+    def forward(self, latent_states: torch.Tensor) -> Dict[str, torch.Tensor]:
+        batch_shape = latent_states.shape[:-1]
+        x = linear(latent_states.to(self.dtype), self.fc)
+        x = self.model(x.reshape(-1, 4, 4, x.shape[-1] // 16))
+        x = x.reshape(*batch_shape, *self.image_size, x.shape[-1])
+        return dict(zip(self.keys, torch.split(x, self.output_channels, dim=-1)))
+
+
+class MLPDecoder(nn.Module):
+    """Shared MLP trunk + one linear head per key."""
+
+    def __init__(self, keys, output_dims, latent_size, mlp_layers=4, dense_units=512, activation="silu", norm_eps=1e-3, dtype=torch.float32):
+        super().__init__()
+        self.keys = tuple(keys)
+        self.model = MLP(int(latent_size), [int(dense_units)] * int(mlp_layers), activation=activation, norm_eps=norm_eps, bias=norm_eps is None, dtype=dtype)
+        self.heads = nn.ModuleList(nn.Linear(int(dense_units), int(d)) for d in output_dims)
+
+    def forward(self, latent_states: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = self.model(latent_states)
+        return {k: linear(x, head) for k, head in zip(self.keys, self.heads)}
+
+
 class RecurrentModel(nn.Module):
     """Dense + LN + SiLU projection into a LayerNormGRUCell without a dense
     bias (the LN provides the shift), so the kernel gets a zero bias."""
@@ -147,7 +189,13 @@ class WorldModel(nn.Module):
         unimix: float = 0.01,
         decoupled_rssm: bool = False,
         dtype: torch.dtype = torch.float32,
+        heads: Optional[Mapping[str, Any]] = None,
     ):
+        """``heads`` (training only) holds the decoders' and heads' sizes:
+        ``image_size``, ``decoder_cnn_channels_multiplier``,
+        ``decoder_mlp_layers``, ``decoder_dense_units``, ``reward_bins``,
+        ``reward_mlp_layers``, ``reward_dense_units``,
+        ``continue_mlp_layers``, ``continue_dense_units``."""
         super().__init__()
         self.discrete_size = int(discrete_size)
         self.stoch_state_size = int(stochastic_size) * self.discrete_size
@@ -183,6 +231,22 @@ class WorldModel(nn.Module):
         self.representation_model = MLP(repr_in, [representation_hidden_size], self.stoch_state_size, **head)
         self.transition_model = MLP(self.recurrent_state_size, [transition_hidden_size], self.stoch_state_size, **head)
         self.initial_recurrent_state = nn.Parameter(torch.zeros(self.recurrent_state_size))
+        self.cnn_decoder = self.mlp_decoder = self.reward_model = self.continue_model = None
+        if heads is not None:
+            latent = self.stoch_state_size + self.recurrent_state_size
+            if cnn_keys:
+                self.cnn_decoder = CNNDecoder(
+                    cnn_keys, cnn_input_channels, heads["decoder_cnn_channels_multiplier"], latent,
+                    (2 ** (cnn_stages - 1)) * int(encoder_cnn_channels_multiplier) * 4 * 4, heads["image_size"],
+                    cnn_stages, cnn_act, cnn_norm_eps, dtype,
+                )  # fmt: skip
+            if mlp_keys:
+                self.mlp_decoder = MLPDecoder(
+                    mlp_keys, mlp_input_dims, latent, heads["decoder_mlp_layers"], heads["decoder_dense_units"],
+                    dense_act, mlp_norm_eps, dtype,
+                )  # fmt: skip
+            self.reward_model = MLP(latent, [int(heads["reward_dense_units"])] * int(heads["reward_mlp_layers"]), int(heads["reward_bins"]), **head)
+            self.continue_model = MLP(latent, [int(heads["continue_dense_units"])] * int(heads["continue_mlp_layers"]), 1, **head)
 
     def embed_obs(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         outs = []
@@ -219,6 +283,51 @@ class WorldModel(nn.Module):
         h0 = h0.expand(*batch_shape, h0.shape[-1])
         _, z0 = self._transition(h0, rng=None, sample_state=False)
         return h0, z0
+
+    def dynamic(
+        self,
+        posterior: torch.Tensor,
+        recurrent_state: torch.Tensor,
+        action: torch.Tensor,
+        embedded_obs: torch.Tensor,
+        is_first: torch.Tensor,
+        rng,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One step of dynamic learning over a batch: reset the rows where
+        ``is_first`` is 1 to the learned initial state (with a zero action),
+        step the GRU, then sample the prior and the posterior, in that order.
+        Returns (recurrent_state, posterior, prior, posterior_logits,
+        prior_logits), states flat."""
+        action = (1 - is_first) * action
+        h0, z0 = self.get_initial_states(recurrent_state.shape[:-1])
+        recurrent_state = (1 - is_first) * recurrent_state + is_first * h0
+        posterior = (1 - is_first) * posterior + is_first * z0
+        recurrent_state = self.recurrent_model(torch.cat([posterior, action], -1), recurrent_state)
+        prior_logits, prior = self._transition(recurrent_state, rng)
+        posterior_logits, posterior = self._representation(recurrent_state, embedded_obs, rng)
+        return recurrent_state, posterior, prior, posterior_logits, prior_logits
+
+    def imagination(
+        self, prior: torch.Tensor, recurrent_state: torch.Tensor, actions: torch.Tensor, rng
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One step of latent imagination -> (sampled prior, recurrent state)."""
+        recurrent_state = self.recurrent_model(torch.cat([prior, actions], -1), recurrent_state)
+        _, imagined_prior = self._transition(recurrent_state, rng)
+        return imagined_prior, recurrent_state
+
+    def decode(self, latent_states: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out: Dict[str, torch.Tensor] = {}
+        if self.cnn_decoder is not None:
+            out.update(self.cnn_decoder(latent_states))
+        if self.mlp_decoder is not None:
+            out.update(self.mlp_decoder(latent_states))
+        return out
+
+    def reward_logits(self, latent_states: torch.Tensor) -> torch.Tensor:
+        return self.reward_model(latent_states)
+
+    def continue_logits(self, latent_states: torch.Tensor) -> torch.Tensor:
+        return self.continue_model(latent_states)
 
 
 class Actor(nn.Module):
@@ -339,12 +448,17 @@ def actor_forward(
 
 
 class DV3Agent(nn.Module):
-    """World model + actor + the functional player."""
+    """World model + actor (+ critic and target critic when training) + the
+    functional player."""
 
-    def __init__(self, world_model: WorldModel, actor: Actor, actor_spec: ActorSpec):
+    def __init__(self, world_model: WorldModel, actor: Actor, actor_spec: ActorSpec, critic: Optional[MLP] = None):
         super().__init__()
         self.world_model = world_model
         self.actor = actor
+        self.critic = critic
+        self.target_critic = copy.deepcopy(critic) if critic is not None else None
+        if self.target_critic is not None:
+            self.target_critic.requires_grad_(False)
         self.actor_spec = actor_spec
         self.actions_dim = tuple(actor_spec.actions_dim)
         self.is_continuous = actor_spec.is_continuous
@@ -428,23 +542,54 @@ def _init_trunk(weight: torch.Tensor, layout: str, gen: torch.Generator) -> None
     _trunc_normal_(weight, math.sqrt(1.0 / ((fan_in + fan_out) / 2)), gen)
 
 
-def _init_head(weight: torch.Tensor, gen: torch.Generator, scale: float = 1.0) -> None:
-    fan_in, fan_out = _fans(weight, "linear")
+def _init_head(weight: torch.Tensor, gen: torch.Generator, scale: float = 1.0, layout: str = "linear") -> None:
+    fan_in, fan_out = _fans(weight, layout)
     limit = math.sqrt(3 * scale / ((fan_in + fan_out) / 2))
     nn.init.uniform_(weight, -limit, limit, generator=gen)
 
 
-def _init_mlp(mlp: MLP, gen: torch.Generator, output_uniform: bool) -> None:
+def _init_mlp(mlp: MLP, gen: torch.Generator, output_uniform: bool, output_zero: bool = False) -> None:
     for layer in mlp.dense:
         _init_trunk(layer.weight.data, "linear", gen)
         if layer.bias is not None:
             layer.bias.data.zero_()
     if mlp.output is not None:
-        if output_uniform:
+        if output_zero:
+            mlp.output.weight.data.zero_()
+        elif output_uniform:
             _init_head(mlp.output.weight.data, gen)
         else:
             _init_trunk(mlp.output.weight.data, "linear", gen)
         mlp.output.bias.data.zero_()
+
+
+def _init_training_modules(agent: "DV3Agent", gen: torch.Generator) -> None:
+    """The decoders, the reward and continue heads and the critic, after the
+    player's modules from the same generator (so a seed gives the player the
+    same weights whether or not the agent is built for training). The reward
+    and critic outputs start at zero (``uniform_init(0.0)``); the last
+    decoder stages and the continue output are fan-avg uniform."""
+    wm = agent.world_model
+    if wm.cnn_decoder is not None:
+        dec = wm.cnn_decoder
+        _init_trunk(dec.fc.weight.data, "linear", gen)
+        dec.fc.bias.data.zero_()
+        for i, deconv in enumerate(dec.model.deconvs):
+            if i < len(dec.model.deconvs) - 1:
+                _init_trunk(deconv.weight.data, "conv", gen)
+            else:
+                _init_head(deconv.weight.data, gen, layout="conv")
+            if deconv.bias is not None:
+                deconv.bias.data.zero_()
+    if wm.mlp_decoder is not None:
+        _init_mlp(wm.mlp_decoder.model, gen, output_uniform=False)
+        for head in wm.mlp_decoder.heads:
+            _init_head(head.weight.data, gen)
+            head.bias.data.zero_()
+    _init_mlp(wm.reward_model, gen, output_uniform=False, output_zero=True)
+    _init_mlp(wm.continue_model, gen, output_uniform=True)
+    _init_mlp(agent.critic, gen, output_uniform=False, output_zero=True)
+    agent.target_critic.load_state_dict(agent.critic.state_dict())
 
 
 @torch.no_grad()
@@ -472,12 +617,27 @@ def init_agent_(agent: DV3Agent, seed: int) -> None:
     for head in agent.actor.heads:
         _init_head(head.weight.data, gen)
         head.bias.data.zero_()
+    if agent.critic is not None:
+        _init_training_modules(agent, gen)
 
 
-def build_world_model_module(cfg, obs_space, actions_dim, dtype: torch.dtype) -> WorldModel:
+def build_world_model_module(cfg, obs_space, actions_dim, dtype: torch.dtype, training: bool = False) -> WorldModel:
     wm_cfg = cfg.algo.world_model
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
+    heads = None
+    if training:
+        heads = {
+            "image_size": tuple(obs_space[cnn_keys[0]].shape[:2]) if cnn_keys else (64, 64),
+            "decoder_cnn_channels_multiplier": wm_cfg.observation_model.cnn_channels_multiplier,
+            "decoder_mlp_layers": wm_cfg.observation_model.mlp_layers,
+            "decoder_dense_units": wm_cfg.observation_model.dense_units,
+            "reward_bins": wm_cfg.reward_model.bins,
+            "reward_mlp_layers": wm_cfg.reward_model.mlp_layers,
+            "reward_dense_units": wm_cfg.reward_model.dense_units,
+            "continue_mlp_layers": wm_cfg.discount_model.mlp_layers,
+            "continue_dense_units": wm_cfg.discount_model.dense_units,
+        }
     return WorldModel(
         cnn_keys=cnn_keys,
         mlp_keys=mlp_keys,
@@ -499,6 +659,7 @@ def build_world_model_module(cfg, obs_space, actions_dim, dtype: torch.dtype) ->
         unimix=cfg.algo.unimix,
         decoupled_rssm=wm_cfg.decoupled_rssm,
         dtype=dtype,
+        heads=heads,
     )
 
 
@@ -513,10 +674,18 @@ def build_agent(
     seed: int = 0,
     world_model_state: Optional[Mapping[str, torch.Tensor]] = None,
     actor_state: Optional[Mapping[str, torch.Tensor]] = None,
+    training: bool = False,
+    critic_state: Optional[Mapping[str, torch.Tensor]] = None,
+    target_critic_state: Optional[Mapping[str, torch.Tensor]] = None,
 ) -> DV3Agent:
     """Build the player's modules on ``device`` (``cuda`` unless the caller
     asks for the CPU), initialised from ``seed`` or loaded from the given
-    state dicts (both must then cover every parameter)."""
+    state dicts (each then covers every parameter of its module). With
+    ``training`` the world model also gets its decoders and heads, and the
+    agent a critic and a target critic (a copy of the critic unless
+    ``target_critic_state`` is given). The agent is in eval mode for the
+    player and in train mode for training; no module of it behaves
+    differently between the two."""
     device = resolve_device(device)
     disable_tf32()
     dtype = resolve_precision(str(precision)).compute_dtype
@@ -534,7 +703,7 @@ def build_agent(
     if actor_cls not in ("default", "minedojo"):
         raise ValueError(f"algo.actor.cls must be one of default|minedojo, got {actor_cls!r}")
 
-    wm = build_world_model_module(cfg, obs_space, actions_dim, dtype)
+    wm = build_world_model_module(cfg, obs_space, actions_dim, dtype, training=training)
     actor = Actor(
         wm.stoch_state_size + wm.recurrent_state_size,
         actions_dim,
@@ -556,11 +725,27 @@ def build_agent(
         action_clip=float(cfg.algo.actor.action_clip),
         mask_mode="minedojo" if actor_cls == "minedojo" else "none",
     )
-    agent = DV3Agent(wm, actor, spec)
-    if world_model_state is None or actor_state is None:
+    critic = None
+    if training:
+        critic = MLP(
+            wm.stoch_state_size + wm.recurrent_state_size,
+            [int(cfg.algo.critic.dense_units)] * int(cfg.algo.critic.mlp_layers),
+            int(cfg.algo.critic.bins),
+            activation="silu",
+            norm_eps=_ln_eps(cfg.algo.get("mlp_layer_norm", {})),
+            bias=_ln_eps(cfg.algo.get("mlp_layer_norm", {})) is None,
+            dtype=dtype,
+        )
+    agent = DV3Agent(wm, actor, spec, critic)
+    states = {"world_model": world_model_state, "actor": actor_state}
+    if training:
+        states["critic"] = critic_state
+    if any(v is None for v in states.values()):
         init_agent_(agent, seed)
-    if world_model_state is not None:
-        wm.load_state_dict(world_model_state, strict=True)
-    if actor_state is not None:
-        actor.load_state_dict(actor_state, strict=True)
-    return agent.to(device).eval()
+    for name, state in states.items():
+        if state is not None:
+            getattr(agent, name).load_state_dict(state, strict=True)
+    if training:
+        agent.target_critic.load_state_dict(target_critic_state if target_critic_state is not None else critic.state_dict())
+    agent = agent.to(device)
+    return agent.train() if training else agent.eval()

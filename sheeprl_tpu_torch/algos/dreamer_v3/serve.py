@@ -23,6 +23,7 @@ import torch
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_player_obs
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
+from sheeprl_tpu_torch.config import compose
 from sheeprl_tpu_torch.serve.adapter import PolicyAdapterBase
 from sheeprl_tpu_torch.serve.artifact import write_artifact
 from sheeprl_tpu_torch.serve.registry import register_policy
@@ -71,33 +72,29 @@ class DreamerV3Policy(PolicyAdapterBase):
 
 
 def dreamer_v3_s_ms_pacman_config(precision: str = "bf16-mixed") -> Dict[str, Any]:
-    """The config subtree the adapter reads, as ``exp=dreamer_v3_100k_ms_pacman``
-    composes it (algo=dreamer_v3_S: 512 units, 2 layers, recurrent 512, CNN
-    multiplier 32; 64x64 rgb; LayerNorm eps 1e-3; 1% unimix; bf16-mixed)."""
-    ln = {"cls": "layer_norm", "kw": {"eps": 1e-3}}
+    """The config subtree the adapter reads, taken from the port's
+    ``exp=dreamer_v3_100k_ms_pacman`` (sheeprl_tpu_torch/config.py), with the
+    given precision."""
+    cfg = compose(["exp=dreamer_v3_100k_ms_pacman", "env=dummy"])
+    algo, wm, actor = cfg["algo"], cfg["algo"]["world_model"], cfg["algo"]["actor"]
+
+    def pick(node: Dict[str, Any], *keys: str) -> Dict[str, Any]:
+        return {k: node[k] for k in keys}
+
     return {
         "algo": {
-            "name": "dreamer_v3",
-            "cnn_keys": {"encoder": ["rgb"], "decoder": ["rgb"]},
-            "mlp_keys": {"encoder": [], "decoder": []},
-            "cnn_layer_norm": ln,
-            "mlp_layer_norm": ln,
-            "dense_units": 512,
-            "mlp_layers": 2,
-            "unimix": 0.01,
+            **pick(algo, "name", "cnn_keys", "mlp_keys", "cnn_layer_norm", "mlp_layer_norm", "dense_units", "mlp_layers", "unimix"),
             "world_model": {
-                "discrete_size": 32,
-                "stochastic_size": 32,
-                "decoupled_rssm": False,
-                "encoder": {"cnn_channels_multiplier": 32, "mlp_layers": 2, "dense_units": 512},
-                "recurrent_model": {"recurrent_state_size": 512, "dense_units": 512},
-                "transition_model": {"hidden_size": 512},
-                "representation_model": {"hidden_size": 512},
+                **pick(wm, "discrete_size", "stochastic_size", "decoupled_rssm"),
+                "encoder": pick(wm["encoder"], "cnn_channels_multiplier", "mlp_layers", "dense_units"),
+                "recurrent_model": pick(wm["recurrent_model"], "recurrent_state_size", "dense_units"),
+                "transition_model": pick(wm["transition_model"], "hidden_size"),
+                "representation_model": pick(wm["representation_model"], "hidden_size"),
             },
-            "actor": {"dense_units": 512, "mlp_layers": 2, "init_std": 2.0, "min_std": 0.1, "max_std": 1.0, "action_clip": 1.0, "cls": "default"},
+            "actor": pick(actor, "dense_units", "mlp_layers", "init_std", "min_std", "max_std", "action_clip", "cls"),
         },
-        "distribution": {"type": "auto"},
-        "env": {"screen_size": 64},
+        "distribution": pick(cfg["distribution"], "type"),
+        "env": pick(cfg["env"], "screen_size"),
         "precision": precision,
     }
 

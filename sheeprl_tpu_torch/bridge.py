@@ -1,19 +1,25 @@
 """Carry DreamerV3 weights from the JAX package's param trees into the port.
 
-Input: the ``world_model`` and ``actor`` trees of the JAX train state as
-nested dicts of numpy arrays (with or without the top ``params`` level).
-Output: state dicts for the port's ``WorldModel`` and ``Actor``.
+Input: the ``world_model``, ``actor`` and ``critic`` trees of the JAX train
+state as nested dicts of numpy arrays (with or without the top ``params``
+level). Output: state dicts for the port's ``WorldModel``, ``Actor`` and
+critic ``MLP``.
 
 - A Dense ``[in, out]`` kernel becomes a Linear ``[out, in]`` weight.
 - A conv HWIO kernel becomes OIHW.
+- A transposed-conv kernel (flax ``nn.ConvTranspose``, HWIO, with the default
+  ``transpose_kernel=False``) becomes torch's ``[in, out, kh, kw]`` with H and
+  W flipped: flax runs it as a plain convolution over the dilated input,
+  torch's transposed convolution flips its kernel.
 - ``LayerNorm_i/LayerNorm_0/{scale, bias}`` becomes ``norms.i.{weight, bias}``.
 - The GRU's ``linear/kernel`` [D, 3H] is kept as it is: its rows are in
   ``[h, x]`` order and the port's cell and kernel read that layout.
 - The CNN embedding stays flattened in HWC order: the port flattens NHWC,
   so the next Dense's rows need no permutation.
-- World-model subtrees that acting does not use (decoders, reward and
-  continue heads) are skipped by name after a check that they are well
-  formed; any other key, missing or left over, raises.
+- With ``heads=False`` (the player), the world-model subtrees that acting
+  does not use (decoders, reward and continue heads) are skipped by name
+  after a check that they are well formed; with ``heads=True`` (training)
+  they are carried too. Any other key, missing or left over, raises.
 """
 
 from __future__ import annotations
@@ -81,6 +87,17 @@ def _conv(tree: Any, path: str, prefix: str, out: StateDict) -> None:
     _done(rest, path)
 
 
+def _deconv(tree: Any, path: str, prefix: str, out: StateDict) -> None:
+    rest = _take(tree, path)
+    kernel = _tensor(rest.pop("kernel"))
+    if kernel.dim() != 4:
+        raise ValueError(f"{path}/kernel: expected HWIO, got {tuple(kernel.shape)}")
+    out[f"{prefix}weight"] = kernel.flip(0, 1).permute(2, 3, 0, 1).contiguous()
+    if "bias" in rest:
+        out[f"{prefix}bias"] = _tensor(rest.pop("bias"))
+    _done(rest, path)
+
+
 def _layer_norm(tree: Any, path: str, prefix: str, out: StateDict) -> None:
     rest = _take(tree, path)
     inner = _take(rest.pop("LayerNorm_0"), f"{path}/LayerNorm_0")
@@ -128,7 +145,8 @@ def _params(tree: Mapping[str, Any]) -> Dict[str, Any]:
 
 
 def mlp_state_dict(tree: Mapping[str, Any]) -> StateDict:
-    """A port ``MLP``'s state dict from a flax ``MLP``'s params."""
+    """A port ``MLP``'s state dict from a flax ``MLP``'s params (the critic
+    and the target critic are such MLPs)."""
     out: StateDict = {}
     _mlp(_params(tree), "mlp", "", out)
     return out
@@ -141,10 +159,40 @@ def cnn_state_dict(tree: Mapping[str, Any]) -> StateDict:
     return out
 
 
-def world_model_state_dict(tree: Mapping[str, Any]) -> StateDict:
-    """The port's ``WorldModel`` state dict from the JAX world-model params."""
+def _heads(rest: Dict[str, Any], out: StateDict) -> None:
+    """The decoders and the reward and continue heads."""
+    if "cnn_decoder" in rest:
+        dec = _take(rest.pop("cnn_decoder"), "cnn_decoder")
+        _dense(dec.pop("fc"), "cnn_decoder/fc", "cnn_decoder.fc.", out)
+        _stack(dec.pop("model"), "cnn_decoder/model", "cnn_decoder.model.", out, "deconv", "deconvs", _deconv)
+        _done(dec, "cnn_decoder")
+    if "mlp_decoder" in rest:
+        dec = _take(rest.pop("mlp_decoder"), "mlp_decoder")
+        _mlp(dec.pop("model"), "mlp_decoder/model", "mlp_decoder.model.", out)
+        for key in sorted(dec):
+            name, _, idx = key.rpartition("_")
+            if name == "head" and idx.isdigit():
+                _dense(dec.pop(key), f"mlp_decoder/{key}", f"mlp_decoder.heads.{idx}.", out)
+        _done(dec, "mlp_decoder")
+    _mlp(rest.pop("reward_model"), "reward_model", "reward_model.", out)
+    _mlp(rest.pop("continue_model"), "continue_model", "continue_model.", out)
+
+
+def decnn_state_dict(tree: Mapping[str, Any]) -> StateDict:
+    """A port ``DeCNN``'s state dict from a flax ``DeCNN``'s params."""
+    out: StateDict = {}
+    _stack(_params(tree), "decnn", "", out, "deconv", "deconvs", _deconv)
+    return out
+
+
+def world_model_state_dict(tree: Mapping[str, Any], heads: bool = False) -> StateDict:
+    """The port's ``WorldModel`` state dict from the JAX world-model params;
+    ``heads`` carries the decoders and heads (a world model built for
+    training) instead of skipping them."""
     rest = _params(tree)
     out: StateDict = {}
+    if heads:
+        _heads(rest, out)
     for key in _UNUSED_WORLD_MODEL_KEYS:
         if key in rest:
             _check_well_formed(rest.pop(key), key)
@@ -178,3 +226,4 @@ def actor_state_dict(tree: Mapping[str, Any]) -> StateDict:
             _dense(rest.pop(key), key, f"heads.{idx}.", out)
     _done(rest, "actor")
     return out
+

@@ -1,0 +1,279 @@
+"""Host-side replay buffers, in memory (counterpart of the ``ReplayBuffer``,
+``SequentialReplayBuffer`` and ``EnvIndependentReplayBuffer`` of
+sheeprl_tpu/data/buffers.py; memory-mapped storage is not ported yet).
+
+Shapes are ``[time, n_envs, ...]`` throughout and samples are numpy arrays;
+the trainer moves each sampled batch to its device. Sampling draws from a
+``numpy.random.Generator`` derived from numpy's global generator at
+construction (seeded by the trainer), or pinned with :meth:`seed`: the same
+seed and the same adds give the JAX package's samples.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence, Type
+
+import numpy as np
+
+
+def _validate_add_data(data: Dict[str, np.ndarray]) -> None:
+    if not isinstance(data, dict):
+        raise ValueError(f"'data' must be a dictionary containing Numpy arrays, got type '{type(data)}'")
+    shape = None
+    ref_key = None
+    for k, v in data.items():
+        if not isinstance(v, np.ndarray):
+            raise ValueError(f"'data' must contain Numpy arrays. Key '{k}' has type '{type(v)}'")
+        if v.ndim < 2:
+            raise RuntimeError(
+                f"'data' must have at least 2 dimensions: [sequence_length, n_envs, ...]. Shape of '{k}' is {v.shape}"
+            )
+        if shape is None:
+            shape, ref_key = v.shape[:2], k
+        elif v.shape[:2] != shape:
+            raise RuntimeError(
+                "Every array in 'data' must be congruent in the first 2 dimensions: "
+                f"found key '{ref_key}' with shape '{shape}' and '{k}' with shape '{v.shape[:2]}'"
+            )
+
+
+def _seeded_sampling_rng() -> np.random.Generator:
+    """A sampling stream derived from numpy's global generator, so a seeded
+    run samples the same batches every time."""
+    return np.random.default_rng(int(np.random.randint(0, 2**31, dtype=np.int64)))
+
+
+class ReplayBuffer:
+    """Circular [buffer_size, n_envs, ...] dict-of-arrays buffer with uniform
+    sampling and wraparound-safe next-observation sampling."""
+
+    batch_axis: int = 1
+
+    def __init__(self, buffer_size: int, n_envs: int = 1, obs_keys: Sequence[str] = ("observations",)):
+        if buffer_size <= 0:
+            raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
+        if n_envs <= 0:
+            raise ValueError(f"The number of environments must be greater than zero, got: {n_envs}")
+        self._buffer_size = buffer_size
+        self._n_envs = n_envs
+        self._obs_keys = tuple(obs_keys)
+        self._buf: Dict[str, np.ndarray] = {}
+        self._pos = 0
+        self._full = False
+        self._rng = _seeded_sampling_rng()
+
+    @property
+    def buffer(self) -> Dict[str, np.ndarray]:
+        return self._buf
+
+    @property
+    def buffer_size(self) -> int:
+        return self._buffer_size
+
+    @property
+    def full(self) -> bool:
+        return self._full
+
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
+
+    @property
+    def empty(self) -> bool:
+        return not self._buf
+
+    def __len__(self) -> int:
+        return self._buffer_size
+
+    def seed(self, seed: Optional[int]) -> None:
+        self._rng = np.random.default_rng(seed)
+
+    def add(self, data: Dict[str, np.ndarray], validate_args: bool = False) -> None:
+        """Write a [T, n_envs, ...] chunk at the circular head, overwriting the
+        oldest data when full. Every key must be present from the first add."""
+        if validate_args:
+            _validate_add_data(data)
+        data_len = next(iter(data.values())).shape[0]
+        if data_len > self._buffer_size:
+            data = {k: v[-self._buffer_size :] for k, v in data.items()}
+            data_len = self._buffer_size
+        idxes = np.arange(self._pos, self._pos + data_len) % self._buffer_size
+        has_keys = bool(self._buf)
+        for k, v in data.items():
+            if k not in self._buf:
+                if has_keys:
+                    raise KeyError(
+                        f"Key '{k}' was not present in the first add(); all keys must be added from the start "
+                        f"(existing keys: {sorted(self._buf)})"
+                    )
+                v = np.asarray(v)
+                self._buf[k] = np.empty((self._buffer_size, self._n_envs, *v.shape[2:]), dtype=v.dtype)
+            self._buf[k][idxes] = v
+        if self._pos + data_len >= self._buffer_size:
+            self._full = True
+        self._pos = (self._pos + data_len) % self._buffer_size
+
+    def _valid_indices(self, sample_next_obs: bool) -> np.ndarray:
+        """Uniform-sampleable time indices, excluding the transition that
+        straddles the write head (its next-obs belongs to another trajectory)."""
+        if self._full:
+            first_end = self._pos - 1 if sample_next_obs else self._pos
+            second_end = self._buffer_size if first_end >= 0 else self._buffer_size + first_end
+            return np.concatenate([np.arange(0, max(first_end, 0)), np.arange(self._pos, second_end)]).astype(np.intp)
+        max_pos = self._pos - 1 if sample_next_obs else self._pos
+        if max_pos <= 0:
+            raise RuntimeError(
+                "Cannot sample next observations with a single element in the buffer. Add at least two samples."
+            )
+        return np.arange(0, max_pos, dtype=np.intp)
+
+    def sample(
+        self, batch_size: int, sample_next_obs: bool = False, clone: bool = False, n_samples: int = 1, **kwargs
+    ) -> Dict[str, np.ndarray]:
+        """Uniform sample of single steps -> [n_samples, batch_size, ...]."""
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError(f"'batch_size' ({batch_size}) and 'n_samples' ({n_samples}) must be both greater than 0")
+        if not self._full and self._pos == 0:
+            raise ValueError("No sample has been added to the buffer. Please add at least one sample calling 'add()'")
+        valid = self._valid_indices(sample_next_obs)
+        time_idxes = valid[self._rng.integers(0, len(valid), size=(batch_size * n_samples,), dtype=np.intp)]
+        env_idxes = self._rng.integers(0, self._n_envs, size=(len(time_idxes),), dtype=np.intp)
+        flat = time_idxes * self._n_envs + env_idxes
+        out: Dict[str, np.ndarray] = {}
+        for k, arr in self._buf.items():
+            flat_view = arr.reshape(-1, *arr.shape[2:])
+            out[k] = flat_view[flat].copy() if clone else flat_view[flat]
+            if sample_next_obs and k in self._obs_keys:
+                nxt = ((time_idxes + 1) % self._buffer_size) * self._n_envs + env_idxes
+                out[f"next_{k}"] = flat_view[nxt].copy() if clone else flat_view[nxt]
+        return {k: v.reshape(n_samples, batch_size, *v.shape[1:]) for k, v in out.items()}
+
+
+class SequentialReplayBuffer(ReplayBuffer):
+    """Samples contiguous [n_samples, sequence_length, batch_size, ...]
+    windows, ignoring episode boundaries and avoiding the region around the
+    write head."""
+
+    batch_axis: int = 2
+
+    def sample(
+        self,
+        batch_size: int,
+        sample_next_obs: bool = False,
+        clone: bool = False,
+        n_samples: int = 1,
+        sequence_length: int = 1,
+        **kwargs,
+    ) -> Dict[str, np.ndarray]:
+        batch_dim = batch_size * n_samples
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError(f"'batch_size' ({batch_size}) and 'n_samples' ({n_samples}) must be both greater than 0")
+        if not self._full and self._pos == 0:
+            raise ValueError("No sample has been added to the buffer. Please add at least one sample calling 'add()'")
+        if not self._full and self._pos - sequence_length + 1 < 1:
+            raise ValueError(f"Cannot sample a sequence of length {sequence_length}. Data added so far: {self._pos}")
+        if self._full and sequence_length > self._buffer_size:
+            raise ValueError(
+                f"The sequence length ({sequence_length}) is greater than the buffer size ({self._buffer_size})"
+            )
+        if self._full:
+            first_end = self._pos - sequence_length + 1
+            second_end = self._buffer_size if first_end >= 0 else self._buffer_size + first_end
+            valid = np.concatenate([np.arange(0, max(first_end, 0)), np.arange(self._pos, second_end)]).astype(np.intp)
+            starts = valid[self._rng.integers(0, len(valid), size=(batch_dim,), dtype=np.intp)]
+        else:
+            max_start = self._pos - sequence_length + 1 - int(sample_next_obs)
+            if max_start <= 0:
+                raise RuntimeError(
+                    f"Cannot sample a sequence of length {sequence_length} "
+                    f"(sample_next_obs={sample_next_obs}) with only {self._pos} steps in the buffer"
+                )
+            starts = self._rng.integers(0, max_start, size=(batch_dim,), dtype=np.intp)
+
+        offsets = np.arange(sequence_length, dtype=np.intp)[None, :]
+        time_idxes = (starts[:, None] + offsets) % self._buffer_size  # [batch_dim, L]
+        env_idxes = self._rng.integers(0, self._n_envs, size=(batch_dim,), dtype=np.intp)  # one env per sequence
+        flat = (time_idxes * self._n_envs + env_idxes[:, None]).ravel()
+
+        out: Dict[str, np.ndarray] = {}
+        for k, arr in self._buf.items():
+            flat_view = arr.reshape(-1, *arr.shape[2:])
+            g = flat_view[flat].reshape(n_samples, batch_size, sequence_length, *arr.shape[2:])
+            out[k] = np.swapaxes(g, 1, 2)  # -> [n_samples, L, batch, ...]
+            if clone:
+                out[k] = out[k].copy()
+            if sample_next_obs:
+                nxt = (((time_idxes + 1) % self._buffer_size) * self._n_envs + env_idxes[:, None]).ravel()
+                gn = flat_view[nxt].reshape(n_samples, batch_size, sequence_length, *arr.shape[2:])
+                out[f"next_{k}"] = np.swapaxes(gn, 1, 2)
+                if clone:
+                    out[f"next_{k}"] = out[f"next_{k}"].copy()
+        return out
+
+
+class EnvIndependentReplayBuffer:
+    """One sub-buffer per environment so sampled sequences never cross env
+    boundaries; the batch is split multinomially across envs at sample time."""
+
+    def __init__(
+        self,
+        buffer_size: int,
+        n_envs: int = 1,
+        obs_keys: Sequence[str] = ("observations",),
+        buffer_cls: Type[ReplayBuffer] = SequentialReplayBuffer,
+    ):
+        if buffer_size <= 0:
+            raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
+        if n_envs <= 0:
+            raise ValueError(f"The number of environments must be greater than zero, got: {n_envs}")
+        self._buf: List[ReplayBuffer] = [buffer_cls(buffer_size=buffer_size, n_envs=1, obs_keys=obs_keys) for _ in range(n_envs)]
+        self._buffer_size = buffer_size
+        self._n_envs = n_envs
+        self._rng = _seeded_sampling_rng()
+        self._concat_along_axis = buffer_cls.batch_axis
+
+    @property
+    def buffer(self) -> Sequence[ReplayBuffer]:
+        return tuple(self._buf)
+
+    @property
+    def buffer_size(self) -> int:
+        return self._buffer_size
+
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
+
+    def __len__(self) -> int:
+        return self._buffer_size
+
+    def seed(self, seed: Optional[int]) -> None:
+        self._rng = np.random.default_rng(seed)
+        for i, b in enumerate(self._buf):
+            b.seed(None if seed is None else seed + i + 1)
+
+    def add(self, data: Dict[str, np.ndarray], indices: Optional[Sequence[int]] = None, validate_args: bool = False) -> None:
+        """Write a [T, len(indices), ...] chunk; column j goes to env indices[j] (all envs by default)."""
+        if indices is None:
+            indices = tuple(range(self._n_envs))
+        elif len(indices) != next(iter(data.values())).shape[1]:
+            raise ValueError(
+                f"The length of 'indices' ({len(indices)}) must be equal to the second dimension of the "
+                f"arrays in 'data' ({next(iter(data.values())).shape[1]})"
+            )
+        for data_col, env_idx in enumerate(indices):
+            env_data = {k: v[:, data_col : data_col + 1] for k, v in data.items()}
+            self._buf[env_idx].add(env_data, validate_args=validate_args)
+
+    def sample(
+        self, batch_size: int, sample_next_obs: bool = False, clone: bool = False, n_samples: int = 1, **kwargs
+    ) -> Dict[str, np.ndarray]:
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError(f"'batch_size' ({batch_size}) and 'n_samples' ({n_samples}) must be both greater than 0")
+        per_env = np.bincount(self._rng.integers(0, self._n_envs, (batch_size,)))
+        parts = [
+            b.sample(batch_size=bs, sample_next_obs=sample_next_obs, clone=clone, n_samples=n_samples, **kwargs)
+            for b, bs in zip(self._buf, per_env)
+            if bs > 0
+        ]
+        return {k: np.concatenate([p[k] for p in parts], axis=self._concat_along_axis) for k in parts[0]}

@@ -27,7 +27,10 @@ from typing import Dict, Iterable, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES: Dict[str, Path] = {"ln_gru": PACKAGE_DIR / "csrc" / "ln_gru.cu"}
+SOURCES: Dict[str, Path] = {
+    "ln_gru": PACKAGE_DIR / "csrc" / "ln_gru.cu",
+    "ln_gru_bwd": PACKAGE_DIR / "csrc" / "ln_gru_bwd.cu",
+}
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",

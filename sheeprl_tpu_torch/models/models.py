@@ -9,7 +9,10 @@
   made to change layout.
 - :class:`LayerNormGRUCell` keeps its projection weight as [D, 3H] (the
   flax kernel's layout, rows in ``[h, x]`` order) because that is how the
-  CUDA kernel reads it; the step is one :func:`ln_gru_forward` call.
+  CUDA kernel reads it; the step is one :class:`LNGRUFunction` call, whose
+  backward is the second CUDA kernel.
+- :class:`DeCNN` is the transposed-convolution stack of the decoders, NHWC at
+  its interface like :class:`CNN`.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sheeprl_tpu_torch.models.ln_gru import ln_gru_forward
+from sheeprl_tpu_torch.models.ln_gru import LNGRUFunction
 
 _ACTIVATIONS: Dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "relu": F.relu,
@@ -143,15 +146,52 @@ class CNN(nn.Module):
         return x.reshape(*batch_shape, *x.shape[1:])
 
 
+class DeCNN(nn.Module):
+    """Transposed-conv -> [LayerNorm over channels] -> activation stages; NHWC
+    in, NHWC out. ``layers`` gives each stage's (out_channels, kernel_size,
+    stride, padding, bias, norm_eps or None, activation); the output size is
+    torch ``ConvTranspose2d``'s, ``(in - 1) * stride - 2 * padding +
+    kernel_size``, the size the JAX package's DeCNN reproduces with
+    ``lax.conv_transpose`` padding. Weights are torch's [in, out, kh, kw]
+    layout; the bridge flips the flax kernel to it."""
+
+    def __init__(self, input_channels: int, layers: Sequence[tuple], dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if len(layers) < 1:
+            raise ValueError("The number of layers should be at least 1.")
+        self.dtype = dtype
+        chans = [int(input_channels), *[int(layer[0]) for layer in layers]]
+        self.deconvs = nn.ModuleList(
+            nn.ConvTranspose2d(i, o, int(k), stride=int(s), padding=int(p), bias=bool(b))
+            for i, o, (_, k, s, p, b, _, _) in zip(chans[:-1], chans[1:], layers)
+        )
+        self.norms = nn.ModuleList(
+            LayerNorm(o, eps) if eps is not None else nn.Identity() for o, (_, _, _, _, _, eps, _) in zip(chans[1:], layers)
+        )
+        self.acts = [get_activation(layer[6]) for layer in layers]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        batch_shape = x.shape[:-3]
+        x = x.reshape(-1, *x.shape[-3:]).to(self.dtype)
+        for deconv, norm, act in zip(self.deconvs, self.norms, self.acts):
+            bias = deconv.bias.to(x.dtype) if deconv.bias is not None else None
+            y = F.conv_transpose2d(
+                x.permute(0, 3, 1, 2), deconv.weight.to(x.dtype), bias, deconv.stride, deconv.padding
+            )
+            x = act(norm(y.permute(0, 2, 3, 1)))
+        return x.reshape(*batch_shape, *x.shape[1:])
+
+
 class LayerNormGRUCell(nn.Module):
     """Hafner GRU cell, LayerNorm after the fused input projection:
 
         z = LN(W [h, x] (+ b))
         h' = sigmoid(z_u - 1) * tanh(sigmoid(z_r) * z_c) + (1 - sigmoid(z_u - 1)) * h
 
-    The whole step is :func:`ln_gru_forward`: the CUDA kernel for CUDA
-    tensors, its plain version for CPU tensors. The cell's LayerNorm uses eps
-    1e-5 whatever the model's other norms use, as in the JAX cell."""
+    The whole step is one :class:`LNGRUFunction`: the CUDA kernels (forward
+    and backward) for CUDA tensors, their plain versions for CPU tensors. The
+    cell's LayerNorm uses eps 1e-5 whatever the model's other norms use, as in
+    the JAX cell."""
 
     def __init__(self, input_size: int, hidden_size: int, bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -169,5 +209,5 @@ class LayerNormGRUCell(nn.Module):
         inp = torch.cat([h2, x.reshape(h2.shape[0], -1).to(self.dtype)], dim=-1)
         # The bias is rounded to the compute dtype first, as the JAX cell does.
         bias = self.bias.to(self.dtype).float() if self.bias is not None else self.zero_bias
-        h_new, _ = ln_gru_forward(inp, self.weight.to(self.dtype), bias, self.norm.weight, self.norm.bias, h2)
+        h_new = LNGRUFunction.apply(inp, self.weight.to(self.dtype), bias, self.norm.weight, self.norm.bias, h2)
         return h_new.reshape(*batch_shape, self.hidden_size)

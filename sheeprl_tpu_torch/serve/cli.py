@@ -19,10 +19,11 @@ seeded initialiser::
 
 from __future__ import annotations
 
-import json
 import pathlib
 import sys
 from typing import Any, Dict, List, Optional, Sequence
+
+from sheeprl_tpu_torch.config import parse_list, parse_overrides
 
 SERVE_DEFAULTS: Dict[str, Any] = {
     "host": "127.0.0.1",
@@ -33,28 +34,6 @@ SERVE_DEFAULTS: Dict[str, Any] = {
     "max_models": 4,
     "max_sessions": 256,
 }
-
-
-def parse_overrides(overrides: Sequence[str]) -> Dict[str, str]:
-    out: Dict[str, str] = {}
-    for ov in overrides:
-        if "=" not in ov:
-            raise ValueError(f"arguments are key=value pairs, got {ov!r}")
-        key, value = ov.split("=", 1)
-        out[key.lstrip("+")] = value
-    return out
-
-
-def parse_list(value: str) -> List[str]:
-    """``[a,b]``, ``["a", "b"]`` or a bare ``a``."""
-    value = value.strip()
-    if value.startswith("[") and value.endswith("]"):
-        try:
-            items = json.loads(value)
-        except ValueError:
-            items = [v.strip().strip("'\"") for v in value[1:-1].split(",")]
-        return [str(v) for v in items if str(v)]
-    return [value] if value else []
 
 
 def serve_config(overrides: Sequence[str]) -> Dict[str, Any]:

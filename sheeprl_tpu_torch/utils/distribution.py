@@ -1,21 +1,36 @@
-"""Distributions for acting (the part of sheeprl_tpu/utils/distribution.py
-the player needs: one-hot categoricals with mode and sample, Normal and
-Independent for the continuous actors, and ``uniform_mix``).
+"""Distributions (counterpart of sheeprl_tpu/utils/distribution.py): one-hot
+categoricals with mode, sample, log_prob and entropy, Normal and Independent,
+the DreamerV3 loss distributions (Symlog, MSE, two-hot, Bernoulli with a safe
+mode), ``kl_divergence`` for the categorical pair, and ``uniform_mix``.
 
-Sampling draws from explicit generators through :class:`RowGenerators`: row
-i of a batch takes its numbers from the i-th ``torch.Generator``, so a row's
-draw does not depend on which rows share its batch. Threefry (JAX) and
-Philox/MT (torch) streams differ, so a seed gives other samples here than in
-the JAX package; the tests inject samples instead of comparing seeds.
+Sampling draws from an explicit noise source, never from torch's global
+generator. Serving uses :class:`RowGenerators`: row i of a batch takes its
+numbers from the i-th ``torch.Generator``, so a row's draw does not depend on
+which rows share its batch. Training uses :class:`BatchGenerator`: one
+generator on the training device for every draw of a gradient step (per-row
+host generators over 1024 imagined rows and 15 steps would cost a host loop
+per draw). A categorical draw asks the source for its indices
+(``categorical(logits)``), Gumbel-max in both. Threefry (JAX) and Philox/MT
+(torch) streams differ, so a seed gives other samples here than in the JAX
+package; the tests inject samples instead of comparing seeds.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from sheeprl_tpu_torch.utils.ops import symexp, symlog
+
+
+def _gumbel_max(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """Indices of a categorical draw from uniforms ``u`` (the rule
+    ``jax.random.categorical`` follows)."""
+    u = u.clamp(min=torch.finfo(torch.float32).tiny)
+    return (logits.float() - torch.log(-torch.log(u))).argmax(-1)
 
 
 class RowGenerators:
@@ -48,6 +63,28 @@ class RowGenerators:
 
     def randn(self, row_shape: Tuple[int, ...]) -> torch.Tensor:
         return self._draw(torch.randn, row_shape)
+
+    def categorical(self, logits: torch.Tensor) -> torch.Tensor:
+        _check_rows(self, logits.shape[0])
+        return _gumbel_max(logits, self.rand(tuple(logits.shape[1:])))
+
+
+class BatchGenerator:
+    """One ``torch.Generator`` for every draw of a batch, on the device of
+    the tensors it draws for (the training path's noise source)."""
+
+    def __init__(self, generator: torch.Generator):
+        self.generator = generator
+
+    @classmethod
+    def from_seed(cls, seed: int, device: torch.device) -> "BatchGenerator":
+        return cls(torch.Generator(device=torch.device(device)).manual_seed(int(seed)))
+
+    def rand(self, shape: Tuple[int, ...]) -> torch.Tensor:
+        return torch.rand(shape, generator=self.generator, device=self.generator.device, dtype=torch.float32)
+
+    def categorical(self, logits: torch.Tensor) -> torch.Tensor:
+        return _gumbel_max(logits, self.rand(tuple(logits.shape)).to(logits.device))
 
 
 def _check_rows(rng: RowGenerators, batch: int) -> None:
@@ -87,9 +124,22 @@ class Independent:
 
     rsample = sample
 
+    def _reduce(self, x: torch.Tensor) -> torch.Tensor:
+        return x.sum(dim=tuple(range(-self.ndims, 0))) if self.ndims else x
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.base.mean
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self.base.mode
+
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
-        lp = self.base.log_prob(value)
-        return lp.sum(dim=tuple(range(-self.ndims, 0))) if self.ndims else lp
+        return self._reduce(self.base.log_prob(value))
+
+    def entropy(self) -> torch.Tensor:
+        return self._reduce(self.base.entropy())
 
 
 class OneHotCategorical:
@@ -103,22 +153,31 @@ class OneHotCategorical:
         return torch.softmax(self.logits, dim=-1)
 
     @property
+    def mean(self) -> torch.Tensor:
+        return self.probs
+
+    @property
     def mode(self) -> torch.Tensor:
         p = self.probs
         return F.one_hot(p.argmax(-1), p.shape[-1]).to(p.dtype)
 
-    def sample(self, rng: RowGenerators) -> torch.Tensor:
-        """Gumbel-max, the rule ``jax.random.categorical`` follows."""
-        _check_rows(rng, self.logits.shape[0])
-        u = rng.rand(tuple(self.logits.shape[1:])).clamp_(min=torch.finfo(torch.float32).tiny)
-        idx = (self.logits.float() - torch.log(-torch.log(u))).argmax(-1)
-        return F.one_hot(idx, self.logits.shape[-1]).to(self.logits.dtype)
+    def sample(self, rng) -> torch.Tensor:
+        """A one-hot draw; ``rng`` (:class:`RowGenerators` or
+        :class:`BatchGenerator`) picks the indices."""
+        return F.one_hot(rng.categorical(self.logits), self.logits.shape[-1]).to(self.logits.dtype)
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return (value * self.logits).sum(-1)
+
+    def entropy(self) -> torch.Tensor:
+        p = self.probs
+        return -torch.where(p > 0, p * self.logits, torch.zeros_like(p)).sum(-1)
 
 
 class OneHotCategoricalStraightThrough(OneHotCategorical):
     """Forward a hard one-hot sample, backward the gradient of the probs."""
 
-    def rsample(self, rng: RowGenerators) -> torch.Tensor:
+    def rsample(self, rng) -> torch.Tensor:
         probs = self.probs
         return self.sample(rng) + (probs - probs.detach())
 
@@ -132,3 +191,150 @@ def uniform_mix(logits: torch.Tensor, unimix: float) -> torch.Tensor:
     probs = torch.softmax(logits.float(), dim=-1)
     probs = (1 - unimix) * probs + unimix / probs.shape[-1]
     return torch.log(probs).to(logits.dtype)
+
+
+def _event_dims(dims: int) -> Optional[Tuple[int, ...]]:
+    """The trailing ``dims`` axes; 0 means every axis (torch's ``sum(dim=())``
+    collapses everything, which the reference relies on)."""
+    return tuple(-x for x in range(1, dims + 1)) if dims else None
+
+
+def _reduce(x: torch.Tensor, dims: Optional[Tuple[int, ...]], agg: str) -> torch.Tensor:
+    if agg == "mean":
+        return x.mean(dims) if dims is not None else x.mean()
+    if agg == "sum":
+        return x.sum(dims) if dims is not None else x.sum()
+    raise NotImplementedError(agg)
+
+
+class SymlogDistribution:
+    """MSE (or abs) distance in symlog space, posing as a distribution."""
+
+    def __init__(self, mode: torch.Tensor, dims: int, dist: str = "mse", agg: str = "sum", tol: float = 1e-8):
+        self._mode = mode
+        self._dims = _event_dims(dims)
+        self._dist = dist
+        self._agg = agg
+        self._tol = tol
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return symexp(self._mode)
+
+    mean = mode
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        if self._mode.shape != value.shape:
+            raise ValueError(f"shape mismatch: {tuple(self._mode.shape)} vs {tuple(value.shape)}")
+        if self._dist == "mse":
+            distance = (self._mode - symlog(value)) ** 2
+        elif self._dist == "abs":
+            distance = (self._mode - symlog(value)).abs()
+        else:
+            raise NotImplementedError(self._dist)
+        distance = torch.where(distance < self._tol, torch.zeros_like(distance), distance)
+        return -_reduce(distance, self._dims, self._agg)
+
+
+class MSEDistribution:
+    """Plain MSE, posing as a distribution."""
+
+    def __init__(self, mode: torch.Tensor, dims: int, agg: str = "sum"):
+        self._mode = mode
+        self._dims = _event_dims(dims)
+        self._agg = agg
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self._mode
+
+    mean = mode
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        if self._mode.shape != value.shape:
+            raise ValueError(f"shape mismatch: {tuple(self._mode.shape)} vs {tuple(value.shape)}")
+        return -_reduce((self._mode - value) ** 2, self._dims, self._agg)
+
+
+class TwoHotEncodingDistribution:
+    """Two-hot categorical over symlog-spaced bins (DreamerV3's reward and
+    critic heads)."""
+
+    def __init__(
+        self,
+        logits: torch.Tensor,
+        dims: int = 0,
+        low: int = -20,
+        high: int = 20,
+        transfwd: Callable[[torch.Tensor], torch.Tensor] = symlog,
+        transbwd: Callable[[torch.Tensor], torch.Tensor] = symexp,
+    ):
+        self.logits = logits
+        self.probs = torch.softmax(logits, dim=-1)
+        self.dims = _event_dims(dims)
+        self.bins = torch.linspace(low, high, logits.shape[-1], dtype=logits.dtype, device=logits.device)
+        self.transfwd = transfwd
+        self.transbwd = transbwd
+
+    @property
+    def mean(self) -> torch.Tensor:
+        weighted = self.probs * self.bins
+        summed = weighted.sum(self.dims, keepdim=True) if self.dims is not None else weighted.sum()
+        return self.transbwd(summed)
+
+    mode = mean
+
+    def log_prob(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.transfwd(x)
+        nbins = self.bins.shape[0]
+        below = (self.bins <= x).to(torch.int64).sum(-1, keepdim=True) - 1
+        above = torch.clamp(below + 1, max=nbins - 1)
+        below = torch.clamp(below, min=0)
+        equal = below == above
+        one = torch.ones_like(x)
+        dist_to_below = torch.where(equal, one, (self.bins[below] - x).abs())
+        dist_to_above = torch.where(equal, one, (self.bins[above] - x).abs())
+        total = dist_to_below + dist_to_above
+        weight_below = dist_to_above / total
+        weight_above = dist_to_below / total
+        target = (
+            F.one_hot(below, nbins).to(x.dtype) * weight_below[..., None]
+            + F.one_hot(above, nbins).to(x.dtype) * weight_above[..., None]
+        ).squeeze(-2)
+        log_pred = self.logits - torch.logsumexp(self.logits, dim=-1, keepdim=True)
+        weighted = target * log_pred
+        return weighted.sum(self.dims) if self.dims is not None else weighted.sum()
+
+
+class BernoulliSafeMode:
+    """Bernoulli over logits whose mode is p > 0.5 (the continue head)."""
+
+    def __init__(self, logits: torch.Tensor):
+        self.logits = logits
+
+    @property
+    def probs(self) -> torch.Tensor:
+        return torch.sigmoid(self.logits)
+
+    mean = probs
+
+    @property
+    def mode(self) -> torch.Tensor:
+        p = self.probs
+        return (p > 0.5).to(p.dtype)
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return value * F.logsigmoid(self.logits) + (1 - value) * F.logsigmoid(-self.logits)
+
+
+def kl_divergence(p, q) -> torch.Tensor:
+    """KL(p || q) for a pair of one-hot categoricals, alone or under
+    :class:`Independent` with the same number of event dims."""
+    if isinstance(p, Independent) and isinstance(q, Independent):
+        if p.ndims != q.ndims:
+            raise ValueError("Independent KL requires matching event ndims")
+        return p._reduce(kl_divergence(p.base, q.base))
+    if isinstance(p, OneHotCategorical) and isinstance(q, OneHotCategorical):
+        probs = p.probs
+        return torch.where(probs > 0, probs * (p.logits - q.logits), torch.zeros_like(probs)).sum(-1)
+    raise NotImplementedError(f"KL not implemented for {type(p).__name__} || {type(q).__name__}")

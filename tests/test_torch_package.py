@@ -30,7 +30,9 @@ def test_import_every_module_without_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "sheeprl_tpu_torch.serve.engine" in report["modules"] and "sheeprl_tpu_torch.bridge" in report["modules"]
+    training = ["algos.dreamer_v3.dreamer_v3", "algos.dreamer_v3.loss", "data.buffers", "envs.dummy", "optim", "config", "cli", "__main__"]
+    for name in ["serve.engine", "bridge", *training]:
+        assert f"sheeprl_tpu_torch.{name}" in report["modules"], name
     assert not [m for m in report["loaded"] if m in FORBIDDEN]
 
 
@@ -49,6 +51,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     obs_space = DictSpace({"rgb": Box((64, 64, 3), "uint8", 0.0, 255.0)})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_agent((9,), False, dotdict(dreamer_v3_s_ms_pacman_config()), obs_space)
+    from sheeprl_tpu_torch.cli import run
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run(["exp=dreamer_v3_100k_ms_pacman", "env=dummy"])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
