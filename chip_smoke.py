@@ -10,19 +10,24 @@ Phases (any failure exits non-zero before the result line):
 1. Device: a CUDA card must be present; print its name and power limit.
 2. Build: compile every CUDA kernel of the port from csrc/ with nvcc, one
    nvcc per source, all at once.
-3. The LN-GRU forward against its plain version on the card: DreamerV3-S
-   shapes (D=1024, H=512) at the serving buckets B = 1, 2, 4, 8, at the
-   training path's B = 16 (dynamic scan) and B = 1024 (imagination) and at
-   B = 64, an unaligned shape (B=3, D=200, H=100) and the XL shape (D=5120,
-   H=4096, B=8), in f32 with TF32 off and in bf16. Tolerances: z within rtol
-   1e-4 / atol 1e-4 and h' within atol 1e-4 in f32; h' within one bf16 ulp
-   (+1e-5 near 0) in bf16. Median times from CUDA events over back-to-back
-   launches (queued behind a device sleep so host overhead does not show,
-   inputs rotated through copies larger than the 50 MB L2), beside the bound
-   from bytes and operations.
+3. The LN-GRU forward (the kernel ``forward_plan`` picks: streaming or
+   tensor cores) against its plain version on the card: DreamerV3-S shapes
+   (D=1024, H=512) at the serving buckets B = 1, 2, 4, 8, at the training
+   path's B = 16 (dynamic scan) and B = 1024 (imagination) and at B = 64, an
+   unaligned shape (B=3, D=200, H=100) and the XL shape (D=5120, H=4096,
+   B=8), in f32 with TF32 off and in bf16. Tolerances: z within rtol 1e-4 /
+   atol 1e-4 and h' within atol 1e-4 in f32; h' within one bf16 ulp (+1e-5
+   near 0) in bf16. Median times (with the min and max of the repetitions)
+   from CUDA events over back-to-back launches (queued behind a device sleep
+   so host overhead does not show, inputs rotated through copies larger than
+   the 50 MB L2), beside the bound from bytes and operations and beside
+   cuBLAS's product alone (``torch.matmul(inp, w)``). The profiler's kernel
+   split shows one ln_gru_* launch per call. Then both forward kernels at
+   DV3-S bf16 and B = 16, 64, 128, 256, 1024, each held to the plain
+   version and timed: the measurement behind ``TENSOR_CORE_MIN_BATCH``.
 4. The LN-GRU backward against its plain version, at B = 16 and 1024
    (H = 512) and B = 3, H = 100, f32 and bf16 (tolerances in
-   ``phase_backward``), timed the same way.
+   ``phase_backward``), timed the same way, one launch per call.
 5. The cell's gradients on the card: LayerNormGRUCell (the autograd Function
    over both kernels) against torch autograd through the plain version.
 6. Serving: write a DreamerV3-S / MsPacman artifact from the port's seeded
@@ -39,13 +44,16 @@ Phases (any failure exits non-zero before the result line):
    width, bf16-mixed, batch 16 x 64, horizon 15, with learning_starts,
    total_steps and buffer.size cut (listed in the output) so it takes 8
    gradient steps. Counts zeroed just before, read just after: at least 79
-   forward and 64 backward launches per gradient step. Finite losses; the
+   forward (64 streaming, 15 on the tensor cores) and 64 backward launches
+   per gradient step. Finite losses; the
    world model, actor and critic moved; the target critic followed its EMA
    cadence. Then the gradient step's profile (host wall, device busy, idle
    share, device operations, peak memory) and a 32-true gradient step on the
    card against the CPU with the card's categorical draws replayed.
 
-Prints one ``{"kernels": [...]}`` line, the card's name and power limit,
+Prints one ``{"kernels": [...]}`` line (the streaming forward at B = 16,
+the tensor-core forward at B = 1024, the backward at B = 16), the card's
+name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -97,9 +105,11 @@ def bf16_ulp(x):
     return torch.ldexp(torch.ones_like(x), e - 8)
 
 
-def device_ms(fn, reps: int = 15, inner: int = 20) -> float:
-    """Median device milliseconds per call: ``inner`` calls are queued behind
-    a device sleep long enough to cover their enqueueing, between two events."""
+def device_ms(fn, reps: int = 15, inner: int = 20) -> tuple:
+    """(median, min, max) device milliseconds per call over ``reps``
+    repetitions: each times ``inner`` calls queued behind a device sleep long
+    enough to cover their enqueueing, between two events. The spread shows a
+    one-off repetition as such."""
     import torch
 
     for _ in range(3):
@@ -121,11 +131,12 @@ def device_ms(fn, reps: int = 15, inner: int = 20) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+    return statistics.median(times), min(times), max(times)
 
 
 def kernel_split_ms(fn, calls: int = 50) -> dict:
-    """Device ms per call of each CUDA kernel ``fn`` launches, from torch.profiler."""
+    """Device ms and launches per call of each CUDA kernel ``fn`` launches,
+    from torch.profiler: {name: {"ms": ..., "launches": ...}}."""
     import torch
 
     fn()
@@ -140,8 +151,20 @@ def kernel_split_ms(fn, calls: int = 50) -> dict:
         if total_us and evt.count:
             found = re.search(r"ln_gru_\w+", evt.key)
             name = found.group(0) if found else evt.key
-            split[name] = split.get(name, 0.0) + total_us / calls / 1e3
+            entry = split.setdefault(name, {"ms": 0.0, "launches": 0.0})
+            entry["ms"] += total_us / calls / 1e3
+            entry["launches"] += evt.count / calls
     return split
+
+
+def check_one_launch(what: str, split: dict) -> None:
+    """Each call of an LN-GRU wrapper is one launch of one ln_gru_* kernel:
+    one kernel name and at most one launch per call. (The profiler drops some
+    events of short back-to-back kernels: up to a fifth of them in one run,
+    so fewer than one launch per call is what it shows, not what ran.)"""
+    gru = {k: v for k, v in split.items() if k.startswith("ln_gru")}
+    if len(gru) != 1 or not 0.0 < next(iter(gru.values()))["launches"] <= 1.0 + 1e-9:
+        fail(f"{what}: expected one ln_gru_* kernel launch per call, the profiler saw {split}")
 
 
 def gru_inputs(batch, depth, hidden, dtype, seed=0):
@@ -187,10 +210,48 @@ def rotated(args, fn):
     return call
 
 
-def phase_kernels():
+def timed(fn) -> dict:
+    """ms (the median) beside the spread of ``device_ms``."""
+    med, lo, hi = device_ms(fn)
+    return {"ms": med, "ms_min": lo, "ms_max": hi}
+
+
+def check_forward(fn, args, what) -> dict:
+    """One call of a forward launcher against ln_gru_plain on the same
+    inputs: z within rtol 1e-4 / atol 1e-4 and h' within atol 1e-4 in f32;
+    h' within one bf16 ulp (+1e-5 near 0) in bf16."""
     import torch
 
-    from sheeprl_tpu_torch.models.ln_gru import ln_gru_forward, ln_gru_plain
+    from sheeprl_tpu_torch.models.ln_gru import ln_gru_plain
+
+    h_k, z_k = fn(*args)
+    torch.cuda.synchronize()
+    h_p, z_p = ln_gru_plain(*args)
+    err_h = (h_k.float() - h_p.float()).abs()
+    err_z = (z_k - z_p).abs()
+    if not (torch.isfinite(h_k.float()).all() and torch.isfinite(z_k).all()):
+        fail(f"{what}: non-finite output")
+    if args[0].dtype == torch.float32:
+        ok = bool((err_z <= 1e-4 + 1e-4 * z_p.abs()).all() and (err_h <= 1e-4).all())
+    else:
+        # One bf16 ulp, plus 1e-5 for the f32 difference before the final
+        # rounding: near 0, h' = u*c + (1-u)*h cancels and f32 rounding
+        # alone (|dh| <= 1.4e-6 in f32 runs) exceeds the bf16 spacing.
+        ulp = bf16_ulp(torch.maximum(h_k.float().abs(), h_p.float().abs()))
+        ok = bool((err_z <= 1e-4 + 1e-4 * z_p.abs()).all() and (err_h <= ulp + 1e-5).all())
+    if not ok:
+        fail(f"{what} disagrees with ln_gru_plain: max |dh| {err_h.max().item()}, max |dz| {err_z.max().item()}")
+    return {"max_abs_err_h": err_h.max().item(), "max_abs_err_z": err_z.max().item()}
+
+
+def phase_kernels():
+    """ln_gru_forward (the kernel its plan picks) against ln_gru_plain at
+    every shape, timed beside the plain version, cuBLAS's product alone
+    (``torch.matmul(inp, w)``, the yardstick for the product part; no one
+    PyTorch call computes the whole step) and the bound."""
+    import torch
+
+    from sheeprl_tpu_torch.models.ln_gru import _aligned, _sm_count, forward_plan, ln_gru_forward, ln_gru_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -203,50 +264,68 @@ def phase_kernels():
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[1]
             args = gru_inputs(batch, depth, hidden, dtype)
+            what = f"ln_gru B={batch} D={depth} H={hidden} {dname}"
+            plan = forward_plan(batch, depth, hidden, dtype, _sm_count(0), _aligned(args[0], args[1], args[5]))
             before = ln_gru_forward.launches
-            h_k, z_k = ln_gru_forward(*args)
-            torch.cuda.synchronize()
+            errs = check_forward(ln_gru_forward, args, what)
             if ln_gru_forward.launches != before + 1:
                 fail("ln_gru_forward did not count its launch")
-            h_p, z_p = ln_gru_plain(*args)
-            err_h = (h_k.float() - h_p.float()).abs()
-            err_z = (z_k - z_p).abs()
-            if not (torch.isfinite(h_k.float()).all() and torch.isfinite(z_k).all()):
-                fail(f"ln_gru non-finite output at B={batch} D={depth} H={hidden} {dname}")
-            if dtype == torch.float32:
-                ok = bool((err_z <= 1e-4 + 1e-4 * z_p.abs()).all() and (err_h <= 1e-4).all())
-            else:
-                # One bf16 ulp, plus 1e-5 for the f32 difference before the final
-                # rounding: near 0, h' = u*c + (1-u)*h cancels and f32 rounding
-                # alone (|dh| <= 1.4e-6 in f32 runs) exceeds the bf16 spacing.
-                ulp = bf16_ulp(torch.maximum(h_k.float().abs(), h_p.float().abs()))
-                ok = bool((err_z <= 1e-4 + 1e-4 * z_p.abs()).all() and (err_h <= ulp + 1e-5).all())
-            if not ok:
-                fail(f"ln_gru disagrees with ln_gru_plain at B={batch} D={depth} H={hidden} {dname}: max |dh| {err_h.max().item()}, max |dz| {err_z.max().item()}")
             # W and its inputs rotate through copies that exceed L2, as a
             # serving step finds W after the rest of the model has run.
-            kernel_ms = device_ms(rotated(args, ln_gru_forward))
-            plain_ms = device_ms(rotated(args, ln_gru_plain))
-            split = kernel_split_ms(rotated(args, ln_gru_forward)) if (batch, depth, hidden, dname) == MAIN_SHAPE else None
+            kernel = timed(rotated(args, ln_gru_forward))
+            plain_ms = device_ms(rotated(args, ln_gru_plain))[0]
+            product_ms = device_ms(rotated(args[:2], torch.matmul))[0]
+            split = kernel_split_ms(rotated(args, ln_gru_forward))
+            check_one_launch(what, split)
             bound_ms, bound_by = gru_bound(batch, depth, hidden, dname)
-            row = {
-                "shape": f"B={batch} D={depth} H={hidden}",
-                "dtype": dname,
-                "max_abs_err_h": err_h.max().item(),
-                "max_abs_err_z": err_z.max().item(),
-                "ms": kernel_ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
-            }
-            if split is not None:
-                row["per_cuda_kernel_ms"] = split
-                log(f"ln_gru {row['shape']} {dname}: device time per CUDA kernel (torch.profiler): {split}")
+            row = {"shape": f"B={batch} D={depth} H={hidden}", "dtype": dname, "kernel": plan.kernel, **errs, **kernel,
+                   "plain_ms": plain_ms, "product_library_ms": product_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "per_cuda_kernel": split}  # fmt: skip
             rows.append(row)
-            log(f"ln_gru {row['shape']} {dname}: ok, max|dh| {row['max_abs_err_h']:.3g}, max|dz| {row['max_abs_err_z']:.3g}, "
-                f"kernel {kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({bound_by})")  # fmt: skip
+            log(f"{what}: ok on {plan.kernel}, max|dh| {row['max_abs_err_h']:.3g}, max|dz| {row['max_abs_err_z']:.3g}, "
+                f"kernel {kernel['ms'] * 1e3:.2f} us [{kernel['ms_min'] * 1e3:.2f}, {kernel['ms_max'] * 1e3:.2f}], plain {plain_ms * 1e3:.2f} us, "
+                f"product alone {product_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}); {json.dumps(split)}")  # fmt: skip
             del args
             torch.cuda.empty_cache()
+    return rows
+
+
+THRESHOLD_BATCHES = (16, 64, 128, 256, 1024)
+
+
+def phase_threshold():
+    """Both forward kernels at DV3-S (D = 1024, H = 512) bf16 and B = 16, 64,
+    128, 256, 1024, each held to ln_gru_plain and timed: the measurement
+    behind TENSOR_CORE_MIN_BATCH in models/ln_gru.py."""
+    import torch
+
+    from sheeprl_tpu_torch import kernels
+    from sheeprl_tpu_torch.models.ln_gru import TC_GATES, ln_gru_forward_streaming, ln_gru_forward_tensor_core
+
+    fits = kernels.load("ln_gru_tc").ln_gru_tc_max_active_clusters
+    clusters = fits(512 // TC_GATES, 0)
+    log(f"threshold: the card holds {clusters} tensor-core clusters of {512 // TC_GATES} CTAs at once "
+        f"(B = 1024 needs {1024 // 64})")  # fmt: skip
+    if clusters < 1024 // 64:
+        fail(f"only {clusters} clusters of the tensor-core kernel fit at once: B = 1024 takes two waves")
+    rows = []
+    for batch in THRESHOLD_BATCHES:
+        args = gru_inputs(batch, 1024, 512, torch.bfloat16, seed=1)
+        row = {"batch": batch}
+        for name, fn in (("streaming", ln_gru_forward_streaming), ("tensor_core", ln_gru_forward_tensor_core)):
+            before = fn.launches
+            errs = check_forward(fn, args, f"ln_gru {name} B={batch} D=1024 H=512 bfloat16")
+            if fn.launches != before + 1:
+                fail(f"ln_gru_forward_{name} did not count its launch")
+            row[name] = {**errs, **timed(rotated(args, fn))}
+        row["product_library_ms"] = device_ms(rotated(args[:2], torch.matmul))[0]
+        row["bound_ms"] = gru_bound(batch, 1024, 512, "bfloat16")[0]
+        row["tensor_core_clusters_at_once"] = clusters
+        rows.append(row)
+        log(f"threshold B={batch} bf16: streaming {row['streaming']['ms'] * 1e3:.2f} us, tensor core {row['tensor_core']['ms'] * 1e3:.2f} us, "
+            f"product alone {row['product_library_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us")  # fmt: skip
+        del args
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -302,14 +381,18 @@ def phase_backward():
             allowed = 1e-6 if dtype == torch.float32 else bf16_ulp(torch.maximum(dh_k.abs(), dh_p.abs())) + 1e-5
             if not bool(((dh_k - dh_p).abs() <= allowed).all()):
                 fail(f"ln_gru_backward dh_tail disagrees at B={batch} H={hidden} {dname}: max |d| {errs['dh_tail']}")
-            kernel_ms = device_ms(rotated(args, ln_gru_backward))
-            plain_ms = device_ms(rotated(args, ln_gru_backward_plain))
+            kernel = timed(rotated(args, ln_gru_backward))
+            kernel_ms = kernel["ms"]
+            plain_ms = device_ms(rotated(args, ln_gru_backward_plain))[0]
+            split = kernel_split_ms(rotated(args, ln_gru_backward))
+            check_one_launch(f"ln_gru_backward B={batch} H={hidden} {dname}", split)
             bound_ms, bound_by = gru_bwd_bound(batch, hidden, dname)
-            row = {"shape": f"B={batch} H={hidden}", "dtype": dname, "max_abs_err": errs, "ms": kernel_ms,
-                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}  # fmt: skip
+            row = {"shape": f"B={batch} H={hidden}", "dtype": dname, "max_abs_err": errs, **kernel,
+                   "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "per_cuda_kernel": split}  # fmt: skip
             rows.append(row)
             log(f"ln_gru_backward {row['shape']} {dname}: ok, max|d| {json.dumps({k: float(f'{v:.3g}') for k, v in errs.items()})}, "
-                f"kernel {kernel_ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({bound_by})")  # fmt: skip
+                f"kernel {kernel_ms * 1e3:.2f} us [{kernel['ms_min'] * 1e3:.2f}, {kernel['ms_max'] * 1e3:.2f}], plain {plain_ms * 1e3:.2f} us, "
+                f"bound {bound_ms * 1e3:.2f} us ({bound_by}); {json.dumps(split)}")  # fmt: skip
             torch.cuda.empty_cache()
     return rows
 
@@ -381,7 +464,7 @@ def phase_serving(workdir):
     import numpy as np
 
     from sheeprl_tpu_torch.algos.dreamer_v3.serve import export_random
-    from sheeprl_tpu_torch.models.ln_gru import ln_gru_forward
+    from sheeprl_tpu_torch.models.ln_gru import ln_gru_forward, ln_gru_forward_streaming, ln_gru_forward_tensor_core
     from sheeprl_tpu_torch.serve.cli import SERVE_DEFAULTS
     from sheeprl_tpu_torch.serve.engine import InferenceEngine
     from sheeprl_tpu_torch.serve.server import PolicyServer
@@ -422,7 +505,7 @@ def phase_serving(workdir):
 
         # The main path: counts zeroed just before, read just after.
         engine.reset_stats()
-        ln_gru_forward.launches = 0
+        ln_gru_forward.launches = ln_gru_forward_streaming.launches = ln_gru_forward_tensor_core.launches = 0
         t1 = time.perf_counter()
         served = {}
         with ThreadPoolExecutor(sessions) as pool:
@@ -430,6 +513,7 @@ def phase_serving(workdir):
                 served[mode] = list(pool.map(lambda s: drive(mode, s), range(sessions)))
         wall_s = time.perf_counter() - t1
         launches = ln_gru_forward.launches
+        by_kernel = {"streaming": ln_gru_forward_streaming.launches, "tensor_core": ln_gru_forward_tensor_core.launches}
         stats = engine.stats()
 
         flat = [a for mode in served.values() for sess in mode for step in sess for a in step]
@@ -437,7 +521,7 @@ def phase_serving(workdir):
             fail(f"served actions out of [0, 9): {flat}")
         if stats["counters"]["requests"] != 2 * sessions * steps or stats["counters"]["errors"]:
             fail(f"engine counters: {stats['counters']}")
-        if launches < stats["counters"]["batches"]:
+        if by_kernel["streaming"] < stats["counters"]["batches"] or by_kernel["streaming"] + by_kernel["tensor_core"] != launches:
             fail(f"ln_gru launched {launches} times for {stats['counters']['batches']} batches")
         if not any(int(b) > 1 for b in stats["occupancy"]):
             fail(f"no batch had more than one row: {stats['occupancy']}")
@@ -456,12 +540,13 @@ def phase_serving(workdir):
         "batches": stats["counters"]["batches"],
         "occupancy": stats["occupancy"],
         "ln_gru_launches": launches,
+        "ln_gru_launches_by_kernel": by_kernel,
         "latency_p50_ms": lat["p50"] * 1e3,
         "latency_p99_ms": lat["p99"] * 1e3,
         "wall_s": wall_s,
     }
     log(f"serving: {result['requests']} requests in {result['batches']} batches over {sessions} sessions, "
-        f"occupancy {stats['occupancy']}, ln_gru launches {launches}, latency p50 {result['latency_p50_ms']:.2f} ms "
+        f"occupancy {stats['occupancy']}, ln_gru launches {launches} {json.dumps(by_kernel)}, latency p50 {result['latency_p50_ms']:.2f} ms "
         f"p99 {result['latency_p99_ms']:.2f} ms, replay identical")  # fmt: skip
     return result, path
 
@@ -558,6 +643,8 @@ TRAIN_CUTS = {"algo.learning_starts": "128 (from 1024)", "algo.total_steps": "13
 TRAIN_ARGS = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "algo.learning_starts=128", "algo.total_steps=135",
               "buffer.size=4096", "metric.log_every=64"]  # fmt: skip
 FWD_PER_STEP = 64 + 15  # the dynamic scan over T = 64, then the 15-step imagination
+STREAM_PER_STEP = 64  # the dynamic scan's B = 16 streams W
+TC_PER_STEP = 15  # the imagination's B = 16 x 64 = 1024 runs on the tensor cores
 BWD_PER_STEP = 64  # the world-model loss differentiates the dynamic scan only
 
 
@@ -578,7 +665,12 @@ def phase_training():
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
     from sheeprl_tpu_torch.cli import run
     from sheeprl_tpu_torch.config import compose
-    from sheeprl_tpu_torch.models.ln_gru import ln_gru_backward, ln_gru_forward
+    from sheeprl_tpu_torch.models.ln_gru import (
+        ln_gru_backward,
+        ln_gru_forward,
+        ln_gru_forward_streaming,
+        ln_gru_forward_tensor_core,
+    )
     from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
 
     cfg = compose(TRAIN_ARGS)
@@ -605,13 +697,14 @@ def phase_training():
         steps.append((now, tau, {k: v.item() for k, v in metrics.items()}))
 
     torch.cuda.synchronize()
-    ln_gru_forward.launches = 0
-    ln_gru_backward.launches = 0
+    ln_gru_forward.launches = ln_gru_backward.launches = 0
+    ln_gru_forward_streaming.launches = ln_gru_forward_tensor_core.launches = 0
     t0 = time.perf_counter()
     out = run(TRAIN_ARGS, callback=on_step)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     fwd, bwd = ln_gru_forward.launches, ln_gru_backward.launches
+    stream, tc = ln_gru_forward_streaming.launches, ln_gru_forward_tensor_core.launches
 
     n = out["gradient_steps"]
     if n != 8 or len(steps) != 8:
@@ -619,6 +712,9 @@ def phase_training():
     if fwd < FWD_PER_STEP * n or bwd < BWD_PER_STEP * n:
         fail(f"training: ln_gru_forward launched {fwd} and ln_gru_backward {bwd} times for {n} gradient steps "
              f"(at least {FWD_PER_STEP} and {BWD_PER_STEP} per step)")  # fmt: skip
+    if stream < STREAM_PER_STEP * n or tc < TC_PER_STEP * n or stream + tc != fwd:
+        fail(f"training: the streaming forward launched {stream} and the tensor-core forward {tc} times of {fwd} "
+             f"for {n} gradient steps (at least {STREAM_PER_STEP} and {TC_PER_STEP} per step)")  # fmt: skip
     taus = [tau for _, tau, _ in steps]
     if taus[0] != 1.0 or any(abs(t - float(cfg.algo.critic.tau)) > 1e-7 for t in taus[1:]):
         fail(f"training: target-critic taus {taus}")
@@ -642,13 +738,14 @@ def phase_training():
         "wall_s": wall_s,
         "ln_gru_forward_launches": fwd,
         "ln_gru_backward_launches": bwd,
+        "ln_gru_forward_launches_by_kernel": {"streaming": stream, "tensor_core": tc},
         "taus": taus,
         "target_ema_max_abs_err": worst_ema[0],
         "trainer_wall_ms_between_gradient_steps": statistics.median(step_wall) * 1e3,
         "metrics_last_step": steps[-1][2],
     }
     log(f"training: {n} gradient steps in {out['policy_steps']} policy steps, {wall_s:.1f} s; ln_gru_forward {fwd} launches "
-        f"({fwd / n:.1f}/step incl. the player), ln_gru_backward {bwd} ({bwd / n:.1f}/step); target EMA max |d| {worst_ema[0]:.3g}; "
+        f"({fwd / n:.1f}/step incl. the player; streaming {stream}, tensor core {tc}), ln_gru_backward {bwd} ({bwd / n:.1f}/step); target EMA max |d| {worst_ema[0]:.3g}; "
         f"median {result['trainer_wall_ms_between_gradient_steps']:.1f} ms between gradient steps")  # fmt: skip
     log(f"training: last step {json.dumps({k: float(f'{v:.5g}') for k, v in steps[-1][2].items()})}")
     return result, agent, cfg
@@ -681,7 +778,12 @@ def phase_train_profile(agent, cfg, steps: int = 3):
     import torch
 
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
-    from sheeprl_tpu_torch.models.ln_gru import ln_gru_backward, ln_gru_forward
+    from sheeprl_tpu_torch.models.ln_gru import (
+        ln_gru_backward,
+        ln_gru_forward,
+        ln_gru_forward_streaming,
+        ln_gru_forward_tensor_core,
+    )
     from sheeprl_tpu_torch.utils.distribution import BatchGenerator
     from sheeprl_tpu_torch.utils.ops import init_moments
 
@@ -694,12 +796,14 @@ def phase_train_profile(agent, cfg, steps: int = 3):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ln_gru_forward.launches = ln_gru_backward.launches = 0
+    ln_gru_forward_streaming.launches = ln_gru_forward_tensor_core.launches = 0
     t0 = time.perf_counter()
     for _ in range(steps):
         moments, _ = step(moments, data, rng, 0.02)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
     fwd, bwd = ln_gru_forward.launches / steps, ln_gru_backward.launches / steps
+    stream, tc = ln_gru_forward_streaming.launches / steps, ln_gru_forward_tensor_core.launches / steps
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
@@ -722,15 +826,19 @@ def phase_train_profile(agent, cfg, steps: int = 3):
     result = {"host_wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
               "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms), "device_ops_per_step": ops / steps,
               "ln_gru_forward_per_step": fwd, "ln_gru_backward_per_step": bwd, "peak_memory_gib": peak_gib,
+              "ln_gru_forward_per_step_by_kernel": {"streaming": stream, "tensor_core": tc},
+              "ln_gru_device_ms_per_step_total": sum(gru_ms.values()),
               "stages_per_step": stages, "ln_gru_device_ms_per_step": gru_ms,
               "top_device_ms_per_step": top}  # fmt: skip
-    if fwd != FWD_PER_STEP or bwd != BWD_PER_STEP:
-        fail(f"train profile: {fwd} forward and {bwd} backward launches per gradient step, expected {FWD_PER_STEP} and {BWD_PER_STEP}")
+    if fwd != FWD_PER_STEP or bwd != BWD_PER_STEP or stream != STREAM_PER_STEP or tc != TC_PER_STEP:
+        fail(f"train profile: {fwd} forward ({stream} streaming, {tc} tensor core) and {bwd} backward launches per gradient step, "
+             f"expected {FWD_PER_STEP} ({STREAM_PER_STEP} + {TC_PER_STEP}) and {BWD_PER_STEP}")  # fmt: skip
     log(f"train step profile (DV3-S, bf16-mixed, B=16 T=64 H=15): host wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step, "
         f"idle share {result['device_idle_share']:.3f}, {result['device_ops_per_step']:.0f} device ops/step, "
         f"ln_gru {fwd:.0f} fwd + {bwd:.0f} bwd launches/step, peak memory {peak_gib:.2f} GiB")  # fmt: skip
     log(f"train step profile: stages {json.dumps({k: {s: round(v, 3) for s, v in d.items()} for k, d in stages.items()})}")
-    log(f"train step profile: LN-GRU kernels' device ms/step {json.dumps({k: round(v, 4) for k, v in gru_ms.items()})}")
+    log(f"train step profile: LN-GRU kernels' device ms/step {json.dumps({k: round(v, 4) for k, v in gru_ms.items()})}, "
+        f"total {sum(gru_ms.values()):.4f}")
     log(f"train step profile: top device ms/step {json.dumps({k: round(v, 4) for k, v in top.items()})}")
     return result
 
@@ -831,6 +939,7 @@ def main() -> None:
                 log(f"  ptxas ({name}): {line.strip()}")
 
     rows = phase_kernels()
+    threshold = phase_threshold()
     bwd_rows = phase_backward()
     cell_grad = phase_cell_grad()
     workdir = os.path.join(str(kernels.BUILD_DIR), f"smoke-{os.getpid()}")
@@ -847,48 +956,43 @@ def main() -> None:
     torch.cuda.empty_cache()
     train_reference = phase_train_reference()
 
-    # The training path's shapes: the dynamic scan's B = 16 in bf16-mixed.
-    fwd_row = next(r for r in rows if r["shape"] == "B=16 D=1024 H=512" and r["dtype"] == "bfloat16")
-    serve_row = next(r for r in rows if "per_cuda_kernel_ms" in r)
-    bwd_row = next(r for r in bwd_rows if r["shape"] == "B=16 H=512" and r["dtype"] == "bfloat16")
+    # The training path's shapes in bf16-mixed: the dynamic scan's B = 16
+    # (streaming), the imagination's B = 1024 (tensor cores).
+    def row_of(table, shape, dtype="bfloat16"):
+        return next(r for r in table if r["shape"] == shape and r["dtype"] == dtype)
+
+    fwd_row = row_of(rows, "B=16 D=1024 H=512")
+    tc_row = row_of(rows, "B=1024 D=1024 H=512")
+    serve_row = row_of(rows, "B=8 D=1024 H=512")
+    bwd_row = row_of(bwd_rows, "B=16 H=512")
+    by_kernel = training["ln_gru_forward_launches_by_kernel"]
+
+    def entry(name, source, replaces, shapes, launches, row, err):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "shapes": shapes,
+                "launches": launches, "max_abs_err": err, "ms": row["ms"], "ms_min": row["ms_min"], "ms_max": row["ms_max"],
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None}  # fmt: skip
+
     kernels_line = {
         "kernels": [
-            {
-                "name": "ln_gru_forward",
-                "route": "cuda",
-                "source": "sheeprl_tpu_torch/csrc/ln_gru.cu",
-                "replaces": "sheeprl_tpu/models/pallas_gru.py:118",
-                "shapes": f"{fwd_row['shape']} {fwd_row['dtype']} (DreamerV3-S dynamic scan; 79 launches per gradient step)",
-                "launches": training["ln_gru_forward_launches"],
-                "launches_serving": serving["ln_gru_launches"],
-                "max_abs_err": max(fwd_row["max_abs_err_h"], fwd_row["max_abs_err_z"]),
-                "ms": fwd_row["ms"],
-                "plain_ms": fwd_row["plain_ms"],
-                "bound_ms": fwd_row["bound_ms"],
-                "bound_by": fwd_row["bound_by"],
-                "library_ms": None,
-                "serving_b8": {k: serve_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-            },
-            {
-                "name": "ln_gru_backward",
-                "route": "cuda",
-                "source": "sheeprl_tpu_torch/csrc/ln_gru_bwd.cu",
-                "replaces": "sheeprl_tpu/models/pallas_gru.py:172",
-                "shapes": f"{bwd_row['shape']} {bwd_row['dtype']} (DreamerV3-S dynamic scan; 64 launches per gradient step)",
-                "launches": training["ln_gru_backward_launches"],
-                "max_abs_err": max(bwd_row["max_abs_err"].values()),
-                "ms": bwd_row["ms"],
-                "plain_ms": bwd_row["plain_ms"],
-                "bound_ms": bwd_row["bound_ms"],
-                "bound_by": bwd_row["bound_by"],
-                "library_ms": None,
-            },
+            entry("ln_gru_forward", "sheeprl_tpu_torch/csrc/ln_gru.cu", "sheeprl_tpu/models/pallas_gru.py:118",
+                  f"B=16 D=1024 H=512 bfloat16, streaming kernel (DreamerV3-S dynamic scan; {STREAM_PER_STEP} launches per gradient step)",
+                  by_kernel["streaming"], fwd_row, max(fwd_row["max_abs_err_h"], fwd_row["max_abs_err_z"]))
+            | {"product_library_ms": fwd_row["product_library_ms"], "launches_serving": serving["ln_gru_launches_by_kernel"]["streaming"],
+               "serving_b8": {k: serve_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "product_library_ms")}},
+            entry("ln_gru_forward_tensor_core", "sheeprl_tpu_torch/csrc/ln_gru_tc.cu", "sheeprl_tpu/models/pallas_gru.py:118",
+                  f"B=1024 D=1024 H=512 bfloat16 (DreamerV3-S imagination; {TC_PER_STEP} launches per gradient step)",
+                  by_kernel["tensor_core"], tc_row, max(tc_row["max_abs_err_h"], tc_row["max_abs_err_z"]))
+            | {"product_library_ms": tc_row["product_library_ms"]},
+            entry("ln_gru_backward", "sheeprl_tpu_torch/csrc/ln_gru_bwd.cu", "sheeprl_tpu/models/pallas_gru.py:172",
+                  f"{bwd_row['shape']} {bwd_row['dtype']} (DreamerV3-S dynamic scan; {BWD_PER_STEP} launches per gradient step)",
+                  training["ln_gru_backward_launches"], bwd_row, max(bwd_row["max_abs_err"].values())),
         ]
-    }
+    }  # fmt: skip
     report = {
         "card": card,
         "build_s": built,
         "ln_gru": rows,
+        "threshold": threshold,
         "ln_gru_backward": bwd_rows,
         "cell_grad_max_abs_err": cell_grad,
         "serving": serving,

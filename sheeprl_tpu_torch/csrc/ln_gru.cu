@@ -1,4 +1,4 @@
-// Fused LayerNorm-GRU cell step, forward, for Hopper (sm_90a).
+// Fused LayerNorm-GRU cell step, forward, streaming W, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `_pallas_ln_gru` / `_kernel` in
 // sheeprl_tpu/models/pallas_gru.py (pl.pallas_call at :118), reached from
@@ -10,47 +10,54 @@
 //   h' = update * cand + (1 - update) * h  written in h's dtype; z is returned in f32
 //
 // inp [B, D] and W [D, 3H] are in the compute dtype (f32 or bf16); b, scale
-// and ln_bias [3H] are f32; h [B, H] has the compute dtype.
+// and ln_bias [3H] are f32; h [B, H] has the compute dtype. This kernel takes
+// every shape the tensor-core kernel (csrc/ln_gru_tc.cu) does not: serving
+// (B = 1-8), the dynamic scan (B = 16), every f32 call and shapes outside the
+// tile plan (models/ln_gru.py:forward_plan).
 //
-// Bound on an H100 SXM. At DreamerV3-S (D = 1024, H = 512) and a serving
-// batch of 1-8 the step is a matrix-vector product: W is 6.3 MB in f32
-// (3.1 MB in bf16) and is read once, against 2*B*D*3H = 25 MFLOP at B = 8.
-// Reading W takes about 1.9 us at 3.35 TB/s (0.94 us in bf16); everything
-// else moved is under 0.2 MB. The step is bound by the bytes of W.
+// Bound on an H100 SXM. At DreamerV3-S (D = 1024, H = 512) and a batch of
+// 1-16 the step is a matrix-vector product: W is 6.3 MB in f32 (3.1 MB in
+// bf16) and is read once, against 2*B*D*3H = 50 MFLOP at B = 16. Reading W
+// takes about 1.9 us at 3.35 TB/s (0.94 us in bf16); everything else moved is
+// under 0.3 MB. The step is bound by the bytes of W.
 //
-// Design. The TPU grid walks D tiles in order with the whole 3H row in
-// VMEM; at B <= 8 that is one block, which would use one of 132 SMs and
-// leave HBM idle. Here:
+// Design: one launch, `ln_gru_stream_forward`.
 //
-// 1. `ln_gru_projection` spreads the read of W over the SMs. Blocks split
-//    the 3H columns (a warp reads 32 neighbouring 16-byte vectors of a row of
-//    W, 8 bf16 or 4 f32 each; rows whose length is not a multiple of that
-//    fall back to one element per lane) and, split-K, the D axis: each block
-//    sums its own D range for a tile of 8 batch rows and writes an f32
-//    partial sum. A thread issues all eight of its loads of a 64-row group
-//    before it uses any, so at DV3-S every load of W is in flight at once.
-//    The rows of `inp` are staged in shared memory and read as broadcasts;
-//    the eight warps' sums meet in shared memory behind one barrier.
-// 2. `ln_gru_epilogue`, one block per batch row, adds the split partials in
-//    a fixed order (the result does not depend on scheduling), adds b,
-//    writes z, takes the row's mean and variance in f32 with block
-//    reductions that work for any H (3H = 12288 at XL needs no shared-memory
-//    row), and applies the gates. Each thread owns whole gate indices (the
-//    three z columns i, H + i, 2H + i) and keeps them in registers. It is
-//    launched as a programmatic dependent of the projection, so its launch
-//    overlaps the projection and `griddepcontrol.wait` orders its reads.
+// 1. The read of W is spread over the SMs. Blocks split the 3H columns (a
+//    warp reads 32 neighbouring 16-byte vectors of a row of W, 8 bf16 or 4
+//    f32 each; rows whose length is not a multiple of that fall back to one
+//    element per lane) and, split-K, the D axis (at most 16 splits): each
+//    block sums its own D range for a tile of 8 batch rows into an f32
+//    partial in its shared memory. A thread issues all eight of its loads of
+//    a 64-row group before it uses any, so every load of W is in flight at
+//    once. The rows of `inp` are staged in shared memory and read as
+//    broadcasts; the eight warps' sums meet in shared memory behind one
+//    barrier.
+// 2. The splits of a (column block, batch tile) form one thread block
+//    cluster. After a cluster barrier, split s adds rows s, s + ksplit, ...
+//    of the partials over distributed shared memory in split order, adds b,
+//    writes z, and writes each row's sum and squared deviation about its own
+//    mean over its columns. No partial sum goes through global memory.
+// 3. For each batch row, the last column block to write the row's statistics,
+//    by the row's arrival ticket, combines the column blocks' statistics in
+//    column order (the exact parallel-variance formula:
+//    M2 = sum_c M2_c + n_c (mean_c - mean)^2, with no cancellation of large
+//    squares) and applies the row's gates; the rows of a tile finish in
+//    different blocks. It resets the ticket, so no memset launch is needed
+//    between calls. The tile's h, scale and ln_bias were prefetched into L2
+//    at the start.
 //
-// The partial sums cost ksplit * B * 3H * 4 bytes of L2 traffic, 0.8 MB at
-// DV3-S B = 8 bf16. Measured on an H100 (PERF.md) the step takes about 11 us
-// at DV3-S: two dependent kernels and their rounds of dependent loads, not
-// the bytes of W, set the time. wgmma, TMA and fusing the epilogue into the
-// product are later work.
+// Atomics only count arrivals; every sum is taken in a fixed order, so the
+// result does not depend on scheduling. The wrapper keeps one zeroed ticket
+// buffer per device and stream (kernels on one stream do not overlap).
 //
 // Plain C interface: the wrapper (sheeprl_tpu_torch/models/ln_gru.py) passes
-// device pointers, sizes, the split plan, the device index and the CUDA
-// stream; it allocates every output and the partial-sum scratch. Each
-// function returns cudaGetLastError() after its launches, 0 on success.
+// device pointers, sizes, the plan's vector width and split, the device index
+// and the CUDA stream; it allocates every output and the scratch (the column
+// blocks' row statistics [B, ceil(3H / (32 vec))] float2). Each function returns cudaGetLastError()
+// after its launch, 0 on success.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -58,15 +65,16 @@
 #include <cstdint>
 #include <type_traits>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kWarps = 8;                          // projection block: 8 warps
-constexpr int kProjThreads = 32 * kWarps;
+constexpr int kWarps = 8;                          // 8 warps a block
+constexpr int kThreads = 32 * kWarps;
 constexpr int kRowsPerThread = 8;                  // rows of W each thread has in flight per group
 constexpr int kGroupD = kWarps * kRowsPerThread;   // 64 D rows per block per group
-constexpr int kTileB = 8;                          // batch rows per projection block
-constexpr int kEpilogueThreads = 1024;
-constexpr int kCachedGates = 4;                    // gate indices per epilogue thread kept in registers
+constexpr int kTileB = 8;                          // batch rows per block (one warp per row in the epilogue)
+constexpr int kMaxSplit = 16;                      // splits of D: one cluster (non-portable above 8)
 constexpr float kLnEps = 1e-5f;
 constexpr int kMaxDevices = 64;
 
@@ -96,27 +104,96 @@ __device__ __forceinline__ void unpack(const Raw<T, VEC>& raw, float (&out)[VEC]
   }
 }
 
-// partial[s, b, n] = sum over d in split s of inp[b, d] * w[d, n]
-// grid: (ceil(width / (32 * VEC)), ksplit, ceil(batch / kTileB)); block: kProjThreads.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// h' at one gate index from its three z values, the row's statistics and
+// the LayerNorm's scale and bias of the three columns.
+__device__ __forceinline__ float gate_update(const float (&v)[3], float mean, float rstd, const float (&sc)[3],
+                                             const float (&lb)[3], float h) {
+  const float r = sigmoid((v[0] - mean) * rstd * sc[0] + lb[0]);
+  const float c = tanhf(r * ((v[1] - mean) * rstd * sc[1] + lb[1]));
+  const float u = sigmoid((v[2] - mean) * rstd * sc[2] + lb[2] - 1.f);
+  return u * c + (1.f - u) * h;
+}
+
+// Programmatic dependent launch: the block may start while the previous
+// kernel on the stream finishes; wait for it before touching global memory,
+// then let the next kernel start launching (it waits the same way).
+__device__ __forceinline__ void pdl_begin() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Add one to a ticket with release and acquire semantics at GPU scope: the
+// block's writes before its barrier are visible to whoever closes the ticket,
+// and the closer sees all of them. Returns the count before the add.
+__device__ __forceinline__ int ticket_add(int* ticket) {
+  int before;
+  asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n" : "=r"(before) : "l"(ticket) : "memory");
+  return before;
+}
+
+// Ask L2 for part `part` of `parts` of [base, base + bytes), 128-byte lines.
+__device__ __forceinline__ void prefetch_l2(const void* base, size_t bytes, int part, int parts) {
+  const size_t lines = (bytes + 127) / 128;
+  const size_t per = (lines + parts - 1) / parts;
+  const size_t stop = (part + 1) * per;
+  const size_t end = stop < lines ? stop : lines;
+  for (size_t l = part * per + threadIdx.x; l < end; l += blockDim.x)
+    asm volatile("prefetch.global.L2 [%0];\n" ::"l"(static_cast<const char*>(base) + l * 128));
+}
+
+// grid: (nx = ceil(width / (32 * VEC)), ksplit, ceil(batch / kTileB)), cluster
+// (1, ksplit, 1); block: kThreads.
 // Lane l of every warp owns columns [(32 * blockIdx.x + l) * VEC, + VEC); warp
 // k owns rows g0 + k + 8 r (r < 8) of each 64-row group g0 of the block's D
 // range. All eight loads of a group are issued before any is used.
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kProjThreads)
-ln_gru_projection(const T* __restrict__ inp, const T* __restrict__ w, float* __restrict__ partial, int batch,
-                  int depth, int width, int depth_per_split) {
+__global__ void __launch_bounds__(kThreads, 2)
+ln_gru_stream_forward(const T* __restrict__ inp, const T* __restrict__ w, const float* __restrict__ bias,
+                      const float* __restrict__ scale, const float* __restrict__ ln_bias, const T* __restrict__ h,
+                      T* __restrict__ h_out, float* __restrict__ z, float2* __restrict__ stats, int* __restrict__ tickets, int batch, int depth, int hidden,
+                      int depth_per_split) {
   constexpr int kTileN = 32 * VEC;
   __shared__ float s_inp[kGroupD][kTileB];
+  __shared__ float s_part[kTileB * kTileN];  // this split's partial sums, read by the cluster
+  __shared__ float s_mean[kTileB];
+  __shared__ float s_rstd[kTileB];
+  __shared__ int s_flag;
   extern __shared__ float s_red[];  // [kWarps][kTileB][32][VEC + 1]; the pad keeps the stores conflict-free
 
+  const int width = 3 * hidden;
+  const int nx = gridDim.x;
+  const int ksplit = gridDim.y;
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int n0 = (blockIdx.x * 32 + lane) * VEC;
   const bool live = n0 < width;  // on the vector path width % VEC == 0: a vector is all in or all out
   const int b0 = blockIdx.z * kTileB;
+  const int rows = min(kTileB, batch - b0);
   const int d_begin = blockIdx.y * depth_per_split;
   const int d_end = min(d_begin + depth_per_split, depth);
 
+  // This thread's column in the cluster's sum (kTileN divides kThreads), and
+  // what the rows' last blocks read after the product: loaded or asked of L2 now.
+  pdl_begin();
+  const float bias_own =
+      blockIdx.x * kTileN + threadIdx.x % kTileN < width ? bias[blockIdx.x * kTileN + threadIdx.x % kTileN] : 0.f;
+  if (blockIdx.y == 0) {
+    prefetch_l2(h + static_cast<size_t>(b0) * hidden, static_cast<size_t>(rows) * hidden * sizeof(T), blockIdx.x, nx);
+    if (blockIdx.z == 0) {
+      prefetch_l2(scale, width * sizeof(float), blockIdx.x, nx);
+      prefetch_l2(ln_bias, width * sizeof(float), blockIdx.x, nx);
+    }
+  }
+
+  // ---- 1. This block's partial sum over its D range. ----
   float acc[kTileB][VEC];
 #pragma unroll
   for (int bb = 0; bb < kTileB; ++bb)
@@ -131,13 +208,20 @@ ln_gru_projection(const T* __restrict__ inp, const T* __restrict__ w, float* __r
       raw[r] = (live && d < d_end) ? *reinterpret_cast<const Raw<T, VEC>*>(w + static_cast<size_t>(d) * width + n0)
                                    : Raw<T, VEC>{};
     }
-    if (g0 == d_begin) asm volatile("griddepcontrol.launch_dependents;");  // let the epilogue's launch begin
-    for (int i = threadIdx.x; i < kGroupD * kTileB; i += kProjThreads) {
-      const int j = i % kGroupD;
-      const int bb = i / kGroupD;
-      const int d = g0 + j;
-      const int b = b0 + bb;
-      s_inp[j][bb] = (d < d_end && b < batch) ? to_float(inp[static_cast<size_t>(b) * depth + d]) : 0.f;
+    // The group's rows of inp: every load issued before any is stored.
+    constexpr int kInpPerThread = kGroupD * kTileB / kThreads;
+    float xin[kInpPerThread];
+#pragma unroll
+    for (int k = 0; k < kInpPerThread; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      const int d = g0 + i % kGroupD;
+      const int b = b0 + i / kGroupD;
+      xin[k] = (d < d_end && b < batch) ? to_float(inp[static_cast<size_t>(b) * depth + d]) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kInpPerThread; ++k) {
+      const int i = threadIdx.x + k * kThreads;
+      s_inp[i % kGroupD][i / kGroupD] = xin[k];
     }
     __syncthreads();
 #pragma unroll
@@ -161,211 +245,227 @@ ln_gru_projection(const T* __restrict__ inp, const T* __restrict__ w, float* __r
 #pragma unroll
     for (int v = 0; v < VEC; ++v) s_red[((warp * kTileB + bb) * 32 + lane) * (VEC + 1) + v] = acc[bb][v];
   __syncthreads();
-  const int rows = min(kTileB, batch - b0);
-  for (int i = threadIdx.x; i < rows * kTileN; i += kProjThreads) {
+  const int col0 = blockIdx.x * kTileN;
+  const int ncol = min(kTileN, width - col0);
+  for (int i = threadIdx.x; i < rows * kTileN; i += kThreads) {
     const int bb = i / kTileN;
     const int c = i % kTileN;
-    const int col = blockIdx.x * kTileN + c;
-    if (col < width) {
+    if (c < ncol) {
       const int slot = (c / VEC) * (VEC + 1) + c % VEC;
       float sum = 0.f;
 #pragma unroll
       for (int y = 0; y < kWarps; ++y) sum += s_red[(y * kTileB + bb) * 32 * (VEC + 1) + slot];
-      partial[(static_cast<size_t>(blockIdx.y) * batch + b0 + bb) * width + col] = sum;
+      s_part[bb * kTileN + c] = sum;
+    }
+  }
+
+  // ---- 2. Over the cluster (every split of this column block and tile): z and its statistics. ----
+  // Split s adds rows s, s + ksplit, ... of the splits' partials, read over
+  // distributed shared memory in split order.
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every split's partial is in its shared memory
+  const int split = static_cast<int>(blockIdx.y);
+  const int my_rows = split < rows ? (rows - split + ksplit - 1) / ksplit : 0;
+  float* s_z = s_red;  // [my_rows][kTileN], free now
+  for (int i = threadIdx.x; i < my_rows * kTileN; i += kThreads) {
+    const int j = i / kTileN;
+    const int c = i % kTileN;
+    if (c < ncol) {
+      const int at = (split + j * ksplit) * kTileN + c;
+      float v[kMaxSplit];
+#pragma unroll
+      for (int k = 0; k < kMaxSplit; ++k) v[k] = k < ksplit ? cluster.map_shared_rank(s_part, k)[at] : 0.f;
+      float sum = 0.f;
+#pragma unroll
+      for (int k = 0; k < kMaxSplit; ++k) sum += v[k];
+      sum += bias_own;
+      z[static_cast<size_t>(b0 + split + j * ksplit) * width + col0 + c] = sum;
+      s_z[j * kTileN + c] = sum;
+    }
+  }
+  // Done reading the other splits' shared memory; none may exit before all
+  // are (the matching wait precedes every exit below).
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  __syncthreads();
+  if (warp < my_rows) {  // warp j: row b0 + split + j * ksplit over this block's columns
+    const float* v = s_z + warp * kTileN;
+    float sum = 0.f;
+    for (int c = lane; c < ncol; c += 32) sum += v[c];
+    sum = warp_sum(sum);
+    const float mean = sum / ncol;
+    float m2 = 0.f;
+    for (int c = lane; c < ncol; c += 32) m2 += (v[c] - mean) * (v[c] - mean);
+    m2 = warp_sum(m2);
+    if (lane == 0) stats[static_cast<size_t>(b0 + split + warp * ksplit) * nx + blockIdx.x] = make_float2(sum, m2);
+  }
+  if (my_rows == 0) {
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+    return;
+  }
+
+  // ---- 3. Per row: the last column block to write its statistics applies its gates. ----
+  __syncthreads();  // the block's z and statistics are written before lane j releases row j
+  if (warp == 0) {
+    bool last = false;
+    if (lane < my_rows) {
+      int* ticket = tickets + b0 + split + lane * ksplit;
+      last = ticket_add(ticket) == nx - 1;
+      if (last) *ticket = 0;  // reset for the next call
+    }
+    const unsigned mine = __ballot_sync(0xffffffffu, last);
+    if (lane == 0) s_flag = static_cast<int>(mine);
+  }
+  __syncthreads();
+  const int mine = s_flag;
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  if (mine == 0) return;
+  // Thread: gate indices i = t + k * kThreads in every row this block
+  // finishes, two at a time; the first two's loads are in flight together
+  // with the row statistics'.
+  constexpr int kPerPass = 2;
+  float sc[kPerPass][3], lb[kPerPass][3], v[kPerPass][kTileB][3], hv[kPerPass][kTileB];
+  auto load_pass = [&](int i0) {
+#pragma unroll
+    for (int p = 0; p < kPerPass; ++p) {
+      const int i = i0 + p * kThreads;
+      if (i < hidden) {
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          sc[p][g] = scale[g * hidden + i];
+          lb[p][g] = ln_bias[g * hidden + i];
+        }
+#pragma unroll
+        for (int j = 0; j < kTileB; ++j) {
+          if (j < my_rows && (mine >> j & 1)) {
+            const size_t b = static_cast<size_t>(b0 + split + j * ksplit);
+            const float* zrow = z + b * width;
+#pragma unroll
+            for (int g = 0; g < 3; ++g) v[p][j][g] = __ldcg(zrow + g * hidden + i);
+            hv[p][j] = to_float(h[b * hidden + i]);
+          }
+        }
+      }
+    }
+  };
+  load_pass(threadIdx.x);
+  if (warp < my_rows && (mine >> warp & 1)) {
+    // Lane l holds the statistics of column blocks l and l + 32 (the rest are re-read).
+    const float2* st = stats + static_cast<size_t>(b0 + split + warp * ksplit) * nx;
+    const float2 p0 = lane < nx ? __ldcg(st + lane) : make_float2(0.f, 0.f);
+    const float2 p1 = lane + 32 < nx ? __ldcg(st + lane + 32) : make_float2(0.f, 0.f);
+    float sum = p0.x + p1.x;
+    for (int c = lane + 64; c < nx; c += 32) sum += __ldcg(st + c).x;
+    const float mean = warp_sum(sum) / width;
+    float m2 = 0.f;
+    for (int c = lane; c < nx; c += 32) {
+      const float2 p = c == lane ? p0 : c == lane + 32 ? p1 : __ldcg(st + c);
+      const float n_c = static_cast<float>(min(kTileN, width - c * kTileN));
+      const float d = p.x / n_c - mean;
+      m2 += p.y + n_c * d * d;
+    }
+    m2 = warp_sum(m2);
+    if (lane == 0) {
+      s_mean[warp] = mean;
+      s_rstd[warp] = rsqrtf(m2 / width + kLnEps);
+    }
+  }
+  __syncthreads();
+  for (int i0 = threadIdx.x; i0 < hidden; i0 += kPerPass * kThreads) {
+    if (i0 != static_cast<int>(threadIdx.x)) load_pass(i0);
+#pragma unroll
+    for (int p = 0; p < kPerPass; ++p) {
+      const int i = i0 + p * kThreads;
+      if (i < hidden)
+#pragma unroll
+        for (int j = 0; j < kTileB; ++j)
+          if (j < my_rows && (mine >> j & 1))
+            h_out[static_cast<size_t>(b0 + split + j * ksplit) * hidden + i] =
+                from_float<T>(gate_update(v[p][j], s_mean[j], s_rstd[j], sc[p], lb[p], hv[p][j]));
     }
   }
 }
 
 template <int VEC>
-constexpr int projection_smem_bytes() {
+constexpr int stream_smem_bytes() {
   return kWarps * kTileB * 32 * (VEC + 1) * static_cast<int>(sizeof(float));
 }
 
-// Sum of v over the block; every thread gets the total. blockDim.x is a
-// multiple of 32 and at most 1024.
-__device__ float block_sum(float v, float* s_red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  __syncthreads();  // s_red may still be read by a previous call
-  if (lane == 0) s_red[warp] = v;
-  __syncthreads();
-  v = lane < static_cast<int>(blockDim.x / 32) ? s_red[lane] : 0.f;
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-// z[b, n] for the three gate columns n = i, H + i, 2H + i: the split partials
-// in a fixed order (the result does not depend on scheduling), then + b.
-__device__ __forceinline__ void gate_columns(const float* prow, size_t stride, int ksplit, const float* bias,
-                                             int hidden, int i, float (&v)[3]) {
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f;
-#pragma unroll 4
-  for (int s = 0; s < ksplit; ++s) {
-    const float* p = prow + s * stride;
-    a0 += p[i];
-    a1 += p[hidden + i];
-    a2 += p[2 * hidden + i];
-  }
-  v[0] = a0 + bias[i];
-  v[1] = a1 + bias[hidden + i];
-  v[2] = a2 + bias[2 * hidden + i];
-}
-
-__device__ __forceinline__ float gate_update(const float (&v)[3], float mean, float rstd, const float* scale,
-                                             const float* ln_bias, int hidden, int i, float h) {
-  const int ic = hidden + i;
-  const int iu = 2 * hidden + i;
-  const float r = sigmoid((v[0] - mean) * rstd * scale[i] + ln_bias[i]);
-  const float c = tanhf(r * ((v[1] - mean) * rstd * scale[ic] + ln_bias[ic]));
-  const float u = sigmoid((v[2] - mean) * rstd * scale[iu] + ln_bias[iu] - 1.f);
-  return u * c + (1.f - u) * h;
-}
-
-// grid: (batch); block: (kEpilogueThreads). Thread t owns gate indices
-// i = t + k * kEpilogueThreads and their three z columns, so the gates need
-// no exchange; the first kCachedGates of them stay in registers (all of them
-// up to H = 4096), wider rows re-read this thread's own z writes.
-template <typename T>
-__global__ void __launch_bounds__(kEpilogueThreads)
-ln_gru_epilogue(const float* __restrict__ partial, int ksplit, const float* __restrict__ bias,
-                const float* __restrict__ scale, const float* __restrict__ ln_bias, const T* __restrict__ h,
-                T* __restrict__ h_out, float* z, int batch, int hidden) {
-  // Launched as a programmatic dependent of the projection: wait here until
-  // its partial sums are complete and visible.
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-  __shared__ float s_red[32];
-  const int b = blockIdx.x;
-  const int width = 3 * hidden;
-  const size_t stride = static_cast<size_t>(batch) * width;
-  const float* prow = partial + static_cast<size_t>(b) * width;
-  float* zrow = z + static_cast<size_t>(b) * width;
-  const int wide = threadIdx.x + kCachedGates * kEpilogueThreads;  // first gate index past the cache
-
-  float cache[kCachedGates][3];
-  float sum = 0.f;
-#pragma unroll
-  for (int k = 0; k < kCachedGates; ++k) {
-    const int i = threadIdx.x + k * kEpilogueThreads;
-    if (i < hidden) {
-      gate_columns(prow, stride, ksplit, bias, hidden, i, cache[k]);
-#pragma unroll
-      for (int g = 0; g < 3; ++g) {
-        zrow[g * hidden + i] = cache[k][g];
-        sum += cache[k][g];
-      }
-    }
-  }
-  for (int i = wide; i < hidden; i += kEpilogueThreads) {
-    float v[3];
-    gate_columns(prow, stride, ksplit, bias, hidden, i, v);
-#pragma unroll
-    for (int g = 0; g < 3; ++g) {
-      zrow[g * hidden + i] = v[g];
-      sum += v[g];
-    }
-  }
-  const float mean = block_sum(sum, s_red) / width;
-
-  float sq = 0.f;
-#pragma unroll
-  for (int k = 0; k < kCachedGates; ++k) {
-    if (threadIdx.x + k * kEpilogueThreads < hidden) {
-#pragma unroll
-      for (int g = 0; g < 3; ++g) sq += (cache[k][g] - mean) * (cache[k][g] - mean);
-    }
-  }
-  for (int i = wide; i < hidden; i += kEpilogueThreads) {
-#pragma unroll
-    for (int g = 0; g < 3; ++g) sq += (zrow[g * hidden + i] - mean) * (zrow[g * hidden + i] - mean);
-  }
-  const float rstd = rsqrtf(block_sum(sq, s_red) / width + kLnEps);
-
-  const size_t hrow = static_cast<size_t>(b) * hidden;
-#pragma unroll
-  for (int k = 0; k < kCachedGates; ++k) {
-    const int i = threadIdx.x + k * kEpilogueThreads;
-    if (i < hidden)
-      h_out[hrow + i] = from_float<T>(gate_update(cache[k], mean, rstd, scale, ln_bias, hidden, i, to_float(h[hrow + i])));
-  }
-  for (int i = wide; i < hidden; i += kEpilogueThreads) {
-    const float v[3] = {zrow[i], zrow[hidden + i], zrow[2 * hidden + i]};
-    h_out[hrow + i] = from_float<T>(gate_update(v, mean, rstd, scale, ln_bias, hidden, i, to_float(h[hrow + i])));
-  }
-}
-
 template <typename T, int VEC>
-cudaError_t launch_projection(const void* inp, const void* w, void* partial, int batch, int depth, int width,
-                              int depth_per_split, int ksplit, int device, cudaStream_t s) {
-  constexpr int smem = projection_smem_bytes<VEC>();
-  static bool opted_in[kMaxDevices] = {};  // above 48 KB of shared memory needs an opt-in, per device
-  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+cudaError_t launch_stream(const void* inp, const void* w, const void* bias, const void* scale, const void* ln_bias,
+                          const void* h, void* h_out, void* z, void* scratch, void* tickets, int batch, int depth,
+                          int hidden, int depth_per_split, int ksplit, int device, cudaStream_t s) {
+  constexpr int smem = stream_smem_bytes<VEC>();
+  static bool opted_in[kMaxDevices] = {};  // above 48 KB of shared memory and 8 CTAs a cluster need an opt-in
   if (!opted_in[device]) {
-    const cudaError_t err =
-        cudaFuncSetAttribute(ln_gru_projection<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    cudaError_t err =
+        cudaFuncSetAttribute(ln_gru_stream_forward<T, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(ln_gru_stream_forward<T, VEC>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
     opted_in[device] = true;
   }
-  const dim3 grid((width + 32 * VEC - 1) / (32 * VEC), ksplit, (batch + kTileB - 1) / kTileB);
-  ln_gru_projection<T, VEC><<<grid, kProjThreads, smem, s>>>(static_cast<const T*>(inp), static_cast<const T*>(w),
-                                                             static_cast<float*>(partial), batch, depth, width,
-                                                             depth_per_split);
-  return cudaGetLastError();
+  const int width = 3 * hidden;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((width + 32 * VEC - 1) / (32 * VEC), ksplit, (batch + kTileB - 1) / kTileB);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = ksplit;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 2;
+  return cudaLaunchKernelEx(&cfg, ln_gru_stream_forward<T, VEC>, static_cast<const T*>(inp),
+                            static_cast<const T*>(w), static_cast<const float*>(bias),
+                            static_cast<const float*>(scale), static_cast<const float*>(ln_bias),
+                            static_cast<const T*>(h), static_cast<T*>(h_out), static_cast<float*>(z),
+                            static_cast<float2*>(scratch), static_cast<int*>(tickets), batch, depth, hidden,
+                            depth_per_split);
 }
 
 template <typename T>
-int launch(const void* inp, const void* w, const void* bias, const void* scale, const void* ln_bias,
-           const void* h, void* h_out, void* z, void* partial, int batch, int depth, int hidden,
+int launch(const void* inp, const void* w, const void* bias, const void* scale, const void* ln_bias, const void* h,
+           void* h_out, void* z, void* scratch, void* tickets, int batch, int depth, int hidden, int vec,
            int depth_per_split, int ksplit, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch < 1 || depth < 1 || hidden < 1 || ksplit < 1 || ksplit > kMaxSplit || depth_per_split < 1 ||
+      device < 0 || device >= kMaxDevices)
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int width = 3 * hidden;
-  // 16-byte loads of W when every row starts 16-byte aligned.
   constexpr int kVec = 16 / sizeof(T);
-  if (width % kVec == 0 && reinterpret_cast<std::uintptr_t>(w) % 16 == 0) {
-    err = launch_projection<T, kVec>(inp, w, partial, batch, depth, width, depth_per_split, ksplit, device, s);
+  if (vec == kVec) {  // 16-byte loads of W: every row must start 16-byte aligned
+    if ((3 * hidden) % kVec != 0 || reinterpret_cast<std::uintptr_t>(w) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_stream<T, kVec>(inp, w, bias, scale, ln_bias, h, h_out, z, scratch, tickets, batch, depth, hidden,
+                                 depth_per_split, ksplit, device, s);
+  } else if (vec == 1) {
+    err = launch_stream<T, 1>(inp, w, bias, scale, ln_bias, h, h_out, z, scratch, tickets, batch, depth, hidden,
+                              depth_per_split, ksplit, device, s);
   } else {
-    err = launch_projection<T, 1>(inp, w, partial, batch, depth, width, depth_per_split, ksplit, device, s);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // Programmatic dependent launch: the epilogue's launch overlaps the
-  // projection's run, and griddepcontrol.wait orders its reads.
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(batch);
-  cfg.blockDim = dim3(kEpilogueThreads);
-  cfg.stream = s;
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = pdl;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, ln_gru_epilogue<T>, static_cast<const float*>(partial), ksplit,
-                           static_cast<const float*>(bias), static_cast<const float*>(scale),
-                           static_cast<const float*>(ln_bias), static_cast<const T*>(h), static_cast<T*>(h_out),
-                           static_cast<float*>(z), batch, hidden);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 }  // namespace
 
 extern "C" int ln_gru_forward_f32(const void* inp, const void* w, const void* bias, const void* scale,
-                                  const void* ln_bias, const void* h, void* h_out, void* z, void* partial,
-                                  int batch, int depth, int hidden, int depth_per_split, int ksplit, int device,
-                                  void* stream) {
-  return launch<float>(inp, w, bias, scale, ln_bias, h, h_out, z, partial, batch, depth, hidden, depth_per_split,
-                       ksplit, device, stream);
+                                  const void* ln_bias, const void* h, void* h_out, void* z, void* scratch,
+                                  void* tickets, int batch, int depth, int hidden, int vec, int depth_per_split,
+                                  int ksplit, int device, void* stream) {
+  return launch<float>(inp, w, bias, scale, ln_bias, h, h_out, z, scratch, tickets, batch, depth, hidden, vec,
+                       depth_per_split, ksplit, device, stream);
 }
 
 extern "C" int ln_gru_forward_bf16(const void* inp, const void* w, const void* bias, const void* scale,
-                                   const void* ln_bias, const void* h, void* h_out, void* z, void* partial,
-                                   int batch, int depth, int hidden, int depth_per_split, int ksplit, int device,
-                                   void* stream) {
-  return launch<__nv_bfloat16>(inp, w, bias, scale, ln_bias, h, h_out, z, partial, batch, depth, hidden,
-                               depth_per_split, ksplit, device, stream);
+                                   const void* ln_bias, const void* h, void* h_out, void* z, void* scratch,
+                                   void* tickets, int batch, int depth, int hidden, int vec, int depth_per_split,
+                                   int ksplit, int device, void* stream) {
+  return launch<__nv_bfloat16>(inp, w, bias, scale, ln_bias, h, h_out, z, scratch, tickets, batch, depth, hidden,
+                               vec, depth_per_split, ksplit, device, stream);
 }

@@ -29,6 +29,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES: Dict[str, Path] = {
     "ln_gru": PACKAGE_DIR / "csrc" / "ln_gru.cu",
+    "ln_gru_tc": PACKAGE_DIR / "csrc" / "ln_gru_tc.cu",
     "ln_gru_bwd": PACKAGE_DIR / "csrc" / "ln_gru_bwd.cu",
 }
 NVCC_FLAGS = (

@@ -24,7 +24,7 @@ from sheeprl_tpu.models.models import LayerNormGRUCell as FlaxCell
 from sheeprl_tpu.models.pallas_gru import _gates_from_z, fused_ln_gru
 from sheeprl_tpu_torch.models.ln_gru import (
     LNGRUFunction,
-    backward_rows,
+    backward_plan,
     ln_gru_backward,
     ln_gru_backward_plain,
     ln_gru_forward,
@@ -156,5 +156,49 @@ def test_backward_checks_its_inputs(mutate, error):
 
 @pytest.mark.parametrize("batch,sms,rows", [(16, 132, 1), (1024, 132, 8), (1, 132, 1), (133, 132, 2)])
 def test_backward_rows_give_about_one_block_per_sm(batch, sms, rows):
-    assert backward_rows(batch, sms) == rows
+    plan = backward_plan(batch, 512, sms)
+    assert plan.rows == rows
     assert -(-batch // rows) <= sms
+
+
+@pytest.mark.parametrize("batch,hidden,sms", [(16, 512, 132), (1024, 512, 132), (3, 100, 132), (8, 4096, 132), (300, 16, 4), (4, 5000, 132)])
+def test_backward_plan_covers_rows_and_gates(batch, hidden, sms):
+    plan = backward_plan(batch, hidden, sms)
+    assert plan.blocks * plan.rows >= batch > (plan.blocks - plan.cluster) * plan.rows  # only the last cluster has idle blocks
+    assert plan.blocks == plan.cluster * plan.clusters and 1 <= plan.cluster <= 16
+    assert plan.threads % 32 == 0 and 32 <= plan.threads <= 256
+    assert plan.threads >= hidden or plan.threads == 256  # gate indices per thread: one, or a few kept in registers
+    assert plan.tickets == plan.cluster  # one per column slice
+    assert plan.scratch_floats == (plan.blocks + plan.clusters) * 2 * 3 * hidden
+
+
+def test_backward_plan_puts_the_dynamic_scan_in_one_cluster():
+    plan = backward_plan(16, 512, 132)
+    assert (plan.rows, plan.blocks, plan.cluster, plan.clusters) == (1, 16, 16, 1)
+
+
+@pytest.mark.parametrize("batch,hidden,sms", [(16, 128, 132), (40, 16, 4), (5, 128, 132), (700, 16, 4)])
+def test_backward_plan_sum_order_matches_the_plain_backward(batch, hidden, sms):
+    """dscale and dln_bias as the kernel adds them: each block's rows in
+    order, the blocks of a cluster in order, then the clusters in order;
+    held to ln_gru_backward_plain over the whole batch (atol 1e-5)."""
+    inp, w, b, scale, ln_bias, h = (torch.from_numpy(a) for a in _case(10, batch, 24, hidden))
+    _, z = ln_gru_plain(inp, w, b, scale, ln_bias, h)
+    g = torch.from_numpy(np.random.default_rng(11).standard_normal((batch, hidden)).astype(np.float32))
+    plan = backward_plan(batch, hidden, sms)
+    per_row = [ln_gru_backward_plain(g[r : r + 1], z[r : r + 1], scale, ln_bias, h[r : r + 1]) for r in range(batch)]
+    blocks = []
+    for k in range(plan.blocks):
+        acc = torch.zeros(2, 3 * hidden)
+        for r in range(k * plan.rows, min((k + 1) * plan.rows, batch)):
+            acc = acc + torch.stack([per_row[r][1], per_row[r][2]])
+        blocks.append(acc)
+    total = torch.zeros(2, 3 * hidden)
+    for cl in range(plan.clusters):
+        part = torch.zeros(2, 3 * hidden)
+        for acc in blocks[cl * plan.cluster : (cl + 1) * plan.cluster]:
+            part = part + acc
+        total = total + part
+    _, dscale, dln_bias, _ = ln_gru_backward_plain(g, z, scale, ln_bias, h)
+    np.testing.assert_allclose(total[0].numpy(), dscale.numpy(), atol=1e-5)
+    np.testing.assert_allclose(total[1].numpy(), dln_bias.numpy(), atol=1e-5)
