@@ -43,17 +43,37 @@ Phases (any failure exits non-zero before the result line):
    exp=dreamer_v3_100k_ms_pacman env=dummy`` in process, DV3-S at full
    width, bf16-mixed, batch 16 x 64, horizon 15, with learning_starts,
    total_steps and buffer.size cut (listed in the output) so it takes 8
-   gradient steps. Counts zeroed just before, read just after: at least 79
-   forward (64 streaming, 15 on the tensor cores) and 64 backward launches
-   per gradient step. Finite losses; the
-   world model, actor and critic moved; the target critic followed its EMA
-   cadence. Then the gradient step's profile (host wall, device busy, idle
-   share, device operations, peak memory) and a 32-true gradient step on the
-   card against the CPU with the card's categorical draws replayed.
+   gradient steps. Counts zeroed just before, read just after, and checked
+   at every gradient step: 79 forward (64 streaming at B = 16, 15 on the
+   tensor cores at B = 1024) and 64 backward launches (B = 16). Finite
+   losses; the target critic followed its EMA cadence; the actor's loss left
+   the world model's and critic's gradients as they were; the world model,
+   actor and critic moved. Then the gradient step's profile (host wall,
+   device busy, idle share, device operations, one backward's in-step time,
+   peak memory) and a 32-true gradient step on the card against the CPU
+   with the card's categorical draws replayed.
+8. Continuous control, the second main path: ``python -m sheeprl_tpu_torch
+   exp=dreamer_v3_dmc_walker_walk env=dummy env.id=continuous_dummy`` in
+   process (6 actions in [-1, 1]), DV3-S at full width, bf16-mixed, batch
+   16 x 64, horizon 15, with learning_starts, total_steps, buffer.size and
+   checkpoint.every cut (listed in the output) so it takes 8 gradient steps
+   and writes a checkpoint after the 4th, checked step by step as in 7:
+   every gradient step must launch 64 backwards at B = 16 and 15 at
+   B = 1024 (the pathwise actor gradient through the imagination, whose
+   cells get no gradient of W or the LayerNorm's parameters) and 64 + 15
+   forwards, with finite losses, leaving the world model's and critic's
+   gradients untouched by the actor's loss. Then its step profile (launches
+   by kernel and by batch, one backward's in-step time at B = 16 and at
+   B = 1024), save and resume (the checkpoint's digest, every
+   restored tensor bit-identical on the card, the resumed CLI run going on
+   from gradient step 5), the checkpoint exported and served over HTTP (6
+   actions in [-1, 1], greedy replays byte-identical), and a 32-true
+   continuous gradient step on the card against the CPU with the card's
+   categorical and normal draws replayed.
 
 Prints one ``{"kernels": [...]}`` line (the streaming forward at B = 16,
-the tensor-core forward at B = 1024, the backward at B = 16), the card's
-name and power limit,
+the tensor-core forward at B = 1024, the backward at B = 16 and at
+B = 1024), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -72,6 +92,7 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -134,6 +155,23 @@ def device_ms(fn, reps: int = 15, inner: int = 20) -> tuple:
     return statistics.median(times), min(times), max(times)
 
 
+def profiled(fn, activities=("cuda",), captures: int = 3):
+    """torch.profiler over one call of ``fn``; a capture in which the
+    profiler recorded no device event at all is taken again, up to
+    ``captures`` times (its tracer has returned an empty capture on an H100
+    with torch 2.11)."""
+    import torch
+
+    kinds = {"cpu": torch.profiler.ProfilerActivity.CPU, "cuda": torch.profiler.ProfilerActivity.CUDA}
+    for _ in range(captures):
+        with torch.profiler.profile(activities=[kinds[a] for a in activities]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        if any((getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)) for e in prof.key_averages()):
+            break
+    return prof
+
+
 def kernel_split_ms(fn, calls: int = 50) -> dict:
     """Device ms and launches per call of each CUDA kernel ``fn`` launches,
     from torch.profiler: {name: {"ms": ..., "launches": ...}}."""
@@ -141,10 +179,7 @@ def kernel_split_ms(fn, calls: int = 50) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+    prof = profiled(lambda: [fn() for _ in range(calls)])
     split = {}
     for evt in prof.key_averages():
         total_us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
@@ -572,9 +607,12 @@ def phase_step_profile(path, bucket: int = 4, steps: int = 20):
     for _ in range(steps):
         _, state = adapter.apply(obs, seeds, state, greedy=False)  # ends in a copy of the actions to the host
     wall_ms = (time.perf_counter() - t0) / steps * 1e3  # without the profiler's own overhead
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
+    def profiled_steps():
+        nonlocal state
         for _ in range(steps):
             _, state = adapter.apply(obs, seeds, state, greedy=False)
+
+    prof = profiled(profiled_steps, ("cpu", "cuda"))
     kernels_ms, launches = {}, 0
     for evt in prof.key_averages():
         if evt.device_type == torch.autograd.DeviceType.CUDA:  # kernels and copies, not the host ops that launched them
@@ -646,31 +684,164 @@ FWD_PER_STEP = 64 + 15  # the dynamic scan over T = 64, then the 15-step imagina
 STREAM_PER_STEP = 64  # the dynamic scan's B = 16 streams W
 TC_PER_STEP = 15  # the imagination's B = 16 x 64 = 1024 runs on the tensor cores
 BWD_PER_STEP = 64  # the world-model loss differentiates the dynamic scan only
+IMAGINED_BATCH = 1024
+FWD_BY_BATCH = {16: STREAM_PER_STEP, IMAGINED_BATCH: TC_PER_STEP}
+BWD_BY_BATCH = {16: BWD_PER_STEP}
+# The device span of the train step's stage in which each batch's backward
+# runs: the world model's loss differentiates the dynamic scan (B = 16), the
+# continuous actor's loss the imagination (B = 1024).
+BWD_STAGE = {16: "dv3/world_model", IMAGINED_BATCH: "dv3/actor"}
 
 
 def _params(module):
     return {k: v.detach().clone() for k, v in module.state_dict().items()}
 
 
-def phase_training():
+def zero_counts():
+    """Set every LN-GRU launch count to 0 (just before a main path runs)."""
+    from sheeprl_tpu_torch.models.ln_gru import ln_gru_backward, ln_gru_forward, ln_gru_forward_streaming, ln_gru_forward_tensor_core
+
+    ln_gru_forward.launches = ln_gru_backward.launches = 0
+    ln_gru_forward_streaming.launches = ln_gru_forward_tensor_core.launches = 0
+    ln_gru_forward.launches_by_batch.clear()
+    ln_gru_backward.launches_by_batch.clear()
+
+
+def read_counts():
+    """The LN-GRU launch counts (just after a main path ran)."""
+    from sheeprl_tpu_torch.models.ln_gru import ln_gru_backward, ln_gru_forward, ln_gru_forward_streaming, ln_gru_forward_tensor_core
+
+    return {"forward": ln_gru_forward.launches, "backward": ln_gru_backward.launches,
+            "streaming": ln_gru_forward_streaming.launches, "tensor_core": ln_gru_forward_tensor_core.launches,
+            "forward_by_batch": dict(ln_gru_forward.launches_by_batch), "backward_by_batch": dict(ln_gru_backward.launches_by_batch)}  # fmt: skip
+
+
+@contextmanager
+def patched(owner, name, value):
+    """``owner.name`` set to ``value`` for the block, then put back."""
+    had, old = name in vars(owner), vars(owner).get(name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        if had:
+            setattr(owner, name, old)
+        else:
+            delattr(owner, name)
+
+
+def train_through_cli(args, what, bwd_per_step, keep_params=False):
+    """One run of the port's trainer through its CLI entry point, in
+    process, on the card. At every gradient step it checks: finite metrics;
+    the LN-GRU launches by batch since the step before (forward
+    ``FWD_BY_BATCH``, backward ``bwd_per_step``; the player's forwards at
+    B = num_envs fall between iterations); the target critic's EMA (a hard
+    copy at step 1, then tau * critic + (1 - tau) * target within 1e-6 of
+    that recomputed here); that the actor's backward left the world model's
+    and the critic's gradients as the world model's update left them (read
+    where the step clips each module's gradients); and that the
+    imagination's cells (B = 1024) were asked for no gradient of W, the
+    LayerNorm scale or its bias, only of their input (continuous actions),
+    or for none (discrete actions imagine under no_grad). Returns
+    (out, steps, wall_s, counts, worst_ema); each step is (gradient step,
+    tau, time, metrics, the modules' parameters if ``keep_params``)."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.models import ln_gru
+
+    if int(compose(args).env.num_envs) in FWD_BY_BATCH:
+        fail(f"{what}: the player's batch would be counted as the train step's")
+    held, snap, imagined = {}, {}, []
+    steps, last, prev_target, worst_ema = [], [None], {}, [0.0]
+    make_train_step, clip, apply = dv3.make_train_step, dv3._clip, ln_gru.LNGRUFunction.apply
+
+    def holding_make_train_step(agent, optimizers, cfg):
+        held["agent"] = agent
+        return make_train_step(agent, optimizers, cfg)
+
+    def grads(module):
+        return {k: None if p.grad is None else p.grad.clone() for k, p in module.named_parameters()}
+
+    def checking_clip(module, max_norm):
+        agent = held["agent"]
+        if module is agent.world_model:
+            norm = clip(module, max_norm)  # scales the gradients in place
+            snap.update(world_model=grads(agent.world_model), critic=grads(agent.critic))
+            return norm
+        if module is agent.actor:
+            for name in ("world_model", "critic"):
+                for k, g in grads(getattr(agent, name)).items():
+                    before = snap[name][k]
+                    if (g is None) != (before is None) or (g is not None and not torch.equal(g, before)):
+                        fail(f"{what}: the actor's backward changed the {name}'s gradient of {k}")
+            snap["checked"] = snap.get("checked", 0) + 1
+        return clip(module, max_norm)
+
+    def recording_apply(*inputs):
+        if inputs[0].shape[0] == IMAGINED_BATCH:
+            imagined.append(torch.is_grad_enabled() and tuple(t.requires_grad for t in inputs))
+        return apply(*inputs)
+
+    def on_step(agent, step, tau, metrics):
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+        if bad:
+            fail(f"{what}: non-finite metrics at gradient step {step}: {bad}")
+        now = read_counts()
+        bwd = {b: n - last[0]["backward_by_batch"].get(b, 0) for b, n in now["backward_by_batch"].items()}
+        fwd = {b: now["forward_by_batch"].get(b, 0) - last[0]["forward_by_batch"].get(b, 0) for b in FWD_BY_BATCH}
+        if {b: n for b, n in bwd.items() if n} != bwd_per_step or fwd != FWD_BY_BATCH:
+            fail(f"{what}: gradient step {step} launched backward {bwd} and forward {fwd} by batch, "
+                 f"expected {bwd_per_step} and {FWD_BY_BATCH}")  # fmt: skip
+        last[0] = now
+        differentiated = [need for need in imagined if need]
+        if (len(imagined) != TC_PER_STEP or len(differentiated) != (TC_PER_STEP if agent.is_continuous else 0)
+                or any(not need[0] or need[1] or need[3] or need[4] for need in differentiated)):  # fmt: skip
+            fail(f"{what}: gradient step {step}: the imagination's cells asked for gradients {imagined[:2]} "
+                 f"({len(differentiated)} of {len(imagined)} differentiated)")  # fmt: skip
+        imagined.clear()
+        if snap.pop("checked", 0) != 1:
+            fail(f"{what}: gradient step {step} did not clip the actor's gradients once")
+        critic, target = agent.critic.state_dict(), agent.target_critic.state_dict()
+        if step == 1 or prev_target:
+            for k, t in target.items():
+                want = critic[k] if step == 1 else tau * critic[k] + (1 - tau) * prev_target[k]
+                worst_ema[0] = max(worst_ema[0], (t - want).abs().max().item())
+            if worst_ema[0] > 1e-6:
+                fail(f"{what}: the target critic left its EMA by {worst_ema[0]} at gradient step {step}")
+        prev_target.update({k: v.clone() for k, v in target.items()})
+        params = {n: _params(getattr(agent, n)) for n in MODULES} if keep_params else None
+        steps.append((step, tau, time.perf_counter(), {k: v.item() for k, v in metrics.items()}, params))
+
+    torch.cuda.synchronize()
+    zero_counts()
+    last[0] = read_counts()
+    t0 = time.perf_counter()
+    with patched(dv3, "make_train_step", holding_make_train_step), patched(dv3, "_clip", checking_clip), patched(
+        ln_gru.LNGRUFunction, "apply", recording_apply
+    ):
+        out = run(args, callback=on_step)
+    torch.cuda.synchronize()
+    return out, steps, time.perf_counter() - t0, read_counts(), worst_ema[0]
+
+
+MODULES = ("world_model", "actor", "critic", "target_critic")
+
+
+def phase_training(log_root):
     """The port's trainer through its CLI entry point, in process, on the
-    card: DV3-S, bf16-mixed. Checks finite losses, the kernels' launches per
-    gradient step, that the world model, actor and critic moved, and that
-    the target critic followed the EMA cadence (a hard copy at the first
-    step, then tau * critic + (1 - tau) * target at every step, within 1e-6
-    of that formula recomputed here)."""
+    card: DV3-S, bf16-mixed, 8 gradient steps checked step by step
+    (:func:`train_through_cli`: 64 + 15 forwards and 64 backwards each);
+    then that the world model, actor and critic moved and that the target
+    critic's taus were a hard copy, then ``algo.critic.tau``. The run writes
+    under ``log_root``."""
     import numpy as np
     import torch
 
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
-    from sheeprl_tpu_torch.cli import run
     from sheeprl_tpu_torch.config import compose
-    from sheeprl_tpu_torch.models.ln_gru import (
-        ln_gru_backward,
-        ln_gru_forward,
-        ln_gru_forward_streaming,
-        ln_gru_forward_tensor_core,
-    )
     from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
 
     cfg = compose(TRAIN_ARGS)
@@ -680,46 +851,13 @@ def phase_training():
     init = build_agent((9,), False, cfg, DictSpace({"rgb": Box((64, 64, 3), "uint8", 0.0, 255.0)}), device="cpu", seed=cfg.seed, training=True)
     before = {name: _params(getattr(init, name)) for name in ("world_model", "actor", "critic")}
     del init
-    steps = []
-    prev_target = {}
-    worst_ema = [0.0]
-
-    def on_step(agent, step, tau, metrics):
-        now = time.perf_counter()
-        finite = all(bool(torch.isfinite(v).all()) for v in metrics.values())
-        if not finite:
-            fail(f"training: non-finite metrics at gradient step {step}: {[k for k, v in metrics.items() if not torch.isfinite(v).all()]}")
-        critic, target = agent.critic.state_dict(), agent.target_critic.state_dict()
-        for k, t in target.items():
-            want = critic[k] if step == 1 else tau * critic[k] + (1 - tau) * prev_target[k]
-            worst_ema[0] = max(worst_ema[0], (t - want).abs().max().item())
-        prev_target.update({k: v.clone() for k, v in target.items()})
-        steps.append((now, tau, {k: v.item() for k, v in metrics.items()}))
-
-    torch.cuda.synchronize()
-    ln_gru_forward.launches = ln_gru_backward.launches = 0
-    ln_gru_forward_streaming.launches = ln_gru_forward_tensor_core.launches = 0
-    t0 = time.perf_counter()
-    out = run(TRAIN_ARGS, callback=on_step)
-    torch.cuda.synchronize()
-    wall_s = time.perf_counter() - t0
-    fwd, bwd = ln_gru_forward.launches, ln_gru_backward.launches
-    stream, tc = ln_gru_forward_streaming.launches, ln_gru_forward_tensor_core.launches
-
+    out, steps, wall_s, counts, worst_ema = train_through_cli([*TRAIN_ARGS, f"log_root={log_root}"], "training", BWD_BY_BATCH)
     n = out["gradient_steps"]
     if n != 8 or len(steps) != 8:
         fail(f"training: {n} gradient steps, expected 8")
-    if fwd < FWD_PER_STEP * n or bwd < BWD_PER_STEP * n:
-        fail(f"training: ln_gru_forward launched {fwd} and ln_gru_backward {bwd} times for {n} gradient steps "
-             f"(at least {FWD_PER_STEP} and {BWD_PER_STEP} per step)")  # fmt: skip
-    if stream < STREAM_PER_STEP * n or tc < TC_PER_STEP * n or stream + tc != fwd:
-        fail(f"training: the streaming forward launched {stream} and the tensor-core forward {tc} times of {fwd} "
-             f"for {n} gradient steps (at least {STREAM_PER_STEP} and {TC_PER_STEP} per step)")  # fmt: skip
-    taus = [tau for _, tau, _ in steps]
+    taus = [tau for _, tau, _, _, _ in steps]
     if taus[0] != 1.0 or any(abs(t - float(cfg.algo.critic.tau)) > 1e-7 for t in taus[1:]):
         fail(f"training: target-critic taus {taus}")
-    if worst_ema[0] > 1e-6:
-        fail(f"training: the target critic left its EMA by {worst_ema[0]}")
     agent = out["agent"]
     for name, state in before.items():
         now = _params(getattr(agent, name))
@@ -730,7 +868,8 @@ def phase_training():
     last = out["log"][-1]
     if not all(np.isfinite(v) for v in last.values()):
         fail(f"training: non-finite logged metrics {last}")
-    step_wall = [b[0] - a[0] for a, b in zip(steps, steps[1:])]
+    fwd, bwd, stream, tc = counts["forward"], counts["backward"], counts["streaming"], counts["tensor_core"]
+    step_wall = [b[2] - a[2] for a, b in zip(steps, steps[1:])]
     result = {
         "cuts": TRAIN_CUTS,
         "gradient_steps": n,
@@ -740,24 +879,28 @@ def phase_training():
         "ln_gru_backward_launches": bwd,
         "ln_gru_forward_launches_by_kernel": {"streaming": stream, "tensor_core": tc},
         "taus": taus,
-        "target_ema_max_abs_err": worst_ema[0],
+        "target_ema_max_abs_err": worst_ema,
         "trainer_wall_ms_between_gradient_steps": statistics.median(step_wall) * 1e3,
-        "metrics_last_step": steps[-1][2],
+        "metrics_last_step": steps[-1][3],
     }
     log(f"training: {n} gradient steps in {out['policy_steps']} policy steps, {wall_s:.1f} s; ln_gru_forward {fwd} launches "
-        f"({fwd / n:.1f}/step incl. the player; streaming {stream}, tensor core {tc}), ln_gru_backward {bwd} ({bwd / n:.1f}/step); target EMA max |d| {worst_ema[0]:.3g}; "
+        f"({fwd / n:.1f}/step incl. the player; streaming {stream}, tensor core {tc}), ln_gru_backward {bwd} ({bwd / n:.1f}/step); "
+        f"target EMA max |d| {worst_ema:.3g}; the actor's loss left the world model's and critic's gradients as they were; "
         f"median {result['trainer_wall_ms_between_gradient_steps']:.1f} ms between gradient steps")  # fmt: skip
-    log(f"training: last step {json.dumps({k: float(f'{v:.5g}') for k, v in steps[-1][2].items()})}")
+    log(f"training: last step {json.dumps({k: float(f'{v:.5g}') for k, v in steps[-1][3].items()})}")
     return result, agent, cfg
 
 
-def _train_batch(T, B, seed, device):
+def _train_batch(T, B, seed, device, n_actions=9, continuous=False):
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    actions = np.zeros((T, B, 9), np.float32)
-    actions[np.arange(T)[:, None], np.arange(B)[None, :], rng.integers(0, 9, (T, B))] = 1.0
+    if continuous:
+        actions = rng.uniform(-1, 1, (T, B, n_actions)).astype(np.float32)
+    else:
+        actions = np.zeros((T, B, n_actions), np.float32)
+        actions[np.arange(T)[:, None], np.arange(B)[None, :], rng.integers(0, n_actions, (T, B))] = 1.0
     data = {
         "rgb": rng.integers(0, 256, (T, B, 64, 64, 3)).astype(np.uint8),
         "actions": actions,
@@ -769,12 +912,16 @@ def _train_batch(T, B, seed, device):
     return {k: torch.from_numpy(v).to(device) for k, v in data.items()}
 
 
-def phase_train_profile(agent, cfg, steps: int = 3):
+def phase_train_profile(agent, cfg, steps: int = 3, bwd_per_step=None, what: str = "train step profile"):
     """Where one DV3-S gradient step's time goes (bf16-mixed, B = 16,
     T = 64, horizon 15, on the trained agent): host wall per step (ending in a
     synchronize), the device's busy time per step and its idle share from
     torch.profiler, device operations per step, the kernels' launches per
-    step, and peak device memory."""
+    step by kernel and by batch, one backward's device time in the step at
+    each batch (the ln_gru_bwd kernels inside the device span of the stage
+    that runs them, ``BWD_STAGE``), and peak device memory. ``bwd_per_step``
+    is the backward launches a step must make at each batch size (the
+    discrete step's 64 at B = 16 by default)."""
     import torch
 
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
@@ -787,16 +934,17 @@ def phase_train_profile(agent, cfg, steps: int = 3):
     from sheeprl_tpu_torch.utils.distribution import BatchGenerator
     from sheeprl_tpu_torch.utils.ops import init_moments
 
+    bwd_per_step = bwd_per_step or BWD_BY_BATCH
     dev = torch.device("cuda")
     step = make_train_step(agent, make_optimizers(agent, cfg), cfg)
-    data = _train_batch(int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size), 7, dev)
+    data = _train_batch(int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size), 7, dev,
+                        sum(agent.actions_dim), agent.is_continuous)  # fmt: skip
     rng = BatchGenerator.from_seed(0, dev)
     moments = init_moments(dev)
     moments, _ = step(moments, data, rng, 0.02)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ln_gru_forward.launches = ln_gru_backward.launches = 0
-    ln_gru_forward_streaming.launches = ln_gru_forward_tensor_core.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     for _ in range(steps):
         moments, _ = step(moments, data, rng, 0.02)
@@ -804,11 +952,15 @@ def phase_train_profile(agent, cfg, steps: int = 3):
     wall_ms = (time.perf_counter() - t0) / steps * 1e3
     fwd, bwd = ln_gru_forward.launches / steps, ln_gru_backward.launches / steps
     stream, tc = ln_gru_forward_streaming.launches / steps, ln_gru_forward_tensor_core.launches / steps
+    bwd_by_batch = {b: n / steps for b, n in sorted(ln_gru_backward.launches_by_batch.items())}
+    fwd_by_batch = {b: n / steps for b, n in sorted(ln_gru_forward.launches_by_batch.items())}
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]) as prof:
+    def profiled_steps():
+        nonlocal moments
         for _ in range(steps):
             moments, _ = step(moments, data, rng, 0.02)
-        torch.cuda.synchronize()
+
+    prof = profiled(profiled_steps, ("cpu", "cuda"))
     kernels_ms, ops, stages = {}, 0, {}
     for evt in prof.key_averages():
         total_us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
@@ -821,30 +973,48 @@ def phase_train_profile(agent, cfg, steps: int = 3):
     busy_ms = sum(kernels_ms.values())
     if busy_ms <= 0.0:
         fail("train profile: torch.profiler saw no device time")
+    spans, bwd_kernels = {stage: [] for stage in BWD_STAGE.values()}, []
+    for evt in prof.events():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if evt.name in spans:
+            spans[evt.name].append((evt.time_range.start, evt.time_range.end))
+        elif "ln_gru_bwd" in evt.name:
+            bwd_kernels.append(evt.time_range)
+    bwd_in_step = {}
+    for batch in bwd_per_step:
+        us = [k.elapsed_us() for k in bwd_kernels if any(a <= k.start <= b for a, b in spans[BWD_STAGE[batch]])]
+        if not us:
+            fail(f"{what}: the profiler recorded no backward kernel in the {BWD_STAGE[batch]} device span (B = {batch})")
+        bwd_in_step[batch] = {"ms": statistics.mean(us) / 1e3, "kernels_seen": len(us)}
     top = dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8])
     gru_ms = {k: v for k, v in kernels_ms.items() if "ln_gru" in k}
     result = {"host_wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
               "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms), "device_ops_per_step": ops / steps,
               "ln_gru_forward_per_step": fwd, "ln_gru_backward_per_step": bwd, "peak_memory_gib": peak_gib,
               "ln_gru_forward_per_step_by_kernel": {"streaming": stream, "tensor_core": tc},
-              "ln_gru_device_ms_per_step_total": sum(gru_ms.values()),
+              "ln_gru_forward_per_step_by_batch": fwd_by_batch, "ln_gru_backward_per_step_by_batch": bwd_by_batch,
+              "ln_gru_device_ms_per_step_total": sum(gru_ms.values()), "ln_gru_backward_in_step_ms_by_batch": bwd_in_step,
               "stages_per_step": stages, "ln_gru_device_ms_per_step": gru_ms,
               "top_device_ms_per_step": top}  # fmt: skip
-    if fwd != FWD_PER_STEP or bwd != BWD_PER_STEP or stream != STREAM_PER_STEP or tc != TC_PER_STEP:
-        fail(f"train profile: {fwd} forward ({stream} streaming, {tc} tensor core) and {bwd} backward launches per gradient step, "
-             f"expected {FWD_PER_STEP} ({STREAM_PER_STEP} + {TC_PER_STEP}) and {BWD_PER_STEP}")  # fmt: skip
-    log(f"train step profile (DV3-S, bf16-mixed, B=16 T=64 H=15): host wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step, "
+    if (fwd != FWD_PER_STEP or stream != STREAM_PER_STEP or tc != TC_PER_STEP or bwd_by_batch != bwd_per_step
+            or fwd_by_batch != FWD_BY_BATCH):  # fmt: skip
+        fail(f"{what}: {fwd} forward ({stream} streaming, {tc} tensor core; by batch {fwd_by_batch}) and {bwd} backward "
+             f"launches per gradient step (by batch {bwd_by_batch}), expected {FWD_PER_STEP} ({STREAM_PER_STEP} + {TC_PER_STEP}) "
+             f"and {bwd_per_step}")  # fmt: skip
+    log(f"{what} (DV3-S, bf16-mixed, B=16 T=64 H=15): host wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step, "
         f"idle share {result['device_idle_share']:.3f}, {result['device_ops_per_step']:.0f} device ops/step, "
-        f"ln_gru {fwd:.0f} fwd + {bwd:.0f} bwd launches/step, peak memory {peak_gib:.2f} GiB")  # fmt: skip
-    log(f"train step profile: stages {json.dumps({k: {s: round(v, 3) for s, v in d.items()} for k, d in stages.items()})}")
-    log(f"train step profile: LN-GRU kernels' device ms/step {json.dumps({k: round(v, 4) for k, v in gru_ms.items()})}, "
-        f"total {sum(gru_ms.values()):.4f}")
-    log(f"train step profile: top device ms/step {json.dumps({k: round(v, 4) for k, v in top.items()})}")
+        f"ln_gru {fwd:.0f} fwd + {bwd:.0f} bwd launches/step (backward by batch {bwd_by_batch}), peak memory {peak_gib:.2f} GiB")  # fmt: skip
+    log(f"{what}: stages {json.dumps({k: {s: round(v, 3) for s, v in d.items()} for k, d in stages.items()})}")
+    log(f"{what}: LN-GRU kernels' device ms/step {json.dumps({k: round(v, 4) for k, v in gru_ms.items()})}, "
+        f"total {sum(gru_ms.values()):.4f}; one backward in the step by batch {json.dumps(bwd_in_step)}")
+    log(f"{what}: top device ms/step {json.dumps({k: round(v, 4) for k, v in top.items()})}")
     return result
 
 
 class RecordedDraws:
-    """A noise source that records every categorical draw of another."""
+    """A noise source that records every draw of another: categorical
+    indices and standard normals."""
 
     def __init__(self, source):
         self.source, self.draws = source, []
@@ -854,6 +1024,11 @@ class RecordedDraws:
         self.draws.append(idx.cpu())
         return idx
 
+    def normal(self, loc_shape, sample_shape=()):
+        eps = self.source.normal(loc_shape, sample_shape)
+        self.draws.append(eps.cpu())
+        return eps
+
 
 class ReplayedDraws:
     """A noise source that hands back recorded draws in order."""
@@ -862,22 +1037,29 @@ class ReplayedDraws:
         self.draws = list(draws)
         self.used = 0
 
-    def categorical(self, logits):
-        idx = self.draws[self.used]
+    def _next(self, shape):
+        draw = self.draws[self.used]
         self.used += 1
-        if tuple(idx.shape) != tuple(logits.shape[:-1]):
-            fail(f"replayed draw {self.used} has shape {tuple(idx.shape)} for logits {tuple(logits.shape)}")
-        return idx.to(logits.device)
+        if tuple(draw.shape) != tuple(shape):
+            fail(f"replayed draw {self.used} has shape {tuple(draw.shape)}, the step asks for {tuple(shape)}")
+        return draw
+
+    def categorical(self, logits):
+        return self._next(logits.shape[:-1]).to(logits.device)
+
+    def normal(self, loc_shape, sample_shape=()):
+        return self._next(tuple(sample_shape) + tuple(loc_shape))
 
 
-def phase_train_reference():
+def phase_train_reference(args=("exp=dreamer_v3_100k_ms_pacman", "env=dummy"), n_actions=9, continuous=False, what="train reference"):
     """One gradient step at 32-true on the card (the kernels) against the
     CPU (the plain versions): full DV3-S width, the same seeded weights, the
-    same batch at B = 4, T = 16; the card's categorical draws are recorded
-    and replayed on the CPU. Losses and metrics within rtol 2e-3 + atol
-    1e-4, the three pre-clip gradient norms within rtol 2e-3: f32 products
-    and convolutions in another order on two devices, through 16 GRU steps,
-    a 64x64 decoder and 15 imagined steps."""
+    same batch at B = 4, T = 16; the card's draws (categorical indices and,
+    for continuous actions, standard normals) are recorded and replayed on
+    the CPU. Losses and metrics within rtol 2e-3 + atol 1e-4, the three
+    pre-clip gradient norms within rtol 2e-3: f32 products and convolutions
+    in another order on two devices, through 16 GRU steps, a 64x64 decoder
+    and 15 imagined steps (differentiated, for continuous actions)."""
     import torch
 
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
@@ -887,30 +1069,219 @@ def phase_train_reference():
     from sheeprl_tpu_torch.utils.distribution import BatchGenerator
     from sheeprl_tpu_torch.utils.ops import init_moments
 
-    cfg = compose(["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "fabric.precision=32-true"])
+    cfg = compose([*args, "fabric.precision=32-true"])
     space = DictSpace({"rgb": Box((64, 64, 3), "uint8", 0.0, 255.0)})
     out = {}
     draws = None
     for dev in ("cuda", "cpu"):
-        agent = build_agent((9,), False, cfg, space, precision="32-true", device=dev, seed=0, training=True)
+        agent = build_agent((n_actions,), continuous, cfg, space, precision="32-true", device=dev, seed=0, training=True)
         step = make_train_step(agent, make_optimizers(agent, cfg), cfg)
         rng = RecordedDraws(BatchGenerator.from_seed(0, torch.device(dev))) if draws is None else ReplayedDraws(draws)
-        moments, metrics = step(init_moments(torch.device(dev)), _train_batch(16, 4, 11, torch.device(dev)), rng, 1.0)
+        data = _train_batch(16, 4, 11, torch.device(dev), n_actions, continuous)
+        moments, metrics = step(init_moments(torch.device(dev)), data, rng, 1.0)
         if draws is None:
             draws = rng.draws
         elif rng.used != len(draws):
-            fail(f"train reference: the CPU step drew {rng.used} times, the card {len(draws)}")
+            fail(f"{what}: the CPU step drew {rng.used} times, the card {len(draws)}")
         out[dev] = {k: v.item() for k, v in metrics.items()} | {f"moments/{k}": v.item() for k, v in moments.items()}
     worst = {}
     for k, ref in out["cpu"].items():
         got = out["cuda"][k]
         worst[k] = abs(got - ref)
         if not (math.isfinite(got) and abs(got - ref) <= 1e-4 + 2e-3 * abs(ref)):
-            fail(f"train reference: {k} on the card {got} vs the CPU {ref}")
-    log(f"train reference: one 32-true gradient step, card (kernels) vs CPU (plain), {len(draws)} replayed draws: "
+            fail(f"{what}: {k} on the card {got} vs the CPU {ref}")
+    log(f"{what}: one 32-true gradient step, card (kernels) vs CPU (plain), {len(draws)} replayed draws: "
         f"max rel |d| {max(worst[k] / max(abs(out['cpu'][k]), 1e-12) for k in worst):.3g}; "
         f"world model loss {out['cuda']['Loss/world_model_loss']:.6g} vs {out['cpu']['Loss/world_model_loss']:.6g}")  # fmt: skip
     return {"card": out["cuda"], "cpu": out["cpu"]}
+
+
+# The continuous path: DreamerV3-S on the walker (6 actions in [-1, 1], the
+# port's continuous dummy env at walker's shapes), 4 envs, action repeat 2,
+# replay ratio 0.5, bf16-mixed, batch 16 x 64, horizon 15. Only these are cut
+# from exp=dreamer_v3_dmc_walker_walk: 2 gradient steps per iteration from
+# policy step 264 to 276 make 8, with a checkpoint after the 4th.
+WALKER_CUTS = {"algo.learning_starts": "264 (from 1300)", "algo.total_steps": "276 (from 500000; 8 gradient steps)",
+               "buffer.size": "1024 (from 500000)", "checkpoint.every": "268 (from 10000; one checkpoint after 4 gradient steps)"}  # fmt: skip
+WALKER_ARGS = ["exp=dreamer_v3_dmc_walker_walk", "env=dummy", "env.id=continuous_dummy", "algo.learning_starts=264",
+               "algo.total_steps=276", "buffer.size=1024", "checkpoint.every=268", "metric.log_every=64"]  # fmt: skip
+WALKER_BWD_PER_STEP = {16: BWD_PER_STEP, IMAGINED_BATCH: TC_PER_STEP}  # the dynamic scan's 64, then the 15 imagined steps
+
+
+def phase_continuous_training(log_root):
+    """The continuous path through the CLI on the card: DV3-S on the walker,
+    8 gradient steps checked step by step (:func:`train_through_cli`: 64
+    backwards at B = 16 and 15 at B = 1024, the pathwise actor gradient
+    through the imagination, whose cells get no dW; the world model's and
+    critic's gradients untouched by the actor's loss); a checkpoint after
+    step 4 and one at the end; every parameter trainable again after the
+    run."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.config import compose
+
+    args = [*WALKER_ARGS, f"log_root={log_root}"]
+    cfg = compose(args)
+    log(f"continuous training: exp=dreamer_v3_dmc_walker_walk env=dummy env.id=continuous_dummy (rgb 64x64x3, Box(-1, 1, (6,))), "
+        f"full DV3-S width, {cfg.fabric.precision}, {cfg.env.num_envs} envs, action repeat {cfg.env.action_repeat}, replay ratio "
+        f"{cfg.algo.replay_ratio}, batch {cfg.algo.per_rank_batch_size} x {cfg.algo.per_rank_sequence_length}, horizon {cfg.algo.horizon}; "
+        f"cut: {json.dumps(WALKER_CUTS)}")  # fmt: skip
+    out, steps, wall_s, counts, worst_ema = train_through_cli(args, "continuous training", WALKER_BWD_PER_STEP, keep_params=True)
+    n = out["gradient_steps"]
+    if n != 8 or [s[0] for s in steps] != list(range(1, 9)) or out["policy_steps"] != 276:
+        fail(f"continuous training: {n} gradient steps in {out['policy_steps']} policy steps, expected 8 in 276")
+    if [os.path.basename(c) for c in out["checkpoints"]] != ["ckpt_268_0.ckpt", "ckpt_276_0.ckpt"]:
+        fail(f"continuous training: checkpoints {out['checkpoints']}")
+    agent = out["agent"]
+    frozen = [k for m in (agent.world_model, agent.actor, agent.critic) for k, p in m.named_parameters() if not p.requires_grad]
+    if frozen or not agent.is_continuous:
+        fail(f"continuous training: parameters left frozen after the step: {frozen[:5]}")
+    last = out["log"][-1]
+    if not all(np.isfinite(v) for v in last.values()):
+        fail(f"continuous training: non-finite logged metrics {last}")
+    result = {"cuts": WALKER_CUTS, "gradient_steps": n, "policy_steps": out["policy_steps"], "wall_s": wall_s,
+              "ln_gru_launches": counts, "target_ema_max_abs_err": worst_ema, "checkpoints": out["checkpoints"],
+              "metrics_last_step": steps[-1][3]}  # fmt: skip
+    log(f"continuous training: {n} gradient steps in {out['policy_steps']} policy steps, {wall_s:.1f} s; ln_gru forward "
+        f"{counts['forward']} (streaming {counts['streaming']}, tensor core {counts['tensor_core']}; by batch {counts['forward_by_batch']}), "
+        f"backward {counts['backward']} (by batch {counts['backward_by_batch']}): per step 64 + 15 backwards, as required; "
+        f"the imagination's cells got no dW; the actor's loss left the world model's and critic's gradients as they were")  # fmt: skip
+    log(f"continuous training: last step {json.dumps({k: float(f'{v:.5g}') for k, v in steps[-1][3].items()})}")
+    return result, out, steps, cfg
+
+
+def phase_resume(out, steps, log_root):
+    """Save and resume on the card: the mid-run checkpoint loads with its
+    digest verified and holds, bit for bit, the modules as they were after
+    gradient step 4; a fresh agent and optimizers on the card restore every
+    tensor of it bit for bit; the CLI resumed from it numbers its gradient
+    steps on from 5, ends at the run's 8 and 276 policy steps, with finite
+    losses and 64 + 15 backwards per step. The resumed run's parameters
+    beside the uninterrupted run's are reported (the card's kernels need
+    not be bit-deterministic, so no bound is set on them)."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import OPTIMIZER_KEYS, load_training_state, make_optimizers
+    from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.dummy import ContinuousDummyEnv
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    mid = out["checkpoints"][0]
+    t0 = time.perf_counter()
+    state = load_checkpoint(mid)  # raises unless the leaves match the manifest's digest
+    load_s = time.perf_counter() - t0
+    if state["gradient_steps"] != 4 or state["iter_num"] != 67:
+        fail(f"resume: the checkpoint holds gradient step {state['gradient_steps']} at iteration {state['iter_num']}, expected 4 at 67")
+    at_save = steps[3][4]
+    for name in MODULES:
+        diff = [k for k, v in at_save[name].items() if not torch.equal(v.cpu(), state[name][k])]
+        if diff:
+            fail(f"resume: the checkpoint's {name} differs from the trained one at {diff[:5]}")
+    args = [*WALKER_ARGS, f"log_root={log_root}"]
+    cfg = compose(args)
+    env = ContinuousDummyEnv(action_dim=6)
+    agent = build_agent(*actions_metadata(env.action_space), cfg, env.observation_space, precision=cfg.fabric.precision,
+                        device="cuda", seed=123, training=True)  # fmt: skip
+    optimizers = make_optimizers(agent, cfg)
+    moments = load_training_state(agent, optimizers, state, next(agent.parameters()).device)
+    restored = 0
+    for name in MODULES:
+        for k, v in getattr(agent, name).state_dict().items():
+            if not torch.equal(v.cpu(), state[name][k]):
+                fail(f"resume: {name}.{k} is not the checkpoint's, bit for bit, on the card")
+            restored += 1
+    for name, key in OPTIMIZER_KEYS.items():
+        saved = state[key]["state"]
+        for i, entry in optimizers[name].state_dict()["state"].items():
+            for k, v in entry.items():
+                if not torch.equal(v.cpu(), saved[i][k]):
+                    fail(f"resume: the {name} optimizer's {i}.{k} is not the checkpoint's")
+                restored += 1
+    if not all(torch.equal(moments[k].cpu(), state["moments"][k]) for k in moments):
+        fail("resume: the moments are not the checkpoint's")
+    restored += len(moments)
+    del agent, optimizers
+    torch.cuda.empty_cache()
+
+    resumed, rsteps, wall_s, counts, _ = train_through_cli([*args, f"checkpoint.resume_from={mid}"], "resumed training",
+                                                           WALKER_BWD_PER_STEP, keep_params=True)  # fmt: skip
+    if [s[0] for s in rsteps] != [5, 6, 7, 8] or resumed["gradient_steps"] != 8 or resumed["policy_steps"] != 276:
+        fail(f"resume: gradient steps {[s[0] for s in rsteps]}, {resumed['gradient_steps']} in all, {resumed['policy_steps']} policy steps; "
+             "expected 5..8, 8 and 276")  # fmt: skip
+    gap = max((v.float() - steps[-1][4][name][k].float()).abs().max().item() for name in MODULES for k, v in rsteps[-1][4][name].items())
+    result = {"checkpoint": mid, "load_s": load_s, "tensors_restored_bit_identical": restored, "resumed_steps": [s[0] for s in rsteps],
+              "resumed_wall_s": wall_s, "ln_gru_launches": counts, "max_abs_param_gap_to_uninterrupted": gap}  # fmt: skip
+    log(f"resume: {os.path.basename(mid)} loaded with its digest verified in {load_s:.2f} s; {restored} tensors restored on the card "
+        f"bit for bit; the resumed CLI run took gradient steps {result['resumed_steps']} with finite losses in {wall_s:.1f} s; "
+        f"its final parameters differ from the uninterrupted run's by at most {gap:.3g}")  # fmt: skip
+    del resumed
+    return result
+
+
+def phase_export_serve(ckpt, workdir):
+    """The walker checkpoint exported (``python -m sheeprl_tpu_torch.serve
+    export``) and served over HTTP on the card: /v1/models shows the Box
+    action space; 4 sessions x 4 steps in sample mode share batches; every
+    action has 6 entries in [-1, 1]; a greedy session replayed from its seed
+    and observations repeats its actions byte for byte; the LN-GRU forward
+    ran for every served batch (counts zeroed just before)."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.models.ln_gru import ln_gru_forward
+    from sheeprl_tpu_torch.serve import cli as serve_cli
+    from sheeprl_tpu_torch.serve.cli import SERVE_DEFAULTS
+    from sheeprl_tpu_torch.serve.engine import InferenceEngine
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+
+    path = os.path.join(workdir, "walker.policy")
+    serve_cli.main(["export", f"checkpoint_path={ckpt}", "name=walker", f"output_path={path}"])
+    engine = InferenceEngine(max_batch=SERVE_DEFAULTS["max_batch"], queue_capacity=SERVE_DEFAULTS["queue_capacity"],
+                             batch_window_s=SERVE_DEFAULTS["batch_window_ms"] / 1000.0, device="cuda")  # fmt: skip
+    card = engine.load("walker", path)
+    server = PolicyServer(engine, host="127.0.0.1", port=0).start()
+    try:
+        status, models = http(server.address, "/v1/models")
+        space = models["models"]["walker"]["action_space"]
+        if status != 200 or space != {"type": "box", "shape": [6], "dtype": "float32", "low": -1.0, "high": 1.0}:
+            fail(f"export/serve: /v1/models {status} {models}")
+        rng = np.random.default_rng(3)
+        obs = [rng.integers(0, 256, (64, 64, 3), dtype=np.uint8).tolist() for _ in range(4)]
+
+        def act(session, mode, seed, o):
+            return http(server.address, "/v1/act", {"model": "walker", "obs": {"rgb": o}, "mode": mode, "seed": seed, "session": session})[1]["action"]
+
+        engine.reset_stats()
+        zero_counts()
+        barrier = threading.Barrier(4)
+
+        def drive(s):
+            out = []
+            for o in obs:
+                barrier.wait(timeout=60)
+                out.append(act(f"sample-{s}", "sample", 10 + s, o))
+            return out
+
+        with ThreadPoolExecutor(4) as pool:
+            sampled = list(pool.map(drive, range(4)))
+        greedy = [act("greedy-a", "greedy", 7, o) for o in obs]
+        again = [act("greedy-b", "greedy", 7, o) for o in obs]
+        launches, stats = ln_gru_forward.launches, engine.stats()
+    finally:
+        server.close(drain=True)
+    flat = [a for sess in sampled for a in sess] + greedy + again
+    if not all(len(a) == 6 and all(isinstance(x, float) and -1.0 <= x <= 1.0 for x in a) for a in flat):
+        fail(f"export/serve: actions outside 6 x [-1, 1]: {flat[:3]}")
+    if json.dumps(greedy) != json.dumps(again):
+        fail(f"export/serve: the replayed greedy session differs: {greedy} vs {again}")
+    if launches < stats["counters"]["batches"] or stats["counters"]["errors"]:
+        fail(f"export/serve: ln_gru_forward launched {launches} times for {stats['counters']['batches']} batches ({stats['counters']})")
+    result = {"artifact_precision": card["precision"], "requests": stats["counters"]["requests"], "batches": stats["counters"]["batches"],
+              "occupancy": stats["occupancy"], "ln_gru_launches": launches, "greedy_actions": greedy}  # fmt: skip
+    log(f"export/serve: {os.path.basename(ckpt)} exported and served ({card['precision']} on {card['device']}): {result['requests']} requests "
+        f"in {result['batches']} batches, occupancy {stats['occupancy']}, every action 6 x [-1, 1], greedy replay byte-identical")  # fmt: skip
+    return result
 
 
 def main() -> None:
@@ -948,13 +1319,22 @@ def main() -> None:
         serving, path = phase_serving(workdir)
         step_profile = phase_step_profile(path)
         worst = phase_reference(path)
+        training, agent, cfg = phase_training(workdir)
+        train_profile = phase_train_profile(agent, cfg)
+        del agent
+        torch.cuda.empty_cache()
+        train_reference = phase_train_reference()
+        continuous, cont_out, cont_steps, wcfg = phase_continuous_training(workdir)
+        continuous_profile = phase_train_profile(cont_out["agent"], wcfg, bwd_per_step=WALKER_BWD_PER_STEP, what="continuous step profile")
+        resume = phase_resume(cont_out, cont_steps, workdir)
+        continuous_serving = phase_export_serve(cont_out["checkpoints"][-1], workdir)
+        del cont_out, cont_steps
+        torch.cuda.empty_cache()
+        continuous_reference = phase_train_reference(
+            ("exp=dreamer_v3_dmc_walker_walk", "env=dummy", "env.id=continuous_dummy"), 6, True, "continuous reference"
+        )
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
-    training, agent, cfg = phase_training()
-    train_profile = phase_train_profile(agent, cfg)
-    del agent
-    torch.cuda.empty_cache()
-    train_reference = phase_train_reference()
 
     # The training path's shapes in bf16-mixed: the dynamic scan's B = 16
     # (streaming), the imagination's B = 1024 (tensor cores).
@@ -965,7 +1345,11 @@ def main() -> None:
     tc_row = row_of(rows, "B=1024 D=1024 H=512")
     serve_row = row_of(rows, "B=8 D=1024 H=512")
     bwd_row = row_of(bwd_rows, "B=16 H=512")
+    bwd_big_row = row_of(bwd_rows, "B=1024 H=512")
     by_kernel = training["ln_gru_forward_launches_by_kernel"]
+    cont_counts = continuous["ln_gru_launches"]
+    bwd16_in_step_ms = train_profile["ln_gru_backward_in_step_ms_by_batch"][16]["ms"]
+    bwd1024_in_step_ms = continuous_profile["ln_gru_backward_in_step_ms_by_batch"][IMAGINED_BATCH]["ms"]
 
     def entry(name, source, replaces, shapes, launches, row, err):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "shapes": shapes,
@@ -978,14 +1362,21 @@ def main() -> None:
                   f"B=16 D=1024 H=512 bfloat16, streaming kernel (DreamerV3-S dynamic scan; {STREAM_PER_STEP} launches per gradient step)",
                   by_kernel["streaming"], fwd_row, max(fwd_row["max_abs_err_h"], fwd_row["max_abs_err_z"]))
             | {"product_library_ms": fwd_row["product_library_ms"], "launches_serving": serving["ln_gru_launches_by_kernel"]["streaming"],
-               "serving_b8": {k: serve_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "product_library_ms")}},
+               "serving_b8": {k: serve_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "product_library_ms")},
+               "launches_continuous": cont_counts["forward_by_batch"].get(16, 0)},
             entry("ln_gru_forward_tensor_core", "sheeprl_tpu_torch/csrc/ln_gru_tc.cu", "sheeprl_tpu/models/pallas_gru.py:118",
                   f"B=1024 D=1024 H=512 bfloat16 (DreamerV3-S imagination; {TC_PER_STEP} launches per gradient step)",
                   by_kernel["tensor_core"], tc_row, max(tc_row["max_abs_err_h"], tc_row["max_abs_err_z"]))
-            | {"product_library_ms": tc_row["product_library_ms"]},
+            | {"product_library_ms": tc_row["product_library_ms"], "launches_continuous": cont_counts["forward_by_batch"].get(1024, 0)},
             entry("ln_gru_backward", "sheeprl_tpu_torch/csrc/ln_gru_bwd.cu", "sheeprl_tpu/models/pallas_gru.py:172",
                   f"{bwd_row['shape']} {bwd_row['dtype']} (DreamerV3-S dynamic scan; {BWD_PER_STEP} launches per gradient step)",
-                  training["ln_gru_backward_launches"], bwd_row, max(bwd_row["max_abs_err"].values())),
+                  training["ln_gru_backward_launches"], bwd_row, max(bwd_row["max_abs_err"].values()))
+            | {"in_step_ms": bwd16_in_step_ms, "launches_continuous": cont_counts["backward_by_batch"].get(16, 0)},
+            entry("ln_gru_backward", "sheeprl_tpu_torch/csrc/ln_gru_bwd.cu", "sheeprl_tpu/models/pallas_gru.py:172",
+                  f"{bwd_big_row['shape']} {bwd_big_row['dtype']} (DreamerV3-S imagination under the continuous actor's pathwise "
+                  f"gradient; {WALKER_BWD_PER_STEP[1024]} launches per gradient step)",
+                  cont_counts["backward_by_batch"].get(IMAGINED_BATCH, 0), bwd_big_row, max(bwd_big_row["max_abs_err"].values()))
+            | {"in_step_ms": bwd1024_in_step_ms},
         ]
     }  # fmt: skip
     report = {
@@ -1001,6 +1392,11 @@ def main() -> None:
         "training": training,
         "train_step_profile": train_profile,
         "train_reference": train_reference,
+        "continuous_training": continuous,
+        "continuous_step_profile": continuous_profile,
+        "resume": resume,
+        "continuous_serving": continuous_serving,
+        "continuous_reference": continuous_reference,
         "kernels": kernels_line["kernels"],
     }
     out_dir = os.path.join(REPO, "chiprun_out")

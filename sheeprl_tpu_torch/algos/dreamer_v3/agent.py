@@ -7,9 +7,10 @@ discrete, continuous and MineDojo-masked variants, and the functional
 player (``init_player_state`` / ``reset_player_state`` / ``player_step``).
 
 What training adds (``build_agent(..., training=True)``): the CNN and MLP
-decoders, the reward and continue heads, the critic and its target copy, and
-the RSSM's ``dynamic`` and ``imagination`` steps. The decoupled RSSM
-(``posterior_obs_only`` / ``dynamic_decoupled``) is not ported yet.
+decoders, the reward and continue heads, the critic and its target copy, the
+RSSM's ``dynamic`` and ``imagination`` steps, the decoupled RSSM's
+``posterior_obs_only`` and ``dynamic_decoupled``, and
+:func:`continuous_log_prob_and_entropy` for the continuous actor's loss.
 
 Sampling takes a noise source in place of a JAX key: a :class:`RowGenerators`
 (one generator per batch row) when serving, a :class:`BatchGenerator` when
@@ -162,8 +163,11 @@ def compute_stochastic_state(
 
 
 class WorldModel(nn.Module):
-    """The world-model members acting uses. The stochastic state travels
-    flat ([..., stoch*discrete])."""
+    """The world-model members acting uses (and, given ``heads``, the ones
+    training adds). The stochastic state travels flat ([..., stoch*discrete])."""
+
+    # The submodules ``heads`` adds, which only training uses.
+    TRAINING_HEADS = ("cnn_decoder", "mlp_decoder", "reward_model", "continue_model")
 
     def __init__(
         self,
@@ -307,6 +311,29 @@ class WorldModel(nn.Module):
         posterior_logits, posterior = self._representation(recurrent_state, embedded_obs, rng)
         return recurrent_state, posterior, prior, posterior_logits, prior_logits
 
+    def posterior_obs_only(self, embedded_obs: torch.Tensor, rng) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The decoupled RSSM's posterior from the observation alone, over
+        any leading shape (the whole [T, B] sequence at once). Returns
+        (logits, sampled posterior), flat."""
+        logits = self._uniform_mix(self.representation_model(embedded_obs))
+        post = compute_stochastic_state(logits, self.discrete_size, rng)
+        return logits, post.reshape(*post.shape[:-2], -1)
+
+    def dynamic_decoupled(
+        self, posterior: torch.Tensor, recurrent_state: torch.Tensor, action: torch.Tensor, is_first: torch.Tensor, rng
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """One decoupled dynamic step: the posterior (the previous step's,
+        from :meth:`posterior_obs_only`) comes in, so only the recurrent state
+        and the prior are made, with the same ``is_first`` reset as
+        :meth:`dynamic`. Returns (recurrent_state, prior, prior_logits)."""
+        action = (1 - is_first) * action
+        h0, z0 = self.get_initial_states(recurrent_state.shape[:-1])
+        recurrent_state = (1 - is_first) * recurrent_state + is_first * h0
+        posterior = (1 - is_first) * posterior + is_first * z0
+        recurrent_state = self.recurrent_model(torch.cat([posterior, action], -1), recurrent_state)
+        prior_logits, prior = self._transition(recurrent_state, rng)
+        return recurrent_state, prior, prior_logits
+
     def imagination(
         self, prior: torch.Tensor, recurrent_state: torch.Tensor, actions: torch.Tensor, rng
     ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -412,12 +439,15 @@ def _minedojo_mask_head(
 def actor_forward(
     pre_dist: List[torch.Tensor],
     spec: ActorSpec,
-    rng: Optional[RowGenerators] = None,
+    rng=None,
     greedy: bool = False,
     mask: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[List[torch.Tensor], List[Any]]:
-    """Head outputs -> (actions, distributions). Greedy continuous actions
-    take the most likely of 100 samples, as the reference does."""
+    """Head outputs -> (actions, distributions). ``rng`` is a
+    :class:`RowGenerators` or a :class:`BatchGenerator`. Sampled continuous
+    actions are reparameterised (``loc + scale * eps``), so they carry the
+    gradient of the heads. Greedy continuous actions take the most likely of
+    100 samples, as the reference does."""
     if spec.is_continuous:
         dist, tanh_transformed = _continuous_dist(pre_dist[0], spec)
         if not greedy:
@@ -445,6 +475,18 @@ def actor_forward(
             # Later heads are masked by the action type the first head chose.
             functional_action = actions[0].argmax(-1)
     return actions, dists
+
+
+def continuous_log_prob_and_entropy(dist: Independent, actions: torch.Tensor, spec: ActorSpec) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(log-prob, entropy) of continuous ``actions`` under the actor's
+    ``dist``. For ``tanh_normal`` the log-prob is the base normal's at
+    ``atanh(actions)`` less the tanh's log-determinant, and the entropy is
+    ``None`` (it has no closed form; the loss then uses zeros)."""
+    if spec.distribution == "tanh_normal":
+        raw = torch.atanh(actions.clamp(-1 + 1e-6, 1 - 1e-6))
+        log_prob = dist.log_prob(raw) - (2.0 * (math.log(2.0) - raw - F.softplus(-2.0 * raw))).sum(-1)
+        return log_prob, None
+    return dist.log_prob(actions), dist.entropy()
 
 
 class DV3Agent(nn.Module):

@@ -9,8 +9,14 @@ whose forward and backward are the port's CUDA kernels. ``sg`` maps to
 ``.detach()`` at the same places. The discrete actor's loss takes no gradient
 through the imagination (``dreamer_v3.py:319-333`` uses
 ``sg(imagined_trajectories)`` and ``sg(advantage)``), so the rollout runs
-under ``torch.no_grad``. Parameters and optimizer states are updated in
-place; the moments travel through the step as in the JAX package. The four
+under ``torch.no_grad``. The continuous actor's loss is the advantage itself
+(``dreamer_v3.py:320-324``): its gradient runs back through the 15 imagined
+steps, so the rollout runs under autograd (the LN-GRU backward over all
+T x B imagined rows) with the world model and the critic frozen. The decoupled RSSM
+(``algo.world_model.decoupled_rssm``) takes its posteriors from the
+observations alone, in one pass over the sequence. Parameters and optimizer
+states are updated in place; the moments travel through the step as in the
+JAX package. The four
 stages run under ``torch.profiler.record_function`` spans (``dv3/world_model``,
 ``dv3/imagination``, ``dv3/actor``, ``dv3/critic``), which a profiler reads
 to split a step's time.
@@ -18,15 +24,16 @@ to split a step's time.
 :func:`main` is the serial subset of ``dreamer_v3.main``: prefill with random
 actions, ``rb.add`` of every step (reset rows included), ``player_step``,
 ``Ratio``-driven gradient steps with the target critic's cadence, and losses
-printed every ``metric.log_every`` policy steps. Not ported yet (ROADMAP):
-the decoupled RSSM and the continuous-action actor loss (both raise
-``NotImplementedError``), the Anakin lane, the device replay ring, the
-infeed, the interaction pipeline, telemetry, the logger, health probes, the
-preemption guard, checkpoint and resume, and the test episode.
+printed every ``metric.log_every`` policy steps, checkpoints and resume.
+Not ported yet (ROADMAP): the Anakin lane, the device replay ring, the
+infeed, the interaction pipeline, memory-mapped buffers, telemetry, the
+logger, health probes, the preemption guard and the test episode.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Any, Callable, Dict, List, Optional
 
@@ -34,7 +41,13 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from sheeprl_tpu_torch.algos.dreamer_v3.agent import DV3Agent, actor_forward, build_agent
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
+    DV3Agent,
+    _continuous_dist,
+    actor_forward,
+    build_agent,
+    continuous_log_prob_and_entropy,
+)
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_player_obs, prepare_obs
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
@@ -42,6 +55,7 @@ from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.envs.dummy import make_dummy_vector_env
 from sheeprl_tpu_torch.optim import adam
+from sheeprl_tpu_torch.serve.spaces import Discrete
 from sheeprl_tpu_torch.utils.distribution import (
     BatchGenerator,
     BernoulliSafeMode,
@@ -53,8 +67,15 @@ from sheeprl_tpu_torch.utils.distribution import (
     TwoHotEncodingDistribution,
     uniform_mix,
 )
+from sheeprl_tpu_torch.utils.checkpoint import (
+    find_latest_valid_checkpoint,
+    load_checkpoint,
+    parse_ckpt_name,
+    save_checkpoint,
+    validate_checkpoint,
+)
 from sheeprl_tpu_torch.utils.ops import compute_lambda_values, init_moments, update_moments
-from sheeprl_tpu_torch.utils.utils import Ratio
+from sheeprl_tpu_torch.utils.utils import Ratio, dotdict
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -93,15 +114,14 @@ def make_train_step(
     """-> ``step(moments_state, data, rng, tau) -> (moments_state, metrics)``.
 
     ``data`` holds time-major [T, B, ...] tensors on the agent's device:
-    the observation keys (pixels as uint8), ``actions`` (one-hot),
-    ``rewards``, ``terminated`` and ``is_first``. ``rng`` is the noise
-    source of every categorical draw (a :class:`BatchGenerator`); ``tau`` is
-    the target critic's EMA coefficient for this step (0 leaves it)."""
+    the observation keys (pixels as uint8), ``actions`` (one-hot, or the
+    continuous actions), ``rewards``, ``terminated`` and ``is_first``.
+    ``rng`` is the noise source of every draw (a :class:`BatchGenerator`);
+    ``tau`` is the target critic's EMA coefficient for this step (0 leaves
+    it)."""
     wm_cfg = cfg.algo.world_model
-    if wm_cfg.decoupled_rssm:
-        raise NotImplementedError("algo.world_model.decoupled_rssm=True is not ported yet (ROADMAP A2)")
-    if agent.is_continuous:
-        raise NotImplementedError("the continuous-action actor loss is not ported yet (ROADMAP A3)")
+    decoupled = bool(wm_cfg.decoupled_rssm)
+    pathwise = bool(agent.is_continuous)
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     cnn_dec_keys = list(cfg.algo.cnn_keys.decoder)
@@ -120,7 +140,7 @@ def make_train_step(
     wm, actor, critic, target_critic = agent.world_model, agent.actor, agent.critic, agent.target_critic
 
     def actor_sample(latent: torch.Tensor, rng) -> torch.Tensor:
-        actions, _ = actor_forward([p.float() for p in actor(latent)], spec, rng, greedy=False)
+        actions, _ = actor_forward([p.float() for p in actor(latent.detach())], spec, rng, greedy=False)
         return torch.cat(actions, -1)
 
     def world_model_loss(data, batch_obs, rng):
@@ -132,13 +152,24 @@ def make_train_step(
         h = torch.zeros((B, recurrent_state_size), dtype=embedded.dtype, device=embedded.device)
         z = torch.zeros((B, stoch_state_size), dtype=embedded.dtype, device=embedded.device)
         hs, zs, post_logits, prior_logits = [], [], [], []
-        for t in range(T):
-            h, z, _, post_l, prior_l = wm.dynamic(z, h, batch_actions[t], embedded[t], is_first[t], rng)
-            hs.append(h)
-            zs.append(z)
-            post_logits.append(post_l)
-            prior_logits.append(prior_l)
-        recurrent_states, posteriors = torch.stack(hs), torch.stack(zs)
+        if decoupled:
+            # The posterior sees the observation only: one batched pass over
+            # [T, B]; the scan feeds each step the previous step's posterior.
+            posterior_logits, posteriors = wm.posterior_obs_only(embedded, rng)
+            previous = torch.cat([torch.zeros_like(posteriors[:1]), posteriors[:-1]], 0)
+            for t in range(T):
+                h, _, prior_l = wm.dynamic_decoupled(previous[t], h, batch_actions[t], is_first[t], rng)
+                hs.append(h)
+                prior_logits.append(prior_l)
+        else:
+            for t in range(T):
+                h, z, _, post_l, prior_l = wm.dynamic(z, h, batch_actions[t], embedded[t], is_first[t], rng)
+                hs.append(h)
+                zs.append(z)
+                post_logits.append(post_l)
+                prior_logits.append(prior_l)
+            posteriors, posterior_logits = torch.stack(zs), torch.stack(post_logits)
+        recurrent_states = torch.stack(hs)
         latent_states = torch.cat([posteriors, recurrent_states], -1)
         decoded = wm.decode(latent_states)
         po = {k: MSEDistribution(decoded[k].float(), dims=decoded[k].dim() - 2) for k in cnn_dec_keys}
@@ -146,13 +177,70 @@ def make_train_step(
         pr = TwoHotEncodingDistribution(wm.reward_logits(latent_states).float(), dims=1)
         pc = Independent(BernoulliSafeMode(wm.continue_logits(latent_states).float()), 1)
         pl = torch.stack(prior_logits).float().reshape(T, B, stochastic_size, discrete_size)
-        pol = torch.stack(post_logits).float().reshape(T, B, stochastic_size, discrete_size)
+        pol = posterior_logits.float().reshape(T, B, stochastic_size, discrete_size)
         losses = reconstruction_loss(
             po, batch_obs, pr, data["rewards"], pl, pol,
             wm_cfg.kl_dynamic, wm_cfg.kl_representation, wm_cfg.kl_free_nats, wm_cfg.kl_regularizer,
             pc, 1 - data["terminated"], wm_cfg.continue_scale_factor,
         )  # fmt: skip
         return losses, posteriors, recurrent_states, pol, pl
+
+    def behaviour(moments_state, data, prior, h, rng):
+        """The imagination from every posterior, the λ-returns and the
+        actor's loss, its backward and its update. Continuous actions carry
+        the pathwise gradient through the rollout, so it runs under autograd
+        with the world model and the critic frozen (the JAX package
+        differentiates the actor's parameters only); discrete actions take
+        none, so it runs under no_grad."""
+        latent0 = torch.cat([prior, h], -1)
+        with torch.set_grad_enabled(pathwise), record_function("dv3/imagination"):
+            actions = actor_sample(latent0, rng)
+            latents, img_actions = [latent0], [actions]
+            for _ in range(horizon):
+                prior, h = wm.imagination(prior, h, actions, rng)
+                latent = torch.cat([prior, h], -1)
+                actions = actor_sample(latent, rng)
+                latents.append(latent)
+                img_actions.append(actions)
+            trajectories = torch.stack(latents)  # [horizon + 1, T * B, latent]
+            imagined_actions = torch.stack(img_actions)
+            predicted_values = TwoHotEncodingDistribution(critic(trajectories).float(), dims=1).mean
+            predicted_rewards = TwoHotEncodingDistribution(wm.reward_logits(trajectories).float(), dims=1).mean
+            continues = Independent(BernoulliSafeMode(wm.continue_logits(trajectories).float()), 1).mode
+            true_continue = (1 - data["terminated"]).reshape(1, -1, 1)
+            continues = torch.cat([true_continue, continues[1:]], 0)
+            lambda_values = compute_lambda_values(predicted_rewards[1:], predicted_values[1:], continues[1:] * gamma, lmbda)
+            discount = (torch.cumprod(continues * gamma, 0) / gamma).detach()
+            new_moments, (offset, invscale) = update_moments(
+                moments_state,
+                lambda_values,
+                decay=moments_cfg.decay,
+                max_=moments_cfg.max,
+                percentile_low=moments_cfg.percentile.low,
+                percentile_high=moments_cfg.percentile.high,
+            )
+            baseline = predicted_values[:-1]
+            advantage = (lambda_values - offset) / invscale - (baseline - offset) / invscale
+
+        with record_function("dv3/actor"):
+            pre = actor(trajectories.detach())
+            if pathwise:
+                dist, _ = _continuous_dist(pre[0].float(), spec)
+                objective = advantage
+                _, entropy = continuous_log_prob_and_entropy(dist, imagined_actions, spec)
+                entropy = ent_coef * entropy if entropy is not None else torch.zeros_like(trajectories[..., 0], dtype=torch.float32)
+            else:
+                policies = [OneHotCategoricalStraightThrough(uniform_mix(p.float(), spec.unimix)) for p in pre]
+                per_dim = torch.split(imagined_actions, actions_dim, -1)
+                logp = torch.stack([p.log_prob(a.detach())[..., None][:-1] for p, a in zip(policies, per_dim)], -1).sum(-1)
+                objective = logp * advantage.detach()
+                entropy = ent_coef * torch.stack([p.entropy() for p in policies], -1).sum(-1)
+            policy_loss = -torch.mean(discount[:-1] * (objective + entropy[..., None][:-1]))
+            optimizers["actor"].zero_grad(set_to_none=True)
+            policy_loss.backward()
+            actor_norm = _clip(actor, cfg.algo.actor.clip_gradients)
+            optimizers["actor"].step()
+        return new_moments, trajectories.detach(), lambda_values.detach(), discount, policy_loss.detach(), actor_norm
 
     def step(moments_state, data, rng, tau):
         batch_obs = {k: data[k].float() / 255.0 - 0.5 for k in cnn_keys}
@@ -168,52 +256,16 @@ def make_train_step(
             optimizers["world_model"].step()
 
         # --------------------------------------------- behaviour learning
-        imagined_prior = posteriors.detach().reshape(-1, stoch_state_size)
-        recurrent_state = recurrent_states.detach().reshape(-1, recurrent_state_size)
-        latent0 = torch.cat([imagined_prior, recurrent_state], -1)
-        with torch.no_grad(), record_function("dv3/imagination"):
-            actions = actor_sample(latent0, rng)
-            prior, h = imagined_prior, recurrent_state
-            latents, img_actions = [latent0], [actions]
-            for _ in range(horizon):
-                prior, h = wm.imagination(prior, h, actions, rng)
-                latent = torch.cat([prior, h], -1)
-                actions = actor_sample(latent, rng)
-                latents.append(latent)
-                img_actions.append(actions)
-            trajectories = torch.stack(latents)  # [horizon + 1, T * B, latent]
-            imagined_actions = torch.stack(img_actions)
-            predicted_values = TwoHotEncodingDistribution(critic(trajectories).float(), dims=1).mean
-            predicted_rewards = TwoHotEncodingDistribution(wm.reward_logits(trajectories).float(), dims=1).mean
-            continues = Independent(BernoulliSafeMode(wm.continue_logits(trajectories).float()), 1).mode
-            true_continue = (1 - data["terminated"]).reshape(1, -1, 1)
-            continues = torch.cat([true_continue, continues[1:]], 0)
-            lambda_values = compute_lambda_values(
-                predicted_rewards[1:], predicted_values[1:], continues[1:] * gamma, lmbda
-            )
-            discount = torch.cumprod(continues * gamma, 0) / gamma
-            new_moments, (offset, invscale) = update_moments(
-                moments_state,
-                lambda_values,
-                decay=moments_cfg.decay,
-                max_=moments_cfg.max,
-                percentile_low=moments_cfg.percentile.low,
-                percentile_high=moments_cfg.percentile.high,
-            )
-            baseline = predicted_values[:-1]
-            advantage = (lambda_values - offset) / invscale - (baseline - offset) / invscale
-
-        with record_function("dv3/actor"):
-            policies = [OneHotCategoricalStraightThrough(uniform_mix(p.float(), spec.unimix)) for p in actor(trajectories.detach())]
-            per_dim = torch.split(imagined_actions, actions_dim, -1)
-            logp = torch.stack([p.log_prob(a.detach())[..., None][:-1] for p, a in zip(policies, per_dim)], -1).sum(-1)
-            objective = logp * advantage.detach()
-            entropy = ent_coef * torch.stack([p.entropy() for p in policies], -1).sum(-1)
-            policy_loss = -torch.mean(discount[:-1].detach() * (objective + entropy[..., None][:-1]))
-            optimizers["actor"].zero_grad(set_to_none=True)
-            policy_loss.backward()
-            actor_norm = _clip(actor, cfg.algo.actor.clip_gradients)
-            optimizers["actor"].step()
+        prior0 = posteriors.detach().reshape(-1, stoch_state_size)
+        h0 = recurrent_states.detach().reshape(-1, recurrent_state_size)
+        frozen = [p for p in (*wm.parameters(), *critic.parameters()) if p.requires_grad] if pathwise else []
+        for p in frozen:
+            p.requires_grad_(False)
+        try:
+            new_moments, trajectories, lambda_values, discount, policy_loss, actor_norm = behaviour(moments_state, data, prior0, h0, rng)
+        finally:
+            for p in frozen:
+                p.requires_grad_(True)
 
         # ------------------------------------------------- critic update
         with record_function("dv3/critic"):
@@ -244,7 +296,7 @@ def make_train_step(
             "State/kl": kl.detach(),
             "State/post_entropy": Independent(OneHotCategorical(pol.detach()), 1).entropy().mean(),
             "State/prior_entropy": Independent(OneHotCategorical(pl.detach()), 1).entropy().mean(),
-            "Loss/policy_loss": policy_loss.detach(),
+            "Loss/policy_loss": policy_loss,
             "Loss/value_loss": value_loss.detach(),
             "Grads/world_model": wm_norm,
             "Grads/actor": actor_norm,
@@ -255,12 +307,114 @@ def make_train_step(
     return step
 
 
+OPTIMIZER_KEYS = {"world_model": "world_optimizer", "actor": "actor_optimizer", "critic": "critic_optimizer"}
+
+
+def training_state(agent: DV3Agent, optimizers: Dict[str, torch.optim.Optimizer], moments: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The four modules' parameters, the three Adam states and the moments,
+    under the JAX package's checkpoint keys."""
+    state: Dict[str, Any] = {name: getattr(agent, name).state_dict() for name in ("world_model", "actor", "critic", "target_critic")}
+    state.update({key: optimizers[name].state_dict() for name, key in OPTIMIZER_KEYS.items()})
+    state["moments"] = dict(moments)
+    return state
+
+
+def load_training_state(
+    agent: DV3Agent, optimizers: Dict[str, torch.optim.Optimizer], state: Dict[str, Any], device: torch.device
+) -> Dict[str, torch.Tensor]:
+    """Load what :func:`training_state` saved into ``agent`` and
+    ``optimizers``; returns the moments on ``device``."""
+    for name in ("world_model", "actor", "critic", "target_critic"):
+        getattr(agent, name).load_state_dict(state[name], strict=True)
+    for name, key in OPTIMIZER_KEYS.items():
+        optimizers[name].load_state_dict(state[key])
+    return {k: v.to(device) for k, v in state["moments"].items()}
+
+
+def _versioned_dir(run_dir: str) -> str:
+    """Make and return ``<run_dir>/version_<N>``, N one more than the
+    largest there (the JAX package's log-dir layout)."""
+    try:
+        existing = [int(d[len("version_") :]) for d in os.listdir(run_dir) if d.startswith("version_") and d[len("version_") :].isdigit()]
+    except OSError:
+        existing = []
+    path = os.path.abspath(os.path.join(run_dir, f"version_{max(existing, default=-1) + 1}"))
+    os.makedirs(path)
+    return path
+
+
+def resume_config(cfg) -> dotdict:
+    """The config of a run resumed from ``cfg.checkpoint.resume_from``: the
+    saved run's ``config.json`` (two levels above the checkpoint) merged over
+    ``cfg``, keeping only ``cfg``'s ``algo.total_steps``,
+    ``algo.learning_starts``, ``log_root``, ``root_dir`` and ``device``, as
+    the JAX package's ``resume_from_checkpoint`` does. ``resume_from`` may
+    name a checkpoint or a directory of them (the newest valid one is
+    taken), and becomes the checkpoint's path. Raises when ``env.id`` or
+    ``algo.name`` differ from the saved run's."""
+    path = os.path.abspath(cfg.checkpoint.resume_from)
+    if parse_ckpt_name(path) is None:
+        latest = find_latest_valid_checkpoint(path)
+        if latest is None:
+            raise ValueError(f"checkpoint.resume_from={cfg.checkpoint.resume_from} holds no valid checkpoint")
+        path = latest
+    elif not validate_checkpoint(path):
+        raise ValueError(f"{path} is not a valid checkpoint (torn save, wrong schema or missing files)")
+    with open(os.path.join(os.path.dirname(os.path.dirname(path)), "config.json")) as fp:
+        old = json.load(fp)
+    for key, what in (("env", "id"), ("algo", "name")):
+        if old[key][what] != cfg[key][what]:
+            raise ValueError(f"The checkpoint's run has {key}.{what}={old[key][what]}, this one {cfg[key][what]}: resume with the same {key}.{what}")
+    for key in ("log_root", "root_dir", "device"):
+        old.pop(key, None)
+    for key in ("total_steps", "learning_starts"):
+        old["algo"].pop(key, None)
+    old["checkpoint"]["resume_from"] = path
+
+    def merge(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
+        for k, v in src.items():
+            if isinstance(v, dict) and isinstance(dst.get(k), dict):
+                merge(dst[k], v)
+            else:
+                dst[k] = v
+
+    merged = json.loads(json.dumps(cfg))
+    merge(merged, old)
+    return dotdict(merged)
+
+
+def _one_hot(actions: np.ndarray, actions_dim) -> np.ndarray:
+    """[num_envs] or [num_envs, heads] indices -> concatenated one-hots."""
+    actions = actions.reshape(actions.shape[0], -1)
+    return np.concatenate([np.eye(int(d), dtype=np.float32)[actions[:, i]] for i, d in enumerate(actions_dim)], -1)
+
+
 def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]] = None) -> Dict[str, Any]:
     """Train DreamerV3 on ``cfg`` (see :mod:`sheeprl_tpu_torch.config`) on
     ``cfg.device``. ``callback(agent, gradient_step, tau, metrics)`` runs
-    after every gradient step. Returns {"agent", "policy_steps",
-    "gradient_steps", "log"}: ``log`` holds the mean metrics of every
-    logging interval as floats."""
+    after every gradient step.
+
+    The run writes under ``<log_root>/<root_dir>/<time>_<algo>_<env.id>_<seed>/version_<N>``
+    (the log dir). Checkpoints go to ``<log dir>/checkpoint/ckpt_<policy_step>_0.ckpt``
+    every ``checkpoint.every`` policy steps and at the end with
+    ``checkpoint.save_last``, beside the run's ``config.json``. They hold the
+    modules, the optimizers, the moments, the ``Ratio``, the counters, both
+    noise sources, the envs, the pending observation row, the player's
+    state, the spaces' specs (for ``serve export``), and with
+    ``buffer.checkpoint`` the replay buffer.
+    ``checkpoint.resume_from=<ckpt>`` (or ``=<log dir>/checkpoint``, for the
+    newest valid one) continues from one, with the saved run's config
+    (:func:`resume_config`). With the buffer in
+    the checkpoint the resumed run is the uninterrupted one, step for step;
+    without it, it skips the random prefill and waits ``learning_starts``
+    policy steps of the player's actions before training again, as the JAX
+    package does (which waits so with the buffer restored too).
+
+    Returns {"agent", "optimizers", "moments", "policy_steps",
+    "gradient_steps", "log", "log_dir", "checkpoints"}: ``log`` holds the
+    mean metrics of every logging interval as floats."""
+    if cfg.checkpoint.resume_from:
+        cfg = resume_config(cfg)
     device = resolve_device(cfg.device)
     if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
         raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
@@ -274,10 +428,18 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
         set(cfg.algo.mlp_keys.encoder) & set(cfg.algo.mlp_keys.decoder)
     ):
         raise RuntimeError("The CNN keys or the MLP keys of the encoder and decoder must not be disjointed")
+    state_ckpt = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
     np.random.seed(cfg.seed)  # the replay buffers derive their sampling streams from it
 
+    log_dir = _versioned_dir(os.path.join(cfg.log_root, cfg.root_dir, f"{time.strftime('%Y-%m-%d_%H-%M-%S')}_{cfg.algo.name}_{cfg.env.id}_{cfg.seed}"))
+    with open(os.path.join(log_dir, "config.json"), "w") as fp:
+        json.dump(cfg, fp, indent=2)
+
     num_envs = int(cfg.env.num_envs)
-    envs = make_dummy_vector_env(num_envs, cfg.seed, screen_size=int(cfg.env.screen_size))
+    envs = make_dummy_vector_env(
+        num_envs, cfg.seed, screen_size=int(cfg.env.screen_size), action_dim=int(cfg.env.wrapper.action_dim),
+        env_id=str(cfg.env.id), action_repeat=int(cfg.env.action_repeat),
+    )  # fmt: skip
     observation_space, action_space = envs.single_observation_space, envs.single_action_space
     actions_dim, is_continuous = actions_metadata(action_space)
     clip_rewards_fn = np.tanh if cfg.env.clip_rewards else (lambda r: r)
@@ -306,12 +468,11 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
     batch_size = int(cfg.algo.per_rank_batch_size)
     seq_len = int(cfg.algo.per_rank_sequence_length)
 
-    policy_step = 0
-    gradient_steps = 0
-    last_log = 0
+    start_iter, policy_step, gradient_steps, last_log, last_checkpoint = 1, 0, 0, 0, 0
     pending: List[Metrics] = []
     episodes: List[float] = []
     log: List[Dict[str, float]] = []
+    checkpoints: List[str] = []
     t_log = time.perf_counter()
 
     obs = envs.reset(seed=cfg.seed)[0]
@@ -321,18 +482,40 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
     step_data["is_first"] = np.ones_like(step_data["terminated"])
     player_state = agent.init_player_state(num_envs)
 
-    for iter_num in range(1, total_iters + 1):
+    if state_ckpt is not None:
+        moments = load_training_state(agent, optimizers, state_ckpt, device)
+        train_rng.generator.set_state(state_ckpt["train_rng"])
+        player_rng.generator.set_state(state_ckpt["player_rng"])
+        ratio.load_state_dict(state_ckpt["ratio"])
+        envs.load_state_dict(state_ckpt["envs"])
+        obs, step_data = state_ckpt["obs"], state_ckpt["step_data"]
+        player_state = {k: v.to(device) for k, v in state_ckpt["player_state"].items()}
+        start_iter = int(state_ckpt["iter_num"]) + 1
+        policy_step = int(state_ckpt["iter_num"]) * policy_steps_per_iter
+        gradient_steps = int(state_ckpt["gradient_steps"])
+        last_log, last_checkpoint = int(state_ckpt["last_log"]), int(state_ckpt["last_checkpoint"])
+        batch_size = int(state_ckpt["batch_size"])
+        if cfg.buffer.checkpoint and state_ckpt.get("rb") is not None:
+            rb.load_state_dict(state_ckpt["rb"])
+        else:
+            learning_starts += start_iter
+            prefill_steps += start_iter
+
+    for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
-        if iter_num <= learning_starts:
-            real_actions = envs.sample_actions()
-            actions = np.eye(int(actions_dim[0]), dtype=np.float32)[real_actions]
+        if iter_num <= learning_starts and state_ckpt is None:
+            real_actions = actions = envs.sample_actions()
+            if not is_continuous:
+                actions = _one_hot(actions, actions_dim)
         else:
             prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
             obs_t = normalize_player_obs({k: torch.from_numpy(v).to(device) for k, v in prepared.items()}, cnn_keys)
             actions_t, real_t, player_state = agent.player_step(player_state, obs_t, player_rng)
             actions = actions_t.float().cpu().numpy()
-            real_actions = real_t[:, 0].cpu().numpy()
-        step_data["actions"] = actions.reshape((1, num_envs, -1))
+            real_actions = actions if is_continuous else real_t.cpu().numpy()
+            if isinstance(action_space, Discrete):
+                real_actions = real_actions[:, 0]
+        step_data["actions"] = actions.reshape((1, num_envs, -1)).astype(np.float32)
         rb.add(step_data, validate_args=cfg.buffer.validate_args)
         next_obs, rewards, terminated, truncated, infos = envs.step(real_actions)
         dones = np.logical_or(terminated, truncated).astype(np.uint8)
@@ -395,4 +578,30 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
             log.append(row)
             print(" ".join(f"{k}={v:.6g}" for k, v in row.items()), flush=True)
             pending, episodes, last_log, t_log = [], [], policy_step, time.perf_counter()
-    return {"agent": agent, "policy_steps": policy_step, "gradient_steps": gradient_steps, "log": log}
+
+        # ----------------------------------------------------- checkpoint
+        if (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every) or (
+            iter_num == total_iters and cfg.checkpoint.save_last
+        ):
+            last_checkpoint = policy_step
+            ckpt_state = training_state(agent, optimizers, moments)
+            ckpt_state.update(
+                ratio=ratio.state_dict(), iter_num=iter_num, gradient_steps=gradient_steps, batch_size=batch_size,
+                last_log=last_log, last_checkpoint=last_checkpoint, train_rng=train_rng.generator.get_state(),
+                player_rng=player_rng.generator.get_state(), envs=envs.state_dict(), obs=obs, step_data=step_data,
+                player_state=player_state, observation_space=observation_space.to_spec(), action_space=action_space.to_spec(),
+            )  # fmt: skip
+            if cfg.buffer.checkpoint:
+                ckpt_state["rb"] = rb.state_dict()
+            path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
+            checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
+    return {
+        "agent": agent,
+        "optimizers": optimizers,
+        "moments": moments,
+        "policy_steps": policy_step,
+        "gradient_steps": gradient_steps,
+        "log": log,
+        "log_dir": log_dir,
+        "checkpoints": checkpoints,
+    }

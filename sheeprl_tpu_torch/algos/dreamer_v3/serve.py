@@ -9,18 +9,21 @@ their rows on the leading axis; each row draws its samples from its own
 generator, so a row's actions do not depend on which sessions shared its
 batch.
 
-:func:`export_random` writes a DreamerV3-S / MsPacman artifact
-(``exp=dreamer_v3_100k_ms_pacman``) from the port's seeded initialiser.
+:meth:`DreamerV3Policy.export` takes the policy out of a training
+checkpoint (for ``serve export``); :func:`export_random` writes a
+DreamerV3-S / MsPacman artifact (``exp=dreamer_v3_100k_ms_pacman``) from the
+port's seeded initialiser. Discrete actions come back as indices, ``Box``
+actions as floats within the bounds (the actor's clip to [-1, 1]).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import WorldModel, build_agent
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_player_obs
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.config import compose
@@ -50,6 +53,22 @@ class DreamerV3Policy(PolicyAdapterBase):
             actor_state=params["actor"],
         )
 
+    @classmethod
+    def export(cls, state: Dict[str, Any], cfg) -> Tuple[Dict[str, Dict[str, torch.Tensor]], Dict[str, Any]]:
+        """(params, config subtree) of an artifact from a training
+        checkpoint's state and the run's config: the world model without its
+        decoders and reward and continue heads, the actor, and everything the
+        modules' rebuild reads (``algo`` whole), nothing of the training
+        side."""
+        config = {
+            "algo": dict(cfg.algo),
+            "distribution": dict(cfg.get("distribution") or {"type": "auto"}),
+            "env": {"screen_size": cfg.env.screen_size},
+            "precision": str(cfg.fabric.precision),
+        }
+        world_model = {k: v for k, v in state["world_model"].items() if k.split(".")[0] not in WorldModel.TRAINING_HEADS}
+        return {"world_model": world_model, "actor": state["actor"]}, config
+
     def new_session(self, seed: int) -> Dict[str, Any]:
         return {"player": self.agent.init_player_state(1), "generator": torch.Generator().manual_seed(int(seed))}
 
@@ -68,6 +87,8 @@ class DreamerV3Policy(PolicyAdapterBase):
         obs_t = normalize_player_obs({k: torch.from_numpy(v).to(self.device) for k, v in obs.items()}, self.cnn_keys)
         rng = RowGenerators(state["generators"], self.device)
         _, real_actions, player = self.agent.player_step(state["player"], obs_t, rng, greedy=greedy)
+        if self.agent.is_continuous:
+            real_actions = real_actions.float()  # numpy has no bf16
         return real_actions.cpu().numpy(), {"player": player, "generators": state["generators"]}
 
 

@@ -1,13 +1,18 @@
 """The port's experiment configs, as Python dicts.
 
-``exp=dreamer_v3_100k_ms_pacman`` is held here as the JAX package composes it
-from configs/exp/dreamer_v3_100k_ms_pacman.yaml, exp/dreamer_v3.yaml,
-algo/dreamer_v3.yaml and algo/dreamer_v3_S.yaml (DreamerV3-S: 512 units, 2
-layers, recurrent state 512, CNN multiplier 32; 64x64 rgb; bf16-mixed), cut to
-the keys the port reads. The optimizers keep their hyperparameters and drop
-the JAX package's ``_target_``. Two keys are the port's own: ``device``
-(``cuda`` unless ``device=cpu``) and ``env_group`` (the env chosen with
-``env=``). Reading YAML is not ported: the card's host has no PyYAML.
+``exp=dreamer_v3_100k_ms_pacman`` and ``exp=dreamer_v3_dmc_walker_walk`` are
+held here as the JAX package composes them from configs/exp/<name>.yaml,
+exp/dreamer_v3.yaml, algo/dreamer_v3.yaml, algo/dreamer_v3_S.yaml (DreamerV3-S:
+512 units, 2 layers, recurrent state 512, CNN multiplier 32; 64x64 rgb;
+bf16-mixed) and the ``checkpoint`` and ``buffer`` groups, cut to the keys the
+port reads (``buffer.memmap`` is left out: buffers are in memory). The
+optimizers keep their hyperparameters and drop the JAX package's
+``_target_``. Three keys are the port's own: ``device`` (``cuda`` unless
+``device=cpu``), ``env_group`` (the env chosen with ``env=``) and
+``env.wrapper.action_dim`` (the dummy env's action count, a keyword of the
+JAX package's ``get_dummy_env``). A run writes under
+``<log_root>/<root_dir>/<time>_<algo.name>_<env.id>_<seed>``. Reading YAML is
+not ported: the card's host has no PyYAML.
 
 A value ``"${a.b}"`` is the YAML's interpolation: it takes the value of
 ``a.b`` after the overrides, so ``algo.dense_units=16`` sets every head's
@@ -20,6 +25,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 from typing import Any, Callable, Dict, List, Sequence
 
 from sheeprl_tpu_torch.utils.utils import dotdict
@@ -33,16 +39,18 @@ def _adam(lr: float, eps: float) -> Dict[str, Any]:
     return {"lr": lr, "eps": eps, "weight_decay": 0, "betas": [0.9, 0.999]}
 
 
-def dreamer_v3_100k_ms_pacman() -> Dict[str, Any]:
-    """DreamerV3-S on Atari MsPacman, 100K steps."""
+def _dreamer_v3_s() -> Dict[str, Any]:
+    """exp/dreamer_v3.yaml over algo/dreamer_v3_S.yaml: what both exps share."""
     units, layers = "${algo.dense_units}", "${algo.mlp_layers}"
     return {
         "seed": 5,
         "device": "cuda",
         "env_group": None,
+        "log_root": "logs/runs",
+        "root_dir": "${algo.name}/${env.id}",
         "algo": {
             "name": "dreamer_v3",
-            "total_steps": 100000,
+            "total_steps": 5000000,
             "per_rank_batch_size": 16,
             "per_rank_sequence_length": 64,
             "learning_starts": 1024,
@@ -104,15 +112,43 @@ def dreamer_v3_100k_ms_pacman() -> Dict[str, Any]:
                 "optimizer": _adam(8e-5, 1e-5),
             },
         },
-        "env": {"id": "MsPacmanNoFrameskip-v4", "num_envs": 1, "screen_size": 64, "clip_rewards": False},
-        "buffer": {"size": 100000, "validate_args": False},
+        "env": {"id": None, "num_envs": 4, "screen_size": 64, "action_repeat": 1, "clip_rewards": False, "wrapper": {"action_dim": 2}},
+        "buffer": {"size": 1000000, "validate_args": False, "checkpoint": True},
+        "checkpoint": {"every": 100000, "resume_from": None, "save_last": True, "keep_last": 5},
         "metric": {"log_every": 5000, "log_level": 1},
         "fabric": {"precision": "bf16-mixed"},
         "distribution": {"type": "auto"},
     }
 
 
-EXPERIMENTS: Dict[str, Callable[[], Dict[str, Any]]] = {"dreamer_v3_100k_ms_pacman": dreamer_v3_100k_ms_pacman}
+def dreamer_v3_100k_ms_pacman() -> Dict[str, Any]:
+    """DreamerV3-S on Atari MsPacman, 100K steps (9 actions)."""
+    cfg = _dreamer_v3_s()
+    cfg["algo"].update(total_steps=100000, learning_starts=1024)
+    cfg["env"].update(id="MsPacmanNoFrameskip-v4", num_envs=1, wrapper={"action_dim": 9})
+    cfg["buffer"]["size"] = 100000
+    cfg["checkpoint"]["every"] = 2000
+    return cfg
+
+
+def dreamer_v3_dmc_walker_walk() -> Dict[str, Any]:
+    """DreamerV3-S on DMC walker-walk from pixels, 500K steps: 4 envs,
+    action repeat 2, replay ratio 0.5, 6 continuous actions in [-1, 1]. With
+    ``env=dummy`` the JAX package composes ``env.id=discrete_dummy``; the port
+    stands the continuous dummy in for the walker, so its id is
+    ``continuous_dummy``."""
+    cfg = _dreamer_v3_s()
+    cfg["algo"].update(total_steps=500000, learning_starts=1300, replay_ratio=0.5)
+    cfg["env"].update(id="continuous_dummy", num_envs=4, action_repeat=2, wrapper={"action_dim": 6})
+    cfg["buffer"]["size"] = 500000
+    cfg["checkpoint"]["every"] = 10000
+    return cfg
+
+
+EXPERIMENTS: Dict[str, Callable[[], Dict[str, Any]]] = {
+    "dreamer_v3_100k_ms_pacman": dreamer_v3_100k_ms_pacman,
+    "dreamer_v3_dmc_walker_walk": dreamer_v3_dmc_walker_walk,
+}
 ENVS = ("dummy",)
 
 
@@ -169,16 +205,21 @@ def _lookup(cfg: Dict[str, Any], path: str) -> Any:
     return node
 
 
-def _reference(value: Any) -> str:
-    """The path of a ``"${path}"`` value, else ""."""
-    return value[2:-1] if isinstance(value, str) and value.startswith("${") and value.endswith("}") else ""
+_INTERPOLATION = re.compile(r"\$\{([^}]+)\}")
 
 
 def _resolve(cfg: Dict[str, Any], value: Any, depth: int = 0) -> Any:
+    """A value with its ``${path}`` references resolved: a value that is one
+    reference takes the referenced value, type and all; references inside a
+    longer string are replaced by their text."""
     if depth > 16:
         raise ValueError("config interpolation too deep (a cycle?)")
-    ref = _reference(value)
-    return _resolve(cfg, _lookup(cfg, ref), depth + 1) if ref else value
+    if not isinstance(value, str):
+        return value
+    whole = _INTERPOLATION.fullmatch(value)
+    if whole:
+        return _resolve(cfg, _lookup(cfg, whole.group(1)), depth + 1)
+    return _INTERPOLATION.sub(lambda m: str(_resolve(cfg, _lookup(cfg, m.group(1)), depth + 1)), value)
 
 
 def _resolve_tree(cfg: Dict[str, Any], node: Dict[str, Any]) -> Dict[str, Any]:

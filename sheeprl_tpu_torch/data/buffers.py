@@ -6,12 +6,15 @@ Shapes are ``[time, n_envs, ...]`` throughout and samples are numpy arrays;
 the trainer moves each sampled batch to its device. Sampling draws from a
 ``numpy.random.Generator`` derived from numpy's global generator at
 construction (seeded by the trainer), or pinned with :meth:`seed`: the same
-seed and the same adds give the JAX package's samples.
+seed and the same adds give the JAX package's samples. ``state_dict`` /
+``load_state_dict`` carry the arrays, the write head and the sampling
+generators' states (the JAX package pickles the buffer object instead), so a
+restored buffer samples the batches the saved one would have.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Type
+from typing import Any, Dict, List, Optional, Sequence, Type
 
 import numpy as np
 
@@ -87,6 +90,29 @@ class ReplayBuffer:
 
     def seed(self, seed: Optional[int]) -> None:
         self._rng = np.random.default_rng(seed)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The arrays (not copied), the write head, and the sampling
+        generator's state."""
+        return {
+            "buffer_size": self._buffer_size,
+            "n_envs": self._n_envs,
+            "pos": self._pos,
+            "full": self._full,
+            "rng": self._rng.bit_generator.state,
+            "arrays": dict(self._buf),
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        if (state["buffer_size"], state["n_envs"]) != (self._buffer_size, self._n_envs):
+            raise ValueError(
+                f"the state is of a buffer of size {state['buffer_size']} x {state['n_envs']} envs, "
+                f"this one is {self._buffer_size} x {self._n_envs}"
+            )
+        self._buf = {k: np.array(v) for k, v in state["arrays"].items()}
+        self._pos = int(state["pos"])
+        self._full = bool(state["full"])
+        self._rng.bit_generator.state = state["rng"]
 
     def add(self, data: Dict[str, np.ndarray], validate_args: bool = False) -> None:
         """Write a [T, n_envs, ...] chunk at the circular head, overwriting the
@@ -251,6 +277,25 @@ class EnvIndependentReplayBuffer:
         self._rng = np.random.default_rng(seed)
         for i, b in enumerate(self._buf):
             b.seed(None if seed is None else seed + i + 1)
+
+    def state_dict(self) -> Dict[str, Any]:
+        """Every env's sub-buffer and the split generator's state."""
+        return {
+            "buffer_size": self._buffer_size,
+            "n_envs": self._n_envs,
+            "rng": self._rng.bit_generator.state,
+            "buffers": [b.state_dict() for b in self._buf],
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        if (state["buffer_size"], state["n_envs"]) != (self._buffer_size, self._n_envs):
+            raise ValueError(
+                f"the state is of {state['n_envs']} env buffers of size {state['buffer_size']}, "
+                f"this one has {self._n_envs} of size {self._buffer_size}"
+            )
+        for b, sub in zip(self._buf, state["buffers"]):
+            b.load_state_dict(sub)
+        self._rng.bit_generator.state = state["rng"]
 
     def add(self, data: Dict[str, np.ndarray], indices: Optional[Sequence[int]] = None, validate_args: bool = False) -> None:
         """Write a [T, len(indices), ...] chunk; column j goes to env indices[j] (all envs by default)."""

@@ -1,38 +1,37 @@
-"""Deterministic dummy environment and a synchronous vector of them, without
-gymnasium (counterpart of ``DiscreteDummyEnv`` in sheeprl_tpu/envs/dummy.py
-and of the same-step-autoreset ``SyncVectorEnv`` that
-sheeprl_tpu/utils/env.py builds).
+"""Deterministic dummy environments and a synchronous vector of them, without
+gymnasium (counterpart of sheeprl_tpu/envs/dummy.py, of ``get_dummy_env`` in
+sheeprl_tpu/utils/env.py, of the ``ActionRepeat`` wrapper and of the
+same-step-autoreset ``SyncVectorEnv`` that sheeprl_tpu/utils/env.py builds).
 
 The observation of step t is ``rgb`` filled with ``t % 256`` and ``state``
 filled with ``t``; the reward is 0; an episode terminates after
-``n_steps + 1`` steps. Pixels are channel-last. The trainer's ``env=dummy``
-uses MsPacman's shapes: ``rgb`` 64x64x3 uint8 and ``Discrete(9)`` actions.
+``n_steps + 1`` steps. Pixels are channel-last. :func:`make_dummy_vector_env`
+picks the env by ``env.id`` as ``get_dummy_env`` does (``continuous``,
+``multidiscrete`` or ``discrete`` in the id); any other id, such as an exp's
+own task (``MsPacmanNoFrameskip-v4``), gets the discrete dummy. The action
+count comes from ``env.wrapper.action_dim``: MsPacman's 9 actions, walker's 6
+actuators.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
-from sheeprl_tpu_torch.serve.spaces import Box, DictSpace, Discrete
+from sheeprl_tpu_torch.serve.spaces import Box, DictSpace, Discrete, MultiDiscrete
 
 
-class DiscreteDummyEnv:
-    def __init__(
-        self,
-        image_size: Tuple[int, int, int] = (64, 64, 3),
-        n_steps: int = 4,
-        vector_shape: Tuple[int, ...] = (10,),
-        action_dim: int = 2,
-    ):
+class DummyEnv:
+    """The dummy envs' common part; subclasses set ``action_space``."""
+
+    def __init__(self, image_size: Tuple[int, int, int] = (64, 64, 3), n_steps: int = 128, vector_shape: Tuple[int, ...] = (10,)):
         self.observation_space = DictSpace(
             {
                 "rgb": Box(tuple(image_size), "uint8", 0.0, 255.0),
                 "state": Box(tuple(vector_shape), "float32", -20.0, 20.0),
             }
         )
-        self.action_space = Discrete(int(action_dim))
         self._current_step = 0
         self._n_steps = n_steps
 
@@ -52,16 +51,39 @@ class DiscreteDummyEnv:
         return self.get_obs(), {}
 
 
-class SyncVectorEnv:
-    """Steps ``len(envs)`` environments in turn with same-step autoreset: an
-    env that ends an episode is reset at once, its step returns the reset
-    observation, and ``infos["final_obs"][i]`` holds the episode's last one
-    (``None`` for envs that did not end). ``infos["episode"]`` lists
-    ``(env index, return, length)`` for every episode that ended."""
+class DiscreteDummyEnv(DummyEnv):
+    def __init__(self, image_size=(64, 64, 3), n_steps: int = 4, vector_shape=(10,), action_dim: int = 2):
+        super().__init__(image_size, n_steps, vector_shape)
+        self.action_space = Discrete(int(action_dim))
 
-    def __init__(self, envs: List[DiscreteDummyEnv], seed: int = 0):
+
+class ContinuousDummyEnv(DummyEnv):
+    def __init__(self, image_size=(64, 64, 3), n_steps: int = 128, vector_shape=(10,), action_dim: int = 2):
+        super().__init__(image_size, n_steps, vector_shape)
+        self.action_space = Box((int(action_dim),), "float32", -1.0, 1.0)
+
+
+class MultiDiscreteDummyEnv(DummyEnv):
+    def __init__(self, image_size=(64, 64, 3), n_steps: int = 128, vector_shape=(10,), action_dims: Sequence[int] = (2, 2)):
+        super().__init__(image_size, n_steps, vector_shape)
+        self.action_space = MultiDiscrete(tuple(int(d) for d in action_dims))
+
+
+class SyncVectorEnv:
+    """Steps ``len(envs)`` environments in turn, each action repeated
+    ``action_repeat`` times (rewards summed, cut short by an episode end),
+    with same-step autoreset: an env that ends an episode is reset at once,
+    its step returns the reset observation, and ``infos["final_obs"][i]``
+    holds the episode's last one (``None`` for envs that did not end).
+    ``infos["episode"]`` lists ``(env index, return, length)`` for every
+    episode that ended."""
+
+    def __init__(self, envs: List[DummyEnv], seed: int = 0, action_repeat: int = 1):
+        if action_repeat < 1:
+            raise ValueError(f"action repeat must be >= 1, got {action_repeat}")
         self.envs = list(envs)
         self.num_envs = len(self.envs)
+        self.action_repeat = int(action_repeat)
         self.single_observation_space = self.envs[0].observation_space
         self.single_action_space = self.envs[0].action_space
         self._rng = np.random.default_rng(seed)
@@ -69,8 +91,15 @@ class SyncVectorEnv:
         self._lengths = np.zeros(self.num_envs, np.int64)
 
     def sample_actions(self) -> np.ndarray:
-        """Uniform random actions [num_envs] (the prefill's policy)."""
-        return self._rng.integers(0, self.single_action_space.n, size=(self.num_envs,))
+        """Uniform random actions (the prefill's policy): [num_envs] indices
+        for Discrete, [num_envs, len(nvec)] for MultiDiscrete, [num_envs, A]
+        float32 in the bounds for Box."""
+        space = self.single_action_space
+        if isinstance(space, Discrete):
+            return self._rng.integers(0, space.n, size=(self.num_envs,))
+        if isinstance(space, MultiDiscrete):
+            return self._rng.integers(0, np.asarray(space.nvec), size=(self.num_envs, len(space.nvec)))
+        return self._rng.uniform(space.low, space.high, size=(self.num_envs, *space.shape)).astype(np.float32)
 
     @staticmethod
     def _stack(obs: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
@@ -85,7 +114,12 @@ class SyncVectorEnv:
         obs, rewards, terminated, truncated = [], [], [], []
         infos: Dict[str, Any] = {"final_obs": [None] * self.num_envs, "episode": []}
         for i, (env, action) in enumerate(zip(self.envs, actions)):
-            o, r, term, trunc, _ = env.step(action)
+            r = 0.0
+            for _ in range(self.action_repeat):
+                o, reward, term, trunc, _ = env.step(action)
+                r += reward
+                if term or trunc:
+                    break
             self._returns[i] += r
             self._lengths[i] += 1
             if term or trunc:
@@ -100,10 +134,38 @@ class SyncVectorEnv:
             truncated.append(trunc)
         return self._stack(obs), np.asarray(rewards, np.float32), np.asarray(terminated), np.asarray(truncated), infos
 
+    def state_dict(self) -> Dict[str, Any]:
+        """What a resumed run needs to step on as this vector would: the
+        sampling generator, each env's step and each episode's running
+        return and length."""
+        return {
+            "rng": self._rng.bit_generator.state,
+            "steps": [int(env._current_step) for env in self.envs],
+            "returns": self._returns.tolist(),
+            "lengths": self._lengths.tolist(),
+        }
 
-def make_dummy_vector_env(num_envs: int, seed: int, screen_size: int = 64, action_dim: int = 9) -> SyncVectorEnv:
-    """``num_envs`` dummy envs at MsPacman's shapes (``screen_size`` square rgb, ``action_dim`` actions)."""
-    return SyncVectorEnv(
-        [DiscreteDummyEnv(image_size=(screen_size, screen_size, 3), action_dim=action_dim) for _ in range(num_envs)],
-        seed=seed,
-    )
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        if len(state["steps"]) != self.num_envs:
+            raise ValueError(f"the state holds {len(state['steps'])} envs, this vector has {self.num_envs}")
+        self._rng.bit_generator.state = state["rng"]
+        for env, step in zip(self.envs, state["steps"]):
+            env._current_step = int(step)
+        self._returns[:] = state["returns"]
+        self._lengths[:] = state["lengths"]
+
+
+def make_dummy_vector_env(
+    num_envs: int, seed: int, screen_size: int = 64, action_dim: int = 9, env_id: str = "discrete_dummy", action_repeat: int = 1
+) -> SyncVectorEnv:
+    """``num_envs`` dummy envs of the kind ``env_id`` names, ``screen_size``
+    square rgb, ``action_dim`` actions (per head for MultiDiscrete, two
+    heads)."""
+    image = (screen_size, screen_size, 3)
+    if "continuous" in env_id:
+        make = lambda: ContinuousDummyEnv(image_size=image, action_dim=action_dim)  # noqa: E731
+    elif "multidiscrete" in env_id:
+        make = lambda: MultiDiscreteDummyEnv(image_size=image, action_dims=(action_dim, action_dim))  # noqa: E731
+    else:
+        make = lambda: DiscreteDummyEnv(image_size=image, action_dim=action_dim)  # noqa: E731
+    return SyncVectorEnv([make() for _ in range(num_envs)], seed=seed, action_repeat=action_repeat)

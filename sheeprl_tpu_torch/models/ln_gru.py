@@ -29,6 +29,7 @@ two together for autograd; the three products of the backward
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -333,8 +334,9 @@ def ln_gru_forward(
     """One LN-GRU step -> (h' [B, H] in h's dtype, z [B, 3H] f32). Launches
     the kernel :func:`forward_plan` picks for CUDA tensors, runs
     :func:`ln_gru_plain` for CPU tensors, raises for anything else.
-    ``ln_gru_forward.launches`` counts its kernel launches (each kernel's
-    launcher also counts its own)."""
+    ``ln_gru_forward.launches`` counts its kernel launches, and
+    ``.launches_by_batch`` them by B (each kernel's launcher also counts its
+    own)."""
     _check(inp, w, b, scale, ln_bias, h)
     if inp.device.type == "cpu":
         return ln_gru_plain(inp, w, b, scale, ln_bias, h)
@@ -344,6 +346,7 @@ def ln_gru_forward(
     plan = forward_plan(batch, depth, hidden, inp.dtype, _sm_count(_device_index(inp)), _aligned(inp, w, h))
     out = _launch(plan, inp, w, b, scale, ln_bias, h)
     ln_gru_forward.launches += 1
+    ln_gru_forward.launches_by_batch[batch] += 1
     return out
 
 
@@ -377,6 +380,7 @@ def ln_gru_forward_streaming(
 
 
 ln_gru_forward.launches = 0
+ln_gru_forward.launches_by_batch = collections.Counter()
 ln_gru_forward_tensor_core.launches = 0
 ln_gru_forward_streaming.launches = 0
 
@@ -479,7 +483,8 @@ def ln_gru_backward(
     """Gradient of the LN-GRU tail -> (dz, dscale, dln_bias, dh_tail).
     Launches the CUDA kernel for CUDA tensors, runs
     :func:`ln_gru_backward_plain` for CPU tensors, raises for anything else.
-    ``ln_gru_backward.launches`` counts kernel launches."""
+    ``ln_gru_backward.launches`` counts kernel launches, and
+    ``.launches_by_batch`` them by B."""
     _check_backward(g, z, scale, ln_bias, h)
     if h.device.type == "cpu":
         return ln_gru_backward_plain(g, z, scale, ln_bias, h)
@@ -501,10 +506,12 @@ def ln_gru_backward(
     if err != 0:
         raise RuntimeError(f"ln_gru backward kernel launch failed with CUDA error {err} (B={batch}, H={hidden})")
     ln_gru_backward.launches += 1
+    ln_gru_backward.launches_by_batch[batch] += 1
     return dz, out[0], out[1], dh
 
 
 ln_gru_backward.launches = 0
+ln_gru_backward.launches_by_batch = collections.Counter()
 
 
 class LNGRUFunction(torch.autograd.Function):

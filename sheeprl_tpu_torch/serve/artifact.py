@@ -8,8 +8,10 @@ Layout, committed atomically (:func:`atomic_dir_writer`)::
         spec.json       # schema, algo, spaces, the config subtree the adapter rebuilds from
         manifest.json   # digests over arrays and spec; written last
 
-The JAX package keeps its arrays in Orbax instead; reading its artifacts
-here needs an importer that is not written yet.
+:func:`export_artifact` makes one from a training checkpoint of the port
+(``python -m sheeprl_tpu_torch.serve export checkpoint_path=...``). The JAX
+package keeps its arrays in Orbax instead; reading its artifacts and
+checkpoints here needs an importer that is not written yet.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from sheeprl_tpu_torch.utils.checkpoint import _digest_arrays, atomic_dir_writer
+from sheeprl_tpu_torch.utils.checkpoint import _digest_arrays, atomic_dir_writer, load_checkpoint, parse_ckpt_name
 
 ARTIFACT_SUFFIX = ".policy"
 ARRAYS_NAME = "arrays.pt"
@@ -74,6 +76,39 @@ def write_artifact(output_path: str, params: Dict[str, Dict[str, torch.Tensor]],
         with open(os.path.join(staging, MANIFEST_NAME), "w") as fp:
             json.dump(manifest, fp, indent=2)
     return os.path.abspath(output_path)
+
+
+def export_artifact(checkpoint_path: str, output_path: Optional[str] = None, *, name: Optional[str] = None) -> str:
+    """Write the policy of a port training checkpoint as an artifact; returns
+    its path. The run's ``config.json`` (two levels above the checkpoint)
+    gives the algorithm and the env, the checkpoint the spaces' specs the
+    trainer saved in it. ``name`` defaults to ``<algo>_<env.id>_<policy
+    step>``, ``output_path`` to ``<log dir>/artifacts/<name>.policy``."""
+    from sheeprl_tpu_torch.serve.registry import get_policy_cls
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    ckpt = os.path.abspath(checkpoint_path)
+    log_dir = os.path.dirname(os.path.dirname(ckpt))
+    with open(os.path.join(log_dir, "config.json")) as fp:
+        cfg = dotdict(json.load(fp))
+    algo = str(cfg.algo.name)
+    adapter_cls = get_policy_cls(algo)
+    state = load_checkpoint(ckpt)
+    params, policy_config = adapter_cls.export(state, cfg)
+    step = (parse_ckpt_name(ckpt) or (0, 0))[0]
+    name = name or f"{algo}_{cfg.env.id}_{step}"
+    spec = {
+        "name": str(name),
+        "algo": algo,
+        "stateful": bool(adapter_cls.stateful),
+        "policy_step": int(step),
+        "source_checkpoint": ckpt,
+        "env_id": str(cfg.env.id),
+        "observation_space": state["observation_space"],
+        "action_space": state["action_space"],
+        "config": policy_config,
+    }
+    return write_artifact(output_path or os.path.join(log_dir, "artifacts", f"{name}{ARTIFACT_SUFFIX}"), params, spec)
 
 
 def read_artifact_manifest(path: str) -> Optional[Dict[str, Any]]:

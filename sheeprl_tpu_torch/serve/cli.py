@@ -1,4 +1,4 @@
-"""Command line: ``python -m sheeprl_tpu_torch.serve <serve|export-random>``.
+"""Command line: ``python -m sheeprl_tpu_torch.serve <serve|export|export-random>``.
 
 ``serve`` loads the listed artifacts into an engine and runs the HTTP
 server in the foreground until SIGTERM (which drains)::
@@ -10,6 +10,11 @@ Keys (``key=value``; defaults as in the JAX package's configs/serve/default.yaml
 ``serve.queue_capacity`` 64, ``serve.batch_window_ms`` 2.0,
 ``serve.max_models`` 4, ``serve.max_sessions`` 256, and ``device`` (cuda;
 ``device=cpu`` runs on the CPU).
+
+``export`` writes the policy of a port training checkpoint as an artifact
+(default path ``<log dir>/artifacts/<name>.policy``)::
+
+    python -m sheeprl_tpu_torch.serve export checkpoint_path=logs/runs/.../checkpoint/ckpt_1024_0.ckpt [name=pi] [output_path=pi.policy]
 
 ``export-random`` writes a DreamerV3-S / MsPacman artifact from the port's
 seeded initialiser::
@@ -78,6 +83,20 @@ def _serve(overrides: List[str]) -> None:
     server.serve_forever()
 
 
+def _export(overrides: List[str]) -> None:
+    from sheeprl_tpu_torch.serve.artifact import export_artifact
+
+    kv = parse_overrides(overrides)
+    checkpoint_path = kv.pop("checkpoint_path", None)
+    if checkpoint_path is None:
+        raise ValueError("You must specify checkpoint_path=<path-to-checkpoint>")
+    output_path = kv.pop("output_path", None)
+    name = kv.pop("name", None)
+    if kv:
+        raise ValueError(f"Unknown export arguments: {sorted(kv)}")
+    print(f"Exported policy artifact: {export_artifact(checkpoint_path, output_path, name=name)}", flush=True)
+
+
 def _export_random(overrides: List[str]) -> None:
     from sheeprl_tpu_torch.algos.dreamer_v3.serve import export_random
 
@@ -100,7 +119,9 @@ def main(args: Optional[Sequence[str]] = None) -> None:
     command, rest = argv[0], argv[1:]
     if command == "serve":
         _serve(rest)
+    elif command == "export":
+        _export(rest)
     elif command == "export-random":
         _export_random(rest)
     else:
-        raise SystemExit(f"Unknown command {command!r}; expected 'serve' or 'export-random'.\n{__doc__}")
+        raise SystemExit(f"Unknown command {command!r}; expected 'serve', 'export' or 'export-random'.\n{__doc__}")

@@ -1,44 +1,83 @@
-"""Atomic directory commits and array digests (the part of
-sheeprl_tpu/utils/checkpoint.py the policy artifacts need)."""
+"""Atomic checkpoints and array digests (counterpart of
+sheeprl_tpu/utils/checkpoint.py).
+
+A checkpoint is a directory ``ckpt_<policy_step>_<rank>.ckpt`` committed in
+one ``os.rename`` (:func:`atomic_dir_writer`, shared with the policy
+artifacts)::
+
+    ckpt_<step>_<rank>.ckpt/
+        state.pt        # the state with its numpy arrays taken out: tensors, dicts,
+                        # lists, tuples, numbers and strings; read with
+                        # torch.load(weights_only=True), so loading runs no pickled code
+        arrays.npz      # the numpy arrays (the replay buffer), read with allow_pickle=False
+        manifest.json   # step, rank, leaf count, digest, the file names; written last
+
+The JAX package keeps its arrays in Orbax and pickles the rest; the port's
+format is its own. The digest is a sha256 over every tensor and array leaf
+(path, dtype, shape, bytes): :func:`load_checkpoint` recomputes it and
+refuses a checkpoint whose leaves differ from what was saved. A directory
+without a readable manifest, or missing a file the manifest names, is torn
+and is never the latest (:func:`find_latest_valid_checkpoint`). The previous
+snapshot stays until the new one is committed, and ``keep_last`` deletes the
+oldest by renaming them away first.
+"""
 
 from __future__ import annotations
 
 import hashlib
+import json
 import os
+import re
 import shutil
+import time
 import uuid
 from contextlib import contextmanager
-from typing import Any, Iterator, List, Mapping, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 _TMP_PREFIX = ".tmp-"
 _TRASH_PREFIX = ".trash-"
+_CKPT_RE = re.compile(r"ckpt_(\d+)_(\d+)\.ckpt$")
+MANIFEST_NAME = "manifest.json"
+STATE_NAME = "state.pt"
+ARRAYS_NAME = "arrays.npz"
+CHECKPOINT_SCHEMA_VERSION = 1
 
-
-def flatten_tensors(tree: Any, prefix: str = "") -> List[Tuple[str, torch.Tensor]]:
-    """(path, tensor) leaves of a nested mapping, in sorted key order."""
-    if isinstance(tree, torch.Tensor):
+def flatten_arrays(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(path, leaf) for every tensor and numpy array of a nested structure of
+    mappings (keys in sorted order), lists and tuples; other leaves (numbers,
+    strings, None) are skipped."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
         return [(prefix, tree)]
-    if not isinstance(tree, Mapping):
-        raise TypeError(f"{prefix or '<root>'}: expected a tensor or a mapping, got {type(tree).__name__}")
-    leaves: List[Tuple[str, torch.Tensor]] = []
-    for key in sorted(tree):
-        leaves.extend(flatten_tensors(tree[key], f"{prefix}/{key}" if prefix else str(key)))
+    if isinstance(tree, Mapping):
+        items = sorted(tree.items(), key=lambda kv: str(kv[0]))
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return []
+    leaves: List[Tuple[str, Any]] = []
+    for key, value in items:
+        leaves.extend(flatten_arrays(value, f"{prefix}/{key}" if prefix else str(key)))
     return leaves
 
 
 def _digest_arrays(arrays: Any) -> Tuple[str, int]:
-    """sha256 over every tensor leaf (path, dtype, shape and bytes, in sorted
-    key order) and the leaf count."""
+    """sha256 over every tensor and array leaf (path, dtype, shape and bytes,
+    in :func:`flatten_arrays` order) and the leaf count."""
     h = hashlib.sha256()
-    leaves = flatten_tensors(arrays)
+    leaves = flatten_arrays(arrays)
     for path, leaf in leaves:
-        t = leaf.detach().to("cpu").contiguous()
+        if isinstance(leaf, torch.Tensor):
+            t = leaf.detach().to("cpu").contiguous()
+            dtype, data = str(t.dtype), t.reshape(-1).view(torch.uint8).numpy() if t.numel() else b""
+        else:
+            dtype, data = str(leaf.dtype), np.ascontiguousarray(leaf)
         h.update(path.encode())
-        h.update(str(t.dtype).encode())
-        h.update(str(tuple(t.shape)).encode())
-        h.update(t.view(torch.uint8).numpy().tobytes() if t.numel() else b"")
+        h.update(dtype.encode())
+        h.update(str(tuple(leaf.shape)).encode())
+        h.update(data)
     return h.hexdigest(), len(leaves)
 
 
@@ -85,3 +124,139 @@ def atomic_dir_writer(final_path: str) -> Iterator[str]:
     except BaseException:
         shutil.rmtree(staging, ignore_errors=True)
         raise
+
+
+def parse_ckpt_name(ckpt_path: str) -> Optional[Tuple[int, int]]:
+    """(policy_step, rank) from a ``ckpt_<step>_<rank>.ckpt`` path, else None."""
+    m = _CKPT_RE.search(os.path.basename(os.path.normpath(ckpt_path)))
+    return (int(m.group(1)), int(m.group(2))) if m else None
+
+
+def read_manifest(ckpt_path: str) -> Optional[Dict[str, Any]]:
+    """The checkpoint's parsed ``manifest.json``; None if absent or corrupt."""
+    try:
+        with open(os.path.join(ckpt_path, MANIFEST_NAME), "rb") as fp:
+            manifest = json.load(fp)
+    except (OSError, ValueError):
+        return None
+    return manifest if isinstance(manifest, dict) else None
+
+
+def _split_arrays(tree: Any, arrays: List[np.ndarray]) -> Any:
+    """``tree`` with each numpy array moved to ``arrays`` (replaced by
+    ``{"__array__": index}``) and each tensor copied to the CPU."""
+    if isinstance(tree, np.ndarray):
+        arrays.append(tree)
+        return {"__array__": len(arrays) - 1}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, Mapping):
+        return {k: _split_arrays(v, arrays) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_split_arrays(v, arrays) for v in tree)
+    return tree
+
+
+def _join_arrays(tree: Any, arrays: List[np.ndarray]) -> Any:
+    if isinstance(tree, Mapping):
+        if set(tree) == {"__array__"}:
+            return arrays[int(tree["__array__"])]
+        return {k: _join_arrays(v, arrays) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_join_arrays(v, arrays) for v in tree)
+    return tree
+
+
+def validate_checkpoint(ckpt_path: str) -> bool:
+    """True iff ``ckpt_path`` is a complete, committed checkpoint: the
+    manifest parses, its schema is known and the files it names exist. The
+    digest is verified by :func:`load_checkpoint`."""
+    manifest = read_manifest(ckpt_path)
+    if manifest is None or manifest.get("kind") != "checkpoint":
+        return False
+    try:
+        if int(manifest["schema_version"]) > CHECKPOINT_SCHEMA_VERSION:
+            return False
+        int(manifest["step"])
+        int(manifest["leaf_count"])
+        files = list(manifest["files"])
+    except (KeyError, TypeError, ValueError):
+        return False
+    return sorted(files) == sorted([STATE_NAME, ARRAYS_NAME]) and all(os.path.isfile(os.path.join(ckpt_path, f)) for f in files)
+
+
+def find_latest_valid_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The checkpoint of the highest step in ``ckpt_dir`` that passes
+    :func:`validate_checkpoint`, skipping torn ones; None if there is none."""
+    try:
+        names = os.listdir(ckpt_dir)
+    except OSError:
+        return None
+    entries = sorted(((parse_ckpt_name(name) or (-1,))[0], name) for name in names)
+    for step, name in reversed(entries):
+        if step >= 0 and validate_checkpoint(os.path.join(ckpt_dir, name)):
+            return os.path.join(ckpt_dir, name)
+    return None
+
+
+def _gc_old_checkpoints(ckpt_dir: str, keep_last: int) -> None:
+    """Delete all but the newest ``keep_last`` checkpoints of ``ckpt_dir``, by
+    the step in the name. Each is renamed to a ``.trash-*`` sibling first, so
+    a concurrent reader sees a whole checkpoint or none."""
+    entries = sorted((parsed[0], name) for name in os.listdir(ckpt_dir) if (parsed := parse_ckpt_name(name)))
+    for _, name in entries[:-keep_last]:
+        trash = os.path.join(ckpt_dir, f"{_TRASH_PREFIX}{name}-{uuid.uuid4().hex[:8]}")
+        os.rename(os.path.join(ckpt_dir, name), trash)
+        shutil.rmtree(trash, ignore_errors=True)
+
+
+def save_checkpoint(ckpt_path: str, state: Dict[str, Any], keep_last: Optional[int] = None) -> str:
+    """Atomically write ``state`` (a nested dict of tensors, numpy arrays and
+    plain values) to ``ckpt_path`` (named ``ckpt_<step>_<rank>.ckpt``), then
+    delete older checkpoints of the same directory down to ``keep_last``.
+    Returns the absolute path."""
+    ckpt_path = os.path.abspath(ckpt_path)
+    parsed = parse_ckpt_name(ckpt_path)
+    if parsed is None:
+        raise ValueError(f"{ckpt_path}: a checkpoint is named ckpt_<step>_<rank>.ckpt")
+    arrays: List[np.ndarray] = []
+    tree = _split_arrays(state, arrays)
+    digest, leaf_count = _digest_arrays(_join_arrays(tree, arrays))
+    with atomic_dir_writer(ckpt_path) as staging:
+        os.makedirs(staging)
+        torch.save(tree, os.path.join(staging, STATE_NAME))
+        np.savez(os.path.join(staging, ARRAYS_NAME), **{f"a{i}": a for i, a in enumerate(arrays)})
+        manifest = {
+            "schema_version": CHECKPOINT_SCHEMA_VERSION,
+            "kind": "checkpoint",
+            "step": parsed[0],
+            "rank": parsed[1],
+            "leaf_count": leaf_count,
+            "array_count": len(arrays),
+            "digest": digest,
+            "files": [STATE_NAME, ARRAYS_NAME],
+            "created_unix": time.time(),
+        }
+        with open(os.path.join(staging, MANIFEST_NAME), "w") as fp:
+            json.dump(manifest, fp, indent=2)
+    if keep_last is not None and keep_last > 0:
+        _gc_old_checkpoints(os.path.dirname(ckpt_path), int(keep_last))
+    return ckpt_path
+
+
+def load_checkpoint(ckpt_path: str) -> Dict[str, Any]:
+    """The saved state, tensors on the CPU and arrays as numpy. Raises
+    ValueError for a torn checkpoint and for one whose leaves' digest is not
+    the manifest's."""
+    ckpt_path = os.path.abspath(ckpt_path)
+    if not validate_checkpoint(ckpt_path):
+        raise ValueError(f"{ckpt_path} is not a valid checkpoint (torn save, wrong schema or missing files)")
+    manifest = read_manifest(ckpt_path) or {}
+    tree = torch.load(os.path.join(ckpt_path, STATE_NAME), map_location="cpu", weights_only=True)
+    with np.load(os.path.join(ckpt_path, ARRAYS_NAME), allow_pickle=False) as npz:
+        arrays = [npz[f"a{i}"] for i in range(int(manifest.get("array_count", 0)))]
+    state = _join_arrays(tree, arrays)
+    digest, leaf_count = _digest_arrays(state)
+    if leaf_count != manifest["leaf_count"] or digest != manifest["digest"]:
+        raise ValueError(f"{ckpt_path}: the loaded leaves do not match the manifest's digest")
+    return state

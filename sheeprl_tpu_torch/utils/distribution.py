@@ -1,5 +1,6 @@
 """Distributions (counterpart of sheeprl_tpu/utils/distribution.py): one-hot
-categoricals with mode, sample, log_prob and entropy, Normal and Independent,
+categoricals with mode, sample, log_prob and entropy, Normal (mean, mode,
+sample, log_prob, entropy) and Independent,
 the DreamerV3 loss distributions (Symlog, MSE, two-hot, Bernoulli with a safe
 mode), ``kl_divergence`` for the categorical pair, and ``uniform_mix``.
 
@@ -68,6 +69,13 @@ class RowGenerators:
         _check_rows(self, logits.shape[0])
         return _gumbel_max(logits, self.rand(tuple(logits.shape[1:])))
 
+    def normal(self, loc_shape: Tuple[int, ...], sample_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+        """Standard normals ``[*sample_shape, *loc_shape]``; the batch is
+        ``loc_shape[0]`` and row i's come from generator i."""
+        _check_rows(self, loc_shape[0])
+        eps = self.randn(tuple(sample_shape) + tuple(loc_shape[1:]))  # [B, *sample_shape, ...]
+        return eps.movedim(0, len(sample_shape))
+
 
 class BatchGenerator:
     """One ``torch.Generator`` for every draw of a batch, on the device of
@@ -83,8 +91,15 @@ class BatchGenerator:
     def rand(self, shape: Tuple[int, ...]) -> torch.Tensor:
         return torch.rand(shape, generator=self.generator, device=self.generator.device, dtype=torch.float32)
 
+    def randn(self, shape: Tuple[int, ...]) -> torch.Tensor:
+        return torch.randn(shape, generator=self.generator, device=self.generator.device, dtype=torch.float32)
+
     def categorical(self, logits: torch.Tensor) -> torch.Tensor:
         return _gumbel_max(logits, self.rand(tuple(logits.shape)).to(logits.device))
+
+    def normal(self, loc_shape: Tuple[int, ...], sample_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+        """Standard normals ``[*sample_shape, *loc_shape]``, in one draw."""
+        return self.randn(tuple(sample_shape) + tuple(loc_shape))
 
 
 def _check_rows(rng: RowGenerators, batch: int) -> None:
@@ -93,16 +108,25 @@ def _check_rows(rng: RowGenerators, batch: int) -> None:
 
 
 class Normal:
-    """Diagonal normal, batch on the leading axis."""
+    """Diagonal normal, batch on the leading axis. log_prob and entropy are
+    per element; :class:`Independent` sums the event axes."""
 
     def __init__(self, loc: torch.Tensor, scale: torch.Tensor):
         self.loc, self.scale = torch.broadcast_tensors(loc, scale)
 
-    def sample(self, rng: RowGenerators, sample_shape: Tuple[int, ...] = ()) -> torch.Tensor:
-        """``[*sample_shape, *loc.shape]``; row i's noise comes from generator i."""
-        _check_rows(rng, self.loc.shape[0])
-        eps = rng.randn(tuple(sample_shape) + tuple(self.loc.shape[1:]))  # [B, *sample_shape, ...]
-        eps = eps.movedim(0, len(sample_shape)).to(self.loc.dtype)
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.loc
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self.loc
+
+    def sample(self, rng, sample_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+        """``[*sample_shape, *loc.shape]``, reparameterised: ``rng``
+        (:class:`RowGenerators` or :class:`BatchGenerator`) gives the
+        standard normals."""
+        eps = rng.normal(tuple(self.loc.shape), tuple(sample_shape)).to(self.loc.device, self.loc.dtype)
         return self.loc + self.scale * eps
 
     rsample = sample
@@ -110,6 +134,9 @@ class Normal:
     def log_prob(self, value: torch.Tensor) -> torch.Tensor:
         var = self.scale**2
         return -((value - self.loc) ** 2) / (2 * var) - torch.log(self.scale) - 0.5 * math.log(2 * math.pi)
+
+    def entropy(self) -> torch.Tensor:
+        return 0.5 + 0.5 * math.log(2 * math.pi) + torch.log(self.scale)
 
 
 class Independent:
@@ -119,7 +146,7 @@ class Independent:
         self.base = base
         self.ndims = reinterpreted_batch_ndims
 
-    def sample(self, rng: RowGenerators, sample_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+    def sample(self, rng, sample_shape: Tuple[int, ...] = ()) -> torch.Tensor:
         return self.base.sample(rng, sample_shape)
 
     rsample = sample

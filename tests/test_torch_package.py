@@ -30,7 +30,8 @@ def test_import_every_module_without_jax_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, env=env, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
-    training = ["algos.dreamer_v3.dreamer_v3", "algos.dreamer_v3.loss", "data.buffers", "envs.dummy", "optim", "config", "cli", "__main__"]
+    training = ["algos.dreamer_v3.dreamer_v3", "algos.dreamer_v3.loss", "data.buffers", "envs.dummy", "optim", "config", "cli", "__main__",
+                "utils.checkpoint"]
     for name in ["serve.engine", "bridge", *training]:
         assert f"sheeprl_tpu_torch.{name}" in report["modules"], name
     assert not [m for m in report["loaded"] if m in FORBIDDEN]

@@ -187,6 +187,11 @@ def test_target_update_taus_match_jax():
         np.testing.assert_array_equal(port_dv3.target_update_taus(cumulative, k, freq, 0.02), _target_update_taus(cumulative, k, freq, 0.02))
 
 
+# The port's own keys (sheeprl_tpu_torch/config.py): the device, the env
+# group, and the dummy env's action count.
+PORT_KEYS = ("device", "env_group", "env.wrapper.action_dim")
+
+
 def test_config_matches_the_jax_composed_exp():
     """Every key of the port's exp=dreamer_v3_100k_ms_pacman equals what the
     JAX package composes, also after an override that interpolation spreads."""
@@ -197,8 +202,8 @@ def test_config_matches_the_jax_composed_exp():
 
         def check(sub, ref_sub, path):
             for k, v in sub.items():
-                if path == "" and k in ("device", "env_group"):
-                    continue  # the port's own keys
+                if f"{path}{k}" in PORT_KEYS:
+                    continue
                 assert k in ref_sub, f"{path}{k} is not in the JAX config"
                 if isinstance(v, dict):
                     check(v, ref_sub[k], f"{path}{k}.")
@@ -228,13 +233,14 @@ TINY = [
 ]  # fmt: skip
 
 
-def test_trainer_cli_takes_gradient_steps_on_the_cpu():
+def test_trainer_cli_takes_gradient_steps_on_the_cpu(monkeypatch, tmp_path):
     """python -m sheeprl_tpu_torch ... device=cpu, cut to tiny widths: 4
     gradient steps after 16 prefill steps, finite losses, every module's
     parameters moved, the target critic a copy of the critic after the
     first step's hard copy and then its EMA."""
     init = build_agent((9,), False, compose(TINY), DictSpace({"rgb": Box((16, 16, 3), "uint8", 0.0, 255.0)}), device="cpu", seed=5, training=True)
     before = {name: {k: v.clone() for k, v in getattr(init, name).state_dict().items()} for name in ("world_model", "actor", "critic")}
+    monkeypatch.chdir(tmp_path)  # the run writes its log dir under the working directory
     taus = []
     out = run(TINY, callback=lambda agent, step, tau, metrics: taus.append(tau))
     assert out["gradient_steps"] == 4 and out["policy_steps"] == 19
@@ -255,10 +261,14 @@ def test_trainer_runs_on_cuda_by_default_and_raises_without_it():
         run([t for t in TINY if t != "device=cpu"])
 
 
-def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="decoupled_rssm"):
-        run([*TINY, "algo.world_model.decoupled_rssm=True"])
-    cfg = compose(TINY)
-    agent = build_agent((2,), True, cfg, DictSpace({"rgb": Box((16, 16, 3), "uint8", 0.0, 255.0)}), device="cpu", training=True)
-    with pytest.raises(NotImplementedError, match="continuous-action"):
-        port_dv3.make_train_step(agent, port_dv3.make_optimizers(agent, cfg), cfg)
+def test_unported_options_raise(tmp_path):
+    """What the port does not read yet raises: a checkpoint of the JAX
+    package (Orbax arrays and a pickle; ROADMAP A11), and env and exp
+    groups other than the port's."""
+    from sheeprl_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
+
+    jax_ckpt = jax_save_checkpoint(str(tmp_path / "ckpt_16_0.ckpt"), {"world_model": {"w": np.ones(2, np.float32)}, "iter_num": 16})
+    with pytest.raises(ValueError, match="not a valid checkpoint"):
+        run([*TINY, f"checkpoint.resume_from={jax_ckpt}", f"log_root={tmp_path}"])
+    with pytest.raises(ValueError, match="env=atari is not ported"):
+        run(["exp=dreamer_v3_dmc_walker_walk", "env=atari", "device=cpu"])
