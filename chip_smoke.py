@@ -41,23 +41,34 @@ Phases (any failure exits non-zero before the result line):
    card-versus-CPU reference of 5 player steps.
 7. Training, the main path: ``python -m sheeprl_tpu_torch
    exp=dreamer_v3_100k_ms_pacman env=dummy`` in process, DV3-S at full
-   width, bf16-mixed, batch 16 x 64, horizon 15, with learning_starts,
-   total_steps and buffer.size cut (listed in the output) so it takes 8
-   gradient steps. Counts zeroed just before, read just after, and checked
-   at every gradient step: 79 forward (64 streaming at B = 16, 15 on the
-   tensor cores at B = 1024) and 64 backward launches (B = 16). Finite
-   losses; the target critic followed its EMA cadence; the actor's loss left
-   the world model's and critic's gradients as they were; the world model,
-   actor and critic moved. Then the gradient step's profile (host wall,
-   device busy, idle share, device operations, one backward's in-step time,
-   peak memory) and a 32-true gradient step on the card against the CPU
-   with the card's categorical draws replayed.
+   width, bf16-mixed, batch 16 x 64, horizon 15, the recipe's 100000-row
+   replay buffer memory-mapped, with learning_starts and total_steps cut
+   (listed in the output) so it takes 8 gradient steps, logging every 8
+   policy steps and ending with the greedy test episode. Counts zeroed just
+   before, read just after, and checked at every gradient step: 79 forward
+   (64 streaming at B = 16, 15 on the tensor cores at B = 1024) and 64
+   backward launches (B = 16). Finite losses; the target critic followed its
+   EMA cadence; the actor's loss left the world model's and critic's
+   gradients as they were; the world model, actor and critic moved. The
+   run's TensorBoard file, read back with ``read_scalars``, holds every tag
+   the JAX package logs at every log step where it logs it (the losses,
+   ``Time/sps_train`` where a gradient step ran, the episode means where an
+   episode ended, ``Params/replay_ratio`` = gradient steps / policy steps,
+   ``Time/sps_env_interaction``, ``Test/cumulative_reward`` at step 0), all
+   finite; the memmap files lie under ``memmap_buffer/rank_0/env_<i>`` at
+   the recipe's size. Then the gradient step's profile (host wall, device
+   busy, idle share, device operations within 1% of 17731, one backward's
+   in-step time, peak memory) and a 32-true gradient step on the card
+   against the CPU with the card's categorical draws replayed.
 8. Continuous control, the second main path: ``python -m sheeprl_tpu_torch
    exp=dreamer_v3_dmc_walker_walk env=dummy env.id=continuous_dummy`` in
    process (6 actions in [-1, 1]), DV3-S at full width, bf16-mixed, batch
-   16 x 64, horizon 15, with learning_starts, total_steps, buffer.size and
-   checkpoint.every cut (listed in the output) so it takes 8 gradient steps
-   and writes a checkpoint after the 4th, checked step by step as in 7:
+   16 x 64, horizon 15, the recipe's 500000-row replay buffer memory-mapped
+   (125000 rows and 1.54 GB of pixels per env), with learning_starts,
+   total_steps and checkpoint.every cut (listed in the output) so it takes
+   8 gradient steps and writes a checkpoint after the 4th (its size and
+   save time printed: it refers to the memmap files, it holds no copy of
+   them), checked step by step, and its tags and files, as in 7:
    every gradient step must launch 64 backwards at B = 16 and 15 at
    B = 1024 (the pathwise actor gradient through the imagination, whose
    cells get no gradient of W or the LayerNorm's parameters) and 64 + 15
@@ -67,9 +78,18 @@ Phases (any failure exits non-zero before the result line):
    B = 1024), save and resume (the checkpoint's digest, every
    restored tensor bit-identical on the card, the resumed CLI run going on
    from gradient step 5), the checkpoint exported and served over HTTP (6
-   actions in [-1, 1], greedy replays byte-identical), and a 32-true
-   continuous gradient step on the card against the CPU with the card's
-   categorical and normal draws replayed.
+   actions in [-1, 1], greedy replays byte-identical), ``python -m
+   sheeprl_tpu_torch.eval`` on its last checkpoint (a process of its own,
+   on the card) logging the trainer's test reward, a 32-true continuous
+   gradient step on the card against the CPU with the card's categorical
+   and normal draws replayed, and device operations per step within 1% of
+   18597.
+9. Replay on the host: one walker env's memory-mapped buffer filled to its
+   125000 rows (under the temporary directory), and one in memory;
+   ``sample`` of 16 x 64 sequences plus the copy to the card timed from
+   each, the memmap's page cache cold (the files unmapped and their pages
+   dropped with ``posix_fadvise``; ``mincore`` reports what stayed) and
+   warm.
 
 Prints one ``{"kernels": [...]}`` line (the streaming forward at B = 16,
 the tensor-core forward at B = 1024, the backward at B = 16 and at
@@ -80,6 +100,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -88,6 +109,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -677,9 +699,8 @@ def phase_reference(path):
 # cut from exp=dreamer_v3_100k_ms_pacman, so the run ends after 8 gradient
 # steps.
 TRAIN_CUTS = {"algo.learning_starts": "128 (from 1024)", "algo.total_steps": "135 (from 100000; 8 gradient steps)",
-              "buffer.size": "4096 (from 100000)"}  # fmt: skip
-TRAIN_ARGS = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "algo.learning_starts=128", "algo.total_steps=135",
-              "buffer.size=4096", "metric.log_every=64"]  # fmt: skip
+              "metric.log_every": "8 (from 5000)"}  # fmt: skip
+TRAIN_ARGS = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "algo.learning_starts=128", "algo.total_steps=135", "metric.log_every=8"]
 FWD_PER_STEP = 64 + 15  # the dynamic scan over T = 64, then the 15-step imagination
 STREAM_PER_STEP = 64  # the dynamic scan's B = 16 streams W
 TC_PER_STEP = 15  # the imagination's B = 16 x 64 = 1024 runs on the tensor cores
@@ -743,20 +764,38 @@ def train_through_cli(args, what, bwd_per_step, keep_params=False):
     imagination's cells (B = 1024) were asked for no gradient of W, the
     LayerNorm scale or its bias, only of their input (continuous actions),
     or for none (discrete actions imagine under no_grad). Returns
-    (out, steps, wall_s, counts, worst_ema); each step is (gradient step,
-    tau, time, metrics, the modules' parameters if ``keep_params``)."""
+    (out, steps, wall_s, counts, worst_ema, trace); each step is (gradient
+    step, tau, time, metrics, the modules' parameters if ``keep_params``);
+    ``trace`` holds the iteration (env step call) of every gradient step and
+    of every episode end, and the seconds each checkpoint took to save."""
     import torch
 
     from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
     from sheeprl_tpu_torch.cli import run
     from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.dummy import SyncVectorEnv
     from sheeprl_tpu_torch.models import ln_gru
 
     if int(compose(args).env.num_envs) in FWD_BY_BATCH:
         fail(f"{what}: the player's batch would be counted as the train step's")
     held, snap, imagined = {}, {}, []
     steps, last, prev_target, worst_ema = [], [None], {}, [0.0]
+    trace = {"env_steps": 0, "grad_iters": [], "episode_iters": [], "save_s": []}
     make_train_step, clip, apply = dv3.make_train_step, dv3._clip, ln_gru.LNGRUFunction.apply
+    env_step, save_checkpoint = SyncVectorEnv.step, dv3.save_checkpoint
+
+    def recording_env_step(envs, actions):
+        result = env_step(envs, actions)
+        trace["env_steps"] += 1
+        if result[4]["episode"]:
+            trace["episode_iters"].append(trace["env_steps"])
+        return result
+
+    def timed_save(*args, **kwargs):
+        t0 = time.perf_counter()
+        path = save_checkpoint(*args, **kwargs)
+        trace["save_s"].append(time.perf_counter() - t0)
+        return path
 
     def holding_make_train_step(agent, optimizers, cfg):
         held["agent"] = agent
@@ -814,6 +853,7 @@ def train_through_cli(args, what, bwd_per_step, keep_params=False):
         prev_target.update({k: v.clone() for k, v in target.items()})
         params = {n: _params(getattr(agent, n)) for n in MODULES} if keep_params else None
         steps.append((step, tau, time.perf_counter(), {k: v.item() for k, v in metrics.items()}, params))
+        trace["grad_iters"].append(trace["env_steps"])
 
     torch.cuda.synchronize()
     zero_counts()
@@ -821,10 +861,85 @@ def train_through_cli(args, what, bwd_per_step, keep_params=False):
     t0 = time.perf_counter()
     with patched(dv3, "make_train_step", holding_make_train_step), patched(dv3, "_clip", checking_clip), patched(
         ln_gru.LNGRUFunction, "apply", recording_apply
-    ):
+    ), patched(SyncVectorEnv, "step", recording_env_step), patched(dv3, "save_checkpoint", timed_save):
         out = run(args, callback=on_step)
     torch.cuda.synchronize()
-    return out, steps, time.perf_counter() - t0, read_counts(), worst_ema[0]
+    return out, steps, time.perf_counter() - t0, read_counts(), worst_ema[0], trace
+
+
+def check_logged(out, cfg, trace, what):
+    """The run's TensorBoard file, read back with ``read_scalars``, holds
+    exactly the tags the JAX package's trainer logs at each of its log steps
+    (tests/test_torch_evaluate.py holds the rule to the JAX package's run):
+    ``Params/replay_ratio`` and ``Time/sps_env_interaction`` at every one;
+    the 13 training means and ``Time/sps_train`` where a gradient step ran
+    since the one before; ``Rewards/rew_avg`` and ``Game/ep_len_avg`` where
+    an episode ended since; ``Test/cumulative_reward`` at step 0. Every value
+    is finite and ``Params/replay_ratio`` is gradient steps / policy steps.
+    Returns {tag: number of log steps}."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.config import AGGREGATOR_METRICS
+    from sheeprl_tpu_torch.utils.logger import read_scalars
+
+    n, every = int(cfg.env.num_envs), int(cfg.metric.log_every)
+    total_iters = int(cfg.algo.total_steps) // n
+    expected, last = {"Test/cumulative_reward": [0]}, 0
+    for it in range(1, total_iters + 1):
+        if it * n - last < every and it != total_iters:
+            continue
+        tags = ["Params/replay_ratio", "Time/sps_env_interaction"]
+        if any(last < g * n <= it * n for g in trace["grad_iters"]):
+            tags += [*AGGREGATOR_METRICS[2:], "Time/sps_train"]
+        if any(last < e * n <= it * n for e in trace["episode_iters"]):
+            tags += list(AGGREGATOR_METRICS[:2])
+        for tag in tags:
+            expected.setdefault(tag, []).append(it * n)
+        last = it * n
+    scalars = read_scalars(out["log_dir"])
+    got = {tag: [step for step, _ in values] for tag, values in scalars.items()}
+    if got != {k: sorted(v) for k, v in expected.items()}:
+        fail(f"{what}: the TensorBoard file holds tags at steps {got}, the JAX package's trainer logs {expected}")
+    bad = [tag for tag, values in scalars.items() if not all(np.isfinite(v) for _, v in values)]
+    if bad:
+        fail(f"{what}: non-finite logged values for {bad}")
+    for step, value in scalars["Params/replay_ratio"]:
+        grads = sum(1 for g in trace["grad_iters"] if g * n <= step)
+        if value != np.float32(grads / step):
+            fail(f"{what}: Params/replay_ratio {value} at policy step {step}, {grads} gradient steps make {grads / step}")
+    if scalars["Test/cumulative_reward"] != [(0, np.float32(out["test_reward"]))]:
+        fail(f"{what}: Test/cumulative_reward {scalars['Test/cumulative_reward']}, the test episode returned {out['test_reward']}")
+    log(f"{what}: the TensorBoard file holds the JAX package's {len(got)} tags at its {len(got['Params/replay_ratio'])} log steps "
+        f"({sum(map(len, got.values()))} scalars, all finite; replay ratio = gradient steps / policy steps); "
+        f"test episode reward {out['test_reward']}")  # fmt: skip
+    return {tag: len(steps) for tag, steps in got.items()}
+
+
+def check_memmap_files(out, cfg, what):
+    """The replay buffer's files: one per key under
+    ``memmap_buffer/rank_0/env_<i>``, each of the recipe's rows (buffer.size
+    / num_envs), and the disk blocks they use (sparse until written)."""
+    import numpy as np
+
+    n = int(cfg.env.num_envs)
+    rows = int(cfg.buffer.size) // n
+    root = os.path.join(out["log_dir"], "memmap_buffer", "rank_0")
+    if sorted(os.listdir(root)) != [f"env_{i}" for i in range(n)]:
+        fail(f"{what}: memmap dirs {sorted(os.listdir(root))}")
+    files = {}
+    for i in range(n):
+        for name in sorted(os.listdir(os.path.join(root, f"env_{i}"))):
+            st = os.stat(os.path.join(root, f"env_{i}", name))
+            files[f"env_{i}/{name}"] = {"bytes": st.st_size, "disk_bytes": st.st_blocks * 512}
+    rgb = files.get("env_0/rgb.memmap", {}).get("bytes")
+    width = int(np.prod((cfg.env.screen_size, cfg.env.screen_size, 3)))
+    if rgb != rows * width or len(files) != 6 * n:
+        fail(f"{what}: memmap files {files}, expected 6 per env and rgb of {rows} x {width} bytes")
+    apparent, used = sum(f["bytes"] for f in files.values()), sum(f["disk_bytes"] for f in files.values())
+    fs = filesystem_of(root)
+    log(f"{what}: memory-mapped replay of {rows} rows x {n} envs: {len(files)} files, {apparent / 1e9:.3f} GB apparent "
+        f"(rgb {rgb / 1e9:.3f} GB per env), {used / 1e6:.2f} MB of disk blocks used, on {fs}")  # fmt: skip
+    return {"rows_per_env": rows, "apparent_bytes": apparent, "disk_bytes_used": used, "filesystem": fs, "files": files}
 
 
 MODULES = ("world_model", "actor", "critic", "target_critic")
@@ -851,7 +966,7 @@ def phase_training(log_root):
     init = build_agent((9,), False, cfg, DictSpace({"rgb": Box((64, 64, 3), "uint8", 0.0, 255.0)}), device="cpu", seed=cfg.seed, training=True)
     before = {name: _params(getattr(init, name)) for name in ("world_model", "actor", "critic")}
     del init
-    out, steps, wall_s, counts, worst_ema = train_through_cli([*TRAIN_ARGS, f"log_root={log_root}"], "training", BWD_BY_BATCH)
+    out, steps, wall_s, counts, worst_ema, trace = train_through_cli([*TRAIN_ARGS, f"log_root={log_root}"], "training", BWD_BY_BATCH)
     n = out["gradient_steps"]
     if n != 8 or len(steps) != 8:
         fail(f"training: {n} gradient steps, expected 8")
@@ -868,6 +983,8 @@ def phase_training(log_root):
     last = out["log"][-1]
     if not all(np.isfinite(v) for v in last.values()):
         fail(f"training: non-finite logged metrics {last}")
+    tags = check_logged(out, cfg, trace, "training")
+    memmap = check_memmap_files(out, cfg, "training")
     fwd, bwd, stream, tc = counts["forward"], counts["backward"], counts["streaming"], counts["tensor_core"]
     step_wall = [b[2] - a[2] for a, b in zip(steps, steps[1:])]
     result = {
@@ -882,6 +999,10 @@ def phase_training(log_root):
         "target_ema_max_abs_err": worst_ema,
         "trainer_wall_ms_between_gradient_steps": statistics.median(step_wall) * 1e3,
         "metrics_last_step": steps[-1][3],
+        "logged_tags": tags,
+        "logged_sps_train": read_tag(out, "Time/sps_train"),
+        "test_reward": out["test_reward"],
+        "memmap": memmap,
     }
     log(f"training: {n} gradient steps in {out['policy_steps']} policy steps, {wall_s:.1f} s; ln_gru_forward {fwd} launches "
         f"({fwd / n:.1f}/step incl. the player; streaming {stream}, tensor core {tc}), ln_gru_backward {bwd} ({bwd / n:.1f}/step); "
@@ -1102,10 +1223,12 @@ def phase_train_reference(args=("exp=dreamer_v3_100k_ms_pacman", "env=dummy"), n
 # from exp=dreamer_v3_dmc_walker_walk: 2 gradient steps per iteration from
 # policy step 264 to 276 make 8, with a checkpoint after the 4th.
 WALKER_CUTS = {"algo.learning_starts": "264 (from 1300)", "algo.total_steps": "276 (from 500000; 8 gradient steps)",
-               "buffer.size": "1024 (from 500000)", "checkpoint.every": "268 (from 10000; one checkpoint after 4 gradient steps)"}  # fmt: skip
+               "checkpoint.every": "268 (from 10000; one checkpoint after 4 gradient steps)", "metric.log_every": "8 (from 5000)"}  # fmt: skip
 WALKER_ARGS = ["exp=dreamer_v3_dmc_walker_walk", "env=dummy", "env.id=continuous_dummy", "algo.learning_starts=264",
-               "algo.total_steps=276", "buffer.size=1024", "checkpoint.every=268", "metric.log_every=64"]  # fmt: skip
+               "algo.total_steps=276", "checkpoint.every=268", "metric.log_every=8"]  # fmt: skip
 WALKER_BWD_PER_STEP = {16: BWD_PER_STEP, IMAGINED_BATCH: TC_PER_STEP}  # the dynamic scan's 64, then the 15 imagined steps
+# The DV3-S gradient step's device operations (torch.profiler) on an H100: the step's own, whatever the loop around it does.
+STEP_OPS = {"discrete": 17731, "continuous": 18597}
 
 
 def phase_continuous_training(log_root):
@@ -1126,7 +1249,7 @@ def phase_continuous_training(log_root):
         f"full DV3-S width, {cfg.fabric.precision}, {cfg.env.num_envs} envs, action repeat {cfg.env.action_repeat}, replay ratio "
         f"{cfg.algo.replay_ratio}, batch {cfg.algo.per_rank_batch_size} x {cfg.algo.per_rank_sequence_length}, horizon {cfg.algo.horizon}; "
         f"cut: {json.dumps(WALKER_CUTS)}")  # fmt: skip
-    out, steps, wall_s, counts, worst_ema = train_through_cli(args, "continuous training", WALKER_BWD_PER_STEP, keep_params=True)
+    out, steps, wall_s, counts, worst_ema, trace = train_through_cli(args, "continuous training", WALKER_BWD_PER_STEP, keep_params=True)
     n = out["gradient_steps"]
     if n != 8 or [s[0] for s in steps] != list(range(1, 9)) or out["policy_steps"] != 276:
         fail(f"continuous training: {n} gradient steps in {out['policy_steps']} policy steps, expected 8 in 276")
@@ -1139,15 +1262,36 @@ def phase_continuous_training(log_root):
     last = out["log"][-1]
     if not all(np.isfinite(v) for v in last.values()):
         fail(f"continuous training: non-finite logged metrics {last}")
+    tags = check_logged(out, cfg, trace, "continuous training")
+    memmap = check_memmap_files(out, cfg, "continuous training")
+    mid = out["checkpoints"][0]
+    ckpt_bytes = {name: os.path.getsize(os.path.join(mid, name)) for name in sorted(os.listdir(mid))}
+    if ckpt_bytes.get("arrays.npz", 0) > 4 * 2**20:
+        fail(f"continuous training: the checkpoint's arrays take {ckpt_bytes} bytes: it copied the replay buffer")
+    step_wall = [b[2] - a[2] for a, b in zip(steps, steps[1:])]
     result = {"cuts": WALKER_CUTS, "gradient_steps": n, "policy_steps": out["policy_steps"], "wall_s": wall_s,
               "ln_gru_launches": counts, "target_ema_max_abs_err": worst_ema, "checkpoints": out["checkpoints"],
-              "metrics_last_step": steps[-1][3]}  # fmt: skip
+              "trainer_wall_ms_between_gradient_steps": statistics.median(step_wall) * 1e3,
+              "trainer_wall_ms_from_an_iterations_last_gradient_step_to_the_next": statistics.median(step_wall[1::2]) * 1e3,
+              "checkpoint_bytes": ckpt_bytes, "checkpoint_total_bytes": sum(ckpt_bytes.values()), "checkpoint_save_s": trace["save_s"],
+              "logged_tags": tags, "logged_sps_train": read_tag(out, "Time/sps_train"), "test_reward": out["test_reward"],
+              "memmap": memmap, "metrics_last_step": steps[-1][3]}  # fmt: skip
     log(f"continuous training: {n} gradient steps in {out['policy_steps']} policy steps, {wall_s:.1f} s; ln_gru forward "
         f"{counts['forward']} (streaming {counts['streaming']}, tensor core {counts['tensor_core']}; by batch {counts['forward_by_batch']}), "
         f"backward {counts['backward']} (by batch {counts['backward_by_batch']}): per step 64 + 15 backwards, as required; "
         f"the imagination's cells got no dW; the actor's loss left the world model's and critic's gradients as they were")  # fmt: skip
+    log(f"continuous training: mid-run checkpoint {os.path.basename(mid)}: {result['checkpoint_total_bytes'] / 1e6:.2f} MB "
+        f"({json.dumps(ckpt_bytes)}), saved in {trace['save_s'][0]:.3f} s (end of run: {trace['save_s'][-1]:.3f} s); "
+        f"median {result['trainer_wall_ms_between_gradient_steps']:.1f} ms between gradient steps")  # fmt: skip
     log(f"continuous training: last step {json.dumps({k: float(f'{v:.5g}') for k, v in steps[-1][3].items()})}")
     return result, out, steps, cfg
+
+
+def read_tag(out, tag):
+    """[(policy step, value)] of one tag of a run's TensorBoard file."""
+    from sheeprl_tpu_torch.utils.logger import read_scalars
+
+    return read_scalars(out["log_dir"]).get(tag, [])
 
 
 def phase_resume(out, steps, log_root):
@@ -1205,8 +1349,11 @@ def phase_resume(out, steps, log_root):
     del agent, optimizers
     torch.cuda.empty_cache()
 
-    resumed, rsteps, wall_s, counts, _ = train_through_cli([*args, f"checkpoint.resume_from={mid}"], "resumed training",
-                                                           WALKER_BWD_PER_STEP, keep_params=True)  # fmt: skip
+    refs = state["rb"]["buffers"][0]["memmap"]
+    if not os.path.isfile(refs["rgb"]["filename"]) or refs["rgb"]["shape"] != [125000, 1, 64, 64, 3]:
+        fail(f"resume: the checkpoint's buffer does not refer to the walker's memmap files: {refs['rgb']}")
+    resumed, rsteps, wall_s, counts, _, _ = train_through_cli([*args, f"checkpoint.resume_from={mid}"], "resumed training",
+                                                              WALKER_BWD_PER_STEP, keep_params=True)  # fmt: skip
     if [s[0] for s in rsteps] != [5, 6, 7, 8] or resumed["gradient_steps"] != 8 or resumed["policy_steps"] != 276:
         fail(f"resume: gradient steps {[s[0] for s in rsteps]}, {resumed['gradient_steps']} in all, {resumed['policy_steps']} policy steps; "
              "expected 5..8, 8 and 276")  # fmt: skip
@@ -1284,6 +1431,157 @@ def phase_export_serve(ckpt, workdir):
     return result
 
 
+def phase_eval(ckpt, test_reward):
+    """``python -m sheeprl_tpu_torch.eval checkpoint_path=<ckpt>`` in a
+    process of its own, on the card by default: it logs
+    ``Test/cumulative_reward`` under ``<run>/<version>/evaluation/version_0``,
+    equal to the trainer's own test episode's."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.utils.logger import read_scalars
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sheeprl_tpu_torch.eval", f"checkpoint_path={ckpt}"], cwd=REPO,
+                          capture_output=True, text=True, timeout=600)  # fmt: skip
+    wall_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"eval: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+    eval_dir = os.path.join(os.path.dirname(os.path.dirname(ckpt)), "evaluation", "version_0")
+    logged = read_scalars(eval_dir)
+    if logged != {"Test/cumulative_reward": [(0, np.float32(test_reward))]}:
+        fail(f"eval: logged {logged} under {eval_dir}, the trainer's test episode returned {test_reward}")
+    log(f"eval: python -m sheeprl_tpu_torch.eval on {os.path.basename(ckpt)} logged Test/cumulative_reward "
+        f"{logged['Test/cumulative_reward'][0][1]} = the trainer's test reward, in {wall_s:.1f} s")  # fmt: skip
+    return {"checkpoint": ckpt, "wall_s": wall_s, "test_reward": logged["Test/cumulative_reward"][0][1]}
+
+
+def phase_replay_sample(reps: int = 10):
+    """One walker env's replay buffer filled to its 125000 rows (the
+    recipe's 500000 over 4 envs: 1.54 GB of 64x64x3 pixels), memory-mapped
+    and in memory; ``sample`` of 16 x 64 sequences (one gradient step's
+    batch) plus its copy to the card, timed from each: for the memmap with
+    its page cache cold (the files unmapped and their pages dropped with
+    ``posix_fadvise`` before each sample) and warm (after the file was read
+    once), with the share of the pixels' pages in the page cache before each
+    sample (``mincore``) and the filesystem that holds the files: a fresh
+    directory under the temporary directory (``TMPDIR``), where the host's
+    own disk is, rather than the checkout's mount."""
+    import numpy as np
+    import torch
+
+    rows, chunk = 125000, 5000
+    rng = np.random.default_rng(0)
+    block = {
+        "rgb": rng.integers(0, 256, (chunk, 1, 64, 64, 3), dtype=np.uint8),
+        "actions": rng.uniform(-1, 1, (chunk, 1, 6)).astype(np.float32),
+        **{k: np.zeros((chunk, 1, 1), np.float32) for k in ("rewards", "terminated", "truncated", "is_first")},
+    }
+    root = tempfile.mkdtemp(prefix="replay_sample-")
+    try:
+        result = _replay_sample(root, rows, chunk, block, torch.device("cuda"), reps)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log("replay sample (one walker env, 125000 rows, 16 x 64 sequences + copy to the card, median of "
+        f"{reps}): " + ", ".join(f"{k} {v['sample_ms']:.2f} ms sample / {v['sample_and_h2d_ms']:.2f} ms with the copy"
+                                 + (f" (rgb pages resident {v['rgb_pages_resident_before_sample']:.3f})" if v["rgb_pages_resident_before_sample"] is not None else "")
+                                 for k, v in result.items() if k != "filesystem")
+        + f"; batch {result['memory']['batch_bytes'] / 1e6:.2f} MB; filled in {result['memmap_cold']['fill_s']:.1f} s (memmap) "
+        f"and {result['memory']['fill_s']:.1f} s (memory); files on {result['filesystem']}")  # fmt: skip
+    return result
+
+
+def _replay_sample(root, rows, chunk, block, dev, reps):
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.data.buffers import SequentialReplayBuffer
+
+    result = {"filesystem": filesystem_of(root)}
+    for kind in ("memmap", "memory"):
+        kwargs = {"memmap": True, "memmap_dir": os.path.join(root, "replay_sample")} if kind == "memmap" else {}
+        rb = SequentialReplayBuffer(rows, n_envs=1, obs_keys=("rgb",), **kwargs)
+        rb.seed(0)
+        t0 = time.perf_counter()
+        for start in range(0, rows, chunk):
+            rb.add({k: v if k != "rgb" else np.roll(v, start, axis=0) for k, v in block.items()})
+        fill_s = time.perf_counter() - t0
+        files = [os.path.join(root, "replay_sample", f) for f in os.listdir(os.path.join(root, "replay_sample"))] if kind == "memmap" else []
+        for f in files:
+            rb.buffer[os.path.basename(f)[: -len(".memmap")]].array.flush()
+
+        def drop_cache():
+            for v in rb.buffer.values():
+                v.array.flush()
+                v._array = None  # unmapped: the kernel keeps the pages of a live mapping; the next access maps the file again
+            gc.collect()
+            for f in files:
+                fd = os.open(f, os.O_RDONLY)
+                try:
+                    os.fsync(fd)
+                    os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+                finally:
+                    os.close(fd)
+            return resident_share(rb.buffer["rgb"].array) if files else None
+
+        def sample_to_card():
+            t = time.perf_counter()
+            batch = rb.sample(16, sequence_length=64, n_samples=1)
+            t_host = time.perf_counter()
+            on_card = {k: torch.from_numpy(np.ascontiguousarray(v[0])).to(dev) for k, v in batch.items()}
+            torch.cuda.synchronize()
+            return (t_host - t) * 1e3, (time.perf_counter() - t) * 1e3, sum(x.numel() * x.element_size() for x in on_card.values())
+
+        modes = ("cold", "warm") if kind == "memmap" else ("memory",)
+        for mode in modes:
+            if mode == "warm":
+                for f in files:
+                    with open(f, "rb") as fp:
+                        while fp.read(1 << 24):
+                            pass
+            sample_to_card()  # the copy path warmed up
+            host, total, resident = [], [], []
+            for _ in range(reps):
+                if mode == "cold":
+                    resident.append(drop_cache())
+                elif files:
+                    resident.append(resident_share(rb.buffer["rgb"].array))
+                h, t, nbytes = sample_to_card()
+                host.append(h)
+                total.append(t)
+            result[f"{kind}_{mode}" if kind == "memmap" else kind] = {
+                "sample_ms": statistics.median(host), "sample_and_h2d_ms": statistics.median(total),
+                "sample_and_h2d_ms_min": min(total), "sample_and_h2d_ms_max": max(total), "batch_bytes": nbytes, "fill_s": fill_s,
+                "rgb_pages_resident_before_sample": statistics.mean(resident) if resident else None,
+            }  # fmt: skip
+        del rb
+        gc.collect()
+    if os.listdir(os.path.join(root, "replay_sample")):
+        fail(f"replay sample: the memmap buffer left its files behind: {os.listdir(os.path.join(root, 'replay_sample'))}")
+    return result
+
+
+def resident_share(arr) -> float:
+    """The share of a memory-mapped array's pages in the page cache (mincore)."""
+    import ctypes
+
+    import numpy as np
+
+    page = os.sysconf("SC_PAGE_SIZE")
+    vec = (ctypes.c_ubyte * (-(-arr.nbytes // page)))()
+    if ctypes.CDLL(None, use_errno=True).mincore(ctypes.c_void_p(arr.ctypes.data), ctypes.c_size_t(arr.nbytes), vec) != 0:
+        fail(f"mincore failed: errno {ctypes.get_errno()}")
+    return float((np.frombuffer(vec, np.uint8) & 1).mean())
+
+
+def filesystem_of(path) -> str:
+    """'<mount point> (<type>)' of the filesystem that holds ``path``."""
+    path = os.path.realpath(path)
+    with open("/proc/mounts") as fp:
+        mounts = [line.split()[1:3] for line in fp]
+    point, kind = max((m for m in mounts if path == m[0] or path.startswith(m[0].rstrip("/") + "/")), key=lambda m: len(m[0]))
+    return f"{point} ({kind})"
+
+
 def main() -> None:
     import warnings
 
@@ -1328,13 +1626,19 @@ def main() -> None:
         continuous_profile = phase_train_profile(cont_out["agent"], wcfg, bwd_per_step=WALKER_BWD_PER_STEP, what="continuous step profile")
         resume = phase_resume(cont_out, cont_steps, workdir)
         continuous_serving = phase_export_serve(cont_out["checkpoints"][-1], workdir)
+        evaluation = phase_eval(cont_out["checkpoints"][-1], cont_out["test_reward"])
         del cont_out, cont_steps
         torch.cuda.empty_cache()
         continuous_reference = phase_train_reference(
             ("exp=dreamer_v3_dmc_walker_walk", "env=dummy", "env.id=continuous_dummy"), 6, True, "continuous reference"
         )
+        replay_sample = phase_replay_sample()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    # Device operations per gradient step: the trainer's host side (replay, metrics, logging) adds none to the step's.
+    for what, profile, ops in (("discrete", train_profile, STEP_OPS["discrete"]), ("continuous", continuous_profile, STEP_OPS["continuous"])):
+        if abs(profile["device_ops_per_step"] - ops) > 0.01 * ops:
+            fail(f"{what} step: {profile['device_ops_per_step']} device operations per gradient step, expected {ops} within 1%")
 
     # The training path's shapes in bf16-mixed: the dynamic scan's B = 16
     # (streaming), the imagination's B = 1024 (tensor cores).
@@ -1397,6 +1701,8 @@ def main() -> None:
         "resume": resume,
         "continuous_serving": continuous_serving,
         "continuous_reference": continuous_reference,
+        "evaluation": evaluation,
+        "replay_sample": replay_sample,
         "kernels": kernels_line["kernels"],
     }
     out_dir = os.path.join(REPO, "chiprun_out")

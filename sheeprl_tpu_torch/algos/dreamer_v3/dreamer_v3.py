@@ -22,19 +22,21 @@ stages run under ``torch.profiler.record_function`` spans (``dv3/world_model``,
 to split a step's time.
 
 :func:`main` is the serial subset of ``dreamer_v3.main``: prefill with random
-actions, ``rb.add`` of every step (reset rows included), ``player_step``,
-``Ratio``-driven gradient steps with the target critic's cadence, and losses
-printed every ``metric.log_every`` policy steps, checkpoints and resume.
-Not ported yet (ROADMAP): the Anakin lane, the device replay ring, the
-infeed, the interaction pipeline, memory-mapped buffers, telemetry, the
-logger, health probes, the preemption guard and the test episode.
+actions, ``rb.add`` of every step (reset rows included) into a memory-mapped
+or in-memory buffer, ``player_step``, ``Ratio``-driven gradient steps with
+the target critic's cadence, the metric aggregator, timers and TensorBoard
+logger every ``metric.log_every`` policy steps, checkpoints and resume, and
+the greedy test episode at the end. The step's metrics stay on the device
+until a log point reads them back in one transfer. Not ported yet (ROADMAP):
+the Anakin lane, the device replay ring, the infeed, the interaction
+pipeline, telemetry, health probes and the preemption guard.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -49,12 +51,13 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     continuous_log_prob_and_entropy,
 )
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
-from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_player_obs, prepare_obs
+from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_player_obs, prepare_obs, test
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.envs.dummy import make_dummy_vector_env
 from sheeprl_tpu_torch.optim import adam
+from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Discrete
 from sheeprl_tpu_torch.utils.distribution import (
     BatchGenerator,
@@ -74,8 +77,11 @@ from sheeprl_tpu_torch.utils.checkpoint import (
     save_checkpoint,
     validate_checkpoint,
 )
+from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
+from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator
 from sheeprl_tpu_torch.utils.ops import compute_lambda_values, init_moments, update_moments
-from sheeprl_tpu_torch.utils.utils import Ratio, dotdict
+from sheeprl_tpu_torch.utils.timer import timer
+from sheeprl_tpu_torch.utils.utils import Ratio, dotdict, save_configs
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -331,23 +337,12 @@ def load_training_state(
     return {k: v.to(device) for k, v in state["moments"].items()}
 
 
-def _versioned_dir(run_dir: str) -> str:
-    """Make and return ``<run_dir>/version_<N>``, N one more than the
-    largest there (the JAX package's log-dir layout)."""
-    try:
-        existing = [int(d[len("version_") :]) for d in os.listdir(run_dir) if d.startswith("version_") and d[len("version_") :].isdigit()]
-    except OSError:
-        existing = []
-    path = os.path.abspath(os.path.join(run_dir, f"version_{max(existing, default=-1) + 1}"))
-    os.makedirs(path)
-    return path
-
-
 def resume_config(cfg) -> dotdict:
     """The config of a run resumed from ``cfg.checkpoint.resume_from``: the
     saved run's ``config.json`` (two levels above the checkpoint) merged over
     ``cfg``, keeping only ``cfg``'s ``algo.total_steps``,
-    ``algo.learning_starts``, ``log_root``, ``root_dir`` and ``device``, as
+    ``algo.learning_starts``, ``log_root``, ``root_dir``, ``run_name`` and
+    ``device``, as
     the JAX package's ``resume_from_checkpoint`` does. ``resume_from`` may
     name a checkpoint or a directory of them (the newest valid one is
     taken), and becomes the checkpoint's path. Raises when ``env.id`` or
@@ -365,7 +360,7 @@ def resume_config(cfg) -> dotdict:
     for key, what in (("env", "id"), ("algo", "name")):
         if old[key][what] != cfg[key][what]:
             raise ValueError(f"The checkpoint's run has {key}.{what}={old[key][what]}, this one {cfg[key][what]}: resume with the same {key}.{what}")
-    for key in ("log_root", "root_dir", "device"):
+    for key in ("log_root", "root_dir", "run_name", "device"):
         old.pop(key, None)
     for key in ("total_steps", "learning_starts"):
         old["algo"].pop(key, None)
@@ -389,30 +384,42 @@ def _one_hot(actions: np.ndarray, actions_dim) -> np.ndarray:
     return np.concatenate([np.eye(int(d), dtype=np.float32)[actions[:, i]] for i, d in enumerate(actions_dim)], -1)
 
 
+@register_algorithm()
 def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]] = None) -> Dict[str, Any]:
     """Train DreamerV3 on ``cfg`` (see :mod:`sheeprl_tpu_torch.config`) on
     ``cfg.device``. ``callback(agent, gradient_step, tau, metrics)`` runs
     after every gradient step.
 
-    The run writes under ``<log_root>/<root_dir>/<time>_<algo>_<env.id>_<seed>/version_<N>``
-    (the log dir). Checkpoints go to ``<log dir>/checkpoint/ckpt_<policy_step>_0.ckpt``
-    every ``checkpoint.every`` policy steps and at the end with
-    ``checkpoint.save_last``, beside the run's ``config.json``. They hold the
+    The run writes under ``<log_root>/<root_dir>/<run_name>/version_<N>``
+    (the log dir): ``config.json`` and ``hparams.json``; with
+    ``metric.log_level`` > 0 an ``events.out.tfevents.*`` file of the
+    aggregator's means, ``Params/replay_ratio``, ``Time/sps_train`` and
+    ``Time/sps_env_interaction`` every ``metric.log_every`` policy steps and
+    at the end, and ``Test/cumulative_reward`` at step 0 from the test
+    episode (``algo.run_test``); with ``buffer.memmap`` the replay buffer's
+    files under ``memmap_buffer/rank_0/env_<i>``. Checkpoints go to
+    ``checkpoint/ckpt_<policy_step>_0.ckpt`` every ``checkpoint.every``
+    policy steps and at the end with ``checkpoint.save_last``. They hold the
     modules, the optimizers, the moments, the ``Ratio``, the counters, both
     noise sources, the envs, the pending observation row, the player's
     state, the spaces' specs (for ``serve export``), and with
-    ``buffer.checkpoint`` the replay buffer.
+    ``buffer.checkpoint`` the replay buffer (a memory-mapped one by
+    reference: its files then outlive the run).
     ``checkpoint.resume_from=<ckpt>`` (or ``=<log dir>/checkpoint``, for the
     newest valid one) continues from one, with the saved run's config
-    (:func:`resume_config`). With the buffer in
-    the checkpoint the resumed run is the uninterrupted one, step for step;
-    without it, it skips the random prefill and waits ``learning_starts``
-    policy steps of the player's actions before training again, as the JAX
-    package does (which waits so with the buffer restored too).
+    (:func:`resume_config`). With the buffer in the checkpoint the resumed
+    run is the uninterrupted one, step for step, as long as the buffer did
+    not wrap past the checkpoint's write head after the save (a
+    memory-mapped buffer's files go on being written); without it, the run
+    skips the random prefill and waits ``learning_starts`` policy steps of
+    the player's actions before training again, as the JAX package does
+    (which waits so with the buffer restored too). ``dry_run`` runs one
+    iteration that trains at once on a buffer of 2 rows per env.
 
     Returns {"agent", "optimizers", "moments", "policy_steps",
-    "gradient_steps", "log", "log_dir", "checkpoints"}: ``log`` holds the
-    mean metrics of every logging interval as floats."""
+    "gradient_steps", "log", "log_dir", "checkpoints", "test_reward"}:
+    ``log`` holds, for every log point, the policy and gradient steps and
+    the values logged there."""
     if cfg.checkpoint.resume_from:
         cfg = resume_config(cfg)
     device = resolve_device(cfg.device)
@@ -430,10 +437,13 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
         raise RuntimeError("The CNN keys or the MLP keys of the encoder and decoder must not be disjointed")
     state_ckpt = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
     np.random.seed(cfg.seed)  # the replay buffers derive their sampling streams from it
+    timer.reset()
 
-    log_dir = _versioned_dir(os.path.join(cfg.log_root, cfg.root_dir, f"{time.strftime('%Y-%m-%d_%H-%M-%S')}_{cfg.algo.name}_{cfg.env.id}_{cfg.seed}"))
-    with open(os.path.join(log_dir, "config.json"), "w") as fp:
-        json.dump(cfg, fp, indent=2)
+    logger = get_logger(cfg)
+    if logger is not None:
+        logger.log_hyperparams(cfg)
+    log_dir = get_log_dir(os.path.join(cfg.log_root, cfg.root_dir), cfg.run_name, logger=logger)
+    print(f"Log dir: {log_dir}", flush=True)
 
     num_envs = int(cfg.env.num_envs)
     envs = make_dummy_vector_env(
@@ -456,24 +466,44 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
     train_rng = BatchGenerator.from_seed(cfg.seed, device)
     player_rng = BatchGenerator.from_seed(cfg.seed + 1, device)
 
+    save_configs(cfg, log_dir)
+    aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.aggregator)
+
+    policy_steps_per_iter = num_envs
     rb = EnvIndependentReplayBuffer(
-        int(cfg.buffer.size) // num_envs, n_envs=num_envs, obs_keys=obs_keys, buffer_cls=SequentialReplayBuffer
+        int(cfg.buffer.size) // num_envs if not cfg.dry_run else 2,
+        n_envs=num_envs,
+        obs_keys=obs_keys,
+        memmap=bool(cfg.buffer.memmap),
+        memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"),
+        memmap_mode=str(cfg.buffer.memmap_mode),
+        buffer_cls=SequentialReplayBuffer,
     )
     ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
-    policy_steps_per_iter = num_envs
-    total_iters = int(cfg.algo.total_steps // policy_steps_per_iter)
-    learning_starts = int(cfg.algo.learning_starts // policy_steps_per_iter)
+    total_iters = int(cfg.algo.total_steps // policy_steps_per_iter) if not cfg.dry_run else 1
+    learning_starts = int(cfg.algo.learning_starts // policy_steps_per_iter) if not cfg.dry_run else 0
     prefill_steps = learning_starts - int(learning_starts > 0)
     freq = int(cfg.algo.critic.per_rank_target_network_update_freq)
     batch_size = int(cfg.algo.per_rank_batch_size)
     seq_len = int(cfg.algo.per_rank_sequence_length)
+    if cfg.metric.log_level > 0 and cfg.metric.log_every % policy_steps_per_iter != 0:
+        warnings.warn(
+            f"The metric.log_every parameter ({cfg.metric.log_every}) is not a multiple of the "
+            f"policy_steps_per_iter value ({policy_steps_per_iter}), so "
+            "the metrics will be logged at the nearest greater multiple of the policy_steps_per_iter value."
+        )
+    if cfg.checkpoint.every % policy_steps_per_iter != 0:
+        warnings.warn(
+            f"The checkpoint.every parameter ({cfg.checkpoint.every}) is not a multiple of the "
+            f"policy_steps_per_iter value ({policy_steps_per_iter}), so "
+            "the checkpoint will be saved at the nearest greater multiple of the policy_steps_per_iter value."
+        )
 
     start_iter, policy_step, gradient_steps, last_log, last_checkpoint = 1, 0, 0, 0, 0
+    train_step_count, last_train = 0, 0
     pending: List[Metrics] = []
-    episodes: List[float] = []
     log: List[Dict[str, float]] = []
     checkpoints: List[str] = []
-    t_log = time.perf_counter()
 
     obs = envs.reset(seed=cfg.seed)[0]
     step_data: Dict[str, np.ndarray] = {k: obs[k][np.newaxis] for k in obs_keys}
@@ -503,25 +533,31 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
 
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
-        if iter_num <= learning_starts and state_ckpt is None:
-            real_actions = actions = envs.sample_actions()
-            if not is_continuous:
-                actions = _one_hot(actions, actions_dim)
-        else:
-            prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
-            obs_t = normalize_player_obs({k: torch.from_numpy(v).to(device) for k, v in prepared.items()}, cnn_keys)
-            actions_t, real_t, player_state = agent.player_step(player_state, obs_t, player_rng)
-            actions = actions_t.float().cpu().numpy()
-            real_actions = actions if is_continuous else real_t.cpu().numpy()
-            if isinstance(action_space, Discrete):
-                real_actions = real_actions[:, 0]
-        step_data["actions"] = actions.reshape((1, num_envs, -1)).astype(np.float32)
-        rb.add(step_data, validate_args=cfg.buffer.validate_args)
-        next_obs, rewards, terminated, truncated, infos = envs.step(real_actions)
-        dones = np.logical_or(terminated, truncated).astype(np.uint8)
-        episodes.extend(ret for _, ret, _ in infos["episode"])
+        with timer("Time/env_interaction_time"):
+            if iter_num <= learning_starts and state_ckpt is None:
+                real_actions = actions = envs.sample_actions()
+                if not is_continuous:
+                    actions = _one_hot(actions, actions_dim)
+            else:
+                prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
+                obs_t = normalize_player_obs({k: torch.from_numpy(v).to(device) for k, v in prepared.items()}, cnn_keys)
+                actions_t, real_t, player_state = agent.player_step(player_state, obs_t, player_rng)
+                actions = actions_t.float().cpu().numpy()
+                real_actions = actions if is_continuous else real_t.cpu().numpy()
+                if isinstance(action_space, Discrete):
+                    real_actions = real_actions[:, 0]
+            step_data["actions"] = actions.reshape((1, num_envs, -1)).astype(np.float32)
+            rb.add(step_data, validate_args=cfg.buffer.validate_args)
+            next_obs, rewards, terminated, truncated, infos = envs.step(real_actions)
+            dones = np.logical_or(terminated, truncated).astype(np.uint8)
 
         step_data["is_first"] = np.zeros_like(step_data["terminated"])
+        if cfg.metric.log_level > 0:
+            for i, ep_rew, ep_len in infos["episode"]:
+                if aggregator is not None:
+                    aggregator.update("Rewards/rew_avg", float(ep_rew))
+                    aggregator.update("Game/ep_len_avg", float(ep_len))
+                print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
         real_next_obs = {k: v.copy() for k, v in next_obs.items()}
         for idx in np.nonzero(dones)[0]:
             for k, v in infos["final_obs"][idx].items():
@@ -557,27 +593,45 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
             if per_rank_gradient_steps > 0:
                 sample = rb.sample(batch_size, sequence_length=seq_len, n_samples=per_rank_gradient_steps)
                 taus = target_update_taus(gradient_steps, per_rank_gradient_steps, freq, cfg.algo.critic.tau)
-                for i in range(per_rank_gradient_steps):
-                    data = {k: torch.from_numpy(np.ascontiguousarray(v[i])).to(device) for k, v in sample.items()}
-                    moments, metrics = train_step(moments, data, train_rng, float(taus[i]))
-                    gradient_steps += 1
-                    pending.append(metrics)
-                    if callback is not None:
-                        callback(agent, gradient_steps, float(taus[i]), metrics)
+                with timer("Time/train_time"):
+                    for i in range(per_rank_gradient_steps):
+                        data = {k: torch.from_numpy(np.ascontiguousarray(v[i])).to(device) for k, v in sample.items()}
+                        moments, metrics = train_step(moments, data, train_rng, float(taus[i]))
+                        gradient_steps += 1
+                        if aggregator is not None:
+                            pending.append(metrics)  # the device's 0-d tensors, read back at the log point
+                        if callback is not None:
+                            callback(agent, gradient_steps, float(taus[i]), metrics)
+                    train_step_count += 1
 
         # -------------------------------------------------------- logging
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters):
             row: Dict[str, float] = {"policy_step": float(policy_step), "gradient_steps": float(gradient_steps)}
-            if pending:
-                keys = list(pending[0])
-                means = torch.stack([torch.stack([m[k].float() for k in keys]) for m in pending]).mean(0).tolist()
-                row.update(zip(keys, means))
-            if episodes:
-                row["Rewards/rew_avg"] = float(np.mean(episodes))
-            row["Time/sps"] = (policy_step - last_log) / (time.perf_counter() - t_log)
+            if aggregator is not None:
+                for metrics in pending:
+                    for k, v in metrics.items():
+                        if k in aggregator:
+                            aggregator.update(k, v)
+                row.update(aggregator.log_and_reset(logger, policy_step))
+            pending = []
+            if logger is not None:
+                logged: Dict[str, float] = {}
+                if policy_step > 0:
+                    logged["Params/replay_ratio"] = gradient_steps / policy_step
+                if not timer.disabled:
+                    timer_metrics = timer.compute()
+                    if timer_metrics.get("Time/train_time", 0) > 0:
+                        logged["Time/sps_train"] = (train_step_count - last_train) / timer_metrics["Time/train_time"]
+                    if timer_metrics.get("Time/env_interaction_time", 0) > 0:
+                        logged["Time/sps_env_interaction"] = (
+                            (policy_step - last_log) * cfg.env.action_repeat / timer_metrics["Time/env_interaction_time"]
+                        )
+                    timer.reset()
+                logger.log_dict(logged, policy_step)
+                row.update(logged)
+            last_log, last_train = policy_step, train_step_count
             log.append(row)
             print(" ".join(f"{k}={v:.6g}" for k, v in row.items()), flush=True)
-            pending, episodes, last_log, t_log = [], [], policy_step, time.perf_counter()
 
         # ----------------------------------------------------- checkpoint
         if (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every) or (
@@ -595,6 +649,10 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
                 ckpt_state["rb"] = rb.state_dict()
             path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
+
+    test_reward = test(agent, cfg, log_dir, logger) if cfg.algo.run_test else None
+    if logger is not None:
+        logger.close()
     return {
         "agent": agent,
         "optimizers": optimizers,
@@ -604,4 +662,5 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
         "log": log,
         "log_dir": log_dir,
         "checkpoints": checkpoints,
+        "test_reward": test_reward,
     }

@@ -1,30 +1,90 @@
-"""Command line of the port's trainer::
+"""Command lines of the port::
 
     python -m sheeprl_tpu_torch exp=dreamer_v3_100k_ms_pacman env=dummy [key=value ...] [device=cpu]
+    python -m sheeprl_tpu_torch.eval checkpoint_path=<run>/version_N/checkpoint/ckpt_<step>_0.ckpt [key=value ...] [device=cpu]
 
-It runs on ``cuda`` unless ``device=cpu`` is given, and raises without a
-card. It raises on an ``exp`` or ``env`` the port does not have yet (it has
-``exp=dreamer_v3_100k_ms_pacman`` and ``env=dummy``) and on an unknown key.
-Keys are those of :mod:`sheeprl_tpu_torch.config`, e.g.
-``algo.learning_starts=128 algo.total_steps=136 buffer.size=4096``.
+Both run on ``cuda`` unless ``device=cpu`` is given, and raise without a
+card. The trainer raises on an ``exp`` or ``env`` the port does not have yet
+(it has ``exp=dreamer_v3_100k_ms_pacman``, ``exp=dreamer_v3_dmc_walker_walk``
+and ``env=dummy``) and on an unknown key. Keys are those of
+:mod:`sheeprl_tpu_torch.config`, e.g. ``algo.learning_starts=128
+algo.total_steps=136 buffer.size=4096``.
 """
 
 from __future__ import annotations
 
+import importlib
+import json
+import os
+import pathlib
 import sys
 from typing import Any, Dict, Optional, Sequence
 
-from sheeprl_tpu_torch.config import compose
+from sheeprl_tpu_torch.config import compose, parse_overrides, set_overrides
+from sheeprl_tpu_torch.core.device import resolve_device
+from sheeprl_tpu_torch.registry import algorithm_registry, evaluation_registry, register_all
+from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+from sheeprl_tpu_torch.utils.metric import MetricAggregator
+from sheeprl_tpu_torch.utils.timer import timer
+from sheeprl_tpu_torch.utils.utils import dotdict
+
+
+def _prune_metric_keys(cfg, aggregator_keys) -> None:
+    """Keep the aggregator's metrics the algorithm logs, and set the timer's
+    and the aggregator's ``disabled`` flags from ``metric.log_level`` and
+    ``metric.disable_timer`` (reference: cli.py:151-181)."""
+    timer.disabled = cfg.metric.log_level == 0 or cfg.metric.disable_timer
+    for k in set(cfg.metric.aggregator.metrics) - set(aggregator_keys):
+        cfg.metric.aggregator.metrics.pop(k, None)
+    MetricAggregator.disabled = cfg.metric.log_level == 0 or len(cfg.metric.aggregator.metrics) == 0
 
 
 def run(args: Optional[Sequence[str]] = None, callback=None) -> Dict[str, Any]:
     """Compose the config from ``args`` (``sys.argv[1:]`` by default) and
-    train; returns what :func:`sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3.main`
-    returns."""
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import main
-
+    train with the algorithm ``algo.name`` registers; returns what its
+    ``main`` returns (for DreamerV3,
+    :func:`sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3.main`)."""
     argv = list(args) if args is not None else sys.argv[1:]
     if argv and argv[0] in ("-h", "--help"):
         print(__doc__)
         return {}
-    return main(compose(argv), callback=callback)
+    register_all()
+    cfg = compose(argv)
+    entry = algorithm_registry[cfg.algo.name]
+    utils_module = importlib.import_module(entry.module.rsplit(".", 1)[0] + ".utils")
+    _prune_metric_keys(cfg, utils_module.AGGREGATOR_KEYS)
+    return entry.entrypoint(cfg, callback=callback)
+
+
+def evaluation(args: Optional[Sequence[str]] = None) -> Any:
+    """Evaluate a checkpoint: the run's ``config.json`` (two levels above the
+    checkpoint) with the command line's overrides on top, ``env.num_envs`` 1
+    unless set, on ``cuda`` unless ``device=...`` is given, logging under
+    ``<run>/<version>/evaluation/version_<N>`` (reference: cli.py:433-)."""
+    overrides = list(args) if args is not None else sys.argv[1:]
+    ckpt = [o for o in overrides if o.startswith("checkpoint_path=")]
+    if not ckpt:
+        raise ValueError("You must specify checkpoint_path=<path-to-checkpoint>")
+    checkpoint_path = pathlib.Path(ckpt[-1].split("=", 1)[1]).absolute()
+    kv = parse_overrides([o for o in overrides if not o.startswith("checkpoint_path=")])
+    with open(checkpoint_path.parent.parent / "config.json") as fp:
+        cfg = json.load(fp)
+    set_overrides(cfg, kv)
+    cfg = dotdict(cfg)
+    # <run_name>/<version_N>/evaluation beside the evaluated run.
+    cfg.root_dir = str(checkpoint_path.parent.parent.parent.parent)
+    cfg.run_name = os.path.join(checkpoint_path.parent.parent.parent.name, checkpoint_path.parent.parent.name, "evaluation")
+    cfg.checkpoint.resume_from = str(checkpoint_path)
+    if "env.num_envs" not in kv:
+        cfg.env.num_envs = 1
+    if "device" not in kv:
+        cfg.device = "cuda"
+    resolve_device(cfg.device)
+    register_all()
+    if cfg.algo.name not in evaluation_registry:
+        raise RuntimeError(
+            f"Given the algorithm named '{cfg.algo.name}', no evaluation entrypoint has been registered. "
+            f"Available: {sorted(evaluation_registry)}"
+        )
+    state = load_checkpoint(str(checkpoint_path))
+    return evaluation_registry[cfg.algo.name].entrypoint(cfg, state)

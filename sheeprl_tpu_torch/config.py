@@ -4,21 +4,27 @@
 held here as the JAX package composes them from configs/exp/<name>.yaml,
 exp/dreamer_v3.yaml, algo/dreamer_v3.yaml, algo/dreamer_v3_S.yaml (DreamerV3-S:
 512 units, 2 layers, recurrent state 512, CNN multiplier 32; 64x64 rgb;
-bf16-mixed) and the ``checkpoint`` and ``buffer`` groups, cut to the keys the
-port reads (``buffer.memmap`` is left out: buffers are in memory). The
+bf16-mixed), the ``checkpoint``, ``buffer`` and ``metric`` groups and
+configs/config.yaml's run names, cut to the keys the port reads. The
 optimizers keep their hyperparameters and drop the JAX package's
-``_target_``. Three keys are the port's own: ``device`` (``cuda`` unless
-``device=cpu``), ``env_group`` (the env chosen with ``env=``) and
-``env.wrapper.action_dim`` (the dummy env's action count, a keyword of the
-JAX package's ``get_dummy_env``). A run writes under
-``<log_root>/<root_dir>/<time>_<algo.name>_<env.id>_<seed>``. Reading YAML is
-not ported: the card's host has no PyYAML.
+``_target_``; the metric aggregator's and the logger's ``_target_`` name the
+port's classes (``sheeprl_tpu_torch.utils.metric.MeanMetric`` where the JAX
+package has ``sheeprl_tpu.utils.metric.MeanMetric``). Four keys are the
+port's own: ``device`` (``cuda`` unless ``device=cpu``), ``env_group`` (the
+env chosen with ``env=``), ``env.wrapper.action_dim`` (the dummy env's
+action count, a keyword of the JAX package's ``get_dummy_env``) and
+``buffer.memmap_mode`` (the mode the buffer's files open in, the JAX
+buffer's default ``r+``). A run writes under
+``<log_root>/<root_dir>/<run_name>/version_<N>``, ``run_name`` being
+``<time>_<algo.name>_<env.id>_<seed>``. Reading YAML is not ported: the
+card's host has no PyYAML.
 
 A value ``"${a.b}"`` is the YAML's interpolation: it takes the value of
 ``a.b`` after the overrides, so ``algo.dense_units=16`` sets every head's
-width as it does in the JAX package. :func:`compose` takes ``exp=...``,
-``env=...`` and ``key=value`` overrides, as the JAX package's command line
-does.
+width as it does in the JAX package; ``"${now:<strftime format>}"`` is the
+time of :func:`compose`, the same everywhere in one config. :func:`compose`
+takes ``exp=...``, ``env=...`` and ``key=value`` overrides, as the JAX
+package's command line does.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 import copy
 import json
 import re
+import time
 from typing import Any, Callable, Dict, List, Sequence
 
 from sheeprl_tpu_torch.utils.utils import dotdict
@@ -39,6 +46,37 @@ def _adam(lr: float, eps: float) -> Dict[str, Any]:
     return {"lr": lr, "eps": eps, "weight_decay": 0, "betas": [0.9, 0.999]}
 
 
+# metric/default.yaml's two entries, then exp/dreamer_v3.yaml's thirteen.
+AGGREGATOR_METRICS = (
+    "Rewards/rew_avg", "Game/ep_len_avg",
+    "Loss/world_model_loss", "Loss/value_loss", "Loss/policy_loss", "Loss/observation_loss", "Loss/reward_loss",
+    "Loss/state_loss", "Loss/continue_loss", "State/kl", "State/post_entropy", "State/prior_entropy",
+    "Grads/world_model", "Grads/actor", "Grads/critic",
+)  # fmt: skip
+
+
+def _metric() -> Dict[str, Any]:
+    """metric/default.yaml with exp/dreamer_v3.yaml's aggregator entries and
+    logger/tensorboard.yaml."""
+    mean = {"_target_": "sheeprl_tpu_torch.utils.metric.MeanMetric", "sync_on_compute": "${metric.sync_on_compute}"}
+    return {
+        "log_every": 5000,
+        "disable_timer": False,
+        "log_level": 1,
+        "sync_on_compute": False,
+        "aggregator": {
+            "_target_": "sheeprl_tpu_torch.utils.metric.MetricAggregator",
+            "raise_on_missing": False,
+            "metrics": {name: dict(mean) for name in AGGREGATOR_METRICS},
+        },
+        "logger": {
+            "_target_": "sheeprl_tpu_torch.utils.logger.TensorBoardLogger",
+            "root_dir": "${log_root}/${root_dir}",
+            "run_name": "${run_name}",
+        },
+    }
+
+
 def _dreamer_v3_s() -> Dict[str, Any]:
     """exp/dreamer_v3.yaml over algo/dreamer_v3_S.yaml: what both exps share."""
     units, layers = "${algo.dense_units}", "${algo.mlp_layers}"
@@ -46,10 +84,14 @@ def _dreamer_v3_s() -> Dict[str, Any]:
         "seed": 5,
         "device": "cuda",
         "env_group": None,
-        "log_root": "logs/runs",
+        "dry_run": False,
+        "exp_name": "${algo.name}_${env.id}",
+        "run_name": "${now:%Y-%m-%d_%H-%M-%S}_${exp_name}_${seed}",
         "root_dir": "${algo.name}/${env.id}",
+        "log_root": "logs/runs",
         "algo": {
             "name": "dreamer_v3",
+            "run_test": True,
             "total_steps": 5000000,
             "per_rank_batch_size": 16,
             "per_rank_sequence_length": 64,
@@ -113,9 +155,9 @@ def _dreamer_v3_s() -> Dict[str, Any]:
             },
         },
         "env": {"id": None, "num_envs": 4, "screen_size": 64, "action_repeat": 1, "clip_rewards": False, "wrapper": {"action_dim": 2}},
-        "buffer": {"size": 1000000, "validate_args": False, "checkpoint": True},
+        "buffer": {"size": 1000000, "memmap": True, "memmap_mode": "r+", "validate_args": False, "checkpoint": True},
         "checkpoint": {"every": 100000, "resume_from": None, "save_last": True, "keep_last": 5},
-        "metric": {"log_every": 5000, "log_level": 1},
+        "metric": _metric(),
         "fabric": {"precision": "bf16-mixed"},
         "distribution": {"type": "auto"},
     }
@@ -206,6 +248,16 @@ def _lookup(cfg: Dict[str, Any], path: str) -> Any:
 
 
 _INTERPOLATION = re.compile(r"\$\{([^}]+)\}")
+_NOW = re.compile(r"\$\{now:([^}]*)\}")
+
+
+def _stamp_now(node: Any, now: time.struct_time) -> Any:
+    """``node`` with every ``${now:<format>}`` replaced by ``now`` in that format."""
+    if isinstance(node, dict):
+        return {k: _stamp_now(v, now) for k, v in node.items()}
+    if isinstance(node, str):
+        return _NOW.sub(lambda m: time.strftime(m.group(1), now), node)
+    return node
 
 
 def _resolve(cfg: Dict[str, Any], value: Any, depth: int = 0) -> Any:
@@ -237,12 +289,18 @@ def compose(args: Sequence[str]) -> dotdict:
         raise ValueError(f"exp={exp} is not ported; the port has exp={' | '.join(sorted(EXPERIMENTS))}")
     if env not in ENVS:
         raise ValueError(f"env={env} is not ported; the port has env={' | '.join(ENVS)}")
-    cfg = copy.deepcopy(EXPERIMENTS[exp]())
+    cfg = _stamp_now(EXPERIMENTS[exp](), time.localtime())
     cfg["env_group"] = env
+    set_overrides(cfg, kv)
+    return dotdict(_resolve_tree(cfg, cfg))
+
+
+def set_overrides(cfg: Dict[str, Any], kv: Dict[str, str]) -> None:
+    """Set each ``key`` of ``cfg`` in place to its ``text`` read as the type
+    of the value it replaces. Raises on an unknown key."""
     for key, text in kv.items():
         *parents, leaf = key.split(".")
         node = _lookup(cfg, ".".join(parents)) if parents else cfg
         if not isinstance(node, dict) or leaf not in node or isinstance(node[leaf], dict):
             raise ValueError(f"Unknown config key {key!r}")
         node[leaf] = _coerce(_resolve(cfg, node[leaf]), text, key)
-    return dotdict(_resolve_tree(cfg, cfg))

@@ -1,22 +1,39 @@
-"""Host-side replay buffers, in memory (counterpart of the ``ReplayBuffer``,
-``SequentialReplayBuffer`` and ``EnvIndependentReplayBuffer`` of
-sheeprl_tpu/data/buffers.py; memory-mapped storage is not ported yet).
+"""Host-side replay buffers, in memory or memory-mapped (counterpart of the
+``ReplayBuffer``, ``SequentialReplayBuffer`` and ``EnvIndependentReplayBuffer``
+of sheeprl_tpu/data/buffers.py).
 
 Shapes are ``[time, n_envs, ...]`` throughout and samples are numpy arrays;
 the trainer moves each sampled batch to its device. Sampling draws from a
 ``numpy.random.Generator`` derived from numpy's global generator at
 construction (seeded by the trainer), or pinned with :meth:`seed`: the same
-seed and the same adds give the JAX package's samples. ``state_dict`` /
-``load_state_dict`` carry the arrays, the write head and the sampling
+seed and the same adds give the JAX package's samples.
+
+With ``memmap=True`` every key is one raw file ``<memmap_dir>/<key>.memmap``
+of the JAX buffer's dtype and shape (:class:`MemmapArray`), allocated at the
+first add; :class:`EnvIndependentReplayBuffer` puts env i's files under
+``<memmap_dir>/env_{i}``. A file written by either package opens in the
+other bit for bit.
+
+``state_dict`` / ``load_state_dict`` carry the write head and the sampling
 generators' states (the JAX package pickles the buffer object instead), so a
-restored buffer samples the batches the saved one would have.
+restored buffer samples the batches the saved one would have. An in-memory
+buffer's state holds its arrays. A memory-mapped buffer's state holds, for
+each key, a reference to its file (path, dtype, shape: plain values, so a
+checkpoint copies no pixel), and taking it hands the files' ownership over:
+they outlive the run that wrote them, as they do when the JAX package
+pickles its buffer into a checkpoint. Loading such a state reopens the files
+without ownership and raises if one is missing or resized.
 """
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Type
 
 import numpy as np
+
+from sheeprl_tpu_torch.data.memmap import _VALID_MODES, MemmapArray
 
 
 def _validate_add_data(data: Dict[str, np.ndarray]) -> None:
@@ -25,7 +42,7 @@ def _validate_add_data(data: Dict[str, np.ndarray]) -> None:
     shape = None
     ref_key = None
     for k, v in data.items():
-        if not isinstance(v, np.ndarray):
+        if not isinstance(v, (np.ndarray, MemmapArray)):
             raise ValueError(f"'data' must contain Numpy arrays. Key '{k}' has type '{type(v)}'")
         if v.ndim < 2:
             raise RuntimeError(
@@ -52,7 +69,15 @@ class ReplayBuffer:
 
     batch_axis: int = 1
 
-    def __init__(self, buffer_size: int, n_envs: int = 1, obs_keys: Sequence[str] = ("observations",)):
+    def __init__(
+        self,
+        buffer_size: int,
+        n_envs: int = 1,
+        obs_keys: Sequence[str] = ("observations",),
+        memmap: bool = False,
+        memmap_dir: "str | os.PathLike | None" = None,
+        memmap_mode: str = "r+",
+    ):
         if buffer_size <= 0:
             raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
         if n_envs <= 0:
@@ -60,7 +85,16 @@ class ReplayBuffer:
         self._buffer_size = buffer_size
         self._n_envs = n_envs
         self._obs_keys = tuple(obs_keys)
-        self._buf: Dict[str, np.ndarray] = {}
+        self._memmap = memmap
+        self._memmap_dir = Path(memmap_dir) if memmap_dir is not None else None
+        self._memmap_mode = memmap_mode
+        if self._memmap:
+            if memmap_mode not in _VALID_MODES:
+                raise ValueError(f"Accepted values for memmap_mode are {_VALID_MODES}, got '{memmap_mode}'")
+            if self._memmap_dir is None:
+                raise ValueError("The buffer is set to be memory-mapped but 'memmap_dir' is None. Set it to a known directory.")
+            self._memmap_dir.mkdir(parents=True, exist_ok=True)
+        self._buf: Dict[str, Any] = {}
         self._pos = 0
         self._full = False
         self._rng = _seeded_sampling_rng()
@@ -85,6 +119,10 @@ class ReplayBuffer:
     def empty(self) -> bool:
         return not self._buf
 
+    @property
+    def is_memmap(self) -> bool:
+        return self._memmap
+
     def __len__(self) -> int:
         return self._buffer_size
 
@@ -92,16 +130,21 @@ class ReplayBuffer:
         self._rng = np.random.default_rng(seed)
 
     def state_dict(self) -> Dict[str, Any]:
-        """The arrays (not copied), the write head, and the sampling
-        generator's state."""
-        return {
+        """The write head, the sampling generator's state and the storage:
+        the arrays themselves (not copied) in memory, or a reference to each
+        memory-mapped file, whose ownership the state then takes."""
+        state = {
             "buffer_size": self._buffer_size,
             "n_envs": self._n_envs,
             "pos": self._pos,
             "full": self._full,
             "rng": self._rng.bit_generator.state,
-            "arrays": dict(self._buf),
         }
+        if self._memmap:
+            state["memmap"] = {k: v.reference() for k, v in self._buf.items()}
+        else:
+            state["arrays"] = dict(self._buf)
+        return state
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         if (state["buffer_size"], state["n_envs"]) != (self._buffer_size, self._n_envs):
@@ -109,10 +152,44 @@ class ReplayBuffer:
                 f"the state is of a buffer of size {state['buffer_size']} x {state['n_envs']} envs, "
                 f"this one is {self._buffer_size} x {self._n_envs}"
             )
-        self._buf = {k: np.array(v) for k, v in state["arrays"].items()}
+        if "memmap" in state:
+            self._buf = {k: MemmapArray.open(ref, mode=self._memmap_mode) for k, ref in state["memmap"].items()}
+            self._memmap = True
+        else:
+            self._buf = {k: np.array(v) for k, v in state["arrays"].items()}
+            self._memmap = False
         self._pos = int(state["pos"])
         self._full = bool(state["full"])
         self._rng.bit_generator.state = state["rng"]
+
+    def _allocate(self, key: str, value: np.ndarray) -> None:
+        shape = (self._buffer_size, self._n_envs, *value.shape[2:])
+        if self._memmap:
+            self._buf[key] = MemmapArray(self._memmap_dir / f"{key}.memmap", dtype=value.dtype, shape=shape, mode=self._memmap_mode)
+        else:
+            self._buf[key] = np.empty(shape, dtype=value.dtype)
+
+    def __getitem__(self, key: str) -> "np.ndarray | MemmapArray":
+        if not isinstance(key, str):
+            raise TypeError("'key' must be a string")
+        if self.empty:
+            raise RuntimeError("The buffer has not been initialized. Try to add some data first.")
+        return self._buf.get(key)
+
+    def __setitem__(self, key: str, value: "np.ndarray | MemmapArray") -> None:
+        if not isinstance(value, (np.ndarray, MemmapArray)):
+            raise ValueError(f"The value must be np.ndarray or MemmapArray, got {type(value)}")
+        if value.shape[:2] != (self._buffer_size, self._n_envs):
+            raise RuntimeError(f"'value' must have shape [buffer_size, n_envs, ...]. Shape of 'value' is {value.shape}")
+        if self._memmap:
+            filename = value.filename if isinstance(value, MemmapArray) else self._memmap_dir / f"{key}.memmap"
+            # The displaced entry may own the very file the new one maps: it must not delete it.
+            old = self._buf.get(key)
+            if isinstance(old, MemmapArray) and old.filename == Path(filename).absolute():
+                old.has_ownership = False
+            self._buf[key] = MemmapArray.from_array(value, filename=filename, mode=self._memmap_mode)
+        else:
+            self._buf[key] = np.array(value, copy=True)
 
     def add(self, data: Dict[str, np.ndarray], validate_args: bool = False) -> None:
         """Write a [T, n_envs, ...] chunk at the circular head, overwriting the
@@ -132,8 +209,7 @@ class ReplayBuffer:
                         f"Key '{k}' was not present in the first add(); all keys must be added from the start "
                         f"(existing keys: {sorted(self._buf)})"
                     )
-                v = np.asarray(v)
-                self._buf[k] = np.empty((self._buffer_size, self._n_envs, *v.shape[2:]), dtype=v.dtype)
+                self._allocate(k, np.asarray(v))
             self._buf[k][idxes] = v
         if self._pos + data_len >= self._buffer_size:
             self._full = True
@@ -166,7 +242,8 @@ class ReplayBuffer:
         env_idxes = self._rng.integers(0, self._n_envs, size=(len(time_idxes),), dtype=np.intp)
         flat = time_idxes * self._n_envs + env_idxes
         out: Dict[str, np.ndarray] = {}
-        for k, arr in self._buf.items():
+        for k, v in self._buf.items():
+            arr = np.asarray(v)
             flat_view = arr.reshape(-1, *arr.shape[2:])
             out[k] = flat_view[flat].copy() if clone else flat_view[flat]
             if sample_next_obs and k in self._obs_keys:
@@ -222,7 +299,8 @@ class SequentialReplayBuffer(ReplayBuffer):
         flat = (time_idxes * self._n_envs + env_idxes[:, None]).ravel()
 
         out: Dict[str, np.ndarray] = {}
-        for k, arr in self._buf.items():
+        for k, v in self._buf.items():
+            arr = np.asarray(v)
             flat_view = arr.reshape(-1, *arr.shape[2:])
             g = flat_view[flat].reshape(n_samples, batch_size, sequence_length, *arr.shape[2:])
             out[k] = np.swapaxes(g, 1, 2)  # -> [n_samples, L, batch, ...]
@@ -246,13 +324,28 @@ class EnvIndependentReplayBuffer:
         buffer_size: int,
         n_envs: int = 1,
         obs_keys: Sequence[str] = ("observations",),
+        memmap: bool = False,
+        memmap_dir: "str | os.PathLike | None" = None,
+        memmap_mode: str = "r+",
         buffer_cls: Type[ReplayBuffer] = SequentialReplayBuffer,
     ):
         if buffer_size <= 0:
             raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
         if n_envs <= 0:
             raise ValueError(f"The number of environments must be greater than zero, got: {n_envs}")
-        self._buf: List[ReplayBuffer] = [buffer_cls(buffer_size=buffer_size, n_envs=1, obs_keys=obs_keys) for _ in range(n_envs)]
+        if memmap and memmap_dir is None:
+            raise ValueError("The buffer is set to be memory-mapped but 'memmap_dir' is None. Set it to a known directory.")
+        self._buf: List[ReplayBuffer] = [
+            buffer_cls(
+                buffer_size=buffer_size,
+                n_envs=1,
+                obs_keys=obs_keys,
+                memmap=memmap,
+                memmap_dir=Path(memmap_dir) / f"env_{i}" if memmap else None,
+                memmap_mode=memmap_mode,
+            )
+            for i in range(n_envs)
+        ]
         self._buffer_size = buffer_size
         self._n_envs = n_envs
         self._rng = _seeded_sampling_rng()
@@ -269,6 +362,10 @@ class EnvIndependentReplayBuffer:
     @property
     def n_envs(self) -> int:
         return self._n_envs
+
+    @property
+    def is_memmap(self) -> Sequence[bool]:
+        return tuple(b.is_memmap for b in self._buf)
 
     def __len__(self) -> int:
         return self._buffer_size

@@ -2,6 +2,9 @@
 gymnasium (counterpart of sheeprl_tpu/envs/dummy.py, of ``get_dummy_env`` in
 sheeprl_tpu/utils/env.py, of the ``ActionRepeat`` wrapper and of the
 same-step-autoreset ``SyncVectorEnv`` that sheeprl_tpu/utils/env.py builds).
+:func:`make_dummy_env` is one env as ``make_env(cfg, seed, 0, log_dir,
+"test")`` builds it for the dummy group (the test episode's), and
+:func:`make_dummy_vector_env` is ``num_envs`` of them stepped together.
 
 The observation of step t is ``rgb`` filled with ``t % 256`` and ``state``
 filled with ``t``; the reward is 0; an episode terminates after
@@ -69,21 +72,44 @@ class MultiDiscreteDummyEnv(DummyEnv):
         self.action_space = MultiDiscrete(tuple(int(d) for d in action_dims))
 
 
+class ActionRepeat:
+    """Each action repeated ``amount`` times, the rewards summed, cut short by
+    an episode end (sheeprl_tpu/envs/wrappers.py ``ActionRepeat``)."""
+
+    def __init__(self, env: DummyEnv, amount: int = 1):
+        if amount <= 0:
+            raise ValueError(f"action repeat must be >= 1, got {amount}")
+        self.env, self.amount = env, int(amount)
+        self.observation_space, self.action_space = env.observation_space, env.action_space
+
+    @property
+    def unwrapped(self) -> DummyEnv:
+        return self.env
+
+    def reset(self, seed=None) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+        return self.env.reset(seed=seed)
+
+    def step(self, action) -> Tuple[Dict[str, np.ndarray], float, bool, bool, Dict[str, Any]]:
+        accumulated = 0.0
+        for _ in range(self.amount):
+            obs, reward, terminated, truncated, info = self.env.step(action)
+            accumulated += reward
+            if terminated or truncated:
+                break
+        return obs, accumulated, terminated, truncated, info
+
+
 class SyncVectorEnv:
-    """Steps ``len(envs)`` environments in turn, each action repeated
-    ``action_repeat`` times (rewards summed, cut short by an episode end),
+    """Steps ``len(envs)`` environments in turn (each an :class:`ActionRepeat`),
     with same-step autoreset: an env that ends an episode is reset at once,
     its step returns the reset observation, and ``infos["final_obs"][i]``
     holds the episode's last one (``None`` for envs that did not end).
     ``infos["episode"]`` lists ``(env index, return, length)`` for every
     episode that ended."""
 
-    def __init__(self, envs: List[DummyEnv], seed: int = 0, action_repeat: int = 1):
-        if action_repeat < 1:
-            raise ValueError(f"action repeat must be >= 1, got {action_repeat}")
+    def __init__(self, envs: List[ActionRepeat], seed: int = 0):
         self.envs = list(envs)
         self.num_envs = len(self.envs)
-        self.action_repeat = int(action_repeat)
         self.single_observation_space = self.envs[0].observation_space
         self.single_action_space = self.envs[0].action_space
         self._rng = np.random.default_rng(seed)
@@ -114,12 +140,7 @@ class SyncVectorEnv:
         obs, rewards, terminated, truncated = [], [], [], []
         infos: Dict[str, Any] = {"final_obs": [None] * self.num_envs, "episode": []}
         for i, (env, action) in enumerate(zip(self.envs, actions)):
-            r = 0.0
-            for _ in range(self.action_repeat):
-                o, reward, term, trunc, _ = env.step(action)
-                r += reward
-                if term or trunc:
-                    break
+            o, r, term, trunc, _ = env.step(action)
             self._returns[i] += r
             self._lengths[i] += 1
             if term or trunc:
@@ -140,7 +161,7 @@ class SyncVectorEnv:
         return and length."""
         return {
             "rng": self._rng.bit_generator.state,
-            "steps": [int(env._current_step) for env in self.envs],
+            "steps": [int(env.unwrapped._current_step) for env in self.envs],
             "returns": self._returns.tolist(),
             "lengths": self._lengths.tolist(),
         }
@@ -150,22 +171,27 @@ class SyncVectorEnv:
             raise ValueError(f"the state holds {len(state['steps'])} envs, this vector has {self.num_envs}")
         self._rng.bit_generator.state = state["rng"]
         for env, step in zip(self.envs, state["steps"]):
-            env._current_step = int(step)
+            env.unwrapped._current_step = int(step)
         self._returns[:] = state["returns"]
         self._lengths[:] = state["lengths"]
+
+
+def make_dummy_env(screen_size: int = 64, action_dim: int = 9, env_id: str = "discrete_dummy", action_repeat: int = 1) -> ActionRepeat:
+    """One dummy env of the kind ``env_id`` names, ``screen_size`` square
+    rgb, ``action_dim`` actions (per head for MultiDiscrete, two heads), each
+    action repeated ``action_repeat`` times."""
+    image = (screen_size, screen_size, 3)
+    if "continuous" in env_id:
+        env = ContinuousDummyEnv(image_size=image, action_dim=action_dim)
+    elif "multidiscrete" in env_id:
+        env = MultiDiscreteDummyEnv(image_size=image, action_dims=(action_dim, action_dim))
+    else:
+        env = DiscreteDummyEnv(image_size=image, action_dim=action_dim)
+    return ActionRepeat(env, action_repeat)
 
 
 def make_dummy_vector_env(
     num_envs: int, seed: int, screen_size: int = 64, action_dim: int = 9, env_id: str = "discrete_dummy", action_repeat: int = 1
 ) -> SyncVectorEnv:
-    """``num_envs`` dummy envs of the kind ``env_id`` names, ``screen_size``
-    square rgb, ``action_dim`` actions (per head for MultiDiscrete, two
-    heads)."""
-    image = (screen_size, screen_size, 3)
-    if "continuous" in env_id:
-        make = lambda: ContinuousDummyEnv(image_size=image, action_dim=action_dim)  # noqa: E731
-    elif "multidiscrete" in env_id:
-        make = lambda: MultiDiscreteDummyEnv(image_size=image, action_dims=(action_dim, action_dim))  # noqa: E731
-    else:
-        make = lambda: DiscreteDummyEnv(image_size=image, action_dim=action_dim)  # noqa: E731
-    return SyncVectorEnv([make() for _ in range(num_envs)], seed=seed, action_repeat=action_repeat)
+    """``num_envs`` envs of :func:`make_dummy_env` stepped together."""
+    return SyncVectorEnv([make_dummy_env(screen_size, action_dim, env_id, action_repeat) for _ in range(num_envs)], seed=seed)

@@ -1,0 +1,64 @@
+"""Algorithm and evaluation registries (counterpart of sheeprl_tpu/registry.py).
+
+Each algorithm module registers its ``main(cfg)`` entry point with
+:func:`register_algorithm`, and its evaluation function with
+:func:`register_evaluation`; the command line looks both up by
+``algo.name``. :func:`register_all` imports the modules that register: the
+port has one algorithm, DreamerV3.
+"""
+
+from __future__ import annotations
+
+import importlib
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+algorithm_registry: Dict[str, "AlgorithmEntry"] = {}
+evaluation_registry: Dict[str, "EvaluationEntry"] = {}
+
+_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3", "sheeprl_tpu_torch.algos.dreamer_v3.evaluate")
+
+
+@dataclass
+class AlgorithmEntry:
+    name: str
+    module: str
+    entrypoint: Callable[..., Any]
+
+
+@dataclass
+class EvaluationEntry:
+    name: str
+    module: str
+    entrypoint: Callable[..., Any]
+
+
+def register_algorithm(name: Optional[str] = None):
+    """Register the decorated ``main`` under ``name``, by default its module's
+    basename (``...dreamer_v3.dreamer_v3`` registers ``dreamer_v3``)."""
+
+    def decorator(fn: Callable[..., Any]):
+        algo_name = name or fn.__module__.split(".")[-1]
+        if algo_name in algorithm_registry and algorithm_registry[algo_name].module != fn.__module__:
+            raise ValueError(f"Algorithm '{algo_name}' already registered by {algorithm_registry[algo_name].module}")
+        algorithm_registry[algo_name] = AlgorithmEntry(algo_name, fn.__module__, fn)
+        return fn
+
+    return decorator
+
+
+def register_evaluation(algorithms):
+    names = [algorithms] if isinstance(algorithms, str) else list(algorithms)
+
+    def decorator(fn: Callable[..., Any]):
+        for algo_name in names:
+            evaluation_registry[algo_name] = EvaluationEntry(algo_name, fn.__module__, fn)
+        return fn
+
+    return decorator
+
+
+def register_all() -> None:
+    """Import every module that registers an algorithm or an evaluation."""
+    for module in _MODULES:
+        importlib.import_module(module)

@@ -30,6 +30,10 @@ class Box:
 class Discrete:
     n: int
 
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return ()
+
     def to_spec(self) -> Dict[str, Any]:
         return {"type": "discrete", "n": int(self.n)}
 
@@ -37,6 +41,10 @@ class Discrete:
 @dataclass(frozen=True)
 class MultiDiscrete:
     nvec: Tuple[int, ...]
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return (len(self.nvec),)
 
     def to_spec(self) -> Dict[str, Any]:
         return {"type": "multi_discrete", "nvec": [int(n) for n in self.nvec]}

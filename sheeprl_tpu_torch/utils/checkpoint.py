@@ -9,8 +9,13 @@ artifacts)::
         state.pt        # the state with its numpy arrays taken out: tensors, dicts,
                         # lists, tuples, numbers and strings; read with
                         # torch.load(weights_only=True), so loading runs no pickled code
-        arrays.npz      # the numpy arrays (the replay buffer), read with allow_pickle=False
+        arrays.npz      # the numpy arrays (an in-memory replay buffer), read with allow_pickle=False
         manifest.json   # step, rank, leaf count, digest, the file names; written last
+
+A memory-mapped replay buffer is saved by reference: its state names each
+file (path, dtype, shape) and the files stay where the run wrote them, so the
+digest covers the reference and not the files' bytes, as the JAX package's
+covers its pickled buffer and not the memmap.
 
 The JAX package keeps its arrays in Orbax and pickles the rest; the port's
 format is its own. The digest is a sha256 over every tensor and array leaf
@@ -144,7 +149,11 @@ def read_manifest(ckpt_path: str) -> Optional[Dict[str, Any]]:
 
 def _split_arrays(tree: Any, arrays: List[np.ndarray]) -> Any:
     """``tree`` with each numpy array moved to ``arrays`` (replaced by
-    ``{"__array__": index}``) and each tensor copied to the CPU."""
+    ``{"__array__": index}``) and each tensor copied to the CPU. A
+    memory-mapped array raises: a buffer's state refers to its files, it
+    never copies them."""
+    if isinstance(tree, np.memmap):
+        raise ValueError(f"a checkpoint would copy the memory-mapped array {tree.filename}; save its buffer's state_dict, which refers to it")
     if isinstance(tree, np.ndarray):
         arrays.append(tree)
         return {"__array__": len(arrays) - 1}

@@ -1,0 +1,72 @@
+"""Phase wall-clock timers (counterpart of sheeprl_tpu/utils/timer.py).
+
+``timer(name)`` is a context decorator that adds the seconds spent inside it
+to a process-wide sum per name, with a class-level ``disabled`` flag
+(``metric.log_level == 0`` or ``metric.disable_timer``), ``compute`` and
+``reset``. Each name keeps a stack of start times, so a name may be entered
+again inside itself; ``stop`` without a ``start`` raises :class:`TimerError`.
+It reads the host's clock: on a CUDA card a timed region ends when its
+operations are queued, not when they have run. (The JAX package also emits
+each stopped region as a tracer span; the port has no tracer yet.)
+"""
+
+from __future__ import annotations
+
+import time
+from contextlib import ContextDecorator
+from typing import Any, ClassVar, Dict, List
+
+
+class TimerError(Exception):
+    """A custom exception used to report errors in use of timer class."""
+
+
+class timer(ContextDecorator):
+    disabled: ClassVar[bool] = False
+    timers: ClassVar[Dict[str, float]] = {}
+    _start_times: ClassVar[Dict[str, List[float]]] = {}
+
+    def __init__(self, name: str, metric: Any = None, **kwargs: Any) -> None:
+        # ``metric`` is accepted as at the reference's call sites; the sum is a float.
+        self.name = name
+
+    def start(self) -> None:
+        if self.disabled:
+            return
+        type(self)._start_times.setdefault(self.name, []).append(time.perf_counter())
+
+    def stop(self) -> float:
+        if self.disabled:
+            return 0.0
+        stack = type(self)._start_times.get(self.name)
+        if not stack:
+            raise TimerError(f"Timer '{self.name}' is not running. Use .start() to start it")
+        started = stack.pop()
+        if not stack:
+            del type(self)._start_times[self.name]
+        elapsed = time.perf_counter() - started
+        type(self).timers[self.name] = type(self).timers.get(self.name, 0.0) + elapsed
+        return elapsed
+
+    def __enter__(self) -> "timer":
+        self.start()
+        return self
+
+    def __exit__(self, *exc_info: Any) -> None:
+        self.stop()
+
+    @classmethod
+    def add(cls, name: str, seconds: float) -> None:
+        """Credit seconds measured elsewhere to ``name``."""
+        if cls.disabled:
+            return
+        cls.timers[name] = cls.timers.get(name, 0.0) + float(seconds)
+
+    @classmethod
+    def compute(cls) -> Dict[str, float]:
+        return dict(cls.timers) if not cls.disabled else {}
+
+    @classmethod
+    def reset(cls) -> None:
+        cls.timers = {}
+        cls._start_times = {}

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import json
+import os
 import warnings
 from typing import Any, Dict, Mapping, Optional
 
@@ -64,3 +66,12 @@ class Ratio:
         self._prev = state["_prev"]
         self._pretrain_steps = state["_pretrain_steps"]
         return self
+
+
+def save_configs(cfg: Mapping[str, Any], log_dir: str) -> None:
+    """Write the resolved config to ``<log_dir>/config.json``, the file a
+    resumed run and the evaluation entry point read (the JAX package writes
+    ``config.yaml``; the card's host has no PyYAML)."""
+    os.makedirs(log_dir, exist_ok=True)
+    with open(os.path.join(log_dir, "config.json"), "w") as fp:
+        json.dump(cfg, fp, indent=2)

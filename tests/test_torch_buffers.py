@@ -1,5 +1,6 @@
-"""The trainer's host side, JAX package against port: the replay buffers give
-the same samples from the same seed and the same adds, ``Ratio`` gives the
+"""The trainer's host side, JAX package against port: the replay buffers, in
+memory and memory-mapped, give the same samples from the same seed and the
+same adds, ``Ratio`` gives the
 same gradient-step counts and state, and the dummy env and its vector give
 the same observations, rewards, ends of episode and final observations.
 Exact equality throughout: these are integer draws and copies.
@@ -32,12 +33,15 @@ def _equal(a, b):
         np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-@pytest.mark.parametrize("size,adds", [(64, [10, 7, 3]), (16, [10, 9, 20])])  # not full; wrapped around
-@pytest.mark.parametrize("kind", ["uniform", "sequential"])
-def test_buffer_samples_match_jax(kind, size, adds):
+def _memmap_kwargs(memmap, tmp_path, name):
+    return {"memmap": True, "memmap_dir": tmp_path / name} if memmap else {}
+
+
+def _check_buffer_samples(kind, size, adds, memmap, tmp_path):
     jcls, pcls = (jb.ReplayBuffer, pb.ReplayBuffer) if kind == "uniform" else (jb.SequentialReplayBuffer, pb.SequentialReplayBuffer)
-    jbuf = jcls(size, n_envs=2, obs_keys=("rgb",), memmap=False)
-    pbuf = pcls(size, n_envs=2, obs_keys=("rgb",))
+    jbuf = jcls(size, n_envs=2, obs_keys=("rgb",), memmap=memmap, memmap_dir=tmp_path / "jax" if memmap else None)
+    pbuf = pcls(size, n_envs=2, obs_keys=("rgb",), **_memmap_kwargs(memmap, tmp_path, "port"))
+    assert pbuf.is_memmap == memmap
     jbuf.seed(7)
     pbuf.seed(7)
     rng = np.random.default_rng(0)
@@ -50,14 +54,27 @@ def test_buffer_samples_match_jax(kind, size, adds):
         _equal(pbuf.sample(5, sample_next_obs=next_obs, n_samples=3, **kwargs), jbuf.sample(5, sample_next_obs=next_obs, n_samples=3, **kwargs))
 
 
-@pytest.mark.parametrize("n_envs", [1, 3])
-def test_env_independent_buffer_matches_jax_from_the_global_seed(n_envs):
-    """As the trainers build it: the sampling streams derive from numpy's
-    global generator, seeded first; reset rows go to a subset of envs."""
+@pytest.mark.parametrize("size,adds", [(64, [10, 7, 3]), (16, [10, 9, 20])])  # not full; wrapped around
+@pytest.mark.parametrize("kind", ["uniform", "sequential"])
+def test_buffer_samples_match_jax(kind, size, adds, tmp_path):
+    _check_buffer_samples(kind, size, adds, False, tmp_path)
+
+
+@pytest.mark.parametrize("size,adds", [(64, [10, 7, 3]), (16, [10, 9, 20])])
+@pytest.mark.parametrize("kind", ["uniform", "sequential"])
+def test_memmapped_buffer_samples_match_jax(kind, size, adds, tmp_path):
+    """The same cases with both buffers memory-mapped."""
+    _check_buffer_samples(kind, size, adds, True, tmp_path)
+
+
+def _check_env_independent(n_envs, memmap, tmp_path):
     np.random.seed(11)
-    jbuf = jb.EnvIndependentReplayBuffer(40, n_envs=n_envs, obs_keys=("rgb",), buffer_cls=jb.SequentialReplayBuffer)
+    jbuf = jb.EnvIndependentReplayBuffer(40, n_envs=n_envs, obs_keys=("rgb",), buffer_cls=jb.SequentialReplayBuffer,
+                                         memmap=memmap, memmap_dir=tmp_path / "jax" if memmap else None)  # fmt: skip
     np.random.seed(11)
-    pbuf = pb.EnvIndependentReplayBuffer(40, n_envs=n_envs, obs_keys=("rgb",), buffer_cls=pb.SequentialReplayBuffer)
+    pbuf = pb.EnvIndependentReplayBuffer(40, n_envs=n_envs, obs_keys=("rgb",), buffer_cls=pb.SequentialReplayBuffer,
+                                         **_memmap_kwargs(memmap, tmp_path, "port"))  # fmt: skip
+    assert pbuf.is_memmap == (memmap,) * n_envs
     rng = np.random.default_rng(1)
     for t in range(30):
         chunk = _chunk(rng, 1, n_envs)
@@ -70,6 +87,19 @@ def test_env_independent_buffer_matches_jax_from_the_global_seed(n_envs):
             pbuf.add(reset, idx)
     for _ in range(3):
         _equal(pbuf.sample(6, sequence_length=8, n_samples=2), jbuf.sample(6, sequence_length=8, n_samples=2))
+
+
+@pytest.mark.parametrize("n_envs", [1, 3])
+def test_env_independent_buffer_matches_jax_from_the_global_seed(n_envs, tmp_path):
+    """As the trainers build it: the sampling streams derive from numpy's
+    global generator, seeded first; reset rows go to a subset of envs."""
+    _check_env_independent(n_envs, False, tmp_path)
+
+
+@pytest.mark.parametrize("n_envs", [1, 3])
+def test_memmapped_env_independent_buffer_matches_jax_from_the_global_seed(n_envs, tmp_path):
+    """The same with both buffers memory-mapped, one env_{i} directory each."""
+    _check_env_independent(n_envs, True, tmp_path)
 
 
 def test_buffers_refuse_what_the_jax_package_refuses():

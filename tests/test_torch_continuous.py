@@ -22,7 +22,7 @@ import torch
 from test_torch_dreamer_v3 import SMALL as PLAYER_SMALL
 from test_torch_dreamer_v3 import check_player_parity
 from test_torch_dreamer_v3 import compose_cfg as compose_ms_pacman
-from test_torch_train import PORT_KEYS
+from test_torch_train import check_against_jax
 
 import sheeprl_tpu
 from sheeprl_tpu.algos.dreamer_v3 import agent as jax_agent
@@ -185,18 +185,7 @@ def test_walker_exp_matches_the_jax_composed_exp():
     sheeprl_tpu.register_all()
     ref = jax_compose("config", ["exp=dreamer_v3_dmc_walker_walk", "env=dummy", "env.id=continuous_dummy"]).as_dict()
     port = compose(["exp=dreamer_v3_dmc_walker_walk", "env=dummy"])
-
-    def check(sub, ref_sub, path):
-        for k, v in sub.items():
-            if f"{path}{k}" in PORT_KEYS:
-                continue
-            assert k in ref_sub, f"{path}{k} is not in the JAX config"
-            if isinstance(v, dict):
-                check(v, ref_sub[k], f"{path}{k}.")
-            else:
-                assert v == ref_sub[k] and type(v) is type(ref_sub[k]) or float(v) == float(ref_sub[k]), (f"{path}{k}", v, ref_sub[k])
-
-    check(port, ref, "")
+    check_against_jax(port, ref)
     assert (port.env.num_envs, port.env.action_repeat, port.env.wrapper.action_dim) == (4, 2, 6)
     assert (port.algo.replay_ratio, port.algo.learning_starts, port.algo.total_steps) == (0.5, 1300, 500000)
     assert (port.checkpoint.every, port.buffer.size, port.buffer.checkpoint, port.fabric.precision) == (10000, 500000, True, "bf16-mixed")

@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of sheeprl_tpu_torch loads
-no JAX, no module of sheeprl_tpu, and none of gymnasium, yaml, flax or orbax
-(which the machine with the card does not have). Checked in a subprocess,
+no JAX, no module of sheeprl_tpu, and none of gymnasium, yaml, flax, orbax,
+tensorboardX or tensorboard (which the machine with the card does not have). Checked in a subprocess,
 since tests/conftest.py imports JAX into this one. Its entry points run on
 CUDA unless asked for the CPU, so on this CUDA-less host they raise."""
 
@@ -13,7 +13,7 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gymnasium", "yaml", "sheeprl_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gymnasium", "yaml", "sheeprl_tpu", "tensorboardX", "tensorboard")
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -31,7 +31,8 @@ def test_import_every_module_without_jax_or_the_jax_package():
     assert out.returncode == 0, out.stderr
     report = json.loads(out.stdout.strip().splitlines()[-1])
     training = ["algos.dreamer_v3.dreamer_v3", "algos.dreamer_v3.loss", "data.buffers", "envs.dummy", "optim", "config", "cli", "__main__",
-                "utils.checkpoint"]
+                "utils.checkpoint", "data.memmap", "utils.metric", "utils.timer", "utils.logger", "registry", "eval",
+                "algos.dreamer_v3.evaluate"]
     for name in ["serve.engine", "bridge", *training]:
         assert f"sheeprl_tpu_torch.{name}" in report["modules"], name
     assert not [m for m in report["loaded"] if m in FORBIDDEN]
@@ -56,6 +57,21 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
 
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run(["exp=dreamer_v3_100k_ms_pacman", "env=dummy"])
+
+
+def test_evaluation_defaults_to_cuda_and_raises_without_it(tmp_path):
+    """The evaluation runs on CUDA whatever device the trained run used,
+    unless the command line asks for another; it raises before it writes."""
+    from sheeprl_tpu_torch.cli import evaluation
+
+    run_dir = tmp_path / "run" / "version_0"
+    (run_dir / "checkpoint").mkdir(parents=True)
+    (run_dir / "config.json").write_text(json.dumps({"device": "cpu", "env": {"num_envs": 4}, "checkpoint": {"resume_from": None}}))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        evaluation([f"checkpoint_path={run_dir / 'checkpoint' / 'ckpt_8_0.ckpt'}"])
+    assert sorted(os.listdir(run_dir)) == ["checkpoint", "config.json"]
+    with pytest.raises(ValueError, match="checkpoint_path"):
+        evaluation(["device=cpu"])
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():

@@ -25,6 +25,7 @@ Tolerances, and why:
   to 2 * lr.
 """
 
+import re
 import types
 
 import jax
@@ -188,8 +189,30 @@ def test_target_update_taus_match_jax():
 
 
 # The port's own keys (sheeprl_tpu_torch/config.py): the device, the env
-# group, and the dummy env's action count.
-PORT_KEYS = ("device", "env_group", "env.wrapper.action_dim")
+# group, the dummy env's action count and the mode of the buffer's files.
+PORT_KEYS = ("device", "env_group", "env.wrapper.action_dim", "buffer.memmap_mode")
+_NOW = re.compile(r"^\d{4}-\d\d-\d\d_\d\d-\d\d-\d\d_")
+
+
+def check_against_jax(port, ref, path=""):
+    """Every key of the port's config is in the JAX-composed one with the
+    same value and type, apart from PORT_KEYS. A ``_target_`` names the
+    port's class where the JAX package names its own, and a run name starts
+    with the time of its composition (the two are composed a moment apart)."""
+    for k, v in port.items():
+        key = f"{path}{k}"
+        if key in PORT_KEYS:
+            continue
+        assert k in ref, f"{key} is not in the JAX config"
+        want = ref[k]
+        if isinstance(v, dict):
+            check_against_jax(v, want, f"{key}.")
+            continue
+        if k == "_target_":
+            v = v.replace("sheeprl_tpu_torch.", "sheeprl_tpu.", 1)
+        elif k == "run_name":
+            v, want = _NOW.sub("<now>_", v), _NOW.sub("<now>_", want)
+        assert v == want and type(v) is type(want) or float(v) == float(want), (key, v, want)
 
 
 def test_config_matches_the_jax_composed_exp():
@@ -199,18 +222,7 @@ def test_config_matches_the_jax_composed_exp():
     for overrides in ([], ["algo.dense_units=64", "algo.world_model.encoder.cnn_channels_multiplier=8", "algo.mlp_layers=3"]):
         ref = jax_compose("config", ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", *overrides]).as_dict()
         port = compose(["exp=dreamer_v3_100k_ms_pacman", "env=dummy", *overrides])
-
-        def check(sub, ref_sub, path):
-            for k, v in sub.items():
-                if f"{path}{k}" in PORT_KEYS:
-                    continue
-                assert k in ref_sub, f"{path}{k} is not in the JAX config"
-                if isinstance(v, dict):
-                    check(v, ref_sub[k], f"{path}{k}.")
-                else:
-                    assert v == ref_sub[k] and type(v) is type(ref_sub[k]) or float(v) == float(ref_sub[k]), (f"{path}{k}", v, ref_sub[k])
-
-        check(port, ref, "")
+        check_against_jax(port, ref)
         assert port.fabric.precision == "bf16-mixed" and port.algo.world_model.observation_model.dense_units == ref["algo"]["dense_units"]
 
 
