@@ -57,7 +57,7 @@ Phases (any failure exits non-zero before the result line):
    ``Time/sps_env_interaction``, ``Test/cumulative_reward`` at step 0), all
    finite; the memmap files lie under ``memmap_buffer/rank_0/env_<i>`` at
    the recipe's size. Then the gradient step's profile (host wall, device
-   busy, idle share, device operations within 1% of 17731, one backward's
+   busy, idle share, device operations within 1% of 17932, one backward's
    in-step time, peak memory) and a 32-true gradient step on the card
    against the CPU with the card's categorical draws replayed.
 8. Continuous control, the second main path: ``python -m sheeprl_tpu_torch
@@ -83,17 +83,49 @@ Phases (any failure exits non-zero before the result line):
    on the card) logging the trainer's test reward, a 32-true continuous
    gradient step on the card against the CPU with the card's categorical
    and normal draws replayed, and device operations per step within 1% of
-   18597.
+   18794.
 9. Replay on the host: one walker env's memory-mapped buffer filled to its
    125000 rows (under the temporary directory), and one in memory;
    ``sample`` of 16 x 64 sequences plus the copy to the card timed from
    each, the memmap's page cache cold (the files unmapped and their pages
    dropped with ``posix_fadvise``; ``mincore`` reports what stayed) and
-   warm.
+   warm. The same walker env's 125000 rows (1.54 GB) loaded into a replay
+   ring on the card with ``load_host_buffer``, timed, and 16 x 64 sampled
+   there, each window checked against the host buffer's rows of the same
+   start; and the host path's sample and copy on the critical path,
+   synchronous against ``buffer.prefetch`` (the copy on the infeed's
+   worker thread while a 50 ms sleep stands in for the env step).
+10. The captured step against the eager one (after 7, and after 8 for
+   continuous actions): full DV3-S width, bf16-mixed, sampling a ring of
+   1024 rows per env filled at the exp's shapes (MsPacman: 1 env; the
+   walker: 4). The fused step's 3 eager warm-up steps (the first under
+   ``torch.cuda.set_sync_debug_mode("error")``), then from one snapshot 8
+   eager steps twice and 8 replays of the graph (taus 0.02, 0 and 1):
+   every parameter, Adam state, the moments and each step's metrics bit
+   for bit (or, were the two eager runs to differ, within their
+   difference). The graph's nodes, read from the graph itself (libcuda's
+   cuGraphGetNodes): 64 + 15 LN-GRU forward and 64 (discrete) or 79 (continuous)
+   backward kernel nodes, beside the eager step's 17932 and 18794 device
+   operations; the LN-GRU tickets back at zero after the replays. Then 16
+   back-to-back replays timed (host wall, CUDA events) and profiled (device
+   busy, operations, idle share as the eager step's: 1 - busy / the host
+   wall without the profiler, at most 0.25), and 3 eager steps timed
+   from the same state.
+11. The discrete exp through the CLI with ``buffer.device=True``: the ring
+   active at the recipe's 100000 rows (1.23 GB), all 8 gradient steps on
+   the fused path (3 warm-up, 5 replays), the JAX package's tags read back,
+   all finite.
+12. The walker through the CLI with ``buffer.device=True
+   algo.fused_train_steps=2``: the ring active at 4 x 125000 rows (6.16
+   GB), 8 gradient steps in buckets of 2 on the fused path, the tags read
+   back; then resumed from its mid-run checkpoint (the ring loaded from the
+   checkpointed buffer), ending bit for bit on the uninterrupted fused
+   run's parameters.
 
 Prints one ``{"kernels": [...]}`` line (the streaming forward at B = 16,
 the tensor-core forward at B = 1024, the backward at B = 16 and at
-B = 1024), the card's name and power limit,
+B = 1024; each with its nodes in the captured step's graph and its
+launches by the fused runs' replays), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -1228,7 +1260,9 @@ WALKER_ARGS = ["exp=dreamer_v3_dmc_walker_walk", "env=dummy", "env.id=continuous
                "algo.total_steps=276", "checkpoint.every=268", "metric.log_every=8"]  # fmt: skip
 WALKER_BWD_PER_STEP = {16: BWD_PER_STEP, IMAGINED_BATCH: TC_PER_STEP}  # the dynamic scan's 64, then the 15 imagined steps
 # The DV3-S gradient step's device operations (torch.profiler) on an H100: the step's own, whatever the loop around it does.
-STEP_OPS = {"discrete": 17731, "continuous": 18597}
+# Adam keeps its step count on the card (capturable) and the target critic's EMA reads its tau there, as the captured step
+# needs; that added about 200 operations to the eager step's 17731 and 18597.
+STEP_OPS = {"discrete": 17932, "continuous": 18794}
 
 
 def phase_continuous_training(log_root):
@@ -1455,6 +1489,455 @@ def phase_eval(ckpt, test_reward):
     return {"checkpoint": ckpt, "wall_s": wall_s, "test_reward": logged["Test/cumulative_reward"][0][1]}
 
 
+# The fused path: the replay ring in card memory and the train step
+# captured as a CUDA graph that samples it (buffer.device=True).
+FUSED_CUTS = {"buffer.device": "True (from False)"}
+WALKER_FUSED_CUTS = {"buffer.device": "True (from False)", "algo.fused_train_steps": "2 (from 1)"}
+GRAPH_RING_ROWS = 1024  # rows per env of the graph-against-eager phase's ring (at the exp's shapes)
+GRAPH_TAUS = (0.02, 0.0, 1.0, 0.02, 0.02, 0.0, 0.02, 0.02)  # 8 steps: the EMA's blend, its tau-0 and tau-1 cases
+GRAPH_LN_GRU = {"discrete": {"streaming": STREAM_PER_STEP, "tensor_core": TC_PER_STEP, "backward": BWD_PER_STEP},
+                "continuous": {"streaming": STREAM_PER_STEP, "tensor_core": TC_PER_STEP, "backward": BWD_PER_STEP + TC_PER_STEP}}  # fmt: skip
+REPLAYS_PROFILED = 16
+WARMUP_STEPS = 3  # sheeprl_tpu_torch.core.graphs.WARMUP_CALLS
+
+
+def _ring_rows(rows, n_envs, n_actions, continuous, seed):
+    """``rows`` steps of random rows at the exp's shapes for every env."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    if continuous:
+        actions = rng.uniform(-1, 1, (rows, n_envs, n_actions)).astype(np.float32)
+    else:
+        actions = np.eye(n_actions, dtype=np.float32)[rng.integers(0, n_actions, (rows, n_envs))]
+    return {
+        "rgb": rng.integers(0, 256, (rows, n_envs, 64, 64, 3), dtype=np.uint8),
+        "actions": actions,
+        "rewards": rng.normal(size=(rows, n_envs, 1)).astype(np.float32),
+        "terminated": (rng.random((rows, n_envs, 1)) < 0.05).astype(np.float32),
+        "truncated": np.zeros((rows, n_envs, 1), np.float32),
+        "is_first": (rng.random((rows, n_envs, 1)) < 0.05).astype(np.float32),
+    }
+
+
+def _train_state(agent, optimizers):
+    """Every parameter and every Adam state tensor, in a fixed order."""
+    params = [p for name in MODULES for p in getattr(agent, name).parameters()]
+    adam = [v for name in ("world_model", "actor", "critic") for p in optimizers[name].param_groups[0]["params"]
+            for _, v in sorted(optimizers[name].state[p].items())]  # fmt: skip
+    return params, adam
+
+
+def _gaps(a, b):
+    """Per group: (max |a - b| over its tensors, bit for bit equal)."""
+    out = {}
+    for group in a:
+        d = max(((x.double() - y.double()).abs().max().item() if x.numel() else 0.0) for x, y in zip(a[group], b[group]))
+        same = all(torch_equal_bits(x, y) for x, y in zip(a[group], b[group]))
+        out[group] = {"max_abs": d, "bit_for_bit": same}
+    return out
+
+
+def torch_equal_bits(x, y):
+    import torch
+
+    if x.dtype.is_floating_point:
+        width = {2: torch.int16, 4: torch.int32, 8: torch.int64}[x.element_size()]
+        return torch.equal(x.contiguous().view(width), y.contiguous().view(width))
+    return torch.equal(x, y)
+
+
+def phase_graph_vs_eager(kind):
+    """The captured step against the eager one, on the card, at full DV3-S
+    width (bf16-mixed, B = 16, T = 64, horizon 15), sampling a ring of
+    ``GRAPH_RING_ROWS`` rows per env filled at the exp's shapes (MsPacman:
+    1 env, 9 actions; the walker: 4 envs, 6 actions in [-1, 1]). The fused
+    step warms up (its ``WARMUP_STEPS`` eager steps, the first under the
+    sync check); then from one snapshot (every parameter, Adam state, the
+    moments and the generator's state) 8 eager steps twice (the eager
+    path's run-to-run difference) and 8 replays of the graph, with the taus
+    ``GRAPH_TAUS``. Every parameter, Adam state, the moments and each step's
+    metrics must be equal bit for bit, or, if the two eager runs differ,
+    within that difference. The graph must hold ``GRAPH_LN_GRU`` LN-GRU
+    kernel nodes. Then ``REPLAYS_PROFILED`` back-to-back replays and 3 eager
+    steps from the same state, timed (host wall ending in a synchronize) and
+    profiled (device busy, operations)."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_fused_train_step, make_optimizers, make_train_step
+    from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
+    from sheeprl_tpu_torch.envs.dummy import ContinuousDummyEnv
+    from sheeprl_tpu_torch.models import ln_gru
+    from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+    from sheeprl_tpu_torch.utils.ops import init_moments
+
+    what = f"graph vs eager ({kind})"
+    continuous = kind == "continuous"
+    cfg = compose(WALKER_ARGS if continuous else TRAIN_ARGS)
+    dev = torch.device("cuda")
+    if continuous:
+        env = ContinuousDummyEnv(action_dim=6)
+        actions_dim, is_cont = actions_metadata(env.action_space)
+        space = env.observation_space
+    else:
+        actions_dim, is_cont, space = (9,), False, DictSpace({"rgb": Box((64, 64, 3), "uint8", 0.0, 255.0)})
+    agent = build_agent(actions_dim, is_cont, cfg, space, precision=cfg.fabric.precision, device=dev, seed=cfg.seed, training=True)
+    optimizers = make_optimizers(agent, cfg)
+    n_envs, batch, seq = int(cfg.env.num_envs), int(cfg.algo.per_rank_batch_size), int(cfg.algo.per_rank_sequence_length)
+    ring = DeviceReplayRing(GRAPH_RING_ROWS, n_envs, cnn_keys=("rgb",), obs_keys=("rgb",), device=dev)
+    ring.add(_ring_rows(GRAPH_RING_ROWS, n_envs, sum(actions_dim), continuous, 17))
+    ring.flush()
+    if not (ring.active and ring.ready(seq)):
+        fail(f"{what}: the ring is not active and ready: {ring.inactive_reason}")
+    sample = ring.make_sample_fn(batch, seq, time_major=True)
+    rng = BatchGenerator.from_seed(cfg.seed, dev)
+    fused = make_fused_train_step(agent, optimizers, cfg, lambda state, r: sample(state, r.generator), rng)
+    moments, _ = fused(init_moments(dev), ring.state, [1.0] + [0.02] * (WARMUP_STEPS - 1))  # the warm-up steps
+    torch.cuda.synchronize()
+    if fused.captured.warmup_calls != WARMUP_STEPS or fused.captured.graph is not None:
+        fail(f"{what}: {fused.captured.warmup_calls} warm-up steps, graph {fused.captured.graph}")
+    params, adam = _train_state(agent, optimizers)
+    snap = {"params": [p.detach().clone() for p in params], "adam": [a.clone() for a in adam],
+            "moments": {k: v.clone() for k, v in moments.items()}, "rng": rng.generator.get_state()}  # fmt: skip
+
+    def restore():
+        with torch.no_grad():
+            for p, s in zip(params, snap["params"]):
+                p.copy_(s)
+            for a, s in zip(adam, snap["adam"]):
+                a.copy_(s)
+        rng.generator.set_state(snap["rng"])
+
+    def result(m, per_step):
+        p, a = _train_state(agent, optimizers)
+        return {"params": [x.detach().clone() for x in p], "adam": [x.clone() for x in a],
+                "moments": [m["low"].clone(), m["high"].clone()], "metrics": [torch.stack(per_step)]}  # fmt: skip
+
+    step = make_train_step(agent, optimizers, cfg)
+    tau = torch.zeros((), device=dev)
+
+    def eager_run():
+        restore()
+        m, per_step = {k: v.clone() for k, v in snap["moments"].items()}, []
+        for t in GRAPH_TAUS:
+            tau.fill_(t)
+            m, metrics = step(m, sample(ring.state, rng.generator), rng, tau)
+            per_step.append(torch.stack([metrics[k].float() for k in fused.names]))
+        torch.cuda.synchronize()
+        return result(m, per_step)
+
+    eager_a, eager_b = eager_run(), eager_run()
+    restore()
+    per_step = []
+    t0 = time.perf_counter()
+    m, _ = fused(snap["moments"], ring.state, GRAPH_TAUS, lambda i, metrics: per_step.append(torch.stack(list(metrics.values()))))
+    torch.cuda.synchronize()
+    capture_and_replay_s = time.perf_counter() - t0
+    graph = result(m, per_step)
+    if fused.captured.replays != len(GRAPH_TAUS):
+        fail(f"{what}: {fused.captured.replays} replays for {len(GRAPH_TAUS)} steps")
+    eager_gap, graph_gap = _gaps(eager_a, eager_b), _gaps(eager_a, graph)
+    for group, gap in graph_gap.items():
+        allowed = 0.0 if eager_gap[group]["bit_for_bit"] else eager_gap[group]["max_abs"]
+        if not gap["bit_for_bit"] and gap["max_abs"] > allowed:
+            fail(f"{what}: the graph's {group} differ from the eager step's by {gap['max_abs']} (two eager runs: {eager_gap[group]})")
+    nodes = fused.captured.nodes
+    if nodes["ln_gru"] != GRAPH_LN_GRU[kind]:
+        fail(f"{what}: the graph holds LN-GRU kernel nodes {nodes['ln_gru']}, expected {GRAPH_LN_GRU[kind]}")
+    # Each call's last block resets the arrival tickets it used, so the
+    # replayed kernels find them at zero (models/ln_gru.py: _TICKETS).
+    stream = fused.captured.stream.cuda_stream
+    left = {k: int(t.abs().sum()) for (_, st, k), t in ln_gru._TICKETS.items() if st == stream}
+    if not left or any(left.values()):
+        fail(f"{what}: the capture stream's LN-GRU tickets after the replays: {left}")
+
+    # 16 back-to-back replays, then 3 eager steps, from the state the replays left.
+    taus = [0.02] * REPLAYS_PROFILED
+    fused(m, ring.state, taus)  # settled
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    m, _ = fused(m, ring.state, taus)
+    end.record()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / REPLAYS_PROFILED
+    span_ms = start.elapsed_time(end) / REPLAYS_PROFILED
+    profiled_wall = []
+
+    def replays():
+        t = time.perf_counter()
+        fused(m, ring.state, taus)
+        torch.cuda.synchronize()
+        profiled_wall.append((time.perf_counter() - t) * 1e3 / REPLAYS_PROFILED)
+
+    prof = profiled(replays, ("cpu", "cuda"))
+    busy_ms, ops = 0.0, 0
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            busy_ms += (getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)) / 1e3
+            ops += evt.count
+    busy_ms /= REPLAYS_PROFILED
+    eager_moments = {k: v.clone() for k, v in m.items()}
+    tau.fill_(0.02)
+    step(eager_moments, sample(ring.state, rng.generator), rng, tau)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eager_moments, _ = step(eager_moments, sample(ring.state, rng.generator), rng, tau)
+    torch.cuda.synchronize()
+    eager_wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    out = {
+        "ring_rows_per_env": GRAPH_RING_ROWS, "n_envs": n_envs, "taus": list(GRAPH_TAUS), "warmup_steps": fused.captured.warmup_calls,
+        "eager_vs_eager": eager_gap, "graph_vs_eager": graph_gap, "capture_and_8_replays_s": capture_and_replay_s,
+        "graph_nodes": nodes["nodes"], "graph_nodes_by_type": nodes["by_type"], "graph_ln_gru_nodes": nodes["ln_gru"],
+        "ln_gru_tickets_after_replays": left,
+        "graph_kernel_nodes": nodes["by_type"].get("kernel", 0), "eager_device_ops_per_step": STEP_OPS[kind],
+        "replays_profiled": REPLAYS_PROFILED, "fused_host_wall_ms_per_step": wall_ms, "fused_event_span_ms_per_step": span_ms,
+        "fused_device_busy_ms_per_step": busy_ms, "fused_device_ops_per_step": ops / REPLAYS_PROFILED,
+        "fused_host_wall_ms_per_step_profiled": profiled_wall[-1], "fused_device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "fused_device_idle_share_under_the_profiler": max(0.0, 1.0 - busy_ms / profiled_wall[-1]),
+        "fused_gradient_steps_per_s": 1e3 / wall_ms,
+        "eager_host_wall_ms_per_step": eager_wall_ms, "eager_gradient_steps_per_s": 1e3 / eager_wall_ms,
+    }  # fmt: skip
+    if busy_ms <= 0.0:
+        fail(f"{what}: torch.profiler saw no device time in the replays")
+    if out["fused_device_idle_share"] > 0.25:
+        fail(f"{what}: the replayed step leaves the device idle {out['fused_device_idle_share']:.3f} of the time (at most 0.25)")
+    log(f"{what}: DV3-S {cfg.fabric.precision}, B={batch} T={seq}, ring {GRAPH_RING_ROWS} rows x {n_envs} envs; {WARMUP_STEPS} eager warm-up "
+        f"steps (the first under the sync check), then 8 steps from one snapshot: eager vs eager {json.dumps(eager_gap)}; graph vs eager "
+        f"{json.dumps(graph_gap)}")  # fmt: skip
+    log(f"{what}: the graph holds {nodes['nodes']} nodes ({json.dumps(nodes['by_type'])}), LN-GRU kernel nodes {json.dumps(nodes['ln_gru'])}; "
+        f"the eager step runs {STEP_OPS[kind]} device operations")  # fmt: skip
+    log(f"{what}: {REPLAYS_PROFILED} back-to-back replays: host wall {wall_ms:.2f} ms/step (events {span_ms:.2f}), device busy "
+        f"{busy_ms:.2f} ms/step, {ops / REPLAYS_PROFILED:.0f} device ops/step, idle share {out['fused_device_idle_share']:.3f} (under the "
+        f"profiler {profiled_wall[-1]:.2f} ms/step, {out['fused_device_idle_share_under_the_profiler']:.3f}), "
+        f"{out['fused_gradient_steps_per_s']:.2f} gradient steps/s; eager from the same state {eager_wall_ms:.2f} ms/step "
+        f"({out['eager_gradient_steps_per_s']:.2f} steps/s)")  # fmt: skip
+    del fused, ring, agent, optimizers, step, snap, eager_a, eager_b, graph
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_fused_through_cli(args, what, keep_params=False):
+    """One run of the trainer through its CLI entry point with the ring
+    (``buffer.device=True``): every gradient step's metrics finite, and the
+    iterations of gradient steps and episode ends, as
+    :func:`train_through_cli` records them for :func:`check_logged`.
+    Returns (out, steps, wall_s, counts, trace)."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.envs.dummy import SyncVectorEnv
+
+    trace = {"env_steps": 0, "grad_iters": [], "episode_iters": [], "save_s": []}
+    steps = []
+    env_step, save_checkpoint = SyncVectorEnv.step, dv3.save_checkpoint
+
+    def recording_env_step(envs, actions):
+        result = env_step(envs, actions)
+        trace["env_steps"] += 1
+        if result[4]["episode"]:
+            trace["episode_iters"].append(trace["env_steps"])
+        return result
+
+    def timed_save(*a, **kw):
+        t0 = time.perf_counter()
+        path = save_checkpoint(*a, **kw)
+        trace["save_s"].append(time.perf_counter() - t0)
+        return path
+
+    def on_step(agent, step, tau, metrics):
+        values = {k: v.item() for k, v in metrics.items()}
+        if not all(math.isfinite(v) for v in values.values()):
+            fail(f"{what}: non-finite metrics at gradient step {step}: {values}")
+        params = {n: _params(getattr(agent, n)) for n in MODULES} if keep_params else None
+        steps.append((step, tau, time.perf_counter(), values, params))
+        trace["grad_iters"].append(trace["env_steps"])
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with patched(SyncVectorEnv, "step", recording_env_step), patched(dv3, "save_checkpoint", timed_save):
+        out = run(args, callback=on_step)
+    torch.cuda.synchronize()
+    return out, steps, time.perf_counter() - t0, read_counts(), trace
+
+
+def check_fused(out, steps, cfg, what, kind, counts, first_step=1):
+    """The ring was active at the recipe's size and every gradient step ran
+    on the fused path: ``WARMUP_STEPS`` eager warm-up steps, then the graph,
+    holding ``GRAPH_LN_GRU[kind]`` LN-GRU kernel nodes, replayed for the
+    rest; each LN-GRU kernel's wrapper launched it during the run (the
+    warm-up steps and the capture: ``counts``, zeroed just before)."""
+    if not all(counts[k] > 0 for k in ("streaming", "tensor_core", "backward")):
+        fail(f"{what}: an LN-GRU kernel was never launched in the run: {counts}")
+    ring, fused, n = out["device_buffer"], out["fused"], out["gradient_steps"]
+    rows = int(cfg.buffer.size) // int(cfg.env.num_envs)
+    if not ring or not ring["active"] or ring["capacity"] != rows:
+        fail(f"{what}: the ring was not active at {rows} rows per env: {ring}")
+    if [s[0] for s in steps] != list(range(first_step, n + 1)) or not fused or fused["gradient_steps"] != len(steps):
+        fail(f"{what}: gradient steps {[s[0] for s in steps]}, fused {fused}")
+    if fused["warmup_steps"] != WARMUP_STEPS or fused["replays"] != len(steps) - WARMUP_STEPS:
+        fail(f"{what}: {fused['warmup_steps']} warm-up steps and {fused['replays']} replays for {len(steps)} steps")
+    if fused["graph"]["ln_gru"] != GRAPH_LN_GRU[kind]:
+        fail(f"{what}: the graph holds LN-GRU kernel nodes {fused['graph']['ln_gru']}, expected {GRAPH_LN_GRU[kind]}")
+    if out["infeed"] != {"hits": 0, "misses": 0}:
+        fail(f"{what}: the host path's infeed ran: {out['infeed']}")
+
+
+def phase_fused_training(log_root):
+    """The discrete exp through the CLI with ``buffer.device=True`` (the
+    ring at the recipe's 100000 rows, 1.23 GB of pixels on the card): 8
+    gradient steps on the fused path (:func:`check_fused`), the JAX
+    package's tags read back, all finite."""
+    from sheeprl_tpu_torch.config import compose
+
+    args = [*TRAIN_ARGS, "buffer.device=True", f"log_root={log_root}"]
+    cfg = compose(args)
+    out, steps, wall_s, counts, trace = train_fused_through_cli(args, "fused training")
+    if out["gradient_steps"] != 8:
+        fail(f"fused training: {out['gradient_steps']} gradient steps, expected 8")
+    check_fused(out, steps, cfg, "fused training", "discrete", counts)
+    tags = check_logged(out, cfg, trace, "fused training")
+    result = {"cuts": {**TRAIN_CUTS, **FUSED_CUTS}, "gradient_steps": out["gradient_steps"], "wall_s": wall_s, "device_buffer": out["device_buffer"],
+              "fused": out["fused"], "ln_gru_launches_eager_warmup_capture_and_player": counts, "logged_tags": tags,
+              "logged_sps_train": read_tag(out, "Time/sps_train"), "metrics_last_step": steps[-1][3]}  # fmt: skip
+    log(f"fused training: exp=dreamer_v3_100k_ms_pacman buffer.device=True: ring {out['device_buffer']['bytes'] / 1e9:.3f} GB active; "
+        f"{out['gradient_steps']} gradient steps on the fused path ({out['fused']['warmup_steps']} warm-up, {out['fused']['replays']} "
+        f"replays of a {out['fused']['graph']['nodes']}-node graph) in {wall_s:.1f} s; logged Time/sps_train {result['logged_sps_train']}")  # fmt: skip
+    del out
+    return result
+
+
+def phase_fused_continuous(log_root):
+    """The walker through the CLI with ``buffer.device=True`` and
+    ``algo.fused_train_steps=2`` (the ring at the recipe's 4 x 125000 rows,
+    6.14 GB of pixels): 8 gradient steps in buckets of 2 on the fused path,
+    a checkpoint after the 4th, the tags read back; then the run resumed
+    from that checkpoint (the ring loaded from the checkpointed buffer)
+    ends on the uninterrupted run's parameters bit for bit."""
+    import torch
+
+    from sheeprl_tpu_torch.config import compose
+
+    args = [*WALKER_ARGS, "buffer.device=True", "algo.fused_train_steps=2", f"log_root={log_root}"]
+    cfg = compose(args)
+    what = "fused continuous training"
+    out, steps, wall_s, counts, trace = train_fused_through_cli(args, what, keep_params=True)
+    if out["gradient_steps"] != 8 or [os.path.basename(c) for c in out["checkpoints"]] != ["ckpt_268_0.ckpt", "ckpt_276_0.ckpt"]:
+        fail(f"{what}: {out['gradient_steps']} gradient steps, checkpoints {out['checkpoints']}")
+    check_fused(out, steps, cfg, what, "continuous", counts)
+    tags = check_logged(out, cfg, trace, what)
+    mid = out["checkpoints"][0]
+    resumed, rsteps, rwall_s, rcounts, _ = train_fused_through_cli([*args, f"checkpoint.resume_from={mid}"], "fused resume", keep_params=True)
+    check_fused(resumed, rsteps, cfg, "fused resume", "continuous", rcounts, first_step=5)
+    gaps = {f"{name}.{k}": (v.float() - steps[-1][4][name][k].float()).abs().max().item()
+            for name in MODULES for k, v in rsteps[-1][4][name].items()
+            if not torch_equal_bits(v, steps[-1][4][name][k])}  # fmt: skip
+    if gaps:
+        fail(f"fused resume: the resumed run's parameters differ from the uninterrupted run's: {dict(list(gaps.items())[:5])}")
+    result = {"cuts": {**WALKER_CUTS, **WALKER_FUSED_CUTS}, "gradient_steps": out["gradient_steps"], "wall_s": wall_s,
+              "device_buffer": out["device_buffer"], "fused": out["fused"], "ln_gru_launches_eager_warmup_capture_and_player": counts,
+              "logged_tags": tags, "logged_sps_train": read_tag(out, "Time/sps_train"), "checkpoint_save_s": trace["save_s"],
+              "resume": {"checkpoint": mid, "steps": [s[0] for s in rsteps], "wall_s": rwall_s, "fused": resumed["fused"],
+                         "parameters_bit_for_bit": True}}  # fmt: skip
+    log(f"{what}: ring {out['device_buffer']['bytes'] / 1e9:.3f} GB active; {out['gradient_steps']} gradient steps in buckets of 2 "
+        f"({out['fused']['warmup_steps']} warm-up, {out['fused']['replays']} replays of a {out['fused']['graph']['nodes']}-node graph) "
+        f"in {wall_s:.1f} s; logged Time/sps_train {result['logged_sps_train']}; resumed from {os.path.basename(mid)}: steps "
+        f"{result['resume']['steps']}, final parameters bit for bit the uninterrupted run's")  # fmt: skip
+    del out, resumed, steps, rsteps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return result
+
+
+def _ring_at_scale(rb, rows, dev):
+    """One walker env's filled host buffer (``rows`` rows) loaded into a
+    ring with ``load_host_buffer``, timed; 16 x 64 sampled on the card, each
+    window checked against the host buffer's rows of the same start."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
+
+    ring = DeviceReplayRing(rows, 1, cnn_keys=("rgb",), obs_keys=("rgb",), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ring.load_host_buffer(rb)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    if not ring.active or ring.state["added"].tolist() != [rows]:
+        fail(f"ring at scale: the ring holds {ring.state['added'].tolist()} rows (active {ring.active})")
+    sample = ring.make_sample_fn(16, 64, time_major=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = gen.get_state()
+    batch = sample(ring.state, gen)
+    gen.set_state(state)
+    env_idx, start = sample.starts(ring.state, gen)
+    host_off = rb._pos if rb.full else 0
+    ring_off = int(ring.state["pos"][0]) if rb.full else 0
+    for b in range(16):
+        t = (host_off + (int(start[b]) - ring_off) % rows + np.arange(64)) % rows
+        for k in batch:
+            if not np.array_equal(batch[k][:, b].cpu().numpy(), np.asarray(rb[k][t, int(env_idx[b])])):
+                fail(f"ring at scale: window {b} (start {int(start[b])}) of {k} is not the host buffer's")
+    nbytes = ring.ring_nbytes()
+    del ring, batch
+    torch.cuda.empty_cache()
+    return {"rows": rows, "ring_bytes": nbytes, "load_s": load_s, "load_gb_per_s": nbytes / load_s / 1e9, "windows_checked": 16}
+
+
+def _prefetch_timing(rb, dev, reps):
+    """The host path's sample and copy on the critical path: synchronous
+    (``buffer.prefetch=False``) against prefetched (``stage`` samples on
+    the caller's thread and hands the copy to the worker; the envs' step is
+    stood in for by a 50 ms sleep; ``take_or_sample`` then hands the staged
+    batch over)."""
+    import torch
+
+    from sheeprl_tpu_torch.data.infeed import ReplayInfeed
+
+    sync, pre = ReplayInfeed(rb, 16, 64, ("rgb",), dev, enabled=False), ReplayInfeed(rb, 16, 64, ("rgb",), dev, enabled=True)
+    try:
+        sync.take_or_sample(1)
+        sync_ms = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            sync.take_or_sample(1)
+            torch.cuda.synchronize()
+            sync_ms.append((time.perf_counter() - t0) * 1e3)
+        pre.stage(1)
+        pre.take_or_sample(1)
+        stage_ms, take_ms = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            pre.stage(1)
+            stage_ms.append((time.perf_counter() - t0) * 1e3)
+            time.sleep(0.05)
+            t0 = time.perf_counter()
+            batch = pre.take_or_sample(1)[0]
+            torch.cuda.synchronize()
+            take_ms.append((time.perf_counter() - t0) * 1e3)
+            if batch["rgb"].shape != (64, 16, 64, 64, 3) or batch["rgb"].dtype != torch.uint8 or batch["actions"].dtype != torch.float32:
+                fail(f"prefetch: staged batch {batch['rgb'].shape} {batch['rgb'].dtype}")
+        if pre.hits != reps + 1 or pre.misses != 0:
+            fail(f"prefetch: {pre.hits} hits, {pre.misses} misses for {reps + 1} staged calls")
+    finally:
+        sync.close()
+        pre.close()
+    crit = [a + b for a, b in zip(stage_ms, take_ms)]
+    return {"sync_sample_and_copy_ms": statistics.median(sync_ms), "prefetch_stage_ms": statistics.median(stage_ms),
+            "prefetch_take_ms": statistics.median(take_ms), "prefetch_critical_path_ms": statistics.median(crit),
+            "prefetch_critical_path_ms_max": max(crit)}  # fmt: skip
+
+
 def phase_replay_sample(reps: int = 10):
     """One walker env's replay buffer filled to its 125000 rows (the
     recipe's 500000 over 4 envs: 1.54 GB of 64x64x3 pixels), memory-mapped
@@ -1484,9 +1967,15 @@ def phase_replay_sample(reps: int = 10):
     log("replay sample (one walker env, 125000 rows, 16 x 64 sequences + copy to the card, median of "
         f"{reps}): " + ", ".join(f"{k} {v['sample_ms']:.2f} ms sample / {v['sample_and_h2d_ms']:.2f} ms with the copy"
                                  + (f" (rgb pages resident {v['rgb_pages_resident_before_sample']:.3f})" if v["rgb_pages_resident_before_sample"] is not None else "")
-                                 for k, v in result.items() if k != "filesystem")
+                                 for k, v in result.items() if k not in ("filesystem", "ring_at_scale", "prefetch"))
         + f"; batch {result['memory']['batch_bytes'] / 1e6:.2f} MB; filled in {result['memmap_cold']['fill_s']:.1f} s (memmap) "
         f"and {result['memory']['fill_s']:.1f} s (memory); files on {result['filesystem']}")  # fmt: skip
+    ring, pre = result["ring_at_scale"], result["prefetch"]
+    log(f"ring at scale: {ring['rows']} rows ({ring['ring_bytes'] / 1e9:.3f} GB) loaded from the memmap buffer with load_host_buffer in "
+        f"{ring['load_s']:.3f} s ({ring['load_gb_per_s']:.2f} GB/s); 16 x 64 sampled on the card, every window the host buffer's")
+    log(f"prefetch (16 x 64 from memory, median of {reps}): sample and copy on the critical path {pre['sync_sample_and_copy_ms']:.2f} ms "
+        f"synchronous, {pre['prefetch_critical_path_ms']:.2f} ms prefetched (stage, the sample on the caller's thread, "
+        f"{pre['prefetch_stage_ms']:.2f} ms; take {pre['prefetch_take_ms']:.3f} ms)")  # fmt: skip
     return result
 
 
@@ -1532,6 +2021,8 @@ def _replay_sample(root, rows, chunk, block, dev, reps):
             return (t_host - t) * 1e3, (time.perf_counter() - t) * 1e3, sum(x.numel() * x.element_size() for x in on_card.values())
 
         modes = ("cold", "warm") if kind == "memmap" else ("memory",)
+        if kind == "memory":
+            result["prefetch"] = _prefetch_timing(rb, dev, reps)
         for mode in modes:
             if mode == "warm":
                 for f in files:
@@ -1553,6 +2044,8 @@ def _replay_sample(root, rows, chunk, block, dev, reps):
                 "sample_and_h2d_ms_min": min(total), "sample_and_h2d_ms_max": max(total), "batch_bytes": nbytes, "fill_s": fill_s,
                 "rgb_pages_resident_before_sample": statistics.mean(resident) if resident else None,
             }  # fmt: skip
+        if kind == "memmap":
+            result["ring_at_scale"] = _ring_at_scale(rb, rows, dev)
         del rb
         gc.collect()
     if os.listdir(os.path.join(root, "replay_sample")):
@@ -1621,6 +2114,8 @@ def main() -> None:
         train_profile = phase_train_profile(agent, cfg)
         del agent
         torch.cuda.empty_cache()
+        graph_discrete = phase_graph_vs_eager("discrete")
+        fused_training = phase_fused_training(workdir)
         train_reference = phase_train_reference()
         continuous, cont_out, cont_steps, wcfg = phase_continuous_training(workdir)
         continuous_profile = phase_train_profile(cont_out["agent"], wcfg, bwd_per_step=WALKER_BWD_PER_STEP, what="continuous step profile")
@@ -1632,6 +2127,8 @@ def main() -> None:
         continuous_reference = phase_train_reference(
             ("exp=dreamer_v3_dmc_walker_walk", "env=dummy", "env.id=continuous_dummy"), 6, True, "continuous reference"
         )
+        graph_continuous = phase_graph_vs_eager("continuous")
+        fused_continuous = phase_fused_continuous(workdir)
         replay_sample = phase_replay_sample()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -1660,6 +2157,13 @@ def main() -> None:
                 "launches": launches, "max_abs_err": err, "ms": row["ms"], "ms_min": row["ms_min"], "ms_max": row["ms_max"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None}  # fmt: skip
 
+    def in_graph(kernel):
+        """The kernel's nodes in the captured step's graph, and its launches
+        by the fused CLI runs' replays."""
+        return {"graph_nodes_per_step": {k: g["graph_ln_gru_nodes"][kernel] for k, g in (("discrete", graph_discrete), ("continuous", graph_continuous))},
+                "launches_fused_replays": {k: f["fused"]["graph"]["ln_gru"][kernel] * f["fused"]["replays"]
+                                           for k, f in (("discrete", fused_training), ("continuous", fused_continuous))}}  # fmt: skip
+
     kernels_line = {
         "kernels": [
             entry("ln_gru_forward", "sheeprl_tpu_torch/csrc/ln_gru.cu", "sheeprl_tpu/models/pallas_gru.py:118",
@@ -1667,15 +2171,16 @@ def main() -> None:
                   by_kernel["streaming"], fwd_row, max(fwd_row["max_abs_err_h"], fwd_row["max_abs_err_z"]))
             | {"product_library_ms": fwd_row["product_library_ms"], "launches_serving": serving["ln_gru_launches_by_kernel"]["streaming"],
                "serving_b8": {k: serve_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "product_library_ms")},
-               "launches_continuous": cont_counts["forward_by_batch"].get(16, 0)},
+               "launches_continuous": cont_counts["forward_by_batch"].get(16, 0)} | in_graph("streaming"),
             entry("ln_gru_forward_tensor_core", "sheeprl_tpu_torch/csrc/ln_gru_tc.cu", "sheeprl_tpu/models/pallas_gru.py:118",
                   f"B=1024 D=1024 H=512 bfloat16 (DreamerV3-S imagination; {TC_PER_STEP} launches per gradient step)",
                   by_kernel["tensor_core"], tc_row, max(tc_row["max_abs_err_h"], tc_row["max_abs_err_z"]))
-            | {"product_library_ms": tc_row["product_library_ms"], "launches_continuous": cont_counts["forward_by_batch"].get(1024, 0)},
+            | {"product_library_ms": tc_row["product_library_ms"], "launches_continuous": cont_counts["forward_by_batch"].get(1024, 0)}
+            | in_graph("tensor_core"),
             entry("ln_gru_backward", "sheeprl_tpu_torch/csrc/ln_gru_bwd.cu", "sheeprl_tpu/models/pallas_gru.py:172",
                   f"{bwd_row['shape']} {bwd_row['dtype']} (DreamerV3-S dynamic scan; {BWD_PER_STEP} launches per gradient step)",
                   training["ln_gru_backward_launches"], bwd_row, max(bwd_row["max_abs_err"].values()))
-            | {"in_step_ms": bwd16_in_step_ms, "launches_continuous": cont_counts["backward_by_batch"].get(16, 0)},
+            | {"in_step_ms": bwd16_in_step_ms, "launches_continuous": cont_counts["backward_by_batch"].get(16, 0)} | in_graph("backward"),
             entry("ln_gru_backward", "sheeprl_tpu_torch/csrc/ln_gru_bwd.cu", "sheeprl_tpu/models/pallas_gru.py:172",
                   f"{bwd_big_row['shape']} {bwd_big_row['dtype']} (DreamerV3-S imagination under the continuous actor's pathwise "
                   f"gradient; {WALKER_BWD_PER_STEP[1024]} launches per gradient step)",
@@ -1703,6 +2208,10 @@ def main() -> None:
         "continuous_reference": continuous_reference,
         "evaluation": evaluation,
         "replay_sample": replay_sample,
+        "graph_discrete": graph_discrete,
+        "graph_continuous": graph_continuous,
+        "fused_training": fused_training,
+        "fused_continuous_training": fused_continuous,
         "kernels": kernels_line["kernels"],
     }
     out_dir = os.path.join(REPO, "chiprun_out")

@@ -27,13 +27,18 @@ or in-memory buffer, ``player_step``, ``Ratio``-driven gradient steps with
 the target critic's cadence, the metric aggregator, timers and TensorBoard
 logger every ``metric.log_every`` policy steps, checkpoints and resume, and
 the greedy test episode at the end. The step's metrics stay on the device
-until a log point reads them back in one transfer. Not ported yet (ROADMAP):
-the Anakin lane, the device replay ring, the infeed, the interaction
-pipeline, telemetry, health probes and the preemption guard.
+until a log point reads them back in one transfer. With ``buffer.device``
+the rows are mirrored into a replay ring in device memory and the gradient
+steps run through :func:`make_fused_train_step` (on CUDA a captured graph
+that samples the ring); with ``buffer.prefetch`` the host path's batches are
+copied to the device by the infeed's worker while the envs step. Not ported
+yet (ROADMAP): the Anakin lane, the interaction pipeline, telemetry, health
+probes and the preemption guard.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import warnings
@@ -54,7 +59,10 @@ from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_player_obs, prepare_obs, test
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.core.device import resolve_device
+from sheeprl_tpu_torch.core.graphs import CapturedStep
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
+from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
+from sheeprl_tpu_torch.data.infeed import ReplayInfeed
 from sheeprl_tpu_torch.envs.dummy import make_dummy_vector_env
 from sheeprl_tpu_torch.optim import adam
 from sheeprl_tpu_torch.registry import register_algorithm
@@ -107,6 +115,19 @@ def target_update_taus(cumulative: int, k: int, freq: int, tau: float) -> np.nda
     return taus
 
 
+@torch.no_grad()
+def target_ema_(targets: List[torch.Tensor], sources: List[torch.Tensor], tau: torch.Tensor) -> None:
+    """``tp <- tau * p + (1 - tau) * tp`` in place, with ``tau`` a 0-d tensor
+    on the parameters' device, so that the step reads it from the device
+    and a captured step takes a new tau at every replay. A tau of 0 leaves
+    the target bit for bit and a tau of 1 copies the source bit for bit (the
+    blend alone would turn a -0.0 into +0.0)."""
+    mixed = torch._foreach_add(torch._foreach_mul(targets, 1 - tau), torch._foreach_mul(sources, tau))
+    keep, copy = tau == 0, tau == 1
+    for tp, p, m in zip(targets, sources, mixed):
+        tp.copy_(torch.where(keep, tp, torch.where(copy, p, m)))
+
+
 def _clip(module: torch.nn.Module, clip: Optional[float]) -> torch.Tensor:
     """Global-norm clipping of the module's gradients; returns the norm
     before clipping (``Grads/*``)."""
@@ -124,7 +145,8 @@ def make_train_step(
     continuous actions), ``rewards``, ``terminated`` and ``is_first``.
     ``rng`` is the noise source of every draw (a :class:`BatchGenerator`);
     ``tau`` is the target critic's EMA coefficient for this step (0 leaves
-    it)."""
+    it), a float or a 0-d tensor on the agent's device (what a captured step
+    reads, :func:`target_ema_`)."""
     wm_cfg = cfg.algo.world_model
     decoupled = bool(wm_cfg.decoupled_rssm)
     pathwise = bool(agent.is_continuous)
@@ -144,6 +166,7 @@ def make_train_step(
     spec = agent.actor_spec
     actions_dim = [int(d) for d in agent.actions_dim]
     wm, actor, critic, target_critic = agent.world_model, agent.actor, agent.critic, agent.target_critic
+    device = next(critic.parameters()).device
 
     def actor_sample(latent: torch.Tensor, rng) -> torch.Tensor:
         actions, _ = actor_forward([p.float() for p in actor(latent.detach())], spec, rng, greedy=False)
@@ -286,12 +309,8 @@ def make_train_step(
             critic_norm = _clip(critic, cfg.algo.critic.clip_gradients)
             optimizers["critic"].step()
 
-            # target critic EMA: tau * p + (1 - tau) * tp, 0 leaves it as it is
-            if tau != 0.0:
-                with torch.no_grad():
-                    targets = list(target_critic.parameters())
-                    torch._foreach_mul_(targets, 1.0 - float(tau))
-                    torch._foreach_add_(targets, list(critic.parameters()), alpha=float(tau))
+            tau_t = tau if isinstance(tau, torch.Tensor) else torch.full((), float(tau), device=device)
+            target_ema_(list(target_critic.parameters()), list(critic.parameters()), tau_t)
 
         metrics = {
             "Loss/world_model_loss": rec_loss.detach(),
@@ -311,6 +330,82 @@ def make_train_step(
         return new_moments, metrics
 
     return step
+
+
+def make_fused_train_step(
+    agent: DV3Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, sample_fn: Callable[[Dict[str, Any], Any], Dict[str, torch.Tensor]], rng
+) -> Callable[..., tuple]:
+    """-> ``fused(moments, ring_state, taus, on_step=None) -> (moments,
+    bucket_mean_metrics)``: ``len(taus)`` gradient steps, each sampling its
+    own batch with ``sample_fn(ring_state, rng)`` (a
+    :meth:`DeviceReplayRing.make_sample_fn` sampler) and drawing its noise
+    from ``rng``, with no host work between them (counterpart of the JAX
+    package's ``make_fused_train_step``, ``dreamer_v3.py:446-499``).
+
+    One gradient step, the sampling included, is a :class:`CapturedStep`:
+    on CUDA it is captured once as a CUDA graph (after its warm-up steps,
+    which are real gradient steps) and replayed once per step, where the
+    JAX package scans K steps in one compiled call; on the CPU it runs
+    eagerly. The graph reads fixed addresses, so the step's inputs are
+    static tensors: the ring (written in place by its ``flush``), the
+    moments (the step's new moments are copied back into them) and the
+    target critic's tau (a device scalar filled before each step). Each
+    step's metrics come out as one tensor (``names`` order), which is added
+    into the bucket's sum; the bucket's mean is returned, one metrics dict
+    per call as the JAX package's scan gives. ``on_step(i, metrics)`` runs
+    after the i-th step with a copy of its metrics. ``sample_fn`` and the
+    step share ``rng``, the trainer's one checkpointed noise source, whose
+    generator the graph registers, so each replay draws new numbers."""
+    step = make_train_step(agent, optimizers, cfg)
+    device = next(agent.critic.parameters()).device
+    tau = torch.zeros((), device=device)
+    moments = init_moments(device)
+    names: List[str] = []
+    captured_ring: Dict[str, Any] = {}
+
+    def one_step() -> torch.Tensor:
+        data = sample_fn(captured_ring["state"], rng)
+        new_moments, metrics = step(moments, data, rng, tau)
+        for k, v in new_moments.items():
+            moments[k].copy_(v)
+        if not names:
+            names.extend(metrics)
+        return torch.stack([metrics[k].float() for k in names])
+
+    generator = getattr(rng, "generator", None)
+    captured = CapturedStep(one_step, device, [generator] if generator is not None else [])
+
+    def fused(moments_in: Dict[str, torch.Tensor], ring_state: Dict[str, Any], taus, on_step=None):
+        held = captured_ring.setdefault("state", ring_state)
+        if held is not ring_state and not _same_ring(held, ring_state):
+            raise ValueError("the fused train step samples the ring it was built with: pass that ring's state")
+        for k, v in moments_in.items():
+            if v is not moments[k]:
+                moments[k].copy_(v)
+        total = None
+        for i, t in enumerate(taus):
+            tau.fill_(float(t))
+            out = captured()
+            total = out.clone() if total is None else total.add_(out)
+            if on_step is not None:
+                on_step(i, dict(zip(names, out.clone().unbind())))
+        return {k: v.clone() for k, v in moments.items()}, dict(zip(names, (total / len(taus)).unbind()))
+
+    fused.captured = captured
+    fused.names = names
+    return fused
+
+
+def _same_ring(a: Dict[str, Any], b: Dict[str, Any]) -> bool:
+    return a["pos"] is b["pos"] and a["added"] is b["added"] and a["data"].keys() == b["data"].keys() and all(
+        a["data"][k] is b["data"][k] for k in a["data"]
+    )
+
+
+def _fused_callback(callback, agent, first: int, taus: np.ndarray, i: int, metrics: Metrics) -> None:
+    """The trainer's per-step callback for the i-th step of a fused bucket
+    whose first gradient step is ``first``."""
+    callback(agent, first + i, float(taus[i]), metrics)
 
 
 OPTIMIZER_KEYS = {"world_model": "world_optimizer", "actor": "actor_optimizer", "critic": "critic_optimizer"}
@@ -333,7 +428,12 @@ def load_training_state(
     for name in ("world_model", "actor", "critic", "target_critic"):
         getattr(agent, name).load_state_dict(state[name], strict=True)
     for name, key in OPTIMIZER_KEYS.items():
-        optimizers[name].load_state_dict(state[key])
+        # The optimizer keeps its own ``capturable``: a state saved on the
+        # CPU (a host step count) loads into a card's optimizer with its step
+        # count on the card, and the other way round.
+        saved = dict(state[key])
+        saved["param_groups"] = [{**g, "capturable": mine["capturable"]} for g, mine in zip(saved["param_groups"], optimizers[name].param_groups)]
+        optimizers[name].load_state_dict(saved)
     return {k: v.to(device) for k, v in state["moments"].items()}
 
 
@@ -416,10 +516,23 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
     (which waits so with the buffer restored too). ``dry_run`` runs one
     iteration that trains at once on a buffer of 2 rows per env.
 
+    ``buffer.device`` mirrors every added row into a
+    :class:`DeviceReplayRing` (resumed from the checkpointed buffer), and a
+    train call whose ring holds ``per_rank_sequence_length`` rows per env
+    runs its gradient steps in power-of-two buckets of at most
+    ``algo.fused_train_steps`` through :func:`make_fused_train_step`, one
+    aggregator entry per bucket (its mean); otherwise, and when the ring
+    does not fit ``buffer.device_hbm_fraction`` of the card's memory, the
+    host path samples the host buffer (:class:`ReplayInfeed`, one call
+    ahead with ``buffer.prefetch``).
+
     Returns {"agent", "optimizers", "moments", "policy_steps",
-    "gradient_steps", "log", "log_dir", "checkpoints", "test_reward"}:
-    ``log`` holds, for every log point, the policy and gradient steps and
-    the values logged there."""
+    "gradient_steps", "log", "log_dir", "checkpoints", "test_reward",
+    "device_buffer", "fused", "infeed"}: ``log`` holds, for every log point,
+    the policy and gradient steps and the values logged there;
+    ``device_buffer`` the ring's state (None without ``buffer.device``);
+    ``fused`` the fused path's gradient steps, warm-up steps, replays and
+    graph nodes (None when it never ran); ``infeed`` its hits and misses."""
     if cfg.checkpoint.resume_from:
         cfg = resume_config(cfg)
     device = resolve_device(cfg.device)
@@ -480,6 +593,18 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
         buffer_cls=SequentialReplayBuffer,
     )
     ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
+    # The replay ring in card memory (data/device_buffer.py): every row added
+    # to the host buffer is mirrored there, and the fused train step samples
+    # it itself. The host buffer stays the checkpoint's source, and the path
+    # when the ring does not fit or is not ready.
+    ring = None
+    if cfg.buffer.device:
+        ring = DeviceReplayRing(
+            rb.buffer_size, num_envs, cnn_keys=cnn_keys, obs_keys=obs_keys,
+            hbm_fraction=float(cfg.buffer.device_hbm_fraction), device=device,
+        )  # fmt: skip
+    fused_train_steps = max(int(cfg.algo.fused_train_steps), 1)
+    fused = None
     total_iters = int(cfg.algo.total_steps // policy_steps_per_iter) if not cfg.dry_run else 1
     learning_starts = int(cfg.algo.learning_starts // policy_steps_per_iter) if not cfg.dry_run else 0
     prefill_steps = learning_starts - int(learning_starts > 0)
@@ -527,9 +652,17 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
         batch_size = int(state_ckpt["batch_size"])
         if cfg.buffer.checkpoint and state_ckpt.get("rb") is not None:
             rb.load_state_dict(state_ckpt["rb"])
+            if ring is not None:
+                ring.load_host_buffer(rb)
         else:
             learning_starts += start_iter
             prefill_steps += start_iter
+
+    # The host path's batches (data/infeed.py): with buffer.prefetch the
+    # next train call's batches are sampled after this one and copied to the
+    # card while the envs step.
+    infeed = ReplayInfeed(rb, batch_size, seq_len, cnn_keys, device, enabled=bool(cfg.buffer.prefetch))
+    fused_gradient_steps = 0
 
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
@@ -548,6 +681,8 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
                     real_actions = real_actions[:, 0]
             step_data["actions"] = actions.reshape((1, num_envs, -1)).astype(np.float32)
             rb.add(step_data, validate_args=cfg.buffer.validate_args)
+            if ring is not None:
+                ring.add(step_data)
             next_obs, rewards, terminated, truncated, infos = envs.step(real_actions)
             dones = np.logical_or(terminated, truncated).astype(np.uint8)
 
@@ -580,6 +715,8 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
             reset_data["rewards"] = step_data["rewards"][:, dones_idxes]
             reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
             rb.add(reset_data, dones_idxes, validate_args=cfg.buffer.validate_args)
+            if ring is not None:
+                ring.add(reset_data, dones_idxes)
             for k in ("rewards", "terminated", "truncated"):
                 step_data[k][:, dones_idxes] = 0.0
             step_data["is_first"][:, dones_idxes] = 1.0
@@ -591,18 +728,42 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
         if iter_num >= learning_starts:
             per_rank_gradient_steps = ratio(policy_step - prefill_steps * policy_steps_per_iter)
             if per_rank_gradient_steps > 0:
-                sample = rb.sample(batch_size, sequence_length=seq_len, n_samples=per_rank_gradient_steps)
-                taus = target_update_taus(gradient_steps, per_rank_gradient_steps, freq, cfg.algo.critic.tau)
-                with timer("Time/train_time"):
-                    for i in range(per_rank_gradient_steps):
-                        data = {k: torch.from_numpy(np.ascontiguousarray(v[i])).to(device) for k, v in sample.items()}
-                        moments, metrics = train_step(moments, data, train_rng, float(taus[i]))
-                        gradient_steps += 1
-                        if aggregator is not None:
-                            pending.append(metrics)  # the device's 0-d tensors, read back at the log point
-                        if callback is not None:
-                            callback(agent, gradient_steps, float(taus[i]), metrics)
-                    train_step_count += 1
+                if ring is not None:
+                    ring.flush()  # this call's rows, in one copy to the card
+                if ring is not None and ring.ready(seq_len):
+                    if fused is None:
+                        ring_sample = ring.make_sample_fn(batch_size, sequence_length=seq_len, time_major=True)
+                        fused = make_fused_train_step(agent, optimizers, cfg, lambda state, rng: ring_sample(state, rng.generator), train_rng)
+                    with timer("Time/train_time"):
+                        remaining = per_rank_gradient_steps
+                        while remaining > 0:
+                            # Power-of-two buckets, as the JAX package's: one
+                            # metrics entry per bucket, its mean.
+                            k = 1 << (min(remaining, fused_train_steps).bit_length() - 1)
+                            taus = target_update_taus(gradient_steps, k, freq, cfg.algo.critic.tau)
+                            on_step = None
+                            if callback is not None:
+                                on_step = functools.partial(_fused_callback, callback, agent, gradient_steps + 1, taus)
+                            moments, metrics = fused(moments, ring.state, taus, on_step)
+                            gradient_steps += k
+                            fused_gradient_steps += k
+                            remaining -= k
+                            if aggregator is not None:
+                                pending.append(metrics)
+                        train_step_count += 1
+                else:
+                    batches = infeed.take_or_sample(per_rank_gradient_steps)
+                    taus = target_update_taus(gradient_steps, per_rank_gradient_steps, freq, cfg.algo.critic.tau)
+                    with timer("Time/train_time"):
+                        for i in range(per_rank_gradient_steps):
+                            moments, metrics = train_step(moments, batches[i], train_rng, float(taus[i]))
+                            gradient_steps += 1
+                            if aggregator is not None:
+                                pending.append(metrics)  # the device's 0-d tensors, read back at the log point
+                            if callback is not None:
+                                callback(agent, gradient_steps, float(taus[i]), metrics)
+                        train_step_count += 1
+                    infeed.stage(per_rank_gradient_steps)
 
         # -------------------------------------------------------- logging
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters):
@@ -650,6 +811,7 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
             path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
 
+    infeed.close()
     test_reward = test(agent, cfg, log_dir, logger) if cfg.algo.run_test else None
     if logger is not None:
         logger.close()
@@ -663,4 +825,12 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
         "log_dir": log_dir,
         "checkpoints": checkpoints,
         "test_reward": test_reward,
-    }
+        "device_buffer": None if ring is None else {
+            "active": ring.active, "inactive_reason": ring.inactive_reason, "bytes": ring.ring_nbytes(), "capacity": ring.capacity,
+        },
+        "fused": None if fused is None else {
+            "gradient_steps": fused_gradient_steps, "warmup_steps": fused.captured.warmup_calls,
+            "replays": fused.captured.replays, "graph": fused.captured.nodes,
+        },
+        "infeed": {"hits": infeed.hits, "misses": infeed.misses},
+    }  # fmt: skip

@@ -98,6 +98,7 @@ def _dreamer_v3_s() -> Dict[str, Any]:
             "learning_starts": 1024,
             "replay_ratio": 1,
             "per_rank_pretrain_steps": 0,
+            "fused_train_steps": 1,
             "gamma": 0.996996996996997,
             "lmbda": 0.95,
             "horizon": 15,
@@ -155,7 +156,10 @@ def _dreamer_v3_s() -> Dict[str, Any]:
             },
         },
         "env": {"id": None, "num_envs": 4, "screen_size": 64, "action_repeat": 1, "clip_rewards": False, "wrapper": {"action_dim": 2}},
-        "buffer": {"size": 1000000, "memmap": True, "memmap_mode": "r+", "validate_args": False, "checkpoint": True},
+        "buffer": {
+            "size": 1000000, "memmap": True, "memmap_mode": "r+", "validate_args": False, "checkpoint": True,
+            "prefetch": False, "device": False, "device_hbm_fraction": 0.4,
+        },  # fmt: skip
         "checkpoint": {"every": 100000, "resume_from": None, "save_last": True, "keep_last": 5},
         "metric": _metric(),
         "fabric": {"precision": "bf16-mixed"},

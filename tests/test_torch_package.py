@@ -32,7 +32,7 @@ def test_import_every_module_without_jax_or_the_jax_package():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     training = ["algos.dreamer_v3.dreamer_v3", "algos.dreamer_v3.loss", "data.buffers", "envs.dummy", "optim", "config", "cli", "__main__",
                 "utils.checkpoint", "data.memmap", "utils.metric", "utils.timer", "utils.logger", "registry", "eval",
-                "algos.dreamer_v3.evaluate"]
+                "algos.dreamer_v3.evaluate", "data.device_buffer", "data.infeed", "core.graphs"]
     for name in ["serve.engine", "bridge", *training]:
         assert f"sheeprl_tpu_torch.{name}" in report["modules"], name
     assert not [m for m in report["loaded"] if m in FORBIDDEN]
