@@ -122,6 +122,32 @@ Phases (any failure exits non-zero before the result line):
    checkpointed buffer), ending bit for bit on the uninterrupted fused
    run's parameters.
 
+13. PPO on vector observations, a third main path: ``python -m
+   sheeprl_tpu_torch exp=ppo env=dummy`` in process at the recipe's widths
+   (64 units, 2 layers, 4 envs, 128 rollout steps, batch 64, 10 epochs,
+   Adam lr 1e-3 eps 1e-4, 32-true), with total_steps and log_every cut
+   (listed in the output) to 2 updates: finite losses at every update,
+   every parameter tensor moved, the JAX package's tags at its steps read
+   back with ``read_scalars``, and no LN-GRU launch (PPO has no recurrent
+   cell; the counts zeroed just before, read just after). Then
+   ``env.id=continuous_dummy`` for one update (the Normal head).
+14. PPO on pixels: ``exp=ppo_atari env=dummy`` (84x84 rgb, 4 frames
+   stacked: 12 channels, NatureCNN of 512 features, dense 512, 1 env, 1024
+   rollout steps, batch 256, 3 epochs, lr and clip annealed,
+   max_grad_norm 0.5), total_steps and checkpoint.every cut to 2 updates
+   and a checkpoint after the first: checked as 13; resumed from that
+   checkpoint (every restored tensor bit for bit on the card, the resumed
+   update starting from them at the checkpoint's annealed learning rate);
+   exported and served over HTTP (greedy repeats byte-identical, seeded
+   samples repeatable, actions in range); ``python -m
+   sheeprl_tpu_torch.eval`` in its own process logging the trainer's test
+   reward.
+15. PPO's profile for both exps (an update and a rollout step: host wall,
+   device busy, idle share, device operations, peak memory; GAE on its
+   own), and one ppo_atari update on the card against the CPU in 32-true
+   from the same weights, data and permutation (tolerances in
+   ``phase_ppo_reference``).
+
 Prints one ``{"kernels": [...]}`` line (the streaming forward at B = 16,
 the tensor-core forward at B = 1024, the backward at B = 16 and at
 B = 1024; each with its nodes in the captured step's graph and its
@@ -132,6 +158,7 @@ chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import functools
 import gc
 import json
 import math
@@ -162,6 +189,34 @@ def fail(message: str) -> None:
 
 def log(message: str) -> None:
     print(message, flush=True)
+
+
+def time_phases(namespace: dict) -> dict:
+    """Wrap every ``phase_*`` function of ``namespace`` (a module's globals)
+    so that each outermost call adds its wall seconds to the returned dict
+    under the phase's name; a phase that another phase calls counts in its
+    caller's time."""
+    seconds: dict = {}
+    depth = [0]
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            depth[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+
+        return wrapper
+
+    for name, fn in list(namespace.items()):
+        if name.startswith("phase_") and callable(fn):
+            namespace[name] = timed(name, fn)
+    return seconds
 
 
 def nvidia_smi() -> str:
@@ -689,7 +744,7 @@ def phase_reference(path):
     import torch
 
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
-    from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_player_obs
+    from sheeprl_tpu_torch.utils.utils import normalize_obs
     from sheeprl_tpu_torch.serve.artifact import load_artifact
     from sheeprl_tpu_torch.serve.spaces import spec_to_space
     from sheeprl_tpu_torch.utils.distribution import RowGenerators
@@ -710,7 +765,7 @@ def phase_reference(path):
         state = agent.init_player_state(2)
         trace = []
         for o in obs:
-            _, real, state = agent.player_step(state, normalize_player_obs({"rgb": o.to(dev)}, ("rgb",)), gens, greedy=False)
+            _, real, state = agent.player_step(state, normalize_obs({"rgb": o.to(dev)}, ("rgb",)), gens, greedy=False)
             trace.append((state["recurrent_state"].float().cpu(), real.cpu()))
         out[dev] = trace
     worst = 0.0
@@ -911,7 +966,7 @@ def check_logged(out, cfg, trace, what):
     Returns {tag: number of log steps}."""
     import numpy as np
 
-    from sheeprl_tpu_torch.config import AGGREGATOR_METRICS
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import AGGREGATOR_METRICS
     from sheeprl_tpu_torch.utils.logger import read_scalars
 
     n, every = int(cfg.env.num_envs), int(cfg.metric.log_every)
@@ -1487,6 +1542,510 @@ def phase_eval(ckpt, test_reward):
     log(f"eval: python -m sheeprl_tpu_torch.eval on {os.path.basename(ckpt)} logged Test/cumulative_reward "
         f"{logged['Test/cumulative_reward'][0][1]} = the trainer's test reward, in {wall_s:.1f} s")  # fmt: skip
     return {"checkpoint": ckpt, "wall_s": wall_s, "test_reward": logged["Test/cumulative_reward"][0][1]}
+
+
+# PPO (exp=ppo on vector observations, exp=ppo_atari on pixels): the host
+# path, one process. PPO launches no LN-GRU kernel: its counts stay at 0.
+PPO_CUTS = {"algo.total_steps": "1024 (from 65536; 2 updates)", "metric.log_every": "512 (from 5000)"}
+PPO_ARGS = ["exp=ppo", "env=dummy", "algo.total_steps=1024", "metric.log_every=512"]
+PPO_CONT_CUTS = {"env.id": "continuous_dummy (from discrete_dummy)", "algo.total_steps": "512 (from 65536; 1 update)",
+                 "metric.log_every": "512 (from 5000)"}  # fmt: skip
+PPO_CONT_ARGS = ["exp=ppo", "env=dummy", "env.id=continuous_dummy", "algo.total_steps=512", "metric.log_every=512"]
+PPO_ATARI_CUTS = {"algo.total_steps": "2048 (from 10000000; 2 updates)", "checkpoint.every": "1024 (from 100000)"}
+PPO_ATARI_ARGS = ["exp=ppo_atari", "env=dummy", "algo.total_steps=2048", "checkpoint.every=1024"]
+PPO_LOSSES = ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss")
+PPO_INFO = ("Info/learning_rate", "Info/clip_coef", "Info/ent_coef")
+
+
+def _ppo_snapshot(agent, optimizer):
+    params = {k: v.detach().clone() for k, v in agent.state_dict().items()}
+    state = [{k: v.detach().clone() for k, v in optimizer.state[p].items()} for p in agent.parameters()]
+    return params, state, optimizer.param_groups[0]["lr"]
+
+
+def _same_bits(a, b):
+    """The tensors of two snapshots (or a snapshot and a checkpoint's
+    ``agent`` and optimizer ``state``) that differ, by name."""
+    import torch
+
+    (pa, sa), (pb, sb) = a, b
+    bad = [k for k in pa if not torch.equal(pa[k].cpu(), pb[k].cpu())]
+    for i, (x, y) in enumerate(zip(sa, sb)):
+        bad += [f"opt.{i}.{k}" for k in x if not torch.equal(x[k].cpu(), y[k].cpu())]
+    return bad + ([] if len(sa) == len(sb) and pa.keys() == pb.keys() else ["<structure>"])
+
+
+def ppo_through_cli(args, what):
+    """One run of the port's PPO trainer through its CLI entry point, in
+    process, on the card, with the LN-GRU counts zeroed before and read
+    after. Returns (out, trace, snaps, wall_s, counts): ``trace`` holds the
+    env-step index of every episode end; ``snaps`` the agent and Adam state
+    before the first update of the run and after every update."""
+    from sheeprl_tpu_torch.algos.ppo import ppo as ppo_mod
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.envs.dummy import SyncVectorEnv
+
+    trace, snaps = {"env_steps": 0, "episode_steps": []}, {"after": []}
+    env_step, make_train_step = SyncVectorEnv.step, ppo_mod.make_train_step
+
+    def recording_env_step(envs, actions):
+        result = env_step(envs, actions)
+        trace["env_steps"] += 1
+        if result[4]["episode"]:
+            trace["episode_steps"].append(trace["env_steps"])
+        return result
+
+    def spying_make_train_step(agent, optimizer, cfg):
+        step = make_train_step(agent, optimizer, cfg)
+
+        def wrapped(*a):
+            snaps.setdefault("before", _ppo_snapshot(agent, optimizer))
+            metrics = step(*a)
+            snaps["after"].append(_ppo_snapshot(agent, optimizer))
+            if not all(math.isfinite(float(v)) for v in metrics.values()):
+                fail(f"{what}: non-finite losses {metrics}")
+            return metrics
+
+        return wrapped
+
+    zero_counts()
+    t0 = time.perf_counter()
+    with patched(SyncVectorEnv, "step", recording_env_step), patched(ppo_mod, "make_train_step", spying_make_train_step):
+        out = run(args)
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    if counts["forward"] or counts["backward"]:
+        fail(f"{what}: PPO launched LN-GRU kernels: {counts}")
+    if next(out["agent"].parameters()).device.type != "cuda":
+        fail(f"{what}: the agent is not on the card")
+    return out, trace, snaps, wall_s, counts
+
+
+def check_ppo_logged(out, cfg, trace, what, first_iter=1, last_log=0):
+    """The run's TensorBoard file holds exactly the tags the JAX package's
+    PPO logs at each step (tests/test_torch_train_ppo.py holds the rule to
+    its run): ``Info/*`` after every update; the losses and ``Time/*`` at
+    every log point (``metric.log_every`` policy steps since the last, and
+    the last update); the episode means where an episode ended since the
+    last log point; ``Test/cumulative_reward`` at 0. All finite."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.utils.logger import read_scalars
+
+    per_iter = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps)
+    total_iters = int(cfg.algo.total_steps) // per_iter
+    ends = [s * int(cfg.env.num_envs) + (first_iter - 1) * per_iter for s in trace["episode_steps"]]
+    expected, last = {"Test/cumulative_reward": [0]}, last_log
+    for it in range(first_iter, total_iters + 1):
+        step = it * per_iter
+        tags = list(PPO_INFO)
+        if step - last >= int(cfg.metric.log_every) or it == total_iters:
+            tags += [*PPO_LOSSES, "Time/sps_train", "Time/sps_env_interaction"]
+            if any(last < e <= step for e in ends):
+                tags += ["Rewards/rew_avg", "Game/ep_len_avg"]
+            last = step
+        for tag in tags:
+            expected.setdefault(tag, []).append(step)
+    scalars = read_scalars(out["log_dir"])
+    got = {tag: [step for step, _ in values] for tag, values in scalars.items()}
+    if got != expected:
+        fail(f"{what}: the TensorBoard file holds tags at steps {got}, the JAX package's PPO logs {expected}")
+    bad = [tag for tag, values in scalars.items() if not all(np.isfinite(v) for _, v in values)]
+    if bad:
+        fail(f"{what}: non-finite logged values for {bad}")
+    if scalars["Test/cumulative_reward"] != [(0, np.float32(out["test_reward"]))]:
+        fail(f"{what}: Test/cumulative_reward {scalars['Test/cumulative_reward']}, the test episode returned {out['test_reward']}")
+    return {tag: len(steps) for tag, steps in got.items()}
+
+
+def _ppo_spaces(cfg):
+    from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
+    from sheeprl_tpu_torch.envs.dummy import dummy_env_kwargs, make_dummy_env
+
+    env = make_dummy_env(**dummy_env_kwargs(cfg))
+    return env.observation_space, *actions_metadata(env.action_space)
+
+
+def ppo_train(args, cuts, what, log_root, updates):
+    """``args`` through the CLI on the card: ``updates`` updates, finite
+    losses at every one, every parameter tensor moved from the seeded
+    initialisation, the JAX package's tags at its steps."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.config import compose
+
+    cfg = compose(args)
+    obs_space, actions_dim, continuous = _ppo_spaces(cfg)
+    keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
+    log(f"{what}: {' '.join(args)}: {', '.join(f'{k} {tuple(obs_space[k].shape)}' for k in keys)}, actions {actions_dim} "
+        f"({'continuous' if continuous else 'discrete'}), {cfg.env.num_envs} envs x {cfg.algo.rollout_steps} steps, batch "
+        f"{cfg.algo.per_rank_batch_size}, {cfg.algo.update_epochs} epochs, {cfg.fabric.precision}; cut: {json.dumps(cuts)}")  # fmt: skip
+    init = build_agent(actions_dim, continuous, cfg, obs_space, device="cpu", seed=cfg.seed).state_dict()
+    out, trace, snaps, wall_s, counts = ppo_through_cli([*args, f"log_root={log_root}"], what)
+    if out["updates"] != updates or len(snaps["after"]) != updates or out["policy_steps"] != int(cfg.algo.total_steps):
+        fail(f"{what}: {out['updates']} updates in {out['policy_steps']} policy steps, expected {updates} in {cfg.algo.total_steps}")
+    now = out["agent"].state_dict()
+    still = [k for k, v in now.items() if torch.equal(v.cpu(), init[k])]
+    if still:
+        fail(f"{what}: parameters that did not move: {still}")
+    tags = check_ppo_logged(out, cfg, trace, what)
+    last = out["log"][-1]
+    result = {"cuts": cuts, "updates": out["updates"], "policy_steps": out["policy_steps"], "wall_s": wall_s, "ln_gru_launches": counts,
+              "parameters_moved": len(now), "episodes_ended": len(trace["episode_steps"]), "logged_tags": tags,
+              "last_log": last, "test_reward": out["test_reward"]}  # fmt: skip
+    log(f"{what}: {out['updates']} updates in {out['policy_steps']} policy steps, {wall_s:.1f} s; all {len(now)} parameter tensors moved; "
+        f"no LN-GRU launch; the JAX package's {len(tags)} tags at its steps; last log {json.dumps({k: float(f'{v:.5g}') for k, v in last.items()})}")  # fmt: skip
+    return result, out, snaps, cfg
+
+
+def phase_ppo(log_root):
+    vector, vout, _, vcfg = ppo_train(PPO_ARGS, PPO_CUTS, "ppo", log_root, 2)
+    continuous, _, _, _ = ppo_train(PPO_CONT_ARGS, PPO_CONT_CUTS, "ppo continuous", log_root, 1)
+    return vector, continuous, vout, vcfg
+
+
+def phase_ppo_resume(out, snaps, cfg, log_root):
+    """ppo_atari's checkpoint after its first update: loaded with its digest
+    verified, it holds the agent and Adam state of that update bit for bit;
+    a fresh agent and optimizer on the card restore every tensor of it bit
+    for bit; the CLI resumed from it starts its update from exactly those
+    tensors and the checkpoint's annealed learning rate, at policy step
+    1024, and logs where the JAX ``main`` would (``ppo.py:274-275``,
+    ``:353-360``). The JAX checkpoint holds no env state or rollout key, so
+    the resumed rollout is not compared with the uninterrupted one."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.ppo import make_optimizer
+    from sheeprl_tpu_torch.optim import load_optimizer_state
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
+
+    per_iter, total_iters = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps), int(cfg.algo.total_steps) // int(cfg.env.num_envs * cfg.algo.rollout_steps)
+    mid = out["checkpoints"][0]
+    t0 = time.perf_counter()
+    state = load_checkpoint(mid)
+    load_s = time.perf_counter() - t0
+    if (state["iter_num"], state["last_checkpoint"]) != (1, per_iter) or not mid.endswith(f"ckpt_{per_iter}_0.ckpt"):
+        fail(f"ppo resume: {mid} holds iteration {state['iter_num']}, last checkpoint {state['last_checkpoint']}")
+    saved = (state["agent"], [state["optimizer"]["state"][i] for i in range(len(state["optimizer"]["state"]))])
+    bad = _same_bits(snaps["after"][0][:2], saved)
+    if bad:
+        fail(f"ppo resume: the checkpoint differs from the state after the first update at {bad[:5]}")
+    lr = float(np.float32(float(cfg.algo.optimizer.lr) * (1 - 1 / total_iters)))  # annealed after the first update
+    if state["optimizer"]["param_groups"][0]["lr"] != lr:
+        fail(f"ppo resume: the checkpoint's learning rate is {state['optimizer']['param_groups'][0]['lr']}, expected {lr}")
+    obs_space, actions_dim, continuous = _ppo_spaces(cfg)
+    agent = build_agent(actions_dim, continuous, cfg, obs_space, precision=cfg.fabric.precision, device="cuda", seed=123)
+    optimizer, _ = make_optimizer(agent, cfg)
+    agent.load_state_dict(state["agent"])
+    load_optimizer_state(optimizer, state["optimizer"])
+    fresh = _ppo_snapshot(agent, optimizer)
+    bad = _same_bits(fresh[:2], saved)
+    if bad or fresh[2] != lr:
+        fail(f"ppo resume: restored on the card, {bad[:5]} differ, learning rate {fresh[2]}")
+    restored = len(fresh[0]) + sum(len(s) for s in fresh[1])
+    del agent, optimizer
+    resumed, trace, rsnaps, wall_s, _ = ppo_through_cli([*PPO_ATARI_ARGS, f"log_root={log_root}", f"checkpoint.resume_from={mid}"], "ppo resumed")
+    bad = _same_bits(rsnaps["before"][:2], saved)
+    if bad or rsnaps["before"][2] != lr:
+        fail(f"ppo resume: the resumed update started from other tensors ({bad[:5]}) or learning rate {rsnaps['before'][2]}")
+    if resumed["updates"] != total_iters - 1 or resumed["policy_steps"] != per_iter * total_iters:
+        fail(f"ppo resume: {resumed['updates']} updates to policy step {resumed['policy_steps']}, expected {total_iters - 1} to {per_iter * total_iters}")
+    check_ppo_logged(resumed, cfg, trace, "ppo resumed", first_iter=2, last_log=int(state["last_log"]))
+    result = {"checkpoint": mid, "load_s": load_s, "tensors_restored_bit_identical": restored, "learning_rate": lr,
+              "resumed_updates": resumed["updates"], "resumed_wall_s": wall_s}  # fmt: skip
+    log(f"ppo resume: {os.path.basename(mid)} loaded with its digest verified in {load_s:.2f} s; {restored} tensors restored on the "
+        f"card bit for bit; the resumed CLI run started its update from them at learning rate {lr} and took {resumed['updates']} "
+        f"update(s) to policy step {resumed['policy_steps']} in {wall_s:.1f} s, logging at the JAX package's steps")  # fmt: skip
+    return result
+
+
+def phase_ppo_serve(ckpt, obs_shape, workdir):
+    """ppo_atari's checkpoint exported and served over HTTP on the card:
+    greedy requests repeated give the same bytes, sampled ones repeated with
+    their seeds give the same actions, and every action is an index in the
+    dummy env's range."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.serve import cli as serve_cli
+    from sheeprl_tpu_torch.serve.cli import SERVE_DEFAULTS
+    from sheeprl_tpu_torch.serve.engine import InferenceEngine
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+
+    path = os.path.join(workdir, "ppo_atari.policy")
+    serve_cli.main(["export", f"checkpoint_path={ckpt}", "name=ppo_atari", f"output_path={path}"])
+    engine = InferenceEngine(max_batch=SERVE_DEFAULTS["max_batch"], queue_capacity=SERVE_DEFAULTS["queue_capacity"],
+                             batch_window_s=SERVE_DEFAULTS["batch_window_ms"] / 1000.0, device="cuda")  # fmt: skip
+    card = engine.load("ppo_atari", path)
+    server = PolicyServer(engine, host="127.0.0.1", port=0).start()
+    try:
+        status, models = http(server.address, "/v1/models")
+        n = models["models"]["ppo_atari"]["action_space"].get("n")
+        if status != 200 or not n:
+            fail(f"ppo serve: /v1/models {status} {models}")
+        rng = np.random.default_rng(5)
+        obs = [rng.integers(0, 256, obs_shape, dtype=np.uint8).tolist() for _ in range(3)]
+
+        def act(mode, seed, o):
+            return http(server.address, "/v1/act", {"model": "ppo_atari", "obs": {"rgb": o}, "mode": mode, "seed": seed})[1]["action"]
+
+        with ThreadPoolExecutor(3) as pool:
+            greedy = list(pool.map(lambda o: act("greedy", 0, o), obs))
+            again = list(pool.map(lambda o: act("greedy", 1, o), obs))
+            sampled = list(pool.map(lambda s: [act("sample", s, o) for o in obs], range(3)))
+            resampled = list(pool.map(lambda s: [act("sample", s, o) for o in obs], range(3)))
+        stats = engine.stats()
+    finally:
+        server.close(drain=True)
+    if json.dumps(greedy) != json.dumps(again):
+        fail(f"ppo serve: repeated greedy requests differ: {greedy} vs {again}")
+    if sampled != resampled:
+        fail(f"ppo serve: sampled requests repeated with their seeds differ: {sampled} vs {resampled}")
+    flat = greedy + [a for s in sampled for a in s]
+    if not all(len(a) == 1 and isinstance(a[0], int) and 0 <= a[0] < n for a in flat) or stats["counters"]["errors"]:
+        fail(f"ppo serve: actions out of [0, {n}): {flat} ({stats['counters']})")
+    result = {"requests": stats["counters"]["requests"], "batches": stats["counters"]["batches"], "greedy_actions": greedy,
+              "sampled_actions": sampled, "precision": card["precision"]}  # fmt: skip
+    log(f"ppo serve: {os.path.basename(ckpt)} exported and served ({card['precision']} on {card['device']}): {result['requests']} requests "
+        f"in {result['batches']} batches, greedy repeats byte-identical, seeded samples repeatable, every action in [0, {n})")  # fmt: skip
+    return result
+
+
+def _ppo_rollout(cfg, T, E, dev, seed):
+    """A rollout at the exp's shapes on ``dev`` (observations as stored)
+    and the observation after it."""
+    import numpy as np
+    import torch
+
+    obs_space, actions_dim, continuous = _ppo_spaces(cfg)
+    keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
+    rng = np.random.default_rng(seed)
+
+    def obs(n):
+        return {k: rng.integers(0, 256, (n, *obs_space[k].shape)).astype(np.uint8) if k in cfg.algo.cnn_keys.encoder
+                else rng.normal(size=(n, *obs_space[k].shape)).astype(np.float32) for k in keys}  # fmt: skip
+
+    data = {k: v.reshape(T, E, *v.shape[1:]) for k, v in obs(T * E).items()}
+    if continuous:
+        data["actions"] = rng.normal(size=(T, E, sum(actions_dim))).astype(np.float32)
+    else:
+        data["actions"] = np.concatenate([np.eye(d, dtype=np.float32)[rng.integers(0, d, (T, E))] for d in actions_dim], -1)
+    data["logprobs"] = rng.normal(-1.0, 0.3, (T, E, 1)).astype(np.float32)
+    data["rewards"] = rng.normal(size=(T, E, 1)).astype(np.float32)
+    data["values"] = rng.normal(size=(T, E, 1)).astype(np.float32)
+    data["dones"] = (rng.random((T, E, 1)) < 0.01).astype(np.uint8)
+    to = lambda tree: {k: torch.from_numpy(v).to(dev) for k, v in tree.items()}  # noqa: E731
+    return to(data), to(obs(E))
+
+
+def phase_ppo_profile(agent, cfg, what):
+    """Where one update and one rollout step of the exp's trained agent
+    spend their time on the card (32-true): host wall (ending in a
+    synchronize), device busy and idle share from torch.profiler, device
+    operations, and peak memory; GAE (a loop over T on the card) timed on
+    its own."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.ppo.ppo import make_optimizer, make_train_step, minibatch_indices
+    from sheeprl_tpu_torch.utils.utils import prepare_obs
+    from sheeprl_tpu_torch.core.rollout import fuse_gae_pool
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+
+    dev = torch.device("cuda")
+    T, E, mb, epochs = int(cfg.algo.rollout_steps), int(cfg.env.num_envs), int(cfg.algo.per_rank_batch_size), int(cfg.algo.update_epochs)
+    keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
+    data, next_obs = _ppo_rollout(cfg, T, E, dev, 11)
+    optimizer, _ = make_optimizer(agent, cfg)
+    step = make_train_step(agent, optimizer, cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    clip, ent = (torch.tensor(float(v), device=dev) for v in (cfg.algo.clip_coef, cfg.algo.ent_coef))
+
+    def update():
+        return step(data, next_obs, minibatch_indices(T * E, mb, epochs, gen), clip, ent)
+
+    def busy(prof, n):
+        total, ops = 0.0, 0
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.key.startswith("ppo/"):
+                total += getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
+                ops += evt.count
+        return total / n / 1e3, ops / n
+
+    update()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        update()
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) / 2 * 1e3
+    update_peak = torch.cuda.max_memory_allocated() / 2**30
+    update_busy, update_ops = busy(profiled(update, ("cpu", "cuda")), 1)
+    if update_busy <= 0.0:
+        fail(f"{what}: torch.profiler saw no device time in the update")
+    gae_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            fuse_gae_pool(agent, data, next_obs, (*keys, "actions", "logprobs"), float(cfg.algo.gamma), float(cfg.algo.gae_lambda))
+        torch.cuda.synchronize()
+        gae_ms.append((time.perf_counter() - t0) * 1e3)
+    gae_busy, gae_ops = busy(profiled(lambda: fuse_gae_pool(agent, data, next_obs, keys, 0.99, 0.95), ("cpu", "cuda")), 1)
+
+    host_obs = {k: v[0].cpu().numpy() for k, v in data.items() if k in keys}
+    rng = BatchGenerator.from_seed(0, dev)
+
+    def rollout_step():
+        prepared = prepare_obs(host_obs, cnn_keys=list(cfg.algo.cnn_keys.encoder), num_envs=E)
+        with torch.no_grad():
+            actions, real, logprobs, values = agent.player_step({k: torch.from_numpy(v).to(dev) for k, v in prepared.items()}, rng)
+            torch.cat([actions.float(), logprobs, values], -1).cpu()
+
+    for _ in range(5):
+        rollout_step()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        rollout_step()
+    step_ms = (time.perf_counter() - t0) / 50 * 1e3
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    step_busy, step_ops = busy(profiled(lambda: [rollout_step() for _ in range(20)], ("cpu", "cuda")), 20)
+    adam_steps = epochs * -(-T * E // mb)
+    result = {
+        "update": {"host_wall_ms": update_ms, "device_busy_ms": update_busy, "idle_share": 1 - update_busy / update_ms,
+                   "device_ops": update_ops, "adam_steps": adam_steps, "peak_gib": update_peak},
+        "gae": {"host_wall_ms": statistics.median(gae_ms), "device_busy_ms": gae_busy, "device_ops": gae_ops, "T": T, "E": E},
+        "rollout_step": {"host_wall_ms": step_ms, "device_busy_ms": step_busy, "idle_share": 1 - step_busy / step_ms,
+                         "device_ops": step_ops, "peak_gib": step_peak, "num_envs": E},
+    }  # fmt: skip
+    log(f"{what}: update ({adam_steps} Adam steps over {T} x {E} rows) {update_ms:.1f} ms host wall, {update_busy:.1f} ms device busy "
+        f"(idle {result['update']['idle_share']:.2f}), {update_ops:.0f} device operations, peak {update_peak:.2f} GiB; of it GAE over "
+        f"T = {T}: {result['gae']['host_wall_ms']:.1f} ms host wall, {gae_busy:.2f} ms busy, {gae_ops:.0f} operations; rollout step "
+        f"(player forward + one copy to the host, {E} envs) {step_ms:.3f} ms host wall, {step_busy:.3f} ms busy "
+        f"(idle {result['rollout_step']['idle_share']:.2f}), {step_ops:.0f} operations")  # fmt: skip
+    return result
+
+
+# The card's ppo_atari update against the CPU's, per leaf (see
+# phase_ppo_reference). On an H100 the sound update reads 0.078 (change) and
+# 0.20 (moments), the card's own update from weights one ulp away 0.052 and
+# 0.099 (Adam's eps of 1e-6 turns rounding-size gradients into whole steps),
+# and the planted faults 1.0-1.42 and 1.0-1.68: each limit sits between.
+PPO_PARAM_CHANGE_TOL = 0.3
+PPO_MOMENT_TOL = 0.5
+PPO_REF_TOL = {"loss_rtol": 1e-3, "loss_atol": 1e-5, "param_change": PPO_PARAM_CHANGE_TOL, "adam_moment": PPO_MOMENT_TOL}
+# Planted faults of the card's update that the parameter check must see.
+PPO_FAULTS = ("lr x 2", "last leaf's gradient zeroed")
+
+
+def _relative_gaps(got, want, got_start=None, want_start=None):
+    """Per leaf: ``||got - want|| / ||want||``, each taken as its change from
+    its start when the starts are given."""
+    gaps = {}
+    for k in want:
+        g, w = got[k].double(), want[k].double()
+        if want_start is not None:
+            g, w = g - got_start[k].double(), w - want_start[k].double()
+        if w.norm() == 0:
+            fail(f"ppo reference: {k} did not move")
+        gaps[k] = ((g - w).norm() / w.norm()).item()
+    return gaps
+
+
+def phase_ppo_reference():
+    """One ppo_atari update (NatureCNN at 84x84x12, 1024 rows, batch 256,
+    3 epochs: 12 Adam steps, max_grad_norm 0.5) on the card in 32-true with
+    TF32 off against the same update on the CPU, from the same weights, data
+    and permutation. Tolerances: the mean losses within rtol 1e-3 + atol
+    1e-5 (f32 convolutions and sums in another order); each parameter
+    leaf's change from the start, ``||d_card - d_cpu|| / ||d_cpu||``, and
+    each leaf's Adam moments, ``||m_card - m_cpu|| / ||m_cpu||``, within
+    ``PPO_PARAM_CHANGE_TOL`` and ``PPO_MOMENT_TOL``. The card's update is
+    also run from weights one f32 ulp away (its own sensitivity to rounding,
+    reported) and with each of ``PPO_FAULTS`` planted, which the parameter
+    check must reject: a check that passes them cannot see a wrong update."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.ppo import make_optimizer, make_train_step, minibatch_indices
+    from sheeprl_tpu_torch.config import compose
+
+    cfg = compose([*PPO_ATARI_ARGS, "device=cpu"])
+    obs_space, actions_dim, continuous = _ppo_spaces(cfg)
+    T, E, mb, epochs = int(cfg.algo.rollout_steps), int(cfg.env.num_envs), int(cfg.algo.per_rank_batch_size), int(cfg.algo.update_epochs)
+    indices = minibatch_indices(T * E, mb, epochs, torch.Generator().manual_seed(3))
+
+    def update(where, fault=None):
+        agent = build_agent(actions_dim, continuous, cfg, obs_space, device=where, seed=7)
+        if fault == "nudge":
+            with torch.no_grad():
+                for p in agent.parameters():
+                    p.mul_(1 + 2.0**-23)
+        start = {k: v.detach().cpu().clone() for k, v in agent.state_dict().items()}
+        optimizer, _ = make_optimizer(agent, cfg)
+        if fault == "lr x 2":
+            for group in optimizer.param_groups:
+                group["lr"] = 2 * group["lr"]
+        elif fault == "last leaf's gradient zeroed":
+            list(agent.parameters())[-1].register_hook(torch.zeros_like)
+        data, next_obs = _ppo_rollout(cfg, T, E, torch.device(where), 13)
+        step = make_train_step(agent, optimizer, cfg)
+        clip, ent = (torch.tensor(float(v), device=where) for v in (cfg.algo.clip_coef, cfg.algo.ent_coef))
+        metrics = step(data, next_obs, indices.to(where), clip, ent)
+        names = dict(agent.named_parameters())
+        moments = {f"{m} {n}": optimizer.state[p][m].detach().cpu() for n, p in names.items() for m in ("exp_avg", "exp_avg_sq")}
+        return ({k: float(v) for k, v in metrics.items()}, start, {k: v.detach().cpu() for k, v in agent.state_dict().items()}, moments)
+
+    cpu_m, cpu_start, cpu_p, cpu_mom = update("cpu")
+    gpu_m, gpu_start, gpu_p, gpu_mom = update("cuda")
+    if any(not torch.equal(gpu_start[k], cpu_start[k]) for k in cpu_start):
+        fail("ppo reference: the card's agent does not start from the CPU's weights")
+    for k in cpu_m:
+        if abs(gpu_m[k] - cpu_m[k]) > PPO_REF_TOL["loss_atol"] + PPO_REF_TOL["loss_rtol"] * abs(cpu_m[k]):
+            fail(f"ppo reference: {k} {gpu_m[k]} on the card, {cpu_m[k]} on the CPU")
+    adam_steps = epochs * -(-T * E // mb)
+
+    def worst(gaps):
+        k = max(gaps, key=gaps.get)
+        return {"leaf": k, "gap": gaps[k]}
+
+    param = worst(_relative_gaps(gpu_p, cpu_p, gpu_start, cpu_start))
+    moment = worst(_relative_gaps(gpu_mom, cpu_mom))
+    if param["gap"] > PPO_PARAM_CHANGE_TOL:
+        fail(f"ppo reference: {param['leaf']}'s change on the card differs from the CPU's by {param['gap']} of its norm (> {PPO_PARAM_CHANGE_TOL})")
+    if moment["gap"] > PPO_MOMENT_TOL:
+        fail(f"ppo reference: Adam's {moment['leaf']} differs on the card by {moment['gap']} of its norm (> {PPO_MOMENT_TOL})")
+    # The card's own sensitivity to rounding: its update from weights one
+    # f32 ulp away, against its update.
+    _, nudge_start, nudge_p, nudge_mom = update("cuda", "nudge")
+    floor = {"param": worst(_relative_gaps(nudge_p, gpu_p, nudge_start, gpu_start)), "adam_moment": worst(_relative_gaps(nudge_mom, gpu_mom))}
+    faults = {}
+    for fault in PPO_FAULTS:
+        f_m, f_start, f_p, f_mom = update("cuda", fault)
+        faults[fault] = {"param": worst(_relative_gaps(f_p, cpu_p, f_start, cpu_start)), "adam_moment": worst(_relative_gaps(f_mom, cpu_mom)),
+                         "loss_rel": max(abs(f_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in cpu_m)}  # fmt: skip
+        if faults[fault]["param"]["gap"] <= PPO_PARAM_CHANGE_TOL:
+            fail(f"ppo reference: the update with {fault} passes the parameter check ({faults[fault]['param']})")
+    log(f"ppo reference: one ppo_atari update ({adam_steps} Adam steps), card against CPU in 32-true: losses "
+        f"{json.dumps({k: [gpu_m[k], cpu_m[k]] for k in cpu_m})} (rtol {PPO_REF_TOL['loss_rtol']}); worst leaf's change "
+        f"{param['gap']:.3g} of its norm ({param['leaf']}, limit {PPO_PARAM_CHANGE_TOL}); worst Adam moment {moment['gap']:.3g} "
+        f"({moment['leaf']}, limit {PPO_MOMENT_TOL}); the card from weights one ulp away {json.dumps(floor)}; planted faults "
+        f"{json.dumps(faults)}")  # fmt: skip
+    return {"losses_card": gpu_m, "losses_cpu": cpu_m, "worst_param_change": param, "worst_adam_moment": moment,
+            "one_ulp_nudge": floor, "planted_faults": faults, "tolerance": PPO_REF_TOL}  # fmt: skip
+
+
+def phase_ppo_pixels(log_root, workdir):
+    """ppo_atari through the CLI, then its resume, export and serving, and
+    ``python -m sheeprl_tpu_torch.eval``."""
+    pixels, out, snaps, cfg = ppo_train(PPO_ATARI_ARGS, PPO_ATARI_CUTS, "ppo_atari", log_root, 2)
+    resume = phase_ppo_resume(out, snaps, cfg, log_root)
+    obs_shape = _ppo_spaces(cfg)[0]["rgb"].shape
+    serving = phase_ppo_serve(out["checkpoints"][-1], obs_shape, workdir)
+    evaluation = phase_eval(out["checkpoints"][-1], out["test_reward"])
+    return pixels, resume, serving, evaluation, out, cfg
 
 
 # The fused path: the replay ring in card memory and the train step
@@ -2089,6 +2648,7 @@ def main() -> None:
     sys.path.insert(0, REPO)
     from sheeprl_tpu_torch import kernels
 
+    phase_s = time_phases(globals())
     card = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -2129,6 +2689,16 @@ def main() -> None:
         )
         graph_continuous = phase_graph_vs_eager("continuous")
         fused_continuous = phase_fused_continuous(workdir)
+        ppo_t0 = time.perf_counter()
+        ppo_vector, ppo_continuous, ppo_out, ppo_cfg = phase_ppo(workdir)
+        ppo_profile = phase_ppo_profile(ppo_out["agent"], ppo_cfg, "ppo profile")
+        del ppo_out
+        ppo_pixels, ppo_resume, ppo_serving, ppo_evaluation, atari_out, atari_cfg = phase_ppo_pixels(workdir, workdir)
+        ppo_atari_profile = phase_ppo_profile(atari_out["agent"], atari_cfg, "ppo_atari profile")
+        del atari_out
+        ppo_reference = phase_ppo_reference()
+        ppo_phases_s = time.perf_counter() - ppo_t0
+        log(f"ppo: phases 13-15 took {ppo_phases_s:.1f} s")
         replay_sample = phase_replay_sample()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2212,8 +2782,20 @@ def main() -> None:
         "graph_continuous": graph_continuous,
         "fused_training": fused_training,
         "fused_continuous_training": fused_continuous,
+        "ppo": ppo_vector,
+        "ppo_continuous": ppo_continuous,
+        "ppo_profile": ppo_profile,
+        "ppo_atari": ppo_pixels,
+        "ppo_atari_profile": ppo_atari_profile,
+        "ppo_resume": ppo_resume,
+        "ppo_serving": ppo_serving,
+        "ppo_evaluation": ppo_evaluation,
+        "ppo_reference": ppo_reference,
+        "ppo_phases_s": ppo_phases_s,
         "kernels": kernels_line["kernels"],
+        "phase_s": phase_s,
     }
+    log(f"phase seconds: {json.dumps({k: round(v, 2) for k, v in phase_s.items()})}")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fp:

@@ -39,7 +39,6 @@ probes and the preemption guard.
 from __future__ import annotations
 
 import functools
-import json
 import os
 import warnings
 from typing import Any, Callable, Dict, List, Optional
@@ -56,15 +55,15 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     continuous_log_prob_and_entropy,
 )
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
-from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_player_obs, prepare_obs, test
+from sheeprl_tpu_torch.algos.dreamer_v3.utils import test
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.core.graphs import CapturedStep
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
 from sheeprl_tpu_torch.data.infeed import ReplayInfeed
-from sheeprl_tpu_torch.envs.dummy import make_dummy_vector_env
-from sheeprl_tpu_torch.optim import adam
+from sheeprl_tpu_torch.envs.dummy import dummy_env_kwargs, make_dummy_vector_env
+from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Discrete
 from sheeprl_tpu_torch.utils.distribution import (
@@ -78,18 +77,12 @@ from sheeprl_tpu_torch.utils.distribution import (
     TwoHotEncodingDistribution,
     uniform_mix,
 )
-from sheeprl_tpu_torch.utils.checkpoint import (
-    find_latest_valid_checkpoint,
-    load_checkpoint,
-    parse_ckpt_name,
-    save_checkpoint,
-    validate_checkpoint,
-)
+from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, resume_config, save_checkpoint
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator
 from sheeprl_tpu_torch.utils.ops import compute_lambda_values, init_moments, update_moments
 from sheeprl_tpu_torch.utils.timer import timer
-from sheeprl_tpu_torch.utils.utils import Ratio, dotdict, save_configs
+from sheeprl_tpu_torch.utils.utils import Ratio, normalize_obs, prepare_obs, save_configs
 
 Metrics = Dict[str, torch.Tensor]
 
@@ -97,9 +90,9 @@ Metrics = Dict[str, torch.Tensor]
 def make_optimizers(agent: DV3Agent, cfg) -> Dict[str, torch.optim.Optimizer]:
     """One Adam each for the world model, the actor and the critic."""
     return {
-        "world_model": adam(agent.world_model.parameters(), **cfg.algo.world_model.optimizer),
-        "actor": adam(agent.actor.parameters(), **cfg.algo.actor.optimizer),
-        "critic": adam(agent.critic.parameters(), **cfg.algo.critic.optimizer),
+        "world_model": build_optimizer(agent.world_model.parameters(), cfg.algo.world_model.optimizer),
+        "actor": build_optimizer(agent.actor.parameters(), cfg.algo.actor.optimizer),
+        "critic": build_optimizer(agent.critic.parameters(), cfg.algo.critic.optimizer),
     }
 
 
@@ -428,54 +421,8 @@ def load_training_state(
     for name in ("world_model", "actor", "critic", "target_critic"):
         getattr(agent, name).load_state_dict(state[name], strict=True)
     for name, key in OPTIMIZER_KEYS.items():
-        # The optimizer keeps its own ``capturable``: a state saved on the
-        # CPU (a host step count) loads into a card's optimizer with its step
-        # count on the card, and the other way round.
-        saved = dict(state[key])
-        saved["param_groups"] = [{**g, "capturable": mine["capturable"]} for g, mine in zip(saved["param_groups"], optimizers[name].param_groups)]
-        optimizers[name].load_state_dict(saved)
+        load_optimizer_state(optimizers[name], state[key])
     return {k: v.to(device) for k, v in state["moments"].items()}
-
-
-def resume_config(cfg) -> dotdict:
-    """The config of a run resumed from ``cfg.checkpoint.resume_from``: the
-    saved run's ``config.json`` (two levels above the checkpoint) merged over
-    ``cfg``, keeping only ``cfg``'s ``algo.total_steps``,
-    ``algo.learning_starts``, ``log_root``, ``root_dir``, ``run_name`` and
-    ``device``, as
-    the JAX package's ``resume_from_checkpoint`` does. ``resume_from`` may
-    name a checkpoint or a directory of them (the newest valid one is
-    taken), and becomes the checkpoint's path. Raises when ``env.id`` or
-    ``algo.name`` differ from the saved run's."""
-    path = os.path.abspath(cfg.checkpoint.resume_from)
-    if parse_ckpt_name(path) is None:
-        latest = find_latest_valid_checkpoint(path)
-        if latest is None:
-            raise ValueError(f"checkpoint.resume_from={cfg.checkpoint.resume_from} holds no valid checkpoint")
-        path = latest
-    elif not validate_checkpoint(path):
-        raise ValueError(f"{path} is not a valid checkpoint (torn save, wrong schema or missing files)")
-    with open(os.path.join(os.path.dirname(os.path.dirname(path)), "config.json")) as fp:
-        old = json.load(fp)
-    for key, what in (("env", "id"), ("algo", "name")):
-        if old[key][what] != cfg[key][what]:
-            raise ValueError(f"The checkpoint's run has {key}.{what}={old[key][what]}, this one {cfg[key][what]}: resume with the same {key}.{what}")
-    for key in ("log_root", "root_dir", "run_name", "device"):
-        old.pop(key, None)
-    for key in ("total_steps", "learning_starts"):
-        old["algo"].pop(key, None)
-    old["checkpoint"]["resume_from"] = path
-
-    def merge(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
-        for k, v in src.items():
-            if isinstance(v, dict) and isinstance(dst.get(k), dict):
-                merge(dst[k], v)
-            else:
-                dst[k] = v
-
-    merged = json.loads(json.dumps(cfg))
-    merge(merged, old)
-    return dotdict(merged)
 
 
 def _one_hot(actions: np.ndarray, actions_dim) -> np.ndarray:
@@ -559,10 +506,7 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
     print(f"Log dir: {log_dir}", flush=True)
 
     num_envs = int(cfg.env.num_envs)
-    envs = make_dummy_vector_env(
-        num_envs, cfg.seed, screen_size=int(cfg.env.screen_size), action_dim=int(cfg.env.wrapper.action_dim),
-        env_id=str(cfg.env.id), action_repeat=int(cfg.env.action_repeat),
-    )  # fmt: skip
+    envs = make_dummy_vector_env(num_envs, cfg.seed, **dummy_env_kwargs(cfg))
     observation_space, action_space = envs.single_observation_space, envs.single_action_space
     actions_dim, is_continuous = actions_metadata(action_space)
     clip_rewards_fn = np.tanh if cfg.env.clip_rewards else (lambda r: r)
@@ -673,7 +617,7 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
                     actions = _one_hot(actions, actions_dim)
             else:
                 prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
-                obs_t = normalize_player_obs({k: torch.from_numpy(v).to(device) for k, v in prepared.items()}, cnn_keys)
+                obs_t = normalize_obs({k: torch.from_numpy(v).to(device) for k, v in prepared.items()}, cnn_keys)
                 actions_t, real_t, player_state = agent.player_step(player_state, obs_t, player_rng)
                 actions = actions_t.float().cpu().numpy()
                 real_actions = actions if is_continuous else real_t.cpu().numpy()

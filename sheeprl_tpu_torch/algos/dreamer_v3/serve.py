@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import WorldModel, build_agent
-from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_player_obs
+from sheeprl_tpu_torch.utils.utils import normalize_obs
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.config import compose
 from sheeprl_tpu_torch.serve.adapter import PolicyAdapterBase
@@ -84,7 +84,7 @@ class DreamerV3Policy(PolicyAdapterBase):
         return {"player": {k: v[i : i + 1] for k, v in state["player"].items()}, "generator": state["generators"][i]}
 
     def apply(self, obs: Dict[str, np.ndarray], seeds: np.ndarray, state: Dict[str, Any], greedy: bool):
-        obs_t = normalize_player_obs({k: torch.from_numpy(v).to(self.device) for k, v in obs.items()}, self.cnn_keys)
+        obs_t = normalize_obs({k: torch.from_numpy(v).to(self.device) for k, v in obs.items()}, self.cnn_keys)
         rng = RowGenerators(state["generators"], self.device)
         _, real_actions, player = self.agent.player_step(state["player"], obs_t, rng, greedy=greedy)
         if self.agent.is_continuous:
@@ -94,7 +94,7 @@ class DreamerV3Policy(PolicyAdapterBase):
 
 def dreamer_v3_s_ms_pacman_config(precision: str = "bf16-mixed") -> Dict[str, Any]:
     """The config subtree the adapter reads, taken from the port's
-    ``exp=dreamer_v3_100k_ms_pacman`` (sheeprl_tpu_torch/config.py), with the
+    ``exp=dreamer_v3_100k_ms_pacman`` (composed from sheeprl_tpu_torch/configs/), with the
     given precision."""
     cfg = compose(["exp=dreamer_v3_100k_ms_pacman", "env=dummy"])
     algo, wm, actor = cfg["algo"], cfg["algo"]["world_model"], cfg["algo"]["actor"]

@@ -1,65 +1,23 @@
 """DreamerV3 helpers (counterpart of sheeprl_tpu/algos/dreamer_v3/utils.py):
-the aggregator's keys, the player's observation helpers and the greedy test
-episode."""
+the aggregator's keys and the greedy test episode."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
-
-import numpy as np
 import torch
 
-from sheeprl_tpu_torch.config import AGGREGATOR_METRICS
-from sheeprl_tpu_torch.envs.dummy import make_dummy_env
+from sheeprl_tpu_torch.envs.dummy import make_test_env
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+from sheeprl_tpu_torch.utils.utils import normalize_obs, prepare_obs
 
-# The metrics the trainer logs through the aggregator (the JAX package's AGGREGATOR_KEYS).
+# The metrics the trainer logs through the aggregator (the JAX package's
+# AGGREGATOR_KEYS): metric/default.yaml's two entries, then exp/dreamer_v3.yaml's thirteen.
+AGGREGATOR_METRICS = (
+    "Rewards/rew_avg", "Game/ep_len_avg",
+    "Loss/world_model_loss", "Loss/value_loss", "Loss/policy_loss", "Loss/observation_loss", "Loss/reward_loss",
+    "Loss/state_loss", "Loss/continue_loss", "State/kl", "State/post_entropy", "State/prior_entropy",
+    "Grads/world_model", "Grads/actor", "Grads/critic",
+)  # fmt: skip
 AGGREGATOR_KEYS = frozenset(AGGREGATOR_METRICS)
-
-
-def prepare_obs(
-    obs: Dict[str, np.ndarray],
-    *,
-    cnn_keys: Sequence[str] = (),
-    num_envs: int = 1,
-    out: Optional[Dict[str, np.ndarray]] = None,
-    **kwargs: Any,
-) -> Dict[str, np.ndarray]:
-    """Host obs -> numpy arrays [num_envs, ...]: pixels stay uint8 HWC (they
-    cross to the device packed; :func:`normalize_player_obs` scales them
-    there), vectors are flattened to float32. ``out`` is a previous result
-    reused as preallocated staging."""
-    if out is not None:
-        for k, v in obs.items():
-            arr = np.asarray(v)
-            if k in cnn_keys:
-                out[k] = arr.reshape(num_envs, *arr.shape[-3:])
-            else:
-                np.copyto(out[k], arr.reshape(num_envs, -1))
-        return out
-    prepared: Dict[str, np.ndarray] = {}
-    for k, v in obs.items():
-        arr = np.asarray(v)
-        if k in cnn_keys:
-            prepared[k] = arr.reshape(num_envs, *arr.shape[-3:])
-        else:
-            prepared[k] = arr.reshape(num_envs, -1).astype(np.float32)
-    return prepared
-
-
-def normalize_player_obs(obs: Dict[str, torch.Tensor], cnn_keys: Sequence[str]) -> Dict[str, torch.Tensor]:
-    """Pixel keys -> float in [-0.5, 0.5]; other keys pass through."""
-    return {k: v.float() / 255.0 - 0.5 if k in cnn_keys else v for k, v in obs.items()}
-
-
-def make_test_env(cfg):
-    """The test episode's env: one dummy env of ``env.id``, as the JAX
-    package's ``make_env(cfg, seed, 0, log_dir, "test")`` builds it for the
-    dummy group."""
-    return make_dummy_env(
-        screen_size=int(cfg.env.screen_size), action_dim=int(cfg.env.wrapper.action_dim),
-        env_id=str(cfg.env.id), action_repeat=int(cfg.env.action_repeat),
-    )  # fmt: skip
 
 
 @torch.no_grad()
@@ -81,7 +39,7 @@ def test(agent, cfg, log_dir: str, logger=None, sample_actions: bool = False) ->
     obs = env.reset(seed=cfg.seed)[0]
     while not done:
         prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=1)
-        obs_t = normalize_player_obs({k: torch.from_numpy(v).to(device) for k, v in prepared.items()}, cnn_keys)
+        obs_t = normalize_obs({k: torch.from_numpy(v).to(device) for k, v in prepared.items()}, cnn_keys)
         _, real_actions, player_state = agent.player_step(player_state, obs_t, rng, greedy=not sample_actions)
         if agent.is_continuous:
             real_actions = real_actions.float()

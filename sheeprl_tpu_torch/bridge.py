@@ -1,9 +1,10 @@
-"""Carry DreamerV3 weights from the JAX package's param trees into the port.
+"""Carry DreamerV3 and PPO weights from the JAX package's param trees into the port.
 
-Input: the ``world_model``, ``actor`` and ``critic`` trees of the JAX train
-state as nested dicts of numpy arrays (with or without the top ``params``
-level). Output: state dicts for the port's ``WorldModel``, ``Actor`` and
-critic ``MLP``.
+Input: the ``world_model``, ``actor`` and ``critic`` trees of the JAX
+DreamerV3 train state, or the JAX PPO agent's params, as nested dicts of
+numpy arrays (with or without the top ``params`` level). Output: state dicts
+for the port's ``WorldModel``, ``Actor`` and critic ``MLP``, or its
+``PPOAgent``.
 
 - A Dense ``[in, out]`` kernel becomes a Linear ``[out, in]`` weight.
 - A conv HWIO kernel becomes OIHW.
@@ -227,3 +228,36 @@ def actor_state_dict(tree: Mapping[str, Any]) -> StateDict:
     _done(rest, "actor")
     return out
 
+
+
+def ppo_state_dict(tree: Mapping[str, Any]) -> StateDict:
+    """The port's ``PPOAgent`` state dict from the JAX PPO agent's params:
+    the NatureCNN's convolutions and ``fc``, the MLP encoder, the actor's
+    backbone and heads, and the critic. The flax tree holds the encoders at
+    its top level; the port holds them under ``feature_extractor``."""
+    rest = _params(tree)
+    out: StateDict = {}
+    if "cnn_encoder" in rest:
+        enc = _take(rest.pop("cnn_encoder"), "cnn_encoder")
+        model = _take(enc.pop("model"), "cnn_encoder/model")
+        prefix = "feature_extractor.cnn_encoder.model."
+        _stack(model.pop("cnn"), "cnn_encoder/model/cnn", out=out, prefix=f"{prefix}cnn.", layer="conv", port_layer="convs", convert=_conv)
+        _dense(model.pop("fc"), "cnn_encoder/model/fc", f"{prefix}fc.", out)
+        _done(model, "cnn_encoder/model")
+        _done(enc, "cnn_encoder")
+    if "mlp_encoder" in rest:
+        enc = _take(rest.pop("mlp_encoder"), "mlp_encoder")
+        if "model" in enc:
+            _mlp(enc.pop("model"), "mlp_encoder/model", "feature_extractor.mlp_encoder.model.", out)
+        _done(enc, "mlp_encoder")
+    actor = _take(rest.pop("actor"), "actor")
+    if "backbone" in actor:
+        _mlp(actor.pop("backbone"), "actor/backbone", "actor.backbone.", out)
+    for key in sorted(actor):
+        name, _, idx = key.rpartition("_")
+        if name == "head" and idx.isdigit():
+            _dense(actor.pop(key), f"actor/{key}", f"actor.heads.{idx}.", out)
+    _done(actor, "actor")
+    _mlp(rest.pop("critic"), "critic", "critic.", out)
+    _done(rest, "ppo")
+    return out

@@ -1,14 +1,16 @@
 """Command lines of the port::
 
-    python -m sheeprl_tpu_torch exp=dreamer_v3_100k_ms_pacman env=dummy [key=value ...] [device=cpu]
+    python -m sheeprl_tpu_torch exp=<ppo | ppo_atari | dreamer_v3_100k_ms_pacman | ...> env=dummy [key=value ...] [device=cpu]
     python -m sheeprl_tpu_torch.eval checkpoint_path=<run>/version_N/checkpoint/ckpt_<step>_0.ckpt [key=value ...] [device=cpu]
 
 Both run on ``cuda`` unless ``device=cpu`` is given, and raise without a
-card. The trainer raises on an ``exp`` or ``env`` the port does not have yet
-(it has ``exp=dreamer_v3_100k_ms_pacman``, ``exp=dreamer_v3_dmc_walker_walk``
-and ``env=dummy``) and on an unknown key. Keys are those of
-:mod:`sheeprl_tpu_torch.config`, e.g. ``algo.learning_starts=128
-algo.total_steps=136 buffer.size=4096``.
+card. The config is composed from the port's tree
+(:mod:`sheeprl_tpu_torch.config`, ``sheeprl_tpu_torch/configs/``): any exp
+there composes (``ppo``, ``ppo_atari``, ``dreamer_v3_100k_ms_pacman``,
+``dreamer_v3_dmc_walker_walk``, ``dreamer_v3``), an unknown key raises, and
+the trainer then raises on an algorithm the port does not train and on an env
+group other than ``env=dummy``. Keys are those of the composed config, e.g.
+``algo.learning_starts=128 algo.total_steps=136 buffer.size=4096``.
 """
 
 from __future__ import annotations
@@ -50,7 +52,9 @@ def run(args: Optional[Sequence[str]] = None, callback=None) -> Dict[str, Any]:
         return {}
     register_all()
     cfg = compose(argv)
-    entry = algorithm_registry[cfg.algo.name]
+    entry = algorithm_registry.get(cfg.algo.name)
+    if entry is None:
+        raise ValueError(f"algo.name={cfg.algo.name} is not ported; the port trains algo.name={' | '.join(sorted(algorithm_registry))}")
     utils_module = importlib.import_module(entry.module.rsplit(".", 1)[0] + ".utils")
     _prune_metric_keys(cfg, utils_module.AGGREGATOR_KEYS)
     return entry.entrypoint(cfg, callback=callback)

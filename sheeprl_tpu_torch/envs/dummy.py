@@ -6,6 +6,12 @@ same-step-autoreset ``SyncVectorEnv`` that sheeprl_tpu/utils/env.py builds).
 "test")`` builds it for the dummy group (the test episode's), and
 :func:`make_dummy_vector_env` is ``num_envs`` of them stepped together.
 
+:func:`get_dummy_env` is the ``_target_`` of ``configs/env/dummy.yaml``, and
+:func:`dummy_env_kwargs` reads a config's env: with ``env.frame_stack`` > 1
+and a pixel key among the encoder's, the frames are stacked
+(:class:`~sheeprl_tpu_torch.envs.wrappers.FrameStack`) where the JAX
+package's ``make_env`` stacks them.
+
 The observation of step t is ``rgb`` filled with ``t % 256`` and ``state``
 filled with ``t``; the reward is 0; an episode terminates after
 ``n_steps + 1`` steps. Pixels are channel-last. :func:`make_dummy_vector_env`
@@ -22,6 +28,7 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from sheeprl_tpu_torch.envs.wrappers import FrameStack
 from sheeprl_tpu_torch.serve.spaces import Box, DictSpace, Discrete, MultiDiscrete
 
 
@@ -176,22 +183,56 @@ class SyncVectorEnv:
         self._lengths[:] = state["lengths"]
 
 
-def make_dummy_env(screen_size: int = 64, action_dim: int = 9, env_id: str = "discrete_dummy", action_repeat: int = 1) -> ActionRepeat:
+def get_dummy_env(id: str, action_dim: int = 2, **kwargs: Any) -> DummyEnv:
+    """The dummy env ``id`` names (``continuous``, ``multidiscrete`` or else
+    discrete in it) with ``action_dim`` actions (per head for MultiDiscrete,
+    two heads); ``kwargs`` go to its constructor (the ``_target_`` of
+    ``env/dummy.yaml``, counterpart of ``get_dummy_env`` in
+    sheeprl_tpu/utils/env.py)."""
+    if "continuous" in id:
+        return ContinuousDummyEnv(action_dim=action_dim, **kwargs)
+    if "multidiscrete" in id:
+        return MultiDiscreteDummyEnv(action_dims=(action_dim, action_dim), **kwargs)
+    return DiscreteDummyEnv(action_dim=action_dim, **kwargs)
+
+
+def make_dummy_env(
+    screen_size: int = 64, action_dim: int = 9, env_id: str = "discrete_dummy", action_repeat: int = 1,
+    frame_stack: int = 1, frame_stack_dilation: int = 1, cnn_keys: Sequence[str] = (),
+) -> Any:
     """One dummy env of the kind ``env_id`` names, ``screen_size`` square
     rgb, ``action_dim`` actions (per head for MultiDiscrete, two heads), each
-    action repeated ``action_repeat`` times."""
-    image = (screen_size, screen_size, 3)
-    if "continuous" in env_id:
-        env = ContinuousDummyEnv(image_size=image, action_dim=action_dim)
-    elif "multidiscrete" in env_id:
-        env = MultiDiscreteDummyEnv(image_size=image, action_dims=(action_dim, action_dim))
-    else:
-        env = DiscreteDummyEnv(image_size=image, action_dim=action_dim)
-    return ActionRepeat(env, action_repeat)
+    action repeated ``action_repeat`` times, and with ``frame_stack`` > 1 and
+    a pixel key among ``cnn_keys`` the last ``frame_stack`` frames stacked
+    (:class:`FrameStack`), where the JAX package's ``make_env`` stacks them.
+    The JAX package renders the dummy env at 64x64 and resizes it to
+    ``screen_size``; its frames are constant, so rendering at
+    ``screen_size`` gives the same observations."""
+    env = ActionRepeat(get_dummy_env(env_id, action_dim, image_size=(screen_size, screen_size, 3)), action_repeat)
+    if frame_stack > 1 and set(cnn_keys) & {k for k, v in env.observation_space.spaces.items() if len(v.shape) in (2, 3)}:
+        env = FrameStack(env, frame_stack, cnn_keys, frame_stack_dilation)
+    return env
 
 
 def make_dummy_vector_env(
-    num_envs: int, seed: int, screen_size: int = 64, action_dim: int = 9, env_id: str = "discrete_dummy", action_repeat: int = 1
+    num_envs: int, seed: int, screen_size: int = 64, action_dim: int = 9, env_id: str = "discrete_dummy", action_repeat: int = 1, **kwargs: Any
 ) -> SyncVectorEnv:
-    """``num_envs`` envs of :func:`make_dummy_env` stepped together."""
-    return SyncVectorEnv([make_dummy_env(screen_size, action_dim, env_id, action_repeat) for _ in range(num_envs)], seed=seed)
+    """``num_envs`` envs of :func:`make_dummy_env` stepped together
+    (``kwargs``: its frame-stack arguments)."""
+    return SyncVectorEnv([make_dummy_env(screen_size, action_dim, env_id, action_repeat, **kwargs) for _ in range(num_envs)], seed=seed)
+
+
+def dummy_env_kwargs(cfg) -> Dict[str, Any]:
+    """:func:`make_dummy_env`'s arguments from a config's ``env`` and encoder keys."""
+    return {
+        "screen_size": int(cfg.env.screen_size), "action_dim": int(cfg.env.wrapper.action_dim), "env_id": str(cfg.env.id),
+        "action_repeat": int(cfg.env.action_repeat), "frame_stack": int(cfg.env.frame_stack),
+        "frame_stack_dilation": int(cfg.env.frame_stack_dilation), "cnn_keys": tuple(cfg.algo.cnn_keys.encoder),
+    }  # fmt: skip
+
+
+def make_test_env(cfg) -> Any:
+    """The test episode's env: one dummy env of ``env.id``, as the JAX
+    package's ``make_env(cfg, seed, 0, log_dir, "test")`` builds it for the
+    dummy group."""
+    return make_dummy_env(**dummy_env_kwargs(cfg))

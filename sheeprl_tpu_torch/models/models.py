@@ -13,11 +13,13 @@
   backward is the second CUDA kernel.
 - :class:`DeCNN` is the transposed-convolution stack of the decoders, NHWC at
   its interface like :class:`CNN`.
+- :class:`NatureCNN` (PPO's pixel encoder) flattens in (H, W, C) order, and
+  :class:`MultiEncoder` concatenates the CNN and MLP encoders' features.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -103,16 +105,27 @@ class MLP(nn.Module):
         return x
 
 
+def _per_layer(spec: Union[int, Sequence[int]], n: int, what: str) -> List[int]:
+    """One int per layer: ``spec`` broadcast, or a list of ``n``."""
+    if isinstance(spec, (list, tuple)):
+        if len(spec) != n:
+            raise ValueError(f"Got {len(spec)} {what} specs for {n} layers")
+        return [int(v) for v in spec]
+    return [int(spec)] * n
+
+
 class CNN(nn.Module):
-    """Conv -> [LayerNorm over channels] -> activation stages; NHWC in, NHWC out."""
+    """Conv -> [LayerNorm over channels] -> activation stages; NHWC in, NHWC
+    out. ``kernel_size``, ``stride`` and ``padding`` are one int for every
+    layer or a list of one per layer."""
 
     def __init__(
         self,
         input_channels: int,
         hidden_channels: Sequence[int],
-        kernel_size: int = 3,
-        stride: int = 1,
-        padding: int = 0,
+        kernel_size: Union[int, Sequence[int]] = 3,
+        stride: Union[int, Sequence[int]] = 1,
+        padding: Union[int, Sequence[int]] = 0,
         activation: Optional[str] = "relu",
         norm_eps: Optional[float] = None,
         bias: bool = True,
@@ -121,16 +134,26 @@ class CNN(nn.Module):
         super().__init__()
         if len(hidden_channels) < 1:
             raise ValueError("The number of layers should be at least 1.")
+        n = len(hidden_channels)
         self.dtype = dtype
         self.act = get_activation(activation)
-        self.stride = int(stride)
-        self.padding = int(padding)
+        self.strides = _per_layer(stride, n, "stride")
+        self.paddings = _per_layer(padding, n, "padding")
+        kernels = _per_layer(kernel_size, n, "kernel_size")
         chans = [int(input_channels), *[int(c) for c in hidden_channels]]
         self.convs = nn.ModuleList(
-            nn.Conv2d(i, o, int(kernel_size), stride=self.stride, padding=self.padding, bias=bias)
-            for i, o in zip(chans[:-1], chans[1:])
+            nn.Conv2d(i, o, k, stride=s, padding=p, bias=bias)
+            for i, o, k, s, p in zip(chans[:-1], chans[1:], kernels, self.strides, self.paddings)
         )
         self.norms = nn.ModuleList(LayerNorm(o, norm_eps) for o in chans[1:]) if norm_eps is not None else None
+
+    def output_size(self, size: Sequence[int]) -> Tuple[int, int]:
+        """The (H, W) of the output for an input of (H, W) ``size``."""
+        h, w = int(size[0]), int(size[1])
+        for conv, s, p in zip(self.convs, self.strides, self.paddings):
+            k = conv.kernel_size
+            h, w = (h + 2 * p - k[0]) // s + 1, (w + 2 * p - k[1]) // s + 1
+        return h, w
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         batch_shape = x.shape[:-3]
@@ -138,12 +161,52 @@ class CNN(nn.Module):
         for i, conv in enumerate(self.convs):
             bias = conv.bias.to(x.dtype) if conv.bias is not None else None
             # NCHW view of channels-last memory in, channels-last NCHW out.
-            y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), bias, self.stride, self.padding)
+            y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), bias, self.strides[i], self.paddings[i])
             x = y.permute(0, 2, 3, 1)
             if self.norms is not None:
                 x = self.norms[i](x)
             x = self.act(x)
         return x.reshape(*batch_shape, *x.shape[1:])
+
+
+class NatureCNN(nn.Module):
+    """The DQN Nature trunk (convolutions of 32, 64 and 64 channels, kernels
+    8, 4 and 3, strides 4, 2 and 1, ReLU), flattened, then a Dense of
+    ``features_dim`` and a ReLU. NHWC in; the flattening is in (H, W, C)
+    order, as flax's, so the ``fc`` rows line up with the JAX package's
+    without a permutation. ``image_size`` is the input's (H, W)."""
+
+    def __init__(self, input_channels: int, features_dim: int, image_size: Sequence[int], dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.cnn = CNN(input_channels, (32, 64, 64), kernel_size=(8, 4, 3), stride=(4, 2, 1), dtype=dtype)
+        h, w = self.cnn.output_size(image_size)
+        if h < 1 or w < 1:
+            raise ValueError(f"An image of {tuple(image_size)} is too small for the NatureCNN")
+        self.fc = nn.Linear(h * w * 64, int(features_dim))
+        self.output_dim = int(features_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.cnn(x)
+        x = x.reshape(*x.shape[:-3], -1)
+        return F.relu(linear(x, self.fc))
+
+
+class MultiEncoder(nn.Module):
+    """Dict-observation fusion: the CNN encoder's features, then the MLP
+    encoder's, concatenated on the last axis. Each encoder takes the
+    observation dict; at least one must be given."""
+
+    def __init__(self, cnn_encoder: Optional[nn.Module] = None, mlp_encoder: Optional[nn.Module] = None):
+        super().__init__()
+        if cnn_encoder is None and mlp_encoder is None:
+            raise ValueError("There must be at least one encoder, both cnn and mlp encoders are None")
+        self.cnn_encoder = cnn_encoder
+        self.mlp_encoder = mlp_encoder
+
+    def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        outs = [enc(obs) for enc in (self.cnn_encoder, self.mlp_encoder) if enc is not None]
+        return torch.cat(outs, dim=-1) if len(outs) == 2 else outs[0]
 
 
 class DeCNN(nn.Module):

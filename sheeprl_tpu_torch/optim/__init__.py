@@ -17,7 +17,7 @@ parameters keep the default (a host step count).
 
 from __future__ import annotations
 
-from typing import Iterable, Sequence
+from typing import Any, Iterable, Mapping, Sequence
 
 import torch
 
@@ -35,3 +35,22 @@ def adam(
         params, lr=float(lr), betas=(float(betas[0]), float(betas[1])), eps=float(eps), weight_decay=float(weight_decay),
         capturable=capturable,
     )  # fmt: skip
+
+
+def build_optimizer(params: Iterable[torch.nn.Parameter], node: Mapping[str, Any]) -> torch.optim.Optimizer:
+    """The optimizer an ``algo.*.optimizer`` config node names with its
+    ``_target_`` (one of this module's), over ``params``."""
+    from sheeprl_tpu_torch.config.instantiate import instantiate
+
+    if not str(node.get("_target_")).startswith(f"{__name__}."):
+        raise ValueError(f"{node['_target_']} is not an optimizer of {__name__}")
+    return instantiate(node, params)
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, saved: Mapping[str, Any]) -> None:
+    """Load a saved ``state_dict`` into ``optimizer``, which keeps its own
+    ``capturable``: a state saved on the CPU (a host step count) loads into a
+    card's optimizer with its step count on the card, and the other way round."""
+    saved = dict(saved)
+    saved["param_groups"] = [{**g, "capturable": mine["capturable"]} for g, mine in zip(saved["param_groups"], optimizer.param_groups)]
+    optimizer.load_state_dict(saved)

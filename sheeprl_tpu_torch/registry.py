@@ -4,7 +4,7 @@ Each algorithm module registers its ``main(cfg)`` entry point with
 :func:`register_algorithm`, and its evaluation function with
 :func:`register_evaluation`; the command line looks both up by
 ``algo.name``. :func:`register_all` imports the modules that register: the
-port has one algorithm, DreamerV3.
+port has DreamerV3 and PPO.
 """
 
 from __future__ import annotations
@@ -16,7 +16,12 @@ from typing import Any, Callable, Dict, Optional
 algorithm_registry: Dict[str, "AlgorithmEntry"] = {}
 evaluation_registry: Dict[str, "EvaluationEntry"] = {}
 
-_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3", "sheeprl_tpu_torch.algos.dreamer_v3.evaluate")
+_MODULES = (
+    "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
+    "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
+    "sheeprl_tpu_torch.algos.ppo.ppo",
+    "sheeprl_tpu_torch.algos.ppo.evaluate",
+)
 
 
 @dataclass

@@ -269,3 +269,45 @@ def load_checkpoint(ckpt_path: str) -> Dict[str, Any]:
     if leaf_count != manifest["leaf_count"] or digest != manifest["digest"]:
         raise ValueError(f"{ckpt_path}: the loaded leaves do not match the manifest's digest")
     return state
+
+
+def resume_config(cfg: Mapping[str, Any]) -> Dict[str, Any]:
+    """The config of a run resumed from ``cfg.checkpoint.resume_from``: the
+    saved run's ``config.json`` (two levels above the checkpoint) merged over
+    ``cfg``, keeping only ``cfg``'s ``algo.total_steps``,
+    ``algo.learning_starts``, ``log_root``, ``root_dir``, ``run_name`` and
+    ``device``, as the JAX package's ``resume_from_checkpoint`` does.
+    ``resume_from`` may name a checkpoint or a directory of them (the newest
+    valid one is taken), and becomes the checkpoint's path. Raises when
+    ``env.id`` or ``algo.name`` differ from the saved run's."""
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    path = os.path.abspath(cfg["checkpoint"]["resume_from"])
+    if parse_ckpt_name(path) is None:
+        latest = find_latest_valid_checkpoint(path)
+        if latest is None:
+            raise ValueError(f"checkpoint.resume_from={cfg['checkpoint']['resume_from']} holds no valid checkpoint")
+        path = latest
+    elif not validate_checkpoint(path):
+        raise ValueError(f"{path} is not a valid checkpoint (torn save, wrong schema or missing files)")
+    with open(os.path.join(os.path.dirname(os.path.dirname(path)), "config.json")) as fp:
+        old = json.load(fp)
+    for key, what in (("env", "id"), ("algo", "name")):
+        if old[key][what] != cfg[key][what]:
+            raise ValueError(f"The checkpoint's run has {key}.{what}={old[key][what]}, this one {cfg[key][what]}: resume with the same {key}.{what}")
+    for key in ("log_root", "root_dir", "run_name", "device"):
+        old.pop(key, None)
+    for key in ("total_steps", "learning_starts"):
+        old["algo"].pop(key, None)
+    old["checkpoint"]["resume_from"] = path
+
+    def merge(dst: Dict[str, Any], src: Dict[str, Any]) -> None:
+        for k, v in src.items():
+            if isinstance(v, dict) and isinstance(dst.get(k), dict):
+                merge(dst[k], v)
+            else:
+                dst[k] = v
+
+    merged = json.loads(json.dumps(cfg))
+    merge(merged, old)
+    return dotdict(merged)

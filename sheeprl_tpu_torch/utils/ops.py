@@ -2,7 +2,7 @@
 
 The reverse scans of the JAX module (``lax.scan(..., reverse=True)``) are
 Python loops over the time axis here: eager PyTorch has nothing to fuse, and
-the loops are short (the imagination horizon).
+the loops are short (the imagination horizon, PPO's rollout).
 """
 
 from __future__ import annotations
@@ -90,3 +90,46 @@ def update_moments(
     new_high = decay * state["high"] + (1 - decay) * high
     invscale = torch.clamp(new_high - new_low, min=1.0 / max_)
     return {"low": new_low, "high": new_high}, (new_low, invscale)
+
+
+def gae(
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    dones: torch.Tensor,
+    next_value: torch.Tensor,
+    gamma: float,
+    gae_lambda: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Generalized advantage estimation over [T, ...], in f32 whatever the
+    inputs: ``delta[t] = r[t] + gamma * (1 - done[t]) * V[t + 1] - V[t]`` with
+    ``V[T] = next_value``, ``adv[t] = delta[t] + gamma * lambda * (1 -
+    done[t]) * adv[t + 1]``. Returns (returns, advantages)."""
+    rewards, values, next_value = rewards.float(), values.float(), next_value.float()
+    not_dones = 1.0 - dones.float()
+    next_values = torch.cat([values[1:], next_value[None]], dim=0)
+    deltas = rewards + gamma * not_dones * next_values - values
+    carry = torch.zeros_like(deltas[0])
+    adv = [None] * deltas.shape[0]
+    for t in reversed(range(deltas.shape[0])):
+        carry = deltas[t] + gamma * gae_lambda * not_dones[t] * carry
+        adv[t] = carry
+    advantages = torch.stack(adv)
+    return advantages + values, advantages
+
+
+def normalize_tensor(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """``(x - mean) / (std + eps)`` with the unbiased std."""
+    std = x.std() if x.numel() > 1 else torch.zeros((), dtype=x.dtype, device=x.device)
+    return (x - x.mean()) / (std + eps)
+
+
+def safetanh(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """tanh clamped to [-(1 - eps), 1 - eps]."""
+    lim = 1.0 - eps
+    return torch.tanh(x).clamp(-lim, lim)
+
+
+def safeatanh(y: torch.Tensor, eps: float) -> torch.Tensor:
+    """atanh of ``y`` clamped to [-(1 - eps), 1 - eps]."""
+    lim = 1.0 - eps
+    return torch.atanh(y.clamp(-lim, lim))

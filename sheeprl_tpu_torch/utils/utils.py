@@ -1,11 +1,15 @@
-"""Host-side helpers (the part of sheeprl_tpu/utils/utils.py the port needs)."""
+"""Host-side helpers (the part of sheeprl_tpu/utils/utils.py the port needs),
+and the observation preparation every algorithm shares."""
 
 from __future__ import annotations
 
 import json
 import os
 import warnings
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
 
 
 class dotdict(dict):
@@ -21,6 +25,37 @@ class dotdict(dict):
         for k, v in self.items():
             if isinstance(v, dict) and not isinstance(v, dotdict):
                 self[k] = dotdict(v)
+
+
+def get_by_path(cfg: Mapping[str, Any], path: str, default: Any = None) -> Any:
+    """The value at an ``a.b.c`` path of nested mappings, ``default`` if there is none."""
+    node: Any = cfg
+    for part in path.split("."):
+        if not isinstance(node, Mapping) or part not in node:
+            return default
+        node = node[part]
+    return node
+
+
+def set_by_path(cfg: Dict[str, Any], path: str, value: Any) -> None:
+    """Set the value at an ``a.b.c`` path, making the dicts on the way."""
+    parts = path.split(".")
+    node = cfg
+    for part in parts[:-1]:
+        nxt = node.get(part)
+        if not isinstance(nxt, dict):
+            nxt = dotdict() if isinstance(cfg, dotdict) else {}
+            node[part] = nxt
+        node = nxt
+    node[parts[-1]] = value
+
+
+def polynomial_decay(current_step: int, *, initial: float = 1.0, final: float = 0.0, max_decay_steps: int = 100, power: float = 1.0) -> float:
+    """``initial`` decayed to ``final`` over ``max_decay_steps`` with ``power``
+    (reference: sheeprl/utils/utils.py:133-144)."""
+    if current_step > max_decay_steps or initial == final:
+        return final
+    return (initial - final) * ((1 - current_step / max_decay_steps) ** power) + final
 
 
 class Ratio:
@@ -75,3 +110,38 @@ def save_configs(cfg: Mapping[str, Any], log_dir: str) -> None:
     os.makedirs(log_dir, exist_ok=True)
     with open(os.path.join(log_dir, "config.json"), "w") as fp:
         json.dump(cfg, fp, indent=2)
+
+
+def normalize_obs(obs: Dict[str, torch.Tensor], cnn_keys: Sequence[str], obs_keys: Optional[Sequence[str]] = None) -> Dict[str, torch.Tensor]:
+    """Pixel keys -> float in [-0.5, 0.5] on the device; the others as they
+    are. Keeps ``obs_keys`` (every key of ``obs`` by default)."""
+    keys = list(obs) if obs_keys is None else obs_keys
+    return {k: obs[k].float() / 255.0 - 0.5 if k in cnn_keys else obs[k] for k in keys}
+
+
+def prepare_obs(
+    obs: Dict[str, np.ndarray],
+    *,
+    cnn_keys: Sequence[str] = (),
+    num_envs: int = 1,
+    out: Optional[Dict[str, np.ndarray]] = None,
+    **kwargs: Any,
+) -> Dict[str, np.ndarray]:
+    """Host obs -> numpy arrays [num_envs, ...]: pixels stay uint8 HWC (they
+    cross to the device as they are and :func:`normalize_obs` scales them
+    there), vectors are flattened to float32 (counterpart of both algorithms'
+    ``prepare_obs`` in the JAX package). ``out`` is a previous result
+    reused as preallocated staging."""
+    if out is not None:
+        for k, v in obs.items():
+            arr = np.asarray(v)
+            if k in cnn_keys:
+                out[k] = arr.reshape(num_envs, *arr.shape[-3:])
+            else:
+                np.copyto(out[k], arr.reshape(num_envs, -1))
+        return out
+    prepared: Dict[str, np.ndarray] = {}
+    for k, v in obs.items():
+        arr = np.asarray(v)
+        prepared[k] = arr.reshape(num_envs, *arr.shape[-3:]) if k in cnn_keys else arr.reshape(num_envs, -1).astype(np.float32)
+    return prepared

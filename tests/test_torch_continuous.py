@@ -43,7 +43,7 @@ from sheeprl_tpu_torch.utils.distribution import BatchGenerator, Independent, No
 ATOL = 1e-6
 SCREEN = 16
 TINY_WALKER = [
-    "exp=dreamer_v3_dmc_walker_walk", "env=dummy", "device=cpu", "algo.learning_starts=64", "algo.total_steps=80",
+    "exp=dreamer_v3_dmc_walker_walk", "env=dummy", "env.id=continuous_dummy", "device=cpu", "algo.learning_starts=64", "algo.total_steps=80",
     "buffer.size=512", "algo.per_rank_batch_size=2", "algo.per_rank_sequence_length=8", "algo.horizon=3",
     "algo.dense_units=16", "algo.mlp_layers=1", "algo.world_model.encoder.cnn_channels_multiplier=4",
     "algo.world_model.recurrent_model.recurrent_state_size=32", "algo.world_model.transition_model.hidden_size=16",
@@ -184,7 +184,7 @@ def test_walker_exp_matches_the_jax_composed_exp():
     JAX package composes for the walker with the continuous dummy env."""
     sheeprl_tpu.register_all()
     ref = jax_compose("config", ["exp=dreamer_v3_dmc_walker_walk", "env=dummy", "env.id=continuous_dummy"]).as_dict()
-    port = compose(["exp=dreamer_v3_dmc_walker_walk", "env=dummy"])
+    port = compose(["exp=dreamer_v3_dmc_walker_walk", "env=dummy", "env.id=continuous_dummy"])
     check_against_jax(port, ref)
     assert (port.env.num_envs, port.env.action_repeat, port.env.wrapper.action_dim) == (4, 2, 6)
     assert (port.algo.replay_ratio, port.algo.learning_starts, port.algo.total_steps) == (0.5, 1300, 500000)

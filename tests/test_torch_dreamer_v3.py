@@ -28,7 +28,7 @@ from sheeprl_tpu.config.loader import compose
 from sheeprl_tpu_torch import bridge
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import _continuous_dist, actor_forward, build_agent
 from sheeprl_tpu_torch.algos.dreamer_v3.serve import dreamer_v3_s_ms_pacman_config
-from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_player_obs
+from sheeprl_tpu_torch.utils.utils import normalize_obs
 from sheeprl_tpu_torch.utils.distribution import RowGenerators
 
 ATOL = 1e-4
@@ -95,7 +95,7 @@ def jax_obs(obs, cnn_keys):
 
 
 def port_obs(obs, cnn_keys):
-    return normalize_player_obs({k: torch.from_numpy(v) for k, v in obs.items()}, cnn_keys)
+    return normalize_obs({k: torch.from_numpy(v) for k, v in obs.items()}, cnn_keys)
 
 
 def t(x):
@@ -277,7 +277,7 @@ def test_minedojo_masking_matches_jax():
 
 def test_prepare_obs_matches_jax():
     from sheeprl_tpu.algos.dreamer_v3.utils import prepare_obs as jax_prepare_obs
-    from sheeprl_tpu_torch.algos.dreamer_v3.utils import prepare_obs
+    from sheeprl_tpu_torch.utils.utils import prepare_obs
 
     rng = np.random.default_rng(8)
     obs = {"rgb": rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8), "state": rng.standard_normal((2, 3, 2))}

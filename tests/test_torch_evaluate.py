@@ -70,7 +70,7 @@ WALKER_AS_JAX = ["exp=dreamer_v3", "env.id=continuous_dummy", "env.num_envs=4", 
 CASES = {
     "ms_pacman": ("dreamer_v3_100k_ms_pacman", ["algo.learning_starts=16", "algo.total_steps=24"],
                   ["exp=dreamer_v3_100k_ms_pacman", "env.id=discrete_dummy"]),
-    "walker": ("dreamer_v3_dmc_walker_walk", ["algo.learning_starts=40", "algo.total_steps=56"], WALKER_AS_JAX),
+    "walker": ("dreamer_v3_dmc_walker_walk", ["env.id=continuous_dummy", "algo.learning_starts=40", "algo.total_steps=56"], WALKER_AS_JAX),
 }  # fmt: skip
 JAX_ONLY = ["env=dummy", "env.sync_env=True", "env.capture_video=False", "fabric.accelerator=cpu"]
 

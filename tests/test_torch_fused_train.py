@@ -27,7 +27,7 @@ import pytest
 import torch
 from test_torch_checkpoint import _assert_same, _final_state
 from test_torch_continuous import TINY_WALKER
-from test_torch_train import SMALL, TINY, TREES, ConstantNoise, _capture, _close, _data, _state_dict
+from test_torch_train import SMALL, TINY, TREES, ConstantNoise, _capture, _close, _data, _state_dict, port_target
 
 import sheeprl_tpu
 from sheeprl_tpu.algos.dreamer_v3 import agent as jax_agent
@@ -71,7 +71,7 @@ def test_two_fused_steps_match_jax(monkeypatch):
 
     pcfg = dotdict({**cfg.as_dict(), "device": "cpu", "env_group": "dummy"})
     for name in ("world_model", "actor", "critic"):
-        pcfg.algo[name].optimizer.pop("_target_")
+        pcfg.algo[name].optimizer["_target_"] = port_target(pcfg.algo[name].optimizer["_target_"])
     port = build_agent(
         (n_actions,), False, pcfg, DictSpace({"rgb": Box((screen, screen, 3), "uint8", 0.0, 255.0)}),
         precision="32-true", device="cpu", training=True,

@@ -16,7 +16,7 @@ import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
 from sheeprl_tpu_torch.algos.dreamer_v3.serve import dreamer_v3_s_ms_pacman_config
-from sheeprl_tpu_torch.algos.dreamer_v3.utils import normalize_player_obs
+from sheeprl_tpu_torch.utils.utils import normalize_obs
 from sheeprl_tpu_torch.serve import cli
 from sheeprl_tpu_torch.serve.artifact import ARRAYS_NAME, MANIFEST_NAME, load_artifact, validate_artifact, write_artifact
 from sheeprl_tpu_torch.serve.engine import EngineClosed, InferenceEngine
@@ -120,7 +120,7 @@ def test_single_session_equals_the_player_loop(artifact, mode):
     rng = RowGenerators([torch.Generator().manual_seed(42)], "cpu")
     looped = []
     for o in obs:
-        x = normalize_player_obs({"rgb": torch.from_numpy(o["rgb"][None])}, ("rgb",))
+        x = normalize_obs({"rgb": torch.from_numpy(o["rgb"][None])}, ("rgb",))
         _, real, state = agent.player_step(state, x, rng, greedy=(mode == "greedy"))
         looped.append(int(real[0, 0]))
     assert served == looped

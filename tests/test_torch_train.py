@@ -25,6 +25,7 @@ Tolerances, and why:
   to 2 * lr.
 """
 
+import os
 import re
 import types
 
@@ -50,6 +51,15 @@ from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
 from sheeprl_tpu_torch.utils.ops import init_moments
 from sheeprl_tpu_torch.utils.utils import dotdict
+
+# Under pytest-xdist each worker would start one intra-op thread per core for
+# torch, and the workers' threads then fight over the cores: on an 8-core
+# host a tiny-width CLI run that takes 5 s alone took 4 to 6 minutes beside
+# five other workers.
+# Every worker imports every test file while it collects, so this one line
+# holds for all the port's tests there.
+if os.environ.get("PYTEST_XDIST_WORKER"):
+    torch.set_num_threads(1)
 
 SMALL = [
     "algo.dense_units=16",
@@ -143,7 +153,7 @@ def test_one_gradient_step_matches_jax(monkeypatch, tau):
     # The port, from the same weights.
     pcfg = dotdict({**cfg.as_dict(), "device": "cpu", "env_group": "dummy"})
     for name in ("world_model", "actor", "critic"):
-        pcfg.algo[name].optimizer.pop("_target_")
+        pcfg.algo[name].optimizer["_target_"] = port_target(pcfg.algo[name].optimizer["_target_"])
     port = build_agent(
         (n_actions,), False, pcfg, DictSpace({"rgb": Box((screen, screen, 3), "uint8", 0.0, 255.0)}),
         precision="32-true", device="cpu", training=True,
@@ -188,17 +198,32 @@ def test_target_update_taus_match_jax():
         np.testing.assert_array_equal(port_dv3.target_update_taus(cumulative, k, freq, 0.02), _target_update_taus(cumulative, k, freq, 0.02))
 
 
-# The port's own keys (sheeprl_tpu_torch/config.py): the device, the env
+# The port's own keys (sheeprl_tpu_torch/configs/): the device, the env
 # group, the dummy env's action count and the mode of the buffer's files.
 PORT_KEYS = ("device", "env_group", "env.wrapper.action_dim", "buffer.memmap_mode")
 _NOW = re.compile(r"^\d{4}-\d\d-\d\d_\d\d-\d\d-\d\d_")
+# A port target that is not the JAX package's with sheeprl_tpu_torch for sheeprl_tpu.
+_TARGETS = {"sheeprl_tpu_torch.envs.dummy.get_dummy_env": "sheeprl_tpu.utils.env.get_dummy_env"}
+
+
+def jax_target(target):
+    """The JAX package's ``_target_`` for the port's."""
+    return _TARGETS.get(target, target.replace("sheeprl_tpu_torch.", "sheeprl_tpu.", 1))
+
+
+def port_target(target):
+    """The port's ``_target_`` for the JAX package's."""
+    return {v: k for k, v in _TARGETS.items()}.get(target, target.replace("sheeprl_tpu.", "sheeprl_tpu_torch.", 1))
 
 
 def check_against_jax(port, ref, path=""):
-    """Every key of the port's config is in the JAX-composed one with the
-    same value and type, apart from PORT_KEYS. A ``_target_`` names the
-    port's class where the JAX package names its own, and a run name starts
-    with the time of its composition (the two are composed a moment apart)."""
+    """The port's config and the JAX-composed one have the same keys, in
+    both directions, with the same values and types, apart from PORT_KEYS. A
+    ``_target_`` names the port's class where the JAX package names its own
+    (:func:`jax_target`), and a run name starts with the time of its
+    composition (the two are composed a moment apart)."""
+    for k in ref:
+        assert k in port or f"{path}{k}" in PORT_KEYS, f"{path}{k} is not in the port's config"
     for k, v in port.items():
         key = f"{path}{k}"
         if key in PORT_KEYS:
@@ -206,13 +231,14 @@ def check_against_jax(port, ref, path=""):
         assert k in ref, f"{key} is not in the JAX config"
         want = ref[k]
         if isinstance(v, dict):
+            assert isinstance(want, dict), (key, v, want)
             check_against_jax(v, want, f"{key}.")
             continue
         if k == "_target_":
-            v = v.replace("sheeprl_tpu_torch.", "sheeprl_tpu.", 1)
+            v = jax_target(v)
         elif k == "run_name":
             v, want = _NOW.sub("<now>_", v), _NOW.sub("<now>_", want)
-        assert v == want and type(v) is type(want) or float(v) == float(want), (key, v, want)
+        assert v == want and type(v) is type(want), (key, v, want)
 
 
 def test_config_matches_the_jax_composed_exp():
@@ -226,12 +252,22 @@ def test_config_matches_the_jax_composed_exp():
         assert port.fabric.precision == "bf16-mixed" and port.algo.world_model.observation_model.dense_units == ref["algo"]["dense_units"]
 
 
-def test_config_rejects_what_the_port_does_not_have():
-    with pytest.raises(ValueError, match="exp=dreamer_v3 is not ported"):
-        compose(["exp=dreamer_v3", "env=dummy"])
-    with pytest.raises(ValueError, match="env=atari is not ported"):
-        compose(["exp=dreamer_v3_100k_ms_pacman", "env=atari"])
-    with pytest.raises(ValueError, match="Unknown config key"):
+def test_config_rejects_what_the_port_does_not_have(tmp_path, monkeypatch):
+    """Every exp of the port's tree composes; the command line then refuses
+    an algorithm the port has no trainer for, and the trainer an env group
+    the port does not step. An exp outside the tree and an unknown key raise
+    in the composition."""
+    (tmp_path / "exp").mkdir()
+    (tmp_path / "exp" / "a2c_dummy.yaml").write_text("# @package _global_\ndefaults:\n  - ppo\n  - _self_\nalgo:\n  name: a2c\n")
+    monkeypatch.setenv("SHEEPRL_SEARCH_PATH", str(tmp_path))
+    assert compose(["exp=a2c_dummy", "env=dummy"]).algo.name == "a2c"
+    with pytest.raises(ValueError, match="algo.name=a2c is not ported"):
+        run(["exp=a2c_dummy", "env=dummy", "device=cpu"])
+    with pytest.raises(ValueError, match="env=gym is not ported"):
+        run(["exp=dreamer_v3", "device=cpu"])
+    with pytest.raises(ValueError, match="exp=sac is not in the port's config tree"):
+        compose(["exp=sac", "env=dummy"])
+    with pytest.raises(ValueError, match="no such key in the composed config"):
         compose(["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "algo.no_such_key=1"])
 
 

@@ -24,7 +24,7 @@ import numpy as np
 import optax
 import pytest
 import torch
-from test_torch_train import SMALL, TREES, ConstantNoise, _capture, _close, _state_dict
+from test_torch_train import SMALL, TREES, ConstantNoise, _capture, _close, _state_dict, port_target
 
 import sheeprl_tpu
 from sheeprl_tpu.algos.dreamer_v3 import agent as jax_agent
@@ -103,7 +103,7 @@ def test_gradient_step_matches_jax(monkeypatch, case):
 
     pcfg = dotdict({**cfg.as_dict(), "device": "cpu", "env_group": "dummy"})
     for name in ("world_model", "actor", "critic"):
-        pcfg.algo[name].optimizer.pop("_target_")
+        pcfg.algo[name].optimizer["_target_"] = port_target(pcfg.algo[name].optimizer["_target_"])
     space = DictSpace({"rgb": Box((SCREEN, SCREEN, 3), "uint8", 0.0, 255.0)})
     port = build_agent(
         (n_actions,), continuous, pcfg, space, precision="32-true", device="cpu", training=True,
