@@ -147,6 +147,35 @@ Phases (any failure exits non-zero before the result line):
    own), and one ppo_atari update on the card against the CPU in 32-true
    from the same weights, data and permutation (tolerances in
    ``phase_ppo_reference``).
+16. SAC, a fourth main path: ``python -m sheeprl_tpu_torch exp=sac
+   env=dummy env.id=continuous_dummy`` in process at the recipe's widths
+   (hidden 256, 2 critics, batch 256, replay ratio 1, Adam eps 1e-4,
+   32-true, 4 envs, the 1000000-row buffer memory-mapped), cut in
+   learning_starts, total_steps, checkpoint.every and log_every (listed in
+   the output) to 117 gradient steps with a checkpoint at policy step 96:
+   the loop's gradient steps, finite losses, the JAX package's tags, no
+   LN-GRU launch (counts zeroed before, read after); resumed from that
+   checkpoint it ends on the uninterrupted run's parameters and Adam states
+   bit for bit; its last checkpoint exported (the actor only) and served
+   over HTTP (greedy actions the trained agent's bit for bit and repeated
+   byte-identical, samples repeatable per seed); ``python -m
+   sheeprl_tpu_torch.eval`` on it; then the same run with
+   ``buffer.device=True algo.fused_train_steps=16`` (the ring path's
+   captured step).
+17. One SAC update (4 gradient steps) on the card against the CPU in
+   32-true from the same weights, batches and draws, per parameter leaf
+   and per Adam moment, with two planted faults it must reject
+   (``phase_sac_reference``).
+18. DroQ through the CLI at replay ratio 20 (dropout 0.01, LayerNorm), on
+   the host path and with ``buffer.device=True algo.fused_train_steps=16``
+   (the critic graph and the actor graph both replayed), checked as 16.
+19. SAC's and DroQ's ring paths: the captured steps against their eager
+   steps, bit for bit over 8 gradient steps from one snapshot, sampling a
+   4096-row ring per env (4 envs); the graphs' nodes (no LN-GRU node); 16
+   back-to-back replays profiled.
+20. The host path of both, 16 gradient steps in one train call, profiled:
+   per gradient step host wall, device busy, idle share, device
+   operations, peak memory, no LN-GRU launch.
 
 Prints one ``{"kernels": [...]}`` line (the streaming forward at B = 16,
 the tensor-core forward at B = 1024, the backward at B = 16 and at
@@ -2634,6 +2663,527 @@ def filesystem_of(path) -> str:
     return f"{point} ({kind})"
 
 
+# SAC and DroQ (exp=sac, exp=droq on env=dummy env.id=continuous_dummy):
+# MLPs in 32-true, on the host path and on the ring path; no LN-GRU launch.
+SAC_CUTS = {"algo.learning_starts": "64 (from 100)", "algo.total_steps": "128 (from 1000000; 117 gradient steps)",
+            "checkpoint.every": "96 (from 50000)", "metric.log_every": "32 (from 5000)"}  # fmt: skip
+SAC_ARGS = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "algo.learning_starts=64", "algo.total_steps=128", "checkpoint.every=96",
+            "metric.log_every=32"]  # fmt: skip
+DROQ_CUTS = {"algo.learning_starts": "16 (from 100)", "algo.total_steps": "48 (from 1000000; 980 critic steps)", "metric.log_every": "16 (from 5000)"}
+DROQ_ARGS = ["exp=droq", "env=dummy", "env.id=continuous_dummy", "algo.learning_starts=16", "algo.total_steps=48", "metric.log_every=16"]
+RING_CUTS = {"buffer.device": "True (from False)", "algo.fused_train_steps": "16 (from 1)"}
+RING_ARGS = ["buffer.device=True", "algo.fused_train_steps=16"]
+SAC_TAGS = ("Loss/value_loss", "Loss/policy_loss", "Loss/alpha_loss", "Params/replay_ratio", "Time/sps_train", "Time/sps_env_interaction")
+OFFPOLICY_RING_ROWS = 4096  # rows per env of the graph-against-eager phase's ring (4 envs, the dummy env's shapes)
+SAC_GRAPH_TAUS = (0.005, 0.0, 0.005, 0.005, 0.0, 0.005, 0.005, 0.005)  # 8 steps: the EMA on and off (target_network_frequency)
+# The card's SAC update against the CPU's, per leaf (phase_sac_reference).
+# On the CPU a SAC update of 4 steps from weights one f32 ulp away reads
+# 2.9e-4 on the worst leaf's change (a target critic's: tau x a small
+# change) and 8e-7 on the worst Adam moment; lr x 2 and a zeroed critic
+# gradient read 1.0 or more. The limits sit a decade and more above the
+# rounding and two decades under the faults.
+SAC_PARAM_CHANGE_TOL = 1e-2
+SAC_MOMENT_TOL = 1e-2
+SAC_FAULTS = ("lr x 2", "critic output bias's gradient zeroed")
+SAC_REF_STEPS = 4
+
+
+def _cli_cuts(args, cuts, ring):
+    return ([*args, *RING_ARGS], {**cuts, **RING_CUTS}) if ring else (list(args), cuts)
+
+
+def expected_gradient_steps(cfg):
+    """The gradient (critic) steps the trainer's loop takes for ``cfg``:
+    the JAX ``Ratio`` over ``policy_step - prefill + num_envs`` from the
+    first training iteration on (``sac.py:462-464``)."""
+    from sheeprl_tpu_torch.utils.utils import Ratio
+
+    per_iter = int(cfg.env.num_envs)
+    learning_starts = int(cfg.algo.learning_starts) // per_iter
+    prefill = learning_starts - int(learning_starts > 0)
+    ratio, total = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps), 0
+    for it in range(1, int(cfg.algo.total_steps) // per_iter + 1):
+        if it >= learning_starts:
+            total += ratio(it * per_iter - prefill + per_iter)
+    return total
+
+
+def offpolicy_through_cli(args, cuts, what, log_root):
+    """One run of the port's SAC or DroQ trainer through its CLI entry point,
+    in process, on the card: the LN-GRU counts zeroed before and read after
+    (all 0), the expected gradient steps, every train call's losses finite,
+    the JAX package's tags at the last log point and the test reward at 0,
+    all finite. Returns (out, result)."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.utils.logger import read_scalars
+
+    cfg = compose(args)
+    log(f"{what}: {' '.join(args)}: {cfg.env.num_envs} envs, hidden {cfg.algo.hidden_size}, {cfg.algo.critic.n} critics"
+        f"{' (dropout ' + str(cfg.algo.critic.dropout) + ', LayerNorm)' if cfg.algo.name == 'droq' else ''}, batch {cfg.algo.per_rank_batch_size}, "
+        f"replay ratio {cfg.algo.replay_ratio}, {cfg.buffer.size} rows {'memory-mapped' if cfg.buffer.memmap else 'in memory'}, "
+        f"{cfg.fabric.precision}; cut: {json.dumps(cuts)}")  # fmt: skip
+    losses = []
+
+    def on_train(agent, gradient_steps, metrics):
+        losses.extend(metrics)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    out = run([*args, f"log_root={log_root}"], callback=on_train)
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    if counts["forward"] or counts["backward"]:
+        fail(f"{what}: SAC/DroQ launched LN-GRU kernels: {counts}")
+    if out["agent"].log_alpha.device.type != "cuda":
+        fail(f"{what}: the agent is not on the card")
+    resumed = bool(cfg.checkpoint.resume_from)
+    if not resumed and out["gradient_steps"] != expected_gradient_steps(cfg):
+        fail(f"{what}: {out['gradient_steps']} gradient steps, the loop's Ratio gives {expected_gradient_steps(cfg)}")
+    bad = [m for m in losses if not all(math.isfinite(float(v)) for v in m.values())]
+    if not losses or bad:
+        fail(f"{what}: non-finite losses {bad[:2]} of {len(losses)} loss entries")
+    scalars = read_scalars(out["log_dir"])
+    last = int(out["policy_steps"])
+    missing = [t for t in SAC_TAGS if last not in [s for s, _ in scalars.get(t, [])]]
+    if missing or not all(np.isfinite(v) for values in scalars.values() for _, v in values):
+        fail(f"{what}: tags {missing} missing at policy step {last}, or non-finite values: {scalars}")
+    if scalars["Test/cumulative_reward"] != [(0, np.float32(out["test_reward"]))]:
+        fail(f"{what}: Test/cumulative_reward {scalars['Test/cumulative_reward']}, the test episode returned {out['test_reward']}")
+    if cfg.buffer.device and not (out["device_buffer"]["active"] and out["fused"] and out["fused"]["gradient_steps"] == out["gradient_steps"]):
+        fail(f"{what}: the ring path did not take every gradient step: {out['device_buffer']} {out['fused']}")
+    logged = {k: v for k, v in out["log"][-1].items()}
+    result = {"cuts": cuts, "policy_steps": out["policy_steps"], "gradient_steps": out["gradient_steps"], "loss_entries": len(losses),
+              "wall_s": wall_s, "ln_gru_launches": counts, "last_log": logged, "test_reward": out["test_reward"],
+              "device_buffer": out["device_buffer"], "fused": out["fused"]}  # fmt: skip
+    fused = out["fused"] or {}
+    log(f"{what}: {out['gradient_steps']} gradient steps in {out['policy_steps']} policy steps, {wall_s:.1f} s; no LN-GRU launch; "
+        f"finite losses; the JAX package's tags; Time/sps_train {logged.get('Time/sps_train', float('nan')):.4g}, Time/sps_env_interaction "
+        f"{logged.get('Time/sps_env_interaction', float('nan')):.4g}"
+        + (f"; ring {out['device_buffer']['bytes'] / 2**20:.1f} MiB, {fused.get('warmup_steps')} warm-up steps, {fused.get('replays')} replays "
+           f"(graph {fused['graph']['nodes']} nodes)" if fused.get("graph") else ""))  # fmt: skip
+    return out, result
+
+
+def _state_of(out):
+    """The agent's parameters and every Adam state tensor of a run."""
+    params = {k: v.detach().clone() for k, v in out["agent"].state_dict().items()}
+    adam = {f"{name}.{i}.{k}": v.clone() for name, opt in out["optimizers"].items() for i, p in enumerate(opt.param_groups[0]["params"])
+            for k, v in sorted(opt.state[p].items())}  # fmt: skip
+    return params, adam
+
+
+def serve_sac_over_http(ckpt, agent, workdir):
+    """SAC's checkpoint exported and served over HTTP on the card: the
+    artifact holds the actor only. A burst of sampled requests from 4
+    threads shares batches, every action 2 floats in [-1, 1]. Then one
+    request at a time (a batch of one, as the test episode acts): each
+    greedy action equals, bit for bit, the trained agent's greedy action
+    for that observation on the card (the test episode's action) and
+    repeats byte for byte; a sampled one repeats for its seed and differs
+    across seeds. (A row's floats may change with the batch it shares: the
+    product's kernel depends on the batch size.)"""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.serve import cli as serve_cli
+    from sheeprl_tpu_torch.serve.artifact import load_artifact
+    from sheeprl_tpu_torch.serve.cli import SERVE_DEFAULTS
+    from sheeprl_tpu_torch.serve.engine import InferenceEngine
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+
+    path = os.path.join(workdir, "sac.policy")
+    serve_cli.main(["export", f"checkpoint_path={ckpt}", "name=sac", f"output_path={path}"])
+    if set(load_artifact(path, verify_digest=True).params) != {"actor"}:
+        fail("sac serve: the artifact holds more than the actor")
+    engine = InferenceEngine(max_batch=SERVE_DEFAULTS["max_batch"], queue_capacity=SERVE_DEFAULTS["queue_capacity"],
+                             batch_window_s=SERVE_DEFAULTS["batch_window_ms"] / 1000.0, device="cuda")  # fmt: skip
+    card = engine.load("sac", path)
+    server = PolicyServer(engine, host="127.0.0.1", port=0).start()
+    try:
+        status, models = http(server.address, "/v1/models")
+        if status != 200 or models["models"]["sac"]["action_space"]["type"] != "box":
+            fail(f"sac serve: /v1/models {status} {models}")
+        rng = np.random.default_rng(5)
+        obs = [rng.normal(size=10).astype(np.float32).tolist() for _ in range(4)]
+
+        def act(mode, seed, o):
+            return http(server.address, "/v1/act", {"model": "sac", "obs": {"state": o}, "mode": mode, "seed": seed})[1]["action"]
+
+        with ThreadPoolExecutor(4) as pool:
+            burst = list(pool.map(lambda s: [act("sample", s, o) for o in obs], range(4)))
+        greedy = [act("greedy", 0, o) for o in obs]
+        again = [act("greedy", 1, o) for o in obs]
+        sampled = [[act("sample", s, o) for o in obs] for s in range(3)]
+        resampled = [[act("sample", s, o) for o in obs] for s in range(3)]
+        stats = engine.stats()
+    finally:
+        server.close(drain=True)
+    with torch.no_grad():
+        want = [agent.get_actions(torch.tensor([o], device="cuda"), greedy=True)[0].cpu().tolist() for o in obs]
+    if json.dumps(greedy) != json.dumps(again) or greedy != want:
+        fail(f"sac serve: greedy actions {greedy}, repeated {again}, the trained agent's greedy actions {want}")
+    if sampled != resampled or sampled[0] == sampled[1]:
+        fail(f"sac serve: sampled requests do not repeat per seed, or two seeds agree: {sampled} vs {resampled}")
+    flat = greedy + [a for s in sampled + burst for a in s]
+    if not all(len(a) == 2 and all(-1.0 <= x <= 1.0 for x in a) for a in flat) or stats["counters"]["errors"]:
+        fail(f"sac serve: actions outside 2 x [-1, 1]: {flat[:3]} ({stats['counters']})")
+    log(f"sac serve: {os.path.basename(ckpt)} exported (the actor only) and served ({card['precision']} on {card['device']}): "
+        f"{stats['counters']['requests']} requests in {stats['counters']['batches']} batches, occupancy {stats['occupancy']}; greedy actions "
+        "the trained agent's bit for bit and repeated byte-identical, seeded samples repeatable and seed-dependent, every action 2 x [-1, 1]")  # fmt: skip
+    return {"requests": stats["counters"]["requests"], "batches": stats["counters"]["batches"], "occupancy": stats["occupancy"], "greedy_actions": greedy}
+
+
+def phase_sac(log_root, workdir):
+    """(a) SAC through the CLI (host path), resumed from its mid-run
+    checkpoint (every parameter and Adam state bit for bit the
+    uninterrupted run's at the end), exported and served, ``eval``; then
+    the same run on the ring path."""
+    out, host = offpolicy_through_cli(SAC_ARGS, SAC_CUTS, "sac", log_root)
+    [ckpt] = [c for c in out["checkpoints"] if os.path.basename(c).startswith("ckpt_96_")]
+    again, resumed = offpolicy_through_cli([*SAC_ARGS, f"checkpoint.resume_from={ckpt}"], SAC_CUTS, "sac resume", log_root)
+    (pa, aa), (pb, ab) = _state_of(out), _state_of(again)
+    differ = [k for k in pa if not torch_equal_bits(pa[k], pb[k])] + [k for k in aa if not torch_equal_bits(aa[k], ab[k])]
+    if differ or pa.keys() != pb.keys() or aa.keys() != ab.keys() or again["gradient_steps"] != out["gradient_steps"]:
+        fail(f"sac resume: the resumed run ends off the uninterrupted one: {differ[:5]}")
+    log(f"sac resume: from {os.path.basename(ckpt)} the run ends on the uninterrupted run's {len(pa)} parameter and {len(aa)} Adam tensors "
+        "bit for bit")  # fmt: skip
+    serving = serve_sac_over_http(out["checkpoints"][-1], out["agent"], workdir)
+    evaluation = phase_eval(out["checkpoints"][-1], out["test_reward"])
+    _, ring = offpolicy_through_cli(*_cli_cuts(SAC_ARGS, SAC_CUTS, True), "sac ring", log_root)
+    return {"host": host, "resume": {**resumed, "tensors_bit_for_bit": len(pa) + len(aa)}, "serving": serving, "evaluation": evaluation, "ring": ring}
+
+
+def phase_droq(log_root):
+    """(c) DroQ through the CLI at replay ratio 20, on the host path and on
+    the ring path (both captured graphs replayed)."""
+    _, host = offpolicy_through_cli(DROQ_ARGS, DROQ_CUTS, "droq", log_root)
+    _, ring = offpolicy_through_cli(*_cli_cuts(DROQ_ARGS, DROQ_CUTS, True), "droq ring", log_root)
+    fused = ring["fused"]
+    if not (fused["replays"] > 0 and fused["actor_replays"] > 0 and fused["graph"] and fused["actor_graph"]):
+        fail(f"droq ring: the critic and actor graphs were not both replayed: {fused}")
+    return {"host": host, "ring": ring}
+
+
+def _offpolicy_setup(kind, where):
+    """A full-width agent of ``kind`` (sac, droq) on ``where``, initialised
+    on the CPU from seed 7, its optimizers and config."""
+    from sheeprl_tpu_torch.algos.droq.agent import build_agent as build_droq
+    from sheeprl_tpu_torch.algos.sac.agent import build_agent as build_sac
+    from sheeprl_tpu_torch.algos.sac.sac import make_optimizers
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.dummy import ContinuousDummyEnv
+
+    cfg = compose([*(SAC_ARGS if kind == "sac" else DROQ_ARGS), f"device={where}"])
+    env = ContinuousDummyEnv(action_dim=int(cfg.env.wrapper.action_dim))
+    agent = (build_sac if kind == "sac" else build_droq)(cfg, env.observation_space, env.action_space, device=where, seed=7)
+    return cfg, agent, make_optimizers(agent, cfg)
+
+
+def _offpolicy_batch(lead, seed, dev):
+    """A replay batch at the dummy env's shapes (10-float state, 2 actions)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    data = {"observations": rng.normal(size=(*lead, 10)), "next_observations": rng.normal(size=(*lead, 10)),
+            "actions": rng.uniform(-1, 1, (*lead, 2)), "rewards": rng.normal(size=(*lead, 1)), "terminated": rng.random((*lead, 1)) < 0.05}  # fmt: skip
+    return {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in data.items()}
+
+
+def phase_sac_reference():
+    """(b) One SAC update (``SAC_REF_STEPS`` gradient steps of batch 256 at
+    hidden 256) on the card in 32-true with TF32 off against the same update
+    on the CPU, from the same weights, batches and normal draws. Each
+    parameter leaf's change from the start, ``||d_card - d_cpu|| /
+    ||d_cpu||`` (the target critics and ``log_alpha`` included), within
+    ``SAC_PARAM_CHANGE_TOL``; each leaf's Adam moments within
+    ``SAC_MOMENT_TOL``; the mean losses within rtol 1e-4. The card's update
+    from weights one f32 ulp away is reported (its own rounding), and each
+    of ``SAC_FAULTS`` planted on the card must be rejected by the parameter
+    check."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.sac.sac import make_train_step
+
+    def update(where, fault=None):
+        cfg, agent, optimizers = _offpolicy_setup("sac", where)
+        if fault == "nudge":
+            with torch.no_grad():
+                for p in agent.parameters():
+                    p.mul_(1 + 2.0**-23)
+        start = {k: v.detach().cpu().clone() for k, v in agent.state_dict().items()}
+        if fault == "lr x 2":
+            for opt in optimizers.values():
+                for group in opt.param_groups:
+                    group["lr"] = 2 * group["lr"]
+        elif fault == SAC_FAULTS[1]:
+            agent.qfs.model.output.bias.register_hook(torch.zeros_like)
+        batch = int(cfg.algo.per_rank_batch_size)
+        data = _offpolicy_batch((SAC_REF_STEPS, batch), 13, torch.device(where))
+        noise = torch.from_numpy(np.random.default_rng(14).normal(size=(SAC_REF_STEPS, 2, batch, agent.action_dim)).astype(np.float32)).to(where)
+        metrics = make_train_step(agent, optimizers, cfg)(data, noise, torch.tensor(float(cfg.algo.tau), device=where))
+        names = {id(p): n for n, p in agent.named_parameters()}
+        moments = {f"{m} {names[id(p)]}": opt.state[p][m].detach().cpu() for opt in optimizers.values() for p in opt.param_groups[0]["params"]
+                   for m in ("exp_avg", "exp_avg_sq")}  # fmt: skip
+        return {k: float(v) for k, v in metrics.items()}, start, {k: v.detach().cpu() for k, v in agent.state_dict().items()}, moments
+
+    def worst(gaps):
+        k = max(gaps, key=gaps.get)
+        return {"leaf": k, "gap": gaps[k]}
+
+    cpu_m, cpu_start, cpu_p, cpu_mom = update("cpu")
+    gpu_m, gpu_start, gpu_p, gpu_mom = update("cuda")
+    if any(not torch.equal(gpu_start[k], cpu_start[k]) for k in cpu_start):
+        fail("sac reference: the card's agent does not start from the CPU's weights")
+    for k in cpu_m:
+        if abs(gpu_m[k] - cpu_m[k]) > 1e-6 + 1e-4 * abs(cpu_m[k]):
+            fail(f"sac reference: {k} {gpu_m[k]} on the card, {cpu_m[k]} on the CPU")
+    param = worst(_relative_gaps(gpu_p, cpu_p, gpu_start, cpu_start))
+    moment = worst(_relative_gaps(gpu_mom, cpu_mom))
+    if param["gap"] > SAC_PARAM_CHANGE_TOL:
+        fail(f"sac reference: {param['leaf']}'s change on the card differs from the CPU's by {param['gap']} of its norm (> {SAC_PARAM_CHANGE_TOL})")
+    if moment["gap"] > SAC_MOMENT_TOL:
+        fail(f"sac reference: Adam's {moment['leaf']} differs on the card by {moment['gap']} of its norm (> {SAC_MOMENT_TOL})")
+    _, nudge_start, nudge_p, nudge_mom = update("cuda", "nudge")
+    floor = {"param": worst(_relative_gaps(nudge_p, gpu_p, nudge_start, gpu_start)), "adam_moment": worst(_relative_gaps(nudge_mom, gpu_mom))}
+    faults = {}
+    for fault in SAC_FAULTS:
+        f_m, f_start, f_p, f_mom = update("cuda", fault)
+        faults[fault] = {"param": worst(_relative_gaps(f_p, cpu_p, f_start, cpu_start)), "adam_moment": worst(_relative_gaps(f_mom, cpu_mom)),
+                         "loss_rel": max(abs(f_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in cpu_m)}  # fmt: skip
+        if faults[fault]["param"]["gap"] <= SAC_PARAM_CHANGE_TOL:
+            fail(f"sac reference: the update with {fault} passes the parameter check ({faults[fault]['param']})")
+    log(f"sac reference: one SAC update ({SAC_REF_STEPS} gradient steps, batch 256, hidden 256), card against CPU in 32-true: losses "
+        f"{json.dumps({k: [gpu_m[k], cpu_m[k]] for k in cpu_m})}; worst leaf's change {param['gap']:.3g} ({param['leaf']}, limit "
+        f"{SAC_PARAM_CHANGE_TOL}); worst Adam moment {moment['gap']:.3g} ({moment['leaf']}, limit {SAC_MOMENT_TOL}); the card from weights one "
+        f"ulp away {json.dumps(floor)}; planted faults {json.dumps(faults)}")  # fmt: skip
+    return {"losses_card": gpu_m, "losses_cpu": cpu_m, "worst_param_change": param, "worst_adam_moment": moment, "one_ulp_nudge": floor,
+            "planted_faults": faults, "tolerance": {"param_change": SAC_PARAM_CHANGE_TOL, "adam_moment": SAC_MOMENT_TOL, "loss_rtol": 1e-4}}  # fmt: skip
+
+
+def _busy(prof, n, skip=()):
+    """(device ms, operations, annotation ms) per ``n`` of a profile's CUDA
+    events. The device ranges of ``record_function`` annotations (the
+    trainer's spans, ``Optimizer.step#Adam.step``) span kernels counted
+    already: they are left out of the first two and summed in the third."""
+    import torch
+
+    total, ops, annotated = 0.0, 0, 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
+        if getattr(evt, "is_user_annotation", False) or evt.key.startswith(("Optimizer.", *skip)):
+            annotated += ms
+        else:
+            total += ms
+            ops += evt.count
+    return total / n / 1e3, ops / n, annotated / n / 1e3
+
+
+def _timed_per_step(fn, steps, reps=3):
+    """Host wall ms per step of ``fn`` (``steps`` steps a call, ending in a
+    synchronize; best of ``reps``), its device busy ms and operations per
+    step (torch.profiler over one more call), the idle share and the peak
+    memory."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3 / steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    busy, ops, annotated = _busy(profiled(fn, ("cpu", "cuda")), steps, skip=("sac/", "droq/"))
+    if busy <= 0.0:
+        fail("torch.profiler saw no device time")
+    wall = statistics.median(walls)
+    return {"host_wall_ms_per_step": wall, "device_busy_ms_per_step": busy, "idle_share": max(0.0, 1.0 - busy / wall),
+            "device_ops_per_step": ops, "annotation_ranges_ms_per_step": annotated, "peak_gib": peak, "gradient_steps_per_s": 1e3 / wall}  # fmt: skip
+
+
+def phase_offpolicy_host_profile(kind):
+    """(e) The host path's gradient steps at full width on the card: 16 of
+    them in one train call (SAC: ``make_train_step``; DroQ: 16 critic steps
+    and the actor step, the draws made in the call as the trainer makes
+    them); per gradient step the host wall, device busy, idle share,
+    operations and peak memory; no LN-GRU launch."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.droq import droq as droq_mod
+    from sheeprl_tpu_torch.algos.sac.sac import draw_noise, make_train_step
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+
+    dev = torch.device("cuda")
+    cfg, agent, optimizers = _offpolicy_setup(kind, "cuda")
+    batch, steps = int(cfg.algo.per_rank_batch_size), 16
+    data = _offpolicy_batch((steps, batch), 21, dev)
+    rng = BatchGenerator.from_seed(0, dev)
+    if kind == "sac":
+        step, tau = make_train_step(agent, optimizers, cfg), torch.tensor(float(cfg.algo.tau), device=dev)
+
+        def call():
+            return step(data, draw_noise(rng, batch, agent.action_dim, steps), tau)
+    else:
+        step, actor_obs = droq_mod.make_train_step(agent, optimizers, cfg), data["observations"][0]
+
+        def call():
+            draws = {"critic": [droq_mod.critic_draws(agent, rng, batch) for _ in range(steps)], "actor": droq_mod.actor_draws(agent, rng, batch)}
+            return step(data, actor_obs, draws)
+
+    zero_counts()
+    out = _timed_per_step(call, steps)
+    counts = read_counts()
+    if counts["forward"] or counts["backward"]:
+        fail(f"{kind} host profile: LN-GRU launches {counts}")
+    out["ln_gru_launches"] = counts["forward"] + counts["backward"]
+    log(f"{kind} host path: {steps} gradient steps a call at batch {batch}, hidden {cfg.algo.hidden_size}: {out['host_wall_ms_per_step']:.3f} ms "
+        f"host wall a step, {out['device_busy_ms_per_step']:.3f} ms device busy, idle {out['idle_share']:.3f}, {out['device_ops_per_step']:.1f} "
+        f"device operations, peak {out['peak_gib']:.3f} GiB, {out['gradient_steps_per_s']:.1f} gradient steps/s; no LN-GRU launch")  # fmt: skip
+    return out
+
+
+def phase_offpolicy_graph(kind):
+    """(d) The ring path's captured steps against their eager steps on the
+    card, at full width, sampling a ring of ``OFFPOLICY_RING_ROWS`` rows
+    per env (4 envs) filled at the dummy env's shapes. The fused step warms
+    up (3 eager calls, the first under the sync check; DroQ's critic and
+    actor steps each); then from one snapshot (every parameter, target and
+    Adam state, and the generator) 8 gradient steps eagerly twice and
+    through the graphs (SAC: taus ``SAC_GRAPH_TAUS``; DroQ: two calls of 4
+    critic steps and the actor step): every parameter, Adam state and the
+    calls' metrics bit for bit, or within the two eager runs' difference.
+    The graphs' nodes (no LN-GRU node); then (e) 16 back-to-back replays
+    timed and profiled."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.droq.droq import make_fused_train_step as droq_fused
+    from sheeprl_tpu_torch.algos.sac.sac import METRIC_KEYS
+    from sheeprl_tpu_torch.algos.sac.sac import make_fused_train_step as sac_fused
+    from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+
+    what = f"{kind} graph vs eager"
+    dev = torch.device("cuda")
+    cfg, agent, optimizers = _offpolicy_setup(kind, "cuda")
+    n_envs, batch = int(cfg.env.num_envs), int(cfg.algo.per_rank_batch_size)
+    rows = _offpolicy_batch((OFFPOLICY_RING_ROWS, n_envs), 17, "cpu")
+    rows = {k: v.numpy() for k, v in rows.items()}
+    rows["terminated"] = rows["terminated"].astype(np.uint8)
+    ring = DeviceReplayRing(OFFPOLICY_RING_ROWS, n_envs, obs_keys=("observations",), device=dev)
+    ring.add(rows)
+    ring.flush()
+    sample = ring.make_sample_fn(batch, sequence_length=1)
+    rng = BatchGenerator.from_seed(3, dev)
+    if kind == "sac":
+        fused = sac_fused(agent, optimizers, cfg, sample, rng)
+        steps = [fused.captured]
+        for _ in range(WARMUP_STEPS):
+            fused(ring.state, [0.005])
+
+        def through_graph():
+            m = fused(ring.state, SAC_GRAPH_TAUS)
+            return torch.stack([m[k] for k in METRIC_KEYS])
+
+        def eagerly():
+            total = None
+            for t in SAC_GRAPH_TAUS:
+                fused.tau.fill_(t)
+                out = fused.captured.fn()
+                total = out.clone() if total is None else total.add_(out)
+            return total / len(SAC_GRAPH_TAUS)
+    else:
+        fused = droq_fused(agent, optimizers, cfg, sample, rng)
+        steps = [fused.critic, fused.actor]
+        for _ in range(WARMUP_STEPS):
+            fused(ring.state, 1, True)
+
+        def through_graph():
+            return torch.stack([torch.stack([m[k] for k in sorted(m)]) for m in (fused(ring.state, 4, True) for _ in range(2))])
+
+        def eagerly():
+            calls = []
+            for _ in range(2):
+                total = None
+                for _ in range(4):
+                    out = fused.critic.fn()
+                    total = out.clone() if total is None else total.add_(out)
+                policy, alpha = fused.actor.fn().clone().unbind()
+                calls.append(torch.stack([alpha, policy, total / 4]))
+            return torch.stack(calls)
+
+    torch.cuda.synchronize()
+    if any(s.warmup_calls != WARMUP_STEPS or s.graph is not None for s in steps):
+        fail(f"{what}: warm-up {[s.warmup_calls for s in steps]}, graphs {[s.graph for s in steps]}")
+    params = list(agent.parameters())
+    adam = [v for opt in optimizers.values() for p in opt.param_groups[0]["params"] for _, v in sorted(opt.state[p].items())]
+    snap = {"params": [p.detach().clone() for p in params], "adam": [a.clone() for a in adam], "rng": rng.generator.get_state()}
+
+    def restore():
+        with torch.no_grad():
+            for p, s in zip(params, snap["params"]):
+                p.copy_(s)
+            for a, s in zip(adam, snap["adam"]):
+                a.copy_(s)
+        rng.generator.set_state(snap["rng"])
+
+    def result(metrics):
+        torch.cuda.synchronize()
+        return {"params": [p.detach().clone() for p in params], "adam": [a.clone() for a in adam], "metrics": [metrics.clone()]}
+
+    restore()
+    eager_a = result(eagerly())
+    restore()
+    eager_b = result(eagerly())
+    restore()
+    t0 = time.perf_counter()
+    graph = result(through_graph())
+    capture_and_replay_s = time.perf_counter() - t0
+    eager_gap, graph_gap = _gaps(eager_a, eager_b), _gaps(eager_a, graph)
+    for group, gap in graph_gap.items():
+        allowed = 0.0 if eager_gap[group]["bit_for_bit"] else eager_gap[group]["max_abs"]
+        if not gap["bit_for_bit"] and gap["max_abs"] > allowed:
+            fail(f"{what}: the graph's {group} differ from the eager steps' by {gap['max_abs']} (two eager runs: {eager_gap[group]})")
+    nodes = [s.nodes for s in steps]
+    if any(n is None or any(n["ln_gru"].values()) for n in nodes):
+        fail(f"{what}: graphs {nodes}")
+
+    # (e) 16 back-to-back replays of the (critic) step.
+    if kind == "sac":
+        replays = lambda: fused(ring.state, [0.005] * REPLAYS_PROFILED)  # noqa: E731
+    else:
+        replays = lambda: fused(ring.state, REPLAYS_PROFILED, True)  # noqa: E731
+    zero_counts()
+    profile = _timed_per_step(replays, REPLAYS_PROFILED)
+    counts = read_counts()
+    if counts["forward"] or counts["backward"]:
+        fail(f"{what}: LN-GRU launches {counts}")
+    out = {"ring_rows_per_env": OFFPOLICY_RING_ROWS, "n_envs": n_envs, "warmup_steps": WARMUP_STEPS, "eager_vs_eager": eager_gap,
+           "graph_vs_eager": graph_gap, "capture_and_replays_s": capture_and_replay_s,
+           "graph_nodes": [{"nodes": n["nodes"], "by_type": n["by_type"], "ln_gru": n["ln_gru"]} for n in nodes],
+           "replays_profiled": REPLAYS_PROFILED, **profile}  # fmt: skip
+    log(f"{what}: hidden {cfg.algo.hidden_size}, batch {batch}, ring {OFFPOLICY_RING_ROWS} rows x {n_envs} envs; {WARMUP_STEPS} eager warm-up "
+        f"calls, then 8 steps from one snapshot: eager vs eager {json.dumps(eager_gap)}; graph vs eager {json.dumps(graph_gap)}; graph nodes "
+        f"{json.dumps(out['graph_nodes'])}")  # fmt: skip
+    log(f"{what}: {REPLAYS_PROFILED} back-to-back replays: {profile['host_wall_ms_per_step']:.3f} ms host wall a step, "
+        f"{profile['device_busy_ms_per_step']:.3f} ms device busy, idle {profile['idle_share']:.3f}, {profile['device_ops_per_step']:.1f} device "
+        f"operations, peak {profile['peak_gib']:.3f} GiB, {profile['gradient_steps_per_s']:.1f} gradient steps/s")  # fmt: skip
+    del fused, ring, agent, optimizers
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> None:
     import warnings
 
@@ -2699,6 +3249,14 @@ def main() -> None:
         ppo_reference = phase_ppo_reference()
         ppo_phases_s = time.perf_counter() - ppo_t0
         log(f"ppo: phases 13-15 took {ppo_phases_s:.1f} s")
+        sac_t0 = time.perf_counter()
+        sac = phase_sac(workdir, workdir)
+        sac_reference = phase_sac_reference()
+        droq = phase_droq(workdir)
+        offpolicy_graph = {kind: phase_offpolicy_graph(kind) for kind in ("sac", "droq")}
+        offpolicy_host = {kind: phase_offpolicy_host_profile(kind) for kind in ("sac", "droq")}
+        sac_phases_s = time.perf_counter() - sac_t0
+        log(f"sac, droq: phases 16-20 took {sac_phases_s:.1f} s")
         replay_sample = phase_replay_sample()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2792,6 +3350,12 @@ def main() -> None:
         "ppo_evaluation": ppo_evaluation,
         "ppo_reference": ppo_reference,
         "ppo_phases_s": ppo_phases_s,
+        "sac": sac,
+        "sac_reference": sac_reference,
+        "droq": droq,
+        "offpolicy_ring_profile": offpolicy_graph,
+        "offpolicy_host_profile": offpolicy_host,
+        "sac_phases_s": sac_phases_s,
         "kernels": kernels_line["kernels"],
         "phase_s": phase_s,
     }

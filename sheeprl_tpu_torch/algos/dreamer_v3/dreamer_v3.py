@@ -58,7 +58,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import test
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.core.device import resolve_device
-from sheeprl_tpu_torch.core.graphs import CapturedStep
+from sheeprl_tpu_torch.core.graphs import CapturedStep, RingHolder, power_of_two_buckets
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
 from sheeprl_tpu_torch.data.infeed import ReplayInfeed
@@ -80,7 +80,7 @@ from sheeprl_tpu_torch.utils.distribution import (
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, resume_config, save_checkpoint
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator
-from sheeprl_tpu_torch.utils.ops import compute_lambda_values, init_moments, update_moments
+from sheeprl_tpu_torch.utils.ops import compute_lambda_values, init_moments, target_ema_, update_moments
 from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import Ratio, normalize_obs, prepare_obs, save_configs
 
@@ -106,19 +106,6 @@ def target_update_taus(cumulative: int, k: int, freq: int, tau: float) -> np.nda
         if c % freq == 0:
             taus[i] = 1.0 if c == 0 else tau
     return taus
-
-
-@torch.no_grad()
-def target_ema_(targets: List[torch.Tensor], sources: List[torch.Tensor], tau: torch.Tensor) -> None:
-    """``tp <- tau * p + (1 - tau) * tp`` in place, with ``tau`` a 0-d tensor
-    on the parameters' device, so that the step reads it from the device
-    and a captured step takes a new tau at every replay. A tau of 0 leaves
-    the target bit for bit and a tau of 1 copies the source bit for bit (the
-    blend alone would turn a -0.0 into +0.0)."""
-    mixed = torch._foreach_add(torch._foreach_mul(targets, 1 - tau), torch._foreach_mul(sources, tau))
-    keep, copy = tau == 0, tau == 1
-    for tp, p, m in zip(targets, sources, mixed):
-        tp.copy_(torch.where(keep, tp, torch.where(copy, p, m)))
 
 
 def _clip(module: torch.nn.Module, clip: Optional[float]) -> torch.Tensor:
@@ -354,10 +341,10 @@ def make_fused_train_step(
     tau = torch.zeros((), device=device)
     moments = init_moments(device)
     names: List[str] = []
-    captured_ring: Dict[str, Any] = {}
+    ring = RingHolder()
 
     def one_step() -> torch.Tensor:
-        data = sample_fn(captured_ring["state"], rng)
+        data = sample_fn(ring.state, rng)
         new_moments, metrics = step(moments, data, rng, tau)
         for k, v in new_moments.items():
             moments[k].copy_(v)
@@ -369,9 +356,7 @@ def make_fused_train_step(
     captured = CapturedStep(one_step, device, [generator] if generator is not None else [])
 
     def fused(moments_in: Dict[str, torch.Tensor], ring_state: Dict[str, Any], taus, on_step=None):
-        held = captured_ring.setdefault("state", ring_state)
-        if held is not ring_state and not _same_ring(held, ring_state):
-            raise ValueError("the fused train step samples the ring it was built with: pass that ring's state")
+        ring.hold(ring_state)
         for k, v in moments_in.items():
             if v is not moments[k]:
                 moments[k].copy_(v)
@@ -387,12 +372,6 @@ def make_fused_train_step(
     fused.captured = captured
     fused.names = names
     return fused
-
-
-def _same_ring(a: Dict[str, Any], b: Dict[str, Any]) -> bool:
-    return a["pos"] is b["pos"] and a["added"] is b["added"] and a["data"].keys() == b["data"].keys() and all(
-        a["data"][k] is b["data"][k] for k in a["data"]
-    )
 
 
 def _fused_callback(callback, agent, first: int, taus: np.ndarray, i: int, metrics: Metrics) -> None:
@@ -679,11 +658,8 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
                         ring_sample = ring.make_sample_fn(batch_size, sequence_length=seq_len, time_major=True)
                         fused = make_fused_train_step(agent, optimizers, cfg, lambda state, rng: ring_sample(state, rng.generator), train_rng)
                     with timer("Time/train_time"):
-                        remaining = per_rank_gradient_steps
-                        while remaining > 0:
-                            # Power-of-two buckets, as the JAX package's: one
-                            # metrics entry per bucket, its mean.
-                            k = 1 << (min(remaining, fused_train_steps).bit_length() - 1)
+                        # One metrics entry per bucket, its mean.
+                        for k in power_of_two_buckets(per_rank_gradient_steps, fused_train_steps):
                             taus = target_update_taus(gradient_steps, k, freq, cfg.algo.critic.tau)
                             on_step = None
                             if callback is not None:
@@ -691,7 +667,6 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
                             moments, metrics = fused(moments, ring.state, taus, on_step)
                             gradient_steps += k
                             fused_gradient_steps += k
-                            remaining -= k
                             if aggregator is not None:
                                 pending.append(metrics)
                         train_step_count += 1

@@ -35,7 +35,7 @@ from torch import nn
 
 from sheeprl_tpu_torch.core.device import DeviceLike, resolve_device
 from sheeprl_tpu_torch.core.precision import disable_tf32, resolve_precision
-from sheeprl_tpu_torch.models.models import MLP, MultiEncoder, NatureCNN
+from sheeprl_tpu_torch.models.models import MLP, MultiEncoder, NatureCNN, init_flax_
 from sheeprl_tpu_torch.serve.spaces import Box, Discrete, MultiDiscrete
 from sheeprl_tpu_torch.utils.distribution import Independent, Normal, OneHotCategorical
 from sheeprl_tpu_torch.utils.ops import safeatanh, safetanh
@@ -215,24 +215,6 @@ class PPOAgent(nn.Module):
         return torch.stack(real, -1)
 
 
-def _lecun_normal_(weight: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
-    """flax's default kernel init: a normal truncated at +-2 std, of variance 1 / fan_in."""
-    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=gen)
-
-
-@torch.no_grad()
-def init_agent_(agent: PPOAgent, seed: int) -> None:
-    """flax's defaults from a seed: LeCun-normal kernels (fan-in over the
-    receptive field for convolutions), zero biases, LayerNorms at ones and zeros."""
-    gen = torch.Generator().manual_seed(int(seed))
-    for module in agent.modules():
-        if isinstance(module, (nn.Linear, nn.Conv2d)):
-            _lecun_normal_(module.weight.data, int(np.prod(module.weight.shape[1:])), gen)
-            if module.bias is not None:
-                module.bias.data.zero_()
-
-
 def build_agent(
     actions_dim: Sequence[int],
     is_continuous: bool,
@@ -285,7 +267,7 @@ def build_agent(
     )  # fmt: skip
     agent = PPOAgent(features, actor, critic, actions_dim, is_continuous, distribution, cnn_keys)
     if agent_state is None:
-        init_agent_(agent, seed)
+        init_flax_(agent, seed)
     else:
         agent.load_state_dict(agent_state, strict=True)
     return agent.to(device)

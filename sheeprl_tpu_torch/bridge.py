@@ -1,10 +1,12 @@
-"""Carry DreamerV3 and PPO weights from the JAX package's param trees into the port.
+"""Carry DreamerV3, PPO, SAC and DroQ weights from the JAX package's param trees into the port.
 
 Input: the ``world_model``, ``actor`` and ``critic`` trees of the JAX
 DreamerV3 train state, or the JAX PPO agent's params, as nested dicts of
-numpy arrays (with or without the top ``params`` level). Output: state dicts
-for the port's ``WorldModel``, ``Actor`` and critic ``MLP``, or its
-``PPOAgent``.
+numpy arrays (with or without the top ``params`` level), the JAX PPO agent's
+params, or the JAX SAC or DroQ train state (``actor``, ``qfs``,
+``qfs_target``, ``log_alpha``). Output: state dicts for the port's
+``WorldModel``, ``Actor`` and critic ``MLP``, its ``PPOAgent``, or its
+``SACAgent``/``DROQAgent``.
 
 - A Dense ``[in, out]`` kernel becomes a Linear ``[out, in]`` weight.
 - A conv HWIO kernel becomes OIHW.
@@ -17,6 +19,10 @@ for the port's ``WorldModel``, ``Actor`` and critic ``MLP``, or its
   ``[h, x]`` order and the port's cell and kernel read that layout.
 - The CNN embedding stays flattened in HWC order: the port flattens NHWC,
   so the next Dense's rows need no permutation.
+- A critic ensemble under ``nn.vmap`` (SAC, DroQ) keeps its stacked
+  ``[n, in, out]`` kernels and ``[n, out]`` biases as they are: the port's
+  ``EnsembleLinear`` holds that layout. Its LayerNorms' ``[n, H]`` scale and
+  bias become ``norms.i.{weight, bias}``.
 - With ``heads=False`` (the player), the world-model subtrees that acting
   does not use (decoders, reward and continue heads) are skipped by name
   after a check that they are well formed; with ``heads=True`` (training)
@@ -261,3 +267,45 @@ def ppo_state_dict(tree: Mapping[str, Any]) -> StateDict:
     _mlp(rest.pop("critic"), "critic", "critic.", out)
     _done(rest, "ppo")
     return out
+
+
+def _ensemble(tree: Any, path: str, prefix: str, out: StateDict) -> None:
+    """A vmapped critic ensemble ``{qfs: {model: MLP}}`` with its leading
+    member axis kept."""
+    rest = _params(tree)
+    model = _take(_take(rest.pop("qfs"), f"{path}/qfs").pop("model"), f"{path}/qfs/model")
+    _done(rest, path)
+    for key in sorted(model):
+        name, _, idx = key.rpartition("_")
+        if (name == "dense" and idx.isdigit()) or key == "output":
+            layer = _take(model.pop(key), f"{path}/{key}")
+            kernel, bias = _tensor(layer.pop("kernel")), _tensor(layer.pop("bias"))
+            if kernel.dim() != 3 or bias.dim() != 2:
+                raise ValueError(f"{path}/{key}: expected [n, in, out] and [n, out], got {tuple(kernel.shape)} and {tuple(bias.shape)}")
+            _done(layer, f"{path}/{key}")
+            where = "output." if key == "output" else f"dense.{idx}."
+            out[f"{prefix}{where}weight"], out[f"{prefix}{where}bias"] = kernel, bias
+        elif name == "LayerNorm" and idx.isdigit():
+            _layer_norm(model.pop(key), f"{path}/{key}", f"{prefix}norms.{idx}.", out)
+    _done(model, f"{path}/qfs/model")
+
+
+def sac_state_dict(state: Mapping[str, Any]) -> StateDict:
+    """The port's ``SACAgent`` (or ``DROQAgent``) state dict from the JAX
+    SAC/DroQ train state: the actor's MLP trunk and heads, the critics and
+    their targets (with DroQ's LayerNorms), and ``log_alpha``."""
+    rest = _take(state, "<root>")
+    out: StateDict = {}
+    actor = _params(rest.pop("actor"))
+    _mlp(actor.pop("model"), "actor/model", "actor.model.", out)
+    for head in ("fc_mean", "fc_logstd"):
+        _dense(actor.pop(head), f"actor/{head}", f"actor.{head}.", out)
+    _done(actor, "actor")
+    for name in ("qfs", "qfs_target"):
+        _ensemble(rest.pop(name), name, f"{name}.model.", out)
+    out["log_alpha"] = _tensor(rest.pop("log_alpha")).reshape(1)
+    _done(rest, "sac")
+    return out
+
+
+droq_state_dict = sac_state_dict

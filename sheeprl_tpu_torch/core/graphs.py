@@ -21,6 +21,10 @@ eager step.
 On the CPU there is no graph: every call runs ``fn``, the plain version of
 the step, as the kernels have one.
 
+:class:`RingHolder` keeps a step on the replay ring it was captured with,
+and :func:`power_of_two_buckets` splits a train call's gradient steps into
+the buckets the fused paths run.
+
 The graph's nodes are counted from the graph itself (:func:`graph_nodes`,
 with libcuda's graph API): the Python launch counters of the LN-GRU wrappers
 count the warm-up and the capture, never a replay.
@@ -31,7 +35,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
-from typing import Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -110,6 +114,40 @@ class CapturedStep:
         torch.cuda.current_stream(self.device).wait_stream(stream)
         self.graph = graph
         self.nodes = graph_nodes(graph)
+
+
+class RingHolder:
+    """The replay ring state a captured step samples: the first state
+    passed is held, and another ring's raises, since a replayed graph reads
+    the first one's addresses (a state of the same tensors is the same
+    ring)."""
+
+    def __init__(self) -> None:
+        self.state: Optional[Dict[str, Any]] = None
+
+    def hold(self, ring_state: Dict[str, Any]) -> None:
+        if self.state is None:
+            self.state = ring_state
+        elif self.state is not ring_state and not _same_ring(self.state, ring_state):
+            raise ValueError("the fused train step samples the ring it was built with: pass that ring's state")
+
+
+def _same_ring(a: Dict[str, Any], b: Dict[str, Any]) -> bool:
+    return a["pos"] is b["pos"] and a["added"] is b["added"] and a["data"].keys() == b["data"].keys() and all(
+        a["data"][k] is b["data"][k] for k in a["data"]
+    )
+
+
+def power_of_two_buckets(steps: int, most: int) -> List[int]:
+    """``steps`` gradient steps split into power-of-two buckets of at most
+    ``most``, largest first: the JAX package's bounded set of fused shapes
+    (``algo.fused_train_steps``)."""
+    out, remaining = [], int(steps)
+    while remaining > 0:
+        k = 1 << (min(remaining, max(int(most), 1)).bit_length() - 1)
+        out.append(k)
+        remaining -= k
+    return out
 
 
 @functools.lru_cache(maxsize=None)

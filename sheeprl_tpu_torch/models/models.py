@@ -4,6 +4,10 @@
   policy's compute dtype), casting weights at use, as flax's
   ``dtype``/``param_dtype`` pair does.
 - :class:`LayerNorm` takes its statistics in f32 and returns the input dtype.
+- :class:`MLP` and :class:`EnsembleMLP` (SAC's and DroQ's critics) share
+  one loop of flax's Dense -> Dropout -> norm -> activation blocks; dropout
+  runs on keep-masks the caller gives, so that a test can pass the JAX
+  function's. :func:`init_flax_` initialises as flax's defaults do.
 - :class:`CNN` keeps the JAX package's NHWC layout at its interface. Inside,
   each convolution sees an NCHW view of channels-last memory, so no copy is
   made to change layout.
@@ -19,6 +23,7 @@
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -69,9 +74,46 @@ class LayerNorm(nn.Module):
         return F.layer_norm(x.float(), (self.dim,), self.weight, self.bias, self.eps).to(x.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, keep: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.Dropout`` with its keep-mask given: ``x / (1 - rate)`` where
+    ``keep`` is true, 0 elsewhere."""
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def lecun_normal_(weight: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """flax's default kernel init: a normal truncated at +-2 std, of variance 1 / fan_in."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=gen)
+
+
+@torch.no_grad()
+def init_flax_(module: nn.Module, seed: int) -> None:
+    """flax's defaults from a seed: LeCun-normal kernels (fan-in over the
+    receptive field for convolutions; each :class:`EnsembleLinear` member
+    drawn on its own, as ``nn.vmap`` splits the params rng), zero biases,
+    LayerNorms at ones and zeros."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            lecun_normal_(m.weight.data, math.prod(m.weight.shape[1:]), gen)
+        elif isinstance(m, EnsembleLinear):
+            for w in m.weight.data:
+                lecun_normal_(w, w.shape[0], gen)
+        else:
+            continue
+        if m.bias is not None:
+            m.bias.data.zero_()
+
+
 class MLP(nn.Module):
-    """``hidden_sizes`` blocks of Linear -> [LayerNorm] -> activation, then an
-    optional bare Linear head of ``output_dim``."""
+    """``hidden_sizes`` blocks of Linear -> [Dropout] -> [LayerNorm] ->
+    activation (the JAX block order), then an optional bare Linear head of
+    ``output_dim``.
+
+    Dropout (rate ``dropout``) is live when the call gives ``masks``, one
+    bool keep-mask per hidden layer: the training steps draw them (the
+    parity tests pass the JAX function's). Without them the blocks are
+    deterministic, as flax's ``deterministic=True``."""
 
     def __init__(
         self,
@@ -82,27 +124,109 @@ class MLP(nn.Module):
         norm_eps: Optional[float] = None,
         bias: bool = True,
         dtype: torch.dtype = torch.float32,
+        dropout: Optional[float] = None,
     ):
         super().__init__()
         if len(hidden_sizes) < 1 and output_dim is None:
             raise ValueError("The number of layers should be at least 1.")
         self.dtype = dtype
         self.act = get_activation(activation)
+        self.dropout = float(dropout or 0.0)
         sizes = [int(input_dim), *[int(s) for s in hidden_sizes]]
-        self.dense = nn.ModuleList(nn.Linear(i, o, bias=bias) for i, o in zip(sizes[:-1], sizes[1:]))
-        self.norms = nn.ModuleList(LayerNorm(o, norm_eps) for o in sizes[1:]) if norm_eps is not None else None
-        self.output = nn.Linear(sizes[-1], int(output_dim)) if output_dim is not None else None
+        self.dense = nn.ModuleList(self.make_linear(i, o, bias) for i, o in zip(sizes[:-1], sizes[1:]))
+        self.norms = nn.ModuleList(self.make_norm(o, norm_eps) for o in sizes[1:]) if norm_eps is not None else None
+        self.output = self.make_linear(sizes[-1], int(output_dim), True) if output_dim is not None else None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def make_linear(self, in_features: int, out_features: int, bias: bool) -> nn.Module:
+        return nn.Linear(in_features, out_features, bias=bias)
+
+    def make_norm(self, dim: int, eps: float) -> nn.Module:
+        return LayerNorm(dim, eps)
+
+    def apply_linear(self, layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, layer)
+
+    def forward(self, x: torch.Tensor, masks: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         x = x.to(self.dtype)
         for i, layer in enumerate(self.dense):
-            x = linear(x, layer)
+            x = self.apply_linear(layer, x)
+            if masks is not None:
+                x = dropout(x, self.dropout, masks[i])
             if self.norms is not None:
                 x = self.norms[i](x)
             x = self.act(x)
         if self.output is not None:
-            x = linear(x, self.output)
+            x = self.apply_linear(self.output, x)
         return x
+
+
+class EnsembleLinear(nn.Module):
+    """``n`` Linear layers run as one batched product: ``weight`` is
+    ``[n, in, out]`` (the layout of a flax Dense kernel under ``nn.vmap``
+    with ``variable_axes={"params": 0}``) and ``bias`` ``[n, out]``
+    (initialised by :func:`init_flax_`)."""
+
+    def __init__(self, n: int, in_features: int, out_features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(n, in_features, out_features))
+        self.bias = nn.Parameter(torch.zeros(n, out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` ``[B, in]`` (shared by every member) or ``[n, B, in]`` -> ``[n, B, out]``."""
+        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        if x.dim() == 2:
+            x = x.expand(w.shape[0], *x.shape)
+        return torch.baddbmm(b[:, None, :], x, w)
+
+
+class EnsembleLayerNorm(nn.Module):
+    """:class:`LayerNorm` with a scale and a bias per member, ``[n, dim]``."""
+
+    def __init__(self, n: int, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.dim, self.eps = int(dim), float(eps)
+        self.weight = nn.Parameter(torch.ones(n, self.dim))
+        self.bias = nn.Parameter(torch.zeros(n, self.dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), (self.dim,), eps=self.eps)
+        return (y * self.weight[:, None, :] + self.bias[:, None, :]).to(x.dtype)
+
+
+class EnsembleMLP(MLP):
+    """``n`` independent :class:`MLP`s of one shape, each layer one batched
+    product over the members (:class:`EnsembleLinear`, :class:`EnsembleLayerNorm`):
+    the counterpart of a flax MLP under ``nn.vmap`` with its params (and
+    dropout rngs) split per member. ``forward(x, masks)`` takes ``[B,
+    input_dim]`` and ``[n, B, hidden]`` keep-masks per hidden layer, and
+    returns ``[n, B, out]``."""
+
+    def __init__(
+        self,
+        n: int,
+        input_dim: int,
+        hidden_sizes: Sequence[int],
+        output_dim: Optional[int] = None,
+        activation: Optional[str] = "relu",
+        norm_eps: Optional[float] = None,
+        dropout: Optional[float] = None,
+        dtype: torch.dtype = torch.float32,
+    ):
+        self.n = int(n)  # read by make_linear/make_norm during MLP.__init__
+        super().__init__(input_dim, hidden_sizes, output_dim, activation, norm_eps, True, dtype, dropout)
+
+    def make_linear(self, in_features: int, out_features: int, bias: bool) -> nn.Module:
+        return EnsembleLinear(self.n, in_features, out_features)
+
+    def make_norm(self, dim: int, eps: float) -> nn.Module:
+        return EnsembleLayerNorm(self.n, dim, eps)
+
+    def apply_linear(self, layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
+        return layer(x)
+
+    def mask_shapes(self, batch: int) -> List[Tuple[int, int, int]]:
+        """The keep-masks' shapes for a batch of ``batch`` rows."""
+        return [(self.n, int(batch), layer.weight.shape[-1]) for layer in self.dense]
 
 
 def _per_layer(spec: Union[int, Sequence[int]], n: int, what: str) -> List[int]:

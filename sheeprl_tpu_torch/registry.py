@@ -4,7 +4,7 @@ Each algorithm module registers its ``main(cfg)`` entry point with
 :func:`register_algorithm`, and its evaluation function with
 :func:`register_evaluation`; the command line looks both up by
 ``algo.name``. :func:`register_all` imports the modules that register: the
-port has DreamerV3 and PPO.
+port has DreamerV3, PPO, SAC and DroQ.
 """
 
 from __future__ import annotations
@@ -21,6 +21,10 @@ _MODULES = (
     "sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
     "sheeprl_tpu_torch.algos.ppo.ppo",
     "sheeprl_tpu_torch.algos.ppo.evaluate",
+    "sheeprl_tpu_torch.algos.sac.sac",
+    "sheeprl_tpu_torch.algos.sac.evaluate",
+    "sheeprl_tpu_torch.algos.droq.droq",
+    "sheeprl_tpu_torch.algos.droq.evaluate",
 )
 
 

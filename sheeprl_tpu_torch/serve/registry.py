@@ -1,5 +1,5 @@
 """Registry mapping algorithm names to serving policy adapters (counterpart
-of sheeprl_tpu/serve/registry.py). The port serves DreamerV3 and PPO so far."""
+of sheeprl_tpu/serve/registry.py). The port serves DreamerV3, PPO and SAC so far."""
 
 from __future__ import annotations
 
@@ -7,7 +7,7 @@ import importlib
 from typing import Dict, List, Type, Union
 
 policy_registry: Dict[str, type] = {}
-_ADAPTER_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.serve", "sheeprl_tpu_torch.algos.ppo.serve")
+_ADAPTER_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.serve", "sheeprl_tpu_torch.algos.ppo.serve", "sheeprl_tpu_torch.algos.sac.serve")
 
 
 def register_policy(algorithms: Union[str, List[str]]):

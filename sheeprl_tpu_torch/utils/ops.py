@@ -7,7 +7,7 @@ the loops are short (the imagination horizon, PPO's rollout).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -133,3 +133,16 @@ def safeatanh(y: torch.Tensor, eps: float) -> torch.Tensor:
     """atanh of ``y`` clamped to [-(1 - eps), 1 - eps]."""
     lim = 1.0 - eps
     return torch.atanh(y.clamp(-lim, lim))
+
+
+@torch.no_grad()
+def target_ema_(targets: List[torch.Tensor], sources: List[torch.Tensor], tau: torch.Tensor) -> None:
+    """``tp <- tau * p + (1 - tau) * tp`` in place, with ``tau`` a 0-d tensor
+    on the parameters' device, so that the step reads it from the device
+    and a captured step takes a new tau at every replay. A tau of 0 leaves
+    the target bit for bit and a tau of 1 copies the source bit for bit (the
+    blend alone would turn a -0.0 into +0.0)."""
+    mixed = torch._foreach_add(torch._foreach_mul(targets, 1 - tau), torch._foreach_mul(sources, tau))
+    keep, copy = tau == 0, tau == 1
+    for tp, p, m in zip(targets, sources, mixed):
+        tp.copy_(torch.where(keep, tp, torch.where(copy, p, m)))

@@ -20,7 +20,11 @@ from sheeprl_tpu_torch.config.loader import default_config_dir
 
 TREE = default_config_dir()
 FILES = sorted(os.path.relpath(p, TREE) for p in glob.glob(os.path.join(TREE, "**", "*.yaml"), recursive=True))
-EXPS = ("ppo", "ppo_atari", "dreamer_v3_100k_ms_pacman", "dreamer_v3_dmc_walker_walk")
+EXPS = ("ppo", "ppo_atari", "dreamer_v3_100k_ms_pacman", "dreamer_v3_dmc_walker_walk", "sac", "droq")
+# The JAX package's own overrides for SAC and DroQ (tests/test_algos/test_fused_train.py),
+# and the width each exp's interpolation spreads.
+EXP_ARGS = {exp: ["env.id=continuous_dummy", "env.wrapper.id=continuous_dummy"] for exp in ("sac", "droq")}
+WIDTH = {"sac": "algo.hidden_size", "droq": "algo.hidden_size"}
 # Values the tests and the recipes give on the command line, and YAML's edge cases.
 VALUES = [
     "1e-4", "1.0e-6", "2.5e-4", "1e3", "-1e-3", "10_000_000", "0", "010", "0x1f", "0b101", "1:30", "-1", "+3", ".5", "1.",
@@ -83,19 +87,26 @@ def test_reader_raises_outside_its_subset_with_file_and_line(text, line, what):
 
 
 @pytest.mark.parametrize("exp", EXPS)
-@pytest.mark.parametrize("overrides", [[], ["algo.dense_units=24", "seed=7"]], ids=["default", "interpolated"])
-def test_exp_composes_to_the_jax_composition(exp, overrides):
+@pytest.mark.parametrize("interpolated", [False, True], ids=["default", "interpolated"])
+def test_exp_composes_to_the_jax_composition(exp, interpolated):
     """Key for key in both directions, up to the ``_target_`` map, the port's
-    own keys and the run name's time; ``algo.dense_units`` spreads to every
-    width that interpolates it, and ``seed`` to the run name."""
+    own keys and the run name's time; ``algo.dense_units`` (SAC's and DroQ's
+    ``algo.hidden_size``) spreads to every width that interpolates it, and
+    ``seed`` to the run name."""
     sheeprl_tpu.register_all()
-    args = [f"exp={exp}", "env=dummy", *overrides]
+    width = WIDTH.get(exp, "algo.dense_units")
+    overrides = [f"{width}=24", "seed=7"] if interpolated else []
+    args = [f"exp={exp}", "env=dummy", *EXP_ARGS.get(exp, []), *overrides]
     port, ref = compose(args), jax_compose("config", args).as_dict()
     check_against_jax(port, ref)
     assert port.device == "cuda" and port.env_group == "dummy" and port.buffer.memmap_mode == "r+"
     assert port.env.wrapper.action_dim == {"dreamer_v3_100k_ms_pacman": 9, "dreamer_v3_dmc_walker_walk": 6}.get(exp, 2)
-    if overrides:
-        assert port.run_name.endswith("_7") and port.algo.actor.dense_units == 24
+    if exp in ("sac", "droq"):
+        assert port.env.id == "continuous_dummy" and port.algo.name == exp and port.algo.critic.n == 2
+        assert port.algo.replay_ratio == (20.0 if exp == "droq" else 1.0) and port.algo.critic.get("dropout") == (0.01 if exp == "droq" else None)
+    if interpolated:
+        wide = (port.algo.actor.hidden_size, port.algo.critic.hidden_size) if exp in WIDTH else (port.algo.actor.dense_units,)
+        assert port.run_name.endswith("_7") and set(wide) == {24}
 
 
 def test_composition_rules(tmp_path, monkeypatch):

@@ -34,7 +34,9 @@ def test_import_every_module_without_jax_or_the_jax_package():
                 "utils.checkpoint", "data.memmap", "utils.metric", "utils.timer", "utils.logger", "registry", "eval",
                 "algos.dreamer_v3.evaluate", "data.device_buffer", "data.infeed", "core.graphs", "config.reader", "config.loader",
                 "config.instantiate", "algos.ppo.agent", "algos.ppo.loss", "algos.ppo.utils", "algos.ppo.ppo", "algos.ppo.evaluate",
-                "algos.ppo.serve", "core.rollout", "envs.wrappers", "models.models", "utils.ops"]
+                "algos.ppo.serve", "core.rollout", "envs.wrappers", "models.models", "utils.ops",
+                "algos.sac.agent", "algos.sac.loss", "algos.sac.utils", "algos.sac.sac", "algos.sac.evaluate", "algos.sac.serve",
+                "algos.droq.agent", "algos.droq.utils", "algos.droq.droq", "algos.droq.evaluate"]
     for name in ["serve.engine", "bridge", *training]:
         assert f"sheeprl_tpu_torch.{name}" in report["modules"], name
     assert not [m for m in report["loaded"] if m in FORBIDDEN]
@@ -61,6 +63,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         run(["exp=dreamer_v3_100k_ms_pacman", "env=dummy"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run(["exp=ppo_atari", "env=dummy"])
+    for exp in ("sac", "droq"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run([f"exp={exp}", "env=dummy", "env.id=continuous_dummy"])
 
 
 def test_evaluation_defaults_to_cuda_and_raises_without_it(tmp_path):

@@ -265,8 +265,8 @@ def test_config_rejects_what_the_port_does_not_have(tmp_path, monkeypatch):
         run(["exp=a2c_dummy", "env=dummy", "device=cpu"])
     with pytest.raises(ValueError, match="env=gym is not ported"):
         run(["exp=dreamer_v3", "device=cpu"])
-    with pytest.raises(ValueError, match="exp=sac is not in the port's config tree"):
-        compose(["exp=sac", "env=dummy"])
+    with pytest.raises(ValueError, match="exp=a2c is not in the port's config tree"):
+        compose(["exp=a2c", "env=dummy"])
     with pytest.raises(ValueError, match="no such key in the composed config"):
         compose(["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "algo.no_such_key=1"])
 
