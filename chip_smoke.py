@@ -176,11 +176,40 @@ Phases (any failure exits non-zero before the result line):
 20. The host path of both, 16 gradient steps in one train call, profiled:
    per gradient step host wall, device busy, idle share, device
    operations, peak memory, no LN-GRU launch.
+21. DreamerV2's LN-GRU shapes: ``ln_gru_forward`` (planned on the streaming
+   kernel: H = 600 is no multiple of 64), ``ln_gru_forward_streaming`` and
+   ``ln_gru_backward`` against their plain versions at B = 32, 1600 and 4,
+   D = 1000, H = 600, f32 and bf16, a non-zero dense bias; timed beside
+   the plain versions, the bounds and cuBLAS's product alone.
+22. DreamerV2, a fifth main path: ``python -m sheeprl_tpu_torch
+   exp=dreamer_v2_ms_pacman env=dummy`` in process at full width
+   (bf16-mixed, batch 32 x 50, horizon 15, recurrent state 600, the
+   episodic buffer memory-mapped with prioritize_ends at 2000000 rows), cut
+   (listed in the output) to 8 gradient steps and a checkpoint after the
+   4th; every gradient step launches 50 + 15 forwards (B = 32, 1600) and
+   50 + 15 backwards, the run none on the tensor cores (counts zeroed just
+   before, read at every step); the episodes' files; resumed bit for bit
+   (modules and Adam states); ``eval`` on its last checkpoint.
+23. The DV2 gradient step's profile (host wall, device busy and idle share,
+   operations, peak memory, the LN-GRU kernels' share of busy).
+24. One full-width DV2 gradient step (B = 4, T = 16) on the card against
+   the CPU with the card's draws replayed, in 32-true (losses, each leaf's
+   change, the LN-GRU dense bias's gradient) and in bf16-mixed (the dense
+   bias's gradient and its Adam update), with two planted faults the leaf
+   check must reject (tolerances in ``phase_dv2_reference``).
+25. DreamerV1: ``exp=dreamer_v1 env=dummy`` at the recipe's widths, 8
+   gradient steps, resumed bit for bit, ``eval``; no LN-GRU launch.
+
+Every profile reads its device busy time through ``_busy``, which leaves
+out the device ranges of ``record_function`` annotations (the trainers'
+spans and ``Optimizer.step``): they span kernels already counted.
 
 Prints one ``{"kernels": [...]}`` line (the streaming forward at B = 16,
 the tensor-core forward at B = 1024, the backward at B = 16 and at
-B = 1024; each with its nodes in the captured step's graph and its
-launches by the fused runs' replays), the card's name and power limit,
+B = 1024, each with its nodes in the captured step's graph and its
+launches by the fused runs' replays; then DreamerV2's streaming forward and
+backward at B = 32 and 1600, where the JAX package itself runs its plain
+path: its ``_eligible`` takes H % 128 == 0 only), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -515,6 +544,37 @@ def gru_bwd_bound(batch, hidden, dtype) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def check_backward(args, what) -> dict:
+    """One call of ``ln_gru_backward`` against ``ln_gru_backward_plain`` on
+    the same inputs (its launch counted): dz, dscale and dln_bias within
+    atol 1e-4 + rtol 1e-4 (f32 sums over 3H and over B in another order);
+    dh_tail within 1e-6 in f32 and one bf16 ulp (+1e-5) in bf16, the
+    rounding of its final cast. Returns each output's max |d|."""
+    import torch
+
+    from sheeprl_tpu_torch.models.ln_gru import ln_gru_backward, ln_gru_backward_plain
+
+    before = ln_gru_backward.launches
+    got = ln_gru_backward(*args)
+    torch.cuda.synchronize()
+    if ln_gru_backward.launches != before + 1:
+        fail("ln_gru_backward did not count its launch")
+    want = ln_gru_backward_plain(*args)
+    errs = {}
+    for name, x, y in zip(("dz", "dscale", "dln_bias"), got[:3], want[:3]):
+        if not torch.isfinite(x).all():
+            fail(f"{what}: non-finite {name}")
+        errs[name] = (x - y).abs().max().item()
+        if not bool(((x - y).abs() <= 1e-4 + 1e-4 * y.abs()).all()):
+            fail(f"{what}: {name} disagrees with the plain version: max |d| {errs[name]}")
+    dh_k, dh_p = got[3].float(), want[3].float()
+    errs["dh_tail"] = (dh_k - dh_p).abs().max().item()
+    allowed = 1e-6 if args[4].dtype == torch.float32 else bf16_ulp(torch.maximum(dh_k.abs(), dh_p.abs())) + 1e-5
+    if not bool(((dh_k - dh_p).abs() <= allowed).all()):
+        fail(f"{what}: dh_tail disagrees: max |d| {errs['dh_tail']}")
+    return errs
+
+
 def phase_backward():
     """ln_gru_backward against ln_gru_backward_plain on the card, at the
     training path's shapes: the dynamic scan's B = 16 and imagination's
@@ -536,24 +596,7 @@ def phase_backward():
             _, z = ln_gru_forward(inp, w, b, scale, ln_bias, h)
             g = gru_inputs(batch, 1, hidden, dtype, seed=4)[5]
             args = (g, z, scale, ln_bias, h)
-            before = ln_gru_backward.launches
-            got = ln_gru_backward(*args)
-            torch.cuda.synchronize()
-            if ln_gru_backward.launches != before + 1:
-                fail("ln_gru_backward did not count its launch")
-            want = ln_gru_backward_plain(*args)
-            errs = {}
-            for name, x, y in zip(("dz", "dscale", "dln_bias"), got[:3], want[:3]):
-                if not torch.isfinite(x).all():
-                    fail(f"ln_gru_backward non-finite {name} at B={batch} H={hidden} {dname}")
-                errs[name] = (x - y).abs().max().item()
-                if not bool(((x - y).abs() <= 1e-4 + 1e-4 * y.abs()).all()):
-                    fail(f"ln_gru_backward {name} disagrees with the plain version at B={batch} H={hidden} {dname}: max |d| {errs[name]}")
-            dh_k, dh_p = got[3].float(), want[3].float()
-            errs["dh_tail"] = (dh_k - dh_p).abs().max().item()
-            allowed = 1e-6 if dtype == torch.float32 else bf16_ulp(torch.maximum(dh_k.abs(), dh_p.abs())) + 1e-5
-            if not bool(((dh_k - dh_p).abs() <= allowed).all()):
-                fail(f"ln_gru_backward dh_tail disagrees at B={batch} H={hidden} {dname}: max |d| {errs['dh_tail']}")
+            errs = check_backward(args, f"ln_gru_backward B={batch} H={hidden} {dname}")
             kernel = timed(rotated(args, ln_gru_backward))
             kernel_ms = kernel["ms"]
             plain_ms = device_ms(rotated(args, ln_gru_backward_plain))[0]
@@ -751,16 +794,11 @@ def phase_step_profile(path, bucket: int = 4, steps: int = 20):
             _, state = adapter.apply(obs, seeds, state, greedy=False)
 
     prof = profiled(profiled_steps, ("cpu", "cuda"))
-    kernels_ms, launches = {}, 0
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:  # kernels and copies, not the host ops that launched them
-            total_us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
-            kernels_ms[evt.key[:60]] = kernels_ms.get(evt.key[:60], 0.0) + total_us / steps / 1e3
-            launches += evt.count
-    busy_ms = sum(kernels_ms.values())
+    kernels_ms = {}  # kernels and copies, not the host ops that launched them
+    busy_ms, ops_per_step, _ = _busy(prof.key_averages(), steps, by_kernel=kernels_ms)
     top = dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:6])
     result = {"bucket": bucket, "host_wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
-              "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms), "device_ops_per_step": launches / steps,
+              "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms), "device_ops_per_step": ops_per_step,
               "top_device_ms_per_step": top}  # fmt: skip
     log(f"step profile (bucket {bucket}, bf16-mixed): host wall {wall_ms:.3f} ms/step, device busy {busy_ms:.3f} ms/step, "
         f"idle share {result['device_idle_share']:.3f}, {result['device_ops_per_step']:.0f} device ops/step, top {json.dumps({k: round(v, 4) for k, v in top.items()})}")  # fmt: skip
@@ -1198,16 +1236,14 @@ def phase_train_profile(agent, cfg, steps: int = 3, bwd_per_step=None, what: str
             moments, _ = step(moments, data, rng, 0.02)
 
     prof = profiled(profiled_steps, ("cpu", "cuda"))
-    kernels_ms, ops, stages = {}, 0, {}
-    for evt in prof.key_averages():
+    kernels_ms, stages = {}, {}
+    averages = prof.key_averages()
+    busy_ms, ops_per_step, annotated_ms = _busy(averages, steps, skip=("dv3/",), by_kernel=kernels_ms)
+    for evt in averages:
         total_us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
         if evt.key.startswith("dv3/"):  # the train step's stage spans, host side and their device annotation
             side = "device_span_ms" if evt.device_type == torch.autograd.DeviceType.CUDA else "host_ms"
             stages.setdefault(evt.key, {})[side] = (total_us if side == "device_span_ms" else evt.cpu_time_total) / steps / 1e3
-        elif evt.device_type == torch.autograd.DeviceType.CUDA:
-            kernels_ms[evt.key[:60]] = kernels_ms.get(evt.key[:60], 0.0) + total_us / steps / 1e3
-            ops += evt.count
-    busy_ms = sum(kernels_ms.values())
     if busy_ms <= 0.0:
         fail("train profile: torch.profiler saw no device time")
     spans, bwd_kernels = {stage: [] for stage in BWD_STAGE.values()}, []
@@ -1227,7 +1263,8 @@ def phase_train_profile(agent, cfg, steps: int = 3, bwd_per_step=None, what: str
     top = dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8])
     gru_ms = {k: v for k, v in kernels_ms.items() if "ln_gru" in k}
     result = {"host_wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
-              "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms), "device_ops_per_step": ops / steps,
+              "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms), "device_ops_per_step": ops_per_step,
+              "annotation_ranges_ms_per_step": annotated_ms,
               "ln_gru_forward_per_step": fwd, "ln_gru_backward_per_step": bwd, "peak_memory_gib": peak_gib,
               "ln_gru_forward_per_step_by_kernel": {"streaming": stream, "tensor_core": tc},
               "ln_gru_forward_per_step_by_batch": fwd_by_batch, "ln_gru_backward_per_step_by_batch": bwd_by_batch,
@@ -1549,7 +1586,7 @@ def phase_export_serve(ckpt, workdir):
     return result
 
 
-def phase_eval(ckpt, test_reward):
+def phase_eval(ckpt, test_reward, what="eval"):
     """``python -m sheeprl_tpu_torch.eval checkpoint_path=<ckpt>`` in a
     process of its own, on the card by default: it logs
     ``Test/cumulative_reward`` under ``<run>/<version>/evaluation/version_0``,
@@ -1563,12 +1600,12 @@ def phase_eval(ckpt, test_reward):
                           capture_output=True, text=True, timeout=600)  # fmt: skip
     wall_s = time.perf_counter() - t0
     if proc.returncode != 0:
-        fail(f"eval: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        fail(f"{what}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
     eval_dir = os.path.join(os.path.dirname(os.path.dirname(ckpt)), "evaluation", "version_0")
     logged = read_scalars(eval_dir)
     if logged != {"Test/cumulative_reward": [(0, np.float32(test_reward))]}:
-        fail(f"eval: logged {logged} under {eval_dir}, the trainer's test episode returned {test_reward}")
-    log(f"eval: python -m sheeprl_tpu_torch.eval on {os.path.basename(ckpt)} logged Test/cumulative_reward "
+        fail(f"{what}: logged {logged} under {eval_dir}, the trainer's test episode returned {test_reward}")
+    log(f"{what}: python -m sheeprl_tpu_torch.eval on {os.path.basename(ckpt)} logged Test/cumulative_reward "
         f"{logged['Test/cumulative_reward'][0][1]} = the trainer's test reward, in {wall_s:.1f} s")  # fmt: skip
     return {"checkpoint": ckpt, "wall_s": wall_s, "test_reward": logged["Test/cumulative_reward"][0][1]}
 
@@ -1894,12 +1931,7 @@ def phase_ppo_profile(agent, cfg, what):
         return step(data, next_obs, minibatch_indices(T * E, mb, epochs, gen), clip, ent)
 
     def busy(prof, n):
-        total, ops = 0.0, 0
-        for evt in prof.key_averages():
-            if evt.device_type == torch.autograd.DeviceType.CUDA and not evt.key.startswith("ppo/"):
-                total += getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
-                ops += evt.count
-        return total / n / 1e3, ops / n
+        return _busy(prof.key_averages(), n, skip=("ppo/",))[:2]
 
     update()
     torch.cuda.synchronize()
@@ -2264,12 +2296,7 @@ def phase_graph_vs_eager(kind):
         profiled_wall.append((time.perf_counter() - t) * 1e3 / REPLAYS_PROFILED)
 
     prof = profiled(replays, ("cpu", "cuda"))
-    busy_ms, ops = 0.0, 0
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            busy_ms += (getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)) / 1e3
-            ops += evt.count
-    busy_ms /= REPLAYS_PROFILED
+    busy_ms, ops, _ = _busy(prof.key_averages(), REPLAYS_PROFILED, skip=("dv3/",))
     eager_moments = {k: v.clone() for k, v in m.items()}
     tau.fill_(0.02)
     step(eager_moments, sample(ring.state, rng.generator), rng, tau)
@@ -2286,7 +2313,7 @@ def phase_graph_vs_eager(kind):
         "ln_gru_tickets_after_replays": left,
         "graph_kernel_nodes": nodes["by_type"].get("kernel", 0), "eager_device_ops_per_step": STEP_OPS[kind],
         "replays_profiled": REPLAYS_PROFILED, "fused_host_wall_ms_per_step": wall_ms, "fused_event_span_ms_per_step": span_ms,
-        "fused_device_busy_ms_per_step": busy_ms, "fused_device_ops_per_step": ops / REPLAYS_PROFILED,
+        "fused_device_busy_ms_per_step": busy_ms, "fused_device_ops_per_step": ops,
         "fused_host_wall_ms_per_step_profiled": profiled_wall[-1], "fused_device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "fused_device_idle_share_under_the_profiler": max(0.0, 1.0 - busy_ms / profiled_wall[-1]),
         "fused_gradient_steps_per_s": 1e3 / wall_ms,
@@ -2302,7 +2329,7 @@ def phase_graph_vs_eager(kind):
     log(f"{what}: the graph holds {nodes['nodes']} nodes ({json.dumps(nodes['by_type'])}), LN-GRU kernel nodes {json.dumps(nodes['ln_gru'])}; "
         f"the eager step runs {STEP_OPS[kind]} device operations")  # fmt: skip
     log(f"{what}: {REPLAYS_PROFILED} back-to-back replays: host wall {wall_ms:.2f} ms/step (events {span_ms:.2f}), device busy "
-        f"{busy_ms:.2f} ms/step, {ops / REPLAYS_PROFILED:.0f} device ops/step, idle share {out['fused_device_idle_share']:.3f} (under the "
+        f"{busy_ms:.2f} ms/step, {ops:.0f} device ops/step, idle share {out['fused_device_idle_share']:.3f} (under the "
         f"profiler {profiled_wall[-1]:.2f} ms/step, {out['fused_device_idle_share_under_the_profiler']:.3f}), "
         f"{out['fused_gradient_steps_per_s']:.2f} gradient steps/s; eager from the same state {eager_wall_ms:.2f} ms/step "
         f"({out['eager_gradient_steps_per_s']:.2f} steps/s)")  # fmt: skip
@@ -2966,15 +2993,19 @@ def phase_sac_reference():
             "planted_faults": faults, "tolerance": {"param_change": SAC_PARAM_CHANGE_TOL, "adam_moment": SAC_MOMENT_TOL, "loss_rtol": 1e-4}}  # fmt: skip
 
 
-def _busy(prof, n, skip=()):
-    """(device ms, operations, annotation ms) per ``n`` of a profile's CUDA
-    events. The device ranges of ``record_function`` annotations (the
-    trainer's spans, ``Optimizer.step#Adam.step``) span kernels counted
-    already: they are left out of the first two and summed in the third."""
+def _busy(averages, n, skip=(), by_kernel=None):
+    """(device ms, operations, annotation ms) per ``n`` of the CUDA events
+    of a profile's ``key_averages()`` (taken once by the caller: it is slow
+    over a training step's tens of thousands of events). The device ranges of ``record_function`` annotations (the
+    trainer's spans, named by ``skip``, and ``Optimizer.step#Adam.step``)
+    span kernels counted already: they are left out of the first two and
+    summed in the third. ``by_kernel``, a dict, receives each kernel's (the
+    first 60 characters of its name) device ms per ``n``. Every profile of
+    this script reads its busy time here."""
     import torch
 
     total, ops, annotated = 0.0, 0, 0.0
-    for evt in prof.key_averages():
+    for evt in averages:
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         ms = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
@@ -2983,6 +3014,8 @@ def _busy(prof, n, skip=()):
         else:
             total += ms
             ops += evt.count
+            if by_kernel is not None:
+                by_kernel[evt.key[:60]] = by_kernel.get(evt.key[:60], 0.0) + ms / n / 1e3
     return total / n / 1e3, ops / n, annotated / n / 1e3
 
 
@@ -3003,7 +3036,7 @@ def _timed_per_step(fn, steps, reps=3):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / steps)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    busy, ops, annotated = _busy(profiled(fn, ("cpu", "cuda")), steps, skip=("sac/", "droq/"))
+    busy, ops, annotated = _busy(profiled(fn, ("cpu", "cuda")).key_averages(), steps, skip=("sac/", "droq/"))
     if busy <= 0.0:
         fail("torch.profiler saw no device time")
     wall = statistics.median(walls)
@@ -3184,6 +3217,447 @@ def phase_offpolicy_graph(kind):
     return out
 
 
+# DreamerV2 (exp=dreamer_v2_ms_pacman: 64x64 rgb, 9 actions, bf16-mixed,
+# batch 32 x 50, horizon 15, recurrent state 600, dense 400, CNN multiplier
+# 48, an episodic replay with prioritize_ends, memory-mapped at the recipe's
+# 2000000 rows) and DreamerV1 (exp=dreamer_v1). The LN-GRU runs at H = 600
+# (D = 600 + 400) with a learned dense bias: H is no multiple of 64, so
+# every forward runs on the streaming kernel (tensor_core_fits refuses it).
+DV2_DEPTH, DV2_HIDDEN = 1000, 600
+DV2_BATCH, DV2_SEQ, DV2_HORIZON, DV2_ENVS = 32, 50, 15, 4
+DV2_IMAGINED = DV2_BATCH * DV2_SEQ  # 1600
+DV2_FWD_BY_BATCH = {DV2_BATCH: DV2_SEQ, DV2_IMAGINED: DV2_HORIZON}
+DV2_BWD_BY_BATCH = {DV2_BATCH: DV2_SEQ, DV2_IMAGINED: DV2_HORIZON}  # the actor's loss differentiates the imagination
+DV2_SHAPES = ((DV2_BATCH, "dynamic scan"), (DV2_IMAGINED, "imagination"), (DV2_ENVS, "player"))
+# The dummy env's episodes cut to 63 steps (the recipe's windows are 50
+# rows; an episode of the discrete dummy env has 5 by default); 64 policy
+# iterations of 4 envs fill the buffer with four whole episodes before the
+# first gradient step, the recipe's replay ratio then takes one gradient
+# step every 16 policy steps: 8 in 128 more, a checkpoint after the 4th.
+DV2_CUTS = {"algo.learning_starts": "256 (from 200000)", "algo.total_steps": "384 (from 200000000; 8 gradient steps)",
+            "checkpoint.every": "320 (from 200000)", "metric.log_every": "128 (from 5000)",
+            "+env.wrapper.n_steps": "62 (the dummy env's episodes: 63 steps, 64 rows with the reset row)"}  # fmt: skip
+DV2_ARGS = ["exp=dreamer_v2_ms_pacman", "env=dummy", "algo.learning_starts=256", "algo.total_steps=384", "checkpoint.every=320",
+            "metric.log_every=128", "+env.wrapper.n_steps=62"]  # fmt: skip
+DV2_STEPS, DV2_RESUMED_FROM = 8, 4
+DV2_EPISODE_ROWS = 64
+DV1_CUTS = {"algo.learning_starts": "200 (from 5000)", "algo.total_steps": "288 (from 5000000; 8 gradient steps)",
+            "checkpoint.every": "240 (from 100000)", "metric.log_every": "96 (from 5000)"}  # fmt: skip
+DV1_ARGS = ["exp=dreamer_v1", "env=dummy", "algo.learning_starts=200", "algo.total_steps=288", "checkpoint.every=240", "metric.log_every=96"]
+DV1_STEPS, DV1_RESUMED_FROM = 8, 4
+# The card's 32-true DV2 step against the CPU's (phase_dv2_reference), per
+# parameter leaf's change from the start; the LN-GRU dense bias's gradient
+# on its own. Planted faults must exceed the leaf limit.
+DV2_PARAM_CHANGE_TOL = 1e-3
+DV2_BIAS_GRAD_TOL = 1e-4
+DV2_BF16_BIAS_GRAD_TOL = 0.1
+DV2_BF16_BIAS_CHANGE_TOL = 0.5
+DV2_FAULTS = ("lr x 2", "the LN-GRU bias's gradient zeroed")
+
+
+def phase_dv2_kernels():
+    """(1) The three LN-GRU entry points at DreamerV2's shapes: B = 32 (the
+    dynamic scan), B = 1600 (the imagination) and B = 4 (the player), D =
+    1000, H = 600, f32 and bf16, a non-zero dense bias. ``ln_gru_forward``
+    (its plan must pick the streaming kernel: H = 600 fails
+    ``tensor_core_fits``) and ``ln_gru_forward_streaming`` against
+    ``ln_gru_plain`` (tolerances of ``check_forward``), ``ln_gru_backward``
+    against ``ln_gru_backward_plain`` (those of ``phase_backward``); each
+    timed beside its plain version, its bound, and for the forward cuBLAS's
+    product alone; one launch per call."""
+    import torch
+
+    from sheeprl_tpu_torch.models.ln_gru import (
+        _aligned,
+        _sm_count,
+        forward_plan,
+        ln_gru_backward,
+        ln_gru_backward_plain,
+        ln_gru_forward,
+        ln_gru_forward_streaming,
+        ln_gru_plain,
+        streaming_plan,
+        tensor_core_fits,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if tensor_core_fits(DV2_DEPTH, DV2_HIDDEN):
+        fail("dv2 kernels: tensor_core_fits takes H = 600, DreamerV2's forwards would not all stream")
+    rows = []
+    for batch, where in DV2_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            args = gru_inputs(batch, DV2_DEPTH, DV2_HIDDEN, dtype, seed=5)
+            if float(args[2].abs().min()) <= 0:
+                fail("dv2 kernels: the dense bias has a zero entry")
+            what = f"dv2 ln_gru B={batch} D={DV2_DEPTH} H={DV2_HIDDEN} {dname}"
+            plan = forward_plan(batch, DV2_DEPTH, DV2_HIDDEN, dtype, _sm_count(0), _aligned(args[0], args[1], args[5]))
+            if plan.kernel != "streaming":
+                fail(f"{what}: forward_plan picks {plan.kernel}")
+            errs = check_forward(ln_gru_forward, args, what)
+            errs_streaming = check_forward(ln_gru_forward_streaming, args, f"{what} (streaming entry point)")
+            fwd = timed(rotated(args, ln_gru_forward))
+            fwd_streaming = timed(rotated(args, ln_gru_forward_streaming))
+            plain_ms = device_ms(rotated(args, ln_gru_plain))[0]
+            product_ms = device_ms(rotated(args[:2], torch.matmul))[0]
+            check_one_launch(what, kernel_split_ms(rotated(args, ln_gru_forward)))
+            bound_ms, bound_by = gru_bound(batch, DV2_DEPTH, DV2_HIDDEN, dname)
+            _, z = ln_gru_forward(*args)
+            g = gru_inputs(batch, 1, DV2_HIDDEN, dtype, seed=6)[5]
+            bargs = (g, z, args[3], args[4], args[5])
+            berrs = check_backward(bargs, f"{what} ln_gru_backward")
+            bwd = timed(rotated(bargs, ln_gru_backward))
+            bwd_plain_ms = device_ms(rotated(bargs, ln_gru_backward_plain))[0]
+            check_one_launch(f"{what} backward", kernel_split_ms(rotated(bargs, ln_gru_backward)))
+            bwd_bound_ms, bwd_bound_by = gru_bwd_bound(batch, DV2_HIDDEN, dname)
+            sp = streaming_plan(batch, DV2_DEPTH, DV2_HIDDEN, args[0].element_size(), _sm_count(0), _aligned(args[1]))
+            row = {"shape": f"B={batch} D={DV2_DEPTH} H={DV2_HIDDEN}", "batch": batch, "where": where, "dtype": dname,
+                   "kernel": plan.kernel, "plan": {"grid": sp.grid, "cluster": sp.cluster, "vec": sp.vec, "ksplit": sp.ksplit},
+                   "forward": {**errs, **fwd, "plain_ms": plain_ms, "product_library_ms": product_ms, "bound_ms": bound_ms, "bound_by": bound_by},
+                   "forward_streaming": {**errs_streaming, **fwd_streaming},
+                   "backward": {"max_abs_err": berrs, **bwd, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by}}  # fmt: skip
+            rows.append(row)
+            log(f"{what} ({where}): streaming plan grid {sp.grid} cluster {sp.cluster} vec {sp.vec}; forward {fwd['ms'] * 1e3:.2f} us "
+                f"[{fwd['ms_min'] * 1e3:.2f}, {fwd['ms_max'] * 1e3:.2f}] (streaming entry point {fwd_streaming['ms'] * 1e3:.2f} us), plain "
+                f"{plain_ms * 1e3:.2f} us, product alone {product_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}), max|dh| "
+                f"{errs['max_abs_err_h']:.3g}; backward {bwd['ms'] * 1e3:.2f} us, plain {bwd_plain_ms * 1e3:.2f} us, bound "
+                f"{bwd_bound_ms * 1e3:.2f} us ({bwd_bound_by}), max|d| {json.dumps({k: float(f'{v:.3g}') for k, v in berrs.items()})}")  # fmt: skip
+            del args, bargs, z
+            torch.cuda.empty_cache()
+    return rows
+
+
+def dreamer_through_cli(args, what, fwd_by_batch, bwd_by_batch, keep_params=False):
+    """One DreamerV2 or DreamerV1 run through the CLI, in process, on the
+    card. At every gradient step: finite metrics, and the LN-GRU launches
+    since the step before, by batch, for the train step's batches (the
+    player's at B = num_envs fall between iterations): ``fwd_by_batch`` and
+    ``bwd_by_batch`` (empty for DreamerV1, which launches none). Returns
+    (out, steps, wall_s, counts); each step is (gradient step, time,
+    metrics, the modules' parameters if ``keep_params``)."""
+    import torch
+
+    from sheeprl_tpu_torch.cli import run
+
+    steps, last = [], [None]
+    batches = set(fwd_by_batch) | set(bwd_by_batch)
+
+    def on_step(agent, step, metrics):
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+        if bad:
+            fail(f"{what}: non-finite metrics at gradient step {step}: {bad}")
+        now = read_counts()
+        fwd = {b: now["forward_by_batch"].get(b, 0) - last[0]["forward_by_batch"].get(b, 0) for b in batches}
+        bwd = {b: now["backward_by_batch"].get(b, 0) - last[0]["backward_by_batch"].get(b, 0) for b in batches}
+        if {b: n for b, n in fwd.items() if n} != fwd_by_batch or {b: n for b, n in bwd.items() if n} != bwd_by_batch:
+            fail(f"{what}: gradient step {step} launched forward {fwd} and backward {bwd} by batch, expected {fwd_by_batch} and {bwd_by_batch}")
+        last[0] = now
+        params = {n: _params(getattr(agent, n)) for n in ("world_model", "actor", "critic")} if keep_params else None
+        steps.append((step, time.perf_counter(), {k: v.item() for k, v in metrics.items()}, params))
+
+    torch.cuda.synchronize()
+    zero_counts()
+    last[0] = read_counts()
+    t0 = time.perf_counter()
+    out = run(args, callback=on_step)
+    torch.cuda.synchronize()
+    return out, steps, time.perf_counter() - t0, read_counts()
+
+
+def _same_state(a, b):
+    """The names of the tensors of two state dicts that differ (bit for bit)."""
+    return [k for k in a if not torch_equal_bits(a[k], b[k])]
+
+
+def check_episode_files(out, what):
+    """The episodic buffer's memory-mapped files: a directory per saved
+    episode, each file sized to its episode (not to buffer.size), and the
+    disk blocks they use."""
+    root = os.path.join(out["log_dir"], "memmap_buffer", "rank_0")
+    episodes = sorted(d for d in os.listdir(root) if d.startswith("episode_"))
+    files = {}
+    for d in episodes:
+        for name in sorted(os.listdir(os.path.join(root, d))):
+            st = os.stat(os.path.join(root, d, name))
+            files[f"{d}/{name}"] = {"bytes": st.st_size, "disk_bytes": st.st_blocks * 512}
+    rb = out["buffer"]
+    saved = len(rb.buffer)
+    rgb = [f["bytes"] for k, f in files.items() if k.endswith("/rgb.memmap")]
+    if len(episodes) != saved or len(files) != 6 * saved or any(n != DV2_EPISODE_ROWS * 64 * 64 * 3 for n in rgb):
+        fail(f"{what}: {len(episodes)} episode dirs and {len(files)} files for {saved} saved episodes; rgb bytes {rgb}")
+    apparent, used = sum(f["bytes"] for f in files.values()), sum(f["disk_bytes"] for f in files.values())
+    log(f"{what}: episodic replay of {rb.buffer_size} rows (buffer.size / num_envs): {saved} episodes of {DV2_EPISODE_ROWS} rows saved, "
+        f"{len(files)} files, {apparent / 1e6:.3f} MB apparent, {used / 1e6:.3f} MB of disk blocks used, on {filesystem_of(root)}")  # fmt: skip
+    return {"episodes": saved, "capacity_rows": rb.buffer_size, "apparent_bytes": apparent, "disk_bytes_used": used, "files": len(files)}
+
+
+def phase_dv2_training(log_root):
+    """(2) ``exp=dreamer_v2_ms_pacman env=dummy`` through the CLI at full
+    width, cut (``DV2_CUTS``) to 8 gradient steps, each launching 50 + 15
+    forwards (B = 32 and 1600, all on the streaming kernel) and 50 + 15
+    backwards; no launch of the tensor-core kernel in the whole run. The
+    episodic buffer's files, the logged tags, the modules moved. Then the
+    resume from the checkpoint after the 4th gradient step, ending on the
+    uninterrupted run's modules and Adam states bit for bit, and ``eval``
+    on the last checkpoint."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.config import compose
+
+    cfg = compose(DV2_ARGS)
+    log(f"dv2 training: exp=dreamer_v2_ms_pacman env=dummy (rgb 64x64x3, 9 actions), full width (H {cfg.algo.world_model.recurrent_model.recurrent_state_size}, "
+        f"dense {cfg.algo.dense_units}, CNN x{cfg.algo.world_model.encoder.cnn_channels_multiplier}), {cfg.fabric.precision}, batch "
+        f"{cfg.algo.per_rank_batch_size} x {cfg.algo.per_rank_sequence_length}, horizon {cfg.algo.horizon}, buffer {cfg.buffer.type} "
+        f"(prioritize_ends {cfg.buffer.prioritize_ends}, memmap {cfg.buffer.memmap}, size {cfg.buffer.size}); cut: {json.dumps(DV2_CUTS)}")  # fmt: skip
+    args = [*DV2_ARGS, f"log_root={log_root}"]
+    out, steps, wall_s, counts = dreamer_through_cli(args, "dv2 training", DV2_FWD_BY_BATCH, DV2_BWD_BY_BATCH)
+    if out["gradient_steps"] != DV2_STEPS or len(steps) != DV2_STEPS:
+        fail(f"dv2 training: {out['gradient_steps']} gradient steps, expected {DV2_STEPS}")
+    if counts["tensor_core"] != 0:
+        fail(f"dv2 training: the tensor-core kernel ran {counts['tensor_core']} times")
+    if not counts["forward_by_batch"].get(DV2_ENVS):
+        fail(f"dv2 training: the player launched no forward at B = {DV2_ENVS} ({counts['forward_by_batch']})")
+    last = out["log"][-1]
+    if not all(np.isfinite(v) for v in last.values()) or "Loss/world_model_loss" not in last:
+        fail(f"dv2 training: logged {last}")
+    tags = {tag for row in out["log"] for tag in row}
+    for tag in ("Loss/world_model_loss", "Loss/value_loss", "Loss/policy_loss", "State/kl", "Params/replay_ratio", "Time/sps_train",
+                "Time/sps_env_interaction", "Rewards/rew_avg"):  # fmt: skip
+        if tag not in tags:
+            fail(f"dv2 training: {tag} was never logged ({sorted(tags)})")
+    files = check_episode_files(out, "dv2 training")
+    ckpt = next((c for c in out["checkpoints"] if c.endswith("ckpt_320_0.ckpt")), None)
+    if ckpt is None:
+        fail(f"dv2 training: no checkpoint at policy step 320 ({out['checkpoints']})")
+    t0 = time.perf_counter()
+    again, again_steps, _, again_counts = dreamer_through_cli([*args, f"checkpoint.resume_from={ckpt}"], "dv2 resume", DV2_FWD_BY_BATCH,
+                                                              DV2_BWD_BY_BATCH)  # fmt: skip
+    resume_s = time.perf_counter() - t0
+    if [s[0] for s in again_steps] != list(range(DV2_RESUMED_FROM + 1, DV2_STEPS + 1)):
+        fail(f"dv2 resume: gradient steps {[s[0] for s in again_steps]}")
+    differ = _same_state(out["agent"].state_dict(), again["agent"].state_dict())
+    for name, opt in out["optimizers"].items():
+        other = again["optimizers"][name]
+        for i, (p, q) in enumerate(zip(opt.param_groups[0]["params"], other.param_groups[0]["params"])):
+            differ += [f"{name} Adam {k} {i}" for k in opt.state[p] if not torch_equal_bits(opt.state[p][k], other.state[q][k])]
+    if differ:
+        fail(f"dv2 resume: {len(differ)} tensors differ from the uninterrupted run, e.g. {differ[:4]}")
+    evaluation = phase_eval(out["checkpoints"][-1], out["test_reward"], "dv2 eval")
+    step_wall = [b[1] - a[1] for a, b in zip(steps, steps[1:])]
+    result = {"cuts": DV2_CUTS, "gradient_steps": out["gradient_steps"], "policy_steps": out["policy_steps"], "wall_s": wall_s,
+              "ln_gru_launches": counts, "resume_ln_gru_launches": again_counts, "resume_s": resume_s,
+              "trainer_wall_ms_between_gradient_steps": statistics.median(step_wall) * 1e3, "metrics_last_step": steps[-1][2],
+              "logged_sps_train": read_tag(out, "Time/sps_train"), "test_reward": out["test_reward"], "episodic_buffer": files,
+              "evaluation": evaluation}  # fmt: skip
+    log(f"dv2 training: {DV2_STEPS} gradient steps in {out['policy_steps']} policy steps, {wall_s:.1f} s; LN-GRU forward by batch "
+        f"{counts['forward_by_batch']} (tensor core {counts['tensor_core']}), backward by batch {counts['backward_by_batch']}; median "
+        f"{result['trainer_wall_ms_between_gradient_steps']:.1f} ms between gradient steps; logged Time/sps_train {result['logged_sps_train']}; "
+        f"resumed from gradient step {DV2_RESUMED_FROM} bit for bit in {resume_s:.1f} s; eval = the test episode's {out['test_reward']}")  # fmt: skip
+    log(f"dv2 training: last step {json.dumps({k: float(f'{v:.5g}') for k, v in steps[-1][2].items()})}")
+    return result, out["agent"], cfg
+
+
+def phase_dv2_reference():
+    """(3) One DV2 gradient step at full width (B = 4, T = 16, horizon 15)
+    on the card (its kernels) against the CPU (the plain versions), from the
+    same seeded weights and batch, the card's categorical draws recorded and
+    replayed on the CPU. 32-true: losses and metrics within rtol 2e-3 + atol
+    1e-4; each parameter leaf's change, ``||d_card - d_cpu|| / ||d_cpu||``,
+    within ``DV2_PARAM_CHANGE_TOL``; the LN-GRU dense bias's pre-clip
+    gradient within ``DV2_BIAS_GRAD_TOL`` of its norm. The card's step from
+    weights one f32 ulp away is reported, and each of ``DV2_FAULTS`` planted
+    on the card must fail the leaf check. bf16-mixed: the dense bias's
+    gradient within ``DV2_BF16_BIAS_GRAD_TOL`` and its Adam update within
+    ``DV2_BF16_BIAS_CHANGE_TOL`` of the CPU's bf16 step."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
+    from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+
+    space = DictSpace({"rgb": Box((64, 64, 3), "uint8", 0.0, 255.0)})
+    draws = {}
+    bias = "recurrent_model.rnn.bias"
+
+    def step(where, precision, fault=None):
+        cfg = compose(["exp=dreamer_v2_ms_pacman", "env=dummy", f"fabric.precision={precision}"])
+        agent = build_agent((9,), False, cfg, space, precision=precision, device=where, seed=3)
+        if fault == "nudge":
+            with torch.no_grad():
+                for p in agent.parameters():
+                    p.mul_(1 + 2.0**-23)
+        start = {k: v.detach().cpu().clone() for k, v in agent.state_dict().items()}
+        optimizers = dv2.make_optimizers(agent, cfg)
+        if fault == "lr x 2":
+            for opt in optimizers.values():
+                for group in opt.param_groups:
+                    group["lr"] = 2 * group["lr"]
+        elif fault == DV2_FAULTS[1]:
+            agent.world_model.recurrent_model.rnn.bias.register_hook(torch.zeros_like)
+        grads = {}
+
+        def capture(module, max_norm):
+            if module is agent.world_model:
+                grads.update({k: p.grad.detach().float().cpu().clone() for k, p in module.named_parameters() if p.grad is not None})
+            return clip(module, max_norm)
+
+        key = precision
+        rng = RecordedDraws(BatchGenerator.from_seed(0, torch.device(where))) if key not in draws else ReplayedDraws(draws[key])
+        clip = dv2._clip
+        with patched(dv2, "_clip", capture):
+            metrics = dv2.make_train_step(agent, optimizers, cfg)(_train_batch(16, 4, 11, torch.device(where)), rng)
+        if key not in draws:
+            draws[key] = rng.draws
+        elif rng.used != len(draws[key]):
+            fail(f"dv2 reference: the replaying step drew {rng.used} times, the recording one {len(draws[key])}")
+        end = {k: v.detach().cpu() for k, v in agent.state_dict().items()}
+        return {k: float(v) for k, v in metrics.items()}, start, end, grads
+
+    def worst(gaps):
+        k = max(gaps, key=gaps.get)
+        return {"leaf": k, "gap": gaps[k]}
+
+    def leaf_gaps(got, want, got_start, want_start):
+        out = {}
+        for k in want:
+            if k.startswith("target_critic."):
+                continue
+            g, w = (got[k] - got_start[k]).double(), (want[k] - want_start[k]).double()
+            out[k] = ((g - w).norm() / w.norm()).item() if w.norm() > 0 else float(g.norm() > 0)
+        return out
+
+    def rel(a, b):
+        return ((a.double() - b.double()).norm() / b.double().norm()).item()
+
+    gpu_m, gpu_start, gpu_p, gpu_g = step("cuda", "32-true")
+    cpu_m, cpu_start, cpu_p, cpu_g = step("cpu", "32-true")
+    if any(not torch.equal(gpu_start[k], cpu_start[k]) for k in cpu_start):
+        fail("dv2 reference: the card's agent does not start from the CPU's weights")
+    for k, ref in cpu_m.items():
+        if not (math.isfinite(gpu_m[k]) and abs(gpu_m[k] - ref) <= 1e-4 + 2e-3 * abs(ref)):
+            fail(f"dv2 reference: {k} on the card {gpu_m[k]} vs the CPU {ref}")
+    if float(cpu_g[bias].norm()) == 0:
+        fail("dv2 reference: the LN-GRU dense bias got no gradient")
+    bias_gap = rel(gpu_g[bias], cpu_g[bias])
+    if bias_gap > DV2_BIAS_GRAD_TOL:
+        fail(f"dv2 reference: the LN-GRU dense bias's gradient differs by {bias_gap} of its norm (> {DV2_BIAS_GRAD_TOL})")
+    param = worst(leaf_gaps(gpu_p, cpu_p, gpu_start, cpu_start))
+    if param["gap"] > DV2_PARAM_CHANGE_TOL:
+        fail(f"dv2 reference: {param['leaf']}'s change differs by {param['gap']} of its norm (> {DV2_PARAM_CHANGE_TOL})")
+    _, nudge_start, nudge_p, _ = step("cuda", "32-true", "nudge")
+    floor = worst(leaf_gaps(nudge_p, gpu_p, nudge_start, gpu_start))
+    faults = {}
+    for fault in DV2_FAULTS:
+        _, f_start, f_p, _ = step("cuda", "32-true", fault)
+        faults[fault] = worst(leaf_gaps(f_p, cpu_p, f_start, cpu_start))
+        if faults[fault]["gap"] <= DV2_PARAM_CHANGE_TOL:
+            fail(f"dv2 reference: the step with {fault} passes the leaf check ({faults[fault]})")
+    bf_gpu_m, bf_gpu_start, bf_gpu_p, bf_gpu_g = step("cuda", "bf16-mixed")
+    bf_cpu_m, bf_cpu_start, bf_cpu_p, bf_cpu_g = step("cpu", "bf16-mixed")
+    bf16 = {"bias_grad_gap": rel(bf_gpu_g[bias], bf_cpu_g[bias]),
+            "bias_change_gap": leaf_gaps(bf_gpu_p, bf_cpu_p, bf_gpu_start, bf_cpu_start)[f"world_model.{bias}"],
+            "world_model_loss": [bf_gpu_m["Loss/world_model_loss"], bf_cpu_m["Loss/world_model_loss"]]}  # fmt: skip
+    if bf16["bias_grad_gap"] > DV2_BF16_BIAS_GRAD_TOL or bf16["bias_change_gap"] > DV2_BF16_BIAS_CHANGE_TOL:
+        fail(f"dv2 reference: bf16-mixed, the LN-GRU dense bias {bf16} (limits {DV2_BF16_BIAS_GRAD_TOL}, {DV2_BF16_BIAS_CHANGE_TOL})")
+    log(f"dv2 reference: one full-width DV2 gradient step (B=4 T=16), card (kernels) vs CPU (plain), {len(draws['32-true'])} replayed "
+        f"draws; 32-true: max loss rel |d| {max(abs(gpu_m[k] - cpu_m[k]) / max(abs(cpu_m[k]), 1e-12) for k in cpu_m):.3g}, LN-GRU bias "
+        f"gradient {bias_gap:.3g} of its norm (limit {DV2_BIAS_GRAD_TOL}), worst leaf's change {param['gap']:.3g} ({param['leaf']}, limit "
+        f"{DV2_PARAM_CHANGE_TOL}); the card from weights one ulp away {json.dumps(floor)}; planted faults {json.dumps(faults)}; "
+        f"bf16-mixed {json.dumps(bf16)}")  # fmt: skip
+    return {"losses_card": gpu_m, "losses_cpu": cpu_m, "bias_grad_gap": bias_gap, "worst_param_change": param, "one_ulp_nudge": floor,
+            "planted_faults": faults, "bf16": bf16,
+            "tolerance": {"loss_rtol": 2e-3, "loss_atol": 1e-4, "param_change": DV2_PARAM_CHANGE_TOL, "bias_grad": DV2_BIAS_GRAD_TOL,
+                          "bf16_bias_grad": DV2_BF16_BIAS_GRAD_TOL, "bf16_bias_change": DV2_BF16_BIAS_CHANGE_TOL}}  # fmt: skip
+
+
+def phase_dv2_profile(agent, cfg, steps: int = 3, profiled_steps: int = 1):
+    """(4) Where one DV2 gradient step's time goes (bf16-mixed, B = 32,
+    T = 50, horizon 15, on the trained agent): host wall per step over
+    ``steps`` (ending in a synchronize), device busy and idle share over
+    ``profiled_steps`` more (``_busy``: annotation ranges left out), device
+    operations, LN-GRU launches by kernel and batch, the LN-GRU kernels'
+    device time and share of busy, the stages' spans, and peak memory."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import make_optimizers, make_train_step
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+
+    dev = torch.device("cuda")
+    step = make_train_step(agent, make_optimizers(agent, cfg), cfg)
+    data = _train_batch(DV2_SEQ, DV2_BATCH, 7, dev)
+    rng = BatchGenerator.from_seed(0, dev)
+    step(data, rng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        step(data, rng)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = profiled(lambda: [step(data, rng) for _ in range(profiled_steps)], ("cpu", "cuda"))
+    kernels_ms, averages = {}, prof.key_averages()
+    busy, ops, annotated = _busy(averages, profiled_steps, skip=("dv2/",), by_kernel=kernels_ms)
+    if busy <= 0.0:
+        fail("dv2 profile: torch.profiler saw no device time")
+    stages = {}
+    for evt in averages:
+        if evt.key.startswith("dv2/"):
+            us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
+            side = "device_span_ms" if evt.device_type == torch.autograd.DeviceType.CUDA else "host_ms"
+            stages.setdefault(evt.key, {})[side] = (us if side == "device_span_ms" else evt.cpu_time_total) / profiled_steps / 1e3
+    gru = {k: v for k, v in kernels_ms.items() if "ln_gru" in k}
+    fwd_by_batch = {b: n / steps for b, n in counts["forward_by_batch"].items()}
+    bwd_by_batch = {b: n / steps for b, n in counts["backward_by_batch"].items()}
+    if fwd_by_batch != DV2_FWD_BY_BATCH or bwd_by_batch != DV2_BWD_BY_BATCH or counts["tensor_core"] != 0:
+        fail(f"dv2 profile: launches per step forward {fwd_by_batch} backward {bwd_by_batch} tensor core {counts['tensor_core']}")
+    top = dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8])
+    result = {"host_wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy, "idle_share": max(0.0, 1.0 - busy / wall_ms),
+              "device_ops_per_step": ops, "annotation_ranges_ms_per_step": annotated, "peak_gib": peak,
+              "ln_gru_device_ms_per_step": gru, "ln_gru_share_of_busy": sum(gru.values()) / busy,
+              "ln_gru_forward_per_step_by_batch": fwd_by_batch, "ln_gru_backward_per_step_by_batch": bwd_by_batch,
+              "stages_per_step": stages, "top_device_ms_per_step": top}  # fmt: skip
+    log(f"dv2 profile (bf16-mixed, B=32 T=50 H=15, H_rnn=600): host wall {wall_ms:.2f} ms/step, device busy {busy:.2f} ms/step, idle share "
+        f"{result['idle_share']:.3f}, {ops:.0f} device ops/step, peak {peak:.2f} GiB; LN-GRU {sum(gru.values()):.3f} ms/step "
+        f"({100 * result['ln_gru_share_of_busy']:.1f}% of busy) {json.dumps({k: round(v, 4) for k, v in gru.items()})}")  # fmt: skip
+    log(f"dv2 profile: stages {json.dumps({k: {s: round(v, 3) for s, v in d.items()} for k, d in stages.items()})}; top {json.dumps({k: round(v, 3) for k, v in top.items()})}")
+    return result
+
+
+def phase_dv1_training(log_root):
+    """(5) ``exp=dreamer_v1 env=dummy`` through the CLI at the recipe's
+    widths (the ``state`` vector; recurrent state 200, dense 400, batch 50 x
+    50), cut (``DV1_CUTS``) to 8 gradient steps; no LN-GRU launch at all
+    (DreamerV1's GRU is plain torch); resumed from the checkpoint after the
+    4th gradient step, bit for bit; ``eval``."""
+    out, steps, wall_s, counts = dreamer_through_cli([*DV1_ARGS, f"log_root={log_root}"], "dv1 training", {}, {})
+    if out["gradient_steps"] != DV1_STEPS:
+        fail(f"dv1 training: {out['gradient_steps']} gradient steps, expected {DV1_STEPS}")
+    if counts["forward"] or counts["backward"]:
+        fail(f"dv1 training: LN-GRU launches {counts}")
+    ckpt = next((c for c in out["checkpoints"] if c.endswith("ckpt_240_0.ckpt")), None)
+    if ckpt is None:
+        fail(f"dv1 training: no checkpoint at policy step 240 ({out['checkpoints']})")
+    again, again_steps, _, again_counts = dreamer_through_cli([*DV1_ARGS, f"log_root={log_root}", f"checkpoint.resume_from={ckpt}"],
+                                                              "dv1 resume", {}, {})  # fmt: skip
+    if [s[0] for s in again_steps] != list(range(DV1_RESUMED_FROM + 1, DV1_STEPS + 1)):
+        fail(f"dv1 resume: gradient steps {[s[0] for s in again_steps]}")
+    differ = _same_state(out["agent"].state_dict(), again["agent"].state_dict())
+    if differ or again_counts["forward"] or again_counts["backward"]:
+        fail(f"dv1 resume: {len(differ)} tensors differ, e.g. {differ[:4]}; LN-GRU launches {again_counts}")
+    evaluation = phase_eval(out["checkpoints"][-1], out["test_reward"], "dv1 eval")
+    log(f"dv1 training: exp=dreamer_v1 env=dummy, cut {json.dumps(DV1_CUTS)}: {DV1_STEPS} gradient steps in {out['policy_steps']} policy "
+        f"steps, {wall_s:.1f} s, LN-GRU launches {counts['forward']} + {counts['backward']}; resumed bit for bit; eval = the test episode's "
+        f"{out['test_reward']}; last step {json.dumps({k: float(f'{v:.5g}') for k, v in steps[-1][2].items()})}")  # fmt: skip
+    return {"cuts": DV1_CUTS, "gradient_steps": out["gradient_steps"], "wall_s": wall_s, "ln_gru_launches": counts,
+            "metrics_last_step": steps[-1][2], "evaluation": evaluation}  # fmt: skip
+
+
 def main() -> None:
     import warnings
 
@@ -3257,6 +3731,16 @@ def main() -> None:
         offpolicy_host = {kind: phase_offpolicy_host_profile(kind) for kind in ("sac", "droq")}
         sac_phases_s = time.perf_counter() - sac_t0
         log(f"sac, droq: phases 16-20 took {sac_phases_s:.1f} s")
+        dv2_t0 = time.perf_counter()
+        dv2_kernels = phase_dv2_kernels()
+        dv2_training, dv2_agent, dv2_cfg = phase_dv2_training(workdir)
+        dv2_profile = phase_dv2_profile(dv2_agent, dv2_cfg)
+        del dv2_agent
+        torch.cuda.empty_cache()
+        dv2_reference = phase_dv2_reference()
+        dv1_training = phase_dv1_training(workdir)
+        dv2_phases_s = time.perf_counter() - dv2_t0
+        log(f"dreamer_v2, dreamer_v1: phases 21-25 took {dv2_phases_s:.1f} s")
         replay_sample = phase_replay_sample()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -3292,6 +3776,27 @@ def main() -> None:
                 "launches_fused_replays": {k: f["fused"]["graph"]["ln_gru"][kernel] * f["fused"]["replays"]
                                            for k, f in (("discrete", fused_training), ("continuous", fused_continuous))}}  # fmt: skip
 
+    def dv2_row(batch, kind):
+        """A DreamerV2 kernel's entry: bf16 (the recipe's precision) at one of its batches."""
+        row = next(r for r in dv2_kernels if r["batch"] == batch and r["dtype"] == "bfloat16")
+        part = row[kind]
+        counts = dv2_training["ln_gru_launches"]["forward_by_batch" if kind == "forward" else "backward_by_batch"]
+        err = max(part["max_abs_err_h"], part["max_abs_err_z"]) if kind == "forward" else max(part["max_abs_err"].values())
+        per_step = (DV2_FWD_BY_BATCH if kind == "forward" else DV2_BWD_BY_BATCH)[batch]
+        name, source, replaces = (("ln_gru_forward", "sheeprl_tpu_torch/csrc/ln_gru.cu", "sheeprl_tpu/models/pallas_gru.py:118") if kind == "forward"
+                                  else ("ln_gru_backward", "sheeprl_tpu_torch/csrc/ln_gru_bwd.cu", "sheeprl_tpu/models/pallas_gru.py:172"))
+        out = entry(name, source, replaces, f"{row['shape']} bfloat16, streaming kernel (DreamerV2 {row['where']}; {per_step} launches per "
+                    f"gradient step)" if kind == "forward" else f"B={batch} H={DV2_HIDDEN} bfloat16 (DreamerV2 {row['where']}; {per_step} "
+                    f"launches per gradient step)", counts.get(batch, 0), part, err)  # fmt: skip
+        # The TPU reference at H = 600 is not its kernel: the JAX _eligible takes H % 128 == 0 only.
+        out |= {"tpu_reference_at_this_shape": "plain path: _eligible, sheeprl_tpu/models/pallas_gru.py:143-151, refuses H % 128 != 0"}
+        if kind == "forward":
+            out |= {"product_library_ms": part["product_library_ms"]}
+        return out
+
+    dv2_entries = [dv2_row(DV2_BATCH, "forward"), dv2_row(DV2_IMAGINED, "forward"), dv2_row(DV2_BATCH, "backward"),
+                   dv2_row(DV2_IMAGINED, "backward")]  # fmt: skip
+    dv2_entries[0]["launches_player"] = dv2_training["ln_gru_launches"]["forward_by_batch"].get(DV2_ENVS, 0)
     kernels_line = {
         "kernels": [
             entry("ln_gru_forward", "sheeprl_tpu_torch/csrc/ln_gru.cu", "sheeprl_tpu/models/pallas_gru.py:118",
@@ -3314,6 +3819,7 @@ def main() -> None:
                   f"gradient; {WALKER_BWD_PER_STEP[1024]} launches per gradient step)",
                   cont_counts["backward_by_batch"].get(IMAGINED_BATCH, 0), bwd_big_row, max(bwd_big_row["max_abs_err"].values()))
             | {"in_step_ms": bwd1024_in_step_ms},
+            *dv2_entries,
         ]
     }  # fmt: skip
     report = {
@@ -3356,6 +3862,12 @@ def main() -> None:
         "offpolicy_ring_profile": offpolicy_graph,
         "offpolicy_host_profile": offpolicy_host,
         "sac_phases_s": sac_phases_s,
+        "dv2_kernels": dv2_kernels,
+        "dv2_training": dv2_training,
+        "dv2_profile": dv2_profile,
+        "dv2_reference": dv2_reference,
+        "dv1_training": dv1_training,
+        "dv2_phases_s": dv2_phases_s,
         "kernels": kernels_line["kernels"],
         "phase_s": phase_s,
     }

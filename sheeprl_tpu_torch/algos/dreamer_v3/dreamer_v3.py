@@ -81,7 +81,7 @@ from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, resume_config, s
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator
 from sheeprl_tpu_torch.utils.ops import compute_lambda_values, init_moments, target_ema_, update_moments
-from sheeprl_tpu_torch.utils.timer import timer
+from sheeprl_tpu_torch.utils.timer import timer, train_timer
 from sheeprl_tpu_torch.utils.utils import Ratio, normalize_obs, prepare_obs, save_configs
 
 Metrics = Dict[str, torch.Tensor]
@@ -657,7 +657,7 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
                     if fused is None:
                         ring_sample = ring.make_sample_fn(batch_size, sequence_length=seq_len, time_major=True)
                         fused = make_fused_train_step(agent, optimizers, cfg, lambda state, rng: ring_sample(state, rng.generator), train_rng)
-                    with timer("Time/train_time"):
+                    with train_timer(device):
                         # One metrics entry per bucket, its mean.
                         for k in power_of_two_buckets(per_rank_gradient_steps, fused_train_steps):
                             taus = target_update_taus(gradient_steps, k, freq, cfg.algo.critic.tau)
@@ -673,7 +673,7 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
                 else:
                     batches = infeed.take_or_sample(per_rank_gradient_steps)
                     taus = target_update_taus(gradient_steps, per_rank_gradient_steps, freq, cfg.algo.critic.tau)
-                    with timer("Time/train_time"):
+                    with train_timer(device):
                         for i in range(per_rank_gradient_steps):
                             moments, metrics = train_step(moments, batches[i], train_rng, float(taus[i]))
                             gradient_steps += 1

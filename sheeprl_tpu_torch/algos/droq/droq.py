@@ -33,12 +33,13 @@ import torch
 from torch.profiler import record_function
 
 from sheeprl_tpu_torch.algos.droq.agent import DROQAgent, build_agent
-from sheeprl_tpu_torch.algos.sac.sac import Metrics, _adam_step, _float_batch, actor_alpha_step, run_off_policy, train_timer
+from sheeprl_tpu_torch.algos.sac.sac import Metrics, _adam_step, _float_batch, actor_alpha_step, run_off_policy
 from sheeprl_tpu_torch.core.graphs import CapturedStep, RingHolder, power_of_two_buckets
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+from sheeprl_tpu_torch.utils.timer import train_timer
 
 Draws = Dict[str, Any]
 Optimizers = Dict[str, torch.optim.Optimizer]

@@ -38,7 +38,6 @@ The gradient step runs under a ``torch.profiler.record_function`` span
 
 from __future__ import annotations
 
-import contextlib
 import os
 import warnings
 from typing import Any, Callable, Dict, List, Optional
@@ -62,7 +61,7 @@ from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, resume_config, s
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator
-from sheeprl_tpu_torch.utils.timer import timer
+from sheeprl_tpu_torch.utils.timer import timer, train_timer
 from sheeprl_tpu_torch.utils.utils import Ratio, save_configs
 
 Metrics = Dict[str, torch.Tensor]
@@ -184,18 +183,6 @@ def make_fused_train_step(
 
     fused.captured, fused.tau = captured, tau
     return fused
-
-
-@contextlib.contextmanager
-def train_timer(device: torch.device):
-    """``timer("Time/train_time")`` around a train call that ends when the
-    call's work has run on the card, as the JAX StepTimer blocks on the
-    step's result: ``Time/sps_train`` counts train calls done, not queued.
-    With the timers off nothing waits."""
-    with timer("Time/train_time"):
-        yield
-        if not timer.disabled and device.type == "cuda":
-            torch.cuda.synchronize(device)
 
 
 def _float_batch(sample: Dict[str, np.ndarray], groups: int, batch_size: int, device: torch.device) -> Dict[str, torch.Tensor]:

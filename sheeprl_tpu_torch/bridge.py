@@ -1,12 +1,15 @@
-"""Carry DreamerV3, PPO, SAC and DroQ weights from the JAX package's param trees into the port.
+"""Carry DreamerV3, PPO, SAC, DroQ, DreamerV2 and DreamerV1 weights from the JAX package's param trees into the port.
 
 Input: the ``world_model``, ``actor`` and ``critic`` trees of the JAX
 DreamerV3 train state, or the JAX PPO agent's params, as nested dicts of
 numpy arrays (with or without the top ``params`` level), the JAX PPO agent's
-params, or the JAX SAC or DroQ train state (``actor``, ``qfs``,
-``qfs_target``, ``log_alpha``). Output: state dicts for the port's
-``WorldModel``, ``Actor`` and critic ``MLP``, its ``PPOAgent``, or its
-``SACAgent``/``DROQAgent``.
+params, the JAX SAC or DroQ train state (``actor``, ``qfs``,
+``qfs_target``, ``log_alpha``), or the JAX DreamerV2 or DreamerV1 train
+state (``world_model``, ``actor``, ``critic`` and DreamerV2's
+``target_critic``). Output: state dicts for the port's ``WorldModel``,
+``Actor`` and critic ``MLP``, its ``PPOAgent``, its
+``SACAgent``/``DROQAgent``, or one per module of its ``DV2Agent`` or
+``DV1Agent``.
 
 - A Dense ``[in, out]`` kernel becomes a Linear ``[out, in]`` weight.
 - A conv HWIO kernel becomes OIHW.
@@ -17,6 +20,10 @@ params, or the JAX SAC or DroQ train state (``actor``, ``qfs``,
 - ``LayerNorm_i/LayerNorm_0/{scale, bias}`` becomes ``norms.i.{weight, bias}``.
 - The GRU's ``linear/kernel`` [D, 3H] is kept as it is: its rows are in
   ``[h, x]`` order and the port's cell and kernel read that layout.
+  DreamerV1's flax ``GRUCell`` (``ir``, ``iz``, ``in``, ``hr``, ``hz``,
+  ``hn``) becomes the port's ``FlaxGRUCell``: the three input kernels and
+  biases stacked as one Linear (gates r, z, n), the three recurrent kernels
+  as another, and ``hn``'s bias as ``hidden_bias``.
 - The CNN embedding stays flattened in HWC order: the port flattens NHWC,
   so the next Dense's rows need no permutation.
 - A critic ensemble under ``nn.vmap`` (SAC, DroQ) keeps its stacked
@@ -140,7 +147,8 @@ def _gru(tree: Any, path: str, prefix: str, out: StateDict) -> None:
     if "bias" in linear:
         out[f"{prefix}bias"] = _tensor(linear.pop("bias"))
     _done(linear, f"{path}/linear")
-    _layer_norm(rest.pop("norm"), f"{path}/norm", f"{prefix}norm.", out)
+    if "norm" in rest:
+        _layer_norm(rest.pop("norm"), f"{path}/norm", f"{prefix}norm.", out)
     _done(rest, path)
 
 
@@ -182,7 +190,8 @@ def _heads(rest: Dict[str, Any], out: StateDict) -> None:
                 _dense(dec.pop(key), f"mlp_decoder/{key}", f"mlp_decoder.heads.{idx}.", out)
         _done(dec, "mlp_decoder")
     _mlp(rest.pop("reward_model"), "reward_model", "reward_model.", out)
-    _mlp(rest.pop("continue_model"), "continue_model", "continue_model.", out)
+    if "continue_model" in rest:  # DreamerV2 and DreamerV1 have one only with use_continues
+        _mlp(rest.pop("continue_model"), "continue_model", "continue_model.", out)
 
 
 def decnn_state_dict(tree: Mapping[str, Any]) -> StateDict:
@@ -203,6 +212,15 @@ def world_model_state_dict(tree: Mapping[str, Any], heads: bool = False) -> Stat
     for key in _UNUSED_WORLD_MODEL_KEYS:
         if key in rest:
             _check_well_formed(rest.pop(key), key)
+    _rssm(rest, out, _gru)
+    out["initial_recurrent_state"] = _tensor(rest.pop("initial_recurrent_state"))
+    _done(rest, "world_model")
+    return out
+
+
+def _rssm(rest: Dict[str, Any], out: StateDict, rnn) -> None:
+    """The encoders, the recurrent model (its cell converted by ``rnn``), and
+    the representation and transition models."""
     if "cnn_encoder" in rest:
         enc = _take(rest.pop("cnn_encoder"), "cnn_encoder")
         _stack(enc.pop("model"), "cnn_encoder/model", "cnn_encoder.model.", out, "conv", "convs", _conv)
@@ -213,13 +231,54 @@ def world_model_state_dict(tree: Mapping[str, Any], heads: bool = False) -> Stat
         _done(enc, "mlp_encoder")
     rec = _take(rest.pop("recurrent_model"), "recurrent_model")
     _mlp(rec.pop("mlp"), "recurrent_model/mlp", "recurrent_model.mlp.", out)
-    _gru(rec.pop("rnn"), "recurrent_model/rnn", "recurrent_model.rnn.", out)
+    rnn(rec.pop("rnn"), "recurrent_model/rnn", "recurrent_model.rnn.", out)
     _done(rec, "recurrent_model")
     _mlp(rest.pop("representation_model"), "representation_model", "representation_model.", out)
     _mlp(rest.pop("transition_model"), "transition_model", "transition_model.", out)
-    out["initial_recurrent_state"] = _tensor(rest.pop("initial_recurrent_state"))
-    _done(rest, "world_model")
+
+
+def _flax_gru(tree: Any, path: str, prefix: str, out: StateDict) -> None:
+    """flax ``nn.GRUCell`` -> the port's ``FlaxGRUCell``."""
+    rest = _take(tree, path)
+    gates = {}
+    for name in ("ir", "iz", "in", "hr", "hz", "hn"):
+        gates[name] = _take(rest.pop(name), f"{path}/{name}")
+    out[f"{prefix}input.weight"] = torch.cat([_tensor(gates[g].pop("kernel")) for g in ("ir", "iz", "in")], 1).t().contiguous()
+    out[f"{prefix}input.bias"] = torch.cat([_tensor(gates[g].pop("bias")) for g in ("ir", "iz", "in")])
+    out[f"{prefix}hidden.weight"] = torch.cat([_tensor(gates[g].pop("kernel")) for g in ("hr", "hz", "hn")], 1).t().contiguous()
+    out[f"{prefix}hidden_bias"] = _tensor(gates["hn"].pop("bias"))
+    for name, gate in gates.items():
+        _done(gate, f"{path}/{name}")
+    _done(rest, path)
+
+
+def _dreamer_state_dict(state: Mapping[str, Any], rnn) -> Dict[str, StateDict]:
+    rest = _take(state, "<root>")
+    out: Dict[str, StateDict] = {}
+    wm = _params(rest.pop("world_model"))
+    out["world_model"] = {}
+    _heads(wm, out["world_model"])
+    _rssm(wm, out["world_model"], rnn)
+    _done(wm, "world_model")
+    out["actor"] = actor_state_dict(rest.pop("actor"))
+    for name in ("critic", "target_critic"):
+        if name in rest:
+            out[name] = mlp_state_dict(rest.pop(name))
+    _done(rest, "<root>")
     return out
+
+
+def dreamer_v2_state_dict(state: Mapping[str, Any]) -> Dict[str, StateDict]:
+    """The port's ``DV2Agent`` modules' state dicts from the JAX DreamerV2
+    train state (``world_model``, ``actor``, and ``critic`` and
+    ``target_critic`` where given): {module name: state dict}."""
+    return _dreamer_state_dict(state, _gru)
+
+
+def dreamer_v1_state_dict(state: Mapping[str, Any]) -> Dict[str, StateDict]:
+    """The port's ``DV1Agent`` modules' state dicts from the JAX DreamerV1
+    train state (``world_model``, ``actor``, and ``critic`` where given)."""
+    return _dreamer_state_dict(state, _flax_gru)
 
 
 def actor_state_dict(tree: Mapping[str, Any]) -> StateDict:

@@ -1,6 +1,6 @@
 """Command lines of the port::
 
-    python -m sheeprl_tpu_torch exp=<ppo | ppo_atari | sac | droq | dreamer_v3_100k_ms_pacman | ...> env=dummy [key=value ...] [device=cpu]
+    python -m sheeprl_tpu_torch exp=<ppo | ppo_atari | sac | droq | dreamer_v3_100k_ms_pacman | dreamer_v2_ms_pacman | ...> env=dummy [key=value ...] [device=cpu]
     python -m sheeprl_tpu_torch.eval checkpoint_path=<run>/version_N/checkpoint/ckpt_<step>_0.ckpt [key=value ...] [device=cpu]
 
 Both run on ``cuda`` unless ``device=cpu`` is given, and raise without a
@@ -8,7 +8,8 @@ card. The config is composed from the port's tree
 (:mod:`sheeprl_tpu_torch.config`, ``sheeprl_tpu_torch/configs/``): any exp
 there composes (``ppo``, ``ppo_atari``, ``sac``, ``droq``,
 ``dreamer_v3_100k_ms_pacman``, ``dreamer_v3_dmc_walker_walk``,
-``dreamer_v3``; SAC and DroQ want ``env.id=continuous_dummy``), an unknown key raises, and
+``dreamer_v3``, ``dreamer_v2_ms_pacman``, ``dreamer_v2``, ``dreamer_v1``;
+SAC and DroQ want ``env.id=continuous_dummy``), an unknown key raises, and
 the trainer then raises on an algorithm the port does not train and on an env
 group other than ``env=dummy``. Keys are those of the composed config, e.g.
 ``algo.learning_starts=128 algo.total_steps=136 buffer.size=4096``.

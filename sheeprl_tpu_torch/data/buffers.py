@@ -1,6 +1,6 @@
 """Host-side replay buffers, in memory or memory-mapped (counterpart of the
-``ReplayBuffer``, ``SequentialReplayBuffer`` and ``EnvIndependentReplayBuffer``
-of sheeprl_tpu/data/buffers.py).
+``ReplayBuffer``, ``SequentialReplayBuffer``, ``EnvIndependentReplayBuffer``
+and ``EpisodeBuffer`` of sheeprl_tpu/data/buffers.py).
 
 Shapes are ``[time, n_envs, ...]`` throughout and samples are numpy arrays;
 the trainer moves each sampled batch to its device. Sampling draws from a
@@ -28,6 +28,8 @@ without ownership and raises if one is missing or resized.
 from __future__ import annotations
 
 import os
+import shutil
+import uuid
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Type
 
@@ -419,3 +421,250 @@ class EnvIndependentReplayBuffer:
             if bs > 0
         ]
         return {k: np.concatenate([p[k] for p in parts], axis=self._concat_along_axis) for k in parts[0]}
+
+
+class EpisodeBuffer:
+    """Whole-episode storage (DreamerV2's episodic replay): one open episode
+    per env, saved when its final done arrives, the oldest episodes evicted
+    over ``buffer_size`` rows, and windows sampled within episodes, with
+    ``prioritize_ends`` oversampling their endings.
+
+    A memory-mapped buffer writes each saved episode to its own directory
+    ``<memmap_dir>/episode_<uuid>/<key>.memmap``, sized to the episode, so
+    its files hold the rows written and no more; evicting an episode deletes
+    its directory, as the JAX package does (a checkpoint that still refers
+    to it can then not be resumed). ``state_dict`` holds the saved episodes
+    (their arrays in memory, or a reference to each file, whose ownership it
+    takes), the open episodes' rows, the running lengths and the sampling
+    generator's state."""
+
+    batch_axis: int = 2
+
+    def __init__(
+        self,
+        buffer_size: int,
+        minimum_episode_length: int,
+        n_envs: int = 1,
+        obs_keys: Sequence[str] = ("observations",),
+        prioritize_ends: bool = False,
+        memmap: bool = False,
+        memmap_dir: "str | os.PathLike | None" = None,
+        memmap_mode: str = "r+",
+    ) -> None:
+        if buffer_size <= 0:
+            raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
+        if minimum_episode_length <= 0:
+            raise ValueError(f"The sequence length must be greater than zero, got: {minimum_episode_length}")
+        if buffer_size < minimum_episode_length:
+            raise ValueError(
+                f"The sequence length must be lower than the buffer size, got: bs = {buffer_size} "
+                f"and sl = {minimum_episode_length}"
+            )
+        self._buffer_size = buffer_size
+        self._minimum_episode_length = minimum_episode_length
+        self._n_envs = n_envs
+        self._obs_keys = tuple(obs_keys)
+        self._prioritize_ends = prioritize_ends
+        self._memmap = memmap
+        self._memmap_dir = Path(memmap_dir) if memmap_dir is not None else None
+        self._memmap_mode = memmap_mode
+        if self._memmap:
+            if memmap_mode not in _VALID_MODES:
+                raise ValueError(f"Accepted values for memmap_mode are {_VALID_MODES}, got '{memmap_mode}'")
+            if self._memmap_dir is None:
+                raise ValueError("The buffer is set to be memory-mapped but 'memmap_dir' is None. Set it to a known directory.")
+            self._memmap_dir.mkdir(parents=True, exist_ok=True)
+        self._open_episodes: List[List[Dict[str, np.ndarray]]] = [[] for _ in range(n_envs)]
+        self._cum_lengths: List[int] = []
+        self._buf: List[Dict[str, Any]] = []
+        self._rng = _seeded_sampling_rng()
+
+    @property
+    def prioritize_ends(self) -> bool:
+        return self._prioritize_ends
+
+    @property
+    def buffer(self) -> Sequence[Dict[str, Any]]:
+        return self._buf
+
+    @property
+    def obs_keys(self) -> Sequence[str]:
+        return self._obs_keys
+
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
+
+    @property
+    def buffer_size(self) -> int:
+        return self._buffer_size
+
+    @property
+    def minimum_episode_length(self) -> int:
+        return self._minimum_episode_length
+
+    @property
+    def is_memmap(self) -> bool:
+        return self._memmap
+
+    @property
+    def full(self) -> bool:
+        return self._cum_lengths[-1] + self._minimum_episode_length > self._buffer_size if self._buf else False
+
+    def __len__(self) -> int:
+        return self._cum_lengths[-1] if self._buf else 0
+
+    def seed(self, seed: Optional[int]) -> None:
+        self._rng = np.random.default_rng(seed)
+
+    def add(self, data: Dict[str, np.ndarray], env_idxes: Optional[Sequence[int]] = None, validate_args: bool = False) -> None:
+        """Append a [T, len(env_idxes), ...] chunk to each env's open episode
+        (all envs by default); an env's episode is saved at the row whose
+        ``terminated`` or ``truncated`` is set, and the rows after it open
+        the next one. The rows are copied."""
+        if validate_args:
+            _validate_add_data(data)
+            if "terminated" not in data or "truncated" not in data:
+                raise RuntimeError(f"The episode must contain the 'terminated' and the 'truncated' keys, got: {list(data.keys())}")
+            if env_idxes is not None and (np.asarray(env_idxes) >= self._n_envs).any():
+                raise ValueError(f"The indices of the environment must be integers in [0, {self._n_envs}), given {env_idxes}")
+        if env_idxes is None:
+            env_idxes = range(self._n_envs)
+        for data_col, env in enumerate(env_idxes):
+            env_data = {k: np.array(v[:, data_col]) for k, v in data.items()}
+            done = np.logical_or(env_data["terminated"], env_data["truncated"]).flatten()
+            ends = done.nonzero()[0].tolist()
+            if not ends:
+                self._open_episodes[env].append(env_data)
+                continue
+            start = 0
+            for end in ends + [len(done) - 1]:
+                chunk = {k: v[start : end + 1] for k, v in env_data.items()}
+                if next(iter(chunk.values())).shape[0] > 0:
+                    self._open_episodes[env].append(chunk)
+                start = end + 1
+                last = self._open_episodes[env][-1] if self._open_episodes[env] else None
+                if last is not None and bool(np.logical_or(last["terminated"][-1], last["truncated"][-1]).any()):
+                    self._save_episode(self._open_episodes[env])
+                    self._open_episodes[env] = []
+
+    def _save_episode(self, chunks: Sequence[Dict[str, np.ndarray]]) -> None:
+        episode = {k: np.concatenate([c[k] for c in chunks], axis=0) for k in chunks[0]}
+        ends = np.logical_or(episode["terminated"], episode["truncated"]).flatten()
+        ep_len = ends.shape[0]
+        if len(ends.nonzero()[0]) != 1 or not ends[-1]:
+            raise RuntimeError(f"The episode must contain exactly one done, got: {len(ends.nonzero()[0])}")
+        if ep_len < self._minimum_episode_length:
+            raise RuntimeError(f"Episode too short (at least {self._minimum_episode_length} steps), got: {ep_len} steps")
+        if ep_len > self._buffer_size:
+            raise RuntimeError(f"Episode too long (at most {self._buffer_size} steps), got: {ep_len} steps")
+        if self.full or len(self) + ep_len > self._buffer_size:
+            # Evict the oldest episodes until the new one fits.
+            cum = np.array(self._cum_lengths)
+            keep_from = int(((len(self) - cum + ep_len) <= self._buffer_size).argmax()) + 1
+            for ep in self._buf[:keep_from]:
+                if self._memmap:
+                    dirname = next(iter(ep.values())).filename.parent
+                    for v in ep.values():
+                        v.has_ownership = False
+                    ep.clear()
+                    shutil.rmtree(dirname, ignore_errors=True)
+            self._buf = self._buf[keep_from:]
+            self._cum_lengths = (cum[keep_from:] - cum[keep_from - 1]).tolist()
+        self._cum_lengths.append(len(self) + ep_len)
+        if self._memmap:
+            episode_dir = self._memmap_dir / f"episode_{uuid.uuid4()}"
+            stored = {}
+            for k, v in episode.items():
+                stored[k] = MemmapArray(episode_dir / f"{k}.memmap", dtype=v.dtype, shape=v.shape, mode=self._memmap_mode)
+                stored[k][:] = v
+            self._buf.append(stored)
+        else:
+            self._buf.append(episode)
+
+    def sample(
+        self,
+        batch_size: int,
+        sample_next_obs: bool = False,
+        n_samples: int = 1,
+        clone: bool = False,
+        sequence_length: int = 1,
+        **kwargs,
+    ) -> Dict[str, np.ndarray]:
+        """[n_samples, sequence_length, batch_size, ...] windows: each picks
+        an episode uniformly among those long enough, then a start in it
+        (with ``prioritize_ends`` a start up to ``sequence_length`` past the
+        last full window, clamped to it)."""
+        if batch_size <= 0:
+            raise ValueError(f"Batch size must be greater than 0, got: {batch_size}")
+        if n_samples <= 0:
+            raise ValueError(f"The number of samples must be greater than 0, got: {n_samples}")
+        lengths = np.array(self._cum_lengths) - np.array([0] + self._cum_lengths[:-1])
+        ok = lengths > sequence_length if sample_next_obs else lengths >= sequence_length
+        valid_eps = [ep for ep, good in zip(self._buf, ok) if good]
+        if not valid_eps:
+            raise RuntimeError(
+                "No valid episodes has been added to the buffer. Please add at least one episode of length greater "
+                f"than or equal to {sequence_length} calling 'add()'"
+            )
+        offsets = np.arange(sequence_length, dtype=np.intp)[None, :]
+        counts = np.bincount(self._rng.integers(0, len(valid_eps), (batch_size * n_samples,))).astype(np.intp)
+        collected: Dict[str, List[np.ndarray]] = {k: [] for k in valid_eps[0]}
+        if sample_next_obs:
+            collected.update({f"next_{k}": [] for k in self._obs_keys})
+        for i, n in enumerate(counts):
+            if n == 0:
+                continue
+            ep = valid_eps[i]
+            ep_len = len(ep["terminated"]) - int(sample_next_obs)
+            upper = ep_len - sequence_length + 1
+            if self._prioritize_ends:
+                upper += sequence_length
+            starts = np.minimum(self._rng.integers(0, upper, size=(n,)).reshape(-1, 1), ep_len - sequence_length).astype(np.intp)
+            indices = starts + offsets
+            for k in ep:
+                arr = np.asarray(ep[k])
+                collected[k].append(arr[indices.ravel()].reshape(n, sequence_length, *arr.shape[1:]))
+                if sample_next_obs and k in self._obs_keys:
+                    collected[f"next_{k}"].append(arr[(indices + 1).ravel()].reshape(n, sequence_length, *arr.shape[1:]))
+        out = {}
+        for k, v in collected.items():
+            if v:
+                stacked = np.concatenate(v, axis=0).reshape(n_samples, batch_size, sequence_length, *v[0].shape[2:])
+                out[k] = np.moveaxis(stacked, 2, 1)
+                if clone:
+                    out[k] = out[k].copy()
+        return out
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The saved episodes (arrays, or references to their files, whose
+        ownership the state takes), the open episodes' rows, the running
+        lengths and the sampling generator's state."""
+        if self._memmap:
+            episodes = [{k: v.reference() for k, v in ep.items()} for ep in self._buf]
+        else:
+            episodes = [dict(ep) for ep in self._buf]
+        return {
+            "buffer_size": self._buffer_size,
+            "n_envs": self._n_envs,
+            "memmap": self._memmap,
+            "episodes": episodes,
+            "open_episodes": [[dict(c) for c in chunks] for chunks in self._open_episodes],
+            "cum_lengths": list(self._cum_lengths),
+            "rng": self._rng.bit_generator.state,
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        if (state["buffer_size"], state["n_envs"]) != (self._buffer_size, self._n_envs):
+            raise ValueError(
+                f"the state is of a buffer of size {state['buffer_size']} x {state['n_envs']} envs, "
+                f"this one is {self._buffer_size} x {self._n_envs}"
+            )
+        self._memmap = bool(state["memmap"])
+        if self._memmap:
+            self._buf = [{k: MemmapArray.open(ref, mode=self._memmap_mode) for k, ref in ep.items()} for ep in state["episodes"]]
+        else:
+            self._buf = [{k: np.array(v) for k, v in ep.items()} for ep in state["episodes"]]
+        self._open_episodes = [[{k: np.array(v) for k, v in c.items()} for c in chunks] for chunks in state["open_episodes"]]
+        self._cum_lengths = [int(c) for c in state["cum_lengths"]]
+        self._rng.bit_generator.state = state["rng"]

@@ -24,7 +24,7 @@ actuators.
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -198,7 +198,7 @@ def get_dummy_env(id: str, action_dim: int = 2, **kwargs: Any) -> DummyEnv:
 
 def make_dummy_env(
     screen_size: int = 64, action_dim: int = 9, env_id: str = "discrete_dummy", action_repeat: int = 1,
-    frame_stack: int = 1, frame_stack_dilation: int = 1, cnn_keys: Sequence[str] = (),
+    frame_stack: int = 1, frame_stack_dilation: int = 1, cnn_keys: Sequence[str] = (), n_steps: Optional[int] = None,
 ) -> Any:
     """One dummy env of the kind ``env_id`` names, ``screen_size`` square
     rgb, ``action_dim`` actions (per head for MultiDiscrete, two heads), each
@@ -207,8 +207,12 @@ def make_dummy_env(
     (:class:`FrameStack`), where the JAX package's ``make_env`` stacks them.
     The JAX package renders the dummy env at 64x64 and resizes it to
     ``screen_size``; its frames are constant, so rendering at
-    ``screen_size`` gives the same observations."""
-    env = ActionRepeat(get_dummy_env(env_id, action_dim, image_size=(screen_size, screen_size, 3)), action_repeat)
+    ``screen_size`` gives the same observations. ``n_steps`` (the env's
+    keyword, ``+env.wrapper.n_steps=N`` on the command line, which the JAX
+    package's ``get_dummy_env`` passes on too) sets the episode's length,
+    ``n_steps + 1`` steps."""
+    kwargs = {} if n_steps is None else {"n_steps": int(n_steps)}
+    env = ActionRepeat(get_dummy_env(env_id, action_dim, image_size=(screen_size, screen_size, 3), **kwargs), action_repeat)
     if frame_stack > 1 and set(cnn_keys) & {k for k, v in env.observation_space.spaces.items() if len(v.shape) in (2, 3)}:
         env = FrameStack(env, frame_stack, cnn_keys, frame_stack_dilation)
     return env
@@ -228,6 +232,7 @@ def dummy_env_kwargs(cfg) -> Dict[str, Any]:
         "screen_size": int(cfg.env.screen_size), "action_dim": int(cfg.env.wrapper.action_dim), "env_id": str(cfg.env.id),
         "action_repeat": int(cfg.env.action_repeat), "frame_stack": int(cfg.env.frame_stack),
         "frame_stack_dilation": int(cfg.env.frame_stack_dilation), "cnn_keys": tuple(cfg.algo.cnn_keys.encoder),
+        "n_steps": cfg.env.wrapper.get("n_steps"),
     }  # fmt: skip
 
 

@@ -86,6 +86,12 @@ def lecun_normal_(weight: torch.Tensor, fan_in: int, gen: torch.Generator) -> No
     nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=gen)
 
 
+def xavier_normal_(weight: torch.Tensor, fan_in: int, fan_out: int, gen: torch.Generator) -> None:
+    """flax's ``glorot_normal``: a normal truncated at +-2 std, of variance 1 / fan_avg."""
+    std = math.sqrt(2.0 / (fan_in + fan_out)) / 0.87962566103423978
+    nn.init.trunc_normal_(weight, 0.0, std, -2 * std, 2 * std, generator=gen)
+
+
 @torch.no_grad()
 def init_flax_(module: nn.Module, seed: int) -> None:
     """flax's defaults from a seed: LeCun-normal kernels (fan-in over the
@@ -378,22 +384,32 @@ class LayerNormGRUCell(nn.Module):
     The whole step is one :class:`LNGRUFunction`: the CUDA kernels (forward
     and backward) for CUDA tensors, their plain versions for CPU tensors. The
     cell's LayerNorm uses eps 1e-5 whatever the model's other norms use, as in
-    the JAX cell."""
+    the JAX cell. With ``layer_norm=False`` (the JAX cell's unfused branch,
+    which has no kernel) the step is plain torch ops in the compute dtype,
+    without the LayerNorm."""
 
-    def __init__(self, input_size: int, hidden_size: int, bias: bool = True, dtype: torch.dtype = torch.float32):
+    def __init__(self, input_size: int, hidden_size: int, bias: bool = True, dtype: torch.dtype = torch.float32, layer_norm: bool = True):
         super().__init__()
         self.hidden_size = int(hidden_size)
         self.dtype = dtype
         width = 3 * self.hidden_size
         self.weight = nn.Parameter(torch.empty(self.hidden_size + int(input_size), width))
         self.bias = nn.Parameter(torch.zeros(width)) if bias else None
-        self.norm = LayerNorm(width)
+        self.norm = LayerNorm(width) if layer_norm else None
         self.register_buffer("zero_bias", torch.zeros(width), persistent=False)
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         batch_shape = h.shape[:-1]
         h2 = h.reshape(-1, self.hidden_size).to(self.dtype).contiguous()
         inp = torch.cat([h2, x.reshape(h2.shape[0], -1).to(self.dtype)], dim=-1)
+        if self.norm is None:
+            z = inp @ self.weight.to(self.dtype)
+            if self.bias is not None:
+                z = z + self.bias.to(self.dtype)
+            reset, cand, update = torch.split(z, self.hidden_size, dim=-1)
+            cand = torch.tanh(torch.sigmoid(reset) * cand)
+            update = torch.sigmoid(update - 1)
+            return (update * cand + (1 - update) * h2).reshape(*batch_shape, self.hidden_size)
         # The bias is rounded to the compute dtype first, as the JAX cell does.
         bias = self.bias.to(self.dtype).float() if self.bias is not None else self.zero_bias
         h_new = LNGRUFunction.apply(inp, self.weight.to(self.dtype), bias, self.norm.weight, self.norm.bias, h2)

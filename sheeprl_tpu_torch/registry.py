@@ -4,7 +4,7 @@ Each algorithm module registers its ``main(cfg)`` entry point with
 :func:`register_algorithm`, and its evaluation function with
 :func:`register_evaluation`; the command line looks both up by
 ``algo.name``. :func:`register_all` imports the modules that register: the
-port has DreamerV3, PPO, SAC and DroQ.
+port has DreamerV3, PPO, SAC, DroQ, DreamerV2 and DreamerV1.
 """
 
 from __future__ import annotations
@@ -25,6 +25,10 @@ _MODULES = (
     "sheeprl_tpu_torch.algos.sac.evaluate",
     "sheeprl_tpu_torch.algos.droq.droq",
     "sheeprl_tpu_torch.algos.droq.evaluate",
+    "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
+    "sheeprl_tpu_torch.algos.dreamer_v2.evaluate",
+    "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1",
+    "sheeprl_tpu_torch.algos.dreamer_v1.evaluate",
 )
 
 

@@ -1,8 +1,9 @@
 """Distributions (counterpart of sheeprl_tpu/utils/distribution.py): one-hot
 categoricals with mode, sample, log_prob and entropy, Normal (mean, mode,
-sample, log_prob, entropy) and Independent,
-the DreamerV3 loss distributions (Symlog, MSE, two-hot, Bernoulli with a safe
-mode), ``kl_divergence`` for the categorical pair, and ``uniform_mix``.
+sample, log_prob, entropy) and Independent, the truncated normal
+(DreamerV2's continuous actor), the DreamerV3 loss distributions (Symlog,
+MSE, two-hot, Bernoulli with a safe mode), ``kl_divergence`` for the
+categorical and the normal pairs, and ``uniform_mix``.
 
 Sampling draws from an explicit noise source, never from torch's global
 generator. Serving uses :class:`RowGenerators`: row i of a batch takes its
@@ -25,6 +26,12 @@ import torch
 import torch.nn.functional as F
 
 from sheeprl_tpu_torch.utils.ops import symexp, symlog
+
+CONST_SQRT_2 = math.sqrt(2)
+CONST_INV_SQRT_2PI = 1 / math.sqrt(2 * math.pi)
+CONST_INV_SQRT_2 = 1 / math.sqrt(2)
+CONST_LOG_INV_SQRT_2PI = math.log(CONST_INV_SQRT_2PI)
+CONST_LOG_SQRT_2PI_E = 0.5 * math.log(2 * math.pi * math.e)
 
 
 def _gumbel_max(logits: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
@@ -101,6 +108,10 @@ class BatchGenerator:
         """Standard normals ``[*sample_shape, *loc_shape]``, in one draw."""
         return self.randn(tuple(sample_shape) + tuple(loc_shape))
 
+    def uniform(self, loc_shape: Tuple[int, ...], sample_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+        """Uniforms in [0, 1) ``[*sample_shape, *loc_shape]``, in one draw."""
+        return self.rand(tuple(sample_shape) + tuple(loc_shape))
+
 
 def _check_rows(rng: RowGenerators, batch: int) -> None:
     if len(rng) != batch:
@@ -167,6 +178,91 @@ class Independent:
 
     def entropy(self) -> torch.Tensor:
         return self._reduce(self.base.entropy())
+
+
+class TruncatedStandardNormal:
+    """Standard normal truncated to [a, b] (the JAX package's class, from
+    torch_truncnorm): mean, entropy, icdf, log_prob, and samples by the
+    inverse cdf of uniforms in ``[eps, 1 - eps]``."""
+
+    def __init__(self, a: torch.Tensor, b: torch.Tensor):
+        self.a, self.b = torch.broadcast_tensors(torch.as_tensor(a), torch.as_tensor(b))
+        eps = torch.finfo(self.a.dtype).eps
+        self._dtype_min_gt_0 = eps
+        self._dtype_max_lt_1 = 1 - eps
+        self._little_phi_a = self._little_phi(self.a)
+        self._little_phi_b = self._little_phi(self.b)
+        self._big_phi_a = self._big_phi(self.a)
+        self._big_phi_b = self._big_phi(self.b)
+        self._Z = (self._big_phi_b - self._big_phi_a).clamp(min=eps)
+        self._log_Z = torch.log(self._Z)
+        self._lpbb_m_lpaa_d_Z = (self._little_phi_b * self.b - self._little_phi_a * self.a) / self._Z
+        self._mean = -(self._little_phi_b - self._little_phi_a) / self._Z
+        self._entropy = CONST_LOG_SQRT_2PI_E + self._log_Z - 0.5 * self._lpbb_m_lpaa_d_Z
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self._mean
+
+    @staticmethod
+    def _little_phi(x: torch.Tensor) -> torch.Tensor:
+        return torch.exp(-(x**2) * 0.5) * CONST_INV_SQRT_2PI
+
+    @staticmethod
+    def _big_phi(x: torch.Tensor) -> torch.Tensor:
+        return 0.5 * (1 + torch.erf(x * CONST_INV_SQRT_2))
+
+    @staticmethod
+    def _inv_big_phi(x: torch.Tensor) -> torch.Tensor:
+        return CONST_SQRT_2 * torch.erfinv(2 * x - 1)
+
+    def icdf(self, value: torch.Tensor) -> torch.Tensor:
+        return self._inv_big_phi(self._big_phi_a + value * self._Z)
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return CONST_LOG_INV_SQRT_2PI - self._log_Z - (value**2) * 0.5
+
+    def sample(self, rng, sample_shape: Tuple[int, ...] = ()) -> torch.Tensor:
+        """``[*sample_shape, *a.shape]`` by the inverse cdf: ``rng``'s
+        uniforms (:meth:`BatchGenerator.uniform`) scaled into ``[eps, 1 -
+        eps]`` as ``jax.random.uniform`` scales its draws between ``minval``
+        and ``maxval``. Differentiable in the location and the scale."""
+        u = rng.uniform(tuple(self.a.shape), tuple(sample_shape)).to(self.a.device, self.a.dtype)
+        lo, hi = self._dtype_min_gt_0, self._dtype_max_lt_1
+        return self.icdf((u * (hi - lo) + lo).clamp(min=lo))
+
+    rsample = sample
+
+    def entropy(self) -> torch.Tensor:
+        return self._entropy
+
+
+class TruncatedNormal(TruncatedStandardNormal):
+    """Normal of ``loc`` and ``scale`` truncated to [a, b] (the JAX package's
+    class): the standard one on ``(a - loc) / scale .. (b - loc) / scale``,
+    moved and scaled."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, a, b):
+        loc, scale = torch.broadcast_tensors(loc, scale)
+        a = torch.full_like(loc, float(a)) if not isinstance(a, torch.Tensor) else a
+        b = torch.full_like(loc, float(b)) if not isinstance(b, torch.Tensor) else b
+        self.loc, self.scale, a, b = torch.broadcast_tensors(loc, scale, a, b)
+        super().__init__((a - self.loc) / self.scale, (b - self.loc) / self.scale)
+        self._log_scale = torch.log(self.scale)
+        self._mean = self._mean * self.scale + self.loc
+        self._entropy = self._entropy + self._log_scale
+
+    def _to_std_rv(self, value: torch.Tensor) -> torch.Tensor:
+        return (value - self.loc) / self.scale
+
+    def _from_std_rv(self, value: torch.Tensor) -> torch.Tensor:
+        return value * self.scale + self.loc
+
+    def icdf(self, value: torch.Tensor) -> torch.Tensor:
+        return self._from_std_rv(super().icdf(value))
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return super().log_prob(self._to_std_rv(value)) - self._log_scale
 
 
 class OneHotCategorical:
@@ -355,8 +451,8 @@ class BernoulliSafeMode:
 
 
 def kl_divergence(p, q) -> torch.Tensor:
-    """KL(p || q) for a pair of one-hot categoricals, alone or under
-    :class:`Independent` with the same number of event dims."""
+    """KL(p || q) for a pair of one-hot categoricals or of normals, alone or
+    under :class:`Independent` with the same number of event dims."""
     if isinstance(p, Independent) and isinstance(q, Independent):
         if p.ndims != q.ndims:
             raise ValueError("Independent KL requires matching event ndims")
@@ -364,4 +460,8 @@ def kl_divergence(p, q) -> torch.Tensor:
     if isinstance(p, OneHotCategorical) and isinstance(q, OneHotCategorical):
         probs = p.probs
         return torch.where(probs > 0, probs * (p.logits - q.logits), torch.zeros_like(probs)).sum(-1)
+    if isinstance(p, Normal) and isinstance(q, Normal):
+        var_ratio = (p.scale / q.scale) ** 2
+        t1 = ((p.loc - q.loc) / q.scale) ** 2
+        return 0.5 * (var_ratio + t1 - 1 - torch.log(var_ratio))
     raise NotImplementedError(f"KL not implemented for {type(p).__name__} || {type(q).__name__}")

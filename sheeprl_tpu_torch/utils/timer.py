@@ -6,15 +6,21 @@ to a process-wide sum per name, with a class-level ``disabled`` flag
 ``reset``. Each name keeps a stack of start times, so a name may be entered
 again inside itself; ``stop`` without a ``start`` raises :class:`TimerError`.
 It reads the host's clock: on a CUDA card a timed region ends when its
-operations are queued, not when they have run. (The JAX package also emits
-each stopped region as a tracer span; the port has no tracer yet.)
+operations are queued, not when they have run. :func:`train_timer` is the
+trainers' ``Time/train_time``, which waits for the card at the end of a train
+call, as the JAX package's StepTimer blocks on the step's result. (The JAX
+package also emits each stopped region as a tracer span; the port has no
+tracer yet.)
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from contextlib import ContextDecorator
-from typing import Any, ClassVar, Dict, List
+from typing import Any, ClassVar, Dict, Iterator, List
+
+import torch
 
 
 class TimerError(Exception):
@@ -70,3 +76,15 @@ class timer(ContextDecorator):
     def reset(cls) -> None:
         cls.timers = {}
         cls._start_times = {}
+
+
+@contextlib.contextmanager
+def train_timer(device: torch.device) -> Iterator[None]:
+    """``timer("Time/train_time")`` around a train call that ends when the
+    call's work has run on a CUDA ``device`` (one ``torch.cuda.synchronize``
+    per call), so ``Time/sps_train`` counts train calls done, not queued.
+    With the timers off nothing waits."""
+    with timer("Time/train_time"):
+        yield
+        if not timer.disabled and torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)

@@ -1,5 +1,5 @@
 """The port's config layer against the JAX package's: the YAML reader
-against PyYAML with the JAX loader's resolver, the four exps composed from
+against PyYAML with the JAX loader's resolver, the port's exps composed from
 the port's own tree against the JAX composition, the composition's rules,
 and ``instantiate``/``locate``."""
 
@@ -20,7 +20,7 @@ from sheeprl_tpu_torch.config.loader import default_config_dir
 
 TREE = default_config_dir()
 FILES = sorted(os.path.relpath(p, TREE) for p in glob.glob(os.path.join(TREE, "**", "*.yaml"), recursive=True))
-EXPS = ("ppo", "ppo_atari", "dreamer_v3_100k_ms_pacman", "dreamer_v3_dmc_walker_walk", "sac", "droq")
+EXPS = ("ppo", "ppo_atari", "dreamer_v3_100k_ms_pacman", "dreamer_v3_dmc_walker_walk", "sac", "droq", "dreamer_v2", "dreamer_v2_ms_pacman", "dreamer_v1")
 # The JAX package's own overrides for SAC and DroQ (tests/test_algos/test_fused_train.py),
 # and the width each exp's interpolation spreads.
 EXP_ARGS = {exp: ["env.id=continuous_dummy", "env.wrapper.id=continuous_dummy"] for exp in ("sac", "droq")}
@@ -100,7 +100,7 @@ def test_exp_composes_to_the_jax_composition(exp, interpolated):
     port, ref = compose(args), jax_compose("config", args).as_dict()
     check_against_jax(port, ref)
     assert port.device == "cuda" and port.env_group == "dummy" and port.buffer.memmap_mode == "r+"
-    assert port.env.wrapper.action_dim == {"dreamer_v3_100k_ms_pacman": 9, "dreamer_v3_dmc_walker_walk": 6}.get(exp, 2)
+    assert port.env.wrapper.action_dim == {"dreamer_v3_100k_ms_pacman": 9, "dreamer_v3_dmc_walker_walk": 6, "dreamer_v2_ms_pacman": 9}.get(exp, 2)
     if exp in ("sac", "droq"):
         assert port.env.id == "continuous_dummy" and port.algo.name == exp and port.algo.critic.n == 2
         assert port.algo.replay_ratio == (20.0 if exp == "droq" else 1.0) and port.algo.critic.get("dropout") == (0.01 if exp == "droq" else None)

@@ -36,7 +36,10 @@ def test_import_every_module_without_jax_or_the_jax_package():
                 "config.instantiate", "algos.ppo.agent", "algos.ppo.loss", "algos.ppo.utils", "algos.ppo.ppo", "algos.ppo.evaluate",
                 "algos.ppo.serve", "core.rollout", "envs.wrappers", "models.models", "utils.ops",
                 "algos.sac.agent", "algos.sac.loss", "algos.sac.utils", "algos.sac.sac", "algos.sac.evaluate", "algos.sac.serve",
-                "algos.droq.agent", "algos.droq.utils", "algos.droq.droq", "algos.droq.evaluate"]
+                "algos.droq.agent", "algos.droq.utils", "algos.droq.droq", "algos.droq.evaluate",
+                "algos.dreamer_v2.agent", "algos.dreamer_v2.loss", "algos.dreamer_v2.utils", "algos.dreamer_v2.dreamer_v2",
+                "algos.dreamer_v2.evaluate", "algos.dreamer_v1.agent", "algos.dreamer_v1.loss", "algos.dreamer_v1.utils",
+                "algos.dreamer_v1.dreamer_v1", "algos.dreamer_v1.evaluate", "utils.distribution"]
     for name in ["serve.engine", "bridge", *training]:
         assert f"sheeprl_tpu_torch.{name}" in report["modules"], name
     assert not [m for m in report["loaded"] if m in FORBIDDEN]
@@ -66,6 +69,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     for exp in ("sac", "droq"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run([f"exp={exp}", "env=dummy", "env.id=continuous_dummy"])
+    for exp in ("dreamer_v2_ms_pacman", "dreamer_v2", "dreamer_v1"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run([f"exp={exp}", "env=dummy"])
 
 
 def test_evaluation_defaults_to_cuda_and_raises_without_it(tmp_path):
