@@ -199,6 +199,31 @@ Phases (any failure exits non-zero before the result line):
    check must reject (tolerances in ``phase_dv2_reference``).
 25. DreamerV1: ``exp=dreamer_v1 env=dummy`` at the recipe's widths, 8
    gradient steps, resumed bit for bit, ``eval``; no LN-GRU launch.
+26. A2C, a sixth main path: ``python -m sheeprl_tpu_torch exp=a2c
+   env=dummy`` in process at the recipe's widths (dense 64, 2 tanh layers,
+   4 envs x 5 rollout steps, 4 minibatches of 5 summed into one RMSprop
+   step, eps 1e-4 inside the root, 32-true), total_steps, log_every and
+   checkpoint.every cut (listed in the output) to 20 updates and a
+   checkpoint after the 10th: finite losses, every parameter moved, the JAX
+   package's tags (no ``Info/*``) at its steps, no LN-GRU launch; resumed
+   from that checkpoint (every tensor restored bit for bit on the card, the
+   resumed update starting from them); ``eval`` in its own process logging
+   the trainer's test reward; the trained agent's update and rollout step
+   profiled as 28.
+27. Recurrent PPO, a seventh main path: ``exp=ppo_recurrent env=dummy``
+   (LSTM 64, encoder 64 with LayerNorm, 16 envs x 512 rollout steps,
+   sequences of 16, 8 batches, 8 epochs: 64 AdamW steps an update), cut to
+   2 updates and a checkpoint after the first; checked, resumed and
+   evaluated as 26.
+28. Recurrent PPO's profile: one update and one rollout step of the
+   trained agent (host wall, device busy, idle share, operations, peak
+   memory).
+29. One A2C update on the card against the CPU in 32-true from the same
+   weights, rollout and minibatches, per parameter leaf and per RMSprop
+   accumulator leaf within 2e-3, with two planted faults it must reject.
+30. Recurrent PPO on the card against the CPU the same way: its update's
+   first AdamW step within 2e-3 per parameter and moment leaf, its whole
+   update (64 AdamW steps) within PPO's bounds (``onpolicy_reference``).
 
 Every profile reads its device busy time through ``_busy``, which leaves
 out the device ranges of ``record_function`` annotations (the trainers'
@@ -322,21 +347,38 @@ def device_ms(fn, reps: int = 15, inner: int = 20) -> tuple:
     return statistics.median(times), min(times), max(times)
 
 
+PROFILE_MARKERS = 2048  # marker kernels ahead of each profiled call
+MARKER_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel: nothing else in a capture launches it
+
+
 def profiled(fn, activities=("cuda",), captures: int = 3):
-    """torch.profiler over one call of ``fn``; a capture in which the
-    profiler recorded no device event at all is taken again, up to
-    ``captures`` times (its tracer has returned an empty capture on an H100
-    with torch 2.11)."""
+    """torch.profiler over one call of ``fn``, after ``PROFILE_MARKERS``
+    marker kernels (``torch.cuda._sleep(1000)``, about a microsecond each)
+    and a synchronize. On an H100 with torch 2.11 the tracer loses the
+    first device records of some captures while it keeps their host-side
+    launch calls: all of them (an empty capture) or some (a discrete DV3
+    step has read 17168 operations where it launches 17929). The markers
+    take that loss in place of ``fn``'s records: a capture in which
+    no marker was recorded may have lost some of ``fn``'s and is taken
+    again, up to ``captures`` times, then the script fails. ``_busy`` and
+    ``kernel_split_ms`` leave the markers out."""
     import torch
 
     kinds = {"cpu": torch.profiler.ProfilerActivity.CPU, "cuda": torch.profiler.ProfilerActivity.CUDA}
-    for _ in range(captures):
+    for capture in range(1, captures + 1):
         with torch.profiler.profile(activities=[kinds[a] for a in activities]) as prof:
+            for _ in range(PROFILE_MARKERS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-        if any((getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)) for e in prof.key_averages()):
-            break
-    return prof
+        markers = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and MARKER_KERNEL in e.name)
+        if markers < PROFILE_MARKERS:
+            log(f"profile: capture {capture} of {captures} lost its first {PROFILE_MARKERS - markers} device records "
+                f"({markers} of {PROFILE_MARKERS} markers recorded){'' if markers else '; taken again'}")  # fmt: skip
+        if markers:
+            return prof
+    fail(f"torch.profiler lost the first device records of {captures} captures in a row (no marker kernel recorded)")
 
 
 def kernel_split_ms(fn, calls: int = 50) -> dict:
@@ -350,7 +392,7 @@ def kernel_split_ms(fn, calls: int = 50) -> dict:
     split = {}
     for evt in prof.key_averages():
         total_us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
-        if total_us and evt.count:
+        if total_us and evt.count and MARKER_KERNEL not in evt.key:
             found = re.search(r"ln_gru_\w+", evt.key)
             name = found.group(0) if found else evt.key
             entry = split.setdefault(name, {"ms": 0.0, "launches": 0.0})
@@ -1641,15 +1683,19 @@ def _same_bits(a, b):
     return bad + ([] if len(sa) == len(sb) and pa.keys() == pb.keys() else ["<structure>"])
 
 
-def ppo_through_cli(args, what):
-    """One run of the port's PPO trainer through its CLI entry point, in
-    process, on the card, with the LN-GRU counts zeroed before and read
-    after. Returns (out, trace, snaps, wall_s, counts): ``trace`` holds the
-    env-step index of every episode end; ``snaps`` the agent and Adam state
-    before the first update of the run and after every update."""
-    from sheeprl_tpu_torch.algos.ppo import ppo as ppo_mod
+def ppo_through_cli(args, what, trainer="ppo"):
+    """One run of the port's on-policy trainer ``trainer`` (``ppo``, ``a2c``
+    or ``ppo_recurrent``) through its CLI entry point, in process, on the
+    card, with the LN-GRU counts zeroed before and read after. Returns (out,
+    trace, snaps, wall_s, counts): ``trace`` holds the env-step index of
+    every episode end; ``snaps`` the agent and optimizer state before the
+    first update of the run and after every update."""
+    import importlib
+
     from sheeprl_tpu_torch.cli import run
     from sheeprl_tpu_torch.envs.dummy import SyncVectorEnv
+
+    ppo_mod = importlib.import_module(f"sheeprl_tpu_torch.algos.{trainer}.{trainer}")
 
     trace, snaps = {"env_steps": 0, "episode_steps": []}, {"after": []}
     env_step, make_train_step = SyncVectorEnv.step, ppo_mod.make_train_step
@@ -1681,19 +1727,21 @@ def ppo_through_cli(args, what):
     wall_s = time.perf_counter() - t0
     counts = read_counts()
     if counts["forward"] or counts["backward"]:
-        fail(f"{what}: PPO launched LN-GRU kernels: {counts}")
+        fail(f"{what}: {trainer} launched LN-GRU kernels: {counts}")
     if next(out["agent"].parameters()).device.type != "cuda":
         fail(f"{what}: the agent is not on the card")
     return out, trace, snaps, wall_s, counts
 
 
-def check_ppo_logged(out, cfg, trace, what, first_iter=1, last_log=0):
+def check_ppo_logged(out, cfg, trace, what, first_iter=1, last_log=0, info=PPO_INFO, losses=PPO_LOSSES):
     """The run's TensorBoard file holds exactly the tags the JAX package's
-    PPO logs at each step (tests/test_torch_train_ppo.py holds the rule to
-    its run): ``Info/*`` after every update; the losses and ``Time/*`` at
-    every log point (``metric.log_every`` policy steps since the last, and
-    the last update); the episode means where an episode ended since the
-    last log point; ``Test/cumulative_reward`` at 0. All finite."""
+    PPO (A2C, recurrent PPO) logs at each step (tests/test_torch_train_ppo.py,
+    test_torch_train_a2c.py and test_torch_train_ppo_recurrent.py hold the
+    rule to its runs): ``info`` after every update; ``losses`` and
+    ``Time/*`` at every log point (``metric.log_every`` policy steps since
+    the last, and the last update); the episode means where an episode
+    ended since the last log point; ``Test/cumulative_reward`` at 0. All
+    finite."""
     import numpy as np
 
     from sheeprl_tpu_torch.utils.logger import read_scalars
@@ -1704,9 +1752,9 @@ def check_ppo_logged(out, cfg, trace, what, first_iter=1, last_log=0):
     expected, last = {"Test/cumulative_reward": [0]}, last_log
     for it in range(first_iter, total_iters + 1):
         step = it * per_iter
-        tags = list(PPO_INFO)
+        tags = list(info)
         if step - last >= int(cfg.metric.log_every) or it == total_iters:
-            tags += [*PPO_LOSSES, "Time/sps_train", "Time/sps_env_interaction"]
+            tags += [*losses, "Time/sps_train", "Time/sps_env_interaction"]
             if any(last < e <= step for e in ends):
                 tags += ["Rewards/rew_avg", "Game/ep_len_avg"]
             last = step
@@ -1732,30 +1780,53 @@ def _ppo_spaces(cfg):
     return env.observation_space, *actions_metadata(env.action_space)
 
 
-def ppo_train(args, cuts, what, log_root, updates):
+# The agent module and the logged tags of each on-policy trainer.
+ONPOLICY = {
+    "ppo": {"agent": "ppo", "info": PPO_INFO, "losses": PPO_LOSSES},
+    "a2c": {"agent": "ppo", "info": (), "losses": PPO_LOSSES[:2]},
+    "ppo_recurrent": {"agent": "ppo_recurrent", "info": PPO_INFO, "losses": PPO_LOSSES},
+}
+
+
+def _onpolicy_agent(trainer):
+    import importlib
+
+    return importlib.import_module(f"sheeprl_tpu_torch.algos.{ONPOLICY[trainer]['agent']}.agent")
+
+
+def _onpolicy_recipe(cfg, trainer):
+    algo = cfg.algo
+    if trainer == "a2c":
+        return f"batch {algo.per_rank_batch_size}, one {algo.optimizer['_target_'].rsplit('.', 1)[1]} step a update"
+    if trainer == "ppo_recurrent":
+        return (f"LSTM {algo.rnn.lstm.hidden_size}, sequences of {algo.per_rank_sequence_length}, {algo.per_rank_num_batches} batches, "
+                f"{algo.update_epochs} epochs, {algo.optimizer['_target_'].rsplit('.', 1)[1]}")  # fmt: skip
+    return f"batch {algo.per_rank_batch_size}, {algo.update_epochs} epochs"
+
+
+def ppo_train(args, cuts, what, log_root, updates, trainer="ppo"):
     """``args`` through the CLI on the card: ``updates`` updates, finite
     losses at every one, every parameter tensor moved from the seeded
     initialisation, the JAX package's tags at its steps."""
     import torch
 
-    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
     from sheeprl_tpu_torch.config import compose
 
     cfg = compose(args)
     obs_space, actions_dim, continuous = _ppo_spaces(cfg)
     keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
     log(f"{what}: {' '.join(args)}: {', '.join(f'{k} {tuple(obs_space[k].shape)}' for k in keys)}, actions {actions_dim} "
-        f"({'continuous' if continuous else 'discrete'}), {cfg.env.num_envs} envs x {cfg.algo.rollout_steps} steps, batch "
-        f"{cfg.algo.per_rank_batch_size}, {cfg.algo.update_epochs} epochs, {cfg.fabric.precision}; cut: {json.dumps(cuts)}")  # fmt: skip
-    init = build_agent(actions_dim, continuous, cfg, obs_space, device="cpu", seed=cfg.seed).state_dict()
-    out, trace, snaps, wall_s, counts = ppo_through_cli([*args, f"log_root={log_root}"], what)
+        f"({'continuous' if continuous else 'discrete'}), {cfg.env.num_envs} envs x {cfg.algo.rollout_steps} steps, "
+        f"{_onpolicy_recipe(cfg, trainer)}, {cfg.fabric.precision}; cut: {json.dumps(cuts)}")  # fmt: skip
+    init = _onpolicy_agent(trainer).build_agent(actions_dim, continuous, cfg, obs_space, device="cpu", seed=cfg.seed).state_dict()
+    out, trace, snaps, wall_s, counts = ppo_through_cli([*args, f"log_root={log_root}"], what, trainer)
     if out["updates"] != updates or len(snaps["after"]) != updates or out["policy_steps"] != int(cfg.algo.total_steps):
         fail(f"{what}: {out['updates']} updates in {out['policy_steps']} policy steps, expected {updates} in {cfg.algo.total_steps}")
     now = out["agent"].state_dict()
     still = [k for k, v in now.items() if torch.equal(v.cpu(), init[k])]
     if still:
         fail(f"{what}: parameters that did not move: {still}")
-    tags = check_ppo_logged(out, cfg, trace, what)
+    tags = check_ppo_logged(out, cfg, trace, what, info=ONPOLICY[trainer]["info"], losses=ONPOLICY[trainer]["losses"])
     last = out["log"][-1]
     result = {"cuts": cuts, "updates": out["updates"], "policy_steps": out["policy_steps"], "wall_s": wall_s, "ln_gru_launches": counts,
               "parameters_moved": len(now), "episodes_ended": len(trace["episode_steps"]), "logged_tags": tags,
@@ -1772,56 +1843,69 @@ def phase_ppo(log_root):
 
 
 def phase_ppo_resume(out, snaps, cfg, log_root):
-    """ppo_atari's checkpoint after its first update: loaded with its digest
-    verified, it holds the agent and Adam state of that update bit for bit;
-    a fresh agent and optimizer on the card restore every tensor of it bit
-    for bit; the CLI resumed from it starts its update from exactly those
-    tensors and the checkpoint's annealed learning rate, at policy step
-    1024, and logs where the JAX ``main`` would (``ppo.py:274-275``,
-    ``:353-360``). The JAX checkpoint holds no env state or rollout key, so
-    the resumed rollout is not compared with the uninterrupted one."""
+    """ppo_atari's checkpoint after its first update, resumed
+    (:func:`onpolicy_resume`)."""
+    return onpolicy_resume(out, snaps, cfg, PPO_ATARI_ARGS, "ppo", log_root, "ppo resume")
+
+
+def onpolicy_resume(out, snaps, cfg, args, trainer, log_root, what):
+    """The run's first checkpoint: loaded with its digest verified, it holds
+    the agent and optimizer state of the update it follows bit for bit; a
+    fresh agent and optimizer on the card restore every tensor of it bit for
+    bit; the CLI resumed from it starts its update from exactly those
+    tensors and the checkpoint's (annealed) learning rate, at the
+    checkpoint's policy step, and logs where the JAX ``main`` would
+    (``ppo.py:274-275``, ``:353-360``; ``a2c.py:175-180``;
+    ``ppo_recurrent.py:226-232``). The JAX checkpoint holds no env state,
+    rollout key or carry, so the resumed rollout is not compared with the
+    uninterrupted one."""
     import numpy as np
 
-    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
     from sheeprl_tpu_torch.algos.ppo.ppo import make_optimizer
     from sheeprl_tpu_torch.optim import load_optimizer_state
     from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
 
-    per_iter, total_iters = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps), int(cfg.algo.total_steps) // int(cfg.env.num_envs * cfg.algo.rollout_steps)
+    per_iter = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps)
+    total_iters = int(cfg.algo.total_steps) // per_iter
     mid = out["checkpoints"][0]
     t0 = time.perf_counter()
     state = load_checkpoint(mid)
     load_s = time.perf_counter() - t0
-    if (state["iter_num"], state["last_checkpoint"]) != (1, per_iter) or not mid.endswith(f"ckpt_{per_iter}_0.ckpt"):
-        fail(f"ppo resume: {mid} holds iteration {state['iter_num']}, last checkpoint {state['last_checkpoint']}")
+    it = int(state["iter_num"])
+    # the first update whose policy step reaches checkpoint.every (``ppo.py:615``, ``a2c.py:372``, ``ppo_recurrent.py:506``)
+    want = -(-int(cfg.checkpoint.every) // per_iter)
+    if not it == want < total_iters or state["last_checkpoint"] != it * per_iter or not mid.endswith(f"ckpt_{it * per_iter}_0.ckpt"):
+        fail(f"{what}: {mid} holds iteration {it}, last checkpoint {state['last_checkpoint']}, expected iteration {want}")
     saved = (state["agent"], [state["optimizer"]["state"][i] for i in range(len(state["optimizer"]["state"]))])
-    bad = _same_bits(snaps["after"][0][:2], saved)
+    bad = _same_bits(snaps["after"][it - 1][:2], saved)
     if bad:
-        fail(f"ppo resume: the checkpoint differs from the state after the first update at {bad[:5]}")
-    lr = float(np.float32(float(cfg.algo.optimizer.lr) * (1 - 1 / total_iters)))  # annealed after the first update
+        fail(f"{what}: the checkpoint differs from the state after update {it} at {bad[:5]}")
+    base = float(cfg.algo.optimizer.lr)
+    lr = float(np.float32(base * (1 - it / total_iters))) if cfg.algo.anneal_lr else base
     if state["optimizer"]["param_groups"][0]["lr"] != lr:
-        fail(f"ppo resume: the checkpoint's learning rate is {state['optimizer']['param_groups'][0]['lr']}, expected {lr}")
+        fail(f"{what}: the checkpoint's learning rate is {state['optimizer']['param_groups'][0]['lr']}, expected {lr}")
     obs_space, actions_dim, continuous = _ppo_spaces(cfg)
-    agent = build_agent(actions_dim, continuous, cfg, obs_space, precision=cfg.fabric.precision, device="cuda", seed=123)
+    agent = _onpolicy_agent(trainer).build_agent(actions_dim, continuous, cfg, obs_space, precision=cfg.fabric.precision, device="cuda", seed=123)
     optimizer, _ = make_optimizer(agent, cfg)
     agent.load_state_dict(state["agent"])
     load_optimizer_state(optimizer, state["optimizer"])
     fresh = _ppo_snapshot(agent, optimizer)
     bad = _same_bits(fresh[:2], saved)
     if bad or fresh[2] != lr:
-        fail(f"ppo resume: restored on the card, {bad[:5]} differ, learning rate {fresh[2]}")
+        fail(f"{what}: restored on the card, {bad[:5]} differ, learning rate {fresh[2]}")
     restored = len(fresh[0]) + sum(len(s) for s in fresh[1])
     del agent, optimizer
-    resumed, trace, rsnaps, wall_s, _ = ppo_through_cli([*PPO_ATARI_ARGS, f"log_root={log_root}", f"checkpoint.resume_from={mid}"], "ppo resumed")
+    resumed, trace, rsnaps, wall_s, _ = ppo_through_cli([*args, f"log_root={log_root}", f"checkpoint.resume_from={mid}"], f"{what}d", trainer)
     bad = _same_bits(rsnaps["before"][:2], saved)
     if bad or rsnaps["before"][2] != lr:
-        fail(f"ppo resume: the resumed update started from other tensors ({bad[:5]}) or learning rate {rsnaps['before'][2]}")
-    if resumed["updates"] != total_iters - 1 or resumed["policy_steps"] != per_iter * total_iters:
-        fail(f"ppo resume: {resumed['updates']} updates to policy step {resumed['policy_steps']}, expected {total_iters - 1} to {per_iter * total_iters}")
-    check_ppo_logged(resumed, cfg, trace, "ppo resumed", first_iter=2, last_log=int(state["last_log"]))
+        fail(f"{what}: the resumed update started from other tensors ({bad[:5]}) or learning rate {rsnaps['before'][2]}")
+    if resumed["updates"] != total_iters - it or resumed["policy_steps"] != per_iter * total_iters:
+        fail(f"{what}: {resumed['updates']} updates to policy step {resumed['policy_steps']}, expected {total_iters - it} to {per_iter * total_iters}")
+    check_ppo_logged(resumed, cfg, trace, f"{what}d", first_iter=it + 1, last_log=int(state["last_log"]),
+                     info=ONPOLICY[trainer]["info"], losses=ONPOLICY[trainer]["losses"])  # fmt: skip
     result = {"checkpoint": mid, "load_s": load_s, "tensors_restored_bit_identical": restored, "learning_rate": lr,
               "resumed_updates": resumed["updates"], "resumed_wall_s": wall_s}  # fmt: skip
-    log(f"ppo resume: {os.path.basename(mid)} loaded with its digest verified in {load_s:.2f} s; {restored} tensors restored on the "
+    log(f"{what}: {os.path.basename(mid)} loaded with its digest verified in {load_s:.2f} s; {restored} tensors restored on the "
         f"card bit for bit; the resumed CLI run started its update from them at learning rate {lr} and took {resumed['updates']} "
         f"update(s) to policy step {resumed['policy_steps']} in {wall_s:.1f} s, logging at the JAX package's steps")  # fmt: skip
     return result
@@ -3006,7 +3090,7 @@ def _busy(averages, n, skip=(), by_kernel=None):
 
     total, ops, annotated = 0.0, 0, 0.0
     for evt in averages:
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        if evt.device_type != torch.autograd.DeviceType.CUDA or MARKER_KERNEL in evt.key:  # profiled's markers
             continue
         ms = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
         if getattr(evt, "is_user_annotation", False) or evt.key.startswith(("Optimizer.", *skip)):
@@ -3658,6 +3742,281 @@ def phase_dv1_training(log_root):
             "metrics_last_step": steps[-1][2], "evaluation": evaluation}  # fmt: skip
 
 
+# A2C and recurrent PPO (phases 26-30): the host path, one process each, on
+# PPO's rollout and GAE. Neither launches an LN-GRU kernel (the JAX package
+# leaves A2C's MLPs and flax's LSTM cell to XLA): their counts stay at 0.
+A2C_CUTS = {"algo.total_steps": "400 (from 25000; 20 updates)", "metric.log_every": "200 (from 5000)",
+            "checkpoint.every": "200 (from 100)"}  # fmt: skip
+A2C_ARGS = ["exp=a2c", "env=dummy", "algo.total_steps=400", "metric.log_every=200", "checkpoint.every=200"]
+A2C_UPDATES = 20
+PPO_REC_CUTS = {"algo.total_steps": "16384 (from 409000; 2 updates)", "checkpoint.every": "8192 (from 100)"}
+PPO_REC_ARGS = ["exp=ppo_recurrent", "env=dummy", "algo.total_steps=16384", "checkpoint.every=8192"]
+PPO_REC_UPDATES = 2
+# The card's update against the CPU's, per parameter leaf's change and per
+# optimizer-state leaf (RMSprop's accumulator, AdamW's moments): the bound
+# of PERF.md §2, for A2C's update (one RMSprop step; an H100 reads 7.5e-6)
+# and recurrent PPO's first AdamW step and first epoch (8 AdamW steps; an
+# H100 reads 2.0e-5 per leaf, 1.0e-5 per moment, and the step-count fault
+# 0.73); its whole update takes PPO's.
+ONPOLICY_REF_TOL = 2e-3
+ONPOLICY_FAULTS = ("lr x 2", "last leaf's gradient zeroed")
+PPO_REC_EPOCH_FAULTS = (*ONPOLICY_FAULTS, "AdamW's step count held at 1")
+
+
+def phase_a2c(log_root):
+    """(26) ``exp=a2c env=dummy`` through the CLI at the recipe's widths,
+    resumed from its mid-run checkpoint bit for bit, ``eval`` on its last,
+    the trained agent's update and rollout step profiled."""
+    result, out, snaps, cfg = ppo_train(A2C_ARGS, A2C_CUTS, "a2c", log_root, A2C_UPDATES, trainer="a2c")
+    resume = onpolicy_resume(out, snaps, cfg, A2C_ARGS, "a2c", log_root, "a2c resume")
+    evaluation = phase_eval(out["checkpoints"][-1], out["test_reward"], "a2c eval")
+    profile = onpolicy_profile("a2c", out["agent"], cfg, "a2c profile")
+    return {"training": result, "resume": resume, "evaluation": evaluation, "profile": profile}
+
+
+def _sequence_rollout(cfg, dev, seed):
+    """A recurrent PPO rollout at the exp's shapes on ``dev`` (random
+    observations, actions, rewards, values, log-probs, ~1% dones, the stored
+    carries) and the update's sequences assembled from it."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent import make_sequences
+    from sheeprl_tpu_torch.utils.ops import gae
+
+    T, E, H = int(cfg.algo.rollout_steps), int(cfg.env.num_envs), int(cfg.algo.rnn.lstm.hidden_size)
+    data, next_obs = _ppo_rollout(cfg, T, E, torch.device("cpu"), seed)
+    rng = np.random.default_rng(seed + 1)
+    data["prev_actions"] = torch.roll(data["actions"], 1, 0) * (1 - torch.roll(data["dones"], 1, 0).float())
+    data["prev_actions"][0] = 0
+    data["prev_hx"], data["prev_cx"] = (torch.from_numpy(rng.normal(0, 0.3, (T, E, H)).astype(np.float32)) for _ in range(2))
+    data["returns"], data["advantages"] = gae(data["rewards"], data["values"], data["dones"].float(), data["values"][-1], 0.99, 0.95)
+    keys = (*cfg.algo.cnn_keys.encoder, *cfg.algo.mlp_keys.encoder, "prev_actions", "actions", "logprobs", "values", "advantages", "returns")
+    seq = make_sequences(data, int(cfg.algo.per_rank_sequence_length), bool(cfg.algo.reset_recurrent_state_on_done), keys)
+    return {k: v.to(dev) for k, v in seq.items()}, {k: v.to(dev) for k, v in next_obs.items()}
+
+
+def phase_ppo_recurrent(log_root):
+    """(27) ``exp=ppo_recurrent env=dummy`` through the CLI at the recipe's
+    widths, resumed from its mid-run checkpoint bit for bit, ``eval``."""
+    result, out, snaps, cfg = ppo_train(PPO_REC_ARGS, PPO_REC_CUTS, "ppo_recurrent", log_root, PPO_REC_UPDATES, trainer="ppo_recurrent")
+    resume = onpolicy_resume(out, snaps, cfg, PPO_REC_ARGS, "ppo_recurrent", log_root, "ppo_recurrent resume")
+    evaluation = phase_eval(out["checkpoints"][-1], out["test_reward"], "ppo_recurrent eval")
+    return {"training": result, "resume": resume, "evaluation": evaluation}, out["agent"], cfg
+
+
+def onpolicy_profile(trainer, agent, cfg, what):
+    """One update of the trained ``trainer`` agent at the recipe's shapes
+    (A2C: GAE over 4 x 5 and 4 minibatches into one RMSprop step; recurrent
+    PPO: 512 sequences of 16, 8 epochs of 8 minibatches, 64 AdamW steps),
+    and one rollout step of its envs (the player's forward and the one copy
+    to the host): host wall (ending in a synchronize), device busy and idle
+    share (``_busy``), device operations, peak memory."""
+    import importlib
+
+    import torch
+
+    from sheeprl_tpu_torch.algos.ppo.ppo import make_optimizer, minibatch_indices
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+    from sheeprl_tpu_torch.utils.utils import prepare_obs
+
+    dev = torch.device("cuda")
+    step = importlib.import_module(f"sheeprl_tpu_torch.algos.{trainer}.{trainer}").make_train_step(agent, make_optimizer(agent, cfg)[0], cfg)
+    T, E = int(cfg.algo.rollout_steps), int(cfg.env.num_envs)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if trainer == "a2c":
+        data, next_obs = _ppo_rollout(cfg, T, E, dev, 21)
+        n, mb, epochs = T * E, int(cfg.algo.per_rank_batch_size), 1
+
+        def update():
+            return step(data, next_obs, minibatch_indices(n, mb, 1, gen)[0])
+    else:
+        data, next_obs = _sequence_rollout(cfg, dev, 21)
+        n, epochs = data["actions"].shape[0], int(cfg.algo.update_epochs)
+        mb = max(1, n // int(cfg.algo.per_rank_num_batches))
+        clip, ent = (torch.tensor(float(v), device=dev) for v in (cfg.algo.clip_coef, cfg.algo.ent_coef))
+
+        def update():
+            return step(data, minibatch_indices(n, mb, epochs, gen), clip, ent)
+
+    update()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        update()
+    torch.cuda.synchronize()
+    update_ms = (time.perf_counter() - t0) / 2 * 1e3
+    update_peak = torch.cuda.max_memory_allocated() / 2**30
+    update_busy, update_ops, _ = _busy(profiled(update, ("cpu", "cuda")).key_averages(), 1, skip=(f"{trainer}/",))
+    if update_busy <= 0.0:
+        fail(f"{what}: torch.profiler saw no device time in the update")
+
+    keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
+    host_obs = {k: v.cpu().numpy() for k, v in next_obs.items() if k in keys}
+    rng = BatchGenerator.from_seed(0, dev)
+    state = {"carry": agent.initial_states(E)} if trainer == "ppo_recurrent" else {}
+    prev_actions = torch.zeros(E, sum(agent.actions_dim), device=dev)
+
+    def rollout_step():
+        prepared = prepare_obs(host_obs, cnn_keys=list(cfg.algo.cnn_keys.encoder), num_envs=E)
+        obs = {k: torch.from_numpy(v).to(dev) for k, v in prepared.items()}
+        with torch.no_grad():
+            if trainer == "a2c":
+                actions, real, logprobs, values = agent.player_step(obs, rng)
+                torch.cat([actions.float(), logprobs, values, real.float()], -1).cpu()
+            else:
+                prev = state["carry"]
+                actions, real, logprobs, values, state["carry"] = agent.player_step(obs, prev_actions, prev, rng)
+                torch.cat([actions.float(), logprobs, values, prev[1], prev[0], real.float()], -1).cpu()
+
+    for _ in range(5):
+        rollout_step()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        rollout_step()
+    step_ms = (time.perf_counter() - t0) / 50 * 1e3
+    step_peak = torch.cuda.max_memory_allocated() / 2**30
+    step_busy, step_ops, _ = _busy(profiled(lambda: [rollout_step() for _ in range(20)], ("cpu", "cuda")).key_averages(), 20,
+                                   skip=(f"{trainer}/",))  # fmt: skip
+    optimizer_steps = epochs * -(-n // mb) if trainer == "ppo_recurrent" else 1
+    result = {
+        "update": {"host_wall_ms": update_ms, "device_busy_ms": update_busy, "idle_share": max(0.0, 1 - update_busy / update_ms),
+                   "device_ops": update_ops, "optimizer_steps": optimizer_steps, "rows_or_sequences": n, "peak_gib": update_peak},
+        "rollout_step": {"host_wall_ms": step_ms, "device_busy_ms": step_busy, "idle_share": max(0.0, 1 - step_busy / step_ms),
+                         "device_ops": step_ops, "peak_gib": step_peak, "num_envs": E},
+    }  # fmt: skip
+    log(f"{what}: update ({optimizer_steps} optimizer step(s) over {n} {'rows' if trainer == 'a2c' else 'sequences'}) {update_ms:.2f} ms host "
+        f"wall, {update_busy:.3f} ms device busy (idle {result['update']['idle_share']:.3f}), {update_ops:.0f} device operations, peak "
+        f"{update_peak:.2f} GiB; rollout step (player forward + one copy to the host, {E} envs) {step_ms:.3f} ms host wall, {step_busy:.3f} "
+        f"ms busy (idle {result['rollout_step']['idle_share']:.3f}), {step_ops:.0f} operations")  # fmt: skip
+    return result
+
+
+def phase_ppo_recurrent_profile(agent, cfg):
+    """(28) Recurrent PPO's update and rollout step (:func:`onpolicy_profile`)."""
+    return onpolicy_profile("ppo_recurrent", agent, cfg, "ppo_recurrent profile")
+
+
+def onpolicy_reference(trainer, args, what):
+    """One update of ``trainer`` (A2C: the recipe's 4 x 5 rollout, 4
+    minibatches summed into one RMSprop step; recurrent PPO: 16 x 512, 64
+    AdamW steps over sequences of 16) on the card in 32-true with TF32 off
+    against the same update on the CPU, from the same weights, data and
+    indices. Each parameter leaf's change from the start, ``||d_card -
+    d_cpu|| / ||d_cpu||``, and each leaf of the optimizer's state, within
+    ``ONPOLICY_REF_TOL``; the mean losses within rtol 1e-4. Recurrent PPO is
+    held so over its update's first AdamW step and its first epoch (8 AdamW
+    steps), where a fault in the later steps' bias correction must also be
+    rejected; its whole update, whose
+    clipped objective turns rounding into whole steps as ppo_atari's does
+    (the card from weights one ulp away reads 0.069 and 0.10 on an H100),
+    is held to PPO's bounds (``PPO_PARAM_CHANGE_TOL``,
+    ``PPO_MOMENT_TOL``, losses within rtol 1e-3). For each, the card's
+    update from weights one f32 ulp away is reported, and each of
+    ``ONPOLICY_FAULTS`` (``PPO_REC_EPOCH_FAULTS`` for the first epoch)
+    planted on the card must be rejected by the parameter check."""
+    import importlib
+
+    import torch
+
+    from sheeprl_tpu_torch.algos.ppo.ppo import make_optimizer, minibatch_indices
+    from sheeprl_tpu_torch.config import compose
+
+    module = importlib.import_module(f"sheeprl_tpu_torch.algos.{trainer}.{trainer}")
+    cfg = compose([*args, "device=cpu"])
+    obs_space, actions_dim, continuous = _ppo_spaces(cfg)
+    T, E = int(cfg.algo.rollout_steps), int(cfg.env.num_envs)
+    gen = torch.Generator().manual_seed(3)
+    if trainer == "a2c":
+        indices = minibatch_indices(T * E, int(cfg.algo.per_rank_batch_size), 1, gen)[0]
+        variants = {"update": (indices, ONPOLICY_REF_TOL, ONPOLICY_REF_TOL, 1e-4, ONPOLICY_FAULTS)}
+    else:
+        n = T // int(cfg.algo.per_rank_sequence_length) * E
+        indices = minibatch_indices(n, max(1, n // int(cfg.algo.per_rank_num_batches)), int(cfg.algo.update_epochs), gen)
+        variants = {"first AdamW step": (indices[:1, :1], ONPOLICY_REF_TOL, ONPOLICY_REF_TOL, 1e-4, ONPOLICY_FAULTS),
+                    "first epoch": (indices[:1], ONPOLICY_REF_TOL, ONPOLICY_REF_TOL, 1e-4, PPO_REC_EPOCH_FAULTS),
+                    "update": (indices, PPO_PARAM_CHANGE_TOL, PPO_MOMENT_TOL, 1e-3, ONPOLICY_FAULTS)}  # fmt: skip
+
+    def update(where, idx, fault=None):
+        agent = _onpolicy_agent(trainer).build_agent(actions_dim, continuous, cfg, obs_space, device=where, seed=7)
+        if fault == "nudge":
+            with torch.no_grad():
+                for p in agent.parameters():
+                    p.mul_(1 + 2.0**-23)
+        start = {k: v.detach().cpu().clone() for k, v in agent.state_dict().items()}
+        optimizer, _ = make_optimizer(agent, cfg)
+        if fault == "lr x 2":
+            for group in optimizer.param_groups:
+                group["lr"] = 2 * group["lr"]
+        elif fault == ONPOLICY_FAULTS[1]:
+            list(agent.parameters())[-1].register_hook(torch.zeros_like)
+        elif fault == PPO_REC_EPOCH_FAULTS[2]:
+            # every step's bias correction that of the first: the count falls back to 0 before the next step adds one
+            optimizer.register_step_post_hook(lambda opt, *_: [s["step"].zero_() for s in opt.state.values()])
+        step = module.make_train_step(agent, optimizer, cfg)
+        if trainer == "a2c":
+            data, next_obs = _ppo_rollout(cfg, T, E, torch.device(where), 13)
+            metrics = step(data, next_obs, idx.to(where))
+        else:
+            data, _ = _sequence_rollout(cfg, torch.device(where), 13)
+            clip, ent = (torch.tensor(float(v), device=where) for v in (cfg.algo.clip_coef, cfg.algo.ent_coef))
+            metrics = step(data, idx.to(where), clip, ent)
+        names = dict(agent.named_parameters())
+        state = {f"{k} {n}": v.detach().cpu() for n, p in names.items() for k, v in optimizer.state[p].items() if k != "step"}
+        return ({k: float(v) for k, v in metrics.items()}, start, {k: v.detach().cpu() for k, v in agent.state_dict().items()}, state)
+
+    def worst(gaps):
+        k = max(gaps, key=gaps.get)
+        return {"leaf": k, "gap": gaps[k]}
+
+    results = {}
+    for name, (idx, param_tol, state_tol, loss_rtol, planted) in variants.items():
+        steps = 1 if trainer == "a2c" else idx.shape[0] * idx.shape[1]
+        cpu_m, cpu_start, cpu_p, cpu_s = update("cpu", idx)
+        gpu_m, gpu_start, gpu_p, gpu_s = update("cuda", idx)
+        if any(not torch.equal(gpu_start[k], cpu_start[k]) for k in cpu_start):
+            fail(f"{what}: the card's agent does not start from the CPU's weights")
+        param = worst(_relative_gaps(gpu_p, cpu_p, gpu_start, cpu_start))
+        opt_state = worst(_relative_gaps(gpu_s, cpu_s))
+        _, nudge_start, nudge_p, nudge_s = update("cuda", idx, "nudge")
+        floor = {"param": worst(_relative_gaps(nudge_p, gpu_p, nudge_start, gpu_start)), "optimizer_state": worst(_relative_gaps(nudge_s, gpu_s))}
+        faults = {}
+        for fault in planted:
+            f_m, f_start, f_p, f_s = update("cuda", idx, fault)
+            faults[fault] = {"param": worst(_relative_gaps(f_p, cpu_p, f_start, cpu_start)), "optimizer_state": worst(_relative_gaps(f_s, cpu_s)),
+                             "loss_rel": max(abs(f_m[k] - cpu_m[k]) / abs(cpu_m[k]) for k in cpu_m)}  # fmt: skip
+        log(f"{what} ({name}, {steps} optimizer step(s)): card against CPU in 32-true: losses {json.dumps({k: [gpu_m[k], cpu_m[k]] for k in cpu_m})} "
+            f"(rtol {loss_rtol}); worst leaf's change {param['gap']:.3g} of its norm ({param['leaf']}, limit {param_tol}); worst "
+            f"optimizer-state leaf {opt_state['gap']:.3g} ({opt_state['leaf']}, limit {state_tol}); the card from weights one ulp away "
+            f"{json.dumps(floor)}; planted faults {json.dumps(faults)}")  # fmt: skip
+        for k in cpu_m:
+            if abs(gpu_m[k] - cpu_m[k]) > 1e-6 + loss_rtol * abs(cpu_m[k]):
+                fail(f"{what} ({name}): {k} {gpu_m[k]} on the card, {cpu_m[k]} on the CPU")
+        if param["gap"] > param_tol:
+            fail(f"{what} ({name}): {param['leaf']}'s change on the card differs from the CPU's by {param['gap']} of its norm (> {param_tol})")
+        if opt_state["gap"] > state_tol:
+            fail(f"{what} ({name}): the optimizer's {opt_state['leaf']} differs on the card by {opt_state['gap']} of its norm (> {state_tol})")
+        for fault, read in faults.items():
+            if read["param"]["gap"] <= param_tol:
+                fail(f"{what} ({name}): the update with {fault} passes the parameter check ({read['param']})")
+        results[name] = {"optimizer_steps": steps, "losses_card": gpu_m, "losses_cpu": cpu_m, "worst_param_change": param,
+                         "worst_optimizer_state": opt_state, "one_ulp_nudge": floor, "planted_faults": faults,
+                         "tolerance": {"param_change": param_tol, "optimizer_state": state_tol, "loss_rtol": loss_rtol}}  # fmt: skip
+    return results
+
+
+def phase_a2c_reference():
+    """(29) One A2C update, card against CPU (:func:`onpolicy_reference`)."""
+    return onpolicy_reference("a2c", A2C_ARGS, "a2c reference")
+
+
+def phase_ppo_recurrent_reference():
+    """(30) One recurrent PPO update, card against CPU (:func:`onpolicy_reference`)."""
+    return onpolicy_reference("ppo_recurrent", PPO_REC_ARGS, "ppo_recurrent reference")
+
+
 def main() -> None:
     import warnings
 
@@ -3741,6 +4100,15 @@ def main() -> None:
         dv1_training = phase_dv1_training(workdir)
         dv2_phases_s = time.perf_counter() - dv2_t0
         log(f"dreamer_v2, dreamer_v1: phases 21-25 took {dv2_phases_s:.1f} s")
+        onpolicy_t0 = time.perf_counter()
+        a2c = phase_a2c(workdir)
+        ppo_recurrent, rec_agent, rec_cfg = phase_ppo_recurrent(workdir)
+        ppo_recurrent_profile = phase_ppo_recurrent_profile(rec_agent, rec_cfg)
+        del rec_agent
+        a2c_reference = phase_a2c_reference()
+        ppo_recurrent_reference = phase_ppo_recurrent_reference()
+        onpolicy_phases_s = time.perf_counter() - onpolicy_t0
+        log(f"a2c, ppo_recurrent: phases 26-30 took {onpolicy_phases_s:.1f} s")
         replay_sample = phase_replay_sample()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -3765,9 +4133,13 @@ def main() -> None:
     bwd1024_in_step_ms = continuous_profile["ln_gru_backward_in_step_ms_by_batch"][IMAGINED_BATCH]["ms"]
 
     def entry(name, source, replaces, shapes, launches, row, err):
+        # The on-policy trainers' runs (phases 26-27) launch none: checked there, shown here.
+        kind = {"ln_gru_forward": "forward", "ln_gru_forward_tensor_core": "tensor_core", "ln_gru_backward": "backward"}[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "shapes": shapes,
                 "launches": launches, "max_abs_err": err, "ms": row["ms"], "ms_min": row["ms_min"], "ms_max": row["ms_max"],
-                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None}  # fmt: skip
+                "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
+                "launches_a2c": a2c["training"]["ln_gru_launches"][kind],
+                "launches_ppo_recurrent": ppo_recurrent["training"]["ln_gru_launches"][kind]}  # fmt: skip
 
     def in_graph(kernel):
         """The kernel's nodes in the captured step's graph, and its launches
@@ -3868,6 +4240,12 @@ def main() -> None:
         "dv2_reference": dv2_reference,
         "dv1_training": dv1_training,
         "dv2_phases_s": dv2_phases_s,
+        "a2c": a2c,
+        "a2c_reference": a2c_reference,
+        "ppo_recurrent": ppo_recurrent,
+        "ppo_recurrent_profile": ppo_recurrent_profile,
+        "ppo_recurrent_reference": ppo_recurrent_reference,
+        "onpolicy_phases_s": onpolicy_phases_s,
         "kernels": kernels_line["kernels"],
         "phase_s": phase_s,
     }

@@ -123,7 +123,65 @@ def _tanh_correction(tanh_actions: torch.Tensor) -> torch.Tensor:
     return 2.0 * (math.log(2.0) - tanh_actions - F.softplus(-2.0 * tanh_actions)).sum(-1)
 
 
-class PPOAgent(nn.Module):
+class ActionHeads:
+    """The action distributions over an actor's outputs, for an agent with
+    ``actions_dim``, ``is_continuous`` and ``distribution`` (PPO's, A2C's and
+    recurrent PPO's): the stored actions' log-probs and entropies, sampled
+    actions and greedy ones."""
+
+    def _normal(self, out: torch.Tensor) -> Independent:
+        mean, log_std = out.chunk(2, dim=-1)
+        return Independent(Normal(mean, log_std.exp()), 1)
+
+    def _evaluate(self, actor_out: List[torch.Tensor], actions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(logprobs [..., 1], entropy [..., 1]) of stored ``actions``
+        (concatenated one-hots, or the env's continuous actions)."""
+        if self.is_continuous:
+            dist = self._normal(actor_out[0])
+            if self.distribution == "tanh_normal":
+                logprob = dist.log_prob(safeatanh(actions, _EPS)) - _tanh_correction(actions)
+            else:
+                logprob = dist.log_prob(actions)
+            return logprob[..., None], dist.entropy()[..., None]
+        per_head = torch.split(actions, list(self.actions_dim), dim=-1)
+        dists = [OneHotCategorical(logits) for logits in actor_out]
+        logprob = torch.stack([d.log_prob(a) for d, a in zip(dists, per_head)], -1).sum(-1, keepdim=True)
+        return logprob, torch.stack([d.entropy() for d in dists], -1).sum(-1, keepdim=True)
+
+    def _sample(self, actor_out: List[torch.Tensor], rng) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(actions as stored [B, sum(actions_dim)], the env's actions
+        (indices [B, heads] for discrete, the actions for continuous),
+        logprobs [B, 1]) drawn from ``rng``."""
+        if self.is_continuous:
+            dist = self._normal(actor_out[0])
+            actions = dist.sample(rng)
+            if self.distribution == "tanh_normal":
+                tanh_actions = safetanh(actions, _EPS)
+                logprob = dist.log_prob(actions) - _tanh_correction(tanh_actions)
+                actions = tanh_actions
+            else:
+                logprob = dist.log_prob(actions)
+            return actions, actions, logprob[..., None]
+        dists = [OneHotCategorical(logits) for logits in actor_out]
+        one_hots = [d.sample(rng) for d in dists]
+        logprob = torch.stack([d.log_prob(a) for d, a in zip(dists, one_hots)], -1).sum(-1, keepdim=True)
+        return torch.cat(one_hots, -1), torch.stack([a.argmax(-1) for a in one_hots], -1), logprob
+
+    def _act(self, actor_out: List[torch.Tensor], rng=None, greedy: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(actions as stored, the env's actions): the mode with ``greedy``,
+        else a draw from ``rng``."""
+        if self.is_continuous:
+            actions = actor_out[0].chunk(2, dim=-1)[0] if greedy else self._normal(actor_out[0]).sample(rng)
+            actions = safetanh(actions, _EPS) if self.distribution == "tanh_normal" else actions
+            return actions, actions
+        one_hots = []
+        for logits in actor_out:
+            dist = OneHotCategorical(logits)
+            one_hots.append(dist.mode if greedy else dist.sample(rng))
+        return torch.cat(one_hots, -1), torch.stack([a.argmax(-1) for a in one_hots], -1)
+
+
+class PPOAgent(ActionHeads, nn.Module):
     """Features -> actor heads and value, with the action-space metadata the
     rollout, the update, the test episode and the serving adapter need."""
 
@@ -151,28 +209,13 @@ class PPOAgent(nn.Module):
         feat = self.feature_extractor(obs)
         return [o.float() for o in self.actor(feat)], self.critic(feat).float()
 
-    def _normal(self, out: torch.Tensor) -> Independent:
-        mean, log_std = out.chunk(2, dim=-1)
-        return Independent(Normal(mean, log_std.exp()), 1)
-
     # ----------------------------------------------------------- training
     def evaluate_actions(self, obs: Dict[str, torch.Tensor], actions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """(logprobs [B, 1], entropy [B, 1], values [B, 1]) of stored
         ``actions`` (concatenated one-hots, or the env's continuous actions)
         for normalized ``obs``."""
         actor_out, values = self(obs)
-        if self.is_continuous:
-            dist = self._normal(actor_out[0])
-            if self.distribution == "tanh_normal":
-                logprob = dist.log_prob(safeatanh(actions, _EPS)) - _tanh_correction(actions)
-            else:
-                logprob = dist.log_prob(actions)
-            return logprob[..., None], dist.entropy()[..., None], values
-        per_head = torch.split(actions, list(self.actions_dim), dim=-1)
-        dists = [OneHotCategorical(logits) for logits in actor_out]
-        logprob = torch.stack([d.log_prob(a) for d, a in zip(dists, per_head)], -1).sum(-1, keepdim=True)
-        entropy = torch.stack([d.entropy() for d in dists], -1).sum(-1, keepdim=True)
-        return logprob, entropy, values
+        return (*self._evaluate(actor_out, actions), values)
 
     # ------------------------------------------------------------- player
     def player_step(self, obs: Dict[str, torch.Tensor], rng) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -181,21 +224,7 @@ class PPOAgent(nn.Module):
         (indices [B, heads] for discrete, the actions for continuous),
         logprobs [B, 1], values [B, 1])."""
         actor_out, values = self(normalize_obs(obs, self.cnn_keys))
-        if self.is_continuous:
-            dist = self._normal(actor_out[0])
-            actions = dist.sample(rng)
-            if self.distribution == "tanh_normal":
-                tanh_actions = safetanh(actions, _EPS)
-                logprob = dist.log_prob(actions) - _tanh_correction(tanh_actions)
-                actions = tanh_actions
-            else:
-                logprob = dist.log_prob(actions)
-            return actions, actions, logprob[..., None], values
-        dists = [OneHotCategorical(logits) for logits in actor_out]
-        one_hots = [d.sample(rng) for d in dists]
-        logprob = torch.stack([d.log_prob(a) for d, a in zip(dists, one_hots)], -1).sum(-1, keepdim=True)
-        real = torch.stack([a.argmax(-1) for a in one_hots], -1)
-        return torch.cat(one_hots, -1), real, logprob, values
+        return (*self._sample(actor_out, rng), values)
 
     def get_values(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Values [B, 1] of raw ``obs``."""
@@ -205,14 +234,51 @@ class PPOAgent(nn.Module):
         """The env's actions for raw ``obs``: the mode with ``greedy``, else
         a draw from ``rng``."""
         actor_out, _ = self(normalize_obs(obs, self.cnn_keys))
-        if self.is_continuous:
-            actions = actor_out[0].chunk(2, dim=-1)[0] if greedy else self._normal(actor_out[0]).sample(rng)
-            return safetanh(actions, _EPS) if self.distribution == "tanh_normal" else actions
-        real = []
-        for logits in actor_out:
-            dist = OneHotCategorical(logits)
-            real.append((dist.mode if greedy else dist.sample(rng)).argmax(-1))
-        return torch.stack(real, -1)
+        return self._act(actor_out, rng, greedy)[1]
+
+
+def resolve_distribution(cfg, is_continuous: bool) -> str:
+    """``distribution.type``: ``auto`` (``normal`` for continuous actions,
+    ``discrete`` otherwise), ``normal``, ``tanh_normal`` or ``discrete``,
+    which must suit the action space."""
+    distribution = str((cfg.get("distribution") or {}).get("type", "auto")).lower()
+    if distribution not in ("auto", "normal", "tanh_normal", "discrete"):
+        raise ValueError(f"The distribution must be on of: `auto`, `discrete`, `normal` and `tanh_normal`. Found: {distribution}")
+    if distribution == "discrete" and is_continuous:
+        raise ValueError("You have choose a discrete distribution but `is_continuous` is true")
+    if distribution not in ("discrete", "auto") and not is_continuous:
+        raise ValueError("You have choose a continuous distribution but `is_continuous` is false")
+    if distribution == "auto":
+        distribution = "normal" if is_continuous else "discrete"
+    return distribution
+
+
+def build_features(algo, obs_space, dtype: torch.dtype) -> Tuple[MultiEncoder, int]:
+    """The feature extractor of ``algo``'s encoder keys and its output width."""
+    cnn_keys, mlp_keys = list(algo.cnn_keys.encoder), list(algo.mlp_keys.encoder)
+    cnn_encoder = mlp_encoder = None
+    if cnn_keys:
+        shapes = [tuple(obs_space[k].shape) for k in cnn_keys]
+        cnn_encoder = CNNEncoder(cnn_keys, sum(s[-1] for s in shapes), shapes[0][:2], algo.encoder.cnn_features_dim, dtype)
+    if mlp_keys:
+        enc = algo.encoder
+        mlp_encoder = MLPEncoder(
+            mlp_keys, sum(int(np.prod(obs_space[k].shape)) for k in mlp_keys), enc.mlp_features_dim, enc.dense_units,
+            enc.mlp_layers, enc.dense_act, enc.layer_norm, dtype,
+        )  # fmt: skip
+    return MultiEncoder(cnn_encoder, mlp_encoder), sum(e.output_dim for e in (cnn_encoder, mlp_encoder) if e is not None)
+
+
+def build_heads(algo, width: int, actions_dim: Sequence[int], is_continuous: bool, dtype: torch.dtype) -> Tuple[PPOActor, MLP]:
+    """The actor and the critic of ``algo`` over features of ``width``."""
+    actor = PPOActor(
+        width, actions_dim, is_continuous, algo.actor.dense_units, algo.actor.mlp_layers, algo.actor.dense_act, algo.actor.layer_norm, dtype
+    )
+    critic = MLP(
+        width, [int(algo.critic.dense_units)] * int(algo.critic.mlp_layers), 1, activation=algo.critic.dense_act,
+        norm_eps=_LN_EPS if algo.critic.layer_norm else None, dtype=dtype,
+    )  # fmt: skip
+    return actor, critic
 
 
 def build_agent(
@@ -228,44 +294,15 @@ def build_agent(
 ) -> PPOAgent:
     """The agent of ``cfg.algo`` for ``obs_space`` on ``device`` (``cuda``
     unless the caller asks for the CPU), initialised from ``seed`` or loaded
-    from ``agent_state``. ``distribution.type`` is ``auto`` (``normal`` for
-    continuous actions, ``discrete`` otherwise), ``normal``, ``tanh_normal``
-    or ``discrete``, and must suit the action space."""
+    from ``agent_state``; ``distribution.type`` as
+    :func:`resolve_distribution` reads it."""
     device = resolve_device(device)
     disable_tf32()
     dtype = resolve_precision(str(precision)).compute_dtype
-    distribution = str((cfg.get("distribution") or {}).get("type", "auto")).lower()
-    if distribution not in ("auto", "normal", "tanh_normal", "discrete"):
-        raise ValueError(f"The distribution must be on of: `auto`, `discrete`, `normal` and `tanh_normal`. Found: {distribution}")
-    if distribution == "discrete" and is_continuous:
-        raise ValueError("You have choose a discrete distribution but `is_continuous` is true")
-    if distribution not in ("discrete", "auto") and not is_continuous:
-        raise ValueError("You have choose a continuous distribution but `is_continuous` is false")
-    if distribution == "auto":
-        distribution = "normal" if is_continuous else "discrete"
-
-    algo = cfg.algo
-    cnn_keys, mlp_keys = list(algo.cnn_keys.encoder), list(algo.mlp_keys.encoder)
-    cnn_encoder = mlp_encoder = None
-    if cnn_keys:
-        shapes = [tuple(obs_space[k].shape) for k in cnn_keys]
-        cnn_encoder = CNNEncoder(cnn_keys, sum(s[-1] for s in shapes), shapes[0][:2], algo.encoder.cnn_features_dim, dtype)
-    if mlp_keys:
-        enc = algo.encoder
-        mlp_encoder = MLPEncoder(
-            mlp_keys, sum(int(np.prod(obs_space[k].shape)) for k in mlp_keys), enc.mlp_features_dim, enc.dense_units,
-            enc.mlp_layers, enc.dense_act, enc.layer_norm, dtype,
-        )  # fmt: skip
-    features = MultiEncoder(cnn_encoder, mlp_encoder)
-    width = sum(e.output_dim for e in (cnn_encoder, mlp_encoder) if e is not None)
-    actor = PPOActor(
-        width, actions_dim, is_continuous, algo.actor.dense_units, algo.actor.mlp_layers, algo.actor.dense_act, algo.actor.layer_norm, dtype
-    )
-    critic = MLP(
-        width, [int(algo.critic.dense_units)] * int(algo.critic.mlp_layers), 1, activation=algo.critic.dense_act,
-        norm_eps=_LN_EPS if algo.critic.layer_norm else None, dtype=dtype,
-    )  # fmt: skip
-    agent = PPOAgent(features, actor, critic, actions_dim, is_continuous, distribution, cnn_keys)
+    distribution = resolve_distribution(cfg, is_continuous)
+    features, width = build_features(cfg.algo, obs_space, dtype)
+    actor, critic = build_heads(cfg.algo, width, actions_dim, is_continuous, dtype)
+    agent = PPOAgent(features, actor, critic, actions_dim, is_continuous, distribution, cfg.algo.cnn_keys.encoder)
     if agent_state is None:
         init_flax_(agent, seed)
     else:

@@ -1,4 +1,4 @@
-"""Carry DreamerV3, PPO, SAC, DroQ, DreamerV2 and DreamerV1 weights from the JAX package's param trees into the port.
+"""Carry DreamerV3, PPO, A2C, recurrent PPO, SAC, DroQ, DreamerV2 and DreamerV1 weights from the JAX package's param trees into the port.
 
 Input: the ``world_model``, ``actor`` and ``critic`` trees of the JAX
 DreamerV3 train state, or the JAX PPO agent's params, as nested dicts of
@@ -6,8 +6,9 @@ numpy arrays (with or without the top ``params`` level), the JAX PPO agent's
 params, the JAX SAC or DroQ train state (``actor``, ``qfs``,
 ``qfs_target``, ``log_alpha``), or the JAX DreamerV2 or DreamerV1 train
 state (``world_model``, ``actor``, ``critic`` and DreamerV2's
-``target_critic``). Output: state dicts for the port's ``WorldModel``,
-``Actor`` and critic ``MLP``, its ``PPOAgent``, its
+``target_critic``), or the JAX recurrent PPO agent's params. Output: state
+dicts for the port's ``WorldModel``, ``Actor`` and critic ``MLP``, its
+``PPOAgent`` (also A2C's), its ``RecurrentPPOAgent``, its
 ``SACAgent``/``DROQAgent``, or one per module of its ``DV2Agent`` or
 ``DV1Agent``.
 
@@ -24,6 +25,10 @@ state (``world_model``, ``actor``, ``critic`` and DreamerV2's
   ``hn``) becomes the port's ``FlaxGRUCell``: the three input kernels and
   biases stacked as one Linear (gates r, z, n), the three recurrent kernels
   as another, and ``hn``'s bias as ``hidden_bias``.
+- flax's ``OptimizedLSTMCell`` (``ii``, ``if``, ``ig``, ``io`` without
+  bias; ``hi``, ``hf``, ``hg``, ``ho`` with one) becomes the port's
+  ``ResetLSTMCell``: the input kernels stacked in gate order as one
+  Linear, the recurrent kernels and biases as another.
 - The CNN embedding stays flattened in HWC order: the port flattens NHWC,
   so the next Dense's rows need no permutation.
 - A critic ensemble under ``nn.vmap`` (SAC, DroQ) keeps its stacked
@@ -295,13 +300,9 @@ def actor_state_dict(tree: Mapping[str, Any]) -> StateDict:
 
 
 
-def ppo_state_dict(tree: Mapping[str, Any]) -> StateDict:
-    """The port's ``PPOAgent`` state dict from the JAX PPO agent's params:
-    the NatureCNN's convolutions and ``fc``, the MLP encoder, the actor's
-    backbone and heads, and the critic. The flax tree holds the encoders at
-    its top level; the port holds them under ``feature_extractor``."""
-    rest = _params(tree)
-    out: StateDict = {}
+def _ppo_modules(rest: Dict[str, Any], out: StateDict) -> None:
+    """PPO's encoders (at the flax tree's top level; under
+    ``feature_extractor`` in the port), actor and critic, popped from ``rest``."""
     if "cnn_encoder" in rest:
         enc = _take(rest.pop("cnn_encoder"), "cnn_encoder")
         model = _take(enc.pop("model"), "cnn_encoder/model")
@@ -324,7 +325,57 @@ def ppo_state_dict(tree: Mapping[str, Any]) -> StateDict:
             _dense(actor.pop(key), f"actor/{key}", f"actor.heads.{idx}.", out)
     _done(actor, "actor")
     _mlp(rest.pop("critic"), "critic", "critic.", out)
+
+
+def ppo_state_dict(tree: Mapping[str, Any]) -> StateDict:
+    """The port's ``PPOAgent`` state dict from the JAX PPO agent's params:
+    the NatureCNN's convolutions and ``fc``, the MLP encoder, the actor's
+    backbone and heads, and the critic."""
+    rest = _params(tree)
+    out: StateDict = {}
+    _ppo_modules(rest, out)
     _done(rest, "ppo")
+    return out
+
+
+a2c_state_dict = ppo_state_dict  # A2C's agent is PPO's
+
+
+def ppo_recurrent_state_dict(tree: Mapping[str, Any]) -> StateDict:
+    """The port's ``RecurrentPPOAgent`` state dict from the JAX recurrent PPO
+    agent's params: PPO's modules, the optional ``pre_rnn_mlp`` and
+    ``post_rnn_mlp``, and flax's ``OptimizedLSTMCell`` (``lstm/cell``): its
+    input kernels ``ii``, ``if``, ``ig``, ``io`` stacked in that gate order
+    as ``lstm.input``, its recurrent kernels and biases ``hi`` ... ``ho`` as
+    ``lstm.hidden``."""
+    rest = _params(tree)
+    out: StateDict = {}
+    _ppo_modules(rest, out)
+    for name in ("pre_rnn_mlp", "post_rnn_mlp"):
+        if name in rest:
+            _mlp(rest.pop(name), name, f"{name}.", out)
+    lstm = _take(rest.pop("lstm"), "lstm")
+    out.update({f"lstm.{k}": v for k, v in lstm_cell_state_dict(lstm).items()})
+    _done(rest, "ppo_recurrent")
+    return out
+
+
+def lstm_cell_state_dict(tree: Mapping[str, Any]) -> StateDict:
+    """The port's ``ResetLSTMCell`` state dict from the params of the JAX
+    ``_ResetLSTMCell`` (``{"cell": {ii, if, ig, io, hi, hf, hg, ho}}``, with
+    or without the top ``params`` level)."""
+    rest = _params(tree)
+    cell = _take(rest.pop("cell"), "cell")
+    _done(rest, "lstm")
+    out: StateDict = {}
+    for side, port in (("i", "input"), ("h", "hidden")):
+        gates = [_take(cell.pop(f"{side}{g}"), f"cell/{side}{g}") for g in "ifgo"]
+        out[f"{port}.weight"] = torch.cat([_tensor(gate.pop("kernel")) for gate in gates], 1).t().contiguous()
+        if side == "h":
+            out["hidden.bias"] = torch.cat([_tensor(gate.pop("bias")) for gate in gates])
+        for g, gate in zip("ifgo", gates):
+            _done(gate, f"cell/{side}{g}")
+    _done(cell, "cell")
     return out
 
 

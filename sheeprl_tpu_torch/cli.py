@@ -1,12 +1,12 @@
 """Command lines of the port::
 
-    python -m sheeprl_tpu_torch exp=<ppo | ppo_atari | sac | droq | dreamer_v3_100k_ms_pacman | dreamer_v2_ms_pacman | ...> env=dummy [key=value ...] [device=cpu]
+    python -m sheeprl_tpu_torch exp=<ppo | ppo_atari | a2c | ppo_recurrent | sac | droq | dreamer_v3_100k_ms_pacman | dreamer_v2_ms_pacman | ...> env=dummy [key=value ...] [device=cpu]
     python -m sheeprl_tpu_torch.eval checkpoint_path=<run>/version_N/checkpoint/ckpt_<step>_0.ckpt [key=value ...] [device=cpu]
 
 Both run on ``cuda`` unless ``device=cpu`` is given, and raise without a
 card. The config is composed from the port's tree
 (:mod:`sheeprl_tpu_torch.config`, ``sheeprl_tpu_torch/configs/``): any exp
-there composes (``ppo``, ``ppo_atari``, ``sac``, ``droq``,
+there composes (``ppo``, ``ppo_atari``, ``a2c``, ``ppo_recurrent``, ``sac``, ``droq``,
 ``dreamer_v3_100k_ms_pacman``, ``dreamer_v3_dmc_walker_walk``,
 ``dreamer_v3``, ``dreamer_v2_ms_pacman``, ``dreamer_v2``, ``dreamer_v1``;
 SAC and DroQ want ``env.id=continuous_dummy``), an unknown key raises, and

@@ -3,12 +3,17 @@
 observation's value, GAE over the ``(T, E, 1)`` per-step scalars, and the
 rollout flattened to the ``(T * E, ...)`` minibatch pool in row order
 ``t * E + e``. The JAX package runs it inside the update's jit; here it is
-the first part of the train step, on the step's device, without gradients."""
+the first part of the train step, on the step's device, without gradients.
+
+:func:`bootstrap_truncated` is the rollout's own bootstrap, which every
+on-policy trainer of the JAX package writes inline after ``envs.step``: a
+truncated episode's reward gains ``gamma * V(final obs)``."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Callable, Dict, Mapping, Sequence
 
+import numpy as np
 import torch
 
 from sheeprl_tpu_torch.utils.ops import gae
@@ -36,3 +41,23 @@ def fuse_gae_pool(
     pool["advantages"] = advantages.reshape(n, *advantages.shape[2:])
     pool["values"] = values.reshape(n, *values.shape[2:])
     return pool
+
+
+def bootstrap_truncated(
+    rewards: np.ndarray,
+    truncated: np.ndarray,
+    info: Mapping[str, Any],
+    obs_keys: Sequence[str],
+    gamma: float,
+    values_of: Callable[[np.ndarray, Dict[str, np.ndarray]], np.ndarray],
+) -> None:
+    """Add ``gamma * values_of(envs, final_obs)`` to ``rewards[envs]`` in
+    place, for the ``envs`` that ``truncated`` marks: ``final_obs`` holds
+    their ``info["final_obs"]`` stacked per key as float32, and
+    ``values_of`` returns their values on the host."""
+    envs = np.nonzero(truncated)[0]
+    if len(envs) == 0:
+        return
+    final = {k: np.stack([np.asarray(info["final_obs"][e][k], np.float32) for e in envs]) for k in obs_keys}
+    values = np.asarray(values_of(envs, final))
+    rewards[envs] += gamma * values.reshape(rewards[envs].shape)

@@ -4,7 +4,8 @@ Each algorithm module registers its ``main(cfg)`` entry point with
 :func:`register_algorithm`, and its evaluation function with
 :func:`register_evaluation`; the command line looks both up by
 ``algo.name``. :func:`register_all` imports the modules that register: the
-port has DreamerV3, PPO, SAC, DroQ, DreamerV2 and DreamerV1.
+port has DreamerV3, PPO, SAC, DroQ, DreamerV2, DreamerV1, A2C and
+recurrent PPO.
 """
 
 from __future__ import annotations
@@ -29,6 +30,10 @@ _MODULES = (
     "sheeprl_tpu_torch.algos.dreamer_v2.evaluate",
     "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1",
     "sheeprl_tpu_torch.algos.dreamer_v1.evaluate",
+    "sheeprl_tpu_torch.algos.a2c.a2c",
+    "sheeprl_tpu_torch.algos.a2c.evaluate",
+    "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
+    "sheeprl_tpu_torch.algos.ppo_recurrent.evaluate",
 )
 
 

@@ -39,7 +39,9 @@ def test_import_every_module_without_jax_or_the_jax_package():
                 "algos.droq.agent", "algos.droq.utils", "algos.droq.droq", "algos.droq.evaluate",
                 "algos.dreamer_v2.agent", "algos.dreamer_v2.loss", "algos.dreamer_v2.utils", "algos.dreamer_v2.dreamer_v2",
                 "algos.dreamer_v2.evaluate", "algos.dreamer_v1.agent", "algos.dreamer_v1.loss", "algos.dreamer_v1.utils",
-                "algos.dreamer_v1.dreamer_v1", "algos.dreamer_v1.evaluate", "utils.distribution"]
+                "algos.dreamer_v1.dreamer_v1", "algos.dreamer_v1.evaluate", "utils.distribution", "algos.a2c.a2c", "algos.a2c.loss",
+                "algos.a2c.utils", "algos.a2c.evaluate", "algos.ppo_recurrent.agent", "algos.ppo_recurrent.ppo_recurrent",
+                "algos.ppo_recurrent.utils", "algos.ppo_recurrent.evaluate"]
     for name in ["serve.engine", "bridge", *training]:
         assert f"sheeprl_tpu_torch.{name}" in report["modules"], name
     assert not [m for m in report["loaded"] if m in FORBIDDEN]
@@ -69,7 +71,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     for exp in ("sac", "droq"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run([f"exp={exp}", "env=dummy", "env.id=continuous_dummy"])
-    for exp in ("dreamer_v2_ms_pacman", "dreamer_v2", "dreamer_v1"):
+    for exp in ("dreamer_v2_ms_pacman", "dreamer_v2", "dreamer_v1", "a2c", "ppo_recurrent"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run([f"exp={exp}", "env=dummy"])
 
