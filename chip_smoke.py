@@ -224,6 +224,38 @@ Phases (any failure exits non-zero before the result line):
 30. Recurrent PPO on the card against the CPU the same way: its update's
    first AdamW step within 2e-3 per parameter and moment leaf, its whole
    update (64 AdamW steps) within PPO's bounds (``onpolicy_reference``).
+31. The LN-GRU entry points at P2E-DV3's shapes (D = 5120, H = 4096,
+   32-true: H > 512 fails ``tensor_core_fits``, so every forward streams),
+   B = 16 (the dynamic scan) and 1024 (the imaginations), against their
+   plain versions, timed beside them, the bounds and cuBLAS's product alone.
+32. P2E-DV3, an eighth main path: ``python -m sheeprl_tpu_torch
+   exp=p2e_dv3_exploration env=dummy`` in process at the exp's XL widths
+   (dense 1024 x 5, recurrent state 4096, batch 16 x 64, horizon 15, an
+   ensemble of 8, two exploration critics), cut (listed in the output) to 8
+   gradient steps and a checkpoint after the 4th; every gradient step
+   launches 64 + 30 forwards (B = 16, 1024) and 64 backwards, the run none
+   on the tensor cores (counts zeroed just before, read at every step); the
+   per-critic tags; resumed bit for bit (every module and optimizer);
+   ``eval``; finetuning without ``checkpoint.exploration_ckpt_path``
+   refused; ``exp=p2e_dv3_finetuning`` from the exploration checkpoint (the
+   exploration actor plays the prefill, the task actor after it; 64 + 15
+   forwards and 64 backwards a step) and its ``eval``.
+33. The XL exploration step's profile (host wall, device busy and idle
+   share, operations, peak memory, the LN-GRU kernels' share of busy, the
+   ``p2e/*`` stages).
+34. One P2E-DV3 exploration step at DreamerV3-S widths on the card against
+   the CPU in 32-true, discrete and continuous, the card's draws replayed:
+   every metric and every parameter leaf's change within 2e-3; the card's
+   step from weights one ulp away reported; three planted faults (the
+   unbiased variance in the intrinsic reward, the ensemble updated after
+   the exploration actor, the critics' weights not normalised) must read
+   above the bound.
+35-36. P2E-DV2 at its exp's widths (recurrent state 400, D = 800, 32-true,
+   batch 16 x 50): the LN-GRU entry points at B = 16 and 800 against their
+   plain versions and timed; ``exp=p2e_dv2_exploration`` through the CLI
+   (8 gradient steps of 50 + 30 forwards and 50 + 30 backwards), resumed
+   bit for bit, ``eval``, finetuning refused without its checkpoint and
+   run from it (50 + 15 each a step), ``eval``.
 
 Every profile reads its device busy time through ``_busy``, which leaves
 out the device ranges of ``record_function`` annotations (the trainers'
@@ -234,7 +266,10 @@ the tensor-core forward at B = 1024, the backward at B = 16 and at
 B = 1024, each with its nodes in the captured step's graph and its
 launches by the fused runs' replays; then DreamerV2's streaming forward and
 backward at B = 32 and 1600, where the JAX package itself runs its plain
-path: its ``_eligible`` takes H % 128 == 0 only), the card's name and power limit,
+path: its ``_eligible`` takes H % 128 == 0 only; then P2E-DV3's forward at
+B = 16 and 1024 and backward at B = 16, H = 4096, with the launches of the
+exploration and the finetuning runs, and P2E-DV2's forward and backward at
+B = 16 and 800, H = 400), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -256,7 +291,7 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -454,9 +489,9 @@ def rotated(args, fn):
     return call
 
 
-def timed(fn) -> dict:
+def timed(fn, reps: int = 15, inner: int = 20) -> dict:
     """ms (the median) beside the spread of ``device_ms``."""
-    med, lo, hi = device_ms(fn)
+    med, lo, hi = device_ms(fn, reps, inner)
     return {"ms": med, "ms_min": lo, "ms_max": hi}
 
 
@@ -1633,16 +1668,35 @@ def phase_eval(ckpt, test_reward, what="eval"):
     process of its own, on the card by default: it logs
     ``Test/cumulative_reward`` under ``<run>/<version>/evaluation/version_0``,
     equal to the trainer's own test episode's."""
+    return finish_eval(start_eval(ckpt), test_reward, what)
+
+
+def start_eval(ckpt):
+    """The evaluation of ``ckpt`` started in a process of its own (its
+    result read by :func:`finish_eval`, which the caller must reach, or
+    kill the process)."""
+    proc = subprocess.Popen([sys.executable, "-m", "sheeprl_tpu_torch.eval", f"checkpoint_path={ckpt}"], cwd=REPO,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)  # fmt: skip
+    return ckpt, time.perf_counter(), proc
+
+
+def finish_eval(started, test_reward, what):
+    """Wait for :func:`start_eval`'s process and check what it logged
+    (:func:`phase_eval`)."""
     import numpy as np
 
     from sheeprl_tpu_torch.utils.logger import read_scalars
 
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "sheeprl_tpu_torch.eval", f"checkpoint_path={ckpt}"], cwd=REPO,
-                          capture_output=True, text=True, timeout=600)  # fmt: skip
+    ckpt, t0, proc = started
+    try:
+        stdout, stderr = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     wall_s = time.perf_counter() - t0
     if proc.returncode != 0:
-        fail(f"{what}: exit {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        fail(f"{what}: exit {proc.returncode}\n{stdout[-2000:]}\n{stderr[-4000:]}")
     eval_dir = os.path.join(os.path.dirname(os.path.dirname(ckpt)), "evaluation", "version_0")
     logged = read_scalars(eval_dir)
     if logged != {"Test/cumulative_reward": [(0, np.float32(test_reward))]}:
@@ -3342,13 +3396,26 @@ DV2_FAULTS = ("lr x 2", "the LN-GRU bias's gradient zeroed")
 def phase_dv2_kernels():
     """(1) The three LN-GRU entry points at DreamerV2's shapes: B = 32 (the
     dynamic scan), B = 1600 (the imagination) and B = 4 (the player), D =
-    1000, H = 600, f32 and bf16, a non-zero dense bias. ``ln_gru_forward``
-    (its plan must pick the streaming kernel: H = 600 fails
-    ``tensor_core_fits``) and ``ln_gru_forward_streaming`` against
-    ``ln_gru_plain`` (tolerances of ``check_forward``), ``ln_gru_backward``
-    against ``ln_gru_backward_plain`` (those of ``phase_backward``); each
-    timed beside its plain version, its bound, and for the forward cuBLAS's
-    product alone; one launch per call."""
+    1000, H = 600, f32 and bf16, a non-zero dense bias (:func:`streaming_rows`)."""
+    import torch
+
+    from sheeprl_tpu_torch.models.ln_gru import tensor_core_fits
+
+    if tensor_core_fits(DV2_DEPTH, DV2_HIDDEN):
+        fail("dv2 kernels: tensor_core_fits takes H = 600, DreamerV2's forwards would not all stream")
+    return streaming_rows("dv2", DV2_DEPTH, DV2_HIDDEN, DV2_SHAPES, (torch.float32, torch.bfloat16), seed=5)
+
+
+def streaming_rows(tag, depth, hidden, shapes, dtypes, seed, reps=None):
+    """The three LN-GRU entry points at a model's shapes (``shapes``: (B,
+    where) pairs) and ``dtypes``, a non-zero dense bias: ``ln_gru_forward``
+    (its plan must pick the streaming kernel) and ``ln_gru_forward_streaming``
+    against ``ln_gru_plain`` (tolerances of ``check_forward``),
+    ``ln_gru_backward`` against ``ln_gru_backward_plain`` (those of
+    ``phase_backward``); each timed beside its plain version, its bound, and
+    for the forward cuBLAS's product alone; one launch per call. ``reps``
+    maps a batch to the (repetitions, calls) of its timings where the
+    default ones would take too long."""
     import torch
 
     from sheeprl_tpu_torch.models.ln_gru import (
@@ -3361,41 +3428,39 @@ def phase_dv2_kernels():
         ln_gru_forward_streaming,
         ln_gru_plain,
         streaming_plan,
-        tensor_core_fits,
     )
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    if tensor_core_fits(DV2_DEPTH, DV2_HIDDEN):
-        fail("dv2 kernels: tensor_core_fits takes H = 600, DreamerV2's forwards would not all stream")
     rows = []
-    for batch, where in DV2_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
+    for batch, where in shapes:
+        r = (reps or {}).get(batch, (15, 20))
+        for dtype in dtypes:
             dname = str(dtype).split(".")[1]
-            args = gru_inputs(batch, DV2_DEPTH, DV2_HIDDEN, dtype, seed=5)
+            args = gru_inputs(batch, depth, hidden, dtype, seed=seed)
             if float(args[2].abs().min()) <= 0:
-                fail("dv2 kernels: the dense bias has a zero entry")
-            what = f"dv2 ln_gru B={batch} D={DV2_DEPTH} H={DV2_HIDDEN} {dname}"
-            plan = forward_plan(batch, DV2_DEPTH, DV2_HIDDEN, dtype, _sm_count(0), _aligned(args[0], args[1], args[5]))
+                fail(f"{tag} kernels: the dense bias has a zero entry")
+            what = f"{tag} ln_gru B={batch} D={depth} H={hidden} {dname}"
+            plan = forward_plan(batch, depth, hidden, dtype, _sm_count(0), _aligned(args[0], args[1], args[5]))
             if plan.kernel != "streaming":
                 fail(f"{what}: forward_plan picks {plan.kernel}")
             errs = check_forward(ln_gru_forward, args, what)
             errs_streaming = check_forward(ln_gru_forward_streaming, args, f"{what} (streaming entry point)")
-            fwd = timed(rotated(args, ln_gru_forward))
-            fwd_streaming = timed(rotated(args, ln_gru_forward_streaming))
-            plain_ms = device_ms(rotated(args, ln_gru_plain))[0]
-            product_ms = device_ms(rotated(args[:2], torch.matmul))[0]
-            check_one_launch(what, kernel_split_ms(rotated(args, ln_gru_forward)))
-            bound_ms, bound_by = gru_bound(batch, DV2_DEPTH, DV2_HIDDEN, dname)
+            fwd = timed(rotated(args, ln_gru_forward), *r)
+            fwd_streaming = timed(rotated(args, ln_gru_forward_streaming), *r)
+            plain_ms = device_ms(rotated(args, ln_gru_plain), *r)[0]
+            product_ms = device_ms(rotated(args[:2], torch.matmul), *r)[0]
+            check_one_launch(what, kernel_split_ms(rotated(args, ln_gru_forward), calls=min(50, 4 * r[1])))
+            bound_ms, bound_by = gru_bound(batch, depth, hidden, dname)
             _, z = ln_gru_forward(*args)
-            g = gru_inputs(batch, 1, DV2_HIDDEN, dtype, seed=6)[5]
+            g = gru_inputs(batch, 1, hidden, dtype, seed=seed + 1)[5]
             bargs = (g, z, args[3], args[4], args[5])
             berrs = check_backward(bargs, f"{what} ln_gru_backward")
-            bwd = timed(rotated(bargs, ln_gru_backward))
-            bwd_plain_ms = device_ms(rotated(bargs, ln_gru_backward_plain))[0]
-            check_one_launch(f"{what} backward", kernel_split_ms(rotated(bargs, ln_gru_backward)))
-            bwd_bound_ms, bwd_bound_by = gru_bwd_bound(batch, DV2_HIDDEN, dname)
-            sp = streaming_plan(batch, DV2_DEPTH, DV2_HIDDEN, args[0].element_size(), _sm_count(0), _aligned(args[1]))
-            row = {"shape": f"B={batch} D={DV2_DEPTH} H={DV2_HIDDEN}", "batch": batch, "where": where, "dtype": dname,
+            bwd = timed(rotated(bargs, ln_gru_backward), *r)
+            bwd_plain_ms = device_ms(rotated(bargs, ln_gru_backward_plain), *r)[0]
+            check_one_launch(f"{what} backward", kernel_split_ms(rotated(bargs, ln_gru_backward), calls=min(50, 4 * r[1])))
+            bwd_bound_ms, bwd_bound_by = gru_bwd_bound(batch, hidden, dname)
+            sp = streaming_plan(batch, depth, hidden, args[0].element_size(), _sm_count(0), _aligned(args[1]))
+            row = {"shape": f"B={batch} D={depth} H={hidden}", "batch": batch, "where": where, "dtype": dname,
                    "kernel": plan.kernel, "plan": {"grid": sp.grid, "cluster": sp.cluster, "vec": sp.vec, "ksplit": sp.ksplit},
                    "forward": {**errs, **fwd, "plain_ms": plain_ms, "product_library_ms": product_ms, "bound_ms": bound_ms, "bound_by": bound_by},
                    "forward_streaming": {**errs_streaming, **fwd_streaming},
@@ -3412,8 +3477,8 @@ def phase_dv2_kernels():
 
 
 def dreamer_through_cli(args, what, fwd_by_batch, bwd_by_batch, keep_params=False):
-    """One DreamerV2 or DreamerV1 run through the CLI, in process, on the
-    card. At every gradient step: finite metrics, and the LN-GRU launches
+    """One DreamerV2, DreamerV1 or P2E run through the CLI, in process, on
+    the card. At every gradient step: finite metrics, and the LN-GRU launches
     since the step before, by batch, for the train step's batches (the
     player's at B = num_envs fall between iterations): ``fwd_by_batch`` and
     ``bwd_by_batch`` (empty for DreamerV1, which launches none). Returns
@@ -3426,7 +3491,8 @@ def dreamer_through_cli(args, what, fwd_by_batch, bwd_by_batch, keep_params=Fals
     steps, last = [], [None]
     batches = set(fwd_by_batch) | set(bwd_by_batch)
 
-    def on_step(agent, step, metrics):
+    def on_step(agent, step, *rest):  # (metrics) or, on DreamerV3's loop, (tau, metrics)
+        metrics = rest[-1]
         bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
         if bad:
             fail(f"{what}: non-finite metrics at gradient step {step}: {bad}")
@@ -4017,6 +4083,490 @@ def phase_ppo_recurrent_reference():
     return onpolicy_reference("ppo_recurrent", PPO_REC_ARGS, "ppo_recurrent reference")
 
 
+# Plan2Explore (phases 31-36). P2E-DV3 (exp=p2e_dv3_exploration) composes
+# to DreamerV3's XL widths: dense 1024 x 5 layers, recurrent state 4096 (the
+# LN-GRU at D = 4096 + 1024), 32 x 32 latents, 32-true, batch 16 x 64,
+# horizon 15, 4 envs on the dummy env's 10-float state and 2 actions, an
+# ensemble of 8 members and two exploration critics. H = 4096 fails
+# tensor_core_fits: every forward streams. A gradient step runs the dynamic
+# scan (64 forwards and 64 backwards at B = 16) and two imaginations (the
+# exploration actor's and the task actor's, 15 forwards each at B = 1024;
+# discrete actions take no gradient through them). Only these are cut: 64
+# iterations of random prefill (a window is 64 rows), then 4 gradient steps
+# per iteration (replay ratio 1) for 2 iterations, a checkpoint after the
+# first; finetuning plays the exploration actor for its 64 prefill
+# iterations (there is no random prefill) and takes 8 DreamerV3 steps.
+P2E_DEPTH, P2E_HIDDEN = 5120, 4096
+P2E_BATCH, P2E_SEQ, P2E_HORIZON, P2E_ENVS = 16, 64, 15, 4
+P2E_IMAGINED = P2E_BATCH * P2E_SEQ  # 1024
+P2E_FWD_BY_BATCH = {P2E_BATCH: P2E_SEQ, P2E_IMAGINED: 2 * P2E_HORIZON}
+P2E_BWD_BY_BATCH = {P2E_BATCH: P2E_SEQ}
+P2E_FT_FWD_BY_BATCH = {P2E_BATCH: P2E_SEQ, P2E_IMAGINED: P2E_HORIZON}
+P2E_CUTS = {"algo.learning_starts": "256 (from 1024)", "algo.total_steps": "260 (from 5000000; 8 gradient steps)",
+            "checkpoint.every": "256 (from 100000)", "metric.log_every": "256 (from 5000)"}  # fmt: skip
+P2E_ARGS = ["exp=p2e_dv3_exploration", "env=dummy", "algo.learning_starts=256", "algo.total_steps=260", "checkpoint.every=256",
+            "metric.log_every=256", "checkpoint.save_last=True"]  # fmt: skip
+P2E_STEPS, P2E_RESUMED_FROM = 8, 4
+P2E_FT_CUTS = {"algo.learning_starts": "256 (from 16384)", "algo.total_steps": "260 (from 1000000; 8 gradient steps)",
+               "checkpoint.every": "0 (from 100000)", "metric.log_every": "256 (from 5000)"}  # fmt: skip
+P2E_FT_ARGS = ["exp=p2e_dv3_finetuning", "env=dummy", "algo.learning_starts=256", "algo.total_steps=260", "checkpoint.every=0",
+               "metric.log_every=256", "checkpoint.save_last=True"]  # fmt: skip
+P2E_CRITIC_TAGS = tuple(f"{t}_{n}" for t in ("Loss/value_loss_exploration", "Values_exploration/predicted_values",
+                                              "Values_exploration/lambda_values", "Grads/critic_exploration") for n in ("extrinsic", "intrinsic"))  # fmt: skip
+P2E_TAGS = ("Loss/world_model_loss", "Loss/ensemble_loss", "Loss/policy_loss_exploration", "Loss/policy_loss_task", "Loss/value_loss_task",
+            "Grads/ensemble", "Grads/actor_exploration", "Rewards/intrinsic_intrinsic", *P2E_CRITIC_TAGS, "Params/replay_ratio",
+            "Time/sps_train", "Rewards/rew_avg")  # fmt: skip
+# The card's 32-true exploration step against the CPU's, at DreamerV3-S
+# widths (algo/dreamer_v3_S.yaml; the CPU cannot take an XL step in the
+# time): every metric within rtol 2e-3 + atol 1e-4 and every parameter
+# leaf's change within 2e-3 of its norm. Each planted fault's reading (the
+# larger of its worst metric's relative gap and its worst leaf's) must
+# exceed the bound.
+P2E_S_WIDTHS = ["algo.dense_units=512", "algo.mlp_layers=2", "algo.world_model.recurrent_model.recurrent_state_size=512",
+                "algo.world_model.transition_model.hidden_size=512", "algo.world_model.representation_model.hidden_size=512"]  # fmt: skip
+P2E_REF_TOL = 2e-3
+# Every weight moved by this times a seeded standard normal first, as the
+# CPU parity tests move theirs. At the seeded weights the reward and critic
+# heads are zero, so the task actor's advantages are rounding residue and
+# its gradient is mostly the entropy term's, with entries under Adam's eps
+# (1e-5): its update is then proportional to the gradient and far below the
+# learning rate, and its LayerNorm weights (stored at 1.0) move by a few f32
+# ulps, so that leaf's change is a few rounded ulps whichever device takes
+# the step. The seeded weights' readings (card against CPU, and the card
+# from weights one ulp away, with the worst leaf's largest gap in ulps) are
+# reported beside the held ones.
+P2E_REF_PERTURB = 0.02
+P2E_FAULTS = ("unbiased variance in the intrinsic reward", "ensemble updated after the exploration actor", "critic weights not normalised")
+# P2E-DV2 (exp=p2e_dv2_exploration): DreamerV2 at recurrent state 400
+# (D = 400 + 400), dense 400 x 4, 32-true, batch 16 x 50, horizon 15, 4
+# envs; H = 400 is no multiple of 64, so every forward streams. A step runs
+# the dynamic scan (50 at B = 16) and two imaginations (15 each at B = 800),
+# all differentiated (DreamerV2's actor loss runs back through them). Only
+# these are cut: 50 prefill iterations, then the recipe's ratio (0.2, 100
+# pretrain steps) takes 8 gradient steps by policy step 240, 4 by 224.
+P2E2_DEPTH, P2E2_HIDDEN = 800, 400
+P2E2_BATCH, P2E2_SEQ = 16, 50
+P2E2_IMAGINED = P2E2_BATCH * P2E2_SEQ  # 800
+P2E2_FWD_BY_BATCH = P2E2_BWD_BY_BATCH = {P2E2_BATCH: P2E2_SEQ, P2E2_IMAGINED: 2 * P2E_HORIZON}
+P2E2_FT_BY_BATCH = {P2E2_BATCH: P2E2_SEQ, P2E2_IMAGINED: P2E_HORIZON}
+P2E2_CUTS = {"algo.learning_starts": "200 (from 1000)", "algo.total_steps": "240 (from 5000000; 8 gradient steps)",
+             "checkpoint.every": "224 (from 100000)", "metric.log_every": "224 (from 5000)"}  # fmt: skip
+P2E2_ARGS = ["exp=p2e_dv2_exploration", "env=dummy", "algo.learning_starts=200", "algo.total_steps=240", "checkpoint.every=224",
+             "metric.log_every=224", "checkpoint.save_last=True"]  # fmt: skip
+P2E2_FT_CUTS = {"algo.learning_starts": "200 (from 5000)", "algo.total_steps": "240 (from 1000000; 8 gradient steps)",
+                "checkpoint.every": "0 (from 100000)", "metric.log_every": "224 (from 5000)"}  # fmt: skip
+P2E2_FT_ARGS = ["exp=p2e_dv2_finetuning", "env=dummy", "algo.learning_starts=200", "algo.total_steps=240", "checkpoint.every=0",
+                "metric.log_every=224", "checkpoint.save_last=True"]  # fmt: skip
+P2E2_TAGS = ("Loss/world_model_loss", "Loss/ensemble_loss", "Loss/policy_loss_exploration", "Loss/value_loss_exploration",
+             "Loss/policy_loss_task", "Loss/value_loss_task", "Rewards/intrinsic", "Grads/ensemble", "Grads/critic_exploration")  # fmt: skip
+P2E_STEPS_BY_EXP = {"p2e_dv3_exploration": (P2E_STEPS, P2E_RESUMED_FROM), "p2e_dv2_exploration": (8, 4)}
+
+
+def _vector_batch(T, B, seed, device, n_actions=2, continuous=False):
+    """A time-major batch of the dummy env's 10-float state."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    data = {k: v.cpu().numpy() for k, v in _train_batch(T, B, seed, torch.device("cpu"), n_actions, continuous).items() if k != "rgb"}
+    data["state"] = rng.normal(size=(T, B, 10)).astype(np.float32)
+    return {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+
+
+def _optimizer_states(optimizers):
+    """Every optimizer of a trainer's (nested) dict, by name."""
+    out = {}
+    for name, opt in optimizers.items():
+        out.update({f"{name}.{k}": v for k, v in _optimizer_states(opt).items()} if isinstance(opt, dict) else {name: opt})
+    return out
+
+
+def _same_optimizers(a, b):
+    """Every Adam moment of two trainers' optimizers, bit for bit; returns
+    what differs."""
+    differ = []
+    a, b = _optimizer_states(a), _optimizer_states(b)
+    for name, opt in a.items():
+        for i, (p, q) in enumerate(zip(opt.param_groups[0]["params"], b[name].param_groups[0]["params"])):
+            differ += [f"{name} Adam {k} {i}" for k in opt.state[p] if not torch_equal_bits(opt.state[p][k], b[name].state[q][k])]
+    return differ
+
+
+def p2e_chain(what, args, cuts, fwd_by_batch, bwd_by_batch, tags, ft_args, ft_cuts, ft_fwd, ft_bwd, log_root, agent_cls):
+    """One P2E variant through the CLI at its exp's widths: the exploration
+    phase (every gradient step's LN-GRU launches by batch; none on the tensor
+    cores), its tags, its resume from the mid-run checkpoint bit for bit,
+    ``eval`` on its last checkpoint; then finetuning without
+    ``checkpoint.exploration_ckpt_path`` (must raise), finetuning from the
+    exploration checkpoint (the exploration actor plays up to
+    ``learning_starts``, the task actor after it), and ``eval`` on its
+    checkpoint. Returns (result, the exploration run's output)."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.config import compose
+
+    cfg = compose(args)
+    steps_total, resumed_from = P2E_STEPS_BY_EXP[cfg.algo.name]
+    log(f"{what}: {args[0]} env=dummy (state 10 floats, 2 actions), full width (H {cfg.algo.world_model.recurrent_model.recurrent_state_size}, "
+        f"dense {cfg.algo.dense_units} x {cfg.algo.mlp_layers}, ensembles {cfg.algo.ensembles.n} x {cfg.algo.ensembles.dense_units} x "
+        f"{cfg.algo.ensembles.mlp_layers}), {cfg.fabric.precision}, batch {cfg.algo.per_rank_batch_size} x {cfg.algo.per_rank_sequence_length}, "
+        f"horizon {cfg.algo.horizon}, {cfg.env.num_envs} envs; cut: {json.dumps(cuts)}")  # fmt: skip
+    full = [*args, f"log_root={log_root}"]
+    out, steps, wall_s, counts = dreamer_through_cli(full, what, fwd_by_batch, bwd_by_batch)
+    if out["gradient_steps"] != steps_total or len(steps) != steps_total:
+        fail(f"{what}: {out['gradient_steps']} gradient steps, expected {steps_total}")
+    if counts["tensor_core"] != 0 or not counts["forward_by_batch"].get(int(cfg.env.num_envs)):
+        fail(f"{what}: tensor-core launches {counts['tensor_core']}, player forwards {counts['forward_by_batch']}")
+    logged = {tag for row in out["log"] for tag in row}
+    missing = [t for t in tags if t not in logged]
+    if missing or not all(np.isfinite(v) for row in out["log"] for v in row.values()):
+        fail(f"{what}: tags never logged {missing}, or a non-finite one in {out['log'][-1]}")
+    ckpt = next((c for c in out["checkpoints"] if os.path.basename(c) == f"ckpt_{cfg.checkpoint.every}_0.ckpt"), None)
+    if ckpt is None:
+        fail(f"{what}: no checkpoint at policy step {cfg.checkpoint.every} ({out['checkpoints']})")
+    started = start_eval(out["checkpoints"][-1])  # runs beside the resume and the finetuning
+    try:
+        result = _p2e_resume_and_finetune(what, out, full, ckpt, fwd_by_batch, bwd_by_batch, steps_total, resumed_from, ft_args, ft_cuts,
+                                          ft_fwd, ft_bwd, log_root, agent_cls)  # fmt: skip
+    except BaseException:
+        started[2].kill()
+        raise
+    result["evaluation"] = finish_eval(started, out["test_reward"], f"{what} eval")
+    result.update(cuts=cuts, gradient_steps=out["gradient_steps"], wall_s=wall_s, ln_gru_launches=counts,
+                  seconds_per_gradient_step=statistics.median(b[1] - a[1] for a, b in zip(steps, steps[1:])), metrics_last_step=steps[-1][2])
+    log(f"{what}: {steps_total} gradient steps in {out['policy_steps']} policy steps, {wall_s:.1f} s (median "
+        f"{result['seconds_per_gradient_step']:.3f} s between gradient steps); LN-GRU forward by batch {counts['forward_by_batch']}, backward "
+        f"{counts['backward_by_batch']}, tensor core {counts['tensor_core']}; resumed from gradient step {resumed_from} bit for bit in "
+        f"{result['resume_s']:.1f} s; finetuning {result['finetuning']['gradient_steps']} steps in {result['finetuning']['wall_s']:.1f} s, LN-GRU "
+        f"forward {result['finetuning']['ln_gru_launches']['forward_by_batch']} backward {result['finetuning']['ln_gru_launches']['backward_by_batch']}, "
+        f"the player switched actors after iteration {result['finetuning']['player_switched_after_iteration']}")  # fmt: skip
+    log(f"{what}: last step {json.dumps({k: float(f'{v:.5g}') for k, v in steps[-1][2].items()})}")
+    return result, out
+
+
+def _p2e_resume_and_finetune(what, out, full, ckpt, fwd_by_batch, bwd_by_batch, steps_total, resumed_from, ft_args, ft_cuts, ft_fwd, ft_bwd,
+                             log_root, agent_cls):
+    """:func:`p2e_chain`'s resume of the exploration run from ``ckpt`` (bit
+    for bit) and its finetuning runs (refused without the exploration
+    checkpoint; from it, the player's switch and ``eval``)."""
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.config import compose
+
+    t0 = time.perf_counter()
+    again, again_steps, _, _ = dreamer_through_cli([*full, f"checkpoint.resume_from={ckpt}"], f"{what} resume", fwd_by_batch, bwd_by_batch)
+    resume_s = time.perf_counter() - t0
+    if [s[0] for s in again_steps] != list(range(resumed_from + 1, steps_total + 1)):
+        fail(f"{what} resume: gradient steps {[s[0] for s in again_steps]}")
+    differ = _same_state(out["agent"].state_dict(), again["agent"].state_dict()) + _same_optimizers(out["optimizers"], again["optimizers"])
+    if differ:
+        fail(f"{what} resume: {len(differ)} tensors differ from the uninterrupted run, e.g. {differ[:4]}")
+    shutil.rmtree(again["log_dir"], ignore_errors=True)
+    del again
+
+    ft = [*ft_args, f"log_root={log_root}"]
+    try:
+        run(ft)
+    except ValueError as err:
+        if "exploration_ckpt_path" not in str(err):
+            fail(f"{what} finetuning without its exploration checkpoint: {err}")
+    else:
+        fail(f"{what}: finetuning without checkpoint.exploration_ckpt_path ran")
+    played = []
+    step_fn = agent_cls.player_step
+
+    def recording(self, *a, **k):
+        played.append(id(self.actor))
+        return step_fn(self, *a, **k)
+
+    with patched(agent_cls, "player_step", recording):
+        tuned, tuned_steps, ft_wall_s, ft_counts = dreamer_through_cli(
+            [*ft, f"checkpoint.exploration_ckpt_path={out['checkpoints'][-1]}"], f"{what} finetuning", ft_fwd, ft_bwd
+        )
+    ft_cfg = compose(ft_args)
+    prefill = int(ft_cfg.algo.learning_starts) // int(ft_cfg.env.num_envs)
+    task = id(tuned["agent"].actor)
+    if len(set(played[:prefill])) != 1 or played[0] == task or played[prefill] != task:
+        fail(f"{what} finetuning: the player's actor did not switch from the exploration actor to the task actor after iteration {prefill}")
+    if tuned["gradient_steps"] != len(tuned_steps) or not tuned_steps or ft_counts["tensor_core"]:
+        fail(f"{what} finetuning: {tuned['gradient_steps']} gradient steps, LN-GRU {ft_counts}")
+    ft_evaluation = phase_eval(tuned["checkpoints"][-1], tuned["test_reward"], f"{what} finetuning eval")
+    shutil.rmtree(tuned["log_dir"], ignore_errors=True)
+    return {"resume_s": resume_s,
+            "finetuning": {"cuts": ft_cuts, "gradient_steps": tuned["gradient_steps"], "wall_s": ft_wall_s, "ln_gru_launches": ft_counts,
+                           "player_switched_after_iteration": prefill, "evaluation": ft_evaluation}}  # fmt: skip
+
+
+def phase_p2e_kernels():
+    """(31) The LN-GRU entry points at P2E-DV3's shapes, D = 5120, H = 4096,
+    f32 (the exp's precision): B = 16 (the dynamic scan), B = 1024 (the
+    imaginations) and B = 4 (the player, whose plan splits D over a cluster
+    of CTAs where the other two do not); every forward must stream
+    (:func:`streaming_rows`; 5 repetitions of 4 calls at B = 1024, whose f32
+    product is 129 GFLOP)."""
+    import torch
+
+    from sheeprl_tpu_torch.models.ln_gru import tensor_core_fits
+
+    if tensor_core_fits(P2E_DEPTH, P2E_HIDDEN):
+        fail("p2e kernels: tensor_core_fits takes H = 4096")
+    shapes = ((P2E_BATCH, "dynamic scan"), (P2E_IMAGINED, "imagination"), (P2E_ENVS, "player"))
+    return streaming_rows("p2e", P2E_DEPTH, P2E_HIDDEN, shapes, (torch.float32,), seed=7, reps={P2E_IMAGINED: (5, 4)})
+
+
+def phase_p2e_training(log_root):
+    """(32) ``exp=p2e_dv3_exploration env=dummy`` through the CLI at XL
+    width, cut (``P2E_CUTS``) to 8 gradient steps of 64 + 30 forwards and 64
+    backwards each, then its resume, ``eval``, and finetuning (``P2E_FT_CUTS``,
+    DreamerV3's 64 + 15 forwards a step) with its ``eval`` (:func:`p2e_chain`)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import DV3Agent
+
+    result, out = p2e_chain("p2e training", P2E_ARGS, P2E_CUTS, P2E_FWD_BY_BATCH, P2E_BWD_BY_BATCH, P2E_TAGS, P2E_FT_ARGS, P2E_FT_CUTS,
+                            P2E_FT_FWD_BY_BATCH, P2E_BWD_BY_BATCH, log_root, DV3Agent)  # fmt: skip
+    return result, out
+
+
+def phase_p2e_profile(agent, steps: int = 2):
+    """(33) Where one P2E-DV3 exploration step's time goes at XL width
+    (32-true, B = 16, T = 64, the trained agent; :func:`step_profile`)."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as p2e
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+
+    dev = torch.device("cuda")
+    cfg = compose(P2E_ARGS)
+    step = p2e.make_train_step(agent, p2e.make_optimizers(agent, cfg), cfg)
+    data = _vector_batch(P2E_SEQ, P2E_BATCH, 7, dev)
+    rng = BatchGenerator.from_seed(0, dev)
+    moments = [p2e.init_p2e_moments(agent.critics_cfg, dev)]
+
+    def call():
+        moments[0], _ = step(moments[0], data, rng, 0.02)
+
+    return step_profile("p2e profile (XL, 32-true, B=16 T=64 horizon 15, H_rnn=4096)", call, steps, P2E_FWD_BY_BATCH, P2E_BWD_BY_BATCH)
+
+
+def step_profile(what, call, steps, fwd_per_step, bwd_per_step, activities=("cpu", "cuda")):
+    """Host wall per step of ``call`` (one gradient step) over ``steps``
+    after a warm-up one, ending in a synchronize, then one profiled step:
+    device busy, idle share, operations, the LN-GRU kernels' time and share
+    of busy, peak memory, and with the CPU among ``activities`` the
+    ``p2e/*`` and Dreamer stages (the host's events make the profile's
+    reading slow: tens of seconds for 12k operations); the LN-GRU
+    launches per step by batch must be ``fwd_per_step`` and
+    ``bwd_per_step``, none on the tensor cores."""
+    import torch
+
+    call()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        call()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / steps * 1e3
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = profiled(call, activities)
+    kernels_ms, averages = {}, prof.key_averages()
+    spans = ("p2e/", "dv3/", "dv2/")
+    busy, ops, annotated = _busy(averages, 1, skip=spans, by_kernel=kernels_ms)
+    if busy <= 0.0:
+        fail(f"{what}: torch.profiler saw no device time")
+    stages = {}
+    for evt in averages:
+        if evt.key.startswith(spans):
+            us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
+            side = "device_span_ms" if evt.device_type == torch.autograd.DeviceType.CUDA else "host_ms"
+            stages.setdefault(evt.key, {})[side] = (us if side == "device_span_ms" else evt.cpu_time_total) / 1e3
+    gru = {k: v for k, v in kernels_ms.items() if "ln_gru" in k}
+    fwd_by_batch = {b: n / steps for b, n in counts["forward_by_batch"].items()}
+    bwd_by_batch = {b: n / steps for b, n in counts["backward_by_batch"].items()}
+    if fwd_by_batch != fwd_per_step or bwd_by_batch != bwd_per_step or counts["tensor_core"] != 0:
+        fail(f"{what}: launches per step forward {fwd_by_batch} backward {bwd_by_batch} tensor core {counts['tensor_core']}")
+    top = dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:8])
+    result = {"host_wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy, "idle_share": max(0.0, 1.0 - busy / wall_ms),
+              "device_ops_per_step": ops, "annotation_ranges_ms_per_step": annotated, "peak_gib": peak,
+              "ln_gru_device_ms_per_step": gru, "ln_gru_share_of_busy": sum(gru.values()) / busy,
+              "ln_gru_forward_per_step_by_batch": fwd_by_batch, "ln_gru_backward_per_step_by_batch": bwd_by_batch,
+              "stages_per_step": stages, "top_device_ms_per_step": top}  # fmt: skip
+    log(f"{what}: host wall {wall_ms:.2f} ms/step, device busy {busy:.2f} ms/step, idle share {result['idle_share']:.3f}, {ops:.0f} device "
+        f"ops/step, peak {peak:.2f} GiB; LN-GRU {sum(gru.values()):.3f} ms/step ({100 * result['ln_gru_share_of_busy']:.1f}% of busy) "
+        f"{json.dumps({k: round(v, 4) for k, v in gru.items()})}")  # fmt: skip
+    log(f"{what}: stages {json.dumps({k: {s: round(v, 3) for s, v in d.items()} for k, d in stages.items()})}; top {json.dumps({k: round(v, 3) for k, v in top.items()})}")
+    return result
+
+
+def phase_p2e_reference(continuous: bool):
+    """(34) One P2E-DV3 exploration step at DreamerV3-S widths in 32-true
+    (B = 4, T = 16, horizon 15, the exp's ensemble of 8 and two exploration
+    critics) on the card (its kernels) against the CPU (the plain
+    versions), from the same seeded weights and batch, the card's draws
+    recorded and replayed on the CPU, the weights moved by
+    ``P2E_REF_PERTURB`` times a seeded normal: every metric within rtol
+    ``P2E_REF_TOL`` + atol 1e-4, every parameter leaf's change within
+    ``P2E_REF_TOL`` of its norm. The card's step from weights one f32 ulp
+    away is reported; each of ``P2E_FAULTS`` planted on the card must read
+    above the bound. The same two readings at the seeded weights (no move)
+    are reported, unheld, with the one-ulp step's gap on the leaf where
+    the card and the CPU part most."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as p2e
+    from sheeprl_tpu_torch.algos.p2e_dv3.agent import build_agent, ensemble_apply
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+
+    what = f"p2e reference ({'continuous' if continuous else 'discrete'})"
+    args = ["exp=p2e_dv3_exploration", "env=dummy", *P2E_S_WIDTHS, "fabric.precision=32-true"]
+    args += ["env.id=continuous_dummy", "env.wrapper.id=continuous_dummy"] if continuous else []
+    space = DictSpace({"state": Box((10,), "float32", -20.0, 20.0)})
+    draws = []
+    real_update, real_reward = p2e.update_ensemble, p2e.intrinsic_reward
+
+    def unbiased(ensemble, trajectories, actions, multiplier):
+        with torch.no_grad():
+            preds = ensemble_apply(ensemble, torch.cat([trajectories.detach(), actions.detach()], -1)).float()
+            return preds.var(0).mean(-1, keepdim=True) * multiplier
+
+    pending = []
+
+    class Later:
+        """An optimizer whose step waits for the intrinsic reward."""
+
+        def __init__(self, opt):
+            self.opt = opt
+
+        def zero_grad(self, set_to_none=True):
+            self.opt.zero_grad(set_to_none=set_to_none)
+
+        def step(self):
+            pending.append(self.opt)
+
+    def late_update(ensemble, optimizer, *rest):
+        return real_update(ensemble, Later(optimizer), *rest)
+
+    def reward_then_update(*a):
+        reward = real_reward(*a)
+        while pending:
+            pending.pop().step()
+        return reward
+
+    plants = {
+        P2E_FAULTS[0]: [("intrinsic_reward", unbiased)],
+        P2E_FAULTS[1]: [("update_ensemble", late_update), ("intrinsic_reward", reward_then_update)],
+        P2E_FAULTS[2]: [("critic_weights", lambda critics: {n: c["weight"] for n, c in critics.items()})],
+    }
+
+    def step(where, fault=None, perturb=P2E_REF_PERTURB, draws=draws):
+        cfg = compose(args)
+        agent = build_agent((2,), continuous, cfg, space, device=where, seed=3)
+        gen = torch.Generator().manual_seed(4)
+        with torch.no_grad():
+            for p in agent.parameters():
+                p.add_((perturb * torch.randn(p.shape, generator=gen)).to(p.device))
+                if fault == "nudge":
+                    p.mul_(1 + 2.0**-23)
+        start = {k: v.detach().cpu().clone() for k, v in agent.state_dict().items()}
+        rng = ReplayedDraws(draws) if draws else RecordedDraws(BatchGenerator.from_seed(0, torch.device(where)))
+        with ExitStack() as stack:
+            for name, value in plants.get(fault, []):
+                stack.enter_context(patched(p2e, name, value))
+            train_step = p2e.make_train_step(agent, p2e.make_optimizers(agent, cfg), cfg)
+            moments, metrics = train_step(p2e.init_p2e_moments(agent.critics_cfg, torch.device(where)),
+                                          _vector_batch(16, 4, 11, torch.device(where), 2, continuous), rng, 1.0)  # fmt: skip
+        if isinstance(rng, RecordedDraws):
+            draws.extend(rng.draws)
+        elif rng.used != len(draws):
+            fail(f"{what}: the replaying step drew {rng.used} times, the recording one {len(draws)}")
+        out = {k: float(v) for k, v in metrics.items()}
+        out.update({f"moments/task/{k}": float(v) for k, v in moments["task"].items()})
+        out.update({f"moments/{n}/{k}": float(v) for n, m in moments["exploration"].items() for k, v in m.items()})
+        return out, start, {k: v.detach().cpu() for k, v in agent.state_dict().items()}
+
+    def gaps(got, want, at=None):
+        """(worst metric, worst leaf): each metric's |d| over atol 1e-4 +
+        |ref|, each leaf's change gap over its norm; for the worst leaf, how
+        many entries' changes differ, by how many ulps of ``want``'s value
+        at most, the share of the gap's norm its largest entry carries and
+        that entry's change on each side; with ``at``, that leaf's gap too."""
+        (gm, gs, gp), (wm, ws, wp) = got, want
+        metric = {k: abs(gm[k] - ref) / (1e-4 / P2E_REF_TOL + abs(ref)) if math.isfinite(gm[k]) else math.inf for k, ref in wm.items()}
+        leaf = {}
+        for k in wp:
+            g, w = (gp[k] - gs[k]).double(), (wp[k] - ws[k]).double()
+            leaf[k] = ((g - w).norm() / w.norm()).item() if w.norm() > 0 else float(g.norm() > 0)
+        mk, top = max(metric, key=metric.get), sorted(leaf, key=leaf.get, reverse=True)[:3]
+        w, dg = wp[top[0]], (gp[top[0]] - gs[top[0]]).flatten()
+        dw = (w - ws[top[0]]).flatten()
+        d = (dg - dw).abs().double()
+        ulps = d / (torch.nextafter(w.abs(), torch.tensor(math.inf)) - w.abs()).flatten().double()
+        i = int(d.argmax())
+        return {"metric": mk, "metric_gap": metric[mk], "leaf": top[0], "leaf_gap": leaf[top[0]], "reading": max(metric[mk], leaf[top[0]]),
+                "leaf_entries_differ": int((d > 0).sum()), "leaf_entries": w.numel(), "leaf_max_ulps": float(ulps.max()),
+                "leaf_top_entry_share": float(d[i] / d.norm()) if d[i] > 0 else 0.0, "leaf_top_entry_changes": [float(dg[i]), float(dw[i])],
+                "next_leaves": {k: leaf[k] for k in top[1:]}} | ({"at": {at: leaf[at]}} if at else {})  # fmt: skip
+
+    card = step("cuda")
+    cpu = step("cpu")
+    if any(not torch.equal(card[1][k], cpu[1][k]) for k in cpu[1]):
+        fail(f"{what}: the card's agent does not start from the CPU's weights")
+    held = gaps(card, cpu)
+    if held["reading"] > P2E_REF_TOL:
+        fail(f"{what}: card vs CPU {held} (bound {P2E_REF_TOL})")
+    floor = gaps(step("cuda", "nudge"), card)
+    faults = {}
+    for fault in P2E_FAULTS:
+        faults[fault] = gaps(step("cuda", fault), cpu)
+        if faults[fault]["reading"] <= P2E_REF_TOL:
+            fail(f"{what}: the step with {fault} reads {faults[fault]} against the CPU, within the bound {P2E_REF_TOL}")
+    seeded_draws = []
+    seeded_card = step("cuda", perturb=0.0, draws=seeded_draws)
+    seeded = {"card_vs_cpu": gaps(seeded_card, step("cpu", perturb=0.0, draws=seeded_draws))}
+    seeded["one_ulp_nudge"] = gaps(step("cuda", "nudge", perturb=0.0, draws=seeded_draws), seeded_card, at=seeded["card_vs_cpu"]["leaf"])
+    log(f"{what}: one DV3-S P2E exploration step (B=4 T=16), card (kernels) vs CPU (plain), {len(draws)} replayed draws: worst metric "
+        f"{held['metric']} {held['metric_gap']:.3g}, worst leaf {held['leaf']} {held['leaf_gap']:.3g} (bound {P2E_REF_TOL}); the card from "
+        f"weights one ulp away {json.dumps(floor)}; planted faults {json.dumps({k: v['reading'] for k, v in faults.items()})}; at the "
+        f"seeded weights (not held) {json.dumps(seeded)}")  # fmt: skip
+    return {"held": held, "one_ulp_nudge": floor, "planted_faults": faults, "seeded_weights": seeded, "metrics_card": card[0],
+            "metrics_cpu": cpu[0], "bound": P2E_REF_TOL}  # fmt: skip
+
+
+def phase_p2e_dv2(log_root):
+    """(35-36) P2E-DV2 at its exp's widths: the LN-GRU entry points at D =
+    800, H = 400, f32, B = 16 (the dynamic scan), B = 800 (the
+    imaginations) and B = 4 (the player), every forward streaming (:func:`streaming_rows`); then
+    ``exp=p2e_dv2_exploration env=dummy`` through the CLI (``P2E2_CUTS``,
+    50 + 30 forwards and 50 + 30 backwards a step), resumed, evaluated, and
+    finetuned from (:func:`p2e_chain`; DreamerV2's 50 + 15 each a step);
+    then the trained agent's exploration step profiled (:func:`step_profile`)."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v2.agent import DV2Agent
+    from sheeprl_tpu_torch.algos.p2e_dv2 import p2e_dv2_exploration as p2e
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.models.ln_gru import tensor_core_fits
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+
+    if tensor_core_fits(P2E2_DEPTH, P2E2_HIDDEN):
+        fail("p2e dv2 kernels: tensor_core_fits takes H = 400")
+    shapes = ((P2E2_BATCH, "dynamic scan"), (P2E2_IMAGINED, "imagination"), (P2E_ENVS, "player"))
+    rows = streaming_rows("p2e dv2", P2E2_DEPTH, P2E2_HIDDEN, shapes, (torch.float32,), seed=9)
+    result, out = p2e_chain("p2e dv2 training", P2E2_ARGS, P2E2_CUTS, P2E2_FWD_BY_BATCH, P2E2_BWD_BY_BATCH, P2E2_TAGS, P2E2_FT_ARGS,
+                            P2E2_FT_CUTS, P2E2_FT_BY_BATCH, P2E2_FT_BY_BATCH, log_root, DV2Agent)  # fmt: skip
+    shutil.rmtree(out["log_dir"], ignore_errors=True)
+    cfg = compose(P2E2_ARGS)
+    dev = torch.device("cuda")
+    step = p2e.make_train_step(out["agent"], p2e.make_optimizers(out["agent"], cfg), cfg)
+    data, rng = _vector_batch(P2E2_SEQ, P2E2_BATCH, 7, dev), BatchGenerator.from_seed(0, dev)
+    result["profile"] = step_profile("p2e dv2 profile (32-true, B=16 T=50 horizon 15, H_rnn=400)", lambda: step(data, rng), 3,
+                                     P2E2_FWD_BY_BATCH, P2E2_BWD_BY_BATCH, ("cuda",))  # fmt: skip
+    return rows, result
+
+
 def main() -> None:
     import warnings
 
@@ -4109,6 +4659,17 @@ def main() -> None:
         ppo_recurrent_reference = phase_ppo_recurrent_reference()
         onpolicy_phases_s = time.perf_counter() - onpolicy_t0
         log(f"a2c, ppo_recurrent: phases 26-30 took {onpolicy_phases_s:.1f} s")
+        p2e_t0 = time.perf_counter()
+        p2e_kernels = phase_p2e_kernels()
+        p2e_training, p2e_out = phase_p2e_training(workdir)
+        p2e_profile = phase_p2e_profile(p2e_out["agent"])
+        shutil.rmtree(p2e_out["log_dir"], ignore_errors=True)
+        del p2e_out
+        torch.cuda.empty_cache()
+        p2e_reference = {kind: phase_p2e_reference(kind == "continuous") for kind in ("discrete", "continuous")}
+        p2e_dv2_kernels, p2e_dv2 = phase_p2e_dv2(workdir)
+        p2e_phases_s = time.perf_counter() - p2e_t0
+        log(f"p2e_dv3, p2e_dv2: phases 31-36 took {p2e_phases_s:.1f} s")
         replay_sample = phase_replay_sample()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -4169,6 +4730,39 @@ def main() -> None:
     dv2_entries = [dv2_row(DV2_BATCH, "forward"), dv2_row(DV2_IMAGINED, "forward"), dv2_row(DV2_BATCH, "backward"),
                    dv2_row(DV2_IMAGINED, "backward")]  # fmt: skip
     dv2_entries[0]["launches_player"] = dv2_training["ln_gru_launches"]["forward_by_batch"].get(DV2_ENVS, 0)
+
+    def p2e_entry(rows, training, batch, kind, model, per_step, tpu_reference, per="gradient step"):
+        """A P2E kernel's entry at one of its batches (f32, the exps'
+        precision): launches of the exploration run, and of the finetuning
+        run beside them; ``per_step`` launches per ``per``."""
+        row = next(r for r in rows if r["batch"] == batch)
+        part = row[kind]
+        key = "forward_by_batch" if kind == "forward" else "backward_by_batch"
+        if kind == "forward":
+            err, name, source, replaces = (max(part["max_abs_err_h"], part["max_abs_err_z"]), "ln_gru_forward", "sheeprl_tpu_torch/csrc/ln_gru.cu",
+                                           "sheeprl_tpu/models/pallas_gru.py:118")  # fmt: skip
+            shapes = f"{row['shape']} float32, streaming kernel ({model} {row['where']}; {per_step} launches per {per})"
+        else:
+            err, name, source, replaces = (max(part["max_abs_err"].values()), "ln_gru_backward", "sheeprl_tpu_torch/csrc/ln_gru_bwd.cu",
+                                           "sheeprl_tpu/models/pallas_gru.py:172")  # fmt: skip
+            shapes = f"B={batch} H={row['shape'].rsplit('H=', 1)[1]} float32 ({model} {row['where']}; {per_step} launches per {per})"
+        out = entry(name, source, replaces, shapes, training["ln_gru_launches"][key].get(batch, 0), part, err)
+        out |= {"launches_finetuning": training["finetuning"]["ln_gru_launches"][key].get(batch, 0), "tpu_reference_at_this_shape": tpu_reference}
+        return out | ({"product_library_ms": part["product_library_ms"]} if kind == "forward" else {})
+
+    pallas = "the Pallas kernel: _eligible, sheeprl_tpu/models/pallas_gru.py:143-151, takes H % 128 == 0"
+    plain = "plain path: _eligible, sheeprl_tpu/models/pallas_gru.py:143-151, refuses H % 128 != 0"
+    p2e_entries = [
+        p2e_entry(p2e_kernels, p2e_training, P2E_BATCH, "forward", "P2E-DV3 XL", P2E_SEQ, pallas),
+        p2e_entry(p2e_kernels, p2e_training, P2E_IMAGINED, "forward", "P2E-DV3 XL", 2 * P2E_HORIZON, pallas),
+        p2e_entry(p2e_kernels, p2e_training, P2E_BATCH, "backward", "P2E-DV3 XL", P2E_SEQ, pallas),
+        p2e_entry(p2e_dv2_kernels, p2e_dv2, P2E2_BATCH, "forward", "P2E-DV2", P2E2_SEQ, plain),
+        p2e_entry(p2e_dv2_kernels, p2e_dv2, P2E2_IMAGINED, "forward", "P2E-DV2", 2 * P2E_HORIZON, plain),
+        p2e_entry(p2e_dv2_kernels, p2e_dv2, P2E2_BATCH, "backward", "P2E-DV2", P2E2_SEQ, plain),
+        p2e_entry(p2e_dv2_kernels, p2e_dv2, P2E2_IMAGINED, "backward", "P2E-DV2", 2 * P2E_HORIZON, plain),
+        p2e_entry(p2e_kernels, p2e_training, P2E_ENVS, "forward", "P2E-DV3 XL", 1, pallas, per="policy iteration"),
+        p2e_entry(p2e_dv2_kernels, p2e_dv2, P2E_ENVS, "forward", "P2E-DV2", 1, plain, per="policy iteration"),
+    ]
     kernels_line = {
         "kernels": [
             entry("ln_gru_forward", "sheeprl_tpu_torch/csrc/ln_gru.cu", "sheeprl_tpu/models/pallas_gru.py:118",
@@ -4192,6 +4786,7 @@ def main() -> None:
                   cont_counts["backward_by_batch"].get(IMAGINED_BATCH, 0), bwd_big_row, max(bwd_big_row["max_abs_err"].values()))
             | {"in_step_ms": bwd1024_in_step_ms},
             *dv2_entries,
+            *p2e_entries,
         ]
     }  # fmt: skip
     report = {
@@ -4246,6 +4841,13 @@ def main() -> None:
         "ppo_recurrent_profile": ppo_recurrent_profile,
         "ppo_recurrent_reference": ppo_recurrent_reference,
         "onpolicy_phases_s": onpolicy_phases_s,
+        "p2e_kernels": p2e_kernels,
+        "p2e_training": p2e_training,
+        "p2e_profile": p2e_profile,
+        "p2e_reference": p2e_reference,
+        "p2e_dv2_kernels": p2e_dv2_kernels,
+        "p2e_dv2": p2e_dv2,
+        "p2e_phases_s": p2e_phases_s,
         "kernels": kernels_line["kernels"],
         "phase_s": phase_s,
     }

@@ -18,6 +18,7 @@ exploration noise (``Params/exploration_amount``).
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -27,7 +28,7 @@ from sheeprl_tpu_torch.algos.dreamer_v1.agent import DV1Agent, build_agent
 from sheeprl_tpu_torch.algos.dreamer_v1.loss import actor_loss, critic_loss, reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v1.utils import compute_lambda_values
 from sheeprl_tpu_torch.algos.dreamer_v2.agent import dv2_actor_forward
-from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import DreamerLoop, Metrics, run_dreamer, unit_normal
+from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import DreamerLoop, Metrics, loop_trainer, run_dreamer, unit_normal
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _clip
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.utils.distribution import BernoulliSafeMode, Independent, Normal
@@ -159,13 +160,11 @@ def make_train_step(agent: DV1Agent, optimizers: Dict[str, torch.optim.Optimizer
     return step
 
 
-DV1_LOOP = DreamerLoop(
-    build_agent=build_agent, make_train_step=make_train_step, modules=("world_model", "actor", "critic"),
-    episode_buffer=False, is_first=False, target_copy=False, exploration=True, dry_run_rows=2,
-)  # fmt: skip
+DV1_LOOP = DreamerLoop(episode_buffer=False, is_first=False, target_copy=False, exploration=True, dry_run_rows=2)
+MODULES = ("world_model", "actor", "critic")
 
 
 @register_algorithm()
 def main(cfg, callback: Optional[Callable[[DV1Agent, int, Metrics], None]] = None) -> Dict[str, Any]:
     """Train DreamerV1 on ``cfg`` (:func:`run_dreamer`)."""
-    return run_dreamer(cfg, DV1_LOOP, callback)
+    return run_dreamer(cfg, DV1_LOOP, functools.partial(loop_trainer, build_agent, make_train_step, MODULES), callback)

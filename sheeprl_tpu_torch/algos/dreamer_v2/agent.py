@@ -350,12 +350,12 @@ def add_exploration_noise(actions: torch.Tensor, spec: DV2ActorSpec, amount: flo
 class DV2Agent(nn.Module):
     """World model + actor + critic and target critic + the functional player."""
 
-    def __init__(self, world_model: DV2WorldModel, actor: DV2Actor, critic: MLP, actor_spec: DV2ActorSpec):
+    def __init__(self, world_model: DV2WorldModel, actor: DV2Actor, critic: MLP, actor_spec: DV2ActorSpec, target_critic: Optional[MLP] = None):
         super().__init__()
         self.world_model = world_model
         self.actor = actor
         self.critic = critic
-        self.target_critic = copy.deepcopy(critic)
+        self.target_critic = target_critic if target_critic is not None else copy.deepcopy(critic)
         self.target_critic.requires_grad_(False)
         self.actor_spec = actor_spec
         self.actions_dim = tuple(actor_spec.actions_dim)

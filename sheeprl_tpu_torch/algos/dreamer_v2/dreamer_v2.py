@@ -16,8 +16,11 @@ does in the JAX step). The stages run under ``torch.profiler.record_function``
 spans (``dv2/world_model``, ``dv2/imagination``, ``dv2/actor``,
 ``dv2/critic``).
 
+The step's pieces are :class:`DV2Learner`'s, which P2E-DV2's step shares.
+
 :func:`main` is the JAX ``main`` on the port's host side (:func:`run_dreamer`,
-which DreamerV1 shares): prefill with random actions, every transition added
+which DreamerV1 and P2E-DV2, through a :class:`DreamerTrainer` of their own,
+share): prefill with random actions, every transition added
 after the env step and a reset row for every finished episode, a sequential
 (per env) or an episodic buffer (``buffer.type``: ``sequential`` or
 ``episode`` with ``buffer.prioritize_ends``), in memory or memory-mapped,
@@ -32,6 +35,7 @@ interaction pipeline and the player's placement wait for the port of
 
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 from dataclasses import dataclass
@@ -44,7 +48,7 @@ from torch.profiler import record_function
 from sheeprl_tpu_torch.algos.dreamer_v2.agent import DV2Agent, build_agent, dv2_actor_dists, dv2_actor_forward
 from sheeprl_tpu_torch.algos.dreamer_v2.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v2.utils import compute_lambda_values, test
-from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import OPTIMIZER_KEYS, _clip, _one_hot, make_optimizers
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import OPTIMIZER_KEYS, _clip, _one_hot, frozen, make_optimizers
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, EpisodeBuffer, SequentialReplayBuffer
@@ -53,7 +57,7 @@ from sheeprl_tpu_torch.envs.dummy import dummy_env_kwargs, make_dummy_vector_env
 from sheeprl_tpu_torch.optim import load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Discrete
-from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, resume_config, save_checkpoint
+from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator, BernoulliSafeMode, Independent, Normal, OneHotCategorical
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator
@@ -69,42 +73,49 @@ def unit_normal(mean: torch.Tensor, dims: int) -> Independent:
     return Independent(Normal(mean, torch.ones_like(mean)), dims)
 
 
-def make_train_step(agent: DV2Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg) -> Callable[[Dict[str, torch.Tensor], Any], Metrics]:
-    """-> ``step(data, rng) -> metrics``: one gradient step of the three
-    modules, updating their parameters and optimizer states in place.
-    ``data`` holds time-major [T, B, ...] tensors on the agent's device: the
-    observation keys (pixels as uint8), ``actions`` (one-hot, or the
-    continuous actions; the action that led to the row's observation),
-    ``rewards``, ``terminated`` and ``is_first``. ``rng`` is the noise source
-    of every draw (a :class:`BatchGenerator`)."""
-    wm_cfg = cfg.algo.world_model
-    cnn_keys = list(cfg.algo.cnn_keys.encoder)
-    mlp_keys = list(cfg.algo.mlp_keys.encoder)
-    stochastic_size = int(wm_cfg.stochastic_size)
-    discrete_size = int(wm_cfg.discrete_size)
-    stoch_state_size = stochastic_size * discrete_size
-    recurrent_state_size = int(wm_cfg.recurrent_model.recurrent_state_size)
-    horizon = int(cfg.algo.horizon)
-    gamma = float(cfg.algo.gamma)
-    lmbda = float(cfg.algo.lmbda)
-    ent_coef = float(cfg.algo.actor.ent_coef)
-    objective_mix = float(cfg.algo.actor.objective_mix)
-    use_continues = bool(wm_cfg.use_continues)
-    spec = agent.actor_spec
-    actions_dim = [int(d) for d in agent.actions_dim]
-    wm, actor, critic, target_critic = agent.world_model, agent.actor, agent.critic, agent.target_critic
+class DV2Learner:
+    """The pieces of a DreamerV2 gradient step that P2E-DV2's step shares:
+    the world model's loss and update, the imagination with any actor, the
+    λ-returns of any reward bootstrapped by a target critic with their
+    discount, an actor's mixed objective and update, and a critic's
+    Normal(., 1) regression onto the returns."""
 
-    def actor_sample(latent: torch.Tensor, rng) -> torch.Tensor:
-        actions, _ = dv2_actor_forward([p.float() for p in actor(latent.detach())], spec, rng, greedy=False)
+    def __init__(self, world_model: torch.nn.Module, actor_spec, cfg):
+        wm_cfg = cfg.algo.world_model
+        self.cfg = cfg
+        self.wm = world_model
+        self.spec = actor_spec
+        self.cnn_keys = list(cfg.algo.cnn_keys.encoder)
+        self.mlp_keys = list(cfg.algo.mlp_keys.encoder)
+        self.stochastic_size = int(wm_cfg.stochastic_size)
+        self.discrete_size = int(wm_cfg.discrete_size)
+        self.stoch_state_size = self.stochastic_size * self.discrete_size
+        self.recurrent_state_size = int(wm_cfg.recurrent_model.recurrent_state_size)
+        self.horizon = int(cfg.algo.horizon)
+        self.gamma = float(cfg.algo.gamma)
+        self.lmbda = float(cfg.algo.lmbda)
+        self.ent_coef = float(cfg.algo.actor.ent_coef)
+        self.objective_mix = float(cfg.algo.actor.objective_mix)
+        self.use_continues = bool(wm_cfg.use_continues)
+        self.actions_dim = [int(d) for d in actor_spec.actions_dim]
+
+    def batch_obs(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        batch_obs = {k: data[k].float() / 255.0 - 0.5 for k in self.cnn_keys}
+        batch_obs.update({k: data[k].float() for k in self.mlp_keys})
+        return batch_obs
+
+    def actor_sample(self, actor: torch.nn.Module, latent: torch.Tensor, rng) -> torch.Tensor:
+        actions, _ = dv2_actor_forward([p.float() for p in actor(latent.detach())], self.spec, rng, greedy=False)
         return torch.cat(actions, -1)
 
-    def world_model_loss(data, batch_obs, rng):
+    def world_model_loss(self, data, batch_obs, rng):
+        wm, wm_cfg = self.wm, self.cfg.algo.world_model
         T, B = data["rewards"].shape[:2]
         embedded = wm.embed_obs(batch_obs)
         is_first = data["is_first"].clone()
         is_first[0] = 1.0
-        h = torch.zeros((B, recurrent_state_size), dtype=embedded.dtype, device=embedded.device)
-        z = torch.zeros((B, stoch_state_size), dtype=embedded.dtype, device=embedded.device)
+        h = torch.zeros((B, self.recurrent_state_size), dtype=embedded.dtype, device=embedded.device)
+        z = torch.zeros((B, self.stoch_state_size), dtype=embedded.dtype, device=embedded.device)
         hs, zs, post_logits, prior_logits = [], [], [], []
         for t in range(T):
             h, z, _, post_l, prior_l = wm.dynamic(z, h, data["actions"][t], embedded[t], is_first[t], rng)
@@ -117,96 +128,106 @@ def make_train_step(agent: DV2Agent, optimizers: Dict[str, torch.optim.Optimizer
         po = {k: unit_normal(v, v.dim() - 2) for k, v in wm.decode(latent_states).items()}
         pr = unit_normal(wm.reward(latent_states), 1)
         pc = continue_targets = None
-        if use_continues:
+        if self.use_continues:
             pc = Independent(BernoulliSafeMode(wm.continue_logits(latent_states).float()), 1)
-            continue_targets = (1 - data["terminated"]) * gamma
-        pl = torch.stack(prior_logits).float().reshape(T, B, stochastic_size, discrete_size)
-        pol = torch.stack(post_logits).float().reshape(T, B, stochastic_size, discrete_size)
+            continue_targets = (1 - data["terminated"]) * self.gamma
+        pl = torch.stack(prior_logits).float().reshape(T, B, self.stochastic_size, self.discrete_size)
+        pol = torch.stack(post_logits).float().reshape(T, B, self.stochastic_size, self.discrete_size)
         losses = reconstruction_loss(
             po, batch_obs, pr, data["rewards"], pl, pol, wm_cfg.kl_balancing_alpha, wm_cfg.kl_free_nats,
             wm_cfg.kl_free_avg, wm_cfg.kl_regularizer, pc, continue_targets, wm_cfg.discount_scale_factor,
         )  # fmt: skip
         return losses, posteriors, recurrent_states, pol, pl
 
-    def behaviour(data, prior, h, rng):
-        """The imagination from every posterior, the lambda-returns, and the
-        actor's loss, its backward and its update (the world model and the
-        critics are frozen by the caller)."""
-        with record_function("dv2/imagination"):
+    def update_world_model(self, optimizer, data, rng):
+        """The world model's loss, backward, clipping and step -> (losses,
+        posteriors, recurrent states, posterior and prior logits, norm)."""
+        losses, posteriors, recurrent_states, pol, pl = self.world_model_loss(data, self.batch_obs(data), rng)
+        optimizer.zero_grad(set_to_none=True)
+        losses[0].backward()
+        wm_norm = _clip(self.wm, self.cfg.algo.world_model.clip_gradients)
+        optimizer.step()
+        return losses, posteriors, recurrent_states, pol, pl, wm_norm
+
+    def imagine(self, actor: torch.nn.Module, prior: torch.Tensor, h: torch.Tensor, rng):
+        """``horizon`` steps from every start, action i taken from latent
+        i - 1 -> ([horizon + 1, N, latent] trajectories, [horizon + 1, N, A]
+        actions with a zero action first)."""
+        latent = torch.cat([prior, h], -1)
+        latents, img_actions = [latent], []
+        for _ in range(self.horizon):
+            actions = self.actor_sample(actor, latent, rng)
+            prior, h = self.wm.imagination(prior, h, actions, rng)
             latent = torch.cat([prior, h], -1)
-            latents, img_actions = [latent], []
-            for _ in range(horizon):
-                actions = actor_sample(latent, rng)
-                prior, h = wm.imagination(prior, h, actions, rng)
-                latent = torch.cat([prior, h], -1)
-                latents.append(latent)
-                img_actions.append(actions)
-            trajectories = torch.stack(latents)  # [horizon + 1, T * B, latent]
-            imagined_actions = torch.stack([torch.zeros_like(img_actions[0]), *img_actions])
+            latents.append(latent)
+            img_actions.append(actions)
+        return torch.stack(latents), torch.stack([torch.zeros_like(img_actions[0]), *img_actions])
+
+    def returns(self, trajectories, rewards, target_values, data):
+        """λ-returns of ``rewards`` bootstrapped by ``target_values`` with
+        the continue head's probabilities (the data's own at the start; a
+        constant ``gamma`` without ``use_continues``) -> (lambda_values,
+        discount)."""
+        if self.use_continues:
+            continues = torch.sigmoid(self.wm.continue_logits(trajectories).float())
+            true_continue = (1 - data["terminated"]).reshape(1, -1, 1) * self.gamma
+            continues = torch.cat([true_continue, continues[1:]], 0)
+        else:
+            continues = torch.ones_like(rewards.detach()) * self.gamma
+        lambda_values = compute_lambda_values(rewards[:-1], target_values[:-1], continues[:-1], bootstrap=target_values[-1:], lmbda=self.lmbda)
+        discount = torch.cumprod(torch.cat([torch.ones_like(continues[:1]), continues[:-1]], 0), 0).detach()
+        return lambda_values, discount
+
+    def update_actor(self, actor, optimizer, trajectories, imagined_actions, lambda_values, target_values, discount):
+        """The mixed objective (REINFORCE on the advantage over the target
+        values, the λ-returns' own gradient by ``1 - objective_mix``) plus
+        the entropy, its backward, clipping and step -> (loss, norm)."""
+        policies = dv2_actor_dists([p.float() for p in actor(trajectories[:-2].detach())], self.spec)
+        dynamics = lambda_values[1:]
+        advantage = (lambda_values[1:] - target_values[:-2]).detach()
+        if self.spec.is_continuous:
+            logp = policies[0].log_prob(imagined_actions[1:-1].detach())[..., None]
+        else:
+            per_dim = torch.split(imagined_actions, self.actions_dim, -1)
+            logp = torch.stack([p.log_prob(a[1:-1].detach())[..., None] for p, a in zip(policies, per_dim)], -1).sum(-1)
+        objective = self.objective_mix * (logp * advantage) + (1 - self.objective_mix) * dynamics
+        entropy = self.ent_coef * torch.stack([p.entropy() for p in policies], -1).sum(-1)
+        if entropy.dim() < objective.dim():
+            entropy = entropy[..., None]
+        policy_loss = -torch.mean(discount[:-2] * (objective + entropy))
+        optimizer.zero_grad(set_to_none=True)
+        policy_loss.backward()
+        actor_norm = _clip(actor, self.cfg.algo.actor.clip_gradients)
+        optimizer.step()
+        return policy_loss.detach(), actor_norm
+
+    def behaviour(self, actor, target_critic, optimizer, data, prior, h, rng):
+        """The imagination from every posterior, the λ-returns of the reward
+        head, and the actor's update (the world model and the critics are
+        frozen by the caller)."""
+        with record_function("dv2/imagination"):
+            trajectories, imagined_actions = self.imagine(actor, prior, h, rng)
             predicted_target_values = target_critic(trajectories).float()
-            predicted_rewards = wm.reward(trajectories).float()
-            if use_continues:
-                continues = torch.sigmoid(wm.continue_logits(trajectories).float())
-                true_continue = (1 - data["terminated"]).reshape(1, -1, 1) * gamma
-                continues = torch.cat([true_continue, continues[1:]], 0)
-            else:
-                continues = torch.ones_like(predicted_rewards.detach()) * gamma
-            lambda_values = compute_lambda_values(
-                predicted_rewards[:-1], predicted_target_values[:-1], continues[:-1], bootstrap=predicted_target_values[-1:], lmbda=lmbda
-            )
-            discount = torch.cumprod(torch.cat([torch.ones_like(continues[:1]), continues[:-1]], 0), 0).detach()
-
+            predicted_rewards = self.wm.reward(trajectories).float()
+            lambda_values, discount = self.returns(trajectories, predicted_rewards, predicted_target_values, data)
         with record_function("dv2/actor"):
-            policies = dv2_actor_dists([p.float() for p in actor(trajectories[:-2].detach())], spec)
-            dynamics = lambda_values[1:]
-            advantage = (lambda_values[1:] - predicted_target_values[:-2]).detach()
-            if spec.is_continuous:
-                logp = policies[0].log_prob(imagined_actions[1:-1].detach())[..., None]
-            else:
-                per_dim = torch.split(imagined_actions, actions_dim, -1)
-                logp = torch.stack([p.log_prob(a[1:-1].detach())[..., None] for p, a in zip(policies, per_dim)], -1).sum(-1)
-            objective = objective_mix * (logp * advantage) + (1 - objective_mix) * dynamics
-            entropy = ent_coef * torch.stack([p.entropy() for p in policies], -1).sum(-1)
-            if entropy.dim() < objective.dim():
-                entropy = entropy[..., None]
-            policy_loss = -torch.mean(discount[:-2] * (objective + entropy))
-            optimizers["actor"].zero_grad(set_to_none=True)
-            policy_loss.backward()
-            actor_norm = _clip(actor, cfg.algo.actor.clip_gradients)
-            optimizers["actor"].step()
-        return trajectories.detach(), lambda_values.detach(), discount, policy_loss.detach(), actor_norm
+            policy_loss, actor_norm = self.update_actor(actor, optimizer, trajectories, imagined_actions, lambda_values, predicted_target_values, discount)
+        return trajectories.detach(), lambda_values.detach(), discount, policy_loss, actor_norm
 
-    def step(data: Dict[str, torch.Tensor], rng) -> Metrics:
-        batch_obs = {k: data[k].float() / 255.0 - 0.5 for k in cnn_keys}
-        batch_obs.update({k: data[k].float() for k in mlp_keys})
+    def update_critic(self, critic, optimizer, trajectories, lambda_values, discount):
+        """The critic's Normal(., 1) loss on the λ-returns along
+        ``trajectories[:-1]``, its backward, clipping and step -> (loss, norm)."""
+        qv = unit_normal(critic(trajectories[:-1]), 1)
+        value_loss = -torch.mean(discount[:-1, ..., 0] * qv.log_prob(lambda_values))
+        optimizer.zero_grad(set_to_none=True)
+        value_loss.backward()
+        critic_norm = _clip(critic, self.cfg.algo.critic.clip_gradients)
+        optimizer.step()
+        return value_loss.detach(), critic_norm
 
-        with record_function("dv2/world_model"):
-            losses, posteriors, recurrent_states, pol, pl = world_model_loss(data, batch_obs, rng)
-            rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
-            optimizers["world_model"].zero_grad(set_to_none=True)
-            rec_loss.backward()
-            wm_norm = _clip(wm, wm_cfg.clip_gradients)
-            optimizers["world_model"].step()
-
-        prior0 = posteriors.detach().reshape(-1, stoch_state_size)
-        h0 = recurrent_states.detach().reshape(-1, recurrent_state_size)
-        frozen = [p for p in (*wm.parameters(), *critic.parameters()) if p.requires_grad]
-        for p in frozen:
-            p.requires_grad_(False)
-        try:
-            trajectories, lambda_values, discount, policy_loss, actor_norm = behaviour(data, prior0, h0, rng)
-        finally:
-            for p in frozen:
-                p.requires_grad_(True)
-
-        with record_function("dv2/critic"):
-            qv = unit_normal(critic(trajectories[:-1]), 1)
-            value_loss = -torch.mean(discount[:-1, ..., 0] * qv.log_prob(lambda_values))
-            optimizers["critic"].zero_grad(set_to_none=True)
-            value_loss.backward()
-            critic_norm = _clip(critic, cfg.algo.critic.clip_gradients)
-            optimizers["critic"].step()
-
+    @staticmethod
+    def world_model_metrics(losses, pol, pl) -> Metrics:
+        rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
         return {
             "Loss/world_model_loss": rec_loss.detach(),
             "Loss/observation_loss": observation_loss.detach(),
@@ -216,12 +237,37 @@ def make_train_step(agent: DV2Agent, optimizers: Dict[str, torch.optim.Optimizer
             "State/kl": kl.detach().mean(),
             "State/post_entropy": Independent(OneHotCategorical(pol.detach()), 1).entropy().mean(),
             "State/prior_entropy": Independent(OneHotCategorical(pl.detach()), 1).entropy().mean(),
-            "Loss/policy_loss": policy_loss,
-            "Loss/value_loss": value_loss.detach(),
-            "Grads/world_model": wm_norm,
-            "Grads/actor": actor_norm,
-            "Grads/critic": critic_norm,
         }
+
+
+def make_train_step(agent: DV2Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg) -> Callable[[Dict[str, torch.Tensor], Any], Metrics]:
+    """-> ``step(data, rng) -> metrics``: one gradient step of the three
+    modules, updating their parameters and optimizer states in place.
+    ``data`` holds time-major [T, B, ...] tensors on the agent's device: the
+    observation keys (pixels as uint8), ``actions`` (one-hot, or the
+    continuous actions; the action that led to the row's observation),
+    ``rewards``, ``terminated`` and ``is_first``. ``rng`` is the noise source
+    of every draw (a :class:`BatchGenerator`)."""
+    learner = DV2Learner(agent.world_model, agent.actor_spec, cfg)
+    wm, actor, critic, target_critic = agent.world_model, agent.actor, agent.critic, agent.target_critic
+
+    def step(data: Dict[str, torch.Tensor], rng) -> Metrics:
+        with record_function("dv2/world_model"):
+            losses, posteriors, recurrent_states, pol, pl, wm_norm = learner.update_world_model(optimizers["world_model"], data, rng)
+        prior0 = posteriors.detach().reshape(-1, learner.stoch_state_size)
+        h0 = recurrent_states.detach().reshape(-1, learner.recurrent_state_size)
+        with frozen((wm, critic)):
+            trajectories, lambda_values, discount, policy_loss, actor_norm = learner.behaviour(
+                actor, target_critic, optimizers["actor"], data, prior0, h0, rng
+            )
+        with record_function("dv2/critic"):
+            value_loss, critic_norm = learner.update_critic(critic, optimizers["critic"], trajectories, lambda_values, discount)
+        metrics = learner.world_model_metrics(losses, pol, pl)
+        metrics.update({
+            "Loss/policy_loss": policy_loss, "Loss/value_loss": value_loss,
+            "Grads/world_model": wm_norm, "Grads/actor": actor_norm, "Grads/critic": critic_norm,
+        })  # fmt: skip
+        return metrics
 
     return step
 
@@ -235,22 +281,66 @@ def hard_copy_target_(agent) -> None:
 
 @dataclass(frozen=True)
 class DreamerLoop:
-    """What tells DreamerV1's and DreamerV2's loops apart: the function that
-    makes the agent (``build_agent``'s signature), the train step, the checkpointed
-    modules, whether ``buffer.type=episode`` is taken, whether rows carry
-    ``is_first``, whether the target critic is hard-copied every
+    """What tells DreamerV1's and DreamerV2's loops apart: whether
+    ``buffer.type=episode`` is taken, whether rows carry ``is_first``,
+    whether the target critic is hard-copied every
     ``algo.critic.per_rank_target_network_update_freq`` gradient steps,
     whether the player adds exploration noise, and the dry run's rows per
     env."""
 
-    build_agent: Callable[..., Any]
-    make_train_step: Callable[..., Callable]
-    modules: Sequence[str]
     episode_buffer: bool
     is_first: bool
     target_copy: bool
     exploration: bool
     dry_run_rows: int
+
+
+@dataclass
+class DreamerTrainer:
+    """What :func:`run_dreamer` trains: the agent the callback sees and the
+    run returns, its optimizers, the train step ``step(data, rng) ->
+    metrics``, the modules' and optimizers' part of a checkpoint
+    (``state()``), the hard copy of the target critics, the agent that acts
+    at iteration ``i`` after ``learning_starts`` prefill iterations
+    (``player(i, learning_starts)``), the test episode's agent, whether the
+    prefill plays random actions, and a replay buffer's state to start from
+    (P2E finetuning's ``buffer.load_from_exploration``)."""
+
+    agent: Any
+    optimizers: Dict[str, Any]
+    train_step: Callable[[Dict[str, torch.Tensor], Any], Metrics]
+    state: Callable[[], Dict[str, Any]]
+    copy_targets: Callable[[], None]
+    player: Callable[[int, int], Any]
+    test_agent: Any
+    random_prefill: bool = True
+    buffer_state: Optional[Dict[str, Any]] = None
+
+
+def loop_trainer(
+    build_agent: Callable[..., Any], make_step: Callable[..., Callable], modules: Sequence[str], cfg, actions_dim, is_continuous,
+    observation_space, device, state_ckpt,
+) -> DreamerTrainer:  # fmt: skip
+    """DreamerV1's or DreamerV2's trainer: the agent ``build_agent`` makes
+    (``build_agent``'s signature), the train step ``make_step`` makes, the
+    three Adams, the checkpoint's ``modules`` and optimizers."""
+    agent = build_agent(actions_dim, is_continuous, cfg, observation_space, precision=cfg.fabric.precision, device=device, seed=cfg.seed)
+    optimizers = make_optimizers(agent, cfg)
+    if state_ckpt is not None:
+        for name in modules:
+            getattr(agent, name).load_state_dict(state_ckpt[name], strict=True)
+        for name, key in OPTIMIZER_KEYS.items():
+            load_optimizer_state(optimizers[name], state_ckpt[key])
+
+    def state() -> Dict[str, Any]:
+        ckpt_state: Dict[str, Any] = {name: getattr(agent, name).state_dict() for name in modules}
+        ckpt_state.update({key: optimizers[name].state_dict() for name, key in OPTIMIZER_KEYS.items()})
+        return ckpt_state
+
+    return DreamerTrainer(
+        agent=agent, optimizers=optimizers, train_step=make_step(agent, optimizers, cfg), state=state,
+        copy_targets=functools.partial(hard_copy_target_, agent), player=lambda i, learning_starts: agent, test_agent=agent,
+    )  # fmt: skip
 
 
 def _buffer(cfg, loop: DreamerLoop, num_envs: int, obs_keys: List[str], log_dir: str):
@@ -271,8 +361,13 @@ def _buffer(cfg, loop: DreamerLoop, num_envs: int, obs_keys: List[str], log_dir:
     raise ValueError(f"Unrecognized buffer type: must be one of `sequential` or `episode`, received: {buffer_type}")
 
 
-def run_dreamer(cfg, loop: DreamerLoop, callback: Optional[Callable[[Any, int, Metrics], None]] = None) -> Dict[str, Any]:
-    """Train DreamerV1 or DreamerV2 (``loop``) on ``cfg`` on ``cfg.device``;
+def run_dreamer(
+    cfg, loop: DreamerLoop, build: Callable[..., DreamerTrainer], callback: Optional[Callable[[Any, int, Metrics], None]] = None
+) -> Dict[str, Any]:
+    """Train on ``cfg`` on ``cfg.device`` in DreamerV1's or DreamerV2's loop
+    (``loop``) the trainer that ``build(cfg, actions_dim, is_continuous,
+    observation_space, device, state_ckpt)`` gives (``state_ckpt`` is a
+    resumed run's checkpoint, else None; :func:`loop_trainer`, or P2E-DV2's);
     ``callback(agent, gradient_step, metrics)`` runs after every gradient
     step. The run writes under ``<log_root>/<root_dir>/<run_name>/version_<N>``:
     ``config.json``, ``hparams.json``, with ``metric.log_level`` > 0 an
@@ -288,7 +383,7 @@ def run_dreamer(cfg, loop: DreamerLoop, callback: Optional[Callable[[Any, int, M
     the last observation and row, the player's state and, with
     ``buffer.checkpoint``, the buffer (memory-mapped files by reference).
     ``checkpoint.resume_from`` continues from one with the saved run's
-    config; with the buffer in it the resumed run is the uninterrupted one,
+    config (merged by the CLI, :func:`sheeprl_tpu_torch.cli.run`); with the buffer in it the resumed run is the uninterrupted one,
     step for step, unless the buffer evicted or overwrote rows the
     checkpoint refers to after the save.
 
@@ -296,8 +391,6 @@ def run_dreamer(cfg, loop: DreamerLoop, callback: Optional[Callable[[Any, int, M
     "log_dir", "checkpoints", "test_reward", "infeed", "buffer"}: ``log``
     holds, for every log point, the policy and gradient steps and the values
     logged there; ``buffer`` the replay buffer."""
-    if cfg.checkpoint.resume_from:
-        cfg = resume_config(cfg)
     device = resolve_device(cfg.device)
     if cfg.env_group != "dummy":
         raise ValueError(f"env={cfg.env_group} is not ported; the port trains on env=dummy")
@@ -327,9 +420,8 @@ def run_dreamer(cfg, loop: DreamerLoop, callback: Optional[Callable[[Any, int, M
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     obs_keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
 
-    agent = loop.build_agent(actions_dim, is_continuous, cfg, observation_space, precision=cfg.fabric.precision, device=device, seed=cfg.seed)
-    optimizers = make_optimizers(agent, cfg)
-    train_step = loop.make_train_step(agent, optimizers, cfg)
+    trainer = build(cfg, actions_dim, is_continuous, observation_space, device, state_ckpt)
+    agent, train_step = trainer.agent, trainer.train_step
     train_rng = BatchGenerator.from_seed(cfg.seed, device)
     player_rng = BatchGenerator.from_seed(cfg.seed + 1, device)
 
@@ -374,12 +466,8 @@ def run_dreamer(cfg, loop: DreamerLoop, callback: Optional[Callable[[Any, int, M
     if cfg.dry_run:
         step_data["terminated"] = step_data["terminated"] + 1
         step_data["truncated"] = step_data["truncated"] + 1
-    player_state = agent.init_player_state(num_envs)
+    player_state = trainer.test_agent.init_player_state(num_envs)
     if state_ckpt is not None:
-        for name in loop.modules:
-            getattr(agent, name).load_state_dict(state_ckpt[name], strict=True)
-        for name, key in OPTIMIZER_KEYS.items():
-            load_optimizer_state(optimizers[name], state_ckpt[key])
         train_rng.generator.set_state(state_ckpt["train_rng"])
         player_rng.generator.set_state(state_ckpt["player_rng"])
         ratio.load_state_dict(state_ckpt["ratio"])
@@ -393,6 +481,8 @@ def run_dreamer(cfg, loop: DreamerLoop, callback: Optional[Callable[[Any, int, M
         batch_size = int(state_ckpt["batch_size"])
     if state_ckpt is not None and cfg.buffer.checkpoint and state_ckpt.get("rb") is not None:
         rb.load_state_dict(state_ckpt["rb"])
+    elif state_ckpt is None and trainer.buffer_state is not None:
+        rb.load_state_dict(trainer.buffer_state)
     else:
         if state_ckpt is not None:
             learning_starts += start_iter
@@ -405,20 +495,21 @@ def run_dreamer(cfg, loop: DreamerLoop, callback: Optional[Callable[[Any, int, M
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
         with timer("Time/env_interaction_time"):
-            if iter_num <= learning_starts and state_ckpt is None:
+            if iter_num <= learning_starts and state_ckpt is None and trainer.random_prefill:
                 real_actions = actions = envs.sample_actions()
                 if not is_continuous:
                     actions = _one_hot(actions, actions_dim)
             else:
                 prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
                 obs_t = normalize_obs({k: torch.from_numpy(v).to(device) for k, v in prepared.items()}, cnn_keys)
+                player = trainer.player(iter_num, learning_starts)
                 if loop.exploration:
-                    amount = agent.exploration_amount(policy_step)
-                    actions_t, real_t, player_state = agent.player_step(player_state, obs_t, player_rng, expl_amount=amount)
+                    amount = player.exploration_amount(policy_step)
+                    actions_t, real_t, player_state = player.player_step(player_state, obs_t, player_rng, expl_amount=amount)
                     if aggregator is not None and "Params/exploration_amount" in aggregator:
                         aggregator.update("Params/exploration_amount", amount)
                 else:
-                    actions_t, real_t, player_state = agent.player_step(player_state, obs_t, player_rng)
+                    actions_t, real_t, player_state = player.player_step(player_state, obs_t, player_rng)
                 actions = actions_t.float().cpu().numpy()
                 real_actions = actions if is_continuous else real_t.cpu().numpy()
                 if isinstance(action_space, Discrete):
@@ -462,7 +553,7 @@ def run_dreamer(cfg, loop: DreamerLoop, callback: Optional[Callable[[Any, int, M
             step_data["truncated"][:, dones_idxes] = 0.0
             reset_mask = np.zeros((num_envs,), np.float32)
             reset_mask[dones_idxes] = 1.0
-            player_state = agent.reset_player_state(player_state, torch.from_numpy(reset_mask).to(device))
+            player_state = trainer.test_agent.reset_player_state(player_state, torch.from_numpy(reset_mask).to(device))
 
         # ------------------------------------------------------- training
         if iter_num >= learning_starts:
@@ -472,7 +563,7 @@ def run_dreamer(cfg, loop: DreamerLoop, callback: Optional[Callable[[Any, int, M
                 with train_timer(device):
                     for i in range(per_rank_gradient_steps):
                         if loop.target_copy and gradient_steps % freq == 0:
-                            hard_copy_target_(agent)
+                            trainer.copy_targets()
                         metrics = train_step(batches[i], train_rng)
                         gradient_steps += 1
                         if aggregator is not None:
@@ -516,8 +607,7 @@ def run_dreamer(cfg, loop: DreamerLoop, callback: Optional[Callable[[Any, int, M
             iter_num == total_iters and cfg.checkpoint.save_last
         ):
             last_checkpoint = policy_step
-            ckpt_state: Dict[str, Any] = {name: getattr(agent, name).state_dict() for name in loop.modules}
-            ckpt_state.update({key: optimizers[name].state_dict() for name, key in OPTIMIZER_KEYS.items()})
+            ckpt_state = trainer.state()
             ckpt_state.update(
                 ratio=ratio.state_dict(), iter_num=iter_num, gradient_steps=gradient_steps, batch_size=batch_size,
                 last_log=last_log, last_checkpoint=last_checkpoint, train_rng=train_rng.generator.get_state(),
@@ -530,23 +620,21 @@ def run_dreamer(cfg, loop: DreamerLoop, callback: Optional[Callable[[Any, int, M
             checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
 
     infeed.close()
-    test_reward = test(agent, cfg, log_dir, logger) if cfg.algo.run_test else None
+    test_reward = test(trainer.test_agent, cfg, log_dir, logger) if cfg.algo.run_test else None
     if logger is not None:
         logger.close()
     return {
-        "agent": agent, "optimizers": optimizers, "policy_steps": policy_step, "gradient_steps": gradient_steps, "log": log,
+        "agent": agent, "optimizers": trainer.optimizers, "policy_steps": policy_step, "gradient_steps": gradient_steps, "log": log,
         "log_dir": log_dir, "checkpoints": checkpoints, "test_reward": test_reward,
         "infeed": {"hits": infeed.hits, "misses": infeed.misses}, "buffer": rb,
     }  # fmt: skip
 
 
-DV2_LOOP = DreamerLoop(
-    build_agent=build_agent, make_train_step=make_train_step, modules=("world_model", "actor", "critic", "target_critic"),
-    episode_buffer=True, is_first=True, target_copy=True, exploration=False, dry_run_rows=4,
-)  # fmt: skip
+DV2_LOOP = DreamerLoop(episode_buffer=True, is_first=True, target_copy=True, exploration=False, dry_run_rows=4)
+MODULES = ("world_model", "actor", "critic", "target_critic")
 
 
 @register_algorithm()
 def main(cfg, callback: Optional[Callable[[DV2Agent, int, Metrics], None]] = None) -> Dict[str, Any]:
     """Train DreamerV2 on ``cfg`` (:func:`run_dreamer`)."""
-    return run_dreamer(cfg, DV2_LOOP, callback)
+    return run_dreamer(cfg, DV2_LOOP, functools.partial(loop_trainer, build_agent, make_train_step, MODULES), callback)

@@ -493,12 +493,14 @@ class DV3Agent(nn.Module):
     """World model + actor (+ critic and target critic when training) + the
     functional player."""
 
-    def __init__(self, world_model: WorldModel, actor: Actor, actor_spec: ActorSpec, critic: Optional[MLP] = None):
+    def __init__(
+        self, world_model: WorldModel, actor: Actor, actor_spec: ActorSpec, critic: Optional[MLP] = None, target_critic: Optional[MLP] = None
+    ):
         super().__init__()
         self.world_model = world_model
         self.actor = actor
         self.critic = critic
-        self.target_critic = copy.deepcopy(critic) if critic is not None else None
+        self.target_critic = target_critic if target_critic is not None else copy.deepcopy(critic) if critic is not None else None
         if self.target_critic is not None:
             self.target_critic.requires_grad_(False)
         self.actor_spec = actor_spec
@@ -605,6 +607,15 @@ def _init_mlp(mlp: MLP, gen: torch.Generator, output_uniform: bool, output_zero:
         mlp.output.bias.data.zero_()
 
 
+def init_actor_(actor: "Actor", gen: torch.Generator) -> None:
+    """The actor's trunk fan-avg truncated normal, its heads fan-avg uniform,
+    zero biases."""
+    _init_mlp(actor.model, gen, output_uniform=False)
+    for head in actor.heads:
+        _init_head(head.weight.data, gen)
+        head.bias.data.zero_()
+
+
 def _init_training_modules(agent: "DV3Agent", gen: torch.Generator) -> None:
     """The decoders, the reward and continue heads and the critic, after the
     player's modules from the same generator (so a seed gives the player the
@@ -655,10 +666,7 @@ def init_agent_(agent: DV3Agent, seed: int) -> None:
     _init_mlp(wm.representation_model, gen, output_uniform=True)
     _init_mlp(wm.transition_model, gen, output_uniform=True)
     wm.initial_recurrent_state.data.zero_()
-    _init_mlp(agent.actor.model, gen, output_uniform=False)
-    for head in agent.actor.heads:
-        _init_head(head.weight.data, gen)
-        head.bias.data.zero_()
+    init_actor_(agent.actor, gen)
     if agent.critic is not None:
         _init_training_modules(agent, gen)
 

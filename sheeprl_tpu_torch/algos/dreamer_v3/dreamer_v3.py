@@ -21,7 +21,11 @@ stages run under ``torch.profiler.record_function`` spans (``dv3/world_model``,
 ``dv3/imagination``, ``dv3/actor``, ``dv3/critic``), which a profiler reads
 to split a step's time.
 
-:func:`main` is the serial subset of ``dreamer_v3.main``: prefill with random
+The step's pieces are :class:`DV3Learner`'s, which P2E-DV3's step shares.
+
+:func:`main` is the serial subset of ``dreamer_v3.main`` (the loop,
+:func:`run_dreamer_v3`, runs P2E-DV3's phases too, each with its own
+:class:`DV3Trainer`): prefill with random
 actions, ``rb.add`` of every step (reset rows included) into a memory-mapped
 or in-memory buffer, ``player_step``, ``Ratio``-driven gradient steps with
 the target critic's cadence, the metric aggregator, timers and TensorBoard
@@ -38,10 +42,12 @@ probes and the preemption guard.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import os
 import warnings
-from typing import Any, Callable, Dict, List, Optional
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -77,7 +83,7 @@ from sheeprl_tpu_torch.utils.distribution import (
     TwoHotEncodingDistribution,
     uniform_mix,
 )
-from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, resume_config, save_checkpoint
+from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator
 from sheeprl_tpu_torch.utils.ops import compute_lambda_values, init_moments, target_ema_, update_moments
@@ -115,53 +121,73 @@ def _clip(module: torch.nn.Module, clip: Optional[float]) -> torch.Tensor:
     return torch.nn.utils.clip_grad_norm_(params, float(clip) if clip is not None and clip > 0 else float("inf"))
 
 
-def make_train_step(
-    agent: DV3Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg
-) -> Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Any, float], tuple]:
-    """-> ``step(moments_state, data, rng, tau) -> (moments_state, metrics)``.
+@contextlib.contextmanager
+def frozen(modules: Sequence[torch.nn.Module], on: bool = True):
+    """Parameters of ``modules`` that take a gradient take none inside (when
+    ``on``): a loss that runs through them then differentiates only the
+    others', as a JAX ``value_and_grad`` of one module's parameters does."""
+    params = [p for m in modules for p in m.parameters() if p.requires_grad] if on else []
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
 
-    ``data`` holds time-major [T, B, ...] tensors on the agent's device:
-    the observation keys (pixels as uint8), ``actions`` (one-hot, or the
-    continuous actions), ``rewards``, ``terminated`` and ``is_first``.
-    ``rng`` is the noise source of every draw (a :class:`BatchGenerator`);
-    ``tau`` is the target critic's EMA coefficient for this step (0 leaves
-    it), a float or a 0-d tensor on the agent's device (what a captured step
-    reads, :func:`target_ema_`)."""
-    wm_cfg = cfg.algo.world_model
-    decoupled = bool(wm_cfg.decoupled_rssm)
-    pathwise = bool(agent.is_continuous)
-    cnn_keys = list(cfg.algo.cnn_keys.encoder)
-    mlp_keys = list(cfg.algo.mlp_keys.encoder)
-    cnn_dec_keys = list(cfg.algo.cnn_keys.decoder)
-    mlp_dec_keys = list(cfg.algo.mlp_keys.decoder)
-    stochastic_size = int(wm_cfg.stochastic_size)
-    discrete_size = int(wm_cfg.discrete_size)
-    stoch_state_size = stochastic_size * discrete_size
-    recurrent_state_size = int(wm_cfg.recurrent_model.recurrent_state_size)
-    horizon = int(cfg.algo.horizon)
-    gamma = float(cfg.algo.gamma)
-    lmbda = float(cfg.algo.lmbda)
-    ent_coef = float(cfg.algo.actor.ent_coef)
-    moments_cfg = cfg.algo.actor.moments
-    spec = agent.actor_spec
-    actions_dim = [int(d) for d in agent.actions_dim]
-    wm, actor, critic, target_critic = agent.world_model, agent.actor, agent.critic, agent.target_critic
-    device = next(critic.parameters()).device
 
-    def actor_sample(latent: torch.Tensor, rng) -> torch.Tensor:
-        actions, _ = actor_forward([p.float() for p in actor(latent.detach())], spec, rng, greedy=False)
+class DV3Learner:
+    """The pieces of a DreamerV3 gradient step that P2E's steps share: the
+    world model's loss and update, the imagination with any actor, the
+    continues and discounts of a trajectory, the normalised advantage, an
+    actor's loss and update, and a critic's update with its target's EMA.
+    Built from the world model, the config and the actor's spec; the caller
+    names the actor, critic and optimizer of each update."""
+
+    def __init__(self, world_model: torch.nn.Module, actor_spec, cfg):
+        wm_cfg = cfg.algo.world_model
+        self.cfg = cfg
+        self.wm = world_model
+        self.decoupled = bool(wm_cfg.decoupled_rssm)
+        self.spec = actor_spec
+        self.pathwise = bool(actor_spec.is_continuous)
+        self.cnn_keys = list(cfg.algo.cnn_keys.encoder)
+        self.mlp_keys = list(cfg.algo.mlp_keys.encoder)
+        self.cnn_dec_keys = list(cfg.algo.cnn_keys.decoder)
+        self.mlp_dec_keys = list(cfg.algo.mlp_keys.decoder)
+        self.stochastic_size = int(wm_cfg.stochastic_size)
+        self.discrete_size = int(wm_cfg.discrete_size)
+        self.stoch_state_size = self.stochastic_size * self.discrete_size
+        self.recurrent_state_size = int(wm_cfg.recurrent_model.recurrent_state_size)
+        self.horizon = int(cfg.algo.horizon)
+        self.gamma = float(cfg.algo.gamma)
+        self.lmbda = float(cfg.algo.lmbda)
+        self.ent_coef = float(cfg.algo.actor.ent_coef)
+        self.moments_cfg = cfg.algo.actor.moments
+        self.actions_dim = [int(d) for d in actor_spec.actions_dim]
+        self.device = next(world_model.parameters()).device
+
+    def batch_obs(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        batch_obs = {k: data[k].float() / 255.0 - 0.5 for k in self.cnn_keys}
+        batch_obs.update({k: data[k].float() for k in self.mlp_keys})
+        return batch_obs
+
+    def actor_sample(self, actor: torch.nn.Module, latent: torch.Tensor, rng) -> torch.Tensor:
+        actions, _ = actor_forward([p.float() for p in actor(latent.detach())], self.spec, rng, greedy=False)
         return torch.cat(actions, -1)
 
-    def world_model_loss(data, batch_obs, rng):
+    def world_model_loss(self, data, batch_obs, rng):
+        wm = self.wm
+        stochastic_size, discrete_size = self.stochastic_size, self.discrete_size
         T, B = data["rewards"].shape[:2]
         embedded = wm.embed_obs(batch_obs)  # [T, B, E]
         batch_actions = torch.cat([torch.zeros_like(data["actions"][:1]), data["actions"][:-1]], 0)
         is_first = data["is_first"].clone()
         is_first[0] = 1.0
-        h = torch.zeros((B, recurrent_state_size), dtype=embedded.dtype, device=embedded.device)
-        z = torch.zeros((B, stoch_state_size), dtype=embedded.dtype, device=embedded.device)
+        h = torch.zeros((B, self.recurrent_state_size), dtype=embedded.dtype, device=embedded.device)
+        z = torch.zeros((B, self.stoch_state_size), dtype=embedded.dtype, device=embedded.device)
         hs, zs, post_logits, prior_logits = [], [], [], []
-        if decoupled:
+        if self.decoupled:
             # The posterior sees the observation only: one batched pass over
             # [T, B]; the scan feeds each step the previous step's posterior.
             posterior_logits, posteriors = wm.posterior_obs_only(embedded, rng)
@@ -181,12 +207,13 @@ def make_train_step(
         recurrent_states = torch.stack(hs)
         latent_states = torch.cat([posteriors, recurrent_states], -1)
         decoded = wm.decode(latent_states)
-        po = {k: MSEDistribution(decoded[k].float(), dims=decoded[k].dim() - 2) for k in cnn_dec_keys}
-        po.update({k: SymlogDistribution(decoded[k].float(), dims=decoded[k].dim() - 2) for k in mlp_dec_keys})
+        po = {k: MSEDistribution(decoded[k].float(), dims=decoded[k].dim() - 2) for k in self.cnn_dec_keys}
+        po.update({k: SymlogDistribution(decoded[k].float(), dims=decoded[k].dim() - 2) for k in self.mlp_dec_keys})
         pr = TwoHotEncodingDistribution(wm.reward_logits(latent_states).float(), dims=1)
         pc = Independent(BernoulliSafeMode(wm.continue_logits(latent_states).float()), 1)
         pl = torch.stack(prior_logits).float().reshape(T, B, stochastic_size, discrete_size)
         pol = posterior_logits.float().reshape(T, B, stochastic_size, discrete_size)
+        wm_cfg = self.cfg.algo.world_model
         losses = reconstruction_loss(
             po, batch_obs, pr, data["rewards"], pl, pol,
             wm_cfg.kl_dynamic, wm_cfg.kl_representation, wm_cfg.kl_free_nats, wm_cfg.kl_regularizer,
@@ -194,105 +221,115 @@ def make_train_step(
         )  # fmt: skip
         return losses, posteriors, recurrent_states, pol, pl
 
-    def behaviour(moments_state, data, prior, h, rng):
-        """The imagination from every posterior, the λ-returns and the
-        actor's loss, its backward and its update. Continuous actions carry
-        the pathwise gradient through the rollout, so it runs under autograd
-        with the world model and the critic frozen (the JAX package
-        differentiates the actor's parameters only); discrete actions take
-        none, so it runs under no_grad."""
+    def update_world_model(self, optimizer, data, batch_obs, rng):
+        """The world model's loss, backward, clipping and Adam step ->
+        (losses, posteriors, recurrent_states, posterior and prior logits,
+        the pre-clip gradient norm)."""
+        losses, posteriors, recurrent_states, pol, pl = self.world_model_loss(data, batch_obs, rng)
+        optimizer.zero_grad(set_to_none=True)
+        losses[0].backward()
+        wm_norm = _clip(self.wm, self.cfg.algo.world_model.clip_gradients)
+        optimizer.step()
+        return losses, posteriors, recurrent_states, pol, pl, wm_norm
+
+    def imagine(self, actor: torch.nn.Module, prior: torch.Tensor, h: torch.Tensor, rng):
+        """``horizon`` steps of the prior from every start, each action
+        drawn by ``actor`` from the latent it reached -> ([horizon + 1, N,
+        latent] trajectories, [horizon + 1, N, A] actions); the caller sets
+        the grad mode."""
         latent0 = torch.cat([prior, h], -1)
-        with torch.set_grad_enabled(pathwise), record_function("dv3/imagination"):
-            actions = actor_sample(latent0, rng)
-            latents, img_actions = [latent0], [actions]
-            for _ in range(horizon):
-                prior, h = wm.imagination(prior, h, actions, rng)
-                latent = torch.cat([prior, h], -1)
-                actions = actor_sample(latent, rng)
-                latents.append(latent)
-                img_actions.append(actions)
-            trajectories = torch.stack(latents)  # [horizon + 1, T * B, latent]
-            imagined_actions = torch.stack(img_actions)
+        actions = self.actor_sample(actor, latent0, rng)
+        latents, img_actions = [latent0], [actions]
+        for _ in range(self.horizon):
+            prior, h = self.wm.imagination(prior, h, actions, rng)
+            latent = torch.cat([prior, h], -1)
+            actions = self.actor_sample(actor, latent, rng)
+            latents.append(latent)
+            img_actions.append(actions)
+        return torch.stack(latents), torch.stack(img_actions)
+
+    def continues(self, trajectories: torch.Tensor, data) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The continue head's mode along ``trajectories`` (the data's own at
+        the start) and its cumulative discount."""
+        continues = Independent(BernoulliSafeMode(self.wm.continue_logits(trajectories).float()), 1).mode
+        true_continue = (1 - data["terminated"]).reshape(1, -1, 1)
+        continues = torch.cat([true_continue, continues[1:]], 0)
+        discount = (torch.cumprod(continues * self.gamma, 0) / self.gamma).detach()
+        return continues, discount
+
+    def advantage(self, moments_state, rewards, values, continues):
+        """λ-returns of ``rewards`` bootstrapped by ``values``, the moments
+        they update, and the advantage of the returns over the values, both
+        scaled by the moments -> (new moments, lambda_values, advantage)."""
+        lambda_values = compute_lambda_values(rewards[1:], values[1:], continues[1:] * self.gamma, self.lmbda)
+        m = self.moments_cfg
+        new_moments, (offset, invscale) = update_moments(
+            moments_state, lambda_values, decay=m.decay, max_=m.max, percentile_low=m.percentile.low, percentile_high=m.percentile.high
+        )
+        advantage = (lambda_values - offset) / invscale - (values[:-1] - offset) / invscale
+        return new_moments, lambda_values, advantage
+
+    def update_actor(self, actor, optimizer, trajectories, imagined_actions, advantage, discount):
+        """The actor's loss on ``trajectories`` (the pathwise advantage for
+        continuous actions, REINFORCE on the detached advantage for discrete
+        ones, plus the entropy bonus), its backward, clipping and step ->
+        (policy loss, pre-clip norm)."""
+        pre = actor(trajectories.detach())
+        if self.pathwise:
+            dist, _ = _continuous_dist(pre[0].float(), self.spec)
+            objective = advantage
+            _, entropy = continuous_log_prob_and_entropy(dist, imagined_actions, self.spec)
+            entropy = self.ent_coef * entropy if entropy is not None else torch.zeros_like(trajectories[..., 0], dtype=torch.float32)
+        else:
+            policies = [OneHotCategoricalStraightThrough(uniform_mix(p.float(), self.spec.unimix)) for p in pre]
+            per_dim = torch.split(imagined_actions, self.actions_dim, -1)
+            logp = torch.stack([p.log_prob(a.detach())[..., None][:-1] for p, a in zip(policies, per_dim)], -1).sum(-1)
+            objective = logp * advantage.detach()
+            entropy = self.ent_coef * torch.stack([p.entropy() for p in policies], -1).sum(-1)
+        policy_loss = -torch.mean(discount[:-1] * (objective + entropy[..., None][:-1]))
+        optimizer.zero_grad(set_to_none=True)
+        policy_loss.backward()
+        actor_norm = _clip(actor, self.cfg.algo.actor.clip_gradients)
+        optimizer.step()
+        return policy_loss.detach(), actor_norm
+
+    def behaviour(self, actor, critic, optimizer, moments_state, data, prior, h, rng):
+        """The imagination from every posterior with ``actor``, the λ-returns
+        on the reward head and ``critic``, and the actor's update.
+        Continuous actions carry the pathwise gradient through the rollout,
+        so it runs under autograd (the caller freezes the world model and
+        the critic); discrete actions take none, so it runs under no_grad."""
+        with torch.set_grad_enabled(self.pathwise), record_function("dv3/imagination"):
+            trajectories, imagined_actions = self.imagine(actor, prior, h, rng)
             predicted_values = TwoHotEncodingDistribution(critic(trajectories).float(), dims=1).mean
-            predicted_rewards = TwoHotEncodingDistribution(wm.reward_logits(trajectories).float(), dims=1).mean
-            continues = Independent(BernoulliSafeMode(wm.continue_logits(trajectories).float()), 1).mode
-            true_continue = (1 - data["terminated"]).reshape(1, -1, 1)
-            continues = torch.cat([true_continue, continues[1:]], 0)
-            lambda_values = compute_lambda_values(predicted_rewards[1:], predicted_values[1:], continues[1:] * gamma, lmbda)
-            discount = (torch.cumprod(continues * gamma, 0) / gamma).detach()
-            new_moments, (offset, invscale) = update_moments(
-                moments_state,
-                lambda_values,
-                decay=moments_cfg.decay,
-                max_=moments_cfg.max,
-                percentile_low=moments_cfg.percentile.low,
-                percentile_high=moments_cfg.percentile.high,
-            )
-            baseline = predicted_values[:-1]
-            advantage = (lambda_values - offset) / invscale - (baseline - offset) / invscale
-
+            predicted_rewards = TwoHotEncodingDistribution(self.wm.reward_logits(trajectories).float(), dims=1).mean
+            continues, discount = self.continues(trajectories, data)
+            new_moments, lambda_values, advantage = self.advantage(moments_state, predicted_rewards, predicted_values, continues)
         with record_function("dv3/actor"):
-            pre = actor(trajectories.detach())
-            if pathwise:
-                dist, _ = _continuous_dist(pre[0].float(), spec)
-                objective = advantage
-                _, entropy = continuous_log_prob_and_entropy(dist, imagined_actions, spec)
-                entropy = ent_coef * entropy if entropy is not None else torch.zeros_like(trajectories[..., 0], dtype=torch.float32)
-            else:
-                policies = [OneHotCategoricalStraightThrough(uniform_mix(p.float(), spec.unimix)) for p in pre]
-                per_dim = torch.split(imagined_actions, actions_dim, -1)
-                logp = torch.stack([p.log_prob(a.detach())[..., None][:-1] for p, a in zip(policies, per_dim)], -1).sum(-1)
-                objective = logp * advantage.detach()
-                entropy = ent_coef * torch.stack([p.entropy() for p in policies], -1).sum(-1)
-            policy_loss = -torch.mean(discount[:-1] * (objective + entropy[..., None][:-1]))
-            optimizers["actor"].zero_grad(set_to_none=True)
-            policy_loss.backward()
-            actor_norm = _clip(actor, cfg.algo.actor.clip_gradients)
-            optimizers["actor"].step()
-        return new_moments, trajectories.detach(), lambda_values.detach(), discount, policy_loss.detach(), actor_norm
+            policy_loss, actor_norm = self.update_actor(actor, optimizer, trajectories, imagined_actions, advantage, discount)
+        return new_moments, trajectories.detach(), lambda_values.detach(), discount, policy_loss, actor_norm
 
-    def step(moments_state, data, rng, tau):
-        batch_obs = {k: data[k].float() / 255.0 - 0.5 for k in cnn_keys}
-        batch_obs.update({k: data[k].float() for k in mlp_keys})
+    def update_critic(self, critic, target_critic, optimizer, trajectories, lambda_values, discount, tau):
+        """The critic's two-hot loss against the λ-returns and its target's
+        values along ``trajectories[:-1]``, its backward, clipping and step,
+        then the target's EMA by ``tau`` -> (value loss, pre-clip norm)."""
+        traj = trajectories[:-1]
+        with torch.no_grad():
+            predicted_target_values = TwoHotEncodingDistribution(target_critic(traj).float(), dims=1).mean
+        qv = TwoHotEncodingDistribution(critic(traj).float(), dims=1)
+        value_loss = -qv.log_prob(lambda_values) - qv.log_prob(predicted_target_values)
+        value_loss = torch.mean(value_loss * discount[:-1].squeeze(-1))
+        optimizer.zero_grad(set_to_none=True)
+        value_loss.backward()
+        critic_norm = _clip(critic, self.cfg.algo.critic.clip_gradients)
+        optimizer.step()
+        tau_t = tau if isinstance(tau, torch.Tensor) else torch.full((), float(tau), device=self.device)
+        target_ema_(list(target_critic.parameters()), list(critic.parameters()), tau_t)
+        return value_loss.detach(), critic_norm
 
-        # ---------------------------------------------- world model update
-        with record_function("dv3/world_model"):
-            losses, posteriors, recurrent_states, pol, pl = world_model_loss(data, batch_obs, rng)
-            rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
-            optimizers["world_model"].zero_grad(set_to_none=True)
-            rec_loss.backward()
-            wm_norm = _clip(wm, wm_cfg.clip_gradients)
-            optimizers["world_model"].step()
-
-        # --------------------------------------------- behaviour learning
-        prior0 = posteriors.detach().reshape(-1, stoch_state_size)
-        h0 = recurrent_states.detach().reshape(-1, recurrent_state_size)
-        frozen = [p for p in (*wm.parameters(), *critic.parameters()) if p.requires_grad] if pathwise else []
-        for p in frozen:
-            p.requires_grad_(False)
-        try:
-            new_moments, trajectories, lambda_values, discount, policy_loss, actor_norm = behaviour(moments_state, data, prior0, h0, rng)
-        finally:
-            for p in frozen:
-                p.requires_grad_(True)
-
-        # ------------------------------------------------- critic update
-        with record_function("dv3/critic"):
-            traj = trajectories[:-1]
-            with torch.no_grad():
-                predicted_target_values = TwoHotEncodingDistribution(target_critic(traj).float(), dims=1).mean
-            qv = TwoHotEncodingDistribution(critic(traj).float(), dims=1)
-            value_loss = -qv.log_prob(lambda_values) - qv.log_prob(predicted_target_values)
-            value_loss = torch.mean(value_loss * discount[:-1].squeeze(-1))
-            optimizers["critic"].zero_grad(set_to_none=True)
-            value_loss.backward()
-            critic_norm = _clip(critic, cfg.algo.critic.clip_gradients)
-            optimizers["critic"].step()
-
-            tau_t = tau if isinstance(tau, torch.Tensor) else torch.full((), float(tau), device=device)
-            target_ema_(list(target_critic.parameters()), list(critic.parameters()), tau_t)
-
-        metrics = {
+    def world_model_metrics(self, losses, pol, pl) -> Metrics:
+        rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
+        return {
             "Loss/world_model_loss": rec_loss.detach(),
             "Loss/observation_loss": observation_loss.detach(),
             "Loss/reward_loss": reward_loss.detach(),
@@ -301,12 +338,42 @@ def make_train_step(
             "State/kl": kl.detach(),
             "State/post_entropy": Independent(OneHotCategorical(pol.detach()), 1).entropy().mean(),
             "State/prior_entropy": Independent(OneHotCategorical(pl.detach()), 1).entropy().mean(),
-            "Loss/policy_loss": policy_loss,
-            "Loss/value_loss": value_loss.detach(),
-            "Grads/world_model": wm_norm,
-            "Grads/actor": actor_norm,
-            "Grads/critic": critic_norm,
         }
+
+
+def make_train_step(
+    agent: DV3Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg
+) -> Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Any, float], tuple]:
+    """-> ``step(moments_state, data, rng, tau) -> (moments_state, metrics)``.
+
+    ``data`` holds time-major [T, B, ...] tensors on the agent's device:
+    the observation keys (pixels as uint8), ``actions`` (one-hot, or the
+    continuous actions), ``rewards``, ``terminated`` and ``is_first``.
+    ``rng`` is the noise source of every draw (a :class:`BatchGenerator`);
+    ``tau`` is the target critic's EMA coefficient for this step (0 leaves
+    it), a float or a 0-d tensor on the agent's device (what a captured step
+    reads, :func:`target_ema_`)."""
+    learner = DV3Learner(agent.world_model, agent.actor_spec, cfg)
+    wm, actor, critic, target_critic = agent.world_model, agent.actor, agent.critic, agent.target_critic
+
+    def step(moments_state, data, rng, tau):
+        with record_function("dv3/world_model"):
+            losses, posteriors, recurrent_states, pol, pl, wm_norm = learner.update_world_model(
+                optimizers["world_model"], data, learner.batch_obs(data), rng
+            )
+        prior0 = posteriors.detach().reshape(-1, learner.stoch_state_size)
+        h0 = recurrent_states.detach().reshape(-1, learner.recurrent_state_size)
+        with frozen((wm, critic), learner.pathwise):
+            new_moments, trajectories, lambda_values, discount, policy_loss, actor_norm = learner.behaviour(
+                actor, critic, optimizers["actor"], moments_state, data, prior0, h0, rng
+            )
+        with record_function("dv3/critic"):
+            value_loss, critic_norm = learner.update_critic(critic, target_critic, optimizers["critic"], trajectories, lambda_values, discount, tau)
+        metrics = learner.world_model_metrics(losses, pol, pl)
+        metrics.update({
+            "Loss/policy_loss": policy_loss, "Loss/value_loss": value_loss,
+            "Grads/world_model": wm_norm, "Grads/actor": actor_norm, "Grads/critic": critic_norm,
+        })  # fmt: skip
         return new_moments, metrics
 
     return step
@@ -410,6 +477,50 @@ def _one_hot(actions: np.ndarray, actions_dim) -> np.ndarray:
     return np.concatenate([np.eye(int(d), dtype=np.float32)[actions[:, i]] for i, d in enumerate(actions_dim)], -1)
 
 
+@dataclass
+class DV3Trainer:
+    """What a trainer on :func:`run_dreamer_v3` supplies (DreamerV3 itself,
+    and P2E's exploration and finetuning phases): the agent the callback
+    sees and the run returns, the optimizers, the train step ``step(moments,
+    data, rng, tau) -> (moments, metrics)`` and its first moments, the
+    modules', optimizers' and moments' part of a checkpoint, the agent that
+    acts at iteration ``i`` after ``learning_starts`` prefill iterations
+    (``player(i, learning_starts)``), the agent of the test episode and
+    whether it samples its actions, whether the prefill plays random
+    actions, whether the ring path (``buffer.device``) may run, a replay
+    buffer's state to start from (P2E finetuning's
+    ``buffer.load_from_exploration``), and a hook on the aggregator."""
+
+    agent: Any
+    optimizers: Dict[str, torch.optim.Optimizer]
+    train_step: Callable[..., tuple]
+    moments: Any
+    state: Callable[[Any], Dict[str, Any]]
+    player: Callable[[int, int], DV3Agent]
+    test_agent: DV3Agent
+    test_sample: bool = False
+    random_prefill: bool = True
+    fused: bool = False
+    buffer_state: Optional[Dict[str, Any]] = None
+    on_aggregator: Optional[Callable[[MetricAggregator], None]] = None
+
+
+def _build_dv3(cfg, actions_dim, is_continuous, observation_space, device, state_ckpt) -> DV3Trainer:
+    agent = build_agent(
+        actions_dim, is_continuous, cfg, observation_space,
+        precision=cfg.fabric.precision, device=device, seed=cfg.seed, training=True,
+    )  # fmt: skip
+    optimizers = make_optimizers(agent, cfg)
+    moments = init_moments(device)
+    if state_ckpt is not None:
+        moments = load_training_state(agent, optimizers, state_ckpt, device)
+    return DV3Trainer(
+        agent=agent, optimizers=optimizers, train_step=make_train_step(agent, optimizers, cfg), moments=moments,
+        state=functools.partial(training_state, agent, optimizers), player=lambda i, learning_starts: agent,
+        test_agent=agent, fused=True,
+    )  # fmt: skip
+
+
 @register_algorithm()
 def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]] = None) -> Dict[str, Any]:
     """Train DreamerV3 on ``cfg`` (see :mod:`sheeprl_tpu_torch.config`) on
@@ -433,7 +544,7 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
     reference: its files then outlive the run).
     ``checkpoint.resume_from=<ckpt>`` (or ``=<log dir>/checkpoint``, for the
     newest valid one) continues from one, with the saved run's config
-    (:func:`resume_config`). With the buffer in the checkpoint the resumed
+    (merged by the CLI, :func:`sheeprl_tpu_torch.cli.run`). With the buffer in the checkpoint the resumed
     run is the uninterrupted one, step for step, as long as the buffer did
     not wrap past the checkpoint's write head after the save (a
     memory-mapped buffer's files go on being written); without it, the run
@@ -459,8 +570,19 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
     ``device_buffer`` the ring's state (None without ``buffer.device``);
     ``fused`` the fused path's gradient steps, warm-up steps, replays and
     graph nodes (None when it never ran); ``infeed`` its hits and misses."""
-    if cfg.checkpoint.resume_from:
-        cfg = resume_config(cfg)
+    return run_dreamer_v3(cfg, _build_dv3, callback)
+
+
+def run_dreamer_v3(
+    cfg, build: Callable[..., DV3Trainer], callback: Optional[Callable[[Any, int, float, Metrics], None]] = None
+) -> Dict[str, Any]:
+    """The serial DreamerV3 loop (:func:`main`) around the trainer that
+    ``build(cfg, actions_dim, is_continuous, observation_space, device,
+    state_ckpt)`` returns (:class:`DV3Trainer`; ``state_ckpt`` is the loaded
+    checkpoint of a resumed run, else None): envs, prefill, the player, the
+    replay buffer (and ring), ``Ratio``-driven gradient steps with the
+    target critics' taus, log points, checkpoints, resume and the test
+    episode."""
     device = resolve_device(cfg.device)
     if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
         raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
@@ -492,18 +614,15 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     obs_keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
 
-    agent = build_agent(
-        actions_dim, is_continuous, cfg, observation_space,
-        precision=cfg.fabric.precision, device=device, seed=cfg.seed, training=True,
-    )  # fmt: skip
-    optimizers = make_optimizers(agent, cfg)
-    train_step = make_train_step(agent, optimizers, cfg)
-    moments = init_moments(device)
+    trainer = build(cfg, actions_dim, is_continuous, observation_space, device, state_ckpt)
+    agent, train_step, moments = trainer.agent, trainer.train_step, trainer.moments
     train_rng = BatchGenerator.from_seed(cfg.seed, device)
     player_rng = BatchGenerator.from_seed(cfg.seed + 1, device)
 
     save_configs(cfg, log_dir)
     aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.aggregator)
+    if aggregator is not None and trainer.on_aggregator is not None:
+        trainer.on_aggregator(aggregator)
 
     policy_steps_per_iter = num_envs
     rb = EnvIndependentReplayBuffer(
@@ -521,7 +640,7 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
     # it itself. The host buffer stays the checkpoint's source, and the path
     # when the ring does not fit or is not ready.
     ring = None
-    if cfg.buffer.device:
+    if cfg.buffer.device and trainer.fused:
         ring = DeviceReplayRing(
             rb.buffer_size, num_envs, cnn_keys=cnn_keys, obs_keys=obs_keys,
             hbm_fraction=float(cfg.buffer.device_hbm_fraction), device=device,
@@ -558,10 +677,11 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
     for k in ("rewards", "truncated", "terminated"):
         step_data[k] = np.zeros((1, num_envs, 1), np.float32)
     step_data["is_first"] = np.ones_like(step_data["terminated"])
-    player_state = agent.init_player_state(num_envs)
+    player_state = trainer.test_agent.init_player_state(num_envs)
 
+    if state_ckpt is None and trainer.buffer_state is not None:
+        rb.load_state_dict(trainer.buffer_state)
     if state_ckpt is not None:
-        moments = load_training_state(agent, optimizers, state_ckpt, device)
         train_rng.generator.set_state(state_ckpt["train_rng"])
         player_rng.generator.set_state(state_ckpt["player_rng"])
         ratio.load_state_dict(state_ckpt["ratio"])
@@ -590,14 +710,15 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
         with timer("Time/env_interaction_time"):
-            if iter_num <= learning_starts and state_ckpt is None:
+            if iter_num <= learning_starts and state_ckpt is None and trainer.random_prefill:
                 real_actions = actions = envs.sample_actions()
                 if not is_continuous:
                     actions = _one_hot(actions, actions_dim)
             else:
                 prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
                 obs_t = normalize_obs({k: torch.from_numpy(v).to(device) for k, v in prepared.items()}, cnn_keys)
-                actions_t, real_t, player_state = agent.player_step(player_state, obs_t, player_rng)
+                player = trainer.player(iter_num, learning_starts)
+                actions_t, real_t, player_state = player.player_step(player_state, obs_t, player_rng)
                 actions = actions_t.float().cpu().numpy()
                 real_actions = actions if is_continuous else real_t.cpu().numpy()
                 if isinstance(action_space, Discrete):
@@ -645,7 +766,7 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
             step_data["is_first"][:, dones_idxes] = 1.0
             reset_mask = np.zeros((num_envs,), np.float32)
             reset_mask[dones_idxes] = 1.0
-            player_state = agent.reset_player_state(player_state, torch.from_numpy(reset_mask).to(device))
+            player_state = trainer.test_agent.reset_player_state(player_state, torch.from_numpy(reset_mask).to(device))
 
         # ------------------------------------------------------- training
         if iter_num >= learning_starts:
@@ -656,7 +777,7 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
                 if ring is not None and ring.ready(seq_len):
                     if fused is None:
                         ring_sample = ring.make_sample_fn(batch_size, sequence_length=seq_len, time_major=True)
-                        fused = make_fused_train_step(agent, optimizers, cfg, lambda state, rng: ring_sample(state, rng.generator), train_rng)
+                        fused = make_fused_train_step(agent, trainer.optimizers, cfg, lambda state, rng: ring_sample(state, rng.generator), train_rng)
                     with train_timer(device):
                         # One metrics entry per bucket, its mean.
                         for k in power_of_two_buckets(per_rank_gradient_steps, fused_train_steps):
@@ -718,7 +839,7 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
             iter_num == total_iters and cfg.checkpoint.save_last
         ):
             last_checkpoint = policy_step
-            ckpt_state = training_state(agent, optimizers, moments)
+            ckpt_state = trainer.state(moments)
             ckpt_state.update(
                 ratio=ratio.state_dict(), iter_num=iter_num, gradient_steps=gradient_steps, batch_size=batch_size,
                 last_log=last_log, last_checkpoint=last_checkpoint, train_rng=train_rng.generator.get_state(),
@@ -731,12 +852,12 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
             checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
 
     infeed.close()
-    test_reward = test(agent, cfg, log_dir, logger) if cfg.algo.run_test else None
+    test_reward = test(trainer.test_agent, cfg, log_dir, logger, sample_actions=trainer.test_sample) if cfg.algo.run_test else None
     if logger is not None:
         logger.close()
     return {
         "agent": agent,
-        "optimizers": optimizers,
+        "optimizers": trainer.optimizers,
         "moments": moments,
         "policy_steps": policy_step,
         "gradient_steps": gradient_steps,

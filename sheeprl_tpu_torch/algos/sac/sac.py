@@ -57,7 +57,7 @@ from sheeprl_tpu_torch.envs.dummy import dummy_env_kwargs, make_dummy_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
-from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, resume_config, save_checkpoint
+from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator
@@ -262,8 +262,6 @@ def run_off_policy(cfg, callback, make_agent: Callable[..., SACAgent], make_trai
     "log_dir", "checkpoints", "test_reward", "device_buffer", "fused"}:
     ``fused`` holds the ring path's gradient steps, warm-up steps, replays
     and graph nodes (None when it never ran)."""
-    if cfg.checkpoint.resume_from:
-        cfg = resume_config(cfg)
     device = resolve_device(cfg.device)
     if cfg.env_group != "dummy":
         raise ValueError(f"env={cfg.env_group} is not ported; the port trains on env=dummy")

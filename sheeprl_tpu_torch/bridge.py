@@ -1,4 +1,4 @@
-"""Carry DreamerV3, PPO, A2C, recurrent PPO, SAC, DroQ, DreamerV2 and DreamerV1 weights from the JAX package's param trees into the port.
+"""Carry DreamerV3, PPO, A2C, recurrent PPO, SAC, DroQ, DreamerV2, DreamerV1 and P2E weights from the JAX package's param trees into the port.
 
 Input: the ``world_model``, ``actor`` and ``critic`` trees of the JAX
 DreamerV3 train state, or the JAX PPO agent's params, as nested dicts of
@@ -6,11 +6,12 @@ numpy arrays (with or without the top ``params`` level), the JAX PPO agent's
 params, the JAX SAC or DroQ train state (``actor``, ``qfs``,
 ``qfs_target``, ``log_alpha``), or the JAX DreamerV2 or DreamerV1 train
 state (``world_model``, ``actor``, ``critic`` and DreamerV2's
-``target_critic``), or the JAX recurrent PPO agent's params. Output: state
+``target_critic``), the JAX P2E-DV3 or P2E-DV2 train state, or the JAX
+recurrent PPO agent's params. Output: state
 dicts for the port's ``WorldModel``, ``Actor`` and critic ``MLP``, its
 ``PPOAgent`` (also A2C's), its ``RecurrentPPOAgent``, its
 ``SACAgent``/``DROQAgent``, or one per module of its ``DV2Agent`` or
-``DV1Agent``.
+``DV1Agent``, or one per module of its ``P2EDV3Agent`` or ``P2EDV2Agent``.
 
 - A Dense ``[in, out]`` kernel becomes a Linear ``[out, in]`` weight.
 - A conv HWIO kernel becomes OIHW.
@@ -34,7 +35,9 @@ dicts for the port's ``WorldModel``, ``Actor`` and critic ``MLP``, its
 - A critic ensemble under ``nn.vmap`` (SAC, DroQ) keeps its stacked
   ``[n, in, out]`` kernels and ``[n, out]`` biases as they are: the port's
   ``EnsembleLinear`` holds that layout. Its LayerNorms' ``[n, H]`` scale and
-  bias become ``norms.i.{weight, bias}``.
+  bias become ``norms.i.{weight, bias}``. P2E's ensemble (``ensembles``) is
+  such a stack without the ``qfs/model`` wrapper, and without hidden biases
+  when LayerNorms follow its layers.
 - With ``heads=False`` (the player), the world-model subtrees that acting
   does not use (decoders, reward and continue heads) are skipped by name
   after a check that they are well formed; with ``heads=True`` (training)
@@ -383,21 +386,32 @@ def _ensemble(tree: Any, path: str, prefix: str, out: StateDict) -> None:
     """A vmapped critic ensemble ``{qfs: {model: MLP}}`` with its leading
     member axis kept."""
     rest = _params(tree)
-    model = _take(_take(rest.pop("qfs"), f"{path}/qfs").pop("model"), f"{path}/qfs/model")
+    model = _take(rest.pop("qfs"), f"{path}/qfs").pop("model")
     _done(rest, path)
+    _ensemble_mlp(model, f"{path}/qfs/model", prefix, out)
+
+
+def _ensemble_mlp(tree: Any, path: str, prefix: str, out: StateDict) -> None:
+    """An MLP's params stacked over a leading member axis: ``[n, in, out]``
+    kernels, ``[n, out]`` biases (a hidden layer may have none) and ``[n,
+    dim]`` LayerNorms, kept as they are (``EnsembleLinear``'s layout)."""
+    model = _take(tree, path)
     for key in sorted(model):
         name, _, idx = key.rpartition("_")
         if (name == "dense" and idx.isdigit()) or key == "output":
             layer = _take(model.pop(key), f"{path}/{key}")
-            kernel, bias = _tensor(layer.pop("kernel")), _tensor(layer.pop("bias"))
-            if kernel.dim() != 3 or bias.dim() != 2:
-                raise ValueError(f"{path}/{key}: expected [n, in, out] and [n, out], got {tuple(kernel.shape)} and {tuple(bias.shape)}")
+            kernel = _tensor(layer.pop("kernel"))
+            bias = _tensor(layer.pop("bias")) if "bias" in layer or key == "output" else None
+            if kernel.dim() != 3 or (bias is not None and bias.dim() != 2):
+                raise ValueError(f"{path}/{key}: expected [n, in, out] and [n, out], got {tuple(kernel.shape)} and {None if bias is None else tuple(bias.shape)}")
             _done(layer, f"{path}/{key}")
             where = "output." if key == "output" else f"dense.{idx}."
-            out[f"{prefix}{where}weight"], out[f"{prefix}{where}bias"] = kernel, bias
+            out[f"{prefix}{where}weight"] = kernel
+            if bias is not None:
+                out[f"{prefix}{where}bias"] = bias
         elif name == "LayerNorm" and idx.isdigit():
             _layer_norm(model.pop(key), f"{path}/{key}", f"{prefix}norms.{idx}.", out)
-    _done(model, f"{path}/qfs/model")
+    _done(model, path)
 
 
 def sac_state_dict(state: Mapping[str, Any]) -> StateDict:
@@ -419,3 +433,55 @@ def sac_state_dict(state: Mapping[str, Any]) -> StateDict:
 
 
 droq_state_dict = sac_state_dict
+
+
+def _p2e_dreamer(state: Mapping[str, Any], dv3: bool) -> tuple:
+    """The task side of a JAX P2E train state (``world_model``,
+    ``actor_task``, ``critic_task``, ``target_critic_task``) as the
+    DreamerV3 (``dv3``) or DreamerV2 agent's modules, the exploration actor,
+    and the ensemble stacked over its members; returns (their state dicts,
+    what is left of ``state``)."""
+    rest = _take(state, "<root>")
+    task = {"world_model": rest.pop("world_model"), "actor": rest.pop("actor_task")}
+    for name in ("critic", "target_critic"):
+        task[name] = rest.pop(f"{name}_task")
+    if dv3:
+        out = {"world_model": world_model_state_dict(task.pop("world_model"), heads=True), "actor": actor_state_dict(task.pop("actor"))}
+        out.update({name: mlp_state_dict(tree) for name, tree in task.items()})
+    else:
+        out = _dreamer_state_dict(task, _gru)
+    out["actor_exploration"] = actor_state_dict(rest.pop("actor_exploration"))
+    out["ensembles"] = {}
+    _ensemble_mlp(_params(rest.pop("ensembles")), "ensembles", "", out["ensembles"])
+    return out, rest
+
+
+def p2e_dv3_state_dict(state: Mapping[str, Any]) -> Dict[str, StateDict]:
+    """The port's ``P2EDV3Agent`` modules' state dicts from the JAX P2E-DV3
+    train state: ``world_model``, ``actor`` (the task actor), ``critic``,
+    ``target_critic``, ``actor_exploration``, ``critics_exploration`` (the
+    JAX ``{name: {module, target_module}}`` as ``<name>.module.*`` and
+    ``<name>.target_module.*``) and ``ensembles`` (``EnsembleMLP``, no
+    hidden bias where a LayerNorm follows)."""
+    out, rest = _p2e_dreamer(state, True)
+    critics = _take(rest.pop("critics_exploration"), "critics_exploration")
+    out["critics_exploration"] = {}
+    for name in sorted(critics):
+        pair = _take(critics.pop(name), f"critics_exploration/{name}")
+        for which in ("module", "target_module"):
+            out["critics_exploration"].update({f"{name}.{which}.{k}": v for k, v in mlp_state_dict(pair.pop(which)).items()})
+        _done(pair, f"critics_exploration/{name}")
+    _done(rest, "p2e_dv3")
+    return out
+
+
+def p2e_dv2_state_dict(state: Mapping[str, Any]) -> Dict[str, StateDict]:
+    """The port's ``P2EDV2Agent`` modules' state dicts from the JAX P2E-DV2
+    train state: ``world_model``, ``actor``, ``critic``, ``target_critic``,
+    ``actor_exploration``, ``critic_exploration``,
+    ``target_critic_exploration`` and ``ensembles``."""
+    out, rest = _p2e_dreamer(state, False)
+    for name in ("critic_exploration", "target_critic_exploration"):
+        out[name] = mlp_state_dict(rest.pop(name))
+    _done(rest, "p2e_dv2")
+    return out

@@ -37,7 +37,7 @@ from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.envs.dummy import dummy_env_kwargs, make_dummy_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.serve.spaces import DictSpace
-from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, resume_config, save_checkpoint
+from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator
 from sheeprl_tpu_torch.utils.timer import timer
@@ -220,14 +220,13 @@ def open_run(
     batch_size_key: str = "per_rank_batch_size",
 ) -> OnPolicyRun:
     """Set up a run of ``cfg`` on ``cfg.device`` (``env=dummy`` only). With
-    ``checkpoint.resume_from`` the saved run's config is taken, the agent's
+    ``checkpoint.resume_from`` (the saved run's config merged by the CLI,
+    :func:`sheeprl_tpu_torch.cli.run`) the agent's
     parameters and the optimizer's state and learning rate are restored, the
     counters continue from the checkpoint's ``iter_num``, ``last_log`` and
     ``last_checkpoint``, and its ``batch_size`` goes back into
     ``cfg.algo[batch_size_key]``. ``keys(cfg)`` gives the CNN and all
     observation keys; ``dry_run`` runs one iteration."""
-    if cfg.checkpoint.resume_from:
-        cfg = resume_config(cfg)
     device = resolve_device(cfg.device)
     if cfg.env_group != "dummy":
         raise ValueError(f"env={cfg.env_group} is not ported; the port trains on env=dummy")

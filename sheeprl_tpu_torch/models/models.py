@@ -170,19 +170,21 @@ class EnsembleLinear(nn.Module):
     """``n`` Linear layers run as one batched product: ``weight`` is
     ``[n, in, out]`` (the layout of a flax Dense kernel under ``nn.vmap``
     with ``variable_axes={"params": 0}``) and ``bias`` ``[n, out]``
-    (initialised by :func:`init_flax_`)."""
+    (initialised by :func:`init_flax_`), or None without one."""
 
-    def __init__(self, n: int, in_features: int, out_features: int):
+    def __init__(self, n: int, in_features: int, out_features: int, bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(n, in_features, out_features))
-        self.bias = nn.Parameter(torch.zeros(n, out_features))
+        self.bias = nn.Parameter(torch.zeros(n, out_features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` ``[B, in]`` (shared by every member) or ``[n, B, in]`` -> ``[n, B, out]``."""
-        w, b = self.weight.to(x.dtype), self.bias.to(x.dtype)
+        w = self.weight.to(x.dtype)
         if x.dim() == 2:
             x = x.expand(w.shape[0], *x.shape)
-        return torch.baddbmm(b[:, None, :], x, w)
+        if self.bias is None:
+            return torch.bmm(x, w)
+        return torch.baddbmm(self.bias.to(x.dtype)[:, None, :], x, w)
 
 
 class EnsembleLayerNorm(nn.Module):
@@ -205,7 +207,8 @@ class EnsembleMLP(MLP):
     the counterpart of a flax MLP under ``nn.vmap`` with its params (and
     dropout rngs) split per member. ``forward(x, masks)`` takes ``[B,
     input_dim]`` and ``[n, B, hidden]`` keep-masks per hidden layer, and
-    returns ``[n, B, out]``."""
+    returns ``[n, B, out]``. ``bias=False`` leaves the hidden layers without
+    a bias (the output layer keeps its own), as flax's ``use_bias=False``."""
 
     def __init__(
         self,
@@ -217,12 +220,13 @@ class EnsembleMLP(MLP):
         norm_eps: Optional[float] = None,
         dropout: Optional[float] = None,
         dtype: torch.dtype = torch.float32,
+        bias: bool = True,
     ):
         self.n = int(n)  # read by make_linear/make_norm during MLP.__init__
-        super().__init__(input_dim, hidden_sizes, output_dim, activation, norm_eps, True, dtype, dropout)
+        super().__init__(input_dim, hidden_sizes, output_dim, activation, norm_eps, bias, dtype, dropout)
 
     def make_linear(self, in_features: int, out_features: int, bias: bool) -> nn.Module:
-        return EnsembleLinear(self.n, in_features, out_features)
+        return EnsembleLinear(self.n, in_features, out_features, bias)
 
     def make_norm(self, dim: int, eps: float) -> nn.Module:
         return EnsembleLayerNorm(self.n, dim, eps)

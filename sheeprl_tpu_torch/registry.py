@@ -4,8 +4,8 @@ Each algorithm module registers its ``main(cfg)`` entry point with
 :func:`register_algorithm`, and its evaluation function with
 :func:`register_evaluation`; the command line looks both up by
 ``algo.name``. :func:`register_all` imports the modules that register: the
-port has DreamerV3, PPO, SAC, DroQ, DreamerV2, DreamerV1, A2C and
-recurrent PPO.
+port has DreamerV3, PPO, SAC, DroQ, DreamerV2, DreamerV1, A2C, recurrent
+PPO, and P2E on DreamerV3 and DreamerV2 (exploration and finetuning).
 """
 
 from __future__ import annotations
@@ -34,6 +34,12 @@ _MODULES = (
     "sheeprl_tpu_torch.algos.a2c.evaluate",
     "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
     "sheeprl_tpu_torch.algos.ppo_recurrent.evaluate",
+    "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning",
+    "sheeprl_tpu_torch.algos.p2e_dv3.evaluate",
+    "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_finetuning",
+    "sheeprl_tpu_torch.algos.p2e_dv2.evaluate",
 )
 
 
@@ -42,6 +48,9 @@ class AlgorithmEntry:
     name: str
     module: str
     entrypoint: Callable[..., Any]
+    # Whether the run continues an exploration run (P2E finetuning): its
+    # ``main`` then takes that run's config as ``exploration_cfg``.
+    after_exploration: bool = False
 
 
 @dataclass
@@ -51,15 +60,17 @@ class EvaluationEntry:
     entrypoint: Callable[..., Any]
 
 
-def register_algorithm(name: Optional[str] = None):
+def register_algorithm(name: Optional[str] = None, after_exploration: bool = False):
     """Register the decorated ``main`` under ``name``, by default its module's
-    basename (``...dreamer_v3.dreamer_v3`` registers ``dreamer_v3``)."""
+    basename (``...dreamer_v3.dreamer_v3`` registers ``dreamer_v3``);
+    ``after_exploration`` marks a P2E finetuning ``main``
+    (:attr:`AlgorithmEntry.after_exploration`)."""
 
     def decorator(fn: Callable[..., Any]):
         algo_name = name or fn.__module__.split(".")[-1]
         if algo_name in algorithm_registry and algorithm_registry[algo_name].module != fn.__module__:
             raise ValueError(f"Algorithm '{algo_name}' already registered by {algorithm_registry[algo_name].module}")
-        algorithm_registry[algo_name] = AlgorithmEntry(algo_name, fn.__module__, fn)
+        algorithm_registry[algo_name] = AlgorithmEntry(algo_name, fn.__module__, fn, after_exploration)
         return fn
 
     return decorator

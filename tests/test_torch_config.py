@@ -21,7 +21,7 @@ from sheeprl_tpu_torch.config.loader import default_config_dir
 TREE = default_config_dir()
 FILES = sorted(os.path.relpath(p, TREE) for p in glob.glob(os.path.join(TREE, "**", "*.yaml"), recursive=True))
 EXPS = ("ppo", "ppo_atari", "dreamer_v3_100k_ms_pacman", "dreamer_v3_dmc_walker_walk", "sac", "droq", "dreamer_v2", "dreamer_v2_ms_pacman", "dreamer_v1", "a2c",
-        "ppo_recurrent")
+        "ppo_recurrent", "p2e_dv3_exploration", "p2e_dv3_finetuning", "p2e_dv2_exploration", "p2e_dv2_finetuning")
 # The JAX package's own overrides for SAC and DroQ (tests/test_algos/test_fused_train.py),
 # and the width each exp's interpolation spreads.
 EXP_ARGS = {exp: ["env.id=continuous_dummy", "env.wrapper.id=continuous_dummy"] for exp in ("sac", "droq")}
@@ -105,6 +105,8 @@ def test_exp_composes_to_the_jax_composition(exp, interpolated):
     if exp in ("sac", "droq"):
         assert port.env.id == "continuous_dummy" and port.algo.name == exp and port.algo.critic.n == 2
         assert port.algo.replay_ratio == (20.0 if exp == "droq" else 1.0) and port.algo.critic.get("dropout") == (0.01 if exp == "droq" else None)
+    if exp.endswith("_finetuning"):  # mandatory on the command line, as in the JAX composition
+        assert port.checkpoint.exploration_ckpt_path == ref["checkpoint"]["exploration_ckpt_path"] == "???"
     if interpolated:
         wide = (port.algo.actor.hidden_size, port.algo.critic.hidden_size) if exp in WIDTH else (port.algo.actor.dense_units,)
         assert port.run_name.endswith("_7") and set(wide) == {24}

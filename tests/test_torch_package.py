@@ -41,7 +41,10 @@ def test_import_every_module_without_jax_or_the_jax_package():
                 "algos.dreamer_v2.evaluate", "algos.dreamer_v1.agent", "algos.dreamer_v1.loss", "algos.dreamer_v1.utils",
                 "algos.dreamer_v1.dreamer_v1", "algos.dreamer_v1.evaluate", "utils.distribution", "algos.a2c.a2c", "algos.a2c.loss",
                 "algos.a2c.utils", "algos.a2c.evaluate", "algos.ppo_recurrent.agent", "algos.ppo_recurrent.ppo_recurrent",
-                "algos.ppo_recurrent.utils", "algos.ppo_recurrent.evaluate"]
+                "algos.ppo_recurrent.utils", "algos.ppo_recurrent.evaluate", "algos.p2e_dv3.agent", "algos.p2e_dv3.utils",
+                "algos.p2e_dv3.p2e_dv3_exploration", "algos.p2e_dv3.p2e_dv3_finetuning", "algos.p2e_dv3.evaluate",
+                "algos.p2e_dv2.agent", "algos.p2e_dv2.utils", "algos.p2e_dv2.p2e_dv2_exploration",
+                "algos.p2e_dv2.p2e_dv2_finetuning", "algos.p2e_dv2.evaluate"]
     for name in ["serve.engine", "bridge", *training]:
         assert f"sheeprl_tpu_torch.{name}" in report["modules"], name
     assert not [m for m in report["loaded"] if m in FORBIDDEN]
@@ -71,9 +74,33 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     for exp in ("sac", "droq"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run([f"exp={exp}", "env=dummy", "env.id=continuous_dummy"])
-    for exp in ("dreamer_v2_ms_pacman", "dreamer_v2", "dreamer_v1", "a2c", "ppo_recurrent"):
+    for exp in ("dreamer_v2_ms_pacman", "dreamer_v2", "dreamer_v1", "a2c", "ppo_recurrent", "p2e_dv3_exploration", "p2e_dv2_exploration"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run([f"exp={exp}", "env=dummy"])
+
+
+@pytest.mark.parametrize("version", ["dv3", "dv2"])
+def test_p2e_registers_both_phases_and_finetuning_defaults_to_cuda(tmp_path, version):
+    """Both P2E phases train and evaluate through the registries, and only
+    the finetuning ones continue an exploration run; a finetuning run reads its exploration run's config and then, without a
+    card, raises before it trains."""
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.registry import algorithm_registry, evaluation_registry, register_all
+
+    register_all()
+    for phase in ("exploration", "finetuning"):
+        name = f"p2e_{version}_{phase}"
+        assert algorithm_registry[name].module == f"sheeprl_tpu_torch.algos.p2e_{version}.{name}"
+        assert evaluation_registry[name].module == f"sheeprl_tpu_torch.algos.p2e_{version}.evaluate"
+        assert algorithm_registry[name].after_exploration == (phase == "finetuning")
+    assert {n for n, e in algorithm_registry.items() if e.after_exploration} == {"p2e_dv3_finetuning", "p2e_dv2_finetuning"}
+    run_dir = tmp_path / "exploration" / "version_0"
+    (run_dir / "checkpoint").mkdir(parents=True)
+    (run_dir / "config.json").write_text(json.dumps(compose([f"exp=p2e_{version}_exploration", "env=dummy"])))
+    ckpt = run_dir / "checkpoint" / "ckpt_8_0.ckpt"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run([f"exp=p2e_{version}_finetuning", "env=dummy", f"checkpoint.exploration_ckpt_path={ckpt}", f"log_root={tmp_path}"])
 
 
 def test_evaluation_defaults_to_cuda_and_raises_without_it(tmp_path):
