@@ -256,6 +256,28 @@ Phases (any failure exits non-zero before the result line):
    (8 gradient steps of 50 + 30 forwards and 50 + 30 backwards), resumed
    bit for bit, ``eval``, finetuning refused without its checkpoint and
    run from it (50 + 15 each a step), ``eval``.
+37-38. P2E-DV1, a ninth main path: ``exp=p2e_dv1_exploration env=dummy``
+   through the CLI at the recipe's widths (DreamerV1 at recurrent state
+   400, dense 400, batch 50 x 50, an ensemble of 10 predicting the next
+   embedding), 8 gradient steps, no LN-GRU launch at all, resumed bit for
+   bit, ``eval``; ``exp=p2e_dv1_finetuning`` from its checkpoint, resumed
+   bit for bit, ``eval``; the exploration step profiled.
+39. SAC-AE, a tenth main path: ``exp=sac_ae env=dummy
+   env.id=continuous_dummy`` through the CLI at the recipe's widths (64 x 64
+   pixels, convolutions of 512 channels, batch 128), its cadences cut so
+   that the 19 gradient steps meet every combination of the actor, EMA and
+   decoder flags, no LN-GRU launch; resumed bit for bit; ``eval``.
+40. One SAC-AE step with every flag on and one with none, profiled: host
+   wall, busy, idle share, operations, peak memory, the cuDNN convolution
+   kernels and their f32 rate against the convolutions' FLOPs reckoned
+   from the shapes (``sac_ae_conv_flops``).
+41. Card against CPU for one step of each (P2E-DV1 exploration at B = 4,
+   T = 16; SAC-AE with every flag on at B = 8), from the same moved weights
+   and draws, within 2e-3 per metric and leaf (SAC-AE's Adam moments
+   included), the card from weights one ulp away reported, planted faults
+   (P2E-DV1: ddof 1, the exploration critic on the task reward; SAC-AE: the
+   actor's features not detached, the encoder's EMA at the critics' tau,
+   the pixels' target at 8 bits) read above the bound.
 
 Every profile reads its device busy time through ``_busy``, which leaves
 out the device ranges of ``record_function`` annotations (the trainers'
@@ -269,7 +291,8 @@ backward at B = 32 and 1600, where the JAX package itself runs its plain
 path: its ``_eligible`` takes H % 128 == 0 only; then P2E-DV3's forward at
 B = 16 and 1024 and backward at B = 16, H = 4096, with the launches of the
 exploration and the finetuning runs, and P2E-DV2's forward and backward at
-B = 16 and 800, H = 400), the card's name and power limit,
+B = 16 and 800, H = 400; every entry with the P2E-DV1 and SAC-AE runs'
+launches, 0), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -4159,7 +4182,7 @@ P2E2_FT_ARGS = ["exp=p2e_dv2_finetuning", "env=dummy", "algo.learning_starts=200
                 "metric.log_every=224", "checkpoint.save_last=True"]  # fmt: skip
 P2E2_TAGS = ("Loss/world_model_loss", "Loss/ensemble_loss", "Loss/policy_loss_exploration", "Loss/value_loss_exploration",
              "Loss/policy_loss_task", "Loss/value_loss_task", "Rewards/intrinsic", "Grads/ensemble", "Grads/critic_exploration")  # fmt: skip
-P2E_STEPS_BY_EXP = {"p2e_dv3_exploration": (P2E_STEPS, P2E_RESUMED_FROM), "p2e_dv2_exploration": (8, 4)}
+P2E_STEPS_BY_EXP = {"p2e_dv3_exploration": (P2E_STEPS, P2E_RESUMED_FROM), "p2e_dv2_exploration": (8, 4), "p2e_dv1_exploration": (8, 4)}
 
 
 def _vector_batch(T, B, seed, device, n_actions=2, continuous=False):
@@ -4192,15 +4215,18 @@ def _same_optimizers(a, b):
     return differ
 
 
-def p2e_chain(what, args, cuts, fwd_by_batch, bwd_by_batch, tags, ft_args, ft_cuts, ft_fwd, ft_bwd, log_root, agent_cls):
+def p2e_chain(what, args, cuts, fwd_by_batch, bwd_by_batch, tags, ft_args, ft_cuts, ft_fwd, ft_bwd, log_root, agent_cls, kernels=True,
+              ft_resume=False):  # fmt: skip
     """One P2E variant through the CLI at its exp's widths: the exploration
     phase (every gradient step's LN-GRU launches by batch; none on the tensor
-    cores), its tags, its resume from the mid-run checkpoint bit for bit,
+    cores; with ``kernels`` False none at all, the player's included), its
+    tags, its resume from the mid-run checkpoint bit for bit,
     ``eval`` on its last checkpoint; then finetuning without
     ``checkpoint.exploration_ckpt_path`` (must raise), finetuning from the
     exploration checkpoint (the exploration actor plays up to
-    ``learning_starts``, the task actor after it), and ``eval`` on its
-    checkpoint. Returns (result, the exploration run's output)."""
+    ``learning_starts``, the task actor after it), with ``ft_resume`` its
+    resume from its ``checkpoint.every`` checkpoint bit for bit, and ``eval``
+    on its checkpoint. Returns (result, the exploration run's output)."""
     import numpy as np
 
     from sheeprl_tpu_torch.config import compose
@@ -4215,8 +4241,8 @@ def p2e_chain(what, args, cuts, fwd_by_batch, bwd_by_batch, tags, ft_args, ft_cu
     out, steps, wall_s, counts = dreamer_through_cli(full, what, fwd_by_batch, bwd_by_batch)
     if out["gradient_steps"] != steps_total or len(steps) != steps_total:
         fail(f"{what}: {out['gradient_steps']} gradient steps, expected {steps_total}")
-    if counts["tensor_core"] != 0 or not counts["forward_by_batch"].get(int(cfg.env.num_envs)):
-        fail(f"{what}: tensor-core launches {counts['tensor_core']}, player forwards {counts['forward_by_batch']}")
+    if (counts["tensor_core"] != 0 or not counts["forward_by_batch"].get(int(cfg.env.num_envs))) if kernels else _launched(counts):
+        fail(f"{what}: tensor-core launches {counts['tensor_core']}, player forwards {counts['forward_by_batch']}; all launches {counts}")
     logged = {tag for row in out["log"] for tag in row}
     missing = [t for t in tags if t not in logged]
     if missing or not all(np.isfinite(v) for row in out["log"] for v in row.values()):
@@ -4227,7 +4253,7 @@ def p2e_chain(what, args, cuts, fwd_by_batch, bwd_by_batch, tags, ft_args, ft_cu
     started = start_eval(out["checkpoints"][-1])  # runs beside the resume and the finetuning
     try:
         result = _p2e_resume_and_finetune(what, out, full, ckpt, fwd_by_batch, bwd_by_batch, steps_total, resumed_from, ft_args, ft_cuts,
-                                          ft_fwd, ft_bwd, log_root, agent_cls)  # fmt: skip
+                                          ft_fwd, ft_bwd, log_root, agent_cls, kernels, ft_resume)  # fmt: skip
     except BaseException:
         started[2].kill()
         raise
@@ -4244,13 +4270,20 @@ def p2e_chain(what, args, cuts, fwd_by_batch, bwd_by_batch, tags, ft_args, ft_cu
     return result, out
 
 
+def _launched(counts):
+    """Whether any LN-GRU kernel was launched."""
+    return any(counts[k] for k in ("forward", "backward", "streaming", "tensor_core"))
+
+
 def _p2e_resume_and_finetune(what, out, full, ckpt, fwd_by_batch, bwd_by_batch, steps_total, resumed_from, ft_args, ft_cuts, ft_fwd, ft_bwd,
-                             log_root, agent_cls):
+                             log_root, agent_cls, kernels=True, ft_resume=False):  # fmt: skip
     """:func:`p2e_chain`'s resume of the exploration run from ``ckpt`` (bit
     for bit) and its finetuning runs (refused without the exploration
-    checkpoint; from it, the player's switch and ``eval``)."""
+    checkpoint; from it, the player's switch, with ``ft_resume`` its own
+    resume bit for bit, and ``eval``)."""
     from sheeprl_tpu_torch.cli import run
     from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
 
     t0 = time.perf_counter()
     again, again_steps, _, _ = dreamer_through_cli([*full, f"checkpoint.resume_from={ckpt}"], f"{what} resume", fwd_by_batch, bwd_by_batch)
@@ -4287,13 +4320,37 @@ def _p2e_resume_and_finetune(what, out, full, ckpt, fwd_by_batch, bwd_by_batch, 
     task = id(tuned["agent"].actor)
     if len(set(played[:prefill])) != 1 or played[0] == task or played[prefill] != task:
         fail(f"{what} finetuning: the player's actor did not switch from the exploration actor to the task actor after iteration {prefill}")
-    if tuned["gradient_steps"] != len(tuned_steps) or not tuned_steps or ft_counts["tensor_core"]:
+    if tuned["gradient_steps"] != len(tuned_steps) or not tuned_steps or ft_counts["tensor_core"] or (not kernels and _launched(ft_counts)):
         fail(f"{what} finetuning: {tuned['gradient_steps']} gradient steps, LN-GRU {ft_counts}")
-    ft_evaluation = phase_eval(tuned["checkpoints"][-1], tuned["test_reward"], f"{what} finetuning eval")
+    finetuning = {"cuts": ft_cuts, "gradient_steps": tuned["gradient_steps"], "wall_s": ft_wall_s, "ln_gru_launches": ft_counts,
+                  "player_switched_after_iteration": prefill}  # fmt: skip
+    started = start_eval(tuned["checkpoints"][-1])  # runs beside the resume
+    try:
+        if ft_resume:
+            ft_ckpt = next((c for c in tuned["checkpoints"] if os.path.basename(c) == f"ckpt_{ft_cfg.checkpoint.every}_0.ckpt"), None)
+            if ft_ckpt is None:
+                fail(f"{what} finetuning: no checkpoint at policy step {ft_cfg.checkpoint.every} ({tuned['checkpoints']})")
+            saved_steps = int(load_checkpoint(ft_ckpt)["gradient_steps"])
+            t0 = time.perf_counter()
+            again, again_steps, _, again_counts = dreamer_through_cli(
+                [*ft, f"checkpoint.exploration_ckpt_path={out['checkpoints'][-1]}", f"checkpoint.resume_from={ft_ckpt}"], f"{what} finetuning resume",
+                ft_fwd, ft_bwd,
+            )  # fmt: skip
+            finetuning["resume_s"] = time.perf_counter() - t0
+            if [s[0] for s in again_steps] != list(range(saved_steps + 1, tuned["gradient_steps"] + 1)) or not again_steps:
+                fail(f"{what} finetuning resume: gradient steps {[s[0] for s in again_steps]} after the checkpoint's {saved_steps}")
+            differ = _same_state(tuned["agent"].state_dict(), again["agent"].state_dict()) + _same_optimizers(tuned["optimizers"], again["optimizers"])
+            if differ or (not kernels and _launched(again_counts)):
+                fail(f"{what} finetuning resume: {len(differ)} tensors differ from the uninterrupted run, e.g. {differ[:4]}; LN-GRU {again_counts}")
+            finetuning["resumed_from_gradient_step"] = saved_steps
+            shutil.rmtree(again["log_dir"], ignore_errors=True)
+            del again
+    except BaseException:
+        started[2].kill()
+        raise
+    finetuning["evaluation"] = finish_eval(started, tuned["test_reward"], f"{what} finetuning eval")
     shutil.rmtree(tuned["log_dir"], ignore_errors=True)
-    return {"resume_s": resume_s,
-            "finetuning": {"cuts": ft_cuts, "gradient_steps": tuned["gradient_steps"], "wall_s": ft_wall_s, "ln_gru_launches": ft_counts,
-                           "player_switched_after_iteration": prefill, "evaluation": ft_evaluation}}  # fmt: skip
+    return {"resume_s": resume_s, "finetuning": finetuning}
 
 
 def phase_p2e_kernels():
@@ -4371,7 +4428,7 @@ def step_profile(what, call, steps, fwd_per_step, bwd_per_step, activities=("cpu
     peak = torch.cuda.max_memory_allocated() / 2**30
     prof = profiled(call, activities)
     kernels_ms, averages = {}, prof.key_averages()
-    spans = ("p2e/", "dv3/", "dv2/")
+    spans = ("p2e/", "dv3/", "dv2/", "dv1/")
     busy, ops, annotated = _busy(averages, 1, skip=spans, by_kernel=kernels_ms)
     if busy <= 0.0:
         fail(f"{what}: torch.profiler saw no device time")
@@ -4397,6 +4454,33 @@ def step_profile(what, call, steps, fwd_per_step, bwd_per_step, activities=("cpu
         f"{json.dumps({k: round(v, 4) for k, v in gru.items()})}")  # fmt: skip
     log(f"{what}: stages {json.dumps({k: {s: round(v, 3) for s, v in d.items()} for k, d in stages.items()})}; top {json.dumps({k: round(v, 3) for k, v in top.items()})}")
     return result
+
+
+def step_gaps(got, want, at=None):
+    """A step's reading against another's, each (metrics, parameters at the
+    start, at the end) -> (worst metric, worst leaf): each metric's |d| over atol 1e-4 +
+    |ref|, each leaf's change gap over its norm; for the worst leaf, how
+    many entries' changes differ, by how many ulps of ``want``'s value
+    at most, the share of the gap's norm its largest entry carries and
+    that entry's change on each side; with ``at``, that leaf's gap too."""
+    import torch
+
+    (gm, gs, gp), (wm, ws, wp) = got, want
+    metric = {k: abs(gm[k] - ref) / (1e-4 / P2E_REF_TOL + abs(ref)) if math.isfinite(gm[k]) else math.inf for k, ref in wm.items()}
+    leaf = {}
+    for k in wp:
+        g, w = (gp[k] - gs[k]).double(), (wp[k] - ws[k]).double()
+        leaf[k] = ((g - w).norm() / w.norm()).item() if w.norm() > 0 else float(g.norm() > 0)
+    mk, top = max(metric, key=metric.get), sorted(leaf, key=leaf.get, reverse=True)[:3]
+    w, dg = wp[top[0]], (gp[top[0]] - gs[top[0]]).flatten()
+    dw = (w - ws[top[0]]).flatten()
+    d = (dg - dw).abs().double()
+    ulps = d / (torch.nextafter(w.abs(), torch.tensor(math.inf)) - w.abs()).flatten().double()
+    i = int(d.argmax())
+    return {"metric": mk, "metric_gap": metric[mk], "leaf": top[0], "leaf_gap": leaf[top[0]], "reading": max(metric[mk], leaf[top[0]]),
+            "leaf_entries_differ": int((d > 0).sum()), "leaf_entries": w.numel(), "leaf_max_ulps": float(ulps.max()),
+            "leaf_top_entry_share": float(d[i] / d.norm()) if d[i] > 0 else 0.0, "leaf_top_entry_changes": [float(dg[i]), float(dw[i])],
+            "next_leaves": {k: leaf[k] for k in top[1:]}} | ({"at": {at: leaf[at]}} if at else {})  # fmt: skip
 
 
 def phase_p2e_reference(continuous: bool):
@@ -4487,46 +4571,23 @@ def phase_p2e_reference(continuous: bool):
         out.update({f"moments/{n}/{k}": float(v) for n, m in moments["exploration"].items() for k, v in m.items()})
         return out, start, {k: v.detach().cpu() for k, v in agent.state_dict().items()}
 
-    def gaps(got, want, at=None):
-        """(worst metric, worst leaf): each metric's |d| over atol 1e-4 +
-        |ref|, each leaf's change gap over its norm; for the worst leaf, how
-        many entries' changes differ, by how many ulps of ``want``'s value
-        at most, the share of the gap's norm its largest entry carries and
-        that entry's change on each side; with ``at``, that leaf's gap too."""
-        (gm, gs, gp), (wm, ws, wp) = got, want
-        metric = {k: abs(gm[k] - ref) / (1e-4 / P2E_REF_TOL + abs(ref)) if math.isfinite(gm[k]) else math.inf for k, ref in wm.items()}
-        leaf = {}
-        for k in wp:
-            g, w = (gp[k] - gs[k]).double(), (wp[k] - ws[k]).double()
-            leaf[k] = ((g - w).norm() / w.norm()).item() if w.norm() > 0 else float(g.norm() > 0)
-        mk, top = max(metric, key=metric.get), sorted(leaf, key=leaf.get, reverse=True)[:3]
-        w, dg = wp[top[0]], (gp[top[0]] - gs[top[0]]).flatten()
-        dw = (w - ws[top[0]]).flatten()
-        d = (dg - dw).abs().double()
-        ulps = d / (torch.nextafter(w.abs(), torch.tensor(math.inf)) - w.abs()).flatten().double()
-        i = int(d.argmax())
-        return {"metric": mk, "metric_gap": metric[mk], "leaf": top[0], "leaf_gap": leaf[top[0]], "reading": max(metric[mk], leaf[top[0]]),
-                "leaf_entries_differ": int((d > 0).sum()), "leaf_entries": w.numel(), "leaf_max_ulps": float(ulps.max()),
-                "leaf_top_entry_share": float(d[i] / d.norm()) if d[i] > 0 else 0.0, "leaf_top_entry_changes": [float(dg[i]), float(dw[i])],
-                "next_leaves": {k: leaf[k] for k in top[1:]}} | ({"at": {at: leaf[at]}} if at else {})  # fmt: skip
-
     card = step("cuda")
     cpu = step("cpu")
     if any(not torch.equal(card[1][k], cpu[1][k]) for k in cpu[1]):
         fail(f"{what}: the card's agent does not start from the CPU's weights")
-    held = gaps(card, cpu)
+    held = step_gaps(card, cpu)
     if held["reading"] > P2E_REF_TOL:
         fail(f"{what}: card vs CPU {held} (bound {P2E_REF_TOL})")
-    floor = gaps(step("cuda", "nudge"), card)
+    floor = step_gaps(step("cuda", "nudge"), card)
     faults = {}
     for fault in P2E_FAULTS:
-        faults[fault] = gaps(step("cuda", fault), cpu)
+        faults[fault] = step_gaps(step("cuda", fault), cpu)
         if faults[fault]["reading"] <= P2E_REF_TOL:
             fail(f"{what}: the step with {fault} reads {faults[fault]} against the CPU, within the bound {P2E_REF_TOL}")
     seeded_draws = []
     seeded_card = step("cuda", perturb=0.0, draws=seeded_draws)
-    seeded = {"card_vs_cpu": gaps(seeded_card, step("cpu", perturb=0.0, draws=seeded_draws))}
-    seeded["one_ulp_nudge"] = gaps(step("cuda", "nudge", perturb=0.0, draws=seeded_draws), seeded_card, at=seeded["card_vs_cpu"]["leaf"])
+    seeded = {"card_vs_cpu": step_gaps(seeded_card, step("cpu", perturb=0.0, draws=seeded_draws))}
+    seeded["one_ulp_nudge"] = step_gaps(step("cuda", "nudge", perturb=0.0, draws=seeded_draws), seeded_card, at=seeded["card_vs_cpu"]["leaf"])
     log(f"{what}: one DV3-S P2E exploration step (B=4 T=16), card (kernels) vs CPU (plain), {len(draws)} replayed draws: worst metric "
         f"{held['metric']} {held['metric_gap']:.3g}, worst leaf {held['leaf']} {held['leaf_gap']:.3g} (bound {P2E_REF_TOL}); the card from "
         f"weights one ulp away {json.dumps(floor)}; planted faults {json.dumps({k: v['reading'] for k, v in faults.items()})}; at the "
@@ -4565,6 +4626,400 @@ def phase_p2e_dv2(log_root):
     result["profile"] = step_profile("p2e dv2 profile (32-true, B=16 T=50 horizon 15, H_rnn=400)", lambda: step(data, rng), 3,
                                      P2E2_FWD_BY_BATCH, P2E2_BWD_BY_BATCH, ("cuda",))  # fmt: skip
     return rows, result
+
+
+# P2E-DV1 and SAC-AE (phases 37-41): the last single-process trainers.
+# Neither launches an LN-GRU kernel (DreamerV1's cell is flax's plain GRU;
+# SAC-AE has no recurrent cell): every count stays at 0.
+#
+# P2E-DV1 (exp=p2e_dv1_exploration, then exp=p2e_dv1_finetuning):
+# DreamerV1 at recurrent state 400, stochastic 60, dense 400 x 4, an
+# ensemble of 10 x 400 x 4 predicting the next embedding, 32-true, batch 50
+# x 50, horizon 15, 4 envs. Only the counters are cut, as phase 25 cuts
+# DreamerV1's: 50 prefill iterations, then the recipe's ratio (0.1) takes 8
+# gradient steps by policy step 288, 4 by the checkpoint at 240.
+P2E1_CUTS = {"algo.learning_starts": "200 (from 5000)", "algo.total_steps": "288 (from 5000000; 8 gradient steps)",
+             "checkpoint.every": "240 (from 100000)", "metric.log_every": "96 (from 5000)"}  # fmt: skip
+P2E1_ARGS = ["exp=p2e_dv1_exploration", "env=dummy", "algo.learning_starts=200", "algo.total_steps=288", "checkpoint.every=240",
+             "metric.log_every=96", "checkpoint.save_last=True"]  # fmt: skip
+P2E1_FT_CUTS = {"algo.learning_starts": "200 (from 5000)", "algo.total_steps": "288 (from 1000000; 8 gradient steps)",
+                "checkpoint.every": "240 (from 100000)", "metric.log_every": "96 (from 5000)"}  # fmt: skip
+P2E1_FT_ARGS = ["exp=p2e_dv1_finetuning", "env=dummy", "algo.learning_starts=200", "algo.total_steps=288", "checkpoint.every=240",
+                "metric.log_every=96", "checkpoint.save_last=True"]  # fmt: skip
+P2E1_TAGS = ("Loss/world_model_loss", "Loss/ensemble_loss", "Loss/policy_loss_exploration", "Loss/value_loss_exploration",
+             "Loss/policy_loss_task", "Loss/value_loss_task", "Rewards/intrinsic", "Grads/ensemble", "Grads/critic_exploration",
+             "Params/exploration_amount")  # fmt: skip
+P2E1_BATCH, P2E1_SEQ = 50, 50
+# The card's exploration step against the CPU's at the recipe's widths, B = 4
+# and T = 16, every weight moved by P2E_REF_PERTURB, held to P2E_REF_TOL; each
+# planted fault must read above it.
+P2E1_FAULTS = ("unbiased variance in the intrinsic reward", "exploration critic trained on the task reward")
+# SAC-AE (exp=sac_ae env=dummy env.id=continuous_dummy): the recipe's
+# widths (64 x 64 x 3 pixels, four 3x3 convolutions of 32 x 16 = 512
+# channels, a 25 x 25 x 512 grid, fc 320000 -> 64, hidden 1024), batch 128,
+# 4 envs, 32-true. Cut: 2 prefill iterations and 2 more, 19 gradient steps
+# (11 at the first train call); the buffer to 1024 rows (from 1000000); the
+# target EMAs' and the decoder's cadences to 3 and 5 (from 2 and 1), so that
+# with the actor's 2 the 19 steps meet every combination of the three flags
+# (the recipe's cadences give two: all on, the decoder alone).
+SAC_AE_CUTS = {"algo.learning_starts": "8 (from 1000)", "algo.total_steps": "16 (from 1000000; 19 gradient steps)",
+               "buffer.size": "1024 (from 1000000)", "checkpoint.every": "12 (from 50000)", "metric.log_every": "8 (from 5000)",
+               "algo.critic.per_rank_target_network_update_freq": "3 (from 2)", "algo.decoder.per_rank_update_freq": "5 (from 1)"}  # fmt: skip
+SAC_AE_ARGS = ["exp=sac_ae", "env=dummy", "env.id=continuous_dummy", "algo.learning_starts=8", "algo.total_steps=16", "buffer.size=1024",
+               "checkpoint.every=12", "metric.log_every=8", "algo.critic.per_rank_target_network_update_freq=3",
+               "algo.decoder.per_rank_update_freq=5", "checkpoint.save_last=True"]  # fmt: skip
+SAC_AE_FAULTS = ("actor features not detached (the actor's Adam over the encoder too)", "encoder EMA at the critics' tau",
+                 "pixels' target at 8 bits")  # fmt: skip
+SAC_AE_REF_BATCH = 8  # the card-against-CPU step's batch (the CPU takes a full-width step at B = 128 in minutes)
+# SAC-AE's step is not held to 2e-3 per leaf: on the CPU at the recipe's
+# widths and B = 8 the step from weights one f32 ulp away reads 0.09 on its
+# worst leaf's change (a decoder bias, an encoder convolution), and its Adam
+# moments 7e-3. The autoencoder's gradient reaches the encoder through the
+# LayerNorm as a residual four decades under the critic's (conv 0's median
+# entry 2.4e-6 against 1.4e-2), so rounding moves it by a percent, and
+# Adam's first step turns each entry's sign into a whole learning rate.
+# The leaves are held to SAC_AE_REF_LEAF_TOL, between that floor and the
+# planted faults (0.80, 1.15 and 1.76 on the CPU), the metrics to 2e-3. The
+# seeded weights are not moved: moved by 0.02 they put the 8-bit target
+# fault at 0.13, no further than the floor.
+SAC_AE_REF_LEAF_TOL = 0.4
+
+
+def sac_ae_conv_flops(cfg, batch, flags):
+    """The convolutions' FLOPs of one SAC-AE gradient step from the shapes
+    (2 per multiply-add; ``fc`` and the MLPs left out). Per image, the
+    encoder's forward sums ``2 * Ho * Wo * Cout * Cin * 9`` over its four
+    convolutions (64 -> 31 -> 29 -> 27 -> 25) and the decoder's
+    ``2 * Hin * Win * Cin * Cout * 9`` over its four transposed ones (25 ->
+    27 -> 29 -> 31 -> 64). A pass with its backward costs three forwards (the
+    input's gradient and the weights'), but the encoder's first convolution
+    takes no input gradient. The step: the target's two encoder forwards
+    (online and target encoder) and the critic's encoder forward and
+    backward; with ``update_actor`` one more encoder forward; with
+    ``update_decoder`` the encoder's and the decoder's forward and backward.
+    Returns (total FLOPs, the count as text)."""
+    c, side = 32 * int(cfg.algo.encoder.cnn_channels_multiplier), 64
+    sizes = [side]
+    for s in (2, 1, 1, 1):
+        sizes.append((sizes[-1] - 3) // s + 1)
+    cins = [3, c, c, c]
+    enc = [2 * batch * sizes[i + 1] ** 2 * c * cins[i] * 9 for i in range(4)]
+    dec_in = sizes[4:0:-1]  # 25, 27, 29, 31
+    couts = [c, c, c, 3]
+    dec = [2 * batch * dec_in[i] ** 2 * c * couts[i] * 9 for i in range(4)]
+    enc_fwd, dec_fwd = sum(enc), sum(dec)
+    enc_train, dec_train = 3 * enc_fwd - enc[0], 3 * dec_fwd
+    update_actor, _, update_decoder = flags
+    total = 2 * enc_fwd + enc_train + (enc_fwd if update_actor else 0) + ((enc_train + dec_train) if update_decoder else 0)
+    text = (f"encoder forward {enc_fwd / 1e12:.4f} TFLOP (layers {[round(f / 1e9, 2) for f in enc]} GFLOP), decoder forward "
+            f"{dec_fwd / 1e12:.4f} TFLOP (layers {[round(f / 1e9, 2) for f in dec]} GFLOP) at B = {batch}; step = 2 encoder forwards (target) + "
+            f"3 - first layer (critic){' + 1 (actor)' if update_actor else ''}{' + 3 - first layer (autoencoder) + 3 decoder (autoencoder)' if update_decoder else ''}"
+            f" = {total / 1e12:.4f} TFLOP")  # fmt: skip
+    return total, text
+
+
+def phase_p2e_dv1(log_root):
+    """(37-38) ``exp=p2e_dv1_exploration env=dummy`` through the CLI at the
+    recipe's widths (``P2E1_CUTS``), no LN-GRU launch at all, resumed from
+    its mid-run checkpoint bit for bit, evaluated; finetuning
+    (``P2E1_FT_CUTS``) from its checkpoint, the exploration actor playing up
+    to ``learning_starts``, resumed bit for bit and evaluated
+    (:func:`p2e_chain`); then the trained agent's exploration step profiled
+    (:func:`step_profile`, B = 50, T = 50)."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v1.agent import DV1Agent
+    from sheeprl_tpu_torch.algos.p2e_dv1 import p2e_dv1_exploration as p2e
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+
+    result, out = p2e_chain("p2e dv1 training", P2E1_ARGS, P2E1_CUTS, {}, {}, P2E1_TAGS, P2E1_FT_ARGS, P2E1_FT_CUTS, {}, {}, log_root, DV1Agent,
+                            kernels=False, ft_resume=True)  # fmt: skip
+    shutil.rmtree(out["log_dir"], ignore_errors=True)
+    cfg = compose(P2E1_ARGS)
+    dev = torch.device("cuda")
+    step = p2e.make_train_step(out["agent"], p2e.make_optimizers(out["agent"], cfg), cfg)
+    data, rng = _vector_batch(P2E1_SEQ, P2E1_BATCH, 7, dev), BatchGenerator.from_seed(0, dev)
+    zero_counts()
+    result["profile"] = step_profile("p2e dv1 profile (32-true, B=50 T=50 horizon 15, H_rnn=400, ensembles 10 x 400 x 4)", lambda: step(data, rng), 3,
+                                     {}, {}, ("cuda",))  # fmt: skip
+    if _launched(read_counts()):
+        fail(f"p2e dv1 profile: LN-GRU launches {read_counts()}")
+    return result
+
+
+def phase_sac_ae(log_root):
+    """(39) ``exp=sac_ae env=dummy env.id=continuous_dummy`` through the CLI
+    at the recipe's widths (``SAC_AE_CUTS``): no LN-GRU launch, the expected
+    gradient steps, every combination of the cadence flags met, each step's
+    losses those of the stages that ran, the JAX package's tags with
+    ``Loss/reconstruction_loss``, the test reward; resumed from its
+    checkpoint at policy step 12, every parameter and Adam state bit for bit
+    the uninterrupted run's at the end; ``eval``."""
+    import itertools
+
+    from sheeprl_tpu_torch.algos.sac_ae import sac_ae
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.utils.logger import read_scalars
+
+    flags = []
+    cadence = sac_ae.cadence
+
+    def recording(cfg, step):
+        flags.append(cadence(cfg, step))
+        return flags[-1]
+
+    with patched(sac_ae, "cadence", recording):
+        out, host = offpolicy_through_cli(SAC_AE_ARGS, SAC_AE_CUTS, "sac_ae", log_root)
+    cfg = compose(SAC_AE_ARGS)
+    if set(flags) != set(itertools.product([True, False], repeat=3)) or len(flags) != out["gradient_steps"]:
+        fail(f"sac_ae: cadence flags {sorted(set(flags))} over {len(flags)} of {out['gradient_steps']} gradient steps")
+    last = int(out["policy_steps"])
+    if last not in [s for s, _ in read_scalars(out["log_dir"]).get("Loss/reconstruction_loss", [])]:
+        fail("sac_ae: Loss/reconstruction_loss not logged at the last log point")
+    grid = 25 * 25 * 32 * int(cfg.algo.encoder.cnn_channels_multiplier)  # 320000 at the recipe's 512 channels
+    if tuple(out["agent"].encoder.cnn_encoder.fc.weight.shape) != (int(cfg.algo.encoder.features_dim), grid):
+        fail(f"sac_ae: fc {tuple(out['agent'].encoder.cnn_encoder.fc.weight.shape)}, not {grid} -> {cfg.algo.encoder.features_dim}")
+    [ckpt] = [c for c in out["checkpoints"] if os.path.basename(c) == "ckpt_12_0.ckpt"]
+    started = start_eval(out["checkpoints"][-1])
+    try:
+        t0 = time.perf_counter()
+        again, resumed = offpolicy_through_cli([*SAC_AE_ARGS, f"checkpoint.resume_from={ckpt}"], SAC_AE_CUTS, "sac_ae resume", log_root)
+        resume_s = time.perf_counter() - t0
+        (pa, aa), (pb, ab) = _state_of(out), _state_of(again)
+        differ = [k for k in pa if not torch_equal_bits(pa[k], pb[k])] + [k for k in aa if not torch_equal_bits(aa[k], ab[k])]
+        if differ or pa.keys() != pb.keys() or aa.keys() != ab.keys() or again["gradient_steps"] != out["gradient_steps"]:
+            fail(f"sac_ae resume: the resumed run ends off the uninterrupted one: {differ[:5]}")
+    except BaseException:
+        started[2].kill()
+        raise
+    evaluation = finish_eval(started, out["test_reward"], "sac_ae eval")
+    log(f"sac_ae resume: from {os.path.basename(ckpt)} the run ends on the uninterrupted run's {len(pa)} parameter and {len(aa)} Adam tensors "
+        f"bit for bit, in {resume_s:.1f} s; flags met {len(set(flags))} of 8 combinations over {len(flags)} gradient steps")  # fmt: skip
+    shutil.rmtree(out["log_dir"], ignore_errors=True)
+    shutil.rmtree(again["log_dir"], ignore_errors=True)
+    return {"host": host, "resume": {**resumed, "wall_s": resume_s, "tensors_bit_for_bit": len(pa) + len(aa)}, "evaluation": evaluation,
+            "flag_combinations": len(set(flags)), "seconds_per_gradient_step": host["wall_s"] / host["gradient_steps"]}  # fmt: skip
+
+
+def _sac_ae_setup(where, batch, seed=7):
+    """A recipe-width SAC-AE agent on ``where`` (initialised on the CPU from
+    ``seed``), its optimizers and config, at ``per_rank_batch_size`` ``batch``."""
+    from sheeprl_tpu_torch.algos.sac_ae.agent import build_agent
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import make_optimizers
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.dummy import ContinuousDummyEnv
+
+    cfg = compose(["exp=sac_ae", "env=dummy", "env.id=continuous_dummy", f"algo.per_rank_batch_size={batch}", f"device={where}"])
+    cfg.env.screen_size = 64
+    env = ContinuousDummyEnv(action_dim=int(cfg.env.wrapper.action_dim))
+    agent = build_agent(cfg, env.observation_space, env.action_space, device=where, seed=seed)
+    return cfg, agent, make_optimizers(agent, cfg)
+
+
+def _sac_ae_batch(batch, seed, dev):
+    """A replay batch at the dummy env's shapes (64 x 64 x 3 uint8 pixels,
+    2 actions) and one step's draws: the normals and the pixels' uniforms."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    data = {"actions": rng.uniform(-1, 1, (batch, 2)), "rewards": rng.normal(size=(batch, 1)), "terminated": rng.random((batch, 1)) < 0.05}
+    data = {k: torch.from_numpy(v.astype(np.float32)).to(dev) for k, v in data.items()}
+    for k in ("rgb", "next_rgb"):
+        data[k] = torch.from_numpy(rng.integers(0, 256, (batch, 64, 64, 3), dtype=np.uint8)).to(dev)
+    normals = torch.from_numpy(rng.normal(size=(2, batch, 2)).astype(np.float32)).to(dev)
+    uniforms = {"rgb": torch.from_numpy(rng.random((batch, 64, 64, 3)).astype(np.float32)).to(dev)}
+    return data, normals, uniforms
+
+
+# Kernel names of cuDNN's convolutions: direct and implicit-GEMM ones, and the FFT algorithms' transforms and complex products.
+CONV_KERNELS = ("conv", "cudnn", "dgrad", "wgrad", "fprop", "implicit", "winograd", "fft", "cf32")
+
+
+def phase_sac_ae_profile(steps: int = 3):
+    """(40) One SAC-AE gradient step at the recipe's widths (B = 128, 512
+    channels, 32-true, TF32 off) with every cadence flag on, and one with
+    none: host wall per step over ``steps`` after a warm-up, then one step
+    through :func:`profiled`: device busy, idle share, operations, peak
+    memory, the top device kernels, the convolutions' kernels (cuDNN's,
+    named) and their time, and the rate of the convolutions' FLOPs reckoned
+    as direct convolutions (:func:`sac_ae_conv_flops`) over that time and
+    over busy (cuDNN's FFT algorithms do fewer operations, so the first can
+    exceed the f32 peak); no LN-GRU launch."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import make_train_step
+
+    dev = torch.device("cuda")
+    cfg, agent, optimizers = _sac_ae_setup("cuda", 128)
+    step = make_train_step(agent, optimizers, cfg)
+    data, normals, uniforms = _sac_ae_batch(128, 21, dev)
+    out = {}
+    for name, flags in (("all_flags", (True, True, True)), ("no_flags", (False, False, False))):
+
+        def call():
+            step(data, normals, uniforms, *flags)
+
+        call()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            call()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) / steps * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = profiled(call, ("cuda",))
+        if _launched(read_counts()):
+            fail(f"sac_ae profile: LN-GRU launches {read_counts()}")
+        kernels_ms = {}
+        busy, ops, annotated = _busy(prof.key_averages(), 1, skip=("sac_ae/",), by_kernel=kernels_ms)
+        if busy <= 0.0:
+            fail("sac_ae profile: torch.profiler saw no device time")
+        conv_ms = {k: v for k, v in kernels_ms.items() if any(t in k.lower() for t in CONV_KERNELS)}
+        flops, count = sac_ae_conv_flops(cfg, 128, flags)
+        conv_total = sum(conv_ms.values())
+        top = dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:10])
+        out[name] = {"host_wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy, "idle_share": max(0.0, 1.0 - busy / wall_ms),
+                     "device_ops_per_step": ops, "annotation_ranges_ms_per_step": annotated, "peak_gib": peak, "top_device_ms_per_step": top,
+                     "conv_kernels_ms_per_step": conv_ms, "conv_ms_per_step": conv_total, "conv_tflop_per_step": flops / 1e12,
+                     "conv_flop_count": count, "conv_tflops_over_conv_time": flops / 1e9 / conv_total if conv_total else None,
+                     "conv_tflops_over_busy": flops / 1e9 / busy, "f32_peak_tflops": PEAK_OPS_PER_S["float32"] / 1e12}  # fmt: skip
+        log(f"sac_ae profile ({name}: actor, EMA, decoder = {flags}): host wall {wall_ms:.2f} ms/step, device busy {busy:.2f} ms/step, idle "
+            f"{out[name]['idle_share']:.3f}, {ops:.0f} device ops/step, peak {peak:.2f} GiB; convolutions {conv_total:.2f} ms over "
+            f"{len(conv_ms)} kernels, {count}: {out[name]['conv_tflops_over_busy']:.1f} TFLOP/s over busy, "
+            f"{out[name]['conv_tflops_over_conv_time'] or float('nan'):.1f} over the convolutions' time (f32 peak "
+            f"{PEAK_OPS_PER_S['float32'] / 1e12:.0f}); no LN-GRU launch")  # fmt: skip
+        log(f"sac_ae profile ({name}): top {json.dumps({k: round(v, 3) for k, v in top.items()})}")
+    return out
+
+
+def _nudged(agent, perturb, nudge):
+    import torch
+
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for p in agent.parameters():
+            p.add_((perturb * torch.randn(p.shape, generator=gen)).to(p.device))
+            if nudge:
+                p.mul_(1 + 2.0**-23)
+
+
+def _card_cpu(what, step, faults, leaf_tol=P2E_REF_TOL):
+    """A step on the card against the same step on the CPU (``step(where,
+    fault)`` -> (metrics, parameters at the start, at the end)): every
+    metric held to ``P2E_REF_TOL`` and every leaf to ``leaf_tol``
+    (:func:`step_gaps`); the card from weights one ulp away reported; each
+    planted fault must read above a bound."""
+    import torch
+
+    def over(g):  # > 1: outside the bounds
+        return max(g["metric_gap"] / P2E_REF_TOL, g["leaf_gap"] / leaf_tol)
+
+    card, cpu = step("cuda"), step("cpu")
+    if any(not torch.equal(card[1][k], cpu[1][k]) for k in cpu[1]):
+        fail(f"{what}: the card's agent does not start from the CPU's weights")
+    held = step_gaps(card, cpu)
+    if over(held) > 1:
+        fail(f"{what}: card vs CPU {held} (bounds: metrics {P2E_REF_TOL}, leaves {leaf_tol})")
+    floor = step_gaps(step("cuda", "nudge"), card)
+    readings = {}
+    for fault in faults:
+        readings[fault] = step_gaps(step("cuda", fault), cpu)
+        if over(readings[fault]) <= 1:
+            fail(f"{what}: the step with {fault} reads {readings[fault]} against the CPU, within the bounds")
+    log(f"{what}: card vs CPU worst metric {held['metric']} {held['metric_gap']:.3g} (bound {P2E_REF_TOL}), worst leaf {held['leaf']} "
+        f"{held['leaf_gap']:.3g} (bound {leaf_tol}); the card from weights one ulp away: metric {floor['metric_gap']:.3g}, leaf "
+        f"{floor['leaf_gap']:.3g} ({floor['leaf']}); planted faults {json.dumps({k: v['reading'] for k, v in readings.items()})}")  # fmt: skip
+    return {"held": held, "one_ulp_nudge": floor, "planted_faults": readings, "metrics_card": card[0], "metrics_cpu": cpu[0],
+            "bounds": {"metrics": P2E_REF_TOL, "leaves": leaf_tol}}  # fmt: skip
+
+
+def phase_new_reference():
+    """(41) Card against CPU, one step of each new trainer from the same
+    weights and the same draws: P2E-DV1's exploration step at the recipe's
+    widths (B = 4, T = 16; the weights moved by ``P2E_REF_PERTURB`` times a
+    seeded normal; the card's draws recorded and replayed on the CPU) with
+    ``P2E1_FAULTS``, held to 2e-3; SAC-AE's step with every cadence flag on
+    at the recipe's widths and B = ``SAC_AE_REF_BATCH`` (the seeded weights,
+    numpy-seeded draws), its Adam moments among the leaves, with
+    ``SAC_AE_FAULTS``, its leaves held to ``SAC_AE_REF_LEAF_TOL``
+    (:func:`_card_cpu`)."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.p2e_dv1 import p2e_dv1_exploration as p2e
+    from sheeprl_tpu_torch.algos.p2e_dv1.agent import build_agent as build_p2e_dv1
+    from sheeprl_tpu_torch.algos.p2e_dv3.agent import ensemble_apply
+    from sheeprl_tpu_torch.algos.sac_ae import sac_ae
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+
+    space = DictSpace({"state": Box((10,), "float32", -20.0, 20.0)})
+    draws = []
+
+    def unbiased(ensemble, trajectories, actions, multiplier):
+        with torch.no_grad():
+            preds = ensemble_apply(ensemble, torch.cat([trajectories.detach(), actions.detach()], -1)).float()
+            return preds.var(0).mean(-1, keepdim=True) * multiplier
+
+    def p2e_step(where, fault=None):
+        cfg = compose(["exp=p2e_dv1_exploration", "env=dummy", f"device={where}"])
+        agent = build_p2e_dv1((2,), False, cfg, space, device=where, seed=3)
+        _nudged(agent, P2E_REF_PERTURB, fault == "nudge")
+        start = {k: v.detach().cpu().clone() for k, v in agent.state_dict().items()}
+        rng = ReplayedDraws(draws) if draws else RecordedDraws(BatchGenerator.from_seed(0, torch.device(where)))
+        plant = {P2E1_FAULTS[0]: unbiased, P2E1_FAULTS[1]: lambda ens, traj, act, mult: agent.world_model.reward(traj).float()}.get(fault)
+        with patched(p2e, "intrinsic_reward", plant) if plant else ExitStack():
+            metrics = p2e.make_train_step(agent, p2e.make_optimizers(agent, cfg), cfg)(_vector_batch(16, 4, 11, torch.device(where), 2), rng)
+        if isinstance(rng, RecordedDraws):
+            draws.extend(rng.draws)
+        elif rng.used != len(draws):
+            fail(f"p2e dv1 reference: the replaying step drew {rng.used} times, the recording one {len(draws)}")
+        return {k: float(v.detach()) for k, v in metrics.items()}, start, {k: v.detach().cpu() for k, v in agent.state_dict().items()}
+
+    def sac_ae_step(where, fault=None):
+        cfg, agent, optimizers = _sac_ae_setup(where, SAC_AE_REF_BATCH)
+        _nudged(agent, 0.0, fault == "nudge")
+        start = {k: v.detach().cpu().clone() for k, v in agent.state_dict().items()}
+        with ExitStack() as stack:
+            if fault == SAC_AE_FAULTS[0]:
+                stack.enter_context(patched(sac_ae, "actor_features", lambda agent, obs: agent.encoder(obs)))
+                optimizers["actor"] = sac_ae.build_optimizer([*agent.actor.parameters(), *agent.encoder.parameters()], cfg.algo.actor.optimizer)
+            elif fault == SAC_AE_FAULTS[1]:
+                agent.encoder_tau = agent.tau
+            elif fault == SAC_AE_FAULTS[2]:
+                stack.enter_context(patched(sac_ae, "RECONSTRUCTION_BITS", 8))
+            data, normals, uniforms = _sac_ae_batch(SAC_AE_REF_BATCH, 13, torch.device(where))
+            metrics = sac_ae.make_train_step(agent, optimizers, cfg)(data, normals, uniforms, True, True, True)
+        end = {k: v.detach().cpu() for k, v in agent.state_dict().items()}
+        names = {id(p): n for n, p in agent.named_parameters()}
+        for name, opt in optimizers.items():
+            for p in opt.param_groups[0]["params"]:
+                for m in ("exp_avg", "exp_avg_sq"):
+                    if m in opt.state[p]:
+                        key = f"adam/{name}/{names[id(p)]}/{m}"
+                        end[key], start[key] = opt.state[p][m].detach().cpu(), torch.zeros(p.shape)
+        return {k: float(v) for k, v in metrics.items()}, start, end
+
+    return {"p2e_dv1": _card_cpu("p2e dv1 reference (recipe widths, B=4 T=16)", p2e_step, P2E1_FAULTS),
+            "sac_ae": _card_cpu(f"sac_ae reference (recipe widths, B={SAC_AE_REF_BATCH}, every flag on, seeded weights)", sac_ae_step, SAC_AE_FAULTS,
+                                SAC_AE_REF_LEAF_TOL)}  # fmt: skip
+
+
+def phases_37_41(workdir):
+    """Phases 37-41 (they run alone too, after ``kernels.build()`` or not:
+    none of their paths launches a kernel)."""
+    t0 = time.perf_counter()
+    p2e_dv1 = phase_p2e_dv1(workdir)
+    sac_ae = phase_sac_ae(workdir)
+    sac_ae_profile = phase_sac_ae_profile()
+    new_reference = phase_new_reference()
+    took = time.perf_counter() - t0
+    log(f"p2e_dv1, sac_ae: phases 37-41 took {took:.1f} s")
+    return {"p2e_dv1": p2e_dv1, "sac_ae": sac_ae, "sac_ae_profile": sac_ae_profile, "new_reference": new_reference, "phases_37_41_s": took}
 
 
 def main() -> None:
@@ -4670,6 +5125,7 @@ def main() -> None:
         p2e_dv2_kernels, p2e_dv2 = phase_p2e_dv2(workdir)
         p2e_phases_s = time.perf_counter() - p2e_t0
         log(f"p2e_dv3, p2e_dv2: phases 31-36 took {p2e_phases_s:.1f} s")
+        last_trainers = phases_37_41(workdir)
         replay_sample = phase_replay_sample()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -4694,13 +5150,15 @@ def main() -> None:
     bwd1024_in_step_ms = continuous_profile["ln_gru_backward_in_step_ms_by_batch"][IMAGINED_BATCH]["ms"]
 
     def entry(name, source, replaces, shapes, launches, row, err):
-        # The on-policy trainers' runs (phases 26-27) launch none: checked there, shown here.
+        # The on-policy trainers' runs (phases 26-27), P2E-DV1's and SAC-AE's (37, 39) launch none: checked there, shown here.
         kind = {"ln_gru_forward": "forward", "ln_gru_forward_tensor_core": "tensor_core", "ln_gru_backward": "backward"}[name]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "shapes": shapes,
                 "launches": launches, "max_abs_err": err, "ms": row["ms"], "ms_min": row["ms_min"], "ms_max": row["ms_max"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"], "bound_by": row["bound_by"], "library_ms": None,
                 "launches_a2c": a2c["training"]["ln_gru_launches"][kind],
-                "launches_ppo_recurrent": ppo_recurrent["training"]["ln_gru_launches"][kind]}  # fmt: skip
+                "launches_ppo_recurrent": ppo_recurrent["training"]["ln_gru_launches"][kind],
+                "launches_p2e_dv1": last_trainers["p2e_dv1"]["ln_gru_launches"][kind],
+                "launches_sac_ae": last_trainers["sac_ae"]["host"]["ln_gru_launches"][kind]}  # fmt: skip
 
     def in_graph(kernel):
         """The kernel's nodes in the captured step's graph, and its launches
@@ -4848,6 +5306,7 @@ def main() -> None:
         "p2e_dv2_kernels": p2e_dv2_kernels,
         "p2e_dv2": p2e_dv2,
         "p2e_phases_s": p2e_phases_s,
+        **last_trainers,
         "kernels": kernels_line["kernels"],
         "phase_s": phase_s,
     }

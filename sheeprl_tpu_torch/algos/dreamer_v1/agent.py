@@ -154,6 +154,7 @@ class DV1WorldModel(nn.Module):
             embed += int(encoder_dense_units)
         if embed == 0:
             raise ValueError("There must be at least one encoder, both cnn and mlp keys are empty")
+        self.embed_dim = embed
         self.recurrent_model = DV1RecurrentModel(self.stochastic_size + int(sum(actions_dim)), recurrent_state_size, dense_act, dtype)
         head = dict(activation=dense_act, dtype=dtype)
         self.representation_model = MLP(self.recurrent_state_size + embed, [int(representation_hidden_size)], 2 * self.stochastic_size, **head)

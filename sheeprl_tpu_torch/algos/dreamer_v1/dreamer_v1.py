@@ -10,6 +10,7 @@ and the critic frozen), then the critic, which has no target network. The
 recurrent model is the plain GRU cell with flax's parameters: no kernel of
 the port runs on this path. The stages run under ``record_function`` spans
 ``dv1/world_model``, ``dv1/imagination``, ``dv1/actor``, ``dv1/critic``.
+The step's pieces are :class:`DV1Learner`'s, which P2E-DV1's step shares.
 
 :func:`main` is DreamerV2's loop (:func:`run_dreamer`) with a sequential
 buffer, rows without ``is_first``, no target critic and the player's
@@ -29,37 +30,47 @@ from sheeprl_tpu_torch.algos.dreamer_v1.loss import actor_loss, critic_loss, rec
 from sheeprl_tpu_torch.algos.dreamer_v1.utils import compute_lambda_values
 from sheeprl_tpu_torch.algos.dreamer_v2.agent import dv2_actor_forward
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import DreamerLoop, Metrics, loop_trainer, run_dreamer, unit_normal
-from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _clip
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _clip, frozen
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.utils.distribution import BernoulliSafeMode, Independent, Normal
 
 
-def make_train_step(agent: DV1Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg) -> Callable[[Dict[str, torch.Tensor], Any], Metrics]:
-    """-> ``step(data, rng) -> metrics``: one gradient step of the three
-    modules, in place. ``data`` holds time-major [T, B, ...] tensors: the
-    observation keys (pixels as uint8), ``actions``, ``rewards`` and
-    ``terminated``; ``rng`` is the noise source of every draw."""
-    wm_cfg = cfg.algo.world_model
-    cnn_keys = list(cfg.algo.cnn_keys.encoder)
-    mlp_keys = list(cfg.algo.mlp_keys.encoder)
-    stochastic_size = int(wm_cfg.stochastic_size)
-    recurrent_state_size = int(wm_cfg.recurrent_model.recurrent_state_size)
-    horizon = int(cfg.algo.horizon)
-    gamma = float(cfg.algo.gamma)
-    lmbda = float(cfg.algo.lmbda)
-    use_continues = bool(wm_cfg.use_continues)
-    spec = agent.actor_spec
-    wm, actor, critic = agent.world_model, agent.actor, agent.critic
+class DV1Learner:
+    """The pieces of a DreamerV1 gradient step that P2E-DV1's step shares:
+    the world model's loss and update (with the encoder's embedding, the
+    ensemble's target), the imagination with any actor, the λ-targets of any
+    reward with their discount, an actor's update on them, and a critic's
+    Normal(., 1) regression onto them."""
 
-    def actor_sample(latent: torch.Tensor, rng) -> torch.Tensor:
-        actions, _ = dv2_actor_forward([p.float() for p in actor(latent.detach())], spec, rng, greedy=False)
+    def __init__(self, world_model: torch.nn.Module, actor_spec, cfg):
+        wm_cfg = cfg.algo.world_model
+        self.cfg = cfg
+        self.wm = world_model
+        self.spec = actor_spec
+        self.cnn_keys = list(cfg.algo.cnn_keys.encoder)
+        self.mlp_keys = list(cfg.algo.mlp_keys.encoder)
+        self.stochastic_size = int(wm_cfg.stochastic_size)
+        self.recurrent_state_size = int(wm_cfg.recurrent_model.recurrent_state_size)
+        self.horizon = int(cfg.algo.horizon)
+        self.gamma = float(cfg.algo.gamma)
+        self.lmbda = float(cfg.algo.lmbda)
+        self.use_continues = bool(wm_cfg.use_continues)
+
+    def batch_obs(self, data: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        batch_obs = {k: data[k].float() / 255.0 - 0.5 for k in self.cnn_keys}
+        batch_obs.update({k: data[k].float() for k in self.mlp_keys})
+        return batch_obs
+
+    def actor_sample(self, actor: torch.nn.Module, latent: torch.Tensor, rng) -> torch.Tensor:
+        actions, _ = dv2_actor_forward([p.float() for p in actor(latent.detach())], self.spec, rng, greedy=False)
         return torch.cat(actions, -1)
 
-    def world_model_loss(data, batch_obs, rng):
+    def world_model_loss(self, data, batch_obs, rng):
+        wm, wm_cfg = self.wm, self.cfg.algo.world_model
         T, B = data["rewards"].shape[:2]
         embedded = wm.embed_obs(batch_obs)
-        h = torch.zeros((B, recurrent_state_size), dtype=embedded.dtype, device=embedded.device)
-        z = torch.zeros((B, stochastic_size), dtype=embedded.dtype, device=embedded.device)
+        h = torch.zeros((B, self.recurrent_state_size), dtype=embedded.dtype, device=embedded.device)
+        z = torch.zeros((B, self.stochastic_size), dtype=embedded.dtype, device=embedded.device)
         hs, zs, post_ms, prior_ms = [], [], [], []
         for t in range(T):
             h, z, _, post, prior = wm.dynamic(z, h, data["actions"][t], embedded[t], rng)
@@ -72,9 +83,9 @@ def make_train_step(agent: DV1Agent, optimizers: Dict[str, torch.optim.Optimizer
         qo = {k: unit_normal(v, v.dim() - 2) for k, v in wm.decode(latent_states).items()}
         qr = unit_normal(wm.reward(latent_states), 1)
         qc = continue_targets = None
-        if use_continues:
+        if self.use_continues:
             qc = Independent(BernoulliSafeMode(wm.continue_logits(latent_states).float()), 1)
-            continue_targets = (1 - data["terminated"]) * gamma
+            continue_targets = (1 - data["terminated"]) * self.gamma
         stack = lambda ms, i: torch.stack([m[i] for m in ms]).float()  # noqa: E731
         posteriors_dist = Independent(Normal(stack(post_ms, 0), stack(post_ms, 1)), 1)
         priors_dist = Independent(Normal(stack(prior_ms, 0), stack(prior_ms, 1)), 1)
@@ -82,65 +93,82 @@ def make_train_step(agent: DV1Agent, optimizers: Dict[str, torch.optim.Optimizer
             qo, batch_obs, qr, data["rewards"], posteriors_dist, priors_dist, wm_cfg.kl_free_nats, wm_cfg.kl_regularizer,
             qc, continue_targets, wm_cfg.continue_scale_factor,
         )  # fmt: skip
-        return losses, posteriors, recurrent_states, posteriors_dist, priors_dist
+        return losses, posteriors, recurrent_states, embedded, posteriors_dist, priors_dist
 
-    def behaviour(prior, h, rng):
-        with record_function("dv1/imagination"):
+    def update_world_model(self, optimizer, data, rng):
+        """The world model's loss, backward, clipping and step -> (losses,
+        posteriors, recurrent states, embeddings, posterior and prior
+        distributions, norm)."""
+        losses, posteriors, recurrent_states, embedded, posteriors_dist, priors_dist = self.world_model_loss(data, self.batch_obs(data), rng)
+        optimizer.zero_grad(set_to_none=True)
+        losses[0].backward()
+        wm_norm = _clip(self.wm, self.cfg.algo.world_model.clip_gradients)
+        optimizer.step()
+        return losses, posteriors, recurrent_states, embedded, posteriors_dist, priors_dist, wm_norm
+
+    def imagine(self, actor: torch.nn.Module, prior: torch.Tensor, h: torch.Tensor, rng):
+        """``horizon`` steps from every start, action i taken from latent
+        i - 1; the start is not part of it -> ([horizon, N, latent]
+        trajectories, [horizon, N, A] actions)."""
+        latent = torch.cat([prior, h], -1)
+        latents, img_actions = [], []
+        for _ in range(self.horizon):
+            actions = self.actor_sample(actor, latent, rng)
+            prior, h = self.wm.imagination(prior, h, actions, rng)
             latent = torch.cat([prior, h], -1)
-            latents = []
-            for _ in range(horizon):
-                actions = actor_sample(latent, rng)
-                prior, h = wm.imagination(prior, h, actions, rng)
-                latent = torch.cat([prior, h], -1)
-                latents.append(latent)
-            trajectories = torch.stack(latents)  # [horizon, T * B, latent]
+            latents.append(latent)
+            img_actions.append(actions)
+        return torch.stack(latents), torch.stack(img_actions)
+
+    def returns(self, trajectories, rewards, values):
+        """λ-targets of ``rewards`` bootstrapped by ``values`` with the
+        continue head's probabilities (a constant ``gamma`` without
+        ``use_continues``) -> (lambda_values, discount)."""
+        if self.use_continues:
+            continues = torch.sigmoid(self.wm.continue_logits(trajectories).float())
+        else:
+            continues = torch.ones_like(rewards.detach()) * self.gamma
+        lambda_values = compute_lambda_values(rewards, values, continues, last_values=values[-1], lmbda=self.lmbda)
+        discount = torch.cumprod(torch.cat([torch.ones_like(continues[:1]), continues[:-2]], 0), 0).detach()
+        return lambda_values, discount
+
+    def update_actor(self, actor, optimizer, lambda_values, discount):
+        """Minus the discounted λ-targets (their gradient runs back through
+        the imagined steps), its backward, clipping and step -> (loss, norm)."""
+        policy_loss = actor_loss(discount * lambda_values)
+        optimizer.zero_grad(set_to_none=True)
+        policy_loss.backward()
+        actor_norm = _clip(actor, self.cfg.algo.actor.clip_gradients)
+        optimizer.step()
+        return policy_loss.detach(), actor_norm
+
+    def behaviour(self, actor, critic, optimizer, prior, h, rng):
+        """The imagination from every posterior, the λ-targets of the reward
+        head, and the actor's update (the world model and the critic are
+        frozen by the caller)."""
+        with record_function("dv1/imagination"):
+            trajectories, _ = self.imagine(actor, prior, h, rng)
             predicted_values = critic(trajectories).float()
-            predicted_rewards = wm.reward(trajectories).float()
-            if use_continues:
-                continues = torch.sigmoid(wm.continue_logits(trajectories).float())
-            else:
-                continues = torch.ones_like(predicted_rewards.detach()) * gamma
-            lambda_values = compute_lambda_values(predicted_rewards, predicted_values, continues, last_values=predicted_values[-1], lmbda=lmbda)
-            discount = torch.cumprod(torch.cat([torch.ones_like(continues[:1]), continues[:-2]], 0), 0).detach()
+            predicted_rewards = self.wm.reward(trajectories).float()
+            lambda_values, discount = self.returns(trajectories, predicted_rewards, predicted_values)
         with record_function("dv1/actor"):
-            policy_loss = actor_loss(discount * lambda_values)
-            optimizers["actor"].zero_grad(set_to_none=True)
-            policy_loss.backward()
-            actor_norm = _clip(actor, cfg.algo.actor.clip_gradients)
-            optimizers["actor"].step()
-        return trajectories.detach(), lambda_values.detach(), discount, policy_loss.detach(), actor_norm
+            policy_loss, actor_norm = self.update_actor(actor, optimizer, lambda_values, discount)
+        return trajectories.detach(), lambda_values.detach(), discount, policy_loss, actor_norm
 
-    def step(data: Dict[str, torch.Tensor], rng) -> Metrics:
-        batch_obs = {k: data[k].float() / 255.0 - 0.5 for k in cnn_keys}
-        batch_obs.update({k: data[k].float() for k in mlp_keys})
+    def update_critic(self, critic, optimizer, trajectories, lambda_values, discount):
+        """The critic's Normal(., 1) loss on the λ-targets along
+        ``trajectories[:-1]``, its backward, clipping and step -> (loss, norm)."""
+        qv = unit_normal(critic(trajectories)[:-1], 1)
+        value_loss = critic_loss(qv, lambda_values, discount[..., 0])
+        optimizer.zero_grad(set_to_none=True)
+        value_loss.backward()
+        critic_norm = _clip(critic, self.cfg.algo.critic.clip_gradients)
+        optimizer.step()
+        return value_loss.detach(), critic_norm
 
-        with record_function("dv1/world_model"):
-            losses, posteriors, recurrent_states, posteriors_dist, priors_dist = world_model_loss(data, batch_obs, rng)
-            rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
-            optimizers["world_model"].zero_grad(set_to_none=True)
-            rec_loss.backward()
-            wm_norm = _clip(wm, wm_cfg.clip_gradients)
-            optimizers["world_model"].step()
-
-        prior0 = posteriors.detach().reshape(-1, stochastic_size)
-        h0 = recurrent_states.detach().reshape(-1, recurrent_state_size)
-        frozen = [p for p in (*wm.parameters(), *critic.parameters()) if p.requires_grad]
-        for p in frozen:
-            p.requires_grad_(False)
-        try:
-            trajectories, lambda_values, discount, policy_loss, actor_norm = behaviour(prior0, h0, rng)
-        finally:
-            for p in frozen:
-                p.requires_grad_(True)
-
-        with record_function("dv1/critic"):
-            qv = unit_normal(critic(trajectories)[:-1], 1)
-            value_loss = critic_loss(qv, lambda_values, discount[..., 0])
-            optimizers["critic"].zero_grad(set_to_none=True)
-            value_loss.backward()
-            critic_norm = _clip(critic, cfg.algo.critic.clip_gradients)
-            optimizers["critic"].step()
-
+    @staticmethod
+    def world_model_metrics(losses, posteriors_dist, priors_dist) -> Metrics:
+        rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
         return {
             "Loss/world_model_loss": rec_loss.detach(),
             "Loss/observation_loss": observation_loss.detach(),
@@ -150,12 +178,34 @@ def make_train_step(agent: DV1Agent, optimizers: Dict[str, torch.optim.Optimizer
             "State/kl": kl.detach(),
             "State/post_entropy": posteriors_dist.entropy().mean().detach(),
             "State/prior_entropy": priors_dist.entropy().mean().detach(),
-            "Loss/policy_loss": policy_loss,
-            "Loss/value_loss": value_loss.detach(),
-            "Grads/world_model": wm_norm,
-            "Grads/actor": actor_norm,
-            "Grads/critic": critic_norm,
         }
+
+
+def make_train_step(agent: DV1Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg) -> Callable[[Dict[str, torch.Tensor], Any], Metrics]:
+    """-> ``step(data, rng) -> metrics``: one gradient step of the three
+    modules, in place. ``data`` holds time-major [T, B, ...] tensors: the
+    observation keys (pixels as uint8), ``actions``, ``rewards`` and
+    ``terminated``; ``rng`` is the noise source of every draw."""
+    learner = DV1Learner(agent.world_model, agent.actor_spec, cfg)
+    wm, actor, critic = agent.world_model, agent.actor, agent.critic
+
+    def step(data: Dict[str, torch.Tensor], rng) -> Metrics:
+        with record_function("dv1/world_model"):
+            losses, posteriors, recurrent_states, _, posteriors_dist, priors_dist, wm_norm = learner.update_world_model(
+                optimizers["world_model"], data, rng
+            )
+        prior0 = posteriors.detach().reshape(-1, learner.stochastic_size)
+        h0 = recurrent_states.detach().reshape(-1, learner.recurrent_state_size)
+        with frozen((wm, critic)):
+            trajectories, lambda_values, discount, policy_loss, actor_norm = learner.behaviour(actor, critic, optimizers["actor"], prior0, h0, rng)
+        with record_function("dv1/critic"):
+            value_loss, critic_norm = learner.update_critic(critic, optimizers["critic"], trajectories, lambda_values, discount)
+        metrics = learner.world_model_metrics(losses, posteriors_dist, priors_dist)
+        metrics.update({
+            "Loss/policy_loss": policy_loss, "Loss/value_loss": value_loss,
+            "Grads/world_model": wm_norm, "Grads/actor": actor_norm, "Grads/critic": critic_norm,
+        })  # fmt: skip
+        return metrics
 
     return step
 

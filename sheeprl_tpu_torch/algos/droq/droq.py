@@ -33,7 +33,7 @@ import torch
 from torch.profiler import record_function
 
 from sheeprl_tpu_torch.algos.droq.agent import DROQAgent, build_agent
-from sheeprl_tpu_torch.algos.sac.sac import Metrics, _adam_step, _float_batch, actor_alpha_step, run_off_policy
+from sheeprl_tpu_torch.algos.sac.sac import Metrics, OffPolicyAlgo, _adam_step, _float_batch, actor_alpha_step, run_off_policy
 from sheeprl_tpu_torch.core.graphs import CapturedStep, RingHolder, power_of_two_buckets
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
@@ -178,7 +178,7 @@ class DroQTrainer:
         self.train_step = make_train_step(agent, optimizers, cfg)
         self.fused = None
 
-    def host(self, rb: ReplayBuffer, steps: int, tau: float) -> List[Metrics]:
+    def host(self, rb: ReplayBuffer, steps: int, tau: float, first_step: int = 0) -> List[Metrics]:
         """One critic sample of ``steps`` x B rows and one actor sample of
         B rows (``droq.py:44-94``), then :func:`make_train_step`."""
         device = self.agent.log_alpha.device
@@ -216,4 +216,4 @@ def main(cfg, callback: Optional[Callable[[DROQAgent, int, List[Metrics]], None]
     """Train DroQ on ``cfg`` on ``cfg.device`` (:func:`run_off_policy`)."""
     if "minedojo" in str(cfg.env.wrapper.get("_target_", "")).lower():
         raise ValueError("MineDojo is not supported by the DroQ agent, which ignores the env's action masks; use a Dreamer agent instead.")
-    return run_off_policy(cfg, callback, build_agent, DroQTrainer, "DroQ")
+    return run_off_policy(cfg, callback, OffPolicyAlgo("DroQ", build_agent, DroQTrainer))

@@ -68,16 +68,22 @@ def ensemble_apply(ensemble: EnsembleMLP, x: torch.Tensor) -> torch.Tensor:
     return out.reshape(out.shape[0], *x.shape[:-1], out.shape[-1])
 
 
-def update_ensemble(ensemble: EnsembleMLP, optimizer, clip, posteriors, recurrent_states, actions, clip_fn) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Each member regresses the next posterior from ``[posterior,
+def update_ensemble(
+    ensemble: EnsembleMLP, optimizer, clip, posteriors, recurrent_states, actions, clip_fn, targets=None, member_nll=None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each member regresses the next step's target from ``[posterior,
     recurrent state, action]`` over ``[T, B]`` (only the first T - 1 steps
-    have a next posterior: sliced before the forward); the loss is the sum
-    over members of their mean squared error. Backward, ``clip_fn(ensemble,
+    have a next target: sliced before the forward); the target is the next
+    posterior unless ``targets`` (``[T, B, out]``) are given, and each
+    member's loss its mean squared error unless ``member_nll(pred, target)``
+    is given; the loss is the sum over members. Backward, ``clip_fn(ensemble,
     clip)`` and the step -> (loss, pre-clip norm)."""
     x = torch.cat([posteriors, recurrent_states, actions], -1)[:-1]
-    target = posteriors[1:].float()
+    target = (posteriors if targets is None else targets)[1:].float()
     preds = ensemble_apply(ensemble, x).float()
-    loss = torch.stack([-MSEDistribution(pred, 1).log_prob(target).mean() for pred in preds]).sum()
+    if member_nll is None:
+        member_nll = lambda pred, tgt: -MSEDistribution(pred, 1).log_prob(tgt).mean()  # noqa: E731
+    loss = torch.stack([member_nll(pred, target) for pred in preds]).sum()
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
     norm = clip_fn(ensemble, clip)

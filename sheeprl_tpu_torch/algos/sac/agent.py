@@ -68,12 +68,14 @@ def squash_and_logprob(
     noise: torch.Tensor,
     action_scale: torch.Tensor,
     action_bias: torch.Tensor,
+    clip_log_std: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A reparameterised tanh-squashed sample ``mean + std * noise``
     rescaled to the action bounds, and its log-prob ``[B, 1]`` with the
     tanh correction ``log(scale * (1 - y^2) + 1e-6)`` (reference:
-    agent.py:94-111)."""
-    std = log_std.clamp(LOG_STD_MIN, LOG_STD_MAX).exp()
+    agent.py:94-111). ``clip_log_std=False`` takes ``log_std`` as it is, for
+    an actor that bounds it itself (SAC-AE's, the JAX ``log_std_clip=None``)."""
+    std = (log_std.clamp(LOG_STD_MIN, LOG_STD_MAX) if clip_log_std else log_std).exp()
     x_t = mean + std * noise
     y_t = torch.tanh(x_t)
     action = y_t * action_scale + action_bias

@@ -19,8 +19,10 @@ with its sampling and its draws is a :class:`CapturedStep`, a CUDA graph on
 the card replayed per step, with tau in a static tensor.
 
 :func:`run_off_policy` is ``main`` without the Anakin branch and the mesh,
-shared with DroQ: prefill with random actions up to ``learning_starts``,
-``Ratio``-driven gradient steps, ``target_network_frequency``'s tau, the
+shared with DroQ and SAC-AE (an :class:`OffPolicyAlgo` names each one's
+agent, optimizers, train calls, observation layout and test episode):
+prefill with random actions up to ``learning_starts``, ``Ratio``-driven
+gradient steps, ``target_network_frequency``'s tau, the
 real next observation of an episode that ended, the replay buffer of
 ``buffer.size / num_envs`` rows (memory-mapped with ``buffer.memmap``), the
 ring path in power-of-two buckets of at most ``algo.fused_train_steps``, the
@@ -40,7 +42,8 @@ from __future__ import annotations
 
 import os
 import warnings
-from typing import Any, Callable, Dict, List, Optional
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -185,15 +188,19 @@ def make_fused_train_step(
     return fused
 
 
-def _float_batch(sample: Dict[str, np.ndarray], groups: int, batch_size: int, device: torch.device) -> Dict[str, torch.Tensor]:
+def _float_batch(
+    sample: Dict[str, np.ndarray], groups: int, batch_size: int, device: torch.device, keep: Sequence[str] = ()
+) -> Dict[str, torch.Tensor]:
     """A buffer sample ``[1, groups * batch_size, ...]`` as f32 ``[groups,
     batch_size, ...]`` tensors on ``device`` (``[batch_size, ...]`` when
-    ``groups`` is 0)."""
+    ``groups`` is 0); the keys in ``keep`` keep their dtype (SAC-AE's uint8
+    pixels)."""
     lead = (int(groups), int(batch_size)) if groups else (int(batch_size),)
     out = {}
     for k, v in sample.items():
         v = np.asarray(v)
-        out[k] = torch.from_numpy(np.ascontiguousarray(v.astype(np.float32).reshape(*lead, *v.shape[2:]))).to(device)
+        v = v if k in keep else v.astype(np.float32)
+        out[k] = torch.from_numpy(np.ascontiguousarray(v.reshape(*lead, *v.shape[2:]))).to(device)
     return out
 
 
@@ -210,8 +217,9 @@ class SACTrainer:
         self.tau = torch.zeros((), device=agent.log_alpha.device)
         self.fused = None
 
-    def host(self, rb: ReplayBuffer, steps: int, tau: float) -> List[Metrics]:
-        """``steps`` gradient steps on one sample of ``steps`` x B rows."""
+    def host(self, rb: ReplayBuffer, steps: int, tau: float, first_step: int = 0) -> List[Metrics]:
+        """``steps`` gradient steps on one sample of ``steps`` x B rows
+        (``first_step``, the steps taken before, is SAC-AE's cadence)."""
         data = _float_batch(rb.sample(steps * self.batch_size, sample_next_obs=self.sample_next_obs), steps, self.batch_size, self.tau.device)
         with train_timer(self.tau.device):
             self.tau.fill_(tau)
@@ -236,12 +244,67 @@ class SACTrainer:
         return {"warmup_steps": c.warmup_calls, "replays": c.replays, "graph": c.nodes}
 
 
-def run_off_policy(cfg, callback, make_agent: Callable[..., SACAgent], make_trainer: Callable[..., Any], algo: str) -> Dict[str, Any]:
-    """SAC's and DroQ's ``main`` (see the module's docstring): ``make_agent(cfg,
-    obs_space, action_space, device=, seed=)`` builds the agent,
-    ``make_trainer(agent, optimizers, cfg, rng)`` its train calls.
-    ``callback(agent, gradient_steps, metrics)`` runs after every train call.
+@dataclass(frozen=True)
+class VectorObservations:
+    """SAC's and DroQ's observations: the encoder's mlp keys of a vector obs
+    concatenated into one f32 row, stored as ``observations`` (and
+    ``next_observations``); the encoder's cnn keys are dropped with a
+    warning, as the JAX trainers drop them."""
 
+    mlp_keys: Tuple[str, ...]
+    buffer_keys: Tuple[str, ...] = ("observations",)
+
+    @classmethod
+    def from_config(cls, cfg, observation_space: DictSpace, algo: str) -> "VectorObservations":
+        if len(cfg.algo.cnn_keys.encoder) > 0:
+            warnings.warn(f"{algo} cannot use images as observations, the CNN keys will be ignored")
+            cfg.algo.cnn_keys.encoder = []
+        mlp_keys = list(cfg.algo.mlp_keys.encoder)
+        if not mlp_keys:
+            raise RuntimeError("You should specify at least one MLP key for the encoder: `mlp_keys.encoder=[state]`")
+        for k in mlp_keys:
+            if len(observation_space[k].shape) > 1:
+                raise ValueError(
+                    f"Only environments with vector-only observations are supported by the {algo} agent. "
+                    f"The observation with key '{k}' has shape {observation_space[k].shape}. Provided environment: {cfg.env.id}"
+                )
+        if cfg.metric.log_level > 0:
+            print("Encoder MLP keys:", mlp_keys, flush=True)
+        return cls(tuple(mlp_keys))
+
+    @property
+    def env_keys(self) -> Tuple[str, ...]:
+        return self.mlp_keys
+
+    def rows(self, obs: Dict[str, np.ndarray], num_envs: int, prefix: str = "") -> Dict[str, np.ndarray]:
+        return {f"{prefix}observations": prepare_obs(obs, mlp_keys=self.mlp_keys, num_envs=num_envs)[np.newaxis]}
+
+    def player(self, obs: Dict[str, np.ndarray], num_envs: int, device: torch.device) -> torch.Tensor:
+        return torch.from_numpy(prepare_obs(obs, mlp_keys=self.mlp_keys, num_envs=num_envs)).to(device)
+
+
+@dataclass(frozen=True)
+class OffPolicyAlgo:
+    """What tells SAC's, DroQ's and SAC-AE's ``main`` apart on
+    :func:`run_off_policy`: the name in messages, the agent
+    (``make_agent(cfg, obs_space, action_space, device=, seed=)``), its
+    optimizers and their checkpoint keys, the train calls
+    (``make_trainer(agent, optimizers, cfg, rng)``), the observations' layout
+    (``observations(cfg, observation_space, name)``) and the test episode."""
+
+    name: str
+    make_agent: Callable[..., Any]
+    make_trainer: Callable[..., Any]
+    observations: Callable[..., Any] = VectorObservations.from_config
+    make_optimizers: Callable[..., Dict[str, torch.optim.Optimizer]] = make_optimizers
+    optimizer_keys: Mapping[str, str] = field(default_factory=lambda: dict(OPTIMIZER_KEYS))
+    test: Callable[..., float] = test
+
+
+def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
+    """SAC's, DroQ's and SAC-AE's ``main`` (see the module's docstring), for
+    ``algo``. ``callback(agent, gradient_steps, metrics)`` runs after every
+    train call.
     The run writes under ``<log_root>/<root_dir>/<run_name>/version_<N>``:
     ``config.json`` and ``hparams.json``; with ``metric.log_level`` > 0 an
     events file with the aggregator's means (``Loss/*``, the episode means
@@ -252,9 +315,9 @@ def run_off_policy(cfg, callback, make_agent: Callable[..., SACAgent], make_trai
     buffer's files under ``memmap_buffer/rank_0``. Checkpoints go to
     ``checkpoint/ckpt_<policy_step>_0.ckpt`` every ``checkpoint.every``
     policy steps and at the end with ``checkpoint.save_last``, with the JAX
-    package's fields (``agent``, ``qf_optimizer``, ``actor_optimizer``,
-    ``alpha_optimizer``, ``ratio``, ``iter_num``, ``batch_size``,
-    ``last_log``, ``last_checkpoint``, ``rb`` with ``buffer.checkpoint``)
+    package's fields (``agent``, the optimizers under
+    ``algo.optimizer_keys``: SAC's ``qf_optimizer``, ``actor_optimizer``,
+    ``alpha_optimizer``; ``ratio``, ``iter_num``, ``batch_size``, ``last_log``, ``last_checkpoint``, ``rb`` with ``buffer.checkpoint``)
     and the port's (the gradient steps, both noise sources, the envs, the
     pending observation, the spaces' specs for ``serve export``).
 
@@ -265,9 +328,6 @@ def run_off_policy(cfg, callback, make_agent: Callable[..., SACAgent], make_trai
     device = resolve_device(cfg.device)
     if cfg.env_group != "dummy":
         raise ValueError(f"env={cfg.env_group} is not ported; the port trains on env=dummy")
-    if len(cfg.algo.cnn_keys.encoder) > 0:
-        warnings.warn(f"{algo} cannot use images as observations, the CNN keys will be ignored")
-        cfg.algo.cnn_keys.encoder = []
     state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
     np.random.seed(cfg.seed)  # the replay buffer derives its sampling stream from it
     timer.reset()
@@ -282,23 +342,13 @@ def run_off_policy(cfg, callback, make_agent: Callable[..., SACAgent], make_trai
     envs = make_dummy_vector_env(num_envs, cfg.seed, **dummy_env_kwargs(cfg))
     observation_space, action_space = envs.single_observation_space, envs.single_action_space
     if not isinstance(action_space, Box):
-        raise ValueError(f"Only continuous action space is supported for the {algo} agent")
+        raise ValueError(f"Only continuous action space is supported for the {algo.name} agent")
     if not isinstance(observation_space, DictSpace):
         raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {observation_space}")
-    mlp_keys = list(cfg.algo.mlp_keys.encoder)
-    if not mlp_keys:
-        raise RuntimeError("You should specify at least one MLP key for the encoder: `mlp_keys.encoder=[state]`")
-    for k in mlp_keys:
-        if len(observation_space[k].shape) > 1:
-            raise ValueError(
-                f"Only environments with vector-only observations are supported by the {algo} agent. "
-                f"The observation with key '{k}' has shape {observation_space[k].shape}. Provided environment: {cfg.env.id}"
-            )
-    if cfg.metric.log_level > 0:
-        print("Encoder MLP keys:", mlp_keys, flush=True)
+    layout = algo.observations(cfg, observation_space, algo.name)
 
-    agent = make_agent(cfg, observation_space, action_space, device=device, seed=cfg.seed)
-    optimizers = make_optimizers(agent, cfg)
+    agent = algo.make_agent(cfg, observation_space, action_space, device=device, seed=cfg.seed)
+    optimizers = algo.make_optimizers(agent, cfg)
     train_rng = BatchGenerator.from_seed(cfg.seed, device)
     player_rng = BatchGenerator.from_seed(cfg.seed + 1, device)
     save_configs(cfg, log_dir)
@@ -306,7 +356,7 @@ def run_off_policy(cfg, callback, make_agent: Callable[..., SACAgent], make_trai
 
     buffer_size = int(cfg.buffer.size) // num_envs if not cfg.dry_run else 1
     rb = ReplayBuffer(
-        buffer_size, num_envs, obs_keys=("observations",), memmap=bool(cfg.buffer.memmap),
+        buffer_size, num_envs, obs_keys=layout.buffer_keys, memmap=bool(cfg.buffer.memmap),
         memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"), memmap_mode=str(cfg.buffer.memmap_mode),
     )  # fmt: skip
     # The replay ring in card memory (data/device_buffer.py): every row added
@@ -314,7 +364,7 @@ def run_off_policy(cfg, callback, make_agent: Callable[..., SACAgent], make_trai
     # sample it; the host buffer stays the checkpoint's source.
     ring = None
     if cfg.buffer.device:
-        ring = DeviceReplayRing(buffer_size, num_envs, obs_keys=("observations",), hbm_fraction=float(cfg.buffer.device_hbm_fraction), device=device)
+        ring = DeviceReplayRing(buffer_size, num_envs, obs_keys=layout.buffer_keys, hbm_fraction=float(cfg.buffer.device_hbm_fraction), device=device)
     ring_span = 1 + int(bool(cfg.buffer.sample_next_obs))
     fused_train_steps = max(int(cfg.algo.fused_train_steps), 1)
 
@@ -338,7 +388,7 @@ def run_off_policy(cfg, callback, make_agent: Callable[..., SACAgent], make_trai
     obs = envs.reset(seed=cfg.seed)[0]
     if state is not None:
         agent.load_state_dict(state["agent"], strict=True)
-        for name, key in OPTIMIZER_KEYS.items():
+        for name, key in algo.optimizer_keys.items():
             load_optimizer_state(optimizers[name], state[key])
         train_rng.generator.set_state(state["train_rng"])
         player_rng.generator.set_state(state["player_rng"])
@@ -357,7 +407,7 @@ def run_off_policy(cfg, callback, make_agent: Callable[..., SACAgent], make_trai
         else:
             learning_starts += start_iter
             prefill_steps += start_iter
-    trainer = make_trainer(agent, optimizers, cfg, train_rng)
+    trainer = algo.make_trainer(agent, optimizers, cfg, train_rng)
 
     pending: List[Metrics] = []
     log: List[Dict[str, float]] = []
@@ -369,8 +419,7 @@ def run_off_policy(cfg, callback, make_agent: Callable[..., SACAgent], make_trai
             if iter_num <= learning_starts:
                 actions = envs.sample_actions()
             else:
-                obs_t = torch.from_numpy(prepare_obs(obs, mlp_keys=mlp_keys, num_envs=num_envs)).to(device)
-                actions = agent.get_actions(obs_t, player_rng).cpu().numpy()
+                actions = agent.get_actions(layout.player(obs, num_envs, device), player_rng).cpu().numpy()
             next_obs, rewards, terminated, truncated, infos = envs.step(actions.reshape((num_envs, *action_shape)))
             rewards = rewards.reshape(num_envs, -1)
 
@@ -383,20 +432,20 @@ def run_off_policy(cfg, callback, make_agent: Callable[..., SACAgent], make_trai
 
         # The buffer's next observation of an episode that ended is its last
         # one, not the reset observation (sac.py:585-595).
-        real_next_obs = {k: np.array(next_obs[k]) for k in mlp_keys}
+        real_next_obs = {k: np.array(next_obs[k]) for k in layout.env_keys}
         for idx in np.nonzero(np.logical_or(terminated, truncated))[0]:
             final = infos["final_obs"][idx]
             if final is not None:
-                for k in mlp_keys:
+                for k in layout.env_keys:
                     real_next_obs[k][idx] = final[k]
         step_data = {
             "terminated": terminated.reshape(1, num_envs, -1).astype(np.uint8),
             "truncated": truncated.reshape(1, num_envs, -1).astype(np.uint8),
             "actions": actions.reshape(1, num_envs, -1).astype(np.float32),
-            "observations": prepare_obs(obs, mlp_keys=mlp_keys, num_envs=num_envs)[np.newaxis],
+            **layout.rows(obs, num_envs),
         }
         if not cfg.buffer.sample_next_obs:
-            step_data["next_observations"] = prepare_obs(real_next_obs, mlp_keys=mlp_keys, num_envs=num_envs)[np.newaxis]
+            step_data.update(layout.rows(real_next_obs, num_envs, "next_"))
         step_data["rewards"] = rewards[np.newaxis].astype(np.float32)
         rb.add(step_data, validate_args=cfg.buffer.validate_args)
         if ring is not None:
@@ -414,7 +463,7 @@ def run_off_policy(cfg, callback, make_agent: Callable[..., SACAgent], make_trai
                     metrics = trainer.ring(ring, per_rank_gradient_steps, tau, fused_train_steps)
                     fused_gradient_steps += per_rank_gradient_steps
                 else:
-                    metrics = trainer.host(rb, per_rank_gradient_steps, tau)
+                    metrics = trainer.host(rb, per_rank_gradient_steps, tau, gradient_steps)
                 gradient_steps += per_rank_gradient_steps
                 train_step_count += 1
                 if aggregator is not None:
@@ -454,7 +503,7 @@ def run_off_policy(cfg, callback, make_agent: Callable[..., SACAgent], make_trai
             iter_num == total_iters and cfg.checkpoint.save_last
         ):
             last_checkpoint = policy_step
-            ckpt_state = {"agent": agent.state_dict(), **{key: optimizers[name].state_dict() for name, key in OPTIMIZER_KEYS.items()}}
+            ckpt_state = {"agent": agent.state_dict(), **{key: optimizers[name].state_dict() for name, key in algo.optimizer_keys.items()}}
             ckpt_state.update(
                 ratio=ratio.state_dict(), iter_num=iter_num, gradient_steps=gradient_steps, batch_size=int(cfg.algo.per_rank_batch_size),
                 last_log=last_log, last_checkpoint=last_checkpoint, train_rng=train_rng.generator.get_state(),
@@ -475,7 +524,7 @@ def run_off_policy(cfg, callback, make_agent: Callable[..., SACAgent], make_trai
                 if saved_tail is not None:
                     rb["truncated"][tail, :] = saved_tail
 
-    test_reward = test(agent, cfg, log_dir, logger) if cfg.algo.run_test else None
+    test_reward = algo.test(agent, cfg, log_dir, logger) if cfg.algo.run_test else None
     if logger is not None:
         logger.close()
     fused = trainer.fused_info()
@@ -492,4 +541,4 @@ def run_off_policy(cfg, callback, make_agent: Callable[..., SACAgent], make_trai
 @register_algorithm()
 def main(cfg, callback: Optional[Callable[[SACAgent, int, List[Metrics]], None]] = None) -> Dict[str, Any]:
     """Train SAC on ``cfg`` on ``cfg.device`` (:func:`run_off_policy`)."""
-    return run_off_policy(cfg, callback, build_agent, SACTrainer, "SAC")
+    return run_off_policy(cfg, callback, OffPolicyAlgo("SAC", build_agent, SACTrainer))

@@ -1,4 +1,4 @@
-"""Carry DreamerV3, PPO, A2C, recurrent PPO, SAC, DroQ, DreamerV2, DreamerV1 and P2E weights from the JAX package's param trees into the port.
+"""Carry DreamerV3, PPO, A2C, recurrent PPO, SAC, DroQ, SAC-AE, DreamerV2, DreamerV1 and P2E weights from the JAX package's param trees into the port.
 
 Input: the ``world_model``, ``actor`` and ``critic`` trees of the JAX
 DreamerV3 train state, or the JAX PPO agent's params, as nested dicts of
@@ -6,12 +6,13 @@ numpy arrays (with or without the top ``params`` level), the JAX PPO agent's
 params, the JAX SAC or DroQ train state (``actor``, ``qfs``,
 ``qfs_target``, ``log_alpha``), or the JAX DreamerV2 or DreamerV1 train
 state (``world_model``, ``actor``, ``critic`` and DreamerV2's
-``target_critic``), the JAX P2E-DV3 or P2E-DV2 train state, or the JAX
-recurrent PPO agent's params. Output: state
+``target_critic``), the JAX P2E-DV3, P2E-DV2 or P2E-DV1 train state, the
+JAX SAC-AE train state, or the JAX recurrent PPO agent's params. Output: state
 dicts for the port's ``WorldModel``, ``Actor`` and critic ``MLP``, its
 ``PPOAgent`` (also A2C's), its ``RecurrentPPOAgent``, its
 ``SACAgent``/``DROQAgent``, or one per module of its ``DV2Agent`` or
-``DV1Agent``, or one per module of its ``P2EDV3Agent`` or ``P2EDV2Agent``.
+``DV1Agent``, or one per module of its ``P2EDV3Agent``, ``P2EDV2Agent`` or
+``P2EDV1Agent``, or its ``SACAEAgent``.
 
 - A Dense ``[in, out]`` kernel becomes a Linear ``[out, in]`` weight.
 - A conv HWIO kernel becomes OIHW.
@@ -19,7 +20,8 @@ dicts for the port's ``WorldModel``, ``Actor`` and critic ``MLP``, its
   ``transpose_kernel=False``) becomes torch's ``[in, out, kh, kw]`` with H and
   W flipped: flax runs it as a plain convolution over the dilated input,
   torch's transposed convolution flips its kernel.
-- ``LayerNorm_i/LayerNorm_0/{scale, bias}`` becomes ``norms.i.{weight, bias}``.
+- ``LayerNorm_i/LayerNorm_0/{scale, bias}`` becomes ``norms.i.{weight, bias}``;
+  flax's bare ``nn.LayerNorm`` (SAC-AE's encoder ``ln``) ``ln.{weight, bias}``.
 - The GRU's ``linear/kernel`` [D, 3H] is kept as it is: its rows are in
   ``[h, x]`` order and the port's cell and kernel read that layout.
   DreamerV1's flax ``GRUCell`` (``ir``, ``iz``, ``in``, ``hr``, ``hz``,
@@ -435,21 +437,23 @@ def sac_state_dict(state: Mapping[str, Any]) -> StateDict:
 droq_state_dict = sac_state_dict
 
 
-def _p2e_dreamer(state: Mapping[str, Any], dv3: bool) -> tuple:
+def _p2e_dreamer(state: Mapping[str, Any], dv3: bool, rnn=_gru) -> tuple:
     """The task side of a JAX P2E train state (``world_model``,
-    ``actor_task``, ``critic_task``, ``target_critic_task``) as the
-    DreamerV3 (``dv3``) or DreamerV2 agent's modules, the exploration actor,
-    and the ensemble stacked over its members; returns (their state dicts,
-    what is left of ``state``)."""
+    ``actor_task``, ``critic_task`` and, but for DreamerV1,
+    ``target_critic_task``) as the DreamerV3 (``dv3``), DreamerV2 or
+    DreamerV1 (``rnn``: its cell's converter) agent's modules, the
+    exploration actor, and the ensemble stacked over its members; returns
+    (their state dicts, what is left of ``state``)."""
     rest = _take(state, "<root>")
     task = {"world_model": rest.pop("world_model"), "actor": rest.pop("actor_task")}
     for name in ("critic", "target_critic"):
-        task[name] = rest.pop(f"{name}_task")
+        if f"{name}_task" in rest:
+            task[name] = rest.pop(f"{name}_task")
     if dv3:
         out = {"world_model": world_model_state_dict(task.pop("world_model"), heads=True), "actor": actor_state_dict(task.pop("actor"))}
         out.update({name: mlp_state_dict(tree) for name, tree in task.items()})
     else:
-        out = _dreamer_state_dict(task, _gru)
+        out = _dreamer_state_dict(task, rnn)
     out["actor_exploration"] = actor_state_dict(rest.pop("actor_exploration"))
     out["ensembles"] = {}
     _ensemble_mlp(_params(rest.pop("ensembles")), "ensembles", "", out["ensembles"])
@@ -484,4 +488,68 @@ def p2e_dv2_state_dict(state: Mapping[str, Any]) -> Dict[str, StateDict]:
     for name in ("critic_exploration", "target_critic_exploration"):
         out[name] = mlp_state_dict(rest.pop(name))
     _done(rest, "p2e_dv2")
+    return out
+
+
+def p2e_dv1_state_dict(state: Mapping[str, Any]) -> Dict[str, StateDict]:
+    """The port's ``P2EDV1Agent`` modules' state dicts from the JAX P2E-DV1
+    train state: ``world_model``, ``actor``, ``critic``,
+    ``actor_exploration``, ``critic_exploration`` and ``ensembles`` (the
+    embedding's predictors, with their hidden biases)."""
+    out, rest = _p2e_dreamer(state, False, _flax_gru)
+    out["critic_exploration"] = mlp_state_dict(rest.pop("critic_exploration"))
+    _done(rest, "p2e_dv1")
+    return out
+
+
+def sac_ae_state_dict(state: Mapping[str, Any]) -> StateDict:
+    """The port's ``SACAEAgent`` state dict from the JAX SAC-AE train state:
+    the encoder and its target (the pixel branch's convolutions, ``fc`` and
+    flax's bare ``ln``; the vector branch's MLP), the decoder (``fc``, the
+    transposed convolutions of ``model`` and ``to_obs`` flipped to torch's
+    layout; the vector branch's MLP and its ``head_<key>`` Dense layers),
+    the actor, the critics and their targets, and ``log_alpha``."""
+    rest = _take(state, "<root>")
+    out: StateDict = {}
+    for name in ("encoder", "encoder_target"):
+        enc = _params(rest.pop(name))
+        if "cnn_encoder" in enc:
+            cnn = _take(enc.pop("cnn_encoder"), f"{name}/cnn_encoder")
+            prefix = f"{name}.cnn_encoder."
+            _stack(cnn.pop("model"), f"{name}/cnn_encoder/model", f"{prefix}model.", out, "conv", "convs", _conv)
+            _dense(cnn.pop("fc"), f"{name}/cnn_encoder/fc", f"{prefix}fc.", out)
+            ln = _take(cnn.pop("ln"), f"{name}/cnn_encoder/ln")
+            out[f"{prefix}ln.weight"], out[f"{prefix}ln.bias"] = _tensor(ln.pop("scale")), _tensor(ln.pop("bias"))
+            _done(ln, f"{name}/cnn_encoder/ln")
+            _done(cnn, f"{name}/cnn_encoder")
+        if "mlp_encoder" in enc:
+            mlp = _take(enc.pop("mlp_encoder"), f"{name}/mlp_encoder")
+            _mlp(mlp.pop("model"), f"{name}/mlp_encoder/model", f"{name}.mlp_encoder.model.", out)
+            _done(mlp, f"{name}/mlp_encoder")
+        _done(enc, name)
+    dec = _params(rest.pop("decoder"))
+    if "cnn_decoder" in dec:
+        cnn = _take(dec.pop("cnn_decoder"), "decoder/cnn_decoder")
+        _dense(cnn.pop("fc"), "decoder/cnn_decoder/fc", "decoder.cnn_decoder.fc.", out)
+        for part in ("model", "to_obs"):
+            _stack(cnn.pop(part), f"decoder/cnn_decoder/{part}", f"decoder.cnn_decoder.{part}.", out, "deconv", "deconvs", _deconv)
+        _done(cnn, "decoder/cnn_decoder")
+    if "mlp_decoder" in dec:
+        mlp = _take(dec.pop("mlp_decoder"), "decoder/mlp_decoder")
+        _mlp(mlp.pop("model"), "decoder/mlp_decoder/model", "decoder.mlp_decoder.model.", out)
+        for key in sorted(mlp):
+            if not key.startswith("head_"):
+                continue
+            _dense(mlp.pop(key), f"decoder/mlp_decoder/{key}", f"decoder.mlp_decoder.heads.{key[len('head_'):]}.", out)
+        _done(mlp, "decoder/mlp_decoder")
+    _done(dec, "decoder")
+    actor = _params(rest.pop("actor"))
+    _mlp(actor.pop("model"), "actor/model", "actor.model.", out)
+    for head in ("fc_mean", "fc_logstd"):
+        _dense(actor.pop(head), f"actor/{head}", f"actor.{head}.", out)
+    _done(actor, "actor")
+    for name in ("qfs", "qfs_target"):
+        _ensemble(rest.pop(name), name, f"{name}.model.", out)
+    out["log_alpha"] = _tensor(rest.pop("log_alpha")).reshape(1)
+    _done(rest, "sac_ae")
     return out

@@ -1,17 +1,18 @@
 """Command lines of the port::
 
-    python -m sheeprl_tpu_torch exp=<ppo | ppo_atari | a2c | ppo_recurrent | sac | droq | dreamer_v3_100k_ms_pacman | dreamer_v2_ms_pacman | ...> env=dummy [key=value ...] [device=cpu]
-    python -m sheeprl_tpu_torch exp=<p2e_dv3_finetuning | p2e_dv2_finetuning> env=dummy checkpoint.exploration_ckpt_path=<exploration run>/version_N/checkpoint/ckpt_<step>_0.ckpt [...]
+    python -m sheeprl_tpu_torch exp=<ppo | ppo_atari | a2c | ppo_recurrent | sac | droq | sac_ae | dreamer_v3_100k_ms_pacman | dreamer_v2_ms_pacman | ...> env=dummy [key=value ...] [device=cpu]
+    python -m sheeprl_tpu_torch exp=<p2e_dv3_finetuning | p2e_dv2_finetuning | p2e_dv1_finetuning> env=dummy checkpoint.exploration_ckpt_path=<exploration run>/version_N/checkpoint/ckpt_<step>_0.ckpt [...]
     python -m sheeprl_tpu_torch.eval checkpoint_path=<run>/version_N/checkpoint/ckpt_<step>_0.ckpt [key=value ...] [device=cpu]
 
 They run on ``cuda`` unless ``device=cpu`` is given, and raise without a
 card. The config is composed from the port's tree
 (:mod:`sheeprl_tpu_torch.config`, ``sheeprl_tpu_torch/configs/``): any exp
 there composes (``ppo``, ``ppo_atari``, ``a2c``, ``ppo_recurrent``, ``sac``, ``droq``,
-``dreamer_v3_100k_ms_pacman``, ``dreamer_v3_dmc_walker_walk``,
+``sac_ae``, ``dreamer_v3_100k_ms_pacman``, ``dreamer_v3_dmc_walker_walk``,
 ``dreamer_v3``, ``dreamer_v2_ms_pacman``, ``dreamer_v2``, ``dreamer_v1``,
 ``p2e_dv3_exploration``, ``p2e_dv3_finetuning``, ``p2e_dv2_exploration``,
-``p2e_dv2_finetuning``; SAC and DroQ want ``env.id=continuous_dummy``; a
+``p2e_dv2_finetuning``, ``p2e_dv1_exploration``, ``p2e_dv1_finetuning``;
+SAC, DroQ and SAC-AE want ``env.id=continuous_dummy``; a
 P2E finetuning run names its exploration run's checkpoint), an unknown key raises, and
 the trainer then raises on an algorithm the port does not train and on an env
 group other than ``env=dummy``. Keys are those of the composed config, e.g.

@@ -346,11 +346,13 @@ class MultiEncoder(nn.Module):
 class DeCNN(nn.Module):
     """Transposed-conv -> [LayerNorm over channels] -> activation stages; NHWC
     in, NHWC out. ``layers`` gives each stage's (out_channels, kernel_size,
-    stride, padding, bias, norm_eps or None, activation); the output size is
-    torch ``ConvTranspose2d``'s, ``(in - 1) * stride - 2 * padding +
-    kernel_size``, the size the JAX package's DeCNN reproduces with
-    ``lax.conv_transpose`` padding. Weights are torch's [in, out, kh, kw]
-    layout; the bridge flips the flax kernel to it."""
+    stride, padding, bias, norm_eps or None, activation[, output_padding]);
+    the output size is torch ``ConvTranspose2d``'s, ``(in - 1) * stride - 2 *
+    padding + kernel_size + output_padding``, the size the JAX package's
+    DeCNN reproduces with ``lax.conv_transpose`` padding (its
+    ``output_padding`` pads the high side, as torch's extends the output
+    there). Weights are torch's [in, out, kh, kw] layout; the bridge flips
+    the flax kernel to it."""
 
     def __init__(self, input_channels: int, layers: Sequence[tuple], dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -359,11 +361,11 @@ class DeCNN(nn.Module):
         self.dtype = dtype
         chans = [int(input_channels), *[int(layer[0]) for layer in layers]]
         self.deconvs = nn.ModuleList(
-            nn.ConvTranspose2d(i, o, int(k), stride=int(s), padding=int(p), bias=bool(b))
-            for i, o, (_, k, s, p, b, _, _) in zip(chans[:-1], chans[1:], layers)
+            nn.ConvTranspose2d(i, o, int(k), stride=int(s), padding=int(p), output_padding=int(op[0]) if op else 0, bias=bool(b))
+            for i, o, (_, k, s, p, b, _, _, *op) in zip(chans[:-1], chans[1:], layers)
         )
         self.norms = nn.ModuleList(
-            LayerNorm(o, eps) if eps is not None else nn.Identity() for o, (_, _, _, _, _, eps, _) in zip(chans[1:], layers)
+            LayerNorm(o, layer[5]) if layer[5] is not None else nn.Identity() for o, layer in zip(chans[1:], layers)
         )
         self.acts = [get_activation(layer[6]) for layer in layers]
 
@@ -373,7 +375,7 @@ class DeCNN(nn.Module):
         for deconv, norm, act in zip(self.deconvs, self.norms, self.acts):
             bias = deconv.bias.to(x.dtype) if deconv.bias is not None else None
             y = F.conv_transpose2d(
-                x.permute(0, 3, 1, 2), deconv.weight.to(x.dtype), bias, deconv.stride, deconv.padding
+                x.permute(0, 3, 1, 2), deconv.weight.to(x.dtype), bias, deconv.stride, deconv.padding, deconv.output_padding
             )
             x = act(norm(y.permute(0, 2, 3, 1)))
         return x.reshape(*batch_shape, *x.shape[1:])

@@ -5,7 +5,8 @@ Each algorithm module registers its ``main(cfg)`` entry point with
 :func:`register_evaluation`; the command line looks both up by
 ``algo.name``. :func:`register_all` imports the modules that register: the
 port has DreamerV3, PPO, SAC, DroQ, DreamerV2, DreamerV1, A2C, recurrent
-PPO, and P2E on DreamerV3 and DreamerV2 (exploration and finetuning).
+PPO, P2E on DreamerV3, DreamerV2 and DreamerV1 (exploration and
+finetuning), and SAC-AE.
 """
 
 from __future__ import annotations
@@ -40,6 +41,11 @@ _MODULES = (
     "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration",
     "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_finetuning",
     "sheeprl_tpu_torch.algos.p2e_dv2.evaluate",
+    "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_finetuning",
+    "sheeprl_tpu_torch.algos.p2e_dv1.evaluate",
+    "sheeprl_tpu_torch.algos.sac_ae.sac_ae",
+    "sheeprl_tpu_torch.algos.sac_ae.evaluate",
 )
 
 

@@ -21,11 +21,12 @@ from sheeprl_tpu_torch.config.loader import default_config_dir
 TREE = default_config_dir()
 FILES = sorted(os.path.relpath(p, TREE) for p in glob.glob(os.path.join(TREE, "**", "*.yaml"), recursive=True))
 EXPS = ("ppo", "ppo_atari", "dreamer_v3_100k_ms_pacman", "dreamer_v3_dmc_walker_walk", "sac", "droq", "dreamer_v2", "dreamer_v2_ms_pacman", "dreamer_v1", "a2c",
-        "ppo_recurrent", "p2e_dv3_exploration", "p2e_dv3_finetuning", "p2e_dv2_exploration", "p2e_dv2_finetuning")
+        "ppo_recurrent", "p2e_dv3_exploration", "p2e_dv3_finetuning", "p2e_dv2_exploration", "p2e_dv2_finetuning", "p2e_dv1_exploration",
+        "p2e_dv1_finetuning", "sac_ae")
 # The JAX package's own overrides for SAC and DroQ (tests/test_algos/test_fused_train.py),
 # and the width each exp's interpolation spreads.
-EXP_ARGS = {exp: ["env.id=continuous_dummy", "env.wrapper.id=continuous_dummy"] for exp in ("sac", "droq")}
-WIDTH = {"sac": "algo.hidden_size", "droq": "algo.hidden_size"}
+EXP_ARGS = {exp: ["env.id=continuous_dummy", "env.wrapper.id=continuous_dummy"] for exp in ("sac", "droq", "sac_ae")}
+WIDTH = {"sac": "algo.hidden_size", "droq": "algo.hidden_size", "sac_ae": "algo.hidden_size"}
 # Values the tests and the recipes give on the command line, and YAML's edge cases.
 VALUES = [
     "1e-4", "1.0e-6", "2.5e-4", "1e3", "-1e-3", "10_000_000", "0", "010", "0x1f", "0b101", "1:30", "-1", "+3", ".5", "1.",

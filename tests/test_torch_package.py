@@ -44,7 +44,9 @@ def test_import_every_module_without_jax_or_the_jax_package():
                 "algos.ppo_recurrent.utils", "algos.ppo_recurrent.evaluate", "algos.p2e_dv3.agent", "algos.p2e_dv3.utils",
                 "algos.p2e_dv3.p2e_dv3_exploration", "algos.p2e_dv3.p2e_dv3_finetuning", "algos.p2e_dv3.evaluate",
                 "algos.p2e_dv2.agent", "algos.p2e_dv2.utils", "algos.p2e_dv2.p2e_dv2_exploration",
-                "algos.p2e_dv2.p2e_dv2_finetuning", "algos.p2e_dv2.evaluate"]
+                "algos.p2e_dv2.p2e_dv2_finetuning", "algos.p2e_dv2.evaluate", "algos.p2e_dv1.agent", "algos.p2e_dv1.utils",
+                "algos.p2e_dv1.p2e_dv1_exploration", "algos.p2e_dv1.p2e_dv1_finetuning", "algos.p2e_dv1.evaluate", "algos.sac_ae.agent",
+                "algos.sac_ae.utils", "algos.sac_ae.sac_ae", "algos.sac_ae.evaluate"]
     for name in ["serve.engine", "bridge", *training]:
         assert f"sheeprl_tpu_torch.{name}" in report["modules"], name
     assert not [m for m in report["loaded"] if m in FORBIDDEN]
@@ -71,15 +73,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
         run(["exp=dreamer_v3_100k_ms_pacman", "env=dummy"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run(["exp=ppo_atari", "env=dummy"])
-    for exp in ("sac", "droq"):
+    for exp in ("sac", "droq", "sac_ae"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run([f"exp={exp}", "env=dummy", "env.id=continuous_dummy"])
-    for exp in ("dreamer_v2_ms_pacman", "dreamer_v2", "dreamer_v1", "a2c", "ppo_recurrent", "p2e_dv3_exploration", "p2e_dv2_exploration"):
+    for exp in ("dreamer_v2_ms_pacman", "dreamer_v2", "dreamer_v1", "a2c", "ppo_recurrent", "p2e_dv3_exploration", "p2e_dv2_exploration",
+                "p2e_dv1_exploration"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run([f"exp={exp}", "env=dummy"])
 
 
-@pytest.mark.parametrize("version", ["dv3", "dv2"])
+@pytest.mark.parametrize("version", ["dv3", "dv2", "dv1"])
 def test_p2e_registers_both_phases_and_finetuning_defaults_to_cuda(tmp_path, version):
     """Both P2E phases train and evaluate through the registries, and only
     the finetuning ones continue an exploration run; a finetuning run reads its exploration run's config and then, without a
@@ -94,7 +97,7 @@ def test_p2e_registers_both_phases_and_finetuning_defaults_to_cuda(tmp_path, ver
         assert algorithm_registry[name].module == f"sheeprl_tpu_torch.algos.p2e_{version}.{name}"
         assert evaluation_registry[name].module == f"sheeprl_tpu_torch.algos.p2e_{version}.evaluate"
         assert algorithm_registry[name].after_exploration == (phase == "finetuning")
-    assert {n for n, e in algorithm_registry.items() if e.after_exploration} == {"p2e_dv3_finetuning", "p2e_dv2_finetuning"}
+    assert {n for n, e in algorithm_registry.items() if e.after_exploration} == {"p2e_dv3_finetuning", "p2e_dv2_finetuning", "p2e_dv1_finetuning"}
     run_dir = tmp_path / "exploration" / "version_0"
     (run_dir / "checkpoint").mkdir(parents=True)
     (run_dir / "config.json").write_text(json.dumps(compose([f"exp=p2e_{version}_exploration", "env=dummy"])))

@@ -258,15 +258,15 @@ def test_config_rejects_what_the_port_does_not_have(tmp_path, monkeypatch):
     the port does not step. An exp outside the tree and an unknown key raise
     in the composition."""
     (tmp_path / "exp").mkdir()
-    (tmp_path / "exp" / "sac_ae_dummy.yaml").write_text("# @package _global_\ndefaults:\n  - ppo\n  - _self_\nalgo:\n  name: sac_ae\n")
+    (tmp_path / "exp" / "ppo_decoupled_dummy.yaml").write_text("# @package _global_\ndefaults:\n  - ppo\n  - _self_\nalgo:\n  name: ppo_decoupled\n")
     monkeypatch.setenv("SHEEPRL_SEARCH_PATH", str(tmp_path))
-    assert compose(["exp=sac_ae_dummy", "env=dummy"]).algo.name == "sac_ae"
-    with pytest.raises(ValueError, match="algo.name=sac_ae is not ported"):
-        run(["exp=sac_ae_dummy", "env=dummy", "device=cpu"])
+    assert compose(["exp=ppo_decoupled_dummy", "env=dummy"]).algo.name == "ppo_decoupled"
+    with pytest.raises(ValueError, match="algo.name=ppo_decoupled is not ported"):
+        run(["exp=ppo_decoupled_dummy", "env=dummy", "device=cpu"])
     with pytest.raises(ValueError, match="env=gym is not ported"):
         run(["exp=dreamer_v3", "device=cpu"])
-    with pytest.raises(ValueError, match="exp=sac_ae is not in the port's config tree"):
-        compose(["exp=sac_ae", "env=dummy"])
+    with pytest.raises(ValueError, match="exp=ppo_decoupled is not in the port's config tree"):
+        compose(["exp=ppo_decoupled", "env=dummy"])
     with pytest.raises(ValueError, match="no such key in the composed config"):
         compose(["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "algo.no_such_key=1"])
 
