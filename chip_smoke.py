@@ -231,8 +231,8 @@ Phases (any failure exits non-zero before the result line):
 32. P2E-DV3, an eighth main path: ``python -m sheeprl_tpu_torch
    exp=p2e_dv3_exploration env=dummy`` in process at the exp's XL widths
    (dense 1024 x 5, recurrent state 4096, batch 16 x 64, horizon 15, an
-   ensemble of 8, two exploration critics), cut (listed in the output) to 8
-   gradient steps and a checkpoint after the 4th; every gradient step
+   ensemble of 8, two exploration critics), cut (listed in the output) to 4
+   gradient steps (replay ratio 0.5) and a checkpoint after the 2nd; every gradient step
    launches 64 + 30 forwards (B = 16, 1024) and 64 backwards, the run none
    on the tensor cores (counts zeroed just before, read at every step); the
    per-critic tags; resumed bit for bit (every module and optimizer);
@@ -278,6 +278,31 @@ Phases (any failure exits non-zero before the result line):
    (P2E-DV1: ddof 1, the exploration critic on the task reward; SAC-AE: the
    actor's features not detached, the encoder's EMA at the critics' tau,
    the pixels' target at 8 bits) read above the bound.
+42. The Anakin lane's batched envs (CartPole, Pendulum, the pixel
+   gridworld): 64 envs x 300 steps of the lane's step with same-step
+   autoreset on the card against the CPU, from the CPU's state, with the
+   same actions and reset draws: integers, flags and pixels exact, f32
+   within 1e-5.
+43. The LN-GRU at the lane's DreamerV3-S shapes (D = 1024, H = 512):
+   streaming forward and backward at B = 4 (the player) and 8 (the dynamic
+   scan) in f32 and bf16 and at B = 256 in f32; the tensor-core forward at
+   B = 256 in bf16 (the imagination under bf16-mixed); each held to its
+   plain version and timed beside it, its bound and cuBLAS's product.
+44. ``exp=dreamer_v3_anakin`` through the CLI at the recipe's widths, the
+   100000-row ring (1.23 GB) on the card: the prefill in 16 supersteps,
+   then two of training (32 gradient steps each), every rollout one graph
+   replay after its first call; the graphs' LN-GRU nodes (16 at B = 4 a
+   policy rollout; 47 forwards and 32 backwards a gradient step); both
+   rollouts' graphs against their eager runs bit for bit; a superstep and a
+   rollout profiled (host wall, busy, idle share, operations, peak memory,
+   env steps/s); resumed, ``eval``; then bf16-mixed, the tensor-core kernel
+   at B = 256 in the lane.
+45-46. ``exp=ppo_anakin`` (one graph replay a superstep, the update inside)
+   and ``exp=sac_anakin`` through the CLI on the fused lane and on the host
+   lane on the same env and steps: graph replays per superstep, env steps/s
+   of both lanes, no LN-GRU launch, each rollout graph against its eager run
+   bit for bit, the fused run resumed and evaluated. ``c.phases_42_46(dir)``
+   runs 42-46 alone after ``kernels.build()``.
 
 Every profile reads its device busy time through ``_busy``, which leaves
 out the device ranges of ``record_function`` annotations (the trainers'
@@ -291,8 +316,10 @@ backward at B = 32 and 1600, where the JAX package itself runs its plain
 path: its ``_eligible`` takes H % 128 == 0 only; then P2E-DV3's forward at
 B = 16 and 1024 and backward at B = 16, H = 4096, with the launches of the
 exploration and the finetuning runs, and P2E-DV2's forward and backward at
-B = 16 and 800, H = 400; every entry with the P2E-DV1 and SAC-AE runs'
-launches, 0), the card's name and power limit,
+B = 16 and 800, H = 400; then the Anakin lane's streaming forwards at B =
+4, 8 and 256, the tensor-core forward at B = 256 and the backwards at B = 8;
+every entry with the P2E-DV1 and SAC-AE runs' launches, 0, and the Anakin
+runs'), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -4125,15 +4152,16 @@ P2E_IMAGINED = P2E_BATCH * P2E_SEQ  # 1024
 P2E_FWD_BY_BATCH = {P2E_BATCH: P2E_SEQ, P2E_IMAGINED: 2 * P2E_HORIZON}
 P2E_BWD_BY_BATCH = {P2E_BATCH: P2E_SEQ}
 P2E_FT_FWD_BY_BATCH = {P2E_BATCH: P2E_SEQ, P2E_IMAGINED: P2E_HORIZON}
-P2E_CUTS = {"algo.learning_starts": "256 (from 1024)", "algo.total_steps": "260 (from 5000000; 8 gradient steps)",
+# Cut to 4 gradient steps (from 8, by the replay ratio) to keep the whole script under 1000 s.
+P2E_CUTS = {"algo.learning_starts": "256 (from 1024)", "algo.total_steps": "260 (from 5000000)", "algo.replay_ratio": "0.5 (from 1; 4 gradient steps)",
             "checkpoint.every": "256 (from 100000)", "metric.log_every": "256 (from 5000)"}  # fmt: skip
-P2E_ARGS = ["exp=p2e_dv3_exploration", "env=dummy", "algo.learning_starts=256", "algo.total_steps=260", "checkpoint.every=256",
-            "metric.log_every=256", "checkpoint.save_last=True"]  # fmt: skip
-P2E_STEPS, P2E_RESUMED_FROM = 8, 4
-P2E_FT_CUTS = {"algo.learning_starts": "256 (from 16384)", "algo.total_steps": "260 (from 1000000; 8 gradient steps)",
+P2E_ARGS = ["exp=p2e_dv3_exploration", "env=dummy", "algo.learning_starts=256", "algo.total_steps=260", "algo.replay_ratio=0.5",
+            "checkpoint.every=256", "metric.log_every=256", "checkpoint.save_last=True"]  # fmt: skip
+P2E_STEPS, P2E_RESUMED_FROM = 4, 2
+P2E_FT_CUTS = {"algo.learning_starts": "256 (from 16384)", "algo.total_steps": "260 (from 1000000)", "algo.replay_ratio": "0.5 (from 1; 4 gradient steps)",
                "checkpoint.every": "0 (from 100000)", "metric.log_every": "256 (from 5000)"}  # fmt: skip
-P2E_FT_ARGS = ["exp=p2e_dv3_finetuning", "env=dummy", "algo.learning_starts=256", "algo.total_steps=260", "checkpoint.every=0",
-               "metric.log_every=256", "checkpoint.save_last=True"]  # fmt: skip
+P2E_FT_ARGS = ["exp=p2e_dv3_finetuning", "env=dummy", "algo.learning_starts=256", "algo.total_steps=260", "algo.replay_ratio=0.5",
+               "checkpoint.every=0", "metric.log_every=256", "checkpoint.save_last=True"]  # fmt: skip
 P2E_CRITIC_TAGS = tuple(f"{t}_{n}" for t in ("Loss/value_loss_exploration", "Values_exploration/predicted_values",
                                               "Values_exploration/lambda_values", "Grads/critic_exploration") for n in ("extrinsic", "intrinsic"))  # fmt: skip
 P2E_TAGS = ("Loss/world_model_loss", "Loss/ensemble_loss", "Loss/policy_loss_exploration", "Loss/policy_loss_task", "Loss/value_loss_task",
@@ -4372,7 +4400,7 @@ def phase_p2e_kernels():
 
 def phase_p2e_training(log_root):
     """(32) ``exp=p2e_dv3_exploration env=dummy`` through the CLI at XL
-    width, cut (``P2E_CUTS``) to 8 gradient steps of 64 + 30 forwards and 64
+    width, cut (``P2E_CUTS``) to 4 gradient steps of 64 + 30 forwards and 64
     backwards each, then its resume, ``eval``, and finetuning (``P2E_FT_CUTS``,
     DreamerV3's 64 + 15 forwards a step) with its ``eval`` (:func:`p2e_chain`)."""
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import DV3Agent
@@ -5022,6 +5050,422 @@ def phases_37_41(workdir):
     return {"p2e_dv1": p2e_dv1, "sac_ae": sac_ae, "sac_ae_profile": sac_ae_profile, "new_reference": new_reference, "phases_37_41_s": took}
 
 
+# The Anakin lane (phases 42-46): the batched envs on the card, the LN-GRU
+# at the lane's shapes, and exp=dreamer_v3_anakin, exp=ppo_anakin and
+# exp=sac_anakin through the CLI, each rollout one CUDA graph replay.
+ANAKIN_ENVS = ("jax_cartpole", "jax_pendulum", "jax_gridworld")
+ANAKIN_ENV_BATCH, ANAKIN_ENV_STEPS = 64, 300
+ANAKIN_ENV_TOL = {"atol": 1e-5, "rtol": 1e-5}  # f32 physics: the card's sin, cos and modulo against the CPU's
+DV3A_DEPTH, DV3A_HIDDEN = 1024, 512
+DV3A_ENVS, DV3A_BATCH, DV3A_SEQ, DV3A_HORIZON, DV3A_SUPERSTEP = 4, 8, 32, 15, 16
+DV3A_IMAGINED = DV3A_BATCH * DV3A_SEQ  # 256
+DV3A_CUTS = {"algo.total_steps": "1152 (from 100000: the 1024 prefill steps, then two supersteps of 64 with 32 gradient steps each)",
+             "metric.log_every": "512 (from 5000)"}  # fmt: skip
+DV3A_ARGS = ["exp=dreamer_v3_anakin", "algo.total_steps=1152", "metric.log_every=512"]
+DV3A_BF16_CUTS = {"fabric.precision": "bf16-mixed (from 32-true)", "algo.learning_starts": "128 (from 1024)",
+                  "algo.total_steps": "192 (from 100000: 2 prefill supersteps, then one of training)"}  # fmt: skip
+DV3A_BF16_ARGS = ["exp=dreamer_v3_anakin", "fabric.precision=bf16-mixed", "algo.learning_starts=128", "algo.total_steps=192", "metric.log_every=192"]
+# LN-GRU kernel nodes of each graph (32-true): the policy rollout's player, one a step at B = 4; a
+# gradient step's dynamic scan (B = 8, T = 32) forward and backward and 15 imagined steps at B = 256.
+DV3A_ROLLOUT_NODES = {"streaming": DV3A_SUPERSTEP, "tensor_core": 0, "backward": 0}
+DV3A_STEP_NODES = {"streaming": DV3A_SEQ + DV3A_HORIZON, "tensor_core": 0, "backward": DV3A_SEQ}
+DV3A_BF16_STEP_NODES = {"streaming": DV3A_SEQ, "tensor_core": DV3A_HORIZON, "backward": DV3A_SEQ}
+PPOA_CUTS = {"algo.total_steps": "4096 (from 65536: 8 supersteps of 128 steps x 4 envs)", "metric.log_every": "2048 (from 5000)"}
+PPOA_ARGS = ["exp=ppo_anakin", "algo.total_steps=4096", "metric.log_every=2048"]
+SACA_CUTS = {"algo.total_steps": "2048 (from 65536: 4 prefill supersteps of 64 x 4 envs, then 4 of training)", "metric.log_every": "1024 (from 5000)"}
+SACA_ARGS = ["exp=sac_anakin", "algo.total_steps=2048", "metric.log_every=1024"]
+
+
+def phase_anakin_envs():
+    """(42) Each batched env on the card against the same env on the CPU:
+    ``ANAKIN_ENV_BATCH`` envs, ``ANAKIN_ENV_STEPS`` steps of the lane's
+    step with same-step autoreset (``fused_loop.env_step_and_reset``), each
+    from the CPU's state copied to the card, with the same actions and the
+    same reset draws (made on the CPU, injected through ``reset_with``).
+    The step's outputs and the carried state, observation and episode
+    stats: integers, flags and pixels exact; f32 within ``ANAKIN_ENV_TOL``."""
+    import torch
+
+    from sheeprl_tpu_torch.core.fused_loop import env_step_and_reset
+    from sheeprl_tpu_torch.envs.anakin import make_anakin_env
+
+    dev, n = torch.device("cuda"), ANAKIN_ENV_BATCH
+    out = {}
+    for name in ANAKIN_ENVS:
+        cpu_env, card_env = make_anakin_env(name).to("cpu"), make_anakin_env(name).to(dev)
+        gen = torch.Generator().manual_seed(7)
+        state, obs = cpu_env.reset(gen, n)
+        local = {"env": state, "obs": obs, "ep_ret": torch.zeros(n), "ep_len": torch.zeros(n, dtype=torch.int32)}
+        worst, ends = 0.0, {"terminated": 0, "truncated": 0}
+
+        def same(got, want, what):
+            nonlocal worst
+            got = got.cpu()
+            if want.dtype.is_floating_point:
+                gap = (got - want).abs()
+                worst = max(worst, float(gap.max()))
+                if not bool((gap <= ANAKIN_ENV_TOL["atol"] + ANAKIN_ENV_TOL["rtol"] * want.abs()).all()):
+                    fail(f"anakin env {name}: {what} on the card differs from the CPU's by {float(gap.max())}")
+            elif not torch.equal(got, want):
+                fail(f"anakin env {name}: {what} on the card differs from the CPU's")
+
+        for t in range(ANAKIN_ENV_STEPS):
+            if name == "jax_pendulum":
+                actions = torch.rand((n, 1), generator=gen) * 5.0 - 2.5  # past the torque's bounds: clipped
+            else:
+                actions = torch.randint(0, 2 if name == "jax_cartpole" else 4, (n,), generator=gen)
+            draws = cpu_env.sample_reset(gen, n)
+            card = {k: ({j: u.to(dev) for j, u in v.items()} if isinstance(v, dict) else v.to(dev)) for k, v in local.items()}
+            (new_obs, reward, done, info), stats = env_step_and_reset(cpu_env, local, actions, lambda: cpu_env.reset_with(draws))
+            card_draws = draws.to(dev)
+            (c_obs, c_reward, c_done, c_info), c_stats = env_step_and_reset(card_env, card, actions.to(dev), lambda: card_env.reset_with(card_draws))
+            for what, got, want in (("next obs", c_obs, new_obs), ("reward", c_reward, reward), ("done", c_done, done),
+                                    ("terminated", c_info["terminated"], info["terminated"]), ("truncated", c_info["truncated"], info["truncated"]),
+                                    ("episode stats", c_stats, stats), ("carried obs", card["obs"], local["obs"]),
+                                    ("returns", card["ep_ret"], local["ep_ret"]), ("lengths", card["ep_len"], local["ep_len"]),
+                                    *((f"state {k}", card["env"][k], local["env"][k]) for k in local["env"])):  # fmt: skip
+                same(got, want, f"step {t}: {what}")
+            for k in ends:
+                ends[k] += int(info[k].sum())
+        torch.cuda.synchronize()
+        # The card's step alone, timed: E envs, a step and a reset each.
+        card_env_state, card_obs = card_env.reset(torch.Generator(device=dev).manual_seed(0), n)
+        card_gen = torch.Generator(device=dev).manual_seed(1)
+        act = torch.zeros((n, 1), device=dev) if name == "jax_pendulum" else torch.zeros(n, dtype=torch.long, device=dev)
+        step_ms = device_ms(lambda: (card_env.step(card_env_state, act), card_env.reset(card_gen, n)), reps=5, inner=20)[0]
+        out[name] = {"envs": n, "steps": ANAKIN_ENV_STEPS, "max_abs_err_f32": worst, "ends": ends, "card_step_and_reset_ms": step_ms}
+        log(f"anakin env {name}: {n} envs x {ANAKIN_ENV_STEPS} steps on the card = the CPU's (ints, flags, pixels exact; f32 max |d| {worst:.3g}); "
+            f"{ends['terminated']} terminations, {ends['truncated']} truncations; a step and a reset of all {n} on the card {step_ms * 1e3:.1f} us")
+    return out
+
+
+def phase_anakin_kernels():
+    """(43) The LN-GRU at the lane's DreamerV3-S shapes (D = 1024, H =
+    512): the streaming kernel at B = 4 (the player) and 8 (the dynamic
+    scan), f32 and bf16, and at B = 256 (the imagination) in f32, with the
+    backward at each (:func:`streaming_rows`); the tensor-core kernel at B =
+    256 in bf16 (bf16-mixed's imagination), held to the plain version and
+    timed beside it, its bound and cuBLAS's product alone."""
+    import torch
+
+    from sheeprl_tpu_torch.models.ln_gru import _aligned, _sm_count, forward_plan, ln_gru_forward, ln_gru_forward_tensor_core, ln_gru_plain
+
+    rows = streaming_rows("anakin", DV3A_DEPTH, DV3A_HIDDEN, ((DV3A_ENVS, "player"), (DV3A_BATCH, "dynamic scan")), (torch.float32, torch.bfloat16), seed=11)
+    rows += streaming_rows("anakin", DV3A_DEPTH, DV3A_HIDDEN, ((DV3A_IMAGINED, "imagination"),), (torch.float32,), seed=12)
+    args = gru_inputs(DV3A_IMAGINED, DV3A_DEPTH, DV3A_HIDDEN, torch.bfloat16, seed=13)
+    what = f"anakin ln_gru B={DV3A_IMAGINED} D={DV3A_DEPTH} H={DV3A_HIDDEN} bfloat16"
+    plan = forward_plan(DV3A_IMAGINED, DV3A_DEPTH, DV3A_HIDDEN, torch.bfloat16, _sm_count(0), _aligned(args[0], args[1], args[5]))
+    if plan.kernel != "tensor_core":
+        fail(f"{what}: forward_plan picks {plan.kernel}")
+    errs = check_forward(ln_gru_forward, args, what)
+    errs_tc = check_forward(ln_gru_forward_tensor_core, args, f"{what} (tensor-core entry point)")
+    kernel = timed(rotated(args, ln_gru_forward))
+    plain_ms = device_ms(rotated(args, ln_gru_plain))[0]
+    product_ms = device_ms(rotated(args[:2], torch.matmul))[0]
+    check_one_launch(what, kernel_split_ms(rotated(args, ln_gru_forward)))
+    bound_ms, bound_by = gru_bound(DV3A_IMAGINED, DV3A_DEPTH, DV3A_HIDDEN, "bfloat16")
+    tc = {"shape": f"B={DV3A_IMAGINED} D={DV3A_DEPTH} H={DV3A_HIDDEN}", "batch": DV3A_IMAGINED, "dtype": "bfloat16", "kernel": plan.kernel,
+          **errs, "tensor_core_entry_point": errs_tc, **kernel, "plain_ms": plain_ms, "product_library_ms": product_ms, "bound_ms": bound_ms,
+          "bound_by": bound_by}  # fmt: skip
+    log(f"{what} (imagination, bf16-mixed): tensor cores {kernel['ms'] * 1e3:.2f} us [{kernel['ms_min'] * 1e3:.2f}, {kernel['ms_max'] * 1e3:.2f}], "
+        f"plain {plain_ms * 1e3:.2f} us, product alone {product_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us ({bound_by}), "
+        f"max|dh| {errs['max_abs_err_h']:.3g}")  # fmt: skip
+    del args
+    torch.cuda.empty_cache()
+    return {"streaming": rows, "tensor_core": tc}
+
+
+def _lean_gaps(a, b):
+    """:func:`_gaps` that converts a tensor to compute its max |a - b| only
+    where the two differ (a 1.2 GB ring in f64 would take 10 GB)."""
+    out = {}
+    for group in a:
+        same = [torch_equal_bits(x, y) for x, y in zip(a[group], b[group])]
+        diffs = [0.0 if e else (x.float() - y.float()).abs().max().item() for e, x, y in zip(same, a[group], b[group])]
+        out[group] = {"max_abs": max(diffs, default=0.0), "bit_for_bit": all(same)}
+    return out
+
+
+def _graph_vs_eager(what, rollouts, key):
+    """A rollout's graph against its eager run from one snapshot of what it
+    writes (``Rollouts.written``: the carry, the ring; PPO's parameters and
+    Adam states) and of its generators: two eager runs and one replay, every
+    tensor and the rollout's output bit for bit, or within the two eager
+    runs' difference. Returns the gaps and the graph's nodes."""
+    import torch
+
+    step = rollouts.graphs[key]
+    if step.graph is None:
+        fail(f"{what}: the rollout {key} was never captured ({step.warmup_calls} eager calls)")
+    tensors, gens = rollouts.written(), rollouts.generators
+    torch.cuda.synchronize()
+    snap = [t.clone() for t in tensors], [g.get_state() for g in gens]
+
+    def restore():
+        with torch.no_grad():
+            for t, s in zip(tensors, snap[0]):
+                t.copy_(s)
+        for g, s in zip(gens, snap[1]):
+            g.set_state(s)
+
+    def result(output):
+        torch.cuda.synchronize()
+        return {"written": [t.clone() for t in tensors], "output": [output.clone()]}
+
+    def eagerly():
+        with rollouts.around():
+            return step.fn()
+
+    restore()
+    eager_a = result(eagerly())
+    restore()
+    eager_b = result(eagerly())
+    restore()
+    step.graph.replay()
+    graph = result(step.output)
+    eager_gap, graph_gap = _lean_gaps(eager_a, eager_b), _lean_gaps(eager_a, graph)
+    for group, gap in graph_gap.items():
+        allowed = 0.0 if eager_gap[group]["bit_for_bit"] else eager_gap[group]["max_abs"]
+        if not gap["bit_for_bit"] and gap["max_abs"] > allowed:
+            differing = [(i, tuple(x.shape), str(x.dtype).split(".")[-1], (x.float() - y.float()).abs().max().item(), x.float().abs().max().item(),
+                          y.float().abs().max().item()) for i, (x, y) in enumerate(zip(eager_a[group], graph[group])) if not torch_equal_bits(x, y)]  # fmt: skip
+            fail(f"{what}: the graph's {group} differ from the eager run's by {gap['max_abs']} (two eager runs: {eager_gap[group]}); "
+                 f"tensors differing (index, shape, dtype, max |d|, max |eager|, max |graph|): {differing[:12]} of {len(eager_a[group])}")  # fmt: skip
+    nodes = {"nodes": step.nodes["nodes"], "by_type": step.nodes["by_type"], "ln_gru": step.nodes["ln_gru"]}
+    log(f"{what}: rollout {key} replayed against its eager run from one snapshot ({len(tensors)} tensors written): eager vs eager "
+        f"{json.dumps(eager_gap)}; graph vs eager {json.dumps(graph_gap)}; graph nodes {json.dumps(nodes)}")  # fmt: skip
+    return {"eager_vs_eager": eager_gap, "graph_vs_eager": graph_gap, "graph": nodes}
+
+
+def _cuts_text(args, cuts):
+    return f"{' '.join(args)} (cut: {json.dumps(cuts)})"
+
+
+def _check_counts(what, counts, expect_none=False):
+    if expect_none and (counts["forward"] or counts["backward"]):
+        fail(f"{what}: LN-GRU launches {counts}")
+
+
+def _steady_env_steps_per_s(stamps, steps_between):
+    """Env steps/s between the first and the last callback of a run (the
+    first superstep, with its capture, falls before the first stamp)."""
+    if len(stamps) < 2:
+        return None
+    return steps_between * (len(stamps) - 1) / (stamps[-1] - stamps[0])
+
+
+def phase_dv3_anakin(workdir):
+    """(44) ``exp=dreamer_v3_anakin`` through the CLI at the recipe's widths
+    (DreamerV3-S, 64x64x3 pixels, 4 envs, batch 8 x 32, horizon 15, 32-true,
+    the 100000-row ring on the card), cut as ``DV3A_CUTS``: the prefill in
+    16 supersteps, then two training supersteps. Counts zeroed before, read
+    after; every gradient step's metrics finite; the graphs' LN-GRU nodes
+    (``DV3A_ROLLOUT_NODES`` a policy rollout, ``DV3A_STEP_NODES`` a gradient
+    step); both rollouts' graphs against their eager runs; one superstep
+    (a rollout replay and 32 gradient steps) and one rollout alone timed and
+    profiled. Then a resume (one more superstep, ``algo.learning_starts=0``)
+    and ``eval``; then bf16-mixed (``DV3A_BF16_CUTS``): the tensor-core
+    kernel at B = 256 in the lane."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.cli import run
+
+    what = "dreamer_v3_anakin"
+    common = [f"log_root={workdir}"]
+    steps = []
+
+    def on_step(agent, step, tau, metrics):
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v).all()]
+        if bad:
+            fail(f"{what}: non-finite metrics at gradient step {step}: {bad}")
+        steps.append(step)
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = run([*DV3A_ARGS, *common], callback=on_step)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = read_counts()
+    stats, rollout = out["run_stats"], out["rollout"]["graphs"]
+    if out["policy_steps"] != 1152 or out["gradient_steps"] != 66 or len(steps) != 66 or stats["supersteps"] != 18:
+        fail(f"{what}: {out['policy_steps']} policy steps, {out['gradient_steps']} gradient steps, {stats}")
+    if set(rollout) != {"c16_r1", "c16_r0"} or rollout["c16_r1"]["replays"] != 15 or rollout["c16_r0"]["replays"] != 1:
+        fail(f"{what}: rollout graphs {rollout}")
+    policy_nodes, step_nodes = rollout["c16_r0"]["graph"]["ln_gru"], out["fused"]["graph"]["ln_gru"]
+    if policy_nodes != DV3A_ROLLOUT_NODES or step_nodes != DV3A_STEP_NODES or any(rollout["c16_r1"]["graph"]["ln_gru"].values()):
+        fail(f"{what}: LN-GRU nodes: policy rollout {policy_nodes}, random rollout {rollout['c16_r1']['graph']['ln_gru']}, gradient step {step_nodes}")
+    # The policy rollout's eager call and capture; the train step's 3 eager calls and capture (B = 1: the test episode's player).
+    want_fwd = {DV3A_ENVS: 2 * DV3A_SUPERSTEP, DV3A_BATCH: 4 * DV3A_SEQ, DV3A_IMAGINED: 4 * DV3A_HORIZON}
+    got_fwd = {b: n for b, n in counts["forward_by_batch"].items() if b != 1}
+    if got_fwd != want_fwd or counts["backward_by_batch"] != {DV3A_BATCH: 4 * DV3A_SEQ} or counts["tensor_core"]:
+        fail(f"{what}: LN-GRU launches {counts}, expected forwards by batch {want_fwd} and backwards {{8: {4 * DV3A_SEQ}}}")
+    ring_bytes = out["device_buffer"]["bytes"]
+    log(f"{what}: {_cuts_text(DV3A_ARGS, DV3A_CUTS)}; {out['policy_steps']} policy steps, {out['gradient_steps']} gradient steps in "
+        f"{stats['supersteps']} supersteps, {wall_s:.1f} s; rollouts {json.dumps({k: {'warmup': v['warmup_calls'], 'replays': v['replays']} for k, v in rollout.items()})}, "
+        f"train step {out['fused']['warmup_steps']} eager + {out['fused']['replays']} replays; ring {ring_bytes / 1e9:.3f} GB on the card; LN-GRU launches "
+        f"(the eager calls and the captures) {json.dumps(counts)}; graph nodes: policy rollout {json.dumps(rollout['c16_r0']['graph']['by_type'])} with "
+        f"LN-GRU {json.dumps(policy_nodes)} ({DV3A_SUPERSTEP} streaming at B = {DV3A_ENVS}: one a step), random rollout "
+        f"{json.dumps(rollout['c16_r1']['graph']['by_type'])}, gradient step {json.dumps(out['fused']['graph']['by_type'])} with LN-GRU {json.dumps(step_nodes)}")  # fmt: skip
+    graphs = {key: _graph_vs_eager(f"{what} graph vs eager", out["rollouts"], key) for key in ((16, True), (16, False))}
+
+    # One superstep (the policy rollout's replay, then its 32 gradient steps' replays), and the rollout alone.
+    rollouts, fused, ring = out["rollouts"], out["train_step"], out["ring"]
+    moments = [out["moments"]]
+    taus = np.zeros(2 * DV3A_SUPERSTEP, np.float32)
+
+    def superstep():
+        rollouts(DV3A_SUPERSTEP, False)
+        moments[0] = fused(moments[0], ring.state, taus)[0]
+
+    zero_counts()
+    profile = _timed_per_step(superstep, 1)
+    rollout_profile = _timed_per_step(lambda: rollouts(DV3A_SUPERSTEP, False), 1)
+    if any(read_counts()[k] for k in ("forward", "backward")):
+        fail(f"{what}: replays counted LN-GRU launches {read_counts()}")
+    env_steps = DV3A_SUPERSTEP * DV3A_ENVS
+    profile["env_steps_per_s"] = env_steps * 1e3 / profile["host_wall_ms_per_step"]
+    rollout_profile["env_steps_per_s"] = env_steps * 1e3 / rollout_profile["host_wall_ms_per_step"]
+    for name, p in (("superstep (1 rollout replay + 32 gradient-step replays)", profile), ("rollout alone (16 steps x 4 envs)", rollout_profile)):
+        log(f"{what}: {name}: host wall {p['host_wall_ms_per_step']:.3f} ms, device busy {p['device_busy_ms_per_step']:.3f} ms, idle "
+            f"{p['idle_share']:.3f}, {p['device_ops_per_step']:.0f} device operations, peak {p['peak_gib']:.3f} GiB, {p['env_steps_per_s']:.1f} env steps/s")
+    ckpt, test_reward = out["checkpoints"][-1], out["test_reward"]
+    del rollouts, fused, ring, out, moments, superstep
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Eval in a process of its own while the run resumes (neither is timed).
+    started = start_eval(ckpt)
+    zero_counts()
+    # Without the ring in the checkpoint the resumed run waits learning_starts (0 here) from its
+    # start, and the restored Ratio trains again in the second superstep, as the host lane does.
+    resumed = run([*DV3A_ARGS[:1], "algo.total_steps=1280", "algo.learning_starts=0", f"checkpoint.resume_from={ckpt}", *common])
+    if resumed["policy_steps"] != 1280 or resumed["gradient_steps"] <= 66:
+        fail(f"{what}: resumed to {resumed['policy_steps']} policy steps and {resumed['gradient_steps']} gradient steps, expected 1280 and more than 66")
+    resume = {"from": ckpt, "policy_steps": resumed["policy_steps"], "gradient_steps": resumed["gradient_steps"], "run_stats": resumed["run_stats"]}
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    evaluation = finish_eval(started, test_reward, f"{what} eval")
+
+    # bf16-mixed: the tensor-core kernel at B = 256 in the lane.
+    zero_counts()
+    bf16 = run([*DV3A_BF16_ARGS, *common])
+    bf16_counts = read_counts()
+    bf16_nodes = bf16["fused"]["graph"]["ln_gru"]
+    if bf16_counts["tensor_core"] != 4 * DV3A_HORIZON or bf16_counts["forward_by_batch"].get(DV3A_IMAGINED) != 4 * DV3A_HORIZON or bf16_nodes != DV3A_BF16_STEP_NODES:
+        fail(f"{what} bf16-mixed: LN-GRU launches {bf16_counts}, gradient step nodes {bf16_nodes}, expected {4 * DV3A_HORIZON} tensor-core launches "
+             f"at B = {DV3A_IMAGINED} and nodes {DV3A_BF16_STEP_NODES}")  # fmt: skip
+    log(f"{what} bf16-mixed: {_cuts_text(DV3A_BF16_ARGS, DV3A_BF16_CUTS)}; {bf16['gradient_steps']} gradient steps; LN-GRU launches "
+        f"{json.dumps(bf16_counts)}; gradient step graph LN-GRU nodes {json.dumps(bf16_nodes)}")  # fmt: skip
+    bf16_out = {"gradient_steps": bf16["gradient_steps"], "ln_gru_launches": bf16_counts, "graph_ln_gru": bf16_nodes, "run_stats": bf16["run_stats"]}
+    shutil.rmtree(bf16["log_dir"], ignore_errors=True)
+    del bf16
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"cuts": DV3A_CUTS, "wall_s": wall_s, "run_stats": stats, "rollouts": rollout, "train_step_graph": step_nodes, "ln_gru_launches": counts,
+            "ring_bytes": ring_bytes, "graph_vs_eager": {f"c{k[0]}_r{int(k[1])}": v for k, v in graphs.items()}, "superstep_profile": profile,
+            "rollout_profile": rollout_profile, "resume": resume, "evaluation": evaluation, "bf16_mixed": bf16_out,
+            "replays_per_superstep": {"rollout": 1, "train": 2 * DV3A_SUPERSTEP}}  # fmt: skip
+
+
+def _lane_run(args, what, log_root, fused):
+    """One run of an anakin exp through the CLI on one lane, with a
+    timestamp at every callback (a PPO update, a SAC train call)."""
+    import torch
+
+    from sheeprl_tpu_torch.cli import run
+
+    stamps = []
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    out = run([*args, f"algo.fused_rollout={fused}", f"log_root={log_root}"], callback=lambda *a: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    _check_counts(what, read_counts(), expect_none=True)
+    return out, stamps, wall_s
+
+
+def phase_onpolicy_offpolicy_anakin(workdir):
+    """(45, 46) ``exp=ppo_anakin`` and ``exp=sac_anakin`` through the CLI at
+    the recipes' widths (``PPOA_CUTS``, ``SACA_CUTS``) on the fused lane and
+    on the host lane (``algo.fused_rollout=false``) on the same env, recipe
+    and steps: graph replays per superstep (PPO: 1, its update inside; SAC:
+    1 rollout and a replay per gradient step), env steps/s of both lanes
+    between their first and last callbacks (PPO: updates; SAC: train
+    calls), no LN-GRU launch; each fused rollout graph against its eager
+    run; the fused run resumed one superstep further and evaluated."""
+    import torch
+
+    from sheeprl_tpu_torch.cli import run
+
+    results = {}
+    for algo, args, cuts in (("ppo", PPOA_ARGS, PPOA_CUTS), ("sac", SACA_ARGS, SACA_CUTS)):
+        what = f"{algo}_anakin"
+        fused, f_stamps, f_wall = _lane_run(args, what, workdir, True)
+        host, h_stamps, h_wall = _lane_run(args, f"{what} host lane", workdir, False)
+        stats, rollout = fused["run_stats"], fused["rollout"]["graphs"]
+        if algo == "ppo":
+            T, E = 128, 4
+            per_callback_fused = per_callback_host = T * E
+            if not fused["updates"] == host["updates"] == 8 or stats["rollout_replays"] != 7 or rollout["c128_r0"]["graph"] is None:
+                fail(f"{what}: {fused['updates']} and {host['updates']} updates, {stats}, {rollout}")
+            replays = {"rollout_with_update": 1}
+            keys = ((T, False),)
+        else:
+            E, chunk = 4, 64
+            per_callback_fused, per_callback_host = chunk * E, E
+            if fused["gradient_steps"] != host["gradient_steps"] or stats["supersteps"] != 8 or set(rollout) != {"c64_r1", "c64_r0"}:
+                fail(f"{what}: {fused['gradient_steps']} and {host['gradient_steps']} gradient steps, {stats}, {rollout}")
+            replays = {"rollout": 1, "train_per_gradient_step": 1, "train_per_steady_superstep": chunk * E}
+            keys = ((chunk, True), (chunk, False))
+        for k, v in rollout.items():
+            if v["graph"] is None or any(v["graph"]["ln_gru"].values()):
+                fail(f"{what}: rollout {k} graph {v['graph']}")
+        graphs = {f"c{k[0]}_r{int(k[1])}": _graph_vs_eager(f"{what} graph vs eager", fused["rollouts"], k) for k in keys}
+        fused_sps, host_sps = _steady_env_steps_per_s(f_stamps, per_callback_fused), _steady_env_steps_per_s(h_stamps, per_callback_host)
+        whole = (fused["policy_steps"] / f_wall, host["policy_steps"] / h_wall)
+        log(f"{what}: {_cuts_text(args, cuts)}; fused lane {fused['policy_steps']} policy steps in {f_wall:.1f} s, run stats "
+            f"{json.dumps(stats)}, rollouts {json.dumps({k: {'warmup': v['warmup_calls'], 'replays': v['replays'], 'nodes': v['graph']['nodes']} for k, v in rollout.items()})}; "
+            f"graph replays per superstep {json.dumps(replays)}; env steps/s between the first and last callbacks: fused {fused_sps:.1f}, host lane "
+            f"{host_sps:.1f} (fused/host {fused_sps / host_sps:.2f}); whole runs {whole[0]:.1f} and {whole[1]:.1f} (set-up, captures and test episode included)")  # fmt: skip
+        ckpt, test_reward = fused["checkpoints"][-1], fused["test_reward"]
+        total = int(args[1].split("=")[1]) + per_callback_fused
+        shutil.rmtree(host["log_dir"], ignore_errors=True)
+        del fused, host
+        gc.collect()
+        torch.cuda.empty_cache()
+        starts = ["algo.learning_starts=0"] if algo == "sac" else []
+        started = start_eval(ckpt)  # in a process of its own while the run resumes
+        resumed = run([args[0], f"algo.total_steps={total}", *starts, f"checkpoint.resume_from={ckpt}", f"log_root={workdir}"])
+        if resumed["policy_steps"] != total:
+            fail(f"{what}: resumed to {resumed['policy_steps']} policy steps, expected {total}")
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+        evaluation = finish_eval(started, test_reward, f"{what} eval")
+        results[algo] = {"cuts": cuts, "run_stats": stats, "rollouts": {k: {kk: vv for kk, vv in v.items()} for k, v in rollout.items()},
+                         "graph_replays_per_superstep": replays, "graph_vs_eager": graphs, "env_steps_per_s": {"fused": fused_sps, "host": host_sps},
+                         "fused_vs_host": fused_sps / host_sps, "whole_run_env_steps_per_s": {"fused": whole[0], "host": whole[1]},
+                         "wall_s": {"fused": f_wall, "host": h_wall}, "resumed_to": total, "evaluation": evaluation}  # fmt: skip
+    return results
+
+
+def phases_42_46(workdir):
+    """Phases 42-46 (they run alone too, after ``kernels.build()``)."""
+    t0 = time.perf_counter()
+    envs = phase_anakin_envs()
+    kernel_rows = phase_anakin_kernels()
+    dv3 = phase_dv3_anakin(workdir)
+    lanes = phase_onpolicy_offpolicy_anakin(workdir)
+    took = time.perf_counter() - t0
+    log(f"anakin lane: phases 42-46 took {took:.1f} s")
+    return {"anakin_envs": envs, "anakin_kernels": kernel_rows, "dv3_anakin": dv3, "ppo_anakin": lanes["ppo"], "sac_anakin": lanes["sac"],
+            "phases_42_46_s": took}  # fmt: skip
+
+
 def main() -> None:
     import warnings
 
@@ -5126,6 +5570,7 @@ def main() -> None:
         p2e_phases_s = time.perf_counter() - p2e_t0
         log(f"p2e_dv3, p2e_dv2: phases 31-36 took {p2e_phases_s:.1f} s")
         last_trainers = phases_37_41(workdir)
+        anakin = phases_42_46(workdir)
         replay_sample = phase_replay_sample()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -5158,7 +5603,10 @@ def main() -> None:
                 "launches_a2c": a2c["training"]["ln_gru_launches"][kind],
                 "launches_ppo_recurrent": ppo_recurrent["training"]["ln_gru_launches"][kind],
                 "launches_p2e_dv1": last_trainers["p2e_dv1"]["ln_gru_launches"][kind],
-                "launches_sac_ae": last_trainers["sac_ae"]["host"]["ln_gru_launches"][kind]}  # fmt: skip
+                "launches_sac_ae": last_trainers["sac_ae"]["host"]["ln_gru_launches"][kind],
+                "launches_dv3_anakin": anakin["dv3_anakin"]["ln_gru_launches"][kind],
+                "launches_dv3_anakin_bf16": anakin["dv3_anakin"]["bf16_mixed"]["ln_gru_launches"][kind],
+                "launches_ppo_anakin": 0, "launches_sac_anakin": 0}  # fmt: skip
 
     def in_graph(kernel):
         """The kernel's nodes in the captured step's graph, and its launches
@@ -5221,6 +5669,45 @@ def main() -> None:
         p2e_entry(p2e_kernels, p2e_training, P2E_ENVS, "forward", "P2E-DV3 XL", 1, pallas, per="policy iteration"),
         p2e_entry(p2e_dv2_kernels, p2e_dv2, P2E_ENVS, "forward", "P2E-DV2", 1, plain, per="policy iteration"),
     ]
+    def anakin_entry(batch, dtype, kind, per, where):
+        """A kernel's entry at the Anakin lane's DreamerV3-S shapes: the
+        32-true run's launches for f32, the bf16-mixed run's for bf16."""
+        dv3a = anakin["dv3_anakin"]
+        counts = dv3a["ln_gru_launches"] if dtype == "float32" else dv3a["bf16_mixed"]["ln_gru_launches"]
+        if kind == "tensor_core":
+            row = anakin["anakin_kernels"]["tensor_core"]
+            out = entry("ln_gru_forward_tensor_core", "sheeprl_tpu_torch/csrc/ln_gru_tc.cu", "sheeprl_tpu/models/pallas_gru.py:118",
+                        f"{row['shape']} bfloat16, tensor-core kernel (DreamerV3-S Anakin lane {where}, bf16-mixed; {per})", counts["tensor_core"], row,
+                        max(row["max_abs_err_h"], row["max_abs_err_z"]))  # fmt: skip
+            return out | {"product_library_ms": row["product_library_ms"]}
+        row = next(r for r in anakin["anakin_kernels"]["streaming"] if r["batch"] == batch and r["dtype"] == dtype)
+        if kind == "forward":
+            part = row["forward"]
+            out = entry("ln_gru_forward", "sheeprl_tpu_torch/csrc/ln_gru.cu", "sheeprl_tpu/models/pallas_gru.py:118",
+                        f"{row['shape']} {dtype}, streaming kernel (DreamerV3-S Anakin lane {where}; {per})", counts["forward_by_batch"].get(batch, 0), part,
+                        max(part["max_abs_err_h"], part["max_abs_err_z"]))  # fmt: skip
+            return out | {"product_library_ms": part["product_library_ms"]}
+        part = row["backward"]
+        return entry("ln_gru_backward", "sheeprl_tpu_torch/csrc/ln_gru_bwd.cu", "sheeprl_tpu/models/pallas_gru.py:172",
+                     f"B={batch} H={DV3A_HIDDEN} {dtype} (DreamerV3-S Anakin lane {where}; {per})", counts["backward_by_batch"].get(batch, 0), part,
+                     max(part["max_abs_err"].values()))  # fmt: skip
+
+    per_rollout = f"{DV3A_SUPERSTEP} launches per rollout superstep, one an env step, inside the rollout's graph"
+    per_step = f"{DV3A_SEQ} launches per gradient step"
+    per_imagined = f"{DV3A_HORIZON} launches per gradient step"
+    anakin_entries = [
+        anakin_entry(DV3A_ENVS, "float32", "forward", per_rollout, "player"),
+        anakin_entry(DV3A_ENVS, "bfloat16", "forward", per_rollout, "player"),
+        anakin_entry(DV3A_BATCH, "float32", "forward", per_step, "dynamic scan"),
+        anakin_entry(DV3A_BATCH, "bfloat16", "forward", per_step, "dynamic scan"),
+        anakin_entry(DV3A_IMAGINED, "float32", "forward", per_imagined, "imagination"),
+        anakin_entry(DV3A_IMAGINED, "bfloat16", "tensor_core", per_imagined, "imagination"),
+        anakin_entry(DV3A_BATCH, "float32", "backward", per_step, "dynamic scan"),
+        anakin_entry(DV3A_BATCH, "bfloat16", "backward", per_step, "dynamic scan"),
+    ]
+    dv3a = anakin["dv3_anakin"]
+    anakin_entries[0] |= {"graph_nodes_per_rollout": dv3a["rollouts"]["c16_r0"]["graph"]["ln_gru"]["streaming"],
+                          "launches_by_rollout_replays": dv3a["rollouts"]["c16_r0"]["graph"]["ln_gru"]["streaming"] * dv3a["rollouts"]["c16_r0"]["replays"]}
     kernels_line = {
         "kernels": [
             entry("ln_gru_forward", "sheeprl_tpu_torch/csrc/ln_gru.cu", "sheeprl_tpu/models/pallas_gru.py:118",
@@ -5245,6 +5732,7 @@ def main() -> None:
             | {"in_step_ms": bwd1024_in_step_ms},
             *dv2_entries,
             *p2e_entries,
+            *anakin_entries,
         ]
     }  # fmt: skip
     report = {
@@ -5307,6 +5795,7 @@ def main() -> None:
         "p2e_dv2": p2e_dv2,
         "p2e_phases_s": p2e_phases_s,
         **last_trainers,
+        **anakin,
         "kernels": kernels_line["kernels"],
         "phase_s": phase_s,
     }

@@ -53,7 +53,7 @@ from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, EpisodeBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.data.infeed import ReplayInfeed
-from sheeprl_tpu_torch.envs.dummy import dummy_env_kwargs, make_dummy_vector_env
+from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Discrete
@@ -392,8 +392,7 @@ def run_dreamer(
     holds, for every log point, the policy and gradient steps and the values
     logged there; ``buffer`` the replay buffer."""
     device = resolve_device(cfg.device)
-    if cfg.env_group != "dummy":
-        raise ValueError(f"env={cfg.env_group} is not ported; the port trains on env=dummy")
+    check_env_group(cfg)
     # These cannot be changed (the JAX main sets them, as the reference does).
     cfg.env.screen_size = 64
     cfg.env.frame_stack = 1
@@ -412,7 +411,7 @@ def run_dreamer(
     print(f"Log dir: {log_dir}", flush=True)
 
     num_envs = int(cfg.env.num_envs)
-    envs = make_dummy_vector_env(num_envs, cfg.seed, **dummy_env_kwargs(cfg))
+    envs = make_vector_env(cfg)
     observation_space, action_space = envs.single_observation_space, envs.single_action_space
     actions_dim, is_continuous = actions_metadata(action_space)
     n_actions = int(np.sum(actions_dim))

@@ -35,9 +35,9 @@ until a log point reads them back in one transfer. With ``buffer.device``
 the rows are mirrored into a replay ring in device memory and the gradient
 steps run through :func:`make_fused_train_step` (on CUDA a captured graph
 that samples the ring); with ``buffer.prefetch`` the host path's batches are
-copied to the device by the infeed's worker while the envs step. Not ported
-yet (ROADMAP): the Anakin lane, the interaction pipeline, telemetry, health
-probes and the preemption guard.
+copied to the device by the infeed's worker while the envs step. The Anakin
+lane is ``core/fused_loop.py``'s. Not ported yet (ROADMAP): the interaction
+pipeline, telemetry, health probes and the preemption guard.
 """
 
 from __future__ import annotations
@@ -68,7 +68,7 @@ from sheeprl_tpu_torch.core.graphs import CapturedStep, RingHolder, power_of_two
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
 from sheeprl_tpu_torch.data.infeed import ReplayInfeed
-from sheeprl_tpu_torch.envs.dummy import dummy_env_kwargs, make_dummy_vector_env
+from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Discrete
@@ -569,7 +569,14 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
     the policy and gradient steps and the values logged there;
     ``device_buffer`` the ring's state (None without ``buffer.device``);
     ``fused`` the fused path's gradient steps, warm-up steps, replays and
-    graph nodes (None when it never ran); ``infeed`` its hits and misses."""
+    graph nodes (None when it never ran); ``infeed`` its hits and misses.
+
+    With ``env.jax_native`` and ``algo.fused_rollout`` the run takes the
+    Anakin lane (:func:`sheeprl_tpu_torch.core.fused_loop.dreamer_v3_fused_main`)."""
+    from sheeprl_tpu_torch.core import fused_loop
+
+    if fused_loop.fused_enabled(cfg):
+        return fused_loop.dreamer_v3_fused_main(cfg, callback)
     return run_dreamer_v3(cfg, _build_dv3, callback)
 
 
@@ -586,8 +593,7 @@ def run_dreamer_v3(
     device = resolve_device(cfg.device)
     if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
         raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
-    if cfg.env_group != "dummy":
-        raise ValueError(f"env={cfg.env_group} is not ported; the port trains on env=dummy")
+    check_env_group(cfg)
     for kind in ("cnn_keys", "mlp_keys"):
         enc, dec = set(cfg.algo[kind].encoder), set(cfg.algo[kind].decoder)
         if dec - enc:
@@ -607,7 +613,7 @@ def run_dreamer_v3(
     print(f"Log dir: {log_dir}", flush=True)
 
     num_envs = int(cfg.env.num_envs)
-    envs = make_dummy_vector_env(num_envs, cfg.seed, **dummy_env_kwargs(cfg))
+    envs = make_vector_env(cfg)
     observation_space, action_space = envs.single_observation_space, envs.single_action_space
     actions_dim, is_continuous = actions_metadata(action_space)
     clip_rewards_fn = np.tanh if cfg.env.clip_rewards else (lambda r: r)

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from sheeprl_tpu_torch.envs.dummy import make_test_env
+from sheeprl_tpu_torch.envs.make import make_test_env
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
 from sheeprl_tpu_torch.utils.utils import normalize_obs, prepare_obs
 

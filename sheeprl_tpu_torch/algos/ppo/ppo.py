@@ -20,8 +20,9 @@ entropy coefficients decay linearly over the run with ``anneal_lr``,
 ``anneal_clip_coef`` and ``anneal_ent_coef`` (the learning rate on the
 optimizer's param group); ``max_grad_norm`` > 0 clips the gradients' global
 norm before Adam. The tags and log points, the checkpoints and their resume,
-and the greedy test episode at the end are the JAX package's. Not ported yet
-(ROADMAP): the Anakin lane, the interaction pipeline and player placement,
+and the greedy test episode at the end are the JAX package's. The Anakin
+lane is ``core/fused_loop.py``'s. Not ported yet
+(ROADMAP): the interaction pipeline and player placement,
 telemetry, health probes, the preemption guard and the watchdog.
 
 The rollout step, GAE and the update run under
@@ -61,6 +62,17 @@ def minibatch_indices(n: int, minibatch_size: int, epochs: int, generator: torch
     num_mb = max(1, -(-n // minibatch_size))
     wrap = torch.arange(num_mb * minibatch_size, device=generator.device) % n
     perms = torch.stack([torch.randperm(n, generator=generator, device=generator.device) for _ in range(epochs)])
+    return perms[:, wrap].reshape(epochs, num_mb, minibatch_size)
+
+
+def graph_minibatch_indices(n: int, minibatch_size: int, epochs: int, generator: torch.Generator) -> torch.Tensor:
+    """:func:`minibatch_indices` as a CUDA graph can hold it: each epoch's
+    permutation is the (stable) argsort of ``n`` uniform draws from
+    ``generator``, where ``randperm`` on the card may not be captured (the
+    Anakin lane's update, ``core/fused_loop.py``)."""
+    num_mb = max(1, -(-n // minibatch_size))
+    wrap = torch.arange(num_mb * minibatch_size, device=generator.device) % n
+    perms = torch.rand((epochs, n), generator=generator, device=generator.device).argsort(dim=-1, stable=True)
     return perms[:, wrap].reshape(epochs, num_mb, minibatch_size)
 
 
@@ -155,7 +167,14 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
 
     Returns {"agent", "optimizer", "policy_steps", "updates", "log",
     "log_dir", "checkpoints", "test_reward"}: ``log`` holds, for every log
-    point, the policy step and the values logged there."""
+    point, the policy step and the values logged there.
+
+    With ``env.jax_native`` and ``algo.fused_rollout`` the run takes the
+    Anakin lane (:func:`sheeprl_tpu_torch.core.fused_loop.ppo_fused_main`)."""
+    from sheeprl_tpu_torch.core import fused_loop
+
+    if fused_loop.fused_enabled(cfg):
+        return fused_loop.ppo_fused_main(cfg, callback)
     run = open_run(cfg, build_agent, encoder_keys, METRIC_KEYS)
     cfg, device, agent, optimizer, envs, rb, log_points = run.cfg, run.device, run.agent, run.optimizer, run.envs, run.rb, run.log_points
     cnn_keys, obs_keys, is_continuous, aggregator = run.cnn_keys, run.obs_keys, run.is_continuous, run.aggregator

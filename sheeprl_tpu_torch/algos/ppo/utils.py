@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from sheeprl_tpu_torch.envs.dummy import make_test_env
+from sheeprl_tpu_torch.envs.make import make_test_env
 from sheeprl_tpu_torch.utils.utils import prepare_obs
 
 AGGREGATOR_KEYS = {"Rewards/rew_avg", "Game/ep_len_avg", "Loss/value_loss", "Loss/policy_loss", "Loss/entropy_loss"}

@@ -29,9 +29,9 @@ ring path in power-of-two buckets of at most ``algo.fused_train_steps``, the
 JAX package's tags every ``metric.log_every`` policy steps, checkpoints with
 the buffer-tail truncation, resume and the greedy test episode. A resumed
 run restores the gradient-step count, the envs and both noise sources and
-trains at once, so it is the uninterrupted run step for step. Not ported
-yet (ROADMAP): the Anakin lane (``sac_fused_main``), the interaction
-pipeline, player placement, telemetry, health probes and the preemption
+trains at once, so it is the uninterrupted run step for step. The Anakin
+lane is ``core/fused_loop.py``'s ``sac_fused_main``. Not ported yet
+(ROADMAP): the interaction pipeline, player placement, telemetry, health probes and the preemption
 guard.
 
 The gradient step runs under a ``torch.profiler.record_function`` span
@@ -56,7 +56,7 @@ from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.core.graphs import CapturedStep, RingHolder, power_of_two_buckets
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
-from sheeprl_tpu_torch.envs.dummy import dummy_env_kwargs, make_dummy_vector_env
+from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
@@ -326,8 +326,7 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
     ``fused`` holds the ring path's gradient steps, warm-up steps, replays
     and graph nodes (None when it never ran)."""
     device = resolve_device(cfg.device)
-    if cfg.env_group != "dummy":
-        raise ValueError(f"env={cfg.env_group} is not ported; the port trains on env=dummy")
+    check_env_group(cfg)
     state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
     np.random.seed(cfg.seed)  # the replay buffer derives its sampling stream from it
     timer.reset()
@@ -339,7 +338,7 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
     print(f"Log dir: {log_dir}", flush=True)
 
     num_envs = int(cfg.env.num_envs)
-    envs = make_dummy_vector_env(num_envs, cfg.seed, **dummy_env_kwargs(cfg))
+    envs = make_vector_env(cfg)
     observation_space, action_space = envs.single_observation_space, envs.single_action_space
     if not isinstance(action_space, Box):
         raise ValueError(f"Only continuous action space is supported for the {algo.name} agent")
@@ -540,5 +539,11 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
 
 @register_algorithm()
 def main(cfg, callback: Optional[Callable[[SACAgent, int, List[Metrics]], None]] = None) -> Dict[str, Any]:
-    """Train SAC on ``cfg`` on ``cfg.device`` (:func:`run_off_policy`)."""
+    """Train SAC on ``cfg`` on ``cfg.device`` (:func:`run_off_policy`; with
+    ``env.jax_native`` and ``algo.fused_rollout`` the Anakin lane,
+    :func:`sheeprl_tpu_torch.core.fused_loop.sac_fused_main`)."""
+    from sheeprl_tpu_torch.core import fused_loop
+
+    if fused_loop.fused_enabled(cfg):
+        return fused_loop.sac_fused_main(cfg, callback)
     return run_off_policy(cfg, callback, OffPolicyAlgo("SAC", build_agent, SACTrainer))

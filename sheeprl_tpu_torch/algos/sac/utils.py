@@ -8,7 +8,7 @@ from typing import Any, Dict, Sequence
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.envs.dummy import make_test_env
+from sheeprl_tpu_torch.envs.make import make_test_env
 
 AGGREGATOR_KEYS = {"Rewards/rew_avg", "Game/ep_len_avg", "Loss/value_loss", "Loss/policy_loss", "Loss/alpha_loss"}
 MODELS_TO_REGISTER = {"agent"}

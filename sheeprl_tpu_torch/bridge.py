@@ -1,5 +1,7 @@
 """Carry DreamerV3, PPO, A2C, recurrent PPO, SAC, DroQ, SAC-AE, DreamerV2, DreamerV1 and P2E weights from the JAX package's param trees into the port.
 
+Also :func:`anakin_env_state`, a JAX env state as a batched env's.
+
 Input: the ``world_model``, ``actor`` and ``critic`` trees of the JAX
 DreamerV3 train state, or the JAX PPO agent's params, as nested dicts of
 numpy arrays (with or without the top ``params`` level), the JAX PPO agent's
@@ -553,3 +555,12 @@ def sac_ae_state_dict(state: Mapping[str, Any]) -> StateDict:
     out["log_alpha"] = _tensor(rest.pop("log_alpha")).reshape(1)
     _done(rest, "sac_ae")
     return out
+
+
+def anakin_env_state(state: Mapping[str, Any], device: Any = "cpu") -> Dict[str, torch.Tensor]:
+    """A JAX env's state pytree (``sheeprl_tpu/envs/jax``: ``{"s", "t"}``
+    or the gridworld's ``{"agent", "goal", "t"}``, as numpy arrays) as the
+    batched port env's state dict: the same keys and dtypes, a leading
+    batch axis added to a single env's state (a ``vmap``-ed one keeps its)."""
+    single = np.ndim(state["t"]) == 0
+    return {k: torch.from_numpy(np.array(v)[None] if single else np.array(v)).to(device) for k, v in state.items()}

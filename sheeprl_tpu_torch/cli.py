@@ -1,6 +1,7 @@
 """Command lines of the port::
 
     python -m sheeprl_tpu_torch exp=<ppo | ppo_atari | a2c | ppo_recurrent | sac | droq | sac_ae | dreamer_v3_100k_ms_pacman | dreamer_v2_ms_pacman | ...> env=dummy [key=value ...] [device=cpu]
+    python -m sheeprl_tpu_torch exp=<ppo_anakin | sac_anakin | dreamer_v3_anakin> [algo.fused_rollout=false] [key=value ...] [device=cpu]
     python -m sheeprl_tpu_torch exp=<p2e_dv3_finetuning | p2e_dv2_finetuning | p2e_dv1_finetuning> env=dummy checkpoint.exploration_ckpt_path=<exploration run>/version_N/checkpoint/ckpt_<step>_0.ckpt [...]
     python -m sheeprl_tpu_torch.eval checkpoint_path=<run>/version_N/checkpoint/ckpt_<step>_0.ckpt [key=value ...] [device=cpu]
 
@@ -11,11 +12,14 @@ there composes (``ppo``, ``ppo_atari``, ``a2c``, ``ppo_recurrent``, ``sac``, ``d
 ``sac_ae``, ``dreamer_v3_100k_ms_pacman``, ``dreamer_v3_dmc_walker_walk``,
 ``dreamer_v3``, ``dreamer_v2_ms_pacman``, ``dreamer_v2``, ``dreamer_v1``,
 ``p2e_dv3_exploration``, ``p2e_dv3_finetuning``, ``p2e_dv2_exploration``,
-``p2e_dv2_finetuning``, ``p2e_dv1_exploration``, ``p2e_dv1_finetuning``;
+``p2e_dv2_finetuning``, ``p2e_dv1_exploration``, ``p2e_dv1_finetuning``,
+and the Anakin lane's ``ppo_anakin``, ``sac_anakin``, ``dreamer_v3_anakin``
+(``env=jax_cartpole``, ``jax_pendulum``, ``jax_gridworld``: the fused lane,
+or the host lane with ``algo.fused_rollout=false``);
 SAC, DroQ and SAC-AE want ``env.id=continuous_dummy``; a
 P2E finetuning run names its exploration run's checkpoint), an unknown key raises, and
 the trainer then raises on an algorithm the port does not train and on an env
-group other than ``env=dummy``. Keys are those of the composed config, e.g.
+group other than ``env=dummy`` and the anakin groups. Keys are those of the composed config, e.g.
 ``algo.learning_starts=128 algo.total_steps=136 buffer.size=4096``.
 """
 
@@ -64,6 +68,7 @@ def run(args: Optional[Sequence[str]] = None, callback=None) -> Dict[str, Any]:
     entry = algorithm_registry.get(cfg.algo.name)
     if entry is None:
         raise ValueError(f"algo.name={cfg.algo.name} is not ported; the port trains algo.name={' | '.join(sorted(algorithm_registry))}")
+    check_anakin(cfg)
     utils_module = importlib.import_module(entry.module.rsplit(".", 1)[0] + ".utils")
     _prune_metric_keys(cfg, utils_module.AGGREGATOR_KEYS)
     if cfg.checkpoint.resume_from:
@@ -71,6 +76,33 @@ def run(args: Optional[Sequence[str]] = None, callback=None) -> Dict[str, Any]:
     if entry.after_exploration:
         return entry.entrypoint(cfg, callback=callback, exploration_cfg=exploration_chain(cfg))
     return entry.entrypoint(cfg, callback=callback)
+
+
+def check_anakin(cfg) -> None:
+    """The Anakin lane's checks (reference: cli.py:171-192):
+    ``algo.fused_rollout`` needs ``env.jax_native`` and one of ppo, sac and
+    dreamer_v3, ``algo.fused_superstep_steps`` is at least 1, and
+    ``env.jax_native`` needs an id of a registered anakin env."""
+    if bool(cfg.algo.get("fused_rollout", False)):
+        if not bool(cfg.env.get("jax_native", False)):
+            raise ValueError(
+                "algo.fused_rollout=True requires env.jax_native=True: the fused superstep steps the env inside the "
+                "rollout graph, so it must be a batched torch env (sheeprl_tpu_torch/envs/anakin: env=jax_cartpole, env=jax_pendulum, env=jax_gridworld)."
+            )
+        if cfg.algo.name not in ("ppo", "sac", "dreamer_v3"):
+            raise ValueError(
+                f"algo.fused_rollout is implemented for ppo, sac and dreamer_v3; got '{cfg.algo.name}'. Run this algorithm on an "
+                "anakin env through the host lane (env.jax_native with algo.fused_rollout=false) instead."
+            )
+        if int(cfg.algo.get("fused_superstep_steps", 64)) < 1:
+            raise ValueError("algo.fused_superstep_steps must be >= 1")
+    if bool(cfg.env.get("jax_native", False)):
+        from sheeprl_tpu_torch.envs.anakin import make_anakin_env
+
+        try:
+            make_anakin_env(cfg.env.id)
+        except ValueError as err:
+            raise ValueError(f"env.jax_native=True but env.id is not a registered anakin env: {err}") from err
 
 
 # The env settings a P2E finetuning run takes from its exploration run.

@@ -52,13 +52,17 @@ _NODE_TYPES = {0: "kernel", 1: "memcpy", 2: "memset", 3: "host", 4: "graph", 5: 
 
 
 class CapturedStep:
-    """``fn()`` captured as a CUDA graph after ``WARMUP_CALLS`` eager calls
-    (see the module's docstring). ``warmup_calls`` and ``replays`` count
+    """``fn()`` captured as a CUDA graph after ``warmup`` eager calls
+    (``WARMUP_CALLS`` by default; see the module's docstring; the Anakin
+    lane's rollouts take one). ``warmup_calls`` and ``replays`` count
     how each call ran; ``nodes`` is :func:`graph_nodes` of the graph once
     it is captured."""
 
-    def __init__(self, fn: Callable[[], torch.Tensor], device: torch.device, generators: Sequence[torch.Generator] = ()):
+    def __init__(
+        self, fn: Callable[[], torch.Tensor], device: torch.device, generators: Sequence[torch.Generator] = (), warmup: int = WARMUP_CALLS
+    ):
         self.fn = fn
+        self.warmup = max(int(warmup), 1)
         self.device = torch.device(device)
         self.generators = list(generators)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -71,7 +75,7 @@ class CapturedStep:
     def __call__(self) -> torch.Tensor:
         if self.device.type != "cuda":
             return self.fn()
-        if self.graph is None and self.warmup_calls < WARMUP_CALLS:
+        if self.graph is None and self.warmup_calls < self.warmup:
             return self._warmup()
         if self.graph is None:
             self._capture()

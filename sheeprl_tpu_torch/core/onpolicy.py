@@ -12,7 +12,7 @@ around their rollout and update; the JAX package writes it in each
   the queued losses, the episode means and ``Time/sps_train`` (updates per
   train-timer second) and ``Time/sps_env_interaction`` logged and printed.
 - :func:`open_run` and :class:`OnPolicyRun`: a run's set-up (the resumed
-  config, the device, the logger and log dir, the dummy vector env, the
+  config, the device, the logger and log dir, the vector env, the
   agent and its optimizer restored from the checkpoint, the rollout buffer,
   the iteration counters and the minibatch size taken back), and after each
   update the annealing and the checkpoint with the JAX package's fields
@@ -34,7 +34,7 @@ import torch
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
-from sheeprl_tpu_torch.envs.dummy import dummy_env_kwargs, make_dummy_vector_env
+from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.serve.spaces import DictSpace
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -219,7 +219,7 @@ def open_run(
     cfg, build_agent: Callable[..., torch.nn.Module], keys: Callable[[Any], Tuple[List[str], List[str]]], metric_keys: Sequence[str],
     batch_size_key: str = "per_rank_batch_size",
 ) -> OnPolicyRun:
-    """Set up a run of ``cfg`` on ``cfg.device`` (``env=dummy`` only). With
+    """Set up a run of ``cfg`` on ``cfg.device`` (``env=dummy`` or an anakin group, ``envs/make.py``). With
     ``checkpoint.resume_from`` (the saved run's config merged by the CLI,
     :func:`sheeprl_tpu_torch.cli.run`) the agent's
     parameters and the optimizer's state and learning rate are restored, the
@@ -228,8 +228,7 @@ def open_run(
     ``cfg.algo[batch_size_key]``. ``keys(cfg)`` gives the CNN and all
     observation keys; ``dry_run`` runs one iteration."""
     device = resolve_device(cfg.device)
-    if cfg.env_group != "dummy":
-        raise ValueError(f"env={cfg.env_group} is not ported; the port trains on env=dummy")
+    check_env_group(cfg)
     state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
     np.random.seed(cfg.seed)
     timer.reset()
@@ -241,7 +240,7 @@ def open_run(
     print(f"Log dir: {log_dir}", flush=True)
 
     num_envs = int(cfg.env.num_envs)
-    envs = make_dummy_vector_env(num_envs, cfg.seed, **dummy_env_kwargs(cfg))
+    envs = make_vector_env(cfg)
     observation_space, action_space = envs.single_observation_space, envs.single_action_space
     if not isinstance(observation_space, DictSpace):
         raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {observation_space}")

@@ -30,8 +30,16 @@ What differs from the JAX design, and why:
 - :meth:`load_host_buffer` copies each env's rows oldest first in bulk
   chunks, straight from an ``EnvIndependentReplayBuffer`` (memory-mapped or
   not), where the JAX version stages them row by row.
-- Not ported (ROADMAP A8, A9): sharding over a mesh and the Anakin lane's
-  in-graph writer (``allocate``, ``make_step_write_fn``, ``adopt_state``).
+- The Anakin lane's writer (:meth:`make_step_write_fn`) writes inside the
+  rollout's captured graph, in place, into the storage the train step's
+  graph samples. JAX drops a masked column by scattering it out of bounds
+  (``mode="drop"``); an out-of-range ``index_put_`` is a device-side assert
+  here, so a masked column is written back as it was (``torch.where(mask,
+  row, ring[pos, env])``) and ``pos`` and ``added`` advance by the mask:
+  the shapes stay static. :meth:`allocate` makes the ring before the first
+  rollout, and :meth:`adopt_state` is host arithmetic only: the rows each
+  env was written, read back once per superstep by the lane.
+- Not ported (ROADMAP A9): sharding over a mesh.
 
 Valid starts, as in the JAX module (the sampler and the tests share them):
 with the per-env write head ``pos``, rows written ``added``, ``capacity``
@@ -246,6 +254,60 @@ class DeviceReplayRing:
         self._staged.clear()
         self._write(flat[keep], rows)
         return True
+
+    # ------------------------------------------------- fused-lane interface
+    def allocate(self, specs: Dict[str, Tuple[Sequence[int], Any]]) -> None:
+        """Allocate the ring now from ``{key: (feature_shape, dtype)}``: the
+        Anakin lane writes rows inside its rollout graph and stages none, so
+        the ring, its budget check passed, must exist before the first
+        rollout. No-op when allocated with the same specs; other specs
+        raise. A ring over its budget deactivates itself, as on an add."""
+        if not self.active:
+            return
+        normalized = {key: (tuple(int(s) for s in feature), np.dtype(dtype)) for key, (feature, dtype) in specs.items()}
+        if self._specs is not None:
+            if self._specs != normalized:
+                raise ValueError(f"DeviceReplayRing.allocate specs mismatch: ring holds {self._specs}, caller wants {normalized}")
+            if self._data is not None:
+                return
+        if self._set_specs(normalized):
+            self._allocate()
+
+    def make_step_write_fn(self) -> Callable[..., Dict[str, Any]]:
+        """``write(state, row, mask=None)``: one ``[E, *f]`` row per env at
+        each env's write head, in place in ``state`` (the ring's
+        :attr:`state`), ``pos`` and ``added`` advanced by one for every env
+        (``mask`` None) or for the envs ``mask`` ([E] bool) sets; a masked
+        column keeps its old row (see the module's docstring). No host
+        work, so a captured graph holds it. Returns ``state``."""
+        capacity = self.capacity
+
+        def write(state: Dict[str, Any], row: Dict[str, torch.Tensor], mask: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+            pos, added = state["pos"], state["added"]
+            t = pos.long()
+            envs = torch.arange(pos.shape[0], device=pos.device)
+            for key, ring in state["data"].items():
+                value = row[key].to(ring.dtype)
+                if mask is not None:
+                    value = torch.where(mask.reshape((-1,) + (1,) * (value.dim() - 1)), value, ring[t, envs])
+                ring[t, envs] = value
+            inc = 1 if mask is None else mask.to(pos.dtype)
+            pos.copy_((pos + inc) % capacity)
+            added.copy_(torch.clamp(added + inc, max=capacity))
+            return state
+
+        return write
+
+    def adopt_state(self, steps_written: Any = 0) -> None:
+        """Advance the host mirrors of ``pos`` and ``added`` by the rows a
+        rollout wrote per env (an int or an [E] array), as the card's moved:
+        host arithmetic, no device sync."""
+        if not self.active:
+            return
+        steps = np.asarray(steps_written, dtype=np.int64)
+        self._host_pos = (self._host_pos + steps) % self.capacity
+        self._host_added = np.minimum(self._host_added + steps, self.capacity)
+        self._written_pos = self._host_pos.copy()
 
     # ------------------------------------------------------------ sampling
     @property

@@ -164,21 +164,27 @@ class SyncVectorEnv:
 
     def state_dict(self) -> Dict[str, Any]:
         """What a resumed run needs to step on as this vector would: the
-        sampling generator, each env's step and each episode's running
-        return and length."""
-        return {
-            "rng": self._rng.bit_generator.state,
-            "steps": [int(env.unwrapped._current_step) for env in self.envs],
-            "returns": self._returns.tolist(),
-            "lengths": self._lengths.tolist(),
-        }
+        sampling generator, each env's step (``steps``; an env with its own
+        ``state_dict`` gives that, under ``states``) and each episode's
+        running return and length."""
+        state = {"rng": self._rng.bit_generator.state, "returns": self._returns.tolist(), "lengths": self._lengths.tolist()}
+        inner = [env.unwrapped for env in self.envs]
+        if all(hasattr(env, "state_dict") for env in inner):
+            state["states"] = [env.state_dict() for env in inner]  # the anakin envs' (envs/anakin/host.py)
+        else:
+            state["steps"] = [int(env._current_step) for env in inner]
+        return state
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        if len(state["steps"]) != self.num_envs:
-            raise ValueError(f"the state holds {len(state['steps'])} envs, this vector has {self.num_envs}")
+        per_env = state["states"] if "states" in state else state["steps"]
+        if len(per_env) != self.num_envs:
+            raise ValueError(f"the state holds {len(per_env)} envs, this vector has {self.num_envs}")
         self._rng.bit_generator.state = state["rng"]
-        for env, step in zip(self.envs, state["steps"]):
-            env.unwrapped._current_step = int(step)
+        for env, saved in zip(self.envs, per_env):
+            if "states" in state:
+                env.unwrapped.load_state_dict(saved)
+            else:
+                env.unwrapped._current_step = int(saved)
         self._returns[:] = state["returns"]
         self._lengths[:] = state["lengths"]
 

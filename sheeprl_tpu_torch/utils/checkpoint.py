@@ -276,7 +276,11 @@ def resume_config(cfg: Mapping[str, Any]) -> Dict[str, Any]:
     saved run's ``config.json`` (two levels above the checkpoint) merged over
     ``cfg``, keeping only ``cfg``'s ``algo.total_steps``,
     ``algo.learning_starts``, ``log_root``, ``root_dir``, ``run_name`` and
-    ``device``, as the JAX package's ``resume_from_checkpoint`` does.
+    ``device``, as the JAX package's ``resume_from_checkpoint`` does, and
+    ``algo.fused_rollout``, the lane: the JAX merge keeps the saved run's,
+    so its resume "on the other lane" stays on the saved run's lane
+    (ROADMAP C-r11); here a checkpoint of either lane resumes on the one the
+    command line names.
     ``resume_from`` may name a checkpoint or a directory of them (the newest
     valid one is taken), and becomes the checkpoint's path. Raises when
     ``env.id`` or ``algo.name`` differ from the saved run's."""
@@ -297,7 +301,7 @@ def resume_config(cfg: Mapping[str, Any]) -> Dict[str, Any]:
             raise ValueError(f"The checkpoint's run has {key}.{what}={old[key][what]}, this one {cfg[key][what]}: resume with the same {key}.{what}")
     for key in ("log_root", "root_dir", "run_name", "device"):
         old.pop(key, None)
-    for key in ("total_steps", "learning_starts"):
+    for key in ("total_steps", "learning_starts", "fused_rollout"):
         old["algo"].pop(key, None)
     old["checkpoint"]["resume_from"] = path
 

@@ -22,11 +22,13 @@ TREE = default_config_dir()
 FILES = sorted(os.path.relpath(p, TREE) for p in glob.glob(os.path.join(TREE, "**", "*.yaml"), recursive=True))
 EXPS = ("ppo", "ppo_atari", "dreamer_v3_100k_ms_pacman", "dreamer_v3_dmc_walker_walk", "sac", "droq", "dreamer_v2", "dreamer_v2_ms_pacman", "dreamer_v1", "a2c",
         "ppo_recurrent", "p2e_dv3_exploration", "p2e_dv3_finetuning", "p2e_dv2_exploration", "p2e_dv2_finetuning", "p2e_dv1_exploration",
-        "p2e_dv1_finetuning", "sac_ae")
+        "p2e_dv1_finetuning", "sac_ae", "ppo_anakin", "sac_anakin", "dreamer_v3_anakin")
 # The JAX package's own overrides for SAC and DroQ (tests/test_algos/test_fused_train.py),
 # and the width each exp's interpolation spreads.
 EXP_ARGS = {exp: ["env.id=continuous_dummy", "env.wrapper.id=continuous_dummy"] for exp in ("sac", "droq", "sac_ae")}
-WIDTH = {"sac": "algo.hidden_size", "droq": "algo.hidden_size", "sac_ae": "algo.hidden_size"}
+WIDTH = {"sac": "algo.hidden_size", "droq": "algo.hidden_size", "sac_ae": "algo.hidden_size", "sac_anakin": "algo.hidden_size"}
+# The Anakin exps choose their own env group (jax_cartpole, jax_pendulum, jax_gridworld).
+ANAKIN = {"ppo_anakin": "jax_cartpole", "sac_anakin": "jax_pendulum", "dreamer_v3_anakin": "jax_gridworld"}
 # Values the tests and the recipes give on the command line, and YAML's edge cases.
 VALUES = [
     "1e-4", "1.0e-6", "2.5e-4", "1e3", "-1e-3", "10_000_000", "0", "010", "0x1f", "0b101", "1:30", "-1", "+3", ".5", "1.",
@@ -98,11 +100,15 @@ def test_exp_composes_to_the_jax_composition(exp, interpolated):
     sheeprl_tpu.register_all()
     width = WIDTH.get(exp, "algo.dense_units")
     overrides = [f"{width}=24", "seed=7"] if interpolated else []
-    args = [f"exp={exp}", "env=dummy", *EXP_ARGS.get(exp, []), *overrides]
+    args = [f"exp={exp}", *([] if exp in ANAKIN else ["env=dummy"]), *EXP_ARGS.get(exp, []), *overrides]
     port, ref = compose(args), jax_compose("config", args).as_dict()
     check_against_jax(port, ref)
-    assert port.device == "cuda" and port.env_group == "dummy" and port.buffer.memmap_mode == "r+"
-    assert port.env.wrapper.action_dim == {"dreamer_v3_100k_ms_pacman": 9, "dreamer_v3_dmc_walker_walk": 6, "dreamer_v2_ms_pacman": 9}.get(exp, 2)
+    assert port.device == "cuda" and port.env_group == ANAKIN.get(exp, "dummy") and port.buffer.memmap_mode == "r+"
+    if exp in ANAKIN:
+        assert port.env.jax_native is True and port.algo.fused_rollout is True and port.env.id == ANAKIN[exp]
+        assert port.env.wrapper._target_ == "sheeprl_tpu_torch.envs.anakin.AnakinToHost"
+    else:
+        assert port.env.wrapper.action_dim == {"dreamer_v3_100k_ms_pacman": 9, "dreamer_v3_dmc_walker_walk": 6, "dreamer_v2_ms_pacman": 9}.get(exp, 2)
     if exp in ("sac", "droq"):
         assert port.env.id == "continuous_dummy" and port.algo.name == exp and port.algo.critic.n == 2
         assert port.algo.replay_ratio == (20.0 if exp == "droq" else 1.0) and port.algo.critic.get("dropout") == (0.01 if exp == "droq" else None)

@@ -46,7 +46,8 @@ def test_import_every_module_without_jax_or_the_jax_package():
                 "algos.p2e_dv2.agent", "algos.p2e_dv2.utils", "algos.p2e_dv2.p2e_dv2_exploration",
                 "algos.p2e_dv2.p2e_dv2_finetuning", "algos.p2e_dv2.evaluate", "algos.p2e_dv1.agent", "algos.p2e_dv1.utils",
                 "algos.p2e_dv1.p2e_dv1_exploration", "algos.p2e_dv1.p2e_dv1_finetuning", "algos.p2e_dv1.evaluate", "algos.sac_ae.agent",
-                "algos.sac_ae.utils", "algos.sac_ae.sac_ae", "algos.sac_ae.evaluate"]
+                "algos.sac_ae.utils", "algos.sac_ae.sac_ae", "algos.sac_ae.evaluate", "envs.anakin", "envs.anakin.base", "envs.anakin.cartpole",
+                "envs.anakin.pendulum", "envs.anakin.gridworld", "envs.anakin.adapter", "envs.anakin.host", "envs.make", "core.fused_loop"]
     for name in ["serve.engine", "bridge", *training]:
         assert f"sheeprl_tpu_torch.{name}" in report["modules"], name
     assert not [m for m in report["loaded"] if m in FORBIDDEN]
@@ -80,6 +81,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                 "p2e_dv1_exploration"):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run([f"exp={exp}", "env=dummy"])
+    for exp in ("ppo_anakin", "sac_anakin", "dreamer_v3_anakin"):  # both lanes
+        for lane in ("True", "False"):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                run([f"exp={exp}", f"algo.fused_rollout={lane}"])
 
 
 @pytest.mark.parametrize("version", ["dv3", "dv2", "dv1"])

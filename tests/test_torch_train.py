@@ -203,7 +203,10 @@ def test_target_update_taus_match_jax():
 PORT_KEYS = ("device", "env_group", "env.wrapper.action_dim", "buffer.memmap_mode")
 _NOW = re.compile(r"^\d{4}-\d\d-\d\d_\d\d-\d\d-\d\d_")
 # A port target that is not the JAX package's with sheeprl_tpu_torch for sheeprl_tpu.
-_TARGETS = {"sheeprl_tpu_torch.envs.dummy.get_dummy_env": "sheeprl_tpu.utils.env.get_dummy_env"}
+_TARGETS = {
+    "sheeprl_tpu_torch.envs.dummy.get_dummy_env": "sheeprl_tpu.utils.env.get_dummy_env",
+    "sheeprl_tpu_torch.envs.anakin.AnakinToHost": "sheeprl_tpu.envs.jax.JaxToGymnasium",
+}
 
 
 def jax_target(target):
