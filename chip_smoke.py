@@ -99,8 +99,8 @@ Phases (any failure exits non-zero before the result line):
    continuous actions): full DV3-S width, bf16-mixed, sampling a ring of
    1024 rows per env filled at the exp's shapes (MsPacman: 1 env; the
    walker: 4). The fused step's 3 eager warm-up steps (the first under
-   ``torch.cuda.set_sync_debug_mode("error")``), then from one snapshot 8
-   eager steps twice and 8 replays of the graph (taus 0.02, 0 and 1):
+   ``torch.cuda.set_sync_debug_mode("error")``), then from one snapshot 4
+   eager steps twice and 4 replays of the graph (taus 0.02, 0 and 1):
    every parameter, Adam state, the moments and each step's metrics bit
    for bit (or, were the two eager runs to differ, within their
    difference). The graph's nodes, read from the graph itself (libcuda's
@@ -303,6 +303,36 @@ Phases (any failure exits non-zero before the result line):
    of both lanes, no LN-GRU launch, each rollout graph against its eager run
    bit for bit, the fused run resumed and evaluated. ``c.phases_42_46(dir)``
    runs 42-46 alone after ``kernels.build()``.
+47. The interaction pipeline (``core/interact.py``) with DV3-S's player
+   (bf16-mixed, the exp's widths, random weights, 4 dummy envs; the
+   variants timed in turns over two windows of 32 env steps each, after 4
+   warm-up steps): one slice with the blocking fetch and with the async fetch
+   against the serial loop bit for bit (actions, obs, the player's state),
+   the async one with no blocking fetch; two slices with the async fetch;
+   the LN-GRU launched once a slice an env step; each timed (host wall,
+   device busy a env step); two slices against one in 32-true with the
+   draws at their modes (actions equal, state within 1e-3); ppo_atari's
+   rollout step in the loop as it was before the pipeline, through the
+   pipeline at one slice (the default path) and at two slices with the
+   async fetch; the streaming kernel at the two-slice player's B = 2 in f32
+   and bf16; then ``exp=dreamer_v3_100k_ms_pacman`` and ``exp=sac`` through
+   the CLI with the ring, ``fabric.async_fetch=True`` and
+   ``env.pipeline_slices=2``, the train calls between the fetch and its
+   harvest past the graph's capture: finite losses, no blocking fetch, a
+   positive overlap share, and a harvest's wait under a quarter of a train
+   call's time.
+48. The placement (``core/player.py``): ``auto`` on the card (the probe's
+   latency printed), ``host`` playing DV3-S on a CPU copy with no LN-GRU
+   launch on the card, the mirror's bytes, issue, landing and load times in
+   ``fresh`` and ``async``, and the CPU player from mirrored weights against
+   the card's in 32-true (5 steps: actions equal, state within 1e-3).
+49-50. ``exp=sac_decoupled`` (fresh and async) and ``exp=ppo_decoupled``
+   through the CLI with ``fabric.devices=1 fabric.player_device=host``:
+   player on the CPU, no LN-GRU launch, the first train call (update) held
+   against the CPU at the SAC (PPO) reference's bounds, resumed from the
+   mid-run checkpoint, evaluated; host wall an iteration and the mirror's
+   pushes. ``c.phases_47_50(dir)`` runs 47-50 alone after
+   ``kernels.build()``.
 
 Every profile reads its device busy time through ``_busy``, which leaves
 out the device ranges of ``record_function`` annotations (the trainers'
@@ -318,8 +348,10 @@ B = 16 and 1024 and backward at B = 16, H = 4096, with the launches of the
 exploration and the finetuning runs, and P2E-DV2's forward and backward at
 B = 16 and 800, H = 400; then the Anakin lane's streaming forwards at B =
 4, 8 and 256, the tensor-core forward at B = 256 and the backwards at B = 8;
-every entry with the P2E-DV1 and SAC-AE runs' launches, 0, and the Anakin
-runs'), the card's name and power limit,
+then the streaming forward at the two-slice player's B = 2 in bf16 and f32;
+every entry with the P2E-DV1 and SAC-AE runs' launches, 0, the Anakin
+runs', and phases 47-50's: the pipeline at one and two slices, the host
+player's and the decoupled runs', 0), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -1314,7 +1346,12 @@ def _train_batch(T, B, seed, device, n_actions=9, continuous=False):
     return {k: torch.from_numpy(v).to(device) for k, v in data.items()}
 
 
-def phase_train_profile(agent, cfg, steps: int = 3, bwd_per_step=None, what: str = "train step profile"):
+# 2 profiled steps (3 until the interaction layer's phases 47-50 needed the
+# time): profiling a DV3-S step's 18k kernels is most of this phase's cost.
+TRAIN_PROFILE_STEPS = 2
+
+
+def phase_train_profile(agent, cfg, steps: int = TRAIN_PROFILE_STEPS, bwd_per_step=None, what: str = "train step profile"):
     """Where one DV3-S gradient step's time goes (bf16-mixed, B = 16,
     T = 64, horizon 15, on the trained agent): host wall per step (ending in a
     synchronize), the device's busy time per step and its idle share from
@@ -2302,7 +2339,9 @@ def phase_ppo_pixels(log_root, workdir):
 FUSED_CUTS = {"buffer.device": "True (from False)"}
 WALKER_FUSED_CUTS = {"buffer.device": "True (from False)", "algo.fused_train_steps": "2 (from 1)"}
 GRAPH_RING_ROWS = 1024  # rows per env of the graph-against-eager phase's ring (at the exp's shapes)
-GRAPH_TAUS = (0.02, 0.0, 1.0, 0.02, 0.02, 0.0, 0.02, 0.02)  # 8 steps: the EMA's blend, its tau-0 and tau-1 cases
+# 4 steps: the EMA's blend, its tau-0 and tau-1 cases (8 until the
+# interaction layer's phases 47-50 needed the time).
+GRAPH_TAUS = (0.02, 0.0, 1.0, 0.02)
 GRAPH_LN_GRU = {"discrete": {"streaming": STREAM_PER_STEP, "tensor_core": TC_PER_STEP, "backward": BWD_PER_STEP},
                 "continuous": {"streaming": STREAM_PER_STEP, "tensor_core": TC_PER_STEP, "backward": BWD_PER_STEP + TC_PER_STEP}}  # fmt: skip
 REPLAYS_PROFILED = 16
@@ -2362,8 +2401,8 @@ def phase_graph_vs_eager(kind):
     1 env, 9 actions; the walker: 4 envs, 6 actions in [-1, 1]). The fused
     step warms up (its ``WARMUP_STEPS`` eager steps, the first under the
     sync check); then from one snapshot (every parameter, Adam state, the
-    moments and the generator's state) 8 eager steps twice (the eager
-    path's run-to-run difference) and 8 replays of the graph, with the taus
+    moments and the generator's state) 4 eager steps twice (the eager
+    path's run-to-run difference) and 4 replays of the graph, with the taus
     ``GRAPH_TAUS``. Every parameter, Adam state, the moments and each step's
     metrics must be equal bit for bit, or, if the two eager runs differ,
     within that difference. The graph must hold ``GRAPH_LN_GRU`` LN-GRU
@@ -2463,7 +2502,7 @@ def phase_graph_vs_eager(kind):
     if not left or any(left.values()):
         fail(f"{what}: the capture stream's LN-GRU tickets after the replays: {left}")
 
-    # 16 back-to-back replays, then 3 eager steps, from the state the replays left.
+    # REPLAYS_PROFILED back-to-back replays, then 3 eager steps, from the state the replays left.
     taus = [0.02] * REPLAYS_PROFILED
     fused(m, ring.state, taus)  # settled
     torch.cuda.synchronize()
@@ -2496,7 +2535,7 @@ def phase_graph_vs_eager(kind):
     eager_wall_ms = (time.perf_counter() - t0) * 1e3 / 3
     out = {
         "ring_rows_per_env": GRAPH_RING_ROWS, "n_envs": n_envs, "taus": list(GRAPH_TAUS), "warmup_steps": fused.captured.warmup_calls,
-        "eager_vs_eager": eager_gap, "graph_vs_eager": graph_gap, "capture_and_8_replays_s": capture_and_replay_s,
+        "eager_vs_eager": eager_gap, "graph_vs_eager": graph_gap, "capture_and_replays_s": capture_and_replay_s,
         "graph_nodes": nodes["nodes"], "graph_nodes_by_type": nodes["by_type"], "graph_ln_gru_nodes": nodes["ln_gru"],
         "ln_gru_tickets_after_replays": left,
         "graph_kernel_nodes": nodes["by_type"].get("kernel", 0), "eager_device_ops_per_step": STEP_OPS[kind],
@@ -2512,7 +2551,7 @@ def phase_graph_vs_eager(kind):
     if out["fused_device_idle_share"] > 0.25:
         fail(f"{what}: the replayed step leaves the device idle {out['fused_device_idle_share']:.3f} of the time (at most 0.25)")
     log(f"{what}: DV3-S {cfg.fabric.precision}, B={batch} T={seq}, ring {GRAPH_RING_ROWS} rows x {n_envs} envs; {WARMUP_STEPS} eager warm-up "
-        f"steps (the first under the sync check), then 8 steps from one snapshot: eager vs eager {json.dumps(eager_gap)}; graph vs eager "
+        f"steps (the first under the sync check), then {len(GRAPH_TAUS)} steps from one snapshot: eager vs eager {json.dumps(eager_gap)}; graph vs eager "
         f"{json.dumps(graph_gap)}")  # fmt: skip
     log(f"{what}: the graph holds {nodes['nodes']} nodes ({json.dumps(nodes['by_type'])}), LN-GRU kernel nodes {json.dumps(nodes['ln_gru'])}; "
         f"the eager step runs {STEP_OPS[kind]} device operations")  # fmt: skip
@@ -3283,7 +3322,7 @@ def phase_offpolicy_graph(kind):
     through the graphs (SAC: taus ``SAC_GRAPH_TAUS``; DroQ: two calls of 4
     critic steps and the actor step): every parameter, Adam state and the
     calls' metrics bit for bit, or within the two eager runs' difference.
-    The graphs' nodes (no LN-GRU node); then (e) 16 back-to-back replays
+    The graphs' nodes (no LN-GRU node); then (e) ``REPLAYS_PROFILED`` back-to-back replays
     timed and profiled."""
     import numpy as np
     import torch
@@ -3379,7 +3418,7 @@ def phase_offpolicy_graph(kind):
     if any(n is None or any(n["ln_gru"].values()) for n in nodes):
         fail(f"{what}: graphs {nodes}")
 
-    # (e) 16 back-to-back replays of the (critic) step.
+    # (e) REPLAYS_PROFILED back-to-back replays of the (critic) step.
     if kind == "sac":
         replays = lambda: fused(ring.state, [0.005] * REPLAYS_PROFILED)  # noqa: E731
     else:
@@ -5466,6 +5505,644 @@ def phases_42_46(workdir):
             "phases_42_46_s": took}  # fmt: skip
 
 
+# ------------------------------------------------- phases 47-50: interaction
+PIPE_ENVS, PIPE_WARMUP, PIPE_WINDOW, PIPE_PROFILED = 4, 4, 32, 8
+PIPE_STEPS = 2 * PIPE_WINDOW  # timed steps of each variant: two windows, taken in turns with the others
+PIPE_ARGS = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", f"env.num_envs={PIPE_ENVS}"]
+PIPE_CUTS = {"env.num_envs": "4 (from 1: two slices of 2 envs)"}
+PIPE_DEPTH, PIPE_HIDDEN = 1024, 512  # DV3-S's LN-GRU input (stochastic state + actions, through the dense layer) and width
+PIPE_REF_TOL = 1e-3  # phase 6's 32-true card-against-CPU bound on the recurrent state
+PPO_PIPE_ARGS = ["exp=ppo_atari", "env=dummy", "env.num_envs=4"]
+# The loops through the CLI with the train call between the fetch and its
+# harvest: the ring's captured step, the async fetch, two slices.
+ASYNC_LOOP = ["buffer.device=True", "fabric.async_fetch=True", "env.pipeline_slices=2", "checkpoint.every=0", "checkpoint.save_last=False",
+              "algo.run_test=False"]  # fmt: skip
+ASYNC_LOOP_ARGS = {
+    "dreamer_v3": ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "env.num_envs=4", "algo.learning_starts=264", "algo.total_steps=280",
+                   "metric.log_every=16", *ASYNC_LOOP],
+    "sac": ["exp=sac", "env=dummy", "env.id=continuous_dummy", "algo.learning_starts=64", "algo.total_steps=96", "metric.log_every=32", *ASYNC_LOOP],
+}  # fmt: skip
+ASYNC_LOOP_CUTS = {
+    "dreamer_v3": {"env.num_envs": "4 (from 1: two slices of 2)", "algo.learning_starts": "264 (from 1024; 66 rows an env, a sequence is 64)",
+                   "algo.total_steps": "280 (from 100000; 20 gradient steps, 12 with the train call in flight)",
+                   "checkpoint": "none (from every 2000 and the last)", "algo.run_test": "False (from True)"},
+    "sac": {"algo.learning_starts": "64 (from 100)", "algo.total_steps": "96 (from 1000000)", "checkpoint": "none (from every 50000 and the last)",
+            "algo.run_test": "False (from True)"},
+}  # fmt: skip
+HARVEST_SHARE = 0.25  # a harvest's mean wait against a train call's mean time: at most this share
+SACD_ARGS = ["exp=sac_decoupled", "env=dummy", "env.id=continuous_dummy", "fabric.devices=1", "fabric.player_device=host",
+             "algo.learning_starts=64", "algo.total_steps=128", "checkpoint.every=96", "metric.log_every=32"]  # fmt: skip
+SACD_CUTS = {"algo.learning_starts": "64 (from 100)", "algo.total_steps": "128 (from 1000000)", "fabric.devices": "1 (from 2)",
+             "fabric.player_device": "host (from auto)"}  # fmt: skip
+PPOD_ARGS = ["exp=ppo_decoupled", "env=dummy", "fabric.devices=1", "fabric.player_device=host", "algo.total_steps=1024", "checkpoint.every=512",
+             "metric.log_every=512"]  # fmt: skip
+PPOD_CUTS = {"algo.total_steps": "1024 (from 65536; 2 updates)", "fabric.devices": "1 (from 2)", "fabric.player_device": "host (from auto)"}
+
+
+def _constant_draws():
+    """A noise source whose uniforms are all 0.5 (Gumbel-max then picks the
+    mode) and whose normals are 0: the DV3 player becomes a function of its
+    inputs."""
+    import torch
+
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+
+    class ConstantDraws(BatchGenerator):
+        def __init__(self):
+            pass
+
+        def rand(self, shape):
+            return torch.full(tuple(shape), 0.5)
+
+        def randn(self, shape):
+            return torch.zeros(tuple(shape))
+
+    return ConstantDraws()
+
+
+def _dv3_player(precision, seed=5):
+    """DV3-S's acting modules at ``exp=dreamer_v3_100k_ms_pacman``'s widths
+    (random weights from ``seed``) on the card, and the config with 4 envs."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.make import make_vector_env
+
+    cfg = compose([*PIPE_ARGS, "device=cuda"])
+    envs = make_vector_env(cfg)
+    actions_dim, continuous = actions_metadata(envs.single_action_space)
+    return cfg, build_agent(actions_dim, continuous, cfg, envs.single_observation_space, precision=precision, device="cuda", seed=seed)
+
+
+def _dv3_stepper(cfg, player, rng, slices=1, async_fetch=False, serial=False, greedy=False):
+    """``step(n)``: n env steps of DV3's acting loop on ``cfg``'s dummy envs
+    with ``player`` (its device is the player's), serially (the loop as it
+    was: the player, ``.cpu()`` of its outputs, ``envs.step``) or through
+    ``InteractionPipeline.interact`` (``slices``, ``async_fetch``); the done
+    envs' state reset. ``trace`` holds each step's actions and state obs,
+    ``state()`` the player's state, ``pipeline`` the pipeline."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.core.interact import InteractionPipeline, tree_concat
+    from sheeprl_tpu_torch.envs.make import make_vector_env
+    from sheeprl_tpu_torch.utils.utils import normalize_obs, prepare_obs
+
+    cfg.env.pipeline_slices = slices
+    envs = make_vector_env(cfg)
+    keys, cnn = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder), tuple(cfg.algo.cnn_keys.encoder)
+    dev, n = next(player.parameters()).device, int(cfg.env.num_envs)
+
+    def prep(o, out=None):
+        return prepare_obs({k: o[k] for k in keys}, cnn_keys=cnn, num_envs=len(o[keys[0]]), out=out)
+
+    def act(prepared, state, key):
+        obs_t = normalize_obs({k: torch.from_numpy(v).to(dev) for k, v in prepared.items()}, cnn)
+        return player.player_step(state, obs_t, key if key is not None else rng, greedy=greedy)
+
+    pipeline = InteractionPipeline(n, slices=slices, async_fetch=async_fetch)
+    if not greedy:
+        pipeline.set_key(rng)
+    pipeline.init_state(lambda m, r: player.init_player_state(m))
+    run = {"obs": pipeline.stash_obs(envs.reset(seed=cfg.seed)[0]), "state": player.init_player_state(n)}
+    trace = []
+
+    def policy(prepared, state, key):
+        actions, real, new_state = act(prepared, state, key)
+        return (actions.float(), real), new_state, key
+
+    def step(count):
+        for _ in range(count):
+            if serial:
+                actions_t, real_t, run["state"] = act(prep(run["obs"]), run["state"], rng)
+                actions, real = actions_t.float().cpu().numpy(), real_t.cpu().numpy()
+                run["obs"], _, terminated, truncated, _ = envs.step(real[:, 0])
+            else:
+                res = pipeline.interact(envs, run["obs"], policy, prepare=prep, to_env_actions=lambda h, m: h[1][:, 0])
+                actions, run["obs"], terminated, truncated = res.outputs[0], res.obs, res.terminated, res.truncated
+            mask = torch.from_numpy(np.logical_or(terminated, truncated).astype(np.float32))
+            if mask.any():
+                if serial:
+                    run["state"] = player.reset_player_state(run["state"], mask.to(dev))
+                else:
+                    pipeline.map_state(lambda st, r: player.reset_player_state(st, mask[r[0] : r[1]].to(dev)))
+            trace.append((np.array(actions), np.array(run["obs"]["rgb"][:, 0, 0, 0])))
+
+    step.trace, step.pipeline = trace, pipeline
+    step.state = lambda: run["state"] if serial else tree_concat(pipeline.states)
+    return step
+
+
+def _timed_in_turns(steppers, what, profile_steps=PIPE_PROFILED):
+    """The variants ``steppers`` (name -> ``step(n)``) on one card in turns:
+    ``PIPE_WARMUP`` steps of each, then ``PIPE_WINDOW`` steps of each in
+    order and again in reverse order (A B C, C B A), each window's host wall
+    ms per env step (ending in a synchronize) and its LN-GRU counts (zeroed
+    just before, read just after); then device busy ms and operations per
+    step from a profile of ``profile_steps`` more of each (none for a player
+    on the host: 0). Per variant: the mean of its two windows, both windows,
+    the last window's counts."""
+    import torch
+
+    for step in steppers.values():
+        step(PIPE_WARMUP)
+    walls, counts = {k: [] for k in steppers}, {}
+    for name in [*steppers, *reversed(list(steppers))]:
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        steppers[name](PIPE_WINDOW)
+        torch.cuda.synchronize()
+        walls[name].append((time.perf_counter() - t0) * 1e3 / PIPE_WINDOW)
+        counts[name] = read_counts()
+    out = {}
+    for name, step in steppers.items():
+        busy, ops = 0.0, 0
+        if profile_steps:
+            busy, ops, _ = _busy(profiled(lambda: step(profile_steps), ("cpu", "cuda")).key_averages(), profile_steps)
+            if busy <= 0.0:
+                fail(f"{what} {name}: torch.profiler saw no device time")
+        wall = statistics.mean(walls[name])
+        out[name] = {"host_wall_ms_per_env_step": wall, "host_wall_ms_windows": walls[name], "device_busy_ms_per_env_step": busy,
+                     "idle_share": max(0.0, 1 - busy / wall), "device_ops_per_env_step": ops, "ln_gru_launches": counts[name]}  # fmt: skip
+    return out
+
+
+def phase_pipeline(log_root):
+    """(47) The interaction pipeline on the card with DV3-S's player
+    (bf16-mixed, ``exp=dreamer_v3_100k_ms_pacman``'s widths, random weights,
+    4 dummy envs; the variants timed in turns, ``_timed_in_turns``): one slice with the fetch
+    blocking against the serial loop bit for bit (actions, obs, the player's
+    state); the async fetch with the same actions bit for bit, no blocking
+    fetch and a positive overlap share; two slices with the async fetch;
+    the LN-GRU launched once a slice an env step (S at B = 4 / S); each
+    timed (host wall, device busy per env step). Then in 32-true with the
+    draws at their modes, two slices against one: the same actions, the
+    recurrent state within ``PIPE_REF_TOL``. Then ppo_atari's rollout step
+    (84x84x4 frames, 4 envs) serially and at two slices with the async
+    fetch, and in the loop as it was before the pipeline
+    (``_ppo_pipeline_timing``). Then DV3 and SAC through the CLI with the
+    train call in flight (``_async_loop_run``), and the LN-GRU at the
+    two-slice player's B = 2 in f32 and bf16 (``streaming_rows``)."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+
+    t0 = time.perf_counter()
+    cfg, agent = _dv3_player("bf16-mixed")
+    gen = lambda: BatchGenerator.from_seed(1, "cuda")  # noqa: E731
+    serial = _dv3_stepper(cfg, agent, gen(), serial=True)
+    runs = {"s1_sync": _dv3_stepper(cfg, agent, gen()), "s1_async": _dv3_stepper(cfg, agent, gen(), async_fetch=True),
+            "s2_async": _dv3_stepper(cfg, agent, gen(), slices=2, async_fetch=True)}  # fmt: skip
+    timings = _timed_in_turns({"serial": serial, **runs}, "pipeline")
+    for name, run in runs.items():
+        slices = run.pipeline.slices
+        want = {PIPE_ENVS // slices: slices * PIPE_WINDOW}
+        got = timings[name]["ln_gru_launches"]
+        if got["forward"] != slices * PIPE_WINDOW or got["forward_by_batch"] != want or got["backward"]:
+            fail(f"pipeline {name}: LN-GRU launches {got} in a window of {PIPE_WINDOW} env steps, expected {slices} a step ({want})")
+        timings[name]["fetch"] = run.pipeline.stats.as_dict()
+    n = PIPE_WARMUP + PIPE_STEPS + PIPE_PROFILED
+    for name in ("s1_sync", "s1_async"):
+        for t, (a, b) in enumerate(zip(serial.trace[:n], runs[name].trace[:n])):
+            if not (np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])):
+                fail(f"pipeline {name}: step {t}'s actions or obs differ from the serial loop's")
+    for k, v in serial.state().items():
+        if not torch.equal(v, runs["s1_sync"].state()[k]):
+            fail(f"pipeline s1_sync: the player's {k} differs from the serial loop's after {n} steps")
+    fetch = timings["s1_async"]["fetch"]
+    if fetch["blocking_fetches"] != 0 or fetch["async_fetches"] != n or not fetch["overlap_fraction"] > 0:
+        fail(f"pipeline s1_async: {fetch}")
+    if timings["s1_sync"]["fetch"]["blocking_fetches"] != n:
+        fail(f"pipeline s1_sync: {timings['s1_sync']['fetch']}")
+
+    cfg32, agent32 = _dv3_player("32-true")
+    greedy = {S: _dv3_stepper(cfg32, agent32, _constant_draws(), slices=S, greedy=True) for S in (1, 2)}
+    greedy[1](PIPE_STEPS)
+    zero_counts()
+    greedy[2](PIPE_STEPS)
+    greedy_counts = read_counts()
+    mismatched = sum(int(not np.array_equal(a[0], b[0])) for a, b in zip(greedy[1].trace, greedy[2].trace))
+    dh = max((greedy[1].state()[k].float() - greedy[2].state()[k].float()).abs().max().item() for k in greedy[1].state())
+    if mismatched or dh > PIPE_REF_TOL:
+        fail(f"pipeline: two slices against one in 32-true with the draws at their modes: {mismatched} steps' actions differ, max |d state| {dh}")
+    del agent32, greedy
+    ppo = _ppo_pipeline_timing()
+    loops = {algo: _async_loop_run(algo, log_root) for algo in ASYNC_LOOP_ARGS}
+    kernels_b2 = streaming_rows("pipeline", PIPE_DEPTH, PIPE_HIDDEN, ((PIPE_ENVS // 2, "player, two slices of 4 envs"),), (torch.float32, torch.bfloat16), seed=21)
+    took = time.perf_counter() - t0
+    for name, tm in timings.items():
+        log(f"pipeline (47) DV3-S player, {name}: {tm['host_wall_ms_per_env_step']:.3f} ms host wall a env step (windows "
+            f"{[round(w, 3) for w in tm['host_wall_ms_windows']]}), {tm['device_busy_ms_per_env_step']:.3f} ms "
+            f"busy (idle {tm['idle_share']:.3f}), {tm['device_ops_per_env_step']:.0f} operations; LN-GRU {tm['ln_gru_launches']['forward_by_batch']}"
+            + (f"; fetches {json.dumps({k: round(v, 6) for k, v in tm['fetch'].items()})}" if "fetch" in tm else ""))  # fmt: skip
+    log(f"pipeline (47): one slice with the blocking fetch and with the async fetch = the serial loop bit for bit over {n} steps; two slices "
+        f"against one in 32-true (greedy, draws at their modes): actions equal over {PIPE_STEPS} steps, max |d state| {dh:.3g} (limit "
+        f"{PIPE_REF_TOL}); took {took:.1f} s")  # fmt: skip
+    return {"cuts": PIPE_CUTS, "timings": timings, "s2_vs_s1_max_abs_state": dh, "s2_32_true_ln_gru_launches": greedy_counts,
+            "ppo_atari_rollout_step": ppo, "async_loops": loops, "kernels_b2": kernels_b2, "took_s": took}  # fmt: skip
+
+
+def _ppo_pipeline_timing():
+    """ppo_atari's rollout step (the player, one copy of its outputs, the
+    env step; 84x84 pixels, 4 stacked frames, the recipe's widths, random
+    weights), timed in turns: the loop as ``algos/ppo/ppo.py`` ran it before
+    the pipeline (``loop``: prepare, the player, ``.cpu()`` of its outputs,
+    ``envs.step``) against the pipeline at one slice with the blocking fetch
+    (``s1``, the default path), at 4 envs and at one env (PERF.md §5's
+    rollout step is at one env), and at 4 envs in two slices with the async
+    fetch."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata, build_agent
+    from sheeprl_tpu_torch.algos.ppo.ppo import rollout_outputs
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.core.interact import InteractionPipeline
+    from sheeprl_tpu_torch.envs.make import make_vector_env
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+    from sheeprl_tpu_torch.utils.utils import prepare_obs
+
+    steppers, pipelines = {}, {}
+    variants = (("e4_loop", 4, 1, False), ("e4_s1", 4, 1, False), ("e4_s2_async", 4, 2, True), ("e1_loop", 1, 1, False), ("e1_s1", 1, 1, False))
+    for name, envs_n, slices, async_fetch in variants:
+        cfg = compose([*PPO_PIPE_ARGS, "device=cuda", f"env.num_envs={envs_n}", f"env.pipeline_slices={slices}", f"fabric.async_fetch={async_fetch}"])
+        envs = make_vector_env(cfg)
+        actions_dim, continuous = actions_metadata(envs.single_action_space)
+        agent = build_agent(actions_dim, continuous, cfg, envs.single_observation_space, precision=cfg.fabric.precision, device="cuda", seed=cfg.seed)
+        split, cnn = rollout_outputs(actions_dim, continuous), list(cfg.algo.cnn_keys.encoder)
+        keys = cnn + list(cfg.algo.mlp_keys.encoder)
+        pipeline = pipelines[name] = InteractionPipeline.from_config(cfg)
+        pipeline.set_key(BatchGenerator.from_seed(0, "cuda"))
+
+        @torch.no_grad()
+        def policy(prepared, state, rng, agent=agent, continuous=continuous):
+            actions, real, logprobs, values = agent.player_step({k: torch.from_numpy(v).to("cuda") for k, v in prepared.items()}, rng)
+            return torch.cat([actions.float(), logprobs, values] + ([] if continuous else [real.float()]), -1), state, rng
+
+        obs = {"o": pipeline.stash_obs(envs.reset(seed=cfg.seed)[0])}
+
+        def step(count, envs=envs, pipeline=pipeline, split=split, keys=keys, cnn=cnn, obs=obs, policy=policy):
+            for _ in range(count):
+                res = pipeline.interact(
+                    envs, {k: obs["o"][k] for k in keys}, policy,
+                    prepare=lambda o, out=None: prepare_obs(o, cnn_keys=cnn, num_envs=len(o[keys[0]]), out=out),
+                    to_env_actions=lambda h, m: split(h)[3].reshape(m),
+                )  # fmt: skip
+                obs["o"] = res.obs
+
+        rng = BatchGenerator.from_seed(0, "cuda")
+
+        @torch.no_grad()
+        def loop_step(count, envs=envs, n=envs_n, split=split, keys=keys, cnn=cnn, obs=obs, agent=agent, continuous=continuous, rng=rng):
+            for _ in range(count):
+                prepared = prepare_obs({k: obs["o"][k] for k in keys}, cnn_keys=cnn, num_envs=n)
+                actions, real, logprobs, values = agent.player_step({k: torch.from_numpy(np.ascontiguousarray(v)).to("cuda") for k, v in prepared.items()}, rng)
+                host = torch.cat([actions.float(), logprobs, values] + ([] if continuous else [real.float()]), -1).cpu().numpy()
+                obs["o"] = envs.step(split(host)[3].reshape(n))[0]
+
+        steppers[name] = loop_step if name.endswith("_loop") else step
+    out = _timed_in_turns(steppers, "ppo_atari rollout")
+    for name in out:
+        out[name]["fetch"] = pipelines[name].stats.as_dict() if not name.endswith("_loop") else None
+        log(f"pipeline (47) ppo_atari rollout step, {name}: {out[name]['host_wall_ms_per_env_step']:.3f} ms host wall (windows "
+            f"{[round(w, 3) for w in out[name]['host_wall_ms_windows']]}), {out[name]['device_busy_ms_per_env_step']:.3f} ms busy (idle "
+            f"{out[name]['idle_share']:.3f})" + (f"; overlap {out[name]['fetch']['overlap_fraction']:.3f}" if out[name]["fetch"] else ""))  # fmt: skip
+    for n in ("e4", "e1"):
+        loop, s1 = out[f"{n}_loop"], out[f"{n}_s1"]
+        out[f"{n}_s1_against_loop"] = {"ms": s1["host_wall_ms_per_env_step"] - loop["host_wall_ms_per_env_step"],
+                                       "ratio": s1["host_wall_ms_per_env_step"] / loop["host_wall_ms_per_env_step"],
+                                       "window_spread_ms": [max(v["host_wall_ms_windows"]) - min(v["host_wall_ms_windows"]) for v in (loop, s1)]}  # fmt: skip
+        log(f"pipeline (47) ppo_atari rollout step at {n[1:]} env(s): the pipeline at one slice against the loop before it "
+            f"{out[f'{n}_s1_against_loop']['ms']:+.3f} ms ({out[f'{n}_s1_against_loop']['ratio']:.3f}x); each one's two windows spread "
+            f"{[round(x, 3) for x in out[f'{n}_s1_against_loop']['window_spread_ms']]} ms")  # fmt: skip
+    return out
+
+
+def _async_loop_run(algo, log_root):
+    """``algo``'s loop through the CLI with ``ASYNC_LOOP_ARGS``: every train
+    call's host wall (``train_timer``'s block, which ends when the call's
+    device work has run) and every gradient step's losses (kept on the card
+    until the run ends, so the callback syncs nothing); the losses finite, no
+    blocking fetch, a positive overlap share, the harvest's mean wait under
+    ``HARVEST_SHARE`` of a train call's mean time; the LN-GRU counts zeroed
+    just before and read just after."""
+    import importlib
+
+    import torch
+
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.utils.timer import timer
+
+    module = importlib.import_module({"dreamer_v3": "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3", "sac": "sheeprl_tpu_torch.algos.sac.sac"}[algo])
+    what = f"pipeline (47) {algo} through the CLI, async"
+    calls, losses = [], []
+    real = module.train_timer
+
+    @contextmanager
+    def timed(device):
+        t0 = time.perf_counter()
+        with real(device):
+            yield
+        calls.append(time.perf_counter() - t0)
+
+    def on_train(agent, step, *rest):
+        for metrics in rest[-1] if isinstance(rest[-1], list) else [rest[-1]]:
+            losses.append(torch.stack([v.detach().float().reshape(()) for v in metrics.values()]))
+
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with patched(module, "train_timer", timed):
+        out = run([*ASYNC_LOOP_ARGS[algo], f"log_root={log_root}"], callback=on_train)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    stats, fused = out["interaction"], out["fused"]
+    finite = bool(losses) and bool(torch.isfinite(torch.stack(losses)).all())
+    wait_ms = stats["fetch_blocked_s"] * 1e3 / max(1, stats["async_fetches"])
+    train_ms = statistics.mean(calls) * 1e3 if calls else 0.0
+    result = {"cuts": ASYNC_LOOP_CUTS[algo], "gradient_steps": out["gradient_steps"], "fused": fused, "train_calls": len(calls),
+              "train_call_ms_mean": train_ms, "train_call_ms_max": max(calls) * 1e3 if calls else 0.0, "harvest_wait_ms_mean": wait_ms,
+              "timers_on": not timer.disabled, "fetch": stats, "ln_gru_launches": counts, "losses_finite": finite, "wall_s": wall}  # fmt: skip
+    if not finite or not fused or fused["replays"] <= 0:
+        fail(f"{what}: losses finite {finite}, the ring's graph {fused}")
+    if stats["blocking_fetches"] != 0 or stats["async_fetches"] <= 0 or not stats["overlap_fraction"] > 0:
+        fail(f"{what}: {stats}")
+    if not train_ms or timer.disabled or wait_ms >= HARVEST_SHARE * train_ms:
+        fail(f"{what}: a harvest waited {wait_ms:.4f} ms on the mean, a train call took {train_ms:.4f} ms (limit {HARVEST_SHARE} of it; timers on "
+             f"{not timer.disabled})")  # fmt: skip
+    if algo == "dreamer_v3" and not counts["forward_by_batch"].get(2):
+        fail(f"{what}: no LN-GRU launch at the two-slice player's B = 2: {counts}")
+    log(f"{what}: {out['gradient_steps']} gradient steps ({fused['replays']} graph replays) in {len(calls)} train calls of "
+        f"{train_ms:.3f} ms on the mean; {stats['async_fetches']} async fetches, 0 blocking, overlap {stats['overlap_fraction']:.3f}, "
+        f"a harvest waited {wait_ms:.4f} ms on the mean; losses finite; LN-GRU {counts['forward_by_batch']}; {wall:.1f} s")  # fmt: skip
+    return result
+
+
+def phase_placement():
+    """(48) The player's placement on the card: ``auto`` resolves to the
+    card (the probe's latency printed); ``host`` plays DV3-S on a CPU copy
+    (bf16-mixed, the plain LN-GRU) with no LN-GRU launch on the card; the
+    mirror's bytes, the host time to issue a push, the time until the copy
+    has landed and the load into the CPU copy, in ``fresh`` and in
+    ``async``; then in 32-true the CPU player from weights that came through
+    the mirror against the card's player, the same draws: 5 steps, the
+    same actions, the recurrent state within ``PIPE_REF_TOL``."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import PLAYER_STATE
+    from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+    from sheeprl_tpu_torch.utils.utils import dotdict, normalize_obs
+
+    t0 = time.perf_counter()
+    cuda = torch.device("cuda")
+    cfg, agent = _dv3_player("bf16-mixed")
+    nbytes = param_bytes(agent, PLAYER_STATE)
+    auto = PlayerPlacement.resolve(dotdict({"fabric": {"player_device": "auto", "player_sync": "fresh"}}), cuda, nbytes=nbytes)
+    latency = auto.probe_s
+    if auto.device.type != "cuda" or not auto.on_mesh or latency is None:
+        fail(f"placement: auto resolved to {auto.device} (probe {latency})")
+    host = PlayerPlacement.resolve(dotdict({"fabric": {"player_device": "host", "player_sync": "fresh"}}), cuda, nbytes=nbytes)
+    cpu_player = host.player(agent, PLAYER_STATE)
+    if host.on_mesh or next(cpu_player.parameters()).device.type != "cpu":
+        fail("placement: host did not put the player on the CPU")
+    host_run = _timed_in_turns({"host": _dv3_stepper(cfg, cpu_player, BatchGenerator.from_seed(1, "cpu"))}, "placement", profile_steps=0)["host"]
+    if host_run["ln_gru_launches"]["forward"] or host_run["ln_gru_launches"]["backward"]:
+        fail(f"placement: the host player launched LN-GRU kernels on the card: {host_run['ln_gru_launches']}")
+    mirror_times = {}
+    for sync in ("fresh", "async"):
+        placement = PlayerPlacement(torch.device("cpu"), cuda, sync, mode="host")
+        placement.player(agent, PLAYER_STATE)
+        issue, landed, load = [], [], []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            a = time.perf_counter()
+            placement.push()
+            b = time.perf_counter()
+            placement.mirrors[0]._inflight[-1][0].event.synchronize()
+            c = time.perf_counter()
+            placement.player(agent, PLAYER_STATE)
+            issue.append((b - a) * 1e3)
+            landed.append((c - a) * 1e3)
+            load.append((time.perf_counter() - c) * 1e3)
+        mirror = placement.mirrors[0]
+        mirror_times[sync] = {"bytes": mirror.nbytes, "issue_ms": statistics.median(issue), "landed_ms": statistics.median(landed),
+                              "load_ms": statistics.median(load), "pushes": mirror.pushes, "skipped": mirror.skipped,
+                              "gb_per_s": mirror.nbytes / statistics.median(landed) / 1e6}  # fmt: skip
+    # 32-true: weights that came through the mirror on the CPU, against the card.
+    _, agent32 = _dv3_player("32-true")
+    mirrored = PlayerPlacement(torch.device("cpu"), cuda, "fresh", mode="host")
+    mirrored.player(agent32, PLAYER_STATE)
+    with torch.no_grad():
+        for name, p in agent32.named_parameters():
+            if name.startswith(PLAYER_STATE):
+                p.mul_(1.01)
+    mirrored.push()
+    cpu32 = mirrored.player(agent32, PLAYER_STATE)
+    if not all(torch.equal(a.cpu(), b) for (n, a), b in zip(agent32.state_dict().items(), cpu32.state_dict().values()) if n.startswith(PLAYER_STATE)):
+        fail("placement: the CPU player's weights are not the card's after a push")
+    rng = np.random.default_rng(1)
+    obs = [torch.from_numpy(rng.integers(0, 256, (2, 64, 64, 3), dtype=np.uint8)) for _ in range(5)]
+    traces = {}
+    for where, player in (("cuda", agent32), ("cpu", cpu32)):
+        draws, state, trace = BatchGenerator.from_seed(3, "cpu"), player.init_player_state(2), []
+        for o in obs:
+            _, real, state = player.player_step(state, normalize_obs({"rgb": o.to(where)}, ("rgb",)), draws)
+            trace.append((state["recurrent_state"].float().cpu(), real.cpu()))
+        traces[where] = trace
+    worst = max((a[0] - b[0]).abs().max().item() for a, b in zip(traces["cuda"], traces["cpu"]))
+    if any(not torch.equal(a[1], b[1]) for a, b in zip(traces["cuda"], traces["cpu"])) or worst > PIPE_REF_TOL:
+        fail(f"placement: the CPU player from mirrored weights against the card's: actions differ or max |dh| {worst} > {PIPE_REF_TOL}")
+    took = time.perf_counter() - t0
+    log(f"placement (48): auto -> {auto.device} (probe: {latency * 1e3:.4f} ms a round trip; above 2 ms the start-up line would name host); host player (DV3-S bf16-mixed on the CPU, "
+        f"{torch.get_num_threads()} torch threads): {host_run['host_wall_ms_per_env_step']:.2f} ms a env step, 0 LN-GRU launches on the card; mirror "
+        f"{json.dumps({k: {kk: round(vv, 4) for kk, vv in v.items()} for k, v in mirror_times.items()})}; 32-true CPU player from mirrored weights "
+        f"against the card: actions equal over 5 steps, max |dh| {worst:.3g}; took {took:.1f} s")  # fmt: skip
+    return {"auto_device": str(auto.device), "probe_latency_ms": latency * 1e3, "player_bytes": nbytes, "torch_threads": torch.get_num_threads(),
+            "host_player": host_run, "mirror": mirror_times, "cpu_vs_card_max_abs_dh": worst, "took_s": took}  # fmt: skip
+
+
+def _recording(module, name, record):
+    """``module.name`` (a trainer's step factory) wrapped so that its first
+    call records the agent's state before and after, its inputs on the CPU,
+    the metrics and the optimizers' moments."""
+    import torch
+
+    real = getattr(module, name)
+
+    def factory(agent, optimizers, cfg):
+        call = real(agent, optimizers, cfg)
+        opts = optimizers.values() if isinstance(optimizers, dict) else [optimizers]
+
+        def first(*args):
+            if record:
+                return call(*args)
+            record["start"] = {k: v.detach().cpu().clone() for k, v in agent.state_dict().items()}
+            record["args"] = [{k: v.detach().cpu().clone() for k, v in a.items()} if isinstance(a, dict) else a.detach().cpu().clone() for a in args]
+            out = call(*args)
+            names = {id(p): n for n, p in agent.named_parameters()}
+            record["end"] = {k: v.detach().cpu().clone() for k, v in agent.state_dict().items()}
+            record["metrics"] = {k: float(v) for k, v in out.items()}
+            record["moments"] = {f"{m} {names[id(p)]}": opt.state[p][m].detach().cpu().clone() for opt in opts for p in opt.param_groups[0]["params"]
+                                 for m in ("exp_avg", "exp_avg_sq")}  # fmt: skip
+            return out
+
+        return first
+
+    return patched(module, name, factory)
+
+
+def _replay_on_cpu(what, record, agent, optimizers, call, tol):
+    """The recorded first call replayed on the CPU from the recorded state,
+    inputs and fresh optimizers: the losses within ``tol['loss_rtol']``, each
+    leaf's change and Adam moments within ``tol``."""
+    import torch
+
+    names = {id(p): n for n, p in agent.named_parameters()}
+    opts = optimizers.values() if isinstance(optimizers, dict) else [optimizers]
+    metrics = {k: float(v) for k, v in call(*record["args"]).items()}
+    end = {k: v.detach().clone() for k, v in agent.state_dict().items()}
+    moments = {f"{m} {names[id(p)]}": opt.state[p][m] for opt in opts for p in opt.param_groups[0]["params"] for m in ("exp_avg", "exp_avg_sq")}
+    for k in metrics:
+        if abs(record["metrics"][k] - metrics[k]) > tol["loss_atol"] + tol["loss_rtol"] * abs(metrics[k]):
+            fail(f"{what}: {k} {record['metrics'][k]} on the card, {metrics[k]} on the CPU")
+    moved = [k for k in end if not torch.equal(end[k], record["start"][k])]
+    param = max(((g, k) for k, g in _relative_gaps({k: record["end"][k] for k in moved}, {k: end[k] for k in moved}, record["start"], record["start"]).items()))
+    moment = max(((g, k) for k, g in _relative_gaps(record["moments"], moments).items()))
+    if param[0] > tol["param_change"] or moment[0] > tol["adam_moment"]:
+        fail(f"{what}: card against CPU, worst leaf change {param}, worst Adam moment {moment} (limits {tol})")
+    return {"losses_card": record["metrics"], "losses_cpu": metrics, "worst_param_change": {"leaf": param[1], "gap": param[0]},
+            "worst_adam_moment": {"leaf": moment[1], "gap": moment[0]}, "tolerance": tol}  # fmt: skip
+
+
+def _decoupled_run(args, what, log_root):
+    """One decoupled CLI run on the card with a host player, timed, its
+    LN-GRU counts zeroed just before and read just after."""
+    import torch
+
+    from sheeprl_tpu_torch.cli import run
+
+    zero_counts()
+    t0 = time.perf_counter()
+    out = run([*args, f"log_root={log_root}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    if out["placement"]["device"] != "cpu" or out["placement"]["on_mesh"] or counts["forward"] or counts["backward"]:
+        fail(f"{what}: player on {out['placement']['device']} ({out['placement']}), LN-GRU {counts}")
+    params = [v for v in out["agent"].state_dict().values() if v.is_floating_point()]
+    if not all(torch.isfinite(p).all() for p in params):
+        fail(f"{what}: non-finite parameters")
+    return out, wall, counts
+
+
+def phase_sac_decoupled(log_root):
+    """(49) ``exp=sac_decoupled`` on ``env=dummy`` (``continuous_dummy``) at
+    the recipe's widths, ``fabric.devices=1 fabric.player_device=host``, in
+    ``fresh`` and in ``async``: the player on the CPU, the trainer on the
+    card, no LN-GRU launch; the first train call held against the CPU at
+    ``phase_sac_reference``'s bounds; the ``fresh`` run resumed from its
+    mid-run checkpoint and evaluated; host wall per iteration and the
+    mirror's pushes, bytes and issue time."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.sac import sac as sac_module
+    from sheeprl_tpu_torch.algos.sac.agent import build_agent
+    from sheeprl_tpu_torch.algos.sac.sac import make_optimizers, make_train_step
+    from sheeprl_tpu_torch.cli import evaluation, run
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.dummy import ContinuousDummyEnv
+
+    t0 = time.perf_counter()
+    result = {"cuts": SACD_CUTS}
+    for sync in ("fresh", "async"):
+        record = {}
+        args = [*SACD_ARGS, f"fabric.player_sync={sync}"]
+        with _recording(sac_module, "make_train_step", record):
+            out, wall, counts = _decoupled_run(args, f"sac_decoupled {sync}", log_root)
+        cfg = compose([*args, "device=cpu"])
+        env = ContinuousDummyEnv(action_dim=int(cfg.env.wrapper.action_dim))
+        agent = build_agent(cfg, env.observation_space, env.action_space, agent_state=record["start"], device="cpu")
+        optimizers = make_optimizers(agent, cfg)
+        reference = _replay_on_cpu(f"sac_decoupled {sync} first train call", record, agent, optimizers, make_train_step(agent, optimizers, cfg),
+                                   {"loss_rtol": 1e-4, "loss_atol": 1e-6, "param_change": SAC_PARAM_CHANGE_TOL, "adam_moment": SAC_MOMENT_TOL})  # fmt: skip
+        iters = int(cfg.algo.total_steps) // int(cfg.env.num_envs)
+        result[sync] = {"gradient_steps": out["gradient_steps"], "host_wall_s": wall, "host_wall_ms_per_iteration": wall * 1e3 / iters,
+                        "placement": out["placement"], "mirror_issue_ms_per_push": out["placement"]["push_s"] * 1e3 / max(1, out["placement"]["pushes"]),
+                        "ln_gru_launches": counts, "first_call_card_vs_cpu": reference, "test_reward": out["test_reward"]}  # fmt: skip
+        if sync == "fresh":
+            mid = next(c for c in out["checkpoints"] if "ckpt_96_" in c)
+            resumed = run([*args, f"checkpoint.resume_from={mid}", f"log_root={log_root}"])
+            if resumed["gradient_steps"] != out["gradient_steps"]:
+                fail(f"sac_decoupled: resumed to {resumed['gradient_steps']} gradient steps, the whole run took {out['gradient_steps']}")
+            result[sync]["resumed_gradient_steps"] = resumed["gradient_steps"]
+            result[sync]["eval_reward"] = evaluation([f"checkpoint_path={out['checkpoints'][-1]}"])
+        log(f"sac_decoupled (49) {sync}: {out['gradient_steps']} gradient steps, {result[sync]['host_wall_ms_per_iteration']:.2f} ms host wall an iteration, "
+            f"mirror {out['placement']['pushes']} pushes of {out['placement']['bytes']} bytes, {result[sync]['mirror_issue_ms_per_push']:.3f} ms to issue one, "
+            f"{out['placement']['skipped']} skipped; first train call card vs CPU: worst leaf {reference['worst_param_change']}, worst moment "
+            f"{reference['worst_adam_moment']}" + (f"; resumed from step 96 to {result[sync]['resumed_gradient_steps']} gradient steps, eval "
+            f"{result[sync]['eval_reward']}" if sync == "fresh" else ""))  # fmt: skip
+        del out
+        torch.cuda.empty_cache()
+    result["took_s"] = time.perf_counter() - t0
+    return result
+
+
+def phase_ppo_decoupled(log_root):
+    """(50) ``exp=ppo_decoupled`` on ``env=dummy`` at the recipe's widths,
+    ``fabric.devices=1 fabric.player_device=host``: the rollout and GAE on the
+    CPU player, the update on the card, lockstep (``fresh``); no LN-GRU
+    launch; the first update held against the CPU at ``PPO_REF_TOL``;
+    resumed from its mid-run checkpoint and evaluated; host wall per
+    iteration and the mirror's pushes, bytes and issue time."""
+    from sheeprl_tpu_torch.algos.ppo import ppo_decoupled
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.ppo import make_update_pool
+    from sheeprl_tpu_torch.cli import evaluation, run
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.core.onpolicy import make_optimizer
+
+    t0 = time.perf_counter()
+    record = {}
+    with _recording(ppo_decoupled, "make_update_pool", record):
+        out, wall, counts = _decoupled_run(PPOD_ARGS, "ppo_decoupled", log_root)
+    cfg = compose([*PPOD_ARGS, "device=cpu"])
+    obs_space, actions_dim, continuous = _ppo_spaces(cfg)
+    agent = build_agent(actions_dim, continuous, cfg, obs_space, device="cpu", agent_state=record["start"])
+    optimizer, _ = make_optimizer(agent, cfg)
+    reference = _replay_on_cpu("ppo_decoupled first update", record, agent, optimizer, make_update_pool(agent, optimizer, cfg), PPO_REF_TOL)
+    mid = next(c for c in out["checkpoints"] if "ckpt_512_" in c)
+    resumed = run([*PPOD_ARGS, f"checkpoint.resume_from={mid}", f"log_root={log_root}"])
+    if resumed["policy_steps"] != out["policy_steps"] or resumed["updates"] != 1:
+        fail(f"ppo_decoupled: the resumed run ended at {resumed['policy_steps']} after {resumed['updates']} updates")
+    eval_reward = evaluation([f"checkpoint_path={out['checkpoints'][-1]}"])
+    updates = out["updates"]
+    result = {"cuts": PPOD_CUTS, "updates": updates, "host_wall_s": wall, "host_wall_ms_per_iteration": wall * 1e3 / updates, "placement": out["placement"],
+              "mirror_issue_ms_per_push": out["placement"]["push_s"] * 1e3 / max(1, out["placement"]["pushes"]), "ln_gru_launches": counts,
+              "first_update_card_vs_cpu": reference, "eval_reward": eval_reward, "took_s": time.perf_counter() - t0}  # fmt: skip
+    log(f"ppo_decoupled (50): {updates} updates, {result['host_wall_ms_per_iteration']:.1f} ms host wall an iteration (rollout of "
+        f"{cfg.algo.rollout_steps} x {cfg.env.num_envs} on the CPU player, GAE, the update on the card), mirror {out['placement']['pushes']} pushes of "
+        f"{out['placement']['bytes']} bytes, {result['mirror_issue_ms_per_push']:.3f} ms to issue one; first update card vs CPU: worst leaf "
+        f"{reference['worst_param_change']}, worst moment {reference['worst_adam_moment']}; resumed, eval {eval_reward}")  # fmt: skip
+    return result
+
+
+def phases_47_50(workdir):
+    """Phases 47-50 (they run alone too, after ``kernels.build()``)."""
+    t0 = time.perf_counter()
+    pipeline = phase_pipeline(workdir)
+    placement = phase_placement()
+    sacd = phase_sac_decoupled(workdir)
+    ppod = phase_ppo_decoupled(workdir)
+    took = time.perf_counter() - t0
+    log(f"interaction layer: phases 47-50 took {took:.1f} s")
+    return {"pipeline": pipeline, "placement": placement, "sac_decoupled": sacd, "ppo_decoupled": ppod, "phases_47_50_s": took}
+
+
 def main() -> None:
     import warnings
 
@@ -5571,6 +6248,7 @@ def main() -> None:
         log(f"p2e_dv3, p2e_dv2: phases 31-36 took {p2e_phases_s:.1f} s")
         last_trainers = phases_37_41(workdir)
         anakin = phases_42_46(workdir)
+        interaction = phases_47_50(workdir)
         replay_sample = phase_replay_sample()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -5594,6 +6272,8 @@ def main() -> None:
     bwd16_in_step_ms = train_profile["ln_gru_backward_in_step_ms_by_batch"][16]["ms"]
     bwd1024_in_step_ms = continuous_profile["ln_gru_backward_in_step_ms_by_batch"][IMAGINED_BATCH]["ms"]
 
+    timings = interaction["pipeline"]["timings"]
+
     def entry(name, source, replaces, shapes, launches, row, err):
         # The on-policy trainers' runs (phases 26-27), P2E-DV1's and SAC-AE's (37, 39) launch none: checked there, shown here.
         kind = {"ln_gru_forward": "forward", "ln_gru_forward_tensor_core": "tensor_core", "ln_gru_backward": "backward"}[name]
@@ -5606,7 +6286,11 @@ def main() -> None:
                 "launches_sac_ae": last_trainers["sac_ae"]["host"]["ln_gru_launches"][kind],
                 "launches_dv3_anakin": anakin["dv3_anakin"]["ln_gru_launches"][kind],
                 "launches_dv3_anakin_bf16": anakin["dv3_anakin"]["bf16_mixed"]["ln_gru_launches"][kind],
-                "launches_ppo_anakin": 0, "launches_sac_anakin": 0}  # fmt: skip
+                "launches_ppo_anakin": 0, "launches_sac_anakin": 0,
+                "launches_pipeline_s1": timings["s1_sync"]["ln_gru_launches"][kind], "launches_pipeline_s2": timings["s2_async"]["ln_gru_launches"][kind],
+                "launches_host_player": interaction["placement"]["host_player"]["ln_gru_launches"][kind],
+                "launches_sac_decoupled": interaction["sac_decoupled"]["fresh"]["ln_gru_launches"][kind],
+                "launches_ppo_decoupled": interaction["ppo_decoupled"]["ln_gru_launches"][kind]}  # fmt: skip
 
     def in_graph(kernel):
         """The kernel's nodes in the captured step's graph, and its launches
@@ -5706,6 +6390,21 @@ def main() -> None:
         anakin_entry(DV3A_BATCH, "bfloat16", "backward", per_step, "dynamic scan"),
     ]
     dv3a = anakin["dv3_anakin"]
+    def pipeline_entry(dtype, launches, where):
+        """The streaming forward at the two-slice player's B = 2."""
+        row = next(r for r in interaction["pipeline"]["kernels_b2"] if r["dtype"] == dtype)
+        part = row["forward"]
+        return entry("ln_gru_forward", "sheeprl_tpu_torch/csrc/ln_gru.cu", "sheeprl_tpu/models/pallas_gru.py:118",
+                     f"{row['shape']} {dtype}, streaming kernel (DreamerV3-S player, {where}; 2 launches per env step, one a slice)", launches, part,
+                     max(part["max_abs_err_h"], part["max_abs_err_z"])) | {"product_library_ms": part["product_library_ms"]}  # fmt: skip
+
+    pipeline_entries = [
+        pipeline_entry("bfloat16", timings["s2_async"]["ln_gru_launches"]["forward_by_batch"].get(PIPE_ENVS // 2, 0), "env.pipeline_slices=2 bf16-mixed"),
+        pipeline_entry("float32", interaction["pipeline"]["s2_32_true_ln_gru_launches"]["forward_by_batch"].get(PIPE_ENVS // 2, 0),
+                       "env.pipeline_slices=2 32-true, against one slice"),
+    ]
+    # The one-slice player runs at the Anakin player's B = 4 (phase 43's rows).
+    anakin_entries[1] |= {"launches_pipeline_s1_b4": timings["s1_sync"]["ln_gru_launches"]["forward_by_batch"].get(PIPE_ENVS, 0)}
     anakin_entries[0] |= {"graph_nodes_per_rollout": dv3a["rollouts"]["c16_r0"]["graph"]["ln_gru"]["streaming"],
                           "launches_by_rollout_replays": dv3a["rollouts"]["c16_r0"]["graph"]["ln_gru"]["streaming"] * dv3a["rollouts"]["c16_r0"]["replays"]}
     kernels_line = {
@@ -5733,6 +6432,7 @@ def main() -> None:
             *dv2_entries,
             *p2e_entries,
             *anakin_entries,
+            *pipeline_entries,
         ]
     }  # fmt: skip
     report = {
@@ -5796,6 +6496,7 @@ def main() -> None:
         "p2e_phases_s": p2e_phases_s,
         **last_trainers,
         **anakin,
+        **interaction,
         "kernels": kernels_line["kernels"],
         "phase_s": phase_s,
     }

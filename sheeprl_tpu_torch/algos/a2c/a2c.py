@@ -16,9 +16,11 @@ steps of the vector env, a truncated episode's reward bootstrapped with
 ``gamma * V(final obs)``, the rollout in a ``ReplayBuffer``, then one
 update; ``anneal_lr`` decays the learning rate linearly over the run. The
 tags and log points, the checkpoints (the JAX package's fields) and their
-resume, and the greedy test episode are the JAX package's. As for PPO, the
-interaction pipeline, player placement, telemetry, health probes and the
-preemption guard are not ported (ROADMAP A7, A10, A12).
+resume, and the greedy test episode are the JAX package's. The player runs
+where its placement puts it (``core/player.py``, always ``fresh``) and its
+outputs and the truncation bootstrap come back through the interaction
+pipeline's fetch (``core/interact.py``), as in the JAX loop. Telemetry,
+health probes and the preemption guard are not ported (ROADMAP A10, A12).
 
 The rollout step, GAE and the update run under ``record_function`` spans
 (``a2c/rollout_step``, ``a2c/gae``, ``a2c/update``).
@@ -37,7 +39,9 @@ from sheeprl_tpu_torch.algos.a2c.utils import test
 from sheeprl_tpu_torch.algos.ppo.agent import PPOAgent, build_agent
 from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss
 from sheeprl_tpu_torch.algos.ppo.ppo import _to_device, minibatch_indices
+from sheeprl_tpu_torch.core.interact import InteractionPipeline
 from sheeprl_tpu_torch.core.onpolicy import log_episodes, open_run
+from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
 from sheeprl_tpu_torch.core.rollout import bootstrap_truncated, fuse_gae_pool
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
@@ -118,14 +122,17 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
     num_envs, rollout_steps, batch_size, policy_step = int(cfg.env.num_envs), int(cfg.algo.rollout_steps), run.batch_size, run.policy_step
 
     train_step = make_train_step(agent, run.optimizer, cfg)
-    player_rng = BatchGenerator.from_seed(cfg.seed, device)
+    placement = PlayerPlacement.resolve(cfg, device, nbytes=param_bytes(agent), force_fresh=True)
+    pipeline = InteractionPipeline.from_config(cfg)
+    player_rng = BatchGenerator.from_seed(cfg.seed, placement.device)
     perm_generator = torch.Generator(device=device).manual_seed(int(cfg.seed) + 1)
     action_shape = tuple(run.action_space.shape)
     n_actions = int(sum(run.actions_dim))
 
     @torch.no_grad()
     def values_of(env_ids: np.ndarray, final: Dict[str, np.ndarray]) -> np.ndarray:
-        return agent.get_values(_to_device(prepare_obs(final, num_envs=len(env_ids)), device)).cpu().numpy()
+        values = placement.player(agent).get_values(_to_device(prepare_obs(final, num_envs=len(env_ids)), placement.device))
+        return pipeline.fetch(values, label="trunc_bootstrap").harvest()
 
     obs = envs.reset(seed=cfg.seed)[0]
     next_obs = {k: obs[k] for k in obs_keys}
@@ -135,10 +142,11 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
             policy_step += num_envs
             with timer("Time/env_interaction_time"), record_function("a2c/rollout_step"):
                 with torch.no_grad():
-                    actions, real, logprobs, values = agent.player_step(_to_device(prepare_obs(next_obs, num_envs=num_envs), device), player_rng)
+                    obs_t = _to_device(prepare_obs(next_obs, num_envs=num_envs), placement.device)
+                    actions, real, logprobs, values = placement.player(agent).player_step(obs_t, player_rng)
                     # One copy to the host for the step's outputs.
                     parts = [actions.float(), logprobs, values] + ([] if is_continuous else [real.float()])
-                    host = torch.cat(parts, -1).cpu().numpy()
+                    host = pipeline.fetch(torch.cat(parts, -1)).harvest()
                 actions_np, values_np = host[:, :n_actions], host[:, n_actions + 1 : n_actions + 2]
                 real_np = actions_np if is_continuous else host[:, n_actions + 2 :].astype(np.int64)
                 obs, rewards, terminated, truncated, info = envs.step(real_np.reshape((num_envs, *action_shape)))
@@ -164,10 +172,11 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
         with train_timer(device):
             indices = minibatch_indices(rollout_steps * num_envs, batch_size, 1, perm_generator)[0]
             metrics = train_step(data, next_obs_t, indices)
+        placement.push()
         if callback is not None:
             callback(agent, iter_num, metrics)
         log_points.after_update(metrics, iter_num, run.total_iters, policy_step)
         run.anneal(iter_num)
         run.checkpoint(iter_num, policy_step)
 
-    return run.finish(test, policy_step)
+    return {**run.finish(test, policy_step), "interaction": pipeline.publish(), "placement": placement.stats()}

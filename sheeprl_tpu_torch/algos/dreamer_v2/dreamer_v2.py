@@ -28,9 +28,12 @@ after the env step and a reset row for every finished episode, a sequential
 ``per_rank_target_network_update_freq`` of them, the metric aggregator,
 timers and TensorBoard logger every ``metric.log_every`` policy steps,
 checkpoints and resume, and the greedy test episode. The JAX ``main`` has no
-device buffer and no Anakin branch, and neither has this one; the
-interaction pipeline and the player's placement wait for the port of
-``core/interact.py`` and ``core/player.py`` (ROADMAP).
+device buffer and no Anakin branch, and neither has this one. The player
+runs where its placement puts it (``core/player.py``: ``fabric.player_device``,
+``fabric.player_sync``, the mirror pushed after every train call) and its
+actions come back through the interaction pipeline's fetch
+(``core/interact.py``, ``fabric.async_fetch``), as in the JAX loop; the
+defaults are the serial loop.
 """
 
 from __future__ import annotations
@@ -51,6 +54,8 @@ from sheeprl_tpu_torch.algos.dreamer_v2.utils import compute_lambda_values, test
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import OPTIMIZER_KEYS, _clip, _one_hot, frozen, make_optimizers
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.core.device import resolve_device
+from sheeprl_tpu_torch.core.interact import InteractionPipeline
+from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, EpisodeBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.data.infeed import ReplayInfeed
 from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
@@ -421,8 +426,12 @@ def run_dreamer(
 
     trainer = build(cfg, actions_dim, is_continuous, observation_space, device, state_ckpt)
     agent, train_step = trainer.agent, trainer.train_step
+    # The player's placement (core/player.py) and the fetch of its actions
+    # (core/interact.py): the serial loop's by default.
+    placement = PlayerPlacement.resolve(cfg, device, nbytes=param_bytes(trainer.test_agent, PLAYER_STATE))
+    pipeline = InteractionPipeline.from_config(cfg)
     train_rng = BatchGenerator.from_seed(cfg.seed, device)
-    player_rng = BatchGenerator.from_seed(cfg.seed + 1, device)
+    player_rng = BatchGenerator.from_seed(cfg.seed + 1, placement.device)
 
     save_configs(cfg, log_dir)
     aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.aggregator)
@@ -465,14 +474,14 @@ def run_dreamer(
     if cfg.dry_run:
         step_data["terminated"] = step_data["terminated"] + 1
         step_data["truncated"] = step_data["truncated"] + 1
-    player_state = trainer.test_agent.init_player_state(num_envs)
+    player_state = placement.player(trainer.player(start_iter, learning_starts), PLAYER_STATE).init_player_state(num_envs)
     if state_ckpt is not None:
         train_rng.generator.set_state(state_ckpt["train_rng"])
         player_rng.generator.set_state(state_ckpt["player_rng"])
         ratio.load_state_dict(state_ckpt["ratio"])
         envs.load_state_dict(state_ckpt["envs"])
         obs, step_data = state_ckpt["obs"], state_ckpt["step_data"]
-        player_state = {k: v.to(device) for k, v in state_ckpt["player_state"].items()}
+        player_state = {k: v.to(placement.device) for k, v in state_ckpt["player_state"].items()}
         start_iter = int(state_ckpt["iter_num"]) + 1
         policy_step = int(state_ckpt["iter_num"]) * policy_steps_per_iter
         gradient_steps = int(state_ckpt["gradient_steps"])
@@ -500,8 +509,8 @@ def run_dreamer(
                     actions = _one_hot(actions, actions_dim)
             else:
                 prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
-                obs_t = normalize_obs({k: torch.from_numpy(v).to(device) for k, v in prepared.items()}, cnn_keys)
-                player = trainer.player(iter_num, learning_starts)
+                obs_t = normalize_obs({k: torch.from_numpy(v).to(placement.device) for k, v in prepared.items()}, cnn_keys)
+                player = placement.player(trainer.player(iter_num, learning_starts), PLAYER_STATE)
                 if loop.exploration:
                     amount = player.exploration_amount(policy_step)
                     actions_t, real_t, player_state = player.player_step(player_state, obs_t, player_rng, expl_amount=amount)
@@ -509,8 +518,9 @@ def run_dreamer(
                         aggregator.update("Params/exploration_amount", amount)
                 else:
                     actions_t, real_t, player_state = player.player_step(player_state, obs_t, player_rng)
-                actions = actions_t.float().cpu().numpy()
-                real_actions = actions if is_continuous else real_t.cpu().numpy()
+                # Continuous actions are the env's; discrete heads' indices come too.
+                host = pipeline.fetch((actions_t.float(),) + (() if is_continuous else (real_t,))).harvest()
+                actions, real_actions = host[0], host[-1]
                 if isinstance(action_space, Discrete):
                     real_actions = real_actions.reshape(num_envs)
             if loop.is_first:
@@ -552,7 +562,8 @@ def run_dreamer(
             step_data["truncated"][:, dones_idxes] = 0.0
             reset_mask = np.zeros((num_envs,), np.float32)
             reset_mask[dones_idxes] = 1.0
-            player_state = trainer.test_agent.reset_player_state(player_state, torch.from_numpy(reset_mask).to(device))
+            resetter = placement.player(trainer.player(iter_num, learning_starts), PLAYER_STATE)
+            player_state = resetter.reset_player_state(player_state, torch.from_numpy(reset_mask).to(placement.device))
 
         # ------------------------------------------------------- training
         if iter_num >= learning_starts:
@@ -571,6 +582,7 @@ def run_dreamer(
                             callback(agent, gradient_steps, metrics)
                     train_step_count += 1
                 infeed.stage(per_rank_gradient_steps)
+                placement.push()
 
         # -------------------------------------------------------- logging
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters):
@@ -626,9 +638,12 @@ def run_dreamer(
         "agent": agent, "optimizers": trainer.optimizers, "policy_steps": policy_step, "gradient_steps": gradient_steps, "log": log,
         "log_dir": log_dir, "checkpoints": checkpoints, "test_reward": test_reward,
         "infeed": {"hits": infeed.hits, "misses": infeed.misses}, "buffer": rb,
+        "interaction": pipeline.publish(), "placement": placement.stats(),
     }  # fmt: skip
 
 
+# What a host player mirrors of a DreamerV2 or DreamerV1 agent's state.
+PLAYER_STATE = ("world_model.", "actor.")
 DV2_LOOP = DreamerLoop(episode_buffer=True, is_first=True, target_copy=True, exploration=False, dry_run_rows=4)
 MODULES = ("world_model", "actor", "critic", "target_critic")
 

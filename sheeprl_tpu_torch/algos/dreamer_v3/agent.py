@@ -489,6 +489,14 @@ def continuous_log_prob_and_entropy(dist: Independent, actions: torch.Tensor, sp
     return dist.log_prob(actions), dist.entropy()
 
 
+# The state names :meth:`DV3Agent.player_step`, ``init_player_state`` and
+# ``reset_player_state`` read: what a player on the host mirrors.
+PLAYER_STATE = (
+    "world_model.cnn_encoder.", "world_model.mlp_encoder.", "world_model.recurrent_model.", "world_model.representation_model.",
+    "world_model.transition_model.", "world_model.initial_recurrent_state", "actor.",
+)  # fmt: skip
+
+
 class DV3Agent(nn.Module):
     """World model + actor (+ critic and target critic when training) + the
     functional player."""

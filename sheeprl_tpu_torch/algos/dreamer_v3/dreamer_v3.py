@@ -36,8 +36,13 @@ the rows are mirrored into a replay ring in device memory and the gradient
 steps run through :func:`make_fused_train_step` (on CUDA a captured graph
 that samples the ring); with ``buffer.prefetch`` the host path's batches are
 copied to the device by the infeed's worker while the envs step. The Anakin
-lane is ``core/fused_loop.py``'s. Not ported yet (ROADMAP): the interaction
-pipeline, telemetry, health probes and the preemption guard.
+lane is ``core/fused_loop.py``'s. The env step goes through the
+interaction pipeline (``core/interact.py``: ``env.pipeline_slices``,
+``fabric.async_fetch``, with the train call between the fetch and its
+harvest when the fetch is async) and the player through its placement
+(``core/player.py``: ``fabric.player_device``, ``fabric.player_sync``); the
+defaults are the serial loop. Not ported yet (ROADMAP): telemetry, health
+probes and the preemption guard.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ import torch
 from torch.profiler import record_function
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
+    PLAYER_STATE,
     DV3Agent,
     _continuous_dist,
     actor_forward,
@@ -65,6 +71,8 @@ from sheeprl_tpu_torch.algos.dreamer_v3.utils import test
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.core.graphs import CapturedStep, RingHolder, power_of_two_buckets
+from sheeprl_tpu_torch.core.interact import InteractionPipeline, tree_concat
+from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
 from sheeprl_tpu_torch.data.infeed import ReplayInfeed
@@ -622,8 +630,11 @@ def run_dreamer_v3(
 
     trainer = build(cfg, actions_dim, is_continuous, observation_space, device, state_ckpt)
     agent, train_step, moments = trainer.agent, trainer.train_step, trainer.moments
+    # The player's device (core/player.py): the card's modules, or CPU
+    # copies of the player's part that the mirror refreshes after each train call.
+    placement = PlayerPlacement.resolve(cfg, device, nbytes=param_bytes(trainer.test_agent, PLAYER_STATE))
     train_rng = BatchGenerator.from_seed(cfg.seed, device)
-    player_rng = BatchGenerator.from_seed(cfg.seed + 1, device)
+    player_rng = BatchGenerator.from_seed(cfg.seed + 1, placement.device)
 
     save_configs(cfg, log_dir)
     aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.aggregator)
@@ -683,7 +694,7 @@ def run_dreamer_v3(
     for k in ("rewards", "truncated", "terminated"):
         step_data[k] = np.zeros((1, num_envs, 1), np.float32)
     step_data["is_first"] = np.ones_like(step_data["terminated"])
-    player_state = trainer.test_agent.init_player_state(num_envs)
+    player_state = None
 
     if state_ckpt is None and trainer.buffer_state is not None:
         rb.load_state_dict(trainer.buffer_state)
@@ -693,7 +704,7 @@ def run_dreamer_v3(
         ratio.load_state_dict(state_ckpt["ratio"])
         envs.load_state_dict(state_ckpt["envs"])
         obs, step_data = state_ckpt["obs"], state_ckpt["step_data"]
-        player_state = {k: v.to(device) for k, v in state_ckpt["player_state"].items()}
+        player_state = state_ckpt["player_state"]
         start_iter = int(state_ckpt["iter_num"]) + 1
         policy_step = int(state_ckpt["iter_num"]) * policy_steps_per_iter
         gradient_steps = int(state_ckpt["gradient_steps"])
@@ -713,27 +724,108 @@ def run_dreamer_v3(
     infeed = ReplayInfeed(rb, batch_size, seq_len, cnn_keys, device, enabled=bool(cfg.buffer.prefetch))
     fused_gradient_steps = 0
 
+    def player_of(iter_num: int) -> DV3Agent:
+        return placement.player(trainer.player(iter_num, learning_starts), PLAYER_STATE)
+
+    # The interaction pipeline (core/interact.py) holds the player's state
+    # and generator per env slice; one slice with the fetch blocking is the
+    # serial loop.
+    pipeline = InteractionPipeline.from_config(cfg)
+    pipeline.set_key(player_rng)
+    if player_state is None:
+        pipeline.init_state(lambda n, r: player_of(start_iter).init_player_state(n))
+    else:
+        pipeline.init_state(lambda n, r: {k: v[r[0] : r[1]].to(placement.device) for k, v in player_state.items()})
+
+    def prepare(obs_slice: Dict[str, np.ndarray], out=None) -> Dict[str, np.ndarray]:
+        return prepare_obs({k: obs_slice[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=len(obs_slice[obs_keys[0]]), out=out)
+
+    def to_env_actions(host: Tuple[np.ndarray, ...], n: int) -> np.ndarray:
+        real_actions = host[-1]
+        return real_actions[:, 0] if isinstance(action_space, Discrete) else real_actions
+
+    def run_train(iter_num: int) -> None:
+        """The iteration's gradient steps (``Ratio``'s count), then the
+        player's weights pushed."""
+        nonlocal moments, gradient_steps, fused_gradient_steps, train_step_count, fused
+        if iter_num < learning_starts:
+            return
+        per_rank_gradient_steps = ratio(policy_step - prefill_steps * policy_steps_per_iter)
+        if per_rank_gradient_steps <= 0:
+            return
+        if ring is not None:
+            ring.flush()  # this call's rows, in one copy to the card
+        if ring is not None and ring.ready(seq_len):
+            if fused is None:
+                ring_sample = ring.make_sample_fn(batch_size, sequence_length=seq_len, time_major=True)
+                fused = make_fused_train_step(agent, trainer.optimizers, cfg, lambda state, rng: ring_sample(state, rng.generator), train_rng)
+            with train_timer(device):
+                # One metrics entry per bucket, its mean.
+                for k in power_of_two_buckets(per_rank_gradient_steps, fused_train_steps):
+                    taus = target_update_taus(gradient_steps, k, freq, cfg.algo.critic.tau)
+                    on_step = None
+                    if callback is not None:
+                        on_step = functools.partial(_fused_callback, callback, agent, gradient_steps + 1, taus)
+                    moments, metrics = fused(moments, ring.state, taus, on_step)
+                    gradient_steps += k
+                    fused_gradient_steps += k
+                    if aggregator is not None:
+                        pending.append(metrics)
+                train_step_count += 1
+        else:
+            batches = infeed.take_or_sample(per_rank_gradient_steps)
+            taus = target_update_taus(gradient_steps, per_rank_gradient_steps, freq, cfg.algo.critic.tau)
+            with train_timer(device):
+                for i in range(per_rank_gradient_steps):
+                    moments, metrics = train_step(moments, batches[i], train_rng, float(taus[i]))
+                    gradient_steps += 1
+                    if aggregator is not None:
+                        pending.append(metrics)  # the device's 0-d tensors, read back at the log point
+                    if callback is not None:
+                        callback(agent, gradient_steps, float(taus[i]), metrics)
+                train_step_count += 1
+            infeed.stage(per_rank_gradient_steps)
+        placement.push()
+
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
+        trained_in_flight = False
         with timer("Time/env_interaction_time"):
             if iter_num <= learning_starts and state_ckpt is None and trainer.random_prefill:
                 real_actions = actions = envs.sample_actions()
                 if not is_continuous:
                     actions = _one_hot(actions, actions_dim)
+                step_data["actions"] = actions.reshape((1, num_envs, -1)).astype(np.float32)
+                rb.add(step_data, validate_args=cfg.buffer.validate_args)
+                if ring is not None:
+                    ring.add(step_data)
+                next_obs, rewards, terminated, truncated, infos = envs.step(real_actions)
+                next_obs = pipeline.stash_obs(next_obs)
             else:
-                prepared = prepare_obs({k: obs[k] for k in obs_keys}, cnn_keys=cnn_keys, num_envs=num_envs)
-                obs_t = normalize_obs({k: torch.from_numpy(v).to(device) for k, v in prepared.items()}, cnn_keys)
-                player = trainer.player(iter_num, learning_starts)
-                actions_t, real_t, player_state = player.player_step(player_state, obs_t, player_rng)
-                actions = actions_t.float().cpu().numpy()
-                real_actions = actions if is_continuous else real_t.cpu().numpy()
-                if isinstance(action_space, Discrete):
-                    real_actions = real_actions[:, 0]
-            step_data["actions"] = actions.reshape((1, num_envs, -1)).astype(np.float32)
-            rb.add(step_data, validate_args=cfg.buffer.validate_args)
-            if ring is not None:
-                ring.add(step_data)
-            next_obs, rewards, terminated, truncated, infos = envs.step(real_actions)
+                player = player_of(iter_num)
+
+                def policy(prepared, state, rng):
+                    obs_t = normalize_obs({k: torch.from_numpy(v).to(placement.device) for k, v in prepared.items()}, cnn_keys)
+                    state = {k: v.to(placement.device) for k, v in state.items()}
+                    actions_t, real_t, new_state = player.player_step(state, obs_t, rng)
+                    # Continuous actions are the env's; discrete heads' indices come too.
+                    return (actions_t.float(),) + (() if is_continuous else (real_t,)), new_state, rng
+
+                # The train call rides between the fetch and its harvest once
+                # the buffer holds a step past the prefill (its batches then
+                # lag the buffer by one step).
+                trained_in_flight = pipeline.overlap_train and iter_num > learning_starts + 1
+                res = pipeline.interact(
+                    envs, obs, policy, prepare=prepare, to_env_actions=to_env_actions,
+                    before_harvest=functools.partial(run_train, iter_num) if trained_in_flight else None,
+                )  # fmt: skip
+                # The row of step t (its obs and the actions just taken)
+                # depends on nothing the env step returned.
+                step_data["actions"] = res.outputs[0].reshape((1, num_envs, -1)).astype(np.float32)
+                rb.add(step_data, validate_args=cfg.buffer.validate_args)
+                if ring is not None:
+                    ring.add(step_data)
+                next_obs, rewards, terminated, truncated, infos = res.obs, res.rewards, res.terminated, res.truncated, res.infos
             dones = np.logical_or(terminated, truncated).astype(np.uint8)
 
         step_data["is_first"] = np.zeros_like(step_data["terminated"])
@@ -770,46 +862,15 @@ def run_dreamer_v3(
             for k in ("rewards", "terminated", "truncated"):
                 step_data[k][:, dones_idxes] = 0.0
             step_data["is_first"][:, dones_idxes] = 1.0
-            reset_mask = np.zeros((num_envs,), np.float32)
+            reset_mask = torch.zeros((num_envs,), dtype=torch.float32)
             reset_mask[dones_idxes] = 1.0
-            player_state = trainer.test_agent.reset_player_state(player_state, torch.from_numpy(reset_mask).to(device))
+            # The mask is in the whole vector's columns; each slice takes its own.
+            resetter = player_of(iter_num)
+            pipeline.map_state(lambda state, r: resetter.reset_player_state(state, reset_mask[r[0] : r[1]].to(placement.device)))
 
         # ------------------------------------------------------- training
-        if iter_num >= learning_starts:
-            per_rank_gradient_steps = ratio(policy_step - prefill_steps * policy_steps_per_iter)
-            if per_rank_gradient_steps > 0:
-                if ring is not None:
-                    ring.flush()  # this call's rows, in one copy to the card
-                if ring is not None and ring.ready(seq_len):
-                    if fused is None:
-                        ring_sample = ring.make_sample_fn(batch_size, sequence_length=seq_len, time_major=True)
-                        fused = make_fused_train_step(agent, trainer.optimizers, cfg, lambda state, rng: ring_sample(state, rng.generator), train_rng)
-                    with train_timer(device):
-                        # One metrics entry per bucket, its mean.
-                        for k in power_of_two_buckets(per_rank_gradient_steps, fused_train_steps):
-                            taus = target_update_taus(gradient_steps, k, freq, cfg.algo.critic.tau)
-                            on_step = None
-                            if callback is not None:
-                                on_step = functools.partial(_fused_callback, callback, agent, gradient_steps + 1, taus)
-                            moments, metrics = fused(moments, ring.state, taus, on_step)
-                            gradient_steps += k
-                            fused_gradient_steps += k
-                            if aggregator is not None:
-                                pending.append(metrics)
-                        train_step_count += 1
-                else:
-                    batches = infeed.take_or_sample(per_rank_gradient_steps)
-                    taus = target_update_taus(gradient_steps, per_rank_gradient_steps, freq, cfg.algo.critic.tau)
-                    with train_timer(device):
-                        for i in range(per_rank_gradient_steps):
-                            moments, metrics = train_step(moments, batches[i], train_rng, float(taus[i]))
-                            gradient_steps += 1
-                            if aggregator is not None:
-                                pending.append(metrics)  # the device's 0-d tensors, read back at the log point
-                            if callback is not None:
-                                callback(agent, gradient_steps, float(taus[i]), metrics)
-                        train_step_count += 1
-                    infeed.stage(per_rank_gradient_steps)
+        if not trained_in_flight:
+            run_train(iter_num)
 
         # -------------------------------------------------------- logging
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters):
@@ -850,7 +911,7 @@ def run_dreamer_v3(
                 ratio=ratio.state_dict(), iter_num=iter_num, gradient_steps=gradient_steps, batch_size=batch_size,
                 last_log=last_log, last_checkpoint=last_checkpoint, train_rng=train_rng.generator.get_state(),
                 player_rng=player_rng.generator.get_state(), envs=envs.state_dict(), obs=obs, step_data=step_data,
-                player_state=player_state, observation_space=observation_space.to_spec(), action_space=action_space.to_spec(),
+                player_state=tree_concat(pipeline.states), observation_space=observation_space.to_spec(), action_space=action_space.to_spec(),
             )  # fmt: skip
             if cfg.buffer.checkpoint:
                 ckpt_state["rb"] = rb.state_dict()
@@ -879,4 +940,6 @@ def run_dreamer_v3(
             "replays": fused.captured.replays, "graph": fused.captured.nodes,
         },
         "infeed": {"hits": infeed.hits, "misses": infeed.misses},
+        "interaction": pipeline.publish(),
+        "placement": placement.stats(),
     }  # fmt: skip

@@ -13,7 +13,7 @@ from sheeprl_tpu_torch.registry import register_evaluation
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 
 
-@register_evaluation(algorithms="ppo")
+@register_evaluation(algorithms=["ppo", "ppo_decoupled"])
 def evaluate_ppo(cfg, state: Dict[str, Any]) -> float:
     """Log under ``<log_root>/<root_dir>/<run_name>`` and return the test
     episode's cumulative reward."""

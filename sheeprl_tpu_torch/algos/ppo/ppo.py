@@ -21,9 +21,11 @@ entropy coefficients decay linearly over the run with ``anneal_lr``,
 optimizer's param group); ``max_grad_norm`` > 0 clips the gradients' global
 norm before Adam. The tags and log points, the checkpoints and their resume,
 and the greedy test episode at the end are the JAX package's. The Anakin
-lane is ``core/fused_loop.py``'s. Not ported yet
-(ROADMAP): the interaction pipeline and player placement,
-telemetry, health probes, the preemption guard and the watchdog.
+lane is ``core/fused_loop.py``'s. The env step goes through the interaction
+pipeline (``core/interact.py``), the truncation bootstrap through its fetch,
+and the player through its placement (``core/player.py``, always ``fresh``:
+a rollout plays the weights of the update before it). Not ported yet
+(ROADMAP): telemetry, health probes, the preemption guard and the watchdog.
 
 The rollout step, GAE and the update run under
 ``torch.profiler.record_function`` spans (``ppo/rollout_step``,
@@ -42,7 +44,9 @@ from torch.profiler import record_function
 from sheeprl_tpu_torch.algos.ppo.agent import PPOAgent, build_agent
 from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_loss
 from sheeprl_tpu_torch.algos.ppo.utils import test
+from sheeprl_tpu_torch.core.interact import InteractionPipeline
 from sheeprl_tpu_torch.core.onpolicy import encoder_keys, log_episodes, open_run
+from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
 from sheeprl_tpu_torch.core.onpolicy import make_optimizer as make_optimizer  # the JAX ppo.make_optimizer's counterpart
 from sheeprl_tpu_torch.core.rollout import bootstrap_truncated, fuse_gae_pool
 from sheeprl_tpu_torch.registry import register_algorithm
@@ -137,6 +141,19 @@ def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg) -> C
     return train_step
 
 
+def rollout_outputs(actions_dim, is_continuous: bool) -> Callable[[np.ndarray], tuple]:
+    """The rollout step's one host array ``[n, A + 2 (+ A)]`` split into
+    (actions, logprobs, values, the env's actions): the actions as the
+    buffer stores them, and for discrete heads the indices after them."""
+    n_actions = int(sum(actions_dim))
+
+    def split(host: np.ndarray) -> tuple:
+        actions, logprobs, values = host[:, :n_actions], host[:, n_actions : n_actions + 1], host[:, n_actions + 1 : n_actions + 2]
+        return actions, logprobs, values, actions if is_continuous else host[:, n_actions + 2 :].astype(np.int64)
+
+    return split
+
+
 def _to_device(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrays.items()}
 
@@ -189,31 +206,40 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
         )
 
     train_step = make_train_step(agent, optimizer, cfg)
-    player_rng = BatchGenerator.from_seed(cfg.seed, device)
+    placement = PlayerPlacement.resolve(cfg, device, nbytes=param_bytes(agent), force_fresh=True)
+    player_rng = BatchGenerator.from_seed(cfg.seed, placement.device)
     perm_generator = torch.Generator(device=device).manual_seed(int(cfg.seed) + 1)
+    pipeline = InteractionPipeline.from_config(cfg)
+    pipeline.set_key(player_rng)
     action_shape = tuple(run.action_space.shape)
-    n_actions = int(sum(run.actions_dim))
+    split = rollout_outputs(run.actions_dim, is_continuous)
 
     @torch.no_grad()
     def values_of(env_ids: np.ndarray, final: Dict[str, np.ndarray]) -> np.ndarray:
-        return agent.get_values(_to_device(prepare_obs(final, cnn_keys=cnn_keys, num_envs=len(env_ids)), device)).cpu().numpy()
+        obs_t = _to_device(prepare_obs(final, cnn_keys=cnn_keys, num_envs=len(env_ids)), placement.device)
+        return pipeline.fetch(placement.player(agent).get_values(obs_t), label="trunc_bootstrap").harvest()
 
-    obs = envs.reset(seed=cfg.seed)[0]
+    @torch.no_grad()
+    def policy(prepared: Dict[str, np.ndarray], state, rng):
+        actions, real, logprobs, values = placement.player(agent).player_step(_to_device(prepared, placement.device), rng)
+        # One copy to the host for the step's outputs.
+        return torch.cat([actions.float(), logprobs, values] + ([] if is_continuous else [real.float()]), -1), state, rng
+
+    def prepare(obs: Dict[str, np.ndarray], out=None) -> Dict[str, np.ndarray]:
+        return prepare_obs(obs, cnn_keys=cnn_keys, num_envs=len(obs[obs_keys[0]]), out=out)
+
+    obs = pipeline.stash_obs(envs.reset(seed=cfg.seed)[0])
     next_obs = {k: obs[k] for k in obs_keys}
     step_data: Dict[str, np.ndarray] = {k: obs[k][np.newaxis] for k in obs_keys}
     for iter_num in range(run.start_iter, run.total_iters + 1):
         for _ in range(rollout_steps):
             policy_step += num_envs
             with timer("Time/env_interaction_time"), record_function("ppo/rollout_step"):
-                prepared = prepare_obs(next_obs, cnn_keys=cnn_keys, num_envs=num_envs)
-                with torch.no_grad():
-                    actions, real, logprobs, values = agent.player_step(_to_device(prepared, device), player_rng)
-                    # One copy to the host for the step's outputs.
-                    parts = [actions.float(), logprobs, values] + ([] if is_continuous else [real.float()])
-                    host = torch.cat(parts, -1).cpu().numpy()
-                actions_np, logprobs_np, values_np = host[:, :n_actions], host[:, n_actions : n_actions + 1], host[:, n_actions + 1 : n_actions + 2]
-                real_np = actions_np if is_continuous else host[:, n_actions + 2 :].astype(np.int64)
-                obs, rewards, terminated, truncated, info = envs.step(real_np.reshape((num_envs, *action_shape)))
+                res = pipeline.interact(
+                    envs, next_obs, policy, prepare=prepare, to_env_actions=lambda host, n: split(host)[3].reshape((n, *action_shape))
+                )
+                actions_np, logprobs_np, values_np, _ = split(res.outputs)
+                obs, rewards, terminated, truncated, info = res.obs, res.rewards, res.terminated, res.truncated, res.infos
                 bootstrap_truncated(rewards, truncated, info, obs_keys, cfg.algo.gamma, values_of)
                 dones = np.logical_or(terminated, truncated).reshape(num_envs, -1).astype(np.uint8)
                 rewards = clip_rewards_fn(rewards).reshape(num_envs, -1).astype(np.float32)
@@ -238,6 +264,7 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
             clip_coef = torch.tensor(cfg.algo.clip_coef, dtype=torch.float32, device=device)
             ent_coef = torch.tensor(cfg.algo.ent_coef, dtype=torch.float32, device=device)
             metrics = train_step(data, next_obs_t, indices, clip_coef, ent_coef)
+        placement.push()
         if callback is not None:
             callback(agent, iter_num, metrics)
         info_values = {"Info/learning_rate": optimizer.param_groups[0]["lr"], "Info/clip_coef": cfg.algo.clip_coef, "Info/ent_coef": cfg.algo.ent_coef}
@@ -246,4 +273,4 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
         run.anneal(iter_num, initial_coefs)
         run.checkpoint(iter_num, policy_step)
 
-    return run.finish(test, policy_step)
+    return {**run.finish(test, policy_step), "interaction": pipeline.publish(), "placement": placement.stats()}

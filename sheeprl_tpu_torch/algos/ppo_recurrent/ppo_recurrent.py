@@ -20,9 +20,12 @@ a done resets the next step's previous action and (when configured) the
 carry; the learning rate, clip and entropy coefficients anneal as PPO's.
 Checkpoints hold the JAX package's fields only (no carry, no previous
 actions, no env state), so a resume starts the envs, the carry and the
-noise over, as the JAX ``main`` does. As for PPO, the interaction
-pipeline, player placement, telemetry, health probes and the preemption
-guard are not ported (ROADMAP A7, A10, A12).
+noise over, as the JAX ``main`` does. The player and its carry live where
+its placement puts them (``core/player.py``, always ``fresh``), and its
+outputs and the truncation bootstrap come back through the interaction
+pipeline's fetch (``core/interact.py``), as in the JAX loop; the carry is
+one tensor over every env. Telemetry, health probes and the preemption
+guard are not ported (ROADMAP A10, A12).
 
 The rollout step, GAE with the sequences, and the update run under
 ``record_function`` spans (``ppo_recurrent/rollout_step``,
@@ -41,7 +44,9 @@ from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_lo
 from sheeprl_tpu_torch.algos.ppo.ppo import METRIC_KEYS, _to_device, minibatch_indices
 from sheeprl_tpu_torch.algos.ppo_recurrent.agent import RecurrentPPOAgent, build_agent
 from sheeprl_tpu_torch.algos.ppo_recurrent.utils import test
+from sheeprl_tpu_torch.core.interact import InteractionPipeline
 from sheeprl_tpu_torch.core.onpolicy import encoder_keys, log_episodes, open_run
+from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
 from sheeprl_tpu_torch.core.rollout import bootstrap_truncated
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
@@ -158,7 +163,10 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
     clip_rewards_fn = np.tanh if cfg.env.clip_rewards else (lambda r: r)
 
     train_step = make_train_step(agent, run.optimizer, cfg)
-    player_rng = BatchGenerator.from_seed(cfg.seed, device)
+    placement = PlayerPlacement.resolve(cfg, device, nbytes=param_bytes(agent), force_fresh=True)
+    pipeline = InteractionPipeline.from_config(cfg)
+    pdev = placement.device
+    player_rng = BatchGenerator.from_seed(cfg.seed, pdev)
     perm_generator = torch.Generator(device=device).manual_seed(int(cfg.seed) + 1)
     action_shape = tuple(run.action_space.shape)
     n_actions, hidden = int(sum(run.actions_dim)), agent.rnn_hidden_size
@@ -170,15 +178,16 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
     next_obs = {k: obs[k] for k in obs_keys}
     step_data: Dict[str, np.ndarray] = {k: obs[k][np.newaxis] for k in obs_keys}
     with torch.no_grad():
-        carry = agent.initial_states(num_envs)
+        carry = placement.player(agent).initial_states(num_envs)
     prev_actions = np.zeros((num_envs, n_actions), np.float32)
 
     @torch.no_grad()
     def values_of(env_ids: np.ndarray, final: Dict[str, np.ndarray]) -> np.ndarray:
         # The carry after the step, and the action just taken as the previous one.
-        final_t = _to_device(prepare_obs(final, cnn_keys=cnn_keys, num_envs=len(env_ids)), device)
-        ids = torch.from_numpy(env_ids).to(device)
-        return agent.get_values(final_t, torch.from_numpy(actions_np[env_ids]).to(device), (carry[0][ids], carry[1][ids])).cpu().numpy()
+        final_t = _to_device(prepare_obs(final, cnn_keys=cnn_keys, num_envs=len(env_ids)), pdev)
+        ids = torch.from_numpy(env_ids).to(pdev)
+        values = placement.player(agent).get_values(final_t, torch.from_numpy(actions_np[env_ids]).to(pdev), (carry[0][ids], carry[1][ids]))
+        return pipeline.fetch(values, label="trunc_bootstrap").harvest()
 
     for iter_num in range(run.start_iter, run.total_iters + 1):
         for _ in range(rollout_steps):
@@ -187,12 +196,12 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
                 prepared = prepare_obs(next_obs, cnn_keys=cnn_keys, num_envs=num_envs)
                 with torch.no_grad():
                     prev_carry = carry
-                    actions, real, logprobs, values, carry = agent.player_step(
-                        _to_device(prepared, device), torch.from_numpy(prev_actions).to(device), carry, player_rng
+                    actions, real, logprobs, values, carry = placement.player(agent).player_step(
+                        _to_device(prepared, pdev), torch.from_numpy(prev_actions).to(pdev), carry, player_rng
                     )
                     # One copy to the host for the step's outputs and the carry the buffer stores.
                     parts = [actions.float(), logprobs, values, prev_carry[1], prev_carry[0]] + ([] if is_continuous else [real.float()])
-                    host = torch.cat(parts, -1).cpu().numpy()
+                    host = pipeline.fetch(torch.cat(parts, -1)).harvest()
                 actions_np, logprobs_np, values_np = host[:, :n_actions], host[:, n_actions : n_actions + 1], host[:, n_actions + 1 : n_actions + 2]
                 prev_hx_np, prev_cx_np = host[:, n_actions + 2 : n_actions + 2 + hidden], host[:, n_actions + 2 + hidden : n_actions + 2 + 2 * hidden]
                 real_np = actions_np if is_continuous else host[:, n_actions + 2 + 2 * hidden :].astype(np.int64)
@@ -214,7 +223,7 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
             # A done resets the next step's previous action and, when configured, the carry.
             prev_actions = ((1 - dones) * actions_np).astype(np.float32)
             if cfg.algo.reset_recurrent_state_on_done:
-                carry = agent.reset_states(carry, torch.from_numpy(dones).to(device))
+                carry = agent.reset_states(carry, torch.from_numpy(dones).to(pdev))
             next_obs = {k: obs[k] for k in obs_keys}
             for k in obs_keys:
                 step_data[k] = obs[k][np.newaxis]
@@ -224,8 +233,8 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
         # ------------------------------------------------- GAE + sequences
         with record_function("ppo_recurrent/gae"), torch.no_grad():
             rollout = _to_device({k: np.asarray(rb[k]) for k in stored_keys}, device)
-            next_obs_t = _to_device(prepare_obs(next_obs, cnn_keys=cnn_keys, num_envs=num_envs), device)
-            next_values = agent.get_values(next_obs_t, torch.from_numpy(prev_actions).to(device), carry)
+            next_obs_t = _to_device(prepare_obs(next_obs, cnn_keys=cnn_keys, num_envs=num_envs), pdev)
+            next_values = placement.player(agent).get_values(next_obs_t, torch.from_numpy(prev_actions).to(pdev), carry).to(device)
             rollout["returns"], rollout["advantages"] = gae(
                 rollout["rewards"], rollout["values"], rollout["dones"], next_values, float(cfg.algo.gamma), float(cfg.algo.gae_lambda)
             )
@@ -235,6 +244,7 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
             clip_coef = torch.tensor(cfg.algo.clip_coef, dtype=torch.float32, device=device)
             ent_coef = torch.tensor(cfg.algo.ent_coef, dtype=torch.float32, device=device)
             metrics = train_step(data, indices, clip_coef, ent_coef)
+        placement.push()
         if callback is not None:
             callback(agent, iter_num, metrics)
         info_values = {"Info/learning_rate": run.optimizer.param_groups[0]["lr"], "Info/clip_coef": cfg.algo.clip_coef, "Info/ent_coef": cfg.algo.ent_coef}
@@ -242,4 +252,4 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
         run.anneal(iter_num, initial_coefs)
         run.checkpoint(iter_num, policy_step)
 
-    return run.finish(test, policy_step)
+    return {**run.finish(test, policy_step), "interaction": pipeline.publish(), "placement": placement.stats()}

@@ -34,6 +34,6 @@ def evaluate_agent(cfg, state: Dict[str, Any], make_agent: Callable[..., Any]) -
             logger.close()
 
 
-@register_evaluation(algorithms="sac")
+@register_evaluation(algorithms=["sac", "sac_decoupled"])
 def evaluate_sac(cfg, state: Dict[str, Any]) -> float:
     return evaluate_agent(cfg, state, build_agent)

@@ -19,8 +19,9 @@ with its sampling and its draws is a :class:`CapturedStep`, a CUDA graph on
 the card replayed per step, with tau in a static tensor.
 
 :func:`run_off_policy` is ``main`` without the Anakin branch and the mesh,
-shared with DroQ and SAC-AE (an :class:`OffPolicyAlgo` names each one's
-agent, optimizers, train calls, observation layout and test episode):
+shared with DroQ, SAC-AE and decoupled SAC (an :class:`OffPolicyAlgo`
+names each one's agent, optimizers, train calls, observation layout, test
+episode and counts):
 prefill with random actions up to ``learning_starts``, ``Ratio``-driven
 gradient steps, ``target_network_frequency``'s tau, the
 real next observation of an episode that ended, the replay buffer of
@@ -30,9 +31,12 @@ JAX package's tags every ``metric.log_every`` policy steps, checkpoints with
 the buffer-tail truncation, resume and the greedy test episode. A resumed
 run restores the gradient-step count, the envs and both noise sources and
 trains at once, so it is the uninterrupted run step for step. The Anakin
-lane is ``core/fused_loop.py``'s ``sac_fused_main``. Not ported yet
-(ROADMAP): the interaction pipeline, player placement, telemetry, health probes and the preemption
-guard.
+lane is ``core/fused_loop.py``'s ``sac_fused_main``. The env step goes
+through the interaction pipeline (``core/interact.py``; SAC's and DroQ's
+train call rides between the fetch and its harvest when the fetch is async,
+as in the JAX package, SAC-AE's does not) and the actor through its
+placement (``core/player.py``). Not ported yet (ROADMAP): telemetry, health
+probes and the preemption guard.
 
 The gradient step runs under a ``torch.profiler.record_function`` span
 (``sac/gradient_step``).
@@ -40,6 +44,7 @@ The gradient step runs under a ``torch.profiler.record_function`` span
 
 from __future__ import annotations
 
+import functools
 import os
 import warnings
 from dataclasses import dataclass, field
@@ -54,6 +59,8 @@ from sheeprl_tpu_torch.algos.sac.loss import critic_loss, entropy_loss, policy_l
 from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test
 from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.core.graphs import CapturedStep, RingHolder, power_of_two_buckets
+from sheeprl_tpu_torch.core.interact import InteractionPipeline
+from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
 from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
@@ -299,6 +306,15 @@ class OffPolicyAlgo:
     make_optimizers: Callable[..., Dict[str, torch.optim.Optimizer]] = make_optimizers
     optimizer_keys: Mapping[str, str] = field(default_factory=lambda: dict(OPTIMIZER_KEYS))
     test: Callable[..., float] = test
+    # The state names ``get_actions`` reads (what a host player mirrors), and
+    # whether the train call rides between the action fetch and its harvest.
+    player_state: Tuple[str, ...] = ("actor.",)
+    overlap_train: bool = True
+    # The JAX decoupled loop's counts (sac_decoupled.py:380-382, :499):
+    # ``Ratio`` over ``policy_step - prefill x num_envs`` where the coupled
+    # loop's is ``policy_step - prefill + num_envs``, and the periodic
+    # checkpoints only from ``learning_starts`` on.
+    decoupled: bool = False
 
 
 def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
@@ -348,8 +364,9 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
 
     agent = algo.make_agent(cfg, observation_space, action_space, device=device, seed=cfg.seed)
     optimizers = algo.make_optimizers(agent, cfg)
+    placement = PlayerPlacement.resolve(cfg, device, nbytes=param_bytes(agent, algo.player_state))
     train_rng = BatchGenerator.from_seed(cfg.seed, device)
-    player_rng = BatchGenerator.from_seed(cfg.seed + 1, device)
+    player_rng = BatchGenerator.from_seed(cfg.seed + 1, placement.device)
     save_configs(cfg, log_dir)
     aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.aggregator)
 
@@ -407,19 +424,63 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
             learning_starts += start_iter
             prefill_steps += start_iter
     trainer = algo.make_trainer(agent, optimizers, cfg, train_rng)
+    pipeline = InteractionPipeline.from_config(cfg)
+    pipeline.set_key(player_rng)
 
     pending: List[Metrics] = []
     log: List[Dict[str, float]] = []
     checkpoints: List[str] = []
     action_shape = tuple(action_space.shape)
+
+    def policy(raw_obs: Dict[str, np.ndarray], state, rng):
+        n = len(next(iter(raw_obs.values())))
+        actions = placement.player(agent, algo.player_state).get_actions(layout.player(raw_obs, n, placement.device), rng)
+        return actions, state, rng
+
+    def run_train(iter_num: int) -> None:
+        """The iteration's gradient steps (``Ratio``'s count), then the
+        actor's weights pushed."""
+        nonlocal gradient_steps, train_step_count, fused_gradient_steps
+        if iter_num < learning_starts:
+            return
+        ratio_steps = policy_step - prefill_steps * policy_steps_per_iter if algo.decoupled else policy_step - prefill_steps + policy_steps_per_iter
+        per_rank_gradient_steps = ratio(ratio_steps)
+        if per_rank_gradient_steps <= 0:
+            return
+        tau = float(cfg.algo.tau) if iter_num % target_freq_iters == 0 else 0.0
+        if ring is not None:
+            ring.flush()  # this iteration's rows, in one copy to the card
+        if ring is not None and ring.ready(ring_span):
+            metrics = trainer.ring(ring, per_rank_gradient_steps, tau, fused_train_steps)
+            fused_gradient_steps += per_rank_gradient_steps
+        else:
+            metrics = trainer.host(rb, per_rank_gradient_steps, tau, gradient_steps)
+        gradient_steps += per_rank_gradient_steps
+        train_step_count += 1
+        if aggregator is not None:
+            pending.extend(metrics)  # the device's 0-d tensors, read back at the log point
+        if callback is not None:
+            callback(agent, gradient_steps, metrics)
+        placement.push()
+
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
+        trained_in_flight = False
         with timer("Time/env_interaction_time"):
             if iter_num <= learning_starts:
                 actions = envs.sample_actions()
+                next_obs, rewards, terminated, truncated, infos = envs.step(actions.reshape((num_envs, *action_shape)))
+                next_obs = pipeline.stash_obs(next_obs)
             else:
-                actions = agent.get_actions(layout.player(obs, num_envs, device), player_rng).cpu().numpy()
-            next_obs, rewards, terminated, truncated, infos = envs.step(actions.reshape((num_envs, *action_shape)))
+                # The train call rides between the fetch and its harvest once
+                # the buffer holds a step past the prefill (its batches then
+                # lag the buffer by one step).
+                trained_in_flight = algo.overlap_train and pipeline.overlap_train and iter_num > learning_starts + 1
+                res = pipeline.interact(
+                    envs, obs, policy, to_env_actions=lambda host, n: host.reshape((n, *action_shape)),
+                    before_harvest=functools.partial(run_train, iter_num) if trained_in_flight else None,
+                )  # fmt: skip
+                actions, next_obs, rewards, terminated, truncated, infos = res
             rewards = rewards.reshape(num_envs, -1)
 
         if cfg.metric.log_level > 0:
@@ -452,23 +513,8 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
         obs = next_obs
 
         # ------------------------------------------------------- training
-        if iter_num >= learning_starts:
-            per_rank_gradient_steps = ratio(policy_step - prefill_steps + policy_steps_per_iter)
-            if per_rank_gradient_steps > 0:
-                tau = float(cfg.algo.tau) if iter_num % target_freq_iters == 0 else 0.0
-                if ring is not None:
-                    ring.flush()  # this iteration's rows, in one copy to the card
-                if ring is not None and ring.ready(ring_span):
-                    metrics = trainer.ring(ring, per_rank_gradient_steps, tau, fused_train_steps)
-                    fused_gradient_steps += per_rank_gradient_steps
-                else:
-                    metrics = trainer.host(rb, per_rank_gradient_steps, tau, gradient_steps)
-                gradient_steps += per_rank_gradient_steps
-                train_step_count += 1
-                if aggregator is not None:
-                    pending.extend(metrics)  # the device's 0-d tensors, read back at the log point
-                if callback is not None:
-                    callback(agent, gradient_steps, metrics)
+        if not trained_in_flight:
+            run_train(iter_num)
 
         # -------------------------------------------------------- logging
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters):
@@ -498,9 +544,8 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
             print(" ".join(f"{k}={v:.6g}" for k, v in row.items()), flush=True)
 
         # ----------------------------------------------------- checkpoint
-        if (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every) or (
-            iter_num == total_iters and cfg.checkpoint.save_last
-        ):
+        periodic = cfg.checkpoint.every > 0 and (iter_num >= learning_starts or not algo.decoupled)
+        if (periodic and policy_step - last_checkpoint >= cfg.checkpoint.every) or (iter_num == total_iters and cfg.checkpoint.save_last):
             last_checkpoint = policy_step
             ckpt_state = {"agent": agent.state_dict(), **{key: optimizers[name].state_dict() for name, key in algo.optimizer_keys.items()}}
             ckpt_state.update(
@@ -523,6 +568,7 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
                 if saved_tail is not None:
                     rb["truncated"][tail, :] = saved_tail
 
+    placement.flush()  # no mirror copy left in flight
     test_reward = algo.test(agent, cfg, log_dir, logger) if cfg.algo.run_test else None
     if logger is not None:
         logger.close()
@@ -534,6 +580,7 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
             "active": ring.active, "inactive_reason": ring.inactive_reason, "bytes": ring.ring_nbytes(), "capacity": ring.capacity,
         },
         "fused": None if fused is None else {"gradient_steps": fused_gradient_steps, **fused},
+        "interaction": pipeline.publish(), "placement": placement.stats(),
     }  # fmt: skip
 
 

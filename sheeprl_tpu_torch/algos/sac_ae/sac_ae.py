@@ -243,7 +243,10 @@ class PixelObservations:
         return normalize_pixels({k: torch.from_numpy(v).to(device) for k, v in prepared.items()}, self.cnn_keys)
 
 
-SAC_AE = OffPolicyAlgo("SAC-AE", build_agent, SACAETrainer, PixelObservations.from_config, make_optimizers, OPTIMIZER_KEYS, test)
+SAC_AE = OffPolicyAlgo(
+    "SAC-AE", build_agent, SACAETrainer, PixelObservations.from_config, make_optimizers, OPTIMIZER_KEYS, test,
+    player_state=("encoder.", "actor."), overlap_train=False,
+)  # fmt: skip
 
 
 @register_algorithm()

@@ -3,6 +3,7 @@
     python -m sheeprl_tpu_torch exp=<ppo | ppo_atari | a2c | ppo_recurrent | sac | droq | sac_ae | dreamer_v3_100k_ms_pacman | dreamer_v2_ms_pacman | ...> env=dummy [key=value ...] [device=cpu]
     python -m sheeprl_tpu_torch exp=<ppo_anakin | sac_anakin | dreamer_v3_anakin> [algo.fused_rollout=false] [key=value ...] [device=cpu]
     python -m sheeprl_tpu_torch exp=<p2e_dv3_finetuning | p2e_dv2_finetuning | p2e_dv1_finetuning> env=dummy checkpoint.exploration_ckpt_path=<exploration run>/version_N/checkpoint/ckpt_<step>_0.ckpt [...]
+    python -m sheeprl_tpu_torch exp=<ppo_decoupled | sac_decoupled> env=dummy fabric.devices=1 fabric.player_device=host [...]
     python -m sheeprl_tpu_torch.eval checkpoint_path=<run>/version_N/checkpoint/ckpt_<step>_0.ckpt [key=value ...] [device=cpu]
 
 They run on ``cuda`` unless ``device=cpu`` is given, and raise without a
@@ -17,7 +18,9 @@ and the Anakin lane's ``ppo_anakin``, ``sac_anakin``, ``dreamer_v3_anakin``
 (``env=jax_cartpole``, ``jax_pendulum``, ``jax_gridworld``: the fused lane,
 or the host lane with ``algo.fused_rollout=false``);
 SAC, DroQ and SAC-AE want ``env.id=continuous_dummy``; a
-P2E finetuning run names its exploration run's checkpoint), an unknown key raises, and
+P2E finetuning run names its exploration run's checkpoint; the decoupled
+``ppo_decoupled`` and ``sac_decoupled`` run on one card with the player on
+the host, ``fabric.devices=1 fabric.player_device=host``), an unknown key raises, and
 the trainer then raises on an algorithm the port does not train and on an env
 group other than ``env=dummy`` and the anakin groups. Keys are those of the composed config, e.g.
 ``algo.learning_starts=128 algo.total_steps=136 buffer.size=4096``.
@@ -69,6 +72,7 @@ def run(args: Optional[Sequence[str]] = None, callback=None) -> Dict[str, Any]:
     if entry is None:
         raise ValueError(f"algo.name={cfg.algo.name} is not ported; the port trains algo.name={' | '.join(sorted(algorithm_registry))}")
     check_anakin(cfg)
+    check_decoupled(cfg, entry)
     utils_module = importlib.import_module(entry.module.rsplit(".", 1)[0] + ".utils")
     _prune_metric_keys(cfg, utils_module.AGGREGATOR_KEYS)
     if cfg.checkpoint.resume_from:
@@ -103,6 +107,19 @@ def check_anakin(cfg) -> None:
             make_anakin_env(cfg.env.id)
         except ValueError as err:
             raise ValueError(f"env.jax_native=True but env.id is not a registered anakin env: {err}") from err
+
+
+def check_decoupled(cfg, entry) -> None:
+    """A decoupled run needs a placement it can run (reference:
+    cli.py:195-205): the explicit on-mesh split on one device raises here;
+    ``auto`` is resolved in the trainer, and raises there if it resolves to
+    the mesh (:func:`sheeprl_tpu_torch.core.mesh.split_player_trainer`)."""
+    player_device = str(cfg.fabric.get("player_device") or "auto").lower()
+    if entry.decoupled and player_device == "mesh" and cfg.fabric.get("devices", 1) in (1, "1"):
+        raise RuntimeError(
+            f"The decoupled algorithm '{cfg.algo.name}' requires at least 2 devices/processes (one player + at least one trainer), "
+            "or fabric.player_device=host to run the player on the host CPU and train on every device."
+        )
 
 
 # The env settings a P2E finetuning run takes from its exploration run.

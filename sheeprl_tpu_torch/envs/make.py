@@ -2,13 +2,16 @@
 the batched envs one copy per host env (:class:`AnakinToHost`) for an env
 group with ``env.jax_native`` (``env=jax_cartpole``, ``jax_pendulum``,
 ``jax_gridworld``), where the JAX package's ``make_env`` wraps
-``JaxToGymnasium``. Any other group raises."""
+``JaxToGymnasium``. Any other group raises. With ``env.pipeline_slices`` > 1
+the vector is one :class:`SyncVectorEnv` per column range joined in an
+:class:`EnvSliceGroup` (``sheeprl_tpu/utils/env.py:312-351``)."""
 
 from __future__ import annotations
 
 from typing import Any
 
-from sheeprl_tpu_torch.envs.dummy import ActionRepeat, SyncVectorEnv, dummy_env_kwargs, make_dummy_env, make_dummy_vector_env
+from sheeprl_tpu_torch.core.interact import EnvSliceGroup, split_ranges
+from sheeprl_tpu_torch.envs.dummy import ActionRepeat, SyncVectorEnv, dummy_env_kwargs, make_dummy_env
 
 
 def is_anakin(cfg) -> bool:
@@ -29,13 +32,22 @@ def _anakin_env(cfg, seed: Any) -> ActionRepeat:
     return ActionRepeat(AnakinToHost(env=env, seed=seed, obs_key=key), int(cfg.env.action_repeat))
 
 
-def make_vector_env(cfg) -> SyncVectorEnv:
-    """``env.num_envs`` envs of the config's group, stepped together."""
+def make_vector_env(cfg) -> Any:
+    """``env.num_envs`` envs of the config's group, stepped together; with
+    ``env.pipeline_slices`` = S > 1, S vectors of contiguous columns in an
+    :class:`EnvSliceGroup`, env order and per-env seeds as in one vector."""
     check_env_group(cfg)
+    if bool(((cfg.get("resilience") or {}).get("supervisor") or {}).get("enabled", False)):
+        raise ValueError("resilience.supervisor.enabled is not ported: the supervised env workers are ROADMAP A10")
     num_envs = int(cfg.env.num_envs)
     if is_anakin(cfg):
-        return SyncVectorEnv([_anakin_env(cfg, None) for _ in range(num_envs)], seed=cfg.seed)
-    return make_dummy_vector_env(num_envs, cfg.seed, **dummy_env_kwargs(cfg))
+        envs = [_anakin_env(cfg, None) for _ in range(num_envs)]
+    else:
+        envs = [make_dummy_env(**dummy_env_kwargs(cfg)) for _ in range(num_envs)]
+    slices = int(cfg.env.get("pipeline_slices", 1) or 1)
+    if slices <= 1:
+        return SyncVectorEnv(envs, seed=cfg.seed)
+    return EnvSliceGroup([SyncVectorEnv(envs[s0:s1], seed=cfg.seed + s0) for s0, s1 in split_ranges(num_envs, slices)], seed=cfg.seed)
 
 
 def make_test_env(cfg) -> Any:

@@ -6,7 +6,7 @@ Each algorithm module registers its ``main(cfg)`` entry point with
 ``algo.name``. :func:`register_all` imports the modules that register: the
 port has DreamerV3, PPO, SAC, DroQ, DreamerV2, DreamerV1, A2C, recurrent
 PPO, P2E on DreamerV3, DreamerV2 and DreamerV1 (exploration and
-finetuning), and SAC-AE.
+finetuning), SAC-AE, and the decoupled PPO and SAC: the JAX package's 17.
 """
 
 from __future__ import annotations
@@ -46,6 +46,8 @@ _MODULES = (
     "sheeprl_tpu_torch.algos.p2e_dv1.evaluate",
     "sheeprl_tpu_torch.algos.sac_ae.sac_ae",
     "sheeprl_tpu_torch.algos.sac_ae.evaluate",
+    "sheeprl_tpu_torch.algos.ppo.ppo_decoupled",
+    "sheeprl_tpu_torch.algos.sac.sac_decoupled",
 )
 
 
@@ -57,6 +59,9 @@ class AlgorithmEntry:
     # Whether the run continues an exploration run (P2E finetuning): its
     # ``main`` then takes that run's config as ``exploration_cfg``.
     after_exploration: bool = False
+    # Whether the run splits a player from its trainer (``ppo_decoupled``,
+    # ``sac_decoupled``): the command line then checks the placement.
+    decoupled: bool = False
 
 
 @dataclass
@@ -66,17 +71,18 @@ class EvaluationEntry:
     entrypoint: Callable[..., Any]
 
 
-def register_algorithm(name: Optional[str] = None, after_exploration: bool = False):
+def register_algorithm(name: Optional[str] = None, after_exploration: bool = False, decoupled: bool = False):
     """Register the decorated ``main`` under ``name``, by default its module's
     basename (``...dreamer_v3.dreamer_v3`` registers ``dreamer_v3``);
     ``after_exploration`` marks a P2E finetuning ``main``
-    (:attr:`AlgorithmEntry.after_exploration`)."""
+    (:attr:`AlgorithmEntry.after_exploration`), ``decoupled`` a decoupled
+    one (:attr:`AlgorithmEntry.decoupled`)."""
 
     def decorator(fn: Callable[..., Any]):
         algo_name = name or fn.__module__.split(".")[-1]
         if algo_name in algorithm_registry and algorithm_registry[algo_name].module != fn.__module__:
             raise ValueError(f"Algorithm '{algo_name}' already registered by {algorithm_registry[algo_name].module}")
-        algorithm_registry[algo_name] = AlgorithmEntry(algo_name, fn.__module__, fn, after_exploration)
+        algorithm_registry[algo_name] = AlgorithmEntry(algo_name, fn.__module__, fn, after_exploration, decoupled)
         return fn
 
     return decorator

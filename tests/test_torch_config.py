@@ -22,11 +22,11 @@ TREE = default_config_dir()
 FILES = sorted(os.path.relpath(p, TREE) for p in glob.glob(os.path.join(TREE, "**", "*.yaml"), recursive=True))
 EXPS = ("ppo", "ppo_atari", "dreamer_v3_100k_ms_pacman", "dreamer_v3_dmc_walker_walk", "sac", "droq", "dreamer_v2", "dreamer_v2_ms_pacman", "dreamer_v1", "a2c",
         "ppo_recurrent", "p2e_dv3_exploration", "p2e_dv3_finetuning", "p2e_dv2_exploration", "p2e_dv2_finetuning", "p2e_dv1_exploration",
-        "p2e_dv1_finetuning", "sac_ae", "ppo_anakin", "sac_anakin", "dreamer_v3_anakin")
+        "p2e_dv1_finetuning", "sac_ae", "ppo_anakin", "sac_anakin", "dreamer_v3_anakin", "ppo_decoupled", "sac_decoupled")
 # The JAX package's own overrides for SAC and DroQ (tests/test_algos/test_fused_train.py),
 # and the width each exp's interpolation spreads.
-EXP_ARGS = {exp: ["env.id=continuous_dummy", "env.wrapper.id=continuous_dummy"] for exp in ("sac", "droq", "sac_ae")}
-WIDTH = {"sac": "algo.hidden_size", "droq": "algo.hidden_size", "sac_ae": "algo.hidden_size", "sac_anakin": "algo.hidden_size"}
+EXP_ARGS = {exp: ["env.id=continuous_dummy", "env.wrapper.id=continuous_dummy"] for exp in ("sac", "droq", "sac_ae", "sac_decoupled")}
+WIDTH = {"sac": "algo.hidden_size", "droq": "algo.hidden_size", "sac_ae": "algo.hidden_size", "sac_anakin": "algo.hidden_size", "sac_decoupled": "algo.hidden_size"}
 # The Anakin exps choose their own env group (jax_cartpole, jax_pendulum, jax_gridworld).
 ANAKIN = {"ppo_anakin": "jax_cartpole", "sac_anakin": "jax_pendulum", "dreamer_v3_anakin": "jax_gridworld"}
 # Values the tests and the recipes give on the command line, and YAML's edge cases.
