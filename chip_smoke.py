@@ -107,7 +107,7 @@ Phases (any failure exits non-zero before the result line):
    cuGraphGetNodes): 64 + 15 LN-GRU forward and 64 (discrete) or 79 (continuous)
    backward kernel nodes, beside the eager step's 17932 and 18794 device
    operations; the LN-GRU tickets back at zero after the replays. Then 16
-   back-to-back replays timed (host wall, CUDA events) and profiled (device
+   back-to-back replays timed (host wall, CUDA events), 8 profiled (device
    busy, operations, idle share as the eager step's: 1 - busy / the host
    wall without the profiler, at most 0.25), and 3 eager steps timed
    from the same state.
@@ -215,9 +215,9 @@ Phases (any failure exits non-zero before the result line):
    sequences of 16, 8 batches, 8 epochs: 64 AdamW steps an update), cut to
    2 updates and a checkpoint after the first; checked, resumed and
    evaluated as 26.
-28. Recurrent PPO's profile: one update and one rollout step of the
-   trained agent (host wall, device busy, idle share, operations, peak
-   memory).
+28. Recurrent PPO's profile: one update (timed whole, its first epoch
+   timed and profiled) and one rollout step of the trained agent (host
+   wall, device busy, idle share, operations, peak memory).
 29. One A2C update on the card against the CPU in 32-true from the same
    weights, rollout and minibatches, per parameter leaf and per RMSprop
    accumulator leaf within 2e-3, with two planted faults it must reject.
@@ -333,6 +333,25 @@ Phases (any failure exits non-zero before the result line):
    mid-run checkpoint, evaluated; host wall an iteration and the mirror's
    pushes. ``c.phases_47_50(dir)`` runs 47-50 alone after
    ``kernels.build()``.
+51. Telemetry through the CLI: DV3-S (``exp=dreamer_v3_100k_ms_pacman``,
+   1 env, cut as ``TELE_CUTS`` lists) with ``telemetry=on`` on the host
+   path, with a ``torch.profiler`` window over 2 gradient steps and a
+   ``/metrics`` exporter scraped mid-run, and on the ring path:
+   ``trace.json`` and ``telemetry.jsonl`` written, the spans and counters
+   (graph captures, kernel builds and cache hits, transfer bytes) printed,
+   ``perf/mfu`` and ``perf/hbm_bw_util`` of every trained interval in
+   (0, 1] and the compute/infeed/host breakdown summing to 1 within 0.05,
+   the profiler trace's markers and all three LN-GRU kernels in it, every
+   LN-GRU kernel launched; one eager DV3-S step at T, B = 16, 8 counted on
+   the card (bf16-mixed, the kernels by formula) against the CPU (32-true,
+   plain) within 1%.
+52. The ring path again with telemetry off: parameters bit for bit, equal
+   synchronising calls per gradient step (``set_sync_debug_mode("warn")``)
+   and graph node counts; the host wall per gradient step of both.
+53. The DV3-S policy server: requests with and without ``traceparent``, the
+   request ids on every reply, the client's trace on the batch spans,
+   ``GET /metrics``. ``c.phases_51_53(dir)`` runs 51-53 alone after
+   ``kernels.build()``.
 
 Every profile reads its device busy time through ``_busy``, which leaves
 out the device ranges of ``record_function`` annotations (the trainers'
@@ -395,14 +414,18 @@ def time_phases(namespace: dict) -> dict:
     """Wrap every ``phase_*`` function of ``namespace`` (a module's globals)
     so that each outermost call adds its wall seconds to the returned dict
     under the phase's name; a phase that another phase calls counts in its
-    caller's time."""
+    caller's time. Also charges the seconds spent in torch.profiler
+    (``profiled`` and the reading of a profile's records) to the running
+    phase in ``PROFILER_S``."""
     seconds: dict = {}
-    depth = [0]
+    depth, phase, inside = [0], [None], [0]
 
     def timed(name, fn):
         @functools.wraps(fn)
         def wrapper(*args, **kwargs):
             t0 = time.perf_counter()
+            if depth[0] == 0:
+                phase[0] = name
             depth[0] += 1
             try:
                 return fn(*args, **kwargs)
@@ -413,10 +436,39 @@ def time_phases(namespace: dict) -> dict:
 
         return wrapper
 
+    def charged(fn):
+        """``fn``'s wall seconds, outermost calls only, into PROFILER_S under the running phase."""
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            inside[0] += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                inside[0] -= 1
+                if inside[0] == 0:
+                    key = phase[0] if depth[0] else "outside phases"
+                    PROFILER_S[key] = PROFILER_S.get(key, 0.0) + time.perf_counter() - t0
+
+        return wrapper
+
     for name, fn in list(namespace.items()):
         if name.startswith("phase_") and callable(fn):
             namespace[name] = timed(name, fn)
+    if callable(namespace.get("profiled")):
+        import torch.profiler
+
+        namespace["profiled"] = charged(namespace["profiled"])
+        for attr in ("key_averages", "events"):
+            setattr(torch.profiler.profile, attr, charged(getattr(torch.profiler.profile, attr)))
     return seconds
+
+
+# Per phase: the wall seconds inside torch.profiler captures (``profiled``)
+# and the reading of their records (``key_averages``, ``events``), filled
+# by the wrappers ``time_phases`` installs.
+PROFILER_S: dict = {}
 
 
 def nvidia_smi() -> str:
@@ -464,44 +516,26 @@ def device_ms(fn, reps: int = 15, inner: int = 20) -> tuple:
     return statistics.median(times), min(times), max(times)
 
 
-PROFILE_MARKERS = 2048  # marker kernels ahead of each profiled call
-MARKER_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel: nothing else in a capture launches it
-
-
 def profiled(fn, activities=("cuda",), captures: int = 3):
-    """torch.profiler over one call of ``fn``, after ``PROFILE_MARKERS``
-    marker kernels (``torch.cuda._sleep(1000)``, about a microsecond each)
-    and a synchronize. On an H100 with torch 2.11 the tracer loses the
-    first device records of some captures while it keeps their host-side
-    launch calls: all of them (an empty capture) or some (a discrete DV3
-    step has read 17168 operations where it launches 17929). The markers
-    take that loss in place of ``fn``'s records: a capture in which
-    no marker was recorded may have lost some of ``fn``'s and is taken
-    again, up to ``captures`` times, then the script fails. ``_busy`` and
-    ``kernel_split_ms`` leave the markers out."""
-    import torch
+    """torch.profiler over one call of ``fn`` behind the marker kernels that
+    absorb the profiler's lost device records
+    (:func:`sheeprl_tpu_torch.telemetry.profiling.profiled`); the script fails
+    when every capture lost its markers. ``_busy`` and ``kernel_split_ms``
+    leave the markers out."""
+    from sheeprl_tpu_torch.telemetry import profiling
 
-    kinds = {"cpu": torch.profiler.ProfilerActivity.CPU, "cuda": torch.profiler.ProfilerActivity.CUDA}
-    for capture in range(1, captures + 1):
-        with torch.profiler.profile(activities=[kinds[a] for a in activities]) as prof:
-            for _ in range(PROFILE_MARKERS):
-                torch.cuda._sleep(1000)
-            torch.cuda.synchronize()
-            fn()
-            torch.cuda.synchronize()
-        markers = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and MARKER_KERNEL in e.name)
-        if markers < PROFILE_MARKERS:
-            log(f"profile: capture {capture} of {captures} lost its first {PROFILE_MARKERS - markers} device records "
-                f"({markers} of {PROFILE_MARKERS} markers recorded){'' if markers else '; taken again'}")  # fmt: skip
-        if markers:
-            return prof
-    fail(f"torch.profiler lost the first device records of {captures} captures in a row (no marker kernel recorded)")
+    try:
+        return profiling.profiled(fn, activities, captures, log=log)
+    except RuntimeError as err:
+        fail(str(err))
 
 
 def kernel_split_ms(fn, calls: int = 50) -> dict:
     """Device ms and launches per call of each CUDA kernel ``fn`` launches,
     from torch.profiler: {name: {"ms": ..., "launches": ...}}."""
     import torch
+
+    from sheeprl_tpu_torch.telemetry.profiling import MARKER_KERNEL
 
     fn()
     torch.cuda.synchronize()
@@ -1346,9 +1380,11 @@ def _train_batch(T, B, seed, device, n_actions=9, continuous=False):
     return {k: torch.from_numpy(v).to(device) for k, v in data.items()}
 
 
-# 2 profiled steps (3 until the interaction layer's phases 47-50 needed the
-# time): profiling a DV3-S step's 18k kernels is most of this phase's cost.
-TRAIN_PROFILE_STEPS = 2
+# 1 profiled step (3 until the interaction layer's phases 47-50 needed the
+# time, 2 until the telemetry phases 51-53 did): profiling a DV3-S step's 18k
+# kernels is most of this phase's cost (34.5 of 36.7 s at 2 steps, on an
+# NVIDIA H100 80GB HBM3 at 700 W).
+TRAIN_PROFILE_STEPS = 1
 
 
 def phase_train_profile(agent, cfg, steps: int = TRAIN_PROFILE_STEPS, bwd_per_step=None, what: str = "train step profile"):
@@ -2345,6 +2381,11 @@ GRAPH_TAUS = (0.02, 0.0, 1.0, 0.02)
 GRAPH_LN_GRU = {"discrete": {"streaming": STREAM_PER_STEP, "tensor_core": TC_PER_STEP, "backward": BWD_PER_STEP},
                 "continuous": {"streaming": STREAM_PER_STEP, "tensor_core": TC_PER_STEP, "backward": BWD_PER_STEP + TC_PER_STEP}}  # fmt: skip
 REPLAYS_PROFILED = 16
+# Replays of the DV3-S graph under torch.profiler (16 until the telemetry
+# phases 51-53 needed the time: profiling 16 replays of its 18k nodes took
+# 35.8 of the phase's 49.7 s on an NVIDIA H100 80GB HBM3 at 700 W); its
+# REPLAYS_PROFILED replays stay timed.
+GRAPH_REPLAYS_PROFILED = 8
 WARMUP_STEPS = 3  # sheeprl_tpu_torch.core.graphs.WARMUP_CALLS
 
 
@@ -2407,8 +2448,8 @@ def phase_graph_vs_eager(kind):
     metrics must be equal bit for bit, or, if the two eager runs differ,
     within that difference. The graph must hold ``GRAPH_LN_GRU`` LN-GRU
     kernel nodes. Then ``REPLAYS_PROFILED`` back-to-back replays and 3 eager
-    steps from the same state, timed (host wall ending in a synchronize) and
-    profiled (device busy, operations)."""
+    steps from the same state, timed (host wall ending in a synchronize), and
+    ``GRAPH_REPLAYS_PROFILED`` replays profiled (device busy, operations)."""
     import torch
 
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
@@ -2518,12 +2559,12 @@ def phase_graph_vs_eager(kind):
 
     def replays():
         t = time.perf_counter()
-        fused(m, ring.state, taus)
+        fused(m, ring.state, taus[:GRAPH_REPLAYS_PROFILED])
         torch.cuda.synchronize()
-        profiled_wall.append((time.perf_counter() - t) * 1e3 / REPLAYS_PROFILED)
+        profiled_wall.append((time.perf_counter() - t) * 1e3 / GRAPH_REPLAYS_PROFILED)
 
     prof = profiled(replays, ("cpu", "cuda"))
-    busy_ms, ops, _ = _busy(prof.key_averages(), REPLAYS_PROFILED, skip=("dv3/",))
+    busy_ms, ops, _ = _busy(prof.key_averages(), GRAPH_REPLAYS_PROFILED, skip=("dv3/",))
     eager_moments = {k: v.clone() for k, v in m.items()}
     tau.fill_(0.02)
     step(eager_moments, sample(ring.state, rng.generator), rng, tau)
@@ -2539,7 +2580,8 @@ def phase_graph_vs_eager(kind):
         "graph_nodes": nodes["nodes"], "graph_nodes_by_type": nodes["by_type"], "graph_ln_gru_nodes": nodes["ln_gru"],
         "ln_gru_tickets_after_replays": left,
         "graph_kernel_nodes": nodes["by_type"].get("kernel", 0), "eager_device_ops_per_step": STEP_OPS[kind],
-        "replays_profiled": REPLAYS_PROFILED, "fused_host_wall_ms_per_step": wall_ms, "fused_event_span_ms_per_step": span_ms,
+        "replays_timed": REPLAYS_PROFILED, "replays_profiled": GRAPH_REPLAYS_PROFILED, "fused_host_wall_ms_per_step": wall_ms,
+        "fused_event_span_ms_per_step": span_ms,
         "fused_device_busy_ms_per_step": busy_ms, "fused_device_ops_per_step": ops,
         "fused_host_wall_ms_per_step_profiled": profiled_wall[-1], "fused_device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "fused_device_idle_share_under_the_profiler": max(0.0, 1.0 - busy_ms / profiled_wall[-1]),
@@ -2555,8 +2597,8 @@ def phase_graph_vs_eager(kind):
         f"{json.dumps(graph_gap)}")  # fmt: skip
     log(f"{what}: the graph holds {nodes['nodes']} nodes ({json.dumps(nodes['by_type'])}), LN-GRU kernel nodes {json.dumps(nodes['ln_gru'])}; "
         f"the eager step runs {STEP_OPS[kind]} device operations")  # fmt: skip
-    log(f"{what}: {REPLAYS_PROFILED} back-to-back replays: host wall {wall_ms:.2f} ms/step (events {span_ms:.2f}), device busy "
-        f"{busy_ms:.2f} ms/step, {ops:.0f} device ops/step, idle share {out['fused_device_idle_share']:.3f} (under the "
+    log(f"{what}: {REPLAYS_PROFILED} back-to-back replays: host wall {wall_ms:.2f} ms/step (events {span_ms:.2f}); "
+        f"{GRAPH_REPLAYS_PROFILED} profiled: device busy {busy_ms:.2f} ms/step, {ops:.0f} device ops/step, idle share {out['fused_device_idle_share']:.3f} (under the "
         f"profiler {profiled_wall[-1]:.2f} ms/step, {out['fused_device_idle_share_under_the_profiler']:.3f}), "
         f"{out['fused_gradient_steps_per_s']:.2f} gradient steps/s; eager from the same state {eager_wall_ms:.2f} ms/step "
         f"({out['eager_gradient_steps_per_s']:.2f} steps/s)")  # fmt: skip
@@ -3230,6 +3272,8 @@ def _busy(averages, n, skip=(), by_kernel=None):
     first 60 characters of its name) device ms per ``n``. Every profile of
     this script reads its busy time here."""
     import torch
+
+    from sheeprl_tpu_torch.telemetry.profiling import MARKER_KERNEL
 
     total, ops, annotated = 0.0, 0, 0.0
     for evt in averages:
@@ -3966,7 +4010,9 @@ def onpolicy_profile(trainer, agent, cfg, what):
     PPO: 512 sequences of 16, 8 epochs of 8 minibatches, 64 AdamW steps),
     and one rollout step of its envs (the player's forward and the one copy
     to the host): host wall (ending in a synchronize), device busy and idle
-    share (``_busy``), device operations, peak memory."""
+    share (``_busy``), device operations, peak memory. Recurrent PPO's
+    update is profiled over its first ``PPO_REC_PROFILED_EPOCHS`` epochs
+    (timed alone for the idle share), its whole update timed."""
     import importlib
 
     import torch
@@ -3991,8 +4037,8 @@ def onpolicy_profile(trainer, agent, cfg, what):
         mb = max(1, n // int(cfg.algo.per_rank_num_batches))
         clip, ent = (torch.tensor(float(v), device=dev) for v in (cfg.algo.clip_coef, cfg.algo.ent_coef))
 
-        def update():
-            return step(data, minibatch_indices(n, mb, epochs, gen), clip, ent)
+        def update(epochs_run=epochs):
+            return step(data, minibatch_indices(n, mb, epochs, gen)[:epochs_run], clip, ent)
 
     update()
     torch.cuda.synchronize()
@@ -4003,7 +4049,16 @@ def onpolicy_profile(trainer, agent, cfg, what):
     torch.cuda.synchronize()
     update_ms = (time.perf_counter() - t0) / 2 * 1e3
     update_peak = torch.cuda.max_memory_allocated() / 2**30
-    update_busy, update_ops, _ = _busy(profiled(update, ("cpu", "cuda")).key_averages(), 1, skip=(f"{trainer}/",))
+    profiled_epochs = epochs if trainer == "a2c" else PPO_REC_PROFILED_EPOCHS
+    profiled_ms = update_ms
+    if profiled_epochs != epochs:
+        t0 = time.perf_counter()
+        for _ in range(2):
+            update(profiled_epochs)
+        torch.cuda.synchronize()
+        profiled_ms = (time.perf_counter() - t0) / 2 * 1e3
+    part = update if profiled_epochs == epochs else lambda: update(profiled_epochs)
+    update_busy, update_ops, _ = _busy(profiled(part, ("cpu", "cuda")).key_averages(), 1, skip=(f"{trainer}/",))
     if update_busy <= 0.0:
         fail(f"{what}: torch.profiler saw no device time in the update")
 
@@ -4037,16 +4092,25 @@ def onpolicy_profile(trainer, agent, cfg, what):
                                    skip=(f"{trainer}/",))  # fmt: skip
     optimizer_steps = epochs * -(-n // mb) if trainer == "ppo_recurrent" else 1
     result = {
-        "update": {"host_wall_ms": update_ms, "device_busy_ms": update_busy, "idle_share": max(0.0, 1 - update_busy / update_ms),
-                   "device_ops": update_ops, "optimizer_steps": optimizer_steps, "rows_or_sequences": n, "peak_gib": update_peak},
+        "update": {"host_wall_ms": update_ms, "profiled_epochs": profiled_epochs, "epochs": epochs, "profiled_host_wall_ms": profiled_ms,
+                   "device_busy_ms": update_busy, "idle_share": max(0.0, 1 - update_busy / profiled_ms), "device_ops": update_ops,
+                   "optimizer_steps": optimizer_steps, "rows_or_sequences": n, "peak_gib": update_peak},
         "rollout_step": {"host_wall_ms": step_ms, "device_busy_ms": step_busy, "idle_share": max(0.0, 1 - step_busy / step_ms),
                          "device_ops": step_ops, "peak_gib": step_peak, "num_envs": E},
     }  # fmt: skip
     log(f"{what}: update ({optimizer_steps} optimizer step(s) over {n} {'rows' if trainer == 'a2c' else 'sequences'}) {update_ms:.2f} ms host "
-        f"wall, {update_busy:.3f} ms device busy (idle {result['update']['idle_share']:.3f}), {update_ops:.0f} device operations, peak "
+        f"wall; its first {profiled_epochs} of {epochs} epoch(s) {profiled_ms:.2f} ms host wall, {update_busy:.3f} ms device busy (idle "
+        f"{result['update']['idle_share']:.3f}), {update_ops:.0f} device operations; peak "
         f"{update_peak:.2f} GiB; rollout step (player forward + one copy to the host, {E} envs) {step_ms:.3f} ms host wall, {step_busy:.3f} "
         f"ms busy (idle {result['rollout_step']['idle_share']:.3f}), {step_ops:.0f} operations")  # fmt: skip
     return result
+
+
+# Recurrent PPO's update is profiled over its first epoch (8 of its 64
+# AdamW steps; the whole update until the telemetry phases 51-53 needed the
+# time: profiling it took 48.0 of the phase's 53.7 s on an NVIDIA H100
+# 80GB HBM3 at 700 W).
+PPO_REC_PROFILED_EPOCHS = 1
 
 
 def phase_ppo_recurrent_profile(agent, cfg):
@@ -4451,7 +4515,9 @@ def phase_p2e_training(log_root):
 
 def phase_p2e_profile(agent, steps: int = 2):
     """(33) Where one P2E-DV3 exploration step's time goes at XL width
-    (32-true, B = 16, T = 64, the trained agent; :func:`step_profile`)."""
+    (32-true, B = 16, T = 64, the trained agent; :func:`step_profile`).
+    Alone: ``c.phase_p2e_profile(out["agent"])`` after
+    ``c.phase_p2e_training(dir)``."""
     import torch
 
     from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as p2e
@@ -6143,6 +6209,309 @@ def phases_47_50(workdir):
     return {"pipeline": pipeline, "placement": placement, "sac_decoupled": sacd, "ppo_decoupled": ppod, "phases_47_50_s": took}
 
 
+# Phases 51-53: telemetry on the card. DV3-S through the CLI with
+# telemetry=on, 1 env: 128 prefill steps then one gradient step per
+# iteration. Only these are cut from exp=dreamer_v3_100k_ms_pacman: the
+# host path 5 gradient steps with a torch.profiler window over 2 of them
+# and a /metrics exporter, the ring path 9 (3 eager warm-ups, the capture, 5
+# replays), no checkpoint, no test episode, the buffer in memory.
+TELE_CUTS = {"algo.learning_starts": "128 (from 1024)", "algo.total_steps": "132 (host path, 5 gradient steps) and 136 (ring path, 9)",
+             "metric.log_every": "128 (from 5000)", "algo.run_test": "False", "checkpoint.every": "0", "checkpoint.save_last": "False",
+             "buffer.memmap": "False (from True)"}  # fmt: skip
+TELE_ARGS = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "algo.learning_starts=128", "metric.log_every=128", "algo.run_test=False",
+             "checkpoint.every=0", "checkpoint.save_last=False", "buffer.memmap=False", "telemetry=on"]  # fmt: skip
+TELE_HOST = ["algo.total_steps=132", "telemetry.profiler.start_step=129", "telemetry.profiler.stop_step=131"]
+TELE_RING = ["algo.total_steps=136", "buffer.device=True"]
+TELE_SHARE_TOL = 0.05  # the compute/infeed/host breakdown sums to 1 within this
+TELE_FLOP_RTOL = 0.01  # the card's counted step FLOPs against the CPU's
+TELE_COUNT_SHAPE = (16, 8)  # (T, B) of the counted card-vs-CPU step: imagination B = 128, the tensor cores' threshold in bf16
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _telemetry_records(log_dir, what):
+    from sheeprl_tpu_torch.telemetry.__main__ import load_records
+
+    for name in ("trace.json", "telemetry.jsonl"):
+        if not os.path.isfile(os.path.join(log_dir, name)):
+            fail(f"{what}: no {name} in {log_dir}")
+    with open(os.path.join(log_dir, "trace.json")) as fp:
+        trace = json.load(fp)
+    return load_records(os.path.join(log_dir, "telemetry.jsonl")), trace
+
+
+def _costs(records):
+    """The accountant's counted work per key, from the run's perf_costs line."""
+    found = [r for r in records if r["type"] == "perf_costs"]
+    if not found or found[-1]["failures"]:
+        fail(f"telemetry: no counted work, or a failed count: {found[-1:] if found else 'no perf_costs line'}")
+    return found[-1]["costs"]
+
+
+def _check_shares(records, what):
+    """Every log point that trained: perf/mfu and perf/hbm_bw_util in (0, 1],
+    the breakdown summing to 1 within TELE_SHARE_TOL. Returns those points."""
+    trained = [r for r in records if r["type"] == "counters" and r.get("step", -1) >= 0 and r["values"].get("perf/train_steps_per_s", 0) > 0]
+    if not trained:
+        fail(f"{what}: no log point published the goodput of a trained interval")
+    for r in trained:
+        v = r["values"]
+        for key in ("perf/mfu", "perf/hbm_bw_util"):
+            if not 0.0 < v.get(key, -1.0) <= 1.0:
+                fail(f"{what}: {key} = {v.get(key)} at step {r['step']}, outside (0, 1]")
+        total = sum(v[f"perf/step_time_breakdown_{k}"] for k in ("compute", "infeed", "host"))
+        if abs(total - 1.0) > TELE_SHARE_TOL:
+            fail(f"{what}: the breakdown sums to {total} at step {r['step']}")
+    return [{k: r["values"][k] for k in r["values"] if k.startswith("perf/")} | {"step": r["step"]} for r in trained]
+
+
+def _telemetry_run(args, what, scrape_port=None, count_syncs=False):
+    """One DV3-S run through the CLI on the card: its output, the host wall
+    per gradient step between the first and the last callback, the LN-GRU
+    counts, the synchronising calls under sync_debug_mode("warn") (those
+    between the first and the last callback per gradient step, and the
+    run's), and the /metrics body scraped at the third gradient step."""
+    import warnings
+
+    import torch
+
+    from sheeprl_tpu_torch.cli import run
+
+    stamps, synced, scraped = [], [], []
+
+    def on_step(agent, step, tau, metrics):
+        stamps.append(time.perf_counter())
+        synced.append(sum(1 for w in caught if "synchroniz" in str(w.message)))
+        if scrape_port is not None and step == 3:
+            with urllib.request.urlopen(f"http://127.0.0.1:{scrape_port}/metrics", timeout=30) as resp:
+                scraped.append(resp.read().decode())
+
+    torch.cuda.synchronize()
+    zero_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if count_syncs:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = run(args, callback=on_step)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    syncs = {"per_gradient_step": (synced[-1] - synced[0]) / (len(synced) - 1) if len(synced) > 1 else float("nan"),
+             "run": sum(1 for w in caught if "synchroniz" in str(w.message)), "gradient_steps": out["gradient_steps"]}  # fmt: skip
+    wall = (stamps[-1] - stamps[0]) / (len(stamps) - 1) if len(stamps) > 1 else float("nan")
+    return out, wall, counts, syncs, scraped[0] if scraped else None
+
+
+def _counted_step_flops(dev, precision):
+    """FLOPs and bytes of one eager DV3-S gradient step at TELE_COUNT_SHAPE on
+    ``dev``, counted by the accountant's mode (the kernels by formula)."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
+    from sheeprl_tpu_torch.telemetry import perf
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+    from sheeprl_tpu_torch.utils.ops import init_moments
+
+    cfg = compose(["exp=dreamer_v3_100k_ms_pacman", "env=dummy", f"fabric.precision={precision}"])
+    space = DictSpace({"rgb": Box((64, 64, 3), "uint8", 0.0, 255.0)})
+    agent = build_agent((9,), False, cfg, space, precision=precision, device=dev, seed=0, training=True)
+    step = make_train_step(agent, make_optimizers(agent, cfg), cfg)
+    data = _train_batch(*TELE_COUNT_SHAPE, 11, torch.device(dev))
+    zero_counts()
+    with perf.count_work() as count:
+        step(init_moments(torch.device(dev)), data, BatchGenerator.from_seed(0, torch.device(dev)), 1.0)
+    if count.reason is not None:
+        fail(f"counted step on {dev}: {count.reason}")
+    return {"flops": count.flops, "bytes": count.bytes, "ops": count.ops, "ln_gru_launches": read_counts()}
+
+
+def phase_telemetry_training(workdir):
+    """Phase 51: DV3-S through the CLI with telemetry on, the host path (a
+    profiler window, a /metrics exporter) and the ring path: the files, the
+    spans and counters, perf/mfu, perf/hbm_bw_util and the breakdown of every
+    trained interval, the profiler trace's markers and LN-GRU kernels, the
+    scrape; then one step's FLOPs counted on the card against the CPU."""
+    from sheeprl_tpu_torch.telemetry import default_registry
+    from sheeprl_tpu_torch.telemetry.profiling import PROFILE_MARKERS, count_markers
+
+    t0 = time.perf_counter()
+    port = _free_port()
+    host_args = [*TELE_ARGS, *TELE_HOST, f"telemetry.metrics_port={port}", f"log_root={workdir}"]
+    host, host_wall, host_counts, _, scraped = _telemetry_run(host_args, "telemetry host path", scrape_port=port)
+    if not all(host_counts[k] for k in ("streaming", "tensor_core", "backward")):
+        fail(f"telemetry host path: an LN-GRU kernel was not launched: {host_counts}")
+    records, trace = _telemetry_records(host["log_dir"], "telemetry host path")
+    host_shares = _check_shares(records, "telemetry host path")
+    meta = records[0]
+    if meta.get("type") != "meta" or meta.get("backend") != "cuda" or "H100" not in str(meta.get("device")):
+        fail(f"telemetry host path: meta line {meta}")
+    peaks = meta["peaks"]
+    spans = sorted({r["name"] for r in records if r["type"] == "span"})
+    final = [r for r in records if r["type"] == "counters"][-1]["values"]
+    for name in ("train/dispatch", "train/bound", "replay/sample", "transfer/h2d_sync", "fetch/player_actions", "train/metric_fetch",
+                 "interaction/dispatch/slice0", "loop/iteration", "Time/train_time"):  # fmt: skip
+        if name not in spans:
+            fail(f"telemetry host path: no {name} span in {spans}")
+    prof_path = os.path.join(host["log_dir"], "profiler_trace", "trace_129_131.json")
+    if not os.path.isfile(prof_path):
+        fail(f"telemetry host path: no profiler trace at {prof_path}")
+    markers = count_markers(prof_path)
+    with open(prof_path) as fp:
+        kernel_names = {e["name"] for e in json.load(fp)["traceEvents"] if e.get("cat") == "kernel"}
+    ln_gru_names = sorted({m.group(0) for n in kernel_names for m in [re.search(r"ln_gru_\w+", n)] if m})
+    if len(ln_gru_names) < 3 or not markers:
+        fail(f"telemetry profiler window: {markers} of {PROFILE_MARKERS} markers, LN-GRU kernels {ln_gru_names}")
+    if scraped is None or "perf_mfu" not in scraped or "device_get_bytes" not in scraped:
+        fail(f"telemetry: the trainer's /metrics scrape lacks perf_mfu or device_get_bytes: {(scraped or '')[:400]}")
+    registry = default_registry().snapshot()["counters"]
+
+    ring, ring_wall, ring_counts, ring_syncs, _ = _telemetry_run([*TELE_ARGS, *TELE_RING, f"log_root={workdir}"], "telemetry ring path", count_syncs=True)
+    ring_records, _ = _telemetry_records(ring["log_dir"], "telemetry ring path")
+    ring_shares = _check_shares(ring_records, "telemetry ring path")
+    ring_final = [r for r in ring_records if r["type"] == "counters"][-1]["values"]
+    if ring_final.get("graph_captures", 0) < 1 or ring["fused"]["replays"] < 1:
+        fail(f"telemetry ring path: {ring_final.get('graph_captures')} graph captures, {ring['fused']['replays']} replays")
+
+    step_costs = {"host": _costs(records), "ring": _costs(ring_records)}
+    card = _counted_step_flops("cuda", "bf16-mixed")
+    cpu = _counted_step_flops("cpu", "32-true")
+    gap = abs(card["flops"] - cpu["flops"]) / cpu["flops"]
+    if gap > TELE_FLOP_RTOL or not all(card["ln_gru_launches"][k] for k in ("streaming", "tensor_core", "backward")):
+        fail(f"telemetry: the counted step's FLOPs on the card {card['flops']:.6g} against the CPU's {cpu['flops']:.6g} ({gap:.3g}), "
+             f"kernels {card['ln_gru_launches']}")  # fmt: skip
+    result = {
+        "cuts": TELE_CUTS, "peaks": peaks, "card": meta["device"], "power_limit": meta["power_limit"],
+        "host": {"gradient_steps": host["gradient_steps"], "host_wall_s_per_gradient_step": host_wall, "shares": host_shares, "spans": spans,
+                 "counters": {k: final[k] for k in sorted(final) if not k.startswith("perf/")}, "ln_gru_launches": host_counts,
+                 "profiler": {"trace": os.path.relpath(prof_path, workdir), "markers": markers, "of": PROFILE_MARKERS, "ln_gru_kernels": ln_gru_names},
+                 "metrics_scrape_lines": len(scraped.splitlines())},
+        "ring": {"gradient_steps": ring["gradient_steps"], "host_wall_s_per_gradient_step": ring_wall, "shares": ring_shares,
+                 "counters": {k: ring_final[k] for k in sorted(ring_final) if not k.startswith("perf/")}, "graph_nodes": ring["fused"]["graph"]["nodes"],
+                 "syncs": ring_syncs, "ln_gru_launches": ring_counts},
+        "registry_cuda": {k: v for k, v in registry.items() if k.startswith("cuda/")},
+        "counted_step": {"shape": TELE_COUNT_SHAPE, "card_bf16": card, "cpu_32_true": cpu, "flops_rel_gap": gap},
+        "run_step_costs": step_costs,
+        "took_s": time.perf_counter() - t0,
+    }  # fmt: skip
+    log(f"telemetry (51): host path {host['gradient_steps']} gradient steps, {host_wall * 1e3:.1f} ms host wall each; perf/mfu "
+        f"{[round(s['perf/mfu'], 6) for s in host_shares]}, perf/hbm_bw_util {[round(s['perf/hbm_bw_util'], 6) for s in host_shares]} against "
+        f"{peaks['flops']:.4g} FLOP/s and {peaks['bytes_per_s']:.4g} B/s ({peaks['reference']}), breakdown "
+        f"{[(round(s['perf/step_time_breakdown_compute'], 3), round(s['perf/step_time_breakdown_infeed'], 3), round(s['perf/step_time_breakdown_host'], 3)) for s in host_shares]}; "
+        f"profiler window {markers} of {PROFILE_MARKERS} markers, LN-GRU kernels {ln_gru_names}; /metrics {result['host']['metrics_scrape_lines']} lines; "
+        f"spans {spans}")  # fmt: skip
+    log(f"telemetry (51): ring path {ring['gradient_steps']} gradient steps, {ring_wall * 1e3:.1f} ms host wall each, perf/mfu "
+        f"{[round(s['perf/mfu'], 6) for s in ring_shares]}, perf/hbm_bw_util {[round(s['perf/hbm_bw_util'], 6) for s in ring_shares]}; "
+        f"counters {json.dumps(result['ring']['counters'])}; registry {json.dumps(result['registry_cuda'])}")  # fmt: skip
+    log(f"telemetry (51): the runs' counted work per train call: {json.dumps(step_costs)}")
+    log(f"telemetry (51): one eager step at T, B = {TELE_COUNT_SHAPE}: {card['flops']:.6g} FLOPs on the card (bf16-mixed, the kernels by formula) "
+        f"against {cpu['flops']:.6g} on the CPU (32-true, plain), gap {gap:.3g}; bytes {card['bytes']:.4g} / {cpu['bytes']:.4g}")  # fmt: skip
+    return result, ring
+
+
+def phase_telemetry_bits(workdir, ring_on):
+    """Phase 52: the ring-path run of phase 51 with telemetry off: the
+    synchronising calls per gradient step, the trained parameters and the
+    graph's node count equal to the run with it on; host wall per gradient
+    step of both (reported, not bounded)."""
+    args = [a for a in (*TELE_ARGS, *TELE_RING) if a != "telemetry=on"] + [f"log_root={workdir}"]
+    off, off_wall, _, off_syncs, _ = _telemetry_run(args, "telemetry off", count_syncs=True)
+    on_out, on_wall, on_syncs = ring_on
+    same = off["agent"].state_dict().keys() == on_out["agent"].state_dict().keys() and all(
+        torch_equal_bits(a, b) for a, b in zip(off["agent"].state_dict().values(), on_out["agent"].state_dict().values())
+    )
+    if not same:
+        fail("telemetry on and off: the trained parameters differ")
+    if off_syncs != on_syncs:
+        fail(f"telemetry on and off: synchronising calls {on_syncs} and {off_syncs}")
+    if off["fused"]["graph"]["nodes"] != on_out["fused"]["graph"]["nodes"]:
+        fail(f"telemetry on and off: the captured graph holds {on_out['fused']['graph']['nodes']} and {off['fused']['graph']['nodes']} nodes")
+    if os.path.exists(os.path.join(off["log_dir"], "telemetry.jsonl")):
+        fail("telemetry off wrote telemetry.jsonl")
+    result = {"syncs": off_syncs, "graph_nodes": off["fused"]["graph"]["nodes"], "parameters_equal": True,
+              "host_wall_ms_per_gradient_step": {"on": on_wall * 1e3, "off": off_wall * 1e3}}  # fmt: skip
+    log(f"telemetry (52): on and off bit for bit ({len(off['agent'].state_dict())} tensors), {off_syncs['per_gradient_step']:.2f} synchronising calls per gradient "
+        f"step after the first ({off_syncs['run']} in the run, prefill's included, over {off_syncs['gradient_steps']} steps) each, graph nodes {off['fused']['graph']['nodes']} each; host wall per gradient step on {on_wall * 1e3:.1f} ms, off "
+        f"{off_wall * 1e3:.1f} ms (the ring path's replays, one run each)")  # fmt: skip
+    return result
+
+
+def phase_telemetry_serving(workdir, path=None):
+    """Phase 53: the DV3-S policy server with request ids and trace context:
+    requests with and without traceparent, the ids on every reply, the
+    client's trace on the batch span, GET /metrics."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.serve import export_random
+    from sheeprl_tpu_torch.serve.engine import InferenceEngine
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+    from sheeprl_tpu_torch.telemetry import trace_context
+    from sheeprl_tpu_torch.telemetry import tracer as tracer_mod
+
+    if path is None:
+        path = export_random(os.path.join(workdir, "dv3s_tele.policy"), name="dv3s", seed=0, precision="bf16-mixed")
+    live = tracer_mod.Tracer()
+    previous = tracer_mod.set_current(live)
+    engine = InferenceEngine(max_batch=8, batch_window_s=0.002, device="cuda")
+    engine.load("dv3s", path)
+    server = PolicyServer(engine, host="127.0.0.1", port=0).start()
+    client_trace = "ab" * 16
+    rng = np.random.default_rng(0)
+    replies = []
+    try:
+        for i in range(4):
+            headers = {"Content-Type": "application/json"}
+            if i % 2 == 0:
+                headers |= {"traceparent": f"00-{client_trace}-{'cd' * 8}-01", "X-Request-Id": f"tele-{i}"}
+            body = {"model": "dv3s", "session": "s", "obs": {"rgb": rng.integers(0, 256, (64, 64, 3), dtype=np.uint8).tolist()}}
+            req = urllib.request.Request(server.address + "/v1/act", data=json.dumps(body).encode(), headers=headers, method="POST")
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                replies.append((i, dict(resp.headers), json.loads(resp.read())))
+        engine.stats()
+        with urllib.request.urlopen(server.address + "/metrics", timeout=60) as resp:
+            metrics = resp.read().decode()
+    finally:
+        server.close(drain=True)
+        tracer_mod.set_current(previous)
+    for i, headers, body in replies:
+        parsed = trace_context.parse_traceparent(headers.get("traceparent"))
+        if parsed is None or headers.get("X-Request-Id") != body.get("request_id") or (i % 2 == 0 and (body["request_id"] != f"tele-{i}" or parsed[0] != client_trace)):
+            fail(f"telemetry serving: request {i} replied {headers} {body}")
+    batches = [s for s in live.spans() if s.name == "serve/batch"]
+    linked = [link for s in batches for link in s.args["links"] if link["request_id"] in ("tele-0", "tele-2")]
+    if len(linked) != 2 or any(link["trace_id"] != client_trace for link in linked) or not any(s.trace_id == client_trace for s in batches):
+        fail(f"telemetry serving: the client's trace is not on the batch spans: {linked}")
+    names = sorted({line.split()[2] for line in metrics.splitlines() if line.startswith("# TYPE ")})
+    for name in ("serve_requests_total", "serve_latency_s", "serve_batches_total", "perf_step_time_breakdown_compute"):
+        if name not in names:
+            fail(f"telemetry serving: /metrics lacks {name}: {names}")
+    result = {"requests": len(replies), "batch_spans": len(batches), "metrics": names}
+    log(f"telemetry (53): {len(replies)} requests, ids and traceparent on every reply, the client's trace on {len(linked)} batch links; "
+        f"/metrics names {names}")  # fmt: skip
+    return result
+
+
+def phases_51_53(workdir, path=None):
+    """Phases 51-53 (they run alone too, after ``kernels.build()``)."""
+    t0 = time.perf_counter()
+    training, ring_on = phase_telemetry_training(workdir)
+    bits = phase_telemetry_bits(workdir, (ring_on, training["ring"]["host_wall_s_per_gradient_step"], training["ring"]["syncs"]))
+    serving = phase_telemetry_serving(workdir, path)
+    took = time.perf_counter() - t0
+    log(f"telemetry: phases 51-53 took {took:.1f} s")
+    return {"telemetry": training, "telemetry_bits": bits, "telemetry_serving": serving, "phases_51_53_s": took}
+
+
 def main() -> None:
     import warnings
 
@@ -6249,6 +6618,7 @@ def main() -> None:
         last_trainers = phases_37_41(workdir)
         anakin = phases_42_46(workdir)
         interaction = phases_47_50(workdir)
+        telemetry = phases_51_53(workdir, path)
         replay_sample = phase_replay_sample()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -6290,7 +6660,9 @@ def main() -> None:
                 "launches_pipeline_s1": timings["s1_sync"]["ln_gru_launches"][kind], "launches_pipeline_s2": timings["s2_async"]["ln_gru_launches"][kind],
                 "launches_host_player": interaction["placement"]["host_player"]["ln_gru_launches"][kind],
                 "launches_sac_decoupled": interaction["sac_decoupled"]["fresh"]["ln_gru_launches"][kind],
-                "launches_ppo_decoupled": interaction["ppo_decoupled"]["ln_gru_launches"][kind]}  # fmt: skip
+                "launches_ppo_decoupled": interaction["ppo_decoupled"]["ln_gru_launches"][kind],
+                "launches_telemetry_host": telemetry["telemetry"]["host"]["ln_gru_launches"][kind],
+                "launches_telemetry_ring": telemetry["telemetry"]["ring"]["ln_gru_launches"][kind]}  # fmt: skip
 
     def in_graph(kernel):
         """The kernel's nodes in the captured step's graph, and its launches
@@ -6497,10 +6869,13 @@ def main() -> None:
         **last_trainers,
         **anakin,
         **interaction,
+        **telemetry,
         "kernels": kernels_line["kernels"],
         "phase_s": phase_s,
+        "profiler_s": PROFILER_S,
     }
     log(f"phase seconds: {json.dumps({k: round(v, 2) for k, v in phase_s.items()})}")
+    log(f"torch.profiler seconds by phase: {json.dumps({k: round(v, 2) for k, v in PROFILER_S.items()})}")
     out_dir = os.path.join(REPO, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as fp:

@@ -38,7 +38,7 @@ from sheeprl_tpu_torch.algos.a2c.loss import policy_loss, value_loss
 from sheeprl_tpu_torch.algos.a2c.utils import test
 from sheeprl_tpu_torch.algos.ppo.agent import PPOAgent, build_agent
 from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss
-from sheeprl_tpu_torch.algos.ppo.ppo import _to_device, minibatch_indices
+from sheeprl_tpu_torch.algos.ppo.ppo import _to_device, minibatch_indices, ship_rollout
 from sheeprl_tpu_torch.core.interact import InteractionPipeline
 from sheeprl_tpu_torch.core.onpolicy import log_episodes, open_run
 from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
@@ -137,10 +137,13 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
     obs = envs.reset(seed=cfg.seed)[0]
     next_obs = {k: obs[k] for k in obs_keys}
     step_data: Dict[str, np.ndarray] = {k: obs[k][np.newaxis] for k in obs_keys}
+    telemetry = run.telemetry
+    perf = telemetry.perf
     for iter_num in range(run.start_iter, run.total_iters + 1):
+        telemetry.advance(policy_step)
         for _ in range(rollout_steps):
             policy_step += num_envs
-            with timer("Time/env_interaction_time"), record_function("a2c/rollout_step"):
+            with timer("Time/env_interaction_time"), perf.infeed(), record_function("a2c/rollout_step"):
                 with torch.no_grad():
                     obs_t = _to_device(prepare_obs(next_obs, num_envs=num_envs), placement.device)
                     actions, real, logprobs, values = placement.player(agent).player_step(obs_t, player_rng)
@@ -167,11 +170,11 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
             log_episodes(cfg, aggregator, info, policy_step)
 
         # ---------------------------------------------------------- update
-        data = _to_device({k: np.asarray(rb[k]) for k in (*obs_keys, "actions", "rewards", "values", "dones")}, device)
-        next_obs_t = _to_device(prepare_obs(next_obs, num_envs=num_envs), device)
+        data, next_obs_t = ship_rollout(rb, (*obs_keys, "actions", "rewards", "values", "dones"), next_obs, (), device)
         with train_timer(device):
             indices = minibatch_indices(rollout_steps * num_envs, batch_size, 1, perm_generator)[0]
-            metrics = train_step(data, next_obs_t, indices)
+            with perf.note("train/update"):
+                metrics = train_step(data, next_obs_t, indices)
         placement.push()
         if callback is not None:
             callback(agent, iter_num, metrics)
@@ -179,4 +182,5 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
         run.anneal(iter_num)
         run.checkpoint(iter_num, policy_step)
 
-    return {**run.finish(test, policy_step), "interaction": pipeline.publish(), "placement": placement.stats()}
+    interaction = pipeline.publish()
+    return {**run.finish(test, policy_step), "interaction": interaction, "placement": placement.stats()}

@@ -62,6 +62,7 @@ from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Discrete
+from sheeprl_tpu_torch.telemetry import open_for_run
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator, BernoulliSafeMode, Independent, Normal, OneHotCategorical
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
@@ -414,6 +415,8 @@ def run_dreamer(
         logger.log_hyperparams(cfg)
     log_dir = get_log_dir(os.path.join(cfg.log_root, cfg.root_dir), cfg.run_name, logger=logger)
     print(f"Log dir: {log_dir}", flush=True)
+    telemetry = open_for_run(cfg, log_dir, device)
+    perf = telemetry.perf
 
     num_envs = int(cfg.env.num_envs)
     envs = make_vector_env(cfg)
@@ -502,7 +505,8 @@ def run_dreamer(
 
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
-        with timer("Time/env_interaction_time"):
+        telemetry.advance(policy_step)
+        with timer("Time/env_interaction_time"), perf.infeed():
             if iter_num <= learning_starts and state_ckpt is None and trainer.random_prefill:
                 real_actions = actions = envs.sample_actions()
                 if not is_continuous:
@@ -574,7 +578,8 @@ def run_dreamer(
                     for i in range(per_rank_gradient_steps):
                         if loop.target_copy and gradient_steps % freq == 0:
                             trainer.copy_targets()
-                        metrics = train_step(batches[i], train_rng)
+                        with perf.note("train/step"):
+                            metrics = train_step(batches[i], train_rng)
                         gradient_steps += 1
                         if aggregator is not None:
                             pending.append(metrics)  # the device's 0-d tensors, read back at the log point
@@ -609,6 +614,7 @@ def run_dreamer(
                     timer.reset()
                 logger.log_dict(logged, policy_step)
                 row.update(logged)
+            telemetry.log_counters(logger, policy_step)
             last_log, last_train = policy_step, train_step_count
             log.append(row)
             print(" ".join(f"{k}={v:.6g}" for k, v in row.items()), flush=True)
@@ -632,13 +638,15 @@ def run_dreamer(
 
     infeed.close()
     test_reward = test(trainer.test_agent, cfg, log_dir, logger) if cfg.algo.run_test else None
+    interaction = pipeline.publish()
+    telemetry.close()
     if logger is not None:
         logger.close()
     return {
         "agent": agent, "optimizers": trainer.optimizers, "policy_steps": policy_step, "gradient_steps": gradient_steps, "log": log,
         "log_dir": log_dir, "checkpoints": checkpoints, "test_reward": test_reward,
         "infeed": {"hits": infeed.hits, "misses": infeed.misses}, "buffer": rb,
-        "interaction": pipeline.publish(), "placement": placement.stats(),
+        "interaction": interaction, "placement": placement.stats(),
     }  # fmt: skip
 
 

@@ -80,6 +80,7 @@ from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Discrete
+from sheeprl_tpu_torch.telemetry import open_for_run
 from sheeprl_tpu_torch.utils.distribution import (
     BatchGenerator,
     BernoulliSafeMode,
@@ -619,6 +620,8 @@ def run_dreamer_v3(
         logger.log_hyperparams(cfg)
     log_dir = get_log_dir(os.path.join(cfg.log_root, cfg.root_dir), cfg.run_name, logger=logger)
     print(f"Log dir: {log_dir}", flush=True)
+    telemetry = open_for_run(cfg, log_dir, device)
+    perf = telemetry.perf
 
     num_envs = int(cfg.env.num_envs)
     envs = make_vector_env(cfg)
@@ -766,7 +769,8 @@ def run_dreamer_v3(
                     on_step = None
                     if callback is not None:
                         on_step = functools.partial(_fused_callback, callback, agent, gradient_steps + 1, taus)
-                    moments, metrics = fused(moments, ring.state, taus, on_step)
+                    with perf.note(f"train/fused_k{k}", steps=k):
+                        moments, metrics = fused(moments, ring.state, taus, on_step)
                     gradient_steps += k
                     fused_gradient_steps += k
                     if aggregator is not None:
@@ -777,7 +781,8 @@ def run_dreamer_v3(
             taus = target_update_taus(gradient_steps, per_rank_gradient_steps, freq, cfg.algo.critic.tau)
             with train_timer(device):
                 for i in range(per_rank_gradient_steps):
-                    moments, metrics = train_step(moments, batches[i], train_rng, float(taus[i]))
+                    with perf.note("train/step"):
+                        moments, metrics = train_step(moments, batches[i], train_rng, float(taus[i]))
                     gradient_steps += 1
                     if aggregator is not None:
                         pending.append(metrics)  # the device's 0-d tensors, read back at the log point
@@ -789,8 +794,9 @@ def run_dreamer_v3(
 
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
+        telemetry.advance(policy_step)
         trained_in_flight = False
-        with timer("Time/env_interaction_time"):
+        with timer("Time/env_interaction_time"), perf.infeed():
             if iter_num <= learning_starts and state_ckpt is None and trainer.random_prefill:
                 real_actions = actions = envs.sample_actions()
                 if not is_continuous:
@@ -897,6 +903,7 @@ def run_dreamer_v3(
                     timer.reset()
                 logger.log_dict(logged, policy_step)
                 row.update(logged)
+            telemetry.log_counters(logger, policy_step)
             last_log, last_train = policy_step, train_step_count
             log.append(row)
             print(" ".join(f"{k}={v:.6g}" for k, v in row.items()), flush=True)
@@ -920,6 +927,8 @@ def run_dreamer_v3(
 
     infeed.close()
     test_reward = test(trainer.test_agent, cfg, log_dir, logger, sample_actions=trainer.test_sample) if cfg.algo.run_test else None
+    interaction = pipeline.publish()
+    telemetry.close()
     if logger is not None:
         logger.close()
     return {
@@ -940,6 +949,6 @@ def run_dreamer_v3(
             "replays": fused.captured.replays, "graph": fused.captured.nodes,
         },
         "infeed": {"hits": infeed.hits, "misses": infeed.misses},
-        "interaction": pipeline.publish(),
+        "interaction": interaction,
         "placement": placement.stats(),
     }  # fmt: skip

@@ -191,6 +191,10 @@ class DroQTrainer:
             }
             return [self.train_step(critic_data, actor_obs, draws)]
 
+    def work_key(self, steps: int, first_step: int) -> str:
+        """What a host call's work depends on beyond its step count: nothing."""
+        return ""
+
     def ring(self, ring: DeviceReplayRing, steps: int, tau: float, bucket: int) -> List[Metrics]:
         """Power-of-two buckets of critic steps; the actor step rides on the
         last one, one per train call as on the host path."""

@@ -24,8 +24,10 @@ and the greedy test episode at the end are the JAX package's. The Anakin
 lane is ``core/fused_loop.py``'s. The env step goes through the interaction
 pipeline (``core/interact.py``), the truncation bootstrap through its fetch,
 and the player through its placement (``core/player.py``, always ``fresh``:
-a rollout plays the weights of the update before it). Not ported yet
-(ROADMAP): telemetry, health probes, the preemption guard and the watchdog.
+a rollout plays the weights of the update before it). The run's telemetry
+(``core/onpolicy.py:open_run``) times the rollout as infeed, the shipped
+rollout (``rollout/ship``) and the update (``train/update``). Not ported
+yet (ROADMAP): health probes, the preemption guard and the watchdog.
 
 The rollout step, GAE and the update run under
 ``torch.profiler.record_function`` spans (``ppo/rollout_step``,
@@ -34,6 +36,7 @@ The rollout step, GAE and the update run under
 
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Any, Callable, Dict, Optional
 
@@ -50,6 +53,7 @@ from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
 from sheeprl_tpu_torch.core.onpolicy import make_optimizer as make_optimizer  # the JAX ppo.make_optimizer's counterpart
 from sheeprl_tpu_torch.core.rollout import bootstrap_truncated, fuse_gae_pool
 from sheeprl_tpu_torch.registry import register_algorithm
+from sheeprl_tpu_torch.telemetry.cuda_events import transfer
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
 from sheeprl_tpu_torch.utils.ops import normalize_tensor
 from sheeprl_tpu_torch.utils.timer import timer, train_timer
@@ -158,6 +162,17 @@ def _to_device(arrays: Dict[str, np.ndarray], device: torch.device) -> Dict[str,
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in arrays.items()}
 
 
+def ship_rollout(rb, keys, next_obs: Dict[str, np.ndarray], cnn_keys, device: torch.device):
+    """The rollout's ``keys`` and the observation after it to ``device`` (the
+    telemetry's ``rollout/ship`` span and ``transfer/h2d_*`` counters)."""
+    start = time.perf_counter()
+    host = {k: np.ascontiguousarray(rb[k]) for k in keys}
+    host_next = prepare_obs(next_obs, cnn_keys=cnn_keys, num_envs=len(next(iter(next_obs.values()))))
+    out = _to_device(host, device), _to_device(host_next, device)
+    transfer("put", "rollout/ship", start, sum(v.nbytes for v in (*host.values(), *host_next.values())))
+    return out
+
+
 @register_algorithm()
 def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = None) -> Dict[str, Any]:
     """Train PPO on ``cfg`` on ``cfg.device``. ``callback(agent, iter_num,
@@ -228,13 +243,16 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
     def prepare(obs: Dict[str, np.ndarray], out=None) -> Dict[str, np.ndarray]:
         return prepare_obs(obs, cnn_keys=cnn_keys, num_envs=len(obs[obs_keys[0]]), out=out)
 
+    telemetry = run.telemetry
+    perf = telemetry.perf
     obs = pipeline.stash_obs(envs.reset(seed=cfg.seed)[0])
     next_obs = {k: obs[k] for k in obs_keys}
     step_data: Dict[str, np.ndarray] = {k: obs[k][np.newaxis] for k in obs_keys}
     for iter_num in range(run.start_iter, run.total_iters + 1):
+        telemetry.advance(policy_step)
         for _ in range(rollout_steps):
             policy_step += num_envs
-            with timer("Time/env_interaction_time"), record_function("ppo/rollout_step"):
+            with timer("Time/env_interaction_time"), perf.infeed(), record_function("ppo/rollout_step"):
                 res = pipeline.interact(
                     envs, next_obs, policy, prepare=prepare, to_env_actions=lambda host, n: split(host)[3].reshape((n, *action_shape))
                 )
@@ -257,13 +275,13 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
             log_episodes(cfg, aggregator, info, policy_step)
 
         # ---------------------------------------------------------- update
-        data = _to_device({k: np.asarray(rb[k]) for k in (*obs_keys, "actions", "logprobs", "rewards", "values", "dones")}, device)
-        next_obs_t = _to_device(prepare_obs(next_obs, cnn_keys=cnn_keys, num_envs=num_envs), device)
+        data, next_obs_t = ship_rollout(rb, (*obs_keys, "actions", "logprobs", "rewards", "values", "dones"), next_obs, cnn_keys, device)
         with train_timer(device):
             indices = minibatch_indices(rollout_steps * num_envs, batch_size, int(cfg.algo.update_epochs), perm_generator)
             clip_coef = torch.tensor(cfg.algo.clip_coef, dtype=torch.float32, device=device)
             ent_coef = torch.tensor(cfg.algo.ent_coef, dtype=torch.float32, device=device)
-            metrics = train_step(data, next_obs_t, indices, clip_coef, ent_coef)
+            with perf.note("train/update", steps=indices.shape[0] * indices.shape[1]):
+                metrics = train_step(data, next_obs_t, indices, clip_coef, ent_coef)
         placement.push()
         if callback is not None:
             callback(agent, iter_num, metrics)
@@ -273,4 +291,5 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
         run.anneal(iter_num, initial_coefs)
         run.checkpoint(iter_num, policy_step)
 
-    return {**run.finish(test, policy_step), "interaction": pipeline.publish(), "placement": placement.stats()}
+    interaction = pipeline.publish()
+    return {**run.finish(test, policy_step), "interaction": interaction, "placement": placement.stats()}

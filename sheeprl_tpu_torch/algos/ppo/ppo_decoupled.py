@@ -60,10 +60,13 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
     action_shape = tuple(run.action_space.shape)
     split = rollout_outputs(run.actions_dim, is_continuous)
 
+    telemetry = run.telemetry
+    perf = telemetry.perf
     obs = envs.reset(seed=cfg.seed)[0]
     next_obs = {k: obs[k] for k in obs_keys}
     step_data: Dict[str, np.ndarray] = {k: obs[k][np.newaxis] for k in obs_keys}
     for iter_num in range(run.start_iter, run.total_iters + 1):
+        telemetry.advance(policy_step)
         # The fresh mirror: the rollout waits for the last update's weights.
         player = placement.player(agent)
 
@@ -73,7 +76,7 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
 
         for _ in range(rollout_steps):
             policy_step += num_envs
-            with timer("Time/env_interaction_time"), torch.no_grad():
+            with timer("Time/env_interaction_time"), perf.infeed(), torch.no_grad():
                 prepared = prepare_obs(next_obs, cnn_keys=cnn_keys, num_envs=num_envs)
                 actions, real, logprobs, values = player.player_step(_to_device(prepared, player_device), player_rng)
                 host = torch.cat([actions.float(), logprobs, values] + ([] if is_continuous else [real.float()]), -1).cpu().numpy()
@@ -105,7 +108,8 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
             indices = minibatch_indices(rollout_steps * num_envs, batch_size, int(cfg.algo.update_epochs), perm_generator)
             clip_coef = torch.tensor(cfg.algo.clip_coef, dtype=torch.float32, device=trainer_device)
             ent_coef = torch.tensor(cfg.algo.ent_coef, dtype=torch.float32, device=trainer_device)
-            metrics = update_pool(pool, indices, clip_coef, ent_coef)
+            with perf.note("train/update", steps=indices.shape[0] * indices.shape[1]):
+                metrics = update_pool(pool, indices, clip_coef, ent_coef)
         # The broadcast back: the next rollout waits on this copy.
         placement.push()
         if callback is not None:

@@ -189,10 +189,13 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
         values = placement.player(agent).get_values(final_t, torch.from_numpy(actions_np[env_ids]).to(pdev), (carry[0][ids], carry[1][ids]))
         return pipeline.fetch(values, label="trunc_bootstrap").harvest()
 
+    telemetry = run.telemetry
+    perf = telemetry.perf
     for iter_num in range(run.start_iter, run.total_iters + 1):
+        telemetry.advance(policy_step)
         for _ in range(rollout_steps):
             policy_step += num_envs
-            with timer("Time/env_interaction_time"), record_function("ppo_recurrent/rollout_step"):
+            with timer("Time/env_interaction_time"), perf.infeed(), record_function("ppo_recurrent/rollout_step"):
                 prepared = prepare_obs(next_obs, cnn_keys=cnn_keys, num_envs=num_envs)
                 with torch.no_grad():
                     prev_carry = carry
@@ -243,7 +246,8 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
             indices = minibatch_indices(n_sequences, max(1, n_sequences // num_batches), int(cfg.algo.update_epochs), perm_generator)
             clip_coef = torch.tensor(cfg.algo.clip_coef, dtype=torch.float32, device=device)
             ent_coef = torch.tensor(cfg.algo.ent_coef, dtype=torch.float32, device=device)
-            metrics = train_step(data, indices, clip_coef, ent_coef)
+            with perf.note("train/update", steps=indices.shape[0] * indices.shape[1]):
+                metrics = train_step(data, indices, clip_coef, ent_coef)
         placement.push()
         if callback is not None:
             callback(agent, iter_num, metrics)
@@ -252,4 +256,5 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
         run.anneal(iter_num, initial_coefs)
         run.checkpoint(iter_num, policy_step)
 
-    return {**run.finish(test, policy_step), "interaction": pipeline.publish(), "placement": placement.stats()}
+    interaction = pipeline.publish()
+    return {**run.finish(test, policy_step), "interaction": interaction, "placement": placement.stats()}

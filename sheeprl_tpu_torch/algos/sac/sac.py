@@ -67,6 +67,7 @@ from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
+from sheeprl_tpu_torch.telemetry import open_for_run
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
@@ -232,6 +233,10 @@ class SACTrainer:
             self.tau.fill_(tau)
             return [self.train_step(data, draw_noise(self.rng, self.batch_size, self.agent.action_dim, steps), self.tau)]
 
+    def work_key(self, steps: int, first_step: int) -> str:
+        """What a host call's work depends on beyond its step count: nothing."""
+        return ""
+
     def ring(self, ring: DeviceReplayRing, steps: int, tau: float, bucket: int) -> List[Metrics]:
         """``steps`` ring-sampled gradient steps in power-of-two buckets of
         at most ``bucket``: one metrics dict per bucket."""
@@ -352,6 +357,8 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
         logger.log_hyperparams(cfg)
     log_dir = get_log_dir(os.path.join(cfg.log_root, cfg.root_dir), cfg.run_name, logger=logger)
     print(f"Log dir: {log_dir}", flush=True)
+    telemetry = open_for_run(cfg, log_dir, device)
+    perf = telemetry.perf
 
     num_envs = int(cfg.env.num_envs)
     envs = make_vector_env(cfg)
@@ -450,11 +457,16 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
         tau = float(cfg.algo.tau) if iter_num % target_freq_iters == 0 else 0.0
         if ring is not None:
             ring.flush()  # this iteration's rows, in one copy to the card
+        # One key per path, gradient-step count and cadence: a key's work is
+        # counted on its first call (SAC-AE's cadences make some calls heavier).
         if ring is not None and ring.ready(ring_span):
-            metrics = trainer.ring(ring, per_rank_gradient_steps, tau, fused_train_steps)
+            with perf.note(f"train/ring_x{per_rank_gradient_steps}", steps=per_rank_gradient_steps):
+                metrics = trainer.ring(ring, per_rank_gradient_steps, tau, fused_train_steps)
             fused_gradient_steps += per_rank_gradient_steps
         else:
-            metrics = trainer.host(rb, per_rank_gradient_steps, tau, gradient_steps)
+            key = f"train/host_x{per_rank_gradient_steps}{trainer.work_key(per_rank_gradient_steps, gradient_steps)}"
+            with perf.note(key, steps=per_rank_gradient_steps):
+                metrics = trainer.host(rb, per_rank_gradient_steps, tau, gradient_steps)
         gradient_steps += per_rank_gradient_steps
         train_step_count += 1
         if aggregator is not None:
@@ -465,8 +477,9 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
 
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
+        telemetry.advance(policy_step)
         trained_in_flight = False
-        with timer("Time/env_interaction_time"):
+        with timer("Time/env_interaction_time"), perf.infeed():
             if iter_num <= learning_starts:
                 actions = envs.sample_actions()
                 next_obs, rewards, terminated, truncated, infos = envs.step(actions.reshape((num_envs, *action_shape)))
@@ -539,6 +552,7 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
                     timer.reset()
                 logger.log_dict(logged, policy_step)
                 row.update(logged)
+            telemetry.log_counters(logger, policy_step)
             last_log, last_train = policy_step, train_step_count
             log.append(row)
             print(" ".join(f"{k}={v:.6g}" for k, v in row.items()), flush=True)
@@ -570,6 +584,8 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
 
     placement.flush()  # no mirror copy left in flight
     test_reward = algo.test(agent, cfg, log_dir, logger) if cfg.algo.run_test else None
+    interaction = pipeline.publish()
+    telemetry.close()
     if logger is not None:
         logger.close()
     fused = trainer.fused_info()
@@ -580,7 +596,7 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
             "active": ring.active, "inactive_reason": ring.inactive_reason, "bytes": ring.ring_nbytes(), "capacity": ring.capacity,
         },
         "fused": None if fused is None else {"gradient_steps": fused_gradient_steps, **fused},
-        "interaction": pipeline.publish(), "placement": placement.stats(),
+        "interaction": interaction, "placement": placement.stats(),
     }  # fmt: skip
 
 

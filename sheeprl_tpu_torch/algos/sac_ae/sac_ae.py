@@ -43,6 +43,7 @@ package.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -158,12 +159,15 @@ def make_train_step(agent: SACAEAgent, optimizers: Dict[str, torch.optim.Optimiz
     return step
 
 
+def _freqs(cfg) -> Tuple[int, int, int]:
+    algo = cfg.algo
+    return tuple(int(f) for f in (algo.actor.per_rank_update_freq, algo.critic.per_rank_target_network_update_freq, algo.decoder.per_rank_update_freq))
+
+
 def cadence(cfg, gradient_step: int) -> Tuple[bool, bool, bool]:
     """(update_actor, update_ema, update_decoder) of the gradient step after
     ``gradient_step`` taken ones (``sac_ae.py:453-462``)."""
-    algo = cfg.algo
-    freqs = (algo.actor.per_rank_update_freq, algo.critic.per_rank_target_network_update_freq, algo.decoder.per_rank_update_freq)
-    return tuple(gradient_step % int(f) == 0 for f in freqs)
+    return tuple(gradient_step % f == 0 for f in _freqs(cfg))
 
 
 def draw(rng: BatchGenerator, batch: Dict[str, torch.Tensor], action_dim: int, cfg, update_decoder: bool):
@@ -199,6 +203,13 @@ class SACAETrainer:
                 normals, uniforms = draw(self.rng, batch, self.agent.action_dim, self.cfg, flags[2])
                 out.append(self.step(batch, normals, uniforms, *flags))
         return out
+
+    def work_key(self, steps: int, first_step: int) -> str:
+        """What a host call's work depends on beyond its step count: its
+        steps' cadence flags, set by ``first_step``'s place in the cadences'
+        common period."""
+        period = math.lcm(*_freqs(self.cfg))
+        return f"_c{first_step % period}of{period}"
 
     def fused_info(self) -> None:
         return None

@@ -7,7 +7,9 @@
     python -m sheeprl_tpu_torch.eval checkpoint_path=<run>/version_N/checkpoint/ckpt_<step>_0.ckpt [key=value ...] [device=cpu]
 
 They run on ``cuda`` unless ``device=cpu`` is given, and raise without a
-card. The config is composed from the port's tree
+card. ``telemetry=on`` (or ``telemetry.enabled=True``) traces the run into
+``trace.json`` and ``telemetry.jsonl`` in its log dir (``telemetry=profile``
+adds a ``torch.profiler`` window); ``health.enabled=True`` raises. The config is composed from the port's tree
 (:mod:`sheeprl_tpu_torch.config`, ``sheeprl_tpu_torch/configs/``): any exp
 there composes (``ppo``, ``ppo_atari``, ``a2c``, ``ppo_recurrent``, ``sac``, ``droq``,
 ``sac_ae``, ``dreamer_v3_100k_ms_pacman``, ``dreamer_v3_dmc_walker_walk``,
@@ -38,6 +40,7 @@ from typing import Any, Dict, Optional, Sequence
 from sheeprl_tpu_torch.config import compose, parse_overrides, set_overrides
 from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.registry import algorithm_registry, evaluation_registry, register_all
+from sheeprl_tpu_torch.telemetry import Telemetry, run_scope
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, resume_config
 from sheeprl_tpu_torch.utils.metric import MetricAggregator
 from sheeprl_tpu_torch.utils.timer import timer
@@ -73,13 +76,36 @@ def run(args: Optional[Sequence[str]] = None, callback=None) -> Dict[str, Any]:
         raise ValueError(f"algo.name={cfg.algo.name} is not ported; the port trains algo.name={' | '.join(sorted(algorithm_registry))}")
     check_anakin(cfg)
     check_decoupled(cfg, entry)
+    check_observability(cfg)
     utils_module = importlib.import_module(entry.module.rsplit(".", 1)[0] + ".utils")
     _prune_metric_keys(cfg, utils_module.AGGREGATOR_KEYS)
     if cfg.checkpoint.resume_from:
         cfg = resume_config(cfg)
-    if entry.after_exploration:
-        return entry.entrypoint(cfg, callback=callback, exploration_cfg=exploration_chain(cfg))
-    return entry.entrypoint(cfg, callback=callback)
+    # The run's observability surface (reference: cli.py:325-327): the
+    # trainer opens it at its log dir and threads it through its loop.
+    with run_scope(Telemetry.from_config(cfg)):
+        if entry.after_exploration:
+            return entry.entrypoint(cfg, callback=callback, exploration_cfg=exploration_chain(cfg))
+        return entry.entrypoint(cfg, callback=callback)
+
+
+def check_observability(cfg) -> None:
+    """The telemetry profiler window must satisfy ``0 <= start_step <
+    stop_step`` or be ``-1, -1`` (reference: cli.py:101-110); the health
+    sentinels are not ported and ``health.enabled=True`` raises instead of
+    being ignored."""
+    tele = cfg.get("telemetry")
+    if tele is not None and tele.get("profiler") is not None:
+        start = int(tele.profiler.get("start_step", -1))
+        stop = int(tele.profiler.get("stop_step", -1))
+        if (start >= 0) != (stop >= 0) or (start >= 0 and stop <= start):
+            raise ValueError(f"telemetry.profiler window must satisfy 0 <= start_step < stop_step (or both -1 to disable); got [{start}, {stop})")
+    health = cfg.get("health")
+    if health is not None and bool(health.get("enabled", False)):
+        raise NotImplementedError(
+            "health.enabled=True: the port has no training-health sentinels yet; their probes and the trip policy that "
+            "escalates to the preemption guard come with the resilience layer (ROADMAP A10)"
+        )
 
 
 def check_anakin(cfg) -> None:

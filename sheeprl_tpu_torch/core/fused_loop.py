@@ -66,6 +66,7 @@ from sheeprl_tpu_torch.core.graphs import CapturedStep, power_of_two_buckets
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
 from sheeprl_tpu_torch.envs.anakin import action_to_env, canonical_action_space, resolve_env, single_obs_key
 from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
+from sheeprl_tpu_torch.telemetry import Telemetry, open_for_run
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
@@ -219,7 +220,7 @@ class Rollouts:
     def __call__(self, *key) -> torch.Tensor:
         step = self.graphs.get(key)
         if step is None:
-            step = self.graphs[key] = CapturedStep(self.make(*key), self.device, self.generators, warmup=ROLLOUT_WARMUP)
+            step = self.graphs[key] = CapturedStep(self.make(*key), self.device, self.generators, warmup=ROLLOUT_WARMUP, name=f"rollout{key}")
         replays = step.replays
         with self.around():
             out = step()
@@ -300,7 +301,7 @@ def load_envs_state(carry: Dict[str, Any], saved: Dict[str, Any]) -> None:
     carry["ep_len"].copy_(torch.as_tensor(np.asarray(saved["lengths"], np.int32)))
 
 
-def _setup(cfg) -> Tuple[torch.device, Optional[Dict[str, Any]], Any, str]:
+def _setup(cfg) -> Tuple[torch.device, Optional[Dict[str, Any]], Any, str, Telemetry]:
     device = resolve_device(cfg.device)
     state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
     np.random.seed(cfg.seed)
@@ -310,7 +311,7 @@ def _setup(cfg) -> Tuple[torch.device, Optional[Dict[str, Any]], Any, str]:
         logger.log_hyperparams(cfg)
     log_dir = get_log_dir(os.path.join(cfg.log_root, cfg.root_dir), cfg.run_name, logger=logger)
     print(f"Log dir: {log_dir} (fused Anakin lane)", flush=True)
-    return device, state, logger, log_dir
+    return device, state, logger, log_dir, open_for_run(cfg, log_dir, device)
 
 
 def _env_of(cfg, device: torch.device):
@@ -335,9 +336,12 @@ def _require_ring(ring: DeviceReplayRing) -> None:
         raise RuntimeError(f"algo.fused_rollout needs the device replay ring, which declined its allocation: {ring.inactive_reason}")
 
 
-def _log_point(cfg, logger, aggregator, pending_metrics, policy_step, gradient_steps, train_step_count, last_train, log, metric_name=lambda k: k):
+def _log_point(
+    cfg, logger, aggregator, pending_metrics, policy_step, gradient_steps, train_step_count, last_train, log, telemetry, metric_name=lambda k: k
+):
     """A log point of the off-policy lanes: the aggregator's means,
-    ``Params/replay_ratio`` and ``Time/sps_train``; returns the row."""
+    ``Params/replay_ratio``, ``Time/sps_train`` and the telemetry's
+    counters; returns the row."""
     row: Dict[str, float] = {"policy_step": float(policy_step), "gradient_steps": float(gradient_steps)}
     if aggregator is not None:
         for metrics in pending_metrics:
@@ -357,6 +361,7 @@ def _log_point(cfg, logger, aggregator, pending_metrics, policy_step, gradient_s
             timer.reset()
         logger.log_dict(logged, policy_step)
         row.update(logged)
+    telemetry.log_counters(logger, policy_step)
     log.append(row)
     print(" ".join(f"{k}={v:.6g}" for k, v in row.items()), flush=True)
     return row
@@ -444,11 +449,16 @@ def ppo_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
     rollouts = Rollouts(lambda *_: superstep, device, [player_rng.generator, perm_generator], written, tensor_lr)
     policy_step = run.policy_step
     pending: List[torch.Tensor] = []
+    telemetry = run.telemetry
+    perf = telemetry.perf
+    num_minibatches = max(1, -(-(T * E) // batch_size))
     for iter_num in range(run.start_iter, run.total_iters + 1):
+        telemetry.advance(policy_step)
         policy_step += E * T
         clip_coef.fill_(float(cfg.algo.clip_coef))
         ent_coef.fill_(float(cfg.algo.ent_coef))
-        with train_timer(device):
+        # The superstep's graph holds the rollout and the update.
+        with train_timer(device), perf.note("train/superstep", steps=epochs * num_minibatches):
             out = rollouts(T, False)
         rollouts.stats["supersteps"] += 1
         rollouts.stats["env_steps"] += T * E
@@ -480,7 +490,7 @@ def sac_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
     from sheeprl_tpu_torch.data.buffers import ReplayBuffer
     from sheeprl_tpu_torch.optim import load_optimizer_state
 
-    device, state, logger, log_dir = _setup(cfg)
+    device, state, logger, log_dir, telemetry = _setup(cfg)
     if len(cfg.algo.cnn_keys.encoder) > 0:
         warnings.warn("SAC cannot use images as observations, the CNN keys will be ignored")
         cfg.algo.cnn_keys.encoder = []
@@ -570,13 +580,15 @@ def sac_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
     log: List[Dict[str, float]] = []
     checkpoints: List[str] = []
     train_step_count, last_train = 0, 0
+    perf = telemetry.perf
     iter_num = start_iter - 1  # the last host-lane iteration done
     while iter_num < total_iters:
         random_phase = iter_num < learning_starts
         chunk = _chunk(iter_num, learning_starts, total_iters, superstep_iters)
         iter_start, iter_num = iter_num, iter_num + chunk
+        telemetry.advance(policy_step)
         policy_step += chunk * E
-        with timer("Time/env_interaction_time" if random_phase else "Time/train_time"):
+        with timer("Time/env_interaction_time" if random_phase else "Time/train_time"), perf.infeed():
             pending_eps.append(rollouts(chunk, random_phase))
         ring.adopt_state(chunk)
         rollouts.stats["supersteps"] += 1
@@ -589,7 +601,8 @@ def sac_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
                 metrics, offset, before = [], 0, (fused.captured.replays, fused.captured.warmup_calls)
                 with train_timer(device):
                     for k in power_of_two_buckets(per_rank_gradient_steps, fused_train_steps):
-                        metrics.append(fused(ring_state, taus[offset : offset + k]))
+                        with perf.note(f"train/fused_k{k}", steps=k):
+                            metrics.append(fused(ring_state, taus[offset : offset + k]))
                         offset += k
                         rollouts.stats["train_calls"] += 1
                 _train_counted(rollouts.stats, fused.captured, before)
@@ -602,7 +615,7 @@ def sac_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
 
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or iter_num >= total_iters):
             log_episodes(pending_eps, cfg, aggregator, policy_step)
-            _log_point(cfg, logger, aggregator, pending, policy_step, gradient_steps, train_step_count, last_train, log, lambda k: f"Loss/{k}")
+            _log_point(cfg, logger, aggregator, pending, policy_step, gradient_steps, train_step_count, last_train, log, telemetry, lambda k: f"Loss/{k}")
             last_log, last_train = policy_step, train_step_count
 
         if (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every) or (iter_num >= total_iters and cfg.checkpoint.save_last):
@@ -618,6 +631,7 @@ def sac_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
             checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
 
     test_reward = test(agent, cfg, log_dir, logger) if cfg.algo.run_test else None
+    telemetry.close()
     if logger is not None:
         logger.close()
     c = fused.captured
@@ -654,7 +668,7 @@ def dreamer_v3_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str,
     from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
     from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 
-    device, state, logger, log_dir = _setup(cfg)
+    device, state, logger, log_dir, telemetry = _setup(cfg)
     env, obs_key, pixel, observation_space, action_space = _env_of(cfg, device)
     E = int(cfg.env.num_envs)
     actions_dim, continuous = actions_metadata(action_space)
@@ -745,13 +759,15 @@ def dreamer_v3_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str,
     log: List[Dict[str, float]] = []
     checkpoints: List[str] = []
     train_step_count, last_train, resumed = 0, 0, state is not None
+    perf = telemetry.perf
     iter_num = start_iter - 1
     while iter_num < total_iters:
         random_phase = iter_num < learning_starts and not resumed and trainer.random_prefill
         chunk = _chunk(iter_num, learning_starts, total_iters, superstep_iters)
         iter_num += chunk
+        telemetry.advance(policy_step)
         policy_step += chunk * E
-        with timer("Time/env_interaction_time" if random_phase else "Time/train_time"):
+        with timer("Time/env_interaction_time" if random_phase else "Time/train_time"), perf.infeed():
             stats = rollouts(chunk, random_phase)
         pending_eps.append(stats)
         # The rows each env was written (one a step, and a reset row per
@@ -768,7 +784,8 @@ def dreamer_v3_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str,
                     for k in power_of_two_buckets(per_rank_gradient_steps, fused_train_steps):
                         taus = target_update_taus(gradient_steps, k, freq, cfg.algo.critic.tau)
                         on_step = functools.partial(_fused_callback, callback, agent, gradient_steps + 1, taus) if callback is not None else None
-                        moments, metrics = fused(moments, ring_state, taus, on_step)
+                        with perf.note(f"train/fused_k{k}", steps=k):
+                            moments, metrics = fused(moments, ring_state, taus, on_step)
                         gradient_steps += k
                         rollouts.stats["train_calls"] += 1
                         if aggregator is not None:
@@ -778,7 +795,7 @@ def dreamer_v3_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str,
 
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or iter_num >= total_iters):
             log_episodes(pending_eps, cfg, aggregator, policy_step)
-            _log_point(cfg, logger, aggregator, pending, policy_step, gradient_steps, train_step_count, last_train, log)
+            _log_point(cfg, logger, aggregator, pending, policy_step, gradient_steps, train_step_count, last_train, log, telemetry)
             last_log, last_train = policy_step, train_step_count
 
         if (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every) or (iter_num >= total_iters and cfg.checkpoint.save_last):
@@ -797,6 +814,7 @@ def dreamer_v3_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str,
             checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
 
     test_reward = test(trainer.test_agent, cfg, log_dir, logger, sample_actions=trainer.test_sample) if cfg.algo.run_test else None
+    telemetry.close()
     if logger is not None:
         logger.close()
     c = fused.captured

@@ -28,6 +28,14 @@ the buckets the fused paths run.
 The graph's nodes are counted from the graph itself (:func:`graph_nodes`,
 with libcuda's graph API): the Python launch counters of the LN-GRU wrappers
 count the warm-up and the capture, never a replay.
+
+Telemetry: each capture is a ``cuda_graph_capture`` span and counter
+(:func:`sheeprl_tpu_torch.telemetry.cuda_events.graph_captured`, under the
+step's ``name``). The goodput accountant's count of a train call
+(:mod:`sheeprl_tpu_torch.telemetry.perf`) sees the eager warm-ups as they
+run; the step keeps the work of its first counted eager call as
+:attr:`CapturedStep.work`, the count pauses around the capture, and each
+replay credits that work to an open count.
 """
 
 from __future__ import annotations
@@ -35,9 +43,13 @@ from __future__ import annotations
 import collections
 import ctypes
 import functools
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
+
+from sheeprl_tpu_torch.telemetry import perf
+from sheeprl_tpu_torch.telemetry.cuda_events import graph_captured
 
 # Eager calls before the capture: the first under the sync check, and two
 # more so that lazily built state (optimizer moments, cuBLAS workspaces,
@@ -56,12 +68,21 @@ class CapturedStep:
     (``WARMUP_CALLS`` by default; see the module's docstring; the Anakin
     lane's rollouts take one). ``warmup_calls`` and ``replays`` count
     how each call ran; ``nodes`` is :func:`graph_nodes` of the graph once
-    it is captured."""
+    it is captured; ``name`` (``fn``'s qualified name by default) names
+    the capture on the telemetry timeline; ``work`` is the FLOPs and bytes
+    of one eager call, once a goodput count has seen one."""
 
     def __init__(
-        self, fn: Callable[[], torch.Tensor], device: torch.device, generators: Sequence[torch.Generator] = (), warmup: int = WARMUP_CALLS
+        self,
+        fn: Callable[[], torch.Tensor],
+        device: torch.device,
+        generators: Sequence[torch.Generator] = (),
+        warmup: int = WARMUP_CALLS,
+        name: Optional[str] = None,
     ):
         self.fn = fn
+        self.name = name or getattr(fn, "__qualname__", "step")
+        self.work: Optional[Dict[str, float]] = None
         self.warmup = max(int(warmup), 1)
         self.device = torch.device(device)
         self.generators = list(generators)
@@ -78,9 +99,11 @@ class CapturedStep:
         if self.graph is None and self.warmup_calls < self.warmup:
             return self._warmup()
         if self.graph is None:
-            self._capture()
+            with perf.counting_paused():
+                self._capture()
         self.graph.replay()
         self.replays += 1
+        perf.credit(self.work)
         return self.output
 
     def _side_stream(self) -> torch.cuda.Stream:
@@ -91,6 +114,7 @@ class CapturedStep:
 
     def _warmup(self) -> torch.Tensor:
         stream = self._side_stream()
+        before = perf.counted()
         with torch.cuda.stream(stream):
             if self.warmup_calls == 0:
                 previous = torch.cuda.get_sync_debug_mode()
@@ -101,6 +125,8 @@ class CapturedStep:
                     torch.cuda.set_sync_debug_mode(previous)
             else:
                 out = self.fn()
+        if before is not None and self.work is None:
+            self.work = perf.counted_since(before)
         consumer = torch.cuda.current_stream(self.device)
         consumer.wait_stream(stream)
         out.record_stream(consumer)
@@ -108,6 +134,7 @@ class CapturedStep:
         return out
 
     def _capture(self) -> None:
+        start = time.perf_counter()
         graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept so that its nodes can be counted
         for generator in self.generators:
             graph.register_generator_state(generator)
@@ -118,6 +145,7 @@ class CapturedStep:
         torch.cuda.current_stream(self.device).wait_stream(stream)
         self.graph = graph
         self.nodes = graph_nodes(graph)
+        graph_captured(self.name, time.perf_counter() - start, self.nodes["nodes"])
 
 
 class RingHolder:

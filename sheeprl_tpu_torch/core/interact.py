@@ -23,6 +23,12 @@ is that loop, op for op):
    back to the whole vector's layout.
 3. :class:`ObsStager`: ``prepare`` writes into two buffers in turn instead of
    allocating every step.
+
+On the telemetry tracer (the JAX package's names): spans
+``interaction/dispatch/slice<k>`` (the player's dispatch),
+``interaction/env_step/slice<k>`` and ``fetch/<label>`` (the harvest, with
+its bytes), the ``blocking_fetch_calls`` and ``device_get_*`` counters and
+the ``interaction_overlap_fraction`` gauge.
 """
 
 from __future__ import annotations
@@ -34,8 +40,12 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.envs.dummy import SyncVectorEnv
+from sheeprl_tpu_torch.telemetry import trace_context
+from sheeprl_tpu_torch.telemetry import tracer as tracer_mod
 
 _MISSING = object()
+OVERLAP_GAUGE = "interaction_overlap_fraction"
+BLOCKING_CALLS_COUNTER = "blocking_fetch_calls"
 
 
 # --------------------------------------------------------------------- trees
@@ -258,10 +268,15 @@ class PendingFetch:
     ``.cpu()`` of each leaf. Submit to harvest is the ride, the wait in the
     harvest is the blocked time."""
 
-    __slots__ = ("_pipeline", "_leaves", "_build", "_async", "_host", "_event", "_submit_t", "_result", "_done")
+    __slots__ = ("_pipeline", "_leaves", "_build", "_async", "_host", "_event", "_submit_t", "_result", "_done", "_label", "_ctx")
 
-    def __init__(self, pipeline: "InteractionPipeline", tree: Any, slot: Any) -> None:
+    def __init__(self, pipeline: "InteractionPipeline", tree: Any, slot: Any, label: str = "player_actions") -> None:
         self._pipeline = pipeline
+        self._label = label
+        # The fetch span belongs to the iteration that issued it, even when
+        # the harvest comes later.
+        parent = trace_context.current()
+        self._ctx = parent.child() if parent is not None else None
         self._leaves, self._build = _flatten(tree)
         self._async = pipeline.async_fetch
         self._host, self._event, self._result, self._done = None, None, None, False
@@ -295,10 +310,17 @@ class PendingFetch:
             out = [leaf.detach().cpu().numpy() for leaf in self._leaves]
         t1 = time.perf_counter()
         stats.fetch_blocked_s += t1 - t0
+        tracer = tracer_mod.current()
         if self._async:
             stats.fetch_ride_s += t0 - self._submit_t
         else:
             stats.blocking_fetches += 1
+            tracer.count(BLOCKING_CALLS_COUNTER, 1)
+        if tracer.enabled:
+            nbytes = sum(int(a.nbytes) for a in out)
+            tracer.add_span(f"fetch/{self._label}", "fetch", t0, t1 - t0, {"bytes": nbytes, "async": self._async}, ctx=self._ctx)
+            tracer.count("device_get_calls", 1)
+            tracer.count("device_get_bytes", nbytes)
         self._result, self._done, self._leaves = self._build(out), True, None
         return self._result
 
@@ -368,7 +390,7 @@ class InteractionPipeline:
     def fetch(self, tree: Any, label: str = "player_actions", slot: int = 0) -> PendingFetch:
         """Issue the copy of ``tree`` now (async when on); ``.harvest()`` the
         handle where the host values are needed."""
-        return PendingFetch(self, tree, (label, slot))
+        return PendingFetch(self, tree, (label, slot), label)
 
     @property
     def overlap_train(self) -> bool:
@@ -457,13 +479,15 @@ class InteractionPipeline:
         if sliced and not (isinstance(envs, EnvSliceGroup) and envs.slices == self.slices):
             raise ValueError(f"pipeline_slices={self.slices} needs an EnvSliceGroup of {self.slices} slices (build the envs with make_vector_env)")
         pendings: List[PendingFetch] = []
+        tracer = tracer_mod.current()
         t0 = time.perf_counter()
         for k, (s0, s1) in enumerate(self._ranges):
             obs_k = tree_slice(obs, s0, s1) if sliced else obs
             staged = self._stager(k, prepare)(obs_k) if prepare is not None else obs_k
             state_k = self._states[k] if self._states is not None else None
             key_k = self._keys[k] if self._keys is not None else None
-            tree, new_state, new_key = policy(staged, state_k, key_k)
+            with tracer.span(f"interaction/dispatch/slice{k}", "interaction"):
+                tree, new_state, new_key = policy(staged, state_k, key_k)
             if self._states is not None:
                 self._states[k] = new_state
             if self._keys is not None:
@@ -478,9 +502,12 @@ class InteractionPipeline:
             outputs.append(host)
             actions = to_env_actions(host, s1 - s0) if to_env_actions is not None else host
             t1 = time.perf_counter()
-            results.append(envs.step_slice(k, actions) if sliced else envs.step(actions))
+            with tracer.span(f"interaction/env_step/slice{k}", "interaction"):
+                results.append(envs.step_slice(k, actions) if sliced else envs.step(actions))
             self.stats.env_step_s += time.perf_counter() - t1
         self.stats.steps += 1
+        if self.stats.steps % 128 == 0:
+            tracer.set_gauge(OVERLAP_GAUGE, self.stats.overlap_fraction)
         if sliced:
             out = tree_concat(outputs)
             next_obs, rewards, terminated, truncated, infos = envs.merge_step(results)
@@ -495,7 +522,9 @@ class InteractionPipeline:
         return self._stagers[k]
 
     def publish(self) -> Dict[str, float]:
-        """At the end of a run: the stats into :func:`last_run_stats`."""
+        """At the end of a run: the stats into :func:`last_run_stats`, and
+        the overlap gauge to the telemetry tracer."""
         global _LAST_RUN_STATS
         _LAST_RUN_STATS = self.stats.as_dict()
+        tracer_mod.current().set_gauge(OVERLAP_GAUGE, _LAST_RUN_STATS["overlap_fraction"])
         return _LAST_RUN_STATS

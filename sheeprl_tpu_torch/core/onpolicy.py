@@ -12,7 +12,9 @@ around their rollout and update; the JAX package writes it in each
   the queued losses, the episode means and ``Time/sps_train`` (updates per
   train-timer second) and ``Time/sps_env_interaction`` logged and printed.
 - :func:`open_run` and :class:`OnPolicyRun`: a run's set-up (the resumed
-  config, the device, the logger and log dir, the vector env, the
+  config, the device, the logger and log dir, the run's telemetry opened
+  there (``telemetry``; its counters logged at each log point, closed by
+  :meth:`OnPolicyRun.finish`), the vector env, the
   agent and its optimizer restored from the checkpoint, the rollout buffer,
   the iteration counters and the minibatch size taken back), and after each
   update the annealing and the checkpoint with the JAX package's fields
@@ -37,6 +39,7 @@ from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.serve.spaces import DictSpace
+from sheeprl_tpu_torch.telemetry import Telemetry, open_for_run
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator
@@ -78,8 +81,9 @@ class LogPoints:
     logged there, ``last_log`` the policy step of the last one (a resumed
     run starts from its checkpoint's)."""
 
-    def __init__(self, cfg, logger, aggregator, metric_keys: Sequence[str], last_log: int = 0):
+    def __init__(self, cfg, logger, aggregator, metric_keys: Sequence[str], last_log: int = 0, telemetry: Optional[Telemetry] = None):
         self.cfg, self.logger, self.aggregator, self.metric_keys = cfg, logger, aggregator, tuple(metric_keys)
+        self.telemetry = telemetry
         self.last_log, self.last_train, self.updates = int(last_log), 0, 0
         self.pending: List[Dict[str, torch.Tensor]] = []
         self.rows: List[Dict[str, float]] = []
@@ -118,6 +122,8 @@ class LogPoints:
                 row.update(times)
                 timer.reset()
         if should_log:
+            if self.telemetry is not None:
+                self.telemetry.log_counters(logger, policy_step)
             self.last_log, self.last_train = policy_step, self.updates
             self.rows.append(row)
             print(" ".join(f"{k}={v:.6g}" for k, v in row.items()), flush=True)
@@ -169,6 +175,7 @@ class OnPolicyRun:
     batch_size: int
     log_points: LogPoints
     last_checkpoint: int
+    telemetry: Telemetry
     checkpoints: List[str] = field(default_factory=list)
 
     def anneal(self, iter_num: int, initial_coefs: Optional[Tuple[float, float]] = None) -> None:
@@ -203,10 +210,11 @@ class OnPolicyRun:
             self.checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
 
     def finish(self, test: Callable[..., float], policy_step: int) -> Dict[str, Any]:
-        """The greedy test episode with ``algo.run_test``, the logger closed;
-        returns {"agent", "optimizer", "policy_steps", "updates", "log",
-        "log_dir", "checkpoints", "test_reward"}."""
+        """The greedy test episode with ``algo.run_test``, the telemetry and
+        the logger closed; returns {"agent", "optimizer", "policy_steps",
+        "updates", "log", "log_dir", "checkpoints", "test_reward"}."""
         test_reward = test(self.agent, self.cfg, self.log_dir, self.logger) if self.cfg.algo.run_test else None
+        self.telemetry.close()
         if self.logger is not None:
             self.logger.close()
         return {
@@ -238,6 +246,7 @@ def open_run(
         logger.log_hyperparams(cfg)
     log_dir = get_log_dir(os.path.join(cfg.log_root, cfg.root_dir), cfg.run_name, logger=logger)
     print(f"Log dir: {log_dir}", flush=True)
+    telemetry = open_for_run(cfg, log_dir, device)
 
     num_envs = int(cfg.env.num_envs)
     envs = make_vector_env(cfg)
@@ -277,6 +286,6 @@ def open_run(
         policy_step=int(state["iter_num"]) * policy_steps_per_iter if state is not None else 0,
         total_iters=int(cfg.algo.total_steps) // policy_steps_per_iter if not cfg.dry_run else 1,
         batch_size=int(cfg.algo[batch_size_key]),
-        log_points=LogPoints(cfg, logger, aggregator, metric_keys, int(state["last_log"]) if state is not None else 0),
-        last_checkpoint=int(state["last_checkpoint"]) if state is not None else 0,
+        log_points=LogPoints(cfg, logger, aggregator, metric_keys, int(state["last_log"]) if state is not None else 0, telemetry),
+        last_checkpoint=int(state["last_checkpoint"]) if state is not None else 0, telemetry=telemetry,
     )  # fmt: skip

@@ -35,6 +35,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
+from sheeprl_tpu_torch.telemetry import tracer as tracer_mod
+
 AUTO_LATENCY_THRESHOLD_S = 2e-3
 # Above this the copy of the player's weights after every update costs more
 # than the dispatch latency it saves: ``auto`` names no host placement.
@@ -360,13 +362,19 @@ class PlayerPlacement:
 
     def push(self) -> None:
         """After an update: every host copy's mirror takes the trainer's
-        newest weights."""
-        for hp in self._players.values():
-            hp.mirror.push(hp.sources())
+        newest weights (span ``player/mirror_push`` when there is one)."""
+        if not self._players:
+            return
+        with tracer_mod.current().span("player/mirror_push", "transfer", sync=self.sync):
+            for hp in self._players.values():
+                hp.mirror.push(hp.sources())
 
     def flush(self) -> None:
-        for hp in self._players.values():
-            hp.mirror.flush()
+        if not self._players:
+            return
+        with tracer_mod.current().span("player/mirror_flush", "transfer"):
+            for hp in self._players.values():
+                hp.mirror.flush()
 
     def put(self, tensor: torch.Tensor) -> torch.Tensor:
         return tensor.to(self.device)

@@ -59,6 +59,7 @@ and an integer ``n`` the rounded product stays below ``n``.
 
 from __future__ import annotations
 
+import time
 import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -66,6 +67,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.core.device import resolve_device
+from sheeprl_tpu_torch.telemetry.cuda_events import transfer
 
 # Bytes of rows :meth:`DeviceReplayRing.load_host_buffer` moves per copy.
 LOAD_CHUNK_BYTES = 32 << 20
@@ -252,7 +254,9 @@ class DeviceReplayRing:
             for key in self._specs
         }
         self._staged.clear()
+        start = time.perf_counter()
         self._write(flat[keep], rows)
+        transfer("put", "replay/ring_flush", start, sum(int(v.nbytes) for v in rows.values()))
         return True
 
     # ------------------------------------------------- fused-lane interface

@@ -26,10 +26,14 @@ their dtype (uint8 pixels), the others become float32.
 from __future__ import annotations
 
 import concurrent.futures
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from sheeprl_tpu_torch.telemetry import tracer as tracer_mod
+from sheeprl_tpu_torch.telemetry.cuda_events import transfer
 
 Batch = Dict[str, torch.Tensor]
 
@@ -111,19 +115,24 @@ class ReplayInfeed:
         return np.ascontiguousarray(value) if key in self._cnn_keys else np.ascontiguousarray(value, dtype=np.float32)
 
     def _sample_host(self, n: int) -> List[Dict[str, np.ndarray]]:
-        data = self._rb.sample(self._batch_size, sequence_length=self._sequence_length, n_samples=n)
+        with tracer_mod.current().span("replay/sample", "replay", batch_size=self._batch_size, n_samples=n):
+            data = self._rb.sample(self._batch_size, sequence_length=self._sequence_length, n_samples=n)
         return [{k: v[i] for k, v in data.items()} for i in range(n)]
 
     def _device_batch(self, host_batch: Dict[str, np.ndarray]) -> Batch:
         """The synchronous copy (a miss, or prefetch off)."""
-        return {k: torch.from_numpy(self._host(k, v)).to(self.device) for k, v in host_batch.items()}
+        start = time.perf_counter()
+        host = {k: self._host(k, v) for k, v in host_batch.items()}
+        out = {k: torch.from_numpy(v).to(self.device) for k, v in host.items()}
+        transfer("put", "transfer/h2d_sync", start, sum(v.nbytes for v in host.values()))
+        return out
 
     def _put(self, host_batches: List[Dict[str, np.ndarray]]) -> List[Any]:
         """Worker thread: each batch through its slot's pinned buffer to the
         card on the side stream, with an event recorded after its copies."""
         if not self._cuda:
             return [{k: torch.from_numpy(self._host(k, v)) for k, v in b.items()} for b in host_batches]
-        staged = []
+        staged, start, nbytes = [], time.perf_counter(), 0
         with torch.cuda.stream(self._stream):
             for i, batch in enumerate(host_batches):
                 if i == len(self._pinned):
@@ -140,10 +149,12 @@ class ReplayInfeed:
                     else:
                         buf.numpy()[...] = host
                     out[k] = buf.to(self.device, non_blocking=True)
+                    nbytes += host.nbytes
                 event = torch.cuda.Event()
                 event.record(self._stream)
                 self._copied[i] = event
                 staged.append((out, event))
+        transfer("put", "transfer/h2d_stage", start, nbytes)
         return staged
 
     def _claim(self, staged: Any) -> Batch:

@@ -10,6 +10,10 @@ parallel, one ``nvcc`` each.
 
 Nothing here runs when the module is imported: the CPU tests import every
 module of the package on a host with no ``nvcc``.
+
+Telemetry: every ``nvcc`` run is a ``kernel_build`` span and counter, every
+build found already made a cache hit
+(:func:`sheeprl_tpu_torch.telemetry.cuda_events.kernel_built`).
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ import time
 import uuid
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+from sheeprl_tpu_torch.telemetry.cuda_events import kernel_built
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -75,6 +81,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     for name in names:
         target = library_path(name)
         if target.exists():
+            kernel_built(name, 0.0, cached=True)
             continue
         staging = target.with_name(f".{target.name}.{uuid.uuid4().hex[:8]}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(staging), str(SOURCES[name])]
@@ -90,6 +97,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             continue
         target.with_name(target.name + ".log").write_text(output)
         os.replace(staging, target)  # atomic: a concurrent loader sees no half-written library
+        kernel_built(name, seconds[name], cached=False)
     if failures:
         raise RuntimeError("\n".join(failures))
     return seconds

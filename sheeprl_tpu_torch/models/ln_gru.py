@@ -25,6 +25,14 @@ tensor (one launch, laid out by :func:`backward_plan`) and
 two together for autograd; the three products of the backward
 (``dinp = dz W^T``, ``dW = inp^T dz``, ``db = sum_b dz``) are f32
 ``torch.matmul``, as the JAX package leaves them to XLA.
+
+The kernels are ``ctypes`` launches that a dispatch mode cannot see, so each
+launch reports its work to the telemetry's goodput count
+(:func:`sheeprl_tpu_torch.telemetry.perf.add_kernel_work`) by
+:func:`ln_gru_forward_work` and :func:`ln_gru_backward_work`: the FLOPs that
+``torch.utils.flop_counter`` counts for the plain version (its one product,
+``inp @ W``; the tail is elementwise and counts none) and the bytes of each
+input read once and each output written once.
 """
 
 from __future__ import annotations
@@ -38,6 +46,8 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
+
+from sheeprl_tpu_torch.telemetry.perf import add_kernel_work
 
 LN_EPS = 1e-5  # models.LayerNorm default, as in the TPU kernel
 SMEM_LIMIT = 232448  # shared memory one block may use on Hopper (227 KB)
@@ -82,6 +92,24 @@ _BWD_MIN_ROWS = 1
 _BWD_CLUSTER = 16
 _BWD_MAX_THREADS = 256
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def ln_gru_forward_work(batch: int, depth: int, hidden: int, elem_bytes: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one forward call: the product ``inp @ W`` as
+    ``FlopCounterMode`` counts an ``mm`` (2 B D 3H); inp, W and h in the
+    inputs' dtype, b, scale and ln_bias f32 read, h' and the f32 z written."""
+    gates = 3 * hidden
+    flops = 2 * batch * depth * gates
+    nbytes = (batch * depth + depth * gates + 2 * batch * hidden) * elem_bytes + (3 * gates + batch * gates) * 4
+    return flops, nbytes
+
+
+def ln_gru_backward_work(batch: int, hidden: int, elem_bytes: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one backward call: no product (the plain version's
+    tail is elementwise); g, h and dh_tail in h's dtype, z and dz f32, scale,
+    ln_bias read and dscale, dln_bias written in f32."""
+    gates = 3 * hidden
+    return 0, 3 * batch * hidden * elem_bytes + (2 * batch * gates + 4 * gates) * 4
 
 
 def ln_gru_plain(
@@ -320,6 +348,7 @@ def _launch(plan: ForwardPlan, inp, w, b, scale, ln_bias, h) -> Tuple[torch.Tens
     if err != 0:
         raise RuntimeError(f"ln_gru {plan.kernel} kernel launch failed with CUDA error {err} (B={batch}, D={depth}, H={hidden})")
     counter.launches += 1
+    add_kernel_work(*ln_gru_forward_work(batch, depth, hidden, inp.element_size()))
     return h_out, z
 
 
@@ -505,6 +534,7 @@ def ln_gru_backward(
     )  # fmt: skip
     if err != 0:
         raise RuntimeError(f"ln_gru backward kernel launch failed with CUDA error {err} (B={batch}, H={hidden})")
+    add_kernel_work(*ln_gru_backward_work(batch, hidden, h.element_size()))
     ln_gru_backward.launches += 1
     ln_gru_backward.launches_by_batch[batch] += 1
     return dz, out[0], out[1], dh

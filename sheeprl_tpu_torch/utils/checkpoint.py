@@ -42,6 +42,8 @@ from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch.telemetry import tracer as tracer_mod
+
 _TMP_PREFIX = ".tmp-"
 _TRASH_PREFIX = ".trash-"
 _CKPT_RE = re.compile(r"ckpt_(\d+)_(\d+)\.ckpt$")
@@ -223,7 +225,9 @@ def save_checkpoint(ckpt_path: str, state: Dict[str, Any], keep_last: Optional[i
     """Atomically write ``state`` (a nested dict of tensors, numpy arrays and
     plain values) to ``ckpt_path`` (named ``ckpt_<step>_<rank>.ckpt``), then
     delete older checkpoints of the same directory down to ``keep_last``.
-    Returns the absolute path."""
+    Returns the absolute path. On the telemetry tracer: a ``checkpoint/save``
+    span and the ``checkpoint_saves`` counter (the JAX package's names)."""
+    start = time.perf_counter()
     ckpt_path = os.path.abspath(ckpt_path)
     parsed = parse_ckpt_name(ckpt_path)
     if parsed is None:
@@ -250,6 +254,9 @@ def save_checkpoint(ckpt_path: str, state: Dict[str, Any], keep_last: Optional[i
             json.dump(manifest, fp, indent=2)
     if keep_last is not None and keep_last > 0:
         _gc_old_checkpoints(os.path.dirname(ckpt_path), int(keep_last))
+    tracer = tracer_mod.current()
+    tracer.count("checkpoint_saves")
+    tracer.add_span("checkpoint/save", "checkpoint", start, time.perf_counter() - start, {"step": parsed[0]})
     return ckpt_path
 
 

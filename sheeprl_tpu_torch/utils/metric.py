@@ -19,12 +19,15 @@ JAX package with one process, reduces nothing. Across processes it raises
 
 from __future__ import annotations
 
+import time
 import warnings
 from math import isnan
 from typing import Any, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
+
+from sheeprl_tpu_torch.telemetry.cuda_events import transfer
 
 
 class MetricAggregatorException(Exception):
@@ -38,12 +41,16 @@ def _check_single_process(sync_on_compute: bool) -> None:
 
 def _to_host(values: Iterable[Any]) -> List[Any]:
     """``values`` with every tensor replaced by a float64 numpy array of its
-    contents, all tensors moved to the host in one transfer."""
+    contents, all tensors moved to the host in one transfer (the telemetry
+    tracer's ``fetch/train/metric_fetch`` span and ``device_get_*``
+    counters)."""
     values = list(values)
     tensors = [v for v in values if isinstance(v, torch.Tensor)]
     if not tensors:
         return values
+    start = time.perf_counter()
     flat = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in tensors]).cpu().numpy()
+    transfer("get", "train/metric_fetch", start, flat.nbytes)
     host, start = [], 0
     for v in values:
         if isinstance(v, torch.Tensor):

@@ -8,9 +8,12 @@ again inside itself; ``stop`` without a ``start`` raises :class:`TimerError`.
 It reads the host's clock: on a CUDA card a timed region ends when its
 operations are queued, not when they have run. :func:`train_timer` is the
 trainers' ``Time/train_time``, which waits for the card at the end of a train
-call, as the JAX package's StepTimer blocks on the step's result. (The JAX
-package also emits each stopped region as a tracer span; the port has no
-tracer yet.)
+call, as the JAX package's StepTimer blocks on the step's result. As in the
+JAX package, each stopped region is also a span (category ``timer``) on the
+current telemetry tracer (:mod:`sheeprl_tpu_torch.telemetry.tracer`: the
+run's trace with telemetry on; with it off (the default) the flight
+recorder's ring of recent spans; a no-op outside a run), so the trace and
+:meth:`timer.compute` agree.
 """
 
 from __future__ import annotations
@@ -21,6 +24,9 @@ from contextlib import ContextDecorator
 from typing import Any, ClassVar, Dict, Iterator, List
 
 import torch
+
+from sheeprl_tpu_torch.telemetry import step_timer as step_timer_mod
+from sheeprl_tpu_torch.telemetry import tracer as tracer_mod
 
 
 class TimerError(Exception):
@@ -52,6 +58,7 @@ class timer(ContextDecorator):
             del type(self)._start_times[self.name]
         elapsed = time.perf_counter() - started
         type(self).timers[self.name] = type(self).timers.get(self.name, 0.0) + elapsed
+        tracer_mod.current().add_span(self.name, "timer", started, elapsed)
         return elapsed
 
     def __enter__(self) -> "timer":
@@ -83,8 +90,18 @@ def train_timer(device: torch.device) -> Iterator[None]:
     """``timer("Time/train_time")`` around a train call that ends when the
     call's work has run on a CUDA ``device`` (one ``torch.cuda.synchronize``
     per call), so ``Time/sps_train`` counts train calls done, not queued.
-    With the timers off nothing waits."""
+    With the timers off nothing waits. The open run's telemetry StepTimer
+    (:func:`sheeprl_tpu_torch.telemetry.step_timer.current`), if any, times
+    the call's enqueue as its dispatch and that one synchronize as its
+    bound, and adds no synchronisation of its own."""
+    step_timer = step_timer_mod.current()
     with timer("Time/train_time"):
-        yield
-        if not timer.disabled and torch.device(device).type == "cuda":
-            torch.cuda.synchronize(device)
+        with step_timer.step() if step_timer is not None else contextlib.nullcontext():
+            yield
+        if not timer.disabled:
+            on_card = torch.device(device).type == "cuda"
+            if step_timer is not None:
+                # On the CPU the call has run when it returns: its bound is empty.
+                step_timer.bound(lambda: torch.cuda.synchronize(device) if on_card else None)
+            elif on_card:
+                torch.cuda.synchronize(device)

@@ -48,7 +48,10 @@ def test_import_every_module_without_jax_or_the_jax_package():
                 "algos.p2e_dv1.p2e_dv1_exploration", "algos.p2e_dv1.p2e_dv1_finetuning", "algos.p2e_dv1.evaluate", "algos.sac_ae.agent",
                 "algos.sac_ae.utils", "algos.sac_ae.sac_ae", "algos.sac_ae.evaluate", "envs.anakin", "envs.anakin.base", "envs.anakin.cartpole",
                 "envs.anakin.pendulum", "envs.anakin.gridworld", "envs.anakin.adapter", "envs.anakin.host", "envs.make", "core.fused_loop",
-                "core.interact", "core.player", "core.mesh", "algos.ppo.ppo_decoupled", "algos.sac.sac_decoupled"]
+                "core.interact", "core.player", "core.mesh", "algos.ppo.ppo_decoupled", "algos.sac.sac_decoupled", "telemetry",
+                "telemetry.trace_context", "telemetry.tracer", "telemetry.histogram", "telemetry.registry", "telemetry.step_timer",
+                "telemetry.cuda_events", "telemetry.profiling", "telemetry.perf", "telemetry.bench_db", "telemetry.flight",
+                "telemetry.telemetry", "telemetry.__main__"]
     for name in ["serve.engine", "bridge", *training]:
         assert f"sheeprl_tpu_torch.{name}" in report["modules"], name
     assert not [m for m in report["loaded"] if m in FORBIDDEN]
