@@ -352,6 +352,29 @@ Phases (any failure exits non-zero before the result line):
    request ids on every reply, the client's trace on the batch spans,
    ``GET /metrics``. ``c.phases_51_53(dir)`` runs 51-53 alone after
    ``kernels.build()``.
+54. Health: phase 51's two DV3-S runs again with ``health=on``: the
+   parameters and Adam states bit for bit with health off, the LN-GRU
+   launches and the synchronising calls per gradient step equal, no
+   sentinel event; the health-off graph's nodes as recorded (17961); then
+   the probed step's graph against its eager step bit for bit and each
+   probe within 1e-5 relative of a plain recomputation on the card; the
+   host wall health adds per gradient step on each path.
+55. Preemption: SAC (host path) and DV3-S (ring path) with a chaos
+   ``sigterm``: the checkpoint at the signal's step, ``autoresume.json``
+   (signal 15), ``checkpoint.resume_from=auto`` to the end bit for bit the
+   uninterrupted run's; DV3-S's run also takes a ``delayed_fetch`` under a
+   ``warn`` watchdog (the trip on ``fetch/player_actions``); then a real
+   SIGTERM from outside to a SAC trainer subprocess. Drain-to-exit and
+   auto-resume seconds.
+56. Drills: ``env_step_raise`` under the supervisor (one restart, the
+   truncated row stored), a ``checkpoint.before_commit`` fail point (the
+   previous checkpoint the newest valid, no staging dir), ``exp=ppo_atari``
+   with ``env.grayscale``, ``env.frame_stack=2``, ``env.max_episode_steps=3``
+   (C4), and the DV3-S host player's ms per env step at ``num_threads`` 1
+   and at torch's default (C5).
+57. The DV3-S policy server in the foreground drains on SIGTERM through the
+   preemption guard. ``c.phases_54_57(dir)`` runs 54-57 alone after
+   ``kernels.build()``.
 
 Every profile reads its device busy time through ``_busy``, which leaves
 out the device ranges of ``record_function`` annotations (the trainers'
@@ -370,7 +393,8 @@ B = 16 and 800, H = 400; then the Anakin lane's streaming forwards at B =
 then the streaming forward at the two-slice player's B = 2 in bf16 and f32;
 every entry with the P2E-DV1 and SAC-AE runs' launches, 0, the Anakin
 runs', and phases 47-50's: the pipeline at one and two slices, the host
-player's and the decoupled runs', 0), the card's name and power limit,
+player's and the decoupled runs', 0; phases 51 and 54's, telemetry and
+health on), the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -2171,7 +2195,9 @@ def phase_ppo_profile(agent, cfg, what):
     spend their time on the card (32-true): host wall (ending in a
     synchronize), device busy and idle share from torch.profiler, device
     operations, and peak memory; GAE (a loop over T on the card) timed on
-    its own."""
+    its own. The update is profiled over its first ``PPO_PROFILED_EPOCHS``
+    epochs (GAE and that many epochs of identical minibatch steps), beside
+    that part's host wall."""
     import torch
 
     from sheeprl_tpu_torch.algos.ppo.ppo import make_optimizer, make_train_step, minibatch_indices
@@ -2188,8 +2214,8 @@ def phase_ppo_profile(agent, cfg, what):
     gen = torch.Generator(device=dev).manual_seed(0)
     clip, ent = (torch.tensor(float(v), device=dev) for v in (cfg.algo.clip_coef, cfg.algo.ent_coef))
 
-    def update():
-        return step(data, next_obs, minibatch_indices(T * E, mb, epochs, gen), clip, ent)
+    def update(n_epochs=epochs):
+        return step(data, next_obs, minibatch_indices(T * E, mb, n_epochs, gen), clip, ent)
 
     def busy(prof, n):
         return _busy(prof.key_averages(), n, skip=("ppo/",))[:2]
@@ -2203,7 +2229,13 @@ def phase_ppo_profile(agent, cfg, what):
     torch.cuda.synchronize()
     update_ms = (time.perf_counter() - t0) / 2 * 1e3
     update_peak = torch.cuda.max_memory_allocated() / 2**30
-    update_busy, update_ops = busy(profiled(update, ("cpu", "cuda")), 1)
+    profiled_epochs = min(epochs, PPO_PROFILED_EPOCHS)
+    t0 = time.perf_counter()
+    for _ in range(2):
+        update(profiled_epochs)
+    torch.cuda.synchronize()
+    profiled_ms = (time.perf_counter() - t0) / 2 * 1e3
+    update_busy, update_ops = busy(profiled(lambda: update(profiled_epochs), ("cpu", "cuda")), 1)
     if update_busy <= 0.0:
         fail(f"{what}: torch.profiler saw no device time in the update")
     gae_ms = []
@@ -2236,14 +2268,16 @@ def phase_ppo_profile(agent, cfg, what):
     step_busy, step_ops = busy(profiled(lambda: [rollout_step() for _ in range(20)], ("cpu", "cuda")), 20)
     adam_steps = epochs * -(-T * E // mb)
     result = {
-        "update": {"host_wall_ms": update_ms, "device_busy_ms": update_busy, "idle_share": 1 - update_busy / update_ms,
-                   "device_ops": update_ops, "adam_steps": adam_steps, "peak_gib": update_peak},
+        "update": {"host_wall_ms": update_ms, "profiled_epochs": profiled_epochs, "epochs": epochs, "profiled_host_wall_ms": profiled_ms,
+                   "device_busy_ms": update_busy, "idle_share": 1 - update_busy / profiled_ms, "device_ops": update_ops, "adam_steps": adam_steps,
+                   "peak_gib": update_peak},
         "gae": {"host_wall_ms": statistics.median(gae_ms), "device_busy_ms": gae_busy, "device_ops": gae_ops, "T": T, "E": E},
         "rollout_step": {"host_wall_ms": step_ms, "device_busy_ms": step_busy, "idle_share": 1 - step_busy / step_ms,
                          "device_ops": step_ops, "peak_gib": step_peak, "num_envs": E},
     }  # fmt: skip
-    log(f"{what}: update ({adam_steps} Adam steps over {T} x {E} rows) {update_ms:.1f} ms host wall, {update_busy:.1f} ms device busy "
-        f"(idle {result['update']['idle_share']:.2f}), {update_ops:.0f} device operations, peak {update_peak:.2f} GiB; of it GAE over "
+    log(f"{what}: update ({adam_steps} Adam steps over {T} x {E} rows) {update_ms:.1f} ms host wall, peak {update_peak:.2f} GiB; GAE and its first "
+        f"{profiled_epochs} of {epochs} epochs profiled: {profiled_ms:.1f} ms host wall, {update_busy:.1f} ms device busy "
+        f"(idle {result['update']['idle_share']:.2f}), {update_ops:.0f} device operations; of it GAE over "
         f"T = {T}: {result['gae']['host_wall_ms']:.1f} ms host wall, {gae_busy:.2f} ms busy, {gae_ops:.0f} operations; rollout step "
         f"(player forward + one copy to the host, {E} envs) {step_ms:.3f} ms host wall, {step_busy:.3f} ms busy "
         f"(idle {result['rollout_step']['idle_share']:.2f}), {step_ops:.0f} operations")  # fmt: skip
@@ -2383,9 +2417,10 @@ GRAPH_LN_GRU = {"discrete": {"streaming": STREAM_PER_STEP, "tensor_core": TC_PER
 REPLAYS_PROFILED = 16
 # Replays of the DV3-S graph under torch.profiler (16 until the telemetry
 # phases 51-53 needed the time: profiling 16 replays of its 18k nodes took
-# 35.8 of the phase's 49.7 s on an NVIDIA H100 80GB HBM3 at 700 W); its
-# REPLAYS_PROFILED replays stay timed.
-GRAPH_REPLAYS_PROFILED = 8
+# 35.8 of the phase's 49.7 s on an NVIDIA H100 80GB HBM3 at 700 W; 8 until
+# the resilience phases 54-57 needed it); its REPLAYS_PROFILED replays stay
+# timed.
+GRAPH_REPLAYS_PROFILED = 4
 WARMUP_STEPS = 3  # sheeprl_tpu_torch.core.graphs.WARMUP_CALLS
 
 
@@ -3290,11 +3325,11 @@ def _busy(averages, n, skip=(), by_kernel=None):
     return total / n / 1e3, ops / n, annotated / n / 1e3
 
 
-def _timed_per_step(fn, steps, reps=3):
+def _timed_per_step(fn, steps, reps=3, profile=True):
     """Host wall ms per step of ``fn`` (``steps`` steps a call, ending in a
     synchronize; best of ``reps``), its device busy ms and operations per
-    step (torch.profiler over one more call), the idle share and the peak
-    memory."""
+    step (torch.profiler over one more call, unless ``profile`` is off), the
+    idle share and the peak memory."""
     import torch
 
     fn()
@@ -3307,10 +3342,12 @@ def _timed_per_step(fn, steps, reps=3):
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3 / steps)
     peak = torch.cuda.max_memory_allocated() / 2**30
+    wall = statistics.median(walls)
+    if not profile:
+        return {"host_wall_ms_per_step": wall, "peak_gib": peak, "gradient_steps_per_s": 1e3 / wall}
     busy, ops, annotated = _busy(profiled(fn, ("cpu", "cuda")).key_averages(), steps, skip=("sac/", "droq/"))
     if busy <= 0.0:
         fail("torch.profiler saw no device time")
-    wall = statistics.median(walls)
     return {"host_wall_ms_per_step": wall, "device_busy_ms_per_step": busy, "idle_share": max(0.0, 1.0 - busy / wall),
             "device_ops_per_step": ops, "annotation_ranges_ms_per_step": annotated, "peak_gib": peak, "gradient_steps_per_s": 1e3 / wall}  # fmt: skip
 
@@ -4111,6 +4148,7 @@ def onpolicy_profile(trainer, agent, cfg, what):
 # time: profiling it took 48.0 of the phase's 53.7 s on an NVIDIA H100
 # 80GB HBM3 at 700 W).
 PPO_REC_PROFILED_EPOCHS = 1
+PPO_PROFILED_EPOCHS = 1  # phase_ppo_profile's profiled part of the update (cut to make room for phases 54-57)
 
 
 def phase_ppo_recurrent_profile(agent, cfg):
@@ -5164,6 +5202,7 @@ ANAKIN_ENV_TOL = {"atol": 1e-5, "rtol": 1e-5}  # f32 physics: the card's sin, co
 DV3A_DEPTH, DV3A_HIDDEN = 1024, 512
 DV3A_ENVS, DV3A_BATCH, DV3A_SEQ, DV3A_HORIZON, DV3A_SUPERSTEP = 4, 8, 32, 15, 16
 DV3A_IMAGINED = DV3A_BATCH * DV3A_SEQ  # 256
+DV3A_PROFILED_REPLAYS = 8  # of a superstep's 32 gradient-step replays, profiled (cut from 32 to make room for phases 54-57)
 DV3A_CUTS = {"algo.total_steps": "1152 (from 100000: the 1024 prefill steps, then two supersteps of 64 with 32 gradient steps each)",
              "metric.log_every": "512 (from 5000)"}  # fmt: skip
 DV3A_ARGS = ["exp=dreamer_v3_anakin", "algo.total_steps=1152", "metric.log_every=512"]
@@ -5420,21 +5459,28 @@ def phase_dv3_anakin(workdir):
     moments = [out["moments"]]
     taus = np.zeros(2 * DV3A_SUPERSTEP, np.float32)
 
-    def superstep():
+    def superstep(replays=2 * DV3A_SUPERSTEP):
         rollouts(DV3A_SUPERSTEP, False)
-        moments[0] = fused(moments[0], ring.state, taus)[0]
+        moments[0] = fused(moments[0], ring.state, taus[:replays])[0]
 
     zero_counts()
-    profile = _timed_per_step(superstep, 1)
+    # The whole superstep timed; profiled: its rollout and its first DV3A_PROFILED_REPLAYS gradient-step replays.
+    profile = _timed_per_step(superstep, 1, profile=False)
+    profile["profiled_part"] = {"train_replays": DV3A_PROFILED_REPLAYS, **_timed_per_step(lambda: superstep(DV3A_PROFILED_REPLAYS), 1)}
     rollout_profile = _timed_per_step(lambda: rollouts(DV3A_SUPERSTEP, False), 1)
     if any(read_counts()[k] for k in ("forward", "backward")):
         fail(f"{what}: replays counted LN-GRU launches {read_counts()}")
     env_steps = DV3A_SUPERSTEP * DV3A_ENVS
     profile["env_steps_per_s"] = env_steps * 1e3 / profile["host_wall_ms_per_step"]
     rollout_profile["env_steps_per_s"] = env_steps * 1e3 / rollout_profile["host_wall_ms_per_step"]
-    for name, p in (("superstep (1 rollout replay + 32 gradient-step replays)", profile), ("rollout alone (16 steps x 4 envs)", rollout_profile)):
-        log(f"{what}: {name}: host wall {p['host_wall_ms_per_step']:.3f} ms, device busy {p['device_busy_ms_per_step']:.3f} ms, idle "
-            f"{p['idle_share']:.3f}, {p['device_ops_per_step']:.0f} device operations, peak {p['peak_gib']:.3f} GiB, {p['env_steps_per_s']:.1f} env steps/s")
+    part = profile["profiled_part"]
+    log(f"{what}: superstep (1 rollout replay + {2 * DV3A_SUPERSTEP} gradient-step replays): host wall {profile['host_wall_ms_per_step']:.3f} ms, peak "
+        f"{profile['peak_gib']:.3f} GiB, {profile['env_steps_per_s']:.1f} env steps/s; profiled with {DV3A_PROFILED_REPLAYS} gradient-step replays: host wall "
+        f"{part['host_wall_ms_per_step']:.3f} ms, device busy {part['device_busy_ms_per_step']:.3f} ms, idle {part['idle_share']:.3f}, "
+        f"{part['device_ops_per_step']:.0f} device operations")  # fmt: skip
+    p = rollout_profile
+    log(f"{what}: rollout alone (16 steps x 4 envs): host wall {p['host_wall_ms_per_step']:.3f} ms, device busy {p['device_busy_ms_per_step']:.3f} ms, idle "
+        f"{p['idle_share']:.3f}, {p['device_ops_per_step']:.0f} device operations, peak {p['peak_gib']:.3f} GiB, {p['env_steps_per_s']:.1f} env steps/s")
     ckpt, test_reward = out["checkpoints"][-1], out["test_reward"]
     del rollouts, fused, ring, out, moments, superstep
     gc.collect()
@@ -5572,7 +5618,7 @@ def phases_42_46(workdir):
 
 
 # ------------------------------------------------- phases 47-50: interaction
-PIPE_ENVS, PIPE_WARMUP, PIPE_WINDOW, PIPE_PROFILED = 4, 4, 32, 8
+PIPE_ENVS, PIPE_WARMUP, PIPE_WINDOW, PIPE_PROFILED = 4, 4, 32, 4  # profiled steps 8 -> 4 for the resilience phases 54-57
 PIPE_STEPS = 2 * PIPE_WINDOW  # timed steps of each variant: two windows, taken in turns with the others
 PIPE_ARGS = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", f"env.num_envs={PIPE_ENVS}"]
 PIPE_CUTS = {"env.num_envs": "4 (from 1: two slices of 2 envs)"}
@@ -5907,9 +5953,9 @@ def _async_loop_run(algo, log_root):
     real = module.train_timer
 
     @contextmanager
-    def timed(device):
+    def timed(device, watchdog=None):
         t0 = time.perf_counter()
-        with real(device):
+        with real(device, watchdog):
             yield
         calls.append(time.perf_counter() - t0)
 
@@ -6225,6 +6271,7 @@ TELE_RING = ["algo.total_steps=136", "buffer.device=True"]
 TELE_SHARE_TOL = 0.05  # the compute/infeed/host breakdown sums to 1 within this
 TELE_FLOP_RTOL = 0.01  # the card's counted step FLOPs against the CPU's
 TELE_COUNT_SHAPE = (16, 8)  # (T, B) of the counted card-vs-CPU step: imagination B = 128, the tensor cores' threshold in bf16
+TELE_RUNS: dict = {}  # phase 51's host and ring runs: (out, host wall per gradient step, LN-GRU counts[, syncs])
 
 
 def _free_port():
@@ -6377,6 +6424,8 @@ def phase_telemetry_training(workdir):
     registry = default_registry().snapshot()["counters"]
 
     ring, ring_wall, ring_counts, ring_syncs, _ = _telemetry_run([*TELE_ARGS, *TELE_RING, f"log_root={workdir}"], "telemetry ring path", count_syncs=True)
+    # Phase 54 holds its health=on runs to these two (health off).
+    TELE_RUNS.update(host=(host, host_wall, host_counts), ring=(ring, ring_wall, ring_counts, ring_syncs))
     ring_records, _ = _telemetry_records(ring["log_dir"], "telemetry ring path")
     ring_shares = _check_shares(ring_records, "telemetry ring path")
     ring_final = [r for r in ring_records if r["type"] == "counters"][-1]["values"]
@@ -6512,6 +6561,515 @@ def phases_51_53(workdir, path=None):
     return {"telemetry": training, "telemetry_bits": bits, "telemetry_serving": serving, "phases_51_53_s": took}
 
 
+# Phases 54-57: the resilience layer on the card. The health phase
+# runs TELE_ARGS (phase 51's DV3-S runs, telemetry on) with health=on and
+# holds each run to phase 51's, health off; the preemption phases cut the
+# exps to a few gradient steps around the signal, with the buffer in memory
+# at 4096 rows so that a checkpoint holds it (as the resume phases do).
+RES_CUTS = {"exp=sac (54-56)": "algo.learning_starts 64, algo.total_steps 128, buffer.size 4096, checkpoint.every 0 (32 in the fail-point drill)",
+            "exp=dreamer_v3_100k_ms_pacman (55)": "algo.learning_starts 128, algo.total_steps 136 (9 gradient steps: 3 warm-ups, a capture, 5 replays), buffer.size 4096",
+            "exp=ppo_atari (56)": "env.screen_size 64 (from 84), algo.total_steps 256, algo.rollout_steps 32, env.num_envs 2"}  # fmt: skip
+HEALTH_ARGS = [*TELE_ARGS, "health=on"]
+HEALTH_REL_TOL = 1e-5  # a probe against its plain recomputation on the card from the same trees
+DV3S_GRAPH_NODES = 17961  # the DV3-S ring step's captured graph with health off, as phase 52 read it before the probes existed
+HEALTH_TAUS = (0.02, 1.0)
+PRE_SAC = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "algo.learning_starts=64", "algo.total_steps=128", "buffer.size=4096", "buffer.memmap=False",
+           "metric.log_level=0", "algo.run_test=False", "checkpoint.every=0", "checkpoint.save_last=True"]  # fmt: skip
+PRE_SAC_SIGNAL = 96
+PRE_DV3 = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "algo.learning_starts=128", "algo.total_steps=136", "buffer.device=True", "buffer.size=4096",
+           "buffer.memmap=False", "metric.log_level=0", "algo.run_test=False", "checkpoint.every=0", "checkpoint.save_last=True"]  # fmt: skip
+PRE_DV3_SIGNAL, PRE_DV3_DELAY_AT, PRE_DV3_DELAY_S, PRE_DV3_WATCHDOG_S = 133, 131, 2.5, 1.0
+C4_ARGS = ["exp=ppo_atari", "env=dummy", "env.screen_size=64", "env.grayscale=True", "env.frame_stack=2", "env.max_episode_steps=3", "env.num_envs=2",
+           "algo.rollout_steps=32", "algo.total_steps=256", "algo.run_test=False", "metric.log_every=64", "checkpoint.every=0", "checkpoint.save_last=False"]  # fmt: skip
+
+
+def _chaos(*injectors):
+    return ["resilience.chaos.enabled=True", "resilience.chaos.injectors=[" + ", ".join(injectors) + "]"]
+
+
+def _newest(root):
+    from sheeprl_tpu_torch.utils.checkpoint import parse_ckpt_name
+
+    found = [p for p in glob_recursive(root, "ckpt_*.ckpt")]
+    return sorted(found, key=lambda p: parse_ckpt_name(p)[0])
+
+
+def glob_recursive(root, pattern):
+    import glob
+
+    return [os.path.realpath(p) for p in glob.glob(os.path.join(str(root), "**", pattern), recursive=True)]
+
+
+def _same_leaves(a_path, b_path, skip=("rb",)):
+    """The leaves of two checkpoints but ``skip``'s that differ bit for bit
+    (their names), and how many were compared."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.utils.checkpoint import flatten_arrays, load_checkpoint
+
+    a, b = load_checkpoint(a_path), load_checkpoint(b_path)
+    fa = dict(flatten_arrays({k: v for k, v in a.items() if k not in skip}))
+    fb = dict(flatten_arrays({k: v for k, v in b.items() if k not in skip}))
+    if fa.keys() != fb.keys():
+        return sorted(set(fa) ^ set(fb)), len(fa)
+
+    def same(x, y):
+        if isinstance(x, torch.Tensor) and isinstance(y, torch.Tensor):
+            return torch_equal_bits(x, y)
+        return np.array_equal(np.asarray(x), np.asarray(y))
+
+    return [k for k in fa if not same(fa[k], fb[k])], len(fa)
+
+
+def _health_step_checks():
+    """The DV3-S step with health=on on the card (bf16-mixed, phase 10's ring
+    and shapes): its captured graph against its eager step bit for bit (or
+    within the eager run-to-run gap, as phase 10), and each probe of one
+    eager step within ``HEALTH_REL_TOL`` of a plain recomputation on the card
+    from the step's own trees (the raw gradients and the parameters before
+    and after each update, read at the clip)."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
+    from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+    from sheeprl_tpu_torch.utils.ops import init_moments
+
+    what = "health (54) step"
+    cfg = compose([*TRAIN_ARGS, "health=on"])
+    dev = torch.device("cuda")
+    agent = build_agent((9,), False, cfg, DictSpace({"rgb": Box((64, 64, 3), "uint8", 0.0, 255.0)}), precision=cfg.fabric.precision, device=dev,
+                        seed=cfg.seed, training=True)  # fmt: skip
+    optimizers = dv3.make_optimizers(agent, cfg)
+    batch, seq = int(cfg.algo.per_rank_batch_size), int(cfg.algo.per_rank_sequence_length)
+    ring = DeviceReplayRing(GRAPH_RING_ROWS, 1, cnn_keys=("rgb",), obs_keys=("rgb",), device=dev)
+    ring.add(_ring_rows(GRAPH_RING_ROWS, 1, 9, False, 17))
+    ring.flush()
+    sample = ring.make_sample_fn(batch, seq, time_major=True)
+    rng = BatchGenerator.from_seed(cfg.seed, dev)
+    fused = dv3.make_fused_train_step(agent, optimizers, cfg, lambda state, r: sample(state, r.generator), rng)
+    moments, _ = fused(init_moments(dev), ring.state, [1.0] + [0.02] * (WARMUP_STEPS - 1))
+    torch.cuda.synchronize()
+    params, adam = _train_state(agent, optimizers)
+    snap = {"params": [p.detach().clone() for p in params], "adam": [a.clone() for a in adam],
+            "moments": {k: v.clone() for k, v in moments.items()}, "rng": rng.generator.get_state()}  # fmt: skip
+
+    def restore():
+        with torch.no_grad():
+            for p, v in zip(params, snap["params"]):
+                p.copy_(v)
+            for a, v in zip(adam, snap["adam"]):
+                a.copy_(v)
+        rng.generator.set_state(snap["rng"])
+
+    def result(m, per_step):
+        p, a = _train_state(agent, optimizers)
+        return {"params": [x.detach().clone() for x in p], "adam": [x.clone() for x in a],
+                "moments": [m["low"].clone(), m["high"].clone()], "metrics": [torch.stack(per_step)]}  # fmt: skip
+
+    step = dv3.make_train_step(agent, optimizers, cfg)
+    tau = torch.zeros((), device=dev)
+
+    def eager_run():
+        restore()
+        m, per_step = {k: v.clone() for k, v in snap["moments"].items()}, []
+        for t in HEALTH_TAUS:
+            tau.fill_(t)
+            m, metrics = step(m, sample(ring.state, rng.generator), rng, tau)
+            per_step.append(torch.stack([metrics[k].float() for k in fused.names]))
+        torch.cuda.synchronize()
+        return result(m, per_step)
+
+    eager_a, eager_b = eager_run(), eager_run()
+    restore()
+    per_step = []
+    m, _ = fused(snap["moments"], ring.state, HEALTH_TAUS, lambda i, metrics: per_step.append(torch.stack(list(metrics.values()))))
+    torch.cuda.synchronize()
+    graph = result(m, per_step)
+    eager_gap, graph_gap = _gaps(eager_a, eager_b), _gaps(eager_a, graph)
+    for group, gap in graph_gap.items():
+        allowed = 0.0 if eager_gap[group]["bit_for_bit"] else eager_gap[group]["max_abs"]
+        if not gap["bit_for_bit"] and gap["max_abs"] > allowed:
+            fail(f"{what}: with the probes the graph's {group} differ from the eager step's by {gap['max_abs']} (two eager runs: {eager_gap[group]})")
+    probes = [k for k in fused.names if k.startswith("health/")]
+    if len(probes) != 6:
+        fail(f"{what}: the captured step's outputs hold the probes {probes}")
+    nodes = fused.captured.nodes
+
+    # One eager step, its trees read where the tape reads them.
+    restore()
+    trees = {"grads": [], "old": [], "new": []}
+    modules = []
+    clip = dv3._clip
+
+    def reading_clip(module, max_norm):
+        modules.append(module)
+        trees["grads"] += [p.grad.detach().clone() for p in module.parameters() if p.grad is not None]
+        trees["old"] += [p.detach().clone() for p in module.parameters()]
+        return clip(module, max_norm)
+
+    with patched(dv3, "_clip", reading_clip):
+        tau.fill_(0.02)
+        _, metrics = step({k: v.clone() for k, v in snap["moments"].items()}, sample(ring.state, rng.generator), rng, tau)
+    trees["new"] = [p.detach().clone() for module in modules for p in module.parameters()]
+    torch.cuda.synchronize()
+
+    def norm(leaves):
+        return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(x.float()) for x in leaves]))
+
+    param_norm = norm(trees["new"])
+    plain = {"health/grad_norm": norm(trees["grads"]), "health/param_norm": param_norm,
+             "health/update_ratio": norm([n - o for n, o in zip(trees["new"], trees["old"])]) / (param_norm + 1e-12),
+             "health/grad_nonfinite": torch.tensor(float(sum(not bool(torch.isfinite(g).all()) for g in trees["grads"]))),
+             "health/param_nonfinite": torch.tensor(float(sum(not bool(torch.isfinite(p).all()) for p in trees["new"]))),
+             "health/kl": metrics["State/kl"].float()}  # fmt: skip
+    gaps = {}
+    for k, want in plain.items():
+        got, want = float(metrics[k]), float(want)
+        gaps[k] = abs(got - want) / max(abs(want), 1e-30) if want else abs(got)
+        if gaps[k] > HEALTH_REL_TOL:
+            fail(f"{what}: {k} = {got} against its plain recomputation {want} (relative {gaps[k]:.3g} > {HEALTH_REL_TOL})")
+    extra_bytes = sum(p.numel() * p.element_size() for module in modules for p in module.parameters())
+    out = {"graph_vs_eager": graph_gap, "eager_vs_eager": eager_gap, "graph_nodes_with_probes": nodes["nodes"], "graph_ln_gru_nodes": nodes["ln_gru"],
+           "probes": {k: float(metrics[k]) for k in plain}, "probe_rel_gap": gaps, "tape_copy_bytes_max": extra_bytes}  # fmt: skip
+    del fused, ring, agent, optimizers, step, snap, eager_a, eager_b, graph, trees
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_health(workdir):
+    """Phase 54: DV3-S (bf16-mixed) through the CLI with health=on, the host
+    path (phase 51's profiler window) and the ring path, each held to phase
+    51's run with health off: the parameters and Adam states bit for bit,
+    the LN-GRU launches per run equal, the synchronising calls per gradient
+    step equal (ring path); no health event; the health-off ring graph's
+    nodes as recorded (``DV3S_GRAPH_NODES``); the host wall per gradient
+    step on and off (reported).
+    Then the probed step's graph against its eager step and each probe
+    against its plain recomputation (:func:`_health_step_checks`)."""
+    t0 = time.perf_counter()
+    if "host" not in TELE_RUNS:  # alone: the health-off runs here
+        host, host_wall, host_counts, _, _ = _telemetry_run([*TELE_ARGS, *TELE_HOST, f"log_root={workdir}"], "health off host path")
+        ring, ring_wall, ring_counts, ring_syncs, _ = _telemetry_run([*TELE_ARGS, *TELE_RING, f"log_root={workdir}"], "health off ring path", count_syncs=True)
+        TELE_RUNS.update(host=(host, host_wall, host_counts), ring=(ring, ring_wall, ring_counts, ring_syncs))
+    off_host, off_host_wall, off_host_counts = TELE_RUNS["host"]
+    off_ring, off_ring_wall, off_ring_counts, off_ring_syncs = TELE_RUNS["ring"]
+    on_host, on_host_wall, on_host_counts, _, _ = _telemetry_run([*HEALTH_ARGS, *TELE_HOST, f"log_root={workdir}"], "health host path")
+    on_ring, on_ring_wall, on_ring_counts, on_ring_syncs, _ = _telemetry_run([*HEALTH_ARGS, *TELE_RING, f"log_root={workdir}"], "health ring path", count_syncs=True)
+    result = {}
+    for path, on, off, c_on, c_off in (("host", on_host, off_host, on_host_counts, off_host_counts), ("ring", on_ring, off_ring, on_ring_counts, off_ring_counts)):
+        (pa, aa), (pb, ab) = _state_of(on), _state_of(off)
+        differ = [k for k in pa if not torch_equal_bits(pa[k], pb[k])] + [k for k in aa if not torch_equal_bits(aa[k], ab[k])]
+        if differ or pa.keys() != pb.keys() or aa.keys() != ab.keys() or on["gradient_steps"] != off["gradient_steps"]:
+            fail(f"health {path} path: the parameters or Adam states differ with health on and off: {differ[:5]}")
+        if c_on != c_off or not all(c_on[k] for k in ("streaming", "tensor_core", "backward")):
+            fail(f"health {path} path: LN-GRU launches {c_on} with health on, {c_off} off")
+        records, _ = _telemetry_records(on["log_dir"], f"health {path} path")
+        events = [r for r in records if r["type"] == "health_event"]
+        if events:
+            fail(f"health {path} path: sentinel events on a sound run: {events[:3]}")
+        result[path] = {"gradient_steps": on["gradient_steps"], "tensors_bit_for_bit": len(pa) + len(aa), "ln_gru_launches": c_on}
+    if on_ring_syncs["per_gradient_step"] != off_ring_syncs["per_gradient_step"]:
+        fail(f"health ring path: synchronising calls per gradient step {on_ring_syncs} with health on, {off_ring_syncs} off")
+    off_nodes, on_nodes = off_ring["fused"]["graph"]["nodes"], on_ring["fused"]["graph"]["nodes"]
+    if off_nodes != DV3S_GRAPH_NODES:
+        fail(f"health off: the DV3-S ring step's graph holds {off_nodes} nodes, {DV3S_GRAPH_NODES} recorded")
+    step = _health_step_checks()
+    card = nvidia_smi()
+    result.update(
+        added_ms_per_gradient_step={"host": (on_host_wall - off_host_wall) * 1e3, "ring": (on_ring_wall - off_ring_wall) * 1e3},
+        host_wall_ms_per_gradient_step={"host": {"on": on_host_wall * 1e3, "off": off_host_wall * 1e3}, "ring": {"on": on_ring_wall * 1e3, "off": off_ring_wall * 1e3}},
+        syncs={"on": on_ring_syncs, "off": off_ring_syncs}, graph_nodes={"off": off_nodes, "on": on_nodes}, step=step, card=card,
+        took_s=time.perf_counter() - t0,
+    )  # fmt: skip
+    log(f"health (54): DV3-S bf16-mixed health=on against off, {result['host']['tensors_bit_for_bit']} / {result['ring']['tensors_bit_for_bit']} tensors bit "
+        f"for bit (host / ring path), LN-GRU launches equal ({on_host_counts['streaming']} streaming, {on_host_counts['tensor_core']} tensor-core, "
+        f"{on_host_counts['backward']} backward on the host path); syncs per gradient step {on_ring_syncs['per_gradient_step']:.3f} on, "
+        f"{off_ring_syncs['per_gradient_step']:.3f} off; host wall per gradient step host path {on_host_wall * 1e3:.2f} on / {off_host_wall * 1e3:.2f} off ms, "
+        f"ring path {on_ring_wall * 1e3:.2f} / {off_ring_wall * 1e3:.2f} ms (one run each, {card}); graph nodes {off_nodes} off ({DV3S_GRAPH_NODES} recorded), "
+        f"{on_nodes} with the probes; probed graph vs eager {json.dumps(step['graph_vs_eager'])}; probes against the plain recomputation "
+        f"{json.dumps({k: float(f'{v:.3g}') for k, v in step['probe_rel_gap'].items()})}; the tape's copy at most {step['tape_copy_bytes_max']} bytes")  # fmt: skip
+    return result
+
+
+def _first_step_s(args, what):
+    """One CLI run of DreamerV3 and the seconds from its start to its first
+    gradient step's callback."""
+    from sheeprl_tpu_torch.cli import run
+
+    t0, first = time.perf_counter(), []
+    out = run(args, callback=lambda *a: first.append(time.perf_counter() - t0) if not first else None)
+    if not first:
+        fail(f"{what}: no gradient step")
+    return out, first[0]
+
+
+def phase_preemption(workdir):
+    """Phase 55: SAC on the host path and DV3-S on the ring path, each with a
+    chaos ``sigterm`` at a policy step: the checkpoint at that step and
+    ``autoresume.json`` (signal 15); ``checkpoint.resume_from=auto`` to the
+    end, where every leaf but the buffer is bit for bit the uninterrupted
+    run's. The DV3-S run also carries a ``delayed_fetch`` under a ``warn``
+    watchdog (phase 56's drill): the trip counted, the run unchanged. Then
+    a real SIGTERM from outside to a SAC trainer subprocess. Drain-to-exit
+    and auto-resume seconds printed."""
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.core import chaos
+    from sheeprl_tpu_torch.core.resilience import AUTORESUME_NAME, last_guard_stats
+    from sheeprl_tpu_torch.utils.checkpoint import parse_ckpt_name
+
+    t0 = time.perf_counter()
+    root = os.path.join(workdir, "preemption")
+    out = {}
+    cases = (
+        ("sac_host", PRE_SAC, PRE_SAC_SIGNAL, [], []),
+        ("dv3_ring", [*PRE_DV3, "telemetry=on"], PRE_DV3_SIGNAL, [f"{{kind: delayed_fetch, seconds: {PRE_DV3_DELAY_S}, at_step: {PRE_DV3_DELAY_AT}}}"],
+         ["resilience.watchdog.enabled=True", f"resilience.watchdog.timeout_s={PRE_DV3_WATCHDOG_S}", "resilience.watchdog.on_trip=warn"]),
+    )  # fmt: skip
+    for name, args, signal_at, injectors, extra in cases:
+        base_root, run_root = os.path.join(root, name, "base"), os.path.join(root, name, "chaos")
+        chaos.reset()
+        full = run([*args, f"log_root={base_root}"])
+        chaos_args = [*extra, *_chaos(f"{{kind: sigterm, at_step: {signal_at}}}", *injectors)]
+        t1 = time.perf_counter()
+        cut = run([*args, *chaos_args, f"log_root={run_root}"])
+        cut_s = time.perf_counter() - t1
+        guard = last_guard_stats()
+        saved = _newest(run_root)
+        pointers = glob_recursive(run_root, AUTORESUME_NAME)
+        if not saved or len(pointers) != 1 or not guard["preempted"]:
+            fail(f"preemption {name}: checkpoints {saved}, pointers {pointers}, guard {guard}")
+        with open(pointers[0]) as fp:
+            pointer = json.load(fp)
+        step = parse_ckpt_name(saved[-1])[0]
+        if pointer["signal"] != 15 or os.path.realpath(pointer["ckpt_path"]) != saved[-1] or not signal_at <= step < signal_at + 8:
+            fail(f"preemption {name}: pointer {pointer}, newest checkpoint {saved[-1]} for a signal at {signal_at}")
+        chaos.reset()
+        if name == "dv3_ring":
+            resumed, resume_s = _first_step_s([*args, f"log_root={run_root}", f"checkpoint.resume_from=auto:{run_root}"], f"preemption {name} resume")
+        else:
+            t1 = time.perf_counter()
+            resumed = run([*args, f"log_root={run_root}", f"checkpoint.resume_from=auto:{run_root}"])
+            resume_s = time.perf_counter() - t1
+        end_full, end_resumed = _newest(base_root)[-1], _newest(run_root)[-1]
+        differ, leaves = _same_leaves(end_full, end_resumed)
+        if differ or parse_ckpt_name(end_full)[0] != parse_ckpt_name(end_resumed)[0]:
+            fail(f"preemption {name}: the resumed run ends off the uninterrupted one ({os.path.basename(end_resumed)}): {differ[:5]}")
+        out[name] = {"signal_at": signal_at, "saved_at": step, "pointer": {k: pointer[k] for k in ("policy_step", "signal")},
+                     "drain_to_exit_s": guard["drain_to_exit_s"], "preempted_run_s": cut_s, "resumed_run_s": resume_s,
+                     "leaves_bit_for_bit": leaves, "gradient_steps": full["gradient_steps"]}  # fmt: skip
+        if name == "dv3_ring":
+            records, _ = _telemetry_records(cut["log_dir"], "preemption dv3_ring")
+            final = [r for r in records if r["type"] == "counters"][-1]["values"]
+            labels = [r.get("args", {}).get("label") for r in records if r["type"] == "span" and r["name"] == "resilience/watchdog_trip"]
+            if "fetch/player_actions" not in labels or final.get("faults_injected/delay:fetch.harvest", 0) != 1:
+                fail(f"drill delayed_fetch: trips {labels}, counters {[(k, v) for k, v in final.items() if 'fault' in k or 'watchdog' in k]}")
+            out[name]["delayed_fetch"] = {"watchdog_trips": final.get("watchdog_trips", 0), "trip_labels": labels, "timeout_s": PRE_DV3_WATCHDOG_S,
+                                          "delay_s": PRE_DV3_DELAY_S}  # fmt: skip
+    out["sigterm_from_outside"] = _sigterm_subprocess(os.path.join(root, "outside"))
+    out["took_s"] = time.perf_counter() - t0
+    log(f"preemption (55): SAC host path, signal at {out['sac_host']['signal_at']} -> saved at {out['sac_host']['saved_at']}, drain-to-exit "
+        f"{out['sac_host']['drain_to_exit_s']:.3f} s, auto-resume run {out['sac_host']['resumed_run_s']:.2f} s, end bit for bit "
+        f"({out['sac_host']['leaves_bit_for_bit']} leaves); DV3-S ring path, signal at {out['dv3_ring']['signal_at']} -> saved at "
+        f"{out['dv3_ring']['saved_at']}, drain-to-exit {out['dv3_ring']['drain_to_exit_s']:.3f} s, auto-resume to its first gradient step "
+        f"{out['dv3_ring']['resumed_run_s']:.2f} s, end bit for bit ({out['dv3_ring']['leaves_bit_for_bit']} leaves); delayed_fetch "
+        f"{PRE_DV3_DELAY_S} s under a {PRE_DV3_WATCHDOG_S} s warn watchdog: trips {out['dv3_ring']['delayed_fetch']['trip_labels']}; a SIGTERM from "
+        f"outside: {json.dumps(out['sigterm_from_outside'])}; took {out['took_s']:.1f} s")  # fmt: skip
+    return out
+
+
+def _sigterm_subprocess(log_root):
+    """A SAC trainer in a subprocess on the card, SIGTERM to its Python pid
+    2 s after its ``Player:`` line: exit 0, ``Preemption: exiting cleanly``,
+    the pointer with signal 15."""
+    import signal
+
+    args = [a for a in PRE_SAC if not a.startswith("algo.total_steps")] + ["algo.total_steps=1000000", f"log_root={log_root}"]
+    code = "import sys; sys.path.insert(0, sys.argv[1]); from sheeprl_tpu_torch.cli import run; run(sys.argv[2:])"
+    proc = subprocess.Popen([sys.executable, "-u", "-c", code, REPO, *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("Player:"):
+                break
+        time.sleep(2.0)
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rest, _ = proc.communicate(timeout=120)
+        exit_s = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = "".join(lines) + rest
+    pointers = glob_recursive(log_root, "autoresume.json")
+    if proc.returncode != 0 or "Preemption: exiting cleanly" not in text or len(pointers) != 1:
+        fail(f"sigterm from outside: rc {proc.returncode}, pointers {pointers}: {text[-2000:]}")
+    with open(pointers[0]) as fp:
+        pointer = json.load(fp)
+    if pointer["signal"] != 15:
+        fail(f"sigterm from outside: pointer {pointer}")
+    return {"rc": proc.returncode, "signal_to_exit_s": exit_s, "saved_at": pointer["policy_step"]}
+
+
+def phase_drills(workdir):
+    """Phase 56 (the delayed fetch is in phase 55's DV3-S run): an
+    ``env_step_raise`` under the supervisor (SAC, ``resilience=on``): one
+    restart, a truncated row in the stored buffer at the restart; a
+    ``checkpoint.before_commit`` fail point: the previous checkpoint the
+    newest valid one, no staging dir; ``exp=ppo_atari`` on the card with
+    ``env.grayscale``, ``env.frame_stack=2`` and ``env.max_episode_steps=3``
+    (C4): the observation shapes and episode ends; the DV3-S host player's
+    ms per env step at ``num_threads`` 1 (the default the CLI now sets) and
+    at torch's default (C5)."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.core import chaos
+    from sheeprl_tpu_torch.envs.make import make_vector_env
+    from sheeprl_tpu_torch.utils.checkpoint import find_latest_valid_checkpoint, load_checkpoint, parse_ckpt_name
+
+    t0 = time.perf_counter()
+    root = os.path.join(workdir, "drills")
+    out = {}
+    # The supervisor: env 0 raises on its 40th step (policy step ~160 of 4 envs: past the prefill).
+    chaos.reset()
+    sup_root = os.path.join(root, "supervisor")
+    sup = run([*PRE_SAC, "algo.total_steps=256", "resilience=on", "resilience.supervisor.backoff_base_s=0.001", "telemetry=on", f"log_root={sup_root}",
+               *_chaos("{kind: env_step_raise, env_rank: 0, at_step: 40}")])  # fmt: skip
+    records, _ = _telemetry_records(sup["log_dir"], "drill supervisor")
+    final = [r for r in records if r["type"] == "counters"][-1]["values"]
+    rb = load_checkpoint(_newest(sup_root)[-1])["rb"]
+    truncated = np.asarray(rb["arrays"]["truncated"])[: int(rb["pos"])]
+    rows = np.nonzero(truncated[:, 0, 0])[0].tolist()
+    if final.get("env_restarts", 0) != 1 or 39 not in rows:
+        fail(f"drill supervisor: env_restarts {final.get('env_restarts')}, truncated rows of env 0 {rows}")
+    out["supervisor"] = {"env_restarts": final["env_restarts"], "truncated_rows_env0": rows, "gradient_steps": sup["gradient_steps"]}
+    # A crash inside the commit at step 64: the save at 32 stays the newest.
+    chaos.reset()
+    fp_root = os.path.join(root, "fail_point")
+    try:
+        run([*PRE_SAC, "checkpoint.every=32", f"log_root={fp_root}", *_chaos("{kind: fail_point, name: checkpoint.before_commit, at_step: 64}")])
+        fail("drill fail point: the run did not raise")
+    except chaos.ChaosFault:
+        pass
+    chaos.reset()
+    saved = _newest(fp_root)
+    ckpt_dir = os.path.dirname(saved[-1]) if saved else fp_root
+    staging = [n for n in os.listdir(ckpt_dir) if n.startswith(".tmp-")]
+    if not saved or parse_ckpt_name(saved[-1])[0] != 32 or staging or find_latest_valid_checkpoint(ckpt_dir) != saved[-1]:
+        fail(f"drill fail point: checkpoints {saved}, staging {staging}")
+    out["fail_point"] = {"newest_valid": os.path.basename(saved[-1]), "staging_left": len(staging)}
+    # C4 on the card: ppo_atari with the env keys.
+    cfg = compose([*C4_ARGS, "device=cuda"])
+    envs = make_vector_env(cfg)
+    obs, _ = envs.reset(seed=0)
+    shapes, ends = [tuple(obs["rgb"].shape)], []
+    for t in range(7):
+        obs, _, term, trunc, _ = envs.step(np.zeros(2, np.int64))
+        shapes.append(tuple(obs["rgb"].shape))
+        ends.append(bool(trunc.all()) and not term.any())
+    if set(shapes) != {(2, 64, 64, 2)} or ends != [False, False, True, False, False, True, False]:
+        fail(f"drill C4: observation shapes {set(shapes)}, truncations {ends}")
+    c4 = run([*C4_ARGS, f"log_root={os.path.join(root, 'c4')}"])
+    lengths = {row.get("Game/ep_len_avg") for row in c4["log"] if "Game/ep_len_avg" in row}
+    losses = [v for row in c4["log"] for k, v in row.items() if k.startswith("Loss/")]
+    if lengths != {3.0} or not losses or not all(math.isfinite(v) for v in losses):
+        fail(f"drill C4: episode lengths {lengths}, losses {losses[:4]}")
+    out["c4"] = {"rgb_shape": list(shapes[0]), "truncated_every": 3, "ep_len_avg": sorted(lengths), "updates": c4["updates"]}
+    # C5: the host player at num_threads 1 (the CLI's default now) and at torch's default.
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import PLAYER_STATE
+    from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+    from sheeprl_tpu_torch.utils.utils import dotdict
+
+    pcfg, agent = _dv3_player("bf16-mixed")
+    host = PlayerPlacement.resolve(dotdict({"fabric": {"player_device": "host", "player_sync": "fresh"}}), torch.device("cuda"),
+                                   nbytes=param_bytes(agent, PLAYER_STATE))  # fmt: skip
+    cpu_player = host.player(agent, PLAYER_STATE)
+    default_threads = torch.get_num_threads()
+    timed = {}
+    for threads in (1, default_threads):
+        torch.set_num_threads(threads)
+        try:
+            timed[threads] = _timed_in_turns({"host": _dv3_stepper(pcfg, cpu_player, BatchGenerator.from_seed(1, "cpu"))}, "num_threads", profile_steps=0)["host"]
+        finally:
+            torch.set_num_threads(default_threads)
+    out["num_threads"] = {str(k): {"host_wall_ms_per_env_step": v["host_wall_ms_per_env_step"], "windows": v["host_wall_ms_windows"]} for k, v in timed.items()}
+    out["took_s"] = time.perf_counter() - t0
+    log(f"drills (56): supervisor {json.dumps(out['supervisor'])}; fail point {json.dumps(out['fail_point'])}; C4 ppo_atari {json.dumps(out['c4'])}; "
+        f"host player (DV3-S bf16-mixed on the CPU) {timed[1]['host_wall_ms_per_env_step']:.2f} ms a env step at num_threads=1, "
+        f"{timed[default_threads]['host_wall_ms_per_env_step']:.2f} ms at torch's default {default_threads}; took {out['took_s']:.1f} s")  # fmt: skip
+    return out
+
+
+def phase_serving_drain(workdir, path=None):
+    """Phase 57: the DV3-S policy server in the foreground
+    (``serve_forever``): a request answered, then SIGTERM to this process;
+    the guard drains the engine and returns, the handler put back."""
+    import signal
+
+    import numpy as np
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.serve import export_random
+    from sheeprl_tpu_torch.serve.engine import InferenceEngine
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+
+    if path is None:
+        path = export_random(os.path.join(workdir, "dv3s_drain.policy"), name="dv3s", seed=0, precision="bf16-mixed")
+    engine = InferenceEngine(max_batch=8, batch_window_s=0.002, device="cuda")
+    engine.load("dv3s", path)
+    server = PolicyServer(engine, host="127.0.0.1", port=0)
+    replies, stamps = [], {}
+
+    def client():
+        body = json.dumps({"model": "dv3s", "session": "s", "obs": {"rgb": np.random.default_rng(0).integers(0, 256, (64, 64, 3)).tolist()}}).encode()
+        for _ in range(200):
+            try:
+                with urllib.request.urlopen(server.address + "/healthz", timeout=5):
+                    break
+            except OSError:
+                time.sleep(0.05)
+        for _ in range(3):
+            req = urllib.request.Request(server.address + "/v1/act", data=body, headers={"Content-Type": "application/json"}, method="POST")
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                replies.append(resp.status)
+        stamps["signal"] = time.perf_counter()
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    before = signal.getsignal(signal.SIGTERM)
+    thread = threading.Thread(target=client, daemon=True)
+    thread.start()
+    server.serve_forever(poll_s=0.05)
+    drain_s = time.perf_counter() - stamps.get("signal", time.perf_counter())
+    thread.join(timeout=30)
+    if replies != [200] * 3 or signal.getsignal(signal.SIGTERM) is not before or engine.stats()["counters"]["requests"] != 3:
+        fail(f"serving drain: replies {replies}, handler restored {signal.getsignal(signal.SIGTERM) is before}")
+    log(f"serving drain (57): 3 requests answered, SIGTERM to the serving process, drained and returned in {drain_s:.3f} s, handler restored")
+    return {"requests": len(replies), "signal_to_return_s": drain_s}
+
+
+def phases_54_57(workdir, path=None):
+    """Phases 54-57, the resilience layer (they run alone too, after
+    ``kernels.build()``; 54 then runs its own health-off runs)."""
+    t0 = time.perf_counter()
+    health = phase_health(workdir)
+    preemption = phase_preemption(workdir)
+    drills = phase_drills(workdir)
+    serving = phase_serving_drain(workdir, path)
+    took = time.perf_counter() - t0
+    log(f"resilience: phases 54-57 took {took:.1f} s (cuts {json.dumps(RES_CUTS)})")
+    return {"health": health, "preemption": preemption, "drills": drills, "serving_drain": serving, "phases_54_57_s": took}
+
+
 def main() -> None:
     import warnings
 
@@ -6619,6 +7177,7 @@ def main() -> None:
         anakin = phases_42_46(workdir)
         interaction = phases_47_50(workdir)
         telemetry = phases_51_53(workdir, path)
+        resilience = phases_54_57(workdir, path)
         replay_sample = phase_replay_sample()
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -6662,7 +7221,9 @@ def main() -> None:
                 "launches_sac_decoupled": interaction["sac_decoupled"]["fresh"]["ln_gru_launches"][kind],
                 "launches_ppo_decoupled": interaction["ppo_decoupled"]["ln_gru_launches"][kind],
                 "launches_telemetry_host": telemetry["telemetry"]["host"]["ln_gru_launches"][kind],
-                "launches_telemetry_ring": telemetry["telemetry"]["ring"]["ln_gru_launches"][kind]}  # fmt: skip
+                "launches_telemetry_ring": telemetry["telemetry"]["ring"]["ln_gru_launches"][kind],
+                "launches_health_host": resilience["health"]["host"]["ln_gru_launches"][kind],
+                "launches_health_ring": resilience["health"]["ring"]["ln_gru_launches"][kind]}  # fmt: skip
 
     def in_graph(kernel):
         """The kernel's nodes in the captured step's graph, and its launches
@@ -6870,6 +7431,7 @@ def main() -> None:
         **anakin,
         **interaction,
         **telemetry,
+        **resilience,
         "kernels": kernels_line["kernels"],
         "phase_s": phase_s,
         "profiler_s": PROFILER_S,

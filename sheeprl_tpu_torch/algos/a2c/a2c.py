@@ -19,8 +19,12 @@ tags and log points, the checkpoints (the JAX package's fields) and their
 resume, and the greedy test episode are the JAX package's. The player runs
 where its placement puts it (``core/player.py``, always ``fresh``) and its
 outputs and the truncation bootstrap come back through the interaction
-pipeline's fetch (``core/interact.py``), as in the JAX loop. Telemetry,
-health probes and the preemption guard are not ported (ROADMAP A10, A12).
+pipeline's fetch (``core/interact.py``), as in the JAX loop. The run's telemetry and resilience
+(``core/onpolicy.py:open_run``) run under it: the preemption guard (a
+SIGTERM saves at the iteration boundary and writes ``autoresume.json``),
+the watchdog around the update's wait, and the health sentinels at each
+log point, which veto saves once a non-finite value is seen (no in-step
+probes, as in the JAX package).
 
 The rollout step, GAE and the update run under ``record_function`` spans
 (``a2c/rollout_step``, ``a2c/gae``, ``a2c/update``).
@@ -124,6 +128,7 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
     train_step = make_train_step(agent, run.optimizer, cfg)
     placement = PlayerPlacement.resolve(cfg, device, nbytes=param_bytes(agent), force_fresh=True)
     pipeline = InteractionPipeline.from_config(cfg)
+    pipeline.watchdog = run.watchdog
     player_rng = BatchGenerator.from_seed(cfg.seed, placement.device)
     perm_generator = torch.Generator(device=device).manual_seed(int(cfg.seed) + 1)
     action_shape = tuple(run.action_space.shape)
@@ -141,6 +146,7 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
     perf = telemetry.perf
     for iter_num in range(run.start_iter, run.total_iters + 1):
         telemetry.advance(policy_step)
+        run.guard.advance(policy_step)
         for _ in range(rollout_steps):
             policy_step += num_envs
             with timer("Time/env_interaction_time"), perf.infeed(), record_function("a2c/rollout_step"):
@@ -171,7 +177,7 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
 
         # ---------------------------------------------------------- update
         data, next_obs_t = ship_rollout(rb, (*obs_keys, "actions", "rewards", "values", "dones"), next_obs, (), device)
-        with train_timer(device):
+        with train_timer(device, run.watchdog):
             indices = minibatch_indices(rollout_steps * num_envs, batch_size, 1, perm_generator)[0]
             with perf.note("train/update"):
                 metrics = train_step(data, next_obs_t, indices)
@@ -181,6 +187,8 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
         log_points.after_update(metrics, iter_num, run.total_iters, policy_step)
         run.anneal(iter_num)
         run.checkpoint(iter_num, policy_step)
+        if run.preempted(policy_step):
+            break
 
     interaction = pipeline.publish()
     return {**run.finish(test, policy_step), "interaction": interaction, "placement": placement.stats()}

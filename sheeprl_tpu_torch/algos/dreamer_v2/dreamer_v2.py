@@ -62,11 +62,12 @@ from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Discrete
+from sheeprl_tpu_torch.core.resilience import drain_device, exit_on_preemption, open_loop
 from sheeprl_tpu_torch.telemetry import open_for_run
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator, BernoulliSafeMode, Independent, Normal, OneHotCategorical
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
-from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator
+from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator, fetch_metrics
 from sheeprl_tpu_torch.utils.timer import timer, train_timer
 from sheeprl_tpu_torch.utils.utils import Ratio, normalize_obs, prepare_obs, save_configs
 
@@ -417,6 +418,7 @@ def run_dreamer(
     print(f"Log dir: {log_dir}", flush=True)
     telemetry = open_for_run(cfg, log_dir, device)
     perf = telemetry.perf
+    guard, watchdog, health = open_loop()
 
     num_envs = int(cfg.env.num_envs)
     envs = make_vector_env(cfg)
@@ -433,6 +435,7 @@ def run_dreamer(
     # (core/interact.py): the serial loop's by default.
     placement = PlayerPlacement.resolve(cfg, device, nbytes=param_bytes(trainer.test_agent, PLAYER_STATE))
     pipeline = InteractionPipeline.from_config(cfg)
+    pipeline.watchdog = watchdog
     train_rng = BatchGenerator.from_seed(cfg.seed, device)
     player_rng = BatchGenerator.from_seed(cfg.seed + 1, placement.device)
 
@@ -458,6 +461,7 @@ def run_dreamer(
     start_iter, policy_step, gradient_steps, last_log, last_checkpoint = 1, 0, 0, 0, 0
     train_step_count, last_train = 0, 0
     pending: List[Metrics] = []
+    keep_metrics = aggregator is not None or (health.enabled and cfg.metric.log_level > 0)
     log: List[Dict[str, float]] = []
     checkpoints: List[str] = []
 
@@ -506,6 +510,7 @@ def run_dreamer(
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
         telemetry.advance(policy_step)
+        guard.advance(policy_step)
         with timer("Time/env_interaction_time"), perf.infeed():
             if iter_num <= learning_starts and state_ckpt is None and trainer.random_prefill:
                 real_actions = actions = envs.sample_actions()
@@ -574,14 +579,14 @@ def run_dreamer(
             per_rank_gradient_steps = ratio(policy_step - prefill_steps * policy_steps_per_iter)
             if per_rank_gradient_steps > 0:
                 batches = infeed.take_or_sample(per_rank_gradient_steps)
-                with train_timer(device):
+                with train_timer(device, watchdog):
                     for i in range(per_rank_gradient_steps):
                         if loop.target_copy and gradient_steps % freq == 0:
                             trainer.copy_targets()
                         with perf.note("train/step"):
                             metrics = train_step(batches[i], train_rng)
                         gradient_steps += 1
-                        if aggregator is not None:
+                        if keep_metrics:
                             pending.append(metrics)  # the device's 0-d tensors, read back at the log point
                         if callback is not None:
                             callback(agent, gradient_steps, metrics)
@@ -592,6 +597,10 @@ def run_dreamer(
         # -------------------------------------------------------- logging
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters):
             row: Dict[str, float] = {"policy_step": float(policy_step), "gradient_steps": float(gradient_steps)}
+            if health.enabled:
+                # The host sentinels (no in-step probes here, as in the JAX package).
+                pending = fetch_metrics(pending)
+                health.observe(policy_step, pending, telemetry=telemetry)
             if aggregator is not None:
                 for metrics in pending:
                     for k, v in metrics.items():
@@ -620,9 +629,12 @@ def run_dreamer(
             print(" ".join(f"{k}={v:.6g}" for k, v in row.items()), flush=True)
 
         # ----------------------------------------------------- checkpoint
-        if (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every) or (
-            iter_num == total_iters and cfg.checkpoint.save_last
+        if health.allow_save() and (
+            (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every)
+            or ((iter_num == total_iters or guard.preempted) and cfg.checkpoint.save_last)
         ):
+            if guard.preempted:
+                drain_device(device)
             last_checkpoint = policy_step
             ckpt_state = trainer.state()
             ckpt_state.update(
@@ -635,10 +647,13 @@ def run_dreamer(
                 ckpt_state["rb"] = rb.state_dict()
             path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
+        if exit_on_preemption(guard, policy_step):
+            break
 
     infeed.close()
-    test_reward = test(trainer.test_agent, cfg, log_dir, logger) if cfg.algo.run_test else None
+    test_reward = test(trainer.test_agent, cfg, log_dir, logger) if cfg.algo.run_test and not guard.preempted else None
     interaction = pipeline.publish()
+    guard.close()
     telemetry.close()
     if logger is not None:
         logger.close()

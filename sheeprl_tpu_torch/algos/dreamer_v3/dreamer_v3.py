@@ -41,8 +41,13 @@ interaction pipeline (``core/interact.py``: ``env.pipeline_slices``,
 ``fabric.async_fetch``, with the train call between the fetch and its
 harvest when the fetch is async) and the player through its placement
 (``core/player.py``: ``fabric.player_device``, ``fabric.player_sync``); the
-defaults are the serial loop. Not ported yet (ROADMAP): telemetry, health
-probes and the preemption guard.
+defaults are the serial loop. The run's telemetry and resilience run under
+the loop (``core/resilience.py``): the preemption guard advanced every
+iteration (a SIGTERM drains the card and saves at the boundary, then
+``autoresume.json``), the watchdog around the train call's wait and the
+action fetch's, the health sentinels at each log point over the step's
+probes (``health=on``: :class:`ProbeTape` around the three updates, also
+inside the captured step), and no save once the run is tainted.
 """
 
 from __future__ import annotations
@@ -73,6 +78,7 @@ from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.core.graphs import CapturedStep, RingHolder, power_of_two_buckets
 from sheeprl_tpu_torch.core.interact import InteractionPipeline, tree_concat
 from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
+from sheeprl_tpu_torch.core.resilience import drain_device, exit_on_preemption, open_loop
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
 from sheeprl_tpu_torch.data.infeed import ReplayInfeed
@@ -81,6 +87,7 @@ from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Discrete
 from sheeprl_tpu_torch.telemetry import open_for_run
+from sheeprl_tpu_torch.telemetry.health import ProbeTape, probes_enabled, tape_update
 from sheeprl_tpu_torch.utils.distribution import (
     BatchGenerator,
     BernoulliSafeMode,
@@ -94,7 +101,7 @@ from sheeprl_tpu_torch.utils.distribution import (
 )
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
-from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator
+from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator, fetch_metrics
 from sheeprl_tpu_torch.utils.ops import compute_lambda_values, init_moments, target_ema_, update_moments
 from sheeprl_tpu_torch.utils.timer import timer, train_timer
 from sheeprl_tpu_torch.utils.utils import Ratio, normalize_obs, prepare_obs, save_configs
@@ -230,15 +237,14 @@ class DV3Learner:
         )  # fmt: skip
         return losses, posteriors, recurrent_states, pol, pl
 
-    def update_world_model(self, optimizer, data, batch_obs, rng):
+    def update_world_model(self, optimizer, data, batch_obs, rng, tape: Optional[ProbeTape] = None):
         """The world model's loss, backward, clipping and Adam step ->
         (losses, posteriors, recurrent_states, posterior and prior logits,
-        the pre-clip gradient norm)."""
+        the pre-clip gradient norm); a health ``tape`` reads the update."""
         losses, posteriors, recurrent_states, pol, pl = self.world_model_loss(data, batch_obs, rng)
         optimizer.zero_grad(set_to_none=True)
         losses[0].backward()
-        wm_norm = _clip(self.wm, self.cfg.algo.world_model.clip_gradients)
-        optimizer.step()
+        wm_norm = tape_update(tape, list(self.wm.parameters()), optimizer, lambda: _clip(self.wm, self.cfg.algo.world_model.clip_gradients))
         return losses, posteriors, recurrent_states, pol, pl, wm_norm
 
     def imagine(self, actor: torch.nn.Module, prior: torch.Tensor, h: torch.Tensor, rng):
@@ -278,7 +284,7 @@ class DV3Learner:
         advantage = (lambda_values - offset) / invscale - (values[:-1] - offset) / invscale
         return new_moments, lambda_values, advantage
 
-    def update_actor(self, actor, optimizer, trajectories, imagined_actions, advantage, discount):
+    def update_actor(self, actor, optimizer, trajectories, imagined_actions, advantage, discount, tape: Optional[ProbeTape] = None):
         """The actor's loss on ``trajectories`` (the pathwise advantage for
         continuous actions, REINFORCE on the detached advantage for discrete
         ones, plus the entropy bonus), its backward, clipping and step ->
@@ -298,11 +304,10 @@ class DV3Learner:
         policy_loss = -torch.mean(discount[:-1] * (objective + entropy[..., None][:-1]))
         optimizer.zero_grad(set_to_none=True)
         policy_loss.backward()
-        actor_norm = _clip(actor, self.cfg.algo.actor.clip_gradients)
-        optimizer.step()
+        actor_norm = tape_update(tape, list(actor.parameters()), optimizer, lambda: _clip(actor, self.cfg.algo.actor.clip_gradients))
         return policy_loss.detach(), actor_norm
 
-    def behaviour(self, actor, critic, optimizer, moments_state, data, prior, h, rng):
+    def behaviour(self, actor, critic, optimizer, moments_state, data, prior, h, rng, tape: Optional[ProbeTape] = None):
         """The imagination from every posterior with ``actor``, the λ-returns
         on the reward head and ``critic``, and the actor's update.
         Continuous actions carry the pathwise gradient through the rollout,
@@ -315,10 +320,10 @@ class DV3Learner:
             continues, discount = self.continues(trajectories, data)
             new_moments, lambda_values, advantage = self.advantage(moments_state, predicted_rewards, predicted_values, continues)
         with record_function("dv3/actor"):
-            policy_loss, actor_norm = self.update_actor(actor, optimizer, trajectories, imagined_actions, advantage, discount)
+            policy_loss, actor_norm = self.update_actor(actor, optimizer, trajectories, imagined_actions, advantage, discount, tape)
         return new_moments, trajectories.detach(), lambda_values.detach(), discount, policy_loss, actor_norm
 
-    def update_critic(self, critic, target_critic, optimizer, trajectories, lambda_values, discount, tau):
+    def update_critic(self, critic, target_critic, optimizer, trajectories, lambda_values, discount, tau, tape: Optional[ProbeTape] = None):
         """The critic's two-hot loss against the λ-returns and its target's
         values along ``trajectories[:-1]``, its backward, clipping and step,
         then the target's EMA by ``tau`` -> (value loss, pre-clip norm)."""
@@ -330,8 +335,7 @@ class DV3Learner:
         value_loss = torch.mean(value_loss * discount[:-1].squeeze(-1))
         optimizer.zero_grad(set_to_none=True)
         value_loss.backward()
-        critic_norm = _clip(critic, self.cfg.algo.critic.clip_gradients)
-        optimizer.step()
+        critic_norm = tape_update(tape, list(critic.parameters()), optimizer, lambda: _clip(critic, self.cfg.algo.critic.clip_gradients))
         tau_t = tau if isinstance(tau, torch.Tensor) else torch.full((), float(tau), device=self.device)
         target_ema_(list(target_critic.parameters()), list(critic.parameters()), tau_t)
         return value_loss.detach(), critic_norm
@@ -361,28 +365,34 @@ def make_train_step(
     ``rng`` is the noise source of every draw (a :class:`BatchGenerator`);
     ``tau`` is the target critic's EMA coefficient for this step (0 leaves
     it), a float or a 0-d tensor on the agent's device (what a captured step
-    reads, :func:`target_ema_`)."""
+    reads, :func:`target_ema_`). With ``health`` probes on (:func:`probes_enabled`)
+    the metrics also hold ``health/*`` over the three updates, with the KL
+    (``dreamer_v3.py:393-403`` of the JAX package)."""
     learner = DV3Learner(agent.world_model, agent.actor_spec, cfg)
     wm, actor, critic, target_critic = agent.world_model, agent.actor, agent.critic, agent.target_critic
+    probes = probes_enabled(cfg)
 
     def step(moments_state, data, rng, tau):
+        tape = ProbeTape() if probes else None
         with record_function("dv3/world_model"):
             losses, posteriors, recurrent_states, pol, pl, wm_norm = learner.update_world_model(
-                optimizers["world_model"], data, learner.batch_obs(data), rng
+                optimizers["world_model"], data, learner.batch_obs(data), rng, tape
             )
         prior0 = posteriors.detach().reshape(-1, learner.stoch_state_size)
         h0 = recurrent_states.detach().reshape(-1, learner.recurrent_state_size)
         with frozen((wm, critic), learner.pathwise):
             new_moments, trajectories, lambda_values, discount, policy_loss, actor_norm = learner.behaviour(
-                actor, critic, optimizers["actor"], moments_state, data, prior0, h0, rng
+                actor, critic, optimizers["actor"], moments_state, data, prior0, h0, rng, tape
             )
         with record_function("dv3/critic"):
-            value_loss, critic_norm = learner.update_critic(critic, target_critic, optimizers["critic"], trajectories, lambda_values, discount, tau)
+            value_loss, critic_norm = learner.update_critic(critic, target_critic, optimizers["critic"], trajectories, lambda_values, discount, tau, tape)
         metrics = learner.world_model_metrics(losses, pol, pl)
         metrics.update({
             "Loss/policy_loss": policy_loss, "Loss/value_loss": value_loss,
             "Grads/world_model": wm_norm, "Grads/actor": actor_norm, "Grads/critic": critic_norm,
         })  # fmt: skip
+        if tape is not None:
+            metrics.update(tape.metrics(aux={"kl": losses[1]}))
         return new_moments, metrics
 
     return step
@@ -622,6 +632,7 @@ def run_dreamer_v3(
     print(f"Log dir: {log_dir}", flush=True)
     telemetry = open_for_run(cfg, log_dir, device)
     perf = telemetry.perf
+    guard, watchdog, health = open_loop()
 
     num_envs = int(cfg.env.num_envs)
     envs = make_vector_env(cfg)
@@ -689,6 +700,7 @@ def run_dreamer_v3(
     start_iter, policy_step, gradient_steps, last_log, last_checkpoint = 1, 0, 0, 0, 0
     train_step_count, last_train = 0, 0
     pending: List[Metrics] = []
+    keep_metrics = aggregator is not None or (health.enabled and cfg.metric.log_level > 0)
     log: List[Dict[str, float]] = []
     checkpoints: List[str] = []
 
@@ -734,6 +746,7 @@ def run_dreamer_v3(
     # and generator per env slice; one slice with the fetch blocking is the
     # serial loop.
     pipeline = InteractionPipeline.from_config(cfg)
+    pipeline.watchdog = watchdog
     pipeline.set_key(player_rng)
     if player_state is None:
         pipeline.init_state(lambda n, r: player_of(start_iter).init_player_state(n))
@@ -762,7 +775,7 @@ def run_dreamer_v3(
             if fused is None:
                 ring_sample = ring.make_sample_fn(batch_size, sequence_length=seq_len, time_major=True)
                 fused = make_fused_train_step(agent, trainer.optimizers, cfg, lambda state, rng: ring_sample(state, rng.generator), train_rng)
-            with train_timer(device):
+            with train_timer(device, watchdog):
                 # One metrics entry per bucket, its mean.
                 for k in power_of_two_buckets(per_rank_gradient_steps, fused_train_steps):
                     taus = target_update_taus(gradient_steps, k, freq, cfg.algo.critic.tau)
@@ -773,18 +786,18 @@ def run_dreamer_v3(
                         moments, metrics = fused(moments, ring.state, taus, on_step)
                     gradient_steps += k
                     fused_gradient_steps += k
-                    if aggregator is not None:
+                    if keep_metrics:
                         pending.append(metrics)
                 train_step_count += 1
         else:
             batches = infeed.take_or_sample(per_rank_gradient_steps)
             taus = target_update_taus(gradient_steps, per_rank_gradient_steps, freq, cfg.algo.critic.tau)
-            with train_timer(device):
+            with train_timer(device, watchdog):
                 for i in range(per_rank_gradient_steps):
                     with perf.note("train/step"):
                         moments, metrics = train_step(moments, batches[i], train_rng, float(taus[i]))
                     gradient_steps += 1
-                    if aggregator is not None:
+                    if keep_metrics:
                         pending.append(metrics)  # the device's 0-d tensors, read back at the log point
                     if callback is not None:
                         callback(agent, gradient_steps, float(taus[i]), metrics)
@@ -795,6 +808,7 @@ def run_dreamer_v3(
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
         telemetry.advance(policy_step)
+        guard.advance(policy_step)
         trained_in_flight = False
         with timer("Time/env_interaction_time"), perf.infeed():
             if iter_num <= learning_starts and state_ckpt is None and trainer.random_prefill:
@@ -881,6 +895,10 @@ def run_dreamer_v3(
         # -------------------------------------------------------- logging
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters):
             row: Dict[str, float] = {"policy_step": float(policy_step), "gradient_steps": float(gradient_steps)}
+            if health.enabled:
+                # The sentinels read the interval's metrics in the aggregator's one transfer.
+                pending = fetch_metrics(pending)
+                health.observe(policy_step, pending, telemetry=telemetry)
             if aggregator is not None:
                 for metrics in pending:
                     for k, v in metrics.items():
@@ -909,9 +927,12 @@ def run_dreamer_v3(
             print(" ".join(f"{k}={v:.6g}" for k, v in row.items()), flush=True)
 
         # ----------------------------------------------------- checkpoint
-        if (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every) or (
-            iter_num == total_iters and cfg.checkpoint.save_last
+        if health.allow_save() and (
+            (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every)
+            or ((iter_num == total_iters or guard.preempted) and cfg.checkpoint.save_last)
         ):
+            if guard.preempted:
+                drain_device(device)
             last_checkpoint = policy_step
             ckpt_state = trainer.state(moments)
             ckpt_state.update(
@@ -924,10 +945,13 @@ def run_dreamer_v3(
                 ckpt_state["rb"] = rb.state_dict()
             path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
+        if exit_on_preemption(guard, policy_step):
+            break
 
     infeed.close()
-    test_reward = test(trainer.test_agent, cfg, log_dir, logger, sample_actions=trainer.test_sample) if cfg.algo.run_test else None
+    test_reward = test(trainer.test_agent, cfg, log_dir, logger, sample_actions=trainer.test_sample) if cfg.algo.run_test and not guard.preempted else None
     interaction = pipeline.publish()
+    guard.close()
     telemetry.close()
     if logger is not None:
         logger.close()

@@ -38,10 +38,12 @@ from sheeprl_tpu_torch.core.graphs import CapturedStep, RingHolder, power_of_two
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
 from sheeprl_tpu_torch.registry import register_algorithm
+from sheeprl_tpu_torch.telemetry.health import ProbeTape, probe_keys, probes_enabled
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
 from sheeprl_tpu_torch.utils.timer import train_timer
 
 Draws = Dict[str, Any]
+ACTOR_PROBE_PREFIX = "health/actor_"
 Optimizers = Dict[str, torch.optim.Optimizer]
 
 
@@ -77,9 +79,14 @@ def actor_draws(agent: DROQAgent, rng: BatchGenerator, batch_size: int) -> Draws
 
 def make_critic_step(agent: DROQAgent, optimizers: Optimizers, cfg) -> Callable[[Dict[str, torch.Tensor], Draws], torch.Tensor]:
     """``critic_step(batch, draws) -> value_loss``: one critic update on a
-    ``[B, ...]`` batch, then the target EMA with the full tau."""
+    ``[B, ...]`` batch, then the target EMA with the full tau. With
+    ``health`` probes on it returns the row ``[value_loss, probes over the
+    critics' update]`` (``droq.py:82`` of the JAX package), named by
+    ``critic_step.keys``."""
     gamma = float(cfg.algo.gamma)
     tau = torch.full((), float(agent.tau), device=agent.log_alpha.device)
+    probes = probes_enabled(cfg)
+    qf_params = list(agent.qfs.parameters())
 
     def critic_step(batch: Dict[str, torch.Tensor], draws: Draws) -> torch.Tensor:
         with record_function("droq/critic_step"):
@@ -89,22 +96,34 @@ def make_critic_step(agent: DROQAgent, optimizers: Optimizers, cfg) -> Callable[
             qf = agent.q_values(batch["observations"], batch["actions"], masks=draws["masks"])
             # Each critic's MSE against the shared target, summed.
             qf_loss = ((qf - target) ** 2).mean(0).sum()
-            _adam_step(optimizers["qf"], qf_loss)
+            tape = ProbeTape() if probes else None
+            _adam_step(optimizers["qf"], qf_loss, None, tape, qf_params)
             agent.target_ema_(tau)
+            if tape is not None:
+                return torch.stack([qf_loss.detach(), *tape.metrics().values()])
             return qf_loss.detach()
 
+    critic_step.keys = ("value_loss",) + (probe_keys() if probes else ())
     return critic_step
 
 
 def make_actor_alpha_update(agent: DROQAgent, optimizers: Optimizers, cfg) -> Callable[[torch.Tensor, Draws], torch.Tensor]:
-    """``actor_step(observations, draws) -> [policy_loss, alpha_loss]``."""
+    """``actor_step(observations, draws) -> [policy_loss, alpha_loss]``;
+    with ``health`` probes on the row goes on with the probes over the actor
+    and alpha updates under ``health/actor_*``, then alpha and the entropy
+    (``droq.py:119-127`` of the JAX package), named by ``actor_step.keys``."""
+    probes = probes_enabled(cfg)
 
     def actor_step(obs: torch.Tensor, draws: Draws) -> torch.Tensor:
         with record_function("droq/actor_step"):
             masks = draws["masks"]
-            losses = actor_alpha_step(agent, optimizers, obs, lambda o, a: ensemble_mean(agent.q_values(o, a, masks=masks)), draws["noise"])
+            tape, aux = (ProbeTape(), {}) if probes else (None, None)
+            losses = actor_alpha_step(agent, optimizers, obs, lambda o, a: ensemble_mean(agent.q_values(o, a, masks=masks)), draws["noise"], tape, aux)
+            if tape is not None:
+                return torch.stack([*losses, *tape.metrics(aux, prefix=ACTOR_PROBE_PREFIX).values()])
             return torch.stack(losses)
 
+    actor_step.keys = ("policy_loss", "alpha_loss") + (probe_keys(("alpha", "entropy"), ACTOR_PROBE_PREFIX) if probes else ())
     return actor_step
 
 
@@ -118,9 +137,13 @@ def make_train_step(agent: DROQAgent, optimizers: Optimizers, cfg) -> Callable[.
     actor_step = make_actor_alpha_update(agent, optimizers, cfg)
 
     def train_step(critic_data: Dict[str, torch.Tensor], actor_obs: torch.Tensor, draws: Dict[str, Any]) -> Metrics:
-        value = torch.stack([critic_step({k: v[g] for k, v in critic_data.items()}, d) for g, d in enumerate(draws["critic"])]).mean()
-        policy, alpha = actor_step(actor_obs, draws["actor"]).unbind()
-        return {"value_loss": value, "policy_loss": policy, "alpha_loss": alpha}
+        critic = torch.stack([critic_step({k: v[g] for k, v in critic_data.items()}, d) for g, d in enumerate(draws["critic"])])
+        if len(critic_step.keys) == 1:
+            metrics = {"value_loss": critic.mean()}
+        else:
+            metrics = dict(zip(critic_step.keys, critic.mean(0).unbind()))
+        metrics.update(zip(actor_step.keys, actor_step(actor_obs, draws["actor"]).unbind()))
+        return metrics
 
     return train_step
 
@@ -156,10 +179,10 @@ def make_fused_train_step(
         for _ in range(int(k)):
             out = critic()
             total = out.clone() if total is None else total.add_(out)
-        metrics = {"value_loss": total / int(k)}
+        means = total / int(k)
+        metrics = {"value_loss": means} if len(critic_step.keys) == 1 else dict(zip(critic_step.keys, means.unbind()))
         if with_actor:
-            policy, alpha = actor().clone().unbind()
-            metrics.update(policy_loss=policy, alpha_loss=alpha)
+            metrics.update(zip(actor_step.keys, actor().clone().unbind()))
         return metrics
 
     fused.critic, fused.actor = critic, actor
@@ -169,7 +192,9 @@ def make_fused_train_step(
 class DroQTrainer:
     """DroQ's train calls for :func:`run_off_policy` (the target tau the
     loop passes is SAC's cadence; DroQ's critic step always blends with the
-    full tau)."""
+    full tau). ``watchdog`` is the run's, armed around each call's wait."""
+
+    watchdog = None
 
     def __init__(self, agent: DROQAgent, optimizers: Optimizers, cfg, rng: BatchGenerator):
         self.agent, self.optimizers, self.cfg, self.rng = agent, optimizers, cfg, rng
@@ -184,7 +209,7 @@ class DroQTrainer:
         device = self.agent.log_alpha.device
         critic_data = _float_batch(rb.sample(steps * self.batch_size, sample_next_obs=self.sample_next_obs), steps, self.batch_size, device)
         actor_obs = _float_batch(rb.sample(self.batch_size, sample_next_obs=self.sample_next_obs), 0, self.batch_size, device)["observations"]
-        with train_timer(device):
+        with train_timer(device, self.watchdog):
             draws = {
                 "critic": [critic_draws(self.agent, self.rng, self.batch_size) for _ in range(steps)],
                 "actor": actor_draws(self.agent, self.rng, self.batch_size),
@@ -202,7 +227,7 @@ class DroQTrainer:
             sample = ring.make_sample_fn(self.batch_size, sequence_length=1, sample_next_obs=self.sample_next_obs)
             self.fused = make_fused_train_step(self.agent, self.optimizers, self.cfg, sample, self.rng)
         buckets = power_of_two_buckets(steps, bucket)
-        with train_timer(self.agent.log_alpha.device):
+        with train_timer(self.agent.log_alpha.device, self.watchdog):
             return [self.fused(ring.state, k, i == len(buckets) - 1) for i, k in enumerate(buckets)]
 
     def fused_info(self) -> Optional[Dict[str, Any]]:

@@ -19,15 +19,19 @@ a ``ReplayBuffer`` of ``buffer.size`` rows per env (memory-mapped with
 entropy coefficients decay linearly over the run with ``anneal_lr``,
 ``anneal_clip_coef`` and ``anneal_ent_coef`` (the learning rate on the
 optimizer's param group); ``max_grad_norm`` > 0 clips the gradients' global
-norm before Adam. The tags and log points, the checkpoints and their resume,
-and the greedy test episode at the end are the JAX package's. The Anakin
+norm before Adam. The tags and log points, the checkpoints' fields and the
+greedy test episode at the end are the JAX package's; a checkpoint also
+holds the envs and the noise sources (:func:`loop_state`), so a resume is
+bit for bit. The Anakin
 lane is ``core/fused_loop.py``'s. The env step goes through the interaction
 pipeline (``core/interact.py``), the truncation bootstrap through its fetch,
 and the player through its placement (``core/player.py``, always ``fresh``:
 a rollout plays the weights of the update before it). The run's telemetry
 (``core/onpolicy.py:open_run``) times the rollout as infeed, the shipped
-rollout (``rollout/ship``) and the update (``train/update``). Not ported
-yet (ROADMAP): health probes, the preemption guard and the watchdog.
+rollout (``rollout/ship``) and the update (``train/update``); its
+resilience gives the loop the preemption guard, the watchdog around the
+update's wait and the health sentinels, and with ``health=on`` each
+minibatch's update carries the probes (:func:`make_update_pool`).
 
 The rollout step, GAE and the update run under
 ``torch.profiler.record_function`` spans (``ppo/rollout_step``,
@@ -54,6 +58,7 @@ from sheeprl_tpu_torch.core.onpolicy import make_optimizer as make_optimizer  # 
 from sheeprl_tpu_torch.core.rollout import bootstrap_truncated, fuse_gae_pool
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.telemetry.cuda_events import transfer
+from sheeprl_tpu_torch.telemetry.health import ProbeTape, probe_keys, probes_enabled, tape_update
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
 from sheeprl_tpu_torch.utils.ops import normalize_tensor
 from sheeprl_tpu_torch.utils.timer import timer, train_timer
@@ -88,7 +93,10 @@ def make_update_pool(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg) -> 
     """``update_pool(pool, indices, clip_coef, ent_coef) -> metrics``: every
     epoch's minibatches of the flat pool (``indices`` from
     :func:`minibatch_indices`), one optimizer step each. ``clip_coef`` and
-    ``ent_coef`` are 0-d f32 tensors on the pool's device."""
+    ``ent_coef`` are 0-d f32 tensors on the pool's device. With ``health``
+    probes on the metrics also hold the probes of every minibatch's update,
+    with the mean entropy and the approximate KL (``ppo.py:155-166`` of the
+    JAX package), averaged as the losses are."""
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     obs_keys = cnn_keys + list(cfg.algo.mlp_keys.encoder)
     normalize_advantages = bool(cfg.algo.normalize_advantages)
@@ -97,6 +105,8 @@ def make_update_pool(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg) -> 
     vf_coef = float(cfg.algo.vf_coef)
     max_grad_norm = float(cfg.algo.max_grad_norm)
     params = list(agent.parameters())
+    probes = probes_enabled(cfg)
+    keys = METRIC_KEYS + (probe_keys(("entropy", "approx_kl")) if probes else ())
 
     def minibatch_step(batch: Dict[str, torch.Tensor], clip_coef: torch.Tensor, ent_coef: torch.Tensor) -> torch.Tensor:
         obs = normalize_obs({k: batch[k] for k in obs_keys}, cnn_keys, obs_keys)
@@ -109,10 +119,14 @@ def make_update_pool(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg) -> 
         ent_loss = entropy_loss(entropy, reduction)
         optimizer.zero_grad(set_to_none=True)
         (pg_loss + vf_coef * v_loss + ent_coef * ent_loss).backward()
-        if max_grad_norm > 0.0:
-            torch.nn.utils.clip_grad_norm_(params, max_grad_norm)
-        optimizer.step()
-        return torch.stack([pg_loss, v_loss, ent_loss]).detach()
+        tape = ProbeTape() if probes else None
+        clip = (lambda: torch.nn.utils.clip_grad_norm_(params, max_grad_norm)) if max_grad_norm > 0.0 else None
+        tape_update(tape, params, optimizer, clip)
+        losses = [pg_loss.detach(), v_loss.detach(), ent_loss.detach()]
+        if tape is None:
+            return torch.stack(losses)
+        aux = {"entropy": entropy.detach().float().mean(), "approx_kl": (batch["logprobs"] - new_logprobs.detach()).float().mean()}
+        return torch.stack([*losses, *tape.metrics(aux).values()])
 
     def update_pool(pool: Dict[str, torch.Tensor], indices: torch.Tensor, clip_coef: torch.Tensor, ent_coef: torch.Tensor) -> Metrics:
         with record_function("ppo/update"):
@@ -121,9 +135,29 @@ def make_update_pool(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg) -> 
                 per_mb = [minibatch_step({k: v[mb] for k, v in pool.items()}, clip_coef, ent_coef) for mb in epoch]
                 epochs.append(torch.stack(per_mb).mean(0))
             means = torch.stack(epochs).mean(0)
-        return {k: means[i] for i, k in enumerate(METRIC_KEYS)}
+        return {k: means[i] for i, k in enumerate(keys)}
 
     return update_pool
+
+
+def loop_state(player: torch.Generator, perm: torch.Generator, envs: Dict[str, Any], obs: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """The checkpoint's fields beyond the JAX package's that make a resume
+    bit for bit: the player's and the minibatch permutations' generators,
+    the envs (``SyncVectorEnv.state_dict``'s layout, either lane) and the
+    observation the next rollout starts from."""
+    return {"player_rng": player.get_state(), "perm_rng": perm.get_state(), "envs": envs, "obs": obs}
+
+
+def resume_loop_state(run, initial_coefs, player: torch.Generator, perm: torch.Generator, load_envs: Callable[[Dict[str, Any]], None]):
+    """Restore :func:`loop_state`'s fields from the checkpoint ``run``
+    resumes and the clip and entropy coefficients annealed to it; returns
+    the saved observation."""
+    state = run.resumed
+    player.set_state(state["player_rng"])
+    perm.set_state(state["perm_rng"])
+    load_envs(state["envs"])
+    run.anneal(run.start_iter - 1, initial_coefs)
+    return state["obs"]
 
 
 def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg) -> Callable[..., Metrics]:
@@ -190,12 +224,15 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
     ``checkpoint/ckpt_<policy_step>_0.ckpt`` every ``checkpoint.every``
     policy steps and at the end with ``checkpoint.save_last``, with the JAX
     package's fields (``agent``, ``optimizer``, ``iter_num``,
-    ``batch_size``, ``last_log``, ``last_checkpoint``) and the spaces' specs
-    (for ``serve export``). ``checkpoint.resume_from`` continues from one
-    with the saved run's config: the parameters, the Adam moments, step and
-    learning rate, the counters and the minibatch size come back; the envs,
-    the noise and the clip and entropy coefficients start over, as in the
-    JAX package. ``dry_run`` runs one iteration.
+    ``batch_size``, ``last_log``, ``last_checkpoint``), the spaces' specs
+    (for ``serve export``) and :func:`loop_state`'s.
+    ``checkpoint.resume_from`` continues from one with the saved run's
+    config: the parameters, the Adam moments, step and learning rate, the
+    counters and the minibatch size come back, and so do the envs, the
+    noise and the annealed clip and entropy coefficients, where the JAX
+    package starts those over, so the resumed run ends bit for bit where
+    the uninterrupted one does (ROADMAP C-r5). ``dry_run`` runs one
+    iteration.
 
     Returns {"agent", "optimizer", "policy_steps", "updates", "log",
     "log_dir", "checkpoints", "test_reward"}: ``log`` holds, for every log
@@ -224,7 +261,11 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
     placement = PlayerPlacement.resolve(cfg, device, nbytes=param_bytes(agent), force_fresh=True)
     player_rng = BatchGenerator.from_seed(cfg.seed, placement.device)
     perm_generator = torch.Generator(device=device).manual_seed(int(cfg.seed) + 1)
+    obs = envs.reset(seed=cfg.seed)[0]
+    if run.resumed is not None and "envs" in run.resumed:
+        obs = resume_loop_state(run, initial_coefs, player_rng.generator, perm_generator, envs.load_state_dict)
     pipeline = InteractionPipeline.from_config(cfg)
+    pipeline.watchdog = run.watchdog
     pipeline.set_key(player_rng)
     action_shape = tuple(run.action_space.shape)
     split = rollout_outputs(run.actions_dim, is_continuous)
@@ -245,11 +286,12 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
 
     telemetry = run.telemetry
     perf = telemetry.perf
-    obs = pipeline.stash_obs(envs.reset(seed=cfg.seed)[0])
+    obs = pipeline.stash_obs(obs)
     next_obs = {k: obs[k] for k in obs_keys}
     step_data: Dict[str, np.ndarray] = {k: obs[k][np.newaxis] for k in obs_keys}
     for iter_num in range(run.start_iter, run.total_iters + 1):
         telemetry.advance(policy_step)
+        run.guard.advance(policy_step)
         for _ in range(rollout_steps):
             policy_step += num_envs
             with timer("Time/env_interaction_time"), perf.infeed(), record_function("ppo/rollout_step"):
@@ -276,7 +318,7 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
 
         # ---------------------------------------------------------- update
         data, next_obs_t = ship_rollout(rb, (*obs_keys, "actions", "logprobs", "rewards", "values", "dones"), next_obs, cnn_keys, device)
-        with train_timer(device):
+        with train_timer(device, run.watchdog):
             indices = minibatch_indices(rollout_steps * num_envs, batch_size, int(cfg.algo.update_epochs), perm_generator)
             clip_coef = torch.tensor(cfg.algo.clip_coef, dtype=torch.float32, device=device)
             ent_coef = torch.tensor(cfg.algo.ent_coef, dtype=torch.float32, device=device)
@@ -289,7 +331,9 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
         log_points.after_update(metrics, iter_num, run.total_iters, policy_step, info_values)
 
         run.anneal(iter_num, initial_coefs)
-        run.checkpoint(iter_num, policy_step)
+        run.checkpoint(iter_num, policy_step, lambda: loop_state(player_rng.generator, perm_generator, envs.state_dict(), next_obs))
+        if run.preempted(policy_step):
+            break
 
     interaction = pipeline.publish()
     return {**run.finish(test, policy_step), "interaction": interaction, "placement": placement.stats()}

@@ -12,7 +12,7 @@ the next rollout waits for the weights of the update before it
 the test episode are PPO's (``core/onpolicy.py``), and evaluation is PPO's.
 Run it on one card with ``fabric.devices=1 fabric.player_device=host``; the
 on-mesh split, several trainer cards and tensor parallelism are ROADMAP A9,
-the actor fleet A10.
+the actor fleet A10 (fleet).
 """
 
 from __future__ import annotations
@@ -67,6 +67,7 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
     step_data: Dict[str, np.ndarray] = {k: obs[k][np.newaxis] for k in obs_keys}
     for iter_num in range(run.start_iter, run.total_iters + 1):
         telemetry.advance(policy_step)
+        run.guard.advance(policy_step)
         # The fresh mirror: the rollout waits for the last update's weights.
         player = placement.player(agent)
 
@@ -104,7 +105,7 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
         pool = {k: v.to(trainer_device) for k, v in pool.items()}
 
         # ------------------------------------------------ the trainer's update
-        with train_timer(trainer_device):
+        with train_timer(trainer_device, run.watchdog):
             indices = minibatch_indices(rollout_steps * num_envs, batch_size, int(cfg.algo.update_epochs), perm_generator)
             clip_coef = torch.tensor(cfg.algo.clip_coef, dtype=torch.float32, device=trainer_device)
             ent_coef = torch.tensor(cfg.algo.ent_coef, dtype=torch.float32, device=trainer_device)
@@ -119,5 +120,7 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
 
         run.anneal(iter_num, initial_coefs)
         run.checkpoint(iter_num, policy_step)
+        if run.preempted(policy_step):
+            break
 
     return {**run.finish(test, policy_step), "placement": placement.stats()}

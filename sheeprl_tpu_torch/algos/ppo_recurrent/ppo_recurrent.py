@@ -24,8 +24,12 @@ noise over, as the JAX ``main`` does. The player and its carry live where
 its placement puts them (``core/player.py``, always ``fresh``), and its
 outputs and the truncation bootstrap come back through the interaction
 pipeline's fetch (``core/interact.py``), as in the JAX loop; the carry is
-one tensor over every env. Telemetry, health probes and the preemption
-guard are not ported (ROADMAP A10, A12).
+one tensor over every env. The run's telemetry and resilience
+(``core/onpolicy.py:open_run``) run under it: the preemption guard (a
+SIGTERM saves at the iteration boundary and writes ``autoresume.json``),
+the watchdog around the update's wait, and the health sentinels at each
+log point, which veto saves once a non-finite value is seen (no in-step
+probes, as in the JAX package).
 
 The rollout step, GAE with the sequences, and the update run under
 ``record_function`` spans (``ppo_recurrent/rollout_step``,
@@ -165,6 +169,7 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
     train_step = make_train_step(agent, run.optimizer, cfg)
     placement = PlayerPlacement.resolve(cfg, device, nbytes=param_bytes(agent), force_fresh=True)
     pipeline = InteractionPipeline.from_config(cfg)
+    pipeline.watchdog = run.watchdog
     pdev = placement.device
     player_rng = BatchGenerator.from_seed(cfg.seed, pdev)
     perm_generator = torch.Generator(device=device).manual_seed(int(cfg.seed) + 1)
@@ -193,6 +198,7 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
     perf = telemetry.perf
     for iter_num in range(run.start_iter, run.total_iters + 1):
         telemetry.advance(policy_step)
+        run.guard.advance(policy_step)
         for _ in range(rollout_steps):
             policy_step += num_envs
             with timer("Time/env_interaction_time"), perf.infeed(), record_function("ppo_recurrent/rollout_step"):
@@ -242,7 +248,7 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
                 rollout["rewards"], rollout["values"], rollout["dones"], next_values, float(cfg.algo.gamma), float(cfg.algo.gae_lambda)
             )
             data = make_sequences(rollout, sl, bool(cfg.algo.reset_recurrent_state_on_done), loss_keys)
-        with train_timer(device):
+        with train_timer(device, run.watchdog):
             indices = minibatch_indices(n_sequences, max(1, n_sequences // num_batches), int(cfg.algo.update_epochs), perm_generator)
             clip_coef = torch.tensor(cfg.algo.clip_coef, dtype=torch.float32, device=device)
             ent_coef = torch.tensor(cfg.algo.ent_coef, dtype=torch.float32, device=device)
@@ -255,6 +261,8 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
         log_points.after_update(metrics, iter_num, run.total_iters, policy_step, info_values)
         run.anneal(iter_num, initial_coefs)
         run.checkpoint(iter_num, policy_step)
+        if run.preempted(policy_step):
+            break
 
     interaction = pipeline.publish()
     return {**run.finish(test, policy_step), "interaction": interaction, "placement": placement.stats()}

@@ -35,8 +35,12 @@ lane is ``core/fused_loop.py``'s ``sac_fused_main``. The env step goes
 through the interaction pipeline (``core/interact.py``; SAC's and DroQ's
 train call rides between the fetch and its harvest when the fetch is async,
 as in the JAX package, SAC-AE's does not) and the actor through its
-placement (``core/player.py``). Not ported yet (ROADMAP): telemetry, health
-probes and the preemption guard.
+placement (``core/player.py``). The run's telemetry and resilience run
+under the loop: the preemption guard (a SIGTERM saves at the iteration
+boundary and writes ``autoresume.json``), the watchdog around each train
+call's wait, the health sentinels at each log point with the in-step
+probes of SAC's and DroQ's steps (``health=on``), and the save veto of a
+tainted run.
 
 The gradient step runs under a ``torch.profiler.record_function`` span
 (``sac/gradient_step``).
@@ -67,11 +71,13 @@ from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
+from sheeprl_tpu_torch.core.resilience import drain_device, exit_on_preemption, open_loop
 from sheeprl_tpu_torch.telemetry import open_for_run
+from sheeprl_tpu_torch.telemetry.health import ProbeTape, probe_keys, probes_enabled, tape_update
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
-from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator
+from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator, fetch_metrics
 from sheeprl_tpu_torch.utils.timer import timer, train_timer
 from sheeprl_tpu_torch.utils.utils import Ratio, save_configs
 
@@ -89,26 +95,37 @@ def make_optimizers(agent: SACAgent, cfg) -> Dict[str, torch.optim.Optimizer]:
     }
 
 
-def _adam_step(optimizer: torch.optim.Optimizer, loss: torch.Tensor, inputs: Optional[List[torch.Tensor]] = None) -> None:
+def _adam_step(
+    optimizer: torch.optim.Optimizer, loss: torch.Tensor, inputs: Optional[List[torch.Tensor]] = None, tape: Optional[ProbeTape] = None,
+    params: Sequence[torch.Tensor] = (),
+) -> None:
     """``optimizer``'s step on ``loss``'s gradient, taken into ``inputs``
-    only when they are given."""
+    only when they are given; a health ``tape`` reads the update of
+    ``params``."""
     optimizer.zero_grad(set_to_none=True)
     loss.backward(inputs=inputs)
-    optimizer.step()
+    tape_update(tape, list(params), optimizer)
 
 
-def actor_alpha_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer], obs: torch.Tensor, q_of: Callable, noise: torch.Tensor):
+def actor_alpha_step(
+    agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer], obs: torch.Tensor, q_of: Callable, noise: torch.Tensor,
+    tape: Optional[ProbeTape] = None, aux: Optional[Dict[str, torch.Tensor]] = None,
+):
     """The actor's step against ``q_of(obs, actions)`` (the critics' reduced
     Q, ``[B, 1]``) with alpha held constant, then alpha's step on the
     log-probs of the actor's loss, computed before the actor moved (SAC
     ``sac.py:84-103``, DroQ ``droq.py:88-130``). Returns (policy loss,
-    alpha loss), detached."""
+    alpha loss), detached. A health ``tape`` reads both updates, and
+    ``aux`` takes the probes' alpha and entropy (``-mean(logprobs)``)."""
     alpha = agent.log_alpha.exp().detach()
     actions, logprobs = agent.actions_and_log_probs(obs, noise)
     actor_loss = policy_loss(alpha, logprobs, q_of(obs, actions))
-    _adam_step(optimizers["actor"], actor_loss, list(agent.actor.parameters()))
+    actor_params = list(agent.actor.parameters())
+    _adam_step(optimizers["actor"], actor_loss, actor_params, tape, actor_params)
     alpha_loss = entropy_loss(agent.log_alpha, logprobs, agent.target_entropy)
-    _adam_step(optimizers["alpha"], alpha_loss, [agent.log_alpha])
+    _adam_step(optimizers["alpha"], alpha_loss, [agent.log_alpha], tape, [agent.log_alpha])
+    if aux is not None:
+        aux.update(alpha=alpha, entropy=-torch.mean(logprobs.detach()))
     return actor_loss.detach(), alpha_loss.detach()
 
 
@@ -116,8 +133,13 @@ def make_gradient_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimi
     """``step(batch, noise, tau) -> [value_loss, policy_loss, alpha_loss]``:
     one update on ``batch`` (``observations``, ``actions``, ``rewards``,
     ``terminated``, ``next_observations``, each ``[B, ...]`` f32), with
-    ``noise`` ``[2, B, A]`` and ``tau`` a 0-d tensor on the agent's device."""
+    ``noise`` ``[2, B, A]`` and ``tau`` a 0-d tensor on the agent's device.
+    With ``health`` probes on the row goes on with the probes over the three
+    updates and alpha and the entropy (``sac.py:108-118`` of the JAX
+    package); ``step.keys`` names the row."""
     gamma = float(cfg.algo.gamma)
+    probes = probes_enabled(cfg)
+    qf_params = list(agent.qfs.parameters())
 
     def q_min(obs: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
         return agent.q_values(obs, actions).min(-1, keepdim=True).values
@@ -127,11 +149,16 @@ def make_gradient_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimi
             obs = batch["observations"]
             target = agent.next_target_q_values(batch["next_observations"], batch["rewards"], batch["terminated"], gamma, noise[0])
             qf_loss = critic_loss(agent.q_values(obs, batch["actions"]), target, agent.num_critics)
-            _adam_step(optimizers["qf"], qf_loss)
+            tape, aux = (ProbeTape(), {}) if probes else (None, None)
+            _adam_step(optimizers["qf"], qf_loss, None, tape, qf_params)
             agent.target_ema_(tau)
-            actor_loss, alpha_loss = actor_alpha_step(agent, optimizers, obs, q_min, noise[1])
-            return torch.stack([qf_loss.detach(), actor_loss, alpha_loss])
+            actor_loss, alpha_loss = actor_alpha_step(agent, optimizers, obs, q_min, noise[1], tape, aux)
+            row = [qf_loss.detach(), actor_loss, alpha_loss]
+            if tape is not None:
+                row += list(tape.metrics(aux).values())
+            return torch.stack(row)
 
+    step.keys = METRIC_KEYS + (probe_keys(("alpha", "entropy")) if probes else ())
     return step
 
 
@@ -152,7 +179,7 @@ def make_train_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer
     def train_step(data: Dict[str, torch.Tensor], noise: torch.Tensor, tau: torch.Tensor) -> Metrics:
         steps = [step({k: v[g] for k, v in data.items()}, noise[g], tau) for g in range(noise.shape[0])]
         means = torch.stack(steps).mean(0)
-        return {k: means[i] for i, k in enumerate(METRIC_KEYS)}
+        return {k: means[i] for i, k in enumerate(step.keys)}
 
     return train_step
 
@@ -190,7 +217,7 @@ def make_fused_train_step(
             out = captured()
             total = out.clone() if total is None else total.add_(out)
         means = total / len(taus)
-        return {k: means[i] for i, k in enumerate(METRIC_KEYS)}
+        return {k: means[i] for i, k in enumerate(step.keys)}
 
     fused.captured, fused.tau = captured, tau
     return fused
@@ -215,7 +242,9 @@ def _float_batch(
 class SACTrainer:
     """The gradient steps of one train call, on the host path or the ring
     path, for :func:`run_off_policy`; ``fused`` is the ring path's step once
-    built."""
+    built, ``watchdog`` the run's (armed around each call's wait)."""
+
+    watchdog = None
 
     def __init__(self, agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer], cfg, rng: BatchGenerator):
         self.agent, self.optimizers, self.cfg, self.rng = agent, optimizers, cfg, rng
@@ -229,7 +258,7 @@ class SACTrainer:
         """``steps`` gradient steps on one sample of ``steps`` x B rows
         (``first_step``, the steps taken before, is SAC-AE's cadence)."""
         data = _float_batch(rb.sample(steps * self.batch_size, sample_next_obs=self.sample_next_obs), steps, self.batch_size, self.tau.device)
-        with train_timer(self.tau.device):
+        with train_timer(self.tau.device, self.watchdog):
             self.tau.fill_(tau)
             return [self.train_step(data, draw_noise(self.rng, self.batch_size, self.agent.action_dim, steps), self.tau)]
 
@@ -244,7 +273,7 @@ class SACTrainer:
             sample = ring.make_sample_fn(self.batch_size, sequence_length=1, sample_next_obs=self.sample_next_obs)
             self.fused = make_fused_train_step(self.agent, self.optimizers, self.cfg, sample, self.rng)
         out = []
-        with train_timer(self.tau.device):
+        with train_timer(self.tau.device, self.watchdog):
             for k in power_of_two_buckets(steps, bucket):
                 out.append(self.fused(ring.state, [tau] * k))
         return out
@@ -358,6 +387,7 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
     log_dir = get_log_dir(os.path.join(cfg.log_root, cfg.root_dir), cfg.run_name, logger=logger)
     print(f"Log dir: {log_dir}", flush=True)
     telemetry = open_for_run(cfg, log_dir, device)
+    guard, watchdog, health = open_loop()
     perf = telemetry.perf
 
     num_envs = int(cfg.env.num_envs)
@@ -431,10 +461,13 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
             learning_starts += start_iter
             prefill_steps += start_iter
     trainer = algo.make_trainer(agent, optimizers, cfg, train_rng)
+    trainer.watchdog = watchdog
     pipeline = InteractionPipeline.from_config(cfg)
+    pipeline.watchdog = watchdog
     pipeline.set_key(player_rng)
 
     pending: List[Metrics] = []
+    keep_metrics = aggregator is not None or (health.enabled and cfg.metric.log_level > 0)
     log: List[Dict[str, float]] = []
     checkpoints: List[str] = []
     action_shape = tuple(action_space.shape)
@@ -469,7 +502,7 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
                 metrics = trainer.host(rb, per_rank_gradient_steps, tau, gradient_steps)
         gradient_steps += per_rank_gradient_steps
         train_step_count += 1
-        if aggregator is not None:
+        if keep_metrics:
             pending.extend(metrics)  # the device's 0-d tensors, read back at the log point
         if callback is not None:
             callback(agent, gradient_steps, metrics)
@@ -478,6 +511,7 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
         telemetry.advance(policy_step)
+        guard.advance(policy_step)
         trained_in_flight = False
         with timer("Time/env_interaction_time"), perf.infeed():
             if iter_num <= learning_starts:
@@ -532,6 +566,10 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
         # -------------------------------------------------------- logging
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or iter_num == total_iters):
             row: Dict[str, float] = {"policy_step": float(policy_step), "gradient_steps": float(gradient_steps)}
+            if health.enabled:
+                # The sentinels read the losses and the probes in the aggregator's one transfer.
+                pending = fetch_metrics(pending)
+                health.observe(policy_step, pending, telemetry=telemetry)
             if aggregator is not None:
                 for m in pending:
                     for k, v in m.items():
@@ -559,7 +597,13 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
 
         # ----------------------------------------------------- checkpoint
         periodic = cfg.checkpoint.every > 0 and (iter_num >= learning_starts or not algo.decoupled)
-        if (periodic and policy_step - last_checkpoint >= cfg.checkpoint.every) or (iter_num == total_iters and cfg.checkpoint.save_last):
+        if health.allow_save() and (
+            (periodic and policy_step - last_checkpoint >= cfg.checkpoint.every)
+            or ((iter_num == total_iters or guard.preempted) and cfg.checkpoint.save_last)
+        ):
+            if guard.preempted:
+                placement.flush()
+                drain_device(device)
             last_checkpoint = policy_step
             ckpt_state = {"agent": agent.state_dict(), **{key: optimizers[name].state_dict() for name, key in algo.optimizer_keys.items()}}
             ckpt_state.update(
@@ -581,10 +625,13 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
             finally:
                 if saved_tail is not None:
                     rb["truncated"][tail, :] = saved_tail
+        if exit_on_preemption(guard, policy_step):
+            break
 
     placement.flush()  # no mirror copy left in flight
-    test_reward = algo.test(agent, cfg, log_dir, logger) if cfg.algo.run_test else None
+    test_reward = algo.test(agent, cfg, log_dir, logger) if cfg.algo.run_test and not guard.preempted else None
     interaction = pipeline.publish()
+    guard.close()
     telemetry.close()
     if logger is not None:
         logger.close()

@@ -17,7 +17,7 @@ prefill x num_envs`` and the periodic checkpoints start at
 hold SAC's fields and evaluate through SAC's evaluation. Run it on one card
 with ``fabric.devices=1 fabric.player_device=host``; the on-mesh split,
 several trainer cards and tensor parallelism are ROADMAP A9, the actor fleet
-A10.
+A10 (fleet).
 """
 
 from __future__ import annotations

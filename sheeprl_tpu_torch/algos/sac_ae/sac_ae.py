@@ -180,7 +180,10 @@ def draw(rng: BatchGenerator, batch: Dict[str, torch.Tensor], action_dim: int, c
 
 class SACAETrainer:
     """SAC-AE's train calls for :func:`run_off_policy`: the host path only
-    (the loop's tau is SAC's; SAC-AE's EMAs follow their own cadence)."""
+    (the loop's tau is SAC's; SAC-AE's EMAs follow their own cadence);
+    ``watchdog`` is the run's, armed around each call's wait."""
+
+    watchdog = None
 
     def __init__(self, agent: SACAEAgent, optimizers: Dict[str, torch.optim.Optimizer], cfg, rng: BatchGenerator):
         self.agent, self.cfg, self.rng = agent, cfg, rng
@@ -196,7 +199,7 @@ class SACAETrainer:
         sample = rb.sample(steps * self.batch_size, sample_next_obs=self.sample_next_obs)
         data = _float_batch(sample, steps, self.batch_size, device, keep=self.pixels)
         out = []
-        with train_timer(device):
+        with train_timer(device, self.watchdog):
             for i in range(steps):
                 batch = {k: v[i] for k, v in data.items()}
                 flags = cadence(self.cfg, first_step + i)

@@ -9,7 +9,13 @@
 They run on ``cuda`` unless ``device=cpu`` is given, and raise without a
 card. ``telemetry=on`` (or ``telemetry.enabled=True``) traces the run into
 ``trace.json`` and ``telemetry.jsonl`` in its log dir (``telemetry=profile``
-adds a ``torch.profiler`` window); ``health.enabled=True`` raises. The config is composed from the port's tree
+adds a ``torch.profiler`` window); ``health=on`` (or ``health=strict``) adds
+the training-health probes and sentinels, and the ``resilience`` group the
+preemption guard (on by default), the env supervisor, the watchdog and
+fault injection (``core/resilience.py``, ``core/chaos.py``);
+``checkpoint.resume_from=auto[:<dir>]`` resumes from a preempted run's
+``autoresume.json`` or the newest valid checkpoint under ``<dir>`` (the
+working directory by default). The config is composed from the port's tree
 (:mod:`sheeprl_tpu_torch.config`, ``sheeprl_tpu_torch/configs/``): any exp
 there composes (``ppo``, ``ppo_atari``, ``a2c``, ``ppo_recurrent``, ``sac``, ``droq``,
 ``sac_ae``, ``dreamer_v3_100k_ms_pacman``, ``dreamer_v3_dmc_walker_walk``,
@@ -37,10 +43,15 @@ import pathlib
 import sys
 from typing import Any, Dict, Optional, Sequence
 
+import torch
+
 from sheeprl_tpu_torch.config import compose, parse_overrides, set_overrides
 from sheeprl_tpu_torch.core.device import resolve_device
+from sheeprl_tpu_torch.core.resilience import Resilience, resolve_auto_resume
+from sheeprl_tpu_torch.core.resilience import run_scope as resilience_scope
 from sheeprl_tpu_torch.registry import algorithm_registry, evaluation_registry, register_all
 from sheeprl_tpu_torch.telemetry import Telemetry, run_scope
+from sheeprl_tpu_torch.telemetry.health import HealthMonitor
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, resume_config
 from sheeprl_tpu_torch.utils.metric import MetricAggregator
 from sheeprl_tpu_torch.utils.timer import timer
@@ -79,33 +90,55 @@ def run(args: Optional[Sequence[str]] = None, callback=None) -> Dict[str, Any]:
     check_observability(cfg)
     utils_module = importlib.import_module(entry.module.rsplit(".", 1)[0] + ".utils")
     _prune_metric_keys(cfg, utils_module.AGGREGATOR_KEYS)
+    num_threads = int(cfg.get("num_threads", 1))
+    if str(cfg.checkpoint.resume_from or "").startswith("auto"):
+        resolve_auto(cfg)
     if cfg.checkpoint.resume_from:
         cfg = resume_config(cfg)
-    # The run's observability surface (reference: cli.py:325-327): the
-    # trainer opens it at its log dir and threads it through its loop.
-    with run_scope(Telemetry.from_config(cfg)):
-        if entry.after_exploration:
-            return entry.entrypoint(cfg, callback=callback, exploration_cfg=exploration_chain(cfg))
-        return entry.entrypoint(cfg, callback=callback)
+    # Host threads for the run, both restored after it (reference:
+    # cli.py:355): OMP_NUM_THREADS, unless already set, for the processes the
+    # run starts, and torch's intra-op pool.
+    set_omp = "OMP_NUM_THREADS" not in os.environ
+    if set_omp:
+        os.environ["OMP_NUM_THREADS"] = str(num_threads)
+    previous_threads = torch.get_num_threads()
+    torch.set_num_threads(num_threads)
+    # The run's observability and fault-tolerance surfaces (reference:
+    # cli.py:325-337): the trainer opens them at its log dir and threads
+    # them through its loop.
+    try:
+        with run_scope(Telemetry.from_config(cfg)), resilience_scope(Resilience.from_config(cfg), HealthMonitor.from_config(cfg)):
+            if entry.after_exploration:
+                return entry.entrypoint(cfg, callback=callback, exploration_cfg=exploration_chain(cfg))
+            return entry.entrypoint(cfg, callback=callback)
+    finally:
+        torch.set_num_threads(previous_threads)
+        if set_omp:
+            os.environ.pop("OMP_NUM_THREADS", None)
+
+
+def resolve_auto(cfg) -> None:
+    """``checkpoint.resume_from=auto[:<dir>]`` -> the preempted run's
+    ``autoresume.json`` target, else the newest valid checkpoint under
+    ``<dir>`` (``log_root`` by default; reference: cli.py:356-369)."""
+    resolved = resolve_auto_resume(str(cfg.checkpoint.resume_from), cfg.get("log_root"))
+    if resolved is None:
+        raise FileNotFoundError(
+            f"checkpoint.resume_from={cfg.checkpoint.resume_from!r}: no valid checkpoint found (no autoresume.json pointer and no manifest-valid ckpt_*.ckpt)"
+        )
+    print(f"Auto-resume: resolved {cfg.checkpoint.resume_from!r} -> {resolved}", flush=True)
+    cfg.checkpoint.resume_from = resolved
 
 
 def check_observability(cfg) -> None:
     """The telemetry profiler window must satisfy ``0 <= start_step <
-    stop_step`` or be ``-1, -1`` (reference: cli.py:101-110); the health
-    sentinels are not ported and ``health.enabled=True`` raises instead of
-    being ignored."""
+    stop_step`` or be ``-1, -1`` (reference: cli.py:101-110)."""
     tele = cfg.get("telemetry")
     if tele is not None and tele.get("profiler") is not None:
         start = int(tele.profiler.get("start_step", -1))
         stop = int(tele.profiler.get("stop_step", -1))
         if (start >= 0) != (stop >= 0) or (start >= 0 and stop <= start):
             raise ValueError(f"telemetry.profiler window must satisfy 0 <= start_step < stop_step (or both -1 to disable); got [{start}, {stop})")
-    health = cfg.get("health")
-    if health is not None and bool(health.get("enabled", False)):
-        raise NotImplementedError(
-            "health.enabled=True: the port has no training-health sentinels yet; their probes and the trip policy that "
-            "escalates to the preemption guard come with the resilience layer (ROADMAP A10)"
-        )
 
 
 def check_anakin(cfg) -> None:

@@ -41,13 +41,26 @@ Counters, tags and checkpoints are the port's host lane's, with the env
 state in the layout of ``SyncVectorEnv.state_dict`` (the anakin envs' own
 ``state_dict``): a fused checkpoint resumes on the host lane
 (``algo.fused_rollout=false``) and a host one on the fused lane. As in the
-JAX lane, the ring is never written into a checkpoint, the tags are those of
-the JAX fused lane (no ``Time/sps_env_interaction``), and episode
+JAX lane, the ring is never written into a checkpoint (a resumed SAC or
+DreamerV3 run fills it again before it trains, so it does not end bit for
+bit where the uninterrupted run does; PPO, with no ring, does), the tags are
+those of the JAX fused lane (no ``Time/sps_env_interaction``), and episode
 statistics surface at log points.
 
-Left out, as in every port main so far: the multi-device superstep
-(``fabric.shard_superstep``, shard_map, global env ids: ROADMAP A9),
-telemetry, health, the preemption guard and the watchdog (A10, A12).
+Each main runs under the run's telemetry and resilience, as the host
+lanes do: the preemption guard is advanced between supersteps (a
+preemption ends the run at the next superstep boundary, never inside a
+graph replay, after the card is drained and the final checkpoint written),
+the watchdog is armed around each train call's wait, and the health
+sentinels read each log point's metrics (in-step probes in PPO's, SAC's
+and DreamerV3's graphs when ``health`` is on) and veto saves once the run
+is tainted. The env keys that add an observation key or change a frame
+(``env.grayscale``, ``env.frame_stack``, ``env.actions_as_observation``,
+``env.reward_as_observation``) cannot be honoured inside the rollout graph
+and raise (:func:`sheeprl_tpu_torch.envs.make.check_fused_env_keys`).
+
+Left out: the multi-device superstep (``fabric.shard_superstep``,
+shard_map, global env ids: ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -64,13 +77,15 @@ import torch
 from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.core.graphs import CapturedStep, power_of_two_buckets
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
+from sheeprl_tpu_torch.core.resilience import drain_device, exit_on_preemption, open_loop
 from sheeprl_tpu_torch.envs.anakin import action_to_env, canonical_action_space, resolve_env, single_obs_key
+from sheeprl_tpu_torch.envs.make import check_fused_env_keys
 from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
 from sheeprl_tpu_torch.telemetry import Telemetry, open_for_run
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
-from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator
+from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator, fetch_metrics
 from sheeprl_tpu_torch.utils.timer import timer, train_timer
 from sheeprl_tpu_torch.utils.utils import Ratio, normalize_obs, save_configs
 
@@ -315,6 +330,7 @@ def _setup(cfg) -> Tuple[torch.device, Optional[Dict[str, Any]], Any, str, Telem
 
 
 def _env_of(cfg, device: torch.device):
+    check_fused_env_keys(cfg)
     env = resolve_env(cfg).to(device)
     obs_key, pixel = single_obs_key(cfg, env)
     return env, obs_key, pixel, DictSpace({obs_key: env.observation_space}), canonical_action_space(env)
@@ -337,14 +353,20 @@ def _require_ring(ring: DeviceReplayRing) -> None:
 
 
 def _log_point(
-    cfg, logger, aggregator, pending_metrics, policy_step, gradient_steps, train_step_count, last_train, log, telemetry, metric_name=lambda k: k
+    cfg, logger, aggregator, pending_metrics, policy_step, gradient_steps, train_step_count, last_train, log, telemetry, health,
+    metric_name=lambda k: k,
 ):
-    """A log point of the off-policy lanes: the aggregator's means,
-    ``Params/replay_ratio``, ``Time/sps_train`` and the telemetry's
-    counters; returns the row."""
+    """A log point of the off-policy lanes: the health sentinels over the
+    interval's metrics, the aggregator's means, ``Params/replay_ratio``,
+    ``Time/sps_train`` and the telemetry's counters; returns the row."""
     row: Dict[str, float] = {"policy_step": float(policy_step), "gradient_steps": float(gradient_steps)}
+    fetched = pending_metrics
+    if health.enabled:
+        # The sentinels read the interval's metrics in the aggregator's one transfer.
+        fetched = fetch_metrics(pending_metrics)
+        health.observe(policy_step, fetched, telemetry=telemetry)
     if aggregator is not None:
-        for metrics in pending_metrics:
+        for metrics in fetched:
             for k, v in metrics.items():
                 if metric_name(k) in aggregator:
                     aggregator.update(metric_name(k), v)
@@ -384,7 +406,7 @@ def ppo_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
     ``rollout`` (the superstep graph's warm-up calls, replays and nodes),
     ``rollouts`` (the :class:`Rollouts`) and ``run_stats``."""
     from sheeprl_tpu_torch.algos.ppo.agent import build_agent
-    from sheeprl_tpu_torch.algos.ppo.ppo import METRIC_KEYS, graph_minibatch_indices, make_train_step
+    from sheeprl_tpu_torch.algos.ppo.ppo import METRIC_KEYS, graph_minibatch_indices, loop_state, make_train_step, resume_loop_state
     from sheeprl_tpu_torch.algos.ppo.utils import test
     from sheeprl_tpu_torch.core.onpolicy import encoder_keys, open_run
 
@@ -401,6 +423,9 @@ def ppo_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
     player_rng = BatchGenerator.from_seed(cfg.seed, device)
     perm_generator = torch.Generator(device=device).manual_seed(int(cfg.seed) + 1)
     carry = _carry(env, player_rng.generator, E)
+    if run.resumed is not None and "envs" in run.resumed:
+        obs = resume_loop_state(run, initial_coefs, player_rng.generator, perm_generator, functools.partial(load_envs_state, carry))
+        carry["obs"].copy_(torch.from_numpy(np.asarray(obs[obs_key], np.float32)))
     reset = functools.partial(env.reset, player_rng.generator, E)
     clip_coef = torch.zeros((), device=device)
     ent_coef = torch.zeros((), device=device)
@@ -440,12 +465,18 @@ def ppo_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
             data = {k: torch.stack(v) for k, v in rows.items()}
             indices = graph_minibatch_indices(T * E, batch_size, epochs, perm_generator)
         metrics = train_step(data, {obs_key: local["obs"]}, indices, clip_coef, ent_coef)
-        return torch.cat([torch.stack(stats, 1).reshape(-1), torch.stack([metrics[k] for k in METRIC_KEYS]).float()])
+        names[:] = list(metrics)  # the losses, then any health probes
+        return torch.cat([torch.stack(stats, 1).reshape(-1), torch.stack([metrics[k] for k in names]).float()])
 
     def written() -> List[Any]:
         adam = [v for p in agent.parameters() for _, v in sorted(optimizer.state[p].items()) if isinstance(v, torch.Tensor)]
         return [carry, [p.data for p in agent.parameters()], adam]
 
+    def saved_loop() -> Dict[str, Any]:
+        envs = envs_state(carry["env"], carry["obs"], carry["ep_ret"], carry["ep_len"], cfg.seed)
+        return loop_state(player_rng.generator, perm_generator, envs, {obs_key: carry["obs"].cpu().numpy()})
+
+    names: List[str] = list(METRIC_KEYS)
     rollouts = Rollouts(lambda *_: superstep, device, [player_rng.generator, perm_generator], written, tensor_lr)
     policy_step = run.policy_step
     pending: List[torch.Tensor] = []
@@ -454,16 +485,17 @@ def ppo_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
     num_minibatches = max(1, -(-(T * E) // batch_size))
     for iter_num in range(run.start_iter, run.total_iters + 1):
         telemetry.advance(policy_step)
+        run.guard.advance(policy_step)
         policy_step += E * T
         clip_coef.fill_(float(cfg.algo.clip_coef))
         ent_coef.fill_(float(cfg.algo.ent_coef))
         # The superstep's graph holds the rollout and the update.
-        with train_timer(device), perf.note("train/superstep", steps=epochs * num_minibatches):
+        with train_timer(device, run.watchdog), perf.note("train/superstep", steps=epochs * num_minibatches):
             out = rollouts(T, False)
         rollouts.stats["supersteps"] += 1
         rollouts.stats["env_steps"] += T * E
         pending.append(out[: 3 * T * E].reshape(3, T, E))
-        metrics = dict(zip(METRIC_KEYS, out[3 * T * E :].unbind()))
+        metrics = dict(zip(names, out[3 * T * E :].unbind()))
         if cfg.metric.log_level > 0 and (policy_step - log_points.last_log >= cfg.metric.log_every or iter_num == run.total_iters):
             log_episodes(pending, cfg, run.aggregator, policy_step)
         if callback is not None:
@@ -471,7 +503,9 @@ def ppo_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
         info_values = {"Info/learning_rate": optimizer.param_groups[0]["lr"], "Info/clip_coef": cfg.algo.clip_coef, "Info/ent_coef": cfg.algo.ent_coef}
         log_points.after_update(metrics, iter_num, run.total_iters, policy_step, info_values)
         run.anneal(iter_num, initial_coefs)
-        run.checkpoint(iter_num, policy_step)
+        run.checkpoint(iter_num, policy_step, saved_loop)
+        if run.preempted(policy_step):
+            break
     out = run.finish(test, policy_step)
     out.update(rollout=rollouts.info(), rollouts=rollouts, run_stats=dict(rollouts.stats))
     return out
@@ -511,6 +545,8 @@ def sac_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
     player_rng = BatchGenerator.from_seed(cfg.seed + 1, device)
     save_configs(cfg, log_dir)
     aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.aggregator)
+    guard, watchdog, health = open_loop()
+    keep_metrics = aggregator is not None or (health.enabled and cfg.metric.log_level > 0)
 
     buffer_size = int(cfg.buffer.size) // E if not cfg.dry_run else 1
     specs = {"observations": ((obs_dim,), np.float32), "actions": ((act_dim,), np.float32), "rewards": ((1,), np.float32),
@@ -587,6 +623,7 @@ def sac_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
         chunk = _chunk(iter_num, learning_starts, total_iters, superstep_iters)
         iter_start, iter_num = iter_num, iter_num + chunk
         telemetry.advance(policy_step)
+        guard.advance(policy_step)
         policy_step += chunk * E
         with timer("Time/env_interaction_time" if random_phase else "Time/train_time"), perf.infeed():
             pending_eps.append(rollouts(chunk, random_phase))
@@ -599,7 +636,7 @@ def sac_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
             if per_rank_gradient_steps > 0 and ring.ready(ring_span):
                 taus = superstep_taus(iter_start, iter_num, target_freq_iters, float(cfg.algo.tau), per_rank_gradient_steps)
                 metrics, offset, before = [], 0, (fused.captured.replays, fused.captured.warmup_calls)
-                with train_timer(device):
+                with train_timer(device, watchdog):
                     for k in power_of_two_buckets(per_rank_gradient_steps, fused_train_steps):
                         with perf.note(f"train/fused_k{k}", steps=k):
                             metrics.append(fused(ring_state, taus[offset : offset + k]))
@@ -608,17 +645,22 @@ def sac_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
                 _train_counted(rollouts.stats, fused.captured, before)
                 gradient_steps += per_rank_gradient_steps
                 train_step_count += 1
-                if aggregator is not None:
+                if keep_metrics:
                     pending.extend(metrics)
                 if callback is not None:
                     callback(agent, gradient_steps, metrics)
 
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or iter_num >= total_iters):
             log_episodes(pending_eps, cfg, aggregator, policy_step)
-            _log_point(cfg, logger, aggregator, pending, policy_step, gradient_steps, train_step_count, last_train, log, telemetry, lambda k: f"Loss/{k}")
+            _log_point(cfg, logger, aggregator, pending, policy_step, gradient_steps, train_step_count, last_train, log, telemetry, health, lambda k: f"Loss/{k}")
             last_log, last_train = policy_step, train_step_count
 
-        if (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every) or (iter_num >= total_iters and cfg.checkpoint.save_last):
+        if health.allow_save() and (
+            (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every)
+            or ((iter_num >= total_iters or guard.preempted) and cfg.checkpoint.save_last)
+        ):
+            if guard.preempted:
+                drain_device(device)
             last_checkpoint = policy_step
             ckpt_state = {"agent": agent.state_dict(), **{key: optimizers[name].state_dict() for name, key in OPTIMIZER_KEYS.items()}}
             ckpt_state.update(
@@ -629,8 +671,11 @@ def sac_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str, Any]:
             )  # fmt: skip
             path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
+        if exit_on_preemption(guard, policy_step):
+            break
 
-    test_reward = test(agent, cfg, log_dir, logger) if cfg.algo.run_test else None
+    test_reward = test(agent, cfg, log_dir, logger) if cfg.algo.run_test and not guard.preempted else None
+    guard.close()
     telemetry.close()
     if logger is not None:
         logger.close()
@@ -683,6 +728,8 @@ def dreamer_v3_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str,
     player_rng = BatchGenerator.from_seed(cfg.seed + 1, device)
     save_configs(cfg, log_dir)
     aggregator = None if MetricAggregator.disabled else build_aggregator(cfg.metric.aggregator)
+    guard, watchdog, health = open_loop()
+    keep_metrics = aggregator is not None or (health.enabled and cfg.metric.log_level > 0)
 
     buffer_size = int(cfg.buffer.size) // E if not cfg.dry_run else 2
     specs = {obs_key: (tuple(env.observation_space.shape), np.uint8 if pixel else np.float32), "actions": ((act_sum,), np.float32),
@@ -766,6 +813,7 @@ def dreamer_v3_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str,
         chunk = _chunk(iter_num, learning_starts, total_iters, superstep_iters)
         iter_num += chunk
         telemetry.advance(policy_step)
+        guard.advance(policy_step)
         policy_step += chunk * E
         with timer("Time/env_interaction_time" if random_phase else "Time/train_time"), perf.infeed():
             stats = rollouts(chunk, random_phase)
@@ -780,7 +828,7 @@ def dreamer_v3_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str,
             per_rank_gradient_steps = ratio(policy_step - prefill_steps * E)
             if per_rank_gradient_steps > 0 and ring.ready(seq_len):
                 before = (fused.captured.replays, fused.captured.warmup_calls)
-                with train_timer(device):
+                with train_timer(device, watchdog):
                     for k in power_of_two_buckets(per_rank_gradient_steps, fused_train_steps):
                         taus = target_update_taus(gradient_steps, k, freq, cfg.algo.critic.tau)
                         on_step = functools.partial(_fused_callback, callback, agent, gradient_steps + 1, taus) if callback is not None else None
@@ -788,17 +836,22 @@ def dreamer_v3_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str,
                             moments, metrics = fused(moments, ring_state, taus, on_step)
                         gradient_steps += k
                         rollouts.stats["train_calls"] += 1
-                        if aggregator is not None:
+                        if keep_metrics:
                             pending.append(metrics)
                 _train_counted(rollouts.stats, fused.captured, before)
                 train_step_count += 1
 
         if cfg.metric.log_level > 0 and (policy_step - last_log >= cfg.metric.log_every or iter_num >= total_iters):
             log_episodes(pending_eps, cfg, aggregator, policy_step)
-            _log_point(cfg, logger, aggregator, pending, policy_step, gradient_steps, train_step_count, last_train, log, telemetry)
+            _log_point(cfg, logger, aggregator, pending, policy_step, gradient_steps, train_step_count, last_train, log, telemetry, health)
             last_log, last_train = policy_step, train_step_count
 
-        if (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every) or (iter_num >= total_iters and cfg.checkpoint.save_last):
+        if health.allow_save() and (
+            (cfg.checkpoint.every > 0 and policy_step - last_checkpoint >= cfg.checkpoint.every)
+            or ((iter_num >= total_iters or guard.preempted) and cfg.checkpoint.save_last)
+        ):
+            if guard.preempted:
+                drain_device(device)
             last_checkpoint = policy_step
             prev_np = {k: v.cpu().numpy().reshape(1, E, 1) for k, v in carry["prev"].items()}
             obs_np = carry["obs"].cpu().numpy()
@@ -812,8 +865,11 @@ def dreamer_v3_fused_main(cfg, callback: Optional[Callable] = None) -> Dict[str,
             )  # fmt: skip
             path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
+        if exit_on_preemption(guard, policy_step):
+            break
 
-    test_reward = test(trainer.test_agent, cfg, log_dir, logger, sample_actions=trainer.test_sample) if cfg.algo.run_test else None
+    test_reward = test(trainer.test_agent, cfg, log_dir, logger, sample_actions=trainer.test_sample) if cfg.algo.run_test and not guard.preempted else None
+    guard.close()
     telemetry.close()
     if logger is not None:
         logger.close()

@@ -34,11 +34,13 @@ the ``interaction_overlap_fraction`` gauge.
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch.core import chaos
 from sheeprl_tpu_torch.envs.dummy import SyncVectorEnv
 from sheeprl_tpu_torch.telemetry import trace_context
 from sheeprl_tpu_torch.telemetry import tracer as tracer_mod
@@ -298,16 +300,23 @@ class PendingFetch:
         self._submit_t = time.perf_counter()
 
     def harvest(self) -> Any:
-        """The host tree (numpy arrays); later calls return the same."""
+        """The host tree (numpy arrays); later calls return the same. The
+        wait runs under the pipeline's watchdog, after the chaos
+        ``fetch.harvest`` delay point."""
         if self._done:
             return self._result
         stats = self._pipeline.stats
         t0 = time.perf_counter()
-        if self._event is not None:
-            self._event.synchronize()
-            out = [buf.numpy() for buf in self._host]
-        else:
-            out = [leaf.detach().cpu().numpy() for leaf in self._leaves]
+        watchdog = self._pipeline.watchdog
+        with nullcontext() if watchdog is None else watchdog.guard(f"fetch/{self._label}"):
+            # Inside the armed window: a delayed_fetch drill looks to the
+            # watchdog exactly like a hung wait on the card.
+            chaos.maybe_delay("fetch.harvest")
+            if self._event is not None:
+                self._event.synchronize()
+                out = [buf.numpy() for buf in self._host]
+            else:
+                out = [leaf.detach().cpu().numpy() for leaf in self._leaves]
         t1 = time.perf_counter()
         stats.fetch_blocked_s += t1 - t0
         tracer = tracer_mod.current()
@@ -363,6 +372,9 @@ class InteractionPipeline:
         self._obs_idx = 0
         self._pinned_bufs: Dict[Any, List[Any]] = {}
         self._streams: Dict[str, Any] = {}
+        # The loop's DispatchWatchdog (core/resilience.py), armed around each
+        # harvest's wait; None leaves the harvest unwatched.
+        self.watchdog: Optional[Any] = None
 
     @classmethod
     def from_config(cls, cfg, num_envs: Optional[int] = None) -> "InteractionPipeline":

@@ -46,8 +46,10 @@ def split_player_trainer(device: torch.device, player_mode: str = "mesh", *, dev
 def check_no_fleet(cfg) -> None:
     """The actor fleet (``fleet.replicas`` > 1, or ``fleet.enabled``) is the
     JAX package's supervised replica processes (``core/fleet.py``): ROADMAP
-    A10."""
+    A10 (fleet), the slice after the resilience layer."""
     fleet = cfg.get("fleet") or {}
     enabled = fleet.get("enabled", None)
     if (int(fleet.get("replicas", 1) or 1) > 1) if enabled is None else bool(enabled):
-        raise NotImplementedError("the actor fleet (fleet.replicas > 1 or fleet.enabled) is not ported: it is ROADMAP A10")
+        raise NotImplementedError(
+            "the actor fleet (fleet.replicas > 1 or fleet.enabled) is not ported: it is ROADMAP A10 (fleet), the next slice after the resilience layer"
+        )

@@ -19,8 +19,14 @@ around their rollout and update; the JAX package writes it in each
   the iteration counters and the minibatch size taken back), and after each
   update the annealing and the checkpoint with the JAX package's fields
   (``agent``, ``optimizer``, ``iter_num``, ``batch_size``, ``last_log``,
-  ``last_checkpoint``) and the spaces' specs; :meth:`OnPolicyRun.finish`
-  runs the test episode and closes the logger.
+  ``last_checkpoint``), the spaces' specs and any fields of the trainer's own
+  (PPO's envs and generators; ``resumed`` holds them back); :meth:`OnPolicyRun.finish`
+  runs the test episode and closes the logger. The run's resilience
+  (``core/resilience.py``) rides on it: ``guard`` (advanced by the trainer
+  each iteration; its preemption forces the final checkpoint and
+  :meth:`OnPolicyRun.preempted` ends the loop), ``watchdog`` (armed by the
+  train call's wait) and ``health`` (the sentinels at each log point and
+  the veto on every save).
 """
 
 from __future__ import annotations
@@ -35,14 +41,16 @@ import torch
 
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.core.device import resolve_device
+from sheeprl_tpu_torch.core.resilience import DispatchWatchdog, PreemptionGuard, drain_device, exit_on_preemption, open_loop
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.serve.spaces import DictSpace
 from sheeprl_tpu_torch.telemetry import Telemetry, open_for_run
+from sheeprl_tpu_torch.telemetry.health import HealthMonitor
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
-from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator
+from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator, fetch_metrics
 from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import polynomial_decay, save_configs
 
@@ -81,9 +89,12 @@ class LogPoints:
     logged there, ``last_log`` the policy step of the last one (a resumed
     run starts from its checkpoint's)."""
 
-    def __init__(self, cfg, logger, aggregator, metric_keys: Sequence[str], last_log: int = 0, telemetry: Optional[Telemetry] = None):
+    def __init__(
+        self, cfg, logger, aggregator, metric_keys: Sequence[str], last_log: int = 0, telemetry: Optional[Telemetry] = None, health: Any = None
+    ):
         self.cfg, self.logger, self.aggregator, self.metric_keys = cfg, logger, aggregator, tuple(metric_keys)
         self.telemetry = telemetry
+        self.health = health if health is not None else HealthMonitor.noop()
         self.last_log, self.last_train, self.updates = int(last_log), 0, 0
         self.pending: List[Dict[str, torch.Tensor]] = []
         self.rows: List[Dict[str, float]] = []
@@ -97,15 +108,20 @@ class LogPoints:
         falls."""
         cfg, logger, aggregator = self.cfg, self.logger, self.aggregator
         self.updates += 1
-        if aggregator is not None:
+        if aggregator is not None or (self.health.enabled and cfg.metric.log_level > 0):
             self.pending.append(metrics)
         should_log = cfg.metric.log_level > 0 and (policy_step - self.last_log >= cfg.metric.log_every or iter_num == total_iters)
         row: Dict[str, float] = {"policy_step": float(policy_step)}
+        if should_log and self.health.enabled:
+            # The sentinels read the losses and any probes in the aggregator's one transfer.
+            self.pending = fetch_metrics(self.pending)
+            self.health.observe(policy_step, self.pending, telemetry=self.telemetry)
         if should_log and aggregator is not None:
             for m in self.pending:
                 for k in self.metric_keys:
                     aggregator.update(f"Loss/{k}", m[k])
             row.update(aggregator.log_and_reset(logger, policy_step))
+        if should_log:
             self.pending = []
         if cfg.metric.log_level > 0 and logger is not None:
             if info is not None:
@@ -176,7 +192,11 @@ class OnPolicyRun:
     log_points: LogPoints
     last_checkpoint: int
     telemetry: Telemetry
+    guard: PreemptionGuard
+    watchdog: Optional[DispatchWatchdog]
+    health: HealthMonitor
     checkpoints: List[str] = field(default_factory=list)
+    resumed: Optional[Dict[str, Any]] = None  # the checkpoint the run resumes from
 
     def anneal(self, iter_num: int, initial_coefs: Optional[Tuple[float, float]] = None) -> None:
         """The linear decays after update ``iter_num``: the learning rate on
@@ -193,27 +213,41 @@ class OnPolicyRun:
         if initial_coefs is not None and cfg.algo.anneal_ent_coef:
             cfg.algo.ent_coef = polynomial_decay(iter_num, initial=initial_coefs[1], final=0.0, max_decay_steps=total, power=1.0)
 
-    def checkpoint(self, iter_num: int, policy_step: int) -> None:
+    def checkpoint(self, iter_num: int, policy_step: int, extra: Optional[Callable[[], Dict[str, Any]]] = None) -> None:
         """``checkpoint/ckpt_<policy_step>_0.ckpt`` every ``checkpoint.every``
-        policy steps and after the last update with ``checkpoint.save_last``."""
+        policy steps and, with ``checkpoint.save_last``, after the last update
+        or a preemption (the card drained first); none once the health
+        sentinels tainted the run. ``extra()`` adds the trainer's own
+        fields."""
         cfg = self.cfg
-        if (cfg.checkpoint.every > 0 and policy_step - self.last_checkpoint >= cfg.checkpoint.every) or (
-            iter_num == self.total_iters and cfg.checkpoint.save_last
+        if self.health.allow_save() and (
+            (cfg.checkpoint.every > 0 and policy_step - self.last_checkpoint >= cfg.checkpoint.every)
+            or ((iter_num == self.total_iters or self.guard.preempted) and cfg.checkpoint.save_last)
         ):
+            if self.guard.preempted:
+                drain_device(self.device)
             self.last_checkpoint = policy_step
             ckpt_state = {
                 "agent": self.agent.state_dict(), "optimizer": self.optimizer.state_dict(), "iter_num": iter_num,
                 "batch_size": self.batch_size, "last_log": self.log_points.last_log, "last_checkpoint": self.last_checkpoint,
                 "observation_space": self.observation_space.to_spec(), "action_space": self.action_space.to_spec(),
             }  # fmt: skip
+            if extra is not None:
+                ckpt_state.update(extra())
             path = os.path.join(self.log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             self.checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
+
+    def preempted(self, policy_step: int) -> bool:
+        """True when the loop must leave at this iteration boundary (its
+        final checkpoint is written)."""
+        return exit_on_preemption(self.guard, policy_step)
 
     def finish(self, test: Callable[..., float], policy_step: int) -> Dict[str, Any]:
         """The greedy test episode with ``algo.run_test``, the telemetry and
         the logger closed; returns {"agent", "optimizer", "policy_steps",
         "updates", "log", "log_dir", "checkpoints", "test_reward"}."""
-        test_reward = test(self.agent, self.cfg, self.log_dir, self.logger) if self.cfg.algo.run_test else None
+        test_reward = test(self.agent, self.cfg, self.log_dir, self.logger) if self.cfg.algo.run_test and not self.guard.preempted else None
+        self.guard.close()
         self.telemetry.close()
         if self.logger is not None:
             self.logger.close()
@@ -247,6 +281,7 @@ def open_run(
     log_dir = get_log_dir(os.path.join(cfg.log_root, cfg.root_dir), cfg.run_name, logger=logger)
     print(f"Log dir: {log_dir}", flush=True)
     telemetry = open_for_run(cfg, log_dir, device)
+    guard, watchdog, health = open_loop()
 
     num_envs = int(cfg.env.num_envs)
     envs = make_vector_env(cfg)
@@ -286,6 +321,7 @@ def open_run(
         policy_step=int(state["iter_num"]) * policy_steps_per_iter if state is not None else 0,
         total_iters=int(cfg.algo.total_steps) // policy_steps_per_iter if not cfg.dry_run else 1,
         batch_size=int(cfg.algo[batch_size_key]),
-        log_points=LogPoints(cfg, logger, aggregator, metric_keys, int(state["last_log"]) if state is not None else 0, telemetry),
+        log_points=LogPoints(cfg, logger, aggregator, metric_keys, int(state["last_log"]) if state is not None else 0, telemetry, health),
         last_checkpoint=int(state["last_checkpoint"]) if state is not None else 0, telemetry=telemetry,
+        guard=guard, watchdog=watchdog, health=health, resumed=state,
     )  # fmt: skip

@@ -7,10 +7,11 @@ same-step-autoreset ``SyncVectorEnv`` that sheeprl_tpu/utils/env.py builds).
 :func:`make_dummy_vector_env` is ``num_envs`` of them stepped together.
 
 :func:`get_dummy_env` is the ``_target_`` of ``configs/env/dummy.yaml``, and
-:func:`dummy_env_kwargs` reads a config's env: with ``env.frame_stack`` > 1
-and a pixel key among the encoder's, the frames are stacked
-(:class:`~sheeprl_tpu_torch.envs.wrappers.FrameStack`) where the JAX
-package's ``make_env`` stacks them.
+:func:`dummy_env_kwargs` reads a config's env: ``env.grayscale``,
+``env.frame_stack``, ``env.actions_as_observation``,
+``env.reward_as_observation`` and ``env.max_episode_steps`` are applied
+where the JAX package's ``make_env`` applies them
+(:func:`~sheeprl_tpu_torch.envs.wrappers.apply_env_keys`).
 
 The observation of step t is ``rgb`` filled with ``t % 256`` and ``state``
 filled with ``t``; the reward is 0; an episode terminates after
@@ -28,7 +29,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from sheeprl_tpu_torch.envs.wrappers import FrameStack
+from sheeprl_tpu_torch.envs.wrappers import apply_env_keys, env_key_kwargs
 from sheeprl_tpu_torch.serve.spaces import Box, DictSpace, Discrete, MultiDiscrete
 
 
@@ -205,23 +206,28 @@ def get_dummy_env(id: str, action_dim: int = 2, **kwargs: Any) -> DummyEnv:
 def make_dummy_env(
     screen_size: int = 64, action_dim: int = 9, env_id: str = "discrete_dummy", action_repeat: int = 1,
     frame_stack: int = 1, frame_stack_dilation: int = 1, cnn_keys: Sequence[str] = (), n_steps: Optional[int] = None,
+    grayscale: bool = False, actions_as_observation: Optional[Dict[str, Any]] = None, reward_as_observation: bool = False,
+    max_episode_steps: Optional[int] = None,
 ) -> Any:
     """One dummy env of the kind ``env_id`` names, ``screen_size`` square
     rgb, ``action_dim`` actions (per head for MultiDiscrete, two heads), each
-    action repeated ``action_repeat`` times, and with ``frame_stack`` > 1 and
-    a pixel key among ``cnn_keys`` the last ``frame_stack`` frames stacked
-    (:class:`FrameStack`), where the JAX package's ``make_env`` stacks them.
-    The JAX package renders the dummy env at 64x64 and resizes it to
-    ``screen_size``; its frames are constant, so rendering at
-    ``screen_size`` gives the same observations. ``n_steps`` (the env's
-    keyword, ``+env.wrapper.n_steps=N`` on the command line, which the JAX
-    package's ``get_dummy_env`` passes on too) sets the episode's length,
-    ``n_steps + 1`` steps."""
+    action repeated ``action_repeat`` times, then the env keys as the JAX
+    package's ``make_env`` applies them (:func:`apply_env_keys`): with
+    ``grayscale`` a pixel key among ``cnn_keys`` turns to one channel, with
+    ``frame_stack`` > 1 its last frames are stacked (:class:`FrameStack`),
+    ``actions_as_observation`` and ``reward_as_observation`` add their keys
+    and ``max_episode_steps`` truncates. The JAX package renders the dummy
+    env at 64x64 and resizes it to ``screen_size``; its frames are constant,
+    so rendering at ``screen_size`` gives the same observations.
+    ``n_steps`` (the env's keyword, ``+env.wrapper.n_steps=N`` on the
+    command line, which the JAX package's ``get_dummy_env`` passes on too)
+    sets the episode's length, ``n_steps + 1`` steps."""
     kwargs = {} if n_steps is None else {"n_steps": int(n_steps)}
     env = ActionRepeat(get_dummy_env(env_id, action_dim, image_size=(screen_size, screen_size, 3), **kwargs), action_repeat)
-    if frame_stack > 1 and set(cnn_keys) & {k for k, v in env.observation_space.spaces.items() if len(v.shape) in (2, 3)}:
-        env = FrameStack(env, frame_stack, cnn_keys, frame_stack_dilation)
-    return env
+    return apply_env_keys(
+        env, cnn_keys=cnn_keys, grayscale=grayscale, frame_stack=frame_stack, frame_stack_dilation=frame_stack_dilation,
+        actions_as_observation=actions_as_observation, reward_as_observation=reward_as_observation, max_episode_steps=max_episode_steps,
+    )  # fmt: skip
 
 
 def make_dummy_vector_env(
@@ -236,9 +242,7 @@ def dummy_env_kwargs(cfg) -> Dict[str, Any]:
     """:func:`make_dummy_env`'s arguments from a config's ``env`` and encoder keys."""
     return {
         "screen_size": int(cfg.env.screen_size), "action_dim": int(cfg.env.wrapper.action_dim), "env_id": str(cfg.env.id),
-        "action_repeat": int(cfg.env.action_repeat), "frame_stack": int(cfg.env.frame_stack),
-        "frame_stack_dilation": int(cfg.env.frame_stack_dilation), "cnn_keys": tuple(cfg.algo.cnn_keys.encoder),
-        "n_steps": cfg.env.wrapper.get("n_steps"),
+        "action_repeat": int(cfg.env.action_repeat), "n_steps": cfg.env.wrapper.get("n_steps"), **env_key_kwargs(cfg),
     }  # fmt: skip
 
 

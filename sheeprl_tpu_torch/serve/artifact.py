@@ -68,7 +68,7 @@ def write_artifact(output_path: str, params: Dict[str, Dict[str, torch.Tensor]],
         "spec_sha256": _sha256_bytes(spec_bytes),
         "created_unix": time.time(),
     }
-    with atomic_dir_writer(output_path) as staging:
+    with atomic_dir_writer(output_path, fail_point="artifact.before_commit") as staging:
         os.makedirs(staging)
         torch.save(cpu, os.path.join(staging, ARRAYS_NAME))
         with open(os.path.join(staging, SPEC_NAME), "wb") as fp:

@@ -18,15 +18,16 @@ access-log line per request (logger ``sheeprl_tpu_torch.serve.access``:
 ``request_id route status latency_ms bucket``, at WARNING with
 ``retry_after_s`` for a 429 and for a 5xx). The server installs the flight
 recorder when none is (``trace_dir`` for its dumps). ``serve_forever``
-drains on SIGTERM or SIGINT through a plain signal handler; the preemption
-guard is not ported yet.
+drains on SIGTERM or SIGINT through the training loops'
+:class:`~sheeprl_tpu_torch.core.resilience.PreemptionGuard` (no pointer
+written: nothing to checkpoint): no new connections, the queue served,
+then a return.
 """
 
 from __future__ import annotations
 
 import json
 import logging
-import signal
 import threading
 import time
 import uuid
@@ -205,15 +206,19 @@ class PolicyServer:
             tracer_mod.set_current(None)
         self._live_tracer = None
 
-    def serve_forever(self) -> None:
-        """Foreground serve (main thread). SIGTERM or SIGINT stops it: no new
-        connections, every queued request served, then return."""
-        stop = threading.Event()
-        previous = {sig: signal.signal(sig, lambda *_: stop.set()) for sig in (signal.SIGTERM, signal.SIGINT)}
+    def serve_forever(self, poll_s: float = 0.25) -> None:
+        """Foreground serve with the training loops' preemption discipline:
+        SIGTERM (or SIGINT) flips a
+        :class:`~sheeprl_tpu_torch.core.resilience.PreemptionGuard` (no
+        pointer: nothing to checkpoint), then no new connections, every
+        queued request served (``engine.close(drain=True)``), and return."""
+        from sheeprl_tpu_torch.core.resilience import PreemptionGuard
+
+        guard = PreemptionGuard(enabled=True, write_pointer=False).install()
         self.start()
         try:
-            stop.wait()
+            while not guard.preempted:
+                time.sleep(poll_s)
         finally:
             self.close(drain=True)
-            for sig, handler in previous.items():
-                signal.signal(sig, handler)
+            guard.close()

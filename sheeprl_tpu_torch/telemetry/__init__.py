@@ -27,8 +27,9 @@ of ``sheeprl_tpu/telemetry`` with its module and class names.
 
 ``python -m sheeprl_tpu_torch.telemetry tail <logdir>`` renders a run's
 counters from its ``telemetry.jsonl``; ``flight <logdir>`` lists and
-merges flight dumps. The health sentinels wait for the port's resilience
-layer, the mesh inspector for its multi-device layer (ROADMAP A10, A9).
+merges flight dumps. :mod:`~sheeprl_tpu_torch.telemetry.health` holds the
+training-health probes and sentinels; the mesh inspector waits for the
+multi-device layer (ROADMAP A9).
 """
 
 from sheeprl_tpu_torch.telemetry import bench_db, flight, trace_context, tracer

@@ -25,6 +25,15 @@ without a readable manifest, or missing a file the manifest names, is torn
 and is never the latest (:func:`find_latest_valid_checkpoint`). The previous
 snapshot stays until the new one is committed, and ``keep_last`` deletes the
 oldest by renaming them away first.
+
+The chaos fail points of the JAX package's save sit at the same phases:
+``checkpoint.before_write`` before anything is staged,
+``checkpoint.before_manifest`` after the payload and before the manifest,
+and ``checkpoint.before_commit`` (``artifact.before_commit`` for a policy
+artifact) between the staged payload and its rename
+(:mod:`sheeprl_tpu_torch.core.chaos`). A post-save hook
+(:func:`register_post_save_hook`) is called with every committed path; the
+preemption guard learns of its drain save that way.
 """
 
 from __future__ import annotations
@@ -37,11 +46,12 @@ import shutil
 import time
 import uuid
 from contextlib import contextmanager
-from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch.core import chaos
 from sheeprl_tpu_torch.telemetry import tracer as tracer_mod
 
 _TMP_PREFIX = ".tmp-"
@@ -51,6 +61,21 @@ MANIFEST_NAME = "manifest.json"
 STATE_NAME = "state.pt"
 ARRAYS_NAME = "arrays.npz"
 CHECKPOINT_SCHEMA_VERSION = 1
+
+# Called with the committed path after every successful save.
+_POST_SAVE_HOOKS: List[Callable[[str], None]] = []
+
+
+def register_post_save_hook(hook: Callable[[str], None]) -> None:
+    _POST_SAVE_HOOKS.append(hook)
+
+
+def unregister_post_save_hook(hook: Callable[[str], None]) -> None:
+    try:
+        _POST_SAVE_HOOKS.remove(hook)
+    except ValueError:
+        pass
+
 
 def flatten_arrays(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     """(path, leaf) for every tensor and numpy array of a nested structure of
@@ -104,15 +129,16 @@ def _fsync_dir(path: str) -> None:
 
 
 @contextmanager
-def atomic_dir_writer(final_path: str) -> Iterator[str]:
+def atomic_dir_writer(final_path: str, fail_point: str = "checkpoint.before_commit") -> Iterator[str]:
     """Stage a directory payload, then commit it with one ``os.rename``.
 
     Yields a ``.tmp-*`` sibling of ``final_path`` (same filesystem, so the
     rename is atomic) for the caller to fill. On normal exit it is fsynced
     and renamed into place, swapping through a ``.trash-*`` sibling when
     ``final_path`` exists so the old content stays whole until the new one
-    is committed. On an exception the staging directory is removed and
-    ``final_path`` is untouched."""
+    is committed. On an exception (the chaos ``fail_point`` before the
+    rename among them) the staging directory is removed and ``final_path``
+    is untouched."""
     final_path = os.path.abspath(final_path)
     parent = os.path.dirname(final_path)
     basename = os.path.basename(final_path)
@@ -121,6 +147,7 @@ def atomic_dir_writer(final_path: str) -> Iterator[str]:
     try:
         yield staging
         _fsync_dir(staging)
+        chaos.maybe_fail(fail_point)
         if os.path.lexists(final_path):
             trash = os.path.join(parent, f"{_TRASH_PREFIX}{basename}-{uuid.uuid4().hex[:8]}")
             os.rename(final_path, trash)
@@ -178,10 +205,12 @@ def _join_arrays(tree: Any, arrays: List[np.ndarray]) -> Any:
     return tree
 
 
-def validate_checkpoint(ckpt_path: str) -> bool:
+def validate_checkpoint(ckpt_path: str, verify_digest: bool = False) -> bool:
     """True iff ``ckpt_path`` is a complete, committed checkpoint: the
-    manifest parses, its schema is known and the files it names exist. The
-    digest is verified by :func:`load_checkpoint`."""
+    manifest parses, its schema is known and the files it names exist. With
+    ``verify_digest`` the payload is also loaded and its leaves' digest held
+    to the manifest's (:func:`load_checkpoint` always does), which catches
+    bit rot and not only torn writes."""
     manifest = read_manifest(ckpt_path)
     if manifest is None or manifest.get("kind") != "checkpoint":
         return False
@@ -193,7 +222,15 @@ def validate_checkpoint(ckpt_path: str) -> bool:
         files = list(manifest["files"])
     except (KeyError, TypeError, ValueError):
         return False
-    return sorted(files) == sorted([STATE_NAME, ARRAYS_NAME]) and all(os.path.isfile(os.path.join(ckpt_path, f)) for f in files)
+    if sorted(files) != sorted([STATE_NAME, ARRAYS_NAME]) or not all(os.path.isfile(os.path.join(ckpt_path, f)) for f in files):
+        return False
+    if not verify_digest:
+        return True
+    try:
+        _load_verified(ckpt_path, manifest)
+    except Exception:  # noqa: BLE001 - any unreadable payload means invalid
+        return False
+    return True
 
 
 def find_latest_valid_checkpoint(ckpt_dir: str) -> Optional[str]:
@@ -232,6 +269,7 @@ def save_checkpoint(ckpt_path: str, state: Dict[str, Any], keep_last: Optional[i
     parsed = parse_ckpt_name(ckpt_path)
     if parsed is None:
         raise ValueError(f"{ckpt_path}: a checkpoint is named ckpt_<step>_<rank>.ckpt")
+    chaos.maybe_fail("checkpoint.before_write")
     arrays: List[np.ndarray] = []
     tree = _split_arrays(state, arrays)
     digest, leaf_count = _digest_arrays(_join_arrays(tree, arrays))
@@ -239,6 +277,7 @@ def save_checkpoint(ckpt_path: str, state: Dict[str, Any], keep_last: Optional[i
         os.makedirs(staging)
         torch.save(tree, os.path.join(staging, STATE_NAME))
         np.savez(os.path.join(staging, ARRAYS_NAME), **{f"a{i}": a for i, a in enumerate(arrays)})
+        chaos.maybe_fail("checkpoint.before_manifest")
         manifest = {
             "schema_version": CHECKPOINT_SCHEMA_VERSION,
             "kind": "checkpoint",
@@ -257,6 +296,8 @@ def save_checkpoint(ckpt_path: str, state: Dict[str, Any], keep_last: Optional[i
     tracer = tracer_mod.current()
     tracer.count("checkpoint_saves")
     tracer.add_span("checkpoint/save", "checkpoint", start, time.perf_counter() - start, {"step": parsed[0]})
+    for hook in list(_POST_SAVE_HOOKS):
+        hook(ckpt_path)
     return ckpt_path
 
 
@@ -267,7 +308,10 @@ def load_checkpoint(ckpt_path: str) -> Dict[str, Any]:
     ckpt_path = os.path.abspath(ckpt_path)
     if not validate_checkpoint(ckpt_path):
         raise ValueError(f"{ckpt_path} is not a valid checkpoint (torn save, wrong schema or missing files)")
-    manifest = read_manifest(ckpt_path) or {}
+    return _load_verified(ckpt_path, read_manifest(ckpt_path) or {})
+
+
+def _load_verified(ckpt_path: str, manifest: Dict[str, Any]) -> Dict[str, Any]:
     tree = torch.load(os.path.join(ckpt_path, STATE_NAME), map_location="cpu", weights_only=True)
     with np.load(os.path.join(ckpt_path, ARRAYS_NAME), allow_pickle=False) as npz:
         arrays = [npz[f"a{i}"] for i in range(int(manifest.get("array_count", 0)))]
@@ -282,8 +326,9 @@ def resume_config(cfg: Mapping[str, Any]) -> Dict[str, Any]:
     """The config of a run resumed from ``cfg.checkpoint.resume_from``: the
     saved run's ``config.json`` (two levels above the checkpoint) merged over
     ``cfg``, keeping only ``cfg``'s ``algo.total_steps``,
-    ``algo.learning_starts``, ``log_root``, ``root_dir``, ``run_name`` and
-    ``device``, as the JAX package's ``resume_from_checkpoint`` does, and
+    ``algo.learning_starts``, ``log_root``, ``root_dir``, ``run_name``,
+    ``device`` and ``resilience.chaos``, as the JAX package's
+    ``resume_from_checkpoint`` does, and
     ``algo.fused_rollout``, the lane: the JAX merge keeps the saved run's,
     so its resume "on the other lane" stays on the saved run's lane
     (ROADMAP C-r11); here a checkpoint of either lane resumes on the one the
@@ -310,6 +355,9 @@ def resume_config(cfg: Mapping[str, Any]) -> Dict[str, Any]:
         old.pop(key, None)
     for key in ("total_steps", "learning_starts", "fused_rollout"):
         old["algo"].pop(key, None)
+    # Chaos injectors are one run's experiment: inherited, a sigterm at step
+    # N would preempt the resumed run again. The command line's stay.
+    (old.get("resilience") or {}).pop("chaos", None)
     old["checkpoint"]["resume_from"] = path
 
     def merge(dst: Dict[str, Any], src: Dict[str, Any]) -> None:

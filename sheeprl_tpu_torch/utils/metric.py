@@ -22,7 +22,7 @@ from __future__ import annotations
 import time
 import warnings
 from math import isnan
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -59,6 +59,18 @@ def _to_host(values: Iterable[Any]) -> List[Any]:
         else:
             host.append(v)
     return host
+
+
+def fetch_metrics(pending: Sequence[Dict[str, Any]]) -> List[Dict[str, Any]]:
+    """An interval's metrics dicts with every tensor on the host as a float64
+    numpy array, all moved in one transfer (:func:`_to_host`). The
+    aggregator takes the fetched values with no second transfer."""
+    keys = [(i, k) for i, metrics in enumerate(pending) for k in metrics]
+    host = _to_host(pending[i][k] for i, k in keys)
+    fetched: List[Dict[str, Any]] = [{} for _ in pending]
+    for (i, k), v in zip(keys, host):
+        fetched[i][k] = v
+    return fetched
 
 
 class Metric:

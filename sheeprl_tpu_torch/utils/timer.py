@@ -85,23 +85,37 @@ class timer(ContextDecorator):
         cls._start_times = {}
 
 
+def _watched(watchdog: Any):
+    return contextlib.nullcontext() if watchdog is None else watchdog.guard("train_dispatch")
+
+
 @contextlib.contextmanager
-def train_timer(device: torch.device) -> Iterator[None]:
+def train_timer(device: torch.device, watchdog: Any = None) -> Iterator[None]:
     """``timer("Time/train_time")`` around a train call that ends when the
     call's work has run on a CUDA ``device`` (one ``torch.cuda.synchronize``
     per call), so ``Time/sps_train`` counts train calls done, not queued.
     With the timers off nothing waits. The open run's telemetry StepTimer
     (:func:`sheeprl_tpu_torch.telemetry.step_timer.current`), if any, times
     the call's enqueue as its dispatch and that one synchronize as its
-    bound, and adds no synchronisation of its own."""
+    bound, and adds no synchronisation of its own. A
+    :class:`~sheeprl_tpu_torch.core.resilience.DispatchWatchdog` is armed
+    around the wait: that synchronize on the card (made with the timers off
+    too, once a watchdog asks for it), the call itself on the CPU, where it
+    has run when it returns; never around the card's asynchronous launches."""
     step_timer = step_timer_mod.current()
+    on_card = torch.device(device).type == "cuda"
     with timer("Time/train_time"):
         with step_timer.step() if step_timer is not None else contextlib.nullcontext():
-            yield
+            with _watched(None if on_card else watchdog):
+                yield
         if not timer.disabled:
-            on_card = torch.device(device).type == "cuda"
             if step_timer is not None:
                 # On the CPU the call has run when it returns: its bound is empty.
-                step_timer.bound(lambda: torch.cuda.synchronize(device) if on_card else None)
+                with _watched(watchdog if on_card else None):
+                    step_timer.bound(lambda: torch.cuda.synchronize(device) if on_card else None)
             elif on_card:
+                with _watched(watchdog):
+                    torch.cuda.synchronize(device)
+        elif on_card and watchdog is not None:
+            with _watched(watchdog):
                 torch.cuda.synchronize(device)

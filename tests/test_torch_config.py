@@ -184,3 +184,18 @@ def test_instantiate_and_locate(tmp_path, monkeypatch):
         locate("missing_dep.Thing")
     for mod in ("needs_extra", "missing_dep"):
         sys.modules.pop(mod, None)
+
+
+@pytest.mark.parametrize("groups", [["health=on"], ["health=strict"], ["resilience=on"], ["health=on", "resilience=on"]], ids="+".join)
+@pytest.mark.parametrize("exp", ["dreamer_v3_100k_ms_pacman", "sac", "ppo"])
+def test_health_and_resilience_groups_compose_to_the_jax_composition(exp, groups):
+    """The ``health`` and ``resilience`` options the port's tree copies
+    (``on``, ``strict``; ``resilience/on``) compose key for key as the JAX
+    package's, on top of an exp."""
+    sheeprl_tpu.register_all()
+    args = [f"exp={exp}", "env=dummy", *EXP_ARGS.get(exp, []), *groups]
+    port, ref = compose(args), jax_compose("config", args).as_dict()
+    check_against_jax(port, ref)
+    assert port.health == ref["health"] and port.resilience == ref["resilience"]
+    assert port.health.enabled is ("health=on" in groups or "health=strict" in groups)
+    assert port.resilience.supervisor.enabled is port.resilience.watchdog.enabled is ("resilience=on" in groups)

@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 from flax import linen as nn
-from test_torch_sac import ACT_DIM, BATCH, OBS_DIM, batch_data, build_pair, check_update, close, jax_optimizers, tensors
+from test_torch_sac import ACT_DIM, BATCH, OBS_DIM, batch_data, build_pair, check_update, close, jax_optimizers, metric_tol, tensors
 
 from sheeprl_tpu.algos.droq import agent as jax_droq_agent
 from sheeprl_tpu.algos.droq import droq as jax_droq
@@ -89,11 +89,12 @@ def jax_draws(jagent, state, key, steps, rng):
     return {"critic": critic, "actor": actor}
 
 
-def check_droq_update(mutation=None, dropout=None):
+def check_droq_update(mutation=None, dropout=None, extra=()):
     """One JAX DroQ ``make_train_step`` call and the port's from the same
     state, batches and draws: the losses, Adam's moments and every leaf's
-    change (``check_update``) within their tolerances."""
-    overrides = [] if dropout is None else [f"algo.critic.dropout={dropout}"]
+    change (``check_update``) within their tolerances; ``extra`` overrides
+    both configs (``health=on``: the probes are metrics, held like them)."""
+    overrides = ([] if dropout is None else [f"algo.critic.dropout={dropout}"]) + list(extra)
     jcfg, pcfg, jagent, state, port = build_pair("droq", *overrides, jax_build=jax_droq_agent.build_agent, port_build=build_agent)
     assert (port.dropout, jagent.critics.dropout) == ((0.01, 0.01) if dropout is None else (dropout, dropout))
     rng = np.random.default_rng(4)
@@ -115,10 +116,10 @@ def check_droq_update(mutation=None, dropout=None):
     metrics = port_droq.make_train_step(port, optimizers, pcfg)(tensors(critic_data), torch.from_numpy(actor_data["observations"]), draws)
     assert set(metrics) == set(jmetrics)
     for k in jmetrics:
-        close(metrics[k].item(), jmetrics[k], 1e-6, 1e-5, k)
+        close(metrics[k].item(), jmetrics[k], *metric_tol(k, 1e-6, 1e-5), k)
     gaps = check_update(port, optimizers, start, jstate, jopt)
     assert max(gaps.values()) < 1e-3, {n: g for n, g in gaps.items() if g >= 1e-3}
-    return gaps
+    return gaps, metrics, jmetrics
 
 
 @pytest.mark.parametrize("dropout", [None, 0.3, 0.0], ids=["recipe-masks", "masks", "no-dropout"])

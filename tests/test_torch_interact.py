@@ -17,6 +17,7 @@ from sheeprl_tpu.core import interact as jax_interact
 from sheeprl_tpu_torch.cli import run
 from sheeprl_tpu_torch.config import compose
 from sheeprl_tpu_torch.core import player as player_mod
+from sheeprl_tpu_torch.core.resilience import EnvSupervisor
 from sheeprl_tpu_torch.core.interact import (
     EnvSliceGroup,
     InteractionPipeline,
@@ -137,8 +138,8 @@ def test_make_vector_env_builds_the_slices():
     cfg.env.pipeline_slices = 1
     assert isinstance(make_vector_env(cfg), SyncVectorEnv)
     cfg.resilience.supervisor.enabled = True
-    with pytest.raises(ValueError, match="A10"):
-        make_vector_env(cfg)
+    supervised = make_vector_env(cfg)
+    assert isinstance(supervised, EnvSupervisor) and supervised.slices == 1 and supervised.num_envs == 5
 
 
 # ----------------------------------------------------------------- interact

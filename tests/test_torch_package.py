@@ -51,7 +51,7 @@ def test_import_every_module_without_jax_or_the_jax_package():
                 "core.interact", "core.player", "core.mesh", "algos.ppo.ppo_decoupled", "algos.sac.sac_decoupled", "telemetry",
                 "telemetry.trace_context", "telemetry.tracer", "telemetry.histogram", "telemetry.registry", "telemetry.step_timer",
                 "telemetry.cuda_events", "telemetry.profiling", "telemetry.perf", "telemetry.bench_db", "telemetry.flight",
-                "telemetry.telemetry", "telemetry.__main__"]
+                "telemetry.telemetry", "telemetry.__main__", "core.chaos", "core.resilience", "telemetry.health"]
     for name in ["serve.engine", "bridge", *training]:
         assert f"sheeprl_tpu_torch.{name}" in report["modules"], name
     assert not [m for m in report["loaded"] if m in FORBIDDEN]

@@ -408,7 +408,7 @@ def test_mesh_and_federation_are_one_device_noops_and_raise_across_processes(tmp
 
 @pytest.mark.parametrize(
     "overrides, error, match",
-    [(["health.enabled=True"], NotImplementedError, "A10"),
+    [(["resilience.chaos.enabled=True", "resilience.chaos.injectors=[{kind: kill9, at_step: 1}]"], NotImplementedError, "A10"),
      (["telemetry.profiler.start_step=8", "telemetry.profiler.stop_step=8"], ValueError, "start_step < stop_step"),
      (["telemetry.profiler.start_step=8"], ValueError, "start_step < stop_step")],
 )  # fmt: skip

@@ -126,9 +126,28 @@ def _close(got, want, atol, rtol, what):
 
 @pytest.mark.parametrize("tau", [1.0, 0.02])
 def test_one_gradient_step_matches_jax(monkeypatch, tau):
+    check_one_gradient_step(monkeypatch, tau)
+
+
+def metric_tol(key):
+    """A metric's ``(atol, rtol)``: 1e-5, 1e-4, except a health probe's
+    gradient norm, a norm of the pre-clip gradients (held as they are,
+    1e-4, 1e-3), and its update ratio, a norm of the parameters' change
+    (2.5 lr an entry: 1e-3 of its size)."""
+    if key.endswith("grad_norm"):
+        return 1e-4, 1e-3
+    if key.endswith("update_ratio"):
+        return 1e-5, 1e-3
+    return 1e-5, 1e-4
+
+
+def check_one_gradient_step(monkeypatch, tau, extra=()):
+    """:func:`test_one_gradient_step_matches_jax` under the overrides
+    ``extra`` too (``health=on``: the probes are metrics, held like them);
+    returns the port's and the JAX step's metrics."""
     monkeypatch.setattr(jax.random, "categorical", lambda key, logits, axis=-1, shape=None: jnp.argmax(logits, axis=axis))
     sheeprl_tpu.register_all()
-    cfg = jax_compose("config", ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", *SMALL])
+    cfg = jax_compose("config", ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", *SMALL, *extra])
     runtime = Runtime(devices=1, accelerator="cpu").launch()
     rt = types.SimpleNamespace(root_key=jax.random.PRNGKey(0), precision=types.SimpleNamespace(compute_dtype=jnp.float32))
     screen, n_actions, T, B = 16, 9, 5, 3
@@ -175,7 +194,7 @@ def test_one_gradient_step_matches_jax(monkeypatch, tau):
 
     assert set(pmetrics) == set(jmetrics)
     for k in jmetrics:
-        _close(pmetrics[k].item(), jmetrics[k], 1e-5, 1e-4, k)
+        _close(pmetrics[k].item(), jmetrics[k], *metric_tol(k), k)
     for k in ("low", "high"):
         _close(pmoments[k].item(), jmoments[k], 1e-5, 0, f"moments/{k}")
     for name in ("world_model", "actor", "critic"):
@@ -191,6 +210,7 @@ def test_one_gradient_step_matches_jax(monkeypatch, tau):
         assert set(got) == set(want)
         for k in want:
             _close(got[k].numpy(), want[k].numpy(), 2.5 * lr * (tau if name == "target_critic" else 1.0) + 1e-6, 0, f"param {name}.{k}")
+    return pmetrics, jmetrics
 
 
 def test_target_update_taus_match_jax():

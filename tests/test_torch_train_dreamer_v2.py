@@ -139,9 +139,9 @@ def test_dreamer_v2_train_calls_are_each_timed_once(monkeypatch, tmp_path):
     entered = []
     real = dreamer_v2.train_timer
 
-    def counting(device):
+    def counting(device, watchdog=None):
         entered.append(device)
-        return real(device)
+        return real(device, watchdog)
 
     monkeypatch.setattr(dreamer_v2, "train_timer", counting)
     out = run([*CASES["dreamer_v2-sequential"], *TINY, f"log_root={tmp_path}", "checkpoint.every=0", "algo.run_test=False"])
