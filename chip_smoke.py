@@ -5,7 +5,11 @@ Run from the root of a checkout, on a machine with an H100:
 
     python3 chip_smoke.py
 
-Phases (any failure exits non-zero before the result line):
+Phases (any failure exits non-zero before the result line; the
+``python -m sheeprl_tpu_torch.eval`` runs that phases 8-46 ask for are
+queued and run together, each in a process of its own on the card, beside
+phase 34 (those of 8-27) and phase 41 (those of 32-46), which time nothing;
+phase 34 runs before 32-33, and the Anakin lane, 42-46, before 37-41):
 
 1. Device: a CUDA card must be present; print its name and power limit.
 2. Build: compile every CUDA kernel of the port from csrc/ with nvcc, one
@@ -375,6 +379,33 @@ Phases (any failure exits non-zero before the result line):
 57. The DV3-S policy server in the foreground drains on SIGTERM through the
    preemption guard. ``c.phases_54_57(dir)`` runs 54-57 alone after
    ``kernels.build()``.
+58. The actor fleet, SAC: ``exp=sac_decoupled`` (phase 49's cuts) with
+   ``fleet.replicas=2``, two spawned replicas playing on the CPU (every
+   shipment says its replica had no CUDA context), the learner on the card,
+   three runs: a ``kill9`` on replica 0 (one restart, generation 1 seeded
+   ``replica_seed(seed, 0, 1)``; death to its first shipment; its first
+   train call against the CPU at phase 49's bounds); a ``sigterm`` to the
+   learner (drain, the save at the signal's step; drain-to-exit); and
+   ``checkpoint.resume_from=auto`` to the end with no fault: no row
+   dropped, shipments from both replicas, phase 49's gradient-step count,
+   ``iter_num`` and buffer position. No LN-GRU launch.
+59. The actor fleet, PPO: ``exp=ppo_decoupled`` with ``fleet.replicas=2``
+   (3 rounds, one run): every round 2 rollouts of its version; the first update
+   replayed on the card bit for bit, each of its Adam steps against the CPU
+   from the card's state at ``PPOF_STEP_TOL``, its first 72 steps' losses
+   against the CPU's own update; a ``kill9`` on replica 0 whose
+   generation 1 ships into a round; the learner's host wall an iteration
+   beside phase 50's, the broadcast's bytes and pump send time, the
+   replicas' spawn to hello. No LN-GRU launch.
+60. DreamerV3's XS, M and L sizes: every LN-GRU shape of each (forward at
+   B = 16, 1024 and the player's 1, bf16 and f32, XS's bf16 B = 1024 on the
+   tensor cores at a cluster of 4; backward at B = 16 and 1024) against its
+   plain version, timed with its bound, plain time and cuBLAS's product;
+   then one bf16-mixed gradient step per size through the CLI
+   (``exp=dreamer_v3_100k_ms_pacman algo=dreamer_v3_<size>``, ``DV3_SIZE_CUTS``):
+   finite losses, DV3-S's launches by batch, host wall, device busy, peak
+   memory. ``c.phases_58_60(dir)`` runs 58-60 alone after
+   ``kernels.build()``.
 
 Every profile reads its device busy time through ``_busy``, which leaves
 out the device ranges of ``record_function`` annotations (the trainers'
@@ -394,7 +425,9 @@ then the streaming forward at the two-slice player's B = 2 in bf16 and f32;
 every entry with the P2E-DV1 and SAC-AE runs' launches, 0, the Anakin
 runs', and phases 47-50's: the pipeline at one and two slices, the host
 player's and the decoupled runs', 0; phases 51 and 54's, telemetry and
-health on), the card's name and power limit,
+health on; phases 58-59's fleet runs', 0); then phase 60's bf16 rows of
+DreamerV3 XS, M and L (forward at B = 16, 1024 and 1, backward at B = 16
+and 1024) with their CLI step's launches; the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -1810,12 +1843,53 @@ def phase_export_serve(ckpt, workdir):
     return result
 
 
-def phase_eval(ckpt, test_reward, what="eval"):
-    """``python -m sheeprl_tpu_torch.eval checkpoint_path=<ckpt>`` in a
-    process of its own, on the card by default: it logs
+# Evaluations queued by the trainers' phases, and the run directories to
+# remove once they have run (:func:`defer_eval`, :func:`evals_beside`).
+PENDING_EVALS, REMOVE_AFTER_EVALS = [], []
+
+
+def defer_eval(ckpt, test_reward, what="eval"):
+    """``python -m sheeprl_tpu_torch.eval checkpoint_path=<ckpt>``, queued for
+    the next :func:`evals_beside` block: it must log
     ``Test/cumulative_reward`` under ``<run>/<version>/evaluation/version_0``,
-    equal to the trainer's own test episode's."""
-    return finish_eval(start_eval(ckpt), test_reward, what)
+    equal to the trainer's own test episode's. Returns the dict that holds
+    its result after that block. (Each evaluation ran beside or after its
+    trainer's phase until phases 58-60 needed the time; beside a phase that
+    times nothing, they leave every timed number to a card of its own.)"""
+    box = {}
+    PENDING_EVALS.append((ckpt, test_reward, what, box))
+    return box
+
+
+def remove_after_evals(path):
+    """``shutil.rmtree(path)`` once the queued evaluations have run (the
+    directory holds one of their checkpoints)."""
+    REMOVE_AFTER_EVALS.append(path)
+
+
+@contextmanager
+def evals_beside(what):
+    """Every queued evaluation, each in a process of its own on the card,
+    all started together beside the block ``what``, which must time
+    nothing; each checked when the block ends."""
+    queued = PENDING_EVALS[:]
+    PENDING_EVALS.clear()
+    t0 = time.perf_counter()
+    started = [(start_eval(ckpt), reward, name, box) for ckpt, reward, name, box in queued]
+    try:
+        yield
+        block_s = time.perf_counter() - t0
+        for proc, reward, name, box in started:
+            box.update(finish_eval(proc, reward, name))
+    except BaseException:
+        for proc, *_ in started:
+            if proc[2].poll() is None:
+                proc[2].kill()
+        raise
+    for path in REMOVE_AFTER_EVALS:
+        shutil.rmtree(path, ignore_errors=True)
+    REMOVE_AFTER_EVALS.clear()
+    log(f"evaluations beside {what}: {len(started)} processes, the block {block_s:.1f} s, all done {time.perf_counter() - t0:.1f} s after their start")
 
 
 def start_eval(ckpt):
@@ -1829,7 +1903,7 @@ def start_eval(ckpt):
 
 def finish_eval(started, test_reward, what):
     """Wait for :func:`start_eval`'s process and check what it logged
-    (:func:`phase_eval`)."""
+    (:func:`evals_beside`)."""
     import numpy as np
 
     from sheeprl_tpu_torch.utils.logger import read_scalars
@@ -2397,10 +2471,10 @@ def phase_ppo_pixels(log_root, workdir):
     """ppo_atari through the CLI, then its resume, export and serving, and
     ``python -m sheeprl_tpu_torch.eval``."""
     pixels, out, snaps, cfg = ppo_train(PPO_ATARI_ARGS, PPO_ATARI_CUTS, "ppo_atari", log_root, 2)
+    evaluation = defer_eval(out["checkpoints"][-1], out["test_reward"])
     resume = phase_ppo_resume(out, snaps, cfg, log_root)
     obs_shape = _ppo_spaces(cfg)[0]["rgb"].shape
     serving = phase_ppo_serve(out["checkpoints"][-1], obs_shape, workdir)
-    evaluation = phase_eval(out["checkpoints"][-1], out["test_reward"])
     return pixels, resume, serving, evaluation, out, cfg
 
 
@@ -2420,7 +2494,7 @@ REPLAYS_PROFILED = 16
 # 35.8 of the phase's 49.7 s on an NVIDIA H100 80GB HBM3 at 700 W; 8 until
 # the resilience phases 54-57 needed it); its REPLAYS_PROFILED replays stay
 # timed.
-GRAPH_REPLAYS_PROFILED = 4
+GRAPH_REPLAYS_PROFILED = 2  # cut from 4 to make room for phases 58-60 (21.3 s of torch.profiler at 4)
 WARMUP_STEPS = 3  # sheeprl_tpu_torch.core.graphs.WARMUP_CALLS
 
 
@@ -3175,6 +3249,12 @@ def phase_sac(log_root, workdir):
     the same run on the ring path."""
     out, host = offpolicy_through_cli(SAC_ARGS, SAC_CUTS, "sac", log_root)
     [ckpt] = [c for c in out["checkpoints"] if os.path.basename(c).startswith("ckpt_96_")]
+    evaluation = defer_eval(out["checkpoints"][-1], out["test_reward"])
+    return _sac_after_training(out, host, ckpt, log_root, workdir) | {"evaluation": evaluation}
+
+
+def _sac_after_training(out, host, ckpt, log_root, workdir):
+    """:func:`phase_sac`'s resume, serving and ring path."""
     again, resumed = offpolicy_through_cli([*SAC_ARGS, f"checkpoint.resume_from={ckpt}"], SAC_CUTS, "sac resume", log_root)
     (pa, aa), (pb, ab) = _state_of(out), _state_of(again)
     differ = [k for k in pa if not torch_equal_bits(pa[k], pb[k])] + [k for k in aa if not torch_equal_bits(aa[k], ab[k])]
@@ -3183,9 +3263,8 @@ def phase_sac(log_root, workdir):
     log(f"sac resume: from {os.path.basename(ckpt)} the run ends on the uninterrupted run's {len(pa)} parameter and {len(aa)} Adam tensors "
         "bit for bit")  # fmt: skip
     serving = serve_sac_over_http(out["checkpoints"][-1], out["agent"], workdir)
-    evaluation = phase_eval(out["checkpoints"][-1], out["test_reward"])
     _, ring = offpolicy_through_cli(*_cli_cuts(SAC_ARGS, SAC_CUTS, True), "sac ring", log_root)
-    return {"host": host, "resume": {**resumed, "tensors_bit_for_bit": len(pa) + len(aa)}, "serving": serving, "evaluation": evaluation, "ring": ring}
+    return {"host": host, "resume": {**resumed, "tensors_bit_for_bit": len(pa) + len(aa)}, "serving": serving, "ring": ring}
 
 
 def phase_droq(log_root):
@@ -3750,6 +3829,7 @@ def phase_dv2_training(log_root):
     ckpt = next((c for c in out["checkpoints"] if c.endswith("ckpt_320_0.ckpt")), None)
     if ckpt is None:
         fail(f"dv2 training: no checkpoint at policy step 320 ({out['checkpoints']})")
+    evaluation = defer_eval(out["checkpoints"][-1], out["test_reward"], "dv2 eval")
     t0 = time.perf_counter()
     again, again_steps, _, again_counts = dreamer_through_cli([*args, f"checkpoint.resume_from={ckpt}"], "dv2 resume", DV2_FWD_BY_BATCH,
                                                               DV2_BWD_BY_BATCH)  # fmt: skip
@@ -3763,7 +3843,6 @@ def phase_dv2_training(log_root):
             differ += [f"{name} Adam {k} {i}" for k in opt.state[p] if not torch_equal_bits(opt.state[p][k], other.state[q][k])]
     if differ:
         fail(f"dv2 resume: {len(differ)} tensors differ from the uninterrupted run, e.g. {differ[:4]}")
-    evaluation = phase_eval(out["checkpoints"][-1], out["test_reward"], "dv2 eval")
     step_wall = [b[1] - a[1] for a, b in zip(steps, steps[1:])]
     result = {"cuts": DV2_CUTS, "gradient_steps": out["gradient_steps"], "policy_steps": out["policy_steps"], "wall_s": wall_s,
               "ln_gru_launches": counts, "resume_ln_gru_launches": again_counts, "resume_s": resume_s,
@@ -3963,6 +4042,7 @@ def phase_dv1_training(log_root):
     ckpt = next((c for c in out["checkpoints"] if c.endswith("ckpt_240_0.ckpt")), None)
     if ckpt is None:
         fail(f"dv1 training: no checkpoint at policy step 240 ({out['checkpoints']})")
+    evaluation = defer_eval(out["checkpoints"][-1], out["test_reward"], "dv1 eval")
     again, again_steps, _, again_counts = dreamer_through_cli([*DV1_ARGS, f"log_root={log_root}", f"checkpoint.resume_from={ckpt}"],
                                                               "dv1 resume", {}, {})  # fmt: skip
     if [s[0] for s in again_steps] != list(range(DV1_RESUMED_FROM + 1, DV1_STEPS + 1)):
@@ -3970,7 +4050,6 @@ def phase_dv1_training(log_root):
     differ = _same_state(out["agent"].state_dict(), again["agent"].state_dict())
     if differ or again_counts["forward"] or again_counts["backward"]:
         fail(f"dv1 resume: {len(differ)} tensors differ, e.g. {differ[:4]}; LN-GRU launches {again_counts}")
-    evaluation = phase_eval(out["checkpoints"][-1], out["test_reward"], "dv1 eval")
     log(f"dv1 training: exp=dreamer_v1 env=dummy, cut {json.dumps(DV1_CUTS)}: {DV1_STEPS} gradient steps in {out['policy_steps']} policy "
         f"steps, {wall_s:.1f} s, LN-GRU launches {counts['forward']} + {counts['backward']}; resumed bit for bit; eval = the test episode's "
         f"{out['test_reward']}; last step {json.dumps({k: float(f'{v:.5g}') for k, v in steps[-1][2].items()})}")  # fmt: skip
@@ -4004,8 +4083,8 @@ def phase_a2c(log_root):
     resumed from its mid-run checkpoint bit for bit, ``eval`` on its last,
     the trained agent's update and rollout step profiled."""
     result, out, snaps, cfg = ppo_train(A2C_ARGS, A2C_CUTS, "a2c", log_root, A2C_UPDATES, trainer="a2c")
+    evaluation = defer_eval(out["checkpoints"][-1], out["test_reward"], "a2c eval")
     resume = onpolicy_resume(out, snaps, cfg, A2C_ARGS, "a2c", log_root, "a2c resume")
-    evaluation = phase_eval(out["checkpoints"][-1], out["test_reward"], "a2c eval")
     profile = onpolicy_profile("a2c", out["agent"], cfg, "a2c profile")
     return {"training": result, "resume": resume, "evaluation": evaluation, "profile": profile}
 
@@ -4036,8 +4115,8 @@ def phase_ppo_recurrent(log_root):
     """(27) ``exp=ppo_recurrent env=dummy`` through the CLI at the recipe's
     widths, resumed from its mid-run checkpoint bit for bit, ``eval``."""
     result, out, snaps, cfg = ppo_train(PPO_REC_ARGS, PPO_REC_CUTS, "ppo_recurrent", log_root, PPO_REC_UPDATES, trainer="ppo_recurrent")
+    evaluation = defer_eval(out["checkpoints"][-1], out["test_reward"], "ppo_recurrent eval")
     resume = onpolicy_resume(out, snaps, cfg, PPO_REC_ARGS, "ppo_recurrent", log_root, "ppo_recurrent resume")
-    evaluation = phase_eval(out["checkpoints"][-1], out["test_reward"], "ppo_recurrent eval")
     return {"training": result, "resume": resume, "evaluation": evaluation}, out["agent"], cfg
 
 
@@ -4283,25 +4362,27 @@ def phase_ppo_recurrent_reference():
 # scan (64 forwards and 64 backwards at B = 16) and two imaginations (the
 # exploration actor's and the task actor's, 15 forwards each at B = 1024;
 # discrete actions take no gradient through them). Only these are cut: 64
-# iterations of random prefill (a window is 64 rows), then 4 gradient steps
-# per iteration (replay ratio 1) for 2 iterations, a checkpoint after the
-# first; finetuning plays the exploration actor for its 64 prefill
-# iterations (there is no random prefill) and takes 8 DreamerV3 steps.
+# iterations of random prefill (a window is 64 rows), then gradient steps at
+# the cut replay ratio (``P2E_CUTS``: 2 in all, one each side of the
+# checkpoint at the first training iteration); finetuning plays the
+# exploration actor for its 64 prefill iterations (there is no random
+# prefill) and takes as many DreamerV3 steps.
 P2E_DEPTH, P2E_HIDDEN = 5120, 4096
 P2E_BATCH, P2E_SEQ, P2E_HORIZON, P2E_ENVS = 16, 64, 15, 4
 P2E_IMAGINED = P2E_BATCH * P2E_SEQ  # 1024
 P2E_FWD_BY_BATCH = {P2E_BATCH: P2E_SEQ, P2E_IMAGINED: 2 * P2E_HORIZON}
 P2E_BWD_BY_BATCH = {P2E_BATCH: P2E_SEQ}
 P2E_FT_FWD_BY_BATCH = {P2E_BATCH: P2E_SEQ, P2E_IMAGINED: P2E_HORIZON}
-# Cut to 4 gradient steps (from 8, by the replay ratio) to keep the whole script under 1000 s.
-P2E_CUTS = {"algo.learning_starts": "256 (from 1024)", "algo.total_steps": "260 (from 5000000)", "algo.replay_ratio": "0.5 (from 1; 4 gradient steps)",
+# Cut to 2 gradient steps (from 8, then 4 for phases 54-57, by the replay
+# ratio) to keep the whole script under 1000 s with phases 58-60.
+P2E_CUTS = {"algo.learning_starts": "256 (from 1024)", "algo.total_steps": "260 (from 5000000)", "algo.replay_ratio": "0.25 (from 1; 2 gradient steps)",
             "checkpoint.every": "256 (from 100000)", "metric.log_every": "256 (from 5000)"}  # fmt: skip
-P2E_ARGS = ["exp=p2e_dv3_exploration", "env=dummy", "algo.learning_starts=256", "algo.total_steps=260", "algo.replay_ratio=0.5",
+P2E_ARGS = ["exp=p2e_dv3_exploration", "env=dummy", "algo.learning_starts=256", "algo.total_steps=260", "algo.replay_ratio=0.25",
             "checkpoint.every=256", "metric.log_every=256", "checkpoint.save_last=True"]  # fmt: skip
-P2E_STEPS, P2E_RESUMED_FROM = 4, 2
-P2E_FT_CUTS = {"algo.learning_starts": "256 (from 16384)", "algo.total_steps": "260 (from 1000000)", "algo.replay_ratio": "0.5 (from 1; 4 gradient steps)",
+P2E_STEPS, P2E_RESUMED_FROM = 2, 1
+P2E_FT_CUTS = {"algo.learning_starts": "256 (from 16384)", "algo.total_steps": "260 (from 1000000)", "algo.replay_ratio": "0.25 (from 1; 2 gradient steps)",
                "checkpoint.every": "0 (from 100000)", "metric.log_every": "256 (from 5000)"}  # fmt: skip
-P2E_FT_ARGS = ["exp=p2e_dv3_finetuning", "env=dummy", "algo.learning_starts=256", "algo.total_steps=260", "algo.replay_ratio=0.5",
+P2E_FT_ARGS = ["exp=p2e_dv3_finetuning", "env=dummy", "algo.learning_starts=256", "algo.total_steps=260", "algo.replay_ratio=0.25",
                "checkpoint.every=0", "metric.log_every=256", "checkpoint.save_last=True"]  # fmt: skip
 P2E_CRITIC_TAGS = tuple(f"{t}_{n}" for t in ("Loss/value_loss_exploration", "Values_exploration/predicted_values",
                                               "Values_exploration/lambda_values", "Grads/critic_exploration") for n in ("extrinsic", "intrinsic"))  # fmt: skip
@@ -4419,14 +4500,10 @@ def p2e_chain(what, args, cuts, fwd_by_batch, bwd_by_batch, tags, ft_args, ft_cu
     ckpt = next((c for c in out["checkpoints"] if os.path.basename(c) == f"ckpt_{cfg.checkpoint.every}_0.ckpt"), None)
     if ckpt is None:
         fail(f"{what}: no checkpoint at policy step {cfg.checkpoint.every} ({out['checkpoints']})")
-    started = start_eval(out["checkpoints"][-1])  # runs beside the resume and the finetuning
-    try:
-        result = _p2e_resume_and_finetune(what, out, full, ckpt, fwd_by_batch, bwd_by_batch, steps_total, resumed_from, ft_args, ft_cuts,
-                                          ft_fwd, ft_bwd, log_root, agent_cls, kernels, ft_resume)  # fmt: skip
-    except BaseException:
-        started[2].kill()
-        raise
-    result["evaluation"] = finish_eval(started, out["test_reward"], f"{what} eval")
+    evaluation = defer_eval(out["checkpoints"][-1], out["test_reward"], f"{what} eval")
+    result = _p2e_resume_and_finetune(what, out, full, ckpt, fwd_by_batch, bwd_by_batch, steps_total, resumed_from, ft_args, ft_cuts,
+                                      ft_fwd, ft_bwd, log_root, agent_cls, kernels, ft_resume)  # fmt: skip
+    result["evaluation"] = evaluation
     result.update(cuts=cuts, gradient_steps=out["gradient_steps"], wall_s=wall_s, ln_gru_launches=counts,
                   seconds_per_gradient_step=statistics.median(b[1] - a[1] for a, b in zip(steps, steps[1:])), metrics_last_step=steps[-1][2])
     log(f"{what}: {steps_total} gradient steps in {out['policy_steps']} policy steps, {wall_s:.1f} s (median "
@@ -4493,32 +4570,27 @@ def _p2e_resume_and_finetune(what, out, full, ckpt, fwd_by_batch, bwd_by_batch, 
         fail(f"{what} finetuning: {tuned['gradient_steps']} gradient steps, LN-GRU {ft_counts}")
     finetuning = {"cuts": ft_cuts, "gradient_steps": tuned["gradient_steps"], "wall_s": ft_wall_s, "ln_gru_launches": ft_counts,
                   "player_switched_after_iteration": prefill}  # fmt: skip
-    started = start_eval(tuned["checkpoints"][-1])  # runs beside the resume
-    try:
-        if ft_resume:
-            ft_ckpt = next((c for c in tuned["checkpoints"] if os.path.basename(c) == f"ckpt_{ft_cfg.checkpoint.every}_0.ckpt"), None)
-            if ft_ckpt is None:
-                fail(f"{what} finetuning: no checkpoint at policy step {ft_cfg.checkpoint.every} ({tuned['checkpoints']})")
-            saved_steps = int(load_checkpoint(ft_ckpt)["gradient_steps"])
-            t0 = time.perf_counter()
-            again, again_steps, _, again_counts = dreamer_through_cli(
-                [*ft, f"checkpoint.exploration_ckpt_path={out['checkpoints'][-1]}", f"checkpoint.resume_from={ft_ckpt}"], f"{what} finetuning resume",
-                ft_fwd, ft_bwd,
-            )  # fmt: skip
-            finetuning["resume_s"] = time.perf_counter() - t0
-            if [s[0] for s in again_steps] != list(range(saved_steps + 1, tuned["gradient_steps"] + 1)) or not again_steps:
-                fail(f"{what} finetuning resume: gradient steps {[s[0] for s in again_steps]} after the checkpoint's {saved_steps}")
-            differ = _same_state(tuned["agent"].state_dict(), again["agent"].state_dict()) + _same_optimizers(tuned["optimizers"], again["optimizers"])
-            if differ or (not kernels and _launched(again_counts)):
-                fail(f"{what} finetuning resume: {len(differ)} tensors differ from the uninterrupted run, e.g. {differ[:4]}; LN-GRU {again_counts}")
-            finetuning["resumed_from_gradient_step"] = saved_steps
-            shutil.rmtree(again["log_dir"], ignore_errors=True)
-            del again
-    except BaseException:
-        started[2].kill()
-        raise
-    finetuning["evaluation"] = finish_eval(started, tuned["test_reward"], f"{what} finetuning eval")
-    shutil.rmtree(tuned["log_dir"], ignore_errors=True)
+    finetuning["evaluation"] = defer_eval(tuned["checkpoints"][-1], tuned["test_reward"], f"{what} finetuning eval")
+    if ft_resume:
+        ft_ckpt = next((c for c in tuned["checkpoints"] if os.path.basename(c) == f"ckpt_{ft_cfg.checkpoint.every}_0.ckpt"), None)
+        if ft_ckpt is None:
+            fail(f"{what} finetuning: no checkpoint at policy step {ft_cfg.checkpoint.every} ({tuned['checkpoints']})")
+        saved_steps = int(load_checkpoint(ft_ckpt)["gradient_steps"])
+        t0 = time.perf_counter()
+        again, again_steps, _, again_counts = dreamer_through_cli(
+            [*ft, f"checkpoint.exploration_ckpt_path={out['checkpoints'][-1]}", f"checkpoint.resume_from={ft_ckpt}"], f"{what} finetuning resume",
+            ft_fwd, ft_bwd,
+        )  # fmt: skip
+        finetuning["resume_s"] = time.perf_counter() - t0
+        if [s[0] for s in again_steps] != list(range(saved_steps + 1, tuned["gradient_steps"] + 1)) or not again_steps:
+            fail(f"{what} finetuning resume: gradient steps {[s[0] for s in again_steps]} after the checkpoint's {saved_steps}")
+        differ = _same_state(tuned["agent"].state_dict(), again["agent"].state_dict()) + _same_optimizers(tuned["optimizers"], again["optimizers"])
+        if differ or (not kernels and _launched(again_counts)):
+            fail(f"{what} finetuning resume: {len(differ)} tensors differ from the uninterrupted run, e.g. {differ[:4]}; LN-GRU {again_counts}")
+        finetuning["resumed_from_gradient_step"] = saved_steps
+        shutil.rmtree(again["log_dir"], ignore_errors=True)
+        del again
+    remove_after_evals(tuned["log_dir"])
     return {"resume_s": resume_s, "finetuning": finetuning}
 
 
@@ -4541,7 +4613,7 @@ def phase_p2e_kernels():
 
 def phase_p2e_training(log_root):
     """(32) ``exp=p2e_dv3_exploration env=dummy`` through the CLI at XL
-    width, cut (``P2E_CUTS``) to 4 gradient steps of 64 + 30 forwards and 64
+    width, cut (``P2E_CUTS``) to 2 gradient steps of 64 + 30 forwards and 64
     backwards each, then its resume, ``eval``, and finetuning (``P2E_FT_CUTS``,
     DreamerV3's 64 + 15 forwards a step) with its ``eval`` (:func:`p2e_chain`)."""
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import DV3Agent
@@ -4789,7 +4861,7 @@ def phase_p2e_dv2(log_root):
     rows = streaming_rows("p2e dv2", P2E2_DEPTH, P2E2_HIDDEN, shapes, (torch.float32,), seed=9)
     result, out = p2e_chain("p2e dv2 training", P2E2_ARGS, P2E2_CUTS, P2E2_FWD_BY_BATCH, P2E2_BWD_BY_BATCH, P2E2_TAGS, P2E2_FT_ARGS,
                             P2E2_FT_CUTS, P2E2_FT_BY_BATCH, P2E2_FT_BY_BATCH, log_root, DV2Agent)  # fmt: skip
-    shutil.rmtree(out["log_dir"], ignore_errors=True)
+    remove_after_evals(out["log_dir"])
     cfg = compose(P2E2_ARGS)
     dev = torch.device("cuda")
     step = p2e.make_train_step(out["agent"], p2e.make_optimizers(out["agent"], cfg), cfg)
@@ -4906,7 +4978,7 @@ def phase_p2e_dv1(log_root):
 
     result, out = p2e_chain("p2e dv1 training", P2E1_ARGS, P2E1_CUTS, {}, {}, P2E1_TAGS, P2E1_FT_ARGS, P2E1_FT_CUTS, {}, {}, log_root, DV1Agent,
                             kernels=False, ft_resume=True)  # fmt: skip
-    shutil.rmtree(out["log_dir"], ignore_errors=True)
+    remove_after_evals(out["log_dir"])
     cfg = compose(P2E1_ARGS)
     dev = torch.device("cuda")
     step = p2e.make_train_step(out["agent"], p2e.make_optimizers(out["agent"], cfg), cfg)
@@ -4952,22 +5024,17 @@ def phase_sac_ae(log_root):
     if tuple(out["agent"].encoder.cnn_encoder.fc.weight.shape) != (int(cfg.algo.encoder.features_dim), grid):
         fail(f"sac_ae: fc {tuple(out['agent'].encoder.cnn_encoder.fc.weight.shape)}, not {grid} -> {cfg.algo.encoder.features_dim}")
     [ckpt] = [c for c in out["checkpoints"] if os.path.basename(c) == "ckpt_12_0.ckpt"]
-    started = start_eval(out["checkpoints"][-1])
-    try:
-        t0 = time.perf_counter()
-        again, resumed = offpolicy_through_cli([*SAC_AE_ARGS, f"checkpoint.resume_from={ckpt}"], SAC_AE_CUTS, "sac_ae resume", log_root)
-        resume_s = time.perf_counter() - t0
-        (pa, aa), (pb, ab) = _state_of(out), _state_of(again)
-        differ = [k for k in pa if not torch_equal_bits(pa[k], pb[k])] + [k for k in aa if not torch_equal_bits(aa[k], ab[k])]
-        if differ or pa.keys() != pb.keys() or aa.keys() != ab.keys() or again["gradient_steps"] != out["gradient_steps"]:
-            fail(f"sac_ae resume: the resumed run ends off the uninterrupted one: {differ[:5]}")
-    except BaseException:
-        started[2].kill()
-        raise
-    evaluation = finish_eval(started, out["test_reward"], "sac_ae eval")
+    evaluation = defer_eval(out["checkpoints"][-1], out["test_reward"], "sac_ae eval")
+    t0 = time.perf_counter()
+    again, resumed = offpolicy_through_cli([*SAC_AE_ARGS, f"checkpoint.resume_from={ckpt}"], SAC_AE_CUTS, "sac_ae resume", log_root)
+    resume_s = time.perf_counter() - t0
+    (pa, aa), (pb, ab) = _state_of(out), _state_of(again)
+    differ = [k for k in pa if not torch_equal_bits(pa[k], pb[k])] + [k for k in aa if not torch_equal_bits(aa[k], ab[k])]
+    if differ or pa.keys() != pb.keys() or aa.keys() != ab.keys() or again["gradient_steps"] != out["gradient_steps"]:
+        fail(f"sac_ae resume: the resumed run ends off the uninterrupted one: {differ[:5]}")
     log(f"sac_ae resume: from {os.path.basename(ckpt)} the run ends on the uninterrupted run's {len(pa)} parameter and {len(aa)} Adam tensors "
         f"bit for bit, in {resume_s:.1f} s; flags met {len(set(flags))} of 8 combinations over {len(flags)} gradient steps")  # fmt: skip
-    shutil.rmtree(out["log_dir"], ignore_errors=True)
+    remove_after_evals(out["log_dir"])
     shutil.rmtree(again["log_dir"], ignore_errors=True)
     return {"host": host, "resume": {**resumed, "wall_s": resume_s, "tensors_bit_for_bit": len(pa) + len(aa)}, "evaluation": evaluation,
             "flag_combinations": len(set(flags)), "seconds_per_gradient_step": host["wall_s"] / host["gradient_steps"]}  # fmt: skip
@@ -5187,7 +5254,9 @@ def phases_37_41(workdir):
     p2e_dv1 = phase_p2e_dv1(workdir)
     sac_ae = phase_sac_ae(workdir)
     sac_ae_profile = phase_sac_ae_profile()
-    new_reference = phase_new_reference()
+    # The evaluations of the P2E chains, SAC-AE and the Anakin lane, beside the card-against-CPU references (which time nothing).
+    with evals_beside("new reference"):
+        new_reference = phase_new_reference()
     took = time.perf_counter() - t0
     log(f"p2e_dv1, sac_ae: phases 37-41 took {took:.1f} s")
     return {"p2e_dv1": p2e_dv1, "sac_ae": sac_ae, "sac_ae_profile": sac_ae_profile, "new_reference": new_reference, "phases_37_41_s": took}
@@ -5202,7 +5271,7 @@ ANAKIN_ENV_TOL = {"atol": 1e-5, "rtol": 1e-5}  # f32 physics: the card's sin, co
 DV3A_DEPTH, DV3A_HIDDEN = 1024, 512
 DV3A_ENVS, DV3A_BATCH, DV3A_SEQ, DV3A_HORIZON, DV3A_SUPERSTEP = 4, 8, 32, 15, 16
 DV3A_IMAGINED = DV3A_BATCH * DV3A_SEQ  # 256
-DV3A_PROFILED_REPLAYS = 8  # of a superstep's 32 gradient-step replays, profiled (cut from 32 to make room for phases 54-57)
+DV3A_PROFILED_REPLAYS = 4  # of a superstep's 32 gradient-step replays, profiled (cut from 32 for phases 54-57, from 8 for phases 58-60)
 DV3A_CUTS = {"algo.total_steps": "1152 (from 100000: the 1024 prefill steps, then two supersteps of 64 with 32 gradient steps each)",
              "metric.log_every": "512 (from 5000)"}  # fmt: skip
 DV3A_ARGS = ["exp=dreamer_v3_anakin", "algo.total_steps=1152", "metric.log_every=512"]
@@ -5214,10 +5283,14 @@ DV3A_BF16_ARGS = ["exp=dreamer_v3_anakin", "fabric.precision=bf16-mixed", "algo.
 DV3A_ROLLOUT_NODES = {"streaming": DV3A_SUPERSTEP, "tensor_core": 0, "backward": 0}
 DV3A_STEP_NODES = {"streaming": DV3A_SEQ + DV3A_HORIZON, "tensor_core": 0, "backward": DV3A_SEQ}
 DV3A_BF16_STEP_NODES = {"streaming": DV3A_SEQ, "tensor_core": DV3A_HORIZON, "backward": DV3A_SEQ}
-PPOA_CUTS = {"algo.total_steps": "4096 (from 65536: 8 supersteps of 128 steps x 4 envs)", "metric.log_every": "2048 (from 5000)"}
-PPOA_ARGS = ["exp=ppo_anakin", "algo.total_steps=4096", "metric.log_every=2048"]
-SACA_CUTS = {"algo.total_steps": "2048 (from 65536: 4 prefill supersteps of 64 x 4 envs, then 4 of training)", "metric.log_every": "1024 (from 5000)"}
-SACA_ARGS = ["exp=sac_anakin", "algo.total_steps=2048", "metric.log_every=1024"]
+# Cut from 4096 (8 supersteps) and 2048 (4 prefill supersteps, then 4 of
+# training) to make room for phases 58-60 under 1000 s: the SAC host lane's
+# 1024 training steps took 12 s at its 82 env steps/s.
+PPOA_CUTS = {"algo.total_steps": "2048 (from 65536: 4 supersteps of 128 steps x 4 envs)", "metric.log_every": "1024 (from 5000)"}
+PPOA_ARGS = ["exp=ppo_anakin", "algo.total_steps=2048", "metric.log_every=1024"]
+SACA_CUTS = {"algo.total_steps": "1024 (from 65536: 2 prefill supersteps of 64 x 4 envs, then 2 of training)",
+             "algo.learning_starts": "512 (from 1024)", "metric.log_every": "512 (from 5000)"}  # fmt: skip
+SACA_ARGS = ["exp=sac_anakin", "algo.total_steps=1024", "algo.learning_starts=512", "metric.log_every=512"]
 
 
 def phase_anakin_envs():
@@ -5486,8 +5559,7 @@ def phase_dv3_anakin(workdir):
     gc.collect()
     torch.cuda.empty_cache()
 
-    # Eval in a process of its own while the run resumes (neither is timed).
-    started = start_eval(ckpt)
+    evaluation = defer_eval(ckpt, test_reward, f"{what} eval")
     zero_counts()
     # Without the ring in the checkpoint the resumed run waits learning_starts (0 here) from its
     # start, and the restored Ratio trains again in the second superstep, as the host lane does.
@@ -5498,7 +5570,6 @@ def phase_dv3_anakin(workdir):
     del resumed
     gc.collect()
     torch.cuda.empty_cache()
-    evaluation = finish_eval(started, test_reward, f"{what} eval")
 
     # bf16-mixed: the tensor-core kernel at B = 256 in the lane.
     zero_counts()
@@ -5539,6 +5610,11 @@ def _lane_run(args, what, log_root, fused):
     return out, stamps, wall_s
 
 
+def cfg_total(args):
+    """``algo.total_steps`` of an exp's argument list."""
+    return int(next(a for a in args if a.startswith("algo.total_steps=")).split("=")[1])
+
+
 def phase_onpolicy_offpolicy_anakin(workdir):
     """(45, 46) ``exp=ppo_anakin`` and ``exp=sac_anakin`` through the CLI at
     the recipes' widths (``PPOA_CUTS``, ``SACA_CUTS``) on the fused lane and
@@ -5558,17 +5634,18 @@ def phase_onpolicy_offpolicy_anakin(workdir):
         fused, f_stamps, f_wall = _lane_run(args, what, workdir, True)
         host, h_stamps, h_wall = _lane_run(args, f"{what} host lane", workdir, False)
         stats, rollout = fused["run_stats"], fused["rollout"]["graphs"]
+        supersteps = int(cfg_total(args)) // (128 * 4 if algo == "ppo" else 64 * 4)
         if algo == "ppo":
             T, E = 128, 4
             per_callback_fused = per_callback_host = T * E
-            if not fused["updates"] == host["updates"] == 8 or stats["rollout_replays"] != 7 or rollout["c128_r0"]["graph"] is None:
+            if not fused["updates"] == host["updates"] == supersteps or stats["rollout_replays"] != supersteps - 1 or rollout["c128_r0"]["graph"] is None:
                 fail(f"{what}: {fused['updates']} and {host['updates']} updates, {stats}, {rollout}")
             replays = {"rollout_with_update": 1}
             keys = ((T, False),)
         else:
             E, chunk = 4, 64
             per_callback_fused, per_callback_host = chunk * E, E
-            if fused["gradient_steps"] != host["gradient_steps"] or stats["supersteps"] != 8 or set(rollout) != {"c64_r1", "c64_r0"}:
+            if fused["gradient_steps"] != host["gradient_steps"] or stats["supersteps"] != supersteps or set(rollout) != {"c64_r1", "c64_r0"}:
                 fail(f"{what}: {fused['gradient_steps']} and {host['gradient_steps']} gradient steps, {stats}, {rollout}")
             replays = {"rollout": 1, "train_per_gradient_step": 1, "train_per_steady_superstep": chunk * E}
             keys = ((chunk, True), (chunk, False))
@@ -5583,20 +5660,19 @@ def phase_onpolicy_offpolicy_anakin(workdir):
             f"graph replays per superstep {json.dumps(replays)}; env steps/s between the first and last callbacks: fused {fused_sps:.1f}, host lane "
             f"{host_sps:.1f} (fused/host {fused_sps / host_sps:.2f}); whole runs {whole[0]:.1f} and {whole[1]:.1f} (set-up, captures and test episode included)")  # fmt: skip
         ckpt, test_reward = fused["checkpoints"][-1], fused["test_reward"]
-        total = int(args[1].split("=")[1]) + per_callback_fused
+        total = cfg_total(args) + per_callback_fused
         shutil.rmtree(host["log_dir"], ignore_errors=True)
         del fused, host
         gc.collect()
         torch.cuda.empty_cache()
         starts = ["algo.learning_starts=0"] if algo == "sac" else []
-        started = start_eval(ckpt)  # in a process of its own while the run resumes
+        evaluation = defer_eval(ckpt, test_reward, f"{what} eval")
         resumed = run([args[0], f"algo.total_steps={total}", *starts, f"checkpoint.resume_from={ckpt}", f"log_root={workdir}"])
         if resumed["policy_steps"] != total:
             fail(f"{what}: resumed to {resumed['policy_steps']} policy steps, expected {total}")
         del resumed
         gc.collect()
         torch.cuda.empty_cache()
-        evaluation = finish_eval(started, test_reward, f"{what} eval")
         results[algo] = {"cuts": cuts, "run_stats": stats, "rollouts": {k: {kk: vv for kk, vv in v.items()} for k, v in rollout.items()},
                          "graph_replays_per_superstep": replays, "graph_vs_eager": graphs, "env_steps_per_s": {"fused": fused_sps, "host": host_sps},
                          "fused_vs_host": fused_sps / host_sps, "whole_run_env_steps_per_s": {"fused": whole[0], "host": whole[1]},
@@ -6185,7 +6261,8 @@ def phase_sac_decoupled(log_root):
         iters = int(cfg.algo.total_steps) // int(cfg.env.num_envs)
         result[sync] = {"gradient_steps": out["gradient_steps"], "host_wall_s": wall, "host_wall_ms_per_iteration": wall * 1e3 / iters,
                         "placement": out["placement"], "mirror_issue_ms_per_push": out["placement"]["push_s"] * 1e3 / max(1, out["placement"]["pushes"]),
-                        "ln_gru_launches": counts, "first_call_card_vs_cpu": reference, "test_reward": out["test_reward"]}  # fmt: skip
+                        "ln_gru_launches": counts, "first_call_card_vs_cpu": reference, "test_reward": out["test_reward"],
+                        "last_checkpoint": out["checkpoints"][-1]}  # fmt: skip
         if sync == "fresh":
             mid = next(c for c in out["checkpoints"] if "ckpt_96_" in c)
             resumed = run([*args, f"checkpoint.resume_from={mid}", f"log_root={log_root}"])
@@ -7070,6 +7147,497 @@ def phases_54_57(workdir, path=None):
     return {"health": health, "preemption": preemption, "drills": drills, "serving_drain": serving, "phases_54_57_s": took}
 
 
+# Phases 58-60: the actor fleet (exp=sac_decoupled and exp=ppo_decoupled with
+# fleet.replicas=2: two replica processes playing on the CPU, the learner on
+# the card) and DreamerV3's XS, M and L sizes on the LN-GRU kernels.
+FLEET_REPLICAS = 2
+SACF_ARGS = [*SACD_ARGS, f"fleet.replicas={FLEET_REPLICAS}", "fleet.param_sync_every=4"]
+SACF_CUTS = {**SACD_CUTS, "fleet.replicas": "2 (from 1)", "fleet.param_sync_every": "4 (from 16: a broadcast every 4 of the run's 32 iterations)"}
+SACF_KILL_AT = 16  # replica 0's env steps: its 4th shipment
+# The kill9 drill runs 1024 policy steps (240 gradient-step iterations), so
+# that the restarted generation ships before the run ends. Its first train
+# call is the one held against the CPU, and the resumed run of the sigterm
+# drill is the no-fault run (a fourth run, SACF_ARGS without a fault, was
+# cut to keep the command under its time limit: most of its time was the
+# replicas' spawn).
+SACF_KILL_ARGS = [*[a for a in SACF_ARGS if not a.startswith("algo.total_steps=")], "algo.total_steps=1024"]
+SACF_SIGNAL = 64  # the learner's policy step of the sigterm drill
+PPOF_ARGS = [*[a for a in PPOD_ARGS if not a.startswith("algo.total_steps=")], "algo.total_steps=3072", f"fleet.replicas={FLEET_REPLICAS}"]
+PPOF_CUTS = {**PPOD_CUTS, "algo.total_steps": "3072 (from 65536; 3 rounds of 2 rollouts of 128 x 4)", "fleet.replicas": "2 (from 1)"}
+# One run: rounds 1 and 2 have no fault (round 2, whose replicas are built,
+# is the one timed); replica 0 dies shipping its third rollout (its env steps
+# reach 1536), so round 3 takes its restart.
+PPOF_KILL_AT = 1536
+# Each Adam step of the first update from the card's state against one CPU
+# step: limits about ten times the readings of every chip run (a leaf's change
+# 3.1e-4, an Adam moment 1.6e-4 on an NVIDIA H100 80GB HBM3 at 700 W), so
+# that an error of a few percent in the step fails. The card's losses over
+# the update's first 72 Adam steps against the CPU's own update, before the
+# clip's flip at step 73 parts them: about ten times the worst reading (a
+# relative 8.5e-5, value_loss at step 12, on the same card).
+PPOF_STEP_TOL = {"loss_rtol": 1e-3, "loss_atol": 1e-5, "param_change": 3e-3, "adam_moment": 3e-3}
+PPOF_TRAJECTORY_STEPS = 72
+PPOF_TRAJECTORY_TOL = {"loss_rtol": 1e-3, "loss_atol": 1e-4}
+DV3_SIZES = {  # (D = H + dense_units: the cell's input is concat[h, x], H) of algo=dreamer_v3_<size>
+    "XS": (512, 256), "M": (1664, 1024), "L": (2816, 2048),
+}
+DV3_SIZE_BATCHES = ((16, "dynamic scan"), (1024, "imagination"), (1, "player"))
+DV3_SIZE_BWD = (16, 1024)
+DV3_SIZE_ARGS = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "algo.learning_starts=128", "algo.total_steps=128", "buffer.size=4096",
+                 "buffer.memmap=False", "metric.log_level=0", "algo.run_test=False", "checkpoint.save_last=False"]  # fmt: skip
+DV3_SIZE_CUTS = {"algo.learning_starts": "128 (from 1024)", "algo.total_steps": "128 (from 100000; 1 gradient step)",
+                 "buffer.size": "4096 in memory (from 100000 memory-mapped)", "algo.run_test": "False", "checkpoint.save_last": "False"}  # fmt: skip
+
+
+def _fleet_spy():
+    """Patches on the fleet supervisor that record, without changing what it
+    does: each spawn's replica, generation and seed, each death's time, the
+    first shipment each restarted generation hands the learner, and when
+    ``start`` returned (every replica said hello)."""
+    from sheeprl_tpu_torch.core.fleet import FleetSupervisor
+
+    spy = {"spawns": [], "deaths": [], "first_after_death": {}, "shippers": set(), "cuda_in_replica": []}
+    spawn, on_death, hand, start = FleetSupervisor._spawn, FleetSupervisor._on_death, FleetSupervisor._hand_to_learner, FleetSupervisor.start
+
+    def timing_start(self):
+        start(self)
+        spy["started_at"] = time.perf_counter()
+
+    def spying_spawn(self, slot):
+        spawn(self, slot)
+        spy["spawns"].append({"replica": slot.index, "generation": slot.generation, "seed": slot.seed})
+
+    def spying_death(self, slot, reason):
+        spy["deaths"].append({"replica": slot.index, "generation": slot.generation, "reason": reason, "t": time.perf_counter()})
+        on_death(self, slot, reason)
+
+    def spying_hand(self, shipment):
+        key = (shipment.replica, shipment.generation)
+        spy["shippers"].add(shipment.replica)
+        if shipment.meta.get("cuda_initialized", True):
+            spy["cuda_in_replica"].append(key)
+        if shipment.generation > 0 and key not in spy["first_after_death"]:
+            spy["first_after_death"][key] = time.perf_counter()
+        return hand(self, shipment)
+
+    stack = ExitStack()
+    for name, fn in (("_spawn", spying_spawn), ("_on_death", spying_death), ("_hand_to_learner", spying_hand), ("start", timing_start)):
+        stack.enter_context(patched(FleetSupervisor, name, fn))
+    return stack, spy
+
+
+def _fleet_run(args, what, log_root, record_module=None, record_name=None, callback=None):
+    """One fleet run through the CLI on the card: the LN-GRU counts zeroed
+    just before and read just after (all 0), every shipment's word that its
+    replica had no CUDA context (``torch.cuda.is_initialized()`` false there),
+    the learner's host wall from the fleet's start (every replica's hello) to
+    the run's end, the spy's records, and, with ``record_module``, its first
+    train call recorded (``_recording``)."""
+    import torch
+
+    from sheeprl_tpu_torch.cli import run
+
+    record = {}
+    stack, spy = _fleet_spy()
+    with stack, ExitStack() as rec:
+        if record_module is not None:
+            rec.enter_context(_recording(record_module, record_name, record))
+        zero_counts()
+        out = run([*args, f"log_root={log_root}"], callback=callback)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - spy["started_at"]
+    counts = read_counts()
+    if counts["forward"] or counts["backward"]:
+        fail(f"{what}: LN-GRU launches {counts}")
+    if out["fleet"] is None or out["fleet"]["replicas"] != FLEET_REPLICAS:
+        fail(f"{what}: the run did not act through a fleet of {FLEET_REPLICAS}: {out.get('fleet')}")
+    params = [v for v in out["agent"].state_dict().values() if v.is_floating_point()]
+    if not all(torch.isfinite(p).all() for p in params):
+        fail(f"{what}: non-finite parameters")
+    if spy["cuda_in_replica"]:
+        fail(f"{what}: replicas (replica, generation) {sorted(set(spy['cuda_in_replica']))} shipped with a CUDA context open")
+    return out, wall, counts, spy, record
+
+
+def _check_restart(what, spy, replica=0):
+    """One death of ``replica``'s generation 0, its generation 1 spawned with
+    ``replica_seed(seed, replica, 1)``; returns the death-to-first-shipment
+    seconds (None if the run ended before the new generation shipped)."""
+    from sheeprl_tpu_torch.core.fleet import replica_seed
+
+    deaths = [d for d in spy["deaths"] if d["replica"] == replica]
+    gen1 = [s for s in spy["spawns"] if s["replica"] == replica and s["generation"] == 1]
+    if len(spy["deaths"]) != 1 or len(deaths) != 1 or len(gen1) != 1 or gen1[0]["seed"] != replica_seed(5, replica, 1):
+        fail(f"{what}: deaths {spy['deaths']}, spawns {spy['spawns']} (expected one death of replica {replica} and its generation 1 seeded "
+             f"{replica_seed(5, replica, 1)})")  # fmt: skip
+    first = spy["first_after_death"].get((replica, 1))
+    return None if first is None else first - deaths[0]["t"]
+
+
+def phase_sac_fleet(log_root, nonfleet=None):
+    """(58) ``exp=sac_decoupled`` (phase 49's cuts) with ``fleet.replicas=2``,
+    three runs: a ``kill9`` on replica 0 (``SACF_KILL_ARGS``: one restart,
+    its generation 1 seeded ``replica_seed(seed, 0, 1)``, shipments from both
+    replicas, the run completes; death to the new generation's first
+    shipment printed), whose first train call is held against the CPU at
+    phase 49's bounds; a ``sigterm`` to the learner (drain, the save at the
+    signal's step; drain-to-exit printed); and ``checkpoint.resume_from=auto``
+    to the end, with no fault: no row dropped, shipments from both replicas,
+    as many gradient steps as phase 49's non-fleet run, and that run's
+    ``iter_num`` and buffer position (``nonfleet``: its gradient steps and
+    last checkpoint). No replica opens a CUDA context."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.sac import sac as sac_module
+    from sheeprl_tpu_torch.algos.sac.agent import build_agent
+    from sheeprl_tpu_torch.algos.sac.sac import make_optimizers, make_train_step
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.core import chaos
+    from sheeprl_tpu_torch.core.resilience import last_guard_stats
+    from sheeprl_tpu_torch.envs.dummy import ContinuousDummyEnv
+    from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, parse_ckpt_name
+
+    t0 = time.perf_counter()
+    root = os.path.join(log_root, "sac_fleet")
+    if nonfleet is None:  # run alone: phase 49's no-fault run, taken here
+        out = _decoupled_run(SACD_ARGS, "sac_decoupled (58's baseline)", os.path.join(root, "nonfleet"))[0]
+        nonfleet = {"gradient_steps": out["gradient_steps"], "last_checkpoint": out["checkpoints"][-1]}
+    nonfleet_steps = nonfleet["gradient_steps"]
+
+    chaos.reset()
+    killed, kill_wall, counts, kspy, record = _fleet_run(
+        [*SACF_KILL_ARGS, "seed=5", *_chaos(f"{{kind: kill9, at_step: {SACF_KILL_AT}, replica: 0}}")], "sac fleet kill9", os.path.join(root, "kill9"),
+        sac_module, "make_train_step",
+    )  # fmt: skip
+    restart_s = _check_restart("sac fleet kill9", kspy)
+    if killed["fleet"]["restarts"] != 1 or killed["fleet"]["generations"] != [1, 0] or restart_s is None or kspy["shippers"] != {0, 1}:
+        fail(f"sac fleet kill9: {killed['gradient_steps']} gradient steps, fleet {killed['fleet']}, shippers {kspy['shippers']}")
+    cfg = compose([*SACF_KILL_ARGS, "device=cpu"])
+    env = ContinuousDummyEnv(action_dim=int(cfg.env.wrapper.action_dim))
+    agent = build_agent(cfg, env.observation_space, env.action_space, agent_state=record["start"], device="cpu")
+    optimizers = make_optimizers(agent, cfg)
+    reference = _replay_on_cpu("sac fleet first train call", record, agent, optimizers, make_train_step(agent, optimizers, cfg),
+                               {"loss_rtol": 1e-4, "loss_atol": 1e-6, "param_change": SAC_PARAM_CHANGE_TOL, "adam_moment": SAC_MOMENT_TOL})  # fmt: skip
+
+    chaos.reset()
+    sig_root = os.path.join(root, "sigterm")
+    _fleet_run([*SACF_ARGS, "seed=5", *_chaos(f"{{kind: sigterm, at_step: {SACF_SIGNAL}}}")], "sac fleet sigterm", sig_root)
+    guard = last_guard_stats()
+    saved = _newest(sig_root)
+    if not guard["preempted"] or not saved or parse_ckpt_name(saved[-1])[0] != SACF_SIGNAL:
+        fail(f"sac fleet sigterm: guard {guard}, checkpoints {saved}")
+    chaos.reset()
+    resumed, wall, _, rspy, _ = _fleet_run([*SACF_ARGS, "seed=5", f"checkpoint.resume_from=auto:{sig_root}"], "sac fleet resume", sig_root)
+    fleet = resumed["fleet"]
+    a, b = load_checkpoint(nonfleet["last_checkpoint"]), load_checkpoint(_newest(sig_root)[-1])
+    if a["iter_num"] != b["iter_num"] or a["rb"]["pos"] != b["rb"]["pos"] or resumed["gradient_steps"] != nonfleet_steps:
+        fail(f"sac fleet sigterm: resumed to iter {b['iter_num']} pos {b['rb']['pos']} ({resumed['gradient_steps']} gradient steps), phase 49's "
+             f"no-fault run iter {a['iter_num']} pos {a['rb']['pos']} ({nonfleet_steps})")  # fmt: skip
+    if fleet["rows_dropped"] or fleet["restarts"] or rspy["shippers"] != {0, 1}:
+        fail(f"sac fleet resume (no fault): fleet {fleet}, shippers {rspy['shippers']}")
+    iters = (cfg_total(SACF_ARGS) - SACF_SIGNAL) // int(cfg.env.num_envs)  # the resumed run's
+    result = {"cuts": SACF_CUTS, "gradient_steps": resumed["gradient_steps"], "nonfleet_gradient_steps": nonfleet_steps, "host_wall_s": wall,
+              "host_wall_ms_per_iteration": wall * 1e3 / iters, "fleet": fleet, "ln_gru_launches": counts,
+              "first_call_card_vs_cpu": reference, "kill9": {"at_step": SACF_KILL_AT, "fleet": killed["fleet"], "death_to_first_shipment_s": restart_s,
+              "spawns": kspy["spawns"], "host_wall_s": kill_wall}, "sigterm": {"signal_at": SACF_SIGNAL, "saved_at": parse_ckpt_name(saved[-1])[0],
+              "drain_to_exit_s": guard["drain_to_exit_s"], "iter_num": b["iter_num"], "rb_pos": b["rb"]["pos"]},
+              "took_s": time.perf_counter() - t0}  # fmt: skip
+    log(f"sac fleet (58): resumed no-fault run {resumed['gradient_steps']} gradient steps in all (non-fleet {nonfleet_steps}), {result['host_wall_ms_per_iteration']:.2f} "
+        f"ms learner host wall an iteration after its replicas' hellos, replicas' spawn-to-hello {[round(s, 3) for s in fleet['hello_s']]} s, broadcasts "
+        f"{fleet['param_bytes']} bytes in {fleet['param_send_s'] * 1e3:.3f} ms of pump sends; first train call (kill9 run) card vs CPU: worst leaf "
+        f"{reference['worst_param_change']}, worst moment {reference['worst_adam_moment']}; kill9 at replica 0's step {SACF_KILL_AT}: 1 restart, death to "
+        f"first shipment {restart_s:.3f} s; sigterm at {SACF_SIGNAL}: saved at {result['sigterm']['saved_at']}, drain-to-exit "
+        f"{guard['drain_to_exit_s']:.3f} s, resumed to iter {b['iter_num']} pos {b['rb']['pos']} (phase 49's no-fault run: the same); took "
+        f"{result['took_s']:.1f} s (cuts {json.dumps(SACF_CUTS)})")  # fmt: skip
+    torch.cuda.empty_cache()
+    return result
+
+
+def _ppo_steps_on_cpu(what, record, cfg, tol, trajectory_tol, trajectory_steps):
+    """The recorded first update replayed on the card from the recorded
+    state: it must end bit for bit where the run's ended. Then each of its
+    Adam steps is held against one CPU step from the card's own state and
+    Adam state at that step (the losses within ``tol['loss_rtol']``, each
+    leaf's change and Adam moment within ``tol``), and the card's losses of
+    its first ``trajectory_steps`` steps against the CPU's own update from
+    the recorded state (within ``trajectory_tol``). Past those steps the
+    clipped surrogate's kink parts the two trajectories (on the chip, a ratio
+    1.19999967 on the card and 1.20001165 on the CPU at step 73: the two
+    sides of the clip), which no bound on rounding covers: the whole
+    update's gaps are reported."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.ppo import make_update_pool
+    from sheeprl_tpu_torch.core.onpolicy import make_optimizer
+
+    obs_space, actions_dim, continuous = _ppo_spaces(cfg)
+
+    def setup(dev):
+        agent = build_agent(actions_dim, continuous, cfg, obs_space, device=dev, agent_state=record["start"])
+        optimizer, _ = make_optimizer(agent, cfg)
+        return agent, optimizer, make_update_pool(agent, optimizer, cfg)
+
+    def moments(agent, optimizer):
+        names = dict(agent.named_parameters())
+        return {f"{m} {n}": optimizer.state[p][m].detach().cpu().clone() for n, p in names.items() for m in ("exp_avg", "exp_avg_sq")}
+
+    def gap_of(got, want, k):
+        return abs(float(got[k]) - float(want[k]))
+
+    pool, indices, clip, ent = record["args"]
+    card, card_opt, card_step = setup("cuda")
+    cpu, cpu_opt, cpu_step = setup("cpu")
+    whole_cpu, whole_opt, whole_step = setup("cpu")  # the CPU's own update, step by step
+    card_pool = {k: v.cuda() for k, v in pool.items()}
+    steps = [(e, m) for e in range(indices.shape[0]) for m in range(indices.shape[1])]
+    worst_loss, worst_param, worst_moment, worst_trajectory = 0.0, (0.0, ""), (0.0, ""), (0.0, "")
+    for i, (e, m) in enumerate(steps):
+        start = {k: v.detach().cpu().clone() for k, v in card.state_dict().items()}
+        cpu.load_state_dict(start)
+        if card_opt.state:
+            state = card_opt.state_dict()
+            # The CPU's own groups: the card's Adam is capturable, the CPU's not (the learning rate is one through the update).
+            cpu_opt.load_state_dict({"state": {i: {k: v.detach().cpu().clone() for k, v in s.items()} for i, s in state["state"].items()},
+                                     "param_groups": cpu_opt.state_dict()["param_groups"]})  # fmt: skip
+        got = card_step(card_pool, indices[e : e + 1, m : m + 1].cuda(), clip.cuda(), ent.cuda())
+        want = cpu_step(pool, indices[e : e + 1, m : m + 1], clip, ent)
+        own = whole_step(pool, indices[e : e + 1, m : m + 1], clip, ent)
+        for k in want:
+            gap = gap_of(got, want, k)
+            if gap > tol["loss_atol"] + tol["loss_rtol"] * abs(float(want[k])):
+                fail(f"{what}: Adam step {e},{m}: {k} {float(got[k])} on the card, {float(want[k])} on the CPU")
+            worst_loss = max(worst_loss, gap)
+            if i < trajectory_steps:
+                gap = gap_of(got, own, k)
+                if gap > trajectory_tol["loss_atol"] + trajectory_tol["loss_rtol"] * abs(float(own[k])):
+                    fail(f"{what}: Adam step {i} ({e},{m}) of the update: {k} {float(got[k])} on the card, {float(own[k])} in the CPU's own update "
+                         f"(limits {trajectory_tol})")  # fmt: skip
+                worst_trajectory = max(worst_trajectory, (gap / (abs(float(own[k])) or 1.0), f"{i} {k}"))
+        end_card = {k: v.detach().cpu() for k, v in card.state_dict().items()}
+        end_cpu = {k: v.detach().clone() for k, v in cpu.state_dict().items()}
+        moved = [k for k in end_cpu if not torch.equal(end_cpu[k], start[k])]
+        param = max((g, f"{e},{m} {k}") for k, g in _relative_gaps({k: end_card[k] for k in moved}, {k: end_cpu[k] for k in moved}, start, start).items())
+        moment = max((g, f"{e},{m} {k}") for k, g in _relative_gaps(moments(card, card_opt), moments(cpu, cpu_opt)).items())
+        worst_param, worst_moment = max(worst_param, param), max(worst_moment, moment)
+        if param[0] > tol["param_change"] or moment[0] > tol["adam_moment"]:
+            fail(f"{what}: Adam step {e},{m} from the card's state: worst leaf change {param}, worst Adam moment {moment} (limits {tol})")
+    replayed = {k: v.detach().cpu() for k, v in card.state_dict().items()}
+    differ = [k for k in replayed if not torch_equal_bits(replayed[k], record["end"][k])]
+    if differ:
+        fail(f"{what}: the update replayed on the card from the recorded state ends off the run's: {differ[:4]}")
+    end = {k: v.detach().clone() for k, v in whole_cpu.state_dict().items()}
+    moved = [k for k in end if not torch.equal(end[k], record["start"][k])]
+    whole = {"worst_param_change": max((g, k) for k, g in _relative_gaps({k: record["end"][k] for k in moved}, {k: end[k] for k in moved},
+                                                                            record["start"], record["start"]).items()),
+             "worst_adam_moment": max((g, k) for k, g in _relative_gaps(record["moments"], moments(whole_cpu, whole_opt)).items())}  # fmt: skip
+    return {"adam_steps": len(steps), "replay_on_card_bit_for_bit": True, "worst_loss_gap": worst_loss,
+            "worst_param_change_per_step": {"step_leaf": worst_param[1], "gap": worst_param[0]},
+            "worst_adam_moment_per_step": {"step_leaf": worst_moment[1], "gap": worst_moment[0]},
+            "trajectory_steps_held": trajectory_steps, "worst_trajectory_loss_gap": {"step_loss": worst_trajectory[1], "relative_gap": worst_trajectory[0]},
+            "whole_update_reported": whole, "tolerance": tol, "trajectory_tolerance": trajectory_tol}  # fmt: skip
+
+
+def phase_ppo_fleet(log_root, nonfleet_ms=None):
+    """(59) ``exp=ppo_decoupled`` with ``fleet.replicas=2`` (``PPOF_CUTS``),
+    one run: every round gathers 2 rollouts of its version; the first update
+    (round 1, no fault yet) on its pool replayed on the card bit for bit and
+    each of its Adam steps held against the CPU from the card's state at
+    ``PPOF_STEP_TOL``, the losses of its first ``PPOF_TRAJECTORY_STEPS``
+    against the CPU's own update (``_ppo_steps_on_cpu``); a ``kill9`` on replica 0 while
+    it ships round 3's rollout (one restart, seeded ``replica_seed(seed, 0,
+    1)``; its generation 1 ships into a round); the learner's host wall of
+    round 2 (between the first two updates; beside phase 50's an iteration),
+    the broadcast's bytes and pump send time, the replicas' spawn seconds."""
+    from sheeprl_tpu_torch.algos.ppo import ppo_decoupled
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.core import chaos
+
+    t0 = time.perf_counter()
+    chaos.reset()
+    rounds_done = []
+    out, wall, counts, spy, record = _fleet_run([*PPOF_ARGS, "seed=5", *_chaos(f"{{kind: kill9, at_step: {PPOF_KILL_AT}, replica: 0}}")], "ppo fleet",
+                                                os.path.join(log_root, "ppo_fleet"), ppo_decoupled, "make_update_pool",
+                                                callback=lambda *a: rounds_done.append(time.perf_counter()))  # fmt: skip
+    fleet = out["fleet"]
+    cfg = compose([*PPOF_ARGS, "device=cpu"])
+    rounds = int(cfg.algo.total_steps) // (int(cfg.algo.rollout_steps) * int(cfg.env.num_envs) * FLEET_REPLICAS)
+    members = [sorted(tuple(m) for m in ms) for _, ms in fleet["rounds"]]
+    if out["updates"] != rounds or any(sorted(r for r, _ in ms) != [0, 1] for ms in members) or members[:2] != [[(0, 0), (1, 0)]] * 2:
+        fail(f"ppo fleet: {out['updates']} updates (expected {rounds}), rounds {fleet['rounds']}, fleet {fleet}")
+    restart_s = _check_restart("ppo fleet kill9", spy)
+    if fleet["restarts"] != 1 or not any((0, 1) in ms for ms in members):
+        fail(f"ppo fleet kill9: rounds {fleet['rounds']}, fleet {fleet} (replica 0's generation 1 must ship into a round)")
+    reference = _ppo_steps_on_cpu("ppo fleet first update", record, cfg, PPOF_STEP_TOL, PPOF_TRAJECTORY_TOL, PPOF_TRAJECTORY_STEPS)
+    round_ms = (rounds_done[1] - rounds_done[0]) * 1e3
+    result = {"cuts": PPOF_CUTS, "updates": out["updates"], "host_wall_s": wall, "host_wall_ms_per_iteration": round_ms,
+              "nonfleet_host_wall_ms_per_iteration": nonfleet_ms, "fleet": fleet, "ln_gru_launches": counts, "first_update_card_vs_cpu": reference,
+              "kill9": {"at_step": PPOF_KILL_AT, "rounds": fleet["rounds"], "death_to_first_shipment_s": restart_s, "spawns": spy["spawns"]},
+              "took_s": time.perf_counter() - t0}  # fmt: skip
+    log(f"ppo fleet (59): {out['updates']} rounds of {[len(m) for m in members]} rollouts, round 2 (no fault) {round_ms:.1f} ms of learner host "
+        f"wall (phase 50, one in-process player: {nonfleet_ms if nonfleet_ms is None else round(nonfleet_ms, 1)} ms an "
+        f"iteration), broadcasts {fleet['param_bytes']} bytes in {fleet['param_send_s'] * 1e3:.3f} ms of pump sends, replicas' spawn-to-hello "
+        f"{[round(s, 3) for s in fleet['hello_s']]} s; first update replayed on the card bit for bit, its {reference['adam_steps']} Adam "
+        f"steps against the CPU from the card's state: worst leaf {reference['worst_param_change_per_step']}, worst moment "
+        f"{reference['worst_adam_moment_per_step']}, the first {PPOF_TRAJECTORY_STEPS} steps' losses against the CPU's own update: worst "
+        f"{reference['worst_trajectory_loss_gap']} (the whole update, reported: {reference['whole_update_reported']}); kill9 at replica 0's step "
+        f"{PPOF_KILL_AT}: rounds {fleet['rounds']}, death to first shipment {restart_s if restart_s is None else round(restart_s, 3)} s; took "
+        f"{result['took_s']:.1f} s (cuts {json.dumps(PPOF_CUTS)})")  # fmt: skip
+    return result
+
+
+def size_rows(size, depth, hidden):
+    """(60) The LN-GRU entry points at one DreamerV3 size's shapes: the
+    forward (the kernel ``forward_plan`` picks) at the scan's B = 16, the
+    imagination's B = 1024 and the player's B = 1, bf16 and f32, and the
+    backward at B = 16 and 1024, each against its plain version
+    (``check_forward``'s and ``check_backward``'s tolerances, its launch
+    counted), timed beside its plain version, its bound and, for the
+    forward, cuBLAS's product alone. B = 1024 is timed 5 x 4 calls."""
+    import torch
+
+    from sheeprl_tpu_torch.models.ln_gru import (
+        _aligned,
+        _sm_count,
+        forward_plan,
+        ln_gru_backward,
+        ln_gru_backward_plain,
+        ln_gru_forward,
+        ln_gru_forward_streaming,
+        ln_gru_forward_tensor_core,
+        ln_gru_plain,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rows = []
+    for batch, where in DV3_SIZE_BATCHES:
+        r = (5, 4) if batch >= 1024 else (15, 20)
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[1]
+            args = gru_inputs(batch, depth, hidden, dtype, seed=11)
+            what = f"dv3-{size} ln_gru B={batch} D={depth} H={hidden} {dname}"
+            plan = forward_plan(batch, depth, hidden, dtype, _sm_count(0), _aligned(args[0], args[1], args[5]))
+            entry_fn = ln_gru_forward_tensor_core if plan.kernel == "tensor_core" else ln_gru_forward_streaming
+            before = (ln_gru_forward.launches, entry_fn.launches)
+            errs = check_forward(ln_gru_forward, args, what)
+            errs_entry = check_forward(entry_fn, args, f"{what} ({plan.kernel} entry point)")
+            if (ln_gru_forward.launches, entry_fn.launches) != (before[0] + 1, before[1] + 2):
+                fail(f"{what}: ln_gru_forward did not count one launch on the {plan.kernel} kernel")
+            fwd = timed(rotated(args, ln_gru_forward), *r)
+            plain_ms = device_ms(rotated(args, ln_gru_plain), *r)[0]
+            product_ms = device_ms(rotated(args[:2], torch.matmul), *r)[0]
+            bound_ms, bound_by = gru_bound(batch, depth, hidden, dname)
+            row = {"size": size, "shape": f"B={batch} D={depth} H={hidden}", "batch": batch, "where": where, "dtype": dname, "kernel": plan.kernel,
+                   "cluster": plan.cluster, "forward": {**errs, **fwd, "plain_ms": plain_ms, "product_library_ms": product_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, f"{plan.kernel}_entry_point": errs_entry}}  # fmt: skip
+            note = (f"{what} ({where}): {plan.kernel} (grid {plan.grid}, cluster {plan.cluster}), forward {fwd['ms'] * 1e3:.2f} us "
+                    f"[{fwd['ms_min'] * 1e3:.2f}, {fwd['ms_max'] * 1e3:.2f}], plain {plain_ms * 1e3:.2f} us, product alone {product_ms * 1e3:.2f} us, "
+                    f"bound {bound_ms * 1e3:.2f} us ({bound_by}), max|dh| {errs['max_abs_err_h']:.3g}")  # fmt: skip
+            if batch in DV3_SIZE_BWD:
+                _, z = ln_gru_forward(*args)
+                g = gru_inputs(batch, 1, hidden, dtype, seed=12)[5]
+                bargs = (g, z, args[3], args[4], args[5])
+                berrs = check_backward(bargs, f"{what} ln_gru_backward")
+                bwd = timed(rotated(bargs, ln_gru_backward), *r)
+                bwd_plain_ms = device_ms(rotated(bargs, ln_gru_backward_plain), *r)[0]
+                bwd_bound_ms, bwd_bound_by = gru_bwd_bound(batch, hidden, dname)
+                row["backward"] = {"max_abs_err": berrs, **bwd, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms, "bound_by": bwd_bound_by}
+                note += (f"; backward {bwd['ms'] * 1e3:.2f} us, plain {bwd_plain_ms * 1e3:.2f} us, bound {bwd_bound_ms * 1e3:.2f} us ({bwd_bound_by}), "
+                         f"max|d| {json.dumps({k: float(f'{v:.3g}') for k, v in berrs.items()})}")  # fmt: skip
+                del bargs, z
+            rows.append(row)
+            log(note)
+            del args
+            torch.cuda.empty_cache()
+    return rows
+
+
+def size_step(size, log_root):
+    """(60) One bf16-mixed gradient step of ``algo=dreamer_v3_<size>`` through
+    the CLI (``DV3_SIZE_CUTS``): finite losses, the LN-GRU launches by batch
+    (forward 64 at B = 16 and 15 at B = 1024, backward 64 at B = 16, as
+    DV3-S; by kernel: the imagination's on the tensor cores for XS, streaming
+    for M and L); then one more step of the trained agent on a fixed batch:
+    host wall (ending in a synchronize), device busy from torch.profiler
+    (CUDA activity only), peak memory."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+    from sheeprl_tpu_torch.utils.ops import init_moments
+
+    args = [*DV3_SIZE_ARGS, f"algo=dreamer_v3_{size}", f"log_root={log_root}"]
+    out, steps, wall, counts = dreamer_through_cli(args, f"dv3-{size} gradient step", FWD_BY_BATCH, BWD_BY_BATCH)
+    want_tc = TC_PER_STEP if size == "XS" else 0
+    if len(steps) != 1 or counts["tensor_core"] != want_tc:
+        fail(f"dv3-{size}: {len(steps)} gradient steps, launches {counts} (the imagination's {want_tc} on the tensor cores expected)")
+    agent, cfg = out["agent"], compose(args[:-1])
+    dev = torch.device("cuda")
+    step = make_train_step(agent, make_optimizers(agent, cfg), cfg)
+    data = _train_batch(int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size), 7, dev, sum(agent.actions_dim), agent.is_continuous)
+    rng = BatchGenerator.from_seed(0, dev)
+    moments = init_moments(dev)
+    moments, _ = step(moments, data, rng, 0.02)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    moments, metrics = step(moments, data, rng, 0.02)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    box = [moments]
+
+    def one():
+        box[0], _ = step(box[0], data, rng, 0.02)
+
+    busy_ms, ops, _ = _busy(profiled(one).key_averages(), 1, skip=("dv3/",))
+    losses = {k: v for k, v in steps[0][2].items() if "loss" in k.lower()}
+    if not all(math.isfinite(v) for v in losses.values()):
+        fail(f"dv3-{size}: non-finite losses {losses}")
+    result = {"size": size, "cuts": DV3_SIZE_CUTS, "gradient_steps": len(steps), "ln_gru_launches": counts, "losses": losses, "cli_wall_s": wall,
+              "host_wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms, "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+              "device_ops_per_step": ops, "peak_memory_gib": peak_gib,
+              "params": sum(p.numel() for p in agent.parameters())}  # fmt: skip
+    log(f"dv3-{size} gradient step (60): {result['params']} parameters, losses {json.dumps({k: round(v, 4) for k, v in losses.items()})}, LN-GRU "
+        f"launches {json.dumps(counts)}, host wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step (idle share "
+        f"{result['device_idle_share']:.3f}, {ops:.0f} device ops), peak memory {peak_gib:.2f} GiB; the CLI run took {wall:.1f} s")  # fmt: skip
+    del out, agent, step, moments, data
+    torch.cuda.empty_cache()
+    return result
+
+
+def phase_dv3_sizes(log_root):
+    """(60) XS, M and L: every LN-GRU shape (``size_rows``), then one gradient
+    step through the CLI (``size_step``)."""
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.models.ln_gru import tensor_core_fits
+
+    t0 = time.perf_counter()
+    out = {}
+    for size, (depth, hidden) in DV3_SIZES.items():
+        cfg = compose(["exp=dreamer_v3_100k_ms_pacman", f"algo=dreamer_v3_{size}", "env=dummy"])
+        rec = int(cfg.algo.world_model.recurrent_model.recurrent_state_size)
+        if (rec, rec + int(cfg.algo.dense_units)) != (hidden, depth) or tensor_core_fits(depth, hidden) != (size == "XS"):
+            fail(f"dv3-{size}: the composed config gives H = {rec}, D = {rec + int(cfg.algo.dense_units)}; expected {(hidden, depth)}")
+        out[size] = {"kernels": size_rows(size, depth, hidden), "step": size_step(size, os.path.join(log_root, f"dv3_{size}"))}
+    out["took_s"] = time.perf_counter() - t0
+    log(f"dv3 sizes (60): took {out['took_s']:.1f} s (step cuts {json.dumps(DV3_SIZE_CUTS)})")
+    return out
+
+
+def phases_58_60(workdir, nonfleet_sac=None, nonfleet_ppo_ms=None):
+    """Phases 58-60 (they run alone too, after ``kernels.build()``; 58 then
+    runs phase 49's non-fleet run for its count and checkpoint)."""
+    t0 = time.perf_counter()
+    sac = phase_sac_fleet(workdir, nonfleet_sac)
+    ppo = phase_ppo_fleet(workdir, nonfleet_ppo_ms)
+    sizes = phase_dv3_sizes(workdir)
+    took = time.perf_counter() - t0
+    log(f"fleet and dv3 sizes: phases 58-60 took {took:.1f} s")
+    return {"sac_fleet": sac, "ppo_fleet": ppo, "dv3_sizes": sizes, "phases_58_60_s": took}
+
+
 def main() -> None:
     import warnings
 
@@ -7115,9 +7683,9 @@ def main() -> None:
         train_reference = phase_train_reference()
         continuous, cont_out, cont_steps, wcfg = phase_continuous_training(workdir)
         continuous_profile = phase_train_profile(cont_out["agent"], wcfg, bwd_per_step=WALKER_BWD_PER_STEP, what="continuous step profile")
+        evaluation = defer_eval(cont_out["checkpoints"][-1], cont_out["test_reward"])
         resume = phase_resume(cont_out, cont_steps, workdir)
         continuous_serving = phase_export_serve(cont_out["checkpoints"][-1], workdir)
-        evaluation = phase_eval(cont_out["checkpoints"][-1], cont_out["test_reward"])
         del cont_out, cont_steps
         torch.cuda.empty_cache()
         continuous_reference = phase_train_reference(
@@ -7164,21 +7732,27 @@ def main() -> None:
         log(f"a2c, ppo_recurrent: phases 26-30 took {onpolicy_phases_s:.1f} s")
         p2e_t0 = time.perf_counter()
         p2e_kernels = phase_p2e_kernels()
+        # The evaluations of phases 9-27, beside P2E's card-against-CPU references (which time nothing).
+        with evals_beside("p2e reference"):
+            p2e_reference = {kind: phase_p2e_reference(kind == "continuous") for kind in ("discrete", "continuous")}
         p2e_training, p2e_out = phase_p2e_training(workdir)
         p2e_profile = phase_p2e_profile(p2e_out["agent"])
-        shutil.rmtree(p2e_out["log_dir"], ignore_errors=True)
+        remove_after_evals(p2e_out["log_dir"])
         del p2e_out
         torch.cuda.empty_cache()
-        p2e_reference = {kind: phase_p2e_reference(kind == "continuous") for kind in ("discrete", "continuous")}
         p2e_dv2_kernels, p2e_dv2 = phase_p2e_dv2(workdir)
         p2e_phases_s = time.perf_counter() - p2e_t0
         log(f"p2e_dv3, p2e_dv2: phases 31-36 took {p2e_phases_s:.1f} s")
-        last_trainers = phases_37_41(workdir)
+        # The Anakin lane before phases 37-41, so that its evaluations run beside phase 41.
         anakin = phases_42_46(workdir)
+        last_trainers = phases_37_41(workdir)
         interaction = phases_47_50(workdir)
         telemetry = phases_51_53(workdir, path)
         resilience = phases_54_57(workdir, path)
+        fleet_sizes = phases_58_60(workdir, interaction["sac_decoupled"]["fresh"], interaction["ppo_decoupled"]["host_wall_ms_per_iteration"])
         replay_sample = phase_replay_sample()
+        if PENDING_EVALS:
+            fail(f"evaluations queued and never run: {[e[2] for e in PENDING_EVALS]}")
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
     # Device operations per gradient step: the trainer's host side (replay, metrics, logging) adds none to the step's.
@@ -7223,7 +7797,9 @@ def main() -> None:
                 "launches_telemetry_host": telemetry["telemetry"]["host"]["ln_gru_launches"][kind],
                 "launches_telemetry_ring": telemetry["telemetry"]["ring"]["ln_gru_launches"][kind],
                 "launches_health_host": resilience["health"]["host"]["ln_gru_launches"][kind],
-                "launches_health_ring": resilience["health"]["ring"]["ln_gru_launches"][kind]}  # fmt: skip
+                "launches_health_ring": resilience["health"]["ring"]["ln_gru_launches"][kind],
+                "launches_fleet_sac": fleet_sizes["sac_fleet"]["ln_gru_launches"][kind],
+                "launches_fleet_ppo": fleet_sizes["ppo_fleet"]["ln_gru_launches"][kind]}  # fmt: skip
 
     def in_graph(kernel):
         """The kernel's nodes in the captured step's graph, and its launches
@@ -7340,6 +7916,30 @@ def main() -> None:
     anakin_entries[1] |= {"launches_pipeline_s1_b4": timings["s1_sync"]["ln_gru_launches"]["forward_by_batch"].get(PIPE_ENVS, 0)}
     anakin_entries[0] |= {"graph_nodes_per_rollout": dv3a["rollouts"]["c16_r0"]["graph"]["ln_gru"]["streaming"],
                           "launches_by_rollout_replays": dv3a["rollouts"]["c16_r0"]["graph"]["ln_gru"]["streaming"] * dv3a["rollouts"]["c16_r0"]["replays"]}
+    def size_entry(size, batch, kind):
+        """A kernel's entry at one DreamerV3 size's bf16 shapes (phase 60):
+        the launches of its CLI gradient step's run (the player's B = 1
+        included)."""
+        sized = fleet_sizes["dv3_sizes"][size]
+        row = next(r for r in sized["kernels"] if r["batch"] == batch and r["dtype"] == "bfloat16")
+        counts = sized["step"]["ln_gru_launches"]
+        if kind == "backward":
+            part = row["backward"]
+            return entry("ln_gru_backward", "sheeprl_tpu_torch/csrc/ln_gru_bwd.cu", "sheeprl_tpu/models/pallas_gru.py:172",
+                         f"B={batch} H={row['shape'].rsplit('H=', 1)[1]} bfloat16 (DreamerV3-{size} {row['where']}; "
+                         f"{BWD_BY_BATCH.get(batch, 0)} launches per discrete gradient step)", counts["backward_by_batch"].get(batch, 0), part,
+                         max(part["max_abs_err"].values()))  # fmt: skip
+        part = row["forward"]
+        tc = row["kernel"] == "tensor_core"
+        name, source = ("ln_gru_forward_tensor_core", "sheeprl_tpu_torch/csrc/ln_gru_tc.cu") if tc else ("ln_gru_forward", "sheeprl_tpu_torch/csrc/ln_gru.cu")
+        per = f"{FWD_BY_BATCH[batch]} launches per gradient step" if batch in FWD_BY_BATCH else "1 launch per env step"
+        out = entry(name, source, "sheeprl_tpu/models/pallas_gru.py:118",
+                    f"{row['shape']} bfloat16, {row['kernel']} kernel (cluster {row['cluster']}; DreamerV3-{size} {row['where']}; {per})",
+                    counts["forward_by_batch"].get(batch, 0), part, max(part["max_abs_err_h"], part["max_abs_err_z"]))  # fmt: skip
+        return out | {"product_library_ms": part["product_library_ms"]}
+
+    size_entries = [size_entry(size, batch, kind) for size in DV3_SIZES for batch, kind in
+                    ((16, "forward"), (1024, "forward"), (1, "forward"), (16, "backward"), (1024, "backward"))]  # fmt: skip
     kernels_line = {
         "kernels": [
             entry("ln_gru_forward", "sheeprl_tpu_torch/csrc/ln_gru.cu", "sheeprl_tpu/models/pallas_gru.py:118",
@@ -7366,6 +7966,7 @@ def main() -> None:
             *p2e_entries,
             *anakin_entries,
             *pipeline_entries,
+            *size_entries,
         ]
     }  # fmt: skip
     report = {
@@ -7432,6 +8033,7 @@ def main() -> None:
         **interaction,
         **telemetry,
         **resilience,
+        **fleet_sizes,
         "kernels": kernels_line["kernels"],
         "phase_s": phase_s,
         "profiler_s": PROFILER_S,

@@ -42,6 +42,14 @@ call's wait, the health sentinels at each log point with the in-step
 probes of SAC's and DroQ's steps (``health=on``), and the save veto of a
 tainted run.
 
+With an actor fleet (decoupled SAC, ``fleet.replicas`` > 1:
+:func:`~sheeprl_tpu_torch.core.fleet.open_fleet`), the loop's rows are the fleet's shipments, one an
+iteration (:func:`next_shipment`), and an iteration without one does not
+train; the actor's weights go to the replicas every
+``fleet.param_sync_every`` iterations, and a preemption drains the fleet
+before its save. ``Ratio``, the log points, the health sentinels, the save
+veto and the checkpoints are the loop's own.
+
 The gradient step runs under a ``torch.profiler.record_function`` span
 (``sac/gradient_step``).
 """
@@ -50,6 +58,7 @@ from __future__ import annotations
 
 import functools
 import os
+import time
 import warnings
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
@@ -62,6 +71,7 @@ from sheeprl_tpu_torch.algos.sac.agent import SACAgent, build_agent
 from sheeprl_tpu_torch.algos.sac.loss import critic_loss, entropy_loss, policy_loss
 from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test
 from sheeprl_tpu_torch.core.device import resolve_device
+from sheeprl_tpu_torch.core.fleet import FleetSupervisor, Shipment, fleet_active, numpy_state, open_fleet
 from sheeprl_tpu_torch.core.graphs import CapturedStep, RingHolder, power_of_two_buckets
 from sheeprl_tpu_torch.core.interact import InteractionPipeline
 from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
@@ -402,6 +412,13 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
     agent = algo.make_agent(cfg, observation_space, action_space, device=device, seed=cfg.seed)
     optimizers = algo.make_optimizers(agent, cfg)
     placement = PlayerPlacement.resolve(cfg, device, nbytes=param_bytes(agent, algo.player_state))
+    # The actor fleet (decoupled SAC with fleet.replicas > 1, core/fleet.py):
+    # replicas on the player's device step the envs and ship rows; the local
+    # vector env was the spaces' probe only.
+    fleet = None
+    if algo.decoupled and fleet_active(cfg):
+        fleet = open_fleet(cfg, "sheeprl_tpu_torch.algos.sac.fleet_actor:actor_loop", envs, log_dir, placement.device)
+    fleet_sync_every = max(1, int(cfg.fleet.param_sync_every)) if fleet is not None else 0
     train_rng = BatchGenerator.from_seed(cfg.seed, device)
     player_rng = BatchGenerator.from_seed(cfg.seed + 1, placement.device)
     save_configs(cfg, log_dir)
@@ -438,7 +455,7 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
 
     start_iter, policy_step, gradient_steps, last_log, last_checkpoint = 1, 0, 0, 0, 0
     train_step_count, last_train, fused_gradient_steps = 0, 0, 0
-    obs = envs.reset(seed=cfg.seed)[0]
+    obs = envs.reset(seed=cfg.seed)[0] if fleet is None else None
     if state is not None:
         agent.load_state_dict(state["agent"], strict=True)
         for name, key in algo.optimizer_keys.items():
@@ -446,8 +463,9 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
         train_rng.generator.set_state(state["train_rng"])
         player_rng.generator.set_state(state["player_rng"])
         ratio.load_state_dict(state["ratio"])
-        envs.load_state_dict(state["envs"])
-        obs = state["obs"]
+        if fleet is None and "envs" in state:  # a fleet run's checkpoint holds no envs: its replicas own them
+            envs.load_state_dict(state["envs"])
+            obs = state["obs"]
         start_iter = int(state["iter_num"]) + 1
         policy_step = int(state["iter_num"]) * policy_steps_per_iter
         gradient_steps = int(state["gradient_steps"])
@@ -506,61 +524,59 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
             pending.extend(metrics)  # the device's 0-d tensors, read back at the log point
         if callback is not None:
             callback(agent, gradient_steps, metrics)
-        placement.push()
+        if fleet is None:
+            placement.push()
+        elif iter_num % fleet_sync_every == 0:
+            # The broadcast (sac_decoupled.py:434-447): numpy copies, fanned
+            # out by the replicas' pump threads.
+            fleet.push_params(numpy_state(agent, algo.player_state), version=iter_num)
 
     for iter_num in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
         telemetry.advance(policy_step)
         guard.advance(policy_step)
         trained_in_flight = False
-        with timer("Time/env_interaction_time"), perf.infeed():
-            if iter_num <= learning_starts:
-                actions = envs.sample_actions()
-                next_obs, rewards, terminated, truncated, infos = envs.step(actions.reshape((num_envs, *action_shape)))
-                next_obs = pipeline.stash_obs(next_obs)
-            else:
-                # The train call rides between the fetch and its harvest once
-                # the buffer holds a step past the prefill (its batches then
-                # lag the buffer by one step).
-                trained_in_flight = algo.overlap_train and pipeline.overlap_train and iter_num > learning_starts + 1
-                res = pipeline.interact(
-                    envs, obs, policy, to_env_actions=lambda host, n: host.reshape((n, *action_shape)),
-                    before_harvest=functools.partial(run_train, iter_num) if trained_in_flight else None,
-                )  # fmt: skip
-                actions, next_obs, rewards, terminated, truncated, infos = res
-            rewards = rewards.reshape(num_envs, -1)
+        if fleet is not None:
+            # The replicas step the envs: the iteration's env interaction is
+            # one admitted shipment, and an iteration without one trains not.
+            with timer("Time/env_interaction_time"), perf.infeed():
+                shipment = next_shipment(fleet, guard)
+            step_data = shipment.rows if shipment is not None else None
+            episodes = [(f"replica_{shipment.replica}", r, n) for r, n in shipment.episodes] if shipment is not None else []
+        else:
+            with timer("Time/env_interaction_time"), perf.infeed():
+                if iter_num <= learning_starts:
+                    actions = envs.sample_actions()
+                    next_obs, rewards, terminated, truncated, infos = envs.step(actions.reshape((num_envs, *action_shape)))
+                    next_obs = pipeline.stash_obs(next_obs)
+                else:
+                    # The train call rides between the fetch and its harvest once
+                    # the buffer holds a step past the prefill (its batches then
+                    # lag the buffer by one step).
+                    trained_in_flight = algo.overlap_train and pipeline.overlap_train and iter_num > learning_starts + 1
+                    res = pipeline.interact(
+                        envs, obs, policy, to_env_actions=lambda host, n: host.reshape((n, *action_shape)),
+                        before_harvest=functools.partial(run_train, iter_num) if trained_in_flight else None,
+                    )  # fmt: skip
+                    actions, next_obs, rewards, terminated, truncated, infos = res
+                rewards = rewards.reshape(num_envs, -1)
+            episodes = [(f"env_{i}", r, n) for i, r, n in infos["episode"]]
+            step_data = step_rows(layout, obs, next_obs, actions, rewards, terminated, truncated, infos, num_envs, bool(cfg.buffer.sample_next_obs))
+            obs = next_obs
 
         if cfg.metric.log_level > 0:
-            for i, ep_rew, ep_len in infos["episode"]:
+            for who, ep_rew, ep_len in episodes:
                 if aggregator is not None:
                     aggregator.update("Rewards/rew_avg", float(ep_rew))
                     aggregator.update("Game/ep_len_avg", float(ep_len))
-                print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
-
-        # The buffer's next observation of an episode that ended is its last
-        # one, not the reset observation (sac.py:585-595).
-        real_next_obs = {k: np.array(next_obs[k]) for k in layout.env_keys}
-        for idx in np.nonzero(np.logical_or(terminated, truncated))[0]:
-            final = infos["final_obs"][idx]
-            if final is not None:
-                for k in layout.env_keys:
-                    real_next_obs[k][idx] = final[k]
-        step_data = {
-            "terminated": terminated.reshape(1, num_envs, -1).astype(np.uint8),
-            "truncated": truncated.reshape(1, num_envs, -1).astype(np.uint8),
-            "actions": actions.reshape(1, num_envs, -1).astype(np.float32),
-            **layout.rows(obs, num_envs),
-        }
-        if not cfg.buffer.sample_next_obs:
-            step_data.update(layout.rows(real_next_obs, num_envs, "next_"))
-        step_data["rewards"] = rewards[np.newaxis].astype(np.float32)
-        rb.add(step_data, validate_args=cfg.buffer.validate_args)
-        if ring is not None:
-            ring.add(step_data)
-        obs = next_obs
+                print(f"Rank-0: policy_step={policy_step}, reward_{who}={ep_rew}", flush=True)
+        if step_data is not None:
+            rb.add(step_data, validate_args=cfg.buffer.validate_args)
+            if ring is not None:
+                ring.add(step_data)
 
         # ------------------------------------------------------- training
-        if not trained_in_flight:
+        if not trained_in_flight and step_data is not None:
             run_train(iter_num)
 
         # -------------------------------------------------------- logging
@@ -602,6 +618,9 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
             or ((iter_num == total_iters or guard.preempted) and cfg.checkpoint.save_last)
         ):
             if guard.preempted:
+                if fleet is not None:
+                    # The fleet drained before the final save (sac_decoupled.py:505-509).
+                    fleet.drain_and_stop()
                 placement.flush()
                 drain_device(device)
             last_checkpoint = policy_step
@@ -609,9 +628,10 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
             ckpt_state.update(
                 ratio=ratio.state_dict(), iter_num=iter_num, gradient_steps=gradient_steps, batch_size=int(cfg.algo.per_rank_batch_size),
                 last_log=last_log, last_checkpoint=last_checkpoint, train_rng=train_rng.generator.get_state(),
-                player_rng=player_rng.generator.get_state(), envs=envs.state_dict(), obs=obs,
-                observation_space=observation_space.to_spec(), action_space=action_space.to_spec(),
+                player_rng=player_rng.generator.get_state(), observation_space=observation_space.to_spec(), action_space=action_space.to_spec(),
             )  # fmt: skip
+            if fleet is None:
+                ckpt_state.update(envs=envs.state_dict(), obs=obs)
             path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
             saved_tail, tail = None, (rb._pos - 1) % rb.buffer_size
             if cfg.buffer.checkpoint:
@@ -629,6 +649,10 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
             break
 
     placement.flush()  # no mirror copy left in flight
+    fleet_stats = None
+    if fleet is not None:
+        fleet.close()  # idempotent after a preemption's drain
+        fleet_stats = fleet.stats()
     test_reward = algo.test(agent, cfg, log_dir, logger) if cfg.algo.run_test and not guard.preempted else None
     interaction = pipeline.publish()
     guard.close()
@@ -643,8 +667,53 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
             "active": ring.active, "inactive_reason": ring.inactive_reason, "bytes": ring.ring_nbytes(), "capacity": ring.capacity,
         },
         "fused": None if fused is None else {"gradient_steps": fused_gradient_steps, **fused},
-        "interaction": interaction, "placement": placement.stats(),
+        "interaction": interaction, "placement": placement.stats(), "fleet": fleet_stats,
     }  # fmt: skip
+
+
+def step_rows(layout, obs: Dict[str, np.ndarray], next_obs: Dict[str, np.ndarray], actions, rewards, terminated: np.ndarray,
+              truncated: np.ndarray, infos: Dict[str, Any], num_envs: int, sample_next_obs: bool) -> Dict[str, np.ndarray]:  # fmt: skip
+    """One vector step's rows as the buffer stores them, each ``[1,
+    num_envs, ...]`` (sac.py:585-607 of the JAX package): ``terminated`` and
+    ``truncated`` (uint8), ``actions``, ``layout``'s observations, unless
+    ``sample_next_obs`` its next observations, which for an episode that
+    ended are its last observation (not the reset one), and ``rewards``. The
+    learner's loop and the fleet's SAC replica build their rows here."""
+    real_next_obs = {k: np.array(next_obs[k]) for k in layout.env_keys}
+    for idx in np.nonzero(np.logical_or(terminated, truncated))[0]:
+        final = infos["final_obs"][idx]
+        if final is not None:
+            for k in layout.env_keys:
+                real_next_obs[k][idx] = final[k]
+    rows = {
+        "terminated": np.asarray(terminated).reshape(1, num_envs, -1).astype(np.uint8),
+        "truncated": np.asarray(truncated).reshape(1, num_envs, -1).astype(np.uint8),
+        "actions": np.asarray(actions).reshape(1, num_envs, -1).astype(np.float32),
+        **layout.rows(obs, num_envs),
+    }
+    if not sample_next_obs:
+        rows.update(layout.rows(real_next_obs, num_envs, "next_"))
+    rows["rewards"] = np.asarray(rewards).reshape(1, num_envs, -1).astype(np.float32)
+    return rows
+
+
+FLEET_PREEMPT_GRACE_S = 5.0
+
+
+def next_shipment(fleet: FleetSupervisor, guard) -> Optional[Shipment]:
+    """One admitted shipment (sac_decoupled.py:300-320); the supervision runs
+    inside ``recv``. A preempted learner still takes this iteration's
+    shipment within ``FLEET_PREEMPT_GRACE_S`` seconds, as the interrupted
+    iteration completes before the final save in the non-fleet path: the
+    preemption's checkpoint then has the no-fault run's iteration and replay
+    position."""
+    grace = time.monotonic() + FLEET_PREEMPT_GRACE_S
+    while True:
+        if guard.preempted and (fleet.live_replicas == 0 or time.monotonic() > grace):
+            return None
+        shipment = fleet.recv(timeout=0.5)
+        if shipment is not None:
+            return shipment
 
 
 @register_algorithm()

@@ -16,8 +16,16 @@ prefill x num_envs`` and the periodic checkpoints start at
 ``learning_starts``, as the JAX decoupled loop counts them. Checkpoints
 hold SAC's fields and evaluate through SAC's evaluation. Run it on one card
 with ``fabric.devices=1 fabric.player_device=host``; the on-mesh split,
-several trainer cards and tensor parallelism are ROADMAP A9, the actor fleet
-A10 (fleet).
+several trainer cards and tensor parallelism are ROADMAP A9.
+
+With ``fleet.replicas`` > 1 (or ``fleet.enabled``) the envs move into
+supervised replica processes on the player's device
+(:mod:`sheeprl_tpu_torch.core.fleet`, :mod:`.fleet_actor`): the same loop
+takes one admitted shipment an iteration as its rows, trains only on an
+iteration that got one, broadcasts the actor's weights every
+``fleet.param_sync_every`` iterations, and drains the fleet before a
+preemption's final save (sac_decoupled.py:90-125, :296-336, :380, :434-447,
+:505-509 of the JAX package). Its checkpoints hold no envs.
 """
 
 from __future__ import annotations
@@ -29,7 +37,7 @@ import torch
 from sheeprl_tpu_torch.algos.sac.agent import SACAgent, build_agent
 from sheeprl_tpu_torch.algos.sac.sac import OffPolicyAlgo, SACTrainer, run_off_policy
 from sheeprl_tpu_torch.core.device import resolve_device
-from sheeprl_tpu_torch.core.mesh import check_no_fleet, split_player_trainer
+from sheeprl_tpu_torch.core.mesh import split_player_trainer
 from sheeprl_tpu_torch.registry import register_algorithm
 
 Metrics = Dict[str, torch.Tensor]
@@ -43,7 +51,6 @@ def main(cfg, callback: Optional[Callable[[SACAgent, int, List[Metrics]], None]]
     """Train decoupled SAC on ``cfg``: the device split checked, then
     :func:`run_off_policy` with :data:`SAC_DECOUPLED` (its callback, files,
     tags, checkpoints and returned dict)."""
-    check_no_fleet(cfg)
     split_player_trainer(
         resolve_device(cfg.device), str(cfg.fabric.get("player_device") or "auto"), devices=int(cfg.fabric.devices),
         model_axis=int(cfg.fabric.get("model_axis", 1) or 1),

@@ -28,7 +28,9 @@ or the host lane with ``algo.fused_rollout=false``);
 SAC, DroQ and SAC-AE want ``env.id=continuous_dummy``; a
 P2E finetuning run names its exploration run's checkpoint; the decoupled
 ``ppo_decoupled`` and ``sac_decoupled`` run on one card with the player on
-the host, ``fabric.devices=1 fabric.player_device=host``), an unknown key raises, and
+the host, ``fabric.devices=1 fabric.player_device=host``, and with
+``fleet.replicas=N`` act through N supervised replica processes on the CPU,
+``core/fleet.py``), an unknown key raises, and
 the trainer then raises on an algorithm the port does not train and on an env
 group other than ``env=dummy`` and the anakin groups. Keys are those of the composed config, e.g.
 ``algo.learning_starts=128 algo.total_steps=136 buffer.size=4096``.
@@ -87,6 +89,7 @@ def run(args: Optional[Sequence[str]] = None, callback=None) -> Dict[str, Any]:
         raise ValueError(f"algo.name={cfg.algo.name} is not ported; the port trains algo.name={' | '.join(sorted(algorithm_registry))}")
     check_anakin(cfg)
     check_decoupled(cfg, entry)
+    check_fleet(cfg)
     check_observability(cfg)
     utils_module = importlib.import_module(entry.module.rsplit(".", 1)[0] + ".utils")
     _prune_metric_keys(cfg, utils_module.AGGREGATOR_KEYS)
@@ -178,6 +181,32 @@ def check_decoupled(cfg, entry) -> None:
         raise RuntimeError(
             f"The decoupled algorithm '{cfg.algo.name}' requires at least 2 devices/processes (one player + at least one trainer), "
             "or fabric.player_device=host to run the player on the host CPU and train on every device."
+        )
+
+
+def check_fleet(cfg) -> None:
+    """The actor fleet's checks (reference: cli.py:131-150):
+    ``fleet.replicas >= 1``, ``1 <= fleet.quorum <= fleet.replicas``,
+    ``fleet.start_method`` spawn (a fork after CUDA is up cannot use the
+    card), and fleet mode only under a ``*_decoupled`` algorithm."""
+    fleet = cfg.get("fleet")
+    if fleet is None:
+        return
+    replicas = int(fleet.get("replicas", 1) or 1)
+    if replicas < 1:
+        raise ValueError(f"fleet.replicas must be >= 1, got {replicas}")
+    quorum = int(fleet.get("quorum", 1) or 1)
+    if not 1 <= quorum <= replicas:
+        raise ValueError(f"fleet.quorum must be in [1, fleet.replicas={replicas}], got {quorum}")
+    start_method = str(fleet.get("start_method", "spawn") or "spawn")
+    if start_method != "spawn":
+        raise ValueError(f"fleet.start_method must be 'spawn', got {start_method!r}")
+    from sheeprl_tpu_torch.core.fleet import fleet_active
+
+    if fleet_active(cfg) and not str(cfg.algo.name).endswith("_decoupled"):
+        raise ValueError(
+            "Fleet mode (fleet.replicas > 1 or fleet.enabled=True) requires a decoupled "
+            f"algorithm (the replicas own the envs); got algo.name={cfg.algo.name!r}"
         )
 
 

@@ -27,11 +27,20 @@ Two layers, as in the JAX package:
    - ``{kind: fail_point, name: checkpoint.before_commit, at_step: N}``: arm
      the named fail point once ``policy_step >= N``;
    - ``{kind: delayed_fetch, seconds: 0.2, at_step: N}``: a one-shot sleep
-     inside the action fetch's harvest (the watchdog's food).
+     inside the action fetch's harvest (the watchdog's food);
+   - ``{kind: kill9, at_step: N, replica: K}``: SIGKILL to this process, no
+     handler, no drain, no atexit: the death the fleet supervisor
+     (``core/fleet.py``) must notice from outside. With ``replica`` it fires
+     in actor replica ``K``, without it in the learner;
+   - ``{kind: drop_shipment, at_step: N, replica: K, times: T}``: the next
+     ``T`` (default 1) shipments on the fleet's ship path (the
+     ``fleet.ship`` drop point) are swallowed, the message-loss twin of
+     ``kill9``.
 
-   ``kill9``, ``drop_shipment`` and any injector with a ``replica`` belong to
-   the actor fleet, which the port does not have yet: they raise, naming
-   ROADMAP A10 (fleet).
+   A step injector with a ``replica`` fires only in that replica's
+   :class:`ChaosMonkey`, one without only in the learner's. The env injectors
+   read no ``replica``: they fire in every process that builds that
+   ``env_rank``, each replica included.
 
 A fired injector is recorded in a process-wide registry, so an env that the
 supervisor rebuilt does not fire the same configured fault again. Every fire
@@ -51,18 +60,17 @@ __all__ = [
     "ChaosFault",
     "ChaosMonkey",
     "arm_delay",
+    "arm_drop",
     "arm_fail_point",
     "corrupt_checkpoint",
     "disarm_fail_point",
     "fire_once",
     "maybe_delay",
+    "maybe_drop",
     "maybe_fail",
     "reset",
     "wrap_env_thunks",
 ]
-
-FLEET_ITEM = "ROADMAP A10 (fleet)"
-
 
 class ChaosFault(RuntimeError):
     """An injected fault: a RuntimeError, so the code that handles the real
@@ -72,6 +80,7 @@ class ChaosFault(RuntimeError):
 _armed: bool = False
 _fail_points: Dict[str, int] = {}  # name -> fires left (-1 = always)
 _delays: Dict[str, float] = {}  # name -> seconds (one shot)
+_drops: Dict[str, int] = {}  # name -> messages left to drop (-1 = always)
 _fired: set = set()  # injector ids that fired (outlives an env's rebuild)
 
 
@@ -87,7 +96,7 @@ def _count_fault(label: str) -> None:
 
 def _refresh_armed() -> None:
     global _armed
-    _armed = bool(_fail_points or _delays)
+    _armed = bool(_fail_points or _delays or _drops)
 
 
 def arm_fail_point(name: str, times: int = 1) -> None:
@@ -134,6 +143,29 @@ def maybe_delay(name: str) -> None:
         time.sleep(seconds)
 
 
+def arm_drop(name: str, times: int = 1) -> None:
+    """Arm drop point ``name`` to swallow its next ``times`` messages (-1: always)."""
+    _drops[name] = int(times)
+    _refresh_armed()
+
+
+def maybe_drop(name: str) -> bool:
+    """True if drop point ``name`` is armed: the caller discards the message
+    it was about to send (lost in transit, not an error)."""
+    if not _armed:
+        return False
+    remaining = _drops.get(name)
+    if remaining is None or remaining == 0:
+        return False
+    if remaining > 0:
+        _drops[name] = remaining - 1
+        if _drops[name] == 0:
+            del _drops[name]
+        _refresh_armed()
+    _count_fault(f"drop:{name}")
+    return True
+
+
 def fire_once(injector_id: str, label: str) -> bool:
     """Record ``injector_id`` as fired; False if it fired already."""
     if injector_id in _fired:
@@ -147,18 +179,9 @@ def reset() -> None:
     """Clear every armed point and the fired registry."""
     _fail_points.clear()
     _delays.clear()
+    _drops.clear()
     _fired.clear()
     _refresh_armed()
-
-
-def _check_not_fleet(inj: Dict[str, Any]) -> str:
-    kind = str(inj.get("kind", ""))
-    if kind in ("kill9", "drop_shipment") or inj.get("replica", None) is not None:
-        raise NotImplementedError(
-            f"chaos injector {dict(inj)}: kill9, drop_shipment and replica-targeted injectors drive the actor fleet, which the port "
-            f"does not have yet ({FLEET_ITEM})"
-        )
-    return kind
 
 
 # --------------------------------------------------------------- env injectors
@@ -217,10 +240,11 @@ _ENV_INJECTOR_WRAPPERS = {"env_step_raise": EnvStepChaos, "nan_reward": EnvRewar
 def wrap_env_thunks(thunks: List[Callable[[], Any]], injectors: List[Dict[str, Any]], base: int) -> List[Callable[[], Any]]:
     """The env thunks with the env injectors' wrappers around the ones they
     address; ``env_rank`` is the global env index, ``base`` this process's
-    first."""
+    first. No ``replica`` key is read: a replica that builds ``env_rank``
+    wraps it too."""
     specs: Dict[int, List[Dict[str, Any]]] = {}
     for idx, inj in enumerate(injectors or []):
-        kind = _check_not_fleet(inj)
+        kind = str(inj.get("kind", ""))
         if kind not in _ENV_INJECTOR_WRAPPERS:
             continue
         env_rank = int(inj.get("env_rank", 0))
@@ -241,24 +265,35 @@ def wrap_env_thunks(thunks: List[Callable[[], Any]], injectors: List[Dict[str, A
 
 
 # -------------------------------------------------------------- step injectors
-STEP_INJECTOR_KINDS = ("sigterm", "sigint", "fail_point", "delayed_fetch")
+STEP_INJECTOR_KINDS = ("sigterm", "sigint", "kill9", "fail_point", "delayed_fetch", "drop_shipment")
 
 
 class ChaosMonkey:
-    """The policy-step-driven injectors (signals, fail points, delays),
-    pulsed once per loop iteration by ``PreemptionGuard.advance``. The env
-    injectors are :func:`wrap_env_thunks`'; an unknown kind warns and is
-    ignored, as in the JAX package; the fleet's raise."""
+    """The policy-step-driven injectors (signals, fail points, delays, the
+    fleet's kill and drop), pulsed once per loop iteration by
+    ``PreemptionGuard.advance`` in the learner and once per shipment by
+    ``ReplicaContext.ship`` in a fleet replica. The env injectors are
+    :func:`wrap_env_thunks`'; an unknown kind warns and is ignored, as in the
+    JAX package.
 
-    def __init__(self, injectors: Optional[List[Dict[str, Any]]]) -> None:
+    ``replica`` scopes the list to one process: a spec with a ``replica``
+    fires only in the monkey built with that index, a spec without one only
+    in the learner's (``replica=None``). The fired-once registry is per
+    process; a restarted replica builds no monkey (``ReplicaContext``), so
+    one configured fault is one fault."""
+
+    def __init__(self, injectors: Optional[List[Dict[str, Any]]], replica: Optional[int] = None) -> None:
         self._injectors: List[Dict[str, Any]] = []
         for idx, inj in enumerate(injectors or []):
-            kind = _check_not_fleet(inj)
+            kind = str(inj.get("kind", ""))
             if kind in _ENV_INJECTOR_WRAPPERS:
                 continue
             if kind not in STEP_INJECTOR_KINDS:
                 warnings.warn(f"Unknown chaos injector kind {kind!r}: ignored")
                 continue
+            target = inj.get("replica", None)
+            if (target is None) != (replica is None) or (target is not None and int(target) != int(replica)):
+                continue  # another process's injector
             spec = dict(inj)
             spec["_id"] = f"{kind}[{idx}]"
             spec["_at"] = int(inj.get("at_step", 0) or 0)
@@ -273,10 +308,16 @@ class ChaosMonkey:
                 os.kill(os.getpid(), signal.SIGTERM)
             elif kind == "sigint":
                 os.kill(os.getpid(), signal.SIGINT)
+            elif kind == "kill9":
+                # No drain, no final save, no atexit: the supervisor sees the
+                # pipe's EOF, as after an OOM kill.
+                os.kill(os.getpid(), signal.SIGKILL)
             elif kind == "fail_point":
                 arm_fail_point(str(spec["name"]), int(spec.get("times", 1)))
             elif kind == "delayed_fetch":
                 arm_delay("fetch.harvest", float(spec.get("seconds", 0.1)))
+            elif kind == "drop_shipment":
+                arm_drop("fleet.ship", int(spec.get("times", 1)))
 
 
 # ------------------------------------------------------------ checkpoint damage

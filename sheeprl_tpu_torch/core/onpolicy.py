@@ -70,9 +70,10 @@ def warn_unaligned(cfg, policy_steps_per_iter: int) -> None:
         )
 
 
-def log_episodes(cfg, aggregator, info: Mapping[str, Any], policy_step: int) -> None:
+def log_episodes(cfg, aggregator, info: Mapping[str, Any], policy_step: int, who: str = "env") -> None:
     """The episodes an env step finished (``info["episode"]``: env index,
-    return, length) into ``Rewards/rew_avg`` and ``Game/ep_len_avg``."""
+    return, length) into ``Rewards/rew_avg`` and ``Game/ep_len_avg``, each
+    printed as ``reward_<who>_<index>`` (a fleet's: the replica's)."""
     if cfg.metric.log_level <= 0:
         return
     for i, ep_rew, ep_len in info["episode"]:
@@ -80,7 +81,7 @@ def log_episodes(cfg, aggregator, info: Mapping[str, Any], policy_step: int) -> 
             aggregator.update("Rewards/rew_avg", float(ep_rew))
         if aggregator is not None and "Game/ep_len_avg" in aggregator:
             aggregator.update("Game/ep_len_avg", float(ep_len))
-        print(f"Rank-0: policy_step={policy_step}, reward_env_{i}={ep_rew}", flush=True)
+        print(f"Rank-0: policy_step={policy_step}, reward_{who}_{i}={ep_rew}", flush=True)
 
 
 class LogPoints:
@@ -259,7 +260,7 @@ class OnPolicyRun:
 
 def open_run(
     cfg, build_agent: Callable[..., torch.nn.Module], keys: Callable[[Any], Tuple[List[str], List[str]]], metric_keys: Sequence[str],
-    batch_size_key: str = "per_rank_batch_size",
+    batch_size_key: str = "per_rank_batch_size", iter_scale: int = 1,
 ) -> OnPolicyRun:
     """Set up a run of ``cfg`` on ``cfg.device`` (``env=dummy`` or an anakin group, ``envs/make.py``). With
     ``checkpoint.resume_from`` (the saved run's config merged by the CLI,
@@ -268,7 +269,9 @@ def open_run(
     counters continue from the checkpoint's ``iter_num``, ``last_log`` and
     ``last_checkpoint``, and its ``batch_size`` goes back into
     ``cfg.algo[batch_size_key]``. ``keys(cfg)`` gives the CNN and all
-    observation keys; ``dry_run`` runs one iteration."""
+    observation keys; ``dry_run`` runs one iteration. An iteration counts
+    ``iter_scale`` rollouts of ``num_envs x rollout_steps`` policy steps (an
+    actor fleet's replicas)."""
     device = resolve_device(cfg.device)
     check_env_group(cfg)
     state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
@@ -309,7 +312,7 @@ def open_run(
         memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0"), memmap_mode=str(cfg.buffer.memmap_mode),
     )  # fmt: skip
 
-    policy_steps_per_iter = num_envs * rollout_steps
+    policy_steps_per_iter = num_envs * rollout_steps * int(iter_scale)
     if state is not None:
         cfg.algo[batch_size_key] = int(state["batch_size"])
     warn_unaligned(cfg, policy_steps_per_iter)

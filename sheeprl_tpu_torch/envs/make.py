@@ -80,35 +80,41 @@ def env_thunks(cfg) -> List[Callable[[], Any]]:
     return [partial(make_dummy_env, **dummy_env_kwargs(cfg)) for _ in range(num_envs)]
 
 
-def make_vector_env(cfg) -> Any:
+def make_vector_env(cfg, rank: int = 0) -> Any:
     """``env.num_envs`` envs of the config's group, stepped together; with
     ``env.pipeline_slices`` = S > 1, S vectors of contiguous columns in an
     :class:`EnvSliceGroup`, env order and per-env seeds as in one vector;
     under ``resilience.chaos`` the env injectors wrap their envs, and under
-    ``resilience.supervisor`` the vector or each slice is restartable."""
+    ``resilience.supervisor`` the vector or each slice is restartable.
+    ``rank`` (a fleet replica's index) offsets the global env indices by
+    ``rank * num_envs``: the seeds (``cfg.seed + rank * num_envs + i``) and
+    the injectors' ``env_rank``."""
     check_env_group(cfg)
     num_envs = int(cfg.env.num_envs)
+    base = int(rank) * num_envs
     thunks = env_thunks(cfg)
     res_cfg = cfg.get("resilience") or {}
     chaos_cfg = res_cfg.get("chaos") or {}
     if chaos_cfg.get("enabled", False):
         from sheeprl_tpu_torch.core.chaos import wrap_env_thunks
 
-        thunks = wrap_env_thunks(thunks, chaos_cfg.get("injectors") or [], 0)
+        thunks = wrap_env_thunks(thunks, chaos_cfg.get("injectors") or [], base)
     slices = int(cfg.env.get("pipeline_slices", 1) or 1)
 
     def make_slice(s0: int, s1: int) -> SyncVectorEnv:
-        return SyncVectorEnv([t() for t in thunks[s0:s1]], seed=cfg.seed + s0)
+        return SyncVectorEnv([t() for t in thunks[s0:s1]], seed=cfg.seed + base + s0)
 
     from sheeprl_tpu_torch.core.resilience import EnvSupervisor, supervisor_kwargs
 
     supervise = supervisor_kwargs(cfg)
     if supervise is not None:
         ranges = split_ranges(num_envs, max(1, slices))
-        return EnvSupervisor([make_slice(s0, s1) for s0, s1 in ranges], [partial(make_slice, s0, s1) for s0, s1 in ranges], seed=cfg.seed, **supervise)
+        return EnvSupervisor(
+            [make_slice(s0, s1) for s0, s1 in ranges], [partial(make_slice, s0, s1) for s0, s1 in ranges], seed=cfg.seed + base, **supervise
+        )
     if slices <= 1:
         return make_slice(0, num_envs)
-    return EnvSliceGroup([make_slice(s0, s1) for s0, s1 in split_ranges(num_envs, slices)], seed=cfg.seed)
+    return EnvSliceGroup([make_slice(s0, s1) for s0, s1 in split_ranges(num_envs, slices)], seed=cfg.seed + base)
 
 
 def make_test_env(cfg) -> Any:

@@ -5,11 +5,13 @@ server in the foreground until SIGTERM (which drains)::
 
     python -m sheeprl_tpu_torch.serve serve 'artifacts=[pi.policy]' serve.port=8080 serve.max_batch=8
 
-Keys (``key=value``; defaults as in the JAX package's configs/serve/default.yaml):
-``serve.host`` 127.0.0.1, ``serve.port`` 8080, ``serve.max_batch`` 8,
-``serve.queue_capacity`` 64, ``serve.batch_window_ms`` 2.0,
-``serve.max_models`` 4, ``serve.max_sessions`` 256, and ``device`` (cuda;
-``device=cpu`` runs on the CPU).
+Keys (``key=value``), composed by the port's reader from
+``configs/serve_config.yaml`` and ``configs/serve/default.yaml`` (the JAX
+package's files): ``serve.host`` 127.0.0.1, ``serve.port`` 8080,
+``serve.max_batch`` 8, ``serve.queue_capacity`` 64,
+``serve.batch_window_ms`` 2.0, ``serve.max_models`` 4,
+``serve.max_sessions`` 256, and ``device`` (cuda; ``device=cpu`` runs on the
+CPU).
 
 ``export`` writes the policy of a port training checkpoint as an artifact
 (default path ``<log dir>/artifacts/<name>.policy``)::
@@ -28,35 +30,28 @@ import pathlib
 import sys
 from typing import Any, Dict, List, Optional, Sequence
 
-from sheeprl_tpu_torch.config import parse_list, parse_overrides
+from sheeprl_tpu_torch.config import ConfigError, compose, parse_list, parse_overrides
 
-SERVE_DEFAULTS: Dict[str, Any] = {
-    "host": "127.0.0.1",
-    "port": 8080,
-    "max_batch": 8,
-    "queue_capacity": 64,
-    "batch_window_ms": 2.0,
-    "max_models": 4,
-    "max_sessions": 256,
-}
+CONFIG_NAME = "serve_config"
+# The ``serve`` group's defaults, as composed from the port's tree.
+SERVE_DEFAULTS: Dict[str, Any] = dict(compose(["artifacts=[]"], config_name=CONFIG_NAME).serve)
 
 
 def serve_config(overrides: Sequence[str]) -> Dict[str, Any]:
-    """{"artifacts": [...], "device": ..., "serve": {...}} from the defaults and ``overrides``."""
-    kv = parse_overrides(overrides)
-    serve = dict(SERVE_DEFAULTS)
-    for key in [k for k in kv if k.startswith("serve.")]:
-        name = key[len("serve.") :]
-        if name not in serve:
-            raise ValueError(f"Unknown serve key {key!r}. Valid: {sorted('serve.' + k for k in serve)}")
-        serve[name] = type(serve[name])(kv.pop(key))
-    artifacts = parse_list(kv.pop("artifacts", ""))
-    device = kv.pop("device", "cuda")
-    if kv:
-        raise ValueError(f"Unknown arguments: {sorted(kv)}")
+    """{"artifacts": [...], "device": ..., "serve": {...}}: ``serve_config``
+    composed with ``overrides``. The reader's refusal of a key the files do
+    not define is the one check of the keys."""
+    try:
+        cfg = compose(list(overrides), config_name=CONFIG_NAME)
+    except ConfigError as err:
+        refusal = str(err).split(". Use '+")[0]
+        raise ValueError(f"Unknown serve key or argument: {refusal}. Valid: {sorted('serve.' + k for k in SERVE_DEFAULTS)}, artifacts, device") from err
+    artifacts = cfg.artifacts
+    if not isinstance(artifacts, list):
+        artifacts = [] if artifacts == "???" else parse_list(str(artifacts))  # ??? : the file's mandatory value, not given
     if not artifacts:
         raise ValueError("You must specify at least one artifact: 'artifacts=[path/to/policy.policy]'")
-    return {"artifacts": artifacts, "device": device, "serve": serve}
+    return {"artifacts": [str(a) for a in artifacts], "device": str(cfg.device), "serve": dict(cfg.serve)}
 
 
 def _serve(overrides: List[str]) -> None:

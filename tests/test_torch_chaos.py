@@ -7,8 +7,8 @@ against sheeprl_tpu/core/chaos.py).
   stream (each package's dummy env, addressed through ``wrap_env_thunks``)
   fire at the same step, once, and a rebuilt env does not fire again;
 - the step injectors drive signals, fail points and delays at the same
-  policy steps; the fleet's (``kill9``, ``drop_shipment``, ``replica``)
-  raise naming the fleet item;
+  policy steps; the fleet's (``kill9``, ``drop_shipment``, and any injector
+  with a ``replica``) fire in the processes where the JAX package's fire;
 - ``corrupt_checkpoint`` in each mode leaves the previous checkpoint the
   newest valid one, for both packages' ``find_latest_valid_checkpoint``.
 """
@@ -133,13 +133,35 @@ def test_step_injectors_fire_at_their_policy_step(monkeypatch):
 @pytest.mark.parametrize(
     "injector",
     [{"kind": "kill9", "at_step": 4}, {"kind": "drop_shipment", "at_step": 1}, {"kind": "sigterm", "at_step": 4, "replica": 1},
-     {"kind": "nan_reward", "env_rank": 0, "replica": 0}],
+     {"kind": "nan_reward", "env_rank": 1, "at_step": 2, "replica": 0}],
 )  # fmt: skip
-def test_fleet_injectors_raise_naming_the_fleet_item(injector):
-    with pytest.raises(NotImplementedError, match=r"A10 \(fleet\)"):
-        chaos.ChaosMonkey([injector])
-    with pytest.raises(NotImplementedError, match=r"A10 \(fleet\)"):
-        chaos.wrap_env_thunks([lambda: None], [injector], 0)
+def test_fleet_injectors_raise_naming_the_fleet_item(injector, monkeypatch):
+    """The fleet's injectors fire where the JAX package fires them: a step
+    injector in the monkey of its ``replica`` (the learner's, ``replica``
+    None, when it has none) and nowhere else, ``kill9`` as a SIGKILL to this
+    process and ``drop_shipment`` as the ``fleet.ship`` drop point armed; an
+    env injector in every process that builds its ``env_rank``, its
+    ``replica`` key unread."""
+    fired = {}
+    for name, mod in (("port", chaos), ("jax", jax_chaos)):
+        log = fired.setdefault(name, [])
+        monkeypatch.setattr(mod.os, "kill", lambda pid, sig, _l=log: _l.append(("kill", int(sig))))
+        for replica in (None, 0, 1):
+            mod.reset()
+            monkey = mod.ChaosMonkey([injector], replica=replica)
+            for step in range(0, 8, 2):
+                log.append(("step", replica, step))
+                monkey.on_step(step)
+                log.append(("drop", mod.maybe_drop("fleet.ship"), mod.maybe_drop("fleet.ship")))
+        mod.reset()
+        log.append(("env", _stream(mod, lambda: make_dummy_env(env_id="continuous_dummy", action_dim=2) if mod is chaos
+                                   else JaxContinuousDummyEnv(action_dim=2), [injector])))  # fmt: skip
+    assert fired["port"] == fired["jax"]
+    kind = injector["kind"]
+    events = [e for e in fired["port"] if e[0] == "kill" or (e[0] == "drop" and e[1])]
+    assert len(events) == (1 if kind in ("kill9", "drop_shipment", "sigterm") else 0)
+    if kind == "kill9":
+        assert ("kill", int(signal.SIGKILL)) in fired["port"]
 
 
 def test_unknown_injector_kind_warns_and_is_ignored():

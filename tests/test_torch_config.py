@@ -9,6 +9,7 @@ import os
 import sys
 
 import pytest
+import torch
 import yaml
 from test_torch_train import check_against_jax
 
@@ -56,7 +57,7 @@ def test_reader_reads_every_file_of_the_tree_as_pyyaml_does(name):
     text = open(os.path.join(TREE, name)).read()
     want = yaml.load(text, Loader=_YamlLoader)
     assert _same(reader.load(text, name), want)
-    assert reader.package_header(text) == ("_global_" if name == "config.yaml" or name.startswith("exp/") else None)
+    assert reader.package_header(text) == ("_global_" if name in ("config.yaml", "serve_config.yaml") or name.startswith("exp/") else None)
 
 
 def test_reader_reads_values_as_pyyaml_does():
@@ -199,3 +200,82 @@ def test_health_and_resilience_groups_compose_to_the_jax_composition(exp, groups
     assert port.health == ref["health"] and port.resilience == ref["resilience"]
     assert port.health.enabled is ("health=on" in groups or "health=strict" in groups)
     assert port.resilience.supervisor.enabled is port.resilience.watchdog.enabled is ("resilience=on" in groups)
+
+
+# DreamerV3's sizes: (D, H) of the LN-GRU cell, D = H + dense_units (its input is concat[h, x]).
+DV3_SIZES = {"XS": (512, 256), "S": (1024, 512), "M": (1664, 1024), "L": (2816, 2048)}
+
+
+@pytest.mark.parametrize("size", ["XS", "M", "L"])
+def test_dv3_sizes_compose_to_the_jax_composition(size):
+    """``algo=dreamer_v3_<size>`` on top of the MsPacman exp composes key for
+    key as the JAX package's, and gives the cell's D and H of the size."""
+    sheeprl_tpu.register_all()
+    args = ["exp=dreamer_v3_100k_ms_pacman", f"algo=dreamer_v3_{size}", "env=dummy"]
+    port, ref = compose(args), jax_compose("config", args).as_dict()
+    check_against_jax(port, ref)
+    hidden = port.algo.world_model.recurrent_model.recurrent_state_size
+    assert (hidden + port.algo.dense_units, hidden) == DV3_SIZES[size]
+
+
+def test_serve_config_composes_to_the_jax_one():
+    """``serve_config`` composed by the port's reader holds the JAX file's
+    values (the port's ``device`` key besides); the CLI's reading of it
+    keeps raising on an unknown ``serve.*`` key."""
+    from sheeprl_tpu_torch.serve import cli as serve_cli
+
+    port = compose(["artifacts=[a.policy]", "serve.port=0"], config_name="serve_config")
+    ref = jax_compose("serve_config", ["artifacts=[a.policy]", "serve.port=0"]).as_dict()
+    assert {k: v for k, v in port.items() if k != "device"} == ref and port.device == "cuda"
+    assert serve_cli.SERVE_DEFAULTS == jax_compose("serve_config", ["artifacts=[a]"]).as_dict()["serve"]
+    cfg = serve_cli.serve_config(["artifacts=[a.policy]", "serve.max_batch=16", "device=cpu"])
+    assert cfg == {"artifacts": ["a.policy"], "device": "cpu", "serve": {**ref["serve"], "port": 8080, "max_batch": 16}}
+    with pytest.raises(ValueError, match="Unknown serve key or argument: Could not override 'serve.bogus': no such key"):
+        serve_cli.serve_config(["artifacts=[a.policy]", "serve.bogus=1"])
+
+
+def _plans(size):
+    from sheeprl_tpu_torch.models.ln_gru import backward_plan, forward_plan
+
+    depth, hidden = DV3_SIZES[size]
+    fwd = {(b, str(d).split(".")[1]): forward_plan(b, depth, hidden, d, 132) for b in (1, 16, 1024) for d in (torch.bfloat16, torch.float32)}
+    return fwd, {b: backward_plan(b, hidden, 132) for b in (16, 1024)}
+
+
+@pytest.mark.parametrize("size", ["XS", "S", "M", "L"])
+def test_forward_and_backward_plans_at_the_dv3_sizes(size):
+    """The kernels each size's shapes go to (132 SMs, an H100 SXM): the
+    tensor cores take only bf16 at B >= 128 with H % 64 == 0 and H <= 512,
+    so XS's imagination at a cluster of H / 64 = 4 CTAs (S's at 8) and every
+    other shape of the table streams W; the backward plans cover every row
+    once, in whole clusters."""
+    import math
+
+    fwd, bwd = _plans(size)
+    depth, hidden = DV3_SIZES[size]
+    for (batch, dtype), plan in fwd.items():
+        tc = dtype == "bfloat16" and batch == 1024 and size in ("XS", "S")
+        assert plan.kernel == ("tensor_core" if tc else "streaming"), (batch, dtype)
+        if tc:
+            assert plan.cluster == hidden // 64 == {"XS": 4, "S": 8}[size] and plan.grid == (plan.cluster, 1024 // 64, 1)
+        else:
+            assert plan.grid[1] == plan.ksplit <= 16 and plan.ksplit * plan.depth_per_split >= depth > (plan.ksplit - 1) * plan.depth_per_split
+            assert plan.grid[0] * plan.col_tile >= 3 * hidden and plan.grid[2] == math.ceil(batch / plan.row_tile)
+    for batch, plan in bwd.items():
+        assert plan.rows * plan.blocks >= batch and plan.blocks == plan.cluster * plan.clusters and plan.threads <= 256
+
+
+@pytest.mark.parametrize("with_rich", [True, False], ids=["rich", "plain"])
+def test_available_agents_lists_every_registered_algorithm(with_rich, capsys, monkeypatch):
+    from sheeprl_tpu_torch import available_agents as agents
+    from sheeprl_tpu_torch.registry import algorithm_registry
+
+    monkeypatch.setenv("COLUMNS", "300")  # rich cuts its cells to the terminal's width
+    if not with_rich:
+        monkeypatch.setitem(sys.modules, "rich.console", None)  # import rich.console raises ImportError
+    agents.available_agents()
+    out = capsys.readouterr().out
+    assert len(algorithm_registry) == 17
+    for name in algorithm_registry:
+        assert name in out
+    assert ("┃" in out) is with_rich and ("sheeprl-tpu-torch Agents" in out)

@@ -21,7 +21,8 @@
 - The command line with the JAX package's overrides
   (``tests/test_algos/test_algos.py:417-531``) and ``device=cpu``: a host
   player on one device trains, the on-mesh split on one device raises the
-  JAX package's ``RuntimeError``, and a checkpoint, its evaluation and a
+  JAX package's ``RuntimeError``, the fleet on an algorithm that is not
+  decoupled its ``ValueError``, and a checkpoint, its evaluation and a
   resume go round (SAC's resume bit for bit against the run it continues).
 """
 
@@ -36,8 +37,10 @@ import torch
 from test_torch_ppo import _adam_states, _close, _obs, _t, build_pair as ppo_pair, jax_permutations
 from test_torch_sac import BATCH, _adam, build_pair as sac_pair, check_update, close, gradient_noise, jax_optimizers
 
+from sheeprl_tpu import cli as jax_cli
 from sheeprl_tpu.algos.ppo import ppo as jax_ppo
 from sheeprl_tpu.algos.sac import sac as jax_sac
+from sheeprl_tpu.config.loader import compose as jax_compose
 from sheeprl_tpu.core import Runtime
 from sheeprl_tpu.utils import ops as jax_ops
 from sheeprl_tpu_torch import bridge
@@ -249,10 +252,17 @@ def test_one_device_on_the_mesh_fails(tmp_path, algo):
 
 @pytest.mark.parametrize("algo", list(OVERRIDES))
 def test_what_needs_more_cards_or_the_fleet_names_its_roadmap_item(tmp_path, algo):
+    """More trainer cards name ROADMAP A9; the fleet on an algorithm that is
+    not decoupled raises the JAX package's ``ValueError``
+    (``check_configs``, sheeprl_tpu/cli.py:146-150)."""
     with pytest.raises(NotImplementedError, match="A9"):
         run(OVERRIDES[algo](tmp_path, **{"fabric.devices": 2}))
-    with pytest.raises(NotImplementedError, match="A10"):
-        run(OVERRIDES[algo](tmp_path, **{"fabric.devices": 1, "fabric.player_device": "host", "fleet.replicas": 2}))
+    args = [f"exp={algo}", "env=dummy", "fleet.replicas=2"]
+    with pytest.raises(ValueError, match="requires a decoupled") as port_err:
+        run([*args, "device=cpu", f"log_root={tmp_path}"])
+    with pytest.raises(ValueError) as jax_err:
+        jax_cli.check_configs(jax_compose("config", args))
+    assert str(port_err.value) == str(jax_err.value)
 
 
 def _ckpts(root):
