@@ -406,6 +406,23 @@ phase 34 runs before 32-33, and the Anakin lane, 42-46, before 37-41):
    finite losses, DV3-S's launches by batch, host wall, device busy, peak
    memory. ``c.phases_58_60(dir)`` runs 58-60 alone after
    ``kernels.build()``.
+61. The env layer: DreamerV3-S at full width (``ENV_LAYER_ARGS``,
+   bf16-mixed, 4 envs) on the host buffer and on the ring, its envs in
+   worker processes (``env.sync_env=False``) against in-process from the
+   same seed: rows, ring and parameters bit for bit, phase 7's LN-GRU
+   launches per gradient step, the workers' spawn to ready and the host
+   wall per env step of each mode; a fault planted in env 1's thunk
+   (``RaiseAtStep``: its env raises in a chosen step inside its worker)
+   that ``RestartOnException`` answers, the host buffer's and the ring's
+   patched rows, training on with finite losses; the workers' process
+   groups with ``env/steps`` spans in the merged trace; ``env=gym``,
+   ``mujoco`` and ``dmc`` raising with ``require``'s message where their
+   package is missing. Every earlier phase runs its envs in-process
+   (``pin_in_process_envs``: ``env.sync_env=True`` unless a run names it),
+   as it was measured, and the script fails if any of them built a
+   worker-process vector (``async_vectors_built``).
+   ``c.pin_in_process_envs(); c.phase_env_layer(dir)`` runs it alone after
+   ``kernels.build()``.
 
 Every profile reads its device busy time through ``_busy``, which leaves
 out the device ranges of ``record_function`` annotations (the trainers'
@@ -427,7 +444,9 @@ runs', and phases 47-50's: the pipeline at one and two slices, the host
 player's and the decoupled runs', 0; phases 51 and 54's, telemetry and
 health on; phases 58-59's fleet runs', 0); then phase 60's bf16 rows of
 DreamerV3 XS, M and L (forward at B = 16, 1024 and 1, backward at B = 16
-and 1024) with their CLI step's launches; the card's name and power limit,
+and 1024) with their CLI step's launches; every entry also with phase
+61's worker-process runs' launches on the host and the ring path; the
+card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -707,10 +726,10 @@ def phase_kernels():
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # DV3-S at every serving bucket of the default max_batch (1, 2, 4, 8) and at 64, unaligned, XL.
-    # ... and at the training path's B = 16 (dynamic scan) and B = 1024 (imagination).
-    shapes = [(1, 1024, 512), (2, 1024, 512), (4, 1024, 512), (8, 1024, 512), (16, 1024, 512), (64, 1024, 512),
-              (1024, 1024, 512), (3, 200, 100), (8, 5120, 4096)]  # fmt: skip
+    # DV3-S at every serving bucket of the default max_batch (1, 2, 4, 8), unaligned, XL (B = 64, off every
+    # path, was cut for phase 61) ... and at the training path's B = 16 (dynamic scan) and B = 1024 (imagination).
+    shapes = [(1, 1024, 512), (2, 1024, 512), (4, 1024, 512), (8, 1024, 512), (16, 1024, 512), (1024, 1024, 512), (3, 200, 100),
+              (8, 5120, 4096)]  # fmt: skip
     rows = []
     for batch, depth, hidden in shapes:
         for dtype in (torch.float32, torch.bfloat16):
@@ -2494,7 +2513,7 @@ REPLAYS_PROFILED = 16
 # 35.8 of the phase's 49.7 s on an NVIDIA H100 80GB HBM3 at 700 W; 8 until
 # the resilience phases 54-57 needed it); its REPLAYS_PROFILED replays stay
 # timed.
-GRAPH_REPLAYS_PROFILED = 2  # cut from 4 to make room for phases 58-60 (21.3 s of torch.profiler at 4)
+GRAPH_REPLAYS_PROFILED = 1  # cut from 4 for phases 58-60 (21.3 s of torch.profiler at 4), from 2 for phase 61 (11.1 s at 2)
 WARMUP_STEPS = 3  # sheeprl_tpu_torch.core.graphs.WARMUP_CALLS
 
 
@@ -5271,7 +5290,7 @@ ANAKIN_ENV_TOL = {"atol": 1e-5, "rtol": 1e-5}  # f32 physics: the card's sin, co
 DV3A_DEPTH, DV3A_HIDDEN = 1024, 512
 DV3A_ENVS, DV3A_BATCH, DV3A_SEQ, DV3A_HORIZON, DV3A_SUPERSTEP = 4, 8, 32, 15, 16
 DV3A_IMAGINED = DV3A_BATCH * DV3A_SEQ  # 256
-DV3A_PROFILED_REPLAYS = 4  # of a superstep's 32 gradient-step replays, profiled (cut from 32 for phases 54-57, from 8 for phases 58-60)
+DV3A_PROFILED_REPLAYS = 2  # of a superstep's 32 gradient-step replays, profiled (cut from 32 for phases 54-57, 8 for 58-60, 4 for 61)
 DV3A_CUTS = {"algo.total_steps": "1152 (from 100000: the 1024 prefill steps, then two supersteps of 64 with 32 gradient steps each)",
              "metric.log_every": "512 (from 5000)"}  # fmt: skip
 DV3A_ARGS = ["exp=dreamer_v3_anakin", "algo.total_steps=1152", "metric.log_every=512"]
@@ -5694,7 +5713,7 @@ def phases_42_46(workdir):
 
 
 # ------------------------------------------------- phases 47-50: interaction
-PIPE_ENVS, PIPE_WARMUP, PIPE_WINDOW, PIPE_PROFILED = 4, 4, 32, 4  # profiled steps 8 -> 4 for the resilience phases 54-57
+PIPE_ENVS, PIPE_WARMUP, PIPE_WINDOW, PIPE_PROFILED = 4, 4, 32, 2  # profiled steps 8 -> 4 for phases 54-57, 4 -> 2 for phase 61
 PIPE_STEPS = 2 * PIPE_WINDOW  # timed steps of each variant: two windows, taken in turns with the others
 PIPE_ARGS = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", f"env.num_envs={PIPE_ENVS}"]
 PIPE_CUTS = {"env.num_envs": "4 (from 1: two slices of 2 envs)"}
@@ -5754,7 +5773,7 @@ def _dv3_player(precision, seed=5):
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
     from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
     from sheeprl_tpu_torch.config import compose
-    from sheeprl_tpu_torch.envs.make import make_vector_env
+    from sheeprl_tpu_torch.utils.env import make_vector_env
 
     cfg = compose([*PIPE_ARGS, "device=cuda"])
     envs = make_vector_env(cfg)
@@ -5773,7 +5792,7 @@ def _dv3_stepper(cfg, player, rng, slices=1, async_fetch=False, serial=False, gr
     import torch
 
     from sheeprl_tpu_torch.core.interact import InteractionPipeline, tree_concat
-    from sheeprl_tpu_torch.envs.make import make_vector_env
+    from sheeprl_tpu_torch.utils.env import make_vector_env
     from sheeprl_tpu_torch.utils.utils import normalize_obs, prepare_obs
 
     cfg.env.pipeline_slices = slices
@@ -5948,7 +5967,7 @@ def _ppo_pipeline_timing():
     from sheeprl_tpu_torch.algos.ppo.ppo import rollout_outputs
     from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.core.interact import InteractionPipeline
-    from sheeprl_tpu_torch.envs.make import make_vector_env
+    from sheeprl_tpu_torch.utils.env import make_vector_env
     from sheeprl_tpu_torch.utils.distribution import BatchGenerator
     from sheeprl_tpu_torch.utils.utils import prepare_obs
 
@@ -6966,7 +6985,7 @@ def _sigterm_subprocess(log_root):
     the pointer with signal 15."""
     import signal
 
-    args = [a for a in PRE_SAC if not a.startswith("algo.total_steps")] + ["algo.total_steps=1000000", f"log_root={log_root}"]
+    args = [a for a in PRE_SAC if not a.startswith("algo.total_steps")] + ["algo.total_steps=1000000", "env.sync_env=True", f"log_root={log_root}"]
     code = "import sys; sys.path.insert(0, sys.argv[1]); from sheeprl_tpu_torch.cli import run; run(sys.argv[2:])"
     proc = subprocess.Popen([sys.executable, "-u", "-c", code, REPO, *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     lines = []
@@ -7011,7 +7030,7 @@ def phase_drills(workdir):
     from sheeprl_tpu_torch.cli import run
     from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.core import chaos
-    from sheeprl_tpu_torch.envs.make import make_vector_env
+    from sheeprl_tpu_torch.utils.env import make_vector_env
     from sheeprl_tpu_torch.utils.checkpoint import find_latest_valid_checkpoint, load_checkpoint, parse_ckpt_name
 
     t0 = time.perf_counter()
@@ -7182,6 +7201,10 @@ DV3_SIZES = {  # (D = H + dense_units: the cell's input is concat[h, x], H) of a
     "XS": (512, 256), "M": (1664, 1024), "L": (2816, 2048),
 }
 DV3_SIZE_BATCHES = ((16, "dynamic scan"), (1024, "imagination"), (1, "player"))
+# The sizes whose step is profiled for its device busy time: L only, cut for
+# phase 61 (XS's and M's steps were busy 52.08-52.17 and 79.22-79.46 ms on an
+# NVIDIA H100 80GB HBM3 at 700 W).
+DV3_SIZE_PROFILED = ("L",)
 DV3_SIZE_BWD = (16, 1024)
 DV3_SIZE_ARGS = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "algo.learning_starts=128", "algo.total_steps=128", "buffer.size=4096",
                  "buffer.memmap=False", "metric.log_level=0", "algo.run_test=False", "checkpoint.save_last=False"]  # fmt: skip
@@ -7559,7 +7582,8 @@ def size_step(size, log_root):
     DV3-S; by kernel: the imagination's on the tensor cores for XS, streaming
     for M and L); then one more step of the trained agent on a fixed batch:
     host wall (ending in a synchronize), device busy from torch.profiler
-    (CUDA activity only), peak memory."""
+    (CUDA activity only; L's step only, ``DV3_SIZE_PROFILED``), peak
+    memory."""
     import torch
 
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
@@ -7591,17 +7615,19 @@ def size_step(size, log_root):
     def one():
         box[0], _ = step(box[0], data, rng, 0.02)
 
-    busy_ms, ops, _ = _busy(profiled(one).key_averages(), 1, skip=("dv3/",))
+    busy_ms, ops = _busy(profiled(one).key_averages(), 1, skip=("dv3/",))[:2] if size in DV3_SIZE_PROFILED else (None, None)
     losses = {k: v for k, v in steps[0][2].items() if "loss" in k.lower()}
     if not all(math.isfinite(v) for v in losses.values()):
         fail(f"dv3-{size}: non-finite losses {losses}")
     result = {"size": size, "cuts": DV3_SIZE_CUTS, "gradient_steps": len(steps), "ln_gru_launches": counts, "losses": losses, "cli_wall_s": wall,
-              "host_wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms, "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+              "host_wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
+              "device_idle_share": None if busy_ms is None else max(0.0, 1.0 - busy_ms / wall_ms),
               "device_ops_per_step": ops, "peak_memory_gib": peak_gib,
               "params": sum(p.numel() for p in agent.parameters())}  # fmt: skip
+    busy = "not profiled" if busy_ms is None else f"{busy_ms:.2f} ms/step (idle share {result['device_idle_share']:.3f}, {ops:.0f} device ops)"
     log(f"dv3-{size} gradient step (60): {result['params']} parameters, losses {json.dumps({k: round(v, 4) for k, v in losses.items()})}, LN-GRU "
-        f"launches {json.dumps(counts)}, host wall {wall_ms:.2f} ms/step, device busy {busy_ms:.2f} ms/step (idle share "
-        f"{result['device_idle_share']:.3f}, {ops:.0f} device ops), peak memory {peak_gib:.2f} GiB; the CLI run took {wall:.1f} s")  # fmt: skip
+        f"launches {json.dumps(counts)}, host wall {wall_ms:.2f} ms/step, device busy {busy}, peak memory {peak_gib:.2f} GiB; the CLI run "
+        f"took {wall:.1f} s")  # fmt: skip
     del out, agent, step, moments, data
     torch.cuda.empty_cache()
     return result
@@ -7638,6 +7664,299 @@ def phases_58_60(workdir, nonfleet_sac=None, nonfleet_ppo_ms=None):
     return {"sac_fleet": sac, "ppo_fleet": ppo, "dv3_sizes": sizes, "phases_58_60_s": took}
 
 
+# The env layer (phase 61): DreamerV3-S at full width on env=dummy with
+# its envs in worker processes against in-process, a planted env fault,
+# the workers in the run's trace, and the env groups' gates.
+ENV_LAYER_ARGS = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "fabric.precision=bf16-mixed", "env.num_envs=4", "+env.wrapper.n_steps=100",
+                  "algo.learning_starts=256", "algo.total_steps=276", "algo.replay_ratio=0.25", "buffer.size=4096", "buffer.memmap=False",
+                  "metric.log_every=8", "algo.run_test=False", "checkpoint.every=0"]  # fmt: skip
+ENV_LAYER_CUTS = {"algo.learning_starts": "256 (from 1024: 64 prefill steps of 4 envs, one env/steps span a worker)",
+                  "algo.total_steps": "276 (from 100000; 5 policy iterations after the prefill)", "algo.replay_ratio": "0.25 (from 1: one gradient "
+                  "step an iteration)", "buffer.size": "4096, in memory", "env.wrapper.n_steps": "100 (from 4: no episode ends within a span window)"}  # fmt: skip
+ENV_FAULT_AT = 10  # env 1's 10th step raises inside its worker
+ENV_FAULT_ENV = 1
+ENV_FAULT_WAIT_S = 0.5  # RestartOnException's wait for the drill (the port's default stays 20 s)
+ENV_GATES = {"gym": ("exp=ppo", "gymnasium"), "mujoco": ("exp=ppo_mujoco", "gymnasium"), "dmc": ("exp=dreamer_v3_dmc_walker_walk", "dm_control")}
+
+
+class RaiseAtStep:
+    """An env thunk whose env raises ``RuntimeError`` in its ``at_step``-th
+    step, once per thunk object: ``RestartOnException`` rebuilds the env from
+    the same thunk in the same worker, and the rebuilt env steps on. It is
+    pickled into the worker (a spawned worker imports this script as its
+    main module, whose top level imports only the standard library)."""
+
+    def __init__(self, thunk, at_step):
+        self.thunk, self.at_step, self.fired = thunk, int(at_step), False
+
+    def __call__(self):
+        env = self.thunk()
+        if self.fired:
+            return env
+        inner, steps = env.step, [0]
+
+        def step(action):
+            steps[0] += 1
+            if steps[0] == self.at_step and not self.fired:
+                self.fired = True
+                raise RuntimeError(f"planted fault in step {self.at_step}")
+            return inner(action)
+
+        env.step = step
+        return env
+
+
+def _env_layer_run(args, what, restart_kwargs=None):
+    """One DreamerV3-S CLI run of phase 61: its envs (timed per step), host
+    buffer and ring, LN-GRU launches, gradient steps and final parameters."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.data import device_buffer
+    from sheeprl_tpu_torch.utils.env import make_vector_env
+
+    seen = {"buffers": [], "rings": [], "envs": [], "step_s": []}
+
+    def timed_envs(cfg, restart_on_exception):
+        envs = make_vector_env(cfg, restart_on_exception=restart_kwargs or restart_on_exception)
+        step = envs.step
+
+        def timed_step(actions):
+            t0 = time.perf_counter()
+            out = step(actions)
+            seen["step_s"].append(time.perf_counter() - t0)
+            return out
+
+        envs.step = timed_step
+        seen["envs"].append(envs)
+        return envs
+
+    class Recorded(dv3.EnvIndependentReplayBuffer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen["buffers"].append(self)
+
+    ring_init = device_buffer.DeviceReplayRing.__init__
+
+    def recording_ring(self, *a, **k):
+        ring_init(self, *a, **k)
+        seen["rings"].append(self)
+
+    zero_counts()
+    t0 = time.perf_counter()
+    with patched(dv3, "make_vector_env", timed_envs), patched(dv3, "EnvIndependentReplayBuffer", Recorded), \
+            patched(device_buffer.DeviceReplayRing, "__init__", recording_ring):  # fmt: skip
+        out = run(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    last = out["log"][-1] if out["log"] else {}
+    if out["gradient_steps"] < 1 or not all(math.isfinite(v) for v in last.values()):
+        fail(f"{what}: {out['gradient_steps']} gradient steps, last logged {last}")
+    envs = seen["envs"][0]
+    params = {k: v.detach().cpu().clone() for k, v in out["agent"].state_dict().items()}
+    # The rows written (np.empty leaves the rest as it found it).
+    rows = [{k: np.asarray(v)[: b.buffer_size if b.full else b._pos].copy() for k, v in b.buffer.items()} for b in seen["buffers"][0].buffer]
+    ring = {k: v.detach().cpu().clone() for k, v in seen["rings"][0]._data.items()} if seen["rings"] else None
+    step_ms = [s * 1e3 for s in seen["step_s"]]
+    return {"out": out, "params": params, "rows": rows, "ring": ring, "counts": counts, "wall_s": wall,
+            "spawn_s": getattr(envs, "spawn_s", None), "worker_pids": list(getattr(envs, "worker_pids", [])),
+            "env_step_ms_median": statistics.median(step_ms), "env_step_ms_p90": sorted(step_ms)[int(0.9 * (len(step_ms) - 1))],
+            "env_steps": len(step_ms)}  # fmt: skip
+
+
+def _same(a, b, what, where):
+    """``a`` and ``b`` (trees of tensors or arrays) equal bit for bit."""
+    import numpy as np
+    import torch
+
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            fail(f"{what}: {where} keys differ: {sorted(set(a) ^ set(b))}")
+        for k in a:
+            _same(a[k], b[k], what, f"{where}/{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, what, f"{where}[{i}]")
+    elif isinstance(a, torch.Tensor):
+        if a.shape != b.shape or not torch.equal(a, b):
+            fail(f"{what}: {where} differs between the in-process and the worker-process envs")
+    elif not np.array_equal(a, b):
+        fail(f"{what}: {where} differs between the in-process and the worker-process envs")
+
+
+def phase_env_layer(workdir):
+    """(61) The env layer on DreamerV3-S at full width (``ENV_LAYER_ARGS``,
+    bf16-mixed, 4 envs): (a) on the host buffer and on the ring
+    (``buffer.device=True``), ``env.sync_env=False`` against ``True`` from
+    the same seed: every stored row, the ring and the parameters after the
+    last gradient step bit for bit, the LN-GRU launches equal and, per
+    gradient step, phase 7's; the workers' spawn to ready and the host wall
+    per env step of each mode. (b) A fault planted in env 1's thunk
+    (:class:`RaiseAtStep`, through ``utils.env.make_env``, as the CPU test
+    that holds the patch against the JAX loop plants it): its env raises
+    inside its worker at its ``ENV_FAULT_AT``-th step on the ring path:
+    ``RestartOnException`` (``wait`` ``ENV_FAULT_WAIT_S``) rebuilds the env,
+    the host buffer's and the ring's row read terminated 0, truncated 1,
+    is_first 0 and the next row is_first 1, and the run trains on with
+    finite losses. (c) The async host run's flight dir: ``aggregate_traces``
+    holds one process group per worker pid with ``env/steps`` spans. (d)
+    ``env=gym``, ``mujoco`` and ``dmc`` raise with ``require``'s message
+    where their package is missing."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.telemetry.flight import aggregate_traces
+    from sheeprl_tpu_torch.utils import env as env_mod
+    from sheeprl_tpu_torch.utils import imports
+
+    card = nvidia_smi()
+    t_phase = time.perf_counter()
+    result = {"cuts": ENV_LAYER_CUTS, "card": card}
+    # (a) worker processes against in-process, on both paths.
+    for path, extra in (("host", []), ("ring", ["buffer.device=True"])):
+        runs = {}
+        for mode in ("True", "False"):
+            what = f"env layer {path} sync_env={mode}"
+            runs[mode] = _env_layer_run([*ENV_LAYER_ARGS, *extra, f"env.sync_env={mode}", f"log_root={os.path.join(workdir, 'env_layer', path + mode)}"],
+                                        what)  # fmt: skip
+        sync, asyn = runs["True"], runs["False"]
+        if asyn["spawn_s"] is None or len(set(asyn["worker_pids"])) != 4 or os.getpid() in asyn["worker_pids"]:
+            fail(f"env layer {path}: the async run did not step its envs in 4 worker processes ({asyn['worker_pids']})")
+        _same(sync["rows"], asyn["rows"], f"env layer {path}", "host buffer")
+        _same(sync["ring"], asyn["ring"], f"env layer {path}", "ring")
+        _same(sync["params"], asyn["params"], f"env layer {path}", "parameters")
+        if sync["counts"] != asyn["counts"] or sync["out"]["gradient_steps"] != asyn["out"]["gradient_steps"]:
+            fail(f"env layer {path}: launches {sync['counts']} / {asyn['counts']}, gradient steps {sync['out']['gradient_steps']} / "
+                 f"{asyn['out']['gradient_steps']}")  # fmt: skip
+        g = asyn["out"]["gradient_steps"]
+        per_step = {"forward_by_batch": {b: asyn["counts"]["forward_by_batch"].get(b, 0) / g for b in FWD_BY_BATCH},
+                    "backward_by_batch": {b: asyn["counts"]["backward_by_batch"].get(b, 0) / g for b in BWD_BY_BATCH}}  # fmt: skip
+        if path == "host" and (per_step["forward_by_batch"] != {b: float(n) for b, n in FWD_BY_BATCH.items()}
+                               or per_step["backward_by_batch"] != {b: float(n) for b, n in BWD_BY_BATCH.items()}):  # fmt: skip
+            fail(f"env layer host: LN-GRU launches per gradient step {per_step}, phase 7's {FWD_BY_BATCH} / {BWD_BY_BATCH}")
+        result[path] = {
+            "gradient_steps": g, "policy_steps": asyn["out"]["policy_steps"], "ln_gru_launches": asyn["counts"], "ln_gru_per_gradient_step": per_step,
+            "bit_for_bit": ["host buffer rows", "ring" if asyn["ring"] is not None else None, "parameters"],
+            "spawn_to_ready_s": asyn["spawn_s"], "env_steps": asyn["env_steps"],
+            "host_wall_ms_per_env_step": {"in_process": sync["env_step_ms_median"], "workers": asyn["env_step_ms_median"]},
+            "host_wall_ms_per_env_step_p90": {"in_process": sync["env_step_ms_p90"], "workers": asyn["env_step_ms_p90"]},
+            "run_wall_s": {"in_process": sync["wall_s"], "workers": asyn["wall_s"]},
+        }  # fmt: skip
+        log(f"env layer (61) {path} path on {card}: env.sync_env=False equals True bit for bit ({g} gradient steps, "
+            f"{asyn['env_steps']} env steps, rows, {'ring, ' if asyn['ring'] is not None else ''}parameters); LN-GRU launches "
+            f"{json.dumps(asyn['counts'])}, per gradient step {json.dumps(per_step)}; workers ready {asyn['spawn_s']:.3f} s after spawn; host "
+            f"wall per env step (median, p90) in-process {sync['env_step_ms_median']:.3f} / {sync['env_step_ms_p90']:.3f} ms, workers "
+            f"{asyn['env_step_ms_median']:.3f} / {asyn['env_step_ms_p90']:.3f} ms; runs {sync['wall_s']:.1f} / {asyn['wall_s']:.1f} s")  # fmt: skip
+        if path == "host":
+            # (c) the workers in the async run's trace.
+            flight_dir = os.path.join(asyn["out"]["log_dir"], "flight")
+            merged = aggregate_traces(flight_dir)
+            spans = [ev for ev in merged["traceEvents"] if ev.get("ph") == "X"]
+            by_pid = {pid: sorted({ev["name"] for ev in spans if ev.get("pid") == pid}) for pid in asyn["worker_pids"]}
+            if any("env/steps" not in names for names in by_pid.values()):
+                fail(f"env layer (c): the merged trace's worker groups {by_pid}")
+            trace_ids = {ev["args"].get("trace_id") for ev in spans if ev.get("pid") in by_pid}
+            result["trace"] = {"worker_groups": {str(k): v for k, v in by_pid.items()}, "pids": sorted({ev.get("pid") for ev in spans}),
+                               "worker_trace_ids": sorted(t for t in trace_ids if t), "sources": len(merged["metadata"]["sources"])}  # fmt: skip
+            log(f"env layer (61c) on {card}: aggregate_traces over {flight_dir}: {len(result['trace']['pids'])} process groups, each of the 4 "
+                f"workers with env/steps spans; worker trace ids {result['trace']['worker_trace_ids']}")  # fmt: skip
+        del runs, sync, asyn
+        torch.cuda.empty_cache()
+
+    # (b) a fault planted in env 1's thunk, raising in its worker, on the ring path (both buffers).
+    make_env = env_mod.make_env
+
+    def faulty_make_env(cfg, seed, rank, vector_env_idx=0):
+        thunk = make_env(cfg, seed, rank, vector_env_idx=vector_env_idx)
+        return RaiseAtStep(thunk, ENV_FAULT_AT) if vector_env_idx == ENV_FAULT_ENV else thunk
+
+    with patched(env_mod, "make_env", faulty_make_env):
+        faulted = _env_layer_run(
+            [*ENV_LAYER_ARGS, "buffer.device=True", "env.sync_env=False", f"log_root={os.path.join(workdir, 'env_layer', 'fault')}"],
+            "env layer fault", restart_kwargs={"wait": ENV_FAULT_WAIT_S})  # fmt: skip
+    row, e = ENV_FAULT_AT - 1, ENV_FAULT_ENV
+    host = {k: faulted["rows"][e][k][row : row + 2].reshape(2, -1)[:, 0].tolist() for k in ("terminated", "truncated", "is_first")}
+    ring = {k: faulted["ring"][k][row : row + 2, e].reshape(2, -1)[:, 0].tolist() for k in ("terminated", "truncated", "is_first")}
+    want = {"terminated": [0.0, 0.0], "truncated": [1.0, 0.0], "is_first": [0.0, 1.0]}
+    frames = faulted["rows"][e]["rgb"][row : row + 2].reshape(2, -1)[:, 0].tolist()
+    if host != want or ring != want or frames != [row, 0]:
+        fail(f"env layer (b): rows {row}-{row + 1} of env 1 host {host}, ring {ring}, frames {frames}; expected {want} and frames [{row}, 0]")
+    losses = {k: v for k, v in faulted["out"]["log"][-1].items() if "loss" in k.lower()}
+    result["fault"] = {"at_step": ENV_FAULT_AT, "wait_s": ENV_FAULT_WAIT_S, "rows": {"host": host, "ring": ring, "frames": frames},
+                       "gradient_steps": faulted["out"]["gradient_steps"], "losses": losses, "run_wall_s": faulted["wall_s"]}  # fmt: skip
+    log(f"env layer (61b) on {card}: env 1 raised in its worker at its step {ENV_FAULT_AT}, RestartOnException rebuilt it; rows {row}-{row + 1} "
+        f"host {json.dumps(host)}, ring {json.dumps(ring)}; then {faulted['out']['gradient_steps']} gradient steps, losses "
+        f"{json.dumps({k: round(v, 4) for k, v in losses.items()})}")  # fmt: skip
+    del faulted
+    torch.cuda.empty_cache()
+
+    # (d) the gates.
+    gates = {}
+    for group, (exp, package) in ENV_GATES.items():
+        flag = {"gymnasium": imports._IS_GYMNASIUM_AVAILABLE, "dm_control": imports._IS_DMC_AVAILABLE}[package]
+        if flag:
+            gates[group] = f"{package} is importable here: not gated"
+            continue
+        try:
+            run([exp, f"env={group}", f"log_root={os.path.join(workdir, 'env_layer', 'gates')}"])
+        except ModuleNotFoundError as exc:
+            if f"The '{package}' package is required" not in str(exc):
+                fail(f"env layer (d): env={group} raised {exc}")
+            gates[group] = str(exc)
+        else:
+            fail(f"env layer (d): env={group} ran without {package}")
+    result["gates"] = gates
+    result["took_s"] = time.perf_counter() - t_phase
+    log(f"env layer (61d) on {card}: {json.dumps(gates)}; phase 61 took {result['took_s']:.1f} s (cuts {json.dumps(ENV_LAYER_CUTS)})")
+    return result
+
+
+ASYNC_BUILT = [0]
+
+
+def async_vectors_built():
+    """How many worker-process vectors (``AsyncVectorEnv``) this process has
+    built since :func:`pin_in_process_envs`."""
+    return ASYNC_BUILT[0]
+
+
+def pin_in_process_envs():
+    """Phases 1-60 measured their envs in-process: every trainer's
+    composition and CLI run of the script (an ``exp=``) takes
+    ``env.sync_env=True`` unless it names ``env.sync_env`` (phase 61 does).
+    Every ``AsyncVectorEnv`` built in this process is counted
+    (:func:`async_vectors_built`), so ``main`` can check that no earlier
+    phase built one by a path the pin does not reach."""
+    from sheeprl_tpu_torch import cli, config
+    from sheeprl_tpu_torch.envs.vector import AsyncVectorEnv
+
+    init = AsyncVectorEnv.__init__
+
+    @functools.wraps(init)
+    def counted(self, *args, **kwargs):
+        ASYNC_BUILT[0] += 1
+        init(self, *args, **kwargs)
+
+    AsyncVectorEnv.__init__ = counted
+
+    def pinned(fn):
+        @functools.wraps(fn)
+        def call(args, *rest, **kwargs):
+            args = list(args)
+            names = [str(a).split("=", 1)[0] for a in args]
+            if "exp" in names and "env.sync_env" not in names:
+                args.append("env.sync_env=True")
+            return fn(args, *rest, **kwargs)
+
+        return call
+
+    cli.run, config.compose = pinned(cli.run), pinned(config.compose)
+
+
 def main() -> None:
     import warnings
 
@@ -7652,6 +7971,7 @@ def main() -> None:
     sys.path.insert(0, REPO)
     from sheeprl_tpu_torch import kernels
 
+    pin_in_process_envs()
     phase_s = time_phases(globals())
     card = nvidia_smi()
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -7750,6 +8070,9 @@ def main() -> None:
         telemetry = phases_51_53(workdir, path)
         resilience = phases_54_57(workdir, path)
         fleet_sizes = phases_58_60(workdir, interaction["sac_decoupled"]["fresh"], interaction["ppo_decoupled"]["host_wall_ms_per_iteration"])
+        if async_vectors_built():
+            fail(f"phases 1-60 built {async_vectors_built()} worker-process vector env(s): they are measured in-process")
+        env_layer = phase_env_layer(workdir)
         replay_sample = phase_replay_sample()
         if PENDING_EVALS:
             fail(f"evaluations queued and never run: {[e[2] for e in PENDING_EVALS]}")
@@ -7799,7 +8122,9 @@ def main() -> None:
                 "launches_health_host": resilience["health"]["host"]["ln_gru_launches"][kind],
                 "launches_health_ring": resilience["health"]["ring"]["ln_gru_launches"][kind],
                 "launches_fleet_sac": fleet_sizes["sac_fleet"]["ln_gru_launches"][kind],
-                "launches_fleet_ppo": fleet_sizes["ppo_fleet"]["ln_gru_launches"][kind]}  # fmt: skip
+                "launches_fleet_ppo": fleet_sizes["ppo_fleet"]["ln_gru_launches"][kind],
+                "launches_env_layer_host": env_layer["host"]["ln_gru_launches"][kind],
+                "launches_env_layer_ring": env_layer["ring"]["ln_gru_launches"][kind]}  # fmt: skip
 
     def in_graph(kernel):
         """The kernel's nodes in the captured step's graph, and its launches
@@ -8034,6 +8359,7 @@ def main() -> None:
         **telemetry,
         **resilience,
         **fleet_sizes,
+        "env_layer": env_layer,
         "kernels": kernels_line["kernels"],
         "phase_s": phase_s,
         "profiler_s": PROFILER_S,

@@ -8,7 +8,7 @@ from typing import Any, Dict
 
 from sheeprl_tpu_torch.algos.a2c.utils import test
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata, build_agent
-from sheeprl_tpu_torch.envs.make import make_test_env
+from sheeprl_tpu_torch.utils.env import make_test_env
 from sheeprl_tpu_torch.registry import register_evaluation
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 

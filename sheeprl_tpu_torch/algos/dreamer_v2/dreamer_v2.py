@@ -58,7 +58,7 @@ from sheeprl_tpu_torch.core.interact import InteractionPipeline
 from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, EpisodeBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.data.infeed import ReplayInfeed
-from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
+from sheeprl_tpu_torch.utils.env import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Discrete
@@ -651,6 +651,7 @@ def run_dreamer(
             break
 
     infeed.close()
+    envs.close()
     test_reward = test(trainer.test_agent, cfg, log_dir, logger) if cfg.algo.run_test and not guard.preempted else None
     interaction = pipeline.publish()
     guard.close()

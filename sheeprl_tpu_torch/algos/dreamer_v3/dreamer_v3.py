@@ -82,7 +82,7 @@ from sheeprl_tpu_torch.core.resilience import drain_device, exit_on_preemption, 
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
 from sheeprl_tpu_torch.data.infeed import ReplayInfeed
-from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
+from sheeprl_tpu_torch.utils.env import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Discrete
@@ -599,6 +599,24 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
     return run_dreamer_v3(cfg, _build_dv3, callback)
 
 
+def patch_restarted_tails(rb: EnvIndependentReplayBuffer, ring: Any, restarted: np.ndarray, dones: np.ndarray, step_data: Dict[str, Any]) -> None:
+    """For each env that :class:`~sheeprl_tpu_torch.envs.wrappers.RestartOnException`
+    rebuilt in this step without ending an episode, end the broken episode
+    in the buffer: its last stored row (and the ring's) reads terminated 0,
+    truncated 1, is_first 0, and the env's next row starts an episode
+    (sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py:966-991)."""
+    for i, flagged in enumerate(restarted):
+        if not flagged or dones[i]:
+            continue
+        sub = rb.buffer[i]
+        last = (sub._pos - 1) % sub.buffer_size
+        for key, value in (("terminated", 0), ("truncated", 1), ("is_first", 0)):
+            sub[key][last] = np.full_like(sub[key][last], value)
+        if ring is not None:
+            ring.amend_last(i, {"terminated": np.zeros((1,), np.float32), "truncated": np.ones((1,), np.float32), "is_first": np.zeros((1,), np.float32)})
+        step_data["is_first"][:, i] = np.ones_like(step_data["is_first"][:, i])
+
+
 def run_dreamer_v3(
     cfg, build: Callable[..., DV3Trainer], callback: Optional[Callable[[Any, int, float, Metrics], None]] = None
 ) -> Dict[str, Any]:
@@ -635,7 +653,7 @@ def run_dreamer_v3(
     guard, watchdog, health = open_loop()
 
     num_envs = int(cfg.env.num_envs)
-    envs = make_vector_env(cfg)
+    envs = make_vector_env(cfg, restart_on_exception=True)
     observation_space, action_space = envs.single_observation_space, envs.single_action_space
     actions_dim, is_continuous = actions_metadata(action_space)
     clip_rewards_fn = np.tanh if cfg.env.clip_rewards else (lambda r: r)
@@ -849,6 +867,8 @@ def run_dreamer_v3(
             dones = np.logical_or(terminated, truncated).astype(np.uint8)
 
         step_data["is_first"] = np.zeros_like(step_data["terminated"])
+        if "restart_on_exception" in infos:
+            patch_restarted_tails(rb, ring, infos["restart_on_exception"], dones, step_data)
         if cfg.metric.log_level > 0:
             for i, ep_rew, ep_len in infos["episode"]:
                 if aggregator is not None:
@@ -949,6 +969,7 @@ def run_dreamer_v3(
             break
 
     infeed.close()
+    envs.close()
     test_reward = test(trainer.test_agent, cfg, log_dir, logger, sample_actions=trainer.test_sample) if cfg.algo.run_test and not guard.preempted else None
     interaction = pipeline.publish()
     guard.close()

@@ -8,7 +8,7 @@ from typing import Any, Dict
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import test
-from sheeprl_tpu_torch.envs.make import make_test_env
+from sheeprl_tpu_torch.utils.env import make_test_env
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.registry import register_evaluation
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger

@@ -35,7 +35,7 @@ def actor_loop(ctx) -> None:
     from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata, build_agent
     from sheeprl_tpu_torch.algos.ppo.ppo import _to_device, rollout_outputs
     from sheeprl_tpu_torch.core.rollout import bootstrap_truncated
-    from sheeprl_tpu_torch.envs.make import make_vector_env
+    from sheeprl_tpu_torch.utils.env import make_vector_env
     from sheeprl_tpu_torch.utils.distribution import BatchGenerator
     from sheeprl_tpu_torch.utils.utils import prepare_obs
 

@@ -10,7 +10,7 @@ from typing import Any, Dict
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.algos.ppo_recurrent.agent import build_agent
 from sheeprl_tpu_torch.algos.ppo_recurrent.utils import test
-from sheeprl_tpu_torch.envs.make import make_test_env
+from sheeprl_tpu_torch.utils.env import make_test_env
 from sheeprl_tpu_torch.registry import register_evaluation
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 

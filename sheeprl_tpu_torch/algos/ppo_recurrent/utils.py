@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 
 from sheeprl_tpu_torch.algos.ppo.utils import AGGREGATOR_KEYS  # noqa: F401 (re-export)
-from sheeprl_tpu_torch.envs.make import make_test_env
+from sheeprl_tpu_torch.utils.env import make_test_env
 from sheeprl_tpu_torch.utils.utils import prepare_obs
 
 MODELS_TO_REGISTER = {"agent"}

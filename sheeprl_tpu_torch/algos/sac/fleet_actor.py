@@ -19,7 +19,7 @@ def actor_loop(ctx) -> None:
     """The replica's loop (``sheeprl_tpu_torch.algos.sac.fleet_actor:actor_loop``)."""
     from sheeprl_tpu_torch.algos.sac.agent import build_agent
     from sheeprl_tpu_torch.algos.sac.sac import VectorObservations, step_rows
-    from sheeprl_tpu_torch.envs.make import make_vector_env
+    from sheeprl_tpu_torch.utils.env import make_vector_env
     from sheeprl_tpu_torch.utils.distribution import BatchGenerator
 
     cfg = ctx.cfg

@@ -77,7 +77,7 @@ from sheeprl_tpu_torch.core.interact import InteractionPipeline
 from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
-from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
+from sheeprl_tpu_torch.utils.env import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
@@ -649,6 +649,7 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
             break
 
     placement.flush()  # no mirror copy left in flight
+    envs.close()
     fleet_stats = None
     if fleet is not None:
         fleet.close()  # idempotent after a preemption's drain

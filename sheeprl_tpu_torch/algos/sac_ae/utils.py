@@ -9,7 +9,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.envs.make import make_test_env
+from sheeprl_tpu_torch.utils.env import make_test_env
 
 AGGREGATOR_KEYS = {"Rewards/rew_avg", "Game/ep_len_avg", "Loss/value_loss", "Loss/policy_loss", "Loss/alpha_loss", "Loss/reconstruction_loss"}
 # The whole agent (encoder and decoder included) checkpoints under one "agent" key.

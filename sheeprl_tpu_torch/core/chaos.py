@@ -65,6 +65,8 @@ __all__ = [
     "corrupt_checkpoint",
     "disarm_fail_point",
     "fire_once",
+    "fired_ids",
+    "mark_fired",
     "maybe_delay",
     "maybe_drop",
     "maybe_fail",
@@ -251,17 +253,40 @@ def wrap_env_thunks(thunks: List[Callable[[], Any]], injectors: List[Dict[str, A
         specs.setdefault(env_rank, []).append({"kind": kind, "id": f"{kind}[{idx}]@{env_rank}", "at_step": int(inj.get("at_step", 1))})
     if not specs:
         return thunks
+    return [_ChaosThunk(t, specs[base + i]) if (base + i) in specs else t for i, t in enumerate(thunks)]
 
-    def wrap(thunk: Callable[[], Any], env_specs: List[Dict[str, Any]]) -> Callable[[], Any]:
-        def make() -> Any:
-            env = thunk()
-            for spec in env_specs:
-                env = _ENV_INJECTOR_WRAPPERS[spec["kind"]](env, spec["id"], spec["at_step"])
-            return env
 
-        return make
+class _ChaosThunk:
+    """An env thunk with its injectors around the env it builds. It pickles
+    (an env worker builds it) with the ids of its injectors that already
+    fired in this process, and marks them fired where it is unpickled, so a
+    worker respawned after the fault does not fire it again."""
 
-    return [wrap(t, specs[base + i]) if (base + i) in specs else t for i, t in enumerate(thunks)]
+    def __init__(self, thunk: Callable[[], Any], specs: List[Dict[str, Any]]) -> None:
+        self.thunk, self.specs = thunk, specs
+
+    def __getstate__(self) -> Dict[str, Any]:
+        return {"thunk": self.thunk, "specs": self.specs, "fired": sorted(_fired & {s["id"] for s in self.specs})}
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.thunk, self.specs = state["thunk"], state["specs"]
+        mark_fired(state["fired"])
+
+    def __call__(self) -> Any:
+        env = self.thunk()
+        for spec in self.specs:
+            env = _ENV_INJECTOR_WRAPPERS[spec["kind"]](env, spec["id"], spec["at_step"])
+        return env
+
+
+def fired_ids() -> set:
+    """The injector ids that fired in this process."""
+    return set(_fired)
+
+
+def mark_fired(ids) -> None:
+    """Count ``ids`` as fired here (they fired in an env worker)."""
+    _fired.update(ids)
 
 
 # -------------------------------------------------------------- step injectors

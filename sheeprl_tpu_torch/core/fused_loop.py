@@ -57,7 +57,7 @@ and DreamerV3's graphs when ``health`` is on) and veto saves once the run
 is tainted. The env keys that add an observation key or change a frame
 (``env.grayscale``, ``env.frame_stack``, ``env.actions_as_observation``,
 ``env.reward_as_observation``) cannot be honoured inside the rollout graph
-and raise (:func:`sheeprl_tpu_torch.envs.make.check_fused_env_keys`).
+and raise (:func:`sheeprl_tpu_torch.utils.env.check_fused_env_keys`).
 
 Left out: the multi-device superstep (``fabric.shard_superstep``,
 shard_map, global env ids: ROADMAP A9).
@@ -79,7 +79,7 @@ from sheeprl_tpu_torch.core.graphs import CapturedStep, power_of_two_buckets
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
 from sheeprl_tpu_torch.core.resilience import drain_device, exit_on_preemption, open_loop
 from sheeprl_tpu_torch.envs.anakin import action_to_env, canonical_action_space, resolve_env, single_obs_key
-from sheeprl_tpu_torch.envs.make import check_fused_env_keys
+from sheeprl_tpu_torch.utils.env import check_fused_env_keys
 from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
 from sheeprl_tpu_torch.telemetry import Telemetry, open_for_run
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint

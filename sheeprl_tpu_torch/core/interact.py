@@ -156,6 +156,10 @@ class EnvSliceGroup:
         """Step slice k alone, ``actions`` in its own layout."""
         return self.envs[k].step(actions)
 
+    def close(self) -> None:
+        for env in self.envs:
+            env.close()
+
     def step(self, actions: Any):
         return self.merge_step([self.step_slice(k, tree_slice(actions, s0, s1)) for k, (s0, s1) in enumerate(self.slice_ranges)])
 

@@ -43,7 +43,7 @@ from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.core.resilience import DispatchWatchdog, PreemptionGuard, drain_device, exit_on_preemption, open_loop
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
-from sheeprl_tpu_torch.envs.make import check_env_group, make_vector_env
+from sheeprl_tpu_torch.utils.env import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.serve.spaces import DictSpace
 from sheeprl_tpu_torch.telemetry import Telemetry, open_for_run
@@ -247,6 +247,7 @@ class OnPolicyRun:
         """The greedy test episode with ``algo.run_test``, the telemetry and
         the logger closed; returns {"agent", "optimizer", "policy_steps",
         "updates", "log", "log_dir", "checkpoints", "test_reward"}."""
+        self.envs.close()
         test_reward = test(self.agent, self.cfg, self.log_dir, self.logger) if self.cfg.algo.run_test and not self.guard.preempted else None
         self.guard.close()
         self.telemetry.close()

@@ -61,6 +61,12 @@ class DummyEnv:
         self._current_step = 0
         return self.get_obs(), {}
 
+    def render(self) -> None:
+        return None
+
+    def close(self) -> None:
+        pass
+
 
 class DiscreteDummyEnv(DummyEnv):
     def __init__(self, image_size=(64, 64, 3), n_steps: int = 4, vector_shape=(10,), action_dim: int = 2):
@@ -96,6 +102,13 @@ class ActionRepeat:
 
     def reset(self, seed=None) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
         return self.env.reset(seed=seed)
+
+    def render(self):
+        return self.env.render()
+
+    def close(self) -> None:
+        if hasattr(self.env, "close"):
+            self.env.close()
 
     def step(self, action) -> Tuple[Dict[str, np.ndarray], float, bool, bool, Dict[str, Any]]:
         accumulated = 0.0
@@ -140,54 +153,117 @@ class SyncVectorEnv:
         return {k: np.stack([o[k] for o in obs]) for k in obs[0]}
 
     def reset(self, seed=None) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+        return self.gather_reset([env.reset(seed=None if seed is None else seed + i) for i, env in enumerate(self.envs)])
+
+    def gather_reset(self, results: Sequence[Tuple[Any, Dict[str, Any]]]) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
         self._returns[:] = 0
         self._lengths[:] = 0
-        return self._stack([env.reset(seed=None if seed is None else seed + i)[0] for i, env in enumerate(self.envs)]), {}
+        infos = _with_restarts({}, [bool(info.get("restart_on_exception", False)) for _, info in results])
+        return self._stack([o for o, _ in results]), infos
 
     def step(self, actions: np.ndarray):
+        return self.gather([step_env(env, action) for env, action in zip(self.envs, actions)])
+
+    def gather(self, results: Sequence[Tuple[Any, float, bool, bool, Any, bool]]):
+        """The vector's step from each env's :func:`step_env` result: the
+        episode statistics, ``final_obs``, and ``restart_on_exception`` (a
+        bool per env) when an env was rebuilt by
+        :class:`~sheeprl_tpu_torch.envs.wrappers.RestartOnException`."""
         obs, rewards, terminated, truncated = [], [], [], []
         infos: Dict[str, Any] = {"final_obs": [None] * self.num_envs, "episode": []}
-        for i, (env, action) in enumerate(zip(self.envs, actions)):
-            o, r, term, trunc, _ = env.step(action)
+        for i, (o, r, term, trunc, final, _) in enumerate(results):
             self._returns[i] += r
             self._lengths[i] += 1
             if term or trunc:
-                infos["final_obs"][i] = o
+                infos["final_obs"][i] = final
                 infos["episode"].append((i, float(self._returns[i]), int(self._lengths[i])))
                 self._returns[i] = 0
                 self._lengths[i] = 0
-                o, _ = env.reset()
             obs.append(o)
             rewards.append(r)
             terminated.append(term)
             truncated.append(trunc)
+        infos = _with_restarts(infos, [res[5] for res in results])
         return self._stack(obs), np.asarray(rewards, np.float32), np.asarray(terminated), np.asarray(truncated), infos
 
     def state_dict(self) -> Dict[str, Any]:
         """What a resumed run needs to step on as this vector would: the
-        sampling generator, each env's step (``steps``; an env with its own
-        ``state_dict`` gives that, under ``states``) and each episode's
-        running return and length."""
+        sampling generator, each env's :func:`env_state` (``steps``, or
+        ``states`` for envs with their own ``state_dict``) and each
+        episode's running return and length."""
+        return self.pack_state([env_state(env) for env in self.envs])
+
+    def pack_state(self, per_env: Sequence[Tuple[str, Any]]) -> Dict[str, Any]:
         state = {"rng": self._rng.bit_generator.state, "returns": self._returns.tolist(), "lengths": self._lengths.tolist()}
-        inner = [env.unwrapped for env in self.envs]
-        if all(hasattr(env, "state_dict") for env in inner):
-            state["states"] = [env.state_dict() for env in inner]  # the anakin envs' (envs/anakin/host.py)
-        else:
-            state["steps"] = [int(env._current_step) for env in inner]
+        kind = "states" if all(k == "states" for k, _ in per_env) else "steps"
+        state[kind] = [saved if k == kind else None for k, saved in per_env]
         return state
 
-    def load_state_dict(self, state: Dict[str, Any]) -> None:
-        per_env = state["states"] if "states" in state else state["steps"]
+    def unpack_state(self, state: Dict[str, Any]) -> List[Tuple[str, Any]]:
+        """Restore the vector's own part of ``state``; each env's part."""
+        kind = "states" if "states" in state else "steps"
+        per_env = state[kind]
         if len(per_env) != self.num_envs:
             raise ValueError(f"the state holds {len(per_env)} envs, this vector has {self.num_envs}")
         self._rng.bit_generator.state = state["rng"]
-        for env, saved in zip(self.envs, per_env):
-            if "states" in state:
-                env.unwrapped.load_state_dict(saved)
-            else:
-                env.unwrapped._current_step = int(saved)
         self._returns[:] = state["returns"]
         self._lengths[:] = state["lengths"]
+        return [(kind, saved) for saved in per_env]
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        for env, (kind, saved) in zip(self.envs, self.unpack_state(state)):
+            load_env_state(env, kind, saved)
+
+    def close(self) -> None:
+        for env in self.envs:
+            if hasattr(env, "close"):
+                env.close()
+
+
+def _with_restarts(infos: Dict[str, Any], restarted: List[bool]) -> Dict[str, Any]:
+    """``infos`` with ``restart_on_exception``, a bool per env, when an env was rebuilt."""
+    if any(restarted):
+        infos["restart_on_exception"] = np.asarray(restarted, dtype=bool)
+    return infos
+
+
+def step_env(env: Any, action: Any) -> Tuple[Any, float, bool, bool, Any, bool]:
+    """One env's part of a vector step with same-step autoreset: the step,
+    and, when it ends an episode, the reset at once (the reset observation
+    is returned, the episode's last one as ``final``). The last element
+    says whether :class:`~sheeprl_tpu_torch.envs.wrappers.RestartOnException`
+    rebuilt the env in this step (its flag in the step's or the reset's
+    info)."""
+    o, r, term, trunc, info = env.step(action)
+    restarted = bool(info.get("restart_on_exception", False))
+    final = None
+    if term or trunc:
+        final = o
+        o, reset_info = env.reset()
+        restarted = restarted or bool(reset_info.get("restart_on_exception", False))
+    return o, r, term, trunc, final, restarted
+
+
+def env_state(env: Any) -> Tuple[str, Any]:
+    """One env's part of a vector's checkpoint: ``("states", its
+    state_dict())`` for an env that has one (the Anakin host envs),
+    ``("steps", its step)`` for a dummy env, ``("steps", None)`` for an env
+    whose simulator state cannot be saved (gymnasium's, DMC's), which a
+    resume leaves as it is."""
+    inner = env.unwrapped
+    if hasattr(inner, "state_dict"):
+        return "states", inner.state_dict()
+    step = getattr(inner, "_current_step", None)
+    return "steps", None if step is None else int(step)
+
+
+def load_env_state(env: Any, kind: str, saved: Any) -> None:
+    if saved is None:
+        return
+    if kind == "states":
+        env.unwrapped.load_state_dict(saved)
+    else:
+        env.unwrapped._current_step = int(saved)
 
 
 def get_dummy_env(id: str, action_dim: int = 2, **kwargs: Any) -> DummyEnv:

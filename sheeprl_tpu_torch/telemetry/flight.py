@@ -32,14 +32,22 @@ device: the process's device identity (the card's name, the device count)
 is put into ``run_info`` once by :meth:`Telemetry.open
 <sheeprl_tpu_torch.telemetry.telemetry.Telemetry.open>`.
 
+Env workers (``env.sync_env=False``) join the run's trace through
+:func:`traced_env_thunk`: the thunk runs inside the worker, where
+:func:`adopt_worker_process` adopts the parent's env-var carrier and
+installs a recorder spilling into the carrier's trace dir, and
+:class:`TracedEnv` records ``env/reset`` spans and one ``env/steps`` span
+per window of steps (and the ``env/steps`` counter), so a merged trace has
+one process group per worker pid.
+
 Counterpart of ``sheeprl_tpu/telemetry/flight.py``, with the same spill,
 dump and merged-trace layout, so either package's ``aggregate_traces``
-reads the other's files. The env-worker side (``adopt_worker_process``,
-``TracedEnv``) waits for worker processes, which the port does not have.
+reads the other's files.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import logging
 import os
@@ -497,6 +505,110 @@ def ensure_live_tracer(capacity: int = 8192) -> Optional[tracer_mod.Tracer]:
     live = tracer_mod.Tracer(capacity=capacity, enabled=True)
     tracer_mod.set_current(live)
     return live
+
+
+# ------------------------------------------------------- worker-side glue
+def adopt_worker_process(capacity: int = 2048, run_info: Optional[Dict[str, Any]] = None) -> Optional[FlightRecorder]:
+    """Once per process (an env worker, or the parent on the in-process
+    path): adopt the env-var trace carrier, install a recorder spilling into
+    the carrier's trace dir and a live tracer. Returns the recorder (the one
+    already installed in this process, if any)."""
+    rec = current()
+    if rec is not None:
+        return rec
+    trace_context.adopt_env_carrier()
+    trace_dir = trace_context.carrier_trace_dir()
+    info = {"role": "env_worker"}
+    info.update(run_info or {})
+    rec = FlightRecorder(capacity=capacity, trace_dir=trace_dir, run_info=info)
+    install(rec)
+    ensure_live_tracer(capacity=capacity)
+    try:
+        # The worker's spill metas carry at least a liveness series.
+        from sheeprl_tpu_torch.telemetry.registry import default_registry
+
+        default_registry().gauge("process/up").set(1.0)
+    except Exception:  # noqa: BLE001
+        pass
+    if trace_dir is not None:
+        rec.spill()  # the parent's dumps see this worker before its first window
+        # That spill holds only the meta line: rewind the spill clock so the
+        # first span (env/reset) reaches the disk at once.
+        rec._last_spill = 0.0
+    return rec
+
+
+class TracedEnv:
+    """An env proxy that records one ``env/reset`` span per reset and one
+    ``env/steps`` span per ``span_every`` steps (covering the window), and
+    adds the window to the ``env/steps`` counter: a counter bump per step,
+    and a merged trace shows what each worker was doing and in which
+    trace."""
+
+    def __init__(self, env: Any, env_idx: int, span_every: int = 64) -> None:
+        self._env = env
+        self._idx = int(env_idx)
+        self._every = max(1, int(span_every))
+        self._steps = 0
+        self._window_t0: Optional[float] = None
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self._env, name)
+
+    def reset(self, seed=None) -> Any:
+        t0 = time.perf_counter()
+        out = self._env.reset(seed=seed)
+        tracer_mod.current().add_span("env/reset", "env", t0, time.perf_counter() - t0, {"env": self._idx})
+        self._steps = 0
+        self._window_t0 = None
+        rec = current()
+        if rec is not None:
+            rec.maybe_spill()
+        return out
+
+    def step(self, action: Any) -> Any:
+        if self._window_t0 is None:
+            self._window_t0 = time.perf_counter()
+        out = self._env.step(action)
+        self._steps += 1
+        if self._steps % self._every == 0:
+            now = time.perf_counter()
+            tracer_mod.current().add_span("env/steps", "env", self._window_t0, now - self._window_t0, {"env": self._idx, "steps": self._every})
+            try:
+                from sheeprl_tpu_torch.telemetry.registry import default_registry
+
+                default_registry().counter("env/steps").inc(float(self._every))
+            except Exception:  # noqa: BLE001
+                pass
+            self._window_t0 = None
+            rec = current()
+            if rec is not None:
+                rec.maybe_spill()
+        return out
+
+    def close(self) -> Any:
+        rec = current()
+        if rec is not None and rec.trace_dir is not None:
+            rec.spill()
+        if hasattr(self._env, "close"):
+            return self._env.close()
+        return None
+
+
+def _traced_make(thunk: Callable[[], Any], env_idx: int, span_every: int) -> TracedEnv:
+    # Only under a published carrier (a run's process, or a worker it
+    # started): an env built outside any run installs no recorder and no
+    # live tracer in the building process (ROADMAP C-r16).
+    if trace_context.extract_env_carrier() is not None:
+        adopt_worker_process(run_info={"env": int(env_idx)})
+    return TracedEnv(thunk(), env_idx, span_every=span_every)
+
+
+def traced_env_thunk(thunk: Callable[[], Any], env_idx: int, span_every: int = 64) -> Callable[[], Any]:
+    """``thunk`` so that, wherever it is called (an env worker or this
+    process), the process joins the run's trace and the env records its
+    spans. A partial, so it pickles into a worker."""
+    return functools.partial(_traced_make, thunk, int(env_idx), int(span_every))
 
 
 # ----------------------------------------------------------- aggregation

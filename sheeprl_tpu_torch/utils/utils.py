@@ -6,10 +6,12 @@ from __future__ import annotations
 import json
 import os
 import warnings
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import TYPE_CHECKING, Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
-import torch
+
+if TYPE_CHECKING:
+    import torch
 
 
 class dotdict(dict):

@@ -370,9 +370,9 @@ def test_cli_checks_the_lanes_settings(args, match, tmp_path):
 
 def test_host_loops_on_an_anakin_env_and_refusals(tmp_path):
     """Every host loop shares the env builder: A2C trains on the CartPole
-    host lane; an env group that is neither dummy nor anakin raises."""
+    host lane; an env group whose package this host lacks raises."""
     out = run(["exp=a2c", "env=jax_cartpole", "algo.mlp_keys.encoder=[state]", "algo.total_steps=20", "algo.rollout_steps=5", "env.num_envs=2",
                "algo.dense_units=8", "algo.encoder.mlp_features_dim=8", "metric.log_level=0", *PORT_ONLY, f"log_root={tmp_path}"])  # fmt: skip
     assert out["policy_steps"] == 20
-    with pytest.raises(ValueError, match="env=gym is not ported"):
-        run(["exp=ppo", "env=gym", *PORT_ONLY, f"log_root={tmp_path}"])
+    with pytest.raises(ModuleNotFoundError, match="The 'ale_py' package is required"):
+        run(["exp=ppo", "env=atari", *PORT_ONLY, f"log_root={tmp_path}"])

@@ -23,11 +23,13 @@ TREE = default_config_dir()
 FILES = sorted(os.path.relpath(p, TREE) for p in glob.glob(os.path.join(TREE, "**", "*.yaml"), recursive=True))
 EXPS = ("ppo", "ppo_atari", "dreamer_v3_100k_ms_pacman", "dreamer_v3_dmc_walker_walk", "sac", "droq", "dreamer_v2", "dreamer_v2_ms_pacman", "dreamer_v1", "a2c",
         "ppo_recurrent", "p2e_dv3_exploration", "p2e_dv3_finetuning", "p2e_dv2_exploration", "p2e_dv2_finetuning", "p2e_dv1_exploration",
-        "p2e_dv1_finetuning", "sac_ae", "ppo_anakin", "sac_anakin", "dreamer_v3_anakin", "ppo_decoupled", "sac_decoupled")
+        "p2e_dv1_finetuning", "sac_ae", "ppo_anakin", "sac_anakin", "dreamer_v3_anakin", "ppo_decoupled", "sac_decoupled", "ppo_mujoco",
+        "a2c_mujoco", "dreamer_v3_dmc_cartpole_swingup_sparse")
 # The JAX package's own overrides for SAC and DroQ (tests/test_algos/test_fused_train.py),
 # and the width each exp's interpolation spreads.
 EXP_ARGS = {exp: ["env.id=continuous_dummy", "env.wrapper.id=continuous_dummy"] for exp in ("sac", "droq", "sac_ae", "sac_decoupled")}
 WIDTH = {"sac": "algo.hidden_size", "droq": "algo.hidden_size", "sac_ae": "algo.hidden_size", "sac_anakin": "algo.hidden_size", "sac_decoupled": "algo.hidden_size"}
+WIDTH.update({exp: "algo.actor.dense_units" for exp in ("ppo_mujoco", "a2c_mujoco")})  # their actor's width is the exp's own
 # The Anakin exps choose their own env group (jax_cartpole, jax_pendulum, jax_gridworld).
 ANAKIN = {"ppo_anakin": "jax_cartpole", "sac_anakin": "jax_pendulum", "dreamer_v3_anakin": "jax_gridworld"}
 # Values the tests and the recipes give on the command line, and YAML's edge cases.
@@ -116,7 +118,7 @@ def test_exp_composes_to_the_jax_composition(exp, interpolated):
     if exp.endswith("_finetuning"):  # mandatory on the command line, as in the JAX composition
         assert port.checkpoint.exploration_ckpt_path == ref["checkpoint"]["exploration_ckpt_path"] == "???"
     if interpolated:
-        wide = (port.algo.actor.hidden_size, port.algo.critic.hidden_size) if exp in WIDTH else (port.algo.actor.dense_units,)
+        wide = (port.algo.actor.hidden_size, port.algo.critic.hidden_size) if WIDTH.get(exp, "").endswith("hidden_size") else (port.algo.actor.dense_units,)
         assert port.run_name.endswith("_7") and set(wide) == {24}
 
 
@@ -135,8 +137,8 @@ def test_composition_rules(tmp_path, monkeypatch):
         compose(["env=dummy"])
     with pytest.raises(ConfigError, match="no such key"):
         compose(["exp=ppo", "env=dummy", "algo.extra=1"])
-    with pytest.raises(ConfigError, match="env=mujoco is not in the port's config tree"):
-        compose(["exp=ppo", "env=mujoco"])
+    with pytest.raises(ConfigError, match="env=crafter is not in the port's config tree"):
+        compose(["exp=ppo", "env=crafter"])
     (tmp_path / "exp").mkdir()
     (tmp_path / "optim").mkdir()
     (tmp_path / "optim" / "slow.yaml").write_text("_target_: sheeprl_tpu_torch.optim.adam\nbetas: [0.5, 0.9]\n")

@@ -25,7 +25,7 @@ import sheeprl_tpu
 from sheeprl_tpu.config.loader import compose as jax_compose
 from sheeprl_tpu.utils.env import make_env as jax_make_env
 from sheeprl_tpu_torch.config import compose
-from sheeprl_tpu_torch.envs.make import check_fused_env_keys, make_test_env, make_vector_env
+from sheeprl_tpu_torch.utils.env import check_fused_env_keys, make_test_env, make_vector_env
 from sheeprl_tpu_torch.envs.wrappers import rgb_to_gray
 
 KEYS = {

@@ -28,7 +28,7 @@ from sheeprl_tpu_torch.core.interact import (
     tree_slice,
 )
 from sheeprl_tpu_torch.envs.dummy import SyncVectorEnv, make_dummy_env
-from sheeprl_tpu_torch.envs.make import make_vector_env
+from sheeprl_tpu_torch.utils.env import make_vector_env
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
 
 HORIZONS = (4, 6, 3, 5)  # env 2 ends an episode at the boundary of the two-slice split

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of sheeprl_tpu_torch loads
-no JAX, no module of sheeprl_tpu, and none of gymnasium, yaml, flax, orbax,
-tensorboardX or tensorboard (which the machine with the card does not have). Checked in a subprocess,
+no JAX, no module of sheeprl_tpu, and none of gymnasium, cv2, dm_control,
+mujoco, yaml, flax, orbax, tensorboardX or tensorboard (which the machine
+with the card does not have). Checked in a subprocess,
 since tests/conftest.py imports JAX into this one. Its entry points run on
 CUDA unless asked for the CPU, so on this CUDA-less host they raise."""
 
@@ -13,7 +14,8 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gymnasium", "yaml", "sheeprl_tpu", "tensorboardX", "tensorboard")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "gymnasium", "yaml", "sheeprl_tpu", "tensorboardX", "tensorboard", "cv2", "dm_control",
+             "mujoco")
 
 _IMPORT_ALL = """
 import importlib, json, pkgutil, sys
@@ -47,11 +49,12 @@ def test_import_every_module_without_jax_or_the_jax_package():
                 "algos.p2e_dv2.p2e_dv2_finetuning", "algos.p2e_dv2.evaluate", "algos.p2e_dv1.agent", "algos.p2e_dv1.utils",
                 "algos.p2e_dv1.p2e_dv1_exploration", "algos.p2e_dv1.p2e_dv1_finetuning", "algos.p2e_dv1.evaluate", "algos.sac_ae.agent",
                 "algos.sac_ae.utils", "algos.sac_ae.sac_ae", "algos.sac_ae.evaluate", "envs.anakin", "envs.anakin.base", "envs.anakin.cartpole",
-                "envs.anakin.pendulum", "envs.anakin.gridworld", "envs.anakin.adapter", "envs.anakin.host", "envs.make", "core.fused_loop",
+                "envs.anakin.pendulum", "envs.anakin.gridworld", "envs.anakin.adapter", "envs.anakin.host", "core.fused_loop",
                 "core.interact", "core.player", "core.mesh", "algos.ppo.ppo_decoupled", "algos.sac.sac_decoupled", "telemetry",
                 "telemetry.trace_context", "telemetry.tracer", "telemetry.histogram", "telemetry.registry", "telemetry.step_timer",
                 "telemetry.cuda_events", "telemetry.profiling", "telemetry.perf", "telemetry.bench_db", "telemetry.flight",
-                "telemetry.telemetry", "telemetry.__main__", "core.chaos", "core.resilience", "telemetry.health"]
+                "telemetry.telemetry", "telemetry.__main__", "core.chaos", "core.resilience", "telemetry.health", "utils.env", "utils.imports",
+                "envs.gym_env", "envs.dmc", "envs.vector"]
     for name in ["serve.engine", "bridge", *training]:
         assert f"sheeprl_tpu_torch.{name}" in report["modules"], name
     assert not [m for m in report["loaded"] if m in FORBIDDEN]

@@ -300,7 +300,7 @@ def test_supervised_vector_env_restarts_an_injected_crash():
     supervisor is one restart and one truncated step of slice 0 (2 envs of 3,
     two slices), the run's sampling stream unchanged."""
     from sheeprl_tpu_torch.config import compose
-    from sheeprl_tpu_torch.envs.make import make_vector_env
+    from sheeprl_tpu_torch.utils.env import make_vector_env
 
     chaos.reset()
     args = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "device=cpu", "env.num_envs=3", "env.pipeline_slices=2", "resilience=on",

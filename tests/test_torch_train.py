@@ -278,7 +278,7 @@ def test_config_matches_the_jax_composed_exp():
 def test_config_rejects_what_the_port_does_not_have(tmp_path, monkeypatch):
     """Every exp of the port's tree composes; the command line then refuses
     an algorithm the port has no trainer for, and the trainer an env group
-    the port does not step. An exp outside the tree and an unknown key raise
+    whose package this host lacks (Atari's ale_py). An exp outside the tree and an unknown key raise
     in the composition."""
     (tmp_path / "exp").mkdir()
     (tmp_path / "exp" / "no_such_algo_dummy.yaml").write_text("# @package _global_\ndefaults:\n  - ppo\n  - _self_\nalgo:\n  name: no_such_algo\n")
@@ -286,8 +286,8 @@ def test_config_rejects_what_the_port_does_not_have(tmp_path, monkeypatch):
     assert compose(["exp=no_such_algo_dummy", "env=dummy"]).algo.name == "no_such_algo"
     with pytest.raises(ValueError, match="algo.name=no_such_algo is not ported"):
         run(["exp=no_such_algo_dummy", "env=dummy", "device=cpu"])
-    with pytest.raises(ValueError, match="env=gym is not ported"):
-        run(["exp=dreamer_v3", "device=cpu"])
+    with pytest.raises(ModuleNotFoundError, match="The 'ale_py' package is required"):
+        run(["exp=dreamer_v3", "env=atari", "device=cpu"])
     assert os.path.exists(os.path.join(os.path.dirname(sheeprl_tpu.__file__), "configs", "exp", "ppo_benchmarks.yaml"))
     with pytest.raises(ValueError, match="exp=ppo_benchmarks is not in the port's config tree"):
         compose(["exp=ppo_benchmarks", "env=dummy"])
@@ -342,5 +342,5 @@ def test_unported_options_raise(tmp_path):
     jax_ckpt = jax_save_checkpoint(str(tmp_path / "ckpt_16_0.ckpt"), {"world_model": {"w": np.ones(2, np.float32)}, "iter_num": 16})
     with pytest.raises(ValueError, match="not a valid checkpoint"):
         run([*TINY, f"checkpoint.resume_from={jax_ckpt}", f"log_root={tmp_path}"])
-    with pytest.raises(ValueError, match="env=atari is not ported"):
+    with pytest.raises(ModuleNotFoundError, match="The 'ale_py' package is required"):
         run(["exp=dreamer_v3_dmc_walker_walk", "env=atari", "device=cpu"])

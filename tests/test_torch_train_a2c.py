@@ -119,7 +119,8 @@ def test_truncated_episode_is_bootstrapped_in_the_rollout(tmp_path, monkeypatch)
     boot = []
     monkeypatch.setattr(port_a2c, "bootstrap_truncated", lambda r, t, info, *a: (boot.append(info["final_obs"][1] if t[1] else None),
                                                                                    port_rollout.bootstrap_truncated(r, t, info, *a))[1])  # fmt: skip
-    run([*PORT, f"log_root={tmp_path}", "dry_run=True", "checkpoint.every=0", "metric.log_level=0", "algo.run_test=False"])
+    run([*PORT, f"log_root={tmp_path}", "dry_run=True", "checkpoint.every=0", "metric.log_level=0", "algo.run_test=False",
+         "env.sync_env=True"])  # the patched SyncVectorEnv.step runs in this process
     cfg = compose(PORT)
     env = make_test_env(cfg)
     agent = build_agent((2,), False, cfg, env.observation_space, device="cpu", seed=cfg.seed)

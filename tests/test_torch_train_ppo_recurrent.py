@@ -130,7 +130,8 @@ def test_truncated_episode_is_bootstrapped_with_the_carry_after_the_step(tmp_pat
     monkeypatch.setattr(SyncVectorEnv, "step", truncating)
     monkeypatch.setattr(ReplayBuffer, "add", lambda rb, data, **kw: (added.append({k: v.copy() for k, v in data.items()}), add(rb, data, **kw))[1])
     args = [*PORT, "algo.reset_recurrent_state_on_done=False"]
-    run([*args, f"log_root={tmp_path}", "dry_run=True", "checkpoint.every=0", "metric.log_level=0", "algo.run_test=False"])
+    run([*args, f"log_root={tmp_path}", "dry_run=True", "checkpoint.every=0", "metric.log_level=0", "algo.run_test=False",
+         "env.sync_env=True"])  # the patched SyncVectorEnv.step runs in this process
     cfg = compose(args)
     agent = build_agent((2,), False, cfg, make_test_env(cfg).observation_space, device="cpu", seed=cfg.seed)
     stored = {k: np.concatenate([a[k] for a in added]) for k in ("rewards", "actions", "prev_hx", "prev_cx")}
