@@ -26,7 +26,7 @@ phase 34 runs before 32-33, and the Anakin lane, 42-46, before 37-41):
    so host overhead does not show, inputs rotated through copies larger than
    the 50 MB L2), beside the bound from bytes and operations and beside
    cuBLAS's product alone (``torch.matmul(inp, w)``). The profiler's kernel
-   split shows one ln_gru_* launch per call. Then both forward kernels at
+   split shows one ln_gru_* launch per call (bf16 at B = 8, 16 and 1024). Then both forward kernels at
    DV3-S bf16 and B = 16, 64, 128, 256, 1024, each held to the plain
    version and timed: the measurement behind ``TENSOR_CORE_MIN_BATCH``.
 4. The LN-GRU backward against its plain version, at B = 16 and 1024
@@ -103,8 +103,8 @@ phase 34 runs before 32-33, and the Anakin lane, 42-46, before 37-41):
    continuous actions): full DV3-S width, bf16-mixed, sampling a ring of
    1024 rows per env filled at the exp's shapes (MsPacman: 1 env; the
    walker: 4). The fused step's 3 eager warm-up steps (the first under
-   ``torch.cuda.set_sync_debug_mode("error")``), then from one snapshot 4
-   eager steps twice and 4 replays of the graph (taus 0.02, 0 and 1):
+   ``torch.cuda.set_sync_debug_mode("error")``), then from one snapshot 3
+   eager steps twice and 3 replays of the graph (taus 0.02, 0 and 1):
    every parameter, Adam state, the moments and each step's metrics bit
    for bit (or, were the two eager runs to differ, within their
    difference). The graph's nodes, read from the graph itself (libcuda's
@@ -423,6 +423,27 @@ phase 34 runs before 32-33, and the Anakin lane, 42-46, before 37-41):
    worker-process vector (``async_vectors_built``).
    ``c.pin_in_process_envs(); c.phase_env_layer(dir)`` runs it alone after
    ``kernels.build()``.
+62. The data axis (``fabric.devices``, core/runtime.py and core/mesh.py)
+   through the trainer's entry point, ``dreamer_v3.main`` with a
+   ``Runtime`` as ``cli.run`` calls it (``Runtime.launch``, ``lead`` and
+   ``follow``, ``follow_dreamer_v3``, ``replicate_training``), DreamerV3-S at
+   full width (``exp=dreamer_v3_100k_ms_pacman``, bf16-mixed, B = 16 x 64)
+   for 3 gradient steps: the one-process run, then (a) the same run on a
+   one-rank NCCL group, bit for bit (every parameter, Adam state, the
+   moments and every logged value), 79 forward and 64 backward launches a
+   step; (b) two ranks on the one card over gloo (the backend that
+   ``launch`` takes from this script), rank 1 spawned, each taking 8 of the
+   16 rows: rank 1's kernels at its shapes (the streaming forward and the
+   backward at B = 8, the tensor-core forward at B = 512) against their
+   plain versions, each rank's LN-GRU launches counted (64 streaming and
+   15 tensor-core forwards, 64 backwards a step), rank 0's run held against
+   the one-process run by each module's change (``DP_PARAM_BOUND``) and the
+   moments (``DP_MOMENTS_BOUND``), each bound set between the sound reading
+   and a planted fault's (the same run with rank 0's gradient left
+   unreduced), the two ranks' weights equal; (c) each rank's host wall a
+   step, the collectives' share of it and the bytes all-reduced, broadcast
+   and gathered, beside the one-process run's step wall.
+   ``c.phase_data_parallel(dir)`` runs it alone after ``kernels.build()``.
 
 Every profile reads its device busy time through ``_busy``, which leaves
 out the device ranges of ``record_function`` annotations (the trainers'
@@ -445,8 +466,9 @@ player's and the decoupled runs', 0; phases 51 and 54's, telemetry and
 health on; phases 58-59's fleet runs', 0); then phase 60's bf16 rows of
 DreamerV3 XS, M and L (forward at B = 16, 1024 and 1, backward at B = 16
 and 1024) with their CLI step's launches; every entry also with phase
-61's worker-process runs' launches on the host and the ring path; the
-card's name and power limit,
+61's worker-process runs' launches on the host and the ring path, and
+phase 62's (``launches_dp``: both ranks' sound run, rank 0's player
+included; ``launches_dp_one_rank_nccl``: the one-rank NCCL run); the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -468,7 +490,7 @@ import threading
 import time
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import ExitStack, contextmanager
+from contextlib import ExitStack, contextmanager, nullcontext
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -545,6 +567,22 @@ def time_phases(namespace: dict) -> dict:
 # and the reading of their records (``key_averages``, ``events``), filled
 # by the wrappers ``time_phases`` installs.
 PROFILER_S: dict = {}
+
+
+def share_bytecode(build_dir) -> None:
+    """Every process the script starts (the evaluations, the fleets'
+    replicas, the second rank, the SIGTERM drills) imports torch and the
+    port. With ``PYTHONDONTWRITEBYTECODE`` set, as on the card's host, and
+    read-only package directories, each would compile their sources again:
+    9.2-9.6 s to import torch and register the port's algorithms there,
+    5.4-5.7 s from a bytecode cache (H100 host). This process and its children
+    keep one under the build directory (``PYTHONPYCACHEPREFIX``, which the
+    children inherit), filled by this process's own imports."""
+    prefix = os.path.join(str(build_dir), "pycache")
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = prefix
 
 
 def nvidia_smi() -> str:
@@ -746,8 +784,10 @@ def phase_kernels():
             kernel = timed(rotated(args, ln_gru_forward))
             plain_ms = device_ms(rotated(args, ln_gru_plain))[0]
             product_ms = device_ms(rotated(args[:2], torch.matmul))[0]
-            split = kernel_split_ms(rotated(args, ln_gru_forward))
-            check_one_launch(what, split)
+            # The one-launch split at the serving and training path's shapes in bf16 (every row's until phase 62 needed the time).
+            split = kernel_split_ms(rotated(args, ln_gru_forward)) if dtype == torch.bfloat16 and (batch, depth, hidden) in SPLIT_SHAPES else None
+            if split is not None:
+                check_one_launch(what, split)
             bound_ms, bound_by = gru_bound(batch, depth, hidden, dname)
             row = {"shape": f"B={batch} D={depth} H={hidden}", "dtype": dname, "kernel": plan.kernel, **errs, **kernel,
                    "plain_ms": plain_ms, "product_library_ms": product_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -761,6 +801,7 @@ def phase_kernels():
     return rows
 
 
+SPLIT_SHAPES = ((8, 1024, 512), (16, 1024, 512), (1024, 1024, 512))  # phase_kernels' one-launch splits: the serving bucket, the scan, the imagination
 THRESHOLD_BATCHES = (16, 64, 128, 256, 1024)
 
 
@@ -1220,9 +1261,9 @@ def train_through_cli(args, what, bwd_per_step, keep_params=False):
         trace["save_s"].append(time.perf_counter() - t0)
         return path
 
-    def holding_make_train_step(agent, optimizers, cfg):
+    def holding_make_train_step(agent, optimizers, cfg, *rest):
         held["agent"] = agent
-        return make_train_step(agent, optimizers, cfg)
+        return make_train_step(agent, optimizers, cfg, *rest)
 
     def grads(module):
         return {k: None if p.grad is None else p.grad.clone() for k, p in module.named_parameters()}
@@ -1569,6 +1610,9 @@ class RecordedDraws:
     def __init__(self, source):
         self.source, self.draws = source, []
 
+    def rows(self, batch, time=1):
+        return self.source.rows(batch, time)
+
     def categorical(self, logits):
         idx = self.source.categorical(logits)
         self.draws.append(idx.cpu())
@@ -1586,6 +1630,10 @@ class ReplayedDraws:
     def __init__(self, draws):
         self.draws = list(draws)
         self.used = 0
+
+    def rows(self, batch, time=1):
+        """The draws' layout (:meth:`BatchGenerator.rows`): replayed draws need none."""
+        return nullcontext()
 
     def _next(self, shape):
         draw = self.draws[self.used]
@@ -1886,57 +1934,78 @@ def remove_after_evals(path):
     REMOVE_AFTER_EVALS.append(path)
 
 
+# Processes that run a block's evaluations, each its share in turn: a
+# process per evaluation would pay a torch import for each of the 17 (7
+# and 10 a block) on the host's 8 cores.
+EVAL_RUNNERS = 3
+# A runner: ``python -m sheeprl_tpu_torch.eval checkpoint_path=<ckpt>`` for
+# each of its checkpoints, the module run as ``__main__`` as ``-m`` runs it.
+EVAL_RUNNER = """import runpy, sys, time
+for ckpt in sys.argv[1:]:
+    t0 = time.perf_counter()
+    sys.argv = ["sheeprl_tpu_torch.eval", f"checkpoint_path={ckpt}"]
+    runpy.run_module("sheeprl_tpu_torch.eval", run_name="__main__", alter_sys=True)
+    print(f"eval_s {time.perf_counter() - t0:.3f} {ckpt}", flush=True)
+"""
+
+
 @contextmanager
 def evals_beside(what):
-    """Every queued evaluation, each in a process of its own on the card,
-    all started together beside the block ``what``, which must time
-    nothing; each checked when the block ends."""
+    """Every queued evaluation, shared round robin among
+    :data:`EVAL_RUNNERS` processes on the card, all started together beside
+    the block ``what``, which must time nothing; each checked when the
+    block ends."""
     queued = PENDING_EVALS[:]
     PENDING_EVALS.clear()
     t0 = time.perf_counter()
-    started = [(start_eval(ckpt), reward, name, box) for ckpt, reward, name, box in queued]
+    runners = [queued[i::EVAL_RUNNERS] for i in range(min(EVAL_RUNNERS, len(queued)))]
+    started = [(start_evals([q[0] for q in share]), share) for share in runners]
     try:
         yield
         block_s = time.perf_counter() - t0
-        for proc, reward, name, box in started:
-            box.update(finish_eval(proc, reward, name))
+        for proc, share in started:
+            for (ckpt, reward, name, box), result in zip(share, finish_evals(proc, [q[2] for q in share])):
+                box.update(check_eval(ckpt, reward, name, result))
     except BaseException:
-        for proc, *_ in started:
-            if proc[2].poll() is None:
-                proc[2].kill()
+        for proc, _ in started:
+            if proc.poll() is None:
+                proc.kill()
         raise
     for path in REMOVE_AFTER_EVALS:
         shutil.rmtree(path, ignore_errors=True)
     REMOVE_AFTER_EVALS.clear()
-    log(f"evaluations beside {what}: {len(started)} processes, the block {block_s:.1f} s, all done {time.perf_counter() - t0:.1f} s after their start")
+    log(f"evaluations beside {what}: {len(queued)} in {len(started)} processes, the block {block_s:.1f} s, all done "
+        f"{time.perf_counter() - t0:.1f} s after their start")  # fmt: skip
 
 
-def start_eval(ckpt):
-    """The evaluation of ``ckpt`` started in a process of its own (its
-    result read by :func:`finish_eval`, which the caller must reach, or
-    kill the process)."""
-    proc = subprocess.Popen([sys.executable, "-m", "sheeprl_tpu_torch.eval", f"checkpoint_path={ckpt}"], cwd=REPO,
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)  # fmt: skip
-    return ckpt, time.perf_counter(), proc
+def start_evals(ckpts):
+    """The evaluations of ``ckpts``, one after another in a process of its
+    own (:data:`EVAL_RUNNER`; its results read by :func:`finish_evals`,
+    which the caller must reach, or kill the process)."""
+    return subprocess.Popen([sys.executable, "-c", EVAL_RUNNER, *ckpts], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
-def finish_eval(started, test_reward, what):
-    """Wait for :func:`start_eval`'s process and check what it logged
-    (:func:`evals_beside`)."""
-    import numpy as np
-
-    from sheeprl_tpu_torch.utils.logger import read_scalars
-
-    ckpt, t0, proc = started
+def finish_evals(proc, whats):
+    """Wait for :func:`start_evals`' process: each evaluation's seconds in
+    it, in order."""
     try:
         stdout, stderr = proc.communicate(timeout=600)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
-    wall_s = time.perf_counter() - t0
-    if proc.returncode != 0:
-        fail(f"{what}: exit {proc.returncode}\n{stdout[-2000:]}\n{stderr[-4000:]}")
+    seconds = [float(line.split()[1]) for line in stdout.splitlines() if line.startswith("eval_s ")]
+    if proc.returncode != 0 or len(seconds) != len(whats):
+        fail(f"{whats}: exit {proc.returncode} after {len(seconds)} evaluations\n{stdout[-2000:]}\n{stderr[-4000:]}")
+    return seconds
+
+
+def check_eval(ckpt, test_reward, what, wall_s):
+    """What an evaluation of ``ckpt`` logged (:func:`evals_beside`)."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.utils.logger import read_scalars
+
     eval_dir = os.path.join(os.path.dirname(os.path.dirname(ckpt)), "evaluation", "version_0")
     logged = read_scalars(eval_dir)
     if logged != {"Test/cumulative_reward": [(0, np.float32(test_reward))]}:
@@ -2001,8 +2070,8 @@ def ppo_through_cli(args, what, trainer="ppo"):
             trace["episode_steps"].append(trace["env_steps"])
         return result
 
-    def spying_make_train_step(agent, optimizer, cfg):
-        step = make_train_step(agent, optimizer, cfg)
+    def spying_make_train_step(agent, optimizer, cfg, *rest):
+        step = make_train_step(agent, optimizer, cfg, *rest)
 
         def wrapped(*a):
             snaps.setdefault("before", _ppo_snapshot(agent, optimizer))
@@ -2502,9 +2571,9 @@ def phase_ppo_pixels(log_root, workdir):
 FUSED_CUTS = {"buffer.device": "True (from False)"}
 WALKER_FUSED_CUTS = {"buffer.device": "True (from False)", "algo.fused_train_steps": "2 (from 1)"}
 GRAPH_RING_ROWS = 1024  # rows per env of the graph-against-eager phase's ring (at the exp's shapes)
-# 4 steps: the EMA's blend, its tau-0 and tau-1 cases (8 until the
-# interaction layer's phases 47-50 needed the time).
-GRAPH_TAUS = (0.02, 0.0, 1.0, 0.02)
+# 3 steps: the EMA's blend, its tau-0 and tau-1 cases (8 until the
+# interaction layer's phases 47-50 needed the time, 4 until phase 62 did).
+GRAPH_TAUS = (0.02, 0.0, 1.0)
 GRAPH_LN_GRU = {"discrete": {"streaming": STREAM_PER_STEP, "tensor_core": TC_PER_STEP, "backward": BWD_PER_STEP},
                 "continuous": {"streaming": STREAM_PER_STEP, "tensor_core": TC_PER_STEP, "backward": BWD_PER_STEP + TC_PER_STEP}}  # fmt: skip
 REPLAYS_PROFILED = 16
@@ -2570,8 +2639,8 @@ def phase_graph_vs_eager(kind):
     1 env, 9 actions; the walker: 4 envs, 6 actions in [-1, 1]). The fused
     step warms up (its ``WARMUP_STEPS`` eager steps, the first under the
     sync check); then from one snapshot (every parameter, Adam state, the
-    moments and the generator's state) 4 eager steps twice (the eager
-    path's run-to-run difference) and 4 replays of the graph, with the taus
+    moments and the generator's state) 3 eager steps twice (the eager
+    path's run-to-run difference) and 3 replays of the graph, with the taus
     ``GRAPH_TAUS``. Every parameter, Adam state, the moments and each step's
     metrics must be equal bit for bit, or, if the two eager runs differ,
     within that difference. The graph must hold ``GRAPH_LN_GRU`` LN-GRU
@@ -4642,7 +4711,11 @@ def phase_p2e_training(log_root):
     return result, out
 
 
-def phase_p2e_profile(agent, steps: int = 2):
+# The P2E-DV3-XL step profile's steps (2 until phase 62 needed the time).
+P2E_PROFILE_STEPS = 1
+
+
+def phase_p2e_profile(agent, steps: int = P2E_PROFILE_STEPS):
     """(33) Where one P2E-DV3 exploration step's time goes at XL width
     (32-true, B = 16, T = 64, the trained agent; :func:`step_profile`).
     Alone: ``c.phase_p2e_profile(out["agent"])`` after
@@ -4729,6 +4802,9 @@ def step_gaps(got, want, at=None):
 
     (gm, gs, gp), (wm, ws, wp) = got, want
     metric = {k: abs(gm[k] - ref) / (1e-4 / P2E_REF_TOL + abs(ref)) if math.isfinite(gm[k]) else math.inf for k, ref in wm.items()}
+    # The same f32 differences and f64 norms, on the card where there is one (the host took 2 s a call on SAC-AE's leaves).
+    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    gs, gp, ws, wp = ({k: v.to(dev) for k, v in t.items()} for t in (gs, gp, ws, wp))
     leaf = {}
     for k in wp:
         g, w = (gp[k] - gs[k]).double(), (wp[k] - ws[k]).double()
@@ -4737,7 +4813,7 @@ def step_gaps(got, want, at=None):
     w, dg = wp[top[0]], (gp[top[0]] - gs[top[0]]).flatten()
     dw = (w - ws[top[0]]).flatten()
     d = (dg - dw).abs().double()
-    ulps = d / (torch.nextafter(w.abs(), torch.tensor(math.inf)) - w.abs()).flatten().double()
+    ulps = d / (torch.nextafter(w.abs(), torch.tensor(math.inf, device=dev)) - w.abs()).flatten().double()
     i = int(d.argmax())
     return {"metric": mk, "metric_gap": metric[mk], "leaf": top[0], "leaf_gap": leaf[top[0]], "reading": max(metric[mk], leaf[top[0]]),
             "leaf_entries_differ": int((d > 0).sum()), "leaf_entries": w.numel(), "leaf_max_ulps": float(ulps.max()),
@@ -5059,9 +5135,13 @@ def phase_sac_ae(log_root):
             "flag_combinations": len(set(flags)), "seconds_per_gradient_step": host["wall_s"] / host["gradient_steps"]}  # fmt: skip
 
 
+SAC_AE_START: dict = {}  # seed -> the CPU-initialised agent's state: its orthogonal init takes about 2.7 s at the recipe's widths
+
+
 def _sac_ae_setup(where, batch, seed=7):
     """A recipe-width SAC-AE agent on ``where`` (initialised on the CPU from
-    ``seed``), its optimizers and config, at ``per_rank_batch_size`` ``batch``."""
+    ``seed`` once, then loaded from that state), its optimizers and config,
+    at ``per_rank_batch_size`` ``batch``."""
     from sheeprl_tpu_torch.algos.sac_ae.agent import build_agent
     from sheeprl_tpu_torch.algos.sac_ae.sac_ae import make_optimizers
     from sheeprl_tpu_torch.config import compose
@@ -5070,7 +5150,9 @@ def _sac_ae_setup(where, batch, seed=7):
     cfg = compose(["exp=sac_ae", "env=dummy", "env.id=continuous_dummy", f"algo.per_rank_batch_size={batch}", f"device={where}"])
     cfg.env.screen_size = 64
     env = ContinuousDummyEnv(action_dim=int(cfg.env.wrapper.action_dim))
-    agent = build_agent(cfg, env.observation_space, env.action_space, device=where, seed=seed)
+    if seed not in SAC_AE_START:
+        SAC_AE_START[seed] = build_agent(cfg, env.observation_space, env.action_space, device="cpu", seed=seed).state_dict()
+    agent = build_agent(cfg, env.observation_space, env.action_space, agent_state=SAC_AE_START[seed], device=where)
     return cfg, agent, make_optimizers(agent, cfg)
 
 
@@ -5290,7 +5372,7 @@ ANAKIN_ENV_TOL = {"atol": 1e-5, "rtol": 1e-5}  # f32 physics: the card's sin, co
 DV3A_DEPTH, DV3A_HIDDEN = 1024, 512
 DV3A_ENVS, DV3A_BATCH, DV3A_SEQ, DV3A_HORIZON, DV3A_SUPERSTEP = 4, 8, 32, 15, 16
 DV3A_IMAGINED = DV3A_BATCH * DV3A_SEQ  # 256
-DV3A_PROFILED_REPLAYS = 2  # of a superstep's 32 gradient-step replays, profiled (cut from 32 for phases 54-57, 8 for 58-60, 4 for 61)
+DV3A_PROFILED_REPLAYS = 1  # of a superstep's 32 gradient-step replays, profiled (cut from 32 for phases 54-57, 8 for 58-60, 4 for 61, 2 for 62)
 DV3A_CUTS = {"algo.total_steps": "1152 (from 100000: the 1024 prefill steps, then two supersteps of 64 with 32 gradient steps each)",
              "metric.log_every": "512 (from 5000)"}  # fmt: skip
 DV3A_ARGS = ["exp=dreamer_v3_anakin", "algo.total_steps=1152", "metric.log_every=512"]
@@ -6181,8 +6263,8 @@ def _recording(module, name, record):
 
     real = getattr(module, name)
 
-    def factory(agent, optimizers, cfg):
-        call = real(agent, optimizers, cfg)
+    def factory(agent, optimizers, cfg, *rest):
+        call = real(agent, optimizers, cfg, *rest)
         opts = optimizers.values() if isinstance(optimizers, dict) else [optimizers]
 
         def first(*args):
@@ -7915,6 +7997,374 @@ def phase_env_layer(workdir):
     return result
 
 
+# Phase 62: the data axis (core/runtime.py, core/mesh.py) through the
+# trainer's entry point (dreamer_v3.main with a Runtime, as cli.run calls it)
+# at DreamerV3-S's full width, bf16-mixed, B = 16 x 64, horizon 15.
+DP_CUTS = {"algo.learning_starts": "128 (from 1024)", "algo.total_steps": "130 (from 100000; 3 gradient steps)",
+           "algo.run_test": "False (from True)", "checkpoint.save_last": "False (from True)", "buffer.size": "4096 (from 100000)",
+           "buffer.memmap": "False (from True)"}  # fmt: skip
+DP_ARGS = ["exp=dreamer_v3_100k_ms_pacman", "env=dummy", "algo.learning_starts=128", "algo.total_steps=130", "metric.log_every=8",
+           "algo.run_test=False", "checkpoint.save_last=False", "buffer.size=4096", "buffer.memmap=False"]  # fmt: skip
+DP_STEPS = 3  # gradient steps of a DP_ARGS run: the first untimed, then DP_STEPS - 1 timed ((c))
+DP_T, DP_B, DP_RANKS = 64, 16, 2
+# Per rank and gradient step at B = 16 / 2: the scan's 64 streaming forwards and backwards at B = 8, the
+# imagination's 15 forwards at B = 8 x 64 = 512 (tensor cores: B >= 128).
+DP_RANK_FWD_BY_BATCH = {DP_B // DP_RANKS: 64, DP_T * DP_B // DP_RANKS: 15}
+DP_RANK_BWD_BY_BATCH = {DP_B // DP_RANKS: 64}
+# (b)'s two readings of rank 0's run against the one-process run, each bound set between the sound reading and
+# the planted fault's (rank 0's gradient left unreduced: it steps on its own 8 rows): the largest
+# ||d_rank0 - d_one|| / ||d_one|| over the world model, actor and critic (d: a module's change over the run), and
+# the larger |d| of the moments' low and high over the larger of their magnitudes. Each bound near the geometric
+# mean of its two readings on an NVIDIA H100 80GB HBM3 at 700 W (two runs, the same to the last digit): the module
+# gap 0.0471 sound against 0.343 faulted, the moments 0.0104 against 0.0769.
+DP_PARAM_BOUND = 0.12
+DP_MOMENTS_BOUND = 0.03
+
+
+def _dp_cfg(log_root):
+    from sheeprl_tpu_torch.config import compose
+
+    return compose([*DP_ARGS, f"log_root={log_root}"])
+
+
+def _dp_state(out) -> dict:
+    """Every tensor of a run's training state after it: the modules, the
+    Adam states, the moments."""
+    import torch
+
+    state = {f"agent.{k}": v.detach().cpu().clone() for k, v in out["agent"].state_dict().items()}
+    state |= {f"moments.{k}": v.detach().cpu().clone() for k, v in out["moments"].items()}
+    for name, opt in out["optimizers"].items():
+        for i, st in enumerate(opt.state.values()):
+            state |= {f"{name}.{i}.{k}": v.detach().cpu().clone() for k, v in st.items() if isinstance(v, torch.Tensor)}
+    return state
+
+
+def _dp_modules(agent):
+    return {name: {k: v.detach().cpu().clone() for k, v in getattr(agent, name).state_dict().items()} for name in ("world_model", "actor", "critic")}
+
+
+def _dp_readings(out, start, one) -> dict:
+    """A run against the one-process run from the same start: the largest
+    module change gap (:data:`DP_PARAM_BOUND`) and the moments' (:data:`DP_MOMENTS_BOUND`:
+    the larger gap of low and high over the larger of their magnitudes)."""
+    gaps, after = {}, _dp_modules(out["agent"])
+    for name, state in after.items():
+        num = den = 0.0
+        for k, v in state.items():
+            d_got, d_one = v.double() - start[name][k].double(), one["modules"][name][k].double() - start[name][k].double()
+            num += float(((d_got - d_one) ** 2).sum())
+            den += float((d_one**2).sum())
+        gaps[name] = math.sqrt(num / den)
+    moments = {k: v.item() for k, v in out["moments"].items()}
+    scale = max(abs(one["moments"]["low"]), abs(one["moments"]["high"]))
+    moments_rel = max(abs(moments[k] - one["moments"][k]) for k in ("low", "high")) / scale
+    return {"param_gap": max(gaps.values()), "param_gaps": gaps, "moments_rel": moments_rel, "moments": moments,
+            "gradient_steps": out["gradient_steps"], "digest": _dp_digest(out["agent"])}  # fmt: skip
+
+
+def _dp_digest(agent) -> str:
+    import hashlib
+
+    digest = hashlib.sha256()
+    for v in agent.state_dict().values():
+        digest.update(v.detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+class _DPProbe:
+    """(c) On one rank, over a run: each train step's host wall (between two
+    synchronizes), the collectives inside the steps (each timed between two
+    synchronizes) and the bytes each kind moved, and the trained agent
+    (``agent``, from the train-step factory it wraps)."""
+
+    def __init__(self, dv3):
+        import torch.distributed as dist
+
+        self.dv3, self.dist, self.walls, self.agent = dv3, dist, [], None
+        self.in_step, self.spent = False, []
+        self.bytes = {"all_reduce": [], "broadcast": [], "all_gather": []}
+
+    def __enter__(self):
+        import torch
+
+        self.originals = {name: getattr(self.dist, name) for name in self.bytes} | {"make_train_step": self.dv3.make_train_step}
+
+        def wrap(name, fn):
+            def call(first, *args, **kwargs):
+                if not self.in_step:
+                    return fn(first, *args, **kwargs)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(first, *args, **kwargs)
+                torch.cuda.synchronize()
+                self.spent[-1] += time.perf_counter() - t0
+                tensor = args[0] if name == "all_gather" else first
+                self.bytes[name][-1] += tensor.numel() * tensor.element_size() * (len(first) if name == "all_gather" else 1)
+                return out
+
+            return call
+
+        def factory(agent, optimizers, cfg, *args, **kwargs):
+            step = self.originals["make_train_step"](agent, optimizers, cfg, *args, **kwargs)
+            self.agent = agent
+
+            def timed(*a, **kw):
+                torch.cuda.synchronize()
+                self.spent.append(0.0)
+                for v in self.bytes.values():
+                    v.append(0)
+                self.in_step = True
+                t0 = time.perf_counter()
+                try:
+                    out = step(*a, **kw)
+                    torch.cuda.synchronize()
+                finally:
+                    self.in_step = False
+                self.walls.append(time.perf_counter() - t0)
+                return out
+
+            return timed
+
+        for name in self.bytes:
+            setattr(self.dist, name, wrap(name, self.originals[name]))
+        self.dv3.make_train_step = factory
+        return self
+
+    def __exit__(self, *exc):
+        for name in self.bytes:
+            setattr(self.dist, name, self.originals[name])
+        self.dv3.make_train_step = self.originals["make_train_step"]
+
+    def timing(self) -> dict:
+        """The steps after the first (its warm-up left out)."""
+        n = len(self.walls) - 1
+        if n < 1:
+            fail(f"data parallel (c): {len(self.walls)} timed steps")
+        wall = sum(self.walls[1:])
+        return {"wall_ms_per_step": wall / n * 1e3, "collective_ms_per_step": sum(self.spent[1:]) / n * 1e3,
+                "collective_share": sum(self.spent[1:]) / wall, "steps_timed": n, "first_step_ms": self.walls[0] * 1e3,
+                **{f"bytes_{k}_per_step": sum(v[1:]) // n for k, v in (("reduced", self.bytes["all_reduce"]),
+                                                                         ("broadcast", self.bytes["broadcast"]), ("gathered", self.bytes["all_gather"]))}}  # fmt: skip
+
+
+def _keep_local_on_rank0(real):
+    """The planted fault: the all-reduce runs (the other rank's matches it),
+    and rank 0 then puts its own gradient back."""
+
+    def fault(params, axis, op="mean"):
+        params = list(params)
+        local = [None if p.grad is None else p.grad.clone() for p in params]
+        real(params, axis, op)
+        if axis.index == 0:
+            for p, g in zip(params, local):
+                if g is not None:
+                    p.grad.copy_(g)
+
+    return fault
+
+
+def _dp_follower(runtime, cfg, threads, result_path) -> None:
+    """(62b, c) Rank 1 on the one card over gloo: its kernels at its shapes
+    against their plain versions (these launches are not the path's), then
+    the follower side of two DreamerV3 runs (:func:`sheeprl_tpu_torch.cli.follow`,
+    which registers the trainers and runs ``follow_dreamer_v3``): the sound
+    run with its LN-GRU launches counted and its steps timed, then rank 0's
+    faulted run. Writes what it read to ``result_path``."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.models.ln_gru import _aligned, _sm_count, forward_plan, ln_gru_forward
+
+    rank = runtime.global_rank
+    kernels = {}
+    for batch in DP_RANK_FWD_BY_BATCH:
+        args = gru_inputs(batch, 1024, 512, torch.bfloat16, seed=rank)
+        kind = forward_plan(batch, 1024, 512, torch.bfloat16, _sm_count(0), _aligned(args[0], args[1], args[5])).kernel
+        kernels[f"forward_b{batch}"] = {"kernel": kind, **check_forward(ln_gru_forward, args, f"rank {rank}: ln_gru B={batch} bf16")}
+    inp, w, b, scale, ln_bias, h = gru_inputs(DP_B // DP_RANKS, 1024, 512, torch.bfloat16, seed=3 + rank)
+    _, z = ln_gru_forward(inp, w, b, scale, ln_bias, h)
+    g = gru_inputs(DP_B // DP_RANKS, 1, 512, torch.bfloat16, seed=4 + rank)[5]
+    kernels[f"backward_b{DP_B // DP_RANKS}"] = check_backward((g, z, scale, ln_bias, h), f"rank {rank}: ln_gru_backward B={DP_B // DP_RANKS} bf16")
+    torch.cuda.synchronize()
+    zero_counts()
+    with _DPProbe(dv3) as probe:
+        cli.follow(runtime, cfg, threads)
+    counts = read_counts()
+    result = {"kernels": kernels, "ln_gru_launches": counts, "timing": probe.timing(), "digest": _dp_digest(probe.agent),
+              "backend": runtime.group_backend, "device": str(runtime.device)}  # fmt: skip
+    cli.follow(runtime, cfg, threads)  # rank 0's faulted run: this rank is sound
+    with open(result_path, "w") as fp:
+        json.dump(result, fp)
+
+
+def _dp_kernel_rows() -> list:
+    """The kernels at a rank's shapes (bf16, D = 1024, H = 512; the
+    streaming forward and the backward at B = 8, the tensor-core forward at
+    B = 512), each against its plain version and timed as in phases 3-4:
+    kernel, plain, cuBLAS's product alone (forwards) and the bound."""
+    import torch
+
+    from sheeprl_tpu_torch.models.ln_gru import ln_gru_backward, ln_gru_backward_plain, ln_gru_forward, ln_gru_plain
+
+    rows = []
+    for batch in DP_RANK_FWD_BY_BATCH:
+        args = gru_inputs(batch, 1024, 512, torch.bfloat16, seed=5)
+        errs = check_forward(ln_gru_forward, args, f"data parallel: ln_gru B={batch} bf16")
+        bound_ms, bound_by = gru_bound(batch, 1024, 512, "bfloat16")
+        rows.append({"kind": "forward", "shape": f"B={batch} D=1024 H=512", "dtype": "bfloat16", **errs, **timed(rotated(args, ln_gru_forward)),
+                     "plain_ms": device_ms(rotated(args, ln_gru_plain))[0], "product_library_ms": device_ms(rotated(args[:2], torch.matmul))[0],
+                     "bound_ms": bound_ms, "bound_by": bound_by})  # fmt: skip
+    batch = DP_B // DP_RANKS
+    inp, w, b, scale, ln_bias, h = gru_inputs(batch, 1024, 512, torch.bfloat16, seed=6)
+    _, z = ln_gru_forward(inp, w, b, scale, ln_bias, h)
+    args = (gru_inputs(batch, 1, 512, torch.bfloat16, seed=7)[5], z, scale, ln_bias, h)
+    errs = check_backward(args, f"data parallel: ln_gru_backward B={batch} bf16")
+    bound_ms, bound_by = gru_bwd_bound(batch, 512, "bfloat16")
+    rows.append({"kind": "backward", "shape": f"B={batch} H=512", "dtype": "bfloat16", "max_abs_err": errs, **timed(rotated(args, ln_gru_backward)),
+                 "plain_ms": device_ms(rotated(args, ln_gru_backward_plain))[0], "bound_ms": bound_ms, "bound_by": bound_by})  # fmt: skip
+    for row in rows:
+        log(f"data parallel: {row['kind']} {row['shape']} bf16: kernel {row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, "
+            f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")  # fmt: skip
+    return rows
+
+
+def phase_data_parallel(workdir):
+    """(62) The data axis on the card through the trainer's entry point
+    (``dreamer_v3.main`` with a :class:`Runtime`, as ``cli.run`` calls it:
+    ``Runtime.launch``, ``lead``/``follow``, ``follow_dreamer_v3``,
+    ``replicate_training``), DreamerV3-S at full width for
+    :data:`DP_STEPS` gradient steps: the one-process run without a runtime
+    first; (a) the same run on a one-rank NCCL group, bit for bit; (b) two
+    ranks on the one card over gloo (the backend ``launch`` takes from this
+    script), each taking 8 of the 16 rows, rank 0's run held against the
+    one-process run, each rank's LN-GRU launches counted and its kernels
+    held against their plain versions at its shapes (and timed at them
+    here, :func:`_dp_kernel_rows`), then the same run with rank 0's gradient
+    left unreduced, which the bounds must catch; (c) each rank's step wall,
+    the collectives' share and the bytes they move.
+    ``c.phase_data_parallel(dir)`` runs it alone after ``kernels.build()``."""
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.core.runtime import Runtime
+
+    card = nvidia_smi()
+    t_phase = time.perf_counter()
+    kernel_rows = _dp_kernel_rows()
+    log(f"data parallel: {' '.join(DP_ARGS)} (DV3-S full width, bf16-mixed, B={DP_B} x T={DP_T}); cut: {json.dumps(DP_CUTS)}")
+
+    # The one-process run, its start captured where the trainer builds it.
+    start, build = {}, dv3._build_dv3
+
+    def capture(*args, **kwargs):
+        trainer = build(*args, **kwargs)
+        start.update(_dp_modules(trainer.agent))
+        return trainer
+
+    zero_counts()
+    with patched(dv3, "_build_dv3", capture), _DPProbe(dv3) as probe:
+        plain = dv3.main(_dp_cfg(os.path.join(workdir, "dp_plain")))
+    counts_plain = read_counts()
+    if plain["gradient_steps"] != DP_STEPS:
+        fail(f"data parallel: the one-process run took {plain['gradient_steps']} gradient steps, expected {DP_STEPS}")
+    one = {"modules": _dp_modules(plain["agent"]), "moments": {k: v.item() for k, v in plain["moments"].items()}}
+    plain_state, plain_log, one_timing = _dp_state(plain), plain["log"], probe.timing()
+    del plain
+
+    # (a) One rank on NCCL, through Runtime.launch.
+    zero_counts()
+    out = Runtime(world_size=1, accelerator="cuda").launch(
+        lambda rt: (dv3.main(_dp_cfg(os.path.join(workdir, "dp_one_rank")), runtime=rt), rt.group_backend), cli.follow,
+        store_dir=os.path.join(workdir, "dp_store_one"), backend="nccl",
+    )  # fmt: skip
+    (one_rank, backend), counts_one = out, read_counts()
+    state = _dp_state(one_rank)
+    differ = [k for k in plain_state if not torch.equal(plain_state[k], state[k])]
+    differ += [f"log {i} {k}" for i, (a, b) in enumerate(zip(plain_log, one_rank["log"])) for k in a if not k.startswith("Time/") and a[k] != b.get(k)]
+    if backend != "nccl" or differ or one_rank["gradient_steps"] != DP_STEPS:
+        fail(f"data parallel (a): the one-rank {backend} run moved {len(differ)} of {len(plain_state)} tensors and log values: {differ[:5]}")
+    want = {"forward_by_batch": {DP_B: 64 * DP_STEPS, DP_T * DP_B: 15 * DP_STEPS}, "backward_by_batch": {DP_B: 64 * DP_STEPS}}
+    for counts, what in ((counts_plain, "one process"), (counts_one, "one rank")):
+        train_fwd = {b: n for b, n in counts["forward_by_batch"].items() if b in want["forward_by_batch"]}
+        if train_fwd != want["forward_by_batch"] or counts["backward_by_batch"] != want["backward_by_batch"] or counts["tensor_core"] != 15 * DP_STEPS:
+            fail(f"data parallel (a): {what}'s LN-GRU launches {counts}, expected the train steps' {want}")
+    log(f"data parallel (a): {DP_STEPS} DV3-S gradient steps through dreamer_v3.main on a one-rank NCCL group (Runtime.launch) equal the "
+        f"one-process run bit for bit ({len(plain_state)} tensors: modules, Adam states, moments; every logged value); LN-GRU {counts_one}; {card}")  # fmt: skip
+    del one_rank, state, plain_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) Two ranks on one card over gloo: the sound run, then rank 0's gradient unreduced.
+    result_path = os.path.join(workdir, "dp_rank1.json")
+
+    def rank0(rt):
+        zero_counts()
+        with _DPProbe(dv3) as probe:
+            sound = dv3.main(_dp_cfg(os.path.join(workdir, "dp_two")), runtime=rt)
+        counts = read_counts()
+        readings = _dp_readings(sound, start, one)
+        del sound
+        rt.lead("stop")  # the follower's first run ends here; launch stops its second
+        with patched(dv3, "all_mean_grads", _keep_local_on_rank0(dv3.all_mean_grads)):
+            fault = _dp_readings(dv3.main(_dp_cfg(os.path.join(workdir, "dp_fault")), runtime=rt), start, one)
+        return {"ln_gru_launches": counts, "sound": readings, "timing": probe.timing(), "backend": rt.group_backend, "device": str(rt.device),
+                "fault": fault}  # fmt: skip
+
+    t0 = time.perf_counter()
+    runtime = Runtime(world_size=DP_RANKS, accelerator="cuda")
+    r0 = runtime.launch(rank0, _dp_follower, (json.loads(json.dumps(_dp_cfg(os.path.join(workdir, "dp_two")))), 1, result_path),
+                        store_dir=os.path.join(workdir, "dp_store_two"), backend="gloo")  # fmt: skip
+    two_ranks_s = time.perf_counter() - t0
+    with open(result_path) as fp:
+        r1 = json.load(fp)
+    r1["ln_gru_launches"]["forward_by_batch"] = {int(b): n for b, n in r1["ln_gru_launches"]["forward_by_batch"].items()}
+    r1["ln_gru_launches"]["backward_by_batch"] = {int(b): n for b, n in r1["ln_gru_launches"]["backward_by_batch"].items()}
+    want_fwd = {b: n * DP_STEPS for b, n in DP_RANK_FWD_BY_BATCH.items()}
+    want_bwd = {b: n * DP_STEPS for b, n in DP_RANK_BWD_BY_BATCH.items()}
+    for rank, got in enumerate((r0, r1)):
+        counts = got["ln_gru_launches"]
+        if got["backend"] != "gloo" or got["device"] != "cuda:0":
+            fail(f"data parallel (b): rank {rank} ran on {got['backend']} / {got['device']}")
+        # Rank 0's player runs its forwards at B = num_envs between the steps; the train steps' batches are these.
+        train_fwd = {b: n for b, n in counts["forward_by_batch"].items() if b in want_fwd}
+        if train_fwd != want_fwd or counts["backward_by_batch"] != want_bwd or counts["tensor_core"] != 15 * DP_STEPS:
+            fail(f"data parallel (b): rank {rank}'s LN-GRU launches {counts}, expected forward {want_fwd}, backward {want_bwd}")
+    if r1["kernels"][f"forward_b{DP_T * DP_B // DP_RANKS}"]["kernel"] != "tensor_core" or r1["kernels"][f"forward_b{DP_B // DP_RANKS}"]["kernel"] != "streaming":
+        fail(f"data parallel (b): rank 1's forward plans {r1['kernels']}")
+    sound, fault = r0["sound"], r0["fault"]
+    if sound["gradient_steps"] != DP_STEPS or fault["gradient_steps"] != DP_STEPS:
+        fail(f"data parallel (b): gradient steps {sound['gradient_steps']}, {fault['gradient_steps']}, expected {DP_STEPS}")
+    log(f"data parallel (b): dreamer_v3.main over 2 gloo ranks on one card (Runtime.launch, follow_dreamer_v3), 8 of 16 rows each, "
+        f"{DP_STEPS} steps: parameter gap {sound['param_gap']:.4g} (bound {DP_PARAM_BOUND}; rank 0 unreduced {fault['param_gap']:.4g}), "
+        f"moments {sound['moments_rel']:.4g} (bound {DP_MOMENTS_BOUND}; unreduced {fault['moments_rel']:.4g}); "
+        f"LN-GRU rank 0 {r0['ln_gru_launches']}, rank 1 {r1['ln_gru_launches']}; {two_ranks_s:.1f} s; {card}")  # fmt: skip
+    for rank, got in enumerate((r0, r1)):
+        t = got["timing"]
+        log(f"data parallel (c): rank {rank}: {t['wall_ms_per_step']:.2f} ms a step (one process at B={DP_B}: {one_timing['wall_ms_per_step']:.2f} ms), "
+            f"collectives {t['collective_ms_per_step']:.2f} ms ({t['collective_share']:.3f}), {t['bytes_reduced_per_step']} bytes all-reduced, "
+            f"{t['bytes_broadcast_per_step']} broadcast, {t['bytes_gathered_per_step']} gathered a step ({t['steps_timed']} steps); {card}")  # fmt: skip
+    if sound["digest"] != r1["digest"]:
+        fail("data parallel (b): the two ranks' weights differ after the run")
+    if not (sound["param_gap"] <= DP_PARAM_BOUND and sound["moments_rel"] <= DP_MOMENTS_BOUND):
+        fail(f"data parallel (b): rank 0's run against the one-process run: parameter gap {sound['param_gaps']} (bound {DP_PARAM_BOUND}), "
+             f"moments {sound['moments_rel']} (bound {DP_MOMENTS_BOUND})")  # fmt: skip
+    if not (fault["param_gap"] > DP_PARAM_BOUND and fault["moments_rel"] > DP_MOMENTS_BOUND):
+        fail(f"data parallel (b): rank 0's gradient unreduced passes a bound: parameter gap {fault['param_gap']} (bound {DP_PARAM_BOUND}), "
+             f"moments {fault['moments_rel']} (bound {DP_MOMENTS_BOUND})")  # fmt: skip
+    took_s = time.perf_counter() - t_phase
+    log(f"data parallel: phase 62 took {took_s:.1f} s")
+    return {"card": card, "cuts": DP_CUTS, "kernels_at_rank_shapes": kernel_rows,
+            "one_rank": {"backend": backend, "steps": DP_STEPS, "tensors_equal": True, "ln_gru_launches": counts_one},
+            "one_process": {"ln_gru_launches": counts_plain, "timing": one_timing},
+            "two_ranks": [r0, r1], "two_ranks_s": two_ranks_s, "bounds": {"param_gap": DP_PARAM_BOUND, "moments_rel": DP_MOMENTS_BOUND},
+            "readings": {"sound_param_gap": sound["param_gap"], "unreduced_param_gap": fault["param_gap"],
+                         "sound_moments_rel": sound["moments_rel"], "unreduced_moments_rel": fault["moments_rel"]}, "took_s": took_s}  # fmt: skip
+
+
 ASYNC_BUILT = [0]
 
 
@@ -7960,14 +8410,15 @@ def pin_in_process_envs():
 def main() -> None:
     import warnings
 
+    if not os.path.isdir(os.path.join(REPO, "sheeprl_tpu_torch")):
+        fail(f"run from a checkout of the repository: no sheeprl_tpu_torch/ beside {__file__}")
+    share_bytecode(os.path.join(REPO, "sheeprl_tpu_torch", "_build"))
     import torch
 
     warnings.filterwarnings("ignore", message=".*Profiler clears events.*")
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
-    if not os.path.isdir(os.path.join(REPO, "sheeprl_tpu_torch")):
-        fail(f"run from a checkout of the repository: no sheeprl_tpu_torch/ beside {__file__}")
     sys.path.insert(0, REPO)
     from sheeprl_tpu_torch import kernels
 
@@ -8073,6 +8524,7 @@ def main() -> None:
         if async_vectors_built():
             fail(f"phases 1-60 built {async_vectors_built()} worker-process vector env(s): they are measured in-process")
         env_layer = phase_env_layer(workdir)
+        data_parallel = phase_data_parallel(workdir)
         replay_sample = phase_replay_sample()
         if PENDING_EVALS:
             fail(f"evaluations queued and never run: {[e[2] for e in PENDING_EVALS]}")
@@ -8124,7 +8576,9 @@ def main() -> None:
                 "launches_fleet_sac": fleet_sizes["sac_fleet"]["ln_gru_launches"][kind],
                 "launches_fleet_ppo": fleet_sizes["ppo_fleet"]["ln_gru_launches"][kind],
                 "launches_env_layer_host": env_layer["host"]["ln_gru_launches"][kind],
-                "launches_env_layer_ring": env_layer["ring"]["ln_gru_launches"][kind]}  # fmt: skip
+                "launches_env_layer_ring": env_layer["ring"]["ln_gru_launches"][kind],
+                "launches_dp": sum(r["ln_gru_launches"][kind] for r in data_parallel["two_ranks"]),
+                "launches_dp_one_rank_nccl": data_parallel["one_rank"]["ln_gru_launches"][kind]}  # fmt: skip
 
     def in_graph(kernel):
         """The kernel's nodes in the captured step's graph, and its launches
@@ -8360,6 +8814,7 @@ def main() -> None:
         **resilience,
         **fleet_sizes,
         "env_layer": env_layer,
+        "data_parallel": data_parallel,
         "kernels": kernels_line["kernels"],
         "phase_s": phase_s,
         "profiler_s": PROFILER_S,

@@ -77,6 +77,17 @@ from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.core.graphs import CapturedStep, RingHolder, power_of_two_buckets
 from sheeprl_tpu_torch.core.interact import InteractionPipeline, tree_concat
+from sheeprl_tpu_torch.core.mesh import (
+    SINGLE,
+    DataAxis,
+    all_gather,
+    all_mean_grads,
+    all_mean_metrics,
+    local_batch_size,
+    replicate_training,
+    shard_batch,
+)
+from sheeprl_tpu_torch.core.runtime import Runtime
 from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
 from sheeprl_tpu_torch.core.resilience import drain_device, exit_on_preemption, open_loop
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
@@ -85,7 +96,7 @@ from sheeprl_tpu_torch.data.infeed import ReplayInfeed
 from sheeprl_tpu_torch.utils.env import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
-from sheeprl_tpu_torch.serve.spaces import Discrete
+from sheeprl_tpu_torch.serve.spaces import Discrete, spec_to_space
 from sheeprl_tpu_torch.telemetry import open_for_run
 from sheeprl_tpu_torch.telemetry.health import ProbeTape, probes_enabled, tape_update
 from sheeprl_tpu_torch.utils.distribution import (
@@ -95,6 +106,7 @@ from sheeprl_tpu_torch.utils.distribution import (
     MSEDistribution,
     OneHotCategorical,
     OneHotCategoricalStraightThrough,
+    ShardedGenerator,
     SymlogDistribution,
     TwoHotEncodingDistribution,
     uniform_mix,
@@ -158,11 +170,15 @@ class DV3Learner:
     continues and discounts of a trajectory, the normalised advantage, an
     actor's loss and update, and a critic's update with its target's EMA.
     Built from the world model, the config and the actor's spec; the caller
-    names the actor, critic and optimizer of each update."""
+    names the actor, critic and optimizer of each update. Over a data
+    ``axis`` each update means the gradients over the ranks before its
+    clip, the moments take the quantiles of every rank's returns, and the
+    draws follow the batch's layout (:meth:`BatchGenerator.rows`)."""
 
-    def __init__(self, world_model: torch.nn.Module, actor_spec, cfg):
+    def __init__(self, world_model: torch.nn.Module, actor_spec, cfg, axis: DataAxis = SINGLE):
         wm_cfg = cfg.algo.world_model
         self.cfg = cfg
+        self.axis = axis
         self.wm = world_model
         self.decoupled = bool(wm_cfg.decoupled_rssm)
         self.spec = actor_spec
@@ -206,19 +222,22 @@ class DV3Learner:
         if self.decoupled:
             # The posterior sees the observation only: one batched pass over
             # [T, B]; the scan feeds each step the previous step's posterior.
-            posterior_logits, posteriors = wm.posterior_obs_only(embedded, rng)
+            with rng.rows(B, time=T):
+                posterior_logits, posteriors = wm.posterior_obs_only(embedded, rng)
             previous = torch.cat([torch.zeros_like(posteriors[:1]), posteriors[:-1]], 0)
-            for t in range(T):
-                h, _, prior_l = wm.dynamic_decoupled(previous[t], h, batch_actions[t], is_first[t], rng)
-                hs.append(h)
-                prior_logits.append(prior_l)
+            with rng.rows(B):
+                for t in range(T):
+                    h, _, prior_l = wm.dynamic_decoupled(previous[t], h, batch_actions[t], is_first[t], rng)
+                    hs.append(h)
+                    prior_logits.append(prior_l)
         else:
-            for t in range(T):
-                h, z, _, post_l, prior_l = wm.dynamic(z, h, batch_actions[t], embedded[t], is_first[t], rng)
-                hs.append(h)
-                zs.append(z)
-                post_logits.append(post_l)
-                prior_logits.append(prior_l)
+            with rng.rows(B):
+                for t in range(T):
+                    h, z, _, post_l, prior_l = wm.dynamic(z, h, batch_actions[t], embedded[t], is_first[t], rng)
+                    hs.append(h)
+                    zs.append(z)
+                    post_logits.append(post_l)
+                    prior_logits.append(prior_l)
             posteriors, posterior_logits = torch.stack(zs), torch.stack(post_logits)
         recurrent_states = torch.stack(hs)
         latent_states = torch.cat([posteriors, recurrent_states], -1)
@@ -244,6 +263,7 @@ class DV3Learner:
         losses, posteriors, recurrent_states, pol, pl = self.world_model_loss(data, batch_obs, rng)
         optimizer.zero_grad(set_to_none=True)
         losses[0].backward()
+        all_mean_grads(self.wm.parameters(), self.axis)
         wm_norm = tape_update(tape, list(self.wm.parameters()), optimizer, lambda: _clip(self.wm, self.cfg.algo.world_model.clip_gradients))
         return losses, posteriors, recurrent_states, pol, pl, wm_norm
 
@@ -279,7 +299,8 @@ class DV3Learner:
         lambda_values = compute_lambda_values(rewards[1:], values[1:], continues[1:] * self.gamma, self.lmbda)
         m = self.moments_cfg
         new_moments, (offset, invscale) = update_moments(
-            moments_state, lambda_values, decay=m.decay, max_=m.max, percentile_low=m.percentile.low, percentile_high=m.percentile.high
+            moments_state, lambda_values, decay=m.decay, max_=m.max, percentile_low=m.percentile.low, percentile_high=m.percentile.high,
+            gather=functools.partial(all_gather, axis=self.axis) if self.axis.joined else None,
         )
         advantage = (lambda_values - offset) / invscale - (values[:-1] - offset) / invscale
         return new_moments, lambda_values, advantage
@@ -304,6 +325,7 @@ class DV3Learner:
         policy_loss = -torch.mean(discount[:-1] * (objective + entropy[..., None][:-1]))
         optimizer.zero_grad(set_to_none=True)
         policy_loss.backward()
+        all_mean_grads(actor.parameters(), self.axis)
         actor_norm = tape_update(tape, list(actor.parameters()), optimizer, lambda: _clip(actor, self.cfg.algo.actor.clip_gradients))
         return policy_loss.detach(), actor_norm
 
@@ -313,7 +335,8 @@ class DV3Learner:
         Continuous actions carry the pathwise gradient through the rollout,
         so it runs under autograd (the caller freezes the world model and
         the critic); discrete actions take none, so it runs under no_grad."""
-        with torch.set_grad_enabled(self.pathwise), record_function("dv3/imagination"):
+        T, B = data["rewards"].shape[:2]
+        with torch.set_grad_enabled(self.pathwise), record_function("dv3/imagination"), rng.rows(B, time=T):
             trajectories, imagined_actions = self.imagine(actor, prior, h, rng)
             predicted_values = TwoHotEncodingDistribution(critic(trajectories).float(), dims=1).mean
             predicted_rewards = TwoHotEncodingDistribution(self.wm.reward_logits(trajectories).float(), dims=1).mean
@@ -335,6 +358,7 @@ class DV3Learner:
         value_loss = torch.mean(value_loss * discount[:-1].squeeze(-1))
         optimizer.zero_grad(set_to_none=True)
         value_loss.backward()
+        all_mean_grads(critic.parameters(), self.axis)
         critic_norm = tape_update(tape, list(critic.parameters()), optimizer, lambda: _clip(critic, self.cfg.algo.critic.clip_gradients))
         tau_t = tau if isinstance(tau, torch.Tensor) else torch.full((), float(tau), device=self.device)
         target_ema_(list(target_critic.parameters()), list(critic.parameters()), tau_t)
@@ -355,7 +379,7 @@ class DV3Learner:
 
 
 def make_train_step(
-    agent: DV3Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg
+    agent: DV3Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, axis: DataAxis = SINGLE
 ) -> Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Any, float], tuple]:
     """-> ``step(moments_state, data, rng, tau) -> (moments_state, metrics)``.
 
@@ -367,12 +391,24 @@ def make_train_step(
     it), a float or a 0-d tensor on the agent's device (what a captured step
     reads, :func:`target_ema_`). With ``health`` probes on (:func:`probes_enabled`)
     the metrics also hold ``health/*`` over the three updates, with the KL
-    (``dreamer_v3.py:393-403`` of the JAX package)."""
-    learner = DV3Learner(agent.world_model, agent.actor_spec, cfg)
+    (``dreamer_v3.py:393-403`` of the JAX package).
+
+    Over a data ``axis`` (``fabric.devices`` > 1) the step is one rank's
+    part of the global step: rank 0's ``data`` (the other ranks pass None)
+    reaches every rank, which keeps its block of the batch's B
+    (:func:`shard_batch`, ``P(None, data)`` in the JAX step), draws the
+    noise of the whole batch and keeps its rows (:class:`ShardedGenerator`),
+    means the gradients before each clip and returns the metrics averaged
+    over the ranks: the one-card step's, up to the order of the sums."""
+    learner = DV3Learner(agent.world_model, agent.actor_spec, cfg, axis)
     wm, actor, critic, target_critic = agent.world_model, agent.actor, agent.critic, agent.target_critic
     probes = probes_enabled(cfg)
+    device = next(wm.parameters()).device
 
     def step(moments_state, data, rng, tau):
+        if axis.joined:
+            data = shard_batch(data, axis, dim=1, device=device)
+            rng = ShardedGenerator(rng, axis.size, axis.index)
         tape = ProbeTape() if probes else None
         with record_function("dv3/world_model"):
             losses, posteriors, recurrent_states, pol, pl, wm_norm = learner.update_world_model(
@@ -393,7 +429,7 @@ def make_train_step(
         })  # fmt: skip
         if tape is not None:
             metrics.update(tape.metrics(aux={"kl": losses[1]}))
-        return new_moments, metrics
+        return new_moments, all_mean_metrics(metrics, axis)
 
     return step
 
@@ -524,7 +560,7 @@ class DV3Trainer:
     on_aggregator: Optional[Callable[[MetricAggregator], None]] = None
 
 
-def _build_dv3(cfg, actions_dim, is_continuous, observation_space, device, state_ckpt) -> DV3Trainer:
+def _build_dv3(cfg, actions_dim, is_continuous, observation_space, device, state_ckpt, axis: DataAxis = SINGLE) -> DV3Trainer:
     agent = build_agent(
         actions_dim, is_continuous, cfg, observation_space,
         precision=cfg.fabric.precision, device=device, seed=cfg.seed, training=True,
@@ -534,17 +570,20 @@ def _build_dv3(cfg, actions_dim, is_continuous, observation_space, device, state
     if state_ckpt is not None:
         moments = load_training_state(agent, optimizers, state_ckpt, device)
     return DV3Trainer(
-        agent=agent, optimizers=optimizers, train_step=make_train_step(agent, optimizers, cfg), moments=moments,
+        agent=agent, optimizers=optimizers, train_step=make_train_step(agent, optimizers, cfg, axis), moments=moments,
         state=functools.partial(training_state, agent, optimizers), player=lambda i, learning_starts: agent,
         test_agent=agent, fused=True,
     )  # fmt: skip
 
 
 @register_algorithm()
-def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]] = None) -> Dict[str, Any]:
+def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]] = None, runtime: Optional[Runtime] = None) -> Dict[str, Any]:
     """Train DreamerV3 on ``cfg`` (see :mod:`sheeprl_tpu_torch.config`) on
     ``cfg.device``. ``callback(agent, gradient_step, tau, metrics)`` runs
-    after every gradient step.
+    after every gradient step. Over the ranks of a ``runtime`` with a
+    process group (``fabric.devices`` > 1, :mod:`sheeprl_tpu_torch.core.runtime`)
+    rank 0 runs the loop and every rank takes its part of each gradient
+    step (:func:`make_train_step`); the other ranks return {}.
 
     The run writes under ``<log_root>/<root_dir>/<run_name>/version_<N>``
     (the log dir): ``config.json`` and ``hparams.json``; with
@@ -584,7 +623,7 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
 
     Returns {"agent", "optimizers", "moments", "policy_steps",
     "gradient_steps", "log", "log_dir", "checkpoints", "test_reward",
-    "device_buffer", "fused", "infeed"}: ``log`` holds, for every log point,
+    "device_buffer", "fused", "infeed", "world_size"}: ``log`` holds, for every log point,
     the policy and gradient steps and the values logged there;
     ``device_buffer`` the ring's state (None without ``buffer.device``);
     ``fused`` the fused path's gradient steps, warm-up steps, replays and
@@ -596,7 +635,30 @@ def main(cfg, callback: Optional[Callable[[DV3Agent, int, float, Metrics], None]
 
     if fused_loop.fused_enabled(cfg):
         return fused_loop.dreamer_v3_fused_main(cfg, callback)
-    return run_dreamer_v3(cfg, _build_dv3, callback)
+    return run_dreamer_v3(cfg, _build_dv3, callback, runtime)
+
+
+def follow_dreamer_v3(cfg, build: Callable[..., DV3Trainer], runtime: Runtime) -> Dict[str, Any]:
+    """A rank other than 0 of a DreamerV3 run: the trainer built from rank
+    0's spaces, its state (resumed or not) replicated from rank 0, then its
+    part of every gradient step rank 0 names, each train call under the
+    rank's own step timer, until the stop. Returns {}."""
+    device, axis = runtime.device, runtime.axis
+    spaces = runtime.expect("spaces")
+    trainer = build(cfg, list(spaces["actions_dim"]), spaces["is_continuous"], spec_to_space(spaces["observation_space"]), device, None, axis=axis)
+    moments, train_rng = trainer.moments, BatchGenerator.from_seed(cfg.seed, device)
+    replicate_training(axis, [trainer.agent], trainer.optimizers.values(), moments.values(), [train_rng.generator])
+    telemetry = open_for_run(cfg, None, device, rank_zero=False, data_parallel=True)
+    try:
+        for op, args in runtime.follow():
+            if op != "train":
+                raise RuntimeError(f"rank {runtime.global_rank}: DreamerV3's followers take 'train', not {op!r}")
+            with train_timer(device):
+                for tau in args["taus"]:
+                    moments, _ = trainer.train_step(moments, None, train_rng, tau)
+    finally:
+        telemetry.close()
+    return {}
 
 
 def patch_restarted_tails(rb: EnvIndependentReplayBuffer, ring: Any, restarted: np.ndarray, dones: np.ndarray, step_data: Dict[str, Any]) -> None:
@@ -618,7 +680,8 @@ def patch_restarted_tails(rb: EnvIndependentReplayBuffer, ring: Any, restarted: 
 
 
 def run_dreamer_v3(
-    cfg, build: Callable[..., DV3Trainer], callback: Optional[Callable[[Any, int, float, Metrics], None]] = None
+    cfg, build: Callable[..., DV3Trainer], callback: Optional[Callable[[Any, int, float, Metrics], None]] = None,
+    runtime: Optional[Runtime] = None,
 ) -> Dict[str, Any]:
     """The serial DreamerV3 loop (:func:`main`) around the trainer that
     ``build(cfg, actions_dim, is_continuous, observation_space, device,
@@ -626,8 +689,17 @@ def run_dreamer_v3(
     checkpoint of a resumed run, else None): envs, prefill, the player, the
     replay buffer (and ring), ``Ratio``-driven gradient steps with the
     target critics' taus, log points, checkpoints, resume and the test
-    episode."""
-    device = resolve_device(cfg.device)
+    episode. On a ``runtime`` joined over ranks, ``build`` also takes the
+    data ``axis``; rank 0 runs the loop and names each train call to the
+    other ranks, which run :func:`follow_dreamer_v3`."""
+    if runtime is not None and not runtime.is_global_zero:
+        return follow_dreamer_v3(cfg, build, runtime)
+    joined = runtime is not None and runtime.joined
+    axis = runtime.axis if joined else SINGLE
+    device = runtime.device if joined else resolve_device(cfg.device)
+    local_batch_size(  # raises unless the batch splits over the ranks
+        int(cfg.algo.per_rank_batch_size), axis.size, dim=1
+    )
     if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
         raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
     check_env_group(cfg)
@@ -648,7 +720,7 @@ def run_dreamer_v3(
         logger.log_hyperparams(cfg)
     log_dir = get_log_dir(os.path.join(cfg.log_root, cfg.root_dir), cfg.run_name, logger=logger)
     print(f"Log dir: {log_dir}", flush=True)
-    telemetry = open_for_run(cfg, log_dir, device)
+    telemetry = open_for_run(cfg, log_dir, device, data_parallel=joined)
     perf = telemetry.perf
     guard, watchdog, health = open_loop()
 
@@ -660,7 +732,9 @@ def run_dreamer_v3(
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     obs_keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
 
-    trainer = build(cfg, actions_dim, is_continuous, observation_space, device, state_ckpt)
+    if joined:
+        runtime.lead("spaces", actions_dim=tuple(actions_dim), is_continuous=is_continuous, observation_space=observation_space.to_spec())
+    trainer = build(cfg, actions_dim, is_continuous, observation_space, device, state_ckpt, **({"axis": axis} if joined else {}))
     agent, train_step, moments = trainer.agent, trainer.train_step, trainer.moments
     # The player's device (core/player.py): the card's modules, or CPU
     # copies of the player's part that the mirror refreshes after each train call.
@@ -750,6 +824,7 @@ def run_dreamer_v3(
         else:
             learning_starts += start_iter
             prefill_steps += start_iter
+    replicate_training(axis, [trainer.agent], trainer.optimizers.values(), moments.values(), [train_rng.generator])
 
     # The host path's batches (data/infeed.py): with buffer.prefetch the
     # next train call's batches are sampled after this one and copied to the
@@ -810,6 +885,8 @@ def run_dreamer_v3(
         else:
             batches = infeed.take_or_sample(per_rank_gradient_steps)
             taus = target_update_taus(gradient_steps, per_rank_gradient_steps, freq, cfg.algo.critic.tau)
+            if joined:
+                runtime.lead("train", taus=[float(t) for t in taus])
             with train_timer(device, watchdog):
                 for i in range(per_rank_gradient_steps):
                     with perf.note("train/step"):
@@ -964,7 +1041,7 @@ def run_dreamer_v3(
             if cfg.buffer.checkpoint:
                 ckpt_state["rb"] = rb.state_dict()
             path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
-            checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
+            checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last, world_size=axis.size))
         if exit_on_preemption(guard, policy_step):
             break
 
@@ -996,4 +1073,5 @@ def run_dreamer_v3(
         "infeed": {"hits": infeed.hits, "misses": infeed.misses},
         "interaction": interaction,
         "placement": placement.stats(),
+        "world_size": axis.size,
     }  # fmt: skip

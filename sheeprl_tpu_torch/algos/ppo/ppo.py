@@ -52,15 +52,18 @@ from sheeprl_tpu_torch.algos.ppo.agent import PPOAgent, build_agent
 from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_loss
 from sheeprl_tpu_torch.algos.ppo.utils import test
 from sheeprl_tpu_torch.core.interact import InteractionPipeline
+from sheeprl_tpu_torch.core.mesh import SINGLE, DataAxis, all_mean_grads, all_mean_metrics, broadcast_tree, global_mean_std, local_batch_size, replicate_training
 from sheeprl_tpu_torch.core.onpolicy import encoder_keys, log_episodes, open_run
 from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
 from sheeprl_tpu_torch.core.onpolicy import make_optimizer as make_optimizer  # the JAX ppo.make_optimizer's counterpart
 from sheeprl_tpu_torch.core.rollout import bootstrap_truncated, fuse_gae_pool
+from sheeprl_tpu_torch.core.runtime import Runtime
+from sheeprl_tpu_torch.serve.spaces import spec_to_space
 from sheeprl_tpu_torch.registry import register_algorithm
+from sheeprl_tpu_torch.telemetry import open_for_run
 from sheeprl_tpu_torch.telemetry.cuda_events import transfer
 from sheeprl_tpu_torch.telemetry.health import ProbeTape, probe_keys, probes_enabled, tape_update
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
-from sheeprl_tpu_torch.utils.ops import normalize_tensor
 from sheeprl_tpu_torch.utils.timer import timer, train_timer
 from sheeprl_tpu_torch.utils.utils import normalize_obs, prepare_obs
 
@@ -89,14 +92,20 @@ def graph_minibatch_indices(n: int, minibatch_size: int, epochs: int, generator:
     return perms[:, wrap].reshape(epochs, num_mb, minibatch_size)
 
 
-def make_update_pool(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg) -> Callable[..., Metrics]:
+def make_update_pool(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, axis: DataAxis = SINGLE) -> Callable[..., Metrics]:
     """``update_pool(pool, indices, clip_coef, ent_coef) -> metrics``: every
     epoch's minibatches of the flat pool (``indices`` from
     :func:`minibatch_indices`), one optimizer step each. ``clip_coef`` and
     ``ent_coef`` are 0-d f32 tensors on the pool's device. With ``health``
     probes on the metrics also hold the probes of every minibatch's update,
     with the mean entropy and the approximate KL (``ppo.py:155-166`` of the
-    JAX package), averaged as the losses are."""
+    JAX package), averaged as the losses are.
+
+    Over a data ``axis`` every rank holds the whole pool and the same
+    indices, and takes its block of each minibatch's rows (the JAX
+    minibatch sharded over ``data``); the advantages are normalised with
+    the minibatch's global mean and std, and the gradients meaned (summed
+    for ``loss_reduction=sum``) over the ranks before the clip."""
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     obs_keys = cnn_keys + list(cfg.algo.mlp_keys.encoder)
     normalize_advantages = bool(cfg.algo.normalize_advantages)
@@ -107,18 +116,20 @@ def make_update_pool(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg) -> 
     params = list(agent.parameters())
     probes = probes_enabled(cfg)
     keys = METRIC_KEYS + (probe_keys(("entropy", "approx_kl")) if probes else ())
+    op = "sum" if reduction == "sum" else "mean"
 
     def minibatch_step(batch: Dict[str, torch.Tensor], clip_coef: torch.Tensor, ent_coef: torch.Tensor) -> torch.Tensor:
         obs = normalize_obs({k: batch[k] for k in obs_keys}, cnn_keys, obs_keys)
         new_logprobs, entropy, new_values = agent.evaluate_actions(obs, batch["actions"])
         advantages = batch["advantages"]
         if normalize_advantages:
-            advantages = normalize_tensor(advantages)
+            advantages = normalize_global(advantages, axis)
         pg_loss = policy_loss(new_logprobs, batch["logprobs"], advantages, clip_coef, reduction)
         v_loss = value_loss(new_values, batch["values"], batch["returns"], clip_coef, clip_vloss, reduction)
         ent_loss = entropy_loss(entropy, reduction)
         optimizer.zero_grad(set_to_none=True)
         (pg_loss + vf_coef * v_loss + ent_coef * ent_loss).backward()
+        all_mean_grads(params, axis, op)
         tape = ProbeTape() if probes else None
         clip = (lambda: torch.nn.utils.clip_grad_norm_(params, max_grad_norm)) if max_grad_norm > 0.0 else None
         tape_update(tape, params, optimizer, clip)
@@ -132,12 +143,23 @@ def make_update_pool(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg) -> 
         with record_function("ppo/update"):
             epochs = []
             for epoch in indices:
-                per_mb = [minibatch_step({k: v[mb] for k, v in pool.items()}, clip_coef, ent_coef) for mb in epoch]
+                per_mb = [minibatch_step({k: v[mb[rows(len(mb))]] for k, v in pool.items()}, clip_coef, ent_coef) for mb in epoch]
                 epochs.append(torch.stack(per_mb).mean(0))
             means = torch.stack(epochs).mean(0)
-        return {k: means[i] for i, k in enumerate(keys)}
+        return all_mean_metrics({k: means[i] for i, k in enumerate(keys)}, axis, op)
+
+    def rows(n: int) -> slice:
+        return axis.rows(n) if axis.joined else slice(None)
 
     return update_pool
+
+
+def normalize_global(x: torch.Tensor, axis: DataAxis, eps: float = 1e-8) -> torch.Tensor:
+    """:func:`~sheeprl_tpu_torch.utils.ops.normalize_tensor` with the mean
+    and the unbiased std of every rank's rows (:func:`global_mean_std`; on
+    one rank the same operations as ``normalize_tensor``)."""
+    mean, std = global_mean_std(x, axis)
+    return (x - mean) / (std + eps)
 
 
 def loop_state(player: torch.Generator, perm: torch.Generator, envs: Dict[str, Any], obs: Dict[str, np.ndarray]) -> Dict[str, Any]:
@@ -160,23 +182,63 @@ def resume_loop_state(run, initial_coefs, player: torch.Generator, perm: torch.G
     return state["obs"]
 
 
-def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg) -> Callable[..., Metrics]:
+def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, axis: DataAxis = SINGLE) -> Callable[..., Metrics]:
     """One whole update: ``train_step(data, next_obs, indices, clip_coef,
     ent_coef)``, ``data`` the rollout's ``(T, E, ...)`` tensors (observations
     as stored, ``actions``, ``logprobs``, ``rewards``, ``values``, ``dones``)
     and ``next_obs`` the observation after its last step; the bootstrap and
-    GAE run first, then :func:`make_update_pool`'s epochs."""
+    GAE run first, then :func:`make_update_pool`'s epochs. Over a data
+    ``axis`` rank 0's rollout, observation and indices reach every rank
+    (the others pass None for the three), which all run the bootstrap and
+    GAE on the whole rollout."""
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     obs_keys = cnn_keys + list(cfg.algo.mlp_keys.encoder)
     gamma, gae_lambda = float(cfg.algo.gamma), float(cfg.algo.gae_lambda)
-    update_pool = make_update_pool(agent, optimizer, cfg)
+    update_pool = make_update_pool(agent, optimizer, cfg, axis)
+    device = next(agent.parameters()).device
 
     def train_step(data, next_obs, indices, clip_coef, ent_coef) -> Metrics:
+        if axis.joined:
+            tree = None if data is None else {**{f"data/{k}": v for k, v in data.items()}, **{f"next/{k}": v for k, v in next_obs.items()}, "indices": indices}
+            tree = broadcast_tree(tree, axis, device)
+            data = {k[5:]: v for k, v in tree.items() if k.startswith("data/")}
+            next_obs = {k[5:]: v for k, v in tree.items() if k.startswith("next/")}
+            indices = tree["indices"]
         with record_function("ppo/gae"):
             pool = fuse_gae_pool(agent, data, next_obs, (*obs_keys, "actions", "logprobs"), gamma, gae_lambda)
         return update_pool(pool, indices, clip_coef, ent_coef)
 
     return train_step
+
+
+def follow_ppo(cfg, runtime: Runtime) -> Dict[str, Any]:
+    """A rank other than 0 of a PPO run: the agent and optimizer built from
+    rank 0's spaces, their state (resumed or not) replicated from rank 0,
+    then its part of every update rank 0 names, at rank 0's learning rate
+    and coefficients, each under the rank's own step timer, until the stop.
+    Returns {}."""
+    device, axis = runtime.device, runtime.axis
+    spaces = runtime.expect("spaces")
+    agent = build_agent(
+        tuple(spaces["actions_dim"]), spaces["is_continuous"], cfg, spec_to_space(spaces["observation_space"]), precision=cfg.fabric.precision,
+        device=device, seed=cfg.seed,
+    )  # fmt: skip
+    optimizer, _ = make_optimizer(agent, cfg)
+    replicate_training(axis, [agent], [optimizer])
+    train_step = make_train_step(agent, optimizer, cfg, axis)
+    telemetry = open_for_run(cfg, None, device, rank_zero=False, data_parallel=True)
+    try:
+        for op, args in runtime.follow():
+            if op != "train":
+                raise RuntimeError(f"rank {runtime.global_rank}: PPO's followers take 'train', not {op!r}")
+            for group in optimizer.param_groups:
+                group["lr"] = args["lr"]
+            coefs = [torch.tensor(args[k], dtype=torch.float32, device=device) for k in ("clip_coef", "ent_coef")]
+            with train_timer(device):
+                train_step(None, None, None, *coefs)
+    finally:
+        telemetry.close()
+    return {}
 
 
 def rollout_outputs(actions_dim, is_continuous: bool) -> Callable[[np.ndarray], tuple]:
@@ -208,9 +270,13 @@ def ship_rollout(rb, keys, next_obs: Dict[str, np.ndarray], cnn_keys, device: to
 
 
 @register_algorithm()
-def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = None) -> Dict[str, Any]:
+def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = None, runtime: Optional[Runtime] = None) -> Dict[str, Any]:
     """Train PPO on ``cfg`` on ``cfg.device``. ``callback(agent, iter_num,
-    metrics)`` runs after every update.
+    metrics)`` runs after every update. Over the ranks of a ``runtime``
+    with a process group (``fabric.devices`` > 1) rank 0 runs the loop and
+    every rank takes its part of each update (:func:`make_train_step`;
+    ``algo.per_rank_batch_size``, the minibatch, divides by the ranks); the
+    other ranks return {}.
 
     The run writes under ``<log_root>/<root_dir>/<run_name>/version_<N>``:
     ``config.json`` and ``hparams.json``; with ``metric.log_level`` > 0 an
@@ -244,7 +310,12 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
 
     if fused_loop.fused_enabled(cfg):
         return fused_loop.ppo_fused_main(cfg, callback)
-    run = open_run(cfg, build_agent, encoder_keys, METRIC_KEYS)
+    if runtime is not None and not runtime.is_global_zero:
+        return follow_ppo(cfg, runtime)
+    joined = runtime is not None and runtime.joined
+    axis = runtime.axis if joined else SINGLE
+    run = open_run(cfg, build_agent, encoder_keys, METRIC_KEYS, data_parallel=joined)
+    run.world_size = axis.size
     cfg, device, agent, optimizer, envs, rb, log_points = run.cfg, run.device, run.agent, run.optimizer, run.envs, run.rb, run.log_points
     cnn_keys, obs_keys, is_continuous, aggregator = run.cnn_keys, run.obs_keys, run.is_continuous, run.aggregator
     num_envs, rollout_steps, batch_size, policy_step = int(cfg.env.num_envs), int(cfg.algo.rollout_steps), run.batch_size, run.policy_step
@@ -257,7 +328,12 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
             "shapes require wrapping the index permutation, so a few samples will be used twice per epoch."
         )
 
-    train_step = make_train_step(agent, optimizer, cfg)
+    local_batch_size(batch_size, axis.size)  # raises unless the minibatch splits over the ranks
+    if joined:
+        runtime.lead("spaces", actions_dim=tuple(run.actions_dim), is_continuous=is_continuous, observation_space=run.observation_space.to_spec())
+    replicate_training(axis, [agent], [optimizer])
+    # One rank calls the factory with the one-card signature, which wrappers of it take.
+    train_step = make_train_step(agent, optimizer, cfg, **({"axis": axis} if joined else {}))
     placement = PlayerPlacement.resolve(cfg, device, nbytes=param_bytes(agent), force_fresh=True)
     player_rng = BatchGenerator.from_seed(cfg.seed, placement.device)
     perm_generator = torch.Generator(device=device).manual_seed(int(cfg.seed) + 1)
@@ -322,6 +398,8 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
             indices = minibatch_indices(rollout_steps * num_envs, batch_size, int(cfg.algo.update_epochs), perm_generator)
             clip_coef = torch.tensor(cfg.algo.clip_coef, dtype=torch.float32, device=device)
             ent_coef = torch.tensor(cfg.algo.ent_coef, dtype=torch.float32, device=device)
+            if joined:
+                runtime.lead("train", lr=optimizer.param_groups[0]["lr"], clip_coef=float(cfg.algo.clip_coef), ent_coef=float(cfg.algo.ent_coef))
             with perf.note("train/update", steps=indices.shape[0] * indices.shape[1]):
                 metrics = train_step(data, next_obs_t, indices, clip_coef, ent_coef)
         placement.push()

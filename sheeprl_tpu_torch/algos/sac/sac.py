@@ -74,13 +74,15 @@ from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.core.fleet import FleetSupervisor, Shipment, fleet_active, numpy_state, open_fleet
 from sheeprl_tpu_torch.core.graphs import CapturedStep, RingHolder, power_of_two_buckets
 from sheeprl_tpu_torch.core.interact import InteractionPipeline
+from sheeprl_tpu_torch.core.mesh import SINGLE, DataAxis, all_mean_grads, all_mean_metrics, local_batch_size, replicate_training, shard_batch
+from sheeprl_tpu_torch.core.runtime import Runtime
 from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
 from sheeprl_tpu_torch.utils.env import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
-from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
+from sheeprl_tpu_torch.serve.spaces import Box, DictSpace, spec_to_space
 from sheeprl_tpu_torch.core.resilience import drain_device, exit_on_preemption, open_loop
 from sheeprl_tpu_torch.telemetry import open_for_run
 from sheeprl_tpu_torch.telemetry.health import ProbeTape, probe_keys, probes_enabled, tape_update
@@ -107,19 +109,22 @@ def make_optimizers(agent: SACAgent, cfg) -> Dict[str, torch.optim.Optimizer]:
 
 def _adam_step(
     optimizer: torch.optim.Optimizer, loss: torch.Tensor, inputs: Optional[List[torch.Tensor]] = None, tape: Optional[ProbeTape] = None,
-    params: Sequence[torch.Tensor] = (),
+    params: Sequence[torch.Tensor] = (), axis: DataAxis = SINGLE,
 ) -> None:
     """``optimizer``'s step on ``loss``'s gradient, taken into ``inputs``
-    only when they are given; a health ``tape`` reads the update of
-    ``params``."""
+    only when they are given, meaned over the data ``axis``'s ranks first
+    (alpha's too: the all-reduce the JAX ``sac.py:12-14`` calls implicit);
+    a health ``tape`` reads the update of ``params``."""
     optimizer.zero_grad(set_to_none=True)
     loss.backward(inputs=inputs)
+    if axis.joined:
+        all_mean_grads([p for group in optimizer.param_groups for p in group["params"]], axis)
     tape_update(tape, list(params), optimizer)
 
 
 def actor_alpha_step(
     agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer], obs: torch.Tensor, q_of: Callable, noise: torch.Tensor,
-    tape: Optional[ProbeTape] = None, aux: Optional[Dict[str, torch.Tensor]] = None,
+    tape: Optional[ProbeTape] = None, aux: Optional[Dict[str, torch.Tensor]] = None, axis: DataAxis = SINGLE,
 ):
     """The actor's step against ``q_of(obs, actions)`` (the critics' reduced
     Q, ``[B, 1]``) with alpha held constant, then alpha's step on the
@@ -131,22 +136,24 @@ def actor_alpha_step(
     actions, logprobs = agent.actions_and_log_probs(obs, noise)
     actor_loss = policy_loss(alpha, logprobs, q_of(obs, actions))
     actor_params = list(agent.actor.parameters())
-    _adam_step(optimizers["actor"], actor_loss, actor_params, tape, actor_params)
+    _adam_step(optimizers["actor"], actor_loss, actor_params, tape, actor_params, axis)
     alpha_loss = entropy_loss(agent.log_alpha, logprobs, agent.target_entropy)
-    _adam_step(optimizers["alpha"], alpha_loss, [agent.log_alpha], tape, [agent.log_alpha])
+    _adam_step(optimizers["alpha"], alpha_loss, [agent.log_alpha], tape, [agent.log_alpha], axis)
     if aux is not None:
         aux.update(alpha=alpha, entropy=-torch.mean(logprobs.detach()))
     return actor_loss.detach(), alpha_loss.detach()
 
 
-def make_gradient_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer], cfg) -> Callable[..., torch.Tensor]:
+def make_gradient_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer], cfg, axis: DataAxis = SINGLE) -> Callable[..., torch.Tensor]:
     """``step(batch, noise, tau) -> [value_loss, policy_loss, alpha_loss]``:
     one update on ``batch`` (``observations``, ``actions``, ``rewards``,
     ``terminated``, ``next_observations``, each ``[B, ...]`` f32), with
     ``noise`` ``[2, B, A]`` and ``tau`` a 0-d tensor on the agent's device.
     With ``health`` probes on the row goes on with the probes over the three
     updates and alpha and the entropy (``sac.py:108-118`` of the JAX
-    package); ``step.keys`` names the row."""
+    package); ``step.keys`` names the row. Over a data ``axis`` the batch
+    and the noise are this rank's rows, and each update means its
+    gradients over the ranks."""
     gamma = float(cfg.algo.gamma)
     probes = probes_enabled(cfg)
     qf_params = list(agent.qfs.parameters())
@@ -160,9 +167,9 @@ def make_gradient_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimi
             target = agent.next_target_q_values(batch["next_observations"], batch["rewards"], batch["terminated"], gamma, noise[0])
             qf_loss = critic_loss(agent.q_values(obs, batch["actions"]), target, agent.num_critics)
             tape, aux = (ProbeTape(), {}) if probes else (None, None)
-            _adam_step(optimizers["qf"], qf_loss, None, tape, qf_params)
+            _adam_step(optimizers["qf"], qf_loss, None, tape, qf_params, axis)
             agent.target_ema_(tau)
-            actor_loss, alpha_loss = actor_alpha_step(agent, optimizers, obs, q_min, noise[1], tape, aux)
+            actor_loss, alpha_loss = actor_alpha_step(agent, optimizers, obs, q_min, noise[1], tape, aux, axis)
             row = [qf_loss.detach(), actor_loss, alpha_loss]
             if tape is not None:
                 row += list(tape.metrics(aux).values())
@@ -179,17 +186,18 @@ def draw_noise(rng: BatchGenerator, batch_size: int, action_dim: int, steps: Opt
     return rng.randn(shape if steps is None else (int(steps), *shape))
 
 
-def make_train_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer], cfg) -> Callable[..., Metrics]:
+def make_train_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer], cfg, axis: DataAxis = SINGLE) -> Callable[..., Metrics]:
     """``train_step(data, noise, tau) -> metrics``: G gradient steps over
     ``data`` (``[G, B, ...]``), ``noise`` ``[G, 2, B, A]``, one ``tau`` (a
     0-d tensor) for all of them; the metrics are the steps' means
-    (``sac.py:153-189``)."""
-    step = make_gradient_step(agent, optimizers, cfg)
+    (``sac.py:153-189``). Over a data ``axis``, B is this rank's rows and
+    the metrics are averaged over the ranks."""
+    step = make_gradient_step(agent, optimizers, cfg, axis)
 
     def train_step(data: Dict[str, torch.Tensor], noise: torch.Tensor, tau: torch.Tensor) -> Metrics:
         steps = [step({k: v[g] for k, v in data.items()}, noise[g], tau) for g in range(noise.shape[0])]
         means = torch.stack(steps).mean(0)
-        return {k: means[i] for i, k in enumerate(step.keys)}
+        return all_mean_metrics({k: means[i] for i, k in enumerate(step.keys)}, axis)
 
     return train_step
 
@@ -256,21 +264,28 @@ class SACTrainer:
 
     watchdog = None
 
-    def __init__(self, agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer], cfg, rng: BatchGenerator):
-        self.agent, self.optimizers, self.cfg, self.rng = agent, optimizers, cfg, rng
+    def __init__(self, agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer], cfg, rng: BatchGenerator, axis: DataAxis = SINGLE):
+        self.agent, self.optimizers, self.cfg, self.rng, self.axis = agent, optimizers, cfg, rng, axis
         self.batch_size = int(cfg.algo.per_rank_batch_size)
         self.sample_next_obs = bool(cfg.buffer.sample_next_obs)
-        self.train_step = make_train_step(agent, optimizers, cfg)
+        self.train_step = make_train_step(agent, optimizers, cfg, axis)
         self.tau = torch.zeros((), device=agent.log_alpha.device)
         self.fused = None
 
-    def host(self, rb: ReplayBuffer, steps: int, tau: float, first_step: int = 0) -> List[Metrics]:
+    def host(self, rb: Optional[ReplayBuffer], steps: int, tau: float, first_step: int = 0) -> List[Metrics]:
         """``steps`` gradient steps on one sample of ``steps`` x B rows
-        (``first_step``, the steps taken before, is SAC-AE's cadence)."""
-        data = _float_batch(rb.sample(steps * self.batch_size, sample_next_obs=self.sample_next_obs), steps, self.batch_size, self.tau.device)
+        (``first_step``, the steps taken before, is SAC-AE's cadence). Over
+        a data axis rank 0 samples (the other ranks pass no ``rb``), every
+        rank keeps its block of each step's B rows and draws the whole
+        batch's noise, keeping its rows."""
+        data = None if rb is None else _float_batch(rb.sample(steps * self.batch_size, sample_next_obs=self.sample_next_obs), steps, self.batch_size, self.tau.device)
         with train_timer(self.tau.device, self.watchdog):
             self.tau.fill_(tau)
-            return [self.train_step(data, draw_noise(self.rng, self.batch_size, self.agent.action_dim, steps), self.tau)]
+            noise = draw_noise(self.rng, self.batch_size, self.agent.action_dim, steps)
+            if self.axis.joined:
+                data = shard_batch(data, self.axis, dim=1, device=self.tau.device)
+                noise = noise[:, :, self.axis.rows(self.batch_size)]
+            return [self.train_step(data, noise, self.tau)]
 
     def work_key(self, steps: int, first_step: int) -> str:
         """What a host call's work depends on beyond its step count: nothing."""
@@ -361,7 +376,7 @@ class OffPolicyAlgo:
     decoupled: bool = False
 
 
-def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
+def run_off_policy(cfg, callback, algo: OffPolicyAlgo, runtime: Optional[Runtime] = None) -> Dict[str, Any]:
     """SAC's, DroQ's and SAC-AE's ``main`` (see the module's docstring), for
     ``algo``. ``callback(agent, gradient_steps, metrics)`` runs after every
     train call.
@@ -381,11 +396,23 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
     and the port's (the gradient steps, both noise sources, the envs, the
     pending observation, the spaces' specs for ``serve export``).
 
+    Over the ranks of a ``runtime`` with a process group (SAC at
+    ``fabric.devices`` > 1) rank 0 runs the loop and names each host train
+    call to the other ranks (:func:`follow_off_policy`), each of which takes
+    its block of every step's ``algo.per_rank_batch_size`` rows.
+
     Returns {"agent", "optimizers", "policy_steps", "gradient_steps", "log",
     "log_dir", "checkpoints", "test_reward", "device_buffer", "fused"}:
     ``fused`` holds the ring path's gradient steps, warm-up steps, replays
     and graph nodes (None when it never ran)."""
-    device = resolve_device(cfg.device)
+    if runtime is not None and not runtime.is_global_zero:
+        return follow_off_policy(cfg, algo, runtime)
+    joined = runtime is not None and runtime.joined
+    axis = runtime.axis if joined else SINGLE
+    device = runtime.device if joined else resolve_device(cfg.device)
+    local_batch_size(  # raises unless the batch splits over the ranks
+        int(cfg.algo.per_rank_batch_size), axis.size, dim=1
+    )
     check_env_group(cfg)
     state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
     np.random.seed(cfg.seed)  # the replay buffer derives its sampling stream from it
@@ -396,7 +423,7 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
         logger.log_hyperparams(cfg)
     log_dir = get_log_dir(os.path.join(cfg.log_root, cfg.root_dir), cfg.run_name, logger=logger)
     print(f"Log dir: {log_dir}", flush=True)
-    telemetry = open_for_run(cfg, log_dir, device)
+    telemetry = open_for_run(cfg, log_dir, device, data_parallel=joined)
     guard, watchdog, health = open_loop()
     perf = telemetry.perf
 
@@ -408,6 +435,11 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
     if not isinstance(observation_space, DictSpace):
         raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {observation_space}")
     layout = algo.observations(cfg, observation_space, algo.name)
+    if joined:
+        runtime.lead(
+            "spaces", observation_space=observation_space.to_spec(), action_space=action_space.to_spec(),
+            batch_size=int(state["batch_size"]) if state is not None else int(cfg.algo.per_rank_batch_size),
+        )  # fmt: skip
 
     agent = algo.make_agent(cfg, observation_space, action_space, device=device, seed=cfg.seed)
     optimizers = algo.make_optimizers(agent, cfg)
@@ -478,7 +510,8 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
         else:
             learning_starts += start_iter
             prefill_steps += start_iter
-    trainer = algo.make_trainer(agent, optimizers, cfg, train_rng)
+    trainer = algo.make_trainer(agent, optimizers, cfg, train_rng, **({"axis": axis} if joined else {}))
+    replicate_training(axis, [agent], optimizers.values(), generators=[train_rng.generator])
     trainer.watchdog = watchdog
     pipeline = InteractionPipeline.from_config(cfg)
     pipeline.watchdog = watchdog
@@ -516,6 +549,8 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
             fused_gradient_steps += per_rank_gradient_steps
         else:
             key = f"train/host_x{per_rank_gradient_steps}{trainer.work_key(per_rank_gradient_steps, gradient_steps)}"
+            if joined:
+                runtime.lead("train", steps=per_rank_gradient_steps, tau=tau)
             with perf.note(key, steps=per_rank_gradient_steps):
                 metrics = trainer.host(rb, per_rank_gradient_steps, tau, gradient_steps)
         gradient_steps += per_rank_gradient_steps
@@ -641,7 +676,7 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
                 rb["truncated"][tail, :] = 1
                 ckpt_state["rb"] = rb.state_dict()
             try:
-                checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
+                checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last, world_size=axis.size))
             finally:
                 if saved_tail is not None:
                     rb["truncated"][tail, :] = saved_tail
@@ -670,6 +705,33 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo) -> Dict[str, Any]:
         "fused": None if fused is None else {"gradient_steps": fused_gradient_steps, **fused},
         "interaction": interaction, "placement": placement.stats(), "fleet": fleet_stats,
     }  # fmt: skip
+
+
+def follow_off_policy(cfg, algo: OffPolicyAlgo, runtime: Runtime) -> Dict[str, Any]:
+    """A rank other than 0 of an off-policy run: the agent, optimizers and
+    training generator built from rank 0's spaces and batch size, their
+    state (resumed or not) replicated from rank 0, then its part of every
+    host train call rank 0 names (each under the rank's own step timer,
+    :meth:`SACTrainer.host`), until the stop. Returns {}."""
+    device, axis = runtime.device, runtime.axis
+    spaces = runtime.expect("spaces")
+    observation_space, action_space = spec_to_space(spaces["observation_space"]), spec_to_space(spaces["action_space"])
+    algo.observations(cfg, observation_space, algo.name)
+    cfg.algo.per_rank_batch_size = int(spaces["batch_size"])
+    agent = algo.make_agent(cfg, observation_space, action_space, device=device, seed=cfg.seed)
+    optimizers = algo.make_optimizers(agent, cfg)
+    train_rng = BatchGenerator.from_seed(cfg.seed, device)
+    trainer = algo.make_trainer(agent, optimizers, cfg, train_rng, axis=axis)
+    replicate_training(axis, [agent], optimizers.values(), generators=[train_rng.generator])
+    telemetry = open_for_run(cfg, None, device, rank_zero=False, data_parallel=True)
+    try:
+        for op, args in runtime.follow():
+            if op != "train":
+                raise RuntimeError(f"rank {runtime.global_rank}: {algo.name}'s followers take 'train', not {op!r}")
+            trainer.host(None, args["steps"], args["tau"])
+    finally:
+        telemetry.close()
+    return {}
 
 
 def step_rows(layout, obs: Dict[str, np.ndarray], next_obs: Dict[str, np.ndarray], actions, rewards, terminated: np.ndarray,
@@ -718,12 +780,12 @@ def next_shipment(fleet: FleetSupervisor, guard) -> Optional[Shipment]:
 
 
 @register_algorithm()
-def main(cfg, callback: Optional[Callable[[SACAgent, int, List[Metrics]], None]] = None) -> Dict[str, Any]:
-    """Train SAC on ``cfg`` on ``cfg.device`` (:func:`run_off_policy`; with
-    ``env.jax_native`` and ``algo.fused_rollout`` the Anakin lane,
-    :func:`sheeprl_tpu_torch.core.fused_loop.sac_fused_main`)."""
+def main(cfg, callback: Optional[Callable[[SACAgent, int, List[Metrics]], None]] = None, runtime: Optional[Runtime] = None) -> Dict[str, Any]:
+    """Train SAC on ``cfg`` on ``cfg.device`` (:func:`run_off_policy`, over
+    ``runtime``'s ranks; with ``env.jax_native`` and ``algo.fused_rollout``
+    the Anakin lane, :func:`sheeprl_tpu_torch.core.fused_loop.sac_fused_main`)."""
     from sheeprl_tpu_torch.core import fused_loop
 
     if fused_loop.fused_enabled(cfg):
         return fused_loop.sac_fused_main(cfg, callback)
-    return run_off_policy(cfg, callback, OffPolicyAlgo("SAC", build_agent, SACTrainer))
+    return run_off_policy(cfg, callback, OffPolicyAlgo("SAC", build_agent, SACTrainer), runtime)

@@ -50,6 +50,7 @@ import torch
 from sheeprl_tpu_torch.config import compose, parse_overrides, set_overrides
 from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.core.resilience import Resilience, resolve_auto_resume
+from sheeprl_tpu_torch.core.runtime import Runtime, resolve_accelerator
 from sheeprl_tpu_torch.core.resilience import run_scope as resilience_scope
 from sheeprl_tpu_torch.registry import algorithm_registry, evaluation_registry, register_all
 from sheeprl_tpu_torch.telemetry import Telemetry, run_scope
@@ -98,6 +99,10 @@ def run(args: Optional[Sequence[str]] = None, callback=None) -> Dict[str, Any]:
         resolve_auto(cfg)
     if cfg.checkpoint.resume_from:
         cfg = resume_config(cfg)
+    # The decoupled trainers split fabric.devices between their player and
+    # trainer themselves (core/mesh.py:split_player_trainer).
+    runtime = Runtime(accelerator=resolve_accelerator(cfg)) if entry.decoupled else Runtime.from_config(cfg)
+    check_data_parallel(cfg, runtime)
     # Host threads for the run, both restored after it (reference:
     # cli.py:355): OMP_NUM_THREADS, unless already set, for the processes the
     # run starts, and torch's intra-op pool.
@@ -113,11 +118,50 @@ def run(args: Optional[Sequence[str]] = None, callback=None) -> Dict[str, Any]:
         with run_scope(Telemetry.from_config(cfg)), resilience_scope(Resilience.from_config(cfg), HealthMonitor.from_config(cfg)):
             if entry.after_exploration:
                 return entry.entrypoint(cfg, callback=callback, exploration_cfg=exploration_chain(cfg))
-            return entry.entrypoint(cfg, callback=callback)
+            if runtime.world_size == 1:
+                return entry.entrypoint(cfg, callback=callback)
+            # Rank 0 here, the other ranks spawned (core/runtime.py): each
+            # runs the trainer's follower side on the config rank 0 composed.
+            return runtime.launch(
+                lambda rt: entry.entrypoint(cfg, callback=callback, runtime=rt), follow, (json.loads(json.dumps(cfg)), num_threads),
+                store_dir=os.path.join(cfg.log_root, cfg.root_dir),
+            )
     finally:
         torch.set_num_threads(previous_threads)
         if set_omp:
             os.environ.pop("OMP_NUM_THREADS", None)
+
+
+# The trainers that run over more than one rank (fabric.devices > 1).
+DATA_PARALLEL = ("dreamer_v3", "ppo", "sac")
+
+
+def check_data_parallel(cfg, runtime: Runtime) -> None:
+    """``fabric.devices`` > 1 runs the data axis for DreamerV3, PPO and SAC
+    on their host loops; every other trainer, the fused Anakin lane
+    (``fabric.shard_superstep``) and the replay ring (``buffer.device``,
+    whose ring the JAX package shards over envs) raise, naming ROADMAP A9."""
+    if runtime.world_size == 1:
+        return
+    n = runtime.world_size
+    if cfg.algo.name not in DATA_PARALLEL:
+        raise NotImplementedError(
+            f"fabric.devices={n}: {cfg.algo.name} over more than one rank is ROADMAP A9 (the trainers that raise for devices > 1); "
+            f"the data axis runs {', '.join(DATA_PARALLEL)}"
+        )
+    if bool(cfg.algo.get("fused_rollout", False)):
+        raise NotImplementedError(f"fabric.devices={n}: the fused Anakin lane sharded over envs (fabric.shard_superstep) is ROADMAP A9")
+    if bool(cfg.buffer.get("device", False)):
+        raise NotImplementedError(f"fabric.devices={n}: the replay ring (buffer.device=True) sharded over envs is ROADMAP A9")
+
+
+def follow(runtime: Runtime, cfg: Dict[str, Any], num_threads: int) -> None:
+    """A spawned rank of :func:`run`: the trainer ``cfg.algo.name``
+    registers, on its follower side, with ``num_threads`` torch threads."""
+    register_all()
+    torch.set_num_threads(int(num_threads))
+    cfg = dotdict(cfg)
+    algorithm_registry[cfg.algo.name].entrypoint(cfg, runtime=runtime)
 
 
 def resolve_auto(cfg) -> None:
@@ -268,6 +312,7 @@ def evaluation(args: Optional[Sequence[str]] = None) -> Any:
         cfg.env.num_envs = 1
     if "device" not in kv:
         cfg.device = "cuda"
+    resolve_accelerator(cfg)
     resolve_device(cfg.device)
     register_all()
     if cfg.algo.name not in evaluation_registry:

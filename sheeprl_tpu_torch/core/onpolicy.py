@@ -198,6 +198,7 @@ class OnPolicyRun:
     health: HealthMonitor
     checkpoints: List[str] = field(default_factory=list)
     resumed: Optional[Dict[str, Any]] = None  # the checkpoint the run resumes from
+    world_size: int = 1  # the ranks of the data axis, recorded in each checkpoint's manifest
 
     def anneal(self, iter_num: int, initial_coefs: Optional[Tuple[float, float]] = None) -> None:
         """The linear decays after update ``iter_num``: the learning rate on
@@ -236,7 +237,7 @@ class OnPolicyRun:
             if extra is not None:
                 ckpt_state.update(extra())
             path = os.path.join(self.log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
-            self.checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
+            self.checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last, world_size=self.world_size))
 
     def preempted(self, policy_step: int) -> bool:
         """True when the loop must leave at this iteration boundary (its
@@ -261,7 +262,7 @@ class OnPolicyRun:
 
 def open_run(
     cfg, build_agent: Callable[..., torch.nn.Module], keys: Callable[[Any], Tuple[List[str], List[str]]], metric_keys: Sequence[str],
-    batch_size_key: str = "per_rank_batch_size", iter_scale: int = 1,
+    batch_size_key: str = "per_rank_batch_size", iter_scale: int = 1, data_parallel: bool = False,
 ) -> OnPolicyRun:
     """Set up a run of ``cfg`` on ``cfg.device`` (``env=dummy`` or an anakin group, ``envs/make.py``). With
     ``checkpoint.resume_from`` (the saved run's config merged by the CLI,
@@ -272,7 +273,8 @@ def open_run(
     ``cfg.algo[batch_size_key]``. ``keys(cfg)`` gives the CNN and all
     observation keys; ``dry_run`` runs one iteration. An iteration counts
     ``iter_scale`` rollouts of ``num_envs x rollout_steps`` policy steps (an
-    actor fleet's replicas)."""
+    actor fleet's replicas). ``data_parallel``: rank 0 of a run over ranks
+    (its telemetry, :func:`open_for_run`)."""
     device = resolve_device(cfg.device)
     check_env_group(cfg)
     state = load_checkpoint(cfg.checkpoint.resume_from) if cfg.checkpoint.resume_from else None
@@ -284,7 +286,7 @@ def open_run(
         logger.log_hyperparams(cfg)
     log_dir = get_log_dir(os.path.join(cfg.log_root, cfg.root_dir), cfg.run_name, logger=logger)
     print(f"Log dir: {log_dir}", flush=True)
-    telemetry = open_for_run(cfg, log_dir, device)
+    telemetry = open_for_run(cfg, log_dir, device, data_parallel=data_parallel)
     guard, watchdog, health = open_loop()
 
     num_envs = int(cfg.env.num_envs)

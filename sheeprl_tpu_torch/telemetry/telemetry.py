@@ -203,12 +203,17 @@ class Telemetry:
         return cls(enabled=False)
 
     # ---------------------------------------------------------- lifecycle
-    def open(self, log_dir: Optional[str], rank_zero: bool = True, device: Any = None) -> "Telemetry":
+    def open(self, log_dir: Optional[str], rank_zero: bool = True, device: Any = None, data_parallel: bool = False) -> "Telemetry":
         """Bind the run's log dir and go live: install the tracer as the
         process-wide current one, attach the event counters, start the
         metrics exporter if configured, write the meta line. Idempotent;
-        returns self."""
-        if self.federate_metrics and _world_size() > 1:
+        returns self. Across processes, merging the other processes' metrics
+        (``federate_metrics``) raises (ROADMAP A9), unless the processes are
+        the ranks of one ``data_parallel`` run (core/runtime.py): there
+        every rank times its train calls with its own step timer, and rank 0
+        (``rank_zero``, the one with a ``log_dir``) alone writes the trace,
+        ``perf/*`` and the flight recorder's files, so nothing is merged."""
+        if self.federate_metrics and _world_size() > 1 and not data_parallel:
             raise NotImplementedError(f"telemetry.federate_metrics across {_world_size()} processes {_NEEDS_MESH}")
         self._log_dir = log_dir
         self._rank_zero = bool(rank_zero)
@@ -544,8 +549,10 @@ def run_scope(telemetry: Telemetry) -> Iterator[Telemetry]:
             telemetry.close()
 
 
-def open_for_run(cfg: Any, log_dir: Optional[str], device: Any = None) -> Telemetry:
+def open_for_run(cfg: Any, log_dir: Optional[str], device: Any = None, rank_zero: bool = True, data_parallel: bool = False) -> Telemetry:
     """Open the run's Telemetry at ``log_dir``: the CLI's (:func:`run_scope`)
-    when one is in scope and not opened yet, else one built from ``cfg``."""
+    when one is in scope and not opened yet, else one built from ``cfg``.
+    A data-parallel run's ranks pass ``data_parallel``; the ranks other
+    than 0 pass no ``log_dir`` and ``rank_zero=False`` (:meth:`Telemetry.open`)."""
     tele = _RUN if _RUN is not None and not _RUN.is_open else Telemetry.from_config(cfg)
-    return tele.open(log_dir, device=device)
+    return tele.open(log_dir, rank_zero=rank_zero, device=device, data_parallel=data_parallel)

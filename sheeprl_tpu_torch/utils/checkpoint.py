@@ -10,7 +10,7 @@ artifacts)::
                         # lists, tuples, numbers and strings; read with
                         # torch.load(weights_only=True), so loading runs no pickled code
         arrays.npz      # the numpy arrays (an in-memory replay buffer), read with allow_pickle=False
-        manifest.json   # step, rank, leaf count, digest, the file names; written last
+        manifest.json   # step, rank, leaf count, digest, world size, the file names; written last
 
 A memory-mapped replay buffer is saved by reference: its state names each
 file (path, dtype, shape) and the files stay where the run wrote them, so the
@@ -45,6 +45,7 @@ import re
 import shutil
 import time
 import uuid
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Tuple
 
@@ -258,10 +259,16 @@ def _gc_old_checkpoints(ckpt_dir: str, keep_last: int) -> None:
         shutil.rmtree(trash, ignore_errors=True)
 
 
-def save_checkpoint(ckpt_path: str, state: Dict[str, Any], keep_last: Optional[int] = None) -> str:
+def save_checkpoint(ckpt_path: str, state: Dict[str, Any], keep_last: Optional[int] = None, world_size: int = 1) -> str:
     """Atomically write ``state`` (a nested dict of tensors, numpy arrays and
     plain values) to ``ckpt_path`` (named ``ckpt_<step>_<rank>.ckpt``), then
     delete older checkpoints of the same directory down to ``keep_last``.
+    The manifest records the run's ``world_size`` (its ranks on the data
+    axis); rank 0 alone writes, and any world size resumes from it, since
+    the params are replicated.
+    The digest is computed in a thread while the payload is written (the
+    host copies it reads are the ones written; sha256 and the writes leave
+    the GIL), and the manifest waits for it.
     Returns the absolute path. On the telemetry tracer: a ``checkpoint/save``
     span and the ``checkpoint_saves`` counter (the JAX package's names)."""
     start = time.perf_counter()
@@ -272,12 +279,13 @@ def save_checkpoint(ckpt_path: str, state: Dict[str, Any], keep_last: Optional[i
     chaos.maybe_fail("checkpoint.before_write")
     arrays: List[np.ndarray] = []
     tree = _split_arrays(state, arrays)
-    digest, leaf_count = _digest_arrays(_join_arrays(tree, arrays))
-    with atomic_dir_writer(ckpt_path) as staging:
+    with ThreadPoolExecutor(1) as pool, atomic_dir_writer(ckpt_path) as staging:
+        hashed = pool.submit(_digest_arrays, _join_arrays(tree, arrays))
         os.makedirs(staging)
         torch.save(tree, os.path.join(staging, STATE_NAME))
         np.savez(os.path.join(staging, ARRAYS_NAME), **{f"a{i}": a for i, a in enumerate(arrays)})
         chaos.maybe_fail("checkpoint.before_manifest")
+        digest, leaf_count = hashed.result()
         manifest = {
             "schema_version": CHECKPOINT_SCHEMA_VERSION,
             "kind": "checkpoint",
@@ -286,6 +294,7 @@ def save_checkpoint(ckpt_path: str, state: Dict[str, Any], keep_last: Optional[i
             "leaf_count": leaf_count,
             "array_count": len(arrays),
             "digest": digest,
+            "world_size": int(world_size),
             "files": [STATE_NAME, ARRAYS_NAME],
             "created_unix": time.time(),
         }
@@ -327,7 +336,8 @@ def resume_config(cfg: Mapping[str, Any]) -> Dict[str, Any]:
     saved run's ``config.json`` (two levels above the checkpoint) merged over
     ``cfg``, keeping only ``cfg``'s ``algo.total_steps``,
     ``algo.learning_starts``, ``log_root``, ``root_dir``, ``run_name``,
-    ``device`` and ``resilience.chaos``, as the JAX package's
+    ``device``, ``fabric.devices``, ``fabric.accelerator`` and
+    ``resilience.chaos``, as the JAX package's
     ``resume_from_checkpoint`` does, and
     ``algo.fused_rollout``, the lane: the JAX merge keeps the saved run's,
     so its resume "on the other lane" stays on the saved run's lane
@@ -355,6 +365,10 @@ def resume_config(cfg: Mapping[str, Any]) -> Dict[str, Any]:
         old.pop(key, None)
     for key in ("total_steps", "learning_starts", "fused_rollout"):
         old["algo"].pop(key, None)
+    # The ranks are the command line's: a checkpoint of replicated params
+    # resumes at any fabric.devices (ROADMAP C-r18).
+    for key in ("devices", "accelerator"):
+        (old.get("fabric") or {}).pop(key, None)
     # Chaos injectors are one run's experiment: inherited, a sigterm at step
     # N would preempt the resumed run again. The command line's stay.
     (old.get("resilience") or {}).pop("chaos", None)

@@ -19,6 +19,7 @@ package; the tests inject samples instead of comparing seeds.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Callable, Optional, Sequence, Tuple
 
@@ -111,6 +112,55 @@ class BatchGenerator:
     def uniform(self, loc_shape: Tuple[int, ...], sample_shape: Tuple[int, ...] = ()) -> torch.Tensor:
         """Uniforms in [0, 1) ``[*sample_shape, *loc_shape]``, in one draw."""
         return self.rand(tuple(sample_shape) + tuple(loc_shape))
+
+    def rows(self, batch: int, time: int = 1):
+        """The layout of the draws inside: time-major, ``time`` blocks of
+        ``batch`` rows on the leading axes. Only :class:`ShardedGenerator`
+        reads it."""
+        return contextlib.nullcontext()
+
+
+class ShardedGenerator(BatchGenerator):
+    """One rank's view of a data-parallel step's noise source. Every draw is
+    made from ``base`` at the shape of the whole batch (``size`` ranks' rows)
+    and this rank keeps its block (``index``), so the ranks together draw
+    what the one-card step draws, draw for draw, as a JAX key split over the
+    global batch does. The draws' layout comes from :meth:`rows`: a draw of
+    shape ``[time * batch, ...]`` (or ``[time, batch, ...]``) becomes one of
+    ``[time * batch * size, ...]``, of which the rank keeps ``[:, index *
+    batch : (index + 1) * batch]`` in each time block."""
+
+    def __init__(self, base: BatchGenerator, size: int, index: int):
+        self.base, self.size, self.index = base, int(size), int(index)
+        self._layout: Optional[Tuple[int, int]] = None
+
+    @contextlib.contextmanager
+    def rows(self, batch: int, time: int = 1):
+        previous, self._layout = self._layout, (int(batch), int(time))
+        try:
+            yield self
+        finally:
+            self._layout = previous
+
+    def _draw(self, fn: Callable[[Tuple[int, ...]], torch.Tensor], shape: Tuple[int, ...]) -> torch.Tensor:
+        if self._layout is None:
+            raise ValueError(f"a draw of {tuple(shape)} outside rows(): the data axis does not know which rows are this rank's")
+        batch, time = self._layout
+        lead, k = 1, 0
+        while lead != time * batch:
+            if k == len(shape) or lead > time * batch:
+                raise ValueError(f"a draw of {tuple(shape)} has no leading axes of {time} x {batch} rows")
+            lead *= int(shape[k])
+            k += 1
+        full = fn((time * batch * self.size, *shape[k:]))
+        mine = full.reshape(time, batch * self.size, -1)[:, self.index * batch : (self.index + 1) * batch]
+        return mine.reshape(tuple(shape))
+
+    def rand(self, shape: Tuple[int, ...]) -> torch.Tensor:
+        return self._draw(self.base.rand, shape)
+
+    def randn(self, shape: Tuple[int, ...]) -> torch.Tensor:
+        return self._draw(self.base.randn, shape)
 
 
 def _check_rows(rng: RowGenerators, batch: int) -> None:

@@ -12,9 +12,12 @@ gradient step): it keeps the tensor, and ``compute`` moves every tensor the
 aggregator holds to the host in one transfer, then applies the updates in
 the order they came, with the JAX package's float64 arithmetic.
 
-The port runs one process: ``sync_on_compute`` is accepted and, as in the
-JAX package with one process, reduces nothing. Across processes it raises
-(multi-GPU runs are not ported yet).
+``sync_on_compute`` is accepted and, as in the JAX package with one
+process, reduces nothing. A run's one aggregator lives in its one process,
+or on rank 0 of a data-parallel run (``core/runtime.py``), whose train
+steps already return the metrics of the global batch, averaged over the
+ranks in the step (``core/mesh.py:all_mean_metrics``), as the JAX step
+computes them on the batch sharded over its devices.
 """
 
 from __future__ import annotations
@@ -32,11 +35,6 @@ from sheeprl_tpu_torch.telemetry.cuda_events import transfer
 
 class MetricAggregatorException(Exception):
     """A custom exception used to report errors in use of the aggregator."""
-
-
-def _check_single_process(sync_on_compute: bool) -> None:
-    if sync_on_compute and torch.distributed.is_available() and torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
-        raise NotImplementedError("sync_on_compute across processes is not ported: the port's trainer runs one process")
 
 
 def _to_host(values: Iterable[Any]) -> List[Any]:
@@ -106,7 +104,6 @@ class Metric:
         raise NotImplementedError
 
     def compute(self) -> float:
-        _check_single_process(self.sync_on_compute)
         self._flush()
         return self._value()
 
@@ -232,8 +229,6 @@ class MetricAggregator:
         reduced: Dict[str, float] = {}
         if self.disabled:
             return reduced
-        for metric in self.metrics.values():
-            _check_single_process(metric.sync_on_compute)
         pending = [(m, len(m._pending)) for m in self.metrics.values()]
         host = _to_host(v for m in self.metrics.values() for v in m._pending)
         start = 0

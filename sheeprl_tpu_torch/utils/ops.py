@@ -7,7 +7,7 @@ the loops are short (the imagination horizon, PPO's rollout).
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -80,10 +80,17 @@ def update_moments(
     max_: float = 1e8,
     percentile_low: float = 0.05,
     percentile_high: float = 0.95,
+    gather: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[Dict[str, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
     """EMA of the 5/95 percentiles of ``x`` (linear interpolation, as
-    ``jnp.quantile``). Returns (new_state, (low, invscale))."""
+    ``jnp.quantile``). Returns (new_state, (low, invscale)). Over a data
+    axis, ``gather`` brings every rank's ``x`` together (rank order) before
+    the quantiles: the JAX ``jnp.quantile`` of the batch-sharded returns is
+    the global one (sheeprl_tpu/utils/ops.py:235-238), and a quantile of the
+    same values in another order is the same number."""
     x = x.detach().float().flatten()
+    if gather is not None:
+        x = gather(x)
     low = torch.quantile(x, percentile_low)
     high = torch.quantile(x, percentile_high)
     new_low = decay * state["low"] + (1 - decay) * low
