@@ -444,6 +444,31 @@ phase 34 runs before 32-33, and the Anakin lane, 42-46, before 37-41):
    step, the collectives' share of it and the bytes all-reduced, broadcast
    and gathered, beside the one-process run's step wall.
    ``c.phase_data_parallel(dir)`` runs it alone after ``kernels.build()``.
+63. The data axis for the other trainers through their entry points with
+   a ``Runtime`` (one ``Runtime.launch`` carries every two-rank run; rank 1
+   runs ``cli.follow`` on the config rank 0 sends before each run): (a)
+   DreamerV2 (``exp=dreamer_v2_ms_pacman`` at full width, bf16-mixed,
+   B = 32 x 50) through ``dreamer_v2.main`` for 3 gradient steps, the
+   one-process run, the same run on a one-rank NCCL group bit for bit
+   (every parameter, Adam state and logged value), then two gloo ranks on
+   the one card, 16 of the 32 rows each: each rank's launches counted (50
+   streaming forwards and backwards at B = 16 and 15 at B = 800 a step),
+   rank 0's modules held against the one-process run by a bound
+   (``DP2_PARAM_BOUND``) between the sound reading and the same run with
+   rank 0's gradient unreduced, each rank's step wall, the collectives'
+   share and the bytes they move; (b) the P2E-DV2 chain (exploration, then
+   finetuning of its checkpoint; 32-true, B = 16 x 50, H = 400) on two
+   ranks, 2 gradient steps a phase, launches at B = 8 and 400 counted,
+   rank 0 held against the one-process chain (``DPP_PARAM_BOUND``); (c)
+   one P2E-DV3 exploration train step at XL width (32-true, B = 16 x 64,
+   H = 4096) on two ranks against the one-process step
+   (``DPX_PARAM_BOUND``), launches at B = 8 and 512 counted, each rank's
+   peak memory. Rank 1 holds the kernels at its shapes against their plain
+   versions; they are timed here (``rank_kernel_rows``). DreamerV1,
+   P2E-DV1, DroQ, SAC-AE, A2C and recurrent PPO launch no kernel: their two
+   ranks are held on the CPU only (tests/test_torch_dp_*_steps.py).
+   ``c.phase_data_parallel_rest(dir)`` runs it alone after
+   ``kernels.build()``.
 
 Every profile reads its device busy time through ``_busy``, which leaves
 out the device ranges of ``record_function`` annotations (the trainers'
@@ -468,7 +493,12 @@ DreamerV3 XS, M and L (forward at B = 16, 1024 and 1, backward at B = 16
 and 1024) with their CLI step's launches; every entry also with phase
 61's worker-process runs' launches on the host and the ring path, and
 phase 62's (``launches_dp``: both ranks' sound run, rank 0's player
-included; ``launches_dp_one_rank_nccl``: the one-rank NCCL run); the card's name and power limit,
+included; ``launches_dp_one_rank_nccl``: the one-rank NCCL run) and phase
+63's (``launches_dp_rest``: both ranks' runs); then phase 63's rows at the
+ranks' shapes (DreamerV2's forward and backward at B = 16 and 800, H =
+600, bf16; P2E-DV2's at B = 8 and 400, H = 400, and P2E-DV3 XL's forward
+at B = 8 and 512 and backward at B = 8, H = 4096, f32) with their runs'
+launches; the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``. Details go to
 chiprun_out/chip_smoke.json.
 """
@@ -513,8 +543,8 @@ def time_phases(namespace: dict) -> dict:
     so that each outermost call adds its wall seconds to the returned dict
     under the phase's name; a phase that another phase calls counts in its
     caller's time. Also charges the seconds spent in torch.profiler
-    (``profiled`` and the reading of a profile's records) to the running
-    phase in ``PROFILER_S``."""
+    (``profiled`` and the reading of a profile's records, ``read_profile``)
+    to the running phase in ``PROFILER_S``."""
     seconds: dict = {}
     depth, phase, inside = [0], [None], [0]
 
@@ -558,14 +588,15 @@ def time_phases(namespace: dict) -> dict:
         import torch.profiler
 
         namespace["profiled"] = charged(namespace["profiled"])
+        namespace["read_profile"] = charged(namespace["read_profile"])
         for attr in ("key_averages", "events"):
             setattr(torch.profiler.profile, attr, charged(getattr(torch.profiler.profile, attr)))
     return seconds
 
 
 # Per phase: the wall seconds inside torch.profiler captures (``profiled``)
-# and the reading of their records (``key_averages``, ``events``), filled
-# by the wrappers ``time_phases`` installs.
+# and the reading of their records (``read_profile``; torch's ``key_averages``
+# and ``events`` where called), filled by the wrappers ``time_phases`` installs.
 PROFILER_S: dict = {}
 
 
@@ -655,7 +686,7 @@ def kernel_split_ms(fn, calls: int = 50) -> dict:
     torch.cuda.synchronize()
     prof = profiled(lambda: [fn() for _ in range(calls)])
     split = {}
-    for evt in prof.key_averages():
+    for evt in read_profile(prof)[0]:
         total_us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
         if total_us and evt.count and MARKER_KERNEL not in evt.key:
             found = re.search(r"ln_gru_\w+", evt.key)
@@ -664,6 +695,61 @@ def kernel_split_ms(fn, calls: int = 50) -> dict:
             entry["ms"] += total_us / calls / 1e3
             entry["launches"] += evt.count / calls
     return split
+
+
+class _Read:
+    """One event, or one key's total, of a profile as :func:`read_profile`
+    reads it: the fields of torch's ``FunctionEvent`` and
+    ``FunctionEventAvg`` this script uses (``key``/``name``,
+    ``device_type``, ``is_user_annotation``, ``count``,
+    ``device_time_total`` and ``cpu_time_total`` in us, ``time_range``)."""
+
+    __slots__ = ("key", "device_type", "is_user_annotation", "count", "device_time_total", "cpu_time_total", "time_range")
+
+    @property
+    def name(self):
+        return self.key
+
+
+def read_profile(prof):
+    """(key averages, events) of a torch.profiler profile, read from its
+    raw kineto events: what ``prof.key_averages()`` and ``prof.events()``
+    give for the fields :class:`_Read` names, without building torch's
+    Python event tree, which took most of a DV3-S step's profile (its CPU
+    side's tens of thousands of operations). The same events are left out
+    (torch's ``_filter_name``, hidden events), names are demangled, an
+    async event has no time, and a key is (name, device type, user
+    annotation), as ``key_averages`` groups them."""
+    import torch
+    from torch.autograd.profiler_util import Interval, _filter_name
+
+    raw = prof.profiler.kineto_results
+    origin = raw.trace_start_ns()
+    names, averages, events = {}, {}, []
+    cuda = torch.autograd.DeviceType.CUDA
+    for e in raw.events():
+        name = e.name()
+        if _filter_name(name) or e.is_hidden_event():
+            continue
+        if name not in names:
+            names[name] = torch._C._demangle(name) if len(name) > 1 else name
+        name, device_type, annotation = names[name], e.device_type(), e.is_user_annotation()
+        start, end = (e.start_ns() - origin) / 1e3, (e.end_ns() - origin) / 1e3
+        timed = not (e.is_async() or e.start_thread_id() != e.end_thread_id())
+        evt = _Read()
+        evt.key, evt.device_type, evt.is_user_annotation, evt.count, evt.time_range = name, device_type, annotation, 1, Interval(start, end)
+        evt.device_time_total = (end - start) if timed and device_type == cuda else 0.0
+        evt.cpu_time_total = (end - start) if device_type != cuda else 0.0
+        events.append(evt)
+        avg = averages.get((name, device_type, annotation))
+        if avg is None:
+            avg = averages[(name, device_type, annotation)] = _Read()
+            avg.key, avg.device_type, avg.is_user_annotation, avg.time_range = name, device_type, annotation, None
+            avg.count, avg.device_time_total, avg.cpu_time_total = 0, 0.0, 0.0
+        avg.count += 1
+        avg.device_time_total += evt.device_time_total
+        avg.cpu_time_total += evt.cpu_time_total
+    return list(averages.values()), events
 
 
 def check_one_launch(what: str, split: dict) -> None:
@@ -1105,7 +1191,7 @@ def phase_step_profile(path, bucket: int = 4, steps: int = 20):
 
     prof = profiled(profiled_steps, ("cpu", "cuda"))
     kernels_ms = {}  # kernels and copies, not the host ops that launched them
-    busy_ms, ops_per_step, _ = _busy(prof.key_averages(), steps, by_kernel=kernels_ms)
+    busy_ms, ops_per_step, _ = _busy(read_profile(prof)[0], steps, by_kernel=kernels_ms)
     top = dict(sorted(kernels_ms.items(), key=lambda kv: -kv[1])[:6])
     result = {"bucket": bucket, "host_wall_ms_per_step": wall_ms, "device_busy_ms_per_step": busy_ms,
               "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms), "device_ops_per_step": ops_per_step,
@@ -1499,8 +1585,9 @@ def _train_batch(T, B, seed, device, n_actions=9, continuous=False):
 
 # 1 profiled step (3 until the interaction layer's phases 47-50 needed the
 # time, 2 until the telemetry phases 51-53 did): profiling a DV3-S step's 18k
-# kernels is most of this phase's cost (34.5 of 36.7 s at 2 steps, on an
-# NVIDIA H100 80GB HBM3 at 700 W).
+# kernels was most of this phase's cost (34.5 of 36.7 s at 2 steps, on an
+# NVIDIA H100 80GB HBM3 at 700 W), most of it torch's Python event tree over
+# the step's ~105k events, which ``read_profile`` does not build.
 TRAIN_PROFILE_STEPS = 1
 
 
@@ -1554,7 +1641,7 @@ def phase_train_profile(agent, cfg, steps: int = TRAIN_PROFILE_STEPS, bwd_per_st
 
     prof = profiled(profiled_steps, ("cpu", "cuda"))
     kernels_ms, stages = {}, {}
-    averages = prof.key_averages()
+    averages, events = read_profile(prof)
     busy_ms, ops_per_step, annotated_ms = _busy(averages, steps, skip=("dv3/",), by_kernel=kernels_ms)
     for evt in averages:
         total_us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0.0)
@@ -1564,7 +1651,7 @@ def phase_train_profile(agent, cfg, steps: int = TRAIN_PROFILE_STEPS, bwd_per_st
     if busy_ms <= 0.0:
         fail("train profile: torch.profiler saw no device time")
     spans, bwd_kernels = {stage: [] for stage in BWD_STAGE.values()}, []
-    for evt in prof.events():
+    for evt in events:
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         if evt.name in spans:
@@ -2380,7 +2467,7 @@ def phase_ppo_profile(agent, cfg, what):
         return step(data, next_obs, minibatch_indices(T * E, mb, n_epochs, gen), clip, ent)
 
     def busy(prof, n):
-        return _busy(prof.key_averages(), n, skip=("ppo/",))[:2]
+        return _busy(read_profile(prof)[0], n, skip=("ppo/",))[:2]
 
     update()
     torch.cuda.synchronize()
@@ -2761,7 +2848,7 @@ def phase_graph_vs_eager(kind):
         profiled_wall.append((time.perf_counter() - t) * 1e3 / GRAPH_REPLAYS_PROFILED)
 
     prof = profiled(replays, ("cpu", "cuda"))
-    busy_ms, ops, _ = _busy(prof.key_averages(), GRAPH_REPLAYS_PROFILED, skip=("dv3/",))
+    busy_ms, ops, _ = _busy(read_profile(prof)[0], GRAPH_REPLAYS_PROFILED, skip=("dv3/",))
     eager_moments = {k: v.clone() for k, v in m.items()}
     tau.fill_(0.02)
     step(eager_moments, sample(ring.state, rng.generator), rng, tau)
@@ -3466,8 +3553,8 @@ def phase_sac_reference():
 
 def _busy(averages, n, skip=(), by_kernel=None):
     """(device ms, operations, annotation ms) per ``n`` of the CUDA events
-    of a profile's ``key_averages()`` (taken once by the caller: it is slow
-    over a training step's tens of thousands of events). The device ranges of ``record_function`` annotations (the
+    of a profile's key averages (:func:`read_profile`'s, read once by the
+    caller). The device ranges of ``record_function`` annotations (the
     trainer's spans, named by ``skip``, and ``Optimizer.step#Adam.step``)
     span kernels counted already: they are left out of the first two and
     summed in the third. ``by_kernel``, a dict, receives each kernel's (the
@@ -3512,7 +3599,7 @@ def _timed_per_step(fn, steps, reps=3, profile=True):
     wall = statistics.median(walls)
     if not profile:
         return {"host_wall_ms_per_step": wall, "peak_gib": peak, "gradient_steps_per_s": 1e3 / wall}
-    busy, ops, annotated = _busy(profiled(fn, ("cpu", "cuda")).key_averages(), steps, skip=("sac/", "droq/"))
+    busy, ops, annotated = _busy(read_profile(profiled(fn, ("cpu", "cuda")))[0], steps, skip=("sac/", "droq/"))
     if busy <= 0.0:
         fail("torch.profiler saw no device time")
     return {"host_wall_ms_per_step": wall, "device_busy_ms_per_step": busy, "idle_share": max(0.0, 1.0 - busy / wall),
@@ -4088,7 +4175,7 @@ def phase_dv2_profile(agent, cfg, steps: int = 3, profiled_steps: int = 1):
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     prof = profiled(lambda: [step(data, rng) for _ in range(profiled_steps)], ("cpu", "cuda"))
-    kernels_ms, averages = {}, prof.key_averages()
+    kernels_ms, averages = {}, read_profile(prof)[0]
     busy, ops, annotated = _busy(averages, profiled_steps, skip=("dv2/",), by_kernel=kernels_ms)
     if busy <= 0.0:
         fail("dv2 profile: torch.profiler saw no device time")
@@ -4262,7 +4349,7 @@ def onpolicy_profile(trainer, agent, cfg, what):
         torch.cuda.synchronize()
         profiled_ms = (time.perf_counter() - t0) / 2 * 1e3
     part = update if profiled_epochs == epochs else lambda: update(profiled_epochs)
-    update_busy, update_ops, _ = _busy(profiled(part, ("cpu", "cuda")).key_averages(), 1, skip=(f"{trainer}/",))
+    update_busy, update_ops, _ = _busy(read_profile(profiled(part, ("cpu", "cuda")))[0], 1, skip=(f"{trainer}/",))
     if update_busy <= 0.0:
         fail(f"{what}: torch.profiler saw no device time in the update")
 
@@ -4292,7 +4379,7 @@ def onpolicy_profile(trainer, agent, cfg, what):
         rollout_step()
     step_ms = (time.perf_counter() - t0) / 50 * 1e3
     step_peak = torch.cuda.max_memory_allocated() / 2**30
-    step_busy, step_ops, _ = _busy(profiled(lambda: [rollout_step() for _ in range(20)], ("cpu", "cuda")).key_averages(), 20,
+    step_busy, step_ops, _ = _busy(read_profile(profiled(lambda: [rollout_step() for _ in range(20)], ("cpu", "cuda")))[0], 20,
                                    skip=(f"{trainer}/",))  # fmt: skip
     optimizer_steps = epochs * -(-n // mb) if trainer == "ppo_recurrent" else 1
     result = {
@@ -4604,6 +4691,22 @@ def p2e_chain(what, args, cuts, fwd_by_batch, bwd_by_batch, tags, ft_args, ft_cu
     return result, out
 
 
+@contextmanager
+def unwritten_checkpoints():
+    """The Dreamer loops' checkpoints named but not written, for a run
+    whose saves nothing reads (P2E's resumed exploration runs, held
+    against the uninterrupted run in memory): each of P2E-XL's is a
+    multi-GB write, a sha256 and an fsync."""
+    from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+
+    def named(path, state, keep_last=None, world_size=1):
+        return os.path.abspath(path)
+
+    with patched(dv2, "save_checkpoint", named), patched(dv3, "save_checkpoint", named):
+        yield
+
+
 def _launched(counts):
     """Whether any LN-GRU kernel was launched."""
     return any(counts[k] for k in ("forward", "backward", "streaming", "tensor_core"))
@@ -4620,7 +4723,8 @@ def _p2e_resume_and_finetune(what, out, full, ckpt, fwd_by_batch, bwd_by_batch, 
     from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
 
     t0 = time.perf_counter()
-    again, again_steps, _, _ = dreamer_through_cli([*full, f"checkpoint.resume_from={ckpt}"], f"{what} resume", fwd_by_batch, bwd_by_batch)
+    with unwritten_checkpoints():
+        again, again_steps, _, _ = dreamer_through_cli([*full, f"checkpoint.resume_from={ckpt}"], f"{what} resume", fwd_by_batch, bwd_by_batch)
     resume_s = time.perf_counter() - t0
     if [s[0] for s in again_steps] != list(range(resumed_from + 1, steps_total + 1)):
         fail(f"{what} resume: gradient steps {[s[0] for s in again_steps]}")
@@ -4762,7 +4866,7 @@ def step_profile(what, call, steps, fwd_per_step, bwd_per_step, activities=("cpu
     counts = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     prof = profiled(call, activities)
-    kernels_ms, averages = {}, prof.key_averages()
+    kernels_ms, averages = {}, read_profile(prof)[0]
     spans = ("p2e/", "dv3/", "dv2/", "dv1/")
     busy, ops, annotated = _busy(averages, 1, skip=spans, by_kernel=kernels_ms)
     if busy <= 0.0:
@@ -4868,8 +4972,8 @@ def phase_p2e_reference(continuous: bool):
         def step(self):
             pending.append(self.opt)
 
-    def late_update(ensemble, optimizer, *rest):
-        return real_update(ensemble, Later(optimizer), *rest)
+    def late_update(ensemble, optimizer, *rest, **kwargs):
+        return real_update(ensemble, Later(optimizer), *rest, **kwargs)
 
     def reward_then_update(*a):
         reward = real_reward(*a)
@@ -5214,7 +5318,7 @@ def phase_sac_ae_profile(steps: int = 3):
         if _launched(read_counts()):
             fail(f"sac_ae profile: LN-GRU launches {read_counts()}")
         kernels_ms = {}
-        busy, ops, annotated = _busy(prof.key_averages(), 1, skip=("sac_ae/",), by_kernel=kernels_ms)
+        busy, ops, annotated = _busy(read_profile(prof)[0], 1, skip=("sac_ae/",), by_kernel=kernels_ms)
         if busy <= 0.0:
             fail("sac_ae profile: torch.profiler saw no device time")
         conv_ms = {k: v for k, v in kernels_ms.items() if any(t in k.lower() for t in CONV_KERNELS)}
@@ -5948,7 +6052,7 @@ def _timed_in_turns(steppers, what, profile_steps=PIPE_PROFILED):
     for name, step in steppers.items():
         busy, ops = 0.0, 0
         if profile_steps:
-            busy, ops, _ = _busy(profiled(lambda: step(profile_steps), ("cpu", "cuda")).key_averages(), profile_steps)
+            busy, ops, _ = _busy(read_profile(profiled(lambda: step(profile_steps), ("cpu", "cuda")))[0], profile_steps)
             if busy <= 0.0:
                 fail(f"{what} {name}: torch.profiler saw no device time")
         wall = statistics.mean(walls[name])
@@ -7697,7 +7801,7 @@ def size_step(size, log_root):
     def one():
         box[0], _ = step(box[0], data, rng, 0.02)
 
-    busy_ms, ops = _busy(profiled(one).key_averages(), 1, skip=("dv3/",))[:2] if size in DV3_SIZE_PROFILED else (None, None)
+    busy_ms, ops = _busy(read_profile(profiled(one))[0], 1, skip=("dv3/",))[:2] if size in DV3_SIZE_PROFILED else (None, None)
     losses = {k: v for k, v in steps[0][2].items() if "loss" in k.lower()}
     if not all(math.isfinite(v) for v in losses.values()):
         fail(f"dv3-{size}: non-finite losses {losses}")
@@ -8041,21 +8145,14 @@ def _dp_state(out) -> dict:
 
 
 def _dp_modules(agent):
-    return {name: {k: v.detach().cpu().clone() for k, v in getattr(agent, name).state_dict().items()} for name in ("world_model", "actor", "critic")}
+    return _modules(agent, ("world_model", "actor", "critic"))
 
 
 def _dp_readings(out, start, one) -> dict:
     """A run against the one-process run from the same start: the largest
     module change gap (:data:`DP_PARAM_BOUND`) and the moments' (:data:`DP_MOMENTS_BOUND`:
     the larger gap of low and high over the larger of their magnitudes)."""
-    gaps, after = {}, _dp_modules(out["agent"])
-    for name, state in after.items():
-        num = den = 0.0
-        for k, v in state.items():
-            d_got, d_one = v.double() - start[name][k].double(), one["modules"][name][k].double() - start[name][k].double()
-            num += float(((d_got - d_one) ** 2).sum())
-            den += float((d_one**2).sum())
-        gaps[name] = math.sqrt(num / den)
+    gaps = _module_gap(_dp_modules(out["agent"]), start, one["modules"])
     moments = {k: v.item() for k, v in out["moments"].items()}
     scale = max(abs(one["moments"]["low"]), abs(one["moments"]["high"]))
     moments_rel = max(abs(moments[k] - one["moments"][k]) for k in ("low", "high")) / scale
@@ -8203,32 +8300,9 @@ def _dp_follower(runtime, cfg, threads, result_path) -> None:
 def _dp_kernel_rows() -> list:
     """The kernels at a rank's shapes (bf16, D = 1024, H = 512; the
     streaming forward and the backward at B = 8, the tensor-core forward at
-    B = 512), each against its plain version and timed as in phases 3-4:
-    kernel, plain, cuBLAS's product alone (forwards) and the bound."""
-    import torch
-
-    from sheeprl_tpu_torch.models.ln_gru import ln_gru_backward, ln_gru_backward_plain, ln_gru_forward, ln_gru_plain
-
-    rows = []
-    for batch in DP_RANK_FWD_BY_BATCH:
-        args = gru_inputs(batch, 1024, 512, torch.bfloat16, seed=5)
-        errs = check_forward(ln_gru_forward, args, f"data parallel: ln_gru B={batch} bf16")
-        bound_ms, bound_by = gru_bound(batch, 1024, 512, "bfloat16")
-        rows.append({"kind": "forward", "shape": f"B={batch} D=1024 H=512", "dtype": "bfloat16", **errs, **timed(rotated(args, ln_gru_forward)),
-                     "plain_ms": device_ms(rotated(args, ln_gru_plain))[0], "product_library_ms": device_ms(rotated(args[:2], torch.matmul))[0],
-                     "bound_ms": bound_ms, "bound_by": bound_by})  # fmt: skip
-    batch = DP_B // DP_RANKS
-    inp, w, b, scale, ln_bias, h = gru_inputs(batch, 1024, 512, torch.bfloat16, seed=6)
-    _, z = ln_gru_forward(inp, w, b, scale, ln_bias, h)
-    args = (gru_inputs(batch, 1, 512, torch.bfloat16, seed=7)[5], z, scale, ln_bias, h)
-    errs = check_backward(args, f"data parallel: ln_gru_backward B={batch} bf16")
-    bound_ms, bound_by = gru_bwd_bound(batch, 512, "bfloat16")
-    rows.append({"kind": "backward", "shape": f"B={batch} H=512", "dtype": "bfloat16", "max_abs_err": errs, **timed(rotated(args, ln_gru_backward)),
-                 "plain_ms": device_ms(rotated(args, ln_gru_backward_plain))[0], "bound_ms": bound_ms, "bound_by": bound_by})  # fmt: skip
-    for row in rows:
-        log(f"data parallel: {row['kind']} {row['shape']} bf16: kernel {row['ms'] * 1e3:.2f} us, plain {row['plain_ms'] * 1e3:.2f} us, "
-            f"bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")  # fmt: skip
-    return rows
+    B = 512), each against its plain version and timed as in phases 3-4
+    (:func:`rank_kernel_rows`)."""
+    return rank_kernel_rows("dreamer_v3", 1024, 512, "bfloat16", tuple(DP_RANK_FWD_BY_BATCH), tuple(DP_RANK_BWD_BY_BATCH))
 
 
 def phase_data_parallel(workdir):
@@ -8363,6 +8437,453 @@ def phase_data_parallel(workdir):
             "two_ranks": [r0, r1], "two_ranks_s": two_ranks_s, "bounds": {"param_gap": DP_PARAM_BOUND, "moments_rel": DP_MOMENTS_BOUND},
             "readings": {"sound_param_gap": sound["param_gap"], "unreduced_param_gap": fault["param_gap"],
                          "sound_moments_rel": sound["moments_rel"], "unreduced_moments_rel": fault["moments_rel"]}, "took_s": took_s}  # fmt: skip
+
+
+# Phase 63: the data axis for the other trainers (ROADMAP A9, item 7), through
+# their entry points with a Runtime as cli.run calls them, each rank's LN-GRU
+# kernels at its shapes. (a) DreamerV2 (exp=dreamer_v2_ms_pacman: bf16-mixed,
+# B = 32 x 50, horizon 15, H = 600) for 3 gradient steps; (b) the P2E-DV2
+# chain (32-true, B = 16 x 50, H = 400), 2 gradient steps a phase; (c) one
+# P2E-DV3 exploration train step at the recipe's XL width (32-true, B = 16 x
+# 64, H = 4096). DreamerV1, P2E-DV1, DroQ, SAC-AE, A2C and recurrent PPO
+# launch no kernel: their two-rank steps are held against the JAX package on
+# the CPU (tests/test_torch_dp_*_steps.py).
+DP2_CUTS = {"algo.learning_starts": "256 (from 200000)", "algo.total_steps": "304 (from 200000000; 3 gradient steps)",
+            "+env.wrapper.n_steps": "62 (the dummy env's episodes: 63 steps)", "algo.run_test": "False (from True)",
+            "checkpoint.save_last": "False (from True)", "buffer.size": "4096 (from 2000000)", "buffer.memmap": "False (from True)"}  # fmt: skip
+DP2_ARGS = ["exp=dreamer_v2_ms_pacman", "env=dummy", "algo.learning_starts=256", "algo.total_steps=304", "metric.log_every=16",
+            "+env.wrapper.n_steps=62", "algo.run_test=False", "checkpoint.save_last=False", "buffer.size=4096", "buffer.memmap=False"]  # fmt: skip
+DP2_STEPS = 3
+# Per rank and gradient step, at half the batch: phase 23's 50 forwards and backwards of the scan at B = 16 and
+# the imagination's 15 at B = 16 x 50 = 800 (all streaming: H = 600).
+DP2_RANK_BY_BATCH = {DV2_BATCH // DP_RANKS: DV2_SEQ, DV2_IMAGINED // DP_RANKS: DV2_HORIZON}
+DPP_CUTS = {"algo.learning_starts": "200 (from 1000; finetuning from 5000)", "algo.total_steps": "212 (from 5000000; 2 gradient steps a phase)",
+            "checkpoint.every": "0 (from 100000)", "algo.run_test": "False (from True)", "buffer.size": "4096 (from 1000000)",
+            "buffer.memmap": "False (from True)", "metric.log_level": "0 (from 1: nothing of (b) reads the logs)"}  # fmt: skip
+DPP_COMMON = ["env=dummy", "algo.learning_starts=200", "algo.total_steps=212", "metric.log_level=0", "checkpoint.every=0", "algo.run_test=False",
+              "buffer.size=4096", "buffer.memmap=False"]  # fmt: skip
+DPP_ARGS = ["exp=p2e_dv2_exploration", *DPP_COMMON, "checkpoint.save_last=True"]
+DPP_FT_ARGS = ["exp=p2e_dv2_finetuning", *DPP_COMMON, "checkpoint.save_last=False"]
+DPP_STEPS = 2
+# Per rank and gradient step: the scan's 50 at B = 8; the exploration step's two imaginations (15 each) at
+# B = 8 x 50 = 400, the finetuning step's one; every forward differentiated.
+DPP_RANK_BY_BATCH = {P2E2_BATCH // DP_RANKS: P2E2_SEQ, P2E2_IMAGINED // DP_RANKS: 2 * P2E_HORIZON}
+DPP_FT_RANK_BY_BATCH = {P2E2_BATCH // DP_RANKS: P2E2_SEQ, P2E2_IMAGINED // DP_RANKS: P2E_HORIZON}
+DPX_ARGS = ["exp=p2e_dv3_exploration", "env=dummy", "fabric.precision=32-true"]
+DPX_T, DPX_B, DPX_TAU = P2E_SEQ, P2E_BATCH, 0.02
+# Per rank: the scan's 64 forwards and backwards at B = 8, the two imaginations' 30 forwards at B = 512
+# (discrete actions: no gradient through them).
+DPX_RANK_FWD_BY_BATCH = {DPX_B // DP_RANKS: DPX_T, DPX_T * DPX_B // DP_RANKS: 2 * P2E_HORIZON}
+DPX_RANK_BWD_BY_BATCH = {DPX_B // DP_RANKS: DPX_T}
+# Rank 0's modules against the one-process run's, by the largest ||d_rank0 - d_one|| / ||d_one|| over a
+# module's leaves (d: its change over the run). (a)'s bound lies near the geometric mean of the sound
+# reading and the planted fault's (rank 0's gradient left unreduced): 0.312 (the actor; bf16-mixed rounds
+# the two ranks' halves otherwise than the whole batch, and Adam's first steps turn tiny gradients' other
+# signs into whole steps) against 1.021, on an NVIDIA H100 80GB HBM3 at 700 W. (b) and (c) are 32-true
+# and hold the sound runs at about ten times their readings there: the P2E-DV2 exploration 1.11e-3
+# (finetuning 4.8e-6), the P2E-DV3 XL step 3.84e-4.
+DP2_PARAM_BOUND = 0.55
+DPP_PARAM_BOUND = 1e-2
+DPX_PARAM_BOUND = 5e-3
+# The kernels at the ranks' shapes: (tag, depth, hidden, dtype, forward batches, backward batches).
+DP63_KERNELS = (
+    ("dreamer_v2", DV2_DEPTH, DV2_HIDDEN, "bfloat16", tuple(DP2_RANK_BY_BATCH), tuple(DP2_RANK_BY_BATCH)),
+    ("p2e_dv2", P2E2_DEPTH, P2E2_HIDDEN, "float32", tuple(DPP_RANK_BY_BATCH), tuple(DPP_RANK_BY_BATCH)),
+    ("p2e_dv3_xl", P2E_DEPTH, P2E_HIDDEN, "float32", tuple(DPX_RANK_FWD_BY_BATCH), tuple(DPX_RANK_BWD_BY_BATCH)),
+)
+
+
+def rank_kernel_rows(tag, depth, hidden, dtype_name, fwd_batches, bwd_batches, timing=True) -> list:
+    """The LN-GRU kernels at a rank's shapes, each against its plain version
+    (``check_forward``, ``check_backward``); with ``timing`` each timed as
+    in phases 3-4: kernel, plain, cuBLAS's product alone (forwards) and the
+    bound. Without, the kernels' checks alone (a follower's)."""
+    import torch
+
+    from sheeprl_tpu_torch.models.ln_gru import (
+        _aligned,
+        _sm_count,
+        forward_plan,
+        ln_gru_backward,
+        ln_gru_backward_plain,
+        ln_gru_forward,
+        ln_gru_plain,
+    )
+
+    dtype = getattr(torch, dtype_name)
+    rows = []
+    for batch in fwd_batches:
+        args = gru_inputs(batch, depth, hidden, dtype, seed=5)
+        kind = forward_plan(batch, depth, hidden, dtype, _sm_count(0), _aligned(args[0], args[1], args[5])).kernel
+        row = {"model": tag, "kind": "forward", "kernel": kind, "shape": f"B={batch} D={depth} H={hidden}", "batch": batch, "dtype": dtype_name,
+               **check_forward(ln_gru_forward, args, f"{tag}: ln_gru B={batch} {dtype_name}")}  # fmt: skip
+        if timing:
+            bound_ms, bound_by = gru_bound(batch, depth, hidden, dtype_name)
+            row |= {**timed(rotated(args, ln_gru_forward)), "plain_ms": device_ms(rotated(args, ln_gru_plain))[0],
+                    "product_library_ms": device_ms(rotated(args[:2], torch.matmul))[0], "bound_ms": bound_ms, "bound_by": bound_by}  # fmt: skip
+        rows.append(row)
+        del args
+    for batch in bwd_batches:
+        inp, w, b, scale, ln_bias, h = gru_inputs(batch, depth, hidden, dtype, seed=6)
+        _, z = ln_gru_forward(inp, w, b, scale, ln_bias, h)
+        args = (gru_inputs(batch, 1, hidden, dtype, seed=7)[5], z, scale, ln_bias, h)
+        row = {"model": tag, "kind": "backward", "shape": f"B={batch} H={hidden}", "batch": batch, "dtype": dtype_name,
+               "max_abs_err": check_backward(args, f"{tag}: ln_gru_backward B={batch} {dtype_name}")}  # fmt: skip
+        if timing:
+            bound_ms, bound_by = gru_bwd_bound(batch, hidden, dtype_name)
+            row |= {**timed(rotated(args, ln_gru_backward)), "plain_ms": device_ms(rotated(args, ln_gru_backward_plain))[0], "bound_ms": bound_ms,
+                    "bound_by": bound_by}  # fmt: skip
+        rows.append(row)
+        del inp, w, z, args
+    torch.cuda.empty_cache()
+    for row in rows if timing else ():
+        log(f"data parallel: {row['model']} {row['kind']} {row['shape']} {dtype_name}: kernel {row['ms'] * 1e3:.2f} us, plain "
+            f"{row['plain_ms'] * 1e3:.2f} us, bound {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")  # fmt: skip
+    return rows
+
+
+def _run_state(out) -> dict:
+    """Every tensor of a Dreamer run's training state after it: the
+    modules and every optimizer's state."""
+    import torch
+
+    state = {f"agent.{k}": v.detach().cpu().clone() for k, v in out["agent"].state_dict().items()}
+    for name, opt in _optimizer_states(out["optimizers"]).items():
+        for i, st in enumerate(opt.state.values()):
+            state |= {f"{name}.{i}.{k}": v.detach().cpu().clone() for k, v in st.items() if isinstance(v, torch.Tensor)}
+    return state
+
+
+def _modules(agent, names) -> dict:
+    return {name: {k: v.detach().cpu().clone() for k, v in getattr(agent, name).state_dict().items()} for name in names}
+
+
+def _module_gap(after, start, one, one_start=None) -> dict:
+    """Per module: ||d_got - d_one|| / ||d_one|| over its leaves (d: the
+    module's change from ``start``; the one-process run's from
+    ``one_start``, by default the same)."""
+    one_start = start if one_start is None else one_start
+    gaps = {}
+    for name, state in after.items():
+        num = den = 0.0
+        for k, v in state.items():
+            d_got, d_one = v.double() - start[name][k].double(), one[name][k].double() - one_start[name][k].double()
+            num += float(((d_got - d_one) ** 2).sum())
+            den += float((d_one**2).sum())
+        gaps[name] = math.sqrt(num / den) if den > 0 else float(num > 0)
+    return gaps
+
+
+def _counts_within(counts, fwd, bwd) -> dict:
+    """A rank's train-step launches: the forwards at ``fwd``'s batches (rank
+    0's player adds its own at B = num_envs) and every backward."""
+    return {"forward_by_batch": {b: n for b, n in counts["forward_by_batch"].items() if b in fwd}, "backward_by_batch": counts["backward_by_batch"],
+            "tensor_core": counts["tensor_core"]}  # fmt: skip
+
+
+def _check_rank_counts(what, counts, fwd, bwd, steps):
+    got = _counts_within(counts, fwd, bwd)
+    want = {"forward_by_batch": {b: n * steps for b, n in fwd.items()}, "backward_by_batch": {b: n * steps for b, n in bwd.items()}, "tensor_core": 0}
+    if got != want:
+        fail(f"data parallel: {what}'s LN-GRU launches {counts}, expected the train steps' {want}")
+
+
+def _json_counts(counts) -> dict:
+    return counts | {k: {int(b): n for b, n in counts[k].items()} for k in ("forward_by_batch", "backward_by_batch")}
+
+
+def _xl_step(axis, data, device):
+    """(63c) One P2E-DV3 exploration train step at the recipe's XL width
+    over ``axis`` (rank 0 holds ``data``) from the weights of the seed:
+    (its LN-GRU launches, the modules at the start and after it, the peak
+    of the card's memory the process allocated)."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as p2e
+    from sheeprl_tpu_torch.algos.p2e_dv3.agent import build_agent
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.serve.spaces import Box, DictSpace
+    from sheeprl_tpu_torch.utils.distribution import BatchGenerator
+
+    cfg = compose(DPX_ARGS)
+    agent = build_agent((2,), False, cfg, DictSpace({"state": Box((10,), "float32", -20.0, 20.0)}), precision="32-true", device=device, seed=3)
+    names = [name for name, _ in agent.named_children()]
+    start = _modules(agent, names) if axis.index == 0 else None
+    step = p2e.make_train_step(agent, p2e.make_optimizers(agent, cfg), cfg, axis)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    step(p2e.init_p2e_moments(agent.critics_cfg, device), data, BatchGenerator.from_seed(3, device), DPX_TAU)
+    torch.cuda.synchronize()
+    counts, peak = read_counts(), torch.cuda.max_memory_allocated()
+    after = _modules(agent, names) if axis.index == 0 else None
+    digest = _dp_digest(agent)
+    del agent, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"counts": counts, "start": start, "after": after, "peak_bytes": peak, "digest": digest}
+
+
+def _dp63_follower(runtime, result_path) -> None:
+    """(63) Rank 1 on the one card over gloo: its kernels at its shapes
+    against their plain versions (launches that are not the path's), then,
+    for each of rank 0's runs in turn, the follower side of the trainer
+    (:func:`sheeprl_tpu_torch.cli.follow` on the config rank 0 sends) with
+    its LN-GRU launches counted, the DreamerV2 run's steps timed; then its
+    part of the P2E-DV3 XL step. Writes what it read to ``result_path``."""
+    sys.path.insert(0, REPO)
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
+    from sheeprl_tpu_torch.core.mesh import all_gather
+
+    result = {"kernels": [row for spec in DP63_KERNELS for row in rank_kernel_rows(*spec, timing=False)], "runs": {},
+              "backend": runtime.group_backend, "device": str(runtime.device)}  # fmt: skip
+    for what in ("dreamer_v2", "dreamer_v2_unreduced", "p2e_dv2_exploration", "p2e_dv2_finetuning"):
+        args = runtime.expect("run")
+        torch.cuda.synchronize()
+        zero_counts()
+        if what == "dreamer_v2":
+            with _DPProbe(dv2) as probe:
+                cli.follow(runtime, args["cfg"], 1, args["extra"])
+            result["runs"][what] = {"timing": probe.timing(), "digest": _dp_digest(probe.agent)}
+        else:
+            cli.follow(runtime, args["cfg"], 1, args["extra"])
+            result["runs"][what] = {}
+        result["runs"][what]["ln_gru_launches"] = read_counts()
+    runtime.expect("xl")
+    xl = _xl_step(runtime.axis, None, runtime.device)
+    result["xl"] = {"counts": xl["counts"], "peak_bytes": xl["peak_bytes"], "digest": xl["digest"]}
+    all_gather(torch.zeros(1, device=runtime.device), runtime.axis)  # rank 0 reads the peak after this rank's
+    with open(result_path, "w") as fp:
+        json.dump(result, fp)
+    for op, _ in runtime.follow():
+        fail(f"data parallel: rank 1 expected rank 0's stop, got {op!r}")
+
+
+def phase_data_parallel_rest(workdir):
+    """(63) The data axis for DreamerV2 and the P2E chains on the card,
+    through the trainers' entry points with a :class:`Runtime` as
+    ``cli.run`` calls them: (a) DreamerV2 (``dreamer_v2.main``) at full
+    width for :data:`DP2_STEPS` gradient steps, the one-process run first,
+    the same run on a one-rank NCCL group bit for bit, then two gloo ranks
+    on the one card (16 of the 32 rows each), rank 0's modules held against
+    the one-process run by a bound between the sound reading and rank 0's
+    gradient left unreduced, each rank's launches counted and its step
+    wall, the collectives' share and the bytes they move printed; (b) the
+    P2E-DV2 chain (exploration, then finetuning of its checkpoint) on two
+    ranks, :data:`DPP_STEPS` steps a phase, against the one-process chain;
+    (c) one P2E-DV3 exploration train step at XL width on two ranks against
+    the one-process step, each rank's peak memory printed. Rank 1 holds its
+    kernels against their plain versions at its shapes; they are timed
+    here (:func:`rank_kernel_rows`). One ``Runtime.launch`` carries every
+    two-rank run. ``c.phase_data_parallel_rest(dir)`` runs it alone after
+    ``kernels.build()``."""
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2 as dv2
+    from sheeprl_tpu_torch.algos.p2e_dv2 import p2e_dv2_exploration as p2e_expl
+    from sheeprl_tpu_torch.algos.p2e_dv2 import p2e_dv2_finetuning as p2e_ft
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.core.mesh import SINGLE, all_gather
+    from sheeprl_tpu_torch.core.runtime import Runtime
+
+    card = nvidia_smi()
+    t_phase = time.perf_counter()
+    kernel_rows = [row for spec in DP63_KERNELS for row in rank_kernel_rows(*spec)]
+    log(f"data parallel (a): {' '.join(DP2_ARGS)} (DreamerV2 full width, bf16-mixed, B={DV2_BATCH} x T={DV2_SEQ}); cut: {json.dumps(DP2_CUTS)}")
+    log(f"data parallel (b): {' '.join(DPP_ARGS)} then {' '.join(DPP_FT_ARGS)}; cut: {json.dumps(DPP_CUTS)}")
+
+    def cfg_of(args, where, *extra):
+        return compose([*args, f"log_root={os.path.join(workdir, where)}", *extra])
+
+    def jsonable(cfg):
+        return json.loads(json.dumps(cfg))
+
+    # The one-process runs, their start captured where the trainer builds it.
+    start, build = {}, dv2.loop_trainer
+
+    def capture(*args, **kwargs):
+        trainer = build(*args, **kwargs)
+        start.update(_modules(trainer.agent, MODULES[:3]))
+        return trainer
+
+    # The P2E runs' starts, in the order their trainers are built (the one-process chain's, then rank 0's):
+    # the exploration's from the seed, the finetuning's from its exploration checkpoint.
+    starts = {"exploration": [], "finetuning": []}
+    build_expl, build_ft = p2e_expl._build, p2e_ft._build
+
+    def capture_expl(*args, **kwargs):
+        trainer = build_expl(*args, **kwargs)
+        starts["exploration"].append(_modules(trainer.agent, [name for name, _ in trainer.agent.named_children()]))
+        return trainer
+
+    def capture_ft(*args, **kwargs):
+        trainer = build_ft(*args, **kwargs)
+        starts["finetuning"].append(_modules(trainer.agent, [name for name, _ in trainer.agent.named_children()]))
+        return trainer
+
+    zero_counts()
+    with patched(dv2, "loop_trainer", capture), _DPProbe(dv2) as probe:
+        plain = dv2.main(cfg_of(DP2_ARGS, "dp2_plain"))
+    counts_plain, one_timing = read_counts(), probe.timing()
+    if plain["gradient_steps"] != DP2_STEPS:
+        fail(f"data parallel (a): the one-process run took {plain['gradient_steps']} gradient steps, expected {DP2_STEPS}")
+    one = _modules(plain["agent"], MODULES[:3])
+    plain_state, plain_log = _run_state(plain), plain["log"]
+    del plain
+    with patched(p2e_expl, "_build", capture_expl), patched(p2e_ft, "_build", capture_ft):
+        expl_one = p2e_expl.main(cfg_of(DPP_ARGS, "dpp_plain"))
+        ft_cfg = cfg_of(DPP_FT_ARGS, "dpp_plain_ft", f"checkpoint.exploration_ckpt_path={expl_one['checkpoints'][-1]}")
+        ft_one = p2e_ft.main(ft_cfg, exploration_cfg=cli.exploration_chain(ft_cfg))
+    p2e_names = [name for name, _ in expl_one["agent"].named_children()]
+    ft_names = [name for name, _ in ft_one["agent"].named_children()]
+    p2e_one = {"exploration": _modules(expl_one["agent"], p2e_names), "finetuning": _modules(ft_one["agent"], ft_names),
+               "steps": (expl_one["gradient_steps"], ft_one["gradient_steps"])}  # fmt: skip
+    if p2e_one["steps"] != (DPP_STEPS, DPP_STEPS):
+        fail(f"data parallel (b): the one-process chain took {p2e_one['steps']} gradient steps, expected {DPP_STEPS} a phase")
+    del expl_one, ft_one
+    dev = torch.device("cuda", 0)
+    xl_data = _vector_batch(DPX_T, DPX_B, 13, dev)
+    xl_one = _xl_step(SINGLE, xl_data, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) One rank on NCCL, through Runtime.launch.
+    zero_counts()
+    one_rank, backend = Runtime(world_size=1, accelerator="cuda").launch(
+        lambda rt: (dv2.main(cfg_of(DP2_ARGS, "dp2_one_rank"), runtime=rt), rt.group_backend), cli.follow,
+        store_dir=os.path.join(workdir, "dp2_store_one"), backend="nccl",
+    )  # fmt: skip
+    counts_one = read_counts()
+    state = _run_state(one_rank)
+    differ = [k for k in plain_state if not torch.equal(plain_state[k], state[k])]
+    differ += [f"log {i} {k}" for i, (a, b) in enumerate(zip(plain_log, one_rank["log"])) for k in a if not k.startswith("Time/") and a[k] != b.get(k)]
+    if backend != "nccl" or differ or one_rank["gradient_steps"] != DP2_STEPS or len(plain_log) != len(one_rank["log"]):
+        fail(f"data parallel (a): the one-rank {backend} run moved {len(differ)} of {len(plain_state)} tensors and log values: {differ[:5]}")
+    for counts, what in ((counts_plain, "one process"), (counts_one, "one rank")):
+        _check_rank_counts(f"(a) {what}", counts, {b * DP_RANKS: n for b, n in DP2_RANK_BY_BATCH.items()},
+                           {b * DP_RANKS: n for b, n in DP2_RANK_BY_BATCH.items()}, DP2_STEPS)  # fmt: skip
+    log(f"data parallel (a): {DP2_STEPS} DreamerV2 gradient steps through dreamer_v2.main on a one-rank NCCL group (Runtime.launch) equal the "
+        f"one-process run bit for bit ({len(plain_state)} tensors: modules, Adam states; every logged value); LN-GRU {counts_one}; {card}")  # fmt: skip
+    del one_rank, state, plain_state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # Every two-rank run in one launch: rank 0 here, rank 1 spawned.
+    result_path = os.path.join(workdir, "dp63_rank1.json")
+
+    def rank0(rt):
+        out = {}
+        rt.lead("run", cfg=jsonable(cfg_of(DP2_ARGS, "dp2_two")), extra={})
+        zero_counts()
+        with _DPProbe(dv2) as probe:
+            sound = dv2.main(cfg_of(DP2_ARGS, "dp2_two"), runtime=rt)
+        rt.lead("stop")
+        out["dreamer_v2"] = {"ln_gru_launches": read_counts(), "timing": probe.timing(), "steps": sound["gradient_steps"],
+                             "gaps": _module_gap(_modules(sound["agent"], MODULES[:3]), start, one), "digest": _dp_digest(sound["agent"])}  # fmt: skip
+        del sound
+        rt.lead("run", cfg=jsonable(cfg_of(DP2_ARGS, "dp2_fault")), extra={})
+        with patched(dv2, "all_mean_grads", _keep_local_on_rank0(dv2.all_mean_grads)):
+            fault = dv2.main(cfg_of(DP2_ARGS, "dp2_fault"), runtime=rt)
+        rt.lead("stop")
+        out["dreamer_v2_unreduced"] = {"steps": fault["gradient_steps"], "gaps": _module_gap(_modules(fault["agent"], MODULES[:3]), start, one)}
+        del fault
+        expl_cfg = cfg_of(DPP_ARGS, "dpp_two")
+        rt.lead("run", cfg=jsonable(expl_cfg), extra={})
+        zero_counts()
+        expl = p2e_expl.main(expl_cfg, runtime=rt)
+        rt.lead("stop")
+        out["p2e_dv2_exploration"] = {"ln_gru_launches": read_counts(), "steps": expl["gradient_steps"],
+                                      "gaps": _module_gap(_modules(expl["agent"], p2e_names), starts["exploration"][1], p2e_one["exploration"],
+                                                          starts["exploration"][0])}  # fmt: skip
+        ft_cfg = cfg_of(DPP_FT_ARGS, "dpp_two_ft", f"checkpoint.exploration_ckpt_path={expl['checkpoints'][-1]}")
+        del expl
+        exploration_cfg = cli.exploration_chain(ft_cfg)
+        rt.lead("run", cfg=jsonable(ft_cfg), extra={"exploration_cfg": jsonable(exploration_cfg)})
+        zero_counts()
+        ft = p2e_ft.main(ft_cfg, runtime=rt, exploration_cfg=exploration_cfg)
+        rt.lead("stop")
+        out["p2e_dv2_finetuning"] = {"ln_gru_launches": read_counts(), "steps": ft["gradient_steps"],
+                                     "gaps": _module_gap(_modules(ft["agent"], ft_names), starts["finetuning"][1], p2e_one["finetuning"],
+                                                         starts["finetuning"][0])}  # fmt: skip
+        del ft
+        gc.collect()
+        torch.cuda.empty_cache()
+        rt.lead("xl")
+        xl = _xl_step(rt.axis, xl_data, rt.device)
+        all_gather(torch.zeros(1, device=rt.device), rt.axis)
+        out["xl"] = {"counts": xl["counts"], "peak_bytes": xl["peak_bytes"], "digest": xl["digest"],
+                     "gaps": _module_gap(xl["after"], xl_one["start"], xl_one["after"])}  # fmt: skip
+        out["backend"], out["device"] = rt.group_backend, str(rt.device)
+        return out
+
+    t0 = time.perf_counter()
+    with patched(p2e_expl, "_build", capture_expl), patched(p2e_ft, "_build", capture_ft):
+        r0 = Runtime(world_size=DP_RANKS, accelerator="cuda").launch(rank0, _dp63_follower, (result_path,), store_dir=os.path.join(workdir, "dp63_store"),
+                                                                      backend="gloo")  # fmt: skip
+    two_ranks_s = time.perf_counter() - t0
+    with open(result_path) as fp:
+        r1 = json.load(fp)
+    for got in r1["runs"].values():
+        got["ln_gru_launches"] = _json_counts(got["ln_gru_launches"])
+    r1["xl"]["counts"] = _json_counts(r1["xl"]["counts"])
+    for rank, got in enumerate((r0, r1)):
+        if got["backend"] != "gloo" or got["device"] != "cuda:0":
+            fail(f"data parallel: rank {rank} ran on {got['backend']} / {got['device']}")
+    runs = {rank: (r0 if rank == 0 else r1["runs"]) for rank in (0, 1)}
+    for rank in (0, 1):
+        _check_rank_counts(f"(a) rank {rank}", runs[rank]["dreamer_v2"]["ln_gru_launches"], DP2_RANK_BY_BATCH, DP2_RANK_BY_BATCH, DP2_STEPS)
+        _check_rank_counts(f"(b) rank {rank} exploration", runs[rank]["p2e_dv2_exploration"]["ln_gru_launches"], DPP_RANK_BY_BATCH, DPP_RANK_BY_BATCH,
+                           DPP_STEPS)  # fmt: skip
+        _check_rank_counts(f"(b) rank {rank} finetuning", runs[rank]["p2e_dv2_finetuning"]["ln_gru_launches"], DPP_FT_RANK_BY_BATCH,
+                           DPP_FT_RANK_BY_BATCH, DPP_STEPS)  # fmt: skip
+        _check_rank_counts(f"(c) rank {rank}", (r0 if rank == 0 else r1)["xl"]["counts"], DPX_RANK_FWD_BY_BATCH, DPX_RANK_BWD_BY_BATCH, 1)
+    _check_rank_counts("(c) one process", xl_one["counts"], {b * DP_RANKS: n for b, n in DPX_RANK_FWD_BY_BATCH.items()},
+                       {b * DP_RANKS: n for b, n in DPX_RANK_BWD_BY_BATCH.items()}, 1)  # fmt: skip
+    for row in r1["kernels"]:
+        if row["kind"] == "forward" and row["kernel"] != "streaming":
+            fail(f"data parallel: rank 1's forward plan at {row['model']} {row['shape']} is {row['kernel']}")
+    sound, fault = r0["dreamer_v2"], r0["dreamer_v2_unreduced"]
+    steps = (sound["steps"], fault["steps"], r0["p2e_dv2_exploration"]["steps"], r0["p2e_dv2_finetuning"]["steps"])
+    if steps != (DP2_STEPS, DP2_STEPS, DPP_STEPS, DPP_STEPS):
+        fail(f"data parallel: gradient steps {steps}")
+    if sound["digest"] != r1["runs"]["dreamer_v2"]["digest"] or r0["xl"]["digest"] != r1["xl"]["digest"]:
+        fail("data parallel: the two ranks' weights differ after a run")
+    readings = {"dreamer_v2": max(sound["gaps"].values()), "dreamer_v2_unreduced": max(fault["gaps"].values()),
+                "p2e_dv2_exploration": max(r0["p2e_dv2_exploration"]["gaps"].values()), "p2e_dv2_finetuning": max(r0["p2e_dv2_finetuning"]["gaps"].values()),
+                "p2e_dv3_xl": max(r0["xl"]["gaps"].values())}  # fmt: skip
+    log(f"data parallel (a): dreamer_v2.main over 2 gloo ranks on one card, 16 of 32 rows each, {DP2_STEPS} steps: module gap "
+        f"{readings['dreamer_v2']:.4g} (bound {DP2_PARAM_BOUND}; rank 0 unreduced {readings['dreamer_v2_unreduced']:.4g}) {json.dumps(sound['gaps'])}; "
+        f"LN-GRU rank 0 {r0['dreamer_v2']['ln_gru_launches']}, rank 1 {r1['runs']['dreamer_v2']['ln_gru_launches']}; {card}")  # fmt: skip
+    for rank, got in enumerate((r0["dreamer_v2"], r1["runs"]["dreamer_v2"])):
+        t = got["timing"]
+        log(f"data parallel (a): rank {rank}: {t['wall_ms_per_step']:.2f} ms a step (one process at B={DV2_BATCH}: {one_timing['wall_ms_per_step']:.2f} ms), "
+            f"collectives {t['collective_ms_per_step']:.2f} ms ({t['collective_share']:.3f}), {t['bytes_reduced_per_step']} bytes all-reduced, "
+            f"{t['bytes_broadcast_per_step']} broadcast, {t['bytes_gathered_per_step']} gathered a step ({t['steps_timed']} steps; two gloo ranks "
+            f"sharing one card: no figure for NCCL across cards); {card}")  # fmt: skip
+    log(f"data parallel (b): the P2E-DV2 chain over 2 gloo ranks, {DPP_STEPS} steps a phase: module gap exploration "
+        f"{readings['p2e_dv2_exploration']:.4g}, finetuning {readings['p2e_dv2_finetuning']:.4g} (bound {DPP_PARAM_BOUND}); LN-GRU rank 0 "
+        f"{r0['p2e_dv2_exploration']['ln_gru_launches']} / {r0['p2e_dv2_finetuning']['ln_gru_launches']}, rank 1 "
+        f"{r1['runs']['p2e_dv2_exploration']['ln_gru_launches']} / {r1['runs']['p2e_dv2_finetuning']['ln_gru_launches']}")  # fmt: skip
+    log(f"data parallel (c): one P2E-DV3 XL exploration step over 2 gloo ranks (B={DPX_B} x T={DPX_T}, 32-true): module gap "
+        f"{readings['p2e_dv3_xl']:.4g} (bound {DPX_PARAM_BOUND}) {json.dumps(r0['xl']['gaps'])}; peak memory rank 0 {r0['xl']['peak_bytes']} B, rank 1 "
+        f"{r1['xl']['peak_bytes']} B (one process {xl_one['peak_bytes']} B); LN-GRU rank 0 {r0['xl']['counts']}, rank 1 {r1['xl']['counts']}")  # fmt: skip
+    if not readings["dreamer_v2"] <= DP2_PARAM_BOUND < readings["dreamer_v2_unreduced"]:
+        fail(f"data parallel (a): module gap {readings['dreamer_v2']} sound, {readings['dreamer_v2_unreduced']} unreduced: the bound "
+             f"{DP2_PARAM_BOUND} must lie between them")  # fmt: skip
+    for what, bound in (("p2e_dv2_exploration", DPP_PARAM_BOUND), ("p2e_dv2_finetuning", DPP_PARAM_BOUND), ("p2e_dv3_xl", DPX_PARAM_BOUND)):
+        if not readings[what] <= bound:
+            fail(f"data parallel: {what}'s rank 0 against the one-process run: module gap {readings[what]} (bound {bound})")
+    took_s = time.perf_counter() - t_phase
+    log(f"data parallel: phase 63 took {took_s:.1f} s (two ranks {two_ranks_s:.1f} s)")
+    return {"card": card, "cuts": {"dreamer_v2": DP2_CUTS, "p2e_dv2": DPP_CUTS}, "kernels_at_rank_shapes": kernel_rows, "rank1_kernels": r1["kernels"],
+            "one_rank": {"backend": backend, "steps": DP2_STEPS, "tensors_equal": True, "ln_gru_launches": counts_one},
+            "one_process": {"ln_gru_launches": counts_plain, "timing": one_timing, "xl_counts": xl_one["counts"], "xl_peak_bytes": xl_one["peak_bytes"]},
+            "two_ranks": {"rank0": {k: v for k, v in r0.items()}, "rank1": r1}, "two_ranks_s": two_ranks_s, "readings": readings,
+            "bounds": {"dreamer_v2": DP2_PARAM_BOUND, "p2e_dv2": DPP_PARAM_BOUND, "p2e_dv3_xl": DPX_PARAM_BOUND}, "took_s": took_s}  # fmt: skip
 
 
 ASYNC_BUILT = [0]
@@ -8525,6 +9046,7 @@ def main() -> None:
             fail(f"phases 1-60 built {async_vectors_built()} worker-process vector env(s): they are measured in-process")
         env_layer = phase_env_layer(workdir)
         data_parallel = phase_data_parallel(workdir)
+        data_parallel_rest = phase_data_parallel_rest(workdir)
         replay_sample = phase_replay_sample()
         if PENDING_EVALS:
             fail(f"evaluations queued and never run: {[e[2] for e in PENDING_EVALS]}")
@@ -8578,7 +9100,34 @@ def main() -> None:
                 "launches_env_layer_host": env_layer["host"]["ln_gru_launches"][kind],
                 "launches_env_layer_ring": env_layer["ring"]["ln_gru_launches"][kind],
                 "launches_dp": sum(r["ln_gru_launches"][kind] for r in data_parallel["two_ranks"]),
-                "launches_dp_one_rank_nccl": data_parallel["one_rank"]["ln_gru_launches"][kind]}  # fmt: skip
+                "launches_dp_one_rank_nccl": data_parallel["one_rank"]["ln_gru_launches"][kind],
+                "launches_dp_rest": sum(c[kind] for c in dp_rest_counts(None))}  # fmt: skip
+
+    def dp_rest_counts(model):
+        """Phase 63's LN-GRU counts of both ranks' runs of ``model`` (every model's with None)."""
+        ranks = data_parallel_rest["two_ranks"]
+        runs = {"dreamer_v2": ("dreamer_v2",), "p2e_dv2": ("p2e_dv2_exploration", "p2e_dv2_finetuning"), "p2e_dv3_xl": ()}
+        out = []
+        for m, names in runs.items():
+            if model in (None, m):
+                out += [ranks["rank0"][n]["ln_gru_launches"] for n in names] + [ranks["rank1"]["runs"][n]["ln_gru_launches"] for n in names]
+                out += [ranks["rank0"]["xl"]["counts"], ranks["rank1"]["xl"]["counts"]] if m == "p2e_dv3_xl" else []
+        return out
+
+    def dp_rest_entry(row):
+        """A kernel's entry at a rank's shapes of phase 63: the launches at
+        its batch of both ranks' runs of its model."""
+        forward = row["kind"] == "forward"
+        key = "forward_by_batch" if forward else "backward_by_batch"
+        launches = sum(c[key].get(row["batch"], 0) for c in dp_rest_counts(row["model"]))
+        if forward:
+            out = entry("ln_gru_forward", "sheeprl_tpu_torch/csrc/ln_gru.cu", "sheeprl_tpu/models/pallas_gru.py:118",
+                        f"{row['shape']} {row['dtype']}, {row['kernel']} kernel ({row['model']} at a data-parallel rank's batch, 2 gloo ranks)", launches,
+                        row, max(row["max_abs_err_h"], row["max_abs_err_z"]))  # fmt: skip
+            return out | {"product_library_ms": row["product_library_ms"]}
+        return entry("ln_gru_backward", "sheeprl_tpu_torch/csrc/ln_gru_bwd.cu", "sheeprl_tpu/models/pallas_gru.py:172",
+                     f"{row['shape']} {row['dtype']} ({row['model']} at a data-parallel rank's batch, 2 gloo ranks)", launches, row,
+                     max(row["max_abs_err"].values()))  # fmt: skip
 
     def in_graph(kernel):
         """The kernel's nodes in the captured step's graph, and its launches
@@ -8746,6 +9295,7 @@ def main() -> None:
             *anakin_entries,
             *pipeline_entries,
             *size_entries,
+            *[dp_rest_entry(row) for row in data_parallel_rest["kernels_at_rank_shapes"]],
         ]
     }  # fmt: skip
     report = {
@@ -8815,6 +9365,7 @@ def main() -> None:
         **fleet_sizes,
         "env_layer": env_layer,
         "data_parallel": data_parallel,
+        "data_parallel_rest": data_parallel_rest,
         "kernels": kernels_line["kernels"],
         "phase_s": phase_s,
         "profiler_s": PROFILER_S,

@@ -26,6 +26,15 @@ the watchdog around the update's wait, and the health sentinels at each
 log point, which veto saves once a non-finite value is seen (no in-step
 probes, as in the JAX package).
 
+Over a data axis (``fabric.devices`` > 1, ``core/runtime.py``) rank 0 runs
+the loop and sends its rollout and minibatch indices to the other ranks
+(:func:`~sheeprl_tpu_torch.core.onpolicy.follow_updates`); every rank runs
+GAE on the whole rollout and takes its block of each minibatch's rows, the
+advantages are normalised with the minibatch's global mean and std, and the
+summed gradient is all-reduced once before the clip: summed over the ranks
+with ``loss_reduction=sum`` (the recipe's: the JAX loss sums over the
+sharded minibatch), meaned with ``mean``, as are the losses.
+
 The rollout step, GAE and the update run under ``record_function`` spans
 (``a2c/rollout_step``, ``a2c/gae``, ``a2c/update``).
 """
@@ -42,14 +51,15 @@ from sheeprl_tpu_torch.algos.a2c.loss import policy_loss, value_loss
 from sheeprl_tpu_torch.algos.a2c.utils import test
 from sheeprl_tpu_torch.algos.ppo.agent import PPOAgent, build_agent
 from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss
-from sheeprl_tpu_torch.algos.ppo.ppo import _to_device, minibatch_indices, ship_rollout
+from sheeprl_tpu_torch.algos.ppo.ppo import _to_device, minibatch_indices, normalize_global, ship_rollout
 from sheeprl_tpu_torch.core.interact import InteractionPipeline
-from sheeprl_tpu_torch.core.onpolicy import log_episodes, open_run
+from sheeprl_tpu_torch.core.mesh import SINGLE, DataAxis, all_mean_grads, all_mean_metrics, local_batch_size, replicate_training
+from sheeprl_tpu_torch.core.onpolicy import follow_updates, log_episodes, open_run, share_rollout
 from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
 from sheeprl_tpu_torch.core.rollout import bootstrap_truncated, fuse_gae_pool
+from sheeprl_tpu_torch.core.runtime import Runtime
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
-from sheeprl_tpu_torch.utils.ops import normalize_tensor
 from sheeprl_tpu_torch.utils.timer import timer, train_timer
 from sheeprl_tpu_torch.utils.utils import prepare_obs
 
@@ -57,12 +67,16 @@ Metrics = Dict[str, torch.Tensor]
 METRIC_KEYS = ("policy_loss", "value_loss")
 
 
-def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg) -> Callable[..., Metrics]:
+def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, axis: DataAxis = SINGLE) -> Callable[..., Metrics]:
     """``train_step(data, next_obs, indices) -> metrics``: ``data`` the
     rollout's ``(T, E, ...)`` tensors (the MLP keys, ``actions``,
     ``rewards``, ``values``, ``dones``), ``next_obs`` the observation after
     its last step, ``indices`` ``[num_minibatches, minibatch]`` rows of the
-    ``T * E`` pool; one optimizer step on the summed gradients."""
+    ``T * E`` pool; one optimizer step on the summed gradients. Over a data
+    ``axis`` rank 0's three inputs reach every rank (the others pass None),
+    which keeps its block of each minibatch's rows; the gradients and
+    losses are summed over the ranks for ``loss_reduction=sum``, meaned for
+    ``mean``."""
     obs_keys = list(cfg.algo.mlp_keys.encoder)
     normalize_advantages = bool(cfg.algo.get("normalize_advantages", False))
     reduction = str(cfg.algo.loss_reduction)
@@ -70,26 +84,31 @@ def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg) -> C
     gamma, gae_lambda = float(cfg.algo.gamma), float(cfg.algo.gae_lambda)
     max_grad_norm = float(cfg.algo.max_grad_norm)
     params = list(agent.parameters())
+    op = "sum" if reduction == "sum" else "mean"
+    device = next(agent.parameters()).device
 
     def train_step(data: Dict[str, torch.Tensor], next_obs: Dict[str, torch.Tensor], indices: torch.Tensor) -> Metrics:
+        if axis.joined:
+            data, next_obs, indices = share_rollout(data, next_obs, indices, axis, device)
         with record_function("a2c/gae"):
             pool = fuse_gae_pool(agent, data, next_obs, (*obs_keys, "actions"), gamma, gae_lambda)
         with record_function("a2c/update"):
             optimizer.zero_grad(set_to_none=True)
             per_mb = []
             for mb in indices:
-                batch = {k: v[mb] for k, v in pool.items()}
+                batch = {k: v[mb[axis.rows(len(mb))] if axis.joined else mb] for k, v in pool.items()}
                 logprobs, entropy, values = agent.evaluate_actions({k: batch[k] for k in obs_keys}, batch["actions"])
-                advantages = normalize_tensor(batch["advantages"]) if normalize_advantages else batch["advantages"]
+                advantages = normalize_global(batch["advantages"], axis) if normalize_advantages else batch["advantages"]
                 pg_loss = policy_loss(logprobs, advantages, reduction)
                 v_loss = value_loss(values, batch["returns"], reduction)
                 (pg_loss + vf_coef * v_loss + ent_coef * entropy_loss(entropy, reduction)).backward()
                 per_mb.append(torch.stack([pg_loss, v_loss]).detach())
+            all_mean_grads(params, axis, op)
             if max_grad_norm > 0.0:
                 torch.nn.utils.clip_grad_norm_(params, max_grad_norm)
             optimizer.step()
             means = torch.stack(per_mb).mean(0)
-        return {k: means[i] for i, k in enumerate(METRIC_KEYS)}
+        return all_mean_metrics({k: means[i] for i, k in enumerate(METRIC_KEYS)}, axis, op)
 
     return train_step
 
@@ -105,9 +124,12 @@ def mlp_keys(cfg) -> Tuple[List[str], List[str]]:
 
 
 @register_algorithm()
-def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = None) -> Dict[str, Any]:
+def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = None, runtime: Optional[Runtime] = None) -> Dict[str, Any]:
     """Train A2C on ``cfg`` on ``cfg.device``. ``callback(agent, iter_num,
-    metrics)`` runs after every update.
+    metrics)`` runs after every update. Over the ranks of a ``runtime``
+    with a process group (``fabric.devices`` > 1) rank 0 runs the loop and
+    every rank takes its part of each update (``algo.per_rank_batch_size``,
+    the minibatch, divides by the ranks); the other ranks return {}.
 
     The run writes what PPO's does (``algos/ppo/ppo.py:main``) without the
     ``Info/*`` tags and the entropy loss, which the JAX A2C does not log.
@@ -120,12 +142,22 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
 
     Returns {"agent", "optimizer", "policy_steps", "updates", "log",
     "log_dir", "checkpoints", "test_reward"}."""
-    run = open_run(cfg, build_agent, mlp_keys, METRIC_KEYS)
+    if runtime is not None and not runtime.is_global_zero:
+        return follow_updates(cfg, runtime, build_agent, make_train_step, "A2C", inputs=3)
+    joined = runtime is not None and runtime.joined
+    axis = runtime.axis if joined else SINGLE
+    run = open_run(cfg, build_agent, mlp_keys, METRIC_KEYS, data_parallel=joined)
+    run.world_size = axis.size
     cfg, device, agent, envs, rb, log_points = run.cfg, run.device, run.agent, run.envs, run.rb, run.log_points
     obs_keys, is_continuous, aggregator = run.obs_keys, run.is_continuous, run.aggregator
     num_envs, rollout_steps, batch_size, policy_step = int(cfg.env.num_envs), int(cfg.algo.rollout_steps), run.batch_size, run.policy_step
 
-    train_step = make_train_step(agent, run.optimizer, cfg)
+    local_batch_size(batch_size, axis.size)  # raises unless the minibatch splits over the ranks
+    if joined:
+        runtime.lead("spaces", actions_dim=tuple(run.actions_dim), is_continuous=is_continuous, observation_space=run.observation_space.to_spec())
+    replicate_training(axis, [agent], [run.optimizer])
+    # One rank calls the factory with the one-card signature, which wrappers of it take.
+    train_step = make_train_step(agent, run.optimizer, cfg, **({"axis": axis} if joined else {}))
     placement = PlayerPlacement.resolve(cfg, device, nbytes=param_bytes(agent), force_fresh=True)
     pipeline = InteractionPipeline.from_config(cfg)
     pipeline.watchdog = run.watchdog
@@ -179,6 +211,8 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
         data, next_obs_t = ship_rollout(rb, (*obs_keys, "actions", "rewards", "values", "dones"), next_obs, (), device)
         with train_timer(device, run.watchdog):
             indices = minibatch_indices(rollout_steps * num_envs, batch_size, 1, perm_generator)[0]
+            if joined:
+                runtime.lead("train", lr=run.optimizer.param_groups[0]["lr"], coefs=[])
             with perf.note("train/update"):
                 metrics = train_step(data, next_obs_t, indices)
         placement.push()
@@ -191,4 +225,4 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
             break
 
     interaction = pipeline.publish()
-    return {**run.finish(test, policy_step), "interaction": interaction, "placement": placement.stats()}
+    return {**run.finish(test, policy_step), "interaction": interaction, "placement": placement.stats(), "world_size": axis.size}

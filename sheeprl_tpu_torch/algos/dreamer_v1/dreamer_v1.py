@@ -30,7 +30,9 @@ from sheeprl_tpu_torch.algos.dreamer_v1.loss import actor_loss, critic_loss, rec
 from sheeprl_tpu_torch.algos.dreamer_v1.utils import compute_lambda_values
 from sheeprl_tpu_torch.algos.dreamer_v2.agent import dv2_actor_forward
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import DreamerLoop, Metrics, loop_trainer, run_dreamer, unit_normal
-from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _clip, frozen
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _clip, frozen, shard_step_inputs
+from sheeprl_tpu_torch.core.mesh import SINGLE, DataAxis, all_mean_grads, all_mean_metrics, global_mean
+from sheeprl_tpu_torch.core.runtime import Runtime
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.utils.distribution import BernoulliSafeMode, Independent, Normal
 
@@ -40,11 +42,16 @@ class DV1Learner:
     the world model's loss and update (with the encoder's embedding, the
     ensemble's target), the imagination with any actor, the λ-targets of any
     reward with their discount, an actor's update on them, and a critic's
-    Normal(., 1) regression onto them."""
+    Normal(., 1) regression onto them. Over a data ``axis`` each update
+    means its gradients over the ranks before the clip, the KL is the
+    global mean floored at the free nats, and the world model's scan draws
+    follow the batch's rows."""
 
-    def __init__(self, world_model: torch.nn.Module, actor_spec, cfg):
+    def __init__(self, world_model: torch.nn.Module, actor_spec, cfg, axis: DataAxis = SINGLE):
         wm_cfg = cfg.algo.world_model
         self.cfg = cfg
+        self.axis = axis
+        self.kl_mean = functools.partial(global_mean, axis=axis) if axis.joined else torch.mean
         self.wm = world_model
         self.spec = actor_spec
         self.cnn_keys = list(cfg.algo.cnn_keys.encoder)
@@ -72,12 +79,13 @@ class DV1Learner:
         h = torch.zeros((B, self.recurrent_state_size), dtype=embedded.dtype, device=embedded.device)
         z = torch.zeros((B, self.stochastic_size), dtype=embedded.dtype, device=embedded.device)
         hs, zs, post_ms, prior_ms = [], [], [], []
-        for t in range(T):
-            h, z, _, post, prior = wm.dynamic(z, h, data["actions"][t], embedded[t], rng)
-            hs.append(h)
-            zs.append(z)
-            post_ms.append(post)
-            prior_ms.append(prior)
+        with rng.rows(B):
+            for t in range(T):
+                h, z, _, post, prior = wm.dynamic(z, h, data["actions"][t], embedded[t], rng)
+                hs.append(h)
+                zs.append(z)
+                post_ms.append(post)
+                prior_ms.append(prior)
         posteriors, recurrent_states = torch.stack(zs), torch.stack(hs)
         latent_states = torch.cat([posteriors, recurrent_states], -1)
         qo = {k: unit_normal(v, v.dim() - 2) for k, v in wm.decode(latent_states).items()}
@@ -91,7 +99,7 @@ class DV1Learner:
         priors_dist = Independent(Normal(stack(prior_ms, 0), stack(prior_ms, 1)), 1)
         losses = reconstruction_loss(
             qo, batch_obs, qr, data["rewards"], posteriors_dist, priors_dist, wm_cfg.kl_free_nats, wm_cfg.kl_regularizer,
-            qc, continue_targets, wm_cfg.continue_scale_factor,
+            qc, continue_targets, wm_cfg.continue_scale_factor, self.kl_mean,
         )  # fmt: skip
         return losses, posteriors, recurrent_states, embedded, posteriors_dist, priors_dist
 
@@ -102,6 +110,7 @@ class DV1Learner:
         losses, posteriors, recurrent_states, embedded, posteriors_dist, priors_dist = self.world_model_loss(data, self.batch_obs(data), rng)
         optimizer.zero_grad(set_to_none=True)
         losses[0].backward()
+        all_mean_grads(self.wm.parameters(), self.axis)
         wm_norm = _clip(self.wm, self.cfg.algo.world_model.clip_gradients)
         optimizer.step()
         return losses, posteriors, recurrent_states, embedded, posteriors_dist, priors_dist, wm_norm
@@ -138,6 +147,7 @@ class DV1Learner:
         policy_loss = actor_loss(discount * lambda_values)
         optimizer.zero_grad(set_to_none=True)
         policy_loss.backward()
+        all_mean_grads(actor.parameters(), self.axis)
         actor_norm = _clip(actor, self.cfg.algo.actor.clip_gradients)
         optimizer.step()
         return policy_loss.detach(), actor_norm
@@ -162,6 +172,7 @@ class DV1Learner:
         value_loss = critic_loss(qv, lambda_values, discount[..., 0])
         optimizer.zero_grad(set_to_none=True)
         value_loss.backward()
+        all_mean_grads(critic.parameters(), self.axis)
         critic_norm = _clip(critic, self.cfg.algo.critic.clip_gradients)
         optimizer.step()
         return value_loss.detach(), critic_norm
@@ -181,31 +192,39 @@ class DV1Learner:
         }
 
 
-def make_train_step(agent: DV1Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg) -> Callable[[Dict[str, torch.Tensor], Any], Metrics]:
+def make_train_step(
+    agent: DV1Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, axis: DataAxis = SINGLE
+) -> Callable[[Dict[str, torch.Tensor], Any], Metrics]:
     """-> ``step(data, rng) -> metrics``: one gradient step of the three
     modules, in place. ``data`` holds time-major [T, B, ...] tensors: the
     observation keys (pixels as uint8), ``actions``, ``rewards`` and
-    ``terminated``; ``rng`` is the noise source of every draw."""
-    learner = DV1Learner(agent.world_model, agent.actor_spec, cfg)
+    ``terminated``; ``rng`` is the noise source of every draw. Over a data
+    ``axis``, one rank's part of the global step, as DreamerV2's
+    (:func:`sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2.make_train_step`)."""
+    learner = DV1Learner(agent.world_model, agent.actor_spec, cfg, axis)
     wm, actor, critic = agent.world_model, agent.actor, agent.critic
+    device = next(wm.parameters()).device
 
     def step(data: Dict[str, torch.Tensor], rng) -> Metrics:
+        data, rng = shard_step_inputs(data, rng, axis, device)
+        T, B = data["rewards"].shape[:2]
         with record_function("dv1/world_model"):
             losses, posteriors, recurrent_states, _, posteriors_dist, priors_dist, wm_norm = learner.update_world_model(
                 optimizers["world_model"], data, rng
             )
         prior0 = posteriors.detach().reshape(-1, learner.stochastic_size)
         h0 = recurrent_states.detach().reshape(-1, learner.recurrent_state_size)
-        with frozen((wm, critic)):
-            trajectories, lambda_values, discount, policy_loss, actor_norm = learner.behaviour(actor, critic, optimizers["actor"], prior0, h0, rng)
-        with record_function("dv1/critic"):
-            value_loss, critic_norm = learner.update_critic(critic, optimizers["critic"], trajectories, lambda_values, discount)
+        with rng.rows(B, time=T):
+            with frozen((wm, critic)):
+                trajectories, lambda_values, discount, policy_loss, actor_norm = learner.behaviour(actor, critic, optimizers["actor"], prior0, h0, rng)
+            with record_function("dv1/critic"):
+                value_loss, critic_norm = learner.update_critic(critic, optimizers["critic"], trajectories, lambda_values, discount)
         metrics = learner.world_model_metrics(losses, posteriors_dist, priors_dist)
         metrics.update({
             "Loss/policy_loss": policy_loss, "Loss/value_loss": value_loss,
             "Grads/world_model": wm_norm, "Grads/actor": actor_norm, "Grads/critic": critic_norm,
         })  # fmt: skip
-        return metrics
+        return all_mean_metrics(metrics, axis)
 
     return step
 
@@ -215,6 +234,6 @@ MODULES = ("world_model", "actor", "critic")
 
 
 @register_algorithm()
-def main(cfg, callback: Optional[Callable[[DV1Agent, int, Metrics], None]] = None) -> Dict[str, Any]:
-    """Train DreamerV1 on ``cfg`` (:func:`run_dreamer`)."""
-    return run_dreamer(cfg, DV1_LOOP, functools.partial(loop_trainer, build_agent, make_train_step, MODULES), callback)
+def main(cfg, callback: Optional[Callable[[DV1Agent, int, Metrics], None]] = None, runtime: Optional[Runtime] = None) -> Dict[str, Any]:
+    """Train DreamerV1 on ``cfg`` (:func:`run_dreamer`, over ``runtime``'s ranks)."""
+    return run_dreamer(cfg, DV1_LOOP, functools.partial(loop_trainer, build_agent, make_train_step, MODULES), callback, runtime)

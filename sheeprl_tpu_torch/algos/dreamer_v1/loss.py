@@ -3,7 +3,7 @@ eqs. 7, 8 and 10 of the Dreamer paper)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -30,14 +30,16 @@ def reconstruction_loss(
     qc: Optional[Any] = None,
     continue_targets: Optional[torch.Tensor] = None,
     continue_scale_factor: float = 10.0,
+    kl_mean: Callable[[torch.Tensor], torch.Tensor] = torch.mean,
 ) -> Tuple[torch.Tensor, ...]:
     """The decoder's and the reward head's log-likelihoods (and the continue
     head's, negated as a loss, as the JAX package does) plus the mean normal
     KL floored at the free nats. Returns (loss, kl, state_loss, reward_loss,
-    observation_loss, continue_loss)."""
+    observation_loss, continue_loss). ``kl_mean`` is the KL's mean (over a
+    data axis, the global one: ``core/mesh.py:global_mean``)."""
     observation_loss = -sum(qo[k].log_prob(observations[k]).mean() for k in qo)
     reward_loss = -qr.log_prob(rewards).mean()
-    kl = kl_divergence(posteriors_dist, priors_dist).mean()
+    kl = kl_mean(kl_divergence(posteriors_dist, priors_dist))
     state_loss = torch.maximum(kl, torch.full_like(kl, float(kl_free_nats)))
     if qc is not None and continue_targets is not None:
         continue_loss = continue_scale_factor * -qc.log_prob(continue_targets).mean()

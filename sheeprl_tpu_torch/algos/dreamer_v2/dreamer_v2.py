@@ -51,17 +51,28 @@ from torch.profiler import record_function
 from sheeprl_tpu_torch.algos.dreamer_v2.agent import DV2Agent, build_agent, dv2_actor_dists, dv2_actor_forward
 from sheeprl_tpu_torch.algos.dreamer_v2.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v2.utils import compute_lambda_values, test
-from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import OPTIMIZER_KEYS, _clip, _one_hot, frozen, make_optimizers
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import OPTIMIZER_KEYS, _clip, _one_hot, frozen, make_optimizers, shard_step_inputs
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.core.device import resolve_device
 from sheeprl_tpu_torch.core.interact import InteractionPipeline
+from sheeprl_tpu_torch.core.mesh import (
+    SINGLE,
+    DataAxis,
+    all_mean_grads,
+    all_mean_metrics,
+    global_mean,
+    local_batch_size,
+    optimizer_leaves,
+    replicate_training,
+)
 from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
+from sheeprl_tpu_torch.core.runtime import Runtime
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, EpisodeBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.data.infeed import ReplayInfeed
 from sheeprl_tpu_torch.utils.env import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
-from sheeprl_tpu_torch.serve.spaces import Discrete
+from sheeprl_tpu_torch.serve.spaces import Discrete, spec_to_space
 from sheeprl_tpu_torch.core.resilience import drain_device, exit_on_preemption, open_loop
 from sheeprl_tpu_torch.telemetry import open_for_run
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -85,11 +96,16 @@ class DV2Learner:
     the world model's loss and update, the imagination with any actor, the
     λ-returns of any reward bootstrapped by a target critic with their
     discount, an actor's mixed objective and update, and a critic's
-    Normal(., 1) regression onto the returns."""
+    Normal(., 1) regression onto the returns. Over a data ``axis`` each
+    update means its gradients over the ranks before the clip, the KL's
+    free nats apply to its global mean, and the world model's scan draws
+    follow the batch's rows (:meth:`BatchGenerator.rows`)."""
 
-    def __init__(self, world_model: torch.nn.Module, actor_spec, cfg):
+    def __init__(self, world_model: torch.nn.Module, actor_spec, cfg, axis: DataAxis = SINGLE):
         wm_cfg = cfg.algo.world_model
         self.cfg = cfg
+        self.axis = axis
+        self.kl_mean = functools.partial(global_mean, axis=axis) if axis.joined else torch.mean
         self.wm = world_model
         self.spec = actor_spec
         self.cnn_keys = list(cfg.algo.cnn_keys.encoder)
@@ -124,12 +140,13 @@ class DV2Learner:
         h = torch.zeros((B, self.recurrent_state_size), dtype=embedded.dtype, device=embedded.device)
         z = torch.zeros((B, self.stoch_state_size), dtype=embedded.dtype, device=embedded.device)
         hs, zs, post_logits, prior_logits = [], [], [], []
-        for t in range(T):
-            h, z, _, post_l, prior_l = wm.dynamic(z, h, data["actions"][t], embedded[t], is_first[t], rng)
-            hs.append(h)
-            zs.append(z)
-            post_logits.append(post_l)
-            prior_logits.append(prior_l)
+        with rng.rows(B):
+            for t in range(T):
+                h, z, _, post_l, prior_l = wm.dynamic(z, h, data["actions"][t], embedded[t], is_first[t], rng)
+                hs.append(h)
+                zs.append(z)
+                post_logits.append(post_l)
+                prior_logits.append(prior_l)
         posteriors, recurrent_states = torch.stack(zs), torch.stack(hs)
         latent_states = torch.cat([posteriors, recurrent_states], -1)
         po = {k: unit_normal(v, v.dim() - 2) for k, v in wm.decode(latent_states).items()}
@@ -142,7 +159,7 @@ class DV2Learner:
         pol = torch.stack(post_logits).float().reshape(T, B, self.stochastic_size, self.discrete_size)
         losses = reconstruction_loss(
             po, batch_obs, pr, data["rewards"], pl, pol, wm_cfg.kl_balancing_alpha, wm_cfg.kl_free_nats,
-            wm_cfg.kl_free_avg, wm_cfg.kl_regularizer, pc, continue_targets, wm_cfg.discount_scale_factor,
+            wm_cfg.kl_free_avg, wm_cfg.kl_regularizer, pc, continue_targets, wm_cfg.discount_scale_factor, self.kl_mean,
         )  # fmt: skip
         return losses, posteriors, recurrent_states, pol, pl
 
@@ -152,6 +169,7 @@ class DV2Learner:
         losses, posteriors, recurrent_states, pol, pl = self.world_model_loss(data, self.batch_obs(data), rng)
         optimizer.zero_grad(set_to_none=True)
         losses[0].backward()
+        all_mean_grads(self.wm.parameters(), self.axis)
         wm_norm = _clip(self.wm, self.cfg.algo.world_model.clip_gradients)
         optimizer.step()
         return losses, posteriors, recurrent_states, pol, pl, wm_norm
@@ -204,6 +222,7 @@ class DV2Learner:
         policy_loss = -torch.mean(discount[:-2] * (objective + entropy))
         optimizer.zero_grad(set_to_none=True)
         policy_loss.backward()
+        all_mean_grads(actor.parameters(), self.axis)
         actor_norm = _clip(actor, self.cfg.algo.actor.clip_gradients)
         optimizer.step()
         return policy_loss.detach(), actor_norm
@@ -228,6 +247,7 @@ class DV2Learner:
         value_loss = -torch.mean(discount[:-1, ..., 0] * qv.log_prob(lambda_values))
         optimizer.zero_grad(set_to_none=True)
         value_loss.backward()
+        all_mean_grads(critic.parameters(), self.axis)
         critic_norm = _clip(critic, self.cfg.algo.critic.clip_gradients)
         optimizer.step()
         return value_loss.detach(), critic_norm
@@ -247,34 +267,46 @@ class DV2Learner:
         }
 
 
-def make_train_step(agent: DV2Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg) -> Callable[[Dict[str, torch.Tensor], Any], Metrics]:
+def make_train_step(
+    agent: DV2Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, axis: DataAxis = SINGLE
+) -> Callable[[Dict[str, torch.Tensor], Any], Metrics]:
     """-> ``step(data, rng) -> metrics``: one gradient step of the three
     modules, updating their parameters and optimizer states in place.
     ``data`` holds time-major [T, B, ...] tensors on the agent's device: the
     observation keys (pixels as uint8), ``actions`` (one-hot, or the
     continuous actions; the action that led to the row's observation),
     ``rewards``, ``terminated`` and ``is_first``. ``rng`` is the noise source
-    of every draw (a :class:`BatchGenerator`)."""
-    learner = DV2Learner(agent.world_model, agent.actor_spec, cfg)
+    of every draw (a :class:`BatchGenerator`).
+
+    Over a data ``axis`` (``fabric.devices`` > 1) the step is one rank's
+    part of the global step (:func:`shard_step_inputs`; the other ranks pass
+    None for ``data``): the imagination's ``[T * B]`` starts are this rank's
+    rows of every time block, each update means its gradients over the
+    ranks, and the metrics are averaged over them."""
+    learner = DV2Learner(agent.world_model, agent.actor_spec, cfg, axis)
     wm, actor, critic, target_critic = agent.world_model, agent.actor, agent.critic, agent.target_critic
+    device = next(wm.parameters()).device
 
     def step(data: Dict[str, torch.Tensor], rng) -> Metrics:
+        data, rng = shard_step_inputs(data, rng, axis, device)
+        T, B = data["rewards"].shape[:2]
         with record_function("dv2/world_model"):
             losses, posteriors, recurrent_states, pol, pl, wm_norm = learner.update_world_model(optimizers["world_model"], data, rng)
         prior0 = posteriors.detach().reshape(-1, learner.stoch_state_size)
         h0 = recurrent_states.detach().reshape(-1, learner.recurrent_state_size)
-        with frozen((wm, critic)):
-            trajectories, lambda_values, discount, policy_loss, actor_norm = learner.behaviour(
-                actor, target_critic, optimizers["actor"], data, prior0, h0, rng
-            )
-        with record_function("dv2/critic"):
-            value_loss, critic_norm = learner.update_critic(critic, optimizers["critic"], trajectories, lambda_values, discount)
+        with rng.rows(B, time=T):
+            with frozen((wm, critic)):
+                trajectories, lambda_values, discount, policy_loss, actor_norm = learner.behaviour(
+                    actor, target_critic, optimizers["actor"], data, prior0, h0, rng
+                )
+            with record_function("dv2/critic"):
+                value_loss, critic_norm = learner.update_critic(critic, optimizers["critic"], trajectories, lambda_values, discount)
         metrics = learner.world_model_metrics(losses, pol, pl)
         metrics.update({
             "Loss/policy_loss": policy_loss, "Loss/value_loss": value_loss,
             "Grads/world_model": wm_norm, "Grads/actor": actor_norm, "Grads/critic": critic_norm,
         })  # fmt: skip
-        return metrics
+        return all_mean_metrics(metrics, axis)
 
     return step
 
@@ -326,11 +358,12 @@ class DreamerTrainer:
 
 def loop_trainer(
     build_agent: Callable[..., Any], make_step: Callable[..., Callable], modules: Sequence[str], cfg, actions_dim, is_continuous,
-    observation_space, device, state_ckpt,
+    observation_space, device, state_ckpt, axis: DataAxis = SINGLE,
 ) -> DreamerTrainer:  # fmt: skip
     """DreamerV1's or DreamerV2's trainer: the agent ``build_agent`` makes
-    (``build_agent``'s signature), the train step ``make_step`` makes, the
-    three Adams, the checkpoint's ``modules`` and optimizers."""
+    (``build_agent``'s signature), the train step ``make_step`` makes over
+    the data ``axis``, the three Adams, the checkpoint's ``modules`` and
+    optimizers."""
     agent = build_agent(actions_dim, is_continuous, cfg, observation_space, precision=cfg.fabric.precision, device=device, seed=cfg.seed)
     optimizers = make_optimizers(agent, cfg)
     if state_ckpt is not None:
@@ -345,7 +378,7 @@ def loop_trainer(
         return ckpt_state
 
     return DreamerTrainer(
-        agent=agent, optimizers=optimizers, train_step=make_step(agent, optimizers, cfg), state=state,
+        agent=agent, optimizers=optimizers, train_step=make_step(agent, optimizers, cfg, axis), state=state,
         copy_targets=functools.partial(hard_copy_target_, agent), player=lambda i, learning_starts: agent, test_agent=agent,
     )  # fmt: skip
 
@@ -369,7 +402,8 @@ def _buffer(cfg, loop: DreamerLoop, num_envs: int, obs_keys: List[str], log_dir:
 
 
 def run_dreamer(
-    cfg, loop: DreamerLoop, build: Callable[..., DreamerTrainer], callback: Optional[Callable[[Any, int, Metrics], None]] = None
+    cfg, loop: DreamerLoop, build: Callable[..., DreamerTrainer], callback: Optional[Callable[[Any, int, Metrics], None]] = None,
+    runtime: Optional[Runtime] = None,
 ) -> Dict[str, Any]:
     """Train on ``cfg`` on ``cfg.device`` in DreamerV1's or DreamerV2's loop
     (``loop``) the trainer that ``build(cfg, actions_dim, is_continuous,
@@ -394,15 +428,30 @@ def run_dreamer(
     step for step, unless the buffer evicted or overwrote rows the
     checkpoint refers to after the save.
 
+    Over the ranks of a ``runtime`` with a process group (``fabric.devices``
+    > 1, ``core/runtime.py``) ``build`` also takes the data ``axis``; rank 0
+    runs the loop (envs, buffer, logger, checkpoints), samples the global
+    batch and names each train call, with the target copies it makes, to
+    the other ranks, which run :func:`follow_dreamer`, and every rank takes
+    its block of each step's B rows.
+
     Returns {"agent", "optimizers", "policy_steps", "gradient_steps", "log",
-    "log_dir", "checkpoints", "test_reward", "infeed", "buffer"}: ``log``
-    holds, for every log point, the policy and gradient steps and the values
-    logged there; ``buffer`` the replay buffer."""
-    device = resolve_device(cfg.device)
-    check_env_group(cfg)
+    "log_dir", "checkpoints", "test_reward", "infeed", "buffer",
+    "world_size"}: ``log`` holds, for every log point, the policy and
+    gradient steps and the values logged there; ``buffer`` the replay
+    buffer."""
     # These cannot be changed (the JAX main sets them, as the reference does).
     cfg.env.screen_size = 64
     cfg.env.frame_stack = 1
+    if runtime is not None and not runtime.is_global_zero:
+        return follow_dreamer(cfg, build, runtime)
+    joined = runtime is not None and runtime.joined
+    axis = runtime.axis if joined else SINGLE
+    device = runtime.device if joined else resolve_device(cfg.device)
+    local_batch_size(  # raises unless the batch splits over the ranks
+        int(cfg.algo.per_rank_batch_size), axis.size, dim=1
+    )
+    check_env_group(cfg)
     if not (set(cfg.algo.cnn_keys.encoder) & set(cfg.algo.cnn_keys.decoder)) and not (
         set(cfg.algo.mlp_keys.encoder) & set(cfg.algo.mlp_keys.decoder)
     ):
@@ -416,7 +465,7 @@ def run_dreamer(
         logger.log_hyperparams(cfg)
     log_dir = get_log_dir(os.path.join(cfg.log_root, cfg.root_dir), cfg.run_name, logger=logger)
     print(f"Log dir: {log_dir}", flush=True)
-    telemetry = open_for_run(cfg, log_dir, device)
+    telemetry = open_for_run(cfg, log_dir, device, data_parallel=joined)
     perf = telemetry.perf
     guard, watchdog, health = open_loop()
 
@@ -429,7 +478,9 @@ def run_dreamer(
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     obs_keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
 
-    trainer = build(cfg, actions_dim, is_continuous, observation_space, device, state_ckpt)
+    if joined:
+        runtime.lead("spaces", actions_dim=tuple(actions_dim), is_continuous=is_continuous, observation_space=observation_space.to_spec())
+    trainer = build(cfg, actions_dim, is_continuous, observation_space, device, state_ckpt, **({"axis": axis} if joined else {}))
     agent, train_step = trainer.agent, trainer.train_step
     # The player's placement (core/player.py) and the fetch of its actions
     # (core/interact.py): the serial loop's by default.
@@ -503,6 +554,7 @@ def run_dreamer(
             learning_starts += start_iter
             prefill_steps += start_iter
         rb.add(first_rows(obs, num_envs) if state_ckpt is not None else step_data, validate_args=cfg.buffer.validate_args)
+    replicate_training(axis, [agent], optimizer_leaves(trainer.optimizers), generators=[train_rng.generator])
 
     infeed = ReplayInfeed(rb, batch_size, seq_len, cnn_keys, device, enabled=bool(cfg.buffer.prefetch))
     freq = int(cfg.algo.critic.get("per_rank_target_network_update_freq", 1))
@@ -579,6 +631,8 @@ def run_dreamer(
             per_rank_gradient_steps = ratio(policy_step - prefill_steps * policy_steps_per_iter)
             if per_rank_gradient_steps > 0:
                 batches = infeed.take_or_sample(per_rank_gradient_steps)
+                if joined:
+                    runtime.lead("train", copies=[loop.target_copy and (gradient_steps + i) % freq == 0 for i in range(per_rank_gradient_steps)])
                 with train_timer(device, watchdog):
                     for i in range(per_rank_gradient_steps):
                         if loop.target_copy and gradient_steps % freq == 0:
@@ -646,7 +700,7 @@ def run_dreamer(
             if cfg.buffer.checkpoint:
                 ckpt_state["rb"] = rb.state_dict()
             path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step}_0.ckpt")
-            checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last))
+            checkpoints.append(save_checkpoint(path, ckpt_state, keep_last=cfg.checkpoint.keep_last, world_size=axis.size))
         if exit_on_preemption(guard, policy_step):
             break
 
@@ -662,8 +716,34 @@ def run_dreamer(
         "agent": agent, "optimizers": trainer.optimizers, "policy_steps": policy_step, "gradient_steps": gradient_steps, "log": log,
         "log_dir": log_dir, "checkpoints": checkpoints, "test_reward": test_reward,
         "infeed": {"hits": infeed.hits, "misses": infeed.misses}, "buffer": rb,
-        "interaction": interaction, "placement": placement.stats(),
+        "interaction": interaction, "placement": placement.stats(), "world_size": axis.size,
     }  # fmt: skip
+
+
+def follow_dreamer(cfg, build: Callable[..., DreamerTrainer], runtime: Runtime) -> Dict[str, Any]:
+    """A rank other than 0 of a :func:`run_dreamer` run: the trainer built
+    from rank 0's spaces (no checkpoint: rank 0 alone reads one), its state
+    (resumed or not) replicated from rank 0, then its part of every train
+    call rank 0 names, each gradient step after the target copy rank 0 makes
+    before it, under the rank's own step timer, until the stop. Returns {}."""
+    device, axis = runtime.device, runtime.axis
+    spaces = runtime.expect("spaces")
+    trainer = build(cfg, list(spaces["actions_dim"]), spaces["is_continuous"], spec_to_space(spaces["observation_space"]), device, None, axis=axis)
+    train_rng = BatchGenerator.from_seed(cfg.seed, device)
+    replicate_training(axis, [trainer.agent], optimizer_leaves(trainer.optimizers), generators=[train_rng.generator])
+    telemetry = open_for_run(cfg, None, device, rank_zero=False, data_parallel=True)
+    try:
+        for op, args in runtime.follow():
+            if op != "train":
+                raise RuntimeError(f"rank {runtime.global_rank}: the Dreamer loop's followers take 'train', not {op!r}")
+            with train_timer(device):
+                for copy in args["copies"]:
+                    if copy:
+                        trainer.copy_targets()
+                    trainer.train_step(None, train_rng)
+    finally:
+        telemetry.close()
+    return {}
 
 
 # What a host player mirrors of a DreamerV2 or DreamerV1 agent's state.
@@ -673,6 +753,6 @@ MODULES = ("world_model", "actor", "critic", "target_critic")
 
 
 @register_algorithm()
-def main(cfg, callback: Optional[Callable[[DV2Agent, int, Metrics], None]] = None) -> Dict[str, Any]:
-    """Train DreamerV2 on ``cfg`` (:func:`run_dreamer`)."""
-    return run_dreamer(cfg, DV2_LOOP, functools.partial(loop_trainer, build_agent, make_train_step, MODULES), callback)
+def main(cfg, callback: Optional[Callable[[DV2Agent, int, Metrics], None]] = None, runtime: Optional[Runtime] = None) -> Dict[str, Any]:
+    """Train DreamerV2 on ``cfg`` (:func:`run_dreamer`, over ``runtime``'s ranks)."""
+    return run_dreamer(cfg, DV2_LOOP, functools.partial(loop_trainer, build_agent, make_train_step, MODULES), callback, runtime)

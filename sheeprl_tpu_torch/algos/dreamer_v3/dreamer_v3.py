@@ -84,8 +84,10 @@ from sheeprl_tpu_torch.core.mesh import (
     all_mean_grads,
     all_mean_metrics,
     local_batch_size,
+    optimizer_leaves,
     replicate_training,
     shard_batch,
+    tensor_leaves,
 )
 from sheeprl_tpu_torch.core.runtime import Runtime
 from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
@@ -378,6 +380,17 @@ class DV3Learner:
         }
 
 
+def shard_step_inputs(data: Optional[Dict[str, torch.Tensor]], rng, axis: DataAxis, device: torch.device):
+    """One rank's part of a Dreamer step's inputs: rank 0's time-major
+    ``data`` (the other ranks pass None) with this rank's block of B
+    (``P(None, data)`` in the JAX step), and ``rng`` drawing the whole
+    batch's noise and keeping this rank's rows (:class:`ShardedGenerator`).
+    On one rank, the inputs as they are."""
+    if not axis.joined:
+        return data, rng
+    return shard_batch(data, axis, dim=1, device=device), ShardedGenerator(rng, axis.size, axis.index)
+
+
 def make_train_step(
     agent: DV3Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, axis: DataAxis = SINGLE
 ) -> Callable[[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Any, float], tuple]:
@@ -406,9 +419,7 @@ def make_train_step(
     device = next(wm.parameters()).device
 
     def step(moments_state, data, rng, tau):
-        if axis.joined:
-            data = shard_batch(data, axis, dim=1, device=device)
-            rng = ShardedGenerator(rng, axis.size, axis.index)
+        data, rng = shard_step_inputs(data, rng, axis, device)
         tape = ProbeTape() if probes else None
         with record_function("dv3/world_model"):
             losses, posteriors, recurrent_states, pol, pl, wm_norm = learner.update_world_model(
@@ -647,7 +658,7 @@ def follow_dreamer_v3(cfg, build: Callable[..., DV3Trainer], runtime: Runtime) -
     spaces = runtime.expect("spaces")
     trainer = build(cfg, list(spaces["actions_dim"]), spaces["is_continuous"], spec_to_space(spaces["observation_space"]), device, None, axis=axis)
     moments, train_rng = trainer.moments, BatchGenerator.from_seed(cfg.seed, device)
-    replicate_training(axis, [trainer.agent], trainer.optimizers.values(), moments.values(), [train_rng.generator])
+    replicate_training(axis, [trainer.agent], optimizer_leaves(trainer.optimizers), tensor_leaves(moments), [train_rng.generator])
     telemetry = open_for_run(cfg, None, device, rank_zero=False, data_parallel=True)
     try:
         for op, args in runtime.follow():
@@ -824,7 +835,7 @@ def run_dreamer_v3(
         else:
             learning_starts += start_iter
             prefill_steps += start_iter
-    replicate_training(axis, [trainer.agent], trainer.optimizers.values(), moments.values(), [train_rng.generator])
+    replicate_training(axis, [trainer.agent], optimizer_leaves(trainer.optimizers), tensor_leaves(moments), [train_rng.generator])
 
     # The host path's batches (data/infeed.py): with buffer.prefetch the
     # next train call's batches are sampled after this one and copied to the

@@ -22,7 +22,10 @@ Every step takes its randomness as tensors (:func:`critic_draws`,
 :func:`actor_draws`: the normals and the dropout keep-masks), which the
 trainer draws from its generator and a parity test takes from the JAX
 function. :func:`main` is SAC's :func:`run_off_policy` with DroQ's agent and
-train calls.
+train calls. Over a data axis (``fabric.devices`` > 1) each rank takes its
+block of every batch's rows, draws the whole batch's normals and keep-masks
+and keeps its rows (the JAX masks are a function of the key and the global
+batch), and each update means its gradients over the ranks.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from torch.profiler import record_function
 from sheeprl_tpu_torch.algos.droq.agent import DROQAgent, build_agent
 from sheeprl_tpu_torch.algos.sac.sac import Metrics, OffPolicyAlgo, _adam_step, _float_batch, actor_alpha_step, run_off_policy
 from sheeprl_tpu_torch.core.graphs import CapturedStep, RingHolder, power_of_two_buckets
+from sheeprl_tpu_torch.core.mesh import SINGLE, DataAxis, all_mean_metrics, shard_batch
+from sheeprl_tpu_torch.core.runtime import Runtime
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceReplayRing
 from sheeprl_tpu_torch.registry import register_algorithm
@@ -52,37 +57,41 @@ def ensemble_mean(q: torch.Tensor) -> torch.Tensor:
     return q.mean(-1, keepdim=True)
 
 
-def _masks(agent: DROQAgent, rng: BatchGenerator, batch_size: int) -> Optional[List[torch.Tensor]]:
-    """One Q evaluation's keep-masks, each entry kept with probability
-    ``1 - dropout`` (None without dropout)."""
+def _masks(agent: DROQAgent, rng: BatchGenerator, batch_size: int, rows: slice = slice(None)) -> Optional[List[torch.Tensor]]:
+    """One Q evaluation's keep-masks ``[n, B, H]`` for ``batch_size`` rows,
+    each entry kept with probability ``1 - dropout``, of which ``rows``
+    are kept (None without dropout)."""
     if agent.dropout <= 0:
         return None
     g = rng.generator
-    return [torch.rand(shape, generator=g, device=g.device) < 1.0 - agent.dropout for shape in agent.mask_shapes(batch_size)]
+    return [(torch.rand(shape, generator=g, device=g.device) < 1.0 - agent.dropout)[:, rows] for shape in agent.mask_shapes(batch_size)]
 
 
-def critic_draws(agent: DROQAgent, rng: BatchGenerator, batch_size: int) -> Draws:
-    """One critic step's randomness: the target actor's normals ``[B, A]``,
-    the target critics' and the online critics' keep-masks (None without
-    dropout)."""
+def critic_draws(agent: DROQAgent, rng: BatchGenerator, batch_size: int, rows: slice = slice(None)) -> Draws:
+    """One critic step's randomness for ``batch_size`` rows, of which
+    ``rows`` are kept (a data-parallel rank's): the target actor's normals
+    ``[B, A]``, the target critics' and the online critics' keep-masks (None
+    without dropout)."""
     return {
-        "target_noise": rng.randn((int(batch_size), agent.action_dim)),
-        "target_masks": _masks(agent, rng, batch_size),
-        "masks": _masks(agent, rng, batch_size),
+        "target_noise": rng.randn((int(batch_size), agent.action_dim))[rows],
+        "target_masks": _masks(agent, rng, batch_size, rows),
+        "masks": _masks(agent, rng, batch_size, rows),
     }
 
 
-def actor_draws(agent: DROQAgent, rng: BatchGenerator, batch_size: int) -> Draws:
-    """The actor step's randomness: its normals and the critics' keep-masks."""
-    return {"noise": rng.randn((int(batch_size), agent.action_dim)), "masks": _masks(agent, rng, batch_size)}
+def actor_draws(agent: DROQAgent, rng: BatchGenerator, batch_size: int, rows: slice = slice(None)) -> Draws:
+    """The actor step's randomness: its normals and the critics' keep-masks
+    (``rows`` of them, as :func:`critic_draws`)."""
+    return {"noise": rng.randn((int(batch_size), agent.action_dim))[rows], "masks": _masks(agent, rng, batch_size, rows)}
 
 
-def make_critic_step(agent: DROQAgent, optimizers: Optimizers, cfg) -> Callable[[Dict[str, torch.Tensor], Draws], torch.Tensor]:
+def make_critic_step(agent: DROQAgent, optimizers: Optimizers, cfg, axis: DataAxis = SINGLE) -> Callable[[Dict[str, torch.Tensor], Draws], torch.Tensor]:
     """``critic_step(batch, draws) -> value_loss``: one critic update on a
     ``[B, ...]`` batch, then the target EMA with the full tau. With
     ``health`` probes on it returns the row ``[value_loss, probes over the
     critics' update]`` (``droq.py:82`` of the JAX package), named by
-    ``critic_step.keys``."""
+    ``critic_step.keys``. Over a data ``axis`` the gradients are meaned over
+    the ranks before the step."""
     gamma = float(cfg.algo.gamma)
     tau = torch.full((), float(agent.tau), device=agent.log_alpha.device)
     probes = probes_enabled(cfg)
@@ -97,7 +106,7 @@ def make_critic_step(agent: DROQAgent, optimizers: Optimizers, cfg) -> Callable[
             # Each critic's MSE against the shared target, summed.
             qf_loss = ((qf - target) ** 2).mean(0).sum()
             tape = ProbeTape() if probes else None
-            _adam_step(optimizers["qf"], qf_loss, None, tape, qf_params)
+            _adam_step(optimizers["qf"], qf_loss, None, tape, qf_params, axis)
             agent.target_ema_(tau)
             if tape is not None:
                 return torch.stack([qf_loss.detach(), *tape.metrics().values()])
@@ -107,7 +116,7 @@ def make_critic_step(agent: DROQAgent, optimizers: Optimizers, cfg) -> Callable[
     return critic_step
 
 
-def make_actor_alpha_update(agent: DROQAgent, optimizers: Optimizers, cfg) -> Callable[[torch.Tensor, Draws], torch.Tensor]:
+def make_actor_alpha_update(agent: DROQAgent, optimizers: Optimizers, cfg, axis: DataAxis = SINGLE) -> Callable[[torch.Tensor, Draws], torch.Tensor]:
     """``actor_step(observations, draws) -> [policy_loss, alpha_loss]``;
     with ``health`` probes on the row goes on with the probes over the actor
     and alpha updates under ``health/actor_*``, then alpha and the entropy
@@ -118,7 +127,9 @@ def make_actor_alpha_update(agent: DROQAgent, optimizers: Optimizers, cfg) -> Ca
         with record_function("droq/actor_step"):
             masks = draws["masks"]
             tape, aux = (ProbeTape(), {}) if probes else (None, None)
-            losses = actor_alpha_step(agent, optimizers, obs, lambda o, a: ensemble_mean(agent.q_values(o, a, masks=masks)), draws["noise"], tape, aux)
+            losses = actor_alpha_step(
+                agent, optimizers, obs, lambda o, a: ensemble_mean(agent.q_values(o, a, masks=masks)), draws["noise"], tape, aux, axis
+            )
             if tape is not None:
                 return torch.stack([*losses, *tape.metrics(aux, prefix=ACTOR_PROBE_PREFIX).values()])
             return torch.stack(losses)
@@ -127,14 +138,15 @@ def make_actor_alpha_update(agent: DROQAgent, optimizers: Optimizers, cfg) -> Ca
     return actor_step
 
 
-def make_train_step(agent: DROQAgent, optimizers: Optimizers, cfg) -> Callable[..., Metrics]:
+def make_train_step(agent: DROQAgent, optimizers: Optimizers, cfg, axis: DataAxis = SINGLE) -> Callable[..., Metrics]:
     """``train_step(critic_data, actor_obs, draws) -> metrics``: a critic
     step for each ``[B, ...]`` slice of ``critic_data`` (``[G, B, ...]``)
     with ``draws["critic"][g]``, then the actor and alpha step on
     ``actor_obs`` with ``draws["actor"]``. The value loss is the critic
-    steps' mean."""
-    critic_step = make_critic_step(agent, optimizers, cfg)
-    actor_step = make_actor_alpha_update(agent, optimizers, cfg)
+    steps' mean. Over a data ``axis`` B and the draws are this rank's rows,
+    and the metrics are averaged over the ranks."""
+    critic_step = make_critic_step(agent, optimizers, cfg, axis)
+    actor_step = make_actor_alpha_update(agent, optimizers, cfg, axis)
 
     def train_step(critic_data: Dict[str, torch.Tensor], actor_obs: torch.Tensor, draws: Dict[str, Any]) -> Metrics:
         critic = torch.stack([critic_step({k: v[g] for k, v in critic_data.items()}, d) for g, d in enumerate(draws["critic"])])
@@ -143,7 +155,7 @@ def make_train_step(agent: DROQAgent, optimizers: Optimizers, cfg) -> Callable[.
         else:
             metrics = dict(zip(critic_step.keys, critic.mean(0).unbind()))
         metrics.update(zip(actor_step.keys, actor_step(actor_obs, draws["actor"]).unbind()))
-        return metrics
+        return all_mean_metrics(metrics, axis)
 
     return train_step
 
@@ -196,23 +208,32 @@ class DroQTrainer:
 
     watchdog = None
 
-    def __init__(self, agent: DROQAgent, optimizers: Optimizers, cfg, rng: BatchGenerator):
-        self.agent, self.optimizers, self.cfg, self.rng = agent, optimizers, cfg, rng
+    def __init__(self, agent: DROQAgent, optimizers: Optimizers, cfg, rng: BatchGenerator, axis: DataAxis = SINGLE):
+        self.agent, self.optimizers, self.cfg, self.rng, self.axis = agent, optimizers, cfg, rng, axis
         self.batch_size = int(cfg.algo.per_rank_batch_size)
         self.sample_next_obs = bool(cfg.buffer.sample_next_obs)
-        self.train_step = make_train_step(agent, optimizers, cfg)
+        self.train_step = make_train_step(agent, optimizers, cfg, axis)
         self.fused = None
 
-    def host(self, rb: ReplayBuffer, steps: int, tau: float, first_step: int = 0) -> List[Metrics]:
+    def host(self, rb: Optional[ReplayBuffer], steps: int, tau: float, first_step: int = 0) -> List[Metrics]:
         """One critic sample of ``steps`` x B rows and one actor sample of
-        B rows (``droq.py:44-94``), then :func:`make_train_step`."""
-        device = self.agent.log_alpha.device
-        critic_data = _float_batch(rb.sample(steps * self.batch_size, sample_next_obs=self.sample_next_obs), steps, self.batch_size, device)
-        actor_obs = _float_batch(rb.sample(self.batch_size, sample_next_obs=self.sample_next_obs), 0, self.batch_size, device)["observations"]
+        B rows (``droq.py:44-94``), then :func:`make_train_step`. Over a
+        data axis rank 0 samples (the other ranks pass no ``rb``) and every
+        rank keeps its block of each B rows and of their draws."""
+        device, B = self.agent.log_alpha.device, self.batch_size
+        critic_data = actor_obs = None
+        if rb is not None:
+            critic_data = _float_batch(rb.sample(steps * B, sample_next_obs=self.sample_next_obs), steps, B, device)
+            actor_obs = _float_batch(rb.sample(B, sample_next_obs=self.sample_next_obs), 0, B, device)["observations"]
         with train_timer(device, self.watchdog):
+            rows = slice(None)
+            if self.axis.joined:
+                tree = shard_batch(None if rb is None else {**critic_data, "actor/observations": actor_obs[None]}, self.axis, dim=1, device=device)
+                actor_obs = tree.pop("actor/observations")[0]
+                critic_data, rows = tree, self.axis.rows(B)
             draws = {
-                "critic": [critic_draws(self.agent, self.rng, self.batch_size) for _ in range(steps)],
-                "actor": actor_draws(self.agent, self.rng, self.batch_size),
+                "critic": [critic_draws(self.agent, self.rng, B, rows) for _ in range(steps)],
+                "actor": actor_draws(self.agent, self.rng, B, rows),
             }
             return [self.train_step(critic_data, actor_obs, draws)]
 
@@ -241,8 +262,8 @@ class DroQTrainer:
 
 
 @register_algorithm()
-def main(cfg, callback: Optional[Callable[[DROQAgent, int, List[Metrics]], None]] = None) -> Dict[str, Any]:
-    """Train DroQ on ``cfg`` on ``cfg.device`` (:func:`run_off_policy`)."""
+def main(cfg, callback: Optional[Callable[[DROQAgent, int, List[Metrics]], None]] = None, runtime: Optional[Runtime] = None) -> Dict[str, Any]:
+    """Train DroQ on ``cfg`` on ``cfg.device`` (:func:`run_off_policy`, over ``runtime``'s ranks)."""
     if "minedojo" in str(cfg.env.wrapper.get("_target_", "")).lower():
         raise ValueError("MineDojo is not supported by the DroQ agent, which ignores the env's action masks; use a Dreamer agent instead.")
-    return run_off_policy(cfg, callback, OffPolicyAlgo("DroQ", build_agent, DroQTrainer))
+    return run_off_policy(cfg, callback, OffPolicyAlgo("DroQ", build_agent, DroQTrainer), runtime)

@@ -8,7 +8,8 @@ prefill, the exploration actor plays (with DreamerV1's exploration noise) up
 to ``learning_starts`` (with ``algo.player.actor_type=exploration``) and the
 task actor after it, the buffer carried over with
 ``buffer.load_from_exploration``, and the checkpoint keeps
-``actor_exploration``.
+``actor_exploration``. Over a data axis rank 0 alone reads the exploration
+checkpoint (:func:`run_dreamer`'s followers take its state).
 """
 
 from __future__ import annotations
@@ -21,10 +22,11 @@ from sheeprl_tpu_torch.algos.dreamer_v1 import dreamer_v1 as dv1
 from sheeprl_tpu_torch.algos.dreamer_v1.agent import DV1Agent, build_agent
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import DreamerTrainer, Metrics, run_dreamer
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers
-from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning import OPTIMIZER_KEYS, inherit_exploration_hparams
+from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning import OPTIMIZER_KEYS, exploration_state, inherit_exploration_hparams
+from sheeprl_tpu_torch.core.mesh import SINGLE, DataAxis
+from sheeprl_tpu_torch.core.runtime import Runtime
 from sheeprl_tpu_torch.optim import load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
-from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint
 
 MODULE_KEYS = {"world_model": "world_model", "actor": "actor_task", "critic": "critic_task"}
 # The settings a finetuning run takes from its exploration run (its models must match).
@@ -38,15 +40,18 @@ def training_state(agent: DV1Agent, actor_exploration, optimizers) -> Dict[str, 
     return state
 
 
-def _build(exploration_cfg, cfg, actions_dim, is_continuous, observation_space, device, state_ckpt) -> DreamerTrainer:
+def _build(
+    exploration_cfg, cfg, actions_dim, is_continuous, observation_space, device, state_ckpt, axis: DataAxis = SINGLE
+) -> DreamerTrainer:  # fmt: skip
     resumed = state_ckpt is not None
-    ckpt = state_ckpt if resumed else load_checkpoint(cfg.checkpoint.exploration_ckpt_path)
+    ckpt = exploration_state(cfg, state_ckpt, axis)
     agent = build_agent(
         actions_dim, is_continuous, cfg, observation_space, precision=cfg.fabric.precision, device=device, seed=cfg.seed,
-        **{f"{name}_state": ckpt[key] for name, key in MODULE_KEYS.items()},
+        **{f"{name}_state": ckpt.get(key) for name, key in MODULE_KEYS.items()},
     )  # fmt: skip
     actor_exploration = copy.deepcopy(agent.actor)
-    actor_exploration.load_state_dict(ckpt["actor_exploration"])
+    if "actor_exploration" in ckpt:
+        actor_exploration.load_state_dict(ckpt["actor_exploration"])
     explorer = DV1Agent(agent.world_model, actor_exploration, agent.critic, agent.actor_spec)
     optimizers = make_optimizers(agent, cfg)
     if resumed:
@@ -61,17 +66,20 @@ def _build(exploration_cfg, cfg, actions_dim, is_continuous, observation_space, 
         return explorer if explore and iter_num <= learning_starts else agent
 
     return DreamerTrainer(
-        agent=agent, optimizers=optimizers, train_step=dv1.make_train_step(agent, optimizers, cfg),
+        agent=agent, optimizers=optimizers, train_step=dv1.make_train_step(agent, optimizers, cfg, axis),
         state=functools.partial(training_state, agent, actor_exploration, optimizers), copy_targets=lambda: None, player=player,
         test_agent=agent, random_prefill=False, buffer_state=buffer_state,
     )  # fmt: skip
 
 
 @register_algorithm(after_exploration=True)
-def main(cfg, callback: Optional[Callable[[DV1Agent, int, Metrics], None]] = None, exploration_cfg=None) -> Dict[str, Any]:
+def main(
+    cfg, callback: Optional[Callable[[DV1Agent, int, Metrics], None]] = None, exploration_cfg=None, runtime: Optional[Runtime] = None
+) -> Dict[str, Any]:  # fmt: skip
     """Finetune the task side of ``checkpoint.exploration_ckpt_path`` on
-    ``cfg`` (DreamerV1's loop and return value); ``exploration_cfg``, the
-    exploration run's config, gives the model's settings."""
+    ``cfg`` (DreamerV1's loop and return value, over ``runtime``'s ranks);
+    ``exploration_cfg``, the exploration run's config, gives the model's
+    settings."""
     if exploration_cfg is not None:
         inherit_exploration_hparams(cfg, exploration_cfg, INHERITED)
-    return run_dreamer(cfg, dv1.DV1_LOOP, functools.partial(_build, exploration_cfg), callback)
+    return run_dreamer(cfg, dv1.DV1_LOOP, functools.partial(_build, exploration_cfg), callback, runtime)

@@ -29,7 +29,9 @@ import torch
 from torch.profiler import record_function
 
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import DV2_LOOP, DreamerTrainer, DV2Learner, Metrics, _clip, run_dreamer
-from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import frozen
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import frozen, shard_step_inputs
+from sheeprl_tpu_torch.core.mesh import SINGLE, DataAxis, all_mean_metrics
+from sheeprl_tpu_torch.core.runtime import Runtime
 from sheeprl_tpu_torch.algos.p2e_dv2.agent import P2EDV2Agent, build_agent
 from sheeprl_tpu_torch.algos.p2e_dv3.agent import intrinsic_reward, update_ensemble
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
@@ -58,24 +60,32 @@ def make_optimizers(agent: P2EDV2Agent, cfg) -> Dict[str, torch.optim.Optimizer]
     return {name: build_optimizer(module.parameters(), node.optimizer) for name, (module, node) in modules.items()}
 
 
-def make_train_step(agent: P2EDV2Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg) -> Callable[[Dict[str, torch.Tensor], Any], Metrics]:
+def make_train_step(
+    agent: P2EDV2Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, axis: DataAxis = SINGLE
+) -> Callable[[Dict[str, torch.Tensor], Any], Metrics]:
     """-> ``step(data, rng) -> metrics``: one gradient step of every
-    module, in place; ``data`` and ``rng`` are DreamerV2's."""
-    learner = DV2Learner(agent.world_model, agent.actor_spec, cfg)
+    module, in place; ``data`` and ``rng`` are DreamerV2's, and so is a
+    data ``axis``'s split of the step (every update, the ensemble's too,
+    means its gradients over the ranks)."""
+    learner = DV2Learner(agent.world_model, agent.actor_spec, cfg, axis)
     wm, ensembles = agent.world_model, agent.ensembles
     multiplier = float(cfg.algo.intrinsic_reward_multiplier)
     S, R = learner.stoch_state_size, learner.recurrent_state_size
+    device = next(wm.parameters()).device
 
     def step(data: Dict[str, torch.Tensor], rng) -> Metrics:
+        data, rng = shard_step_inputs(data, rng, axis, device)
+        T, B = data["rewards"].shape[:2]
         with record_function("p2e/world_model"):
             losses, posteriors, recurrent_states, pol, pl, wm_norm = learner.update_world_model(optimizers["world_model"], data, rng)
             posteriors, recurrent_states = posteriors.detach(), recurrent_states.detach()
         with record_function("p2e/ensemble"):
             ensemble_loss, ensemble_norm = update_ensemble(
-                ensembles, optimizers["ensembles"], cfg.algo.ensembles.clip_gradients, posteriors, recurrent_states, data["actions"], _clip
-            )
+                ensembles, optimizers["ensembles"], cfg.algo.ensembles.clip_gradients, posteriors, recurrent_states, data["actions"], _clip,
+                axis=axis,
+            )  # fmt: skip
         prior0, h0 = posteriors.reshape(-1, S), recurrent_states.reshape(-1, R)
-        with record_function("p2e/exploration"):
+        with record_function("p2e/exploration"), rng.rows(B, time=T):
             with frozen((wm, agent.critic_exploration)):
                 trajectories, imagined_actions = learner.imagine(agent.actor_exploration, prior0, h0, rng)
                 intrinsic = intrinsic_reward(ensembles, trajectories, imagined_actions, multiplier)
@@ -87,7 +97,7 @@ def make_train_step(agent: P2EDV2Agent, optimizers: Dict[str, torch.optim.Optimi
             value_loss_expl, critic_expl_norm = learner.update_critic(
                 agent.critic_exploration, optimizers["critic_exploration"], trajectories.detach(), lambda_values.detach(), discount
             )
-        with record_function("p2e/task"):
+        with record_function("p2e/task"), rng.rows(B, time=T):
             with frozen((wm, agent.critic)):
                 traj_task, lambda_task, discount_task, policy_loss_task, actor_task_norm = learner.behaviour(
                     agent.actor, agent.target_critic, optimizers["actor_task"], data, prior0, h0, rng
@@ -101,7 +111,7 @@ def make_train_step(agent: P2EDV2Agent, optimizers: Dict[str, torch.optim.Optimi
             "Grads/actor_task": actor_task_norm, "Grads/critic_task": critic_task_norm, "Grads/actor_exploration": actor_expl_norm,
             "Grads/critic_exploration": critic_expl_norm, "Grads/ensemble": ensemble_norm,
         })  # fmt: skip
-        return metrics
+        return all_mean_metrics(metrics, axis)
 
     return step
 
@@ -112,7 +122,7 @@ def training_state(agent: P2EDV2Agent, optimizers: Dict[str, torch.optim.Optimiz
     return state
 
 
-def _build(cfg, actions_dim, is_continuous, observation_space, device, state_ckpt) -> DreamerTrainer:
+def _build(cfg, actions_dim, is_continuous, observation_space, device, state_ckpt, axis: DataAxis = SINGLE) -> DreamerTrainer:
     states = None if state_ckpt is None else {name: state_ckpt[key] for name, key in MODULE_KEYS.items()}
     agent = build_agent(actions_dim, is_continuous, cfg, observation_space, precision=cfg.fabric.precision, device=device, seed=cfg.seed, states=states)
     optimizers = make_optimizers(agent, cfg)
@@ -121,15 +131,16 @@ def _build(cfg, actions_dim, is_continuous, observation_space, device, state_ckp
             load_optimizer_state(optimizers[name], state_ckpt[key])
     player = agent.player(str(cfg.algo.player.actor_type))
     return DreamerTrainer(
-        agent=agent, optimizers=optimizers, train_step=make_train_step(agent, optimizers, cfg),
+        agent=agent, optimizers=optimizers, train_step=make_train_step(agent, optimizers, cfg, axis),
         state=functools.partial(training_state, agent, optimizers), copy_targets=agent.copy_targets,
         player=lambda i, learning_starts: player, test_agent=player,
     )  # fmt: skip
 
 
 @register_algorithm()
-def main(cfg, callback: Optional[Callable[[P2EDV2Agent, int, Metrics], None]] = None) -> Dict[str, Any]:
+def main(cfg, callback: Optional[Callable[[P2EDV2Agent, int, Metrics], None]] = None, runtime: Optional[Runtime] = None) -> Dict[str, Any]:
     """Train P2E-DV2's exploration phase on ``cfg`` (DreamerV2's loop, log
-    dir, checkpoints, resume and return value, :func:`run_dreamer`);
-    ``callback(agent, gradient_step, metrics)`` runs after every gradient step."""
-    return run_dreamer(cfg, DV2_LOOP, _build, callback)
+    dir, checkpoints, resume and return value, :func:`run_dreamer`, over
+    ``runtime``'s ranks); ``callback(agent, gradient_step, metrics)`` runs
+    after every gradient step."""
+    return run_dreamer(cfg, DV2_LOOP, _build, callback, runtime)

@@ -29,6 +29,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     init_actor_,
 )
 from sheeprl_tpu_torch.core.device import DeviceLike, resolve_device
+from sheeprl_tpu_torch.core.mesh import SINGLE, DataAxis, all_mean_grads
 from sheeprl_tpu_torch.core.precision import resolve_precision
 from sheeprl_tpu_torch.models.models import EnsembleMLP
 from sheeprl_tpu_torch.utils.distribution import MSEDistribution
@@ -69,15 +70,18 @@ def ensemble_apply(ensemble: EnsembleMLP, x: torch.Tensor) -> torch.Tensor:
 
 
 def update_ensemble(
-    ensemble: EnsembleMLP, optimizer, clip, posteriors, recurrent_states, actions, clip_fn, targets=None, member_nll=None
+    ensemble: EnsembleMLP, optimizer, clip, posteriors, recurrent_states, actions, clip_fn, targets=None, member_nll=None,
+    axis: DataAxis = SINGLE,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Each member regresses the next step's target from ``[posterior,
     recurrent state, action]`` over ``[T, B]`` (only the first T - 1 steps
     have a next target: sliced before the forward); the target is the next
     posterior unless ``targets`` (``[T, B, out]``) are given, and each
     member's loss its mean squared error unless ``member_nll(pred, target)``
-    is given; the loss is the sum over members. Backward, ``clip_fn(ensemble,
-    clip)`` and the step -> (loss, pre-clip norm)."""
+    is given; the loss is the sum over members. Backward, the gradients
+    meaned over the data ``axis``'s ranks (each member's loss is a mean over
+    the rows), ``clip_fn(ensemble, clip)`` and the step -> (loss, pre-clip
+    norm)."""
     x = torch.cat([posteriors, recurrent_states, actions], -1)[:-1]
     target = (posteriors if targets is None else targets)[1:].float()
     preds = ensemble_apply(ensemble, x).float()
@@ -86,6 +90,7 @@ def update_ensemble(
     loss = torch.stack([member_nll(pred, target) for pred in preds]).sum()
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    all_mean_grads(ensemble.parameters(), axis)
     norm = clip_fn(ensemble, clip)
     optimizer.step()
     return loss.detach(), norm

@@ -39,9 +39,11 @@ from typing import Any, Callable, Dict, Optional
 import torch
 from torch.profiler import record_function
 
-from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Learner, DV3Trainer, Metrics, _clip, frozen, run_dreamer_v3
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Learner, DV3Trainer, Metrics, _clip, frozen, run_dreamer_v3, shard_step_inputs
 from sheeprl_tpu_torch.algos.p2e_dv3.agent import P2EDV3Agent, build_agent, intrinsic_reward, update_ensemble
 from sheeprl_tpu_torch.algos.p2e_dv3.utils import expand_critic_metrics
+from sheeprl_tpu_torch.core.mesh import SINGLE, DataAxis, all_mean_metrics
+from sheeprl_tpu_torch.core.runtime import Runtime
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.utils.distribution import TwoHotEncodingDistribution
@@ -91,13 +93,18 @@ def critic_weights(critics_cfg: Dict[str, Dict[str, Any]]) -> Dict[str, float]:
     return {name: c["weight"] / total for name, c in critics_cfg.items()}
 
 
-def make_train_step(agent: P2EDV3Agent, optimizers: Dict[str, Any], cfg) -> Callable[..., tuple]:
+def make_train_step(agent: P2EDV3Agent, optimizers: Dict[str, Any], cfg, axis: DataAxis = SINGLE) -> Callable[..., tuple]:
     """-> ``step(moments, data, rng, tau) -> (moments, metrics)``: one
     gradient step of every module, updating their parameters, optimizer
     states and targets (by ``tau``) in place. ``data`` and ``rng`` are
     DreamerV3's (:func:`sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3.make_train_step`);
-    ``moments`` is ``{"task": ..., "exploration": {name: ...}}``."""
-    learner = DV3Learner(agent.world_model, agent.actor_spec, cfg)
+    ``moments`` is ``{"task": ..., "exploration": {name: ...}}``. Over a
+    data ``axis`` the step is one rank's part of the global step, as
+    DreamerV3's: B sharded, the whole batch's draws, every update's
+    gradients meaned over the ranks (the ensemble's too), every critic's
+    moments from the λ-returns gathered over the ranks, the metrics
+    averaged."""
+    learner = DV3Learner(agent.world_model, agent.actor_spec, cfg, axis)
     learner.decoupled = False  # the JAX trainer scans `dynamic` whatever algo.world_model.decoupled_rssm says
     wm, ensembles = agent.world_model, agent.ensembles
     names = sorted(agent.critics_cfg)
@@ -105,6 +112,7 @@ def make_train_step(agent: P2EDV3Agent, optimizers: Dict[str, Any], cfg) -> Call
     critics = {name: agent.critics_exploration[name]["module"] for name in names}
     multiplier = float(cfg.algo.intrinsic_reward_multiplier)
     S, R = learner.stoch_state_size, learner.recurrent_state_size
+    device = next(wm.parameters()).device
 
     def exploration(moments, data, prior0, h0, rng):
         """Step 3: the exploration actor's imagination, every critic's
@@ -127,6 +135,8 @@ def make_train_step(agent: P2EDV3Agent, optimizers: Dict[str, Any], cfg) -> Call
         return new_moments, trajectories.detach(), discount, per_critic, intrinsic.mean(), policy_loss, norm
 
     def step(moments, data, rng, tau):
+        data, rng = shard_step_inputs(data, rng, axis, device)
+        T, B = data["rewards"].shape[:2]
         with record_function("p2e/world_model"):
             losses, posteriors, recurrent_states, pol, pl, wm_norm = learner.update_world_model(
                 optimizers["world_model"], data, learner.batch_obs(data), rng
@@ -134,13 +144,14 @@ def make_train_step(agent: P2EDV3Agent, optimizers: Dict[str, Any], cfg) -> Call
             posteriors, recurrent_states = posteriors.detach(), recurrent_states.detach()
         with record_function("p2e/ensemble"):
             ensemble_loss, ensemble_norm = update_ensemble(
-                ensembles, optimizers["ensembles"], cfg.algo.ensembles.clip_gradients, posteriors, recurrent_states, data["actions"], _clip
-            )
+                ensembles, optimizers["ensembles"], cfg.algo.ensembles.clip_gradients, posteriors, recurrent_states, data["actions"], _clip,
+                axis=axis,
+            )  # fmt: skip
         prior0, h0 = posteriors.reshape(-1, S), recurrent_states.reshape(-1, R)
 
         metrics: Metrics = learner.world_model_metrics(losses, pol, pl)
         with record_function("p2e/exploration"):
-            with frozen([wm, *critics.values()], learner.pathwise):
+            with frozen([wm, *critics.values()], learner.pathwise), rng.rows(B, time=T):
                 expl_moments, traj, discount, per_critic, mean_intrinsic, policy_loss_expl, actor_expl_norm = exploration(
                     moments["exploration"], data, prior0, h0, rng
                 )
@@ -170,7 +181,7 @@ def make_train_step(agent: P2EDV3Agent, optimizers: Dict[str, Any], cfg) -> Call
             "Grads/world_model": wm_norm, "Grads/actor_task": actor_task_norm, "Grads/critic_task": critic_task_norm,
             "Grads/actor_exploration": actor_expl_norm, "Grads/ensemble": ensemble_norm,
         })  # fmt: skip
-        return {"task": task_moments, "exploration": expl_moments}, metrics
+        return {"task": task_moments, "exploration": expl_moments}, all_mean_metrics(metrics, axis)
 
     return step
 
@@ -184,7 +195,7 @@ def training_state(agent: P2EDV3Agent, optimizers: Dict[str, Any], moments: Dict
     return state
 
 
-def _build(cfg, actions_dim, is_continuous, observation_space, device, state_ckpt) -> DV3Trainer:
+def _build(cfg, actions_dim, is_continuous, observation_space, device, state_ckpt, axis: DataAxis = SINGLE) -> DV3Trainer:
     states = None if state_ckpt is None else {name: state_ckpt[key] for name, key in MODULE_KEYS.items()}
     agent = build_agent(actions_dim, is_continuous, cfg, observation_space, precision=cfg.fabric.precision, device=device, seed=cfg.seed, states=states)
     optimizers = make_optimizers(agent, cfg)
@@ -197,7 +208,7 @@ def _build(cfg, actions_dim, is_continuous, observation_space, device, state_ckp
         moments = moments_to(state_ckpt["moments"], device)
     player = agent.player(str(cfg.algo.player.actor_type))
     return DV3Trainer(
-        agent=agent, optimizers=optimizers, train_step=make_train_step(agent, optimizers, cfg), moments=moments,
+        agent=agent, optimizers=optimizers, train_step=make_train_step(agent, optimizers, cfg, axis), moments=moments,
         state=functools.partial(training_state, agent, optimizers), player=lambda i, learning_starts: player,
         test_agent=player, test_sample=True,
         on_aggregator=functools.partial(expand_critic_metrics, critic_names=sorted(agent.critics_cfg)),
@@ -205,10 +216,10 @@ def _build(cfg, actions_dim, is_continuous, observation_space, device, state_ckp
 
 
 @register_algorithm()
-def main(cfg, callback: Optional[Callable[[P2EDV3Agent, int, float, Metrics], None]] = None) -> Dict[str, Any]:
+def main(cfg, callback: Optional[Callable[[P2EDV3Agent, int, float, Metrics], None]] = None, runtime: Optional[Runtime] = None) -> Dict[str, Any]:
     """Train P2E-DV3's exploration phase on ``cfg`` on ``cfg.device``:
     DreamerV3's loop, log dir, checkpoints, resume and return value
-    (:func:`run_dreamer_v3`) around :func:`make_train_step`;
-    ``callback(agent, gradient_step, tau, metrics)`` runs after every
-    gradient step."""
-    return run_dreamer_v3(cfg, _build, callback)
+    (:func:`run_dreamer_v3`, over ``runtime``'s ranks) around
+    :func:`make_train_step`; ``callback(agent, gradient_step, tau,
+    metrics)`` runs after every gradient step."""
+    return run_dreamer_v3(cfg, _build, callback, runtime)

@@ -52,15 +52,13 @@ from sheeprl_tpu_torch.algos.ppo.agent import PPOAgent, build_agent
 from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_loss
 from sheeprl_tpu_torch.algos.ppo.utils import test
 from sheeprl_tpu_torch.core.interact import InteractionPipeline
-from sheeprl_tpu_torch.core.mesh import SINGLE, DataAxis, all_mean_grads, all_mean_metrics, broadcast_tree, global_mean_std, local_batch_size, replicate_training
-from sheeprl_tpu_torch.core.onpolicy import encoder_keys, log_episodes, open_run
+from sheeprl_tpu_torch.core.mesh import SINGLE, DataAxis, all_mean_grads, all_mean_metrics, global_mean_std, local_batch_size, replicate_training
+from sheeprl_tpu_torch.core.onpolicy import encoder_keys, follow_updates, log_episodes, open_run, share_rollout
 from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
 from sheeprl_tpu_torch.core.onpolicy import make_optimizer as make_optimizer  # the JAX ppo.make_optimizer's counterpart
 from sheeprl_tpu_torch.core.rollout import bootstrap_truncated, fuse_gae_pool
 from sheeprl_tpu_torch.core.runtime import Runtime
-from sheeprl_tpu_torch.serve.spaces import spec_to_space
 from sheeprl_tpu_torch.registry import register_algorithm
-from sheeprl_tpu_torch.telemetry import open_for_run
 from sheeprl_tpu_torch.telemetry.cuda_events import transfer
 from sheeprl_tpu_torch.telemetry.health import ProbeTape, probe_keys, probes_enabled, tape_update
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
@@ -199,11 +197,7 @@ def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, axis
 
     def train_step(data, next_obs, indices, clip_coef, ent_coef) -> Metrics:
         if axis.joined:
-            tree = None if data is None else {**{f"data/{k}": v for k, v in data.items()}, **{f"next/{k}": v for k, v in next_obs.items()}, "indices": indices}
-            tree = broadcast_tree(tree, axis, device)
-            data = {k[5:]: v for k, v in tree.items() if k.startswith("data/")}
-            next_obs = {k[5:]: v for k, v in tree.items() if k.startswith("next/")}
-            indices = tree["indices"]
+            data, next_obs, indices = share_rollout(data, next_obs, indices, axis, device)
         with record_function("ppo/gae"):
             pool = fuse_gae_pool(agent, data, next_obs, (*obs_keys, "actions", "logprobs"), gamma, gae_lambda)
         return update_pool(pool, indices, clip_coef, ent_coef)
@@ -212,33 +206,8 @@ def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, axis
 
 
 def follow_ppo(cfg, runtime: Runtime) -> Dict[str, Any]:
-    """A rank other than 0 of a PPO run: the agent and optimizer built from
-    rank 0's spaces, their state (resumed or not) replicated from rank 0,
-    then its part of every update rank 0 names, at rank 0's learning rate
-    and coefficients, each under the rank's own step timer, until the stop.
-    Returns {}."""
-    device, axis = runtime.device, runtime.axis
-    spaces = runtime.expect("spaces")
-    agent = build_agent(
-        tuple(spaces["actions_dim"]), spaces["is_continuous"], cfg, spec_to_space(spaces["observation_space"]), precision=cfg.fabric.precision,
-        device=device, seed=cfg.seed,
-    )  # fmt: skip
-    optimizer, _ = make_optimizer(agent, cfg)
-    replicate_training(axis, [agent], [optimizer])
-    train_step = make_train_step(agent, optimizer, cfg, axis)
-    telemetry = open_for_run(cfg, None, device, rank_zero=False, data_parallel=True)
-    try:
-        for op, args in runtime.follow():
-            if op != "train":
-                raise RuntimeError(f"rank {runtime.global_rank}: PPO's followers take 'train', not {op!r}")
-            for group in optimizer.param_groups:
-                group["lr"] = args["lr"]
-            coefs = [torch.tensor(args[k], dtype=torch.float32, device=device) for k in ("clip_coef", "ent_coef")]
-            with train_timer(device):
-                train_step(None, None, None, *coefs)
-    finally:
-        telemetry.close()
-    return {}
+    """A rank other than 0 of a PPO run (:func:`follow_updates`). Returns {}."""
+    return follow_updates(cfg, runtime, build_agent, make_train_step, "PPO", inputs=3)
 
 
 def rollout_outputs(actions_dim, is_continuous: bool) -> Callable[[np.ndarray], tuple]:
@@ -399,7 +368,7 @@ def main(cfg, callback: Optional[Callable[[PPOAgent, int, Metrics], None]] = Non
             clip_coef = torch.tensor(cfg.algo.clip_coef, dtype=torch.float32, device=device)
             ent_coef = torch.tensor(cfg.algo.ent_coef, dtype=torch.float32, device=device)
             if joined:
-                runtime.lead("train", lr=optimizer.param_groups[0]["lr"], clip_coef=float(cfg.algo.clip_coef), ent_coef=float(cfg.algo.ent_coef))
+                runtime.lead("train", lr=optimizer.param_groups[0]["lr"], coefs=[float(cfg.algo.clip_coef), float(cfg.algo.ent_coef)])
             with perf.note("train/update", steps=indices.shape[0] * indices.shape[1]):
                 metrics = train_step(data, next_obs_t, indices, clip_coef, ent_coef)
         placement.push()

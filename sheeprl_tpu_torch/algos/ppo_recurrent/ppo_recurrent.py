@@ -31,6 +31,15 @@ the watchdog around the update's wait, and the health sentinels at each
 log point, which veto saves once a non-finite value is seen (no in-step
 probes, as in the JAX package).
 
+Over a data axis (``fabric.devices`` > 1, ``core/runtime.py``) rank 0 runs
+the loop and sends its sequences and the epochs' minibatch indices to the
+other ranks (:func:`~sheeprl_tpu_torch.core.onpolicy.follow_updates`);
+each rank takes its block of every minibatch's sequences (the JAX
+``seq_sharding``, ``P(data)``), with their ``hx0``/``cx0``, normalises the
+advantages with the minibatch's global mean and std, and means its
+gradients over the ranks before the clip (sums them with
+``loss_reduction=sum``), as are the losses.
+
 The rollout step, GAE with the sequences, and the update run under
 ``record_function`` spans (``ppo_recurrent/rollout_step``,
 ``ppo_recurrent/gae``, ``ppo_recurrent/update``).
@@ -45,16 +54,18 @@ import torch
 from torch.profiler import record_function
 
 from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_loss
-from sheeprl_tpu_torch.algos.ppo.ppo import METRIC_KEYS, _to_device, minibatch_indices
+from sheeprl_tpu_torch.algos.ppo.ppo import METRIC_KEYS, _to_device, minibatch_indices, normalize_global
 from sheeprl_tpu_torch.algos.ppo_recurrent.agent import RecurrentPPOAgent, build_agent
 from sheeprl_tpu_torch.algos.ppo_recurrent.utils import test
 from sheeprl_tpu_torch.core.interact import InteractionPipeline
-from sheeprl_tpu_torch.core.onpolicy import encoder_keys, log_episodes, open_run
+from sheeprl_tpu_torch.core.mesh import SINGLE, DataAxis, all_mean_grads, all_mean_metrics, local_batch_size, replicate_training
+from sheeprl_tpu_torch.core.onpolicy import encoder_keys, follow_updates, log_episodes, open_run, share_rollout
 from sheeprl_tpu_torch.core.player import PlayerPlacement, param_bytes
 from sheeprl_tpu_torch.core.rollout import bootstrap_truncated
+from sheeprl_tpu_torch.core.runtime import Runtime
 from sheeprl_tpu_torch.registry import register_algorithm
 from sheeprl_tpu_torch.utils.distribution import BatchGenerator
-from sheeprl_tpu_torch.utils.ops import gae, normalize_tensor
+from sheeprl_tpu_torch.utils.ops import gae
 from sheeprl_tpu_torch.utils.timer import timer, train_timer
 from sheeprl_tpu_torch.utils.utils import normalize_obs, prepare_obs
 
@@ -88,13 +99,15 @@ def make_sequences(rollout: Dict[str, torch.Tensor], sl: int, reset_on_done: boo
     return seq
 
 
-def make_train_step(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, cfg) -> Callable[..., Metrics]:
+def make_train_step(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, cfg, axis: DataAxis = SINGLE) -> Callable[..., Metrics]:
     """``train_step(data, indices, clip_coef, ent_coef) -> metrics``:
     ``data`` :func:`make_sequences`'s tensors (the observations, ``actions``,
     ``prev_actions``, ``logprobs``, ``values``, ``returns``,
     ``advantages``, ``prev_dones``, ``hx0``, ``cx0``), ``indices``
     ``[epochs, num_minibatches, minibatch]`` sequence indices, ``clip_coef``
-    and ``ent_coef`` 0-d f32 tensors on the data's device."""
+    and ``ent_coef`` 0-d f32 tensors on the data's device. Over a data
+    ``axis`` rank 0's sequences and indices reach every rank (the others
+    pass None), which keeps its block of each minibatch's sequences."""
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     obs_keys = cnn_keys + list(cfg.algo.mlp_keys.encoder)
     normalize_advantages = bool(cfg.algo.normalize_advantages)
@@ -103,6 +116,8 @@ def make_train_step(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, 
     vf_coef = float(cfg.algo.vf_coef)
     max_grad_norm = float(cfg.algo.max_grad_norm)
     params = list(agent.parameters())
+    op = "sum" if reduction == "sum" else "mean"
+    device = next(agent.parameters()).device
 
     def minibatch_step(batch: Dict[str, torch.Tensor], clip_coef: torch.Tensor, ent_coef: torch.Tensor) -> torch.Tensor:
         # sequence-major -> time-major
@@ -111,33 +126,40 @@ def make_train_step(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, 
         new_logprobs, entropy, new_values = agent.evaluate_sequence(
             obs, batch["prev_actions"], (batch["cx0"], batch["hx0"]), batch["prev_dones"], batch["actions"]
         )
-        advantages = normalize_tensor(batch["advantages"]) if normalize_advantages else batch["advantages"]
+        advantages = normalize_global(batch["advantages"], axis) if normalize_advantages else batch["advantages"]
         pg_loss = policy_loss(new_logprobs, batch["logprobs"], advantages, clip_coef, reduction)
         v_loss = value_loss(new_values, batch["values"], batch["returns"], clip_coef, clip_vloss, reduction)
         ent_loss = entropy_loss(entropy, reduction)
         optimizer.zero_grad(set_to_none=True)
         (pg_loss + vf_coef * v_loss + ent_coef * ent_loss).backward()
+        all_mean_grads(params, axis, op)
         if max_grad_norm > 0.0:
             torch.nn.utils.clip_grad_norm_(params, max_grad_norm)
         optimizer.step()
         return torch.stack([pg_loss, v_loss, ent_loss]).detach()
 
     def train_step(data: Dict[str, torch.Tensor], indices: torch.Tensor, clip_coef: torch.Tensor, ent_coef: torch.Tensor) -> Metrics:
+        if axis.joined:
+            data, _, indices = share_rollout(data, None, indices, axis, device)
         with record_function("ppo_recurrent/update"):
             epochs = []
             for epoch in indices:
-                per_mb = [minibatch_step({k: v[mb] for k, v in data.items()}, clip_coef, ent_coef) for mb in epoch]
+                per_mb = [minibatch_step({k: v[mb[axis.rows(len(mb))] if axis.joined else mb] for k, v in data.items()}, clip_coef, ent_coef)
+                          for mb in epoch]  # fmt: skip
                 epochs.append(torch.stack(per_mb).mean(0))
             means = torch.stack(epochs).mean(0)
-        return {k: means[i] for i, k in enumerate(METRIC_KEYS)}
+        return all_mean_metrics({k: means[i] for i, k in enumerate(METRIC_KEYS)}, axis, op)
 
     return train_step
 
 
 @register_algorithm()
-def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], None]] = None) -> Dict[str, Any]:
+def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], None]] = None, runtime: Optional[Runtime] = None) -> Dict[str, Any]:
     """Train recurrent PPO on ``cfg`` on ``cfg.device``. ``callback(agent,
-    iter_num, metrics)`` runs after every update.
+    iter_num, metrics)`` runs after every update. Over the ranks of a
+    ``runtime`` with a process group (``fabric.devices`` > 1) rank 0 runs
+    the loop and every rank takes its part of each update (a minibatch's
+    sequences divide by the ranks); the other ranks return {}.
 
     The run writes what PPO's does (``algos/ppo/ppo.py:main``): the same
     tags at the same steps, checkpoints with the JAX package's fields (its
@@ -158,7 +180,12 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
         raise ValueError(
             f"rollout_steps ({cfg.algo.rollout_steps}) must be a multiple of per_rank_sequence_length ({cfg.algo.per_rank_sequence_length})"
         )
-    run = open_run(cfg, build_agent, encoder_keys, METRIC_KEYS, batch_size_key="per_rank_num_batches")
+    if runtime is not None and not runtime.is_global_zero:
+        return follow_updates(cfg, runtime, build_agent, make_train_step, "Recurrent PPO", inputs=2)
+    joined = runtime is not None and runtime.joined
+    axis = runtime.axis if joined else SINGLE
+    run = open_run(cfg, build_agent, encoder_keys, METRIC_KEYS, batch_size_key="per_rank_num_batches", data_parallel=joined)
+    run.world_size = axis.size
     cfg, device, agent, envs, rb, log_points = run.cfg, run.device, run.agent, run.envs, run.rb, run.log_points
     cnn_keys, obs_keys, is_continuous, aggregator = run.cnn_keys, run.obs_keys, run.is_continuous, run.aggregator
     num_envs, rollout_steps, num_batches, policy_step = int(cfg.env.num_envs), int(cfg.algo.rollout_steps), run.batch_size, run.policy_step
@@ -166,7 +193,13 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
     initial_coefs = float(cfg.algo.clip_coef), float(cfg.algo.ent_coef)
     clip_rewards_fn = np.tanh if cfg.env.clip_rewards else (lambda r: r)
 
-    train_step = make_train_step(agent, run.optimizer, cfg)
+    n_sequences = rollout_steps // sl * num_envs
+    local_batch_size(max(1, n_sequences // num_batches), axis.size)  # raises unless a minibatch's sequences split over the ranks
+    if joined:
+        runtime.lead("spaces", actions_dim=tuple(run.actions_dim), is_continuous=is_continuous, observation_space=run.observation_space.to_spec())
+    replicate_training(axis, [agent], [run.optimizer])
+    # One rank calls the factory with the one-card signature, which wrappers of it take.
+    train_step = make_train_step(agent, run.optimizer, cfg, **({"axis": axis} if joined else {}))
     placement = PlayerPlacement.resolve(cfg, device, nbytes=param_bytes(agent), force_fresh=True)
     pipeline = InteractionPipeline.from_config(cfg)
     pipeline.watchdog = run.watchdog
@@ -175,7 +208,6 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
     perm_generator = torch.Generator(device=device).manual_seed(int(cfg.seed) + 1)
     action_shape = tuple(run.action_space.shape)
     n_actions, hidden = int(sum(run.actions_dim)), agent.rnn_hidden_size
-    n_sequences = rollout_steps // sl * num_envs
     loss_keys = (*obs_keys, "prev_actions", "actions", "logprobs", "values", "advantages", "returns")
     stored_keys = (*obs_keys, "actions", "logprobs", "rewards", "values", "dones", "prev_hx", "prev_cx", "prev_actions")
 
@@ -252,6 +284,8 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
             indices = minibatch_indices(n_sequences, max(1, n_sequences // num_batches), int(cfg.algo.update_epochs), perm_generator)
             clip_coef = torch.tensor(cfg.algo.clip_coef, dtype=torch.float32, device=device)
             ent_coef = torch.tensor(cfg.algo.ent_coef, dtype=torch.float32, device=device)
+            if joined:
+                runtime.lead("train", lr=run.optimizer.param_groups[0]["lr"], coefs=[float(cfg.algo.clip_coef), float(cfg.algo.ent_coef)])
             with perf.note("train/update", steps=indices.shape[0] * indices.shape[1]):
                 metrics = train_step(data, indices, clip_coef, ent_coef)
         placement.push()
@@ -265,4 +299,4 @@ def main(cfg, callback: Optional[Callable[[RecurrentPPOAgent, int, Metrics], Non
             break
 
     interaction = pipeline.publish()
-    return {**run.finish(test, policy_step), "interaction": interaction, "placement": placement.stats()}
+    return {**run.finish(test, policy_step), "interaction": interaction, "placement": placement.stats(), "world_size": axis.size}

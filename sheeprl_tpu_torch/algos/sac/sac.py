@@ -396,13 +396,15 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo, runtime: Optional[Runtime
     and the port's (the gradient steps, both noise sources, the envs, the
     pending observation, the spaces' specs for ``serve export``).
 
-    Over the ranks of a ``runtime`` with a process group (SAC at
-    ``fabric.devices`` > 1) rank 0 runs the loop and names each host train
-    call to the other ranks (:func:`follow_off_policy`), each of which takes
-    its block of every step's ``algo.per_rank_batch_size`` rows.
+    Over the ranks of a ``runtime`` with a process group (SAC, DroQ and
+    SAC-AE at ``fabric.devices`` > 1) rank 0 runs the loop and names each
+    host train call, with the gradient steps taken before it (SAC-AE's
+    cadences), to the other ranks (:func:`follow_off_policy`), each of which
+    takes its block of every step's ``algo.per_rank_batch_size`` rows.
 
     Returns {"agent", "optimizers", "policy_steps", "gradient_steps", "log",
-    "log_dir", "checkpoints", "test_reward", "device_buffer", "fused"}:
+    "log_dir", "checkpoints", "test_reward", "device_buffer", "fused",
+    "world_size"}:
     ``fused`` holds the ring path's gradient steps, warm-up steps, replays
     and graph nodes (None when it never ran)."""
     if runtime is not None and not runtime.is_global_zero:
@@ -550,7 +552,7 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo, runtime: Optional[Runtime
         else:
             key = f"train/host_x{per_rank_gradient_steps}{trainer.work_key(per_rank_gradient_steps, gradient_steps)}"
             if joined:
-                runtime.lead("train", steps=per_rank_gradient_steps, tau=tau)
+                runtime.lead("train", steps=per_rank_gradient_steps, tau=tau, first_step=gradient_steps)
             with perf.note(key, steps=per_rank_gradient_steps):
                 metrics = trainer.host(rb, per_rank_gradient_steps, tau, gradient_steps)
         gradient_steps += per_rank_gradient_steps
@@ -703,7 +705,7 @@ def run_off_policy(cfg, callback, algo: OffPolicyAlgo, runtime: Optional[Runtime
             "active": ring.active, "inactive_reason": ring.inactive_reason, "bytes": ring.ring_nbytes(), "capacity": ring.capacity,
         },
         "fused": None if fused is None else {"gradient_steps": fused_gradient_steps, **fused},
-        "interaction": interaction, "placement": placement.stats(), "fleet": fleet_stats,
+        "interaction": interaction, "placement": placement.stats(), "fleet": fleet_stats, "world_size": axis.size,
     }  # fmt: skip
 
 
@@ -728,7 +730,7 @@ def follow_off_policy(cfg, algo: OffPolicyAlgo, runtime: Runtime) -> Dict[str, A
         for op, args in runtime.follow():
             if op != "train":
                 raise RuntimeError(f"rank {runtime.global_rank}: {algo.name}'s followers take 'train', not {op!r}")
-            trainer.host(None, args["steps"], args["tau"])
+            trainer.host(None, args["steps"], args["tau"], args["first_step"])
     finally:
         telemetry.close()
     return {}

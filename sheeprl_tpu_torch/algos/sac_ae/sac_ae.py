@@ -38,7 +38,10 @@ rows, and the cadences read from the gradient steps taken before each call
 ``critic.per_rank_target_network_update_freq``,
 ``decoder.per_rank_update_freq``). SAC-AE has no ring path
 (``buffer.device``), no fused step and no serve module, as in the JAX
-package.
+package. Over a data axis (``fabric.devices`` > 1) each rank takes its block
+of every batch's rows and of the whole batch's draws, every stage means its
+gradients over the ranks (the encoder's under both of its Adams), and the
+EMAs and cadences are the same on every rank.
 """
 
 from __future__ import annotations
@@ -55,6 +58,8 @@ from sheeprl_tpu_torch.algos.sac.loss import critic_loss, entropy_loss, policy_l
 from sheeprl_tpu_torch.algos.sac.sac import Metrics, OffPolicyAlgo, _float_batch, draw_noise, run_off_policy
 from sheeprl_tpu_torch.algos.sac_ae.agent import SACAEAgent, build_agent
 from sheeprl_tpu_torch.algos.sac_ae.utils import normalize_pixels, prepare_obs, preprocess_obs, test
+from sheeprl_tpu_torch.core.mesh import SINGLE, DataAxis, all_mean_grads, all_mean_metrics, shard_batch
+from sheeprl_tpu_torch.core.runtime import Runtime
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.optim import build_optimizer
 from sheeprl_tpu_torch.registry import register_algorithm
@@ -81,12 +86,14 @@ def make_optimizers(agent: SACAEAgent, cfg) -> Dict[str, torch.optim.Optimizer]:
     }
 
 
-def _step(optimizers: List[torch.optim.Optimizer], loss: torch.Tensor) -> None:
-    """``loss``'s gradient into the parameters of ``optimizers`` only, and their steps."""
+def _step(optimizers: List[torch.optim.Optimizer], loss: torch.Tensor, axis: DataAxis = SINGLE) -> None:
+    """``loss``'s gradient into the parameters of ``optimizers`` only,
+    meaned over the data ``axis``'s ranks, and their steps."""
     params = [p for opt in optimizers for group in opt.param_groups for p in group["params"]]
     for opt in optimizers:
         opt.zero_grad(set_to_none=True)
     loss.backward(inputs=params)
+    all_mean_grads(params, axis)
     for opt in optimizers:
         opt.step()
 
@@ -96,7 +103,7 @@ def actor_features(agent: SACAEAgent, obs: Dict[str, torch.Tensor]) -> torch.Ten
     return agent.encoder(obs).detach()
 
 
-def make_train_step(agent: SACAEAgent, optimizers: Dict[str, torch.optim.Optimizer], cfg) -> Callable[..., Metrics]:
+def make_train_step(agent: SACAEAgent, optimizers: Dict[str, torch.optim.Optimizer], cfg, axis: DataAxis = SINGLE) -> Callable[..., Metrics]:
     """-> ``step(batch, normals, uniforms, update_actor, update_ema,
     update_decoder) -> metrics``: one gradient step on ``batch`` (the
     encoder's keys and their ``next_<key>``, pixels uint8, ``actions``,
@@ -104,7 +111,8 @@ def make_train_step(agent: SACAEAgent, optimizers: Dict[str, torch.optim.Optimiz
     A]`` and ``uniforms`` {pixel decoder key: ``[B, H, W, C]`` in [0, 1)}
     (read with ``update_decoder`` only); the metrics are the losses of the
     stages that ran (``value_loss``, ``policy_loss``, ``alpha_loss``,
-    ``reconstruction_loss``)."""
+    ``reconstruction_loss``). Over a data ``axis`` B is this rank's rows,
+    and the metrics are averaged over the ranks."""
     algo = cfg.algo
     gamma, l2_lambda = float(algo.gamma), float(algo.decoder.l2_lambda)
     cnn_keys, keys = list(algo.cnn_keys.encoder), list(algo.cnn_keys.encoder) + list(algo.mlp_keys.encoder)
@@ -120,7 +128,7 @@ def make_train_step(agent: SACAEAgent, optimizers: Dict[str, torch.optim.Optimiz
         # cuDNN's deterministic convolutions (TF32 off): the default weight-gradient
         # algorithms at these widths accumulate in an unfixed order, which would break a bit-for-bit resume.
         with torch.backends.cudnn.flags(enabled=True, benchmark=False, deterministic=True, allow_tf32=False):
-            return stages(batch, normals, uniforms, update_actor, update_ema, update_decoder)
+            return all_mean_metrics(stages(batch, normals, uniforms, update_actor, update_ema, update_decoder), axis)
 
     def stages(batch, normals, uniforms, update_actor, update_ema, update_decoder) -> Metrics:
         obs = normalize_pixels({k: batch[k] for k in keys}, cnn_keys)
@@ -128,7 +136,7 @@ def make_train_step(agent: SACAEAgent, optimizers: Dict[str, torch.optim.Optimiz
             next_obs = normalize_pixels({k: batch[f"next_{k}"] for k in keys}, cnn_keys)
             target = agent.next_target_q_values(next_obs, batch["rewards"], batch["terminated"], gamma, normals[0])
             qf_loss = critic_loss(agent.qfs(agent.encoder(obs), batch["actions"]), target, agent.num_critics)
-            _step([optimizers["qf"]], qf_loss)
+            _step([optimizers["qf"]], qf_loss, axis)
             metrics = {"value_loss": qf_loss.detach()}
             if update_ema:
                 agent.targets_ema_(tau, encoder_tau)
@@ -138,9 +146,9 @@ def make_train_step(agent: SACAEAgent, optimizers: Dict[str, torch.optim.Optimiz
                 alpha = agent.log_alpha.exp().detach()
                 actions, logprobs = agent.actions_and_log_probs(features, normals[1])
                 actor_loss = policy_loss(alpha, logprobs, q_min(features, actions))
-                _step([optimizers["actor"]], actor_loss)
+                _step([optimizers["actor"]], actor_loss, axis)
                 alpha_loss = entropy_loss(agent.log_alpha, logprobs, agent.target_entropy)
-                _step([optimizers["alpha"]], alpha_loss)
+                _step([optimizers["alpha"]], alpha_loss, axis)
                 metrics.update(policy_loss=actor_loss.detach(), alpha_loss=alpha_loss.detach())
         if update_decoder:
             with record_function("sac_ae/decoder"):
@@ -152,7 +160,7 @@ def make_train_step(agent: SACAEAgent, optimizers: Dict[str, torch.optim.Optimiz
                     target = preprocess_obs(batch[k], uniforms[k], RECONSTRUCTION_BITS) if k in cnn_dec else batch[k].reshape(rec.shape)
                     loss = loss + ((target - rec) ** 2).mean()
                 loss = loss + l2_lambda * 0.5 * (hidden**2).sum(-1).mean()
-                _step([optimizers["encoder"], optimizers["decoder"]], loss)
+                _step([optimizers["encoder"], optimizers["decoder"]], loss, axis)
                 metrics["reconstruction_loss"] = loss.detach()
         return metrics
 
@@ -170,11 +178,15 @@ def cadence(cfg, gradient_step: int) -> Tuple[bool, bool, bool]:
     return tuple(gradient_step % f == 0 for f in _freqs(cfg))
 
 
-def draw(rng: BatchGenerator, batch: Dict[str, torch.Tensor], action_dim: int, cfg, update_decoder: bool):
+def draw(rng: BatchGenerator, batch: Dict[str, torch.Tensor], action_dim: int, cfg, update_decoder: bool, axis: DataAxis = SINGLE):
     """One step's draws from ``rng``: the normals, then (with
-    ``update_decoder``) a uniform per pixel decoder key."""
-    normals = draw_noise(rng, batch["actions"].shape[0], action_dim)
-    uniforms = {k: rng.rand(tuple(batch[k].shape)) for k in cfg.algo.cnn_keys.decoder} if update_decoder else None
+    ``update_decoder``) a uniform per pixel decoder key. Over a data
+    ``axis`` they are drawn for every rank's rows, and this rank's
+    ``batch`` rows kept."""
+    n = batch["actions"].shape[0]
+    rows = axis.rows(n * axis.size) if axis.joined else slice(None)
+    normals = draw_noise(rng, n * axis.size, action_dim)[:, rows]
+    uniforms = {k: rng.rand((n * axis.size, *batch[k].shape[1:]))[rows] for k in cfg.algo.cnn_keys.decoder} if update_decoder else None
     return normals, uniforms
 
 
@@ -185,25 +197,31 @@ class SACAETrainer:
 
     watchdog = None
 
-    def __init__(self, agent: SACAEAgent, optimizers: Dict[str, torch.optim.Optimizer], cfg, rng: BatchGenerator):
-        self.agent, self.cfg, self.rng = agent, cfg, rng
+    def __init__(self, agent: SACAEAgent, optimizers: Dict[str, torch.optim.Optimizer], cfg, rng: BatchGenerator, axis: DataAxis = SINGLE):
+        self.agent, self.cfg, self.rng, self.axis = agent, cfg, rng, axis
         self.batch_size = int(cfg.algo.per_rank_batch_size)
         self.sample_next_obs = bool(cfg.buffer.sample_next_obs)
         self.pixels = [*cfg.algo.cnn_keys.encoder, *(f"next_{k}" for k in cfg.algo.cnn_keys.encoder)]
-        self.step = make_train_step(agent, optimizers, cfg)
+        self.step = make_train_step(agent, optimizers, cfg, axis)
 
-    def host(self, rb: ReplayBuffer, steps: int, tau: float, first_step: int = 0) -> List[Metrics]:
+    def host(self, rb: Optional[ReplayBuffer], steps: int, tau: float, first_step: int = 0) -> List[Metrics]:
         """``steps`` gradient steps on one sample of ``steps`` x B rows, the
-        cadences from ``first_step``, the steps taken before."""
+        cadences from ``first_step``, the steps taken before. Over a data
+        axis rank 0 samples (the other ranks pass no ``rb``) and every rank
+        keeps its block of each step's B rows."""
         device = self.agent.log_alpha.device
-        sample = rb.sample(steps * self.batch_size, sample_next_obs=self.sample_next_obs)
-        data = _float_batch(sample, steps, self.batch_size, device, keep=self.pixels)
+        data = None
+        if rb is not None:
+            sample = rb.sample(steps * self.batch_size, sample_next_obs=self.sample_next_obs)
+            data = _float_batch(sample, steps, self.batch_size, device, keep=self.pixels)
         out = []
         with train_timer(device, self.watchdog):
+            if self.axis.joined:
+                data = shard_batch(data, self.axis, dim=1, device=device)
             for i in range(steps):
                 batch = {k: v[i] for k, v in data.items()}
                 flags = cadence(self.cfg, first_step + i)
-                normals, uniforms = draw(self.rng, batch, self.agent.action_dim, self.cfg, flags[2])
+                normals, uniforms = draw(self.rng, batch, self.agent.action_dim, self.cfg, flags[2], self.axis)
                 out.append(self.step(batch, normals, uniforms, *flags))
         return out
 
@@ -264,8 +282,8 @@ SAC_AE = OffPolicyAlgo(
 
 
 @register_algorithm()
-def main(cfg, callback: Optional[Callable[[SACAEAgent, int, List[Metrics]], None]] = None) -> Dict[str, Any]:
-    """Train SAC-AE on ``cfg`` on ``cfg.device`` (:func:`run_off_policy`)."""
+def main(cfg, callback: Optional[Callable[[SACAEAgent, int, List[Metrics]], None]] = None, runtime: Optional[Runtime] = None) -> Dict[str, Any]:
+    """Train SAC-AE on ``cfg`` on ``cfg.device`` (:func:`run_off_policy`, over ``runtime``'s ranks)."""
     if "minedojo" in str(cfg.env.wrapper.get("_target_", "")).lower():
         raise ValueError(
             "MineDojo is not currently supported by SAC-AE agent, since it does not take into consideration the action masks provided by "
@@ -274,4 +292,4 @@ def main(cfg, callback: Optional[Callable[[SACAEAgent, int, List[Metrics]], None
     if cfg.buffer.get("device", False):
         raise ValueError("SAC-AE has no ring path: set buffer.device=False (the JAX package's SAC-AE has no device buffer either)")
     cfg.env.screen_size = 64  # cannot be changed (sac_ae.py:193)
-    return run_off_policy(cfg, callback, SAC_AE)
+    return run_off_policy(cfg, callback, SAC_AE, runtime)

@@ -15,7 +15,8 @@ preemption guard (on by default), the env supervisor, the watchdog and
 fault injection (``core/resilience.py``, ``core/chaos.py``);
 ``checkpoint.resume_from=auto[:<dir>]`` resumes from a preempted run's
 ``autoresume.json`` or the newest valid checkpoint under ``<dir>`` (the
-working directory by default). The config is composed from the port's tree
+working directory by default); ``fabric.devices=N`` trains over N ranks
+(:data:`DATA_PARALLEL`, ``core/runtime.py``). The config is composed from the port's tree
 (:mod:`sheeprl_tpu_torch.config`, ``sheeprl_tpu_torch/configs/``): any exp
 there composes (``ppo``, ``ppo_atari``, ``a2c``, ``ppo_recurrent``, ``sac``, ``droq``,
 ``sac_ae``, ``dreamer_v3_100k_ms_pacman``, ``dreamer_v3_dmc_walker_walk``,
@@ -116,38 +117,43 @@ def run(args: Optional[Sequence[str]] = None, callback=None) -> Dict[str, Any]:
     # them through its loop.
     try:
         with run_scope(Telemetry.from_config(cfg)), resilience_scope(Resilience.from_config(cfg), HealthMonitor.from_config(cfg)):
-            if entry.after_exploration:
-                return entry.entrypoint(cfg, callback=callback, exploration_cfg=exploration_chain(cfg))
+            # A P2E finetuning run reads its exploration run's config here
+            # (rank 0) and sends it to the other ranks with its own.
+            extra = {"exploration_cfg": exploration_chain(cfg)} if entry.after_exploration else {}
             if runtime.world_size == 1:
-                return entry.entrypoint(cfg, callback=callback)
+                return entry.entrypoint(cfg, callback=callback, **extra)
             # Rank 0 here, the other ranks spawned (core/runtime.py): each
             # runs the trainer's follower side on the config rank 0 composed.
             return runtime.launch(
-                lambda rt: entry.entrypoint(cfg, callback=callback, runtime=rt), follow, (json.loads(json.dumps(cfg)), num_threads),
-                store_dir=os.path.join(cfg.log_root, cfg.root_dir),
-            )
+                lambda rt: entry.entrypoint(cfg, callback=callback, runtime=rt, **extra), follow,
+                (json.loads(json.dumps(cfg)), num_threads, json.loads(json.dumps(extra))), store_dir=os.path.join(cfg.log_root, cfg.root_dir),
+            )  # fmt: skip
     finally:
         torch.set_num_threads(previous_threads)
         if set_omp:
             os.environ.pop("OMP_NUM_THREADS", None)
 
 
-# The trainers that run over more than one rank (fabric.devices > 1).
-DATA_PARALLEL = ("dreamer_v3", "ppo", "sac")
+# The trainers that run over more than one rank (fabric.devices > 1): every
+# registered one but the decoupled two, which split the devices themselves.
+DATA_PARALLEL = (
+    "a2c", "dreamer_v1", "dreamer_v2", "dreamer_v3", "droq", "p2e_dv1_exploration", "p2e_dv1_finetuning", "p2e_dv2_exploration",
+    "p2e_dv2_finetuning", "p2e_dv3_exploration", "p2e_dv3_finetuning", "ppo", "ppo_recurrent", "sac", "sac_ae",
+)  # fmt: skip
 
 
 def check_data_parallel(cfg, runtime: Runtime) -> None:
-    """``fabric.devices`` > 1 runs the data axis for DreamerV3, PPO and SAC
-    on their host loops; every other trainer, the fused Anakin lane
+    """``fabric.devices`` > 1 runs the data axis for every trainer of
+    :data:`DATA_PARALLEL` on its host loop; the fused Anakin lane
     (``fabric.shard_superstep``) and the replay ring (``buffer.device``,
-    whose ring the JAX package shards over envs) raise, naming ROADMAP A9."""
+    whose ring the JAX package shards over envs) raise, naming ROADMAP A9
+    (the decoupled trainers raise in ``core/mesh.py:split_player_trainer``)."""
     if runtime.world_size == 1:
         return
     n = runtime.world_size
     if cfg.algo.name not in DATA_PARALLEL:
         raise NotImplementedError(
-            f"fabric.devices={n}: {cfg.algo.name} over more than one rank is ROADMAP A9 (the trainers that raise for devices > 1); "
-            f"the data axis runs {', '.join(DATA_PARALLEL)}"
+            f"fabric.devices={n}: {cfg.algo.name} has no data-parallel path (ROADMAP A9); the data axis runs {', '.join(DATA_PARALLEL)}"
         )
     if bool(cfg.algo.get("fused_rollout", False)):
         raise NotImplementedError(f"fabric.devices={n}: the fused Anakin lane sharded over envs (fabric.shard_superstep) is ROADMAP A9")
@@ -155,13 +161,16 @@ def check_data_parallel(cfg, runtime: Runtime) -> None:
         raise NotImplementedError(f"fabric.devices={n}: the replay ring (buffer.device=True) sharded over envs is ROADMAP A9")
 
 
-def follow(runtime: Runtime, cfg: Dict[str, Any], num_threads: int) -> None:
+def follow(runtime: Runtime, cfg: Dict[str, Any], num_threads: int, extra: Optional[Dict[str, Any]] = None) -> None:
     """A spawned rank of :func:`run`: the trainer ``cfg.algo.name``
-    registers, on its follower side, with ``num_threads`` torch threads."""
+    registers, on its follower side, with ``num_threads`` torch threads and
+    rank 0's ``extra`` arguments (a P2E finetuning run's
+    ``exploration_cfg``)."""
     register_all()
     torch.set_num_threads(int(num_threads))
     cfg = dotdict(cfg)
-    algorithm_registry[cfg.algo.name].entrypoint(cfg, runtime=runtime)
+    extra = {k: dotdict(v) if isinstance(v, dict) else v for k, v in (extra or {}).items()}
+    algorithm_registry[cfg.algo.name].entrypoint(cfg, runtime=runtime, **extra)
 
 
 def resolve_auto(cfg) -> None:

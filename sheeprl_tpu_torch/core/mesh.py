@@ -17,8 +17,11 @@ process group (NCCL on the cards, gloo on the CPU; ``core/runtime.py``):
   ``all_reduce`` of a flat bucket per dtype divided by N, between
   ``backward`` and the clip, so a global-norm clip sees the global gradient
   as optax's does;
-- :func:`all_gather` (rank order), :func:`all_mean`, :func:`global_mean_std`
-  and :func:`broadcast_object`.
+- :func:`all_gather` (rank order), :func:`all_mean`, :func:`global_mean`,
+  :func:`global_mean_std` and :func:`broadcast_object`;
+- :func:`tensor_leaves` and :func:`optimizer_leaves`: the tensors of a
+  nested dict (P2E-DV3's moments) and the optimizers of one (its
+  exploration critics' Adams), for :func:`replicate_training`.
 
 Every helper is built on ``broadcast``, ``all_reduce`` and ``all_gather``,
 which both NCCL and gloo take for CUDA tensors on the card's torch; none
@@ -187,6 +190,20 @@ def replicate_training(axis: DataAxis, modules: Iterable[torch.nn.Module], optim
         replicate_generator(generator, axis)
 
 
+def tensor_leaves(tree: Any) -> List[torch.Tensor]:
+    """The tensors of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree) for t in tensor_leaves(tree[k])]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
+def optimizer_leaves(tree: Any) -> List[torch.optim.Optimizer]:
+    """The optimizers of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return [o for k in sorted(tree) for o in optimizer_leaves(tree[k])]
+    return [tree] if isinstance(tree, torch.optim.Optimizer) else []
+
+
 def _params(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
     return [p for group in optimizer.param_groups for p in group["params"]]
 
@@ -300,6 +317,19 @@ def all_mean_metrics(metrics: Dict[str, torch.Tensor], axis: DataAxis, op: str =
     keys = list(metrics)
     mean = all_mean(torch.stack([metrics[k].detach().float() for k in keys]), axis, op)
     return {k: mean[i] for i, k in enumerate(keys)}
+
+
+def global_mean(x: torch.Tensor, axis: DataAxis) -> torch.Tensor:
+    """``x.mean()`` over every rank's rows (each rank holding as many): in
+    value the global mean, in gradient this rank's own mean, which
+    :func:`all_mean_grads` then makes the global mean's. A loss that takes a
+    nonlinear function of a batch mean (DreamerV1's and DreamerV2's KL
+    floored at the free nats after the mean) evaluates it there, as the JAX
+    step does on its sharded batch. On one rank, ``x.mean()``."""
+    local = x.mean()
+    if not axis.joined:
+        return local
+    return local + (all_mean(local.detach(), axis) - local).detach()
 
 
 def global_mean_std(x: torch.Tensor, axis: DataAxis) -> Tuple[torch.Tensor, torch.Tensor]:

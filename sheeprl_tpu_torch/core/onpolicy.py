@@ -27,6 +27,10 @@ around their rollout and update; the JAX package writes it in each
   :meth:`OnPolicyRun.preempted` ends the loop), ``watchdog`` (armed by the
   train call's wait) and ``health`` (the sentinels at each log point and
   the veto on every save).
+- :func:`share_rollout` and :func:`follow_updates`: over a data axis
+  (``fabric.devices`` > 1) rank 0's rollout, observation after it and
+  minibatch indices reach every rank, and the other ranks' side of each
+  update rank 0 names.
 """
 
 from __future__ import annotations
@@ -41,18 +45,66 @@ import torch
 
 from sheeprl_tpu_torch.algos.ppo.agent import actions_metadata
 from sheeprl_tpu_torch.core.device import resolve_device
+from sheeprl_tpu_torch.core.mesh import DataAxis, broadcast_tree, replicate_training
 from sheeprl_tpu_torch.core.resilience import DispatchWatchdog, PreemptionGuard, drain_device, exit_on_preemption, open_loop
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.utils.env import check_env_group, make_vector_env
 from sheeprl_tpu_torch.optim import build_optimizer, load_optimizer_state
-from sheeprl_tpu_torch.serve.spaces import DictSpace
+from sheeprl_tpu_torch.serve.spaces import DictSpace, spec_to_space
 from sheeprl_tpu_torch.telemetry import Telemetry, open_for_run
 from sheeprl_tpu_torch.telemetry.health import HealthMonitor
 from sheeprl_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, build_aggregator, fetch_metrics
-from sheeprl_tpu_torch.utils.timer import timer
+from sheeprl_tpu_torch.utils.timer import timer, train_timer
 from sheeprl_tpu_torch.utils.utils import polynomial_decay, save_configs
+
+
+def share_rollout(
+    data: Optional[Dict[str, torch.Tensor]], next_obs: Optional[Dict[str, torch.Tensor]], indices: Optional[torch.Tensor], axis: DataAxis,
+    device: torch.device,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], torch.Tensor]:  # fmt: skip
+    """Rank 0's rollout tensors, the observation after them (None for
+    recurrent PPO's sequences) and the minibatch indices on every rank (the
+    other ranks pass None for the three): one :func:`broadcast_tree`."""
+    tree = None
+    if data is not None:
+        tree = {**{f"data/{k}": v for k, v in data.items()}, **{f"next/{k}": v for k, v in (next_obs or {}).items()}, "indices": indices}
+    tree = broadcast_tree(tree, axis, device)
+    data = {k[5:]: v for k, v in tree.items() if k.startswith("data/")}
+    next_obs = {k[5:]: v for k, v in tree.items() if k.startswith("next/")}
+    return data, next_obs, tree["indices"]
+
+
+def follow_updates(cfg, runtime, build_agent: Callable[..., torch.nn.Module], make_train_step: Callable[..., Callable], name: str, inputs: int) -> Dict[str, Any]:
+    """A rank other than 0 of an on-policy run (PPO, A2C, recurrent PPO):
+    the agent and optimizer built from rank 0's spaces, their state (resumed
+    or not) replicated from rank 0, then its part of every update rank 0
+    names, at rank 0's learning rate and coefficients (``train_step(None x
+    inputs, *coefs)``: the data come from rank 0), each under the rank's
+    own step timer, until the stop. Returns {}."""
+    device, axis = runtime.device, runtime.axis
+    spaces = runtime.expect("spaces")
+    agent = build_agent(
+        tuple(spaces["actions_dim"]), spaces["is_continuous"], cfg, spec_to_space(spaces["observation_space"]), precision=cfg.fabric.precision,
+        device=device, seed=cfg.seed,
+    )  # fmt: skip
+    optimizer, _ = make_optimizer(agent, cfg)
+    replicate_training(axis, [agent], [optimizer])
+    train_step = make_train_step(agent, optimizer, cfg, axis)
+    telemetry = open_for_run(cfg, None, device, rank_zero=False, data_parallel=True)
+    try:
+        for op, args in runtime.follow():
+            if op != "train":
+                raise RuntimeError(f"rank {runtime.global_rank}: {name}'s followers take 'train', not {op!r}")
+            for group in optimizer.param_groups:
+                group["lr"] = args["lr"]
+            coefs = [torch.tensor(c, dtype=torch.float32, device=device) for c in args["coefs"]]
+            with train_timer(device):
+                train_step(*[None] * inputs, *coefs)
+    finally:
+        telemetry.close()
+    return {}
 
 
 def warn_unaligned(cfg, policy_steps_per_iter: int) -> None:

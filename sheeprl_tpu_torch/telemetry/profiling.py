@@ -62,7 +62,10 @@ def profiled(fn: Callable[[], Any], activities: Iterable[str] = ("cuda",), captu
             launch_markers()
             fn()
             torch.cuda.synchronize()
-        markers = sum(1 for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA and MARKER_KERNEL in e.name)
+        # Counted on the raw kineto events: prof.events() builds the whole
+        # Python event tree, which a caller that reads the raw events skips.
+        cuda = torch.autograd.DeviceType.CUDA
+        markers = sum(1 for e in prof.profiler.kineto_results.events() if e.device_type() == cuda and MARKER_KERNEL in e.name())
         if markers < PROFILE_MARKERS:
             log(f"profile: capture {capture} of {captures} lost its first {PROFILE_MARKERS - markers} device records "
                 f"({markers} of {PROFILE_MARKERS} markers recorded){'' if markers else '; taken again'}")  # fmt: skip

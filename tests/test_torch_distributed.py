@@ -199,14 +199,14 @@ TINY_SAC = ["env=dummy", "env.id=continuous_dummy", "device=cpu", "algo.per_rank
 @pytest.mark.parametrize(
     "args, match",
     [
-        (["exp=droq", *TINY_SAC], "droq over more than one rank is ROADMAP A9"),
-        (["exp=a2c", "env=dummy", "device=cpu", "fabric.devices=2"], "a2c over more than one rank is ROADMAP A9"),
-        (["exp=p2e_dv3_exploration", "env=dummy", "device=cpu", "fabric.devices=2"], "p2e_dv3_exploration over more than one rank is ROADMAP A9"),
+        (["exp=droq", *TINY_SAC, "buffer.device=True"], "replay ring .* is ROADMAP A9"),
+        (["exp=sac_anakin", "device=cpu", "fabric.devices=2"], "fused Anakin lane .* is ROADMAP A9"),
+        (["exp=p2e_dv3_exploration", "env=dummy", "device=cpu", "fabric.devices=2", "fabric.model_axis=2"], "A9 \\(the model axis\\)"),
         (["exp=sac", *TINY_SAC, "buffer.device=True"], "replay ring .* is ROADMAP A9"),
         (["exp=ppo_anakin", "device=cpu", "fabric.devices=2"], "fused Anakin lane .* is ROADMAP A9"),
         (["exp=dreamer_v3", "env=dummy", "device=cpu", "fabric.devices=2", "fabric.accelerator=cuda"], "disagree"),
     ],
-    ids=["droq", "a2c", "p2e_dv3", "ring", "anakin", "device-vs-accelerator"],
+    ids=["droq-ring", "sac-anakin", "p2e_dv3-model-axis", "ring", "anakin", "device-vs-accelerator"],
 )
 def test_what_the_data_axis_does_not_carry_raises(tmp_path, args, match):
     with pytest.raises((NotImplementedError, ValueError), match=match):
